@@ -9,28 +9,36 @@ no network. Phases, each fatal on failure:
    limit (nvidia-smi);
 2. build: nvcc and g++ start together on the sources in the checkout;
 3. main path at the full width of configs/model/rdeic.yaml (random weights
-   from --seed): a synthetic 768x512 image is coded to a stream file,
-   decoded back, relay-sampled in 2 DDPM steps and decoded by the VAE. It
-   runs once to warm up (Triton compiles, cuDNN plans), then once with every
-   kernel's launch count set to 0, timed per stage. Checks: the stream is the
-   same both times; the decoded (c_latent, guide_hint) equal the encoder's
-   synthesis bit for bit; the image is 512x768x3 and finite; each kernel ran
-   as often as the model's structure says;
+   from --seed): the CLI's per-image `rdeic_torch.inference.process` codes a
+   synthetic 768x512 image to a stream file, decodes it back, relay-samples
+   it in 2 DDPM steps and decodes it with the VAE. It runs once to warm up
+   (Triton compiles, cuDNN plans), then once, timed, with every kernel's
+   launch count set to 0. A third, uncounted run makes the same three
+   pipeline calls one by one, timed per stage. Checks: the stream is the
+   same every time; process() gives the same image both times, equal to the
+   staged run's; the staged image is 512x768x3 and finite; the decoded
+   (c_latent, guide_hint) equal the encoder's synthesis bit for bit; each
+   kernel ran as often as the model's structure says;
 4. reference on a small input: a 256x256 image through the same weights,
    once on the card (kernels) and once on the CPU (plain versions), from the
    same latents and noise;
 5. kernels against their plain versions at every main-path shape, with the
-   kernel, plain and library times (CUDA events) and the bound of each.
+   kernel, plain and library times (CUDA events) and the bound of each. Each
+   comparison also reads a planted fault (the kernel's output scaled by
+   1.05) and fails if that reading is within the limit.
 
 The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
-`bound_ms` and `library_ms` of a kernel are summed over its launches in one
-main-path run (per image); `shapes` has the per-launch numbers.
+`bound_ms` and `library_ms` of a kernel are summed over its calls in one
+main-path run (per image); `shapes` has the per-call numbers. `launches`
+counts kernel launches: one per flash call, two per GroupNorm call (stats,
+then apply).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -42,11 +50,13 @@ import torch
 import torch.nn.functional as F
 
 from rdeic_torch import build
+from rdeic_torch.inference import process
 from rdeic_torch.models.blocks import GroupNorm32
 from rdeic_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from rdeic_torch.ops.fused_groupnorm import group_norm, group_norm_plain
 from rdeic_torch.pipeline.rdeic import RDEIC
 from rdeic_torch.utils.backend import resolve_device
+from rdeic_torch.utils.image import to_uint8
 
 # configs/model/rdeic.yaml `params` (the card's machine has no yaml module;
 # tests/test_torch_port_isolation.py holds this dict equal to the file)
@@ -100,9 +110,7 @@ STEPS = 2
 # H100 SXM data-sheet peaks (NVIDIA; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# max |kernel - plain| allowed: fp32 sums in another order; bf16 adds one
-# output rounding (values O(1), bf16 ulp 2^-7)
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FAULT_SCALE = 1.05  # a planted output-scale error each check must see
 GN_TOL = 1e-4  # fp32 GroupNorm outputs up to ~15 after scale and bias
 FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
                 (1, 1536, 10, 64), (1, 1536, 8, 16)]
@@ -175,18 +183,24 @@ def reset_counters():
         fn.shapes = {}
 
 
-def run_main_path(model, img01, stream: Path, seed: int):
-    """One image through the user entry points; returns outputs and ms."""
+def run_process(model, img01, stream: Path, seed: int):
+    """One image through the CLI's per-image function; (uint8 image, bpp)."""
+    gen = torch.Generator(device=img01.device).manual_seed(seed)
+    return process(model, img01, STEPS, str(stream), gen)
+
+
+def run_stages(model, img01, stream: Path, seed: int):
+    """The three pipeline calls process() makes, timed one by one."""
     h, w = img01.shape[1:3]
     gen = torch.Generator(device=img01.device).manual_seed(seed)
-    bpp, t_c = host_ms(lambda: model.apply_condition_compress(img01, stream, h, w))
+    _, t_c = host_ms(lambda: model.apply_condition_compress(img01, stream, h, w))
     (c_latent, guide_hint), t_d = host_ms(
         lambda: model.apply_condition_decompress(stream))
     out, t_s = host_ms(lambda: model.decode_pipeline(
         c_latent, guide_hint, STEPS, generator=gen))
     ms = {"encode_and_compress": t_c, "decompress": t_d,
           "relay_sample_and_vae_decode": t_s}
-    return bpp, c_latent, guide_hint, out, ms
+    return c_latent, guide_hint, out, ms
 
 
 def phase_main_path(model, device, seed: int) -> dict:
@@ -195,22 +209,28 @@ def phase_main_path(model, device, seed: int) -> dict:
         rng.uniform(size=(1, *IMAGE_HW, 3)).astype(np.float32)).to(device)
     with tempfile.TemporaryDirectory() as tmp:
         stream = Path(tmp) / "image.rdeic"
-        _, _, _, _, warm_ms = run_main_path(model, img01, stream, seed)
-        first_bytes = stream.read_bytes()
+        (warm_img, _), warm_ms = host_ms(
+            lambda: run_process(model, img01, stream, seed))
+        streams = [stream.read_bytes()]
         reset_counters()
-        bpp, c_latent, guide_hint, out, ms = run_main_path(
-            model, img01, stream, seed)
+        (img, bpp), ms = host_ms(lambda: run_process(model, img01, stream, seed))
         launches = {"flash_attn_fwd": flash_attention.launches,
                     "group_norm_silu_fwd": group_norm.launches}
         shapes = {"flash_attn_fwd": dict(flash_attention.shapes),
                   "group_norm_silu_fwd": dict(group_norm.shapes)}
-        stream_bytes = stream.read_bytes()
-    log(f"[main] warm-up run ms: {json.dumps(warm_ms)}")
-    log(f"[main] image {IMAGE_HW[1]}x{IMAGE_HW[0]}: {len(stream_bytes)} bytes, "
-        f"bpp={bpp:.5f}; stage ms: {json.dumps(ms)}")
+        streams.append(stream.read_bytes())
+        c_latent, guide_hint, out, stage_ms = run_stages(
+            model, img01, stream, seed)
+        streams.append(stream.read_bytes())
+    log(f"[main] warm-up process() {warm_ms:.1f} ms")
+    log(f"[main] image {IMAGE_HW[1]}x{IMAGE_HW[0]}: {len(streams[0])} bytes, "
+        f"bpp={bpp:.5f}; process() {ms:.1f} ms; "
+        f"stage ms: {json.dumps(stage_ms)}")
     log(f"[main] launches: {json.dumps(launches)}")
-    if stream_bytes != first_bytes:
-        raise AssertionError("the same image coded to two different streams")
+    if any(b != streams[0] for b in streams):
+        raise AssertionError("the same image coded to different streams")
+    if not np.array_equal(img, warm_img):
+        raise AssertionError("process() gave two different images")
     # the encoder's own synthesis of the decoded slices, from the same feature
     with torch.no_grad():
         _, feature = model.encode_first_stage(img01 * 2 - 1)
@@ -220,14 +240,18 @@ def phase_main_path(model, device, seed: int) -> dict:
         raise AssertionError("decoded latents differ from the encoder's")
     if tuple(out.shape) != (1, *IMAGE_HW, 3) or not torch.isfinite(out).all():
         raise AssertionError(f"bad output {tuple(out.shape)}")
+    if not np.array_equal(img, to_uint8(out[0].cpu().numpy())):
+        raise AssertionError("process() and the staged calls disagree")
     n_gn = sum(isinstance(m, GroupNorm32) for m in model.denoiser.modules())
     # 14 self-attentions over >= 1024 tokens per denoiser call at 768x512
-    # (UNet 5 + 5, control 2 + 2), plus the two VAE mid-blocks
+    # (UNet 5 + 5, control 2 + 2), plus the two VAE mid-blocks; two launches
+    # per GroupNorm32 call
     want = {"flash_attn_fwd": 14 * STEPS + 2,
-            "group_norm_silu_fwd": n_gn * STEPS}
+            "group_norm_silu_fwd": 2 * n_gn * STEPS}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
-    return {"bpp": bpp, "ms": ms, "launches": launches, "shapes": shapes}
+    return {"bpp": bpp, "ms": ms, "stage_ms": stage_ms, "launches": launches,
+            "shapes": shapes}
 
 
 def phase_reference(model, device, seed: int):
@@ -273,17 +297,39 @@ def _bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def compare(name, got, want, tol) -> dict:
+    """max |got - want| against `tol`, and the reading of a planted fault
+    (got scaled by FAULT_SCALE), which must exceed `tol`."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    fault = (got * FAULT_SCALE - want).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{name}: max|diff| {err} > {tol}")
+    if not fault > tol:
+        raise AssertionError(f"{name}: a x{FAULT_SCALE} fault reads {fault}, "
+                             f"within the limit {tol}")
+    return {"max_abs_err": err, "tol": tol, "fault_err": fault}
+
+
+def flash_tol(dtype, want: torch.Tensor) -> float:
+    """fp32: kernel and plain both sum in fp32, in other orders. bf16: their
+    fp32 results, ~1e-6 apart, each round to bf16 (8 significant bits), so
+    they differ by at most one bf16 ulp of max|plain|; the limit is two."""
+    if dtype == torch.float32:
+        return 2e-5
+    return 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7 + 1)
+
+
 def check_flash(device, shape, dtype, reps):
     q, k, v = (_randn(shape, dtype, device, s) for s in range(3))
-    err = (flash_attention(q, k, v).float()
-           - flash_attention_plain(q, k, v).float()).abs().max().item()
-    if not err <= TOL[dtype]:
-        raise AssertionError(f"flash {shape} {dtype}: max|diff| {err}")
+    want = flash_attention_plain(q, k, v)
+    r = compare(f"flash {shape} {dtype}", flash_attention(q, k, v), want,
+                flash_tol(dtype, want))
     b, seq, h, d = shape
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     bound, by = _bound_ms(4 * q.numel() * q.element_size(),
                           4.0 * b * h * seq * seq * d, dtype)
-    return {"max_abs_err": err, "tol": TOL[dtype], "bound_ms": bound,
+    return {**r, "bound_ms": bound,
             "bound_by": by, "ms": cuda_ms(lambda: flash_attention(q, k, v), reps),
             "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2),
             "library_ms": cuda_ms(
@@ -295,14 +341,11 @@ def check_groupnorm(device, key, reps):
     dtype = getattr(torch, dtype)
     x = _randn((b, c, h, w), dtype, device, 0) * 3 + 1
     wt, bs = (_randn((c,), torch.float32, device, s) for s in (1, 2))
-    err = 0.0
-    for e in (1e-5, 1e-6):  # both eps and both SiLU settings at every shape
-        for s in (False, True):
-            got = group_norm(x, wt, bs, groups, e, s).float()
-            want = group_norm_plain(x, wt, bs, groups, e, s).float()
-            err = max(err, (got - want).abs().max().item())
-    if not err <= GN_TOL:
-        raise AssertionError(f"group_norm {key}: max|diff| {err}")
+    reads = [compare(f"group_norm {key} eps={e} silu={s}",
+                     group_norm(x, wt, bs, groups, e, s),
+                     group_norm_plain(x, wt, bs, groups, e, s), GN_TOL)
+             for e in (1e-5, 1e-6)  # both eps and both SiLU settings
+             for s in (False, True)]
     bound, by = _bound_ms(2 * x.numel() * x.element_size() + 2 * c * 4,
                           10.0 * x.numel(), dtype)
 
@@ -310,8 +353,9 @@ def check_groupnorm(device, key, reps):
         y = F.group_norm(x, groups, wt, bs, eps)
         return F.silu(y) if silu else y
 
-    return {"max_abs_err": err, "tol": GN_TOL, "bound_ms": bound,
-            "bound_by": by,
+    return {"max_abs_err": max(r["max_abs_err"] for r in reads), "tol": GN_TOL,
+            "fault_err": min(r["fault_err"] for r in reads),
+            "bound_ms": bound, "bound_by": by,
             "ms": cuda_ms(lambda: group_norm(x, wt, bs, groups, eps, silu), reps),
             "plain_ms": cuda_ms(
                 lambda: group_norm_plain(x, wt, bs, groups, eps, silu), reps),
@@ -319,10 +363,10 @@ def check_groupnorm(device, key, reps):
 
 
 def summarize(name, route, source, replaces, launches, rows):
-    """One kernel's line: per-shape rows weighted by main-path launches."""
+    """One kernel's line: per-shape rows weighted by main-path calls."""
     def total(key):
-        return sum(r[key] * r["launches"] for r in rows)
-    by_ops = sum(r["bound_ms"] * r["launches"] for r in rows
+        return sum(r[key] * r["calls"] for r in rows)
+    by_ops = sum(r["bound_ms"] * r["calls"] for r in rows
                  if r["bound_by"] == "operations")
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
@@ -342,7 +386,7 @@ def phase_kernels(device, main) -> list:
             log(f"[kernels] flash {key}: {json.dumps(r)}")
             if dtype == torch.float32:
                 count = main["shapes"]["flash_attn_fwd"].get(key, 0)
-                flash_rows.append({"shape": list(key), "launches": count, **r})
+                flash_rows.append({"shape": list(key), "calls": count, **r})
     checked = {tuple(r["shape"]) for r in flash_rows}
     missing = set(main["shapes"]["flash_attn_fwd"]) - checked
     if missing:
@@ -351,7 +395,7 @@ def phase_kernels(device, main) -> list:
     for key, count in sorted(main["shapes"]["group_norm_silu_fwd"].items()):
         r = check_groupnorm(device, key, reps=20)
         log(f"[kernels] group_norm {key}: {json.dumps(r)}")
-        gn_rows.append({"shape": list(key), "launches": count, **r})
+        gn_rows.append({"shape": list(key), "calls": count, **r})
     return [
         summarize("flash_attn_fwd", "cuda", "rdeic_torch/csrc/flash_attn_fwd.cu",
                   "rdeic_tpu/ops/flash_attention.py:32",

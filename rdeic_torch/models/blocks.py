@@ -61,14 +61,13 @@ class Conv(nn.Module):
 
 class GroupNorm32(nn.Module):
     """GroupNorm with fp32 statistics and the input dtype on output, groups =
-    the largest divisor of C that is <= max_groups, optionally fused with the
-    SiLU that follows it. Every call goes through ops.fused_groupnorm (the
-    Triton kernel on the card)."""
+    the largest divisor of C that is <= 32, optionally fused with the SiLU
+    that follows it. Every call goes through ops.fused_groupnorm (the Triton
+    kernel on the card)."""
 
-    def __init__(self, channels: int, max_groups: int = 32,
-                 eps: float = 1e-5, silu: bool = False):
+    def __init__(self, channels: int, eps: float = 1e-5, silu: bool = False):
         super().__init__()
-        self.groups = find_denominator(channels, max_groups)
+        self.groups = find_denominator(channels, 32)
         self.eps = eps
         self.silu = silu
         self.GroupNorm_0 = nn.GroupNorm(self.groups, channels, eps=eps)

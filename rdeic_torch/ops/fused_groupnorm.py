@@ -123,9 +123,9 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """GroupNorm(+SiLU) over NCHW `x`: fp32 statistics, input-dtype output.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise). `group_norm.launches` counts launches (one per call: the stats
-    and apply programs together) and `group_norm.shapes` tallies them by
-    (B, C, H, W, groups, eps, silu, dtype).
+    raise). `group_norm.launches` counts kernel launches (two per call: the
+    stats pass, then the apply pass) and `group_norm.shapes` tallies calls
+    by (B, C, H, W, groups, eps, silu, dtype).
     """
     if x.device.type == "cpu":
         return group_norm_plain(x, weight, bias, groups, eps, silu)
@@ -140,11 +140,12 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     grid = (b * groups, nchunk)
     with torch.cuda.device(x.device):
         stats[grid](x, part, span, nchunk, BLOCK=BLOCK, num_warps=8)
+        group_norm.launches += 1
         apply[grid](x, y, part, weight, bias, span, float(span), h * w,
                     c // groups, groups, nchunk, float(eps), SILU=bool(silu),
                     BLOCK=BLOCK, NCHUNK=max(2, 1 << (nchunk - 1).bit_length()),
                     num_warps=8)
-    group_norm.launches += 1
+        group_norm.launches += 1
     key = (b, c, h, w, groups, float(eps), bool(silu),
            str(x.dtype).removeprefix("torch."))
     group_norm.shapes[key] = group_norm.shapes.get(key, 0) + 1

@@ -7,11 +7,12 @@ non-anchor pass; the hyper latent is coded as fixed-width VQ indices.
 Determinism: encode and decode call the same pass functions (A, B, CA and
 C+synth) on bit-identical inputs: the hyper parameters are re-derived from
 the coded VQ indices on both sides, and each slice's decoded half is rebuilt
-from its integer symbols and means on both sides. With the numerics that
-`rdeic_torch.utils.backend.set_codec_numerics` sets (the codec sets them when
-it is built), the same functions on the same inputs give the same entropy
-parameters, so the decoder reads the stream with the CDFs the encoder wrote
-it with. Symbols cross to the host once, after the whole encode chain; the
+from its integer symbols and means on both sides. `compress` and
+`decompress` run in full fp32 with deterministic cuDNN algorithms chosen by
+heuristics (`rdeic_torch.utils.backend.full_fp32(deterministic=True)`), so
+the same functions on the same inputs give the same entropy parameters, and
+the decoder reads the stream with the CDFs the encoder wrote it with. These
+settings hold only inside the two calls. Symbols cross to the host once, after the whole encode chain; the
 decoder is host-interactive by nature (pass k+1 needs the symbols pass k
 decodes).
 
@@ -31,14 +32,13 @@ from rdeic_torch.entropy.coder import (
 from rdeic_torch.models.compression import CompressionModel
 from rdeic_torch.ops import ckbd
 from rdeic_torch.ops import gaussian as g
-from rdeic_torch.utils.backend import set_codec_numerics
+from rdeic_torch.utils.backend import full_fp32
 
 
 class CompressionCodec:
     """The compression model plus its CDF tables and per-slice passes."""
 
     def __init__(self, model: CompressionModel):
-        set_codec_numerics()
         self.model = model
         self.scale_table = g.get_scale_table()
         self.table = CdfTable(*g.build_cdf_tables(self.scale_table))
@@ -94,6 +94,7 @@ class CompressionCodec:
 
     # -- encode / decode -----------------------------------------------------
     @torch.no_grad()
+    @full_fp32(deterministic=True)
     def compress(self, x: torch.Tensor) -> dict:
         """x: [1, H, W, in_nc] scaled VAE feature -> {strings, shape,
         latents}. `latents` is the encoder's own synthesis of the decoded
@@ -130,6 +131,7 @@ class CompressionCodec:
         }
 
     @torch.no_grad()
+    @full_fp32(deterministic=True)
     def decompress(self, strings, shape):
         """strings/shape -> (c_latent, guide_hint), NHWC."""
         zh, zw = int(shape[0]), int(shape[1])

@@ -9,6 +9,10 @@ The main path: image -> VAE `encode_hc` -> compression + host rANS ->
 bitstream file -> decompress to (c_latent, guide_hint) -> relay init at
 t = used_timesteps - 1 -> spaced-DDPM over the dual UNet -> VAE decode.
 Noise is explicit: pass the tensors, or a `torch.Generator` to draw them.
+
+Numerics: the VAE and the denoiser run in full fp32 (`full_fp32`: no TF32,
+which cuDNN convolutions would use by default), so the card computes what the
+CPU reference computes; the codec adds its own deterministic settings.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from rdeic_torch.models.compression import CompressionModel
 from rdeic_torch.models.unet import NoiseEstimator
 from rdeic_torch.models.vae import AutoencoderKL
 from rdeic_torch.pipeline.codec import CompressionCodec
-from rdeic_torch.utils.backend import resolve_device
+from rdeic_torch.utils.backend import full_fp32, resolve_device
 from rdeic_torch.utils.bitstream import filesize, read_body, write_body
 
 
@@ -104,11 +108,13 @@ class RDEIC(nn.Module):
                              torch.zeros(self.compression.codebook_size))
 
     # -- first stage / conditioning ------------------------------------------
+    @full_fp32()
     def encode_first_stage(self, img: torch.Tensor):
         """img NHWC in [-1, 1] -> (posterior mean * scale, feature * scale)."""
         mean, _, feature = self.vae.encode_hc(img)
         return mean * self.scale_factor, feature * self.scale_factor
 
+    @full_fp32()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         return self.vae.decode(z / self.scale_factor)
 
@@ -124,19 +130,14 @@ class RDEIC(nn.Module):
                        dtype=torch.long, device=c_latent.device)
         return self.schedule.q_sample(c_latent, t, noise)
 
+    @full_fp32()
     def sample(self, c_latent, guide_hint, context, steps: int, *,
                relay_noise: torch.Tensor | None = None,
                step_noise: Sequence[torch.Tensor] | None = None,
-               generator: torch.Generator | None = None,
-               sampler: str = "ddpm", guidance_scale: float = 1.0):
-        """Relay sampling from the decoded latent -> denoised latent (NHWC).
-        Noise the caller does not pass is drawn from `generator`."""
-        if sampler != "ddpm":
-            raise NotImplementedError(
-                f"sampler {sampler!r}: DDIM is ROADMAP Queue 1 item 7")
-        if guidance_scale != 1.0:
-            raise NotImplementedError(
-                "classifier-free guidance is ROADMAP Queue 1 item 11")
+               generator: torch.Generator | None = None):
+        """Relay spaced-DDPM sampling from the decoded latent -> denoised
+        latent (NHWC). Noise the caller does not pass is drawn from
+        `generator`."""
         if relay_noise is None:
             relay_noise = torch.randn(c_latent.shape, generator=generator,
                                       device=c_latent.device, dtype=c_latent.dtype)

@@ -1,5 +1,8 @@
-"""Device choice and the numerics the codec relies on."""
+"""Device choice, and the scoped convolution / product numerics of the path."""
 from __future__ import annotations
+
+import contextlib
+from typing import Iterator
 
 import torch
 
@@ -13,21 +16,25 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                            "on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
-    set_codec_numerics()
     return dev
 
 
-def set_codec_numerics() -> None:
-    """Full-fp32, deterministic convolutions and products.
-
-    The decoder must compute the same entropy parameters as the encoder, bit
-    for bit, or it reads the stream with other CDFs. cuDNN picks its
-    algorithm by heuristics (not by timing) with `benchmark` off and only
-    deterministic ones with `deterministic` on, so encode and decode run the
-    same algorithms on the same shapes; TF32 is off because it keeps only
-    ~3 decimal digits (cuDNN convolutions use it by default).
+@contextlib.contextmanager
+def full_fp32(deterministic: bool = False) -> Iterator[None]:
+    """Inside the block, cuDNN convolutions and matmuls run in full fp32:
+    TF32 (which cuDNN convolutions use by default) keeps ~3 decimal digits.
+    With `deterministic`, cuDNN also picks only deterministic algorithms, by
+    heuristics rather than timing (`benchmark` off), so the same shapes run
+    the same algorithms every time. The previous settings come back on exit.
     """
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark,
+             matmul.allow_tf32)
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    if deterministic:
+        cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark,
+         matmul.allow_tf32) = saved

@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc (for the flash-attention kernel), triton and g++;
+Needs one CUDA card, nvcc (for the flash-attention kernels), triton and g++;
 no network. Phases, each fatal on failure:
 
 1. environment: torch / CUDA / triton versions and the card's name and power
    limit (nvidia-smi);
-2. build: nvcc and g++ start together on the sources in the checkout;
+2. build: nvcc (forward and backward flash kernels) and g++ start together
+   on the sources in the checkout;
 3. main path at the full width of configs/model/rdeic.yaml (random weights
    from --seed): the CLI's per-image `rdeic_torch.inference.process` codes a
    synthetic 768x512 image to a stream file, decodes it back, relay-samples
@@ -22,17 +23,38 @@ no network. Phases, each fatal on failure:
 4. reference on a small input: a 256x256 image through the same weights,
    once on the card (kernels) and once on the CPU (plain versions), from the
    same latents and noise;
-5. kernels against their plain versions at every main-path shape, with the
-   kernel, plain and library times (CUDA events) and the bound of each. Each
-   comparison also reads a planted fault (the kernel's output scaled by
-   1.05) and fails if that reading is within the limit.
+5. training reference: one independent-phase micro-step (B = 1, 256x256) of
+   the same weights on the card and on the CPU, from the same noise: the
+   loss and every trainable gradient agree within a relative limit that a
+   planted 1.05x fault must read outside of, the CPU run taking the card's
+   value at each convolution output of the compression model after
+   checking it (see TRAIN_REF_TOL);
+6. training path at the full width, with `use_checkpoint` as in the model
+   YAML and the lr and accumulation of configs/train_rdeic.yaml: a
+   `rdeic_torch.train.trainer.Trainer` takes one warm-up micro-step on
+   synthetic B = 2, 512x512 images, then 4 timed micro-steps (one AdamW
+   update) with every launch count set to 0. Checks: finite loss and
+   gradient norm; the frozen base UNet, VAE and uncond_context bit-equal
+   after the update; every trainable tensor with a nonzero gradient moved;
+   the codebook usage moved; each kernel ran as often as the structure says;
+7. kernels against their plain versions at every shape of the serving and
+   the training path, in fp32 and bf16, with the kernel, plain and library
+   times (CUDA events) and the bound of each. Each comparison also reads a
+   planted fault (the kernel's output scaled by 1.05) and fails if that
+   reading is within the limit.
 
 The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
 `bound_ms` and `library_ms` of a kernel are summed over its calls in one
-main-path run (per image); `shapes` has the per-call numbers. `launches`
-counts kernel launches: one per flash call, two per GroupNorm call (stats,
-then apply).
+run of its path: per image for the serving kernels (flash_attn_fwd,
+group_norm_silu_fwd), per training micro-step for the others; `shapes` has
+the per-call numbers. `launches` counts kernel launches in that path's
+counted run (one per flash call; two per GroupNorm call: stats then apply,
+or moments then dx), `launches_by_path` in both. The plain and library
+times of flash_attn_bwd_dq and flash_attn_bwd_dkv are each of a whole
+backward (dq, dk and dv): compare them with the sum of the two kernels, and
+so is their `backward_bound_ms` (10 B H L^2 d flops: S, dP, dV, dQ, dK once
+each); each kernel's own `bound_ms` counts the S and dP it recomputes.
 """
 from __future__ import annotations
 
@@ -51,11 +73,26 @@ import torch.nn.functional as F
 
 from rdeic_torch import build
 from rdeic_torch.inference import process
-from rdeic_torch.models.blocks import GroupNorm32
-from rdeic_torch.ops.flash_attention import flash_attention, flash_attention_plain
-from rdeic_torch.ops.fused_groupnorm import group_norm, group_norm_plain
+from rdeic_torch.models.blocks import Conv, GroupNorm32
+from rdeic_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_plain,
+    flash_attention_dkv,
+    flash_attention_dq,
+    flash_attention_lse,
+    flash_attention_lse_plain,
+    flash_attention_plain,
+)
+from rdeic_torch.ops.fused_groupnorm import (
+    group_norm,
+    group_norm_bwd,
+    group_norm_bwd_plain,
+    group_norm_fwd,
+    group_norm_plain,
+)
 from rdeic_torch.pipeline.rdeic import RDEIC
-from rdeic_torch.utils.backend import resolve_device
+from rdeic_torch.train.trainer import Trainer, trainable_parameters
+from rdeic_torch.utils.backend import full_fp32, resolve_device
 from rdeic_torch.utils.image import to_uint8
 
 # configs/model/rdeic.yaml `params` (the card's machine has no yaml module;
@@ -105,13 +142,54 @@ MODEL_CONFIG = {
         "lpips": {"type": "lpips", "better": "lower"}},
 }
 
+# configs/train_rdeic.yaml `trainer` and configs/dataset/lic_train.yaml
+# (tests/test_torch_port_isolation.py holds these equal to the files)
+TRAIN_CONFIG = {"learning_rate": 2.0e-5, "accumulate_grad_batches": 4,
+                "batch_size": 2, "out_size": 512}
+
 IMAGE_HW = (512, 768)  # a Kodak-sized image, landscape
 STEPS = 2
+TRAIN_STEPS = 4  # timed micro-steps after one warm-up: one AdamW update
+# self-attentions over >= 1024 tokens per dual-UNet call at 512x512 (UNet
+# L = 4096 h5 d64 x5 and L = 1024 h10 d64 x5, control L = 4096 h4 d16 x2 and
+# L = 1024 h8 d16 x2; L = 256 goes to the plain product)
+FLASH_PER_DENOISER_CALL_512 = 14
+# card vs CPU training reference: max |g_card - g_cpu| of each trainable
+# tensor over max |g_cpu| of that tensor, or over TRAIN_REF_FLOOR x the
+# largest gradient where the tensor's own gradient is zero but for rounding
+# (a bias right before a GroupNorm, which removes the channel mean). The
+# compression model's forward has kinks (LeakyReLU's slope at 0, the
+# rounding of y - mu, lower_bound's gradient rule, the codebook's argmax)
+# and weights the rate term by 1 / likelihood, so a forward rounding
+# difference of ~1e-7 moves its gradients by up to ~1e-2 between two correct
+# runs. The CPU run therefore takes the card's value at every convolution
+# output of the compression model (the gradient passes straight through),
+# after holding each such output to TRAIN_REF_TOL["conv"]; the gradients then
+# differ only by the backward's arithmetic. A second CPU run without the
+# pinning shows, in the log only, how far they move otherwise. Gradients are
+# reported by group: denoiser (control branch and bridges, through every
+# flash and GroupNorm backward kernel), synthesis (compression.decoder and
+# .out, reached through c_latent and guide_hint) and rate (every other
+# compression tensor: it carries the rate term). The rate group still reads
+# up to 7e-4 with the forward pinned. No kernel of the port is on that
+# path, only torch's own CUDA and CPU operators (PERF.md keeps the question
+# open), so its limit is 7x the larger reading of seeds 0 and 1, a tenth of
+# the planted fault's.
+TRAIN_REF_TOL = {"denoiser": 1e-4, "synthesis": 1e-4, "rate": 5e-3,
+                 "conv": 1e-4, "loss": 1e-5}
+SYNTHESIS_PREFIXES = ("compression.decoder.", "compression.out.")
+TRAIN_REF_FLOOR = 1e-5
 # H100 SXM data-sheet peaks (NVIDIA; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 FAULT_SCALE = 1.05  # a planted output-scale error each check must see
 GN_TOL = 1e-4  # fp32 GroupNorm outputs up to ~15 after scale and bias
+# relative to max |plain| of each output, for the training kernels: fp32
+# sums in other orders land ~1e-6 apart. A bf16 output is held to the plain
+# version's unrounded fp32 result (plain on the same values upcast): rounding
+# to nearest bf16 moves a value by at most half an ulp, 2^-8 of its
+# magnitude, so the limit is 2^-8 plus the fp32 limit
+REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8 + 1e-4}
 FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
                 (1, 1536, 10, 64), (1, 1536, 8, 16)]
 
@@ -157,9 +235,10 @@ def phase_build():
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] nvcc + g++ in parallel: {time.perf_counter() - t0:.1f} s")
-    for line in build.build_log(libs["flash_attn_fwd"]).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    for lib in ("flash_attn_fwd", "flash_attn_bwd"):
+        for line in build.build_log(libs[lib]).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {lib} ptxas: {line.strip()}")
 
 
 def make_model(device, seed: int) -> RDEIC:
@@ -177,10 +256,26 @@ def make_model(device, seed: int) -> RDEIC:
     return model.eval()
 
 
+KERNEL_FNS = {
+    "flash_attn_fwd": flash_attention,
+    "flash_attn_fwd_lse": flash_attention_lse,
+    "flash_attn_bwd_dq": flash_attention_dq,
+    "flash_attn_bwd_dkv": flash_attention_dkv,
+    "group_norm_silu_fwd": group_norm,
+    "group_norm_silu_bwd": group_norm_bwd,
+}
+
+
 def reset_counters():
-    for fn in (flash_attention, group_norm):
+    for fn in KERNEL_FNS.values():
         fn.launches = 0
         fn.shapes = {}
+
+
+def read_counters():
+    """(launches, shapes) of every kernel wrapper since the last reset."""
+    return ({k: fn.launches for k, fn in KERNEL_FNS.items()},
+            {k: dict(fn.shapes) for k, fn in KERNEL_FNS.items()})
 
 
 def run_process(model, img01, stream: Path, seed: int):
@@ -214,10 +309,7 @@ def phase_main_path(model, device, seed: int) -> dict:
         streams = [stream.read_bytes()]
         reset_counters()
         (img, bpp), ms = host_ms(lambda: run_process(model, img01, stream, seed))
-        launches = {"flash_attn_fwd": flash_attention.launches,
-                    "group_norm_silu_fwd": group_norm.launches}
-        shapes = {"flash_attn_fwd": dict(flash_attention.shapes),
-                  "group_norm_silu_fwd": dict(group_norm.shapes)}
+        launches, shapes = read_counters()
         streams.append(stream.read_bytes())
         c_latent, guide_hint, out, stage_ms = run_stages(
             model, img01, stream, seed)
@@ -245,13 +337,22 @@ def phase_main_path(model, device, seed: int) -> dict:
     n_gn = sum(isinstance(m, GroupNorm32) for m in model.denoiser.modules())
     # 14 self-attentions over >= 1024 tokens per denoiser call at 768x512
     # (UNet 5 + 5, control 2 + 2), plus the two VAE mid-blocks; two launches
-    # per GroupNorm32 call
-    want = {"flash_attn_fwd": 14 * STEPS + 2,
-            "group_norm_silu_fwd": 2 * n_gn * STEPS}
+    # per GroupNorm32 call; no training kernel (no grad on this path)
+    want = dict.fromkeys(KERNEL_FNS, 0)
+    want.update({"flash_attn_fwd": 14 * STEPS + 2,
+                 "group_norm_silu_fwd": 2 * n_gn * STEPS})
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     return {"bpp": bpp, "ms": ms, "stage_ms": stage_ms, "launches": launches,
             "shapes": shapes}
+
+
+def cpu_copy(model) -> RDEIC:
+    """The same model with its weights copied to the CPU."""
+    cpu = RDEIC(**MODEL_CONFIG, device="meta").eval()  # weights follow
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                        assign=True)
+    return cpu
 
 
 def phase_reference(model, device, seed: int):
@@ -266,9 +367,7 @@ def phase_reference(model, device, seed: int):
     relay = torch.from_numpy(rng.normal(size=c_latent.shape).astype(np.float32))
     steps = [torch.from_numpy(rng.normal(size=c_latent.shape).astype(np.float32))
              for _ in range(STEPS)]
-    cpu = RDEIC(**MODEL_CONFIG, device="meta").eval()  # weights follow
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
-                        assign=True)
+    cpu = cpu_copy(model)
     results = {}
     with torch.no_grad():
         for name, m, dev in (("cuda", model, device),
@@ -285,6 +384,192 @@ def phase_reference(model, device, seed: int):
         f"(limit 2e-3), VAE feature max|diff|/max {err_feat:.3g} (limit 1e-4)")
     if not (err_img <= 2e-3 and err_feat <= 1e-4):
         raise AssertionError("the card disagrees with the CPU reference")
+
+
+def _grad_reads(got: dict, want: dict, floor: float) -> dict:
+    """Per tensor: max |got - want| / max(max |want|, floor)."""
+    return {k: (got[k] - w).abs().max().item() / max(w.abs().max().item(), floor)
+            for k, w in want.items()}
+
+
+def train_ref_group(name: str) -> str:
+    """The training reference's group of a trainable tensor."""
+    if name.startswith("denoiser."):
+        return "denoiser"
+    return "synthesis" if name.startswith(SYNTHESIS_PREFIXES) else "rate"
+
+
+def _hook_convs(compression, fn) -> list:
+    """fn(name, output) as a forward hook on every Conv of the compression
+    model (its return value, if any, replaces the output); the handles."""
+    return [mod.register_forward_hook(
+                lambda _mod, _args, out, name=name: fn(name, out))
+            for name, mod in compression.named_modules() if isinstance(mod, Conv)]
+
+
+def phase_train_reference(model, device, seed: int) -> dict:
+    """One B = 1, 256x256 independent-phase loss and its trainable gradients,
+    on the card (kernels) and on the CPU (plain versions), from the same
+    weights and noise; the CPU run takes the card's convolution outputs in
+    the compression model (see TRAIN_REF_TOL), a second CPU run does not.
+    At 256x256, L = 1024 reaches the flash kernels at d = 16 and 64."""
+    rng = np.random.default_rng(seed + 3)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 256, 256, 3)).astype(np.float32))
+    noise = model.train_noise(img, torch.Generator().manual_seed(seed))
+    cpu = cpu_copy(model)
+    card_convs, conv_reads = {}, {}
+
+    def record(name, out):
+        card_convs[name] = out.detach().cpu()
+
+    def pin(name, out):
+        if name in conv_reads:
+            raise AssertionError(f"{name} ran twice in one forward")
+        want = card_convs[name]
+        conv_reads[name] = ((out.detach() - want).abs().max()
+                            / want.abs().max()).item()
+        return out + (want - out).detach()
+
+    results = {}
+    for name, m, hook in (("cuda", model, record), ("cpu", cpu, pin),
+                          ("cpu_unpinned", cpu, None)):
+        dev = next(m.parameters()).device
+        params = trainable_parameters(m)
+        moved = {k: [u.to(dev) for u in v] if isinstance(v, list) else v.to(dev)
+                 for k, v in noise.items()}
+        handles = _hook_convs(m.compression, hook) if hook else []
+        t0 = time.perf_counter()
+        with full_fp32():
+            loss, _ = m.loss_fn(img.to(dev), noise=moved)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        for h in handles:
+            h.remove()
+        results[name] = (loss.item(), {k: g.cpu() for k, g in zip(params, grads)})
+        log(f"[train-reference] {name}: loss {loss.item():.6f} and "
+            f"{len(grads)} gradients in {time.perf_counter() - t0:.1f} s")
+    del cpu
+    (l_card, g_card), (l_cpu, g_cpu), (l_free, g_free) = (
+        results[k] for k in ("cuda", "cpu", "cpu_unpinned"))
+    floor = TRAIN_REF_FLOOR * max(g.abs().max().item() for g in g_cpu.values())
+    reads = _grad_reads(g_card, g_cpu, floor)
+    free = _grad_reads(g_card, g_free, floor)
+    faults = _grad_reads({k: g * FAULT_SCALE for k, g in g_card.items()},
+                         g_cpu, floor)
+    worst_conv = max(conv_reads, key=conv_reads.get)
+    out = {"loss": abs(l_card - l_cpu) / abs(l_cpu),
+           "fault_loss": abs(l_card * FAULT_SCALE - l_cpu) / abs(l_cpu),
+           "loss_unpinned": abs(l_card - l_free) / abs(l_free),
+           "conv": conv_reads[worst_conv]}
+    ok = (out["loss"] <= TRAIN_REF_TOL["loss"] < out["fault_loss"]
+          and out["conv"] <= TRAIN_REF_TOL["conv"])
+    log(f"[train-reference] {len(conv_reads)} compression conv outputs, CPU "
+        f"from the card's inputs vs the card: worst max|diff|/max "
+        f"{out['conv']:.3g} ({worst_conv}; limit {TRAIN_REF_TOL['conv']})")
+    for group in ("denoiser", "synthesis", "rate"):
+        keys = [k for k in reads if train_ref_group(k) == group]
+        worst = sorted(keys, key=reads.get, reverse=True)[:3]
+        out[group] = reads[worst[0]]
+        out[f"unpinned_{group}"] = max(free[k] for k in keys)
+        out[f"fault_{group}"] = max(faults[k] for k in keys)
+        ok = ok and out[group] <= TRAIN_REF_TOL[group] < out[f"fault_{group}"]
+        log(f"[train-reference] {group} ({len(keys)} tensors): card vs CPU worst "
+            f"{out[group]:.3g} (limit {TRAIN_REF_TOL[group]}): "
+            + ", ".join(f"{k} {reads[k]:.3g}" for k in worst)
+            + f"; a planted x{FAULT_SCALE} fault reads "
+            f"{out[f'fault_{group}']:.3g}; against the unpinned CPU run "
+            f"{out[f'unpinned_{group}']:.3g}")
+    log(f"[train-reference] loss: card vs CPU {out['loss']:.3g} (limit "
+        f"{TRAIN_REF_TOL['loss']}), planted fault {out['fault_loss']:.3g}, "
+        f"unpinned {out['loss_unpinned']:.3g}")
+    if not ok:
+        raise AssertionError("training on the card disagrees with the CPU, or "
+                             "a planted fault reads within its limit")
+    return out
+
+
+def train_launches_per_step(model) -> dict:
+    """Kernel launches of one training micro-step at 512x512, from the
+    model's structure: each flash self-attention runs the forward with lse
+    (twice when the blocks are recomputed in the backward), dq and dkv once;
+    the VAE encoder's mid-block attention runs the plain forward without
+    grad; each GroupNorm32 call is two forward launches (again when its
+    block is recomputed) and two backward launches."""
+    den = model.denoiser
+    n_gn = sum(isinstance(m, GroupNorm32) for m in den.modules())
+    blocks = [*den.base.input_blocks, den.base.mid, *den.base.output_blocks,
+              *den.control.input_blocks, den.control.mid]
+    n_gn_recomputed = sum(isinstance(m, GroupNorm32)
+                          for b in blocks for m in b.modules())
+    ckpt = 1 if den.use_checkpoint else 0
+    n_flash = FLASH_PER_DENOISER_CALL_512
+    return {"flash_attn_fwd": 1,
+            "flash_attn_fwd_lse": n_flash * (1 + ckpt),
+            "flash_attn_bwd_dq": n_flash, "flash_attn_bwd_dkv": n_flash,
+            "group_norm_silu_fwd": 2 * (n_gn + ckpt * n_gn_recomputed),
+            "group_norm_silu_bwd": 2 * n_gn}
+
+
+def phase_training(model, device, seed: int) -> dict:
+    """The full-width training path: one warm-up micro-step, then
+    TRAIN_STEPS counted and timed ones."""
+    rng = np.random.default_rng(seed + 2)
+    hw = TRAIN_CONFIG["out_size"]
+    imgs = [torch.from_numpy(rng.uniform(
+        -1, 1, (TRAIN_CONFIG["batch_size"], hw, hw, 3)).astype(np.float32)).to(device)
+        for _ in range(1 + TRAIN_STEPS)]
+    trainer = Trainer(model, learning_rate=TRAIN_CONFIG["learning_rate"],
+                      accumulate_grad_batches=TRAIN_CONFIG["accumulate_grad_batches"])
+    # snapshots on the host, so that the peak below is the training's own
+    frozen = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
+              if k not in trainer.params and k != "vq_embed_prob"}
+    start = {k: p.detach().to("cpu", copy=True) for k, p in trainer.params.items()}
+    prob = model.vq_embed_prob.clone()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    logs, warm_ms = host_ms(lambda: trainer.step(imgs[0], generator=gen))
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], [logs["loss"].item()]
+    for img in imgs[1:]:
+        logs, ms = host_ms(lambda: trainer.step(img, generator=gen))
+        step_ms.append(ms)
+        if not (torch.isfinite(logs["loss"]) and torch.isfinite(logs["grad_norm"])):
+            raise AssertionError(f"non-finite loss or gradient: {logs}")
+        losses.append(logs["loss"].item())
+    peak = torch.cuda.max_memory_allocated()
+    launches, shapes = read_counters()
+    per_step = train_launches_per_step(model)
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    ms = float(np.mean(step_ms))
+    log(f"[train] warm-up micro-step {warm_ms:.1f} ms; micro-steps (B = "
+        f"{TRAIN_CONFIG['batch_size']}, {hw}x{hw}) {json.dumps(step_ms)} ms, "
+        f"mean {ms:.1f} ms, {TRAIN_CONFIG['batch_size'] * 1e3 / ms:.3f} images/s; "
+        f"peak memory {peak / 2**30:.2f} GiB; losses {json.dumps(losses)}")
+    log(f"[train] launches per micro-step: "
+        f"{json.dumps({k: v / TRAIN_STEPS for k, v in launches.items()})}")
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, expected {want}")
+    if trainer.step_count != 1 + TRAIN_STEPS:
+        raise AssertionError("the trainer skipped a step")
+    now = model.state_dict()
+    for k, v in frozen.items():
+        if not torch.equal(v, now[k].cpu()):
+            raise AssertionError(f"frozen tensor {k} changed")
+    moved = 0
+    for k, p in trainer.params.items():
+        state = trainer.optimizer.state.get(p, {})
+        if "exp_avg" not in state:
+            raise AssertionError(f"{k} took no optimizer step")
+        if torch.count_nonzero(state["exp_avg"]) and torch.equal(p.cpu(), start[k]):
+            raise AssertionError(f"{k} has a gradient but did not move")
+        moved += 1
+    if torch.equal(prob, model.vq_embed_prob):
+        raise AssertionError("the codebook usage did not move")
+    log(f"[train] {moved} trainable tensors stepped, {len(frozen)} frozen "
+        "tensors bit-equal, codebook usage moved")
+    return {"ms": ms, "step_ms": step_ms, "warm_ms": warm_ms,
+            "images_per_s": TRAIN_CONFIG["batch_size"] * 1e3 / ms,
+            "peak_bytes": peak, "launches": launches, "shapes": shapes,
+            "losses": losses}
 
 
 def _randn(shape, dtype, device, seed):
@@ -362,22 +647,135 @@ def check_groupnorm(device, key, reps):
             "library_ms": cuda_ms(library, reps)}
 
 
+def compare_rel(name, pairs) -> dict:
+    """Each (got, want, tol): max |got - want| / max |want| against tol, and
+    the reading of a planted fault (got scaled by FAULT_SCALE), which must
+    exceed tol."""
+    rel, fault, abs_err = [], [], []
+    for i, (got, want, tol) in enumerate(pairs):
+        got, want = got.float(), want.float()
+        scale = want.abs().max().item()
+        abs_err.append((got - want).abs().max().item())
+        rel.append(abs_err[-1] / scale)
+        fault.append((got * FAULT_SCALE - want).abs().max().item() / scale)
+        if not rel[-1] <= tol:
+            raise AssertionError(f"{name} output {i}: max|diff|/max {rel[-1]} > {tol}")
+        if not fault[-1] > tol:
+            raise AssertionError(f"{name} output {i}: a x{FAULT_SCALE} fault "
+                                 f"reads {fault[-1]}, within the limit {tol}")
+    return {"max_abs_err": max(abs_err), "max_rel_err": max(rel),
+            "tol": [t for _, _, t in pairs], "fault_err": min(fault)}
+
+
+def check_flash_train(device, shape, dtype, reps) -> dict:
+    """The lse forward, dq and dkv kernels against the plain versions on one
+    shape: {kernel name: row}."""
+    q, k, v, do = (_randn(shape, dtype, device, s) for s in range(4))
+    tol = REL_TOL[dtype]
+    o, lse = flash_attention_lse(q, k, v)
+    # the plain versions on the same values in fp32: their results unrounded
+    want_o, want_lse = flash_attention_lse_plain(q.float(), k.float(), v.float())
+    r_lse = compare_rel(f"flash lse {shape} {dtype}",
+                        [(o, want_o, tol), (lse, want_lse, REL_TOL[torch.float32])])
+    dq, di = flash_attention_dq(q, k, v, o, lse, do)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, di)
+    pdq, pdk, pdv = flash_attention_bwd_plain(
+        *(x.float() for x in (q, k, v, o)), lse, do.float())
+    r_dq = compare_rel(f"flash dq {shape} {dtype}", [(dq, pdq, tol)])
+    r_dkv = compare_rel(f"flash dkv {shape} {dtype}",
+                        [(dk, pdk, tol), (dv, pdv, tol)])
+    b, seq, h, d = shape
+    n, size, rows = q.numel(), q.element_size(), b * h * seq * 4
+    ops = float(b * h * seq * seq * d)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                  retain_graph=True), reps)
+    plain_bwd = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), 2)
+    # the whole backward does S, dP, dV, dQ and dK once each (10 B H L^2 d
+    # flops; reads q, k, v, o, dO and lse, writes dq, dk and dv); the dq and
+    # dkv kernels each recompute S and dP, so their own bounds add up to 14
+    pair_bound, _ = _bound_ms(8 * n * size + rows, 10 * ops, dtype)
+    rows_out = {}
+    for name, r, fn, nbytes, flops, plain, library in (
+            ("flash_attn_fwd_lse", r_lse, lambda: flash_attention_lse(q, k, v),
+             4 * n * size + rows, 4 * ops,
+             cuda_ms(lambda: flash_attention_lse_plain(q, k, v), 2),
+             cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)),
+            ("flash_attn_bwd_dq", r_dq,
+             lambda: flash_attention_dq(q, k, v, o, lse, do),
+             6 * n * size + 2 * rows, 6 * ops, plain_bwd, lib_bwd),
+            ("flash_attn_bwd_dkv", r_dkv,
+             lambda: flash_attention_dkv(q, k, v, do, lse, di),
+             6 * n * size + 2 * rows, 8 * ops, plain_bwd, lib_bwd)):
+        bound, by = _bound_ms(nbytes, flops, dtype)
+        rows_out[name] = {**r, "bound_ms": bound, "bound_by": by,
+                          "ms": cuda_ms(fn, reps), "plain_ms": plain,
+                          "library_ms": library}
+        if name != "flash_attn_fwd_lse":
+            rows_out[name]["backward_bound_ms"] = pair_bound
+    return rows_out
+
+
+def check_groupnorm_bwd(device, key, dtype, reps) -> dict:
+    """The backward kernels against the plain backward on one shape, with
+    SiLU off and on, from the forward kernel's mean and 1/std."""
+    b, c, h, w, groups, _, silu, _ = key
+    x = _randn((b, c, h, w), dtype, device, 0) * 3 + 1
+    dy = _randn((b, c, h, w), dtype, device, 3)
+    wt, bs = (_randn((c,), torch.float32, device, s) for s in (1, 2))
+    tol = REL_TOL[dtype]
+    reads = []
+    for s in (False, True):
+        _, mean, inv = group_norm_fwd(x, wt, bs, groups, 1e-5, s)
+        got = group_norm_bwd(x, wt, bs, mean, inv, dy, groups, s)
+        want = group_norm_bwd_plain(x.float(), wt, bs, mean, inv, dy.float(),
+                                    groups, s)  # unrounded, as for flash
+        reads.append(compare_rel(
+            f"group_norm_bwd {key} silu={s} {dtype}",
+            [(got[0], want[0], tol), (got[1], want[1], REL_TOL[torch.float32]),
+             (got[2], want[2], REL_TOL[torch.float32])]))
+    _, mean, inv = group_norm_fwd(x, wt, bs, groups, 1e-5, silu)
+    # F.group_norm takes weight and bias in the input's dtype
+    xl, wl, bl = (t.detach().to(dtype).requires_grad_() for t in (x, wt, bs))
+    y = F.group_norm(xl, groups, wl, bl, 1e-5)
+    y = F.silu(y) if silu else y
+    bound, by = _bound_ms(3 * x.numel() * x.element_size() + 4 * c * 4,
+                          15.0 * x.numel(), dtype)
+    return {"max_abs_err": max(r["max_abs_err"] for r in reads),
+            "max_rel_err": max(r["max_rel_err"] for r in reads),
+            "tol": reads[0]["tol"], "fault_err": min(r["fault_err"] for r in reads),
+            "bound_ms": bound, "bound_by": by,
+            "ms": cuda_ms(lambda: group_norm_bwd(x, wt, bs, mean, inv, dy,
+                                                 groups, silu), reps),
+            "plain_ms": cuda_ms(lambda: group_norm_bwd_plain(
+                x, wt, bs, mean, inv, dy, groups, silu), reps),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                y, (xl, wl, bl), dy, retain_graph=True), reps)}
+
+
 def summarize(name, route, source, replaces, launches, rows):
-    """One kernel's line: per-shape rows weighted by main-path calls."""
+    """One kernel's line: per-shape rows weighted by calls in one run of the
+    kernel's path (per image, or per training micro-step)."""
     def total(key):
         return sum(r[key] * r["calls"] for r in rows)
     by_ops = sum(r["bound_ms"] * r["calls"] for r in rows
                  if r["bound_by"] == "operations")
     return {"name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": launches["path"],
+            "launches_by_path": launches["by_path"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": "operations" if by_ops >= total("bound_ms") / 2 else "bytes",
-            "library_ms": total("library_ms"), "shapes": rows}
+            "library_ms": total("library_ms"),
+            **({"backward_bound_ms": total("backward_bound_ms")}
+               if "backward_bound_ms" in rows[0] else {}),
+            "shapes": rows}
 
 
-def phase_kernels(device, main) -> list:
+def phase_kernels(device, main, train) -> list:
     flash_rows = []
     for shape in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -396,15 +794,82 @@ def phase_kernels(device, main) -> list:
         r = check_groupnorm(device, key, reps=20)
         log(f"[kernels] group_norm {key}: {json.dumps(r)}")
         gn_rows.append({"shape": list(key), "calls": count, **r})
-    return [
-        summarize("flash_attn_fwd", "cuda", "rdeic_torch/csrc/flash_attn_fwd.cu",
+
+    # the training path runs the forward kernels at shapes of its own (B = 2,
+    # 512x512): checked too, and kept out of the per-image sums
+    for key in sorted(set(train["shapes"]["flash_attn_fwd"]) - checked):
+        for dtype in (torch.float32, torch.bfloat16):
+            r = check_flash(device, key[:4], dtype, reps=3)
+            log(f"[kernels] flash training-path {key[:4]} {dtype}: {json.dumps(r)}")
+    for key in sorted(set(train["shapes"]["group_norm_silu_fwd"])
+                      - set(main["shapes"]["group_norm_silu_fwd"])):
+        r = check_groupnorm(device, key, reps=5)
+        log(f"[kernels] group_norm training-path {key}: {json.dumps(r)}")
+
+    train_rows = {k: [] for k in ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
+                                  "flash_attn_bwd_dkv", "group_norm_silu_bwd")}
+    lse_shapes = train["shapes"]["flash_attn_fwd_lse"]
+    if set(train["shapes"]["flash_attn_bwd_dq"]) != set(lse_shapes):
+        raise AssertionError("the backward ran at other shapes than the forward")
+    for key in sorted(lse_shapes):
+        shape = key[:4]
+        for dtype in (torch.float32, torch.bfloat16):
+            rows = check_flash_train(device, shape, dtype, reps=3)
+            log(f"[kernels] flash training {shape} {dtype}: {json.dumps(rows)}")
+            if dtype == getattr(torch, key[4]):
+                for name, r in rows.items():
+                    calls = train["shapes"][name].get(key, 0) / TRAIN_STEPS
+                    train_rows[name].append({"shape": list(key), "calls": calls, **r})
+    for key, count in sorted(train["shapes"]["group_norm_silu_bwd"].items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            r = check_groupnorm_bwd(device, key, dtype, reps=10)
+            log(f"[kernels] group_norm_bwd {key} {dtype}: {json.dumps(r)}")
+            if dtype == getattr(torch, key[7]):
+                train_rows["group_norm_silu_bwd"].append(
+                    {"shape": list(key), "calls": count / TRAIN_STEPS, **r})
+
+    def launches(name, path):
+        own = main if path == "serve" else train
+        return {"path": own["launches"][name],
+                "by_path": {"serve": main["launches"][name],
+                            "train": train["launches"][name]}}
+
+    flash_src = "rdeic_torch/csrc/flash_attn_fwd.cu"
+    bwd_src = "rdeic_torch/csrc/flash_attn_bwd.cu"
+    gn_src = "rdeic_torch/ops/fused_groupnorm.py"
+    lines = [
+        summarize("flash_attn_fwd", "cuda", flash_src,
                   "rdeic_tpu/ops/flash_attention.py:32",
-                  main["launches"]["flash_attn_fwd"], flash_rows),
-        summarize("group_norm_silu_fwd", "triton",
-                  "rdeic_torch/ops/fused_groupnorm.py",
+                  launches("flash_attn_fwd", "serve"), flash_rows),
+        summarize("flash_attn_fwd_lse", "cuda", flash_src,
+                  "rdeic_tpu/ops/flash_attention.py:122",
+                  launches("flash_attn_fwd_lse", "train"),
+                  train_rows["flash_attn_fwd_lse"]),
+        summarize("flash_attn_bwd_dq", "cuda", bwd_src,
+                  "rdeic_tpu/ops/flash_attention.py:261",
+                  launches("flash_attn_bwd_dq", "train"),
+                  train_rows["flash_attn_bwd_dq"]),
+        summarize("flash_attn_bwd_dkv", "cuda", bwd_src,
+                  "rdeic_tpu/ops/flash_attention.py:300",
+                  launches("flash_attn_bwd_dkv", "train"),
+                  train_rows["flash_attn_bwd_dkv"]),
+        summarize("group_norm_silu_fwd", "triton", gn_src,
                   "rdeic_tpu/ops/fused_groupnorm.py:116",
-                  main["launches"]["group_norm_silu_fwd"], gn_rows),
+                  launches("group_norm_silu_fwd", "serve"), gn_rows),
+        summarize("group_norm_silu_bwd", "triton", gn_src,
+                  "rdeic_tpu/ops/fused_groupnorm.py:144",
+                  launches("group_norm_silu_bwd", "train"),
+                  train_rows["group_norm_silu_bwd"]),
     ]
+    dq, dkv = lines[2], lines[3]
+    log(f"[kernels] flash backward per micro-step: dq + dkv "
+        f"{dq['ms'] + dkv['ms']:.3f} ms; bound of the whole backward "
+        f"{dq['backward_bound_ms']:.3f} ms; dq's and dkv's own bounds "
+        f"{dq['bound_ms']:.3f} + {dkv['bound_ms']:.3f} ms, of which "
+        f"{dq['bound_ms'] + dkv['bound_ms'] - dq['backward_bound_ms']:.3f} ms "
+        "is the recompute of S and dP in both; SDPA backward "
+        f"{dq['library_ms']:.3f} ms")
+    return lines
 
 
 def main() -> int:
@@ -424,7 +889,9 @@ def main() -> int:
         f"({sum(p.numel() for p in model.parameters()) / 1e6:.0f} M params)")
     main_result = phase_main_path(model, device, args.seed)
     phase_reference(model, device, args.seed)
-    kernels = phase_kernels(device, main_result)
+    phase_train_reference(model, device, args.seed)
+    train_result = phase_training(model, device, args.seed)
+    kernels = phase_kernels(device, main_result, train_result)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,7 @@
 Relay-residual diffusion extreme image compression: a VAE feature is coded
 to a real bitstream by a checkerboard / channel-slice model and a host rANS
 coder, decoded back, and refined by a two-step relay sampler over a dual
-UNet. The kernels that rdeic_tpu wrote in Pallas are hand-written here for
+UNet; the compression model and the control branch train in the independent
+phase (`rdeic_torch.train`). The kernels that rdeic_tpu wrote in Pallas are hand-written here for
 Hopper (CUDA C++ or Triton); the package imports nothing of rdeic_tpu or JAX.
 """

@@ -1,14 +1,15 @@
 """Builds the port's native code at first use, from the sources in the package.
 
-Two shared libraries, each with a plain C interface loaded through ctypes:
+Three shared libraries, each with a plain C interface loaded through ctypes:
 
-- ``flash_attn_fwd``: ``csrc/flash_attn_fwd.cu``, compiled by ``nvcc`` for
-  ``sm_90a`` (only where the CUDA toolkit is installed);
+- ``flash_attn_fwd`` and ``flash_attn_bwd``: ``csrc/flash_attn_{fwd,bwd}.cu``
+  (with ``csrc/flash_common.cuh``), compiled by ``nvcc`` for ``sm_90a``
+  (only where the CUDA toolkit is installed);
 - ``rans``: ``entropy/csrc/rans.cpp``, the host rANS coder, compiled by g++.
 
-Each library lands in ``_build/`` under a name that hashes its source, its
-command and the compiler's version, so an edited source or another toolchain
-rebuilds, and concurrent builds (test workers) never see a half-written file:
+Each library lands in ``_build/`` under a name that hashes its source, the
+headers it includes, its command and the compiler's version, so an edited
+source or another toolchain rebuilds, and concurrent builds (test workers) never see a half-written file:
 the compiler writes a private temporary name that is renamed into place.
 """
 from __future__ import annotations
@@ -23,6 +24,8 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE / "_build"
 FLASH_SRC = PACKAGE / "csrc" / "flash_attn_fwd.cu"
+FLASH_BWD_SRC = PACKAGE / "csrc" / "flash_attn_bwd.cu"
+FLASH_HEADERS = (PACKAGE / "csrc" / "flash_common.cuh",)
 RANS_SRC = PACKAGE / "entropy" / "csrc" / "rans.cpp"
 
 
@@ -37,13 +40,16 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def _build(src: Path, stem: str, cmd: list[str]) -> Path:
-    """Compile `src` with `cmd` (everything but the output and source) into
-    a content-addressed shared library; return its path."""
+def _build(src: Path, stem: str, cmd: list[str],
+           headers: tuple[Path, ...] = ()) -> Path:
+    """Compile `src` (which includes `headers`) with `cmd` (everything but
+    the output and source) into a content-addressed shared library; return
+    its path."""
     version = subprocess.run([cmd[0], "--version"], capture_output=True,
                              text=True, check=True).stdout
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(cmd).encode() + version.encode())
+        b"".join(f.read_bytes() for f in (src, *headers))
+        + " ".join(cmd).encode() + version.encode())
     out = BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
@@ -60,13 +66,20 @@ def _build(src: Path, stem: str, cmd: list[str]) -> Path:
     return out
 
 
-def build_flash() -> Path:
+def _nvcc_cmd() -> list[str]:
     """nvcc for sm_90a into a library with a plain C interface (no PyTorch
     headers, so it builds in seconds). `-Xptxas -v` keeps each kernel's
     registers and spills in the log."""
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-    return _build(FLASH_SRC, "flash_attn_fwd", cmd)
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def build_flash() -> Path:
+    return _build(FLASH_SRC, "flash_attn_fwd", _nvcc_cmd(), FLASH_HEADERS)
+
+
+def build_flash_bwd() -> Path:
+    return _build(FLASH_BWD_SRC, "flash_attn_bwd", _nvcc_cmd(), FLASH_HEADERS)
 
 
 def build_rans() -> Path:
@@ -76,7 +89,8 @@ def build_rans() -> Path:
 
 def build_all() -> dict[str, Path]:
     """Start every build at once and wait for all of them."""
-    builds = {"flash_attn_fwd": build_flash, "rans": build_rans}
+    builds = {"flash_attn_fwd": build_flash, "flash_attn_bwd": build_flash_bwd,
+              "rans": build_rans}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builds.items()}
         return {name: fut.result() for name, fut in futures.items()}

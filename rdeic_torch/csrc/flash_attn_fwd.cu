@@ -1,7 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a), written by hand.
 //
 // Replaces: rdeic_tpu/ops/flash_attention.py `_flash_kernel` as launched by
-// `_flash_forward(save_residuals=False)`: non-causal, unmasked
+// `_flash_forward`, with and without `save_residuals`: non-causal, unmasked
 // softmax(Q K^T * d^-1/2) V with a streaming row max and denominator and an
 // fp32 accumulator; the padded K tail is masked to -1e30 and the output is
 // divided by max(l, 1e-30).
@@ -9,6 +9,10 @@
 // Layout: q, k, v, o are contiguous [B, L, H, D] (the layout the attention
 // modules produce, so no transpose is needed around the call); fp32 or bf16
 // in, the same type out, all arithmetic in fp32.
+//
+// lse: optional [B*H, L] fp32 output, the row logsumexp m + log(l) of the
+// scaled scores, for the backward kernels (flash_attn_bwd.cu). A null
+// pointer skips it, so the serving path runs without the extra store.
 //
 // Design: one block owns one (b*h, q-tile) pair and loops over the K/V tiles
 // itself (the TPU kernel's sequential k grid axis becomes this loop). The
@@ -30,36 +34,13 @@
 // inputs) versus 4*B*L*H*D elements of traffic; at the main path's
 // L = 1536..6144 the flops bound it by two to three orders of magnitude.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-
-template <typename T>
-__device__ __forceinline__ float load_f32(const T* p);
-template <>
-__device__ __forceinline__ float load_f32<float>(const float* p) {
-  return *p;
-}
-template <>
-__device__ __forceinline__ float load_f32<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's cast
-}
+using rdeic_flash::from_f32;
+using rdeic_flash::kNegInf;
+using rdeic_flash::load_f32;
 
 // D: head dim. BQ/BK: q and k tile rows. NT: threads.
 // SM x SN: score patch per thread; TM x TN: output patch per thread.
@@ -83,8 +64,8 @@ template <typename T, int D, int BQ, int BK, int NT, int SM, int SN, int TM,
           int TN>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int L, int H,
-                     float scale) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int L, int H, float scale) {
   using C = Tile<D, BQ, BK, NT, SM, SN, TM, TN>;
   extern __shared__ float smem[];
   float* qs = smem;                   // [BQ][QS], pre-scaled
@@ -215,6 +196,16 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();
 
+  if (lse != nullptr && sx == 0) {
+#pragma unroll
+    for (int i = 0; i < SM; ++i) {
+      const int r = sy + i * C::SY;
+      if (q0 + r < L)
+        lse[static_cast<int64_t>(blockIdx.y) * L + q0 + r] =
+            m_run[i] + logf(fmaxf(l_run[i], 1e-30f));
+    }
+  }
+
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = oy + i * C::OY;
@@ -229,7 +220,8 @@ __global__ void __launch_bounds__(NT)
 template <typename T, int D, int BQ, int BK, int NT, int SM, int SN, int TM,
           int TN>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int L, int H, float scale, cudaStream_t stream) {
+                   float* lse, int B, int L, int H, float scale,
+                   cudaStream_t stream) {
   using C = Tile<D, BQ, BK, NT, SM, SN, TM, TN>;
   auto kernel = flash_fwd_kernel<T, D, BQ, BK, NT, SM, SN, TM, TN>;
   const int smem = C::kSmemFloats * static_cast<int>(sizeof(float));
@@ -239,22 +231,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((L + BQ - 1) / BQ, B * H);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), L, H, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, L, H, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int L, int H, int D, float scale, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int L, int H, int D, float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16, 64, 64, 128, 8, 4, 8, 1>(q, k, v, o, B, L, H,
+      return launch<T, 16, 64, 64, 128, 8, 4, 8, 1>(q, k, v, o, lse, B, L, H,
                                                      scale, stream);
     case 64:
-      return launch<T, 64, 64, 64, 256, 4, 4, 4, 4>(q, k, v, o, B, L, H,
+      return launch<T, 64, 64, 64, 256, 4, 4, 4, 4>(q, k, v, o, lse, B, L, H,
                                                      scale, stream);
     case 512:
-      return launch<T, 512, 32, 32, 256, 2, 2, 4, 16>(q, k, v, o, B, L, H,
+      return launch<T, 512, 32, 32, 256, 2, 2, 4, 16>(q, k, v, o, lse, B, L, H,
                                                        scale, stream);
     default:
       return -1;
@@ -265,15 +257,16 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns 0, a cudaError_t, or -1 for a
-// head dim or dtype this file was not built for.
+// dtype: 0 = float32, 1 = bfloat16; lse may be null. Returns 0, a
+// cudaError_t, or -1 for a head dim or dtype this file was not built for.
 int rdeic_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                         int B, int L, int H, int D, int dtype, float scale,
-                         void* stream) {
+                         void* lse, int B, int L, int H, int D, int dtype,
+                         float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, o, B, L, H, D, scale, st);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0) return dispatch<float>(q, k, v, o, l, B, L, H, D, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, L, H, D, scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, o, l, B, L, H, D, scale, st);
   return -1;
 }
 

@@ -125,6 +125,12 @@ class NoiseSchedule:
         return (self.ftable("sqrt_alphas_cumprod", t, n) * x_start
                 + self.ftable("sqrt_one_minus_alphas_cumprod", t, n) * noise)
 
+    def predict_xstart_from_eps(self, x_t: torch.Tensor, t: torch.Tensor,
+                                eps: torch.Tensor) -> torch.Tensor:
+        n = x_t.dim()
+        return (self.ftable("sqrt_recip_alphas_cumprod", t, n) * x_t
+                - self.ftable("sqrt_recipm1_alphas_cumprod", t, n) * eps)
+
 
 def spaced_schedule(base: NoiseSchedule, used_timesteps: int,
                     num_steps) -> tuple[NoiseSchedule, np.ndarray]:

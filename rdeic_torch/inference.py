@@ -21,12 +21,10 @@ import torch
 
 from rdeic_torch.registry import instantiate_from_config, load_yaml
 from rdeic_torch.utils.backend import resolve_device
-from rdeic_torch.utils.convert import load_jax_params, load_npz
+from rdeic_torch.utils.convert import load_npz_weights
 from rdeic_torch.utils.image import pad, to_float01, to_uint8
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".tif", ".tiff")
-# parameter subtrees a checkpoint may carry that this path never runs
-_UNUSED_SUBTREES = ("clip/", "lpips/")
 
 
 def process(model, img01: torch.Tensor, steps: int, stream_path: str,
@@ -46,9 +44,7 @@ def load_model(config: str, ckpt: str, device: torch.device):
             f"{ckpt}: only flat .npz params load here; orbax train-state "
             "checkpoints come with ROADMAP Queue 1 item 9")
     model = instantiate_from_config(load_yaml(config), device=device)
-    flat = {k: v for k, v in load_npz(ckpt).items()
-            if not k.startswith(_UNUSED_SUBTREES)}
-    model.load_state_dict(load_jax_params(flat), strict=True)
+    load_npz_weights(model, ckpt)
     return model.eval()
 
 

@@ -1,11 +1,9 @@
-"""Learned compression model, inference methods (counterpart of
-rdeic_tpu/models/compression.py).
+"""Learned compression model (counterpart of rdeic_tpu/models/compression.py).
 
 NCHW inside; every public method takes and returns NHWC, as the JAX methods
 do, so the codec and the tests see the same layout. The same methods serve
 encode and decode, which is what keeps the entropy parameters bit-identical
-on both sides. The training forward (likelihoods, VQ losses) comes with the
-training slice.
+on both sides, and the training forward (noisy likelihoods, CVQ losses).
 """
 from __future__ import annotations
 
@@ -16,6 +14,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from rdeic_torch.models.blocks import Conv, nchw, nhwc, pixel_shuffle
+from rdeic_torch.ops import ckbd
+from rdeic_torch.ops.gaussian import likelihood, ste_round
 
 
 class ResidualBlock(nn.Module):
@@ -156,8 +156,39 @@ class EntropyParametersEX(nn.Module):
         return self.conv3(h)
 
 
+def vq_logits(z_flat: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
+    """[n, K] negative squared L2 distance of each row to every code."""
+    return (2.0 * (z_flat @ embedding.T) - (embedding * embedding).sum(-1)[None, :]
+            - (z_flat * z_flat).sum(-1, keepdim=True))
+
+
+CODEBOOK_DECAY = 0.99  # EMA rate of the codebook usage
+
+
+@torch.no_grad()
+def vq_codebook_update(embedding: torch.Tensor, embed_prob: torch.Tensor,
+                       z_flat: torch.Tensor):
+    """CVQ-VAE 'closest'-anchor reinitialisation: (new embedding, new usage).
+
+    An EMA of each code's usage, then every code pulled towards its closest
+    input row with a strength that fades as the code gets used. The trainer
+    applies it after the optimizer, on every call."""
+    d = vq_logits(z_flat, embedding)
+    k = embedding.shape[0]
+    counts = torch.bincount(torch.argmax(d, dim=1), minlength=k)
+    usage = counts.to(embed_prob.dtype) / d.shape[0]
+    new_prob = embed_prob * CODEBOOK_DECAY + usage * (1 - CODEBOOK_DECAY)
+    random_feat = z_flat[torch.argmax(d, dim=0)]
+    alpha = torch.exp(-(new_prob * k * 10) / (1 - CODEBOOK_DECAY) - 1e-3)[:, None]
+    return embedding * (1 - alpha) + random_feat * alpha, new_prob
+
+
 class VectorQuantiser(nn.Module):
-    """CVQ-VAE codebook lookup over the hyper latent (inference methods)."""
+    """CVQ-VAE codebook over the hyper latent: the training forward
+    (commitment + codebook + contrastive loss, straight-through output) and
+    the inference lookups."""
+
+    beta = 0.25
 
     def __init__(self, num_embed: int, embed_dim: int):
         super().__init__()
@@ -167,9 +198,35 @@ class VectorQuantiser(nn.Module):
 
     def logits(self, z_flat: torch.Tensor) -> torch.Tensor:
         """Negative squared L2 distance to every code, in full fp32."""
-        e = self.embedding
-        return (2.0 * (z_flat @ e.T) - (e * e).sum(-1)[None, :]
-                - (z_flat * z_flat).sum(-1, keepdim=True))
+        return vq_logits(z_flat, self.embedding)
+
+    def forward(self, z: torch.Tensor, training: bool = True):
+        """z NHWC [B, h, w, D] -> (z_q, loss, indices [B, h, w])."""
+        b, h, w, d = z.shape
+        z_flat = z.reshape(-1, d)
+        logits = self.logits(z_flat.detach())
+        indices = torch.argmax(logits, dim=1)
+        z_q = self.embedding[indices].reshape(z.shape)
+        loss = z.new_zeros(())
+        if training:
+            loss = (self.beta * torch.mean((z_q.detach() - z) ** 2)
+                    + torch.mean((z_q - z.detach()) ** 2)
+                    + self._contrastive(logits))
+            z_q = z + (z_q - z).detach()
+        return z_q, loss, indices.reshape(b, h, w)
+
+    def _contrastive(self, logits: torch.Tensor) -> torch.Tensor:
+        """Per code: the mean of its n // K closest rows as the positive,
+        its n // 2 farthest rows as the negatives, a 0.07-temperature
+        softmax; only the selected values matter, so top-k stands in for a
+        sort."""
+        n = logits.shape[0]
+        lt = logits.T  # [K, n]
+        n_pos = max(1, n // self.embedding.shape[0])
+        dis_pos = torch.topk(lt, n_pos, dim=1).values.mean(dim=1, keepdim=True)
+        dis_neg = -torch.topk(-lt, n // 2, dim=1).values
+        dis = torch.cat([dis_pos, dis_neg], dim=1) / 0.07
+        return -torch.mean(torch.log_softmax(dis, dim=1)[:, 0])
 
     def quant(self, z: torch.Tensor):
         """z NHWC [B, h, w, D] -> (z_q NHWC, indices [B, h, w]); ties take
@@ -265,3 +322,43 @@ class CompressionModel(nn.Module):
         """y_hat -> (c_latent [B, 2h, 2w, out_nc], guide_hint [B, 2h, 2w, M])."""
         guide_hint = self.decoder(nchw(y_hat))
         return nhwc(self.out(guide_hint)), nhwc(guide_hint)
+
+    def forward(self, x: torch.Tensor, noise: Sequence[torch.Tensor] | None = None,
+                training: bool = True) -> dict:
+        """The rate-estimation forward: x [B, H, W, in_nc] -> dict of
+        c_latent, guide_hint, y_likelihoods, q_likelihoods, emb_loss, z (the
+        hyper latent) and vq_indices. Training takes `noise`, one U(-0.5,
+        0.5) tensor per slice of y's shape [B, h, w, slice_ch[i]]."""
+        if training and (noise is None or len(noise) != self.slice_num):
+            raise ValueError(f"training needs {self.slice_num} uniform noise "
+                             "tensors, one per slice")
+        y, z = self.analyze(x)
+        z_q, emb_loss, vq_indices = self.quantize(z, training=training)
+        hyper_params = self.hyper_decode(z_q)
+        y_hat_slices, y_likelihoods, q_likelihoods = [], [], []
+        for idx, y_slice in enumerate(torch.split(y, self.slice_ch, dim=-1)):
+            slice_anchor, slice_nonanchor = ckbd.ckbd_split(y_slice)
+            y_hat_prev = torch.cat(y_hat_slices, dim=-1) if idx else None
+            scales_a, means_a, channel_ctx = self.params_anchor(
+                idx, hyper_params, y_hat_prev)
+            scales_a, means_a = ckbd.ckbd_anchor(scales_a), ckbd.ckbd_anchor(means_a)
+            slice_anchor = ste_round(slice_anchor - means_a) + means_a
+            scales_na, means_na = self.params_nonanchor(
+                idx, hyper_params, channel_ctx, slice_anchor)
+            scales_na = ckbd.ckbd_nonanchor(scales_na)
+            means_na = ckbd.ckbd_nonanchor(means_na)
+            scales = ckbd.ckbd_merge(scales_a, scales_na)
+            means = ckbd.ckbd_merge(means_a, means_na)
+            _, q_like = likelihood(y_slice, scales, means)
+            y_like = q_like
+            if training:
+                _, y_like = likelihood(y_slice, scales, means, noise=noise[idx])
+            slice_nonanchor = ste_round(slice_nonanchor - means_na) + means_na
+            y_hat_slices.append(slice_anchor + slice_nonanchor)
+            y_likelihoods.append(y_like)
+            q_likelihoods.append(q_like)
+        c_latent, guide_hint = self.synthesize(torch.cat(y_hat_slices, dim=-1))
+        return dict(c_latent=c_latent, guide_hint=guide_hint,
+                    y_likelihoods=torch.cat(y_likelihoods, dim=-1),
+                    q_likelihoods=torch.cat(q_likelihoods, dim=-1),
+                    emb_loss=emb_loss, z=z, vq_indices=vq_indices)

@@ -3,7 +3,10 @@ rdeic_tpu/models/unet.py).
 
 NCHW inside; `NoiseEstimator.forward` takes and returns NHWC. Every
 GroupNorm32 goes through the GroupNorm(+SiLU) kernel on the card and every
-self-attention over >= 1024 tokens through the flash kernel.
+self-attention over >= 1024 tokens through the flash kernel. With
+`use_checkpoint`, training recomputes each encoder, middle and decoder block
+in the backward instead of keeping its activations (the JAX package's
+`nn.remat` around the same blocks).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rdeic_torch.models.blocks import (
     Conv,
@@ -336,8 +340,14 @@ class NoiseEstimator(nn.Module):
                  channel_mult: Sequence[int] = (1, 2, 4, 4),
                  num_head_channels: int = 64, ctrl_num_head_channels: int = 16,
                  context_dim: int = 1024, control_model_ratio: float = 0.2,
-                 control_scale: float = 1.0):
+                 control_scale: float = 1.0, use_checkpoint: bool = False,
+                 remat_policy: str | None = None):
         super().__init__()
+        if remat_policy is not None:
+            raise NotImplementedError(
+                f"remat_policy {remat_policy!r}: the port recomputes whole "
+                "blocks only (ROADMAP Queue 1 item 9)")
+        self.use_checkpoint = use_checkpoint
         common = dict(in_channels=in_channels, model_channels=model_channels,
                       num_res_blocks=num_res_blocks,
                       attention_resolutions=tuple(attention_resolutions),
@@ -370,11 +380,16 @@ class NoiseEstimator(nn.Module):
             self.add_module(f"dec_zero_convs_out_{i}", conv)
             self.dec_zero_convs.append(conv)
 
+    def _block(self, block: nn.Module, *args) -> torch.Tensor:
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 guide_hint: torch.Tensor) -> torch.Tensor:
         """x [B, H, W, 4], t [B], context [B, L, context_dim], guide_hint
         [B, H, W, hint] -> eps [B, H, W, 4]."""
-        base, ctrl = self.base, self.control
+        base, ctrl, run = self.base, self.control, self._block
         emb_base = base.embed_time(t)
         emb_ctrl = ctrl.embed_time(t)
         scale = self.control_scale * self.control_scale
@@ -383,16 +398,16 @@ class NoiseEstimator(nn.Module):
         skips_base, skips_ctrl = [], []
         for blk_b, blk_c, zc in zip(base.input_blocks, ctrl.input_blocks,
                                     self.enc_zero_convs):
-            h_base = blk_b(h_base, emb_base, context)
-            h_ctrl = blk_c(h_ctrl, emb_ctrl, context)
+            h_base = run(blk_b, h_base, emb_base, context)
+            h_ctrl = run(blk_c, h_ctrl, emb_ctrl, context)
             h_base = h_base + zc(h_ctrl) * scale
             skips_base.append(h_base)
             skips_ctrl.append(h_ctrl)
-        h_base = base.mid(h_base, emb_base, context)
-        h_ctrl = ctrl.mid(h_ctrl, emb_ctrl, context)
+        h_base = run(base.mid, h_base, emb_base, context)
+        h_ctrl = run(ctrl.mid, h_ctrl, emb_ctrl, context)
         h_base = h_base + self.middle_block_out(h_ctrl) * scale
         for blk_b, zc in zip(base.output_blocks, self.dec_zero_convs):
             h_base = h_base + zc(skips_ctrl.pop()) * scale
             h_base = torch.cat([h_base, skips_base.pop()], dim=1)
-            h_base = blk_b(h_base, emb_base, context)
+            h_base = run(blk_b, h_base, emb_base, context)
         return nhwc(base.out_conv(base.out_norm(h_base)))

@@ -155,6 +155,13 @@ class VAEDecoder(nn.Module):
         return self.conv_out(F.silu(self.norm_out(h)))
 
 
+def sample_diagonal_gaussian(mean: torch.Tensor, logvar: torch.Tensor,
+                             noise: torch.Tensor) -> torch.Tensor:
+    """A posterior sample mean + exp(logvar / 2) * noise, with the caller's
+    standard-normal `noise`."""
+    return mean + torch.exp(0.5 * logvar) * noise
+
+
 class AutoencoderKL(nn.Module):
     """VAE with the quant/post-quant 1x1 convs and the encode_hc twin output."""
 

@@ -2,13 +2,42 @@
 rdeic_tpu/ops/ckbd.py).
 
 Anchor = (even row, odd col) + (odd row, even col); non-anchor is the
-complement. "Squeeze" packs one half into a dense [B, H, W//2, C] tensor in
-the row-major order the bitstream codes its symbols in; "unsqueeze" is the
-exact inverse (zeros elsewhere).
+complement. The masks zero one half in place (the training forward);
+"squeeze" packs one half into a dense [B, H, W//2, C] tensor in the
+row-major order the bitstream codes its symbols in; "unsqueeze" is the exact
+inverse (zeros elsewhere).
 """
 from __future__ import annotations
 
 import torch
+
+
+def _checkerboard(y: torch.Tensor, anchor: bool) -> torch.Tensor:
+    """[H, W, 1] mask in y's dtype: 1 where (row + col) is odd for the
+    anchor half, where it is even for the non-anchor half."""
+    h, w = y.shape[1:3]
+    parity = (torch.arange(h, device=y.device)[:, None]
+              + torch.arange(w, device=y.device)[None, :]) % 2
+    mask = parity if anchor else 1 - parity
+    return mask[..., None].to(y.dtype)
+
+
+def ckbd_anchor(y: torch.Tensor) -> torch.Tensor:
+    """Zero the non-anchor positions of NHWC `y`."""
+    return y * _checkerboard(y, anchor=True)
+
+
+def ckbd_nonanchor(y: torch.Tensor) -> torch.Tensor:
+    """Zero the anchor positions of NHWC `y`."""
+    return y * _checkerboard(y, anchor=False)
+
+
+def ckbd_split(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return ckbd_anchor(y), ckbd_nonanchor(y)
+
+
+def ckbd_merge(anchor: torch.Tensor, nonanchor: torch.Tensor) -> torch.Tensor:
+    return anchor + nonanchor
 
 
 def _interleave_rows(even_rows: torch.Tensor, odd_rows: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,18 @@
-"""GroupNorm(+SiLU) forward: a hand-written Triton kernel and its plain version.
+"""GroupNorm(+SiLU): hand-written Triton kernels, their plain versions, and
+the autograd function that joins them.
 
-Replaces the forward Pallas kernels of ``rdeic_tpu/ops/fused_groupnorm.py``:
-``_gn_fwd_kernel`` (whole slab, through ``_run_fwd``) and the row-chunked
-pair ``_gn_csum_kernel`` + ``_gn_affine_kernel`` (``_run_fwd_chunked``).
-The TPU split between a whole-slab and a chunked kernel exists only to fit
-VMEM; one design serves every shape here.
+Replaces the Pallas kernels of ``rdeic_tpu/ops/fused_groupnorm.py``. The
+forward ``_gn_fwd_kernel`` (whole slab, ``_run_fwd``) and the row-chunked
+pair ``_gn_csum_kernel`` + ``_gn_affine_kernel`` (``_run_fwd_chunked``)
+become one stats + apply pair; the backward ``_gn_bwd_kernel`` (whole slab,
+``_group_norm_bwd``) and the chunked pair ``_gn_bstat_kernel`` +
+``_gn_bdx_kernel`` (``_run_bwd_chunked``) become one moments + dx pair. The
+TPU split between a whole-slab and a chunked kernel exists only to fit VMEM;
+one design serves every shape here. Every pass is a fused elementwise +
+reduction sweep over contiguous NCHW spans: memory-bound work where Triton's
+block model serves as well as CUDA C++.
 
-Layout: NCHW (the port's internal layout), so the ``C/G * H * W`` elements
-of one (batch, group) pair are one contiguous span. Two launches:
+Forward, two launches over (batch, group) spans of C/G * H * W elements:
 
 1. ``_gn_stats``: grid (B*G, chunks); each program sums one chunk of one
    span into a partial (sum x, sum x^2) pair in fp32. No atomics: every
@@ -15,15 +20,25 @@ of one (batch, group) pair are one contiguous span. Two launches:
 2. ``_gn_apply``: grid (B*G, chunks); each program reduces its span's
    partials in a fixed order, forms mean and 1/sqrt(var + eps), and writes
    y = x * w + off (w = inv * scale[c], off = bias[c] - mean * w), then SiLU
-   when asked, in the input dtype.
+   when asked, in the input dtype. The first chunk also stores the span's
+   mean and 1/std ((B, G) fp32): the backward rebuilds x_hat from x and
+   these, so no second slab is saved.
 
-Bound on the H100: memory. The function must read x once and write y once
-(2 * numel * itemsize bytes at 3.35 TB/s); the kernel reads x twice, so it
-can reach at most two thirds of that bound (a later PR can keep a span's
-chunk in registers between the passes where it fits).
+Backward, two launches over (batch, channel) spans of H * W elements, with
+dp = dy through the SiLU when fused (p = x_hat * g + b,
+dp = dy * sigmoid(p) * (1 + p * (1 - sigmoid(p)))):
 
-``group_norm`` runs the plain version for a tensor on the CPU and the kernel
-for a tensor on the card; on the card it never falls back.
+1. ``_gn_bstat``: grid (B*C, chunks); per-chunk partial sums of dp and
+   dp * x_hat, each in its own slot (no atomics, fixed-order reduce).
+2. small torch reductions, as ``_run_bwd_chunked`` does in jnp: dscale and
+   dbias over the batch, the group moments m1 = mean(dp * g) and
+   m2 = mean(dp * g * x_hat);
+3. ``_gn_bdx``: grid (B*C, chunks); dx = inv * (dp * g - m1 - x_hat * m2).
+
+Bound on the H100: memory. The forward must read x and write y
+(2 * numel * itemsize bytes at 3.35 TB/s) and reads x twice; the backward
+must read x and dy and write dx (3 * numel * itemsize) and reads x and dy
+twice, so each reaches at most two thirds of its bound.
 """
 from __future__ import annotations
 
@@ -35,23 +50,75 @@ BLOCK = 4096  # elements of one span a program handles
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                     groups: int, eps: float, silu: bool = False) -> torch.Tensor:
-    """GroupNorm over NCHW `x` with fp32 statistics (var = E[x^2] - mean^2,
-    clamped at 0, as flax computes it), output in the input dtype."""
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """fp32 statistics for fp32 and bf16; float64 stays float64 (gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _per_channel(v: torch.Tensor, cg: int, ndim: int) -> torch.Tensor:
+    """(B, G) -> (B, C, 1, ...) broadcastable against an `ndim`-dim x."""
+    v = v.repeat_interleave(cg, dim=1)
+    return v.reshape(v.shape + (1,) * (ndim - 2))
+
+
+def group_norm_fwd_plain(x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor, groups: int, eps: float,
+                         silu: bool = False):
+    """(y, mean, inv): GroupNorm over NCHW `x` with fp32 statistics
+    (var = E[x^2] - mean^2, clamped at 0, as flax computes it), y in the
+    input dtype, mean and 1/std as (B, G)."""
+    ct = _compute_dtype(x.dtype)
     b, c = x.shape[:2]
-    xf = x.float().reshape(b, groups, -1)
+    xf = x.to(ct).reshape(b, groups, -1)
     mean = xf.mean(dim=-1)
     var = torch.clamp((xf * xf).mean(dim=-1) - mean * mean, min=0.0)
     inv = torch.rsqrt(var + eps)
     cg = c // groups
-    w = inv.repeat_interleave(cg, dim=1) * weight.float()[None]  # [B, C]
-    off = bias.float()[None] - mean.repeat_interleave(cg, dim=1) * w
+    w = inv.repeat_interleave(cg, dim=1) * weight.to(ct)[None]  # [B, C]
+    off = bias.to(ct)[None] - mean.repeat_interleave(cg, dim=1) * w
     shape = (b, c) + (1,) * (x.dim() - 2)
-    y = x.float() * w.reshape(shape) + off.reshape(shape)
+    y = x.to(ct) * w.reshape(shape) + off.reshape(shape)
     if silu:
         y = y * torch.sigmoid(y)
-    return y.to(x.dtype)
+    return y.to(x.dtype), mean, inv
+
+
+def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     groups: int, eps: float, silu: bool = False) -> torch.Tensor:
+    """The output of `group_norm_fwd_plain`."""
+    return group_norm_fwd_plain(x, weight, bias, groups, eps, silu)[0]
+
+
+def group_norm_bwd_plain(x, weight, bias, mean, inv, dy, groups: int,
+                         silu: bool = False):
+    """(dx, dscale, dbias) by the formulas of the backward kernels (not
+    through autograd), from the saved input and (B, G) mean and 1/std."""
+    ct = _compute_dtype(x.dtype)
+    b, c = x.shape[:2]
+    cg = c // groups
+    nd = x.dim()
+    xhat = (x.to(ct) - _per_channel(mean.to(ct), cg, nd)) \
+        * _per_channel(inv.to(ct), cg, nd)
+    shape = (1, c) + (1,) * (nd - 2)
+    g = weight.to(ct).reshape(shape)
+    dyf = dy.to(ct)
+    if silu:
+        p = xhat * g + bias.to(ct).reshape(shape)
+        sig = torch.sigmoid(p)
+        dp = dyf * sig * (1.0 + p * (1.0 - sig))
+    else:
+        dp = dyf
+    dims = tuple(range(2, nd))
+    sdp = dp.sum(dim=dims)  # [B, C]
+    sdpx = (dp * xhat).sum(dim=dims)
+    n = cg * x[0, 0].numel()
+    gc = weight.to(ct)[None]
+    m1 = (sdp * gc).reshape(b, groups, cg).sum(-1) / n
+    m2 = (sdpx * gc).reshape(b, groups, cg).sum(-1) / n
+    dx = _per_channel(inv.to(ct), cg, nd) * (
+        dp * g - _per_channel(m1, cg, nd) - xhat * _per_channel(m2, cg, nd))
+    return (dx.to(x.dtype), sdpx.sum(0).to(weight.dtype),
+            sdp.sum(0).to(bias.dtype))
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,9 +139,9 @@ def _kernels():
         tl.store(part_ptr + slot + 1, tl.sum(x * x, axis=0))
 
     @triton.jit
-    def _gn_apply(x_ptr, y_ptr, part_ptr, w_ptr, b_ptr, span, n, hw, cg,
-                  groups, nchunk, eps, SILU: tl.constexpr, BLOCK: tl.constexpr,
-                  NCHUNK: tl.constexpr):
+    def _gn_apply(x_ptr, y_ptr, part_ptr, w_ptr, b_ptr, mean_ptr, inv_ptr,
+                  span, n, hw, cg, groups, nchunk, eps, SILU: tl.constexpr,
+                  BLOCK: tl.constexpr, NCHUNK: tl.constexpr):
         row = tl.program_id(0)
         chunk = tl.program_id(1)
         g = row % groups
@@ -87,6 +154,8 @@ def _kernels():
         mean = s / n
         var = tl.maximum(ss / n - mean * mean, 0.0)
         inv = 1.0 / tl.sqrt(var + eps)
+        tl.store(mean_ptr + row, mean, mask=chunk == 0)
+        tl.store(inv_ptr + row, inv, mask=chunk == 0)
         offs = chunk * BLOCK + tl.arange(0, BLOCK)
         mask = offs < span
         ch = g * cg + offs // hw
@@ -99,10 +168,65 @@ def _kernels():
             y = y * tl.sigmoid(y)
         tl.store(y_ptr + base + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    return _gn_stats, _gn_apply
+    @triton.jit
+    def _dp_xhat(x_ptr, dy_ptr, mean_ptr, inv_ptr, w_ptr, b_ptr, row, hw,
+                 channels, groups, cg, offs, mask, SILU: tl.constexpr):
+        """(dp, x_hat, inv, gamma, group row) of one chunk of a (b, c) span."""
+        c = row % channels
+        grow = (row // channels) * groups + c // cg
+        mean = tl.load(mean_ptr + grow)
+        inv = tl.load(inv_ptr + grow)
+        gamma = tl.load(w_ptr + c).to(tl.float32)
+        base = row.to(tl.int64) * hw
+        x = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
+        dy = tl.load(dy_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
+        xhat = (x - mean) * inv
+        if SILU:
+            p = xhat * gamma + tl.load(b_ptr + c).to(tl.float32)
+            sig = tl.sigmoid(p)
+            dp = dy * sig * (1.0 + p * (1.0 - sig))
+        else:
+            dp = dy
+        return dp, xhat, inv, gamma, grow
+
+    @triton.jit
+    def _gn_bstat(x_ptr, dy_ptr, mean_ptr, inv_ptr, w_ptr, b_ptr, part_ptr,
+                  hw, channels, groups, cg, nchunk, SILU: tl.constexpr,
+                  BLOCK: tl.constexpr):
+        row = tl.program_id(0)
+        chunk = tl.program_id(1)
+        offs = chunk * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < hw
+        dp, xhat, _, _, _ = _dp_xhat(x_ptr, dy_ptr, mean_ptr, inv_ptr, w_ptr,
+                                     b_ptr, row, hw, channels, groups, cg,
+                                     offs, mask, SILU)
+        dp = tl.where(mask, dp, 0.0)
+        slot = (row * nchunk + chunk) * 2
+        tl.store(part_ptr + slot, tl.sum(dp, axis=0))
+        tl.store(part_ptr + slot + 1, tl.sum(dp * xhat, axis=0))
+
+    @triton.jit
+    def _gn_bdx(x_ptr, dy_ptr, mean_ptr, inv_ptr, w_ptr, b_ptr, m1_ptr,
+                m2_ptr, dx_ptr, hw, channels, groups, cg, SILU: tl.constexpr,
+                BLOCK: tl.constexpr):
+        row = tl.program_id(0)
+        chunk = tl.program_id(1)
+        offs = chunk * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < hw
+        dp, xhat, inv, gamma, grow = _dp_xhat(
+            x_ptr, dy_ptr, mean_ptr, inv_ptr, w_ptr, b_ptr, row, hw, channels,
+            groups, cg, offs, mask, SILU)
+        m1 = tl.load(m1_ptr + grow)
+        m2 = tl.load(m2_ptr + grow)
+        dx = inv * (dp * gamma - m1 - xhat * m2)
+        base = row.to(tl.int64) * hw
+        tl.store(dx_ptr + base + offs, dx.to(dx_ptr.dtype.element_ty),
+                 mask=mask)
+
+    return _gn_stats, _gn_apply, _gn_bstat, _gn_bdx
 
 
-def _check(x, weight, bias, groups):
+def _check(x, weight, bias, groups, *same_as_x):
     if x.device.type != "cuda":
         raise ValueError(f"group_norm runs on cuda or cpu, not {x.device}")
     if x.dim() != 4 or x.shape[1] % groups:
@@ -111,6 +235,11 @@ def _check(x, weight, bias, groups):
     if x.dtype not in _DTYPES or not x.is_contiguous():
         raise ValueError(f"group_norm takes contiguous {_DTYPES}, got "
                          f"{x.dtype} (contiguous={x.is_contiguous()})")
+    for t in same_as_x:
+        if (t.shape != x.shape or t.dtype != x.dtype or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError("group_norm gradients must match x: contiguous "
+                             f"{tuple(x.shape)} {x.dtype}")
     c = x.shape[1]
     for p in (weight, bias):
         if p.shape != (c,) or p.device != x.device or not p.is_contiguous():
@@ -118,39 +247,121 @@ def _check(x, weight, bias, groups):
                              "on the input's device")
 
 
-def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               groups: int, eps: float, silu: bool = False) -> torch.Tensor:
-    """GroupNorm(+SiLU) over NCHW `x`: fp32 statistics, input-dtype output.
+def _shape_key(x, groups, eps, silu):
+    b, c, h, w = x.shape
+    return (b, c, h, w, groups, eps, bool(silu),
+            str(x.dtype).removeprefix("torch."))
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise). `group_norm.launches` counts kernel launches (two per call: the
-    stats pass, then the apply pass) and `group_norm.shapes` tallies calls
-    by (B, C, H, W, groups, eps, silu, dtype).
-    """
+
+def _tally(fn, key) -> None:
+    """One call of `fn` (two kernel launches), tallied by shape."""
+    fn.launches += 2
+    fn.shapes[key] = fn.shapes.get(key, 0) + 1
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def group_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   groups: int, eps: float, silu: bool = False):
+    """(y, mean, inv) of GroupNorm(+SiLU) over NCHW `x`. CUDA tensors launch
+    the stats and apply kernels (two launches, counted in
+    `group_norm.launches`); CPU tensors take the plain version."""
     if x.device.type == "cpu":
-        return group_norm_plain(x, weight, bias, groups, eps, silu)
+        return group_norm_fwd_plain(x, weight, bias, groups, eps, silu)
     _check(x, weight, bias, groups)
     b, c, h, w = x.shape
     span = (c // groups) * h * w
     nchunk = -(-span // BLOCK)
-    stats, apply = _kernels()
+    stats, apply, _, _ = _kernels()
     part = torch.empty((b * groups, nchunk, 2), device=x.device,
                        dtype=torch.float32)
+    mean = torch.empty((b, groups), device=x.device, dtype=torch.float32)
+    inv = torch.empty_like(mean)
     y = torch.empty_like(x)
     grid = (b * groups, nchunk)
     with torch.cuda.device(x.device):
         stats[grid](x, part, span, nchunk, BLOCK=BLOCK, num_warps=8)
-        group_norm.launches += 1
-        apply[grid](x, y, part, weight, bias, span, float(span), h * w,
-                    c // groups, groups, nchunk, float(eps), SILU=bool(silu),
-                    BLOCK=BLOCK, NCHUNK=max(2, 1 << (nchunk - 1).bit_length()),
+        apply[grid](x, y, part, weight, bias, mean, inv, span, float(span),
+                    h * w, c // groups, groups, nchunk, float(eps),
+                    SILU=bool(silu), BLOCK=BLOCK, NCHUNK=max(2, _pow2(nchunk)),
                     num_warps=8)
-        group_norm.launches += 1
-    key = (b, c, h, w, groups, float(eps), bool(silu),
-           str(x.dtype).removeprefix("torch."))
-    group_norm.shapes[key] = group_norm.shapes.get(key, 0) + 1
-    return y
+    _tally(group_norm, _shape_key(x, groups, float(eps), silu))
+    return y, mean, inv
 
 
-group_norm.launches = 0
-group_norm.shapes = {}
+def group_norm_bwd(x, weight, bias, mean, inv, dy, groups: int,
+                   silu: bool = False):
+    """(dx, dscale, dbias). CUDA tensors launch the moments and dx kernels
+    (two launches, counted in `group_norm_bwd.launches`) around small torch
+    reductions; CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return group_norm_bwd_plain(x, weight, bias, mean, inv, dy, groups,
+                                    silu)
+    _check(x, weight, bias, groups, dy)
+    b, c, h, w = x.shape
+    if mean.shape != (b, groups) or inv.shape != (b, groups):
+        raise ValueError(f"mean and inv must be (B, G) = {(b, groups)}")
+    hw, cg = h * w, c // groups
+    block = min(BLOCK, max(128, _pow2(hw)))
+    nchunk = -(-hw // block)
+    _, _, bstat, bdx = _kernels()
+    part = torch.empty((b * c, nchunk, 2), device=x.device,
+                       dtype=torch.float32)
+    dx = torch.empty_like(x)
+    grid = (b * c, nchunk)
+    mean, inv = mean.contiguous(), inv.contiguous()
+    with torch.cuda.device(x.device):
+        bstat[grid](x, dy, mean, inv, weight, bias, part, hw, c, groups, cg,
+                    nchunk, SILU=bool(silu), BLOCK=block, num_warps=4)
+        sums = part.sum(dim=1).reshape(b, c, 2)
+        sdp, sdpx = sums[..., 0], sums[..., 1]
+        gc = weight.float()[None]
+        n = float(cg * hw)
+        m1 = ((sdp * gc).reshape(b, groups, cg).sum(-1) / n).contiguous()
+        m2 = ((sdpx * gc).reshape(b, groups, cg).sum(-1) / n).contiguous()
+        bdx[grid](x, dy, mean, inv, weight, bias, m1, m2, dx, hw, c, groups,
+                  cg, SILU=bool(silu), BLOCK=block, num_warps=4)
+    _tally(group_norm_bwd, _shape_key(x, groups, None, silu))
+    return dx, sdpx.sum(0).to(weight.dtype), sdp.sum(0).to(bias.dtype)
+
+
+class _GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps, silu):
+        y, mean, inv = group_norm_fwd(x, weight, bias, groups, eps, silu)
+        ctx.save_for_backward(x, weight, bias, mean, inv)
+        ctx.groups, ctx.silu = groups, silu
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, mean, inv = ctx.saved_tensors
+        dx, dscale, dbias = group_norm_bwd(x, weight, bias, mean, inv,
+                                           dy.contiguous(), ctx.groups,
+                                           ctx.silu)
+        return dx, dscale, dbias, None, None, None
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               groups: int, eps: float, silu: bool = False) -> torch.Tensor:
+    """GroupNorm(+SiLU) over NCHW `x`: fp32 statistics, input-dtype output,
+    differentiable through the backward kernels.
+
+    CPU tensors take the plain versions; CUDA tensors launch the kernels (or
+    raise). `group_norm.launches` counts forward kernel launches (two per
+    call: stats, then apply) and `group_norm.shapes` tallies calls by (B, C,
+    H, W, groups, eps, silu, dtype); `group_norm_bwd` keeps the same for the
+    backward (eps is None there). Without autograd the forward runs alone,
+    which spares the serving path the autograd function's host time.
+    """
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNorm.apply(x, weight, bias, groups, eps, silu)
+    return group_norm_fwd(x, weight, bias, groups, eps, silu)[0]
+
+
+for _fn in (group_norm, group_norm_bwd):
+    _fn.launches = 0
+    _fn.shapes = {}

@@ -1,9 +1,9 @@
-"""Conditional-Gaussian entropy tables (counterpart of rdeic_tpu/ops/gaussian.py).
+"""Conditional-Gaussian entropy model (counterpart of rdeic_tpu/ops/gaussian.py).
 
-The inference path needs the 64-level scale table, the scale -> table index
-map, and the quantized CDFs the rANS coder reads, built once on the host in
-float64. The training-only likelihood and lower bound come with the training
-slice.
+Inference needs the 64-level scale table, the scale -> table index map, and
+the quantized CDFs the rANS coder reads, built once on the host in float64.
+Training needs the likelihood, its lower bound with compressai's gradient
+rule, and straight-through rounding.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from scipy.special import erfc
 
 SCALE_BOUND = 0.11
+LIKELIHOOD_BOUND = 1e-9
 CDF_PRECISION = 16
 TAIL_MASS = 1e-9
 
@@ -21,6 +22,56 @@ TAIL_MASS = 1e-9
 def get_scale_table(minimum: float = SCALE_BOUND, maximum: float = 256.0,
                     levels: int = 64) -> np.ndarray:
     return np.exp(np.linspace(math.log(minimum), math.log(maximum), levels))
+
+
+class _LowerBound(torch.autograd.Function):
+    """max(x, bound); the gradient passes where x >= bound or where it
+    pushes x down (g < 0), as compressai's LowerBound."""
+
+    @staticmethod
+    def forward(ctx, x, bound: float):
+        ctx.save_for_backward(x)
+        ctx.bound = bound
+        return torch.clamp(x, min=bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where((x >= ctx.bound) | (g < 0), g, 0.0), None
+
+
+def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
+    return _LowerBound.apply(x, bound)
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even, with an identity gradient."""
+    return x + (torch.round(x) - x).detach()
+
+
+def _std_cumulative(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 * torch.erfc(-x * (2 ** -0.5))
+
+
+def likelihood(inputs: torch.Tensor, scales: torch.Tensor,
+               means: torch.Tensor | None = None, *,
+               noise: torch.Tensor | None = None):
+    """(outputs, likelihood) of a conditional Gaussian. With `noise` (the
+    caller's U(-0.5, 0.5) draw, the training surrogate) outputs = inputs +
+    noise; without it, rounding around the mean with a straight-through
+    gradient. The likelihood is P(|outputs - mean| +- 0.5) under
+    N(0, scale^2), both bounded below as compressai does."""
+    if noise is not None:
+        outputs = inputs + noise
+    elif means is not None:
+        outputs = ste_round(inputs - means) + means
+    else:
+        outputs = ste_round(inputs)
+    scales = lower_bound(scales, SCALE_BOUND)
+    values = torch.abs(outputs - means if means is not None else outputs)
+    upper = _std_cumulative((0.5 - values) / scales)
+    lower = _std_cumulative((-0.5 - values) / scales)
+    return outputs, lower_bound(upper - lower, LIKELIHOOD_BOUND)
 
 
 def build_indexes(scales: torch.Tensor, scale_table: np.ndarray) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""RDEIC inference surface (counterpart of rdeic_tpu/pipeline/rdeic.py).
+"""RDEIC model: the inference surface and the independent-phase training loss
+(counterpart of rdeic_tpu/pipeline/rdeic.py).
 
 `RDEIC` is built from the same config dict as the JAX class. Its module tree
 (`vae`, `compression`, `denoiser`, and the `uncond_context` and
@@ -10,14 +11,21 @@ bitstream file -> decompress to (c_latent, guide_hint) -> relay init at
 t = used_timesteps - 1 -> spaced-DDPM over the dual UNet -> VAE decode.
 Noise is explicit: pass the tensors, or a `torch.Generator` to draw them.
 
+Training (`loss_fn`, independent phase): VAE encode with a posterior sample,
+under no grad -> the compression model's forward with noisy likelihoods and
+the CVQ losses -> relay-shifted noise, one dual-UNet call, eps -> x0 loss.
+
 Numerics: the VAE and the denoiser run in full fp32 (`full_fp32`: no TF32,
 which cuDNN convolutions would use by default), so the card computes what the
-CPU reference computes; the codec adds its own deterministic settings.
+CPU reference computes; the codec adds its own deterministic settings. A
+training step runs its forward and its backward inside the scope.
 """
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Any, Mapping, Optional, Sequence
+
+import math
 
 import torch
 from torch import nn
@@ -26,7 +34,7 @@ from rdeic_torch.diffusion import spaced
 from rdeic_torch.diffusion.schedule import NoiseSchedule
 from rdeic_torch.models.compression import CompressionModel
 from rdeic_torch.models.unet import NoiseEstimator
-from rdeic_torch.models.vae import AutoencoderKL
+from rdeic_torch.models.vae import AutoencoderKL, sample_diagonal_gaussian
 from rdeic_torch.pipeline.codec import CompressionCodec
 from rdeic_torch.utils.backend import full_fp32, resolve_device
 from rdeic_torch.utils.bitstream import filesize, read_body, write_body
@@ -41,12 +49,15 @@ def _cfg_params(cfg: Optional[Mapping[str, Any]]) -> dict:
 
 
 class RDEIC(nn.Module):
-    """Relay-residual diffusion extreme image compression (inference)."""
+    """Relay-residual diffusion extreme image compression."""
 
     def __init__(self, control_stage_config: Optional[Mapping] = None,
                  unet_config: Optional[Mapping] = None,
                  first_stage_config: Optional[Mapping] = None,
                  preprocess_config: Optional[Mapping] = None,
+                 sd_locked: bool = True, is_refine: bool = False,
+                 learning_rate: float = 2e-5, l_bpp_weight: float = 1.0,
+                 l_guide_weight: float = 2.0,
                  used_timesteps: int = 300, timesteps: int = 1000,
                  linear_start: float = 0.00085, linear_end: float = 0.0120,
                  scale_factor: float = 0.18215, parameterization: str = "eps",
@@ -72,6 +83,14 @@ class RDEIC(nn.Module):
             linear_start=linear_start, linear_end=linear_end)
         self.used_timesteps = used_timesteps
         self.scale_factor = scale_factor
+        self.sd_locked = sd_locked
+        self.is_refine = is_refine
+        self.learning_rate = learning_rate
+        self.l_bpp_weight = l_bpp_weight
+        self.l_guide_weight = l_guide_weight
+        # the relay shift of the noise target (rdeic_tpu: self.lamba)
+        self.lamba = float(self.schedule.table(
+            "sqrt_recipm1_alphas_cumprod")[used_timesteps - 1])
         with device:
             self._build(ctrl, unet, vae_cfg, comp)
         self._codec: Optional[CompressionCodec] = None
@@ -90,8 +109,13 @@ class RDEIC(nn.Module):
             context_dim=ctrl.get("context_dim", 1024),
             control_model_ratio=ctrl.get("control_model_ratio", 0.2),
             control_scale=ctrl.get("control_scale", 1.0),
+            use_checkpoint=bool(ctrl.get("use_checkpoint", False)),
+            remat_policy=ctrl.get("remat_policy", unet.get("remat_policy")),
         )
         dd = vae_cfg.get("ddconfig", {})
+        # latent [B, H / f, W / f, embed_dim] of an [B, H, W, 3] image
+        self.latent_factor = 2 ** (len(dd.get("ch_mult", (1, 2, 4, 4))) - 1)
+        self.latent_channels = vae_cfg.get("embed_dim", 4)
         self.vae = AutoencoderKL(
             embed_dim=vae_cfg.get("embed_dim", 4), ch=dd.get("ch", 128),
             ch_mult=tuple(dd.get("ch_mult", (1, 2, 4, 4))),
@@ -156,6 +180,82 @@ class RDEIC(nn.Module):
         context = self.get_learned_conditioning(c_latent.shape[0])
         samples = self.sample(c_latent, guide_hint, context, steps, **noise)
         return torch.clamp((self.decode_first_stage(samples) + 1) / 2, 0.0, 1.0)
+
+    # -- training (independent phase) -------------------------------------------
+    def train_noise(self, img: torch.Tensor,
+                    generator: torch.Generator | None = None) -> dict:
+        """Every draw of one `loss_fn` call for images `img` [B, H, W, 3]:
+        `posterior` and `eps` N(0, 1) of the latent's shape, `t` uniform in
+        [0, used_timesteps), and `uniform`, one U(-0.5, 0.5) tensor per
+        slice of y."""
+        b, h, w, _ = img.shape
+        lh, lw = h // self.latent_factor, w // self.latent_factor
+        yh, yw = -(-lh // 2), -(-lw // 2)  # one stride-2 block in g_a
+        opts = dict(generator=generator, device=img.device, dtype=img.dtype)
+        latent = (b, lh, lw, self.latent_channels)
+        return dict(
+            posterior=torch.randn(latent, **opts),
+            t=torch.randint(0, self.used_timesteps, (b,), generator=generator,
+                            device=img.device),
+            eps=torch.randn(latent, **opts),
+            uniform=[torch.rand((b, yh, yw, c), **opts) - 0.5
+                     for c in self.compression.slice_ch])
+
+    def get_input(self, img: torch.Tensor, noise: dict):
+        """img NHWC in [-1, 1] -> (x_start z, cond). The frozen VAE encoder
+        runs without grad."""
+        with torch.no_grad():
+            mean, logvar, h = self.vae.encode_hc(img)
+            z = sample_diagonal_gaussian(mean, logvar, noise["posterior"])
+            z, h = z * self.scale_factor, h * self.scale_factor
+        out = self.compression(h, noise=noise["uniform"], training=True)
+        n, lh, lw, _ = z.shape
+        num_pixels = n * lh * lw * 64
+        bpp = torch.log(out["y_likelihoods"]).sum() / (-math.log(2) * num_pixels)
+        q_bpp = torch.log(out["q_likelihoods"]).sum() / (-math.log(2) * num_pixels)
+        cond = dict(c_crossattn=self.get_learned_conditioning(n),
+                    c_latent=out["c_latent"], guide_hint=out["guide_hint"],
+                    bpp=bpp, q_bpp=q_bpp, emb_loss=out["emb_loss"],
+                    z_hyper=out["z"], vq_indices=out["vq_indices"])
+        return z, cond
+
+    def p_losses_independent(self, z_start, cond, t, eps):
+        """One-step noise loss with the relay shift of the target: the noise
+        is eps + (c_latent - z_start) / lamba, the loss is on the predicted
+        x0, plus the guide, bpp and CVQ terms."""
+        c_latent = cond["c_latent"]
+        noise = eps + (c_latent - z_start) / self.lamba
+        x_noisy = self.schedule.q_sample(z_start, t, noise)
+        model_out = self.denoiser(x_noisy, t, cond["c_crossattn"],
+                                  cond["guide_hint"])
+        pred = self.schedule.predict_xstart_from_eps(x_noisy, t, model_out)
+        loss_simple = torch.mean((pred - z_start) ** 2, dim=(1, 2, 3))
+        loss_guide = torch.mean((c_latent - z_start) ** 2)
+        loss = (self.l_guide_weight * loss_simple.mean()
+                + self.l_guide_weight * loss_guide
+                + self.l_bpp_weight * cond["bpp"]
+                + self.l_bpp_weight * cond["emb_loss"])
+        logs = dict(l_simple=loss_simple.mean(), l_guide=loss_guide,
+                    l_bpp=cond["bpp"], q_bpp=cond["q_bpp"],
+                    l_emb=cond["emb_loss"], loss=loss)
+        return loss, logs
+
+    @full_fp32()
+    def loss_fn(self, img: torch.Tensor, noise: dict | None = None,
+                generator: torch.Generator | None = None):
+        """(loss, logs) of one batch of [-1, 1] NHWC images, from `noise` (a
+        `train_noise` dict) or draws from `generator`. logs["_z_hyper"] is
+        the hyper latent for the trainer's codebook update."""
+        if self.is_refine:
+            raise NotImplementedError(
+                "is_refine: the refine phase comes with the next slice "
+                "(ROADMAP Queue 1 item 10)")
+        if noise is None:
+            noise = self.train_noise(img, generator)
+        z, cond = self.get_input(img, noise)
+        loss, logs = self.p_losses_independent(z, cond, noise["t"], noise["eps"])
+        logs["_z_hyper"] = cond["z_hyper"].detach()
+        return loss, logs
 
     # -- real bitstream --------------------------------------------------------
     def codec(self) -> CompressionCodec:

@@ -55,3 +55,15 @@ def load_npz(path: str | Path) -> dict[str, np.ndarray]:
             raise ValueError(f"{path}: a leaf is stored as an opaque record "
                              "(an old bfloat16 export); re-export it in fp32")
         return {k: data[k] for k in data.files}
+
+
+# parameter subtrees a JAX checkpoint may carry that the port never runs
+_UNUSED_SUBTREES = ("clip/", "lpips/")
+
+
+def load_npz_weights(model: torch.nn.Module, path: str | Path) -> None:
+    """Load a `save_params_npz` file into the port's RDEIC, strictly (minus
+    the CLIP and LPIPS subtrees, which the port does not build)."""
+    flat = {k: v for k, v in load_npz(path).items()
+            if not k.startswith(_UNUSED_SUBTREES)}
+    model.load_state_dict(load_jax_params(flat), strict=True)

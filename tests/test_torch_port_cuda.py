@@ -12,8 +12,25 @@ import numpy as np
 import pytest
 import torch
 
-from rdeic_torch.ops.flash_attention import flash_attention, flash_attention_plain
-from rdeic_torch.ops.fused_groupnorm import group_norm, group_norm_plain
+from rdeic_torch.models.blocks import GroupNorm32
+from rdeic_torch.models.unet import CrossAttention
+from rdeic_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_dkv,
+    flash_attention_dq,
+    flash_attention_lse,
+    flash_attention_lse_plain,
+    flash_attention_plain,
+)
+from rdeic_torch.ops.fused_groupnorm import (
+    group_norm,
+    group_norm_bwd,
+    group_norm_bwd_plain,
+    group_norm_fwd,
+    group_norm_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -25,6 +42,16 @@ FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
 GN_SHAPES = [(1, 320, 96, 64), (1, 2560, 12, 8), (1, 1920, 24, 16),
              (1, 960, 48, 32), (1, 640, 96, 64), (1, 64, 96, 64),
              (1, 256, 12, 8), (2, 128, 7, 9)]
+# (B, L, H, D) of the training path's flash calls at 512x512, B = 2, plus
+# ragged L (the backward masks padded q rows and k columns)
+FLASH_TRAIN_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64), (2, 4096, 4, 16),
+                      (2, 1024, 8, 16), (2, 1000, 3, 64), (1, 77, 2, 16)]
+# (B, C, H, W, groups) of GroupNorm backward: denoiser widths at 512x512
+# (64x64 latents), a 48-channel control width (find_denominator gives 24
+# groups), and ragged spans
+GN_TRAIN_SHAPES = [(2, 320, 64, 64, 32), (2, 1280, 8, 8, 32),
+                   (2, 64, 64, 64, 32), (2, 48, 32, 32, 24),
+                   (2, 256, 16, 16, 32), (1, 96, 7, 9, 32)]
 
 
 @pytest.fixture
@@ -87,6 +114,118 @@ def test_groupnorm_kernel_bf16(cuda):
     assert out.dtype == torch.bfloat16
     want = group_norm_plain(x, w, b, 32, 1e-5, True)
     torch.testing.assert_close(out.float(), want.float(), atol=3e-2, rtol=2e-2)
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def _limit(dtype) -> float:
+    """fp32: the kernel and the plain version sum in fp32 in other orders,
+    ~1e-6 of max apart. bf16: the kernel's output against the plain
+    version's unrounded fp32 result (the plain version on the same values
+    upcast); rounding to nearest bf16 moves a value by at most 2^-8 of its
+    magnitude, so the limit is that plus the fp32 one."""
+    return 1e-4 if dtype == torch.float32 else 2.0 ** -8 + 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_TRAIN_SHAPES)
+def test_flash_lse_and_backward_kernels_match_plain(cuda, shape, dtype):
+    q, k, v, do = (_rand(shape, dtype, cuda, s) for s in range(4))
+    counts = [f.launches for f in (flash_attention_lse, flash_attention_dq,
+                                   flash_attention_dkv)]
+    o, lse = flash_attention_lse(q, k, v)
+    grads = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash_attention_lse, flash_attention_dq,
+                                 flash_attention_dkv)] == [c + 1 for c in counts]
+    want_o, want_lse = flash_attention_lse_plain(q.float(), k.float(), v.float())
+    assert _rel_err(o, want_o) <= _limit(dtype)
+    assert (lse - want_lse).abs().max().item() <= 1e-4  # fp32 in both
+    # the backward from the same o and lse, so only the backward is compared
+    plain = flash_attention_bwd_plain(*(x.float() for x in (q, k, v, o)), lse,
+                                      do.float())
+    for got, want in zip(grads, plain):
+        assert got.dtype == dtype
+        assert _rel_err(got, want) <= _limit(dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 10, 64), (1, 1000, 4, 16)])
+def test_flash_autograd_on_cuda_matches_plain_autograd(cuda, shape):
+    """The gradient that reaches q, k and v through autograd: the kernels'
+    Function against autograd through the plain forward."""
+    inputs = [_rand(shape, torch.float32, cuda, s).requires_grad_()
+              for s in range(3)]
+    do = _rand(shape, torch.float32, cuda, 3)
+    out = flash_attention(*inputs)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, inputs, do)
+    want = torch.autograd.grad(flash_attention_plain(*inputs), inputs, do)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape", GN_TRAIN_SHAPES)
+def test_groupnorm_backward_kernel_matches_plain(cuda, shape, silu, dtype):
+    *xs, groups = shape
+    c = xs[1]
+    x = _rand(xs, dtype, cuda, 0) * 3 + 1
+    dy = _rand(xs, dtype, cuda, 3)
+    w, b = (_rand((c,), torch.float32, cuda, s) for s in (1, 2))
+    _, mean, inv = group_norm_fwd(x, w, b, groups, 1e-5, silu)
+    assert mean.shape == inv.shape == (xs[0], groups)
+    before = group_norm_bwd.launches
+    got = group_norm_bwd(x, w, b, mean, inv, dy, groups, silu)
+    torch.cuda.synchronize()
+    assert group_norm_bwd.launches == before + 2  # moments, then dx
+    want = group_norm_bwd_plain(x.float(), w, b, mean, inv, dy.float(), groups,
+                                silu)
+    for g, ref, lim in zip(got, want, (_limit(dtype), 1e-4, 1e-4)):
+        assert _rel_err(g, ref) <= lim  # dscale, dbias are fp32 sums
+
+
+@pytest.mark.parametrize("silu", [False, True])
+def test_groupnorm_autograd_on_cuda_matches_plain_autograd(cuda, silu):
+    x = (_rand((2, 96, 16, 16), torch.float32, cuda, 0) * 3 + 1).requires_grad_()
+    w, b = (_rand((96,), torch.float32, cuda, s).requires_grad_() for s in (1, 2))
+    dy = _rand((2, 96, 16, 16), torch.float32, cuda, 3)
+    out = group_norm(x, w, b, 24, 1e-6, silu)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (x, w, b), dy)
+    want = torch.autograd.grad(group_norm_plain(x, w, b, 24, 1e-6, silu),
+                               (x, w, b), dy)
+    for g, ref in zip(got, want):
+        assert _rel_err(g, ref) <= 1e-4
+
+
+def test_modules_on_cuda_keep_the_graph(cuda):
+    """A GroupNorm32 and a long self-attention on the card give outputs
+    with a grad_fn, and the gradient reaches the module's weights."""
+    torch.manual_seed(0)
+    norm = GroupNorm32(64, silu=True).to(cuda)
+    attn = CrossAttention(64, 64, heads=4, dim_head=16).to(cuda)
+    x = torch.randn(1, 64, 32, 32, device=cuda, requires_grad=True)
+    h = norm(x)
+    assert h.grad_fn is not None
+    before = flash_attention_lse.launches
+    y = attn(h.flatten(2).transpose(1, 2))  # L = 1024 reaches the kernel
+    assert y.grad_fn is not None
+    assert flash_attention_lse.launches == before + 1
+    y.square().sum().backward()
+    for p in (x, norm.GroupNorm_0.weight, attn.to_q.weight):
+        assert p.grad is not None and p.grad.abs().sum() > 0
+
+
+def test_backward_refuses_d512(cuda):
+    q = torch.zeros((1, 64, 1, 512), device=cuda)
+    lse = torch.zeros((1, 64), device=cuda)
+    with pytest.raises(ValueError, match="refine"):
+        flash_attention_dq(q, q, q, q, lse, q)
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):

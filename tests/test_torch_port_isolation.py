@@ -1,6 +1,7 @@
 """rdeic_torch stands alone: no module of it (nor chip_smoke.py) imports JAX,
-its libraries or rdeic_tpu; importing the pipeline pulls in neither JAX nor
-the CLI-only yaml and PIL; chip_smoke.py's config equals the model YAML."""
+its libraries or rdeic_tpu; importing the pipeline, the trainer or the CLIs
+pulls in neither JAX nor the yaml and PIL that only reading configs and
+images needs; chip_smoke.py's config equals the model YAML."""
 import ast
 import subprocess
 import sys
@@ -33,7 +34,9 @@ def test_no_jax_or_rdeic_tpu_import(path):
 
 
 def test_pipeline_import_pulls_no_jax_yaml_or_pil():
-    code = ("import sys, rdeic_torch.pipeline.rdeic, rdeic_torch.inference; "
+    code = ("import sys, rdeic_torch.pipeline.rdeic, rdeic_torch.inference, "
+            "rdeic_torch.train, rdeic_torch.train.trainer, "
+            "rdeic_torch.train.cli, rdeic_torch.data.dataset; "
             "bad = {'jax', 'flax', 'yaml', 'PIL', 'rdeic_tpu'} & set(sys.modules); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -50,3 +53,12 @@ def test_chip_smoke_config_equals_the_model_yaml():
     want = yaml.safe_load((ROOT / "configs" / "model" / "rdeic.yaml").read_text())
     assert want["target"] == "rdeic_tpu.pipeline.rdeic.RDEIC"
     assert chip_smoke.MODEL_CONFIG == want["params"]
+    train = yaml.safe_load((ROOT / "configs" / "train_rdeic.yaml").read_text())
+    data = yaml.safe_load((ROOT / "configs" / "dataset" / "lic_train.yaml").read_text())
+    assert train["model"]["config"] == "./configs/model/rdeic.yaml"
+    assert train["data"]["params"]["train_config"] == "./configs/dataset/lic_train.yaml"
+    assert chip_smoke.TRAIN_CONFIG == {
+        "learning_rate": train["trainer"]["learning_rate"],
+        "accumulate_grad_batches": train["trainer"]["accumulate_grad_batches"],
+        "batch_size": data["data_loader"]["batch_size"],
+        "out_size": data["dataset"]["params"]["out_size"]}

@@ -29,16 +29,28 @@ no network. Phases, each fatal on failure:
    planted 1.05x fault must read outside of, the CPU run taking the card's
    value at each convolution output of the compression model after
    checking it (see TRAIN_REF_TOL);
-6. training path at the full width, with `use_checkpoint` as in the model
-   YAML and the lr and accumulation of configs/train_rdeic.yaml: a
-   `rdeic_torch.train.trainer.Trainer` takes one warm-up micro-step on
+6. independent-phase training at the full width, with `use_checkpoint` as
+   in the model YAML and the lr and accumulation of configs/train_rdeic.yaml:
+   a `rdeic_torch.train.trainer.Trainer` takes one warm-up micro-step on
    synthetic B = 2, 512x512 images, then 4 timed micro-steps (one AdamW
    update) with every launch count set to 0. Checks: finite loss and
    gradient norm; the frozen base UNet, VAE and uncond_context bit-equal
    after the update; every trainable tensor with a nonzero gradient moved;
    the codebook usage moved; each kernel ran as often as the structure says;
-7. kernels against their plain versions at every shape of the serving and
-   the training path, in fp32 and bf16, with the kernel, plain and library
+7. refine-phase training reference: as 5, for one refine micro-step (B =
+   1, 256x256; gradients through both sampler steps, the VAE decoder, whose
+   attention at L = 1024 runs the d = 512 backward kernels, and LPIPS);
+8. refine-phase training at the full width: the same weights (shared, not
+   copied) in an `is_refine` model with LPIPS(alex) on random weights (the
+   published ones are not in the repository), the lr and accumulation of
+   configs/train_rdeic_refine_v5e.yaml and the batch of
+   configs/dataset/lic_train_refine_v5e.yaml, fp32 with `use_checkpoint` as
+   the model YAML sets it (denoiser on, VAE decoder off): one warm-up
+   micro-step on synthetic B = 2, 512x512 images, then 3 timed ones with
+   every launch count set to 0, each applying AdamW. Checks as in 6, LPIPS
+   among the frozen tensors;
+9. kernels against their plain versions at every shape of the serving and
+   the training paths, in fp32 and bf16, with the kernel, plain and library
    times (CUDA events) and the bound of each. Each comparison also reads a
    planted fault (the kernel's output scaled by 1.05) and fails if that
    reading is within the limit.
@@ -46,15 +58,17 @@ no network. Phases, each fatal on failure:
 The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
 `bound_ms` and `library_ms` of a kernel are summed over its calls in one
-run of its path: per image for the serving kernels (flash_attn_fwd,
-group_norm_silu_fwd), per training micro-step for the others; `shapes` has
-the per-call numbers. `launches` counts kernel launches in that path's
-counted run (one per flash call; two per GroupNorm call: stats then apply,
-or moments then dx), `launches_by_path` in both. The plain and library
-times of flash_attn_bwd_dq and flash_attn_bwd_dkv are each of a whole
-backward (dq, dk and dv): compare them with the sum of the two kernels, and
-so is their `backward_bound_ms` (10 B H L^2 d flops: S, dP, dV, dQ, dK once
-each); each kernel's own `bound_ms` counts the S and dP it recomputes.
+run of the path its `path` names: per image for the serving kernels
+(flash_attn_fwd, group_norm_silu_fwd), per refine micro-step for the
+others (`ms_by_path` also gives the kernel time per independent-phase
+micro-step); `shapes` has the per-call numbers and the calls in each path.
+`launches` counts kernel launches in that path's counted run (one per flash
+call; two per GroupNorm call: stats then apply, or moments then dx),
+`launches_by_path` in each path's. The plain and library times of
+flash_attn_bwd_dq and flash_attn_bwd_dkv are each of a whole backward (dq,
+dk and dv): compare them with the sum of the two kernels, and so is their
+`backward_bound_ms` (10 B H L^2 d flops: S, dP, dV, dQ, dK once each);
+each kernel's own `bound_ms` counts the S and dP it recomputes.
 """
 from __future__ import annotations
 
@@ -74,6 +88,7 @@ import torch.nn.functional as F
 from rdeic_torch import build
 from rdeic_torch.inference import process
 from rdeic_torch.models.blocks import Conv, GroupNorm32
+from rdeic_torch.models.lpips import LPIPS
 from rdeic_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd_plain,
@@ -146,10 +161,19 @@ MODEL_CONFIG = {
 # (tests/test_torch_port_isolation.py holds these equal to the files)
 TRAIN_CONFIG = {"learning_rate": 2.0e-5, "accumulate_grad_batches": 4,
                 "batch_size": 2, "out_size": 512}
+# configs/train_rdeic_refine_v5e.yaml `trainer` and
+# configs/dataset/lic_train_refine_v5e.yaml (held equal to the files as
+# above); the model is MODEL_CONFIG with is_refine. That YAML's
+# compute_dtype / frozen_dtype bfloat16, fast_init and remat_policy "dots"
+# are not ported (the compute stays fp32, use_checkpoint as the model YAML)
+REFINE_CONFIG = {"learning_rate": 2.0e-5, "accumulate_grad_batches": 1,
+                 "batch_size": 2, "out_size": 512}
+REFINE_MODEL_CONFIG = {**MODEL_CONFIG, "is_refine": True}
 
 IMAGE_HW = (512, 768)  # a Kodak-sized image, landscape
 STEPS = 2
 TRAIN_STEPS = 4  # timed micro-steps after one warm-up: one AdamW update
+REFINE_STEPS = 3  # timed refine micro-steps after one warm-up, each updating
 # self-attentions over >= 1024 tokens per dual-UNet call at 512x512 (UNet
 # L = 4096 h5 d64 x5 and L = 1024 h10 d64 x5, control L = 4096 h4 d16 x2 and
 # L = 1024 h8 d16 x2; L = 256 goes to the plain product)
@@ -165,7 +189,9 @@ FLASH_PER_DENOISER_CALL_512 = 14
 # runs. The CPU run therefore takes the card's value at every convolution
 # output of the compression model (the gradient passes straight through),
 # after holding each such output to TRAIN_REF_TOL["conv"]; the gradients then
-# differ only by the backward's arithmetic. A second CPU run without the
+# differ only by the backward's arithmetic. In the refine phase LPIPS's ReLUs
+# are kinks of the same kind, on the path of every gradient: its convolution
+# outputs are pinned too. A second CPU run without the
 # pinning shows, in the log only, how far they move otherwise. Gradients are
 # reported by group: denoiser (control branch and bridges, through every
 # flash and GroupNorm backward kernel), synthesis (compression.decoder and
@@ -347,9 +373,28 @@ def phase_main_path(model, device, seed: int) -> dict:
             "shapes": shapes}
 
 
+def make_refine_model(model, seed: int) -> RDEIC:
+    """The refine-phase model over `model`'s own tensors (shared, not
+    copied: its training updates them), with LPIPS(alex) made on the card
+    from `seed`, LeCun-normal as in make_model."""
+    torch.manual_seed(seed)
+    lpips = LPIPS("alex").to(next(model.parameters()).device)
+    with torch.no_grad():
+        for name, p in lpips.named_parameters():
+            if name.endswith("weight"):
+                p.normal_(0.0, p[0].numel() ** -0.5)
+    refine = RDEIC(**REFINE_MODEL_CONFIG, device="meta").eval()
+    refine.load_state_dict(
+        {**model.state_dict(),
+         **{f"lpips.{k}": v for k, v in lpips.state_dict().items()}},
+        assign=True)
+    return refine
+
+
 def cpu_copy(model) -> RDEIC:
     """The same model with its weights copied to the CPU."""
-    cpu = RDEIC(**MODEL_CONFIG, device="meta").eval()  # weights follow
+    config = REFINE_MODEL_CONFIG if model.is_refine else MODEL_CONFIG
+    cpu = RDEIC(**config, device="meta").eval()  # weights follow
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
                         assign=True)
     return cpu
@@ -399,35 +444,44 @@ def train_ref_group(name: str) -> str:
     return "synthesis" if name.startswith(SYNTHESIS_PREFIXES) else "rate"
 
 
-def _hook_convs(compression, fn) -> list:
+def _hook_convs(model, fn) -> list:
     """fn(name, output) as a forward hook on every Conv of the compression
-    model (its return value, if any, replaces the output); the handles."""
+    model and, in the refine phase, every convolution of LPIPS (its return
+    value, if any, replaces the output); the handles."""
+    mods = [(f"compression.{n}", m) for n, m in model.compression.named_modules()
+            if isinstance(m, Conv)]
+    if model.is_refine:
+        mods += [(f"lpips.{n}", m) for n, m in model.lpips.named_modules()
+                 if isinstance(m, torch.nn.Conv2d)]
     return [mod.register_forward_hook(
                 lambda _mod, _args, out, name=name: fn(name, out))
-            for name, mod in compression.named_modules() if isinstance(mod, Conv)]
+            for name, mod in mods]
 
 
 def phase_train_reference(model, device, seed: int) -> dict:
-    """One B = 1, 256x256 independent-phase loss and its trainable gradients,
-    on the card (kernels) and on the CPU (plain versions), from the same
-    weights and noise; the CPU run takes the card's convolution outputs in
-    the compression model (see TRAIN_REF_TOL), a second CPU run does not.
-    At 256x256, L = 1024 reaches the flash kernels at d = 16 and 64."""
+    """One B = 1, 256x256 training loss of the model's phase and its
+    trainable gradients, on the card (kernels) and on the CPU (plain
+    versions), from the same weights and noise; the CPU run takes the card's
+    convolution outputs in the compression model (see TRAIN_REF_TOL), a
+    second CPU run does not. At 256x256, L = 1024 reaches the flash kernels
+    at d = 16 and 64 (and, in the refine phase's VAE decoder, d = 512)."""
+    tag = "refine-reference" if model.is_refine else "train-reference"
     rng = np.random.default_rng(seed + 3)
     img = torch.from_numpy(rng.uniform(-1, 1, (1, 256, 256, 3)).astype(np.float32))
     noise = model.train_noise(img, torch.Generator().manual_seed(seed))
     cpu = cpu_copy(model)
     card_convs, conv_reads = {}, {}
 
-    def record(name, out):
-        card_convs[name] = out.detach().cpu()
+    def record(name, out):  # LPIPS runs its backbone twice (image, target)
+        card_convs.setdefault(name, []).append(out.detach().cpu())
 
     def pin(name, out):
-        if name in conv_reads:
-            raise AssertionError(f"{name} ran twice in one forward")
-        want = card_convs[name]
-        conv_reads[name] = ((out.detach() - want).abs().max()
-                            / want.abs().max()).item()
+        calls = sum(k.split("#")[0] == name for k in conv_reads)
+        if calls == len(card_convs[name]):
+            raise AssertionError(f"{name} ran more often than on the card")
+        want = card_convs[name][calls]
+        conv_reads[f"{name}#{calls}"] = ((out.detach() - want).abs().max()
+                                         / want.abs().max()).item()
         return out + (want - out).detach()
 
     results = {}
@@ -437,7 +491,7 @@ def phase_train_reference(model, device, seed: int) -> dict:
         params = trainable_parameters(m)
         moved = {k: [u.to(dev) for u in v] if isinstance(v, list) else v.to(dev)
                  for k, v in noise.items()}
-        handles = _hook_convs(m.compression, hook) if hook else []
+        handles = _hook_convs(m, hook) if hook else []
         t0 = time.perf_counter()
         with full_fp32():
             loss, _ = m.loss_fn(img.to(dev), noise=moved)
@@ -445,7 +499,7 @@ def phase_train_reference(model, device, seed: int) -> dict:
         for h in handles:
             h.remove()
         results[name] = (loss.item(), {k: g.cpu() for k, g in zip(params, grads)})
-        log(f"[train-reference] {name}: loss {loss.item():.6f} and "
+        log(f"[{tag}] {name}: loss {loss.item():.6f} and "
             f"{len(grads)} gradients in {time.perf_counter() - t0:.1f} s")
     del cpu
     (l_card, g_card), (l_cpu, g_cpu), (l_free, g_free) = (
@@ -462,8 +516,9 @@ def phase_train_reference(model, device, seed: int) -> dict:
            "conv": conv_reads[worst_conv]}
     ok = (out["loss"] <= TRAIN_REF_TOL["loss"] < out["fault_loss"]
           and out["conv"] <= TRAIN_REF_TOL["conv"])
-    log(f"[train-reference] {len(conv_reads)} compression conv outputs, CPU "
-        f"from the card's inputs vs the card: worst max|diff|/max "
+    log(f"[{tag}] {len(conv_reads)} conv outputs (compression model"
+        f"{', LPIPS' if model.is_refine else ''}), CPU from the card's inputs "
+        f"vs the card: worst max|diff|/max "
         f"{out['conv']:.3g} ({worst_conv}; limit {TRAIN_REF_TOL['conv']})")
     for group in ("denoiser", "synthesis", "rate"):
         keys = [k for k in reads if train_ref_group(k) == group]
@@ -472,28 +527,33 @@ def phase_train_reference(model, device, seed: int) -> dict:
         out[f"unpinned_{group}"] = max(free[k] for k in keys)
         out[f"fault_{group}"] = max(faults[k] for k in keys)
         ok = ok and out[group] <= TRAIN_REF_TOL[group] < out[f"fault_{group}"]
-        log(f"[train-reference] {group} ({len(keys)} tensors): card vs CPU worst "
+        log(f"[{tag}] {group} ({len(keys)} tensors): card vs CPU worst "
             f"{out[group]:.3g} (limit {TRAIN_REF_TOL[group]}): "
             + ", ".join(f"{k} {reads[k]:.3g}" for k in worst)
             + f"; a planted x{FAULT_SCALE} fault reads "
             f"{out[f'fault_{group}']:.3g}; against the unpinned CPU run "
             f"{out[f'unpinned_{group}']:.3g}")
-    log(f"[train-reference] loss: card vs CPU {out['loss']:.3g} (limit "
+    log(f"[{tag}] loss: card vs CPU {out['loss']:.3g} (limit "
         f"{TRAIN_REF_TOL['loss']}), planted fault {out['fault_loss']:.3g}, "
         f"unpinned {out['loss_unpinned']:.3g}")
     if not ok:
-        raise AssertionError("training on the card disagrees with the CPU, or "
-                             "a planted fault reads within its limit")
+        raise AssertionError(f"[{tag}] training on the card disagrees with "
+                             "the CPU, or a planted fault reads within its "
+                             "limit")
     return out
 
 
 def train_launches_per_step(model) -> dict:
     """Kernel launches of one training micro-step at 512x512, from the
-    model's structure: each flash self-attention runs the forward with lse
-    (twice when the blocks are recomputed in the backward), dq and dkv once;
-    the VAE encoder's mid-block attention runs the plain forward without
-    grad; each GroupNorm32 call is two forward launches (again when its
-    block is recomputed) and two backward launches."""
+    model's structure: the denoiser runs once (independent phase) or once
+    per sampler step (refine); each of its flash self-attentions runs the
+    forward with lse (twice when the blocks are recomputed in the backward
+    or the sampler step is), dq and dkv once; each GroupNorm32 call is two
+    forward launches (again when its block or step is recomputed) and two
+    backward launches. The VAE encoder's mid-block attention runs the plain
+    forward without grad; in the refine phase the decoder's runs the
+    forward with lse (twice with the decoder's use_checkpoint), dq and
+    dkv."""
     den = model.denoiser
     n_gn = sum(isinstance(m, GroupNorm32) for m in den.modules())
     blocks = [*den.base.input_blocks, den.base.mid, *den.base.output_blocks,
@@ -502,23 +562,34 @@ def train_launches_per_step(model) -> dict:
                           for b in blocks for m in b.modules())
     ckpt = 1 if den.use_checkpoint else 0
     n_flash = FLASH_PER_DENOISER_CALL_512
+    calls, step_remat, decoder = 1, 0, 0
+    if model.is_refine:
+        calls, decoder = model.fixed_step, 1
+        step_remat = 1 if model.scan_remat else 0
+    dec_ckpt = 1 if model.vae.decoder.use_checkpoint else 0
     return {"flash_attn_fwd": 1,
-            "flash_attn_fwd_lse": n_flash * (1 + ckpt),
-            "flash_attn_bwd_dq": n_flash, "flash_attn_bwd_dkv": n_flash,
-            "group_norm_silu_fwd": 2 * (n_gn + ckpt * n_gn_recomputed),
-            "group_norm_silu_bwd": 2 * n_gn}
+            "flash_attn_fwd_lse": (calls * n_flash * (1 + ckpt + step_remat)
+                                   + decoder * (1 + dec_ckpt)),
+            "flash_attn_bwd_dq": calls * n_flash + decoder,
+            "flash_attn_bwd_dkv": calls * n_flash + decoder,
+            "group_norm_silu_fwd": 2 * calls * (
+                n_gn + ckpt * n_gn_recomputed + step_remat * n_gn),
+            "group_norm_silu_bwd": 2 * calls * n_gn}
 
 
 def phase_training(model, device, seed: int) -> dict:
-    """The full-width training path: one warm-up micro-step, then
-    TRAIN_STEPS counted and timed ones."""
+    """The full-width training path of the model's phase: one warm-up
+    micro-step, then TRAIN_STEPS (independent) or REFINE_STEPS (refine)
+    counted and timed ones."""
+    tag, cfg, steps = (("refine", REFINE_CONFIG, REFINE_STEPS) if model.is_refine
+                       else ("train", TRAIN_CONFIG, TRAIN_STEPS))
     rng = np.random.default_rng(seed + 2)
-    hw = TRAIN_CONFIG["out_size"]
+    hw = cfg["out_size"]
     imgs = [torch.from_numpy(rng.uniform(
-        -1, 1, (TRAIN_CONFIG["batch_size"], hw, hw, 3)).astype(np.float32)).to(device)
-        for _ in range(1 + TRAIN_STEPS)]
-    trainer = Trainer(model, learning_rate=TRAIN_CONFIG["learning_rate"],
-                      accumulate_grad_batches=TRAIN_CONFIG["accumulate_grad_batches"])
+        -1, 1, (cfg["batch_size"], hw, hw, 3)).astype(np.float32)).to(device)
+        for _ in range(1 + steps)]
+    trainer = Trainer(model, learning_rate=cfg["learning_rate"],
+                      accumulate_grad_batches=cfg["accumulate_grad_batches"])
     # snapshots on the host, so that the peak below is the training's own
     frozen = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
               if k not in trainer.params and k != "vq_embed_prob"}
@@ -538,17 +609,17 @@ def phase_training(model, device, seed: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     launches, shapes = read_counters()
     per_step = train_launches_per_step(model)
-    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    want = {k: v * steps for k, v in per_step.items()}
     ms = float(np.mean(step_ms))
-    log(f"[train] warm-up micro-step {warm_ms:.1f} ms; micro-steps (B = "
-        f"{TRAIN_CONFIG['batch_size']}, {hw}x{hw}) {json.dumps(step_ms)} ms, "
-        f"mean {ms:.1f} ms, {TRAIN_CONFIG['batch_size'] * 1e3 / ms:.3f} images/s; "
+    log(f"[{tag}] warm-up micro-step {warm_ms:.1f} ms; micro-steps (B = "
+        f"{cfg['batch_size']}, {hw}x{hw}) {json.dumps(step_ms)} ms, "
+        f"mean {ms:.1f} ms, {cfg['batch_size'] * 1e3 / ms:.3f} images/s; "
         f"peak memory {peak / 2**30:.2f} GiB; losses {json.dumps(losses)}")
-    log(f"[train] launches per micro-step: "
-        f"{json.dumps({k: v / TRAIN_STEPS for k, v in launches.items()})}")
+    log(f"[{tag}] launches per micro-step: "
+        f"{json.dumps({k: v / steps for k, v in launches.items()})}")
     if launches != want:
-        raise AssertionError(f"training launches {launches}, expected {want}")
-    if trainer.step_count != 1 + TRAIN_STEPS:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    if trainer.step_count != 1 + steps:
         raise AssertionError("the trainer skipped a step")
     now = model.state_dict()
     for k, v in frozen.items():
@@ -564,10 +635,10 @@ def phase_training(model, device, seed: int) -> dict:
         moved += 1
     if torch.equal(prob, model.vq_embed_prob):
         raise AssertionError("the codebook usage did not move")
-    log(f"[train] {moved} trainable tensors stepped, {len(frozen)} frozen "
+    log(f"[{tag}] {moved} trainable tensors stepped, {len(frozen)} frozen "
         "tensors bit-equal, codebook usage moved")
     return {"ms": ms, "step_ms": step_ms, "warm_ms": warm_ms,
-            "images_per_s": TRAIN_CONFIG["batch_size"] * 1e3 / ms,
+            "images_per_s": cfg["batch_size"] * 1e3 / ms, "steps": steps,
             "peak_bytes": peak, "launches": launches, "shapes": shapes,
             "losses": losses}
 
@@ -755,120 +826,137 @@ def check_groupnorm_bwd(device, key, dtype, reps) -> dict:
                 y, (xl, wl, bl), dy, retain_graph=True), reps)}
 
 
-def summarize(name, route, source, replaces, launches, rows):
-    """One kernel's line: per-shape rows weighted by calls in one run of the
-    kernel's path (per image, or per training micro-step)."""
-    def total(key):
-        return sum(r[key] * r["calls"] for r in rows)
-    by_ops = sum(r["bound_ms"] * r["calls"] for r in rows
+def summarize(name, route, source, replaces, path, runs, rows):
+    """One kernel's line: per-shape rows weighted by their calls in one run
+    of `path` (per image, or per training micro-step); `ms_by_path` weights
+    the kernel's time by each path's calls."""
+    def total(key, p=path):
+        return sum(r[key] * r["calls"].get(p, 0) for r in rows)
+    bound = total("bound_ms")
+    by_ops = sum(r["bound_ms"] * r["calls"].get(path, 0) for r in rows
                  if r["bound_by"] == "operations")
     return {"name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches["path"],
-            "launches_by_path": launches["by_path"],
+            "replaces": replaces, "path": path,
+            "launches": runs[path]["launches"][name],
+            "launches_by_path": {p: run["launches"][name]
+                                 for p, run in runs.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": "operations" if by_ops >= total("bound_ms") / 2 else "bytes",
+            "bound_ms": bound,
+            "bound_by": "operations" if by_ops >= bound / 2 else "bytes",
             "library_ms": total("library_ms"),
+            "ms_by_path": {p: total("ms", p) for p in runs
+                           if any(p in r["calls"] for r in rows)},
             **({"backward_bound_ms": total("backward_bound_ms")}
                if "backward_bound_ms" in rows[0] else {}),
             "shapes": rows}
 
 
-def phase_kernels(device, main, train) -> list:
+def sdpa_backend(shape, device) -> str:
+    """The backend torch's default dispatch gives F.scaled_dot_product_
+    attention for fp32 [B, L, H, D] = `shape` (the library time's)."""
+    from torch.nn.attention import SDPBackend  # noqa: PLC0415
+
+    q = _randn(shape, torch.float32, device, 0).transpose(1, 2)
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, q, q)).name
+    except (AttributeError, RuntimeError, ValueError) as exc:
+        return f"unknown ({exc})"
+
+
+def phase_kernels(device, runs) -> list:
+    """Every kernel against its plain version at every shape that a path
+    of `runs` ({"serve": ..., "train": ..., "refine": ...}) gave it."""
+    def calls(name, key) -> dict:
+        """Calls per run of each path of kernel `name` at shape `key`."""
+        return {p: run["shapes"][name][key] / run.get("steps", 1)
+                for p, run in runs.items() if key in run["shapes"][name]}
+
+    def keys(name, paths=tuple(runs)) -> list:
+        return sorted(set().union(*(runs[p]["shapes"][name] for p in paths)))
+
+    serve_keys = [(*shape, "float32") for shape in FLASH_SHAPES]
     flash_rows = []
-    for shape in FLASH_SHAPES:
+    for key in serve_keys + [k for k in keys("flash_attn_fwd")
+                             if k not in serve_keys]:
         for dtype in (torch.float32, torch.bfloat16):
-            r = check_flash(device, shape, dtype, reps=5)
-            key = (*shape, str(dtype).removeprefix("torch."))
-            log(f"[kernels] flash {key}: {json.dumps(r)}")
-            if dtype == torch.float32:
-                count = main["shapes"]["flash_attn_fwd"].get(key, 0)
-                flash_rows.append({"shape": list(key), "calls": count, **r})
-    checked = {tuple(r["shape"]) for r in flash_rows}
-    missing = set(main["shapes"]["flash_attn_fwd"]) - checked
-    if missing:
-        raise AssertionError(f"main-path flash shapes not checked: {missing}")
+            r = check_flash(device, key[:4], dtype, reps=5)
+            log(f"[kernels] flash {key[:4]} {dtype}: {json.dumps(r)}")
+            if dtype == getattr(torch, key[4]):
+                flash_rows.append({"shape": list(key),
+                                   "calls": calls("flash_attn_fwd", key), **r})
     gn_rows = []
-    for key, count in sorted(main["shapes"]["group_norm_silu_fwd"].items()):
-        r = check_groupnorm(device, key, reps=20)
+    for key in keys("group_norm_silu_fwd"):
+        reps = 20 if key in runs["serve"]["shapes"]["group_norm_silu_fwd"] else 5
+        r = check_groupnorm(device, key, reps=reps)
         log(f"[kernels] group_norm {key}: {json.dumps(r)}")
-        gn_rows.append({"shape": list(key), "calls": count, **r})
+        gn_rows.append({"shape": list(key),
+                        "calls": calls("group_norm_silu_fwd", key), **r})
 
-    # the training path runs the forward kernels at shapes of its own (B = 2,
-    # 512x512): checked too, and kept out of the per-image sums
-    for key in sorted(set(train["shapes"]["flash_attn_fwd"]) - checked):
-        for dtype in (torch.float32, torch.bfloat16):
-            r = check_flash(device, key[:4], dtype, reps=3)
-            log(f"[kernels] flash training-path {key[:4]} {dtype}: {json.dumps(r)}")
-    for key in sorted(set(train["shapes"]["group_norm_silu_fwd"])
-                      - set(main["shapes"]["group_norm_silu_fwd"])):
-        r = check_groupnorm(device, key, reps=5)
-        log(f"[kernels] group_norm training-path {key}: {json.dumps(r)}")
-
+    train_paths = ("train", "refine")
     train_rows = {k: [] for k in ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
                                   "flash_attn_bwd_dkv", "group_norm_silu_bwd")}
-    lse_shapes = train["shapes"]["flash_attn_fwd_lse"]
-    if set(train["shapes"]["flash_attn_bwd_dq"]) != set(lse_shapes):
-        raise AssertionError("the backward ran at other shapes than the forward")
-    for key in sorted(lse_shapes):
-        shape = key[:4]
+    for p in train_paths:
+        if (set(runs[p]["shapes"]["flash_attn_bwd_dq"])
+                != set(runs[p]["shapes"]["flash_attn_fwd_lse"])):
+            raise AssertionError(f"{p}: the backward ran at other shapes than "
+                                 "the forward")
+    for key in keys("flash_attn_fwd_lse", train_paths):
         for dtype in (torch.float32, torch.bfloat16):
-            rows = check_flash_train(device, shape, dtype, reps=3)
-            log(f"[kernels] flash training {shape} {dtype}: {json.dumps(rows)}")
+            rows = check_flash_train(device, key[:4], dtype, reps=3)
+            log(f"[kernels] flash training {key[:4]} {dtype}: {json.dumps(rows)}")
             if dtype == getattr(torch, key[4]):
                 for name, r in rows.items():
-                    calls = train["shapes"][name].get(key, 0) / TRAIN_STEPS
-                    train_rows[name].append({"shape": list(key), "calls": calls, **r})
-    for key, count in sorted(train["shapes"]["group_norm_silu_bwd"].items()):
+                    train_rows[name].append(
+                        {"shape": list(key), "calls": calls(name, key), **r})
+    for key in keys("group_norm_silu_bwd", train_paths):
         for dtype in (torch.float32, torch.bfloat16):
             r = check_groupnorm_bwd(device, key, dtype, reps=10)
             log(f"[kernels] group_norm_bwd {key} {dtype}: {json.dumps(r)}")
             if dtype == getattr(torch, key[7]):
                 train_rows["group_norm_silu_bwd"].append(
-                    {"shape": list(key), "calls": count / TRAIN_STEPS, **r})
-
-    def launches(name, path):
-        own = main if path == "serve" else train
-        return {"path": own["launches"][name],
-                "by_path": {"serve": main["launches"][name],
-                            "train": train["launches"][name]}}
+                    {"shape": list(key),
+                     "calls": calls("group_norm_silu_bwd", key), **r})
 
     flash_src = "rdeic_torch/csrc/flash_attn_fwd.cu"
     bwd_src = "rdeic_torch/csrc/flash_attn_bwd.cu"
     gn_src = "rdeic_torch/ops/fused_groupnorm.py"
     lines = [
         summarize("flash_attn_fwd", "cuda", flash_src,
-                  "rdeic_tpu/ops/flash_attention.py:32",
-                  launches("flash_attn_fwd", "serve"), flash_rows),
+                  "rdeic_tpu/ops/flash_attention.py:32", "serve", runs,
+                  flash_rows),
         summarize("flash_attn_fwd_lse", "cuda", flash_src,
-                  "rdeic_tpu/ops/flash_attention.py:122",
-                  launches("flash_attn_fwd_lse", "train"),
+                  "rdeic_tpu/ops/flash_attention.py:122", "refine", runs,
                   train_rows["flash_attn_fwd_lse"]),
         summarize("flash_attn_bwd_dq", "cuda", bwd_src,
-                  "rdeic_tpu/ops/flash_attention.py:261",
-                  launches("flash_attn_bwd_dq", "train"),
+                  "rdeic_tpu/ops/flash_attention.py:261", "refine", runs,
                   train_rows["flash_attn_bwd_dq"]),
         summarize("flash_attn_bwd_dkv", "cuda", bwd_src,
-                  "rdeic_tpu/ops/flash_attention.py:300",
-                  launches("flash_attn_bwd_dkv", "train"),
+                  "rdeic_tpu/ops/flash_attention.py:300", "refine", runs,
                   train_rows["flash_attn_bwd_dkv"]),
         summarize("group_norm_silu_fwd", "triton", gn_src,
-                  "rdeic_tpu/ops/fused_groupnorm.py:116",
-                  launches("group_norm_silu_fwd", "serve"), gn_rows),
+                  "rdeic_tpu/ops/fused_groupnorm.py:116", "serve", runs,
+                  gn_rows),
         summarize("group_norm_silu_bwd", "triton", gn_src,
-                  "rdeic_tpu/ops/fused_groupnorm.py:144",
-                  launches("group_norm_silu_bwd", "train"),
+                  "rdeic_tpu/ops/fused_groupnorm.py:144", "refine", runs,
                   train_rows["group_norm_silu_bwd"]),
     ]
-    dq, dkv = lines[2], lines[3]
-    log(f"[kernels] flash backward per micro-step: dq + dkv "
-        f"{dq['ms'] + dkv['ms']:.3f} ms; bound of the whole backward "
-        f"{dq['backward_bound_ms']:.3f} ms; dq's and dkv's own bounds "
-        f"{dq['bound_ms']:.3f} + {dkv['bound_ms']:.3f} ms, of which "
-        f"{dq['bound_ms'] + dkv['bound_ms'] - dq['backward_bound_ms']:.3f} ms "
-        "is the recompute of S and dP in both; SDPA backward "
-        f"{dq['library_ms']:.3f} ms")
+    for path in train_paths:
+        for d in (None, 512):
+            dq, dkv = ({key: sum(r[key] * r["calls"].get(path, 0)
+                                 for r in train_rows[name]
+                                 if d is None or r["shape"][3] == d)
+                        for key in ("ms", "bound_ms", "backward_bound_ms",
+                                    "library_ms")}
+                       for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
+            what = "all head dims" if d is None else f"d = {d}"
+            log(f"[kernels] flash backward per {path} micro-step, {what}: "
+                f"dq + dkv {dq['ms'] + dkv['ms']:.3f} ms; bound of the whole "
+                f"backward {dq['backward_bound_ms']:.3f} ms; dq's and dkv's "
+                f"own bounds {dq['bound_ms']:.3f} + {dkv['bound_ms']:.3f} ms; "
+                f"SDPA backward {dq['library_ms']:.3f} ms")
+    log(f"[kernels] SDPA's backend at the VAE's d = 512 in fp32: "
+        f"{sdpa_backend((2, 4096, 1, 512), device)}")
     return lines
 
 
@@ -887,11 +975,14 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[main] full-width model on the card in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in model.parameters()) / 1e6:.0f} M params)")
-    main_result = phase_main_path(model, device, args.seed)
+    runs = {"serve": phase_main_path(model, device, args.seed)}
     phase_reference(model, device, args.seed)
     phase_train_reference(model, device, args.seed)
-    train_result = phase_training(model, device, args.seed)
-    kernels = phase_kernels(device, main_result, train_result)
+    runs["train"] = phase_training(model, device, args.seed)
+    refine = make_refine_model(model, args.seed)
+    phase_train_reference(refine, device, args.seed)
+    runs["refine"] = phase_training(refine, device, args.seed)
+    kernels = phase_kernels(device, runs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@ The JAX package runs the loop as one ``lax.scan``; here it is a Python loop
 over the few steps. Per step: predict eps, then x0, then the posterior mean,
 plus fixed-variance noise. The noise comes from the caller (a list, one
 tensor per step, as the tests pass the JAX stream's draws) or from a
-``torch.Generator``.
+``torch.Generator``. The loop is differentiable: the refine phase
+backpropagates through it, optionally recomputing each step in the backward
+(`remat_steps`).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from rdeic_torch.diffusion.schedule import NoiseSchedule, spaced_schedule
 
@@ -59,24 +62,35 @@ def make_spaced_coefficients(base: NoiseSchedule, used_timesteps: int,
 def sample(denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
            x_T: torch.Tensor, coeffs: SpacedCoefficients, *,
            noise: Sequence[torch.Tensor] | None = None,
-           generator: torch.Generator | None = None) -> torch.Tensor:
+           generator: torch.Generator | None = None,
+           remat_steps: bool = False) -> torch.Tensor:
     """Run the relay spaced sampling loop from x_T (already q_sampled).
 
     denoise_fn(x, t[B]) -> eps. `noise[i]` is step i's noise (x's shape);
-    without it each step draws from `generator`.
+    without it each step draws from `generator`. `remat_steps` (under grad)
+    keeps only each step's input for the backward and runs the step's
+    forward again there (a non-reentrant checkpoint, which nests inside the
+    denoiser's own per-block checkpoints).
     """
     if noise is not None and len(noise) != coeffs.num_steps:
         raise ValueError(f"need {coeffs.num_steps} noise tensors, got {len(noise)}")
     b = x_T.shape[0]
-    x = x_T
     c = coeffs
-    for i in range(c.num_steps):
+
+    def step(i: int, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
         t = torch.full((b,), int(c.timesteps[i]), dtype=torch.long,
                        device=x.device)
         eps = denoise_fn(x, t)
         x0 = float(c.sqrt_recip_acp[i]) * x - float(c.sqrt_recipm1_acp[i]) * eps
         mean = float(c.post_mean_c1[i]) * x0 + float(c.post_mean_c2[i]) * x
+        return mean + float(c.nonzero[i] * c.sqrt_model_var[i]) * n  # f32 product
+
+    x = x_T
+    for i in range(c.num_steps):
         n = noise[i] if noise is not None else torch.randn(
             x.shape, generator=generator, device=x.device, dtype=x.dtype)
-        x = mean + float(c.nonzero[i] * c.sqrt_model_var[i]) * n  # f32 product
+        if remat_steps and torch.is_grad_enabled():
+            x = checkpoint(step, i, x, n, use_reentrant=False)
+        else:
+            x = step(i, x, n)
     return x

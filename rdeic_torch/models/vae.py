@@ -5,6 +5,10 @@ the VAE's `Normalize` (eps 1e-6, plain `F.group_norm`), not GroupNorm32: the
 JAX package runs it through flax's stock GroupNorm, no Pallas kernel. The
 mid-block attention is single-head over h*w tokens (d = C) and goes through
 ops.attention, which sends it to the flash kernel on the card.
+
+The decoder's `use_checkpoint` (the refine phase backpropagates through it)
+recomputes each ResnetBlock and the AttnBlock in the backward instead of
+keeping their activations, as `nn.remat` does in the JAX package.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rdeic_torch.models.blocks import Conv, find_denominator, nchw, nhwc
 from rdeic_torch.ops.attention import attention
@@ -124,8 +129,10 @@ class VAEEncoder(nn.Module):
 
 class VAEDecoder(nn.Module):
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
-                 num_res_blocks: int = 2, out_ch: int = 3, z_channels: int = 4):
+                 num_res_blocks: int = 2, out_ch: int = 3, z_channels: int = 4,
+                 use_checkpoint: bool = False):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         block_in = ch * ch_mult[-1]
         self.conv_in = Conv(z_channels, block_in, 3)
         self.mid_block_1 = ResnetBlock(block_in, block_in)
@@ -147,11 +154,17 @@ class VAEDecoder(nn.Module):
         self.norm_out = Normalize(cin)
         self.conv_out = Conv(cin, out_ch, 3)
 
+    def _block(self, block: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        if (self.use_checkpoint and torch.is_grad_enabled()
+                and isinstance(block, (ResnetBlock, AttnBlock))):
+            return checkpoint(block, h, use_reentrant=False)
+        return block(h)
+
     def forward(self, z):
         h = self.conv_in(z)
-        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
-        for name in self.plan:
-            h = getattr(self, name)(h)
+        for block in (self.mid_block_1, self.mid_attn_1, self.mid_block_2,
+                      *(getattr(self, name) for name in self.plan)):
+            h = self._block(block, h)
         return self.conv_out(F.silu(self.norm_out(h)))
 
 
@@ -166,11 +179,13 @@ class AutoencoderKL(nn.Module):
     """VAE with the quant/post-quant 1x1 convs and the encode_hc twin output."""
 
     def __init__(self, embed_dim: int = 4, ch: int = 128,
-                 ch_mult: Sequence[int] = (1, 2, 4, 4), num_res_blocks: int = 2):
+                 ch_mult: Sequence[int] = (1, 2, 4, 4), num_res_blocks: int = 2,
+                 use_checkpoint: bool = False):
         super().__init__()
         self.encoder = VAEEncoder(ch, ch_mult, num_res_blocks, embed_dim)
         self.decoder = VAEDecoder(ch, ch_mult, num_res_blocks,
-                                  z_channels=embed_dim)
+                                  z_channels=embed_dim,
+                                  use_checkpoint=use_checkpoint)
         self.quant_conv = Conv(2 * embed_dim, 2 * embed_dim, 1)
         self.post_quant_conv = Conv(embed_dim, embed_dim, 1)
 

@@ -23,8 +23,7 @@ import torch
 
 from rdeic_torch import build
 
-HEAD_DIMS = (16, 64, 512)
-BWD_HEAD_DIMS = (16, 64)
+HEAD_DIMS = (16, 64, 512)  # forward and backward
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -104,7 +103,7 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def _check(*xs: torch.Tensor, head_dims=HEAD_DIMS) -> None:
+def _check(*xs: torch.Tensor) -> None:
     q = xs[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
@@ -114,13 +113,8 @@ def _check(*xs: torch.Tensor, head_dims=HEAD_DIMS) -> None:
     if q.dtype not in _DTYPE_CODES or any(x.dtype != q.dtype for x in xs):
         raise ValueError(f"flash_attention takes fp32 or bf16, got "
                          f"{[x.dtype for x in xs]}")
-    if q.shape[-1] not in head_dims:
-        if head_dims is BWD_HEAD_DIMS:
-            raise ValueError(
-                f"flash_attention backward: head dim {q.shape[-1]} not in "
-                f"{BWD_HEAD_DIMS}; d = 512 (the VAE decoder's attention) comes "
-                "with the refine-phase slice (ROADMAP Queue 1 item 10)")
-        raise ValueError(f"head dim {q.shape[-1]} not in {head_dims}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
     if any(x.device != q.device for x in xs):
         raise ValueError("flash_attention tensors must be on one device")
     if not all(x.is_contiguous() for x in xs):
@@ -183,7 +177,7 @@ def flash_attention_dq(q, k, v, o, lse, do):
     """(dq, di): the dq kernel, which also writes di = rowsum(dO * O)
     [B*H, L] fp32 for the dkv kernel. CUDA only; counted in
     `flash_attention_dq.launches`."""
-    _check(q, k, v, o, do, head_dims=BWD_HEAD_DIMS)
+    _check(q, k, v, o, do)
     _check_rows(q, lse)
     b, seq, h, d = q.shape
     dq = torch.empty_like(q)
@@ -203,7 +197,7 @@ def flash_attention_dq(q, k, v, o, lse, do):
 def flash_attention_dkv(q, k, v, do, lse, di):
     """(dk, dv): the dkv kernel, from the lse of the forward and the di of
     the dq kernel. CUDA only; counted in `flash_attention_dkv.launches`."""
-    _check(q, k, v, do, head_dims=BWD_HEAD_DIMS)
+    _check(q, k, v, do)
     _check_rows(q, lse, di)
     b, seq, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)

@@ -1,5 +1,5 @@
-"""RDEIC model: the inference surface and the independent-phase training loss
-(counterpart of rdeic_tpu/pipeline/rdeic.py).
+"""RDEIC model: the inference surface and both training losses (counterpart
+of rdeic_tpu/pipeline/rdeic.py).
 
 `RDEIC` is built from the same config dict as the JAX class. Its module tree
 (`vae`, `compression`, `denoiser`, and the `uncond_context` and
@@ -11,9 +11,14 @@ bitstream file -> decompress to (c_latent, guide_hint) -> relay init at
 t = used_timesteps - 1 -> spaced-DDPM over the dual UNet -> VAE decode.
 Noise is explicit: pass the tensors, or a `torch.Generator` to draw them.
 
-Training (`loss_fn`, independent phase): VAE encode with a posterior sample,
-under no grad -> the compression model's forward with noisy likelihoods and
-the CVQ losses -> relay-shifted noise, one dual-UNet call, eps -> x0 loss.
+Training (`loss_fn`): VAE encode with a posterior sample, under no grad ->
+the compression model's forward with noisy likelihoods and the CVQ losses ->
+- independent phase: relay-shifted noise, one dual-UNet call, eps -> x0
+  loss;
+- refine phase (`is_refine`): relay init, the `fixed_step` spaced-DDPM
+  sampler over the dual UNet and the VAE decoder, both under grad, then
+  pixel MSE + 0.5 LPIPS(alex). The VAE and LPIPS stay frozen; gradients pass
+  through them to the sampler's latent.
 
 Numerics: the VAE and the denoiser run in full fp32 (`full_fp32`: no TF32,
 which cuDNN convolutions would use by default), so the card computes what the
@@ -33,6 +38,7 @@ from torch import nn
 from rdeic_torch.diffusion import spaced
 from rdeic_torch.diffusion.schedule import NoiseSchedule
 from rdeic_torch.models.compression import CompressionModel
+from rdeic_torch.models.lpips import LPIPS, warn_random_backbone
 from rdeic_torch.models.unet import NoiseEstimator
 from rdeic_torch.models.vae import AutoencoderKL, sample_diagonal_gaussian
 from rdeic_torch.pipeline.codec import CompressionCodec
@@ -56,6 +62,7 @@ class RDEIC(nn.Module):
                  first_stage_config: Optional[Mapping] = None,
                  preprocess_config: Optional[Mapping] = None,
                  sd_locked: bool = True, is_refine: bool = False,
+                 fixed_step: int = 2, scan_remat: bool = False,
                  learning_rate: float = 2e-5, l_bpp_weight: float = 1.0,
                  l_guide_weight: float = 2.0,
                  used_timesteps: int = 300, timesteps: int = 1000,
@@ -85,6 +92,10 @@ class RDEIC(nn.Module):
         self.scale_factor = scale_factor
         self.sd_locked = sd_locked
         self.is_refine = is_refine
+        # the refine loss's sampler: its step count, and whether each step is
+        # recomputed in the backward (spaced.sample's remat_steps)
+        self.fixed_step = fixed_step
+        self.scan_remat = scan_remat
         self.learning_rate = learning_rate
         self.l_bpp_weight = l_bpp_weight
         self.l_guide_weight = l_guide_weight
@@ -119,7 +130,8 @@ class RDEIC(nn.Module):
         self.vae = AutoencoderKL(
             embed_dim=vae_cfg.get("embed_dim", 4), ch=dd.get("ch", 128),
             ch_mult=tuple(dd.get("ch_mult", (1, 2, 4, 4))),
-            num_res_blocks=dd.get("num_res_blocks", 2))
+            num_res_blocks=dd.get("num_res_blocks", 2),
+            use_checkpoint=bool(vae_cfg.get("use_checkpoint", False)))
         self.compression = CompressionModel(
             in_nc=comp.get("in_nc", 512), out_nc=comp.get("out_nc", 4),
             N=comp.get("N", 256), M=comp.get("M", 256),
@@ -130,6 +142,9 @@ class RDEIC(nn.Module):
         self.register_buffer("uncond_context", torch.zeros(1, 77, context_dim))
         self.register_buffer("vq_embed_prob",
                              torch.zeros(self.compression.codebook_size))
+        if self.is_refine:  # the JAX package makes LPIPS params only here
+            warn_random_backbone("RDEIC")
+            self.lpips = LPIPS("alex")
 
     # -- first stage / conditioning ------------------------------------------
     @full_fp32()
@@ -181,18 +196,29 @@ class RDEIC(nn.Module):
         samples = self.sample(c_latent, guide_hint, context, steps, **noise)
         return torch.clamp((self.decode_first_stage(samples) + 1) / 2, 0.0, 1.0)
 
-    # -- training (independent phase) -------------------------------------------
+    # -- training ----------------------------------------------------------------
     def train_noise(self, img: torch.Tensor,
                     generator: torch.Generator | None = None) -> dict:
         """Every draw of one `loss_fn` call for images `img` [B, H, W, 3]:
-        `posterior` and `eps` N(0, 1) of the latent's shape, `t` uniform in
-        [0, used_timesteps), and `uniform`, one U(-0.5, 0.5) tensor per
-        slice of y."""
+        `posterior` N(0, 1) of the latent's shape and `uniform`, one
+        U(-0.5, 0.5) tensor per slice of y; then for the independent phase
+        `t` uniform in [0, used_timesteps) and `eps` N(0, 1) of the latent's
+        shape, for the refine phase `relay` and `steps` (`fixed_step`
+        tensors) N(0, 1) of c_latent's shape."""
         b, h, w, _ = img.shape
         lh, lw = h // self.latent_factor, w // self.latent_factor
         yh, yw = -(-lh // 2), -(-lw // 2)  # one stride-2 block in g_a
         opts = dict(generator=generator, device=img.device, dtype=img.dtype)
         latent = (b, lh, lw, self.latent_channels)
+        if self.is_refine:
+            c_latent = (b, 2 * yh, 2 * yw, self.compression.out.Conv_0.out_channels)
+            return dict(
+                posterior=torch.randn(latent, **opts),
+                uniform=[torch.rand((b, yh, yw, c), **opts) - 0.5
+                         for c in self.compression.slice_ch],
+                relay=torch.randn(c_latent, **opts),
+                steps=[torch.randn(c_latent, **opts)
+                       for _ in range(self.fixed_step)])
         return dict(
             posterior=torch.randn(latent, **opts),
             t=torch.randint(0, self.used_timesteps, (b,), generator=generator,
@@ -216,7 +242,7 @@ class RDEIC(nn.Module):
         cond = dict(c_crossattn=self.get_learned_conditioning(n),
                     c_latent=out["c_latent"], guide_hint=out["guide_hint"],
                     bpp=bpp, q_bpp=q_bpp, emb_loss=out["emb_loss"],
-                    z_hyper=out["z"], vq_indices=out["vq_indices"])
+                    target=img, z_hyper=out["z"], vq_indices=out["vq_indices"])
         return z, cond
 
     def p_losses_independent(self, z_start, cond, t, eps):
@@ -240,20 +266,53 @@ class RDEIC(nn.Module):
                     l_emb=cond["emb_loss"], loss=loss)
         return loss, logs
 
+    def p_losses_refine(self, z_start, cond, relay, steps):
+        """Backprop through the `fixed_step` sampler and the VAE decoder,
+        from the relay init with noise `relay` and the step noise `steps`.
+        As in the JAX package (and its reference), the latent MSE is only
+        logged: the objective is pixel MSE + 0.5 LPIPS, plus the guide, bpp
+        and CVQ terms."""
+        c_latent = cond["c_latent"]
+        coeffs = spaced.make_spaced_coefficients(self.schedule,
+                                                 self.used_timesteps,
+                                                 self.fixed_step)
+        samples = spaced.sample(
+            lambda x, t: self.denoiser(x, t, cond["c_crossattn"],
+                                       cond["guide_hint"]),
+            self.relay_init(c_latent, relay), coeffs, noise=steps,
+            remat_steps=self.scan_remat)
+        decoded = self.decode_first_stage(samples)
+        target = cond["target"]
+        loss_simple = torch.mean((samples - z_start) ** 2, dim=(1, 2, 3))
+        loss_mse = torch.mean((decoded - target) ** 2, dim=(1, 2, 3))
+        loss_lpips = self.lpips(decoded, target).mean()
+        loss_guide = torch.mean((c_latent - z_start) ** 2)
+        loss = (self.l_guide_weight * loss_mse.mean()
+                + self.l_guide_weight * loss_lpips * 0.5
+                + self.l_guide_weight * loss_guide
+                + self.l_bpp_weight * cond["bpp"]
+                + self.l_bpp_weight * cond["emb_loss"])
+        logs = dict(l_simple=loss_simple.mean(), l_mse=loss_mse.mean(),
+                    l_lpips=loss_lpips, l_guide=loss_guide, l_bpp=cond["bpp"],
+                    q_bpp=cond["q_bpp"], l_emb=cond["emb_loss"], loss=loss)
+        return loss, logs
+
     @full_fp32()
     def loss_fn(self, img: torch.Tensor, noise: dict | None = None,
                 generator: torch.Generator | None = None):
         """(loss, logs) of one batch of [-1, 1] NHWC images, from `noise` (a
-        `train_noise` dict) or draws from `generator`. logs["_z_hyper"] is
-        the hyper latent for the trainer's codebook update."""
-        if self.is_refine:
-            raise NotImplementedError(
-                "is_refine: the refine phase comes with the next slice "
-                "(ROADMAP Queue 1 item 10)")
+        `train_noise` dict) or draws from `generator`: the refine loss when
+        `is_refine`, else the independent one. logs["_z_hyper"] is the hyper
+        latent for the trainer's codebook update."""
         if noise is None:
             noise = self.train_noise(img, generator)
         z, cond = self.get_input(img, noise)
-        loss, logs = self.p_losses_independent(z, cond, noise["t"], noise["eps"])
+        if self.is_refine:
+            loss, logs = self.p_losses_refine(z, cond, noise["relay"],
+                                              noise["steps"])
+        else:
+            loss, logs = self.p_losses_independent(z, cond, noise["t"],
+                                                   noise["eps"])
         logs["_z_hyper"] = cond["z_hyper"].detach()
         return loss, logs
 

@@ -3,8 +3,9 @@
     python -m rdeic_torch.train --config configs/train_rdeic.yaml \
         [--max_steps N] [--device cpu]
 
-Reads the YAML tree (data, model, trainer), builds the loader and the model,
-optionally resumes (`model.resume`: a file that `Trainer.save` wrote, or a
+Reads the YAML tree (data, model, trainer), builds the loader and the model
+(`model.overrides.is_refine: true` selects the refine phase), optionally
+resumes (`model.resume`: a file that `Trainer.save` wrote, or a
 flat `.npz` of JAX params as weights), then runs `Trainer.step` per
 micro-batch. Logs JSONL metrics to `<out_dir>/metrics.jsonl` every
 `log_every_n_steps` and writes the full train state to
@@ -57,7 +58,9 @@ def build_model(cfg: dict, device: torch.device):
     model = instantiate_from_config(model_cfg, device=device)
     resume = cfg["model"].get("resume")
     if resume and str(resume).endswith(".npz"):
-        load_npz_weights(model, resume)
+        kept = load_npz_weights(model, resume)
+        if kept:
+            print(f"[warm start from {resume}; fresh subtrees kept: {kept}]")
     return model
 
 
@@ -67,9 +70,6 @@ def main(argv=None) -> int:
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    print("[rdeic_torch.train: independent phase; validation and the image "
-          "logger are not ported yet (ROADMAP Queue 1 item 13)]", flush=True)
-
     cfg = load_yaml(args.config)
     tcfg = cfg.get("trainer", {})
     for key in _NOT_PORTED:
@@ -83,6 +83,9 @@ def main(argv=None) -> int:
     seed = int(tcfg.get("seed", 231))
     torch.manual_seed(seed)
     model = build_model(cfg, device)
+    phase = "refine" if model.is_refine else "independent"
+    print(f"[rdeic_torch.train: {phase} phase; validation and the image "
+          "logger are not ported yet (ROADMAP Queue 1 item 13)]", flush=True)
     trainer = Trainer(model, learning_rate=tcfg.get("learning_rate"),
                       accumulate_grad_batches=int(
                           tcfg.get("accumulate_grad_batches", 1)))

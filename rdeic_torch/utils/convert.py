@@ -57,13 +57,20 @@ def load_npz(path: str | Path) -> dict[str, np.ndarray]:
         return {k: data[k] for k in data.files}
 
 
-# parameter subtrees a JAX checkpoint may carry that the port never runs
-_UNUSED_SUBTREES = ("clip/", "lpips/")
-
-
-def load_npz_weights(model: torch.nn.Module, path: str | Path) -> None:
-    """Load a `save_params_npz` file into the port's RDEIC, strictly (minus
-    the CLIP and LPIPS subtrees, which the port does not build)."""
-    flat = {k: v for k, v in load_npz(path).items()
-            if not k.startswith(_UNUSED_SUBTREES)}
-    model.load_state_dict(load_jax_params(flat), strict=True)
+def load_npz_weights(model: torch.nn.Module, path: str | Path) -> list[str]:
+    """Load a `save_params_npz` file into the port's RDEIC, strictly. The
+    CLIP subtree is skipped (the port does not build CLIP), and so is the
+    LPIPS subtree unless the model has one (refine). A refine model loaded
+    from a file without LPIPS weights (an independent-phase export) keeps
+    its own, as the JAX package's warm start does; returns the top-level
+    names of such kept subtrees."""
+    has_lpips = hasattr(model, "lpips")
+    skip = ("clip/",) if has_lpips else ("clip/", "lpips/")
+    flat = {k: v for k, v in load_npz(path).items() if not k.startswith(skip)}
+    state = load_jax_params(flat)
+    kept = []
+    if has_lpips and not any(k.startswith("lpips/") for k in flat):
+        state.update({f"lpips.{k}": v for k, v in model.lpips.state_dict().items()})
+        kept.append("lpips")
+    model.load_state_dict(state, strict=True)
+    return kept

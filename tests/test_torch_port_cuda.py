@@ -42,10 +42,12 @@ FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
 GN_SHAPES = [(1, 320, 96, 64), (1, 2560, 12, 8), (1, 1920, 24, 16),
              (1, 960, 48, 32), (1, 640, 96, 64), (1, 64, 96, 64),
              (1, 256, 12, 8), (2, 128, 7, 9)]
-# (B, L, H, D) of the training path's flash calls at 512x512, B = 2, plus
-# ragged L (the backward masks padded q rows and k columns)
+# (B, L, H, D) of the training paths' flash calls at 512x512, B = 2 (the
+# refine phase adds the VAE decoder's d = 512), the decoder's at 256x256,
+# plus ragged L (the backward masks padded q rows and k columns)
 FLASH_TRAIN_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64), (2, 4096, 4, 16),
-                      (2, 1024, 8, 16), (2, 1000, 3, 64), (1, 77, 2, 16)]
+                      (2, 1024, 8, 16), (2, 4096, 1, 512), (1, 1024, 1, 512),
+                      (2, 1000, 3, 64), (1, 77, 2, 16), (1, 130, 1, 512)]
 # (B, C, H, W, groups) of GroupNorm backward: denoiser widths at 512x512
 # (64x64 latents), a 48-channel control width (find_denominator gives 24
 # groups), and ragged spans
@@ -153,7 +155,8 @@ def test_flash_lse_and_backward_kernels_match_plain(cuda, shape, dtype):
         assert _rel_err(got, want) <= _limit(dtype)
 
 
-@pytest.mark.parametrize("shape", [(2, 1024, 10, 64), (1, 1000, 4, 16)])
+@pytest.mark.parametrize("shape", [(2, 1024, 10, 64), (1, 1000, 4, 16),
+                                   (1, 1024, 1, 512)])
 def test_flash_autograd_on_cuda_matches_plain_autograd(cuda, shape):
     """The gradient that reaches q, k and v through autograd: the kernels'
     Function against autograd through the plain forward."""
@@ -221,11 +224,21 @@ def test_modules_on_cuda_keep_the_graph(cuda):
         assert p.grad is not None and p.grad.abs().sum() > 0
 
 
-def test_backward_refuses_d512(cuda):
-    q = torch.zeros((1, 64, 1, 512), device=cuda)
-    lse = torch.zeros((1, 64), device=cuda)
-    with pytest.raises(ValueError, match="refine"):
-        flash_attention_dq(q, q, q, q, lse, q)
+def test_backward_kernels_run_at_d512(cuda):
+    """The VAE decoder's head dim, which the refine phase differentiates:
+    dq and dkv launch and match the plain backward."""
+    shape = (1, 64, 1, 512)
+    q, k, v, do = (_rand(shape, torch.float32, cuda, s) for s in range(4))
+    o, lse = flash_attention_lse(q, k, v)
+    before = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    dq, di = flash_attention_dq(q, k, v, o, lse, do)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches, flash_attention_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    for got, want in zip((dq, dk, dv),
+                         flash_attention_bwd_plain(q, k, v, o, lse, do)):
+        assert _rel_err(got, want) <= 1e-4
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):

@@ -1,7 +1,7 @@
 """rdeic_torch stands alone: no module of it (nor chip_smoke.py) imports JAX,
 its libraries or rdeic_tpu; importing the pipeline, the trainer or the CLIs
 pulls in neither JAX nor the yaml and PIL that only reading configs and
-images needs; chip_smoke.py's config equals the model YAML."""
+images needs; chip_smoke.py's configs equal the model and training YAMLs."""
 import ast
 import subprocess
 import sys
@@ -62,3 +62,17 @@ def test_chip_smoke_config_equals_the_model_yaml():
         "accumulate_grad_batches": train["trainer"]["accumulate_grad_batches"],
         "batch_size": data["data_loader"]["batch_size"],
         "out_size": data["dataset"]["params"]["out_size"]}
+    refine = yaml.safe_load(
+        (ROOT / "configs" / "train_rdeic_refine_v5e.yaml").read_text())
+    refine_data = yaml.safe_load(
+        (ROOT / "configs" / "dataset" / "lic_train_refine_v5e.yaml").read_text())
+    assert refine["model"]["config"] == "./configs/model/rdeic.yaml"
+    assert refine["model"]["overrides"]["is_refine"] is True
+    assert (refine["data"]["params"]["train_config"]
+            == "./configs/dataset/lic_train_refine_v5e.yaml")
+    assert chip_smoke.REFINE_CONFIG == {
+        "learning_rate": refine["trainer"]["learning_rate"],
+        "accumulate_grad_batches": refine["trainer"]["accumulate_grad_batches"],
+        "batch_size": refine_data["data_loader"]["batch_size"],
+        "out_size": refine_data["dataset"]["params"]["out_size"]}
+    assert chip_smoke.REFINE_MODEL_CONFIG == {**want["params"], "is_refine": True}

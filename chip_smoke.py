@@ -8,7 +8,8 @@ no network. Phases, each fatal on failure:
 1. environment: torch / CUDA / triton versions and the card's name and power
    limit (nvidia-smi);
 2. build: nvcc (forward and backward flash kernels) and g++ start together
-   on the sources in the checkout;
+   on the sources in the checkout; ptxas's registers and spills of each
+   flash kernel are logged by name;
 3. main path at the full width of configs/model/rdeic.yaml (random weights
    from --seed): the CLI's per-image `rdeic_torch.inference.process` codes a
    synthetic 768x512 image to a stream file, decodes it back, relay-samples
@@ -50,10 +51,14 @@ no network. Phases, each fatal on failure:
    every launch count set to 0, each applying AdamW. Checks as in 6, LPIPS
    among the frozen tensors;
 9. kernels against their plain versions at every shape of the serving and
-   the training paths, in fp32 and bf16, with the kernel, plain and library
-   times (CUDA events) and the bound of each. Each comparison also reads a
-   planted fault (the kernel's output scaled by 1.05) and fails if that
-   reading is within the limit.
+   the training paths, and at one d = 512 shape on no path (B = 2, H = 2,
+   L = 1000: D512_CHECK_SHAPE; its rows carry no calls), in fp32 and bf16,
+   with the kernel, plain and library times (CUDA events) and the bound of
+   each. A flash row's bound takes the rate of its route (`bound_rate`):
+   the fp32 FMA or bf16 peak at d = 16 and 64, the TF32 tensor cores over
+   the passes of the 3xTF32 split at d = 512 (flash_rate). Each comparison
+   also reads a planted fault (the kernel's output scaled by 1.05) and
+   fails if that reading is within the limit.
 
 The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
@@ -75,6 +80,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -208,6 +214,19 @@ TRAIN_REF_FLOOR = 1e-5
 # H100 SXM data-sheet peaks (NVIDIA; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_FLOPS = 494.7e12
+# The d = 512 flash kernels run on the tensor cores in TF32, an fp32
+# product as three TF32 products (3xTF32); a bf16 operand is exact in TF32,
+# so Q K^T and dO V^T of bf16 inputs take one pass and the products with P
+# or dS two. TF32 passes per product of each kernel (forward: S, P V; dq:
+# S, dP, dS K; dkv: S, dP, P^T dO, dS^T Q; the whole backward: S, dP, dV,
+# dQ, dK), by input dtype
+TC_PASSES = {
+    torch.float32: {"fwd": (3, 3), "dq": (3, 3, 3), "dkv": (3, 3, 3, 3),
+                    "bwd": (3, 3, 3, 3, 3)},
+    torch.bfloat16: {"fwd": (1, 2), "dq": (1, 1, 2), "dkv": (1, 1, 2, 2),
+                     "bwd": (1, 1, 2, 2, 2)}}
+TC_HEAD_DIMS = (512,)
 FAULT_SCALE = 1.05  # a planted output-scale error each check must see
 GN_TOL = 1e-4  # fp32 GroupNorm outputs up to ~15 after scale and bias
 # relative to max |plain| of each output, for the training kernels: fp32
@@ -218,6 +237,9 @@ GN_TOL = 1e-4  # fp32 GroupNorm outputs up to ~15 after scale and bias
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8 + 1e-4}
 FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
                 (1, 1536, 10, 64), (1, 1536, 8, 16)]
+# a d = 512 shape on no path: B = 2, H = 2 (every path's d = 512 shape has
+# H = 1) and an L that is a multiple of no tile of the d = 512 kernels
+D512_CHECK_SHAPE = (2, 1000, 2, 512)
 
 
 def log(*args):
@@ -262,9 +284,15 @@ def phase_build():
     libs = build.build_all()
     log(f"[build] nvcc + g++ in parallel: {time.perf_counter() - t0:.1f} s")
     for lib in ("flash_attn_fwd", "flash_attn_bwd"):
+        kernel = "?"
         for line in build.build_log(libs[lib]).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {lib} ptxas: {line.strip()}")
+            m = re.search(r"\d(flash_(?:fwd|dq|dkv)_(?:kernel|d512))"
+                          r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?", line)
+            if "Compiling entry function" in line and m:  # a mangled name
+                kernel = (f"{m[1]}<{'fp32' if m[2] == 'f' else 'bf16'}"
+                          f"{', d = ' + m[3] if m[3] else ''}>")
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
 
 
 def make_model(device, seed: int) -> RDEIC:
@@ -648,9 +676,31 @@ def _randn(shape, dtype, device, seed):
     return torch.randn(shape, generator=g, device=device).to(dtype)
 
 
-def _bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+def _bound_ms(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
+    """The least ms for `nbytes` of HBM traffic and `flops` at `rate`
+    flop/s, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_rate(d: int, dtype, kernel: str) -> tuple[float, str]:
+    """(flop/s, its name) of the route a flash kernel takes at head dim
+    d: the tensor cores' TF32 rate over the mean TF32 passes of its
+    products (equal flops each) at d = 512, else the dtype's peak."""
+    if d in TC_HEAD_DIMS:
+        passes = TC_PASSES[dtype][kernel]
+        mean = sum(passes) / len(passes)
+        return (TF32_FLOPS / mean,
+                f"TF32 tensor cores {TF32_FLOPS / 1e12:g} / {mean:g} passes")
+    return PEAK_FLOPS[dtype], ("fp32 FMA 67" if dtype == torch.float32
+                               else "bf16 989")
+
+
+def _flash_bound_ms(nbytes: float, flops: float, d: int, dtype,
+                    kernel: str) -> tuple[float, str, str]:
+    """bound ms, what bounds it, and the rate used (flash_rate)."""
+    rate, name = flash_rate(d, dtype, kernel)
+    return (*_bound_ms(nbytes, flops, rate), f"{name} = {rate / 1e12:.1f} TFLOP/s")
 
 
 def compare(name, got, want, tol) -> dict:
@@ -683,10 +733,11 @@ def check_flash(device, shape, dtype, reps):
                 flash_tol(dtype, want))
     b, seq, h, d = shape
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    bound, by = _bound_ms(4 * q.numel() * q.element_size(),
-                          4.0 * b * h * seq * seq * d, dtype)
-    return {**r, "bound_ms": bound,
-            "bound_by": by, "ms": cuda_ms(lambda: flash_attention(q, k, v), reps),
+    bound, by, rate = _flash_bound_ms(4 * q.numel() * q.element_size(),
+                                      4.0 * b * h * seq * seq * d, d, dtype,
+                                      "fwd")
+    return {**r, "bound_ms": bound, "bound_by": by, "bound_rate": rate,
+            "ms": cuda_ms(lambda: flash_attention(q, k, v), reps),
             "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2),
             "library_ms": cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)}
@@ -703,7 +754,7 @@ def check_groupnorm(device, key, reps):
              for e in (1e-5, 1e-6)  # both eps and both SiLU settings
              for s in (False, True)]
     bound, by = _bound_ms(2 * x.numel() * x.element_size() + 2 * c * 4,
-                          10.0 * x.numel(), dtype)
+                          10.0 * x.numel(), PEAK_FLOPS[dtype])
 
     def library():
         y = F.group_norm(x, groups, wt, bs, eps)
@@ -767,21 +818,24 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
     # the whole backward does S, dP, dV, dQ and dK once each (10 B H L^2 d
     # flops; reads q, k, v, o, dO and lse, writes dq, dk and dv); the dq and
     # dkv kernels each recompute S and dP, so their own bounds add up to 14
-    pair_bound, _ = _bound_ms(8 * n * size + rows, 10 * ops, dtype)
+    pair_bound, _, _ = _flash_bound_ms(8 * n * size + rows, 10 * ops, d,
+                                       dtype, "bwd")
     rows_out = {}
-    for name, r, fn, nbytes, flops, plain, library in (
-            ("flash_attn_fwd_lse", r_lse, lambda: flash_attention_lse(q, k, v),
+    for name, route, r, fn, nbytes, flops, plain, library in (
+            ("flash_attn_fwd_lse", "fwd", r_lse,
+             lambda: flash_attention_lse(q, k, v),
              4 * n * size + rows, 4 * ops,
              cuda_ms(lambda: flash_attention_lse_plain(q, k, v), 2),
              cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)),
-            ("flash_attn_bwd_dq", r_dq,
+            ("flash_attn_bwd_dq", "dq", r_dq,
              lambda: flash_attention_dq(q, k, v, o, lse, do),
              6 * n * size + 2 * rows, 6 * ops, plain_bwd, lib_bwd),
-            ("flash_attn_bwd_dkv", r_dkv,
+            ("flash_attn_bwd_dkv", "dkv", r_dkv,
              lambda: flash_attention_dkv(q, k, v, do, lse, di),
              6 * n * size + 2 * rows, 8 * ops, plain_bwd, lib_bwd)):
-        bound, by = _bound_ms(nbytes, flops, dtype)
+        bound, by, rate = _flash_bound_ms(nbytes, flops, d, dtype, route)
         rows_out[name] = {**r, "bound_ms": bound, "bound_by": by,
+                          "bound_rate": rate,
                           "ms": cuda_ms(fn, reps), "plain_ms": plain,
                           "library_ms": library}
         if name != "flash_attn_fwd_lse":
@@ -813,7 +867,7 @@ def check_groupnorm_bwd(device, key, dtype, reps) -> dict:
     y = F.group_norm(xl, groups, wl, bl, 1e-5)
     y = F.silu(y) if silu else y
     bound, by = _bound_ms(3 * x.numel() * x.element_size() + 4 * c * 4,
-                          15.0 * x.numel(), dtype)
+                          15.0 * x.numel(), PEAK_FLOPS[dtype])
     return {"max_abs_err": max(r["max_abs_err"] for r in reads),
             "max_rel_err": max(r["max_rel_err"] for r in reads),
             "tol": reads[0]["tol"], "fault_err": min(r["fault_err"] for r in reads),
@@ -849,6 +903,8 @@ def summarize(name, route, source, replaces, path, runs, rows):
                            if any(p in r["calls"] for r in rows)},
             **({"backward_bound_ms": total("backward_bound_ms")}
                if "backward_bound_ms" in rows[0] else {}),
+            **({"bound_rates": sorted({r["bound_rate"] for r in rows})}
+               if "bound_rate" in rows[0] else {}),
             "shapes": rows}
 
 
@@ -909,6 +965,18 @@ def phase_kernels(device, runs) -> list:
                 for name, r in rows.items():
                     train_rows[name].append(
                         {"shape": list(key), "calls": calls(name, key), **r})
+    for dtype in (torch.float32, torch.bfloat16):
+        key = (*D512_CHECK_SHAPE, str(dtype).removeprefix("torch."))
+        r = check_flash(device, D512_CHECK_SHAPE, dtype, reps=3)
+        log(f"[kernels] flash {D512_CHECK_SHAPE} (on no path) {dtype}: "
+            f"{json.dumps(r)}")
+        rows = check_flash_train(device, D512_CHECK_SHAPE, dtype, reps=3)
+        log(f"[kernels] flash training {D512_CHECK_SHAPE} (on no path) "
+            f"{dtype}: {json.dumps(rows)}")
+        if dtype == torch.float32:
+            flash_rows.append({"shape": list(key), "calls": {}, **r})
+            for name, row in rows.items():
+                train_rows[name].append({"shape": list(key), "calls": {}, **row})
     for key in keys("group_norm_silu_bwd", train_paths):
         for dtype in (torch.float32, torch.bfloat16):
             r = check_groupnorm_bwd(device, key, dtype, reps=10)

@@ -3,7 +3,8 @@
 Three shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``flash_attn_fwd`` and ``flash_attn_bwd``: ``csrc/flash_attn_{fwd,bwd}.cu``
-  (with ``csrc/flash_common.cuh``), compiled by ``nvcc`` for ``sm_90a``
+  (with ``csrc/flash_common.cuh`` and ``csrc/flash_mma.cuh``), compiled by
+  ``nvcc`` for ``sm_90a``
   (only where the CUDA toolkit is installed);
 - ``rans``: ``entropy/csrc/rans.cpp``, the host rANS coder, compiled by g++.
 
@@ -25,7 +26,8 @@ PACKAGE = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE / "_build"
 FLASH_SRC = PACKAGE / "csrc" / "flash_attn_fwd.cu"
 FLASH_BWD_SRC = PACKAGE / "csrc" / "flash_attn_bwd.cu"
-FLASH_HEADERS = (PACKAGE / "csrc" / "flash_common.cuh",)
+FLASH_HEADERS = (PACKAGE / "csrc" / "flash_common.cuh",
+                 PACKAGE / "csrc" / "flash_mma.cuh")
 RANS_SRC = PACKAGE / "entropy" / "csrc" / "rans.cpp"
 
 

@@ -21,20 +21,56 @@
 // thread holds an SM x SN patch of the score tile and a TM x TN patch of the
 // output accumulator in registers; the threads that share a score row sit in
 // one warp, so the row max and row sum are warp shuffles. P goes through
-// shared memory to the output threads. Arithmetic is plain fp32 FMA (no
-// tensor cores): the port's first kernel is exact first, fast later.
+// shared memory to the output threads. At d = 16 and 64 the arithmetic is
+// plain fp32 FMA (no tensor cores): exact first, fast later.
 //
-// d = 512 (the VAE mid-block) is the case a register accumulator cannot
-// usually hold at a 64-row tile (128 KB). This kernel keeps the accumulator
-// in registers by shrinking the tile instead: a 32-row q-tile over 256
-// threads is 64 fp32 accumulators a thread, and the fp32 Q tile, one K and
-// one V tile (32 rows each) take 197 KB of the 227 KB of shared memory.
+// d = 512 (the VAE mid-block, [1, 6144, 1, 512] per served image and
+// [2, 4096, 1, 512] with lse in refine training) runs its own kernel,
+// flash_fwd_d512, on the tensor cores: TF32 mma.sync (m16n8k8) with fp32
+// accumulators, each fp32 product taken as three TF32 products (3xTF32,
+// flash_mma.cuh), because one TF32 pass misses the fp32 limit of 2e-5 by
+// ten times while the split lands beside plain fp32. bf16 inputs are exact
+// in TF32: Q K^T takes one pass, P V two (P is split, V is not).
+// - Tiles: 32 q rows and 32 k rows. Q, K and V live in shared memory as fp32
+//   in the swizzled layout of flash_mma.cuh (stride D + 8, column XOR
+//   (row & 4)), so the fragment loads of every role hit 32 banks: 3 x 65 KB,
+//   plus the four partial score tiles (20 KB) and P, 220 KB of the 227 KB
+//   a block may use; one block of 8 warps per SM.
+// - Score phase: warp w sums S = Q K^T over quarter w >> 1 of d for the
+//   16 x 32 patch at rows 16 (w & 1).. (one ldmatrix.x4 for A and two for
+//   the four n-tiles of B per 8 of d; the split of A serves 4 n-tiles). The
+//   four partial tiles meet in shared memory, where all 256 threads take 4
+//   entries each, add the partials and run the softmax (8 lanes a row,
+//   shuffles).
+// - P V phase: warp w owns the 32 x 64 slice of O at d = 64 w..: 64 fp32
+//   accumulators a thread in registers; each 8 of k loads and splits 4
+//   values of P and 16 of V for 48 mma.
+// - Copies: fp32 tiles come by cp.async.cg, 16 bytes a lane, zero-filled past
+//   L. K and V have one buffer each and take turns: the next K tile is
+//   copied while the softmax and P V run, the next V tile while the next
+//   score phase runs. bf16 tiles widen to fp32 through registers.
+// - Grid: one block per (32-row q tile, b*h): [1, 6144, 1, 512] gives 192
+//   blocks on 132 SMs, 1.45 waves, so the second wave runs 60 blocks on 132
+//   SMs and the tail costs up to 27% of the kernel's time; [2, 4096, 1, 512]
+//   gives 256 blocks, 1.94 waves.
+// - ptxas -v: 198 registers (fp32), 212 (bf16), no spills.
+// What it does about the FMA design it replaces: tensor cores in place of
+// fp32 FMA; 16-byte asynchronous copies that overlap compute in place of
+// element loads through registers; 0.25 shared-memory loads per mma in the
+// score phase and 0.4 in P V, against 2 loads per FMA. What holds it back
+// now: 3 TF32 mma and the split (3 integer and fp32 operations a value)
+// per fp32 product, mma.sync's rate on Hopper (wgmma is the full-rate
+// instruction), and one block of 8 warps per SM to hide their latency.
 //
-// Bound on the H100: 4*L^2*D*H flops against 67 TFLOP/s of fp32 FMA (fp32
-// inputs) versus 4*B*L*H*D elements of traffic; at the main path's
-// L = 1536..6144 the flops bound it by two to three orders of magnitude.
+// Bound on the H100: 4*L^2*D*H*B flops (S and P V) and 4*B*L*H*D elements
+// of traffic. d = 16 and 64 run fp32 FMA at 67 TFLOP/s; d = 512 runs
+// 3xTF32 on the tensor cores, three TF32 products for each fp32 one, so
+// its rate is 494.7 / 3 = 165 TFLOP/s (bf16: one or two passes). At the
+// main path's L = 1536..6144 the flops bound every shape, by two to three
+// orders of magnitude.
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -217,6 +253,166 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// d = 512 on the tensor cores (header). One block: (q tile blockIdx.x,
+// b*h blockIdx.y), 256 threads.
+namespace d512 {
+
+constexpr int D = 512, BQ = 32, BK = 32, NT = 256;
+constexpr int TS = D + 8;  // D-wide tile stride (swizzled, flash_mma.cuh)
+constexpr int PS = 36;     // P: 4 mod 32, A-operand reads hit 32 banks
+constexpr int XS = 40;     // partial scores: 8 mod 32, float2 writes ditto
+constexpr int kSmemFloats =
+    3 * BQ * TS + 4 * BQ * XS + BQ * PS + 2 * BQ;
+static_assert(kSmemFloats * 4 <= 232448, "shared memory per block");
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 1)
+    flash_fwd_d512(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ o,
+                   float* __restrict__ lse, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  constexpr bool kSplit = sizeof(T) == 4;  // bf16 operands are exact in TF32
+  extern __shared__ __align__(16) float smem_tc[];
+  float* qs = smem_tc;             // [BQ][TS]
+  float* ks = qs + BQ * TS;        // [BK][TS]
+  float* vs = ks + BK * TS;        // [BK][TS]
+  float* xs = vs + BK * TS;        // [4 quarters of d][BQ][XS]
+  float* ps = xs + 4 * BQ * XS;    // [BQ][PS]
+  float* alpha_s = ps + BQ * PS;   // [BQ]
+  float* l_s = alpha_s + BQ;       // [BQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rh = warp & 1, quarter = warp >> 1;  // rows 16 rh.., d quarter
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const T* kb = k + base;
+  const T* vb = v + base;
+
+  load_rows<T, BQ, D, NT>(qs, q + base, q0, L, row);
+  load_rows<T, BK, D, NT>(ks, kb, 0, L, row);
+  cp_async_commit();
+  load_rows<T, BK, D, NT>(vs, vb, 0, L, row);
+  cp_async_commit();
+
+  // softmax: thread (r, 4 columns from c); a row's 8 threads share a warp
+  const int r = tid >> 3, c = (tid & 7) * 4;
+  float m_run = kNegInf, l_run = 0.f;
+  float acc[2][8][4];  // O[0..32, 64 warp..]
+  zero(acc);
+
+  for (int k0 = 0; k0 < L; k0 += BK) {
+    cp_async_wait<1>();  // Q and this K tile (this V tile may be in flight)
+    __syncthreads();
+    {
+      float sx[1][4][4];
+      zero(sx);
+      warp_mma<1, 4, D / 32, kSplit, kSplit>(
+          sx, RowA<TS, true>(qs, rh * 16, quarter * (D / 4)),
+          RowB<TS>(ks, 0, quarter * (D / 4)));
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        store_frag<XS>(xs + quarter * BQ * XS, sx[0][nt], rh * 16, nt * 8);
+    }
+    __syncthreads();
+    if (k0 + BK < L) load_rows<T, BK, D, NT>(ks, kb, k0 + BK, L, row);
+    cp_async_commit();
+
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(xs + (qq * BQ + r) * XS + c);
+      s[0] += x.x, s[1] += x.y, s[2] += x.z, s[3] += x.w;
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j] = k0 + c + j < L ? s[j] * scale : kNegInf;
+      mx = fmaxf(mx, s[j]);
+    }
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m_run, mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j] = expf(s[j] - m_new);
+      sum += s[j];
+    }
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float alpha = expf(m_run - m_new);
+    l_run = l_run * alpha + sum;
+    m_run = m_new;
+    *reinterpret_cast<float4*>(ps + r * PS + c) =
+        make_float4(s[0], s[1], s[2], s[3]);
+    if (c == 0) {
+      alpha_s[r] = alpha;
+      l_s[r] = l_run;
+    }
+    cp_async_wait<1>();  // this V tile (the next K tile may be in flight)
+    __syncthreads();
+
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float a_lo = alpha_s[mt * 16 + g], a_hi = alpha_s[mt * 16 + g + 8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        acc[mt][nt][0] *= a_lo, acc[mt][nt][1] *= a_lo;
+        acc[mt][nt][2] *= a_hi, acc[mt][nt][3] *= a_hi;
+      }
+    }
+    warp_mma<2, 8, BK / 8, true, kSplit>(acc, RowA<PS, false>(ps, 0, 0),
+                                         ColB<TS>(vs, warp * (D / 8), 0));
+    __syncthreads();  // done with vs and ps
+    if (k0 + BK < L) load_rows<T, BK, D, NT>(vs, vb, k0 + BK, L, row);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  if (lse != nullptr && c == 0 && q0 + r < L)
+    lse[static_cast<int64_t>(blockIdx.y) * L + q0 + r] =
+        m_run + logf(fmaxf(l_run, 1e-30f));
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rr = mt * 16 + g + half * 8;
+      if (q0 + rr >= L) continue;
+      const float inv = 1.f / fmaxf(l_s[rr], 1e-30f);
+      T* out = o + base + (q0 + rr) * row + warp * (D / 8) + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        store2<T>(out + nt * 8, acc[mt][nt][2 * half] * inv,
+                  acc[mt][nt][2 * half + 1] * inv);
+    }
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int L, int H, float scale,
+                   cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
+  if (err != cudaSuccess) return err;
+  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(flash_fwd_d512<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BQ - 1) / BQ, B * H);
+  flash_fwd_d512<T><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, L, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace d512
+
 template <typename T, int D, int BQ, int BK, int NT, int SM, int SN, int TM,
           int TN>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
@@ -246,8 +442,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
       return launch<T, 64, 64, 64, 256, 4, 4, 4, 4>(q, k, v, o, lse, B, L, H,
                                                      scale, stream);
     case 512:
-      return launch<T, 512, 32, 32, 256, 2, 2, 4, 16>(q, k, v, o, lse, B, L, H,
-                                                       scale, stream);
+      return d512::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
     default:
       return -1;
   }

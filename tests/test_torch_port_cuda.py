@@ -34,10 +34,14 @@ from rdeic_torch.ops.fused_groupnorm import (
 
 pytestmark = pytest.mark.cuda
 
+# d = 512 with B = 2 and H = 2 (every path shape has H = 1) and an L that
+# is a multiple of no tile of the tensor-core kernels
+D512_SHAPES = [(2, 1000, 2, 512), (2, 4097, 2, 512)]
 # (B, L, H, D) of every main-path flash launch at 768x512, plus ragged L
 FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
                 (1, 1536, 10, 64), (1, 1536, 8, 16),
-                (2, 1000, 3, 64), (1, 77, 2, 16), (1, 130, 1, 512)]
+                (2, 1000, 3, 64), (1, 77, 2, 16), (1, 130, 1, 512),
+                *D512_SHAPES]
 # (B, C, H, W) of GroupNorm32 inputs: UNet and control at 96x64 latents
 GN_SHAPES = [(1, 320, 96, 64), (1, 2560, 12, 8), (1, 1920, 24, 16),
              (1, 960, 48, 32), (1, 640, 96, 64), (1, 64, 96, 64),
@@ -47,7 +51,8 @@ GN_SHAPES = [(1, 320, 96, 64), (1, 2560, 12, 8), (1, 1920, 24, 16),
 # plus ragged L (the backward masks padded q rows and k columns)
 FLASH_TRAIN_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64), (2, 4096, 4, 16),
                       (2, 1024, 8, 16), (2, 4096, 1, 512), (1, 1024, 1, 512),
-                      (2, 1000, 3, 64), (1, 77, 2, 16), (1, 130, 1, 512)]
+                      (2, 1000, 3, 64), (1, 77, 2, 16), (1, 130, 1, 512),
+                      *D512_SHAPES]
 # (B, C, H, W, groups) of GroupNorm backward: denoiser widths at 512x512
 # (64x64 latents), a 48-channel control width (find_denominator gives 24
 # groups), and ragged spans
@@ -169,6 +174,24 @@ def test_flash_autograd_on_cuda_matches_plain_autograd(cuda, shape):
     want = torch.autograd.grad(flash_attention_plain(*inputs), inputs, do)
     for g, w in zip(got, want):
         assert _rel_err(g, w) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", D512_SHAPES)
+def test_flash_autograd_d512_matches_plain_autograd(cuda, shape, dtype):
+    """The tensor-core d = 512 kernels under autograd: the gradient through
+    the kernels' Function against autograd through the plain forward on the
+    same values in fp32 (a bf16 gradient against the unrounded result)."""
+    inputs = [_rand(shape, dtype, cuda, s).requires_grad_() for s in range(3)]
+    do = _rand(shape, dtype, cuda, 3)
+    out = flash_attention(*inputs)
+    assert out.grad_fn is not None and out.dtype == dtype
+    got = torch.autograd.grad(out, inputs, do)
+    ref = [x.detach().float().requires_grad_() for x in inputs]
+    want = torch.autograd.grad(flash_attention_plain(*ref), ref, do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        assert _rel_err(g, w) <= _limit(dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

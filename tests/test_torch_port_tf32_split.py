@@ -1,0 +1,177 @@
+"""The numeric design of the d = 512 tensor-core flash kernels, on the CPU.
+
+`rdeic_torch/csrc/flash_attn_{fwd,bwd}.cu` take every fp32 product of the
+VAE's d = 512 attention on the tensor cores in TF32 (10 mantissa bits), as
+three products of a 3xTF32 split (`csrc/flash_mma.cuh`): big = x rounded to
+TF32 (to nearest, ties away from zero), small = x - big, which the tensor
+core reads as TF32 by dropping its low 13 bits. This file emulates that
+arithmetic in torch and holds it, in the plain forward and backward formulas
+of `rdeic_torch.ops.flash_attention`, to float64 within the limits that
+chip_smoke.py holds the kernels to on the card; it shows that one TF32 pass
+breaks them, and that bf16 values are exact in TF32, so a bf16 x bf16 tile
+product needs one pass.
+"""
+import numpy as np
+import pytest
+import torch
+
+from rdeic_torch.ops.flash_attention import (
+    flash_attention_bwd_plain,
+    flash_attention_lse_plain,
+)
+
+D = 512
+# chip_smoke.py's limits for fp32: the forward's output absolutely, the lse
+# and the gradients relative to the max of each
+O_TOL = 2e-5
+REL_TOL = 1e-4
+CASES = [(1, 130, 1), (2, 130, 2), (1, 1000, 1), (2, 1000, 2)]  # B, L, H
+_DROP = 0x1FFF  # the 13 low mantissa bits fp32 has and TF32 has not
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32, to nearest with ties away from zero (cvt.rna's
+    rounding, done as the kernels do it: add bit 12, clear the 13 bits)."""
+    bits = x.float().view(torch.int32).to(torch.int64)
+    out = ((bits + 0x1000) & ~_DROP).to(torch.int32)
+    return out.view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """x as the tensor core reads a TF32 operand: the 13 low bits dropped."""
+    return (x.float().view(torch.int32) & ~_DROP).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    big = tf32_round(x)
+    return big, tf32_truncate(x.float() - big)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in fp32 from 3xTF32: small * big + big * small + big * big,
+    each product of TF32 values exact in fp32 and summed in fp32."""
+    (ab, as_), (bb, bs) = split(a), split(b)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b from one TF32 pass: both operands rounded once."""
+    return tf32_round(a) @ tf32_round(b)
+
+
+def mm_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a @ b
+
+
+def forward(q, k, v, mm):
+    """(o, lse) of the plain forward, [B, L, H, D] in, every product by mm;
+    the softmax in the inputs' dtype."""
+    b, seq, h, d = q.shape
+    qh, kh, vh = (x.permute(0, 2, 1, 3) for x in (q, k, v))  # [B, H, L, D]
+    s = mm(qh, kh.transpose(-1, -2)) * d ** -0.5
+    lse = torch.logsumexp(s, dim=-1)
+    o = mm(torch.exp(s - lse[..., None]), vh)
+    return o.permute(0, 2, 1, 3), lse.reshape(b * h, seq)
+
+
+def backward(q, k, v, o, lse, do, mm):
+    """(dq, dk, dv) by the formulas of flash_attention_bwd_plain, every
+    product by mm."""
+    b, seq, h, d = q.shape
+    scale = d ** -0.5
+    qh, kh, vh, oh, doh = (x.permute(0, 2, 1, 3) for x in (q, k, v, o, do))
+    p = torch.exp(mm(qh, kh.transpose(-1, -2)) * scale
+                  - lse.reshape(b, h, seq)[..., None])
+    di = (doh * oh).sum(-1)
+    ds = p * (mm(doh, vh.transpose(-1, -2)) - di[..., None]) * scale
+    grads = (mm(ds, kh), mm(ds.transpose(-1, -2), qh),
+             mm(p.transpose(-1, -2), doh))
+    return tuple(g.permute(0, 2, 1, 3) for g in grads)
+
+
+def _inputs(b, seq, h, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, seq, h, D)).astype(np.float32))
+            for _ in range(4)]
+
+
+def _reads(mm, b, seq, h, seed):
+    """Errors of the forward and backward with products by mm against
+    float64 on the same fp32 inputs: {o: max abs, lse / dq / dk / dv: max
+    abs over max}. The backward of both starts from the float64 forward's
+    o and lse rounded to fp32, as the kernels start from the forward's."""
+    q, k, v, do = _inputs(b, seq, h, seed)
+    o64, lse64 = forward(*(x.double() for x in (q, k, v)), mm_exact)
+    o, lse = forward(q, k, v, mm)
+    o32, l32 = o64.float(), lse64.float()
+    want = backward(*(x.double() for x in (q, k, v, o32)), l32.double(),
+                    do.double(), mm_exact)
+    got = backward(q, k, v, o32, l32, do, mm)
+    reads = {"o": (o.double() - o64).abs().max().item(),
+             "lse": ((lse.double() - lse64).abs().max()
+                     / lse64.abs().max()).item()}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        reads[name] = ((g.double() - w).abs().max() / w.abs().max()).item()
+    return reads
+
+
+def _within(reads) -> bool:
+    return reads["o"] <= O_TOL and all(reads[n] <= REL_TOL
+                                       for n in ("lse", "dq", "dk", "dv"))
+
+
+def test_emulation_follows_the_plain_formulas():
+    """With exact products, forward() and backward() are the port's plain
+    versions (float64, so only the order of sums differs)."""
+    q, k, v, do = (x.double() for x in _inputs(1, 130, 2, 7))
+    o, lse = forward(q, k, v, mm_exact)
+    want_o, want_lse = flash_attention_lse_plain(q, k, v)
+    torch.testing.assert_close(o, want_o, atol=1e-12, rtol=1e-12)
+    torch.testing.assert_close(lse, want_lse, atol=1e-12, rtol=1e-12)
+    for got, want in zip(backward(q, k, v, o, lse, do, mm_exact),
+                         flash_attention_bwd_plain(q, k, v, o, lse, do)):
+        torch.testing.assert_close(got, want, atol=1e-12, rtol=1e-12)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_reconstructs_fp32_to_the_truncated_bits(seed):
+    """big + small equals x but for small's dropped bits, at most 2^-21 of
+    |x|; big alone is x within half a TF32 ulp (2^-11 of |x|)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal(4096)
+                          * 10.0 ** rng.uniform(-6, 6, 4096)).astype(np.float32))
+    big, small = split(x)
+    assert ((big.double() - x.double()).abs() <= 2.0 ** -11 * x.double().abs()).all()
+    err = (big.double() + small.double() - x.double()).abs()
+    assert (err <= 2.0 ** -21 * x.double().abs()).all()
+    assert torch.equal(tf32_round(big), big) and torch.equal(tf32_truncate(small), small)
+
+
+@pytest.mark.parametrize("b,seq,h", CASES)
+def test_3xtf32_holds_the_fp32_limits(b, seq, h):
+    reads = _reads(mm_3xtf32, b, seq, h, seed=seq + h)
+    assert _within(reads), reads
+
+
+@pytest.mark.parametrize("b,seq,h", CASES)
+def test_one_tf32_pass_breaks_the_fp32_limits(b, seq, h):
+    reads = _reads(mm_tf32, b, seq, h, seed=seq + h)
+    assert not _within(reads), reads
+    assert reads["o"] > O_TOL, reads  # the forward alone already fails
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_values_are_exact_in_tf32(seed):
+    """Every bf16 value (8 significant bits) is a TF32 value, so a bf16 x
+    bf16 tile product in one TF32 pass is the fp32 product of the same
+    values, and the split of a bf16 operand has a zero small part."""
+    q, k, _, _ = _inputs(1, 130, 1, seed)
+    qb = q[0, :, 0].bfloat16().float()
+    kb = k[0, :, 0].bfloat16().float()
+    assert torch.equal(tf32_round(qb), qb) and torch.equal(tf32_truncate(qb), qb)
+    assert torch.equal(split(kb)[1], torch.zeros_like(kb))
+    every = torch.arange(-(2 ** 15), 2 ** 15, dtype=torch.int32).to(torch.int16)
+    values = every.view(torch.bfloat16).float()
+    finite = values[torch.isfinite(values)]
+    assert torch.equal(tf32_round(finite), finite)
+    assert torch.equal(mm_tf32(qb, kb.T), mm_exact(qb, kb.T))

@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc (for the flash-attention kernels), triton and g++;
-no network. Phases, each fatal on failure:
+Needs one CUDA card, nvcc (for the flash-attention and GroupNorm forward
+kernels), triton (for the GroupNorm backward) and g++; no network. Phases,
+each fatal on failure:
 
 1. environment: torch / CUDA / triton versions and the card's name and power
    limit (nvidia-smi);
-2. build: nvcc (forward and backward flash kernels) and g++ start together
-   on the sources in the checkout; ptxas's registers and spills of each
-   flash kernel are logged by name;
+2. build: nvcc (forward and backward flash kernels, GroupNorm forward) and
+   g++ start together on the sources in the checkout; ptxas's registers and
+   spills of each CUDA kernel are logged by name;
 3. main path at the full width of configs/model/rdeic.yaml (random weights
    from --seed): the CLI's per-image `rdeic_torch.inference.process` codes a
    synthetic 768x512 image to a stream file, decodes it back, relay-samples
@@ -51,14 +52,21 @@ no network. Phases, each fatal on failure:
    every launch count set to 0, each applying AdamW. Checks as in 6, LPIPS
    among the frozen tensors;
 9. kernels against their plain versions at every shape of the serving and
-   the training paths, and at one d = 512 shape on no path (B = 2, H = 2,
-   L = 1000: D512_CHECK_SHAPE; its rows carry no calls), in fp32 and bf16,
-   with the kernel, plain and library times (CUDA events) and the bound of
-   each. A flash row's bound takes the rate of its route (`bound_rate`):
-   the fp32 FMA or bf16 peak at d = 16 and 64, the TF32 tensor cores over
-   the passes of the 3xTF32 split at d = 512 (flash_rate). Each comparison
-   also reads a planted fault (the kernel's output scaled by 1.05) and
-   fails if that reading is within the limit.
+   the training paths, and at shapes on no path (their rows carry no
+   calls): flash at d = 512 and d = 64 with B = 2, H > 1 and L = 1000 (the
+   CHECK_SHAPES), GroupNorm at a span larger than a cluster's shared memory
+   (GN_STREAM_KEYS: the kernel's streaming variant), in fp32 and bf16, with
+   the kernel, plain and library times (CUDA events) and the bound of each.
+   `ms` times launches back to back, so a launch-bound call reads its host
+   time; `device_ms` (and `library_device_ms`) times the same launches
+   queued behind a sleeping kernel, so it reads the card's time alone
+   (device_ms); GroupNorm rows add the host µs a call takes to enqueue.
+   A flash row's bound takes the rate of its route (`bound_rate`): the fp32
+   FMA or bf16 peak where the kernel runs FMA (d = 16, and the d = 64
+   backward), the TF32 tensor cores over the passes of the 3xTF32 split
+   where it runs them (the d = 64 forward, every d = 512 kernel:
+   flash_rate). Each comparison also reads a planted fault (the kernel's
+   output scaled by 1.05) and fails if that reading is within the limit.
 
 The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
@@ -68,8 +76,8 @@ run of the path its `path` names: per image for the serving kernels
 others (`ms_by_path` also gives the kernel time per independent-phase
 micro-step); `shapes` has the per-call numbers and the calls in each path.
 `launches` counts kernel launches in that path's counted run (one per flash
-call; two per GroupNorm call: stats then apply, or moments then dx),
-`launches_by_path` in each path's. The plain and library times of
+call and per GroupNorm forward call; two per GroupNorm backward call:
+moments then dx), `launches_by_path` in each path's. The plain and library times of
 flash_attn_bwd_dq and flash_attn_bwd_dkv are each of a whole backward (dq,
 dk and dv): compare them with the sum of the two kernels, and so is their
 `backward_bound_ms` (10 B H L^2 d flops: S, dP, dV, dQ, dK once each);
@@ -226,7 +234,9 @@ TC_PASSES = {
                     "bwd": (3, 3, 3, 3, 3)},
     torch.bfloat16: {"fwd": (1, 2), "dq": (1, 1, 2), "dkv": (1, 1, 2, 2),
                      "bwd": (1, 1, 2, 2, 2)}}
-TC_HEAD_DIMS = (512,)
+# (kernel, head dim) that run on the tensor cores; the rest run fp32 FMA
+TC_ROUTES = {("fwd", 64), ("fwd", 512), ("dq", 512), ("dkv", 512),
+             ("bwd", 512)}
 FAULT_SCALE = 1.05  # a planted output-scale error each check must see
 GN_TOL = 1e-4  # fp32 GroupNorm outputs up to ~15 after scale and bias
 # relative to max |plain| of each output, for the training kernels: fp32
@@ -237,9 +247,16 @@ GN_TOL = 1e-4  # fp32 GroupNorm outputs up to ~15 after scale and bias
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8 + 1e-4}
 FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
                 (1, 1536, 10, 64), (1, 1536, 8, 16)]
-# a d = 512 shape on no path: B = 2, H = 2 (every path's d = 512 shape has
-# H = 1) and an L that is a multiple of no tile of the d = 512 kernels
-D512_CHECK_SHAPE = (2, 1000, 2, 512)
+# flash shapes on no path: B = 2, H > 1 (every path's d = 512 shape has
+# H = 1) and an L that is a multiple of no tile of the tensor-core kernels
+CHECK_SHAPES = [(2, 1000, 2, 512), (2, 1000, 3, 64)]
+# a GroupNorm span on no path larger than 8 CTAs' shared memory in both
+# dtypes (16 x 65536 elements), so the forward kernel streams it
+GN_STREAM_KEYS = [(1, 512, 256, 256, 32, 1e-5, True, dt)
+                  for dt in ("float32", "bfloat16")]
+# torch.cuda._sleep counts cycles; at this clock or below (the H100's boost
+# clock is 1.98 GHz) a sleep lasts at least the seconds asked
+SLEEP_CLOCK_HZ = 2.0e9
 
 
 def log(*args):
@@ -257,6 +274,34 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, windows: int = 2) -> tuple[float, float]:
+    """(device ms a launch, host ms a call) of fn(). The host time is that of
+    enqueuing `reps` calls without a sync; the device time is that of
+    `reps` calls queued behind torch.cuda._sleep, which holds the stream
+    until the host has enqueued them all, so the events' window holds the
+    card's work and its gaps between launches, and no host time. A host
+    stall longer than the sleep's margin would let host time in, and can
+    only lengthen a window, so the shortest of `windows` is kept."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reads = []
+    for _ in range(windows):
+        torch.cuda._sleep(int(SLEEP_CLOCK_HZ * (3 * host * reps + 5e-3)))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        reads.append(start.elapsed_time(end) / reps)
+    return min(reads), host * 1e3
 
 
 def host_ms(fn):
@@ -283,14 +328,15 @@ def phase_build():
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] nvcc + g++ in parallel: {time.perf_counter() - t0:.1f} s")
-    for lib in ("flash_attn_fwd", "flash_attn_bwd"):
+    for lib in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_fwd"):
         kernel = "?"
         for line in build.build_log(libs[lib]).splitlines():
-            m = re.search(r"\d(flash_(?:fwd|dq|dkv)_(?:kernel|d512))"
-                          r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?", line)
+            m = re.search(r"\d(flash_(?:fwd|dq|dkv)_(?:kernel|d512|d64)|gn_fwd)"
+                          r"I(f|13__nv_bfloat16)(?:Li(\d+)E|Lb([01])E)?", line)
             if "Compiling entry function" in line and m:  # a mangled name
                 kernel = (f"{m[1]}<{'fp32' if m[2] == 'f' else 'bf16'}"
-                          f"{', d = ' + m[3] if m[3] else ''}>")
+                          f"{', d = ' + m[3] if m[3] else ''}"
+                          f"{', vec = ' + m[4] if m[4] else ''}>")
             elif "registers" in line or "spill" in line:
                 log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
 
@@ -390,11 +436,11 @@ def phase_main_path(model, device, seed: int) -> dict:
         raise AssertionError("process() and the staged calls disagree")
     n_gn = sum(isinstance(m, GroupNorm32) for m in model.denoiser.modules())
     # 14 self-attentions over >= 1024 tokens per denoiser call at 768x512
-    # (UNet 5 + 5, control 2 + 2), plus the two VAE mid-blocks; two launches
+    # (UNet 5 + 5, control 2 + 2), plus the two VAE mid-blocks; one launch
     # per GroupNorm32 call; no training kernel (no grad on this path)
     want = dict.fromkeys(KERNEL_FNS, 0)
     want.update({"flash_attn_fwd": 14 * STEPS + 2,
-                 "group_norm_silu_fwd": 2 * n_gn * STEPS})
+                 "group_norm_silu_fwd": n_gn * STEPS})
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     return {"bpp": bpp, "ms": ms, "stage_ms": stage_ms, "launches": launches,
@@ -576,8 +622,8 @@ def train_launches_per_step(model) -> dict:
     model's structure: the denoiser runs once (independent phase) or once
     per sampler step (refine); each of its flash self-attentions runs the
     forward with lse (twice when the blocks are recomputed in the backward
-    or the sampler step is), dq and dkv once; each GroupNorm32 call is two
-    forward launches (again when its block or step is recomputed) and two
+    or the sampler step is), dq and dkv once; each GroupNorm32 call is one
+    forward launch (again when its block or step is recomputed) and two
     backward launches. The VAE encoder's mid-block attention runs the plain
     forward without grad; in the refine phase the decoder's runs the
     forward with lse (twice with the decoder's use_checkpoint), dq and
@@ -600,7 +646,7 @@ def train_launches_per_step(model) -> dict:
                                    + decoder * (1 + dec_ckpt)),
             "flash_attn_bwd_dq": calls * n_flash + decoder,
             "flash_attn_bwd_dkv": calls * n_flash + decoder,
-            "group_norm_silu_fwd": 2 * calls * (
+            "group_norm_silu_fwd": calls * (
                 n_gn + ckpt * n_gn_recomputed + step_remat * n_gn),
             "group_norm_silu_bwd": 2 * calls * n_gn}
 
@@ -684,10 +730,11 @@ def _bound_ms(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
 
 
 def flash_rate(d: int, dtype, kernel: str) -> tuple[float, str]:
-    """(flop/s, its name) of the route a flash kernel takes at head dim
-    d: the tensor cores' TF32 rate over the mean TF32 passes of its
-    products (equal flops each) at d = 512, else the dtype's peak."""
-    if d in TC_HEAD_DIMS:
+    """(flop/s, its name) of the route flash kernel `kernel` takes at head
+    dim d: the tensor cores' TF32 rate over the mean TF32 passes of its
+    products (equal flops each) where it runs 3xTF32 (TC_ROUTES), else the
+    dtype's peak."""
+    if (kernel, d) in TC_ROUTES:
         passes = TC_PASSES[dtype][kernel]
         mean = sum(passes) / len(passes)
         return (TF32_FLOPS / mean,
@@ -737,36 +784,56 @@ def check_flash(device, shape, dtype, reps):
                                       4.0 * b * h * seq * seq * d, d, dtype,
                                       "fwd")
     return {**r, "bound_ms": bound, "bound_by": by, "bound_rate": rate,
-            "ms": cuda_ms(lambda: flash_attention(q, k, v), reps),
-            "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2),
-            "library_ms": cuda_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)}
+            **timings(lambda: flash_attention(q, k, v),
+                      lambda: F.scaled_dot_product_attention(qt, kt, vt), reps),
+            "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2)}
+
+
+def timings(fn, library, reps) -> dict:
+    """ms (back to back), device_ms and host_us a call of the kernel's
+    wrapper `fn` and of the library call (device_ms)."""
+    dev, host = device_ms(fn, reps)
+    lib_dev, lib_host = device_ms(library, reps)
+    return {"ms": cuda_ms(fn, reps), "device_ms": dev, "host_us": host * 1e3,
+            "library_ms": cuda_ms(library, reps), "library_device_ms": lib_dev,
+            "library_host_us": lib_host * 1e3}
 
 
 def check_groupnorm(device, key, reps):
+    """fp32: the kernel against the plain version, GN_TOL absolute. bf16:
+    against the plain version on the same values in fp32, unrounded, at
+    REL_TOL of max (as the training rows)."""
     b, c, h, w, groups, eps, silu, dtype = key
     dtype = getattr(torch, dtype)
     x = _randn((b, c, h, w), dtype, device, 0) * 3 + 1
     wt, bs = (_randn((c,), torch.float32, device, s) for s in (1, 2))
-    reads = [compare(f"group_norm {key} eps={e} silu={s}",
-                     group_norm(x, wt, bs, groups, e, s),
-                     group_norm_plain(x, wt, bs, groups, e, s), GN_TOL)
-             for e in (1e-5, 1e-6)  # both eps and both SiLU settings
-             for s in (False, True)]
+    reads = []
+    for e in (1e-5, 1e-6):  # both eps and both SiLU settings
+        for s in (False, True):
+            name = f"group_norm {key} eps={e} silu={s}"
+            got = group_norm(x, wt, bs, groups, e, s)
+            if dtype == torch.float32:
+                reads.append(compare(name, got,
+                                     group_norm_plain(x, wt, bs, groups, e, s),
+                                     GN_TOL))
+            else:
+                want = group_norm_plain(x.float(), wt, bs, groups, e, s)
+                reads.append(compare_rel(name, [(got, want, REL_TOL[dtype])]))
     bound, by = _bound_ms(2 * x.numel() * x.element_size() + 2 * c * 4,
                           10.0 * x.numel(), PEAK_FLOPS[dtype])
 
     def library():
-        y = F.group_norm(x, groups, wt, bs, eps)
+        y = F.group_norm(x, groups, wt.to(dtype), bs.to(dtype), eps)
         return F.silu(y) if silu else y
 
-    return {"max_abs_err": max(r["max_abs_err"] for r in reads), "tol": GN_TOL,
+    return {"max_abs_err": max(r["max_abs_err"] for r in reads),
+            "tol": reads[0]["tol"],
             "fault_err": min(r["fault_err"] for r in reads),
             "bound_ms": bound, "bound_by": by,
-            "ms": cuda_ms(lambda: group_norm(x, wt, bs, groups, eps, silu), reps),
+            **timings(lambda: group_norm(x, wt, bs, groups, eps, silu), library,
+                      reps),
             "plain_ms": cuda_ms(
-                lambda: group_norm_plain(x, wt, bs, groups, eps, silu), reps),
-            "library_ms": cuda_ms(library, reps)}
+                lambda: group_norm_plain(x, wt, bs, groups, eps, silu), reps)}
 
 
 def compare_rel(name, pairs) -> dict:
@@ -820,24 +887,32 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
     # dkv kernels each recompute S and dP, so their own bounds add up to 14
     pair_bound, _, _ = _flash_bound_ms(8 * n * size + rows, 10 * ops, d,
                                        dtype, "bwd")
+    lib_bwd_dev, _ = device_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), reps)
     rows_out = {}
-    for name, route, r, fn, nbytes, flops, plain, library in (
+
+    def fwd_library():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    for name, route, r, fn, nbytes, flops, plain, library, library_dev in (
             ("flash_attn_fwd_lse", "fwd", r_lse,
              lambda: flash_attention_lse(q, k, v),
              4 * n * size + rows, 4 * ops,
              cuda_ms(lambda: flash_attention_lse_plain(q, k, v), 2),
-             cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)),
+             cuda_ms(fwd_library, reps), device_ms(fwd_library, reps)[0]),
             ("flash_attn_bwd_dq", "dq", r_dq,
              lambda: flash_attention_dq(q, k, v, o, lse, do),
-             6 * n * size + 2 * rows, 6 * ops, plain_bwd, lib_bwd),
+             6 * n * size + 2 * rows, 6 * ops, plain_bwd, lib_bwd, lib_bwd_dev),
             ("flash_attn_bwd_dkv", "dkv", r_dkv,
              lambda: flash_attention_dkv(q, k, v, do, lse, di),
-             6 * n * size + 2 * rows, 8 * ops, plain_bwd, lib_bwd)):
+             6 * n * size + 2 * rows, 8 * ops, plain_bwd, lib_bwd,
+             lib_bwd_dev)):
         bound, by, rate = _flash_bound_ms(nbytes, flops, d, dtype, route)
         rows_out[name] = {**r, "bound_ms": bound, "bound_by": by,
                           "bound_rate": rate,
-                          "ms": cuda_ms(fn, reps), "plain_ms": plain,
-                          "library_ms": library}
+                          "ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps)[0],
+                          "plain_ms": plain, "library_ms": library,
+                          "library_device_ms": library_dev}
         if name != "flash_attn_fwd_lse":
             rows_out[name]["backward_bound_ms"] = pair_bound
     return rows_out
@@ -872,12 +947,12 @@ def check_groupnorm_bwd(device, key, dtype, reps) -> dict:
             "max_rel_err": max(r["max_rel_err"] for r in reads),
             "tol": reads[0]["tol"], "fault_err": min(r["fault_err"] for r in reads),
             "bound_ms": bound, "bound_by": by,
-            "ms": cuda_ms(lambda: group_norm_bwd(x, wt, bs, mean, inv, dy,
-                                                 groups, silu), reps),
+            **timings(lambda: group_norm_bwd(x, wt, bs, mean, inv, dy, groups,
+                                             silu),
+                      lambda: torch.autograd.grad(y, (xl, wl, bl), dy,
+                                                  retain_graph=True), reps),
             "plain_ms": cuda_ms(lambda: group_norm_bwd_plain(
-                x, wt, bs, mean, inv, dy, groups, silu), reps),
-            "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                y, (xl, wl, bl), dy, retain_graph=True), reps)}
+                x, wt, bs, mean, inv, dy, groups, silu), reps)}
 
 
 def summarize(name, route, source, replaces, path, runs, rows):
@@ -895,10 +970,12 @@ def summarize(name, route, source, replaces, path, runs, rows):
             "launches_by_path": {p: run["launches"][name]
                                  for p, run in runs.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "ms": total("ms"), "device_ms": total("device_ms"),
+            "plain_ms": total("plain_ms"),
             "bound_ms": bound,
             "bound_by": "operations" if by_ops >= bound / 2 else "bytes",
             "library_ms": total("library_ms"),
+            "library_device_ms": total("library_device_ms"),
             "ms_by_path": {p: total("ms", p) for p in runs
                            if any(p in r["calls"] for r in rows)},
             **({"backward_bound_ms": total("backward_bound_ms")}
@@ -948,6 +1025,11 @@ def phase_kernels(device, runs) -> list:
         log(f"[kernels] group_norm {key}: {json.dumps(r)}")
         gn_rows.append({"shape": list(key),
                         "calls": calls("group_norm_silu_fwd", key), **r})
+    for key in GN_STREAM_KEYS:
+        r = check_groupnorm(device, key, reps=3)
+        log(f"[kernels] group_norm {key} (on no path, streamed): {json.dumps(r)}")
+        if key[7] == "float32":
+            gn_rows.append({"shape": list(key), "calls": {}, **r})
 
     train_paths = ("train", "refine")
     train_rows = {k: [] for k in ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
@@ -965,18 +1047,19 @@ def phase_kernels(device, runs) -> list:
                 for name, r in rows.items():
                     train_rows[name].append(
                         {"shape": list(key), "calls": calls(name, key), **r})
-    for dtype in (torch.float32, torch.bfloat16):
-        key = (*D512_CHECK_SHAPE, str(dtype).removeprefix("torch."))
-        r = check_flash(device, D512_CHECK_SHAPE, dtype, reps=3)
-        log(f"[kernels] flash {D512_CHECK_SHAPE} (on no path) {dtype}: "
-            f"{json.dumps(r)}")
-        rows = check_flash_train(device, D512_CHECK_SHAPE, dtype, reps=3)
-        log(f"[kernels] flash training {D512_CHECK_SHAPE} (on no path) "
-            f"{dtype}: {json.dumps(rows)}")
-        if dtype == torch.float32:
-            flash_rows.append({"shape": list(key), "calls": {}, **r})
-            for name, row in rows.items():
-                train_rows[name].append({"shape": list(key), "calls": {}, **row})
+    for shape in CHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            key = (*shape, str(dtype).removeprefix("torch."))
+            r = check_flash(device, shape, dtype, reps=3)
+            log(f"[kernels] flash {shape} (on no path) {dtype}: {json.dumps(r)}")
+            rows = check_flash_train(device, shape, dtype, reps=3)
+            log(f"[kernels] flash training {shape} (on no path) {dtype}: "
+                f"{json.dumps(rows)}")
+            if dtype == torch.float32:
+                flash_rows.append({"shape": list(key), "calls": {}, **r})
+                for name, row in rows.items():
+                    train_rows[name].append({"shape": list(key), "calls": {},
+                                             **row})
     for key in keys("group_norm_silu_bwd", train_paths):
         for dtype in (torch.float32, torch.bfloat16):
             r = check_groupnorm_bwd(device, key, dtype, reps=10)
@@ -988,7 +1071,8 @@ def phase_kernels(device, runs) -> list:
 
     flash_src = "rdeic_torch/csrc/flash_attn_fwd.cu"
     bwd_src = "rdeic_torch/csrc/flash_attn_bwd.cu"
-    gn_src = "rdeic_torch/ops/fused_groupnorm.py"
+    gn_src = "rdeic_torch/csrc/group_norm_fwd.cu"
+    gn_bwd_src = "rdeic_torch/ops/fused_groupnorm.py"
     lines = [
         summarize("flash_attn_fwd", "cuda", flash_src,
                   "rdeic_tpu/ops/flash_attention.py:32", "serve", runs,
@@ -1002,10 +1086,10 @@ def phase_kernels(device, runs) -> list:
         summarize("flash_attn_bwd_dkv", "cuda", bwd_src,
                   "rdeic_tpu/ops/flash_attention.py:300", "refine", runs,
                   train_rows["flash_attn_bwd_dkv"]),
-        summarize("group_norm_silu_fwd", "triton", gn_src,
+        summarize("group_norm_silu_fwd", "cuda", gn_src,
                   "rdeic_tpu/ops/fused_groupnorm.py:116", "serve", runs,
                   gn_rows),
-        summarize("group_norm_silu_bwd", "triton", gn_src,
+        summarize("group_norm_silu_bwd", "triton", gn_bwd_src,
                   "rdeic_tpu/ops/fused_groupnorm.py:144", "refine", runs,
                   train_rows["group_norm_silu_bwd"]),
     ]
@@ -1023,6 +1107,23 @@ def phase_kernels(device, runs) -> list:
                 f"backward {dq['backward_bound_ms']:.3f} ms; dq's and dkv's "
                 f"own bounds {dq['bound_ms']:.3f} + {dkv['bound_ms']:.3f} ms; "
                 f"SDPA backward {dq['library_ms']:.3f} ms")
+    gn = lines[4]
+    n_calls = sum(r["calls"].get("serve", 0) for r in gn_rows)
+    host_us = sum(r["host_us"] * r["calls"].get("serve", 0) for r in gn_rows)
+    lib_us = sum(r["library_host_us"] * r["calls"].get("serve", 0)
+                 for r in gn_rows)
+    log(f"[kernels] GroupNorm forward per image ({n_calls:g} calls, "
+        f"{gn['launches']} launches): kernel ms {gn['ms']:.3f}, device_ms "
+        f"{gn['device_ms']:.3f}, host {host_us / n_calls:.1f} us a call; "
+        f"F.group_norm + F.silu ms {gn['library_ms']:.3f}, device_ms "
+        f"{gn['library_device_ms']:.3f}, host {lib_us / n_calls:.1f} us a call")
+    for d in (16, 64, 512):
+        per = {key: sum(r[key] * r["calls"].get("serve", 0) for r in flash_rows
+                        if r["shape"][3] == d)
+               for key in ("ms", "device_ms", "library_ms", "library_device_ms",
+                           "bound_ms")}
+        log(f"[kernels] flash forward per image at d = {d}: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in per.items()))
     log(f"[kernels] SDPA's backend at the VAE's d = 512 in fp32: "
         f"{sdpa_backend((2, 4096, 1, 512), device)}")
     return lines

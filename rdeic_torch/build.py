@@ -1,11 +1,13 @@
 """Builds the port's native code at first use, from the sources in the package.
 
-Three shared libraries, each with a plain C interface loaded through ctypes:
+Four shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``flash_attn_fwd`` and ``flash_attn_bwd``: ``csrc/flash_attn_{fwd,bwd}.cu``
   (with ``csrc/flash_common.cuh`` and ``csrc/flash_mma.cuh``), compiled by
   ``nvcc`` for ``sm_90a``
   (only where the CUDA toolkit is installed);
+- ``group_norm_fwd``: ``csrc/group_norm_fwd.cu``, the cluster-launched
+  GroupNorm(+SiLU) forward, by ``nvcc`` for ``sm_90a`` likewise;
 - ``rans``: ``entropy/csrc/rans.cpp``, the host rANS coder, compiled by g++.
 
 Each library lands in ``_build/`` under a name that hashes its source, the
@@ -28,6 +30,7 @@ FLASH_SRC = PACKAGE / "csrc" / "flash_attn_fwd.cu"
 FLASH_BWD_SRC = PACKAGE / "csrc" / "flash_attn_bwd.cu"
 FLASH_HEADERS = (PACKAGE / "csrc" / "flash_common.cuh",
                  PACKAGE / "csrc" / "flash_mma.cuh")
+GROUP_NORM_SRC = PACKAGE / "csrc" / "group_norm_fwd.cu"
 RANS_SRC = PACKAGE / "entropy" / "csrc" / "rans.cpp"
 
 
@@ -84,6 +87,10 @@ def build_flash_bwd() -> Path:
     return _build(FLASH_BWD_SRC, "flash_attn_bwd", _nvcc_cmd(), FLASH_HEADERS)
 
 
+def build_group_norm() -> Path:
+    return _build(GROUP_NORM_SRC, "group_norm_fwd", _nvcc_cmd())
+
+
 def build_rans() -> Path:
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC"]
     return _build(RANS_SRC, "rans", cmd)
@@ -92,7 +99,7 @@ def build_rans() -> Path:
 def build_all() -> dict[str, Path]:
     """Start every build at once and wait for all of them."""
     builds = {"flash_attn_fwd": build_flash, "flash_attn_bwd": build_flash_bwd,
-              "rans": build_rans}
+              "group_norm_fwd": build_group_norm, "rans": build_rans}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builds.items()}
         return {name: fut.result() for name, fut in futures.items()}

@@ -15,14 +15,41 @@
 // pointer skips it, so the serving path runs without the extra store.
 //
 // Design: one block owns one (b*h, q-tile) pair and loops over the K/V tiles
-// itself (the TPU kernel's sequential k grid axis becomes this loop). The
-// Q tile and one K/V tile live in shared memory as fp32, with rows padded
-// by one float so that the column walks are free of bank conflicts. Each
-// thread holds an SM x SN patch of the score tile and a TM x TN patch of the
-// output accumulator in registers; the threads that share a score row sit in
-// one warp, so the row max and row sum are warp shuffles. P goes through
-// shared memory to the output threads. At d = 16 and 64 the arithmetic is
-// plain fp32 FMA (no tensor cores): exact first, fast later.
+// itself (the TPU kernel's sequential k grid axis becomes this loop).
+//
+// d = 16 (the control branch's attention) runs the FMA template,
+// flash_fwd_kernel: the Q tile and one K/V tile live in shared memory as
+// fp32, with rows padded by one float so that the column walks are free of
+// bank conflicts. Each thread holds an SM x SN patch of the score tile and a
+// TM x TN patch of the output accumulator in registers; the threads that
+// share a score row sit in one warp, so the row max and row sum are warp
+// shuffles. P goes through shared memory to the output threads. The
+// arithmetic is plain fp32 FMA; at d = 16 it is ahead of SDPA.
+//
+// d = 64 (the UNet's attention: [1, 6144, 5, 64] and [1, 1536, 10, 64] per
+// denoiser call at 768x512, [2, 4096, 5, 64] and [2, 1024, 10, 64] with lse
+// in training) runs flash_fwd_d64 on the tensor cores, with the TF32
+// mma.sync and the 3xTF32 split of flash_mma.cuh (below), shaped as
+// FlashAttention-2:
+// - 64-row q tiles, 4 warps; each warp owns 16 q rows and keeps their score
+//   fragments (16 x 64 a K tile), running max and sum (rows g and g + 8 of
+//   each lane), and the 16 x 64 output accumulator in registers. Row
+//   reductions are two shuffles inside a lane's quad; scores never meet in
+//   shared memory.
+// - Q is split once into big and small TF32 A fragments and held in
+//   registers for the whole K loop (64 registers in fp32, 32 in bf16).
+// - K and V tiles of 64 rows are double-buffered: cp.async copies the next
+//   pair while the current one is used. K is swizzled (stride 72) for
+//   ldmatrix; V has stride 68 (4 mod 32 banks).
+// - P V needs P in the A layout, which the C layout of S is not. Inside each
+//   8 keys the contraction order is permuted (k-slot t is key 2t, slot t + 4
+//   key 2t + 1), so the C fragment is the A fragment as it stands, and V's B
+//   fragment reads rows 2t and 2t + 1, which stride 68 puts on 32 banks.
+// - fp32: every product takes three TF32 passes; bf16 operands are exact in
+//   TF32, so Q K^T takes one and P V two (P is split, V is not).
+// - The K tail is masked to -1e30 and the output divided by max(l, 1e-30).
+// - Grid (q tiles, b*h), two blocks of 88 KB per SM: [1, 1536, 10, 64] gives
+//   240 blocks for 264 slots, [1, 6144, 5, 64] 480 (1.8 waves).
 //
 // d = 512 (the VAE mid-block, [1, 6144, 1, 512] per served image and
 // [2, 4096, 1, 512] with lse in refine training) runs its own kernel,
@@ -63,9 +90,9 @@
 // instruction), and one block of 8 warps per SM to hide their latency.
 //
 // Bound on the H100: 4*L^2*D*H*B flops (S and P V) and 4*B*L*H*D elements
-// of traffic. d = 16 and 64 run fp32 FMA at 67 TFLOP/s; d = 512 runs
+// of traffic. d = 16 runs fp32 FMA at 67 TFLOP/s; d = 64 and 512 run
 // 3xTF32 on the tensor cores, three TF32 products for each fp32 one, so
-// its rate is 494.7 / 3 = 165 TFLOP/s (bf16: one or two passes). At the
+// their rate is 494.7 / 3 = 165 TFLOP/s (bf16: one or two passes). At the
 // main path's L = 1536..6144 the flops bound every shape, by two to three
 // orders of magnitude.
 
@@ -413,6 +440,197 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace d512
 
+// d = 64 on the tensor cores (header). One block: (64-row q tile
+// blockIdx.x, b*h blockIdx.y), 4 warps; warp w owns q rows 16 w.. of the
+// tile and keeps their scores, softmax state and output in registers.
+namespace d64 {
+
+constexpr int D = 64, BQ = 64, BK = 64, NT = 128;
+constexpr int KS = D + 8;  // Q and K tiles: swizzled (flash_mma.cuh swz)
+constexpr int VS = D + 4;  // V tiles: 4 mod 32 banks, read at rows 2t, 2t + 1
+constexpr int kSmemFloats = BQ * KS + 2 * BK * KS + 2 * BK * VS;
+static_assert(2 * kSmemFloats * 4 <= 232448, "two blocks per SM");
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+    flash_fwd_d64(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o,
+                  float* __restrict__ lse, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  constexpr bool kSplit = sizeof(T) == 4;  // bf16 operands are exact in TF32
+  extern __shared__ __align__(16) float smem_d64[];
+  float* qs = smem_d64;           // [BQ][KS]
+  float* ks = qs + BQ * KS;       // [2 buffers][BK][KS]
+  float* vs = ks + 2 * BK * KS;   // [2 buffers][BK][VS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const T* kb = k + base;
+  const T* vb = v + base;
+
+  load_rows<T, BQ, D, NT>(qs, q + base, q0, L, row);
+  load_rows<T, BK, D, NT>(ks, kb, 0, L, row);
+  load_rows<T, BK, D, NT, VS, false>(vs, vb, 0, L, row);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's 16 q rows as A fragments for the whole K loop, split once
+  uint32_t qb[D / 8][4], qsm[D / 8][4];
+  {
+    const RowA<KS, true> ra(qs, warp * 16, 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float a[1][4];
+      ra.load(a, kk * 8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split<kSplit>(a[0][i], qb[kk][i], qsm[kk][i]);
+    }
+  }
+
+  // rows g (half 0) and g + 8 (half 1) of the warp's 16
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float acc[1][D / 8][4];  // O[16 rows][64]: n-tile n holds columns 8 n..
+  zero(acc);
+  const int nk = (L + BK - 1) / BK;
+  for (int j = 0; j < nk; ++j) {
+    const int cur = j & 1, k0 = j * BK;
+    if (j + 1 < nk) {  // the next pair lands while this one is used
+      load_rows<T, BK, D, NT>(ks + (cur ^ 1) * BK * KS, kb, k0 + BK, L, row);
+      load_rows<T, BK, D, NT, VS, false>(vs + (cur ^ 1) * BK * VS, vb,
+                                         k0 + BK, L, row);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this pair (the next may be in flight)
+    __syncthreads();
+    const float* kt = ks + cur * BK * KS;
+    const float* vt = vs + cur * BK * VS;
+
+    // S = Q K^T, 16 x 64: n-tile n holds keys k0 + 8 n..
+    float s[1][BK / 8][4];
+    zero(s);
+    {
+      const RowB<KS> rb(kt, 0, 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        float bf[BK / 8][2];
+        rb.load(bf, kk * 8);
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+          uint32_t bb[2], bs[2];
+          split<kSplit>(bf[n][0], bb[0], bs[0]);
+          split<kSplit>(bf[n][1], bb[1], bs[1]);
+          if (kSplit) mma_tf32(s[0][n], qsm[kk], bb);
+          if (kSplit) mma_tf32(s[0][n], qb[kk], bs);
+          mma_tf32(s[0][n], qb[kk], bb);
+        }
+      }
+    }
+
+    // online softmax of rows g and g + 8: a row's 16 values a lane sit in
+    // the lane's quad, so the row max and sum are two shuffles
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[0][n][2 * half + e];
+          x = k0 + 8 * n + 2 * t + e < L ? x * scale : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[half], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[0][n][2 * half + e];
+          x = expf(x - m_new);
+          sum += x;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float alpha = expf(m_run[half] - m_new);
+      l_run[half] = l_run[half] * alpha + sum;
+      m_run[half] = m_new;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[0][n][2 * half] *= alpha;
+        acc[0][n][2 * half + 1] *= alpha;
+      }
+    }
+
+    // O += P V. The k order inside each 8 keys is permuted so that P's C
+    // fragment is already its A fragment: k-slot t is key 2t and slot t + 4
+    // key 2t + 1, so a0..a3 = c0, c2, c1, c3, and V's B fragment reads rows
+    // 2t and 2t + 1 (stride VS: the 32 lanes hit 32 banks).
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      uint32_t pb[4], ps[4];
+      split<true>(s[0][kk][0], pb[0], ps[0]);
+      split<true>(s[0][kk][2], pb[1], ps[1]);
+      split<true>(s[0][kk][1], pb[2], ps[2]);
+      split<true>(s[0][kk][3], pb[3], ps[3]);
+      const float* v0 = vt + (8 * kk + 2 * t) * VS + g;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t bb[2], bs[2];
+        split<kSplit>(v0[8 * n], bb[0], bs[0]);
+        split<kSplit>(v0[VS + 8 * n], bb[1], bs[1]);
+        mma_tf32(acc[0][n], ps, bb);
+        if (kSplit) mma_tf32(acc[0][n], pb, bs);
+        mma_tf32(acc[0][n], pb, bb);
+      }
+    }
+    __syncthreads();  // every warp is done with this pair before its refill
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = q0 + warp * 16 + g + 8 * half;
+    if (r >= L) continue;
+    if (lse != nullptr && t == 0)
+      lse[static_cast<int64_t>(blockIdx.y) * L + r] =
+          m_run[half] + logf(fmaxf(l_run[half], 1e-30f));
+    const float inv = 1.f / fmaxf(l_run[half], 1e-30f);
+    T* out = o + base + r * row + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2<T>(out + 8 * n, acc[0][n][2 * half] * inv,
+                acc[0][n][2 * half + 1] * inv);
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int L, int H, float scale,
+                   cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
+  if (err != cudaSuccess) return err;
+  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(flash_fwd_d64<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BQ - 1) / BQ, B * H);
+  flash_fwd_d64<T><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, L, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace d64
+
 template <typename T, int D, int BQ, int BK, int NT, int SM, int SN, int TM,
           int TN>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
@@ -439,8 +657,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
       return launch<T, 16, 64, 64, 128, 8, 4, 8, 1>(q, k, v, o, lse, B, L, H,
                                                      scale, stream);
     case 64:
-      return launch<T, 64, 64, 64, 256, 4, 4, 4, 4>(q, k, v, o, lse, B, L, H,
-                                                     scale, stream);
+      return d64::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
     case 512:
       return d512::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
     default:

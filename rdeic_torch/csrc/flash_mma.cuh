@@ -1,5 +1,6 @@
 // Tensor-core pieces shared by the d = 512 flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): TF32 `mma.sync` with fp32
+// (flash_attn_fwd.cu, flash_attn_bwd.cu) and the d = 64 forward
+// (flash_attn_fwd.cu): TF32 `mma.sync` with fp32
 // accumulators, the 3xTF32 split that keeps fp32 products fp32-accurate,
 // the swizzled shared-memory layout of the D-wide tiles, and their copies.
 //
@@ -237,13 +238,15 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [r0, r0 + ROWS) of a [B, L, H, D] tensor (src at (b, h), tokens
-// `row` elements apart) into a swizzled fp32 tile of stride D + 8; rows past
-// L are zero. fp32 goes by cp.async.cg, 16 bytes a lane, and lands later
+// `row` elements apart) into an fp32 tile of stride S, swizzled (swz) when
+// SWZ, by default the stride D + 8 of the D-wide tiles above; rows past L
+// are zero. fp32 goes by cp.async.cg, 16 bytes a lane, and lands later
 // (cp_async_commit, then cp_async_wait before the block reads it). bf16
 // goes through registers, 4 values a lane, widened to fp32 (exact in TF32).
-template <typename T, int ROWS, int D, int NT>
+template <typename T, int ROWS, int D, int NT, int S = D + 8, bool SWZ = true>
 __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
                                           int L, int64_t row) {
+  static_assert(S % 4 == 0, "16-byte chunks stay whole");
   constexpr int kChunks = ROWS * D / 4 / NT;  // 4-element chunks a thread
   static_assert((ROWS * D / 4) % NT == 0, "the threads split a tile evenly");
   if constexpr (sizeof(T) == 4) {
@@ -255,7 +258,7 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
       // stays inside the tensor all the same
       const float* s = src + (in ? r0 + r : 0) * row + c;
       const uint32_t d = static_cast<uint32_t>(
-          __cvta_generic_to_shared(dst + swz<D + 8>(r, c)));
+          __cvta_generic_to_shared(dst + (SWZ ? swz<S>(r, c) : r * S + c)));
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                    "l"(s), "r"(in ? 16 : 0));
     }
@@ -273,7 +276,7 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
       const int i = threadIdx.x + n * NT, r = i / (D / 4), c = i % (D / 4) * 4;
       const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&x[n].x);
       const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&x[n].y);
-      *reinterpret_cast<float4*>(dst + swz<D + 8>(r, c)) =
+      *reinterpret_cast<float4*>(dst + (SWZ ? swz<S>(r, c) : r * S + c)) =
           make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
                       __high2float(hi));
     }

@@ -25,11 +25,14 @@ from rdeic_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 from rdeic_torch.ops.fused_groupnorm import (
+    _launch_fwd,
     group_norm,
     group_norm_bwd,
     group_norm_bwd_plain,
     group_norm_fwd,
+    group_norm_fwd_plain,
     group_norm_plain,
+    group_norm_plan,
 )
 
 pytestmark = pytest.mark.cuda
@@ -42,10 +45,15 @@ FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
                 (1, 1536, 10, 64), (1, 1536, 8, 16),
                 (2, 1000, 3, 64), (1, 77, 2, 16), (1, 130, 1, 512),
                 *D512_SHAPES]
-# (B, C, H, W) of GroupNorm32 inputs: UNet and control at 96x64 latents
+# (B, C, H, W) of GroupNorm32 inputs: UNet and control at 96x64 latents,
+# the path's largest span (30 x 6144), C/G = 1 (vector and element paths),
+# a ragged span, and a span larger than a cluster's shared memory (the
+# kernel streams it: GN_STREAM_SHAPE)
+GN_STREAM_SHAPE = (1, 512, 256, 256)
 GN_SHAPES = [(1, 320, 96, 64), (1, 2560, 12, 8), (1, 1920, 24, 16),
              (1, 960, 48, 32), (1, 640, 96, 64), (1, 64, 96, 64),
-             (1, 256, 12, 8), (2, 128, 7, 9)]
+             (1, 256, 12, 8), (2, 128, 7, 9), (1, 960, 64, 96),
+             (1, 32, 64, 64), (2, 32, 17, 19), GN_STREAM_SHAPE]
 # (B, L, H, D) of the training paths' flash calls at 512x512, B = 2 (the
 # refine phase adds the VAE decoder's d = 512), the decoder's at 256x256,
 # plus ragged L (the backward masks padded q rows and k columns)
@@ -108,19 +116,65 @@ def test_groupnorm_kernel_matches_plain(cuda, shape, eps, silu):
     before = group_norm.launches
     out = group_norm(x, w, b, groups, eps, silu)
     torch.cuda.synchronize()
-    assert group_norm.launches == before + 2  # stats, then apply
+    assert group_norm.launches == before + 1  # one cluster launch
     want = group_norm_plain(x, w, b, groups, eps, silu)
     torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-5)
 
 
-def test_groupnorm_kernel_bf16(cuda):
-    x = _rand((1, 640, 48, 32), torch.bfloat16, cuda, 0)
-    w = _rand((640,), torch.float32, cuda, 1)
-    b = _rand((640,), torch.float32, cuda, 2)
-    out = group_norm(x, w, b, 32, 1e-5, True)
-    assert out.dtype == torch.bfloat16
-    want = group_norm_plain(x, w, b, 32, 1e-5, True)
-    torch.testing.assert_close(out.float(), want.float(), atol=3e-2, rtol=2e-2)
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("shape", [(1, 640, 48, 32), (2, 32, 17, 19),
+                                   (1, 2560, 8, 12), GN_STREAM_SHAPE])
+def test_groupnorm_kernel_bf16(cuda, shape, eps, silu):
+    """bf16 in and out, fp32 statistics: against the plain version on the
+    same values in fp32, unrounded (rounding to bf16 moves a value by at
+    most 2^-8 of it; 1e-4 of max for the fp32 sums)."""
+    c = shape[1]
+    x = _rand(shape, torch.bfloat16, cuda, 0) * 3 + 1
+    w = _rand((c,), torch.float32, cuda, 1)
+    b = _rand((c,), torch.float32, cuda, 2)
+    y, mean, inv = group_norm_fwd(x, w, b, 32, eps, silu)
+    assert y.dtype == torch.bfloat16
+    want, want_mean, want_inv = group_norm_fwd_plain(x.float(), w, b, 32, eps,
+                                                     silu)
+    assert _rel_err(y, want) <= 2.0 ** -8 + 1e-4
+    torch.testing.assert_close(mean, want_mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(inv, want_inv, atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,smem_limit", [
+    ((2, 256, 64, 64), 8192),       # vector path, 8 CTAs (bf16: 4), streamed
+    ((2, 256, 64, 64), 20000),      # vector path, resident
+    ((2, 1024, 17, 19), 600),       # element path, 3 CTAs (bf16: 2), streamed
+    ((2, 1024, 17, 19), 232448),    # element path, resident
+])
+def test_groupnorm_kernel_plans_match_plain(cuda, shape, smem_limit, dtype):
+    """Plans the path's shapes do not reach (a multi-CTA cluster streaming a
+    small span), forced by a low shared-memory limit: y, mean and 1/std
+    against the plain version."""
+    c = shape[1]
+    x = _rand(shape, dtype, cuda, 0) * 3 + 1
+    w, b = (_rand((c,), torch.float32, cuda, s) for s in (1, 2))
+    plan = group_norm_plan(shape, 32, x.element_size(), True, smem_limit)
+    assert plan.cluster > 1
+    y, mean, inv = _launch_fwd(x, w, b, 32, 1e-5, True, stats=True, plan=plan)
+    want, want_mean, want_inv = group_norm_fwd_plain(x.float(), w, b, 32, 1e-5,
+                                                     True)
+    assert _rel_err(y, want) <= _limit(dtype)
+    torch.testing.assert_close(mean, want_mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(inv, want_inv, atol=0, rtol=1e-5)
+
+
+def test_groupnorm_serving_call_stores_no_statistics(cuda):
+    """Without autograd the wrapper asks the kernel for no mean / 1/std, and
+    gives the same output as the call that stores them."""
+    x = _rand((1, 320, 24, 16), torch.float32, cuda, 0)
+    w, b = (_rand((320,), torch.float32, cuda, s) for s in (1, 2))
+    y, mean, inv = _launch_fwd(x, w, b, 32, 1e-5, True, stats=False)
+    assert mean is None and inv is None
+    torch.testing.assert_close(y, group_norm_fwd(x, w, b, 32, 1e-5, True)[0],
+                               atol=0, rtol=0)
 
 
 def _rel_err(got, want) -> float:
@@ -229,6 +283,28 @@ def test_groupnorm_autograd_on_cuda_matches_plain_autograd(cuda, silu):
         assert _rel_err(g, ref) <= 1e-4
 
 
+@pytest.mark.parametrize("shape", [(2, 960, 64, 64), (2, 320, 64, 64),
+                                   (2, 2560, 8, 8)])
+def test_groupnorm_autograd_at_training_shapes(cuda, shape):
+    """The CUDA forward (one launch, statistics stored) feeding the Triton
+    backward under autograd, at training shapes (the first is the largest
+    training span, 30 x 4096), against autograd through the plain version."""
+    c = shape[1]
+    x = (_rand(shape, torch.float32, cuda, 0) * 3 + 1).requires_grad_()
+    w, b = (_rand((c,), torch.float32, cuda, s).requires_grad_() for s in (1, 2))
+    dy = _rand(shape, torch.float32, cuda, 3)
+    before = (group_norm.launches, group_norm_bwd.launches)
+    out = group_norm(x, w, b, 32, 1e-5, True)
+    got = torch.autograd.grad(out, (x, w, b), dy)
+    torch.cuda.synchronize()
+    assert (group_norm.launches, group_norm_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    want = torch.autograd.grad(group_norm_plain(x, w, b, 32, 1e-5, True),
+                               (x, w, b), dy)
+    for g, ref in zip(got, want):
+        assert _rel_err(g, ref) <= 1e-4
+
+
 def test_modules_on_cuda_keep_the_graph(cuda):
     """A GroupNorm32 and a long self-attention on the card give outputs
     with a grad_fn, and the gradient reaches the module's weights."""
@@ -268,7 +344,23 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = torch.zeros((1, 64, 2, 32), device=cuda)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)  # head dim 32 is not built
+    q64 = torch.zeros((1, 64, 2, 64), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q64.half(), q64.half(), q64.half())  # fp16
+    with pytest.raises(ValueError):
+        flash_attention(q64, q64, q64.transpose(1, 2).contiguous().transpose(1, 2))
     x = torch.zeros((1, 30, 4, 4), device=cuda)
     with pytest.raises(ValueError):
         group_norm(x, torch.ones(30, device=cuda), torch.zeros(30, device=cuda),
                    32, 1e-5)
+    x = torch.zeros((1, 64, 4, 4), device=cuda)
+    w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    before = group_norm.launches
+    for bad in (x.half(), x.transpose(2, 3), x[:, :, :, :3]):  # fp16, strided
+        with pytest.raises(ValueError):
+            group_norm(bad, w, b, 32, 1e-5)
+    with pytest.raises(ValueError):  # weight and bias of two dtypes
+        group_norm(x, w.bfloat16(), b, 32, 1e-5)
+    with pytest.raises(ValueError):
+        group_norm(x, w.half(), b.half(), 32, 1e-5)
+    assert group_norm.launches == before

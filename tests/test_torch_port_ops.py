@@ -16,7 +16,15 @@ from rdeic_torch.ops import ckbd as t_ckbd
 from rdeic_torch.ops import gaussian as t_gaussian
 from rdeic_torch.ops.attention import attention, sdp_attention
 from rdeic_torch.ops.flash_attention import flash_attention, flash_attention_plain
-from rdeic_torch.ops.fused_groupnorm import group_norm, group_norm_plain
+from rdeic_torch.ops.fused_groupnorm import (
+    MAX_CLUSTER,
+    SCRATCH_BYTES,
+    SMEM_LIMIT,
+    group_norm,
+    group_norm_fwd_plain,
+    group_norm_plain,
+    group_norm_plan,
+)
 from rdeic_torch.utils import bitstream as t_bitstream
 from rdeic_tpu.diffusion import schedule as j_schedule
 from rdeic_tpu.diffusion import spaced as j_spaced
@@ -97,6 +105,127 @@ def test_groupnorm_wrapper_and_module_on_cpu():
         mod(x), group_norm_plain(x, mod.GroupNorm_0.weight,
                                  mod.GroupNorm_0.bias, 24, 1e-5, True))
     assert group_norm.launches == before
+
+
+# GroupNorm32 inputs on the paths: the denoiser's channel counts at each
+# latent level (UNet and control, 32 groups), served at 768x512 (B = 1,
+# latents 64x96 and their halvings) and trained at 512x512 (B = 2); and a
+# span larger than 8 CTAs' shared memory
+GN_LEVEL_CHANNELS = [(64, 320, 640, 960), (64, 128, 320, 640, 960, 1280, 1920),
+                     (128, 256, 640, 1280, 1920, 2560), (256, 1280, 2560)]
+GN_PATH_SHAPES = [(b, c, h >> lv, w >> lv)
+                  for b, h, w in ((1, 64, 96), (2, 64, 64))
+                  for lv, chans in enumerate(GN_LEVEL_CHANNELS) for c in chans]
+GN_STREAM_SHAPE = (1, 512, 256, 256)
+
+
+def _check_plan(shape, groups, itemsize):
+    plan = group_norm_plan(shape, groups, itemsize)
+    hw = shape[2] * shape[3]
+    assert plan.span == shape[1] // groups * hw
+    assert 1 <= plan.cluster <= MAX_CLUSTER
+    slices = plan.slices()
+    assert len(slices) == plan.cluster
+    covered = np.zeros(plan.span, dtype=np.int64)
+    for lo, hi in slices:
+        assert lo < hi  # no CTA without elements
+        covered[lo:hi] += 1
+    assert (covered == 1).all()  # every element of a span exactly once
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert plan.threads % 32 == 0 and 128 <= plan.threads <= 512
+    if plan.vec:  # a 16-byte vector never crosses a channel or a slice
+        per_vec = 16 // itemsize
+        assert hw % per_vec == 0 and plan.chunk % per_vec == 0
+    assert plan.resident == (SCRATCH_BYTES + plan.chunk * itemsize <= SMEM_LIMIT)
+    if plan.resident:
+        assert plan.smem_bytes == SCRATCH_BYTES + plan.chunk * itemsize
+    return plan
+
+
+@pytest.mark.parametrize("shape", GN_PATH_SHAPES)
+def test_groupnorm_plan_at_the_path_shapes(shape):
+    """Every path shape takes the vector path with its slices in shared
+    memory (x read once), in fp32 and bf16."""
+    for itemsize in (4, 2):
+        plan = _check_plan(shape, 32, itemsize)
+        assert plan.vec and plan.resident
+
+
+def test_groupnorm_plan_largest_path_span():
+    """(1, 960, 64, 96): 30 x 6144 fp32 (720 KB) in 8 CTAs of ~90 KB."""
+    plan = _check_plan((1, 960, 64, 96), 32, 4)
+    assert (plan.cluster, plan.chunk) == (8, 23040)
+    assert plan.smem_bytes == SCRATCH_BYTES + 23040 * 4
+
+
+@pytest.mark.parametrize("shape,groups", [
+    (GN_STREAM_SHAPE, 32), ((2, 96, 7, 9), 32), ((1, 32, 17, 19), 32),
+    ((2, 48, 32, 32), 24), ((3, 2, 4, 64), 1), ((1, 1024, 17, 19), 32)])
+def test_groupnorm_plan_off_the_path(shape, groups):
+    """A span larger than 8 CTAs' shared memory streams (both dtypes);
+    ragged H * W takes the element path; C/G = 1 and one group work."""
+    for itemsize in (4, 2):
+        plan = _check_plan(shape, groups, itemsize)
+        assert plan.resident == (shape != GN_STREAM_SHAPE)
+        assert plan.vec == (shape[2] * shape[3] % (16 // itemsize) == 0)
+
+
+def group_norm_cluster_emulated(x, weight, bias, groups, eps, silu, plan):
+    """The forward kernel's arithmetic: each CTA of `plan` sums (x, x^2) of
+    its slice in fp32, the partials are added in rank order in fp32, then
+    mean, var = max(E[x^2] - mean^2, 0), inv = 1/sqrt(var + eps) and
+    y = x * w + off (w = inv * scale, off = bias - mean * w), SiLU when
+    asked. (Inside a CTA the kernel sums in its own thread order; torch's
+    sum stands in for it.)"""
+    b, c, h, w = x.shape
+    xf = x.float().reshape(b * groups, plan.span)
+    tot = torch.zeros(b * groups)
+    tot2 = torch.zeros(b * groups)
+    for lo, hi in plan.slices():
+        part = xf[:, lo:hi]
+        tot = tot + part.sum(-1)
+        tot2 = tot2 + (part * part).sum(-1)
+    mean = tot / plan.span
+    var = torch.clamp(tot2 / plan.span - mean * mean, min=0.0)
+    inv = 1.0 / torch.sqrt(var + eps)
+    cg = c // groups
+    wc = inv.reshape(b, groups).repeat_interleave(cg, 1) * weight[None]
+    off = bias[None] - mean.reshape(b, groups).repeat_interleave(cg, 1) * wc
+    y = x.float() * wc[..., None, None] + off[..., None, None]
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y, mean.reshape(b, groups), inv.reshape(b, groups)
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape,smem_limit", [
+    ((1, 256, 32, 48), SMEM_LIMIT),   # 3 CTAs, resident
+    ((2, 320, 24, 32), SMEM_LIMIT),   # 2 CTAs, resident
+    ((1, 256, 32, 48), 4096),         # 3 CTAs, streamed
+    ((1, 1024, 17, 19), SMEM_LIMIT),  # 3 CTAs, element path
+])
+def test_groupnorm_cluster_combine_matches_pallas_interpret(shape, smem_limit,
+                                                            silu):
+    """The kernel's fixed-order combine of per-CTA partials, emulated,
+    against the Pallas forward in interpret mode (NHWC) and the plain
+    version, within 1e-5."""
+    c = shape[1]
+    x = _normal(shape, 0, scale=3.0, shift=1.0)
+    w, b = _normal((c,), 1), _normal((c,), 2)
+    plan = group_norm_plan(shape, 32, 4, True, smem_limit)
+    assert plan.cluster > 1
+    tx, tw, tb = map(torch.from_numpy, (x, w, b))
+    got, mean, inv = group_norm_cluster_emulated(tx, tw, tb, 32, 1e-5, silu,
+                                                 plan)
+    want = j_gn.group_norm(jnp.asarray(x.transpose(0, 2, 3, 1)), jnp.asarray(w),
+                           jnp.asarray(b), groups=32, eps=1e-5, silu=silu,
+                           interpret=True)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), atol=1e-5, rtol=1e-5)
+    plain, pmean, pinv = group_norm_fwd_plain(tx, tw, tb, 32, 1e-5, silu)
+    torch.testing.assert_close(got, plain, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(mean, pmean, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(inv, pinv, atol=0, rtol=1e-5)
 
 
 # -- checkerboard, entropy tables, blocks -----------------------------------

@@ -1,16 +1,19 @@
-"""The numeric design of the d = 512 tensor-core flash kernels, on the CPU.
+"""The numeric design of the tensor-core flash kernels, on the CPU.
 
 `rdeic_torch/csrc/flash_attn_{fwd,bwd}.cu` take every fp32 product of the
-VAE's d = 512 attention on the tensor cores in TF32 (10 mantissa bits), as
+VAE's d = 512 attention, and `flash_fwd_d64` every fp32 product of the
+UNet's d = 64 forward, on the tensor cores in TF32 (10 mantissa bits), as
 three products of a 3xTF32 split (`csrc/flash_mma.cuh`): big = x rounded to
 TF32 (to nearest, ties away from zero), small = x - big, which the tensor
 core reads as TF32 by dropping its low 13 bits. This file emulates that
 arithmetic in torch and holds it, in the plain forward and backward formulas
-of `rdeic_torch.ops.flash_attention`, to float64 within the limits that
-chip_smoke.py holds the kernels to on the card; it shows that one TF32 pass
-breaks them, and that bf16 values are exact in TF32, so a bf16 x bf16 tile
-product needs one pass.
+of `rdeic_torch.ops.flash_attention` and in the d = 64 kernel's own tile
+order, to float64, to the Pallas kernel in interpret mode and to the plain
+version within the limits that chip_smoke.py holds the kernels to on the
+card; it shows that one TF32 pass breaks them, and that bf16 values are
+exact in TF32, so a bf16 x bf16 tile product needs one pass.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,7 +21,9 @@ import torch
 from rdeic_torch.ops.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_lse_plain,
+    flash_attention_plain,
 )
+from rdeic_tpu.ops.flash_attention import _flash_forward
 
 D = 512
 # chip_smoke.py's limits for fp32: the forward's output absolutely, the lse
@@ -175,3 +180,87 @@ def test_bf16_values_are_exact_in_tf32(seed):
     finite = values[torch.isfinite(values)]
     assert torch.equal(tf32_round(finite), finite)
     assert torch.equal(mm_tf32(qb, kb.T), mm_exact(qb, kb.T))
+
+
+# -- the d = 64 forward kernel's tile order ---------------------------------
+D64 = 64
+D64_CASES = [(1, 1000, 2), (2, 1536, 1)]  # B, L, H: a ragged and a path L
+
+
+def forward_d64_tiles(q, k, v, mm):
+    """(o, lse) in the order of `flash_fwd_d64`, every product by mm: the q
+    rows in 16-row warp slices (padded to 64-row blocks with zero rows),
+    each streaming 64-row K / V tiles (the tail zero-filled and its scores
+    masked to -1e30) through an online softmax: S = mm(Q, K^T) * scale,
+    m' = max(m, rowmax S), P = exp(S - m'), l = l exp(m - m') + rowsum P,
+    O = O exp(m - m') + mm(P, V); then O / max(l, 1e-30) and
+    lse = m + log(max(l, 1e-30)). Rows are independent, so the slices are
+    one batch dimension here."""
+    b, seq, h, d = q.shape
+    scale = d ** -0.5
+    pad = -seq % 64
+    qh, kh, vh = (torch.nn.functional.pad(x.permute(0, 2, 1, 3), (0, 0, 0, pad))
+                  for x in (q, k, v))  # [B, H, Lp, D]
+    slices = qh.reshape(b, h, -1, 16, d)  # [B, H, warp slices, 16, D]
+    m = torch.full(slices.shape[:-1], -1e30, dtype=q.dtype)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(slices)
+    cols = torch.arange(64)
+    for k0 in range(0, seq, 64):
+        kt = kh[:, :, None, k0:k0 + 64]  # [B, H, 1, 64, D]
+        vt = vh[:, :, None, k0:k0 + 64]
+        s = mm(slices, kt.transpose(-1, -2)) * scale
+        s = torch.where(k0 + cols < seq, s, torch.tensor(-1e30, dtype=q.dtype))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + mm(p, vt)
+        m = m_new
+    lc = torch.clamp(l, min=1e-30)
+    o = (acc * (1.0 / lc)[..., None]).reshape(b, h, -1, d)[:, :, :seq]
+    lse = (m + torch.log(lc)).reshape(b, h, -1)[:, :, :seq]
+    return o.permute(0, 2, 1, 3), lse.reshape(b * h, seq)
+
+
+def _d64_inputs(b, seq, h, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, seq, h, D64)).astype(np.float32))
+            for _ in range(3)]
+
+
+def _d64_references(q, k, v):
+    """The Pallas kernel in interpret mode and the port's plain version."""
+    pallas = _flash_forward(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                            block_q=512, block_k=512, interpret=True)
+    return torch.from_numpy(np.array(pallas)), flash_attention_plain(q, k, v)
+
+
+def test_d64_tile_order_follows_the_plain_formulas():
+    """With exact products (float64), the tile order gives the plain
+    output and lse: only the order of sums differs."""
+    q, k, v = (x.double() for x in _d64_inputs(2, 200, 3, 5))
+    o, lse = forward_d64_tiles(q, k, v, mm_exact)
+    want_o, want_lse = flash_attention_lse_plain(q, k, v)
+    torch.testing.assert_close(o, want_o, atol=1e-12, rtol=1e-12)
+    torch.testing.assert_close(lse, want_lse, atol=1e-12, rtol=1e-12)
+
+
+@pytest.mark.parametrize("b,seq,h", D64_CASES)
+def test_d64_3xtf32_holds_the_fp32_limit(b, seq, h):
+    """3xTF32 in the kernel's tile order lands within 2e-5 of the Pallas
+    kernel and of the plain version, and its lse within 1e-4 of max."""
+    q, k, v = _d64_inputs(b, seq, h, seq + h)
+    o, lse = forward_d64_tiles(q, k, v, mm_3xtf32)
+    for want in _d64_references(q, k, v):
+        assert (o - want).abs().max().item() <= O_TOL
+    want_lse = flash_attention_lse_plain(q, k, v)[1]
+    assert ((lse - want_lse).abs().max() / want_lse.abs().max()).item() <= REL_TOL
+
+
+@pytest.mark.parametrize("b,seq,h", D64_CASES)
+def test_d64_one_tf32_pass_breaks_the_fp32_limit(b, seq, h):
+    q, k, v = _d64_inputs(b, seq, h, seq + h)
+    o, _ = forward_d64_tiles(q, k, v, mm_tf32)
+    for want in _d64_references(q, k, v):
+        assert (o - want).abs().max().item() > O_TOL

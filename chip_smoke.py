@@ -10,7 +10,8 @@ each fatal on failure:
    limit (nvidia-smi);
 2. build: nvcc (forward and backward flash kernels, GroupNorm forward) and
    g++ start together on the sources in the checkout; ptxas's registers and
-   spills of each CUDA kernel are logged by name;
+   spills of each CUDA kernel are logged by name, and a tensor-core flash
+   kernel (d = 64, d = 512) that spills fails the run;
 3. main path at the full width of configs/model/rdeic.yaml (random weights
    from --seed): the CLI's per-image `rdeic_torch.inference.process` codes a
    synthetic 768x512 image to a stream file, decodes it back, relay-samples
@@ -53,20 +54,20 @@ each fatal on failure:
    among the frozen tensors;
 9. kernels against their plain versions at every shape of the serving and
    the training paths, and at shapes on no path (their rows carry no
-   calls): flash at d = 512 and d = 64 with B = 2, H > 1 and L = 1000 (the
-   CHECK_SHAPES), GroupNorm at a span larger than a cluster's shared memory
+   calls): flash at d = 512 and d = 64 with B = 2, H > 1 and L = 1000, and
+   at d = 64 with L = 8192 (the CHECK_SHAPES), GroupNorm at a span larger than a cluster's shared memory
    (GN_STREAM_KEYS: the kernel's streaming variant), in fp32 and bf16, with
    the kernel, plain and library times (CUDA events) and the bound of each.
    `ms` times launches back to back, so a launch-bound call reads its host
    time; `device_ms` (and `library_device_ms`) times the same launches
    queued behind a sleeping kernel, so it reads the card's time alone
    (device_ms); GroupNorm rows add the host µs a call takes to enqueue.
-   A flash row's bound takes the rate of its route (`bound_rate`): the fp32
-   FMA or bf16 peak where the kernel runs FMA (d = 16, and the d = 64
-   backward), the TF32 tensor cores over the passes of the 3xTF32 split
-   where it runs them (the d = 64 forward, every d = 512 kernel:
-   flash_rate). Each comparison also reads a planted fault (the kernel's
-   output scaled by 1.05) and fails if that reading is within the limit.
+   A flash row's bound takes the rate named in its `bound_rate`
+   (flash_rate): for fp32, the TF32 tensor cores over the three passes of
+   3xTF32 where the kernel runs them (every d = 64 and d = 512 kernel) and
+   fp32 FMA at d = 16; for bf16, the card's bf16 peak. Each comparison also
+   reads a planted fault (the kernel's output scaled by 1.05) and fails if
+   that reading is within the limit.
 
 The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
@@ -223,20 +224,9 @@ TRAIN_REF_FLOOR = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TF32_FLOPS = 494.7e12
-# The d = 512 flash kernels run on the tensor cores in TF32, an fp32
-# product as three TF32 products (3xTF32); a bf16 operand is exact in TF32,
-# so Q K^T and dO V^T of bf16 inputs take one pass and the products with P
-# or dS two. TF32 passes per product of each kernel (forward: S, P V; dq:
-# S, dP, dS K; dkv: S, dP, P^T dO, dS^T Q; the whole backward: S, dP, dV,
-# dQ, dK), by input dtype
-TC_PASSES = {
-    torch.float32: {"fwd": (3, 3), "dq": (3, 3, 3), "dkv": (3, 3, 3, 3),
-                    "bwd": (3, 3, 3, 3, 3)},
-    torch.bfloat16: {"fwd": (1, 2), "dq": (1, 1, 2), "dkv": (1, 1, 2, 2),
-                     "bwd": (1, 1, 2, 2, 2)}}
-# (kernel, head dim) that run on the tensor cores; the rest run fp32 FMA
-TC_ROUTES = {("fwd", 64), ("fwd", 512), ("dq", 512), ("dkv", 512),
-             ("bwd", 512)}
+# Head dims whose flash kernels run on the tensor cores in TF32, an fp32
+# product as three TF32 products (3xTF32); d = 16 runs fp32 FMA
+TC_HEAD_DIMS = (64, 512)
 FAULT_SCALE = 1.05  # a planted output-scale error each check must see
 GN_TOL = 1e-4  # fp32 GroupNorm outputs up to ~15 after scale and bias
 # relative to max |plain| of each output, for the training kernels: fp32
@@ -248,8 +238,10 @@ REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8 + 1e-4}
 FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
                 (1, 1536, 10, 64), (1, 1536, 8, 16)]
 # flash shapes on no path: B = 2, H > 1 (every path's d = 512 shape has
-# H = 1) and an L that is a multiple of no tile of the tensor-core kernels
-CHECK_SHAPES = [(2, 1000, 2, 512), (2, 1000, 3, 64)]
+# H = 1) and an L that is a multiple of no tile of the tensor-core kernels;
+# and at d = 64 twice the paths' longest L, as the backward's dq, dk and dv
+# sums run over L
+CHECK_SHAPES = [(2, 1000, 2, 512), (2, 1000, 3, 64), (1, 8192, 2, 64)]
 # a GroupNorm span on no path larger than 8 CTAs' shared memory in both
 # dtypes (16 x 65536 elements), so the forward kernel streams it
 GN_STREAM_KEYS = [(1, 512, 256, 256, 32, 1e-5, True, dt)
@@ -328,17 +320,26 @@ def phase_build():
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] nvcc + g++ in parallel: {time.perf_counter() - t0:.1f} s")
+    spills = []
     for lib in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_fwd"):
         kernel = "?"
         for line in build.build_log(libs[lib]).splitlines():
-            m = re.search(r"\d(flash_(?:fwd|dq|dkv)_(?:kernel|d512|d64)|gn_fwd)"
-                          r"I(f|13__nv_bfloat16)(?:Li(\d+)E|Lb([01])E)?", line)
+            m = re.search(r"\d(flash_(?:fwd|dq|dkv)_(?:kernel|d16|d64|d512)|gn_fwd)"
+                          r"I(f|13__nv_bfloat16)((?:L[ib]\d+E)*)", line)
             if "Compiling entry function" in line and m:  # a mangled name
+                ints = re.findall(r"L[ib](\d+)E", m[3])  # template ints
+                what, n = {"kernel": ("d", 1), "fwd": ("vec", 1)}.get(
+                    m[1].rsplit("_", 1)[-1], ("", 0))
                 kernel = (f"{m[1]}<{'fp32' if m[2] == 'f' else 'bf16'}"
-                          f"{', d = ' + m[3] if m[3] else ''}"
-                          f"{', vec = ' + m[4] if m[4] else ''}>")
+                          + (f", {what} = {', '.join(ints[:n])}" if ints else "")
+                          + ">")
             elif "registers" in line or "spill" in line:
                 log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
+                if (re.search(r"_d(64|512)<", kernel)
+                        and re.search(r"[1-9]\d* bytes spill", line)):
+                    spills.append(kernel)
+    if spills:
+        raise AssertionError(f"tensor-core flash kernels spill: {spills}")
 
 
 def make_model(device, seed: int) -> RDEIC:
@@ -729,24 +730,21 @@ def _bound_ms(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_rate(d: int, dtype, kernel: str) -> tuple[float, str]:
-    """(flop/s, its name) of the route flash kernel `kernel` takes at head
-    dim d: the tensor cores' TF32 rate over the mean TF32 passes of its
-    products (equal flops each) where it runs 3xTF32 (TC_ROUTES), else the
-    dtype's peak."""
-    if (kernel, d) in TC_ROUTES:
-        passes = TC_PASSES[dtype][kernel]
-        mean = sum(passes) / len(passes)
-        return (TF32_FLOPS / mean,
-                f"TF32 tensor cores {TF32_FLOPS / 1e12:g} / {mean:g} passes")
+def flash_rate(d: int, dtype) -> tuple[float, str]:
+    """(flop/s, its name) that bounds a flash kernel at head dim d. fp32:
+    the TF32 tensor cores over the three passes of 3xTF32 where the kernel
+    runs them (TC_HEAD_DIMS), else fp32 FMA. bf16: the card's bf16 peak,
+    whichever route the kernel takes (its TF32 products could be bf16 ones)."""
+    if dtype == torch.float32 and d in TC_HEAD_DIMS:
+        return TF32_FLOPS / 3, f"TF32 tensor cores {TF32_FLOPS / 1e12:g} / 3 passes"
     return PEAK_FLOPS[dtype], ("fp32 FMA 67" if dtype == torch.float32
                                else "bf16 989")
 
 
-def _flash_bound_ms(nbytes: float, flops: float, d: int, dtype,
-                    kernel: str) -> tuple[float, str, str]:
+def _flash_bound_ms(nbytes: float, flops: float, d: int,
+                    dtype) -> tuple[float, str, str]:
     """bound ms, what bounds it, and the rate used (flash_rate)."""
-    rate, name = flash_rate(d, dtype, kernel)
+    rate, name = flash_rate(d, dtype)
     return (*_bound_ms(nbytes, flops, rate), f"{name} = {rate / 1e12:.1f} TFLOP/s")
 
 
@@ -781,8 +779,7 @@ def check_flash(device, shape, dtype, reps):
     b, seq, h, d = shape
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     bound, by, rate = _flash_bound_ms(4 * q.numel() * q.element_size(),
-                                      4.0 * b * h * seq * seq * d, d, dtype,
-                                      "fwd")
+                                      4.0 * b * h * seq * seq * d, d, dtype)
     return {**r, "bound_ms": bound, "bound_by": by, "bound_rate": rate,
             **timings(lambda: flash_attention(q, k, v),
                       lambda: F.scaled_dot_product_attention(qt, kt, vt), reps),
@@ -886,7 +883,7 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
     # flops; reads q, k, v, o, dO and lse, writes dq, dk and dv); the dq and
     # dkv kernels each recompute S and dP, so their own bounds add up to 14
     pair_bound, _, _ = _flash_bound_ms(8 * n * size + rows, 10 * ops, d,
-                                       dtype, "bwd")
+                                       dtype)
     lib_bwd_dev, _ = device_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), reps)
     rows_out = {}
@@ -894,20 +891,20 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
     def fwd_library():
         return F.scaled_dot_product_attention(qt, kt, vt)
 
-    for name, route, r, fn, nbytes, flops, plain, library, library_dev in (
-            ("flash_attn_fwd_lse", "fwd", r_lse,
+    for name, r, fn, nbytes, flops, plain, library, library_dev in (
+            ("flash_attn_fwd_lse", r_lse,
              lambda: flash_attention_lse(q, k, v),
              4 * n * size + rows, 4 * ops,
              cuda_ms(lambda: flash_attention_lse_plain(q, k, v), 2),
              cuda_ms(fwd_library, reps), device_ms(fwd_library, reps)[0]),
-            ("flash_attn_bwd_dq", "dq", r_dq,
+            ("flash_attn_bwd_dq", r_dq,
              lambda: flash_attention_dq(q, k, v, o, lse, do),
              6 * n * size + 2 * rows, 6 * ops, plain_bwd, lib_bwd, lib_bwd_dev),
-            ("flash_attn_bwd_dkv", "dkv", r_dkv,
+            ("flash_attn_bwd_dkv", r_dkv,
              lambda: flash_attention_dkv(q, k, v, do, lse, di),
              6 * n * size + 2 * rows, 8 * ops, plain_bwd, lib_bwd,
              lib_bwd_dev)):
-        bound, by, rate = _flash_bound_ms(nbytes, flops, d, dtype, route)
+        bound, by, rate = _flash_bound_ms(nbytes, flops, d, dtype)
         rows_out[name] = {**r, "bound_ms": bound, "bound_by": by,
                           "bound_rate": rate,
                           "ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps)[0],
@@ -1094,7 +1091,7 @@ def phase_kernels(device, runs) -> list:
                   train_rows["group_norm_silu_bwd"]),
     ]
     for path in train_paths:
-        for d in (None, 512):
+        for d in (None, 16, 64, 512):
             dq, dkv = ({key: sum(r[key] * r["calls"].get(path, 0)
                                  for r in train_rows[name]
                                  if d is None or r["shape"][3] == d)

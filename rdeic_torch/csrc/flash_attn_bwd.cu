@@ -16,15 +16,73 @@
 // Layout: q, k, v, o, dO, dq, dk, dv are contiguous [B, L, H, D], fp32 or
 // bf16 (outputs in the input type); lse and di are [B*H, L] fp32. Head dims
 // 16 and 64 (the denoiser's) and 512 (the VAE decoder's mid-block, which
-// only the refine phase differentiates).
+// only the refine phase differentiates). In every design one block owns a
+// (b*h, tile) pair and loops over the other sequence axis itself (the TPU
+// kernels' sequential grid axis): dq owns q rows, dkv keys, and neither
+// needs atomics, so results are the same from run to run.
 //
-// Design at d = 16 and 64, as the forward: one block owns a (b*h, tile)
-// pair and loops over the other sequence axis itself (the TPU kernels'
-// sequential grid axis). Tiles live in shared memory as fp32, rows padded
-// by one float. Each thread holds an SM x SN patch of the score tiles (S and
-// dP together) and a TM x TN patch of its accumulators (dq; or dk and dv)
-// in registers; dS (and P) go through shared memory between the two. Plain
-// fp32 FMA, no tensor cores: right first, fast later.
+// d = 16 (the control branch) runs flash_dq_d16 and flash_dkv_d16 on fp32
+// FMA: tiles live in shared memory as fp32, rows padded by one float. Each
+// thread holds an SM x SN patch of the score tiles (S and dP together) and
+// a TM x TN patch of its accumulators (dq; or dk and dv) in registers; dS
+// (and P) go through shared memory between the two. At d = 16 it is ahead
+// of SDPA's backward.
+//
+// d = 64 (the UNet: [2, 4096, 5, 64] and [2, 1024, 10, 64] per independent
+// micro-step, twice that per refine micro-step) runs flash_dq_d64 and
+// flash_dkv_d64 on the tensor cores: TF32 mma.sync (m16n8k8), fp32
+// accumulators, 3xTF32 for fp32 products (flash_mma.cuh); bf16 operands are
+// exact in TF32, so S and dP take one pass and the products with P or dS
+// two. Both kernels:
+// - 64-row tiles, 4 warps; warp w owns rows 16 w.. of the block's tile (q
+//   rows in dq, keys in dkv). The kept pair (Q and dO in dq, K and V in dkv)
+//   stays in shared memory for the whole loop and is read as A fragments
+//   by ldmatrix; the streamed pair (K and V, or Q and dO) comes in 64-row
+//   tiles by cp.async (16 bytes a lane, zero-filled past L) and is used in
+//   32-row chunks.
+// - Scores as C fragments in registers: S = Q K^T and dP = dO V^T in dq;
+//   S^T = K Q^T and dP^T = V dO^T in dkv, so that P^T and dS^T are C
+//   fragments with keys as rows. The two products of a chunk interleave
+//   (8 independent accumulators). P = exp(S scale - lse), 0 on a padded q
+//   row (and, in dq, a padded key), and dS = P (dP - di) scale are formed in
+//   place; they never reach shared memory. dq holds lse and di of its rows
+//   g and g + 8 in registers (di = rowsum(dO O) from the kept dO and O, by
+//   quad shuffles); dkv reads them by column from shared memory, staged a
+//   q tile ahead.
+// - dq += dS K, dv += P^T dO and dk += dS^T Q take the score fragments as A
+//   in a permuted k order (k-slot t is streamed row 2t, slot t + 4 row
+//   2t + 1), which makes a C fragment an A fragment with no shuffle; B is
+//   then the streamed tile read at rows 2t and 2t + 1. dkv interleaves its
+//   two products (16 accumulators).
+// - One layout serves every read: row stride 68 floats (4 mod 32 banks),
+//   not swizzled. An 8-row ldmatrix phase covers 8 x 4 banks and the
+//   row-pair read puts lane (g, t) on bank 8 t + g (+ 4): both hit 32
+//   distinct banks (tests/test_torch_port_tf32_split.py counts them; the
+//   forward's swizzled stride 72 would give the row-pair read two-way
+//   conflicts).
+// - Occupancy: dq keeps 2 tiles and one streamed pair (70 KB), 3 blocks of
+//   4 warps per SM; its next pair is copied after the current one is used,
+//   while the SM's other blocks compute. dkv keeps 2 tiles and double-
+//   buffers its streamed pair (105 KB), 2 blocks per SM, each copying the
+//   next pair while it uses the current one.
+// - ptxas -v: dq 166 registers (fp32) and 152 (bf16), dkv 196 and 189; no
+//   spills.
+// - Accuracy: mma.sync rounds the sum it returns toward zero, and dq, dk
+//   and dv take every pass into their running accumulators, so their fp32
+//   error grows with L: on the card ~1e-5 of max at L = 1024, 5e-5 at 4096,
+//   7e-5 at 8192 (limit 1e-4; tests/test_torch_port_tf32_split.py models
+//   it). Summing each step's passes from zero and adding that in fp32
+//   keeps it flat, but the temporaries spill both kernels.
+// What it does about the FMA template it replaces at d = 64: tensor
+// cores in place of fp32 FMA; scores, P and dS in registers in place of
+// shared memory; 16-byte asynchronous copies in place of element loads
+// through registers. Keeping the kept pair in shared memory, not split in
+// registers, keeps both kernels under 200 registers without spills, which
+// leaves the compiler room to overlap loads with mma and buys dq a third
+// block per SM. What holds it back now: 3 TF32 mma and a split (3 integer and
+// fp32 operations) per fp32 product, with every warp splitting the same
+// streamed fragments again; 8-12 warps per SM to hide mma.sync's latency;
+// mma.sync's rate on Hopper (wgmma is the full-rate instruction).
 //
 // d = 512 (the VAE decoder's mid-block, [2, 4096, 1, 512] per refine
 // micro-step) runs its own pair, flash_dq_d512 and flash_dkv_d512, on the
@@ -67,8 +125,8 @@
 //
 // Bound on the H100: the pair must do 10 * L^2 * D * B * H flops (S, dP, dV,
 // dQ, dK; dq alone 6, dkv alone 8, since each recomputes S and dP) against
-// ~8 * B * L * H * D elements of traffic. d = 16 and 64 run fp32 FMA at
-// 67 TFLOP/s; d = 512 runs 3xTF32 at 494.7 / 3 = 165 TFLOP/s. At the
+// ~8 * B * L * H * D elements of traffic. d = 16 runs fp32 FMA at
+// 67 TFLOP/s; d = 64 and 512 run 3xTF32 at 494.7 / 3 = 165 TFLOP/s. At the
 // training path's L = 1024..4096 the flops bound every shape.
 
 #include "flash_common.cuh"
@@ -79,35 +137,31 @@ namespace {
 using rdeic_flash::from_f32;
 using rdeic_flash::load_f32;
 
-// D: head dim. BT: rows of both tiles (q and k). NT: threads.
-// SM x SN: score patch per thread group; KS: threads (adjacent lanes) that
-// split the d-sum of one patch (1 at d = 16 and 64: each thread sums its
-// whole patch); TM x TN: accumulator patch per thread;
+// d = 16 on fp32 FMA (header): 64-row q and k tiles, 128 threads a block.
+namespace d16 {
+
+constexpr int D = 16, BT = 64, NT = 128;
+// SM x SN: score patch per thread; TM x TN: accumulator patch per thread;
 // LB: loads a thread keeps in flight when it fills a tile (load_tile).
-template <int D, int BT, int NT, int SM, int SN, int TM, int TN, int KS,
-          int LB>
-struct BwdTile {
-  static constexpr int SX = BT / SN;  // patches across a score row
-  static constexpr int SY = BT / SM;
-  static constexpr int OX = D / TN;   // threads across an accumulator row
-  static constexpr int OY = BT / TM;
-  static constexpr int QS = D + KS;   // padded row stride of the D-wide tiles
-  static constexpr int PS = BT + 1;   // padded row stride of P and dS
-  // four D-wide tiles, two score tiles, two row vectors
-  static constexpr int kSmemFloats = 4 * BT * QS + 2 * BT * PS + 2 * BT;
-  static_assert(SX * SY * KS == NT, "score tiling must cover the threads");
-  static_assert(OX * OY == NT, "accumulator tiling must cover the threads");
-  static_assert(32 % KS == 0 && D % KS == 0, "a d-split lives in one warp");
-  static_assert((BT * D) % (NT * LB) == 0, "the threads split a tile evenly");
-  static_assert(kSmemFloats * 4 <= 232448, "shared memory per block");
-};
+constexpr int SM = 8, SN = 4, TM = 8, TN = 1, LB = 8;
+constexpr int SX = BT / SN;  // patches across a score row
+constexpr int SY = BT / SM;
+constexpr int OX = D / TN;   // threads across an accumulator row
+constexpr int OY = BT / TM;
+constexpr int QS = D + 1;    // padded row stride of the D-wide tiles
+constexpr int PS = BT + 1;   // padded row stride of P and dS
+// four D-wide tiles, two score tiles, two row vectors
+constexpr int kSmemFloats = 4 * BT * QS + 2 * BT * PS + 2 * BT;
+static_assert(SX * SY == NT, "score tiling must cover the threads");
+static_assert(OX * OY == NT, "accumulator tiling must cover the threads");
+static_assert((BT * D) % (NT * LB) == 0, "the threads split a tile evenly");
+static_assert(kSmemFloats * 4 <= 232448, "shared memory per block");
 
 // Load rows [r0, r0 + BT) of a [B, L, H, D] tensor (base already at (b, h))
 // into an fp32 tile with row stride QS; rows past L are zero. A thread
 // issues its loads in batches of LB before storing them, so the block waits
-// for one round trip to memory per batch rather than per element. (At
-// d = 64 a batch of 16 spills in the dq kernel.)
-template <typename T, int D, int BT, int NT, int QS, int LB>
+// for one round trip to memory per batch rather than per element.
+template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
                                           int L, int64_t row) {
 #pragma unroll 1
@@ -127,21 +181,17 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
 }
 
 // S = q_tile . k_tile^T and dP = do_tile . v_tile^T on this thread's patch;
-// rows of the score patch index `qs`/`dos`, columns `ks`/`vs`. The KS lanes
-// of a patch (split = lane % KS) each sum every KS-th d from `split`, then
-// add the partial sums, so every one of them ends with the whole patch.
-template <int D, int SM, int SN, int SX, int SY, int QS, int KS>
+// rows of the score patch index `qs`/`dos`, columns `ks`/`vs`.
 __device__ __forceinline__ void score_patch(const float* qs, const float* dos,
                                             const float* ks, const float* vs,
-                                            int sx, int sy, int split,
-                                            float (&s)[SM][SN],
+                                            int sx, int sy, float (&s)[SM][SN],
                                             float (&dp)[SM][SN]) {
 #pragma unroll
   for (int i = 0; i < SM; ++i)
 #pragma unroll
     for (int j = 0; j < SN; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-  for (int d = split; d < D; d += KS) {
+  for (int d = 0; d < D; ++d) {
     float qv[SM], dov[SM], kv[SN], vv[SN];
 #pragma unroll
     for (int i = 0; i < SM; ++i) {
@@ -161,42 +211,24 @@ __device__ __forceinline__ void score_patch(const float* qs, const float* dos,
         dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
       }
   }
-#pragma unroll
-  for (int off = KS / 2; off > 0; off >>= 1)
-#pragma unroll
-    for (int i = 0; i < SM; ++i)
-#pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        s[i][j] += __shfl_xor_sync(0xffffffffu, s[i][j], off);
-        dp[i][j] += __shfl_xor_sync(0xffffffffu, dp[i][j], off);
-      }
-}
-
-// Whether this lane finishes entry (i, j) of its score patch: each of the
-// KS lanes that share a patch takes every KS-th entry.
-template <int SN, int KS>
-__device__ __forceinline__ bool owns_entry(int i, int j, int split) {
-  return (i * SN + j) % KS == split;
 }
 
 // One block: (q tile blockIdx.x, b*h blockIdx.y). dq = sum over k tiles of
 // dS K; also di = rowsum(dO * O) for the tile's rows, written to `di`.
-template <typename T, int D, int BT, int NT, int SM, int SN, int TM, int TN,
-          int KS, int LB>
+template <typename T>
 __global__ void __launch_bounds__(NT)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    T* __restrict__ dq, float* __restrict__ di, int L, int H,
-                    float scale) {
-  using C = BwdTile<D, BT, NT, SM, SN, TM, TN, KS, LB>;
+    flash_dq_d16(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ o,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 T* __restrict__ dq, float* __restrict__ di, int L, int H,
+                 float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;                 // [BT][QS]
-  float* dos = qs + BT * C::QS;     // [BT][QS]
-  float* ks = dos + BT * C::QS;     // [BT][QS]
-  float* vs = ks + BT * C::QS;      // [BT][QS]
-  float* dss = vs + BT * C::QS;     // [BT][PS]
-  float* lse_s = dss + 2 * BT * C::PS;
+  float* qs = smem;            // [BT][QS]
+  float* dos = qs + BT * QS;   // [BT][QS]
+  float* ks = dos + BT * QS;   // [BT][QS]
+  float* vs = ks + BT * QS;    // [BT][QS]
+  float* dss = vs + BT * QS;   // [BT][PS]
+  float* lse_s = dss + 2 * BT * PS;
   float* di_s = lse_s + BT;
 
   const int tid = threadIdx.x;
@@ -208,21 +240,21 @@ __global__ void __launch_bounds__(NT)
                        static_cast<int64_t>(h) * D;
   const int64_t rbase = static_cast<int64_t>(bh) * L;
 
-  load_tile<T, D, BT, NT, C::QS, LB>(qs, q + base, q0, L, row);
-  load_tile<T, D, BT, NT, C::QS, LB>(dos, dout + base, q0, L, row);
-  load_tile<T, D, BT, NT, C::QS, LB>(ks, o + base, q0, L, row);  // O, for di
+  load_tile<T>(qs, q + base, q0, L, row);
+  load_tile<T>(dos, dout + base, q0, L, row);
+  load_tile<T>(ks, o + base, q0, L, row);  // O, for di
   __syncthreads();
   for (int r = tid; r < BT; r += NT) {
     float sum = 0.f;
     for (int d = 0; d < D; ++d)
-      sum = fmaf(dos[r * C::QS + d], ks[r * C::QS + d], sum);
+      sum = fmaf(dos[r * QS + d], ks[r * QS + d], sum);
     di_s[r] = sum;
     lse_s[r] = (q0 + r < L) ? lse[rbase + q0 + r] : 0.f;
     if (q0 + r < L) di[rbase + q0 + r] = sum;
   }
 
-  const int split = tid % KS, sx = tid / KS % C::SX, sy = tid / KS / C::SX;
-  const int ox = tid % C::OX, oy = tid / C::OX;
+  const int sx = tid % SX, sy = tid / SX;
+  const int ox = tid % OX, oy = tid / OX;
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -231,23 +263,21 @@ __global__ void __launch_bounds__(NT)
 
   for (int k0 = 0; k0 < L; k0 += BT) {
     __syncthreads();  // the previous tile's dS K is done with ks and dss
-    load_tile<T, D, BT, NT, C::QS, LB>(ks, k + base, k0, L, row);
-    load_tile<T, D, BT, NT, C::QS, LB>(vs, v + base, k0, L, row);
+    load_tile<T>(ks, k + base, k0, L, row);
+    load_tile<T>(vs, v + base, k0, L, row);
     __syncthreads();
 
     float s[SM][SN], dp[SM][SN];
-    score_patch<D, SM, SN, C::SX, C::SY, C::QS, KS>(qs, dos, ks, vs, sx, sy,
-                                                    split, s, dp);
+    score_patch(qs, dos, ks, vs, sx, sy, s, dp);
 #pragma unroll
     for (int i = 0; i < SM; ++i) {
-      const int r = sy + i * C::SY;
+      const int r = sy + i * SY;
 #pragma unroll
       for (int j = 0; j < SN; ++j) {
-        if (!owns_entry<SN, KS>(i, j, split)) continue;
-        const int c = sx + j * C::SX;
+        const int c = sx + j * SX;
         const float p = (q0 + r < L && k0 + c < L)
                             ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dss[r * C::PS + c] = p * (dp[i][j] - di_s[r]) * scale;
+        dss[r * PS + c] = p * (dp[i][j] - di_s[r]) * scale;
       }
     }
     __syncthreads();
@@ -256,9 +286,9 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < BT; ++j) {
       float dsv[TM], kv[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) dsv[i] = dss[(oy + i * C::OY) * C::PS + j];
+      for (int i = 0; i < TM; ++i) dsv[i] = dss[(oy + i * OY) * PS + j];
 #pragma unroll
-      for (int n = 0; n < TN; ++n) kv[n] = ks[j * C::QS + ox + n * C::OX];
+      for (int n = 0; n < TN; ++n) kv[n] = ks[j * QS + ox + n * OX];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -268,33 +298,31 @@ __global__ void __launch_bounds__(NT)
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int r = oy + i * C::OY;
+    const int r = oy + i * OY;
     if (q0 + r >= L) continue;
 #pragma unroll
     for (int n = 0; n < TN; ++n)
-      dq[base + (q0 + r) * row + ox + n * C::OX] = from_f32<T>(acc[i][n]);
+      dq[base + (q0 + r) * row + ox + n * OX] = from_f32<T>(acc[i][n]);
   }
 }
 
 // One block: (k tile blockIdx.x, b*h blockIdx.y). dv = sum over q tiles of
 // P^T dO, dk = sum of dS^T Q.
-template <typename T, int D, int BT, int NT, int SM, int SN, int TM, int TN,
-          int KS, int LB>
+template <typename T>
 __global__ void __launch_bounds__(NT)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dk,
-                     T* __restrict__ dv, int L, int H, float scale) {
-  using C = BwdTile<D, BT, NT, SM, SN, TM, TN, KS, LB>;
+    flash_dkv_d16(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ di,
+                  T* __restrict__ dk, T* __restrict__ dv, int L, int H,
+                  float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;                 // [BT][QS]
-  float* dos = qs + BT * C::QS;     // [BT][QS]
-  float* ks = dos + BT * C::QS;     // [BT][QS]
-  float* vs = ks + BT * C::QS;      // [BT][QS]
-  float* ps = vs + BT * C::QS;      // [BT][PS], rows q, columns k
-  float* dss = ps + BT * C::PS;     // [BT][PS]
-  float* lse_s = dss + BT * C::PS;
+  float* qs = smem;            // [BT][QS]
+  float* dos = qs + BT * QS;   // [BT][QS]
+  float* ks = dos + BT * QS;   // [BT][QS]
+  float* vs = ks + BT * QS;    // [BT][QS]
+  float* ps = vs + BT * QS;    // [BT][PS], rows q, columns k
+  float* dss = ps + BT * PS;   // [BT][PS]
+  float* lse_s = dss + BT * PS;
   float* di_s = lse_s + BT;
 
   const int tid = threadIdx.x;
@@ -306,11 +334,11 @@ __global__ void __launch_bounds__(NT)
                        static_cast<int64_t>(h) * D;
   const int64_t rbase = static_cast<int64_t>(bh) * L;
 
-  load_tile<T, D, BT, NT, C::QS, LB>(ks, k + base, k0, L, row);
-  load_tile<T, D, BT, NT, C::QS, LB>(vs, v + base, k0, L, row);
+  load_tile<T>(ks, k + base, k0, L, row);
+  load_tile<T>(vs, v + base, k0, L, row);
 
-  const int split = tid % KS, sx = tid / KS % C::SX, sy = tid / KS / C::SX;
-  const int ox = tid % C::OX, oy = tid / C::OX;
+  const int sx = tid % SX, sy = tid / SX;
+  const int ox = tid % OX, oy = tid / OX;
   float acc_k[TM][TN], acc_v[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -319,8 +347,8 @@ __global__ void __launch_bounds__(NT)
 
   for (int q0 = 0; q0 < L; q0 += BT) {
     __syncthreads();  // the previous tile's products are done with qs..dss
-    load_tile<T, D, BT, NT, C::QS, LB>(qs, q + base, q0, L, row);
-    load_tile<T, D, BT, NT, C::QS, LB>(dos, dout + base, q0, L, row);
+    load_tile<T>(qs, q + base, q0, L, row);
+    load_tile<T>(dos, dout + base, q0, L, row);
     for (int r = tid; r < BT; r += NT) {
       const bool in = q0 + r < L;
       lse_s[r] = in ? lse[rbase + q0 + r] : 0.f;
@@ -329,19 +357,17 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
 
     float s[SM][SN], dp[SM][SN];
-    score_patch<D, SM, SN, C::SX, C::SY, C::QS, KS>(qs, dos, ks, vs, sx, sy,
-                                                    split, s, dp);
+    score_patch(qs, dos, ks, vs, sx, sy, s, dp);
 #pragma unroll
     for (int i = 0; i < SM; ++i) {
-      const int r = sy + i * C::SY;
+      const int r = sy + i * SY;
 #pragma unroll
       for (int j = 0; j < SN; ++j) {
-        if (!owns_entry<SN, KS>(i, j, split)) continue;
-        const int c = sx + j * C::SX;
+        const int c = sx + j * SX;
         const float p = (q0 + r < L && k0 + c < L)
                             ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        ps[r * C::PS + c] = p;
-        dss[r * C::PS + c] = p * (dp[i][j] - di_s[r]) * scale;
+        ps[r * PS + c] = p;
+        dss[r * PS + c] = p * (dp[i][j] - di_s[r]) * scale;
       }
     }
     __syncthreads();
@@ -351,13 +377,13 @@ __global__ void __launch_bounds__(NT)
       float pv[TM], dsv[TM], dov[TN], qv[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        pv[i] = ps[r * C::PS + oy + i * C::OY];
-        dsv[i] = dss[r * C::PS + oy + i * C::OY];
+        pv[i] = ps[r * PS + oy + i * OY];
+        dsv[i] = dss[r * PS + oy + i * OY];
       }
 #pragma unroll
       for (int n = 0; n < TN; ++n) {
-        dov[n] = dos[r * C::QS + ox + n * C::OX];
-        qv[n] = qs[r * C::QS + ox + n * C::OX];
+        dov[n] = dos[r * QS + ox + n * OX];
+        qv[n] = qs[r * QS + ox + n * OX];
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -371,34 +397,26 @@ __global__ void __launch_bounds__(NT)
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int r = oy + i * C::OY;
+    const int r = oy + i * OY;
     if (k0 + r >= L) continue;
 #pragma unroll
     for (int n = 0; n < TN; ++n) {
-      const int64_t at = base + (k0 + r) * row + ox + n * C::OX;
+      const int64_t at = base + (k0 + r) * row + ox + n * OX;
       dk[at] = from_f32<T>(acc_k[i][n]);
       dv[at] = from_f32<T>(acc_v[i][n]);
     }
   }
 }
 
-template <typename C, typename K>
-cudaError_t prepare(K kernel, int* smem) {
-  *smem = C::kSmemFloats * static_cast<int>(sizeof(float));
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-}
-
-template <typename T, int D, int BT, int NT, int SM, int SN, int TM, int TN,
-          int KS, int LB>
+template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       void* dq, float* di, int B, int L, int H, float scale,
                       cudaStream_t stream) {
-  using C = BwdTile<D, BT, NT, SM, SN, TM, TN, KS, LB>;
-  auto kernel = flash_dq_kernel<T, D, BT, NT, SM, SN, TM, TN, KS, LB>;
-  int smem;
-  cudaError_t err = prepare<C>(kernel, &smem);
+  auto kernel = flash_dq_d16<T>;
+  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + BT - 1) / BT, B * H);
   kernel<<<grid, NT, smem, stream>>>(
@@ -408,16 +426,15 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D, int BT, int NT, int SM, int SN, int TM, int TN,
-          int KS, int LB>
+template <typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* di,
                        void* dk, void* dv, int B, int L, int H, float scale,
                        cudaStream_t stream) {
-  using C = BwdTile<D, BT, NT, SM, SN, TM, TN, KS, LB>;
-  auto kernel = flash_dkv_kernel<T, D, BT, NT, SM, SN, TM, TN, KS, LB>;
-  int smem;
-  cudaError_t err = prepare<C>(kernel, &smem);
+  auto kernel = flash_dkv_d16<T>;
+  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + BT - 1) / BT, B * H);
   kernel<<<grid, NT, smem, stream>>>(
@@ -426,6 +443,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       static_cast<T*>(dk), static_cast<T*>(dv), L, H, scale);
   return cudaGetLastError();
 }
+
+}  // namespace d16
 
 // d = 512 on the tensor cores (header). 256 threads a block.
 namespace d512 {
@@ -725,9 +744,384 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace d512
 
-// FMA tile shapes of d = 16 and 64: <D, BT, NT, SM, SN, TM, TN, KS, LB>.
-#define RDEIC_BWD_D16 16, 64, 128, 8, 4, 8, 1, 1, 8
-#define RDEIC_BWD_D64 64, 64, 256, 4, 4, 4, 4, 1, 8
+// d = 64 on the tensor cores (header). 128 threads a block; warp w owns
+// rows 16 w.. of the block's 64-row tile (q rows in dq, keys in dkv).
+namespace d64 {
+
+constexpr int D = 64, BT = 64, NT = 128;
+constexpr int TS = D + 4;  // tile stride: 4 mod 32 banks, not swizzled
+constexpr int KC = 32;     // streamed rows a chunk
+constexpr int kTile = BT * TS;
+// dq: the kept Q and dO, one streamed K / V pair (3 blocks per SM). dkv: the
+// kept K and V, two streamed Q / dO pairs, lse and di (2 blocks per SM).
+constexpr int kDqSmemFloats = 4 * kTile;
+constexpr int kDkvSmemFloats = 6 * kTile + 2 * BT;
+static_assert(3 * kDqSmemFloats * 4 <= 232448, "three dq blocks per SM");
+static_assert(2 * kDkvSmemFloats * 4 <= 232448, "two dkv blocks per SM");
+
+// One 8-deep step of s += A B: A (16 x 8) raw fp32 a0..a3, B(d, n) =
+// tile[n][d] from bf (RowB), for NC n-tiles.
+template <int NC, bool kSplit>
+__device__ __forceinline__ void score_step(float (&s)[NC][4],
+                                           const float (&a)[4],
+                                           const float (&bf)[NC][2]) {
+  using namespace rdeic_flash;
+  uint32_t ab[4], as[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split<kSplit>(a[i], ab[i], as[i]);
+#pragma unroll
+  for (int n = 0; n < NC; ++n) {
+    uint32_t bb[2], bs[2];
+    split<kSplit>(bf[n][0], bb[0], bs[0]);
+    split<kSplit>(bf[n][1], bb[1], bs[1]);
+    if (kSplit) mma_tf32(s[n], as, bb);
+    if (kSplit) mma_tf32(s[n], ab, bs);
+    mma_tf32(s[n], ab, bb);
+  }
+}
+
+// s1 = A1 B1^T and s2 = A2 B2^T over d, 16 x 8 NC each: A the warp's 16
+// rows of the kept tiles a1, a2 (ldmatrix, RowA), B the NC 8-row groups of
+// the streamed tiles b1, b2 from their row 0 (ldmatrix, RowB). n-tile n
+// holds streamed rows 8 n.. as columns. The two products interleave, 2 NC
+// independent accumulators.
+template <int NC, bool kSplit>
+__device__ __forceinline__ void scores(float (&s1)[NC][4], float (&s2)[NC][4],
+                                       const float* a1, const float* a2,
+                                       const float* b1, const float* b2) {
+  using namespace rdeic_flash;
+  zero(s1);
+  zero(s2);
+  const int m0 = (threadIdx.x >> 5) * 16;
+  const RowA<TS, false> ra1(a1, m0, 0), ra2(a2, m0, 0);
+  const RowB<TS, false> rb1(b1, 0, 0), rb2(b2, 0, 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    float x1[1][4], x2[1][4], y1[NC][2], y2[NC][2];
+    ra1.load(x1, kk * 8);
+    rb1.load(y1, kk * 8);
+    ra2.load(x2, kk * 8);
+    rb2.load(y2, kk * 8);
+    score_step<NC, kSplit>(s1, x1[0], y1);
+    score_step<NC, kSplit>(s2, x2[0], y2);
+  }
+}
+
+// The 8 streamed rows kk of C (16 x 8 NC score fragments: P or dS, fp32,
+// always split) as an A fragment in the permuted k order: k-slot t is
+// streamed row 2t, slot t + 4 row 2t + 1, so a0..a3 = c0, c2, c1, c3.
+__device__ __forceinline__ void c_as_a(const float (&c)[4], uint32_t (&pb)[4],
+                                       uint32_t (&ps)[4]) {
+  using namespace rdeic_flash;
+  split<true>(c[0], pb[0], ps[0]);
+  split<true>(c[2], pb[1], ps[1]);
+  split<true>(c[1], pb[2], ps[2]);
+  split<true>(c[3], pb[3], ps[3]);
+}
+
+// acc (16 x 64) += (8 rows of C as A) B, B(k, n) = tile[k][n] read at rows
+// 2t and 2t + 1 (b, already at the lane's row 2t and column g; stride TS:
+// 32 banks). mma.sync rounds its result toward zero, so each pass drops up
+// to an ulp of acc, always toward zero: over the L-long sum the error grows
+// with L (header).
+template <bool kSplit>
+__device__ __forceinline__ void accumulate_step(float (&acc)[D / 8][4],
+                                                const uint32_t (&pb)[4],
+                                                const uint32_t (&ps)[4],
+                                                const float* b) {
+  using namespace rdeic_flash;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    uint32_t bb[2], bs[2];
+    split<kSplit>(b[8 * n], bb[0], bs[0]);
+    split<kSplit>(b[TS + 8 * n], bb[1], bs[1]);
+    mma_tf32(acc[n], ps, bb);
+    if (kSplit) mma_tf32(acc[n], pb, bs);
+    mma_tf32(acc[n], pb, bb);
+  }
+}
+
+// The warp's 16 x 64 accumulator, rows r0 + g and r0 + g + 8 (those below
+// L), to out (at (b, h)) in the storage type.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 8][4],
+                                           int r0, int L, int64_t row) {
+  using namespace rdeic_flash;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= L) continue;
+    T* p = out + r * row + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2<T>(p + 8 * n, acc[n][2 * half], acc[n][2 * half + 1]);
+  }
+}
+
+// One block: (64-row q tile blockIdx.x, b*h blockIdx.y). Q and dO stay in
+// shared memory; warp w owns q rows 16 w.. and their lse and di, and streams
+// 64-row K and V tiles in KC-key chunks: S = Q K^T and dP = dO V^T as C
+// fragments, P and dS in place in registers, dq += dS K. Also di =
+// rowsum(dO * O) for the tile's rows, written to `di`. One buffer for the
+// streamed pair: the next pair is copied after this one is used, while the
+// SM's other two blocks compute.
+template <typename T>
+__global__ void __launch_bounds__(NT, 3)
+    flash_dq_d64(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ o,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 T* __restrict__ dq, float* __restrict__ di, int L, int H,
+                 float scale) {
+  using namespace rdeic_flash;
+  constexpr bool kSplit = sizeof(T) == 4;  // bf16 operands are exact in TF32
+  extern __shared__ __align__(16) float smem_d64[];
+  float* qs = smem_d64;     // [BT][TS]
+  float* dos = qs + kTile;  // [BT][TS]
+  float* ks = dos + kTile;  // [BT][TS]
+  float* vs = ks + kTile;   // [BT][TS]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BT;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  const T* kb = k + base;
+  const T* vb = v + base;
+
+  // O passes through the K buffer; the first V tile lands meanwhile
+  const float* os = ks;
+  load_rows<T, BT, D, NT, TS, false>(qs, q + base, q0, L, row);
+  load_rows<T, BT, D, NT, TS, false>(dos, dout + base, q0, L, row);
+  load_rows<T, BT, D, NT, TS, false>(ks, o + base, q0, L, row);
+  load_rows<T, BT, D, NT, TS, false>(vs, vb, 0, L, row);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // rows g (half 0) and g + 8 (half 1) of the warp's 16: lse, and di from
+  // the lane's 16 products of each row and its quad's
+  const int r0 = q0 + warp * 16 + g;
+  const bool in[2] = {r0 < L, r0 + 8 < L};
+  float lse_r[2], di_r[2] = {0.f, 0.f};
+  {
+    const RowA<TS, false> rd(dos, warp * 16, 0), ro(os, warp * 16, 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float x[1][4], y[1][4];
+      rd.load(x, kk * 8);
+      ro.load(y, kk * 8);
+      di_r[0] = fmaf(x[0][0], y[0][0], di_r[0]);
+      di_r[0] = fmaf(x[0][2], y[0][2], di_r[0]);
+      di_r[1] = fmaf(x[0][1], y[0][1], di_r[1]);
+      di_r[1] = fmaf(x[0][3], y[0][3], di_r[1]);
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    di_r[half] += __shfl_xor_sync(0xffffffffu, di_r[half], 1);
+    di_r[half] += __shfl_xor_sync(0xffffffffu, di_r[half], 2);
+    const int r = r0 + 8 * half;
+    lse_r[half] = in[half] ? lse[rbase + r] : 0.f;
+    if (in[half] && t == 0) di[rbase + r] = di_r[half];
+  }
+  __syncthreads();  // done with O
+  load_rows<T, BT, D, NT, TS, false>(ks, kb, 0, L, row);
+  cp_async_commit();
+
+  float acc[D / 8][4];  // dq[16 rows][64]: n-tile n holds columns 8 n..
+  zero(acc);
+  const int nk = (L + BT - 1) / BT;
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * BT;
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 1
+    for (int c0 = 0; c0 < BT; c0 += KC) {
+      const float* kt = ks + c0 * TS;
+      const float* vt = vs + c0 * TS;
+      float s[KC / 8][4], dp[KC / 8][4];
+      scores<KC / 8, kSplit>(s, dp, qs, dos, kt, vt);
+      // P = exp(S scale - lse), 0 on a padded row or key; dS = P (dP - di)
+      // scale, in place of S
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int half = i >> 1, key = k0 + c0 + 8 * n + 2 * t + (i & 1);
+          const float p = (in[half] && key < L)
+                              ? expf(s[n][i] * scale - lse_r[half]) : 0.f;
+          s[n][i] = p * (dp[n][i] - di_r[half]) * scale;
+        }
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        uint32_t pb[4], ps[4];
+        c_as_a(s[kk], pb, ps);
+        accumulate_step<kSplit>(acc, pb, ps, kt + (8 * kk + 2 * t) * TS + g);
+      }
+    }
+    __syncthreads();  // every warp is done with this pair before its refill
+    if (j + 1 < nk) {
+      load_rows<T, BT, D, NT, TS, false>(ks, kb, k0 + BT, L, row);
+      load_rows<T, BT, D, NT, TS, false>(vs, vb, k0 + BT, L, row);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+  store_rows<T>(dq + base, acc, q0 + warp * 16, L, row);
+}
+
+// One block: (64-row k tile blockIdx.x, b*h blockIdx.y). K and V stay in
+// shared memory; warp w owns keys 16 w.. and streams 64-row Q and dO tiles
+// in KC-row chunks: S^T = K Q^T and dP^T = V dO^T as C fragments (rows
+// keys, columns q), P^T and dS^T in place in registers (lse and di by
+// column, from shared memory), dv += P^T dO, dk += dS^T Q. The next Q / dO
+// pair is copied while this one is used.
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+    flash_dkv_d64(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ di, T* __restrict__ dk,
+                  T* __restrict__ dv, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  constexpr bool kSplit = sizeof(T) == 4;
+  extern __shared__ __align__(16) float smem_d64[];
+  float* ks = smem_d64;         // [BT][TS]
+  float* vs = ks + kTile;       // [BT][TS]
+  float* qs = vs + kTile;       // [2 buffers][BT][TS]
+  float* dos = qs + 2 * kTile;  // [2 buffers][BT][TS]
+  float* lse_s = dos + 2 * kTile;  // [BT] of the current q tile
+  float* di_s = lse_s + BT;         // [BT]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * BT;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  const T* qb = q + base;
+  const T* db = dout + base;
+
+  load_rows<T, BT, D, NT, TS, false>(ks, k + base, k0, L, row);
+  load_rows<T, BT, D, NT, TS, false>(vs, v + base, k0, L, row);
+  load_rows<T, BT, D, NT, TS, false>(qs, qb, 0, L, row);
+  load_rows<T, BT, D, NT, TS, false>(dos, db, 0, L, row);
+  cp_async_commit();
+
+  // lse and di of a q tile, read one tile ahead so that their latency
+  // hides behind a whole tile's work
+  float lse_next = 0.f, di_next = 0.f;
+  if (tid < BT && tid < L) {
+    lse_next = lse[rbase + tid];
+    di_next = di[rbase + tid];
+  }
+  float acc_k[D / 8][4], acc_v[D / 8][4];  // dk, dv [16 keys][64]
+  zero(acc_k);
+  zero(acc_v);
+  const int nq = (L + BT - 1) / BT;
+  for (int j = 0; j < nq; ++j) {
+    const int cur = j & 1, q0 = j * BT;
+    if (tid < BT) {  // the previous tile's last sync has passed: no reader
+      lse_s[tid] = lse_next;
+      di_s[tid] = di_next;
+      const bool in = q0 + BT + tid < L;
+      lse_next = in ? lse[rbase + q0 + BT + tid] : 0.f;
+      di_next = in ? di[rbase + q0 + BT + tid] : 0.f;
+    }
+    if (j + 1 < nq) {  // the next pair lands while this one is used
+      load_rows<T, BT, D, NT, TS, false>(qs + (cur ^ 1) * kTile, qb, q0 + BT,
+                                         L, row);
+      load_rows<T, BT, D, NT, TS, false>(dos + (cur ^ 1) * kTile, db,
+                                         q0 + BT, L, row);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this pair (the next may be in flight)
+    __syncthreads();
+#pragma unroll 1
+    for (int c0 = 0; c0 < BT; c0 += KC) {
+      const float* qt = qs + cur * kTile + c0 * TS;
+      const float* dt = dos + cur * kTile + c0 * TS;
+      float s[KC / 8][4], dp[KC / 8][4];
+      scores<KC / 8, kSplit>(s, dp, ks, vs, qt, dt);
+      // column c = c0 + 8 n + 2 t + e is q row q0 + c: P^T = exp(S^T scale
+      // - lse[c]), 0 on a padded q row; dS^T = P^T (dP^T - di[c]) scale
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+        const int c = c0 + 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(di_s + c);
+        const float lc[2] = {l2.x, l2.y}, dc[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = i & 1;
+          const float p = q0 + c + e < L ? expf(s[n][i] * scale - lc[e]) : 0.f;
+          s[n][i] = p;
+          dp[n][i] = p * (dp[n][i] - dc[e]) * scale;
+        }
+      }
+      // dv += P^T dO and dk += dS^T Q, interleaved: 16 accumulators
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        uint32_t pb[4], ps[4];
+        c_as_a(s[kk], pb, ps);
+        accumulate_step<kSplit>(acc_v, pb, ps, dt + (8 * kk + 2 * t) * TS + g);
+        c_as_a(dp[kk], pb, ps);
+        accumulate_step<kSplit>(acc_k, pb, ps, qt + (8 * kk + 2 * t) * TS + g);
+      }
+    }
+    __syncthreads();  // every warp is done with this pair before its refill
+  }
+  cp_async_wait<0>();
+  store_rows<T>(dk + base, acc_k, k0 + warp * 16, L, row);
+  store_rows<T>(dv + base, acc_v, k0 + warp * 16, L, row);
+}
+
+template <typename T>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      void* dq, float* di, int B, int L, int H, float scale,
+                      cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_dq_d64<T>;
+  const int smem = kDqSmemFloats * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BT - 1) / BT, B * H);
+  kernel<<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), lse, static_cast<T*>(dq), di, L, H, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di,
+                       void* dk, void* dv, int B, int L, int H, float scale,
+                       cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_dkv_d64<T>;
+  const int smem = kDkvSmemFloats * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BT - 1) / BT, B * H);
+  kernel<<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
+      static_cast<T*>(dk), static_cast<T*>(dv), L, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace d64
 
 template <typename T>
 int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
@@ -735,11 +1129,11 @@ int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
                 int B, int L, int H, int D, float scale, cudaStream_t st) {
   switch (D) {
     case 16:
-      return launch_dq<T, RDEIC_BWD_D16>(q, k, v, o, dout, lse, dq, di, B, L,
-                                         H, scale, st);
+      return d16::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H, scale,
+                               st);
     case 64:
-      return launch_dq<T, RDEIC_BWD_D64>(q, k, v, o, dout, lse, dq, di, B, L,
-                                         H, scale, st);
+      return d64::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H, scale,
+                               st);
     case 512:
       return d512::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H, scale,
                                 st);
@@ -755,11 +1149,11 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
                  cudaStream_t st) {
   switch (D) {
     case 16:
-      return launch_dkv<T, RDEIC_BWD_D16>(q, k, v, dout, lse, di, dk, dv, B,
-                                          L, H, scale, st);
+      return d16::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
+                                scale, st);
     case 64:
-      return launch_dkv<T, RDEIC_BWD_D64>(q, k, v, dout, lse, di, dk, dv, B,
-                                          L, H, scale, st);
+      return d64::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
+                                scale, st);
     case 512:
       return d512::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
                                  scale, st);

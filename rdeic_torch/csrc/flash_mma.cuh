@@ -1,6 +1,5 @@
-// Tensor-core pieces shared by the d = 512 flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu) and the d = 64 forward
-// (flash_attn_fwd.cu): TF32 `mma.sync` with fp32
+// Tensor-core pieces shared by the d = 512 and d = 64 flash-attention
+// kernels (flash_attn_fwd.cu, flash_attn_bwd.cu): TF32 `mma.sync` with fp32
 // accumulators, the 3xTF32 split that keeps fp32 products fp32-accurate,
 // the swizzled shared-memory layout of the D-wide tiles, and their copies.
 //
@@ -72,6 +71,14 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 }
 
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const float* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -128,15 +135,15 @@ struct ColA {
   }
 };
 
-// B(k, n) = tile[n][k] (a swizzled D-wide tile of row stride S): one
-// ldmatrix.x4 per two n-tiles (b0, b1 of n-tile 2p, then of 2p + 1).
-template <int S>
+// B(k, n) = tile[n][k] (a D-wide tile of row stride S, swizzled if SWZ):
+// one ldmatrix.x4 per two n-tiles (b0, b1 of n-tile 2p, then of 2p + 1).
+template <int S, bool SWZ = true>
 struct RowB {
   uint32_t addr;
   __device__ RowB(const float* tile, int n0, int k0) {
     const int l = threadIdx.x & 31, r = (l & 7) + (l >> 4) * 8,
               c = (l & 8) >> 1;
-    addr = smem_addr(tile + (n0 + r) * S + k0 + (c ^ (r & 4)));
+    addr = smem_addr(tile + (n0 + r) * S + k0 + (SWZ ? c ^ (r & 4) : c));
   }
   template <int NT>
   __device__ __forceinline__ void load(float (&x)[NT][2], int k) const {

@@ -21,14 +21,25 @@ def load_file_list(path: str) -> list[str]:
             if line.strip()]
 
 
+def list_image_files(folder: str) -> list[str]:
+    """Every image file under `folder`, subdirectories included (png, jpg,
+    jpeg, bmp, webp, in any case), in sorted path order."""
+    exts = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+    return [str(p) for p in sorted(Path(folder).rglob("*"))
+            if p.suffix.lower() in exts and p.is_file()]
+
+
 class LICDataset(Dataset):
     """File-list images for learned-compression training: crop (none,
     center or random), flip/rotate, and {"jpg": [-1, 1] HWC float32,
-    "txt": ""}."""
+    "txt": ""}. With `cache_size` > 0 the decoded RGB images are kept in a
+    first-in first-out cache of that many entries (decoding can bound a
+    step once the card is fast); 0 turns it off."""
 
     def __init__(self, file_list: str, out_size: int = 256,
                  crop_type: str = "random", use_hflip: bool = True,
-                 use_rot: bool = False, seed: Optional[int] = None):
+                 use_rot: bool = False, seed: Optional[int] = None,
+                 cache_size: int = 0):
         if crop_type not in ("none", "center", "random"):
             raise ValueError(f"crop_type {crop_type!r}")
         self.paths = load_file_list(file_list)
@@ -37,12 +48,25 @@ class LICDataset(Dataset):
         self.use_hflip = use_hflip
         self.use_rot = use_rot
         self.rng = random.Random(seed)
+        self.cache_size = int(cache_size)
+        self._cache: dict = {}  # insertion order is the eviction order
 
     def __len__(self) -> int:
         return len(self.paths)
 
+    def _load(self, path: str):
+        """The decoded image, from the cache when it holds `path`."""
+        if path in self._cache:
+            return self._cache[path]
+        img = self._load_uncached(path)
+        if self.cache_size:
+            if len(self._cache) >= self.cache_size:
+                del self._cache[next(iter(self._cache))]
+            self._cache[path] = img
+        return img
+
     @staticmethod
-    def _load(path: str):
+    def _load_uncached(path: str):
         """The image as RGB, three tries a second apart (slow network disks)."""
         from PIL import Image  # noqa: PLC0415
 
@@ -71,8 +95,8 @@ class LICDataset(Dataset):
 
 class DataModule:
     """The training loader from the data config tree. Validation is not
-    ported yet (ROADMAP Queue 1 item 13): `val_config` is accepted and
-    unused."""
+    ported yet (ROADMAP Queue 1, validation and callbacks): `val_config` is
+    accepted and unused."""
 
     def __init__(self, train_config: Optional[str | dict] = None,
                  val_config: Optional[str | dict] = None):

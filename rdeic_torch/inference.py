@@ -19,12 +19,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from rdeic_torch.data.dataset import list_image_files
 from rdeic_torch.registry import instantiate_from_config, load_yaml
 from rdeic_torch.utils.backend import resolve_device
 from rdeic_torch.utils.convert import load_npz_weights
 from rdeic_torch.utils.image import pad, to_float01, to_uint8
-
-IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".tif", ".tiff")
 
 
 def process(model, img01: torch.Tensor, steps: int, stream_path: str,
@@ -42,17 +41,18 @@ def load_model(config: str, ckpt: str, device: torch.device):
     if not str(ckpt).endswith(".npz"):
         raise NotImplementedError(
             f"{ckpt}: only flat .npz params load here; orbax train-state "
-            "checkpoints come with ROADMAP Queue 1 item 9")
+            "checkpoints have no counterpart (ROADMAP Queue 1, the rest)")
     model = instantiate_from_config(load_yaml(config), device=device)
     load_npz_weights(model, ckpt)
     return model.eval()
 
 
 def list_images(path: Path) -> list[str]:
+    """A file as it is; a directory's images at any depth, in the order of
+    the reference CLI (`list_image_files`)."""
     if path.is_file():
         return [str(path)]
-    return sorted(str(p) for p in path.iterdir()
-                  if p.suffix.lower() in IMAGE_EXTS)
+    return list_image_files(str(path))
 
 
 def main(argv=None):
@@ -69,11 +69,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.sampler != "ddpm":
-        raise NotImplementedError("--sampler ddim: ROADMAP Queue 1 item 7")
+        raise NotImplementedError(
+            "--sampler ddim: ROADMAP Queue 1, DDIM and CFG")
     if args.guidance_scale != 1.0:
-        raise NotImplementedError("--guidance_scale: ROADMAP Queue 1 item 11")
+        raise NotImplementedError(
+            "--guidance_scale: ROADMAP Queue 1, DDIM and CFG")
     if args.bf16:
-        raise NotImplementedError("--bf16: ROADMAP Queue 1 item 8")
+        raise NotImplementedError("--bf16: ROADMAP Queue 1, bf16")
 
     from PIL import Image  # noqa: PLC0415 (only the CLI reads images)
 

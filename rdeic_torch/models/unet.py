@@ -346,7 +346,7 @@ class NoiseEstimator(nn.Module):
         if remat_policy is not None:
             raise NotImplementedError(
                 f"remat_policy {remat_policy!r}: the port recomputes whole "
-                "blocks only (ROADMAP Queue 1 item 9)")
+                "blocks only (ROADMAP Queue 1, training settings)")
         self.use_checkpoint = use_checkpoint
         common = dict(in_channels=in_channels, model_channels=model_channels,
                       num_res_blocks=num_res_blocks,

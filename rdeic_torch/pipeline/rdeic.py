@@ -80,7 +80,7 @@ class RDEIC(nn.Module):
         if parameterization != "eps":
             raise NotImplementedError(
                 f"parameterization {parameterization!r}: the port's sampler "
-                "reads eps (ROADMAP Queue 1 item 9 brings the others)")
+                "reads eps (ROADMAP Queue 1, training settings)")
         ctrl = _cfg_params(control_stage_config)
         unet = _cfg_params(unet_config)
         vae_cfg = _cfg_params(first_stage_config)

@@ -27,8 +27,10 @@ from rdeic_torch.train.trainer import Trainer
 from rdeic_torch.utils.backend import resolve_device
 from rdeic_torch.utils.convert import load_npz_weights
 
-# trainer settings of the JAX CLI that the port does not run yet
-_NOT_PORTED = ("compute_dtype", "frozen_dtype", "fast_init")
+# trainer settings of the JAX CLI that the port does not run yet, and the
+# ROADMAP Queue 1 item that brings each
+_NOT_PORTED = {"compute_dtype": "bf16", "frozen_dtype": "bf16",
+               "fast_init": "training settings"}
 
 
 def _deep_update(dst: dict, src: dict) -> dict:
@@ -53,8 +55,9 @@ def build_model(cfg: dict, device: torch.device):
     _deep_update(model_cfg.setdefault("params", {}),
                  cfg["model"].get("overrides") or {})
     if model_cfg["params"].get("sync_path"):
-        raise NotImplementedError("sync_path: converting an SD 2.1 torch "
-                                  "checkpoint is ROADMAP Queue 1 item 9")
+        raise NotImplementedError(
+            "sync_path: converting an SD 2.1 torch checkpoint: ROADMAP "
+            "Queue 1, training settings")
     model = instantiate_from_config(model_cfg, device=device)
     resume = cfg["model"].get("resume")
     if resume and str(resume).endswith(".npz"):
@@ -72,20 +75,21 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cfg = load_yaml(args.config)
     tcfg = cfg.get("trainer", {})
-    for key in _NOT_PORTED:
+    for key, item in _NOT_PORTED.items():
         if tcfg.get(key):
-            raise NotImplementedError(f"trainer.{key}: ROADMAP Queue 1 item 9")
+            raise NotImplementedError(f"trainer.{key}: ROADMAP Queue 1, {item}")
     mesh = tcfg.get("mesh") or {}
     if (mesh.get("dp") or 1) > 1 or (mesh.get("tp") or 1) > 1:
         raise NotImplementedError("trainer.mesh: one device only; DDP is "
-                                  "ROADMAP Queue 1 item 13")
+                                  "ROADMAP Queue 1, multi-device")
     device = resolve_device(args.device)
     seed = int(tcfg.get("seed", 231))
     torch.manual_seed(seed)
     model = build_model(cfg, device)
     phase = "refine" if model.is_refine else "independent"
     print(f"[rdeic_torch.train: {phase} phase; validation and the image "
-          "logger are not ported yet (ROADMAP Queue 1 item 13)]", flush=True)
+          "logger are not ported yet (ROADMAP Queue 1, validation and "
+          "callbacks)]", flush=True)
     trainer = Trainer(model, learning_rate=tcfg.get("learning_rate"),
                       accumulate_grad_batches=int(
                           tcfg.get("accumulate_grad_batches", 1)))

@@ -56,11 +56,15 @@ GN_SHAPES = [(1, 320, 96, 64), (1, 2560, 12, 8), (1, 1920, 24, 16),
              (1, 32, 64, 64), (2, 32, 17, 19), GN_STREAM_SHAPE]
 # (B, L, H, D) of the training paths' flash calls at 512x512, B = 2 (the
 # refine phase adds the VAE decoder's d = 512), the decoder's at 256x256,
-# plus ragged L (the backward masks padded q rows and k columns)
+# plus ragged L (the backward masks padded q rows and k columns; at d = 64
+# an L past one 64-row tile, inside one, and below one 32-row chunk), and
+# at d = 64 twice the paths' longest L (the dq, dk and dv sums run over L)
 FLASH_TRAIN_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64), (2, 4096, 4, 16),
                       (2, 1024, 8, 16), (2, 4096, 1, 512), (1, 1024, 1, 512),
-                      (2, 1000, 3, 64), (1, 77, 2, 16), (1, 130, 1, 512),
+                      (2, 1000, 3, 64), (1, 130, 2, 64), (2, 40, 3, 64),
+                      (1, 8192, 2, 64), (1, 77, 2, 16), (1, 130, 1, 512),
                       *D512_SHAPES]
+FAULT_SCALE = 1.05  # a planted output-scale error each check must read
 # (B, C, H, W, groups) of GroupNorm backward: denoiser widths at 512x512
 # (64x64 latents), a 48-channel control width (find_denominator gives 24
 # groups), and ragged spans
@@ -212,6 +216,7 @@ def test_flash_lse_and_backward_kernels_match_plain(cuda, shape, dtype):
     for got, want in zip(grads, plain):
         assert got.dtype == dtype
         assert _rel_err(got, want) <= _limit(dtype)
+        assert _rel_err(got.float() * FAULT_SCALE, want) > _limit(dtype)
 
 
 @pytest.mark.parametrize("shape", [(2, 1024, 10, 64), (1, 1000, 4, 16),

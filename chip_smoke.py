@@ -2,21 +2,21 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc (for the flash-attention and GroupNorm forward
-kernels), triton (for the GroupNorm backward) and g++; no network. Phases,
-each fatal on failure:
+Needs one CUDA card, nvcc (for the flash-attention and GroupNorm kernels)
+and g++; no network. Phases, each fatal on failure:
 
-1. environment: torch / CUDA / triton versions and the card's name and power
-   limit (nvidia-smi);
-2. build: nvcc (forward and backward flash kernels, GroupNorm forward) and
-   g++ start together on the sources in the checkout; ptxas's registers and
-   spills of each CUDA kernel are logged by name, and a tensor-core flash
-   kernel (d = 64, d = 512) that spills fails the run;
+1. environment: torch / CUDA versions and the card's name and power limit
+   (nvidia-smi);
+2. build: nvcc (forward and backward flash kernels, GroupNorm forward and
+   backward) and g++ start together on the sources in the checkout; ptxas's
+   registers and spills of each CUDA kernel are logged by name, and a
+   tensor-core flash kernel (flash_fwd_d16, and every d = 64 and d = 512
+   kernel) or the GroupNorm backward that spills fails the run;
 3. main path at the full width of configs/model/rdeic.yaml (random weights
    from --seed): the CLI's per-image `rdeic_torch.inference.process` codes a
    synthetic 768x512 image to a stream file, decodes it back, relay-samples
    it in 2 DDPM steps and decodes it with the VAE. It runs once to warm up
-   (Triton compiles, cuDNN plans), then once, timed, with every kernel's
+   (cuDNN plans), then once, timed, with every kernel's
    launch count set to 0. A third, uncounted run makes the same three
    pipeline calls one by one, timed per stage. Checks: the stream is the
    same every time; process() gives the same image both times, equal to the
@@ -55,17 +55,20 @@ each fatal on failure:
 9. kernels against their plain versions at every shape of the serving and
    the training paths, and at shapes on no path (their rows carry no
    calls): flash at d = 512 and d = 64 with B = 2, H > 1 and L = 1000, and
-   at d = 64 with L = 8192 (the CHECK_SHAPES), GroupNorm at a span larger than a cluster's shared memory
-   (GN_STREAM_KEYS: the kernel's streaming variant), in fp32 and bf16, with
-   the kernel, plain and library times (CUDA events) and the bound of each.
+   at d = 64 and d = 16 with L = 8192 (the CHECK_SHAPES), GroupNorm forward
+   and backward at a span larger than a cluster's shared memory
+   (GN_STREAM_KEYS: the kernels' streaming variant), in fp32 and bf16, with
+   the kernel, plain and library times (CUDA events) and the bound of each;
+   the GroupNorm backward also gives the same bits on a second run.
    `ms` times launches back to back, so a launch-bound call reads its host
    time; `device_ms` (and `library_device_ms`) times the same launches
    queued behind a sleeping kernel, so it reads the card's time alone
    (device_ms); GroupNorm rows add the host µs a call takes to enqueue.
    A flash row's bound takes the rate named in its `bound_rate`
    (flash_rate): for fp32, the TF32 tensor cores over the three passes of
-   3xTF32 where the kernel runs them (every d = 64 and d = 512 kernel) and
-   fp32 FMA at d = 16; for bf16, the card's bf16 peak. Each comparison also
+   3xTF32 where the kernel runs them (every forward, and the d = 64 and
+   d = 512 backward) and fp32 FMA for the d = 16 backward; for bf16, the
+   card's bf16 peak. Each comparison also
    reads a planted fault (the kernel's output scaled by 1.05) and fails if
    that reading is within the limit.
 
@@ -77,8 +80,8 @@ run of the path its `path` names: per image for the serving kernels
 others (`ms_by_path` also gives the kernel time per independent-phase
 micro-step); `shapes` has the per-call numbers and the calls in each path.
 `launches` counts kernel launches in that path's counted run (one per flash
-call and per GroupNorm forward call; two per GroupNorm backward call:
-moments then dx), `launches_by_path` in each path's. The plain and library times of
+call and per GroupNorm call, forward or backward), `launches_by_path` in
+each path's. The plain and library times of
 flash_attn_bwd_dq and flash_attn_bwd_dkv are each of a whole backward (dq,
 dk and dv): compare them with the sum of the two kernels, and so is their
 `backward_bound_ms` (10 B H L^2 d flops: S, dP, dV, dQ, dK once each);
@@ -198,13 +201,16 @@ FLASH_PER_DENOISER_CALL_512 = 14
 # largest gradient where the tensor's own gradient is zero but for rounding
 # (a bias right before a GroupNorm, which removes the channel mean). The
 # compression model's forward has kinks (LeakyReLU's slope at 0, the
-# rounding of y - mu, lower_bound's gradient rule, the codebook's argmax)
-# and weights the rate term by 1 / likelihood, so a forward rounding
-# difference of ~1e-7 moves its gradients by up to ~1e-2 between two correct
-# runs. The CPU run therefore takes the card's value at every convolution
-# output of the compression model (the gradient passes straight through),
-# after holding each such output to TRAIN_REF_TOL["conv"]; the gradients then
-# differ only by the backward's arithmetic. In the refine phase LPIPS's ReLUs
+# rounding of y - mu, lower_bound's gradient rule, the codebook's argmax and
+# its contrastive loss's top-k selections) and weights the rate term by
+# 1 / likelihood, so a forward rounding difference of ~1e-7 moves its
+# gradients by up to ~1e-2 between two correct runs, and a near tie in the
+# codebook's distances that falls the other way moves the codebook's own
+# gradient by ~0.2. The CPU run therefore takes the card's value at every
+# convolution output of the compression model and at the codebook's logits
+# (the gradient passes straight through), after holding each such output to
+# TRAIN_REF_TOL["conv"]; the gradients then differ only by the backward's
+# arithmetic. In the refine phase LPIPS's ReLUs
 # are kinks of the same kind, on the path of every gradient: its convolution
 # outputs are pinned too. A second CPU run without the
 # pinning shows, in the log only, how far they move otherwise. Gradients are
@@ -225,8 +231,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TF32_FLOPS = 494.7e12
 # Head dims whose flash kernels run on the tensor cores in TF32, an fp32
-# product as three TF32 products (3xTF32); d = 16 runs fp32 FMA
-TC_HEAD_DIMS = (64, 512)
+# product as three TF32 products (3xTF32), forward and backward; the d = 16
+# backward runs fp32 FMA
+TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (64, 512)}
 FAULT_SCALE = 1.05  # a planted output-scale error each check must see
 GN_TOL = 1e-4  # fp32 GroupNorm outputs up to ~15 after scale and bias
 # relative to max |plain| of each output, for the training kernels: fp32
@@ -239,11 +246,13 @@ FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
                 (1, 1536, 10, 64), (1, 1536, 8, 16)]
 # flash shapes on no path: B = 2, H > 1 (every path's d = 512 shape has
 # H = 1) and an L that is a multiple of no tile of the tensor-core kernels;
-# and at d = 64 twice the paths' longest L, as the backward's dq, dk and dv
-# sums run over L
-CHECK_SHAPES = [(2, 1000, 2, 512), (2, 1000, 3, 64), (1, 8192, 2, 64)]
+# and at d = 64 and d = 16 twice the paths' longest L, as the backward's
+# dq, dk and dv sums and the forward's output sum run over L
+CHECK_SHAPES = [(2, 1000, 2, 512), (2, 1000, 3, 64), (1, 8192, 2, 64),
+                (1, 8192, 4, 16)]
 # a GroupNorm span on no path larger than 8 CTAs' shared memory in both
-# dtypes (16 x 65536 elements), so the forward kernel streams it
+# dtypes (16 x 65536 elements), so the forward and backward kernels
+# stream it
 GN_STREAM_KEYS = [(1, 512, 256, 256, 32, 1e-5, True, dt)
                   for dt in ("float32", "bfloat16")]
 # torch.cuda._sleep counts cycles; at this clock or below (the H100's boost
@@ -305,10 +314,8 @@ def host_ms(fn):
 
 
 def phase_environment() -> str:
-    import triton  # noqa: PLC0415
-
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
-        f"cuda {torch.version.cuda}  triton {triton.__version__}")
+        f"cuda {torch.version.cuda}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -321,25 +328,27 @@ def phase_build():
     libs = build.build_all()
     log(f"[build] nvcc + g++ in parallel: {time.perf_counter() - t0:.1f} s")
     spills = []
-    for lib in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_fwd"):
+    for lib in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_fwd",
+                "group_norm_bwd"):
         kernel = "?"
         for line in build.build_log(libs[lib]).splitlines():
-            m = re.search(r"\d(flash_(?:fwd|dq|dkv)_(?:kernel|d16|d64|d512)|gn_fwd)"
+            m = re.search(r"\d(flash_(?:fwd|dq|dkv)_d(?:16|64|512)|gn_[fb]wd)"
                           r"I(f|13__nv_bfloat16)((?:L[ib]\d+E)*)", line)
             if "Compiling entry function" in line and m:  # a mangled name
                 ints = re.findall(r"L[ib](\d+)E", m[3])  # template ints
-                what, n = {"kernel": ("d", 1), "fwd": ("vec", 1)}.get(
+                what, n = {"fwd": ("vec", 1), "bwd": ("vec", 1)}.get(
                     m[1].rsplit("_", 1)[-1], ("", 0))
                 kernel = (f"{m[1]}<{'fp32' if m[2] == 'f' else 'bf16'}"
                           + (f", {what} = {', '.join(ints[:n])}" if ints else "")
                           + ">")
             elif "registers" in line or "spill" in line:
                 log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
-                if (re.search(r"_d(64|512)<", kernel)
+                if (re.search(r"_d(64|512)<|flash_fwd_d16<|gn_bwd<", kernel)
                         and re.search(r"[1-9]\d* bytes spill", line)):
                     spills.append(kernel)
     if spills:
-        raise AssertionError(f"tensor-core flash kernels spill: {spills}")
+        raise AssertionError(f"tensor-core flash kernels or the GroupNorm "
+                             f"backward spill: {spills}")
 
 
 def make_model(device, seed: int) -> RDEIC:
@@ -519,10 +528,32 @@ def train_ref_group(name: str) -> str:
     return "synthesis" if name.startswith(SYNTHESIS_PREFIXES) else "rate"
 
 
+class _MethodHook:
+    """fn(name, output) around `obj.attr(...)`, as a forward hook around a
+    method (its return value, if any, replaces the output); remove()
+    restores the method."""
+
+    def __init__(self, obj, attr: str, name: str, fn):
+        self.obj, self.attr = obj, attr
+        method = getattr(obj, attr)
+
+        def call(*args, **kwargs):
+            out = method(*args, **kwargs)
+            new = fn(name, out)
+            return out if new is None else new
+
+        setattr(obj, attr, call)
+
+    def remove(self):
+        delattr(self.obj, self.attr)
+
+
 def _hook_convs(model, fn) -> list:
     """fn(name, output) as a forward hook on every Conv of the compression
-    model and, in the refine phase, every convolution of LPIPS (its return
-    value, if any, replaces the output); the handles."""
+    model, on the codebook's logits (the distances its argmax and its
+    contrastive top-k select from) and, in the refine phase, on every
+    convolution of LPIPS (its return value, if any, replaces the output);
+    the handles."""
     mods = [(f"compression.{n}", m) for n, m in model.compression.named_modules()
             if isinstance(m, Conv)]
     if model.is_refine:
@@ -530,7 +561,9 @@ def _hook_convs(model, fn) -> list:
                  if isinstance(m, torch.nn.Conv2d)]
     return [mod.register_forward_hook(
                 lambda _mod, _args, out, name=name: fn(name, out))
-            for name, mod in mods]
+            for name, mod in mods] + [
+        _MethodHook(model.compression.quantize, "logits",
+                    "compression.quantize.logits", fn)]
 
 
 def phase_train_reference(model, device, seed: int) -> dict:
@@ -594,7 +627,9 @@ def phase_train_reference(model, device, seed: int) -> dict:
     log(f"[{tag}] {len(conv_reads)} conv outputs (compression model"
         f"{', LPIPS' if model.is_refine else ''}), CPU from the card's inputs "
         f"vs the card: worst max|diff|/max "
-        f"{out['conv']:.3g} ({worst_conv}; limit {TRAIN_REF_TOL['conv']})")
+        f"{out['conv']:.3g} ({worst_conv}; limit {TRAIN_REF_TOL['conv']}); "
+        f"the codebook's logits "
+        f"{max(v for k, v in conv_reads.items() if 'quantize' in k):.3g}")
     for group in ("denoiser", "synthesis", "rate"):
         keys = [k for k in reads if train_ref_group(k) == group]
         worst = sorted(keys, key=reads.get, reverse=True)[:3]
@@ -624,8 +659,8 @@ def train_launches_per_step(model) -> dict:
     per sampler step (refine); each of its flash self-attentions runs the
     forward with lse (twice when the blocks are recomputed in the backward
     or the sampler step is), dq and dkv once; each GroupNorm32 call is one
-    forward launch (again when its block or step is recomputed) and two
-    backward launches. The VAE encoder's mid-block attention runs the plain
+    forward launch (again when its block or step is recomputed) and one
+    backward launch. The VAE encoder's mid-block attention runs the plain
     forward without grad; in the refine phase the decoder's runs the
     forward with lse (twice with the decoder's use_checkpoint), dq and
     dkv."""
@@ -649,7 +684,7 @@ def train_launches_per_step(model) -> dict:
             "flash_attn_bwd_dkv": calls * n_flash + decoder,
             "group_norm_silu_fwd": calls * (
                 n_gn + ckpt * n_gn_recomputed + step_remat * n_gn),
-            "group_norm_silu_bwd": 2 * calls * n_gn}
+            "group_norm_silu_bwd": calls * n_gn}
 
 
 def phase_training(model, device, seed: int) -> dict:
@@ -730,21 +765,23 @@ def _bound_ms(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_rate(d: int, dtype) -> tuple[float, str]:
-    """(flop/s, its name) that bounds a flash kernel at head dim d. fp32:
-    the TF32 tensor cores over the three passes of 3xTF32 where the kernel
-    runs them (TC_HEAD_DIMS), else fp32 FMA. bf16: the card's bf16 peak,
-    whichever route the kernel takes (its TF32 products could be bf16 ones)."""
-    if dtype == torch.float32 and d in TC_HEAD_DIMS:
+def flash_rate(d: int, dtype, backward: bool = False) -> tuple[float, str]:
+    """(flop/s, its name) that bounds a flash kernel (forward, or dq and
+    dkv when `backward`) at head dim d. fp32: the TF32 tensor cores over the
+    three passes of 3xTF32 where the kernel runs them (TC_HEAD_DIMS), else
+    fp32 FMA. bf16: the card's bf16 peak, whichever route the kernel takes
+    (its TF32 products could be bf16 ones)."""
+    tc = TC_HEAD_DIMS["backward" if backward else "forward"]
+    if dtype == torch.float32 and d in tc:
         return TF32_FLOPS / 3, f"TF32 tensor cores {TF32_FLOPS / 1e12:g} / 3 passes"
     return PEAK_FLOPS[dtype], ("fp32 FMA 67" if dtype == torch.float32
                                else "bf16 989")
 
 
-def _flash_bound_ms(nbytes: float, flops: float, d: int,
-                    dtype) -> tuple[float, str, str]:
+def _flash_bound_ms(nbytes: float, flops: float, d: int, dtype,
+                    backward: bool = False) -> tuple[float, str, str]:
     """bound ms, what bounds it, and the rate used (flash_rate)."""
-    rate, name = flash_rate(d, dtype)
+    rate, name = flash_rate(d, dtype, backward)
     return (*_bound_ms(nbytes, flops, rate), f"{name} = {rate / 1e12:.1f} TFLOP/s")
 
 
@@ -883,7 +920,7 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
     # flops; reads q, k, v, o, dO and lse, writes dq, dk and dv); the dq and
     # dkv kernels each recompute S and dP, so their own bounds add up to 14
     pair_bound, _, _ = _flash_bound_ms(8 * n * size + rows, 10 * ops, d,
-                                       dtype)
+                                       dtype, backward=True)
     lib_bwd_dev, _ = device_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), reps)
     rows_out = {}
@@ -904,7 +941,8 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
              lambda: flash_attention_dkv(q, k, v, do, lse, di),
              6 * n * size + 2 * rows, 8 * ops, plain_bwd, lib_bwd,
              lib_bwd_dev)):
-        bound, by, rate = _flash_bound_ms(nbytes, flops, d, dtype)
+        bound, by, rate = _flash_bound_ms(nbytes, flops, d, dtype,
+                                          name != "flash_attn_fwd_lse")
         rows_out[name] = {**r, "bound_ms": bound, "bound_by": by,
                           "bound_rate": rate,
                           "ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps)[0],
@@ -916,8 +954,10 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
 
 
 def check_groupnorm_bwd(device, key, dtype, reps) -> dict:
-    """The backward kernels against the plain backward on one shape, with
-    SiLU off and on, from the forward kernel's mean and 1/std."""
+    """The backward kernel against the plain backward on one shape, with
+    SiLU off and on, from the forward kernel's mean and 1/std; a second run
+    must give the same bits (the cluster and the batch sums add in a fixed
+    order)."""
     b, c, h, w, groups, _, silu, _ = key
     x = _randn((b, c, h, w), dtype, device, 0) * 3 + 1
     dy = _randn((b, c, h, w), dtype, device, 3)
@@ -927,6 +967,10 @@ def check_groupnorm_bwd(device, key, dtype, reps) -> dict:
     for s in (False, True):
         _, mean, inv = group_norm_fwd(x, wt, bs, groups, 1e-5, s)
         got = group_norm_bwd(x, wt, bs, mean, inv, dy, groups, s)
+        again = group_norm_bwd(x, wt, bs, mean, inv, dy, groups, s)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"group_norm_bwd {key} silu={s} {dtype}: "
+                                 "two runs gave different bits")
         want = group_norm_bwd_plain(x.float(), wt, bs, mean, inv, dy.float(),
                                     groups, s)  # unrounded, as for flash
         reads.append(compare_rel(
@@ -1065,11 +1109,19 @@ def phase_kernels(device, runs) -> list:
                 train_rows["group_norm_silu_bwd"].append(
                     {"shape": list(key),
                      "calls": calls("group_norm_silu_bwd", key), **r})
+    for key in GN_STREAM_KEYS:
+        dtype = getattr(torch, key[7])
+        r = check_groupnorm_bwd(device, key, dtype, reps=3)
+        log(f"[kernels] group_norm_bwd {key} (on no path, streamed): "
+            f"{json.dumps(r)}")
+        if dtype == torch.float32:
+            train_rows["group_norm_silu_bwd"].append(
+                {"shape": list(key), "calls": {}, **r})
 
     flash_src = "rdeic_torch/csrc/flash_attn_fwd.cu"
     bwd_src = "rdeic_torch/csrc/flash_attn_bwd.cu"
     gn_src = "rdeic_torch/csrc/group_norm_fwd.cu"
-    gn_bwd_src = "rdeic_torch/ops/fused_groupnorm.py"
+    gn_bwd_src = "rdeic_torch/csrc/group_norm_bwd.cu"
     lines = [
         summarize("flash_attn_fwd", "cuda", flash_src,
                   "rdeic_tpu/ops/flash_attention.py:32", "serve", runs,
@@ -1086,7 +1138,7 @@ def phase_kernels(device, runs) -> list:
         summarize("group_norm_silu_fwd", "cuda", gn_src,
                   "rdeic_tpu/ops/fused_groupnorm.py:116", "serve", runs,
                   gn_rows),
-        summarize("group_norm_silu_bwd", "triton", gn_bwd_src,
+        summarize("group_norm_silu_bwd", "cuda", gn_bwd_src,
                   "rdeic_tpu/ops/fused_groupnorm.py:144", "refine", runs,
                   train_rows["group_norm_silu_bwd"]),
     ]
@@ -1114,6 +1166,23 @@ def phase_kernels(device, runs) -> list:
         f"{gn['device_ms']:.3f}, host {host_us / n_calls:.1f} us a call; "
         f"F.group_norm + F.silu ms {gn['library_ms']:.3f}, device_ms "
         f"{gn['library_device_ms']:.3f}, host {lib_us / n_calls:.1f} us a call")
+    gn_bwd = train_rows["group_norm_silu_bwd"]
+    for path in ("refine", "train"):
+        per = {key: sum(r[key] * r["calls"].get(path, 0) for r in gn_bwd)
+               for key in ("ms", "device_ms", "host_us", "library_ms",
+                           "library_device_ms", "library_host_us",
+                           "bound_ms")}
+        n_calls = sum(r["calls"].get(path, 0) for r in gn_bwd)
+        launches = (runs[path]["launches"]["group_norm_silu_bwd"]
+                    / runs[path]["steps"])
+        log(f"[kernels] GroupNorm backward per {path} micro-step "
+            f"({n_calls:g} calls, {launches:g} launches): kernel ms "
+            f"{per['ms']:.3f}, device_ms {per['device_ms']:.3f}, host "
+            f"{per['host_us'] / n_calls:.1f} us a call; autograd through "
+            f"F.group_norm (+ F.silu) ms {per['library_ms']:.3f}, device_ms "
+            f"{per['library_device_ms']:.3f}, host "
+            f"{per['library_host_us'] / n_calls:.1f} us a call; bound "
+            f"{per['bound_ms']:.3f} ms")
     for d in (16, 64, 512):
         per = {key: sum(r[key] * r["calls"].get("serve", 0) for r in flash_rows
                         if r["shape"][3] == d)

@@ -1,13 +1,14 @@
 """Builds the port's native code at first use, from the sources in the package.
 
-Four shared libraries, each with a plain C interface loaded through ctypes:
+Five shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``flash_attn_fwd`` and ``flash_attn_bwd``: ``csrc/flash_attn_{fwd,bwd}.cu``
   (with ``csrc/flash_common.cuh`` and ``csrc/flash_mma.cuh``), compiled by
   ``nvcc`` for ``sm_90a``
   (only where the CUDA toolkit is installed);
-- ``group_norm_fwd``: ``csrc/group_norm_fwd.cu``, the cluster-launched
-  GroupNorm(+SiLU) forward, by ``nvcc`` for ``sm_90a`` likewise;
+- ``group_norm_fwd`` and ``group_norm_bwd``: ``csrc/group_norm_{fwd,bwd}.cu``
+  (with ``csrc/group_norm_common.cuh``), the cluster-launched GroupNorm(+SiLU)
+  forward and backward, by ``nvcc`` for ``sm_90a`` likewise;
 - ``rans``: ``entropy/csrc/rans.cpp``, the host rANS coder, compiled by g++.
 
 Each library lands in ``_build/`` under a name that hashes its source, the
@@ -31,6 +32,8 @@ FLASH_BWD_SRC = PACKAGE / "csrc" / "flash_attn_bwd.cu"
 FLASH_HEADERS = (PACKAGE / "csrc" / "flash_common.cuh",
                  PACKAGE / "csrc" / "flash_mma.cuh")
 GROUP_NORM_SRC = PACKAGE / "csrc" / "group_norm_fwd.cu"
+GROUP_NORM_BWD_SRC = PACKAGE / "csrc" / "group_norm_bwd.cu"
+GROUP_NORM_HEADERS = (PACKAGE / "csrc" / "group_norm_common.cuh",)
 RANS_SRC = PACKAGE / "entropy" / "csrc" / "rans.cpp"
 
 
@@ -88,7 +91,13 @@ def build_flash_bwd() -> Path:
 
 
 def build_group_norm() -> Path:
-    return _build(GROUP_NORM_SRC, "group_norm_fwd", _nvcc_cmd())
+    return _build(GROUP_NORM_SRC, "group_norm_fwd", _nvcc_cmd(),
+                  GROUP_NORM_HEADERS)
+
+
+def build_group_norm_bwd() -> Path:
+    return _build(GROUP_NORM_BWD_SRC, "group_norm_bwd", _nvcc_cmd(),
+                  GROUP_NORM_HEADERS)
 
 
 def build_rans() -> Path:
@@ -99,7 +108,8 @@ def build_rans() -> Path:
 def build_all() -> dict[str, Path]:
     """Start every build at once and wait for all of them."""
     builds = {"flash_attn_fwd": build_flash, "flash_attn_bwd": build_flash_bwd,
-              "group_norm_fwd": build_group_norm, "rans": build_rans}
+              "group_norm_fwd": build_group_norm,
+              "group_norm_bwd": build_group_norm_bwd, "rans": build_rans}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builds.items()}
         return {name: fut.result() for name, fut in futures.items()}

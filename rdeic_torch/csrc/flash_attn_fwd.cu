@@ -17,14 +17,36 @@
 // Design: one block owns one (b*h, q-tile) pair and loops over the K/V tiles
 // itself (the TPU kernel's sequential k grid axis becomes this loop).
 //
-// d = 16 (the control branch's attention) runs the FMA template,
-// flash_fwd_kernel: the Q tile and one K/V tile live in shared memory as
-// fp32, with rows padded by one float so that the column walks are free of
-// bank conflicts. Each thread holds an SM x SN patch of the score tile and a
-// TM x TN patch of the output accumulator in registers; the threads that
-// share a score row sit in one warp, so the row max and row sum are warp
-// shuffles. P goes through shared memory to the output threads. The
-// arithmetic is plain fp32 FMA; at d = 16 it is ahead of SDPA.
+// d = 16 (the control branch's attention: [1, 6144, 4, 16] and
+// [1, 1536, 8, 16] per denoiser call at 768x512, [2, 4096, 4, 16] and
+// [2, 1024, 8, 16] with lse in training) runs flash_fwd_d16 on the tensor
+// cores, shaped as flash_fwd_d64 with the 3xTF32 split of flash_mma.cuh:
+// - 64-row q tiles of 4 warps, 16 q rows a warp, scores, running max and
+//   sum and the 16 x 16 output in registers, row reductions as quad
+//   shuffles, Q split once into big and small A fragments (2 k-steps x 4
+//   registers x 2). A second set of 4 warps takes the other half of every
+//   128-key tile for the same rows (8 warps a block), and the two halves
+//   merge their (max, sum, output) through shared memory at the end: the
+//   short serving shape [1, 1536, 8, 16] has only 192 tiles of 64 rows for
+//   132 SMs, and the halves double the warps in flight at every shape.
+// - K and V: 128-key tiles (64 bytes a row in fp32) double-buffered by
+//   cp.async, zero-filled past L, row stride 20 floats: the ldmatrix
+//   phases of Q and K and V's row-pair reads (rows 2t, 2t + 1) all hit 32
+//   banks without a swizzle.
+// - P as A: the permuted k order of flash_fwd_d64, so S's C fragment is
+//   P V's A fragment without a shuffle.
+// - At d = 16 the softmax is no longer small beside the products: per 16
+//   rows x 8 keys a warp issues 12 mma (6 for S, 6 for P V; bf16: 2 + 4)
+//   against 128 exponentials and ~14 fp32-pipe operations a score (max,
+//   exponential, sum, the splits of K, V and P). So log2(e) is folded into
+//   the scale and the exponential is one exp2f of one fmaf (max(s) * c is
+//   the row max of the scaled scores, c > 0), and lse is m ln 2 + ln l.
+// - mma.sync rounds the sum it returns toward zero: each tile's P V sums
+//   from zero into a partial that joins the rescaled accumulator in fp32,
+//   so the error does not grow with L.
+// - Grid (q tiles, b*h), two blocks of 45 KB and 256 threads per SM:
+//   [1, 1536, 8, 16] gives 192 blocks for 264 slots (one wave),
+//   [1, 6144, 4, 16] 384.
 //
 // d = 64 (the UNet's attention: [1, 6144, 5, 64] and [1, 1536, 10, 64] per
 // denoiser call at 768x512, [2, 4096, 5, 64] and [2, 1024, 10, 64] with lse
@@ -90,195 +112,17 @@
 // instruction), and one block of 8 warps per SM to hide their latency.
 //
 // Bound on the H100: 4*L^2*D*H*B flops (S and P V) and 4*B*L*H*D elements
-// of traffic. d = 16 runs fp32 FMA at 67 TFLOP/s; d = 64 and 512 run
-// 3xTF32 on the tensor cores, three TF32 products for each fp32 one, so
-// their rate is 494.7 / 3 = 165 TFLOP/s (bf16: one or two passes). At the
-// main path's L = 1536..6144 the flops bound every shape, by two to three
-// orders of magnitude.
+// of traffic. Every head dim runs 3xTF32 on the tensor cores, three TF32
+// products for each fp32 one, so the rate is 494.7 / 3 = 165 TFLOP/s (bf16:
+// one or two passes). At the main path's L = 1536..6144 the flops bound
+// every shape, by one to three orders of magnitude.
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
 namespace {
 
-using rdeic_flash::from_f32;
 using rdeic_flash::kNegInf;
-using rdeic_flash::load_f32;
-
-// D: head dim. BQ/BK: q and k tile rows. NT: threads.
-// SM x SN: score patch per thread; TM x TN: output patch per thread.
-template <int D, int BQ, int BK, int NT, int SM, int SN, int TM, int TN>
-struct Tile {
-  static constexpr int SX = BK / SN;  // threads across a score row
-  static constexpr int SY = BQ / SM;
-  static constexpr int OX = D / TN;   // threads across an output row
-  static constexpr int OY = BQ / TM;
-  static constexpr int QS = D + 1;    // padded row stride of Q and K
-  static constexpr int PS = BK + 1;   // padded row stride of P
-  static constexpr int kSmemFloats =
-      BQ * QS + BK * QS + BK * D + BQ * PS + 2 * BQ;
-  static_assert(SX * SY == NT, "score tiling must cover the threads");
-  static_assert(OX * OY == NT, "output tiling must cover the threads");
-  static_assert(SX <= 32 && (32 % SX) == 0, "a score row lives in one warp");
-  static_assert(kSmemFloats * 4 <= 232448, "shared memory per block");
-};
-
-template <typename T, int D, int BQ, int BK, int NT, int SM, int SN, int TM,
-          int TN>
-__global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int L, int H, float scale) {
-  using C = Tile<D, BQ, BK, NT, SM, SN, TM, TN>;
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [BQ][QS], pre-scaled
-  float* ks = qs + BQ * C::QS;        // [BK][QS]
-  float* vs = ks + BK * C::QS;        // [BK][D]
-  float* ps = vs + BK * D;            // [BQ][PS]
-  float* alpha_s = ps + BQ * C::PS;   // [BQ] rescale of this tile
-  float* l_s = alpha_s + BQ;          // [BQ] running denominator
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int64_t row = static_cast<int64_t>(H) * D;  // stride between tokens
-  const int64_t base = static_cast<int64_t>(b) * L * row +
-                       static_cast<int64_t>(h) * D;
-  const T* qb = q + base;
-  const T* kb = k + base;
-  const T* vb = v + base;
-  T* ob = o + base;
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i % D;
-    float x = 0.f;
-    if (q0 + r < L) x = load_f32(qb + (q0 + r) * row + d) * scale;
-    qs[r * C::QS + d] = x;
-  }
-
-  const int sx = tid % C::SX, sy = tid / C::SX;
-  const int ox = tid % C::OX, oy = tid / C::OX;
-
-  float m_run[SM], l_run[SM];
-#pragma unroll
-  for (int i = 0; i < SM; ++i) {
-    m_run[i] = kNegInf;
-    l_run[i] = 0.f;
-  }
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int n = 0; n < TN; ++n) acc[i][n] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();  // the previous tile's P V is done with ks/vs/ps
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, d = i % D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + r < L) {
-        kx = load_f32(kb + (k0 + r) * row + d);
-        vx = load_f32(vb + (k0 + r) * row + d);
-      }
-      ks[r * C::QS + d] = kx;
-      vs[r * D + d] = vx;
-    }
-    __syncthreads();
-
-    float s[SM][SN];
-#pragma unroll
-    for (int i = 0; i < SM; ++i)
-#pragma unroll
-      for (int j = 0; j < SN; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[SM], kv[SN];
-#pragma unroll
-      for (int i = 0; i < SM; ++i) qv[i] = qs[(sy + i * C::SY) * C::QS + d];
-#pragma unroll
-      for (int j = 0; j < SN; ++j) kv[j] = ks[(sx + j * C::SX) * C::QS + d];
-#pragma unroll
-      for (int i = 0; i < SM; ++i)
-#pragma unroll
-        for (int j = 0; j < SN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < SM; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        if (k0 + sx + j * C::SX >= L) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = C::SX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = C::SX / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m_run[i] - m_new);
-      l_run[i] = l_run[i] * alpha + sum;
-      m_run[i] = m_new;
-      const int r = sy + i * C::SY;
-#pragma unroll
-      for (int j = 0; j < SN; ++j) ps[r * C::PS + sx + j * C::SX] = s[i][j];
-      if (sx == 0) {
-        alpha_s[r] = alpha;
-        l_s[r] = l_run[i];
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float a = alpha_s[oy + i * C::OY];
-#pragma unroll
-      for (int n = 0; n < TN; ++n) acc[i][n] *= a;
-    }
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[TM], vv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) pv[i] = ps[(oy + i * C::OY) * C::PS + j];
-#pragma unroll
-      for (int n = 0; n < TN; ++n) vv[n] = vs[j * D + ox + n * C::OX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int n = 0; n < TN; ++n) acc[i][n] = fmaf(pv[i], vv[n], acc[i][n]);
-    }
-  }
-  __syncthreads();
-
-  if (lse != nullptr && sx == 0) {
-#pragma unroll
-    for (int i = 0; i < SM; ++i) {
-      const int r = sy + i * C::SY;
-      if (q0 + r < L)
-        lse[static_cast<int64_t>(blockIdx.y) * L + q0 + r] =
-            m_run[i] + logf(fmaxf(l_run[i], 1e-30f));
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = oy + i * C::OY;
-    if (q0 + r >= L) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-    for (int n = 0; n < TN; ++n)
-      ob[(q0 + r) * row + ox + n * C::OX] = from_f32<T>(acc[i][n] / l);
-  }
-}
 
 // d = 512 on the tensor cores (header). One block: (q tile blockIdx.x,
 // b*h blockIdx.y), 256 threads.
@@ -631,31 +475,253 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace d64
 
-template <typename T, int D, int BQ, int BK, int NT, int SM, int SN, int TM,
-          int TN>
+// d = 16 on the tensor cores (header). One block: (64-row q tile
+// blockIdx.x, b*h blockIdx.y), 8 warps: warp w takes q rows 16 (w & 3).. of
+// the tile and keys 64 (w >> 2).. of every 128-key tile.
+namespace d16 {
+
+constexpr int D = 16, BQ = 64, BK = 128, HK = BK / 2, NT = 256;
+constexpr int S = D + 4;  // Q, K and V tiles: 20 mod 32 banks (header)
+constexpr int kSmemFloats = BQ * S + 2 * 2 * BK * S;
+constexpr int kMergeFloats = 4 * 32 * 12;  // a lane's state of key half 1
+static_assert(kMergeFloats <= 2 * BK * S, "the merge reuses the K tiles");
+static_assert(2 * kSmemFloats * 4 <= 232448, "two blocks per SM");
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+    flash_fwd_d16(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o,
+                  float* __restrict__ lse, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  constexpr bool kSplit = sizeof(T) == 4;  // bf16 operands are exact in TF32
+  extern __shared__ __align__(16) float smem_d16[];
+  float* qs = smem_d16;          // [BQ][S]
+  float* ks = qs + BQ * S;       // [2 buffers][BK][S]
+  float* vs = ks + 2 * BK * S;   // [2 buffers][BK][S]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp & 3, half = warp >> 2;  // q rows 16 rw.., key half
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const T* kb = k + base;
+  const T* vb = v + base;
+  const float c = scale * kLog2e;  // scores in log2 units, for exp2f
+
+  load_rows<T, BQ, D, NT, S, false>(qs, q + base, q0, L, row);
+  load_rows<T, BK, D, NT, S, false>(ks, kb, 0, L, row);
+  load_rows<T, BK, D, NT, S, false>(vs, vb, 0, L, row);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's 16 q rows as A fragments for the whole K loop, split once
+  uint32_t qb[D / 8][4], qsm[D / 8][4];
+  {
+    const RowA<S, false> ra(qs, rw * 16, 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float a[1][4];
+      ra.load(a, kk * 8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split<kSplit>(a[0][i], qb[kk][i], qsm[kk][i]);
+    }
+  }
+
+  // rows g (r = 0) and g + 8 (r = 1) of the warp's 16, over its key half
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float acc[D / 8][4];  // O[16 rows][16]: n-tile n holds columns 8 n..
+  zero(acc);
+  const int nk = (L + BK - 1) / BK;
+  for (int j = 0; j < nk; ++j) {
+    const int cur = j & 1, k0 = j * BK + half * HK;  // this warp's first key
+    if (j + 1 < nk) {  // the next pair lands while this one is used
+      load_rows<T, BK, D, NT, S, false>(ks + (cur ^ 1) * BK * S, kb,
+                                        (j + 1) * BK, L, row);
+      load_rows<T, BK, D, NT, S, false>(vs + (cur ^ 1) * BK * S, vb,
+                                        (j + 1) * BK, L, row);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this pair (the next may be in flight)
+    __syncthreads();
+    if (k0 < L) {  // a key half wholly past L has nothing to add
+      const float* kt = ks + (cur * BK + half * HK) * S;
+      const float* vt = vs + (cur * BK + half * HK) * S;
+
+      // S = Q K^T, 16 x 64: n-tile n holds keys k0 + 8 n..
+      float s[HK / 8][4];
+      zero(s);
+      {
+        const RowB<S, false> rb(kt, 0, 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          float bf[HK / 8][2];
+          rb.load(bf, kk * 8);
+#pragma unroll
+          for (int n = 0; n < HK / 8; ++n) {
+            uint32_t bb[2], bs[2];
+            split<kSplit>(bf[n][0], bb[0], bs[0]);
+            split<kSplit>(bf[n][1], bb[1], bs[1]);
+            if (kSplit) mma_tf32(s[n], qsm[kk], bb);
+            if (kSplit) mma_tf32(s[n], qb[kk], bs);
+            mma_tf32(s[n], qb[kk], bb);
+          }
+        }
+      }
+      if (k0 + HK > L) {  // the K tail: its scores are masked to -1e30
+#pragma unroll
+        for (int n = 0; n < HK / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (k0 + 8 * n + 2 * t + (i & 1) >= L) s[n][i] = kNegInf;
+      }
+
+      // online softmax of rows g and g + 8 in log2 units: x = s * c - m,
+      // p = 2^x; a row's 16 values a lane sit in the lane's quad, so the row
+      // max and sum are two shuffles. c > 0, so max(s) * c is the max of
+      // the scaled scores.
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < HK / 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[r], mx * c);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < HK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[n][2 * r + e];
+            x = exp2f(fmaf(x, c, -m_new));
+            sum += x;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        alpha[r] = exp2f(m_run[r] - m_new);
+        l_run[r] = l_run[r] * alpha[r] + sum;
+        m_run[r] = m_new;
+      }
+
+      // P V of this tile, from zero: mma.sync rounds its sum toward zero,
+      // so the tile's 8 steps land in a partial that is added to the
+      // rescaled accumulator in fp32, which keeps the error flat in L. The
+      // k order inside each 8 keys is permuted (slot t is key 2t, slot
+      // t + 4 key 2t + 1), so P's C fragment is its A fragment as it
+      // stands (a0..a3 = c0, c2, c1, c3), and V's B fragment reads rows 2t
+      // and 2t + 1 (stride S: the 32 lanes hit 32 banks).
+      float pv[D / 8][4];
+      zero(pv);
+#pragma unroll
+      for (int kk = 0; kk < HK / 8; ++kk) {
+        uint32_t pb[4], ps[4];
+        split<true>(s[kk][0], pb[0], ps[0]);
+        split<true>(s[kk][2], pb[1], ps[1]);
+        split<true>(s[kk][1], pb[2], ps[2]);
+        split<true>(s[kk][3], pb[3], ps[3]);
+        const float* v0 = vt + (8 * kk + 2 * t) * S + g;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          uint32_t bb[2], bs[2];
+          split<kSplit>(v0[8 * n], bb[0], bs[0]);
+          split<kSplit>(v0[S + 8 * n], bb[1], bs[1]);
+          mma_tf32(pv[n], ps, bb);
+          if (kSplit) mma_tf32(pv[n], pb, bs);
+          mma_tf32(pv[n], pb, bb);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[n][i] = fmaf(acc[n][i], alpha[i >> 1], pv[n][i]);
+    }
+    __syncthreads();  // every warp is done with this pair before its refill
+  }
+  cp_async_wait<0>();
+
+  // key half 1 hands its (m, l, O) to half 0 through the K tiles, lane by
+  // lane; half 0 merges the two and writes the rows
+  float* mine = ks + (rw * 32 + lane) * 12;
+  if (half == 1) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float4*>(mine + 4 * n) =
+          make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+    *reinterpret_cast<float4*>(mine + 8) =
+        make_float4(m_run[0], m_run[1], l_run[0], l_run[1]);
+  }
+  __syncthreads();
+  if (half == 1) return;
+  const float4 ml = *reinterpret_cast<const float4*>(mine + 8);
+  const float m_other[2] = {ml.x, ml.y}, l_other[2] = {ml.z, ml.w};
+  float a_self[2], a_other[2], l_tot[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m = fmaxf(m_run[r], m_other[r]);
+    a_self[r] = exp2f(m_run[r] - m);
+    a_other[r] = exp2f(m_other[r] - m);
+    l_tot[r] = l_run[r] * a_self[r] + l_other[r] * a_other[r];
+    m_run[r] = m;
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const float4 x = *reinterpret_cast<const float4*>(mine + 4 * n);
+    const float other[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      acc[n][i] = acc[n][i] * a_self[i >> 1] + other[i] * a_other[i >> 1];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = q0 + rw * 16 + g + 8 * r;
+    if (rr >= L) continue;
+    const float l = fmaxf(l_tot[r], 1e-30f);
+    if (lse != nullptr && t == 0)
+      lse[static_cast<int64_t>(blockIdx.y) * L + rr] =
+          m_run[r] * kLn2 + logf(l);
+    const float inv = 1.f / l;
+    T* out = o + base + rr * row + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2<T>(out + 8 * n, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+  }
+}
+
+template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int L, int H, float scale,
                    cudaStream_t stream) {
-  using C = Tile<D, BQ, BK, NT, SM, SN, TM, TN>;
-  auto kernel = flash_fwd_kernel<T, D, BQ, BK, NT, SM, SN, TM, TN>;
-  const int smem = C::kSmemFloats * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
+  if (err != cudaSuccess) return err;
+  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(flash_fwd_d16<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NT, smem, stream>>>(
+  flash_fwd_d16<T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, L, H, scale);
   return cudaGetLastError();
 }
+
+}  // namespace d16
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              int B, int L, int H, int D, float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16, 64, 64, 128, 8, 4, 8, 1>(q, k, v, o, lse, B, L, H,
-                                                     scale, stream);
+      return d16::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
     case 64:
       return d64::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
     case 512:

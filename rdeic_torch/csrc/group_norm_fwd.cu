@@ -11,7 +11,7 @@
 // Layout: x and y are contiguous NCHW, fp32 or bf16; one (b, g) span is the
 // C/G * H * W contiguous elements of one group of one image. scale and bias
 // are [C], fp32 or bf16. mean and inv, when given, are (B, G) fp32: the
-// backward (the Triton pair in ops/fused_groupnorm.py) rebuilds x_hat from
+// backward (group_norm_bwd.cu) rebuilds x_hat from
 // them. The serving call passes null and skips the store.
 //
 // Design: one thread-block cluster per span, launched with
@@ -46,117 +46,18 @@
 // At the path's shapes (0.0001-0.019 ms of bytes) a call is bound by its
 // launch; the host path in ops/fused_groupnorm.py is one ctypes call.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <initializer_list>
 
+#include "group_norm_common.cuh"
+
 namespace {
+
+using namespace rdeic_gn;
 
 constexpr int kMaxThreads = 512;
 // floats ahead of the slice in dynamic shared memory: [2][32] warp partials
 // and this CTA's (sum, sum of squares); ops/fused_groupnorm.py SCRATCH_BYTES
 constexpr int kScratchFloats = 80;
-constexpr int kMaxCluster = 8;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);  // round to nearest even, as torch's cast
-}
-
-// 16 bytes as fp32 values: 4 fp32, or 8 bf16 (a bf16 is the top half of an
-// fp32, so widening is a shift)
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ static void unpack(const uint4& u, float (&f)[N]) {
-    f[0] = __uint_as_float(u.x), f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z), f[3] = __uint_as_float(u.w);
-  }
-  __device__ static uint4 pack(const float (&f)[N]) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void unpack(const uint4& u, float (&f)[N]) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  __device__ static uint32_t pack2(float lo, float hi) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  }
-  __device__ static uint4 pack(const float (&f)[N]) {
-    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]),
-                      pack2(f[4], f[5]), pack2(f[6], f[7]));
-  }
-};
-
-// Thread-block cluster primitives (PTX, sm_90): this CTA's rank and the
-// cluster's size, a barrier over every thread of the cluster (release /
-// acquire, so shared-memory stores before it are seen by loads after it),
-// and a load of two floats from another CTA's shared memory.
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return static_cast<int>(r);
-}
-__device__ __forceinline__ int cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return static_cast<int>(r);
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.aligned;\n"
-      "barrier.cluster.wait.aligned;\n" ::
-          : "memory");
-}
-__device__ __forceinline__ float2 load_remote2(const float* local, int rank) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(local));
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(a), "r"(rank));
-  float x, y;
-  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
-               : "=f"(x), "=f"(y)
-               : "r"(remote)
-               : "memory");
-  return make_float2(x, y);
-}
-
-__device__ __forceinline__ float load_param(const void* p, int c, int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[c])
-              : static_cast<const float*>(p)[c];
-}
 
 __device__ __forceinline__ float silu_f(float y) {
   return y / (1.f + expf(-y));  // y * sigmoid(y); -0 where expf overflows
@@ -373,8 +274,8 @@ enum Arg {
 int rdeic_group_norm_fwd(const void* x, void* y, const void* gamma,
                          const void* beta, void* mean, void* inv,
                          const int* a, float eps, void* stream) {
-  if (a[kCluster] < 1 || a[kCluster] > kMaxCluster || a[kThreads] < 32 ||
-      a[kThreads] > kMaxThreads || a[kThreads] % 32 != 0 ||
+  if (a[kCluster] < 1 || a[kCluster] > rdeic_gn::kMaxCluster ||
+      a[kThreads] < 32 || a[kThreads] > kMaxThreads || a[kThreads] % 32 != 0 ||
       a[kSmem] < kScratchFloats * 4 || (mean == nullptr) != (inv == nullptr) ||
       static_cast<int64_t>(a[kCluster]) * a[kChunk] < a[kSpan] ||
       (a[kParamDtype] != 0 && a[kParamDtype] != 1))

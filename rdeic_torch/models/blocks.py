@@ -63,7 +63,7 @@ class GroupNorm32(nn.Module):
     """GroupNorm with fp32 statistics and the input dtype on output, groups =
     the largest divisor of C that is <= 32, optionally fused with the SiLU
     that follows it. Every call goes through ops.fused_groupnorm (on the
-    card, the CUDA forward kernel and, under autograd, the Triton
+    card, the CUDA forward kernel and, under autograd, the CUDA
     backward)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, silu: bool = False):

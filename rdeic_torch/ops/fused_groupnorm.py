@@ -7,36 +7,37 @@ pair ``_gn_csum_kernel`` + ``_gn_affine_kernel`` (``_run_fwd_chunked``)
 become one CUDA kernel, ``rdeic_torch/csrc/group_norm_fwd.cu``; the backward
 ``_gn_bwd_kernel`` (whole slab, ``_group_norm_bwd``) and the chunked pair
 ``_gn_bstat_kernel`` + ``_gn_bdx_kernel`` (``_run_bwd_chunked``) become one
-Triton moments + dx pair. The TPU split between a whole-slab and a chunked
-kernel exists only to fit VMEM; one design serves every shape here.
+CUDA kernel, ``rdeic_torch/csrc/group_norm_bwd.cu``. The TPU split between a
+whole-slab and a chunked kernel exists only to fit VMEM; one design serves
+every shape here. Each .cu file's header has its design.
 
-Forward, one launch (the .cu file's header has the design): one
-thread-block cluster of up to 8 CTAs per (batch, group) span of C/G * H * W
-elements; each CTA sums its slice, the cluster combines the partial
-(sum x, sum x^2) pairs in rank order through distributed shared memory (no
-atomics: the same result on every run), and each CTA writes
-y = x * w + off (w = inv * scale[c], off = bias[c] - mean * w), then SiLU
-when asked, in the input dtype. Under autograd it also stores the span's
-mean and 1/std ((B, G) fp32): the backward rebuilds x_hat from x and these,
-so no second slab is saved. `group_norm_plan` (pure Python, tested on the
-CPU) picks the cluster size, the slices and the shared memory.
+Forward, one launch: one thread-block cluster of up to 8 CTAs per (batch,
+group) span of C/G * H * W elements; each CTA sums its slice, the cluster
+combines the partial (sum x, sum x^2) pairs in rank order through
+distributed shared memory (no atomics: the same result on every run), and
+each CTA writes y = x * w + off (w = inv * scale[c], off = bias[c] - mean *
+w), then SiLU when asked, in the input dtype. Under autograd it also stores
+the span's mean and 1/std ((B, G) fp32): the backward rebuilds x_hat from x
+and these, so no second slab is saved. `group_norm_plan` (pure Python,
+tested on the CPU) picks the cluster size, the slices and the shared memory.
 
-Backward, two launches over (batch, channel) spans of H * W elements, with
-dp = dy through the SiLU when fused (p = x_hat * g + b,
-dp = dy * sigmoid(p) * (1 + p * (1 - sigmoid(p)))):
-
-1. ``_gn_bstat``: grid (B*C, chunks); per-chunk partial sums of dp and
-   dp * x_hat, each in its own slot (no atomics, fixed-order reduce).
-2. small torch reductions, as ``_run_bwd_chunked`` does in jnp: dscale and
-   dbias over the batch, the group moments m1 = mean(dp * g) and
-   m2 = mean(dp * g * x_hat);
-3. ``_gn_bdx``: grid (B*C, chunks); dx = inv * (dp * g - m1 - x_hat * m2).
+Backward, one launch, clusters as the forward's (`group_norm_bwd_plan`),
+with dp = dy through the SiLU when fused (p = x_hat * g + b,
+dp = dy * sigmoid(p) * (1 + p * (1 - sigmoid(p)))): each CTA forms x_hat and
+dp of its slice, keeps them in shared memory, and sums (dp, dp * x_hat) per
+channel; the cluster adds each channel's partials in rank order through
+distributed shared memory and forms the group moments m1 = mean(dp * g) and
+m2 = mean(dp * g * x_hat); each CTA writes dx = inv * (dp * g - m1 - x_hat *
+m2); and the last span of a group to finish sums dscale and dbias over the
+batch in b order (an integer arrival counter picks it; no value is added
+atomically, so every run gives the same bits).
 
 Bound on the H100: memory. The forward must read x and write y
 (2 * numel * itemsize bytes at 3.35 TB/s) and reads x from HBM once where a
 slice fits a CTA's shared memory (every shape of the paths); the backward
 must read x and dy and write dx (3 * numel * itemsize) and reads x and dy
-twice, so it reaches at most two thirds of its bound.
+once where a slice is resident (every shape of the training paths), twice
+where the span streams.
 """
 from __future__ import annotations
 
@@ -48,7 +49,6 @@ import torch
 
 from rdeic_torch import build
 
-BLOCK = 4096  # elements of one span a backward program handles
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtypes
 _DTYPES = tuple(_DTYPE_CODES)
 # The forward kernel's launch plan (csrc/group_norm_fwd.cu)
@@ -57,6 +57,11 @@ SCRATCH_BYTES = 320  # the kernel's reduction scratch ahead of the slice
 MAX_CLUSTER = 8  # CTAs in a cluster: the portable limit
 CTA_BYTES = 16384  # span bytes per CTA below which the cluster stays smaller
 MAX_THREADS = 512
+# The backward kernel's launch plan (csrc/group_norm_bwd.cu): shared-memory
+# floats ahead of the channel partials, and units (16-byte vectors, or
+# elements) of one phase-1 task
+BWD_HEAD_FLOATS = 72
+BWD_TASK_UNITS = 128
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -130,69 +135,6 @@ def group_norm_bwd_plain(x, weight, bias, mean, inv, dy, groups: int,
             sdp.sum(0).to(bias.dtype))
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_kernels():
-    import triton  # noqa: PLC0415 (absent where there is no card)
-    import triton.language as tl  # noqa: PLC0415
-
-    @triton.jit
-    def _dp_xhat(x_ptr, dy_ptr, mean_ptr, inv_ptr, w_ptr, b_ptr, row, hw,
-                 channels, groups, cg, offs, mask, SILU: tl.constexpr):
-        """(dp, x_hat, inv, gamma, group row) of one chunk of a (b, c) span."""
-        c = row % channels
-        grow = (row // channels) * groups + c // cg
-        mean = tl.load(mean_ptr + grow)
-        inv = tl.load(inv_ptr + grow)
-        gamma = tl.load(w_ptr + c).to(tl.float32)
-        base = row.to(tl.int64) * hw
-        x = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-        dy = tl.load(dy_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-        xhat = (x - mean) * inv
-        if SILU:
-            p = xhat * gamma + tl.load(b_ptr + c).to(tl.float32)
-            sig = tl.sigmoid(p)
-            dp = dy * sig * (1.0 + p * (1.0 - sig))
-        else:
-            dp = dy
-        return dp, xhat, inv, gamma, grow
-
-    @triton.jit
-    def _gn_bstat(x_ptr, dy_ptr, mean_ptr, inv_ptr, w_ptr, b_ptr, part_ptr,
-                  hw, channels, groups, cg, nchunk, SILU: tl.constexpr,
-                  BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        chunk = tl.program_id(1)
-        offs = chunk * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < hw
-        dp, xhat, _, _, _ = _dp_xhat(x_ptr, dy_ptr, mean_ptr, inv_ptr, w_ptr,
-                                     b_ptr, row, hw, channels, groups, cg,
-                                     offs, mask, SILU)
-        dp = tl.where(mask, dp, 0.0)
-        slot = (row * nchunk + chunk) * 2
-        tl.store(part_ptr + slot, tl.sum(dp, axis=0))
-        tl.store(part_ptr + slot + 1, tl.sum(dp * xhat, axis=0))
-
-    @triton.jit
-    def _gn_bdx(x_ptr, dy_ptr, mean_ptr, inv_ptr, w_ptr, b_ptr, m1_ptr,
-                m2_ptr, dx_ptr, hw, channels, groups, cg, SILU: tl.constexpr,
-                BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        chunk = tl.program_id(1)
-        offs = chunk * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < hw
-        dp, xhat, inv, gamma, grow = _dp_xhat(
-            x_ptr, dy_ptr, mean_ptr, inv_ptr, w_ptr, b_ptr, row, hw, channels,
-            groups, cg, offs, mask, SILU)
-        m1 = tl.load(m1_ptr + grow)
-        m2 = tl.load(m2_ptr + grow)
-        dx = inv * (dp * gamma - m1 - xhat * m2)
-        base = row.to(tl.int64) * hw
-        tl.store(dx_ptr + base + offs, dx.to(dx_ptr.dtype.element_ty),
-                 mask=mask)
-
-    return _gn_bstat, _gn_bdx
-
-
 def _check(x, weight, bias, groups, *same_as_x):
     if x.device.type != "cuda":
         raise ValueError(f"group_norm runs on cuda or cpu, not {x.device}")
@@ -225,10 +167,6 @@ def _tally(fn, key, launches: int) -> None:
     """One call of `fn` (`launches` kernel launches), tallied by shape."""
     fn.launches += launches
     fn.shapes[key] = fn.shapes.get(key, 0) + 1
-
-
-def _pow2(n: int) -> int:
-    return 1 << max(0, n - 1).bit_length()
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -355,41 +293,163 @@ def group_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return _launch_fwd(x, weight, bias, groups, eps, silu, stats=True)
 
 
+class GroupNormBwdPlan(NamedTuple):
+    """How the backward kernel covers one (batch, group) span."""
+    span: int  # elements of a span: C/G * H * W
+    cluster: int  # CTAs of the span's cluster (1..MAX_CLUSTER)
+    chunk: int  # span elements a CTA takes (the last CTA may take fewer)
+    threads: int  # threads of a CTA
+    vec: bool  # 16-byte loads and stores
+    resident: bool  # x_hat and dp of the slice stay in shared memory
+    nch: int  # channel partials a CTA has room for
+    tasks: int  # phase-1 tasks (a warp each) a CTA has room for
+    smem_bytes: int  # dynamic shared memory of a CTA
+
+    def slices(self) -> list[tuple[int, int]]:
+        """[lo, hi) of each CTA of a cluster, in rank order."""
+        return [(r * self.chunk, min(self.span, (r + 1) * self.chunk))
+                for r in range(self.cluster)]
+
+
+@functools.lru_cache(maxsize=None)
+def group_norm_bwd_plan(shape: tuple, groups: int, itemsize: int,
+                        aligned: bool = True,
+                        smem_limit: int = SMEM_LIMIT) -> GroupNormBwdPlan:
+    """The backward kernel's launch plan for NCHW `shape` in `groups`.
+
+    As `group_norm_plan`, but a resident slice keeps two fp32 arrays (x_hat
+    and dp, whatever the input dtype), so the cluster grows by one CTA per
+    CTA_BYTES of 8 bytes an element. Ahead of the slice sit the head
+    (BWD_HEAD_FLOATS), the channel partials (2 floats for each channel a
+    slice can touch: at most (chunk - 1) // (H * W) + 2, and no more than
+    C/G) and the task partials (2 floats for each task: BWD_TASK_UNITS
+    units of one channel), rounded up to 16 bytes.
+    """
+    _, c, h, w = shape
+    hw = h * w
+    cg = c // groups
+    span = cg * hw
+    per_vec = 16 // itemsize
+    vec = aligned and hw % per_vec == 0
+    unit = per_vec if vec else 1
+    cluster = min(MAX_CLUSTER, max(1, _cdiv(span * 8, CTA_BYTES)))
+    chunk = _cdiv(_cdiv(span, cluster), unit) * unit
+    cluster = _cdiv(span, chunk)  # no CTA without elements
+    nch = min(cg, (chunk - 1) // hw + 2)
+    tasks = nch * _cdiv(hw // unit, BWD_TASK_UNITS)
+    head = _cdiv(BWD_HEAD_FLOATS + 2 * nch + 2 * tasks, 4) * 4
+    resident = 4 * (head + 2 * chunk) <= smem_limit
+    smem = 4 * (head + (2 * chunk if resident else 0))
+    threads = min(MAX_THREADS, max(128, _cdiv(chunk // unit, 128) * 32))
+    return GroupNormBwdPlan(span, cluster, chunk, threads, vec, resident, nch,
+                            tasks, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build.build_group_norm_bwd()))
+    vp = ctypes.c_void_p
+    lib.rdeic_group_norm_bwd.restype = ctypes.c_int
+    lib.rdeic_group_norm_bwd.argtypes = [vp] * 11 + [
+        ctypes.POINTER(ctypes.c_int), vp]
+    lib.rdeic_group_norm_bwd_error_string.restype = ctypes.c_char_p
+    lib.rdeic_group_norm_bwd_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_args(shape, groups, dtype, weight_dtype, bias_dtype, silu, aligned,
+              plan=None):
+    """(the launch's integers as a C int array, the tally key) for one call
+    signature, built once, as `_fwd_args`. `plan` defaults to
+    `group_norm_bwd_plan`."""
+    if weight_dtype != bias_dtype or weight_dtype not in _DTYPE_CODES:
+        raise ValueError("group_norm weight and bias must share fp32 or bf16, "
+                         f"got {weight_dtype} and {bias_dtype}")
+    b, c, h, w = shape
+    if plan is None:
+        plan = group_norm_bwd_plan(tuple(shape), groups, dtype.itemsize,
+                                   aligned)
+    if max(plan.span, b * groups * plan.cluster, b * c * 2) >= 2 ** 31:
+        raise ValueError(f"group_norm takes spans and grids < 2^31, got "
+                         f"{shape} in {groups} groups")
+    ints = (b * groups, plan.span, h * w, c // groups, groups, c, b,
+            plan.cluster, plan.chunk, plan.threads, plan.smem_bytes,
+            plan.resident, plan.vec, plan.nch, silu, _DTYPE_CODES[dtype],
+            _DTYPE_CODES[weight_dtype])
+    key = _shape_key(shape, dtype, groups, None, silu)
+    return (ctypes.c_int * len(ints))(*ints), key
+
+
+_SCRATCH: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(device: torch.device, groups: int, nsums: int):
+    """The backward kernel's scratch on `device`: per-group arrival counters
+    (int32 zeros; a launch leaves them at zero for the next) and `nsums`
+    fp32 of per-(b, c) sums, made once and grown when a call needs more.
+    The launches that share them are ordered on one stream."""
+    arrivals, sums = _SCRATCH.get(device.index, (None, None))
+    if arrivals is None or arrivals.numel() < groups:
+        arrivals = torch.zeros(max(groups, 32), device=device,
+                               dtype=torch.int32)
+    if sums is None or sums.numel() < nsums:
+        sums = torch.empty(max(nsums, 1 << 16), device=device,
+                           dtype=torch.float32)
+    _SCRATCH[device.index] = arrivals, sums
+    return arrivals, sums
+
+
+def _launch_bwd(x, weight, bias, mean, inv, dy, groups, silu,
+                plan: GroupNormBwdPlan | None = None):
+    """One launch of the backward kernel: (dx, dscale, dbias). `plan`
+    defaults to `group_norm_bwd_plan` of x."""
+    _check(x, weight, bias, groups, dy)
+    b, c = x.shape[:2]
+    for t in (mean, inv):
+        if (t.shape != (b, groups) or t.dtype != torch.float32
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"mean and inv must be contiguous fp32 (B, G) = "
+                             f"{(b, groups)} on {x.device}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    index = x.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch_bwd(x, weight, bias, mean, inv, dy, groups, silu,
+                               plan)
+    dx = torch.empty_like(x)
+    dsb = torch.empty((2, c), device=x.device, dtype=weight.dtype)
+    dscale, dbias = dsb.unbind(0)
+    if x.numel() == 0:
+        return dx, dscale.zero_(), dbias.zero_()
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    args, key = _bwd_args(x.shape, groups, x.dtype, weight.dtype, bias.dtype,
+                          bool(silu), aligned, plan)
+    arrivals, sums = _scratch(x.device, groups, 2 * b * c)
+    lib = _bwd_library()
+    ptr = dsb.data_ptr()
+    err = lib.rdeic_group_norm_bwd(
+        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        mean.data_ptr(), inv.data_ptr(), dx.data_ptr(), ptr,
+        ptr + c * dsb.element_size(), sums.data_ptr(), arrivals.data_ptr(),
+        args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        msg = (lib.rdeic_group_norm_bwd_error_string(err).decode() if err > 0
+               else "unsupported plan or dtype")
+        raise RuntimeError(f"group_norm_bwd launch failed: {msg}")
+    _tally(group_norm_bwd, key, 1)
+    return dx, dscale, dbias
+
+
 def group_norm_bwd(x, weight, bias, mean, inv, dy, groups: int,
                    silu: bool = False):
-    """(dx, dscale, dbias). CUDA tensors launch the moments and dx kernels
-    (two launches, counted in `group_norm_bwd.launches`) around small torch
-    reductions; CPU tensors take the plain version."""
+    """(dx, dscale, dbias) from the forward's (B, G) fp32 mean and 1/std.
+    CUDA tensors launch the backward kernel once (counted in
+    `group_norm_bwd.launches`); CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return group_norm_bwd_plain(x, weight, bias, mean, inv, dy, groups,
                                     silu)
-    _check(x, weight, bias, groups, dy)
-    b, c, h, w = x.shape
-    if mean.shape != (b, groups) or inv.shape != (b, groups):
-        raise ValueError(f"mean and inv must be (B, G) = {(b, groups)}")
-    hw, cg = h * w, c // groups
-    block = min(BLOCK, max(128, _pow2(hw)))
-    nchunk = -(-hw // block)
-    bstat, bdx = _bwd_kernels()
-    part = torch.empty((b * c, nchunk, 2), device=x.device,
-                       dtype=torch.float32)
-    dx = torch.empty_like(x)
-    grid = (b * c, nchunk)
-    mean, inv = mean.contiguous(), inv.contiguous()
-    with torch.cuda.device(x.device):
-        bstat[grid](x, dy, mean, inv, weight, bias, part, hw, c, groups, cg,
-                    nchunk, SILU=bool(silu), BLOCK=block, num_warps=4)
-        sums = part.sum(dim=1).reshape(b, c, 2)
-        sdp, sdpx = sums[..., 0], sums[..., 1]
-        gc = weight.float()[None]
-        n = float(cg * hw)
-        m1 = ((sdp * gc).reshape(b, groups, cg).sum(-1) / n).contiguous()
-        m2 = ((sdpx * gc).reshape(b, groups, cg).sum(-1) / n).contiguous()
-        bdx[grid](x, dy, mean, inv, weight, bias, m1, m2, dx, hw, c, groups,
-                  cg, SILU=bool(silu), BLOCK=block, num_warps=4)
-    _tally(group_norm_bwd,
-           _shape_key(x.shape, x.dtype, groups, None, silu), 2)
-    return dx, sdpx.sum(0).to(weight.dtype), sdp.sum(0).to(bias.dtype)
+    return _launch_bwd(x, weight, bias, mean, inv, dy, groups, silu)
 
 
 class _GroupNorm(torch.autograd.Function):
@@ -417,10 +477,10 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     CPU tensors take the plain versions; CUDA tensors launch the kernels (or
     raise). `group_norm.launches` counts forward kernel launches (one per
     call) and `group_norm.shapes` tallies calls by (B, C, H, W, groups, eps,
-    silu, dtype); `group_norm_bwd` keeps the same for the backward (two
-    launches per call: moments, then dx; eps is None there). Without
-    autograd the forward runs alone and stores no statistics, which spares
-    the serving path the autograd function's host time and two allocations.
+    silu, dtype); `group_norm_bwd` keeps the same for the backward (one
+    launch per call; eps is None there). Without autograd the forward runs
+    alone and stores no statistics, which spares the serving path the
+    autograd function's host time and two allocations.
     """
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):

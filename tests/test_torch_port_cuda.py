@@ -1,6 +1,6 @@
 """The port's kernels against their plain versions, on the card.
 
-These tests need an NVIDIA GPU with nvcc and triton, and skip elsewhere.
+These tests need an NVIDIA GPU with nvcc, and skip elsewhere.
 This file imports no JAX, so it also runs where JAX is not installed; there,
 skip the repository's conftest (it configures JAX):
 
@@ -25,12 +25,14 @@ from rdeic_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 from rdeic_torch.ops.fused_groupnorm import (
+    _launch_bwd,
     _launch_fwd,
     group_norm,
     group_norm_bwd,
     group_norm_bwd_plain,
     group_norm_fwd,
     group_norm_fwd_plain,
+    group_norm_bwd_plan,
     group_norm_plain,
     group_norm_plan,
 )
@@ -71,6 +73,19 @@ FAULT_SCALE = 1.05  # a planted output-scale error each check must read
 GN_TRAIN_SHAPES = [(2, 320, 64, 64, 32), (2, 1280, 8, 8, 32),
                    (2, 64, 64, 64, 32), (2, 48, 32, 32, 24),
                    (2, 256, 16, 16, 32), (1, 96, 7, 9, 32)]
+# every GroupNorm32 input of the training paths: the denoiser's channel
+# counts (UNet and control) at each latent level of 512x512, B = 2
+GN_BWD_PATH_SHAPES = [
+    (2, c, 64 >> lv, 64 >> lv, 32)
+    for lv, chans in enumerate([(64, 320, 640, 960),
+                                (64, 128, 320, 640, 960, 1280, 1920),
+                                (128, 256, 640, 1280, 1920, 2560),
+                                (256, 1280, 2560)])
+    for c in chans]
+# the d = 16 forward's path shapes (serving, and training with lse) and
+# twice the serving L: the output's sum runs over L
+D16_SHAPES = [(1, 6144, 4, 16), (1, 1536, 8, 16), (2, 4096, 4, 16),
+              (2, 1024, 8, 16), (1, 8192, 4, 16)]
 
 
 @pytest.fixture
@@ -267,11 +282,98 @@ def test_groupnorm_backward_kernel_matches_plain(cuda, shape, silu, dtype):
     before = group_norm_bwd.launches
     got = group_norm_bwd(x, w, b, mean, inv, dy, groups, silu)
     torch.cuda.synchronize()
-    assert group_norm_bwd.launches == before + 2  # moments, then dx
+    assert group_norm_bwd.launches == before + 1  # one cluster launch
     want = group_norm_bwd_plain(x.float(), w, b, mean, inv, dy.float(), groups,
                                 silu)
     for g, ref, lim in zip(got, want, (_limit(dtype), 1e-4, 1e-4)):
         assert _rel_err(g, ref) <= lim  # dscale, dbias are fp32 sums
+        assert _rel_err(g.float() * FAULT_SCALE, ref) > lim
+
+
+def _gn_bwd_inputs(shape, dtype, device, silu):
+    """x, dy, weight, bias and the forward kernel's mean and 1/std."""
+    *xs, groups = shape
+    c = xs[1]
+    x = _rand(xs, dtype, device, 0) * 3 + 1
+    dy = _rand(xs, dtype, device, 3)
+    w, b = (_rand((c,), torch.float32, device, s) for s in (1, 2))
+    _, mean, inv = group_norm_fwd(x, w, b, groups, 1e-5, silu)
+    return x, dy, w, b, mean, inv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape", GN_BWD_PATH_SHAPES)
+def test_groupnorm_backward_at_every_training_shape(cuda, shape, silu, dtype):
+    """One launch per call, within the limits of the plain backward, and the
+    same bits on a second run (no float atomics: fixed-order sums)."""
+    x, dy, w, b, mean, inv = _gn_bwd_inputs(shape, dtype, cuda, silu)
+    groups = shape[-1]
+    assert group_norm_bwd_plan(tuple(shape[:4]), groups,
+                               x.element_size()).resident
+    before = group_norm_bwd.launches
+    got = group_norm_bwd(x, w, b, mean, inv, dy, groups, silu)
+    again = group_norm_bwd(x, w, b, mean, inv, dy, groups, silu)
+    torch.cuda.synchronize()
+    assert group_norm_bwd.launches == before + 2  # one a call
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    want = group_norm_bwd_plain(x.float(), w, b, mean, inv, dy.float(), groups,
+                                silu)
+    for g, ref, lim in zip(got, want, (_limit(dtype), 1e-4, 1e-4)):
+        assert _rel_err(g, ref) <= lim
+        assert _rel_err(g.float() * FAULT_SCALE, ref) > lim
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,smem_limit", [
+    ((*GN_STREAM_SHAPE, 32), 232448),   # larger than 8 CTAs: streamed
+    ((2, 960, 64, 64, 32), 16384),      # 8 CTAs, forced to stream
+    ((2, 1024, 17, 19, 32), 232448),    # element path, resident
+    ((2, 1024, 17, 19, 32), 1024),      # element path, streamed
+])
+def test_groupnorm_backward_plans_match_plain(cuda, shape, smem_limit, dtype):
+    """The backward's streaming variant (a span larger than a cluster's
+    shared memory, or a plan forced by a low limit) and its element path,
+    against the plain backward, with the same bits on a second run."""
+    x, dy, w, b, mean, inv = _gn_bwd_inputs(shape, dtype, cuda, True)
+    groups = shape[-1]
+    plan = group_norm_bwd_plan(tuple(shape[:4]), groups, x.element_size(),
+                               True, smem_limit)
+    assert plan.resident == (smem_limit > 16384 and shape[1] != 512)
+    got = _launch_bwd(x, w, b, mean, inv, dy, groups, True, plan)
+    again = _launch_bwd(x, w, b, mean, inv, dy, groups, True, plan)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    want = group_norm_bwd_plain(x.float(), w, b, mean, inv, dy.float(), groups,
+                                True)
+    for g, ref, lim in zip(got, want, (_limit(dtype), 1e-4, 1e-4)):
+        assert _rel_err(g, ref) <= lim
+        assert _rel_err(g.float() * FAULT_SCALE, ref) > lim
+
+
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", D16_SHAPES)
+def test_flash_d16_forward_at_the_path_shapes(cuda, shape, dtype, lse):
+    """flash_fwd_d16 (tensor cores) with and without lse: the output
+    against the plain version's unrounded fp32 result within 2e-5 (fp32) or
+    two bf16 ulps of max, the lse within 1e-4 of max; each reads a planted
+    x1.05 fault."""
+    q, k, v = (_rand(shape, dtype, cuda, s) for s in range(3))
+    fn = flash_attention_lse if lse else flash_attention
+    before = fn.launches
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want, want_lse = flash_attention_lse_plain(q.float(), k.float(), v.float())
+    out = got[0] if lse else got
+    assert out.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2 * bf16_ulp(
+        want.abs().max().item())
+    assert (out.float() - want).abs().max().item() <= tol
+    assert (out.float() * FAULT_SCALE - want).abs().max().item() > tol
+    if lse:
+        assert _rel_err(got[1], want_lse) <= 1e-4
+        assert _rel_err(got[1] * FAULT_SCALE, want_lse) > 1e-4
 
 
 @pytest.mark.parametrize("silu", [False, True])
@@ -291,8 +393,8 @@ def test_groupnorm_autograd_on_cuda_matches_plain_autograd(cuda, silu):
 @pytest.mark.parametrize("shape", [(2, 960, 64, 64), (2, 320, 64, 64),
                                    (2, 2560, 8, 8)])
 def test_groupnorm_autograd_at_training_shapes(cuda, shape):
-    """The CUDA forward (one launch, statistics stored) feeding the Triton
-    backward under autograd, at training shapes (the first is the largest
+    """The CUDA forward (one launch, statistics stored) feeding the CUDA
+    backward (one launch) under autograd, at training shapes (the first is the largest
     training span, 30 x 4096), against autograd through the plain version."""
     c = shape[1]
     x = (_rand(shape, torch.float32, cuda, 0) * 3 + 1).requires_grad_()
@@ -303,7 +405,7 @@ def test_groupnorm_autograd_at_training_shapes(cuda, shape):
     got = torch.autograd.grad(out, (x, w, b), dy)
     torch.cuda.synchronize()
     assert (group_norm.launches, group_norm_bwd.launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 1, before[1] + 1)
     want = torch.autograd.grad(group_norm_plain(x, w, b, 32, 1e-5, True),
                                (x, w, b), dy)
     for g, ref in zip(got, want):
@@ -369,3 +471,9 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         group_norm(x, w.half(), b.half(), 32, 1e-5)
     assert group_norm.launches == before
+    _, mean, inv = group_norm_fwd(x, w, b, 32, 1e-5)
+    before = group_norm_bwd.launches
+    for bad in (mean.double(), mean[:, :16], mean.cpu()):  # not (B, G) fp32
+        with pytest.raises(ValueError):
+            group_norm_bwd(x, w, b, bad, inv, x, 32)
+    assert group_norm_bwd.launches == before

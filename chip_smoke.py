@@ -10,8 +10,8 @@ and g++; no network. Phases, each fatal on failure:
 2. build: nvcc (forward and backward flash kernels, GroupNorm forward and
    backward) and g++ start together on the sources in the checkout; ptxas's
    registers and spills of each CUDA kernel are logged by name, and a
-   tensor-core flash kernel (flash_fwd_d16, and every d = 64 and d = 512
-   kernel) or the GroupNorm backward that spills fails the run;
+   flash kernel (all run on the tensor cores) or the GroupNorm backward that
+   spills fails the run;
 3. main path at the full width of configs/model/rdeic.yaml (random weights
    from --seed): the CLI's per-image `rdeic_torch.inference.process` codes a
    synthetic 768x512 image to a stream file, decodes it back, relay-samples
@@ -66,11 +66,12 @@ and g++; no network. Phases, each fatal on failure:
    (device_ms); GroupNorm rows add the host µs a call takes to enqueue.
    A flash row's bound takes the rate named in its `bound_rate`
    (flash_rate): for fp32, the TF32 tensor cores over the three passes of
-   3xTF32 where the kernel runs them (every forward, and the d = 64 and
-   d = 512 backward) and fp32 FMA for the d = 16 backward; for bf16, the
-   card's bf16 peak. Each comparison also
-   reads a planted fault (the kernel's output scaled by 1.05) and fails if
-   that reading is within the limit.
+   3xTF32, which every flash kernel runs; for bf16, the card's bf16 peak.
+   Each comparison also reads a planted fault (the kernel's output scaled
+   by 1.05) and fails if that reading is within the limit; the backward
+   kernels also give the same bits on a second launch. A log line gives the
+   fp32 backward's error against float64 at d = 16 and d = 64, L = 1024 and
+   8192: how each design's error moves with L.
 
 The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
@@ -231,9 +232,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TF32_FLOPS = 494.7e12
 # Head dims whose flash kernels run on the tensor cores in TF32, an fp32
-# product as three TF32 products (3xTF32), forward and backward; the d = 16
-# backward runs fp32 FMA
-TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (64, 512)}
+# product as three TF32 products (3xTF32), forward and backward
+TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (16, 64, 512)}
 FAULT_SCALE = 1.05  # a planted output-scale error each check must see
 GN_TOL = 1e-4  # fp32 GroupNorm outputs up to ~15 after scale and bias
 # relative to max |plain| of each output, for the training kernels: fp32
@@ -343,12 +343,12 @@ def phase_build():
                           + ">")
             elif "registers" in line or "spill" in line:
                 log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
-                if (re.search(r"_d(64|512)<|flash_fwd_d16<|gn_bwd<", kernel)
+                if (re.match(r"flash_|gn_bwd<", kernel)
                         and re.search(r"[1-9]\d* bytes spill", line)):
                     spills.append(kernel)
     if spills:
-        raise AssertionError(f"tensor-core flash kernels or the GroupNorm "
-                             f"backward spill: {spills}")
+        raise AssertionError(f"flash kernels or the GroupNorm backward "
+                             f"spill: {spills}")
 
 
 def make_model(device, seed: int) -> RDEIC:
@@ -902,6 +902,11 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
                         [(o, want_o, tol), (lse, want_lse, REL_TOL[torch.float32])])
     dq, di = flash_attention_dq(q, k, v, o, lse, do)
     dk, dv = flash_attention_dkv(q, k, v, do, lse, di)
+    again = (*flash_attention_dq(q, k, v, o, lse, do),
+             *flash_attention_dkv(q, k, v, do, lse, di))
+    if not all(torch.equal(a, b) for a, b in zip((dq, di, dk, dv), again)):
+        raise AssertionError(f"flash backward {shape} {dtype}: two launches "
+                             "gave different bits")
     pdq, pdk, pdv = flash_attention_bwd_plain(
         *(x.float() for x in (q, k, v, o)), lse, do.float())
     r_dq = compare_rel(f"flash dq {shape} {dtype}", [(dq, pdq, tol)])
@@ -1024,6 +1029,21 @@ def summarize(name, route, source, replaces, path, runs, rows):
             **({"bound_rates": sorted({r["bound_rate"] for r in rows})}
                if "bound_rate" in rows[0] else {}),
             "shapes": rows}
+
+
+def bwd_error_vs_float64(device, shape) -> list:
+    """dq, dk and dv of the fp32 kernels against the plain backward in
+    float64 on the same inputs (and the kernel forward's o and lse): max
+    |error| over max of each. The fp32 plain version sums in fp32 too, so
+    only float64 shows how a kernel's own error moves with L."""
+    q, k, v, do = (_randn(shape, torch.float32, device, s) for s in range(4))
+    o, lse = flash_attention_lse(q, k, v)
+    dq, di = flash_attention_dq(q, k, v, o, lse, do)
+    got = (dq, *flash_attention_dkv(q, k, v, do, lse, di))
+    want = flash_attention_bwd_plain(*(x.double() for x in (q, k, v, o)),
+                                     lse.double(), do.double())
+    return [((g.double() - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
 
 
 def sdpa_backend(shape, device) -> str:
@@ -1156,6 +1176,21 @@ def phase_kernels(device, runs) -> list:
                 f"backward {dq['backward_bound_ms']:.3f} ms; dq's and dkv's "
                 f"own bounds {dq['bound_ms']:.3f} + {dkv['bound_ms']:.3f} ms; "
                 f"SDPA backward {dq['library_ms']:.3f} ms")
+    for dq, dkv in zip(train_rows["flash_attn_bwd_dq"],
+                       train_rows["flash_attn_bwd_dkv"]):
+        log(f"[kernels] flash backward per call {dq['shape']}: dq "
+            f"{dq['ms']:.4f} (device {dq['device_ms']:.4f}) + dkv "
+            f"{dkv['ms']:.4f} (device {dkv['device_ms']:.4f}) = "
+            f"{dq['ms'] + dkv['ms']:.4f} ms; own bounds {dq['bound_ms']:.4f} + "
+            f"{dkv['bound_ms']:.4f} ms at {dq['bound_rate']}; SDPA backward "
+            f"{dq['library_ms']:.4f} (device {dq['library_device_ms']:.4f}) ms")
+    for d in (16, 64):
+        reads = {seq: bwd_error_vs_float64(device, (1, seq, 2, d))
+                 for seq in (1024, 8192)}
+        log(f"[kernels] flash backward fp32 error against float64 at d = {d}, "
+            "max |g - g64| / max |g64| of dq, dk, dv: "
+            + "; ".join(f"L = {seq}: " + ", ".join(f"{x:.3g}" for x in r)
+                        for seq, r in reads.items()))
     gn = lines[4]
     n_calls = sum(r["calls"].get("serve", 0) for r in gn_rows)
     host_us = sum(r["host_us"] * r["calls"].get("serve", 0) for r in gn_rows)

@@ -21,12 +21,52 @@
 // kernels' sequential grid axis): dq owns q rows, dkv keys, and neither
 // needs atomics, so results are the same from run to run.
 //
-// d = 16 (the control branch) runs flash_dq_d16 and flash_dkv_d16 on fp32
-// FMA: tiles live in shared memory as fp32, rows padded by one float. Each
-// thread holds an SM x SN patch of the score tiles (S and dP together) and
-// a TM x TN patch of its accumulators (dq; or dk and dv) in registers; dS
-// (and P) go through shared memory between the two. At d = 16 it is ahead
-// of SDPA's backward.
+// d = 16 (the control branch: [2, 4096, 4, 16] and [2, 1024, 8, 16] per
+// independent micro-step, twice that per refine micro-step) runs
+// flash_dq_d16 and flash_dkv_d16 on the tensor cores, with the TF32
+// mma.sync and 3xTF32 split of the d = 64 pair (below), reshaped for what
+// d = 16 makes cheap:
+// - 64-row kept tiles, 8 warps: warp w owns rows 16 (w & 3).. of the tile
+//   and half w >> 2 of every 128-row streamed tile, in 32-row chunks; the
+//   two halves add their accumulators at the end through shared memory, in
+//   a fixed order. 64-row tiles give 256 blocks at [2, 1024, 8, 16] and
+//   512 at [2, 4096, 4, 16] for 2 x 132 slots (80 / 83 KB, <= 128
+//   registers a thread).
+// - The kept pair (Q and dO in dq, K and V in dkv) is 2 k-steps x 4 values
+//   a lane: read straight from device memory into A fragments and split
+//   once into big and small TF32 registers for the whole loop.
+// - The streamed pair (K and V, or Q and dO) comes in 128-row raw tiles by
+//   cp.async (16 bytes a lane, zero-filled past L), double-buffered; the
+//   block then splits each value once into big and small TF32 planes
+//   (stride 20 floats), which every warp reads ready-split: as B^T by
+//   ldmatrix for the scores, and as B at rows 2t, 2t + 1 for the products
+//   with P or dS. Both reads, the split pass's reads and writes and the
+//   copies hit 32 distinct banks (tests/test_torch_port_flash_bwd_d16.py
+//   counts them). No warp splits a streamed value.
+// - Scores as C fragments in registers, as at d = 64: S and dP (S^T and
+//   dP^T in dkv); P and dS formed in place and taken as A through the
+//   permuted k order; no shared-memory round trip.
+// - The softmax weighs as much as the products at d = 16 (18 mma a 16 x 8
+//   block in dq, 24 in dkv, against ~7-10 fp32-pipe operations and an
+//   exponential a score): log2(e) is folded into the scale, so P is one
+//   fmaf and one exp2f, and dS = P fmaf(dP, scale, -di scale). dq masks
+//   keys past L in its last chunk only; dkv stages lse2 = +inf past L, so
+//   P^T = 0 there with no test.
+// - mma.sync rounds its sum toward zero: each chunk's products sum from
+//   zero into a partial that is added to the accumulator in fp32, so the
+//   fp32 error stays flat in L.
+// - di: dq computes it from the kept dO and O (quad shuffles) and writes
+//   it; dkv reads lse and di by column from shared memory, copied one q
+//   tile ahead with the tile.
+// - ptxas -v: dq 128 registers (fp32) and 100 (bf16), dkv 128 and 123; no
+//   spills. 128 is the limit for two 8-warp blocks per SM; each thread's
+//   copy and split addresses are one base plus constants (unit_rc at rows
+//   r and r + 64), which keeps them from spilling.
+// What it does about the FMA template it replaces: tensor cores in place of
+// fp32 FMA; scores, P and dS in registers in place of shared memory; 16-byte
+// asynchronous copies in place of element loads through registers. Against
+// the d = 64 pair: the kept pair in registers, split once, and each
+// streamed value split once a block rather than once in every warp.
 //
 // d = 64 (the UNet: [2, 4096, 5, 64] and [2, 1024, 10, 64] per independent
 // micro-step, twice that per refine micro-step) runs flash_dq_d64 and
@@ -125,287 +165,528 @@
 //
 // Bound on the H100: the pair must do 10 * L^2 * D * B * H flops (S, dP, dV,
 // dQ, dK; dq alone 6, dkv alone 8, since each recomputes S and dP) against
-// ~8 * B * L * H * D elements of traffic. d = 16 runs fp32 FMA at
-// 67 TFLOP/s; d = 64 and 512 run 3xTF32 at 494.7 / 3 = 165 TFLOP/s. At the
-// training path's L = 1024..4096 the flops bound every shape.
+// ~8 * B * L * H * D elements of traffic. Every head dim runs 3xTF32 on the
+// tensor cores, 494.7 / 3 = 165 TFLOP/s. At the training path's
+// L = 1024..4096 the flops bound every shape.
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
 namespace {
 
-using rdeic_flash::from_f32;
-using rdeic_flash::load_f32;
-
-// d = 16 on fp32 FMA (header): 64-row q and k tiles, 128 threads a block.
+// d = 16 on the tensor cores (header). 8 warps a block: warp w owns rows
+// 16 (w & 3).. of the block's 64-row kept tile (q rows in dq, keys in dkv)
+// and rows 64 (w >> 2).. of every 128-row streamed tile (its half).
 namespace d16 {
 
-constexpr int D = 16, BT = 64, NT = 128;
-// SM x SN: score patch per thread; TM x TN: accumulator patch per thread;
-// LB: loads a thread keeps in flight when it fills a tile (load_tile).
-constexpr int SM = 8, SN = 4, TM = 8, TN = 1, LB = 8;
-constexpr int SX = BT / SN;  // patches across a score row
-constexpr int SY = BT / SM;
-constexpr int OX = D / TN;   // threads across an accumulator row
-constexpr int OY = BT / TM;
-constexpr int QS = D + 1;    // padded row stride of the D-wide tiles
-constexpr int PS = BT + 1;   // padded row stride of P and dS
-// four D-wide tiles, two score tiles, two row vectors
-constexpr int kSmemFloats = 4 * BT * QS + 2 * BT * PS + 2 * BT;
-static_assert(SX * SY == NT, "score tiling must cover the threads");
-static_assert(OX * OY == NT, "accumulator tiling must cover the threads");
-static_assert((BT * D) % (NT * LB) == 0, "the threads split a tile evenly");
-static_assert(kSmemFloats * 4 <= 232448, "shared memory per block");
+constexpr int D = 16, BT = 64, BS = 128, HS = BS / 2, CH = 32, NT = 256;
+constexpr int NC = CH / 8;     // n-tiles (8 streamed rows each) a chunk
+constexpr int S = D + 4;       // plane row stride: 20 mod 32 banks (header)
+constexpr int kPlane = BS * S;  // floats in one plane
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Load rows [r0, r0 + BT) of a [B, L, H, D] tensor (base already at (b, h))
-// into an fp32 tile with row stride QS; rows past L are zero. A thread
-// issues its loads in batches of LB before storing them, so the block waits
-// for one round trip to memory per batch rather than per element.
+// Row stride (in T) of a raw streamed tile as cp.async lands it: 80 bytes
+// in fp32, the planes' stride, so the split pass reads and writes 32
+// banks; 48 bytes in bf16 (16-byte chunks stay aligned).
 template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int L, int64_t row) {
-#pragma unroll 1
-  for (int n0 = 0; n0 < BT * D / NT; n0 += LB) {
-    float x[LB];
+__host__ __device__ constexpr int raw_stride() {
+  return sizeof(T) == 4 ? 20 : 24;
+}
+// One raw buffer: the streamed pair, [2][BS][raw_stride] of T; in floats.
+template <typename T>
+__host__ __device__ constexpr int raw_elems() {
+  return 2 * BS * raw_stride<T>();
+}
+template <typename T>
+__host__ __device__ constexpr int raw_floats() {
+  return raw_elems<T>() * static_cast<int>(sizeof(T)) / 4;
+}
+// Planes of the streamed pair: [2 tensors][big, small][BS][S] (bf16: big).
+template <typename T>
+__host__ __device__ constexpr int plane_floats() {
+  return 2 * (sizeof(T) == 4 ? 2 : 1) * kPlane;
+}
+// dq: two raw buffers and the planes. dkv adds lse and di of the streamed
+// q rows: two raw buffers [lse, di][BS] and the staged [lse2, di scale][BS].
+template <typename T>
+__host__ __device__ constexpr int dq_smem_floats() {
+  return 2 * raw_floats<T>() + plane_floats<T>();
+}
+template <typename T>
+__host__ __device__ constexpr int dkv_smem_floats() {
+  return dq_smem_floats<T>() + 6 * BS;
+}
+static_assert(2 * dkv_smem_floats<float>() * 4 <= 232448, "two blocks per SM");
+static_assert(4 * 32 * 16 <= plane_floats<__nv_bfloat16>(),
+              "the halves' merge fits in the planes");
+
+// The 4-element unit j of a BS x 16 tile as (row, column): 8 consecutive
+// units take 4 of row r and 4 of row r + 4, 16 floats each, which stride 20
+// puts on the two halves of the 32 banks.
+__device__ __forceinline__ void unit_rc(int j, int& r, int& c) {
+  const int q = j >> 3, e = j & 7;
+  r = (q >> 2) * 8 + (q & 3) + (e >> 2) * 4;
+  c = (e & 3) * 4;
+}
+
+// Rows [r0, r0 + BS) of the streamed pair (a, b at (b, h)) into a raw
+// buffer by cp.async, 16 bytes a lane, zero-filled past L. A thread copies
+// one 16-byte chunk of each tensor every kRows rows (fp32: the unit of
+// unit_rc, at rows r and r + 64).
+template <typename T>
+__device__ __forceinline__ void copy_pair(T* raw, const T* a, const T* b,
+                                          int r0, int L, int row) {
+  constexpr int RS = raw_stride<T>();
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a chunk
+  constexpr int kRows = NT * kPer / D;  // rows the threads cover at once
+  int r, c;
+  if constexpr (sizeof(T) == 4) {
+    unit_rc(threadIdx.x, r, c);
+  } else {
+    r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 8;
+  }
+  const uint32_t dst = static_cast<uint32_t>(
+      __cvta_generic_to_shared(raw + r * RS + c));
 #pragma unroll
-    for (int n = 0; n < LB; ++n) {
-      const int i = threadIdx.x + (n0 + n) * NT, r = i / D, d = i % D;
-      x[n] = (r0 + r < L) ? load_f32(src + (r0 + r) * row + d) : 0.f;
-    }
+  for (int which = 0; which < 2; ++which)
 #pragma unroll
-    for (int n = 0; n < LB; ++n) {
-      const int i = threadIdx.x + (n0 + n) * NT;
-      dst[(i / D) * QS + i % D] = x[n];
+    for (int n = 0; n < BS / kRows; ++n) {
+      const bool in = r0 + r + n * kRows < L;
+      // a row past L reads nothing (src-size 0 fills zeros); its address
+      // stays inside the tensor all the same
+      const T* src =
+          (which ? b : a) + ((in ? r0 + r + n * kRows : 0) * row + c);
+      const uint32_t at = dst + static_cast<uint32_t>(
+          (which * BS + n * kRows) * RS * static_cast<int>(sizeof(T)));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(at),
+                   "l"(src), "r"(in ? 16 : 0));
     }
+}
+
+// The raw pair into its planes, split once for every warp: big = TF32 of x
+// (rounded to nearest), small = x - big, in fp32; bf16 is exact in TF32 and
+// takes the big plane only. A thread takes the 4-element unit unit_rc of
+// rows r and r + 64 of each tensor.
+template <typename T>
+__device__ __forceinline__ void split_pair(const T* raw, float* planes) {
+  using namespace rdeic_flash;
+  constexpr bool kSplit = sizeof(T) == 4;
+  constexpr int RS = raw_stride<T>();
+  int r, c;
+  unit_rc(threadIdx.x, r, c);
+  const T* src0 = raw + r * RS + c;
+  float* dst0 = planes + r * S + c;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int which = n >> 1, half = n & 1;
+    const T* src = src0 + (which * BS + half * HS) * RS;
+    float x[4];
+    if constexpr (kSplit) {
+      const float4 f = *reinterpret_cast<const float4*>(src);
+      x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(src);
+      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+      x[0] = __low2float(lo), x[1] = __high2float(lo);
+      x[2] = __low2float(hi), x[3] = __high2float(hi);
+    }
+    uint32_t big[4], small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split<kSplit>(x[e], big[e], small[e]);
+    float* dst = dst0 + which * (kSplit ? 2 : 1) * kPlane + half * HS * S;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(big[0], big[1], big[2], big[3]);
+    if (kSplit)
+      *reinterpret_cast<uint4*>(dst + kPlane) =
+          make_uint4(small[0], small[1], small[2], small[3]);
   }
 }
 
-// S = q_tile . k_tile^T and dP = do_tile . v_tile^T on this thread's patch;
-// rows of the score patch index `qs`/`dos`, columns `ks`/`vs`.
-__device__ __forceinline__ void score_patch(const float* qs, const float* dos,
-                                            const float* ks, const float* vs,
-                                            int sx, int sy, float (&s)[SM][SN],
-                                            float (&dp)[SM][SN]) {
+// The warp's 16 kept rows r0.. of a [B, L, H, D] tensor (p at (b, h)) as
+// the values of TF32 A fragments: lane (g, t) reads rows g and g + 8 at
+// columns t, t + 4 (k-step 0) and 8 + t, 12 + t (k-step 1) straight from
+// device memory, 0 past L.
+template <typename T>
+__device__ __forceinline__ void load_kept(const T* p, int r0, int L,
+                                          int64_t row, float (&x)[2][4]) {
+  using namespace rdeic_flash;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < SM; ++i)
+  for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-    for (int j = 0; j < SN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[SM], dov[SM], kv[SN], vv[SN];
-#pragma unroll
-    for (int i = 0; i < SM; ++i) {
-      qv[i] = qs[(sy + i * SY) * QS + d];
-      dov[i] = dos[(sy + i * SY) * QS + d];
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + g + (i & 1) * 8, c = 8 * kk + t + (i >> 1) * 4;
+      x[kk][i] = r < L ? load_f32(p + r * row + c) : 0.f;
     }
+}
+
+// Kept fragments split once, for the whole loop.
+template <bool kSplit>
+__device__ __forceinline__ void split_kept(const float (&x)[2][4],
+                                           uint32_t (&big)[2][4],
+                                           uint32_t (&small)[2][4]) {
 #pragma unroll
-    for (int j = 0; j < SN; ++j) {
-      kv[j] = ks[(sx + j * SX) * QS + d];
-      vv[j] = vs[(sx + j * SX) * QS + d];
-    }
+  for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-    for (int i = 0; i < SM; ++i)
+    for (int i = 0; i < 4; ++i)
+      rdeic_flash::split<kSplit>(x[kk][i], big[kk][i], small[kk][i]);
+}
+
+// s (16 x CH: n-tile n holds streamed rows 8 n..) = A B^T over d: A the
+// warp's kept fragments, B the streamed rows of `plane` from row 0, read
+// ready-split by ldmatrix (big at plane, small at plane + kPlane).
+template <bool kSplit>
+__device__ __forceinline__ void scores(float (&s)[NC][4],
+                                       const uint32_t (&ab)[2][4],
+                                       const uint32_t (&as)[2][4],
+                                       const float* plane) {
+  using namespace rdeic_flash;
+  zero(s);
+  const RowB<S, false> rb(plane, 0, 0);
 #pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+  for (int kk = 0; kk < 2; ++kk) {
+    float bb[NC][2], bs[NC][2];
+    rb.load(bb, kk * 8);
+    if (kSplit) rb.load(bs, kPlane + kk * 8);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const uint32_t b[2] = {__float_as_uint(bb[n][0]),
+                             __float_as_uint(bb[n][1])};
+      if (kSplit) {
+        const uint32_t sm[2] = {__float_as_uint(bs[n][0]),
+                                __float_as_uint(bs[n][1])};
+        mma_tf32(s[n], as[kk], b);
+        mma_tf32(s[n], ab[kk], sm);
       }
+      mma_tf32(s[n], ab[kk], b);
+    }
   }
 }
 
-// One block: (q tile blockIdx.x, b*h blockIdx.y). dq = sum over k tiles of
-// dS K; also di = rowsum(dO * O) for the tile's rows, written to `di`.
+// part (16 x 16) += (the 8 streamed rows of C, P or dS, as A) B, B(k, n) =
+// plane rows 2t and 2t + 1 at column 8 n + g (b is at the lane's row 2t and
+// column g). The permuted k order (slot t is row 2t, slot t + 4 row 2t + 1)
+// makes the C fragment an A fragment: a0..a3 = c0, c2, c1, c3.
+template <bool kSplit>
+__device__ __forceinline__ void accumulate(float (&part)[2][4],
+                                           const float (&c)[4],
+                                           const float* b) {
+  using namespace rdeic_flash;
+  uint32_t pb[4], ps[4];
+  split<true>(c[0], pb[0], ps[0]);
+  split<true>(c[2], pb[1], ps[1]);
+  split<true>(c[1], pb[2], ps[2]);
+  split<true>(c[3], pb[3], ps[3]);
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const uint32_t bb[2] = {__float_as_uint(b[8 * n]),
+                            __float_as_uint(b[S + 8 * n])};
+    mma_tf32(part[n], ps, bb);
+    if (kSplit) {
+      const uint32_t bs[2] = {__float_as_uint(b[kPlane + 8 * n]),
+                              __float_as_uint(b[kPlane + S + 8 * n])};
+      mma_tf32(part[n], pb, bs);
+    }
+    mma_tf32(part[n], pb, bb);
+  }
+}
+
+// acc += part, in fp32 (to nearest): each chunk's products sum from zero,
+// so mma.sync's rounding toward zero stays relative to one chunk's part.
+__device__ __forceinline__ void add(float (&acc)[2][4],
+                                    const float (&part)[2][4]) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] += part[n][i];
+}
+
+// The warp's 16 x 16 C fragments, rows r0 + g and r0 + g + 8 (those below
+// L), to out (at (b, h)).
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[2][4],
+                                           int r0, int L, int64_t row) {
+  using namespace rdeic_flash;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + g + 8 * hr;
+    if (r >= L) continue;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      store2<T>(out + r * row + 8 * n + 2 * t, acc[n][2 * hr],
+                acc[n][2 * hr + 1]);
+  }
+}
+
+// Half 1 hands its NA accumulators (4 floats each, a lane) to half 0
+// through `buf`; half 0 adds them to its own, in that order. Returns false
+// on half 1, which is then done.
+template <int NA>
+__device__ __forceinline__ bool merge_halves(float (&acc)[NA][4], float* buf) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* mine = reinterpret_cast<float4*>(buf) + ((warp & 3) * 32 + lane) * NA;
+  __syncthreads();  // every warp is done with the planes
+  if (warp >= 4) {
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+      mine[a] = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+  }
+  __syncthreads();
+  if (warp >= 4) return false;
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    const float4 x = mine[a];
+    acc[a][0] += x.x, acc[a][1] += x.y, acc[a][2] += x.z, acc[a][3] += x.w;
+  }
+  return true;
+}
+
+// One block: (64-row q tile blockIdx.x, b*h blockIdx.y). Warp w keeps Q and
+// dO of q rows 16 (w & 3).. as split A fragments, with their lse (log2
+// units) and di, and takes half w >> 2 of every 128-key K / V tile in
+// 32-key chunks: S = Q K^T and dP = dO V^T as C fragments, P = 2^(S c -
+// lse2) (0 on a key past L) and dS = P (dP scale - di scale) in place, dq
+// += dS K by chunk partials. Also di = rowsum(dO * O) for the tile's rows,
+// written to `di`. The next raw K / V pair is copied while this one is
+// split and used.
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
     flash_dq_d16(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ o,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  T* __restrict__ dq, float* __restrict__ di, int L, int H,
                  float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;            // [BT][QS]
-  float* dos = qs + BT * QS;   // [BT][QS]
-  float* ks = dos + BT * QS;   // [BT][QS]
-  float* vs = ks + BT * QS;    // [BT][QS]
-  float* dss = vs + BT * QS;   // [BT][PS]
-  float* lse_s = dss + 2 * BT * PS;
-  float* di_s = lse_s + BT;
+  using namespace rdeic_flash;
+  constexpr bool kSplit = sizeof(T) == 4;  // bf16 operands are exact in TF32
+  extern __shared__ __align__(16) float smem_d16[];
+  T* raw = reinterpret_cast<T*>(smem_d16);          // [2 buffers] K, V
+  float* planes = smem_d16 + 2 * raw_floats<T>();  // K, V
+  const float* kp = planes;
+  const float* vp = planes + plane_floats<T>() / 2;
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BT;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, half = warp >> 2;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int64_t row = static_cast<int64_t>(H) * D;
   const int64_t base = static_cast<int64_t>(b) * L * row +
                        static_cast<int64_t>(h) * D;
   const int64_t rbase = static_cast<int64_t>(bh) * L;
+  const T* kb = k + base;
+  const T* vb = v + base;
+  const float c = scale * kLog2e;  // scores in log2 units, for exp2f
 
-  load_tile<T>(qs, q + base, q0, L, row);
-  load_tile<T>(dos, dout + base, q0, L, row);
-  load_tile<T>(ks, o + base, q0, L, row);  // O, for di
-  __syncthreads();
-  for (int r = tid; r < BT; r += NT) {
-    float sum = 0.f;
-    for (int d = 0; d < D; ++d)
-      sum = fmaf(dos[r * QS + d], ks[r * QS + d], sum);
-    di_s[r] = sum;
-    lse_s[r] = (q0 + r < L) ? lse[rbase + q0 + r] : 0.f;
-    if (q0 + r < L) di[rbase + q0 + r] = sum;
-  }
+  copy_pair<T>(raw, kb, vb, 0, L, static_cast<int>(row));
+  cp_async_commit();
 
-  const int sx = tid % SX, sy = tid / SX;
-  const int ox = tid % OX, oy = tid / OX;
-  float acc[TM][TN];
+  // rows g (hr = 0) and g + 8 (hr = 1) of the warp's 16: lse2 = lse log2(e),
+  // and di scale, di from the lane's 4 products of each row and its quad's
+  const int r0 = blockIdx.x * BT + (warp & 3) * 16;
+  uint32_t qb[2][4], qsm[2][4], db[2][4], dsm[2][4];
+  float lse2[2], dis[2];
+  {
+    float x[2][4], y[2][4];
+    load_kept<T>(dout + base, r0, L, row, x);
+    load_kept<T>(o + base, r0, L, row, y);
+    split_kept<kSplit>(x, db, dsm);
+    float di_r[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-    for (int n = 0; n < TN; ++n) acc[i][n] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += BT) {
-    __syncthreads();  // the previous tile's dS K is done with ks and dss
-    load_tile<T>(ks, k + base, k0, L, row);
-    load_tile<T>(vs, v + base, k0, L, row);
-    __syncthreads();
-
-    float s[SM][SN], dp[SM][SN];
-    score_patch(qs, dos, ks, vs, sx, sy, s, dp);
+      for (int i = 0; i < 4; ++i)
+        di_r[i & 1] = fmaf(x[kk][i], y[kk][i], di_r[i & 1]);
+    load_kept<T>(q + base, r0, L, row, x);
+    split_kept<kSplit>(x, qb, qsm);
 #pragma unroll
-    for (int i = 0; i < SM; ++i) {
-      const int r = sy + i * SY;
-#pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        const int c = sx + j * SX;
-        const float p = (q0 + r < L && k0 + c < L)
-                            ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dss[r * PS + c] = p * (dp[i][j] - di_s[r]) * scale;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BT; ++j) {
-      float dsv[TM], kv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) dsv[i] = dss[(oy + i * OY) * PS + j];
-#pragma unroll
-      for (int n = 0; n < TN; ++n) kv[n] = ks[j * QS + ox + n * OX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int n = 0; n < TN; ++n) acc[i][n] = fmaf(dsv[i], kv[n], acc[i][n]);
+    for (int hr = 0; hr < 2; ++hr) {
+      di_r[hr] += __shfl_xor_sync(0xffffffffu, di_r[hr], 1);
+      di_r[hr] += __shfl_xor_sync(0xffffffffu, di_r[hr], 2);
+      const int r = r0 + g + 8 * hr;
+      const bool in = r < L;
+      lse2[hr] = in ? lse[rbase + r] * kLog2e : 0.f;
+      dis[hr] = di_r[hr] * scale;
+      if (in && t == 0 && half == 0) di[rbase + r] = di_r[hr];
     }
   }
 
+  float acc[2][4];  // dq[16 rows][16]: n-tile n holds columns 8 n..
+  zero(acc);
+  const int nk = (L + BS - 1) / BS;
+  for (int j = 0; j < nk; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // raw tile j has landed; no warp reads the planes
+    if (j + 1 < nk)
+      copy_pair<T>(raw + ((j + 1) & 1) * raw_elems<T>(),
+                   kb, vb, (j + 1) * BS, L, static_cast<int>(row));
+    cp_async_commit();
+    split_pair<T>(raw + (j & 1) * raw_elems<T>(), planes);
+    __syncthreads();
+    const int k0 = j * BS + half * HS;  // this warp's first key
+    if (k0 >= L) continue;  // a half wholly past L has nothing to add
+#pragma unroll 1
+    for (int c0 = 0; c0 < HS; c0 += CH) {
+      const float* kt = kp + (half * HS + c0) * S;
+      float s[NC][4], dp[NC][4];
+      scores<kSplit>(s, qb, qsm, kt);
+      scores<kSplit>(dp, db, dsm, vp + (half * HS + c0) * S);
+      const bool tail = k0 + c0 + CH > L;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = oy + i * OY;
-    if (q0 + r >= L) continue;
+      for (int n = 0; n < NC; ++n)
 #pragma unroll
-    for (int n = 0; n < TN; ++n)
-      dq[base + (q0 + r) * row + ox + n * OX] = from_f32<T>(acc[i][n]);
+        for (int i = 0; i < 4; ++i) {
+          const int hr = i >> 1;
+          float p = exp2f(fmaf(s[n][i], c, -lse2[hr]));
+          if (tail && k0 + c0 + 8 * n + 2 * t + (i & 1) >= L) p = 0.f;
+          s[n][i] = p * fmaf(dp[n][i], scale, -dis[hr]);
+        }
+      float part[2][4];
+      zero(part);
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk)
+        accumulate<kSplit>(part, s[kk], kt + (8 * kk + 2 * t) * S + g);
+      add(acc, part);
+    }
   }
+  cp_async_wait<0>();
+  if (merge_halves(acc, planes)) store_rows<T>(dq + base, acc, r0, L, row);
 }
 
-// One block: (k tile blockIdx.x, b*h blockIdx.y). dv = sum over q tiles of
-// P^T dO, dk = sum of dS^T Q.
+// Row terms of the streamed q rows [r0, r0 + BS) into a raw buffer
+// [lse, di][BS] by cp.async, 4 bytes a thread, zero-filled past L.
+__device__ __forceinline__ void copy_rows(float* raw, const float* lse,
+                                          const float* di, int r0, int L) {
+  const int i = threadIdx.x & (BS - 1), which = threadIdx.x / BS;
+  const bool in = r0 + i < L;
+  const float* src = (which ? di : lse) + (in ? r0 + i : 0);
+  const uint32_t dst =
+      static_cast<uint32_t>(__cvta_generic_to_shared(raw + which * BS + i));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0));
+}
+static_assert(NT == 2 * BS, "a thread copies one row term");
+
+// One block: (64-row k tile blockIdx.x, b*h blockIdx.y). Warp w keeps K and
+// V of keys 16 (w & 3).. as split A fragments and takes half w >> 2 of
+// every 128-row Q / dO tile in 32-row chunks: S^T = K Q^T and dP^T = V dO^T
+// as C fragments (rows keys, columns q), P^T = 2^(S^T c - lse2) and dS^T =
+// P^T (dP^T scale - di scale) in place, with lse2 and di scale read by
+// column from shared memory (lse2 = +inf past L, so P^T = 0 there);
+// dv += P^T dO and dk += dS^T Q by chunk partials.
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
     flash_dkv_d16(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ di,
-                  T* __restrict__ dk, T* __restrict__ dv, int L, int H,
-                  float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;            // [BT][QS]
-  float* dos = qs + BT * QS;   // [BT][QS]
-  float* ks = dos + BT * QS;   // [BT][QS]
-  float* vs = ks + BT * QS;    // [BT][QS]
-  float* ps = vs + BT * QS;    // [BT][PS], rows q, columns k
-  float* dss = ps + BT * PS;   // [BT][PS]
-  float* lse_s = dss + BT * PS;
-  float* di_s = lse_s + BT;
+                  const float* __restrict__ lse,
+                  const float* __restrict__ di, T* __restrict__ dk,
+                  T* __restrict__ dv, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  constexpr bool kSplit = sizeof(T) == 4;
+  extern __shared__ __align__(16) float smem_d16[];
+  T* raw = reinterpret_cast<T*>(smem_d16);          // [2 buffers] Q, dO
+  float* planes = smem_d16 + 2 * raw_floats<T>();  // Q, dO
+  float* rows_raw = planes + plane_floats<T>();     // [2 buffers][lse, di][BS]
+  float* rows = rows_raw + 4 * BS;                  // [lse2, di scale][BS]
+  const float* qp = planes;
+  const float* dp_plane = planes + plane_floats<T>() / 2;
 
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BT;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, half = warp >> 2;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int64_t row = static_cast<int64_t>(H) * D;
   const int64_t base = static_cast<int64_t>(b) * L * row +
                        static_cast<int64_t>(h) * D;
   const int64_t rbase = static_cast<int64_t>(bh) * L;
+  const T* qb = q + base;
+  const T* db = dout + base;
+  const float c = scale * kLog2e;
 
-  load_tile<T>(ks, k + base, k0, L, row);
-  load_tile<T>(vs, v + base, k0, L, row);
+  copy_pair<T>(raw, qb, db, 0, L, static_cast<int>(row));
+  copy_rows(rows_raw, lse + rbase, di + rbase, 0, L);
+  cp_async_commit();
 
-  const int sx = tid % SX, sy = tid / SX;
-  const int ox = tid % OX, oy = tid / OX;
-  float acc_k[TM][TN], acc_v[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int n = 0; n < TN; ++n) acc_k[i][n] = acc_v[i][n] = 0.f;
+  const int r0 = blockIdx.x * BT + (warp & 3) * 16;
+  uint32_t kbig[2][4], ksm[2][4], vbig[2][4], vsm[2][4];
+  {
+    float x[2][4];
+    load_kept<T>(k + base, r0, L, row, x);
+    split_kept<kSplit>(x, kbig, ksm);
+    load_kept<T>(v + base, r0, L, row, x);
+    split_kept<kSplit>(x, vbig, vsm);
+  }
 
-  for (int q0 = 0; q0 < L; q0 += BT) {
-    __syncthreads();  // the previous tile's products are done with qs..dss
-    load_tile<T>(qs, q + base, q0, L, row);
-    load_tile<T>(dos, dout + base, q0, L, row);
-    for (int r = tid; r < BT; r += NT) {
-      const bool in = q0 + r < L;
-      lse_s[r] = in ? lse[rbase + q0 + r] : 0.f;
-      di_s[r] = in ? di[rbase + q0 + r] : 0.f;
+  float acc_k[2][4], acc_v[2][4];  // dk, dv [16 keys][16]
+  zero(acc_k);
+  zero(acc_v);
+  const int nq = (L + BS - 1) / BS;
+  for (int j = 0; j < nq; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j has landed; no warp reads the planes or rows
+    if (j + 1 < nq) {
+      copy_pair<T>(raw + ((j + 1) & 1) * raw_elems<T>(),
+                   qb, db, (j + 1) * BS, L, static_cast<int>(row));
+      copy_rows(rows_raw + ((j + 1) & 1) * 2 * BS, lse + rbase, di + rbase,
+                (j + 1) * BS, L);
+    }
+    cp_async_commit();
+    split_pair<T>(raw + (j & 1) * raw_elems<T>(), planes);
+    {
+      const float* rr = rows_raw + (j & 1) * 2 * BS;
+      const int i = threadIdx.x & (BS - 1), which = threadIdx.x / BS;
+      const bool in = j * BS + i < L;
+      rows[which * BS + i] =
+          which ? rr[BS + i] * scale : (in ? rr[i] * kLog2e : INFINITY);
     }
     __syncthreads();
-
-    float s[SM][SN], dp[SM][SN];
-    score_patch(qs, dos, ks, vs, sx, sy, s, dp);
+    const int q0 = j * BS + half * HS;  // this warp's first q row
+    if (q0 >= L) continue;
+#pragma unroll 1
+    for (int c0 = 0; c0 < HS; c0 += CH) {
+      const int col0 = half * HS + c0;
+      const float* qt = qp + col0 * S;
+      const float* dt = dp_plane + col0 * S;
+      float s[NC][4], dp[NC][4];
+      scores<kSplit>(s, kbig, ksm, qt);
+      scores<kSplit>(dp, vbig, vsm, dt);
 #pragma unroll
-    for (int i = 0; i < SM; ++i) {
-      const int r = sy + i * SY;
+      for (int n = 0; n < NC; ++n) {
+        const int col = col0 + 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(rows + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(rows + BS + col);
+        const float lc[2] = {l2.x, l2.y}, dc[2] = {d2.x, d2.y};
 #pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        const int c = sx + j * SX;
-        const float p = (q0 + r < L && k0 + c < L)
-                            ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        ps[r * PS + c] = p;
-        dss[r * PS + c] = p * (dp[i][j] - di_s[r]) * scale;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < BT; ++r) {
-      float pv[TM], dsv[TM], dov[TN], qv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        pv[i] = ps[r * PS + oy + i * OY];
-        dsv[i] = dss[r * PS + oy + i * OY];
-      }
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        dov[n] = dos[r * QS + ox + n * OX];
-        qv[n] = qs[r * QS + ox + n * OX];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int n = 0; n < TN; ++n) {
-          acc_v[i][n] = fmaf(pv[i], dov[n], acc_v[i][n]);
-          acc_k[i][n] = fmaf(dsv[i], qv[n], acc_k[i][n]);
+        for (int i = 0; i < 4; ++i) {
+          const int e = i & 1;
+          const float p = exp2f(fmaf(s[n][i], c, -lc[e]));
+          s[n][i] = p;
+          dp[n][i] = p * fmaf(dp[n][i], scale, -dc[e]);
         }
+      }
+      float part[2][4];
+      zero(part);
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk)
+        accumulate<kSplit>(part, s[kk], dt + (8 * kk + 2 * t) * S + g);
+      add(acc_v, part);
+      zero(part);
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk)
+        accumulate<kSplit>(part, dp[kk], qt + (8 * kk + 2 * t) * S + g);
+      add(acc_k, part);
     }
   }
-
+  cp_async_wait<0>();
+  float acc[4][4];  // dk and dv, merged as one
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = oy + i * OY;
-    if (k0 + r >= L) continue;
+  for (int n = 0; n < 2; ++n)
 #pragma unroll
-    for (int n = 0; n < TN; ++n) {
-      const int64_t at = base + (k0 + r) * row + ox + n * OX;
-      dk[at] = from_f32<T>(acc_k[i][n]);
-      dv[at] = from_f32<T>(acc_v[i][n]);
-    }
-  }
+    for (int i = 0; i < 4; ++i) acc[n][i] = acc_k[n][i], acc[2 + n][i] = acc_v[n][i];
+  if (!merge_halves(acc, planes)) return;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc[n][i], acc_v[n][i] = acc[2 + n][i];
+  store_rows<T>(dk + base, acc_k, r0, L, row);
+  store_rows<T>(dv + base, acc_v, r0, L, row);
 }
 
 template <typename T>
@@ -413,13 +694,15 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       void* dq, float* di, int B, int L, int H, float scale,
                       cudaStream_t stream) {
-  auto kernel = flash_dq_d16<T>;
-  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
+  if (err != cudaSuccess) return err;
+  if (static_cast<int64_t>(L) * H * D > INT32_MAX) return cudaErrorInvalidValue;
+  const int smem = dq_smem_floats<T>() * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(flash_dq_d16<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + BT - 1) / BT, B * H);
-  kernel<<<grid, NT, smem, stream>>>(
+  flash_dq_d16<T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const T*>(dout), lse, static_cast<T*>(dq), di, L, H, scale);
@@ -431,13 +714,15 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* di,
                        void* dk, void* dv, int B, int L, int H, float scale,
                        cudaStream_t stream) {
-  auto kernel = flash_dkv_d16<T>;
-  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
+  if (err != cudaSuccess) return err;
+  if (static_cast<int64_t>(L) * H * D > INT32_MAX) return cudaErrorInvalidValue;
+  const int smem = dkv_smem_floats<T>() * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(flash_dkv_d16<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + BT - 1) / BT, B * H);
-  kernel<<<grid, NT, smem, stream>>>(
+  flash_dkv_d16<T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
       static_cast<T*>(dk), static_cast<T*>(dv), L, H, scale);

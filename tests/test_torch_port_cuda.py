@@ -59,13 +59,15 @@ GN_SHAPES = [(1, 320, 96, 64), (1, 2560, 12, 8), (1, 1920, 24, 16),
 # (B, L, H, D) of the training paths' flash calls at 512x512, B = 2 (the
 # refine phase adds the VAE decoder's d = 512), the decoder's at 256x256,
 # plus ragged L (the backward masks padded q rows and k columns; at d = 64
-# an L past one 64-row tile, inside one, and below one 32-row chunk), and
-# at d = 64 twice the paths' longest L (the dq, dk and dv sums run over L)
+# an L past one 64-row tile, inside one, and below one 32-row chunk), at
+# d = 64 and d = 16 twice the paths' longest L (the dq, dk and dv sums run
+# over L), and d = 16 at the serving shapes
 FLASH_TRAIN_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64), (2, 4096, 4, 16),
                       (2, 1024, 8, 16), (2, 4096, 1, 512), (1, 1024, 1, 512),
                       (2, 1000, 3, 64), (1, 130, 2, 64), (2, 40, 3, 64),
                       (1, 8192, 2, 64), (1, 77, 2, 16), (1, 130, 1, 512),
-                      *D512_SHAPES]
+                      (1, 1000, 4, 16), (1, 8192, 4, 16), (1, 6144, 4, 16),
+                      (1, 1536, 8, 16), *D512_SHAPES]
 FAULT_SCALE = 1.05  # a planted output-scale error each check must read
 # (B, C, H, W, groups) of GroupNorm backward: denoiser widths at 512x512
 # (64x64 latents), a 48-channel control width (find_denominator gives 24
@@ -82,8 +84,8 @@ GN_BWD_PATH_SHAPES = [
                                 (128, 256, 640, 1280, 1920, 2560),
                                 (256, 1280, 2560)])
     for c in chans]
-# the d = 16 forward's path shapes (serving, and training with lse) and
-# twice the serving L: the output's sum runs over L
+# the d = 16 path shapes (serving; training: the forward with lse and the
+# backward) and twice the serving L: the sums run over L
 D16_SHAPES = [(1, 6144, 4, 16), (1, 1536, 8, 16), (2, 4096, 4, 16),
               (2, 1024, 8, 16), (1, 8192, 4, 16)]
 
@@ -214,6 +216,9 @@ def _limit(dtype) -> float:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", FLASH_TRAIN_SHAPES)
 def test_flash_lse_and_backward_kernels_match_plain(cuda, shape, dtype):
+    """The lse forward and the dq and dkv kernels: one launch each, within
+    the limits of the plain versions, each reading a planted x1.05 fault;
+    the backward gives the same bits on a second launch (no atomics)."""
     q, k, v, do = (_rand(shape, dtype, cuda, s) for s in range(4))
     counts = [f.launches for f in (flash_attention_lse, flash_attention_dq,
                                    flash_attention_dkv)]
@@ -222,6 +227,8 @@ def test_flash_lse_and_backward_kernels_match_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert [f.launches for f in (flash_attention_lse, flash_attention_dq,
                                  flash_attention_dkv)] == [c + 1 for c in counts]
+    again = flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(g, a) for g, a in zip(grads, again))
     want_o, want_lse = flash_attention_lse_plain(q.float(), k.float(), v.float())
     assert _rel_err(o, want_o) <= _limit(dtype)
     assert (lse - want_lse).abs().max().item() <= 1e-4  # fp32 in both
@@ -374,6 +381,24 @@ def test_flash_d16_forward_at_the_path_shapes(cuda, shape, dtype, lse):
     if lse:
         assert _rel_err(got[1], want_lse) <= 1e-4
         assert _rel_err(got[1] * FAULT_SCALE, want_lse) > 1e-4
+
+
+def test_flash_d16_backward_error_is_flat_in_l(cuda):
+    """Each 32-row chunk's products sum from zero and join the accumulators
+    in fp32, so mma.sync's rounding toward zero does not pile up over L:
+    against float64 on the same fp32 inputs, the largest error of dq, dk
+    and dv over max at L = 8192 is at most twice that at L = 1024."""
+    reads = {}
+    for seq in (1024, 8192):
+        shape = (1, seq, 2, 16)
+        q, k, v, do = (_rand(shape, torch.float32, cuda, s) for s in range(4))
+        o, lse = flash_attention_lse(q, k, v)
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        want = flash_attention_bwd_plain(
+            *(x.double() for x in (q, k, v, o)), lse.double(), do.double())
+        reads[seq] = max(_rel_err(g.double(), w) for g, w in zip(got, want))
+        del want
+    assert reads[8192] <= 2 * reads[1024], reads
 
 
 @pytest.mark.parametrize("silu", [False, True])

@@ -22,10 +22,22 @@ and g++; no network. Phases, each fatal on failure:
    same every time; process() gives the same image both times, equal to the
    staged run's; the staged image is 512x768x3 and finite; the decoded
    (c_latent, guide_hint) equal the encoder's synthesis bit for bit; each
-   kernel ran as often as the model's structure says;
+   kernel ran as often as the model's structure says; the counted run's
+   peak memory (`max_memory_allocated`, and above what was resident);
+3b. the serving path with the CLI's other flags, each run and checked as in
+   3, from the same weights: (a) `--sampler ddim`; (b) classifier-free
+   guidance at 2.0 (DDPM), whose steps also run the base UNet alone (10
+   more flash launches a step, one more per base GroupNorm32); (c) `--bf16`
+   (DDPM) on a bf16 copy (the state dict loaded onto a `meta` model, then
+   `set_compute_dtype`), whose flash and GroupNorm calls must all be bf16,
+   whose stream the fp32 model must decode to the same latents bit for bit,
+   and which must leave the fp32 model fp32;
 4. reference on a small input: a 256x256 image through the same weights,
    once on the card (kernels) and once on the CPU (plain versions), from the
-   same latents and noise;
+   same latents and noise: DDPM, DDIM and guidance 2.0 in fp32 (image
+   within 2e-3), and the bf16 model against a CPU copy of it (relative
+   RMS: the image within BF16_REF_TOL, the VAE feature within
+   BF16_FEATURE_TOL); a planted x1.05 fault must read outside each limit;
 5. training reference: one independent-phase micro-step (B = 1, 256x256) of
    the same weights on the card and on the CPU, from the same noise: the
    loss and every trainable gradient agree within a relative limit that a
@@ -53,7 +65,9 @@ and g++; no network. Phases, each fatal on failure:
    every launch count set to 0, each applying AdamW. Checks as in 6, LPIPS
    among the frozen tensors;
 9. kernels against their plain versions at every shape of the serving and
-   the training paths, and at shapes on no path (their rows carry no
+   the training paths (bf16 rows for the bf16 serving run's calls, the
+   GroupNorm ones with bf16 scale and bias as there), and at shapes on no
+   path (their rows carry no
    calls): flash at d = 512 and d = 64 with B = 2, H > 1 and L = 1000, and
    at d = 64 and d = 16 with L = 8192 (the CHECK_SHAPES), GroupNorm forward
    and backward at a span larger than a cluster's shared memory
@@ -76,7 +90,8 @@ and g++; no network. Phases, each fatal on failure:
 The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
 `bound_ms` and `library_ms` of a kernel are summed over its calls in one
-run of the path its `path` names: per image for the serving kernels
+run of the path its `path` names (serve: phase 3's DDPM run; serve_ddim,
+serve_cfg and serve_bf16 are phase 3b's): per image for the serving kernels
 (flash_attn_fwd, group_norm_silu_fwd), per refine micro-step for the
 others (`ms_by_path` also gives the kernel time per independent-phase
 micro-step); `shapes` has the per-call numbers and the calls in each path.
@@ -197,6 +212,12 @@ REFINE_STEPS = 3  # timed refine micro-steps after one warm-up, each updating
 # L = 4096 h5 d64 x5 and L = 1024 h10 d64 x5, control L = 4096 h4 d16 x2 and
 # L = 1024 h8 d16 x2; L = 256 goes to the plain product)
 FLASH_PER_DENOISER_CALL_512 = 14
+# the same at 768x512 (UNet L = 6144 h5 d64 x5 and L = 1536 h10 d64 x5,
+# control L = 6144 h4 d16 x2 and L = 1536 h8 d16 x2), and of the base UNet
+# alone (classifier-free guidance's unconditional branch)
+FLASH_PER_DENOISER_CALL_768 = 14
+FLASH_PER_BASE_CALL_768 = 10
+CFG_SCALE = 2.0  # phase 3b's and phase 4's classifier-free guidance
 # card vs CPU training reference: max |g_card - g_cpu| of each trainable
 # tensor over max |g_cpu| of that tensor, or over TRAIN_REF_FLOOR x the
 # largest gradient where the tensor's own gradient is zero but for rounding
@@ -235,6 +256,18 @@ TF32_FLOPS = 494.7e12
 # product as three TF32 products (3xTF32), forward and backward
 TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (16, 64, 512)}
 FAULT_SCALE = 1.05  # a planted output-scale error each check must see
+# bf16 serving, card vs CPU: the RMS of the difference over the RMS of the
+# CPU's result (the measure PSNR reads). Each bf16 run rounds every layer's
+# output to 8 significant bits; the card's and the CPU's products sum in
+# other orders and so round other ways, and the two runs land about as far
+# from each other as from the fp32 result: 2.35e-2 of max at the worst
+# element at full width (an H100 against its host's CPU, 256x256, seed 0),
+# too near the ~5e-2 a x1.05 fault reads for a gate on the max, while the
+# RMS of the noise is far below the fault's: 7.1e-3 on the image. The VAE
+# encoder's 512-ch feature, after ~30 bf16 layers, reads 1.72e-2 there;
+# it is held to twice the image's limit
+BF16_REF_TOL = 2.0 ** -6
+BF16_FEATURE_TOL = 2.0 ** -5
 GN_TOL = 1e-4  # fp32 GroupNorm outputs up to ~15 after scale and bias
 # relative to max |plain| of each output, for the training kernels: fp32
 # sums in other orders land ~1e-6 apart. A bf16 output is held to the plain
@@ -388,13 +421,15 @@ def read_counters():
             {k: dict(fn.shapes) for k, fn in KERNEL_FNS.items()})
 
 
-def run_process(model, img01, stream: Path, seed: int):
+def run_process(model, img01, stream: Path, seed: int, sampler: str = "ddpm",
+                guidance: float = 1.0):
     """One image through the CLI's per-image function; (uint8 image, bpp)."""
     gen = torch.Generator(device=img01.device).manual_seed(seed)
-    return process(model, img01, STEPS, str(stream), gen)
+    return process(model, img01, STEPS, str(stream), gen, sampler, guidance)
 
 
-def run_stages(model, img01, stream: Path, seed: int):
+def run_stages(model, img01, stream: Path, seed: int, sampler: str = "ddpm",
+               guidance: float = 1.0):
     """The three pipeline calls process() makes, timed one by one."""
     h, w = img01.shape[1:3]
     gen = torch.Generator(device=img01.device).manual_seed(seed)
@@ -402,59 +437,128 @@ def run_stages(model, img01, stream: Path, seed: int):
     (c_latent, guide_hint), t_d = host_ms(
         lambda: model.apply_condition_decompress(stream))
     out, t_s = host_ms(lambda: model.decode_pipeline(
-        c_latent, guide_hint, STEPS, generator=gen))
+        c_latent, guide_hint, STEPS, sampler=sampler, guidance_scale=guidance,
+        generator=gen))
     ms = {"encode_and_compress": t_c, "decompress": t_d,
           "relay_sample_and_vae_decode": t_s}
     return c_latent, guide_hint, out, ms
 
 
-def phase_main_path(model, device, seed: int) -> dict:
+def serve_launches(model, guidance: float = 1.0) -> dict:
+    """Kernel launches of one 768x512 image, from the model's structure:
+    14 self-attentions over >= 1024 tokens per denoiser call (UNet 5 + 5,
+    control 2 + 2), plus the two VAE mid-blocks; one launch per GroupNorm32
+    call. Under classifier-free guidance each step also runs the base UNet
+    alone: 10 more flash launches and one more per base GroupNorm32. No
+    training kernel (no grad on this path)."""
+    den = model.denoiser
+    n_gn = sum(isinstance(m, GroupNorm32) for m in den.modules())
+    n_gn_base = sum(isinstance(m, GroupNorm32) for m in den.base.modules())
+    cfg = 1 if guidance != 1.0 else 0
+    want = dict.fromkeys(KERNEL_FNS, 0)
+    want.update({
+        "flash_attn_fwd": (FLASH_PER_DENOISER_CALL_768
+                           + cfg * FLASH_PER_BASE_CALL_768) * STEPS + 2,
+        "group_norm_silu_fwd": (n_gn + cfg * n_gn_base) * STEPS})
+    return want
+
+
+def phase_main_path(model, device, seed: int, tag: str = "main",
+                    sampler: str = "ddpm", guidance: float = 1.0) -> dict:
+    """process() on a synthetic 768x512 image: a warm-up, a counted run
+    and a staged run, with the checks of phase 3 (see the module's
+    docstring)."""
     rng = np.random.default_rng(seed)
     img01 = torch.from_numpy(
         rng.uniform(size=(1, *IMAGE_HW, 3)).astype(np.float32)).to(device)
+    opts = dict(sampler=sampler, guidance=guidance)
     with tempfile.TemporaryDirectory() as tmp:
         stream = Path(tmp) / "image.rdeic"
         (warm_img, _), warm_ms = host_ms(
-            lambda: run_process(model, img01, stream, seed))
+            lambda: run_process(model, img01, stream, seed, **opts))
         streams = [stream.read_bytes()]
         reset_counters()
-        (img, bpp), ms = host_ms(lambda: run_process(model, img01, stream, seed))
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (img, bpp), ms = host_ms(
+            lambda: run_process(model, img01, stream, seed, **opts))
+        peak = torch.cuda.max_memory_allocated()
         launches, shapes = read_counters()
         streams.append(stream.read_bytes())
         c_latent, guide_hint, out, stage_ms = run_stages(
-            model, img01, stream, seed)
+            model, img01, stream, seed, **opts)
         streams.append(stream.read_bytes())
-    log(f"[main] warm-up process() {warm_ms:.1f} ms")
-    log(f"[main] image {IMAGE_HW[1]}x{IMAGE_HW[0]}: {len(streams[0])} bytes, "
+    log(f"[{tag}] {sampler}, guidance {guidance:g}, "
+        f"{str(model.denoiser.base.out_conv.weight.dtype).removeprefix('torch.')}"
+        f": warm-up process() {warm_ms:.1f} ms")
+    log(f"[{tag}] image {IMAGE_HW[1]}x{IMAGE_HW[0]}: {len(streams[0])} bytes, "
         f"bpp={bpp:.5f}; process() {ms:.1f} ms; "
-        f"stage ms: {json.dumps(stage_ms)}")
-    log(f"[main] launches: {json.dumps(launches)}")
+        f"stage ms: {json.dumps(stage_ms)}; peak memory {peak / 2**30:.3f} GiB "
+        f"({(peak - resident) / 2**30:.3f} above the {resident / 2**30:.3f} "
+        "GiB resident before the run)")
+    log(f"[{tag}] launches: {json.dumps(launches)}")
     if any(b != streams[0] for b in streams):
-        raise AssertionError("the same image coded to different streams")
+        raise AssertionError(f"[{tag}] the same image coded to different streams")
     if not np.array_equal(img, warm_img):
-        raise AssertionError("process() gave two different images")
+        raise AssertionError(f"[{tag}] process() gave two different images")
     # the encoder's own synthesis of the decoded slices, from the same feature
     with torch.no_grad():
         _, feature = model.encode_first_stage(img01 * 2 - 1)
         enc_latent, enc_hint = model.codec().compress(feature)["latents"]
     if not (torch.equal(c_latent, enc_latent)
             and torch.equal(guide_hint, enc_hint)):
-        raise AssertionError("decoded latents differ from the encoder's")
+        raise AssertionError(f"[{tag}] decoded latents differ from the encoder's")
     if tuple(out.shape) != (1, *IMAGE_HW, 3) or not torch.isfinite(out).all():
-        raise AssertionError(f"bad output {tuple(out.shape)}")
+        raise AssertionError(f"[{tag}] bad output {tuple(out.shape)}")
     if not np.array_equal(img, to_uint8(out[0].cpu().numpy())):
-        raise AssertionError("process() and the staged calls disagree")
-    n_gn = sum(isinstance(m, GroupNorm32) for m in model.denoiser.modules())
-    # 14 self-attentions over >= 1024 tokens per denoiser call at 768x512
-    # (UNet 5 + 5, control 2 + 2), plus the two VAE mid-blocks; one launch
-    # per GroupNorm32 call; no training kernel (no grad on this path)
-    want = dict.fromkeys(KERNEL_FNS, 0)
-    want.update({"flash_attn_fwd": 14 * STEPS + 2,
-                 "group_norm_silu_fwd": n_gn * STEPS})
+        raise AssertionError(f"[{tag}] process() and the staged calls disagree")
+    want = serve_launches(model, guidance)
     if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want}")
+        raise AssertionError(f"[{tag}] launches {launches}, expected {want}")
     return {"bpp": bpp, "ms": ms, "stage_ms": stage_ms, "launches": launches,
-            "shapes": shapes}
+            "shapes": shapes, "peak_bytes": peak, "resident_bytes": resident,
+            "stream": streams[0], "latents": (c_latent, guide_hint)}
+
+
+def make_bf16_model(model) -> RDEIC:
+    """A bf16 serving copy of `model`: its tensors loaded onto a `meta`
+    model, then `set_compute_dtype(torch.bfloat16)`, which makes new bf16
+    tensors of the VAE, the denoiser and the context and leaves `model`'s
+    fp32; the compression model and the codebook usage stay fp32, shared."""
+    bf16 = RDEIC(**MODEL_CONFIG, device="meta").eval()
+    bf16.load_state_dict(model.state_dict(), assign=True)
+    bf16.set_compute_dtype(torch.bfloat16)
+    return bf16
+
+
+def phase_serve_options(model, device, seed: int) -> tuple[dict, RDEIC]:
+    """Phase 3b: the serving path with the CLI's other flags, each run as
+    phase 3's: DDIM, classifier-free guidance at 2.0 (DDPM) and bf16 (DDPM)
+    on a bf16 copy of the model. ({path: run}, the bf16 model)."""
+    runs = {"serve_ddim": phase_main_path(model, device, seed, "ddim",
+                                          sampler="ddim"),
+            "serve_cfg": phase_main_path(model, device, seed, "cfg",
+                                         guidance=CFG_SCALE)}
+    bf16 = make_bf16_model(model)
+    runs["serve_bf16"] = phase_main_path(bf16, device, seed, "bf16")
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError("[bf16] the fp32 model's weights changed dtype")
+    for name in ("flash_attn_fwd", "group_norm_silu_fwd"):
+        dtypes = {k[-1] for k in runs["serve_bf16"]["shapes"][name]}
+        if dtypes != {"bfloat16"}:
+            raise AssertionError(f"[bf16] {name} ran in {dtypes}")
+    # the bf16 run's stream, decoded by the fp32 model: the same latents
+    with tempfile.TemporaryDirectory() as tmp:
+        stream = Path(tmp) / "bf16.rdeic"
+        stream.write_bytes(runs["serve_bf16"]["stream"])
+        fp32_latents = model.apply_condition_decompress(stream)
+    if not all(torch.equal(a, b) for a, b in
+               zip(fp32_latents, runs["serve_bf16"]["latents"])):
+        raise AssertionError("[bf16] the fp32 model decodes the bf16 run's "
+                             "stream to other latents")
+    log("[bf16] flash and GroupNorm ran in bf16 only; the fp32 model decodes "
+        "the bf16 run's stream to the same latents, bit for bit")
+    return runs, bf16
 
 
 def make_refine_model(model, seed: int) -> RDEIC:
@@ -484,8 +588,12 @@ def cpu_copy(model) -> RDEIC:
     return cpu
 
 
-def phase_reference(model, device, seed: int):
-    """256x256 through the card (kernels) and the CPU (plain versions)."""
+def phase_reference(model, bf16, device, seed: int):
+    """256x256 through the card (kernels) and the CPU (plain versions), from
+    the same latents and noise: the fp32 model with DDPM, DDIM and
+    classifier-free guidance (limit 2e-3 on the image), and the bf16 model
+    (DDPM) against its own CPU copy (relative RMS within BF16_REF_TOL); a
+    planted x1.05 fault must read outside each limit."""
     rng = np.random.default_rng(seed + 1)
     img = rng.uniform(size=(1, 256, 256, 3)).astype(np.float32) * 2 - 1
     with tempfile.TemporaryDirectory() as tmp:
@@ -496,23 +604,67 @@ def phase_reference(model, device, seed: int):
     relay = torch.from_numpy(rng.normal(size=c_latent.shape).astype(np.float32))
     steps = [torch.from_numpy(rng.normal(size=c_latent.shape).astype(np.float32))
              for _ in range(STEPS)]
-    cpu = cpu_copy(model)
-    results = {}
+    runs = (("ddpm", "ddpm", 1.0, model), ("ddim", "ddim", 1.0, model),
+            ("cfg", "ddpm", CFG_SCALE, model), ("bf16", "ddpm", 1.0, bf16))
+    cpus = {id(m): cpu_copy(m) for m in (model, bf16)}
+    images, feats = {}, {}
     with torch.no_grad():
-        for name, m, dev in (("cuda", model, device),
-                             ("cpu", cpu, torch.device("cpu"))):
-            out = m.decode_pipeline(c_latent.to(dev), guide_hint.to(dev), STEPS,
-                                    relay_noise=relay.to(dev),
-                                    step_noise=[s.to(dev) for s in steps])
-            _, feat = m.encode_first_stage(torch.from_numpy(img).to(dev))
-            results[name] = (out.cpu(), feat.cpu())
-    err_img = (results["cuda"][0] - results["cpu"][0]).abs().max().item()
-    err_feat = ((results["cuda"][1] - results["cpu"][1]).abs().max()
-                / results["cpu"][1].abs().max()).item()
-    log(f"[reference] 256x256, card vs CPU: image max|diff| {err_img:.3g} "
-        f"(limit 2e-3), VAE feature max|diff|/max {err_feat:.3g} (limit 1e-4)")
-    if not (err_img <= 2e-3 and err_feat <= 1e-4):
-        raise AssertionError("the card disagrees with the CPU reference")
+        for name, sampler, guidance, card in runs:
+            for where, m, dev in (("cuda", card, device),
+                                  ("cpu", cpus[id(card)], torch.device("cpu"))):
+                t0 = time.perf_counter()
+                out = m.decode_pipeline(
+                    c_latent.to(dev), guide_hint.to(dev), STEPS,
+                    sampler=sampler, guidance_scale=guidance,
+                    relay_noise=relay.to(dev),
+                    step_noise=[s.to(dev) for s in steps])
+                images[name, where] = out.cpu()
+                if name in ("ddpm", "bf16"):
+                    _, feat = m.encode_first_stage(torch.from_numpy(img).to(dev))
+                    feats[name, where] = feat.cpu()
+                log(f"[reference] {name} on {where}: "
+                    f"{time.perf_counter() - t0:.1f} s")
+    del cpus
+    def rel_max(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    def rel_rms(got, want):
+        return ((got - want).square().mean() / want.square().mean()).sqrt().item()
+
+    ok = True
+    for name, *_ in runs:
+        got, want = images[name, "cuda"], images[name, "cpu"]
+        if name == "bf16":
+            err, fault = rel_rms(got, want), rel_rms(got * FAULT_SCALE, want)
+            tol, what = BF16_REF_TOL, "relative RMS"
+        else:
+            err = (got - want).abs().max().item()
+            fault = (got * FAULT_SCALE - want).abs().max().item()
+            tol, what = 2e-3, "max|diff|"
+        ok = ok and err <= tol < fault
+        log(f"[reference] 256x256 {name}, card vs CPU: image {what} "
+            f"{err:.3g} (limit {tol:.3g}; max|diff|/max "
+            f"{rel_max(got, want):.3g}); a planted x{FAULT_SCALE} fault "
+            f"reads {fault:.3g}")
+    got, want = feats["ddpm", "cuda"], feats["ddpm", "cpu"]
+    err = rel_max(got, want)
+    ok = ok and err <= 1e-4
+    log(f"[reference] ddpm VAE feature, card vs CPU: max|diff|/max {err:.3g} "
+        "(limit 1e-4)")
+    got, want = feats["bf16", "cuda"], feats["bf16", "cpu"]
+    err, fault = rel_rms(got, want), rel_rms(got * FAULT_SCALE, want)
+    ok = ok and err <= BF16_FEATURE_TOL < fault
+    log(f"[reference] bf16 VAE feature, card vs CPU: relative RMS {err:.3g} "
+        f"(limit {BF16_FEATURE_TOL:.3g}; max|diff|/max "
+        f"{rel_max(got, want):.3g}); a planted x{FAULT_SCALE} fault reads "
+        f"{fault:.3g}")
+    for what, results in (("image", images), ("VAE feature", feats)):
+        own, ref = results["bf16", "cuda"], results["ddpm", "cuda"]
+        log(f"[reference] bf16 against fp32 on the card, {what}: relative "
+            f"RMS {rel_rms(own, ref):.3g}, max|diff|/max {rel_max(own, ref):.3g}")
+    if not ok:
+        raise AssertionError("the card disagrees with the CPU reference, or "
+                             "a planted fault reads within its limit")
 
 
 def _grad_reads(got: dict, want: dict, floor: float) -> dict:
@@ -836,7 +988,8 @@ def timings(fn, library, reps) -> dict:
 def check_groupnorm(device, key, reps):
     """fp32: the kernel against the plain version, GN_TOL absolute. bf16:
     against the plain version on the same values in fp32, unrounded, at
-    REL_TOL of max (as the training rows)."""
+    REL_TOL of max (as the training rows), with fp32 and with bf16 scale and
+    bias; the times take bf16 ones, as the bf16 serving path does."""
     b, c, h, w, groups, eps, silu, dtype = key
     dtype = getattr(torch, dtype)
     x = _randn((b, c, h, w), dtype, device, 0) * 3 + 1
@@ -845,19 +998,24 @@ def check_groupnorm(device, key, reps):
     for e in (1e-5, 1e-6):  # both eps and both SiLU settings
         for s in (False, True):
             name = f"group_norm {key} eps={e} silu={s}"
-            got = group_norm(x, wt, bs, groups, e, s)
             if dtype == torch.float32:
-                reads.append(compare(name, got,
+                reads.append(compare(name, group_norm(x, wt, bs, groups, e, s),
                                      group_norm_plain(x, wt, bs, groups, e, s),
                                      GN_TOL))
-            else:
-                want = group_norm_plain(x.float(), wt, bs, groups, e, s)
-                reads.append(compare_rel(name, [(got, want, REL_TOL[dtype])]))
-    bound, by = _bound_ms(2 * x.numel() * x.element_size() + 2 * c * 4,
+                continue
+            for wp, bp in ((wt, bs), (wt.to(dtype), bs.to(dtype))):
+                got = group_norm(x, wp, bp, groups, e, s)
+                want = group_norm_plain(x.float(), wp.float(), bp.float(),
+                                        groups, e, s)
+                reads.append(compare_rel(f"{name} params {wp.dtype}",
+                                         [(got, want, REL_TOL[dtype])]))
+    wt, bs = wt.to(dtype), bs.to(dtype)
+    bound, by = _bound_ms(2 * x.numel() * x.element_size()
+                          + 2 * c * wt.element_size(),
                           10.0 * x.numel(), PEAK_FLOPS[dtype])
 
     def library():
-        y = F.group_norm(x, groups, wt.to(dtype), bs.to(dtype), eps)
+        y = F.group_norm(x, groups, wt, bs, eps)
         return F.silu(y) if silu else y
 
     return {"max_abs_err": max(r["max_abs_err"] for r in reads),
@@ -1069,19 +1227,23 @@ def phase_kernels(device, runs) -> list:
     def keys(name, paths=tuple(runs)) -> list:
         return sorted(set().union(*(runs[p]["shapes"][name] for p in paths)))
 
-    serve_keys = [(*shape, "float32") for shape in FLASH_SHAPES]
+    serve_paths = [p for p in runs if p.startswith("serve")]
+    flash_keys = keys("flash_attn_fwd")
     flash_rows = []
-    for key in serve_keys + [k for k in keys("flash_attn_fwd")
-                             if k not in serve_keys]:
+    # each shape once in each dtype; a row for fp32 (every serving shape)
+    # and for each dtype a path ran it in (bf16: the bf16 serving run)
+    for shape in dict.fromkeys([*FLASH_SHAPES, *(k[:4] for k in flash_keys)]):
         for dtype in (torch.float32, torch.bfloat16):
-            r = check_flash(device, key[:4], dtype, reps=5)
-            log(f"[kernels] flash {key[:4]} {dtype}: {json.dumps(r)}")
-            if dtype == getattr(torch, key[4]):
+            key = (*shape, str(dtype).removeprefix("torch."))
+            r = check_flash(device, shape, dtype, reps=5)
+            log(f"[kernels] flash {shape} {dtype}: {json.dumps(r)}")
+            if dtype == torch.float32 or key in flash_keys:
                 flash_rows.append({"shape": list(key),
                                    "calls": calls("flash_attn_fwd", key), **r})
     gn_rows = []
+    serve_gn = keys("group_norm_silu_fwd", serve_paths)
     for key in keys("group_norm_silu_fwd"):
-        reps = 20 if key in runs["serve"]["shapes"]["group_norm_silu_fwd"] else 5
+        reps = 20 if key in serve_gn else 5
         r = check_groupnorm(device, key, reps=reps)
         log(f"[kernels] group_norm {key}: {json.dumps(r)}")
         gn_rows.append({"shape": list(key),
@@ -1191,16 +1353,20 @@ def phase_kernels(device, runs) -> list:
             "max |g - g64| / max |g64| of dq, dk, dv: "
             + "; ".join(f"L = {seq}: " + ", ".join(f"{x:.3g}" for x in r)
                         for seq, r in reads.items()))
-    gn = lines[4]
-    n_calls = sum(r["calls"].get("serve", 0) for r in gn_rows)
-    host_us = sum(r["host_us"] * r["calls"].get("serve", 0) for r in gn_rows)
-    lib_us = sum(r["library_host_us"] * r["calls"].get("serve", 0)
-                 for r in gn_rows)
-    log(f"[kernels] GroupNorm forward per image ({n_calls:g} calls, "
-        f"{gn['launches']} launches): kernel ms {gn['ms']:.3f}, device_ms "
-        f"{gn['device_ms']:.3f}, host {host_us / n_calls:.1f} us a call; "
-        f"F.group_norm + F.silu ms {gn['library_ms']:.3f}, device_ms "
-        f"{gn['library_device_ms']:.3f}, host {lib_us / n_calls:.1f} us a call")
+    for path in serve_paths:
+        per = {key: sum(r[key] * r["calls"].get(path, 0) for r in gn_rows)
+               for key in ("ms", "device_ms", "host_us", "library_ms",
+                           "library_device_ms", "library_host_us",
+                           "bound_ms")}
+        n_calls = sum(r["calls"].get(path, 0) for r in gn_rows)
+        log(f"[kernels] GroupNorm forward per image, {path} ({n_calls:g} "
+            f"calls, {runs[path]['launches']['group_norm_silu_fwd']} "
+            f"launches): kernel ms {per['ms']:.3f}, device_ms "
+            f"{per['device_ms']:.3f}, host {per['host_us'] / n_calls:.1f} us "
+            f"a call; F.group_norm + F.silu ms {per['library_ms']:.3f}, "
+            f"device_ms {per['library_device_ms']:.3f}, host "
+            f"{per['library_host_us'] / n_calls:.1f} us a call; bound "
+            f"{per['bound_ms']:.3f} ms")
     gn_bwd = train_rows["group_norm_silu_bwd"]
     for path in ("refine", "train"):
         per = {key: sum(r[key] * r["calls"].get(path, 0) for r in gn_bwd)
@@ -1218,13 +1384,16 @@ def phase_kernels(device, runs) -> list:
             f"{per['library_device_ms']:.3f}, host "
             f"{per['library_host_us'] / n_calls:.1f} us a call; bound "
             f"{per['bound_ms']:.3f} ms")
-    for d in (16, 64, 512):
-        per = {key: sum(r[key] * r["calls"].get("serve", 0) for r in flash_rows
-                        if r["shape"][3] == d)
-               for key in ("ms", "device_ms", "library_ms", "library_device_ms",
-                           "bound_ms")}
-        log(f"[kernels] flash forward per image at d = {d}: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in per.items()))
+    for path in serve_paths:
+        for d in (16, 64, 512):
+            rows = [r for r in flash_rows
+                    if r["shape"][3] == d and path in r["calls"]]
+            per = {key: sum(r[key] * r["calls"][path] for r in rows)
+                   for key in ("ms", "device_ms", "library_ms",
+                               "library_device_ms", "bound_ms")}
+            log(f"[kernels] flash forward per image at d = {d}, {path} "
+                f"({sum(r['calls'][path] for r in rows):g} calls): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in per.items()))
     log(f"[kernels] SDPA's backend at the VAE's d = 512 in fp32: "
         f"{sdpa_backend((2, 4096, 1, 512), device)}")
     return lines
@@ -1246,7 +1415,10 @@ def main() -> int:
     log(f"[main] full-width model on the card in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in model.parameters()) / 1e6:.0f} M params)")
     runs = {"serve": phase_main_path(model, device, args.seed)}
-    phase_reference(model, device, args.seed)
+    serve_runs, bf16 = phase_serve_options(model, device, args.seed)
+    runs.update(serve_runs)
+    phase_reference(model, bf16, device, args.seed)
+    del bf16
     phase_train_reference(model, device, args.seed)
     runs["train"] = phase_training(model, device, args.seed)
     refine = make_refine_model(model, args.seed)

@@ -131,6 +131,31 @@ class NoiseSchedule:
         return (self.ftable("sqrt_recip_alphas_cumprod", t, n) * x_t
                 - self.ftable("sqrt_recipm1_alphas_cumprod", t, n) * eps)
 
+    def predict_eps_from_xstart(self, x_t: torch.Tensor, t: torch.Tensor,
+                                x0: torch.Tensor) -> torch.Tensor:
+        n = x_t.dim()
+        return ((self.ftable("sqrt_recip_alphas_cumprod", t, n) * x_t - x0)
+                / self.ftable("sqrt_recipm1_alphas_cumprod", t, n))
+
+    def predict_eps_from_z_and_v(self, x_t: torch.Tensor, t: torch.Tensor,
+                                 v: torch.Tensor) -> torch.Tensor:
+        n = x_t.dim()
+        return (self.ftable("sqrt_alphas_cumprod", t, n) * v
+                + self.ftable("sqrt_one_minus_alphas_cumprod", t, n) * x_t)
+
+    def get_v(self, x: torch.Tensor, noise: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+        n = x.dim()
+        return (self.ftable("sqrt_alphas_cumprod", t, n) * noise
+                - self.ftable("sqrt_one_minus_alphas_cumprod", t, n) * x)
+
+    def q_posterior_mean(self, x_start: torch.Tensor, x_t: torch.Tensor,
+                         t: torch.Tensor) -> torch.Tensor:
+        """Mean of q(x_{t-1} | x_t, x_0)."""
+        n = x_t.dim()
+        return (self.ftable("posterior_mean_coef1", t, n) * x_start
+                + self.ftable("posterior_mean_coef2", t, n) * x_t)
+
 
 def spaced_schedule(base: NoiseSchedule, used_timesteps: int,
                     num_steps) -> tuple[NoiseSchedule, np.ndarray]:

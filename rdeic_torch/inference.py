@@ -2,13 +2,18 @@
 inference.py).
 
     python -m rdeic_torch.inference --ckpt params.npz \
-        --config configs/model/rdeic.yaml --input photos/ --output out
+        --config configs/model/rdeic.yaml --input photos/ --output out \
+        [--sampler ddpm|ddim] [--guidance_scale 1.0] [--bf16]
 
 Each image is padded to a multiple of 64, coded to
-`out/bitstreams/<name>.rdeic`, decoded back from that file, relay-sampled,
-cropped and saved as `out/<name>.png`; one `name: bpp=... time=...` line per
-image. `--ckpt` is a flat `.npz` of JAX params (rdeic_tpu's
-`save_params_npz`). Runs on CUDA unless `--device cpu`.
+`out/bitstreams/<name>.rdeic`, decoded back from that file, relay-sampled
+(spaced DDPM or DDIM; classifier-free guidance when `--guidance_scale` is not
+1), cropped and saved as `out/<name>.png`; one `name: bpp=... time=...` line
+per image. `--bf16` serves the VAE and the denoiser in bf16 (the compression
+model and the stream stay fp32). `--show_lq` is accepted and unused, as in
+the root CLI. `--ckpt` is a flat `.npz` of JAX params (rdeic_tpu's
+`save_params_npz`); an orbax checkpoint directory is refused (ROADMAP Queue
+1, the rest). Runs on CUDA unless `--device cpu`.
 """
 from __future__ import annotations
 
@@ -27,13 +32,16 @@ from rdeic_torch.utils.image import pad, to_float01, to_uint8
 
 
 def process(model, img01: torch.Tensor, steps: int, stream_path: str,
-            generator: torch.Generator):
+            generator: torch.Generator, sampler: str = "ddpm",
+            guidance_scale: float = 1.0):
     """Compress one padded image to a file and decode it back. Returns
     (reconstruction uint8 HWC, bpp over the padded size)."""
     h, w = img01.shape[1:3]
     bpp = model.apply_condition_compress(img01, stream_path, h, w)
     c_latent, guide_hint = model.apply_condition_decompress(stream_path)
-    out = model.decode_pipeline(c_latent, guide_hint, steps, generator=generator)
+    out = model.decode_pipeline(c_latent, guide_hint, steps, sampler=sampler,
+                                guidance_scale=guidance_scale,
+                                generator=generator)
     return to_uint8(out[0].cpu().numpy()), bpp
 
 
@@ -65,22 +73,19 @@ def main(argv=None):
     ap.add_argument("--sampler", default="ddpm", choices=["ddpm", "ddim"])
     ap.add_argument("--guidance_scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=231)
-    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--show_lq", action="store_true",
+                    help="accepted, unused (as in the root CLI)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="serve the VAE and the denoiser in bf16")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.sampler != "ddpm":
-        raise NotImplementedError(
-            "--sampler ddim: ROADMAP Queue 1, DDIM and CFG")
-    if args.guidance_scale != 1.0:
-        raise NotImplementedError(
-            "--guidance_scale: ROADMAP Queue 1, DDIM and CFG")
-    if args.bf16:
-        raise NotImplementedError("--bf16: ROADMAP Queue 1, bf16")
 
     from PIL import Image  # noqa: PLC0415 (only the CLI reads images)
 
     device = resolve_device(args.device)
     model = load_model(args.config, args.ckpt, device)
+    if args.bf16:
+        model.set_compute_dtype(torch.bfloat16)
     out_dir = Path(args.output)
     (out_dir / "bitstreams").mkdir(parents=True, exist_ok=True)
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -92,7 +97,8 @@ def main(argv=None):
         img01 = torch.from_numpy(to_float01(pad(arr, 64))[None]).to(device)
         stream = out_dir / "bitstreams" / f"{name}.rdeic"
         t0 = time.time()
-        recon, _ = process(model, img01, args.steps, str(stream), generator)
+        recon, _ = process(model, img01, args.steps, str(stream), generator,
+                           args.sampler, args.guidance_scale)
         dt = time.time() - t0
         Image.fromarray(recon[:H, :W]).save(out_dir / f"{name}.png")
         bpp = stream.stat().st_size * 8 / (H * W)

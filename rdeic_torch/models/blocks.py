@@ -59,12 +59,25 @@ class Conv(nn.Module):
         return self.Conv_0(x)
 
 
+class PromotedConv(Conv):
+    """A Conv that computes in the wider of its input's and its weights'
+    dtypes, as a flax Conv without `dtype` does: with bf16 weights an fp32
+    input stays fp32 and the weights are taken up to it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.Conv_0
+        ct = torch.promote_types(x.dtype, conv.weight.dtype)
+        return F.conv2d(x.to(ct), conv.weight.to(ct), conv.bias.to(ct),
+                        conv.stride, conv.padding)
+
+
 class GroupNorm32(nn.Module):
     """GroupNorm with fp32 statistics and the input dtype on output, groups =
     the largest divisor of C that is <= 32, optionally fused with the SiLU
     that follows it. Every call goes through ops.fused_groupnorm (on the
     card, the CUDA forward kernel and, under autograd, the CUDA
-    backward)."""
+    backward), whose kernel and plain version both take fp32 or bf16 scale
+    and bias and compute in fp32, rounding once at the end."""
 
     def __init__(self, channels: int, eps: float = 1e-5, silu: bool = False):
         super().__init__()

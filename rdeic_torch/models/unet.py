@@ -1,12 +1,20 @@
 """SD 2.1 UNet + the ControlNet-XS-style dual noise estimator (counterpart of
 rdeic_tpu/models/unet.py).
 
-NCHW inside; `NoiseEstimator.forward` takes and returns NHWC. Every
-GroupNorm32 goes through the GroupNorm(+SiLU) kernel on the card and every
-self-attention over >= 1024 tokens through the flash kernel. With
-`use_checkpoint`, training recomputes each encoder, middle and decoder block
-in the backward instead of keeping its activations (the JAX package's
-`nn.remat` around the same blocks).
+NCHW inside; `NoiseEstimator.forward` (the dual UNet) and
+`forward_unconditional` (the base UNet alone, the unconditional branch of
+classifier-free guidance) take and return NHWC. Every GroupNorm32 goes
+through the GroupNorm(+SiLU) kernel on the card and every self-attention
+over >= 1024 tokens through the flash kernel. With `use_checkpoint`,
+training recomputes each encoder, middle and decoder block in the backward
+instead of keeping its activations (the JAX package's `nn.remat` around the
+same blocks).
+
+A module computes in its weights' dtype (bf16 after
+`RDEIC.set_compute_dtype`): the entry points take x, the guide hint and the
+context to it, and `embed_time` the fp32 sinusoidal embedding, as a flax
+layer with `dtype` takes its inputs; GroupNorm statistics and the softmax
+stay fp32 inside.
 """
 from __future__ import annotations
 
@@ -35,7 +43,8 @@ class TimeEmbed(nn.Module):
         self.fc2 = nn.Linear(dim, dim)
 
     def forward(self, t_emb):
-        return self.fc2(F.silu(self.fc1(t_emb)))
+        """t_emb: the fp32 sinusoidal embedding, taken to the weights' dtype."""
+        return self.fc2(F.silu(self.fc1(t_emb.to(self.fc1.weight.dtype))))
 
 
 class ResBlock(nn.Module):
@@ -286,6 +295,23 @@ class UNetModel(nn.Module):
     def embed_time(self, t):
         return self.time_embed(timestep_embedding(t, self.model_channels))
 
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                context: torch.Tensor) -> torch.Tensor:
+        """The base UNet alone: x [B, H, W, C], t [B], context [B, L,
+        context_dim] -> eps [B, H, W, out], in the weights' dtype."""
+        dtype = self.out_conv.weight.dtype
+        emb = self.embed_time(t)
+        context = context.to(dtype)
+        h = nchw(x.to(dtype))
+        skips = []
+        for block in self.input_blocks:
+            h = block(h, emb, context)
+            skips.append(h)
+        h = self.mid(h, emb, context)
+        for block in self.output_blocks:
+            h = block(torch.cat([h, skips.pop()], dim=1), emb, context)
+        return nhwc(self.out_conv(self.out_norm(h)))
+
 
 class ControlModule(nn.Module):
     """Ratio-width copy of the UNet encoder + middle; its input is the
@@ -388,13 +414,15 @@ class NoiseEstimator(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 guide_hint: torch.Tensor) -> torch.Tensor:
         """x [B, H, W, 4], t [B], context [B, L, context_dim], guide_hint
-        [B, H, W, hint] -> eps [B, H, W, 4]."""
+        [B, H, W, hint] -> eps [B, H, W, 4], in the weights' dtype."""
         base, ctrl, run = self.base, self.control, self._block
+        dtype = base.out_conv.weight.dtype
+        x, context = x.to(dtype), context.to(dtype)
         emb_base = base.embed_time(t)
         emb_ctrl = ctrl.embed_time(t)
         scale = self.control_scale * self.control_scale
         h_base = nchw(x)
-        h_ctrl = nchw(torch.cat([x, guide_hint], dim=-1))
+        h_ctrl = nchw(torch.cat([x, guide_hint.to(dtype)], dim=-1))
         skips_base, skips_ctrl = [], []
         for blk_b, blk_c, zc in zip(base.input_blocks, ctrl.input_blocks,
                                     self.enc_zero_convs):
@@ -411,3 +439,9 @@ class NoiseEstimator(nn.Module):
             h_base = torch.cat([h_base, skips_base.pop()], dim=1)
             h_base = run(blk_b, h_base, emb_base, context)
         return nhwc(base.out_conv(base.out_norm(h_base)))
+
+    def forward_unconditional(self, x: torch.Tensor, t: torch.Tensor,
+                              context: torch.Tensor) -> torch.Tensor:
+        """The base UNet alone, without the control branch: the
+        unconditional eps of classifier-free guidance."""
+        return self.base(x, t, context)

@@ -9,6 +9,15 @@ ops.attention, which sends it to the flash kernel on the card.
 The decoder's `use_checkpoint` (the refine phase backpropagates through it)
 recomputes each ResnetBlock and the AttnBlock in the backward instead of
 keeping their activations, as `nn.remat` does in the JAX package.
+
+Dtypes follow the JAX package's: the encoder and decoder stacks compute in
+the weights' dtype (bf16 after `RDEIC.set_compute_dtype`; their `conv_in`
+takes the fp32 image or latent to it); `F.group_norm` keeps fp32 statistics
+and rounds its output once. The layers the JAX package builds without
+`dtype` (the encoder's and decoder's `conv_out`, `quant_conv`,
+`post_quant_conv`) compute in fp32 on the bf16 weights (`PromotedConv`), and
+the 512-ch feature leaves the encoder in fp32: the compression model and the
+stream format stay fp32.
 """
 from __future__ import annotations
 
@@ -19,7 +28,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from rdeic_torch.models.blocks import Conv, find_denominator, nchw, nhwc
+from rdeic_torch.models.blocks import (
+    Conv,
+    PromotedConv,
+    find_denominator,
+    nchw,
+    nhwc,
+)
 from rdeic_torch.ops.attention import attention
 
 
@@ -114,16 +129,16 @@ class VAEEncoder(nn.Module):
         self.mid_block_2 = ResnetBlock(cin, cin)
         self.norm_out = Normalize(cin)
         out_ch = 2 * z_channels if double_z else z_channels
-        self.conv_out = Conv(cin, out_ch, 3)
+        self.conv_out = PromotedConv(cin, out_ch, 3)
 
     def forward(self, x):
         """x [B, 3, H, W] in [-1, 1] -> (moments, 512-ch feature before
-        conv_out)."""
-        h = self.conv_in(x)
+        conv_out), both fp32."""
+        h = self.conv_in(x.to(self.conv_in.Conv_0.weight.dtype))
         for name in self.plan:
             h = getattr(self, name)(h)
         h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
-        feature = F.silu(self.norm_out(h))
+        feature = F.silu(self.norm_out(h)).float()
         return self.conv_out(feature), feature
 
 
@@ -152,7 +167,7 @@ class VAEDecoder(nn.Module):
                 self.add_module(name, Upsample(cin))
                 self.plan.append(name)
         self.norm_out = Normalize(cin)
-        self.conv_out = Conv(cin, out_ch, 3)
+        self.conv_out = PromotedConv(cin, out_ch, 3)
 
     def _block(self, block: nn.Module, h: torch.Tensor) -> torch.Tensor:
         if (self.use_checkpoint and torch.is_grad_enabled()
@@ -161,11 +176,12 @@ class VAEDecoder(nn.Module):
         return block(h)
 
     def forward(self, z):
-        h = self.conv_in(z)
+        """z [B, C, h, w] -> image [B, 3, H, W], fp32."""
+        h = self.conv_in(z.to(self.conv_in.Conv_0.weight.dtype))
         for block in (self.mid_block_1, self.mid_attn_1, self.mid_block_2,
                       *(getattr(self, name) for name in self.plan)):
             h = self._block(block, h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(F.silu(self.norm_out(h)).float())
 
 
 def sample_diagonal_gaussian(mean: torch.Tensor, logvar: torch.Tensor,
@@ -186,8 +202,8 @@ class AutoencoderKL(nn.Module):
         self.decoder = VAEDecoder(ch, ch_mult, num_res_blocks,
                                   z_channels=embed_dim,
                                   use_checkpoint=use_checkpoint)
-        self.quant_conv = Conv(2 * embed_dim, 2 * embed_dim, 1)
-        self.post_quant_conv = Conv(embed_dim, embed_dim, 1)
+        self.quant_conv = PromotedConv(2 * embed_dim, 2 * embed_dim, 1)
+        self.post_quant_conv = PromotedConv(embed_dim, embed_dim, 1)
 
     def encode_hc(self, x: torch.Tensor):
         """x NHWC in [-1, 1] -> (mean, logvar, feature), NHWC: the latent

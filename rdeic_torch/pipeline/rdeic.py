@@ -8,8 +8,10 @@ loads through rdeic_torch.utils.convert with one rule.
 
 The main path: image -> VAE `encode_hc` -> compression + host rANS ->
 bitstream file -> decompress to (c_latent, guide_hint) -> relay init at
-t = used_timesteps - 1 -> spaced-DDPM over the dual UNet -> VAE decode.
-Noise is explicit: pass the tensors, or a `torch.Generator` to draw them.
+t = used_timesteps - 1 -> spaced DDPM or DDIM over the dual UNet (with
+classifier-free guidance, the base UNet alone a second time each step) ->
+VAE decode. Noise is explicit: pass the tensors, or a `torch.Generator` to
+draw them.
 
 Training (`loss_fn`): VAE encode with a posterior sample, under no grad ->
 the compression model's forward with noisy likelihoods and the CVQ losses ->
@@ -23,7 +25,9 @@ the compression model's forward with noisy likelihoods and the CVQ losses ->
 Numerics: the VAE and the denoiser run in full fp32 (`full_fp32`: no TF32,
 which cuDNN convolutions would use by default), so the card computes what the
 CPU reference computes; the codec adds its own deterministic settings. A
-training step runs its forward and its backward inside the scope.
+training step runs its forward and its backward inside the scope. Serving
+may run the VAE and the denoiser in bf16 (`set_compute_dtype`); the
+compression model, the codec and the sampler's state stay fp32.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ import math
 import torch
 from torch import nn
 
-from rdeic_torch.diffusion import spaced
+from rdeic_torch.diffusion import ddim, spaced
 from rdeic_torch.diffusion.schedule import NoiseSchedule
 from rdeic_torch.models.compression import CompressionModel
 from rdeic_torch.models.lpips import LPIPS, warn_random_backbone
@@ -44,6 +48,11 @@ from rdeic_torch.models.vae import AutoencoderKL, sample_diagonal_gaussian
 from rdeic_torch.pipeline.codec import CompressionCodec
 from rdeic_torch.utils.backend import full_fp32, resolve_device
 from rdeic_torch.utils.bitstream import filesize, read_body, write_body
+
+
+# sampler name -> (coefficient tables, sampling loop)
+SAMPLERS = {"ddpm": (spaced.make_spaced_coefficients, spaced.sample),
+            "ddim": (ddim.make_ddim_coefficients, ddim.sample)}
 
 
 def _cfg_params(cfg: Optional[Mapping[str, Any]]) -> dict:
@@ -105,6 +114,19 @@ class RDEIC(nn.Module):
         with device:
             self._build(ctrl, unet, vae_cfg, comp)
         self._codec: Optional[CompressionCodec] = None
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> None:
+        """Serve in `dtype` (bf16): cast the weights of `vae`, `denoiser` and
+        `lpips` (when present) and the `uncond_context`, the rule of the JAX
+        package's `cast_inference_params`; a torch module computes in its
+        weights' dtype, so this also does what its `set_compute_dtype`
+        does. `compression` and `vq_embed_prob` stay fp32: their outputs
+        parameterise the entropy coder, and the stream format pins them.
+        GroupNorm statistics and the softmax stay fp32 inside the modules."""
+        for name in ("vae", "denoiser", "lpips"):
+            if hasattr(self, name):
+                getattr(self, name).to(dtype)
+        self.uncond_context = self.uncond_context.to(dtype)
 
     def _build(self, ctrl: dict, unet: dict, vae_cfg: dict, comp: dict) -> None:
         self.denoiser = NoiseEstimator(
@@ -169,31 +191,59 @@ class RDEIC(nn.Module):
                        dtype=torch.long, device=c_latent.device)
         return self.schedule.q_sample(c_latent, t, noise)
 
+    def apply_model_unconditional(self, x: torch.Tensor, t: torch.Tensor,
+                                  context: torch.Tensor) -> torch.Tensor:
+        """eps of the base UNet alone (the unconditional branch of
+        classifier-free guidance)."""
+        return self.denoiser.forward_unconditional(x, t, context)
+
     @full_fp32()
     def sample(self, c_latent, guide_hint, context, steps: int, *,
+               sampler: str = "ddpm", guidance_scale: float = 1.0,
+               uncond_context: torch.Tensor | None = None,
                relay_noise: torch.Tensor | None = None,
                step_noise: Sequence[torch.Tensor] | None = None,
                generator: torch.Generator | None = None):
-        """Relay spaced-DDPM sampling from the decoded latent -> denoised
-        latent (NHWC). Noise the caller does not pass is drawn from
-        `generator`."""
+        """Relay sampling from the decoded latent -> denoised latent (NHWC),
+        by the spaced DDPM ("ddpm") or the DDIM ("ddim", eta 0) sampler.
+        With `guidance_scale` != 1 each step also runs the base UNet on
+        `uncond_context` (default: `context`) and mixes the two eps. Noise
+        the caller does not pass is drawn from `generator`."""
+        if sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}")
         if relay_noise is None:
             relay_noise = torch.randn(c_latent.shape, generator=generator,
                                       device=c_latent.device, dtype=c_latent.dtype)
         x_T = self.relay_init(c_latent, relay_noise)
-        coeffs = spaced.make_spaced_coefficients(self.schedule,
-                                                 self.used_timesteps, steps)
-        return spaced.sample(
-            lambda x, t: self.denoiser(x, t, context, guide_hint), x_T, coeffs,
-            noise=step_noise, generator=generator)
+
+        def denoise(x, t):
+            return self.denoiser(x, t, context, guide_hint)
+
+        uncond_fn = None
+        if guidance_scale != 1.0:
+            uctx = context if uncond_context is None else uncond_context
+
+            def uncond_fn(x, t):
+                return self.apply_model_unconditional(x, t, uctx)
+
+        make, run = SAMPLERS[sampler]
+        return run(denoise, x_T, make(self.schedule, self.used_timesteps, steps),
+                   noise=step_noise, generator=generator, uncond_fn=uncond_fn,
+                   guidance_scale=guidance_scale)
 
     @torch.no_grad()
-    def decode_pipeline(self, c_latent, guide_hint, steps: int,
+    def decode_pipeline(self, c_latent, guide_hint, steps: int, *,
+                        sampler: str = "ddpm", guidance_scale: float = 1.0,
+                        context: torch.Tensor | None = None,
                         **noise) -> torch.Tensor:
-        """(c_latent, guide_hint) -> RGB NHWC in [0, 1]. `noise`: the
-        keyword arguments of `sample` (relay_noise, step_noise, generator)."""
-        context = self.get_learned_conditioning(c_latent.shape[0])
-        samples = self.sample(c_latent, guide_hint, context, steps, **noise)
+        """(c_latent, guide_hint) -> RGB NHWC in [0, 1]. `context` defaults
+        to the stored empty prompt; `noise`: the keyword arguments of
+        `sample` (relay_noise, step_noise, generator)."""
+        if context is None:
+            context = self.get_learned_conditioning(c_latent.shape[0])
+        samples = self.sample(c_latent, guide_hint, context, steps,
+                              sampler=sampler, guidance_scale=guidance_scale,
+                              **noise)
         return torch.clamp((self.decode_first_stage(samples) + 1) / 2, 0.0, 1.0)
 
     # -- training ----------------------------------------------------------------
@@ -326,7 +376,9 @@ class RDEIC(nn.Module):
     def apply_condition_compress(self, img01: torch.Tensor, stream_path, H: int,
                                  W: int) -> float:
         """img01 [1, H, W, 3] in [0, 1] -> bitstream file; returns the bpp
-        of the file over H x W."""
+        of the file over H x W. The feature reaches the compression model
+        in fp32 under a bf16 VAE too (the encoder returns it so, as flax
+        promotes a bf16 input of an fp32 layer)."""
         _, h = self.encode_first_stage(img01 * 2 - 1)
         out = self.codec().compress(h)
         with Path(stream_path).open("wb") as f:

@@ -502,3 +502,140 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         with pytest.raises(ValueError):
             group_norm_bwd(x, w, b, bad, inv, x, 32)
     assert group_norm_bwd.launches == before
+
+
+# -- the serving options on the card: DDIM, classifier-free guidance, bf16 ----
+
+# A micro RDEIC whose attention head dims are ones the flash kernels take:
+# at 128x128 the VAE's mid-block (L = 4096, d = 16) and every UNet and
+# control SpatialTransformer (L = 1024 at the 32x32 level, d = 16) reach the
+# flash kernel, and every GroupNorm32 the GroupNorm kernel
+CARD_MICRO = dict(
+    control_stage_config=dict(params=dict(
+        in_channels=4, out_channels=4, hint_channels=8, model_channels=32,
+        num_res_blocks=1, attention_resolutions=[2], channel_mult=[1, 2],
+        num_head_channels=16, context_dim=16, control_model_ratio=0.5,
+        control_scale=1.0)),
+    unet_config=dict(params=dict(num_head_channels=16)),
+    first_stage_config=dict(params=dict(
+        embed_dim=4, ddconfig=dict(ch=8, ch_mult=[1, 2], num_res_blocks=1))),
+    preprocess_config=dict(params=dict(
+        in_nc=16, out_nc=4, N=8, M=8, slice_num=2, slice_ch=[4, 4],
+        codebook_size=32)),
+    fixed_step=2, used_timesteps=300, timesteps=1000,
+)
+CARD_LATENT = (1, 64, 64, 4)  # of a 128x128 image
+SERVE_STEPS = 2
+# bf16, card vs CPU: the RMS of the difference over the RMS of the CPU's
+# result. The two bf16 runs round other ways (their products sum in other
+# orders) and land about as far apart as each from the fp32 result, ~2e-2
+# of max at the worst element at full width (chip_smoke.py's BF16_REF_TOL)
+BF16_PAIR_TOL = 2.0 ** -6
+
+
+def _serving_models(cuda, bf16: bool = False):
+    """(CPU model, card copy) of CARD_MICRO from seed 0, in bf16 when
+    asked."""
+    from rdeic_torch.pipeline.rdeic import RDEIC  # noqa: PLC0415
+
+    torch.manual_seed(0)
+    cpu = RDEIC(**CARD_MICRO, device="cpu").eval()
+    if bf16:
+        cpu.set_compute_dtype(torch.bfloat16)
+    card = RDEIC(**CARD_MICRO, device="meta").eval()
+    card.load_state_dict({k: v.to(cuda) for k, v in cpu.state_dict().items()},
+                         assign=True)
+    return cpu, card
+
+
+def _serving_inputs(device):
+    rng = np.random.default_rng(1)
+    shapes = [CARD_LATENT, (*CARD_LATENT[:3], 8)] + [CARD_LATENT] * (1 + SERVE_STEPS)
+    c_latent, hint, relay, *steps = (
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+        for s in shapes)
+    return c_latent, hint, dict(relay_noise=relay, step_noise=steps)
+
+
+def _decode(model, device, **kw):
+    c_latent, hint, noise = _serving_inputs(device)
+    return model.decode_pipeline(c_latent, hint, SERVE_STEPS, **noise, **kw)
+
+
+@pytest.mark.parametrize("sampler,guidance", [("ddim", 1.0), ("ddpm", 2.0),
+                                              ("ddim", 2.0)])
+def test_sampler_options_on_cuda_match_cpu(cuda, sampler, guidance):
+    cpu, card = _serving_models(cuda)
+    before = (flash_attention.launches, group_norm.launches)
+    got = _decode(card, cuda, sampler=sampler, guidance_scale=guidance).cpu()
+    assert flash_attention.launches > before[0]
+    assert group_norm.launches > before[1]
+    want = _decode(cpu, torch.device("cpu"), sampler=sampler,
+                   guidance_scale=guidance)
+    assert got.shape == (1, 128, 128, 3) and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 2e-3 < (got * FAULT_SCALE - want).abs().max().item(), err
+
+
+def test_bf16_decode_on_cuda_matches_cpu(cuda):
+    cpu, card = _serving_models(cuda, bf16=True)
+    flash_attention.shapes.clear()
+    group_norm.shapes.clear()
+    got = _decode(card, cuda, sampler="ddim", guidance_scale=2.0).cpu()
+    for fn in (flash_attention, group_norm):
+        assert fn.shapes and {k[-1] for k in fn.shapes} == {"bfloat16"}
+    want = _decode(cpu, torch.device("cpu"), sampler="ddim",
+                   guidance_scale=2.0)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+
+    def rel_rms(a, b):
+        return ((a - b).square().mean() / b.square().mean()).sqrt().item()
+
+    err, fault = rel_rms(got, want), rel_rms(got * FAULT_SCALE, want)
+    assert err <= BF16_PAIR_TOL < fault, (err, fault)
+
+
+def test_bf16_stream_round_trip_is_bit_exact(cuda, tmp_path):
+    """A bf16 model's stream decodes to its encoder's own synthesis bit for
+    bit, and to the same latents under the fp32 model: the compression model
+    and the codec stay fp32."""
+    _, card16 = _serving_models(cuda, bf16=True)
+    _, card32 = _serving_models(cuda)
+    img = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(1, 128, 128, 3)).astype(np.float32)).to(cuda)
+    stream = tmp_path / "bf16.rdeic"
+    card16.apply_condition_compress(img, stream, 128, 128)
+    c_latent, hint = card16.apply_condition_decompress(stream)
+    with torch.no_grad():
+        _, feature = card16.encode_first_stage(img * 2 - 1)
+        enc = card16.codec().compress(feature)["latents"]
+    assert feature.dtype == torch.float32
+    assert torch.equal(c_latent, enc[0]) and torch.equal(hint, enc[1])
+    for a, b in zip((c_latent, hint), card32.apply_condition_decompress(stream)):
+        assert torch.equal(a, b)
+
+
+def test_guidance_launch_counts_follow_the_structure(cuda):
+    """Each guided step runs the base UNet alone once more: one more flash
+    launch per base SpatialTransformer (all at L = 1024 here) and one more
+    GroupNorm launch per base GroupNorm32; the VAE decoder adds one flash
+    launch."""
+    from rdeic_torch.models.unet import SpatialTransformer  # noqa: PLC0415
+
+    _, card = _serving_models(cuda)
+    den = card.denoiser
+    counts = {}
+    for guidance in (1.0, 2.0):
+        before = (flash_attention.launches, group_norm.launches)
+        _decode(card, cuda, guidance_scale=guidance)
+        counts[guidance] = (flash_attention.launches - before[0],
+                            group_norm.launches - before[1])
+
+    def count(kind, module):
+        return sum(isinstance(m, kind) for m in module.modules())
+
+    assert counts[1.0] == (SERVE_STEPS * count(SpatialTransformer, den) + 1,
+                           SERVE_STEPS * count(GroupNorm32, den))
+    assert counts[2.0] == (
+        counts[1.0][0] + SERVE_STEPS * count(SpatialTransformer, den.base),
+        counts[1.0][1] + SERVE_STEPS * count(GroupNorm32, den.base))

@@ -94,6 +94,6 @@ def test_cli_runs_the_slice_on_cpu(tmp_path, slice_run):
     assert np.array(Image.open(tmp_path / "out" / "photo.png")).shape == (49, 77, 3)
     stream = (tmp_path / "out" / "bitstreams" / "photo.rdeic").read_bytes()
     assert stream == slice_run["j_path"].read_bytes()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_inference.main(["--ckpt", "x.npz", "--input", "x", "--output", "y",
-                          "--sampler", "ddim", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # orbax
+        t_inference.main(["--ckpt", str(tmp_path), "--input", "x",
+                          "--output", "y", "--device", "cpu"])

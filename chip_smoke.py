@@ -10,8 +10,8 @@ and g++; no network. Phases, each fatal on failure:
 2. build: nvcc (forward and backward flash kernels, GroupNorm forward and
    backward) and g++ start together on the sources in the checkout; ptxas's
    registers and spills of each CUDA kernel are logged by name, and a
-   flash kernel (all run on the tensor cores) or the GroupNorm backward that
-   spills fails the run;
+   flash kernel (all run on the tensor cores; any entry whose mangled name
+   holds `flash_`) or the GroupNorm backward that spills fails the run;
 3. main path at the full width of configs/model/rdeic.yaml (random weights
    from --seed): the CLI's per-image `rdeic_torch.inference.process` codes a
    synthetic 768x512 image to a stream file, decodes it back, relay-samples
@@ -81,6 +81,9 @@ and g++; no network. Phases, each fatal on failure:
    A flash row's bound takes the rate named in its `bound_rate`
    (flash_rate): for fp32, the TF32 tensor cores over the three passes of
    3xTF32, which every flash kernel runs; for bf16, the card's bf16 peak.
+   Each forward row names its CUDA kernel (`kernel`: the bf16 forward at
+   d = 64 and 512 runs flash_fwd_d64_bf16 / flash_fwd_d512_bf16), and a
+   log line gives each bf16 row's times beside SDPA's bf16 call.
    Each comparison also reads a planted fault (the kernel's output scaled
    by 1.05) and fails if that reading is within the limit; the backward
    kernels also give the same bits on a second launch. A log line gives the
@@ -255,6 +258,11 @@ TF32_FLOPS = 494.7e12
 # Head dims whose flash kernels run on the tensor cores in TF32, an fp32
 # product as three TF32 products (3xTF32), forward and backward
 TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (16, 64, 512)}
+# Head dims whose bf16 forward has kernels of its own on the bf16 tensor
+# cores (flash_fwd_d64_bf16, flash_fwd_d512_bf16: bf16 mma.sync m16n8k16);
+# the bf16 forward at d = 16 and the bf16 backward are the fp32 kernels'
+# templates on bf16 tiles (TF32 mma.sync)
+BF16_FWD_HEAD_DIMS = (64, 512)
 FAULT_SCALE = 1.05  # a planted output-scale error each check must see
 # bf16 serving, card vs CPU: the RMS of the difference over the RMS of the
 # CPU's result (the measure PSNR reads). Each bf16 run rounds every layer's
@@ -363,20 +371,28 @@ def phase_build():
     spills = []
     for lib in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_fwd",
                 "group_norm_bwd"):
-        kernel = "?"
+        kernel = mangled = "?"
         for line in build.build_log(libs[lib]).splitlines():
-            m = re.search(r"\d(flash_(?:fwd|dq|dkv)_d(?:16|64|512)|gn_[fb]wd)"
-                          r"I(f|13__nv_bfloat16)((?:L[ib]\d+E)*)", line)
-            if "Compiling entry function" in line and m:  # a mangled name
-                ints = re.findall(r"L[ib](\d+)E", m[3])  # template ints
-                what, n = {"fwd": ("vec", 1), "bwd": ("vec", 1)}.get(
-                    m[1].rsplit("_", 1)[-1], ("", 0))
-                kernel = (f"{m[1]}<{'fp32' if m[2] == 'f' else 'bf16'}"
-                          + (f", {what} = {', '.join(ints[:n])}" if ints else "")
-                          + ">")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:  # a mangled name; a name the pattern misses stays whole
+                mangled = kernel = entry[1]
+                m = re.search(r"\d(flash_(?:fwd|dq|dkv)_d(?:16|64|512)(?:_bf16)?"
+                              r"|gn_[fb]wd)(?:I(f|13__nv_bfloat16)"
+                              r"((?:L[ib]\d+E)*))?", mangled)
+                if m and m[2]:  # a template: its type and ints
+                    ints = re.findall(r"L[ib](\d+)E", m[3])
+                    what, n = {"fwd": ("vec", 1), "bwd": ("vec", 1)}.get(
+                        m[1].rsplit("_", 1)[-1], ("", 0))
+                    kernel = (f"{m[1]}<{'fp32' if m[2] == 'f' else 'bf16'}"
+                              + (f", {what} = {', '.join(ints[:n])}"
+                                 if ints else "") + ">")
+                elif m:
+                    kernel = m[1]
             elif "registers" in line or "spill" in line:
                 log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
-                if (re.match(r"flash_|gn_bwd<", kernel)
+                # every flash kernel and the GroupNorm backward, found in
+                # the mangled name, so a renamed one is guarded too
+                if (re.search(r"flash_|gn_bwd", mangled)
                         and re.search(r"[1-9]\d* bytes spill", line)):
                     spills.append(kernel)
     if spills:
@@ -917,12 +933,20 @@ def _bound_ms(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_fwd_kernel(d: int, dtype) -> str:
+    """The CUDA kernel behind a flash forward call (csrc/flash_attn_fwd.cu)."""
+    if dtype == torch.bfloat16 and d in BF16_FWD_HEAD_DIMS:
+        return f"flash_fwd_d{d}_bf16"
+    return f"flash_fwd_d{d}<{'fp32' if dtype == torch.float32 else 'bf16'}>"
+
+
 def flash_rate(d: int, dtype, backward: bool = False) -> tuple[float, str]:
     """(flop/s, its name) that bounds a flash kernel (forward, or dq and
     dkv when `backward`) at head dim d. fp32: the TF32 tensor cores over the
     three passes of 3xTF32 where the kernel runs them (TC_HEAD_DIMS), else
     fp32 FMA. bf16: the card's bf16 peak, whichever route the kernel takes
-    (its TF32 products could be bf16 ones)."""
+    (bf16 mma at BF16_FWD_HEAD_DIMS; elsewhere its TF32 products could be
+    bf16 ones)."""
     tc = TC_HEAD_DIMS["backward" if backward else "forward"]
     if dtype == torch.float32 and d in tc:
         return TF32_FLOPS / 3, f"TF32 tensor cores {TF32_FLOPS / 1e12:g} / 3 passes"
@@ -969,7 +993,8 @@ def check_flash(device, shape, dtype, reps):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     bound, by, rate = _flash_bound_ms(4 * q.numel() * q.element_size(),
                                       4.0 * b * h * seq * seq * d, d, dtype)
-    return {**r, "bound_ms": bound, "bound_by": by, "bound_rate": rate,
+    return {**r, "kernel": flash_fwd_kernel(d, dtype), "bound_ms": bound,
+            "bound_by": by, "bound_rate": rate,
             **timings(lambda: flash_attention(q, k, v),
                       lambda: F.scaled_dot_product_attention(qt, kt, vt), reps),
             "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2)}
@@ -1108,6 +1133,8 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
                                           name != "flash_attn_fwd_lse")
         rows_out[name] = {**r, "bound_ms": bound, "bound_by": by,
                           "bound_rate": rate,
+                          **({"kernel": flash_fwd_kernel(d, dtype)}
+                             if name == "flash_attn_fwd_lse" else {}),
                           "ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps)[0],
                           "plain_ms": plain, "library_ms": library,
                           "library_device_ms": library_dev}
@@ -1186,6 +1213,8 @@ def summarize(name, route, source, replaces, path, runs, rows):
                if "backward_bound_ms" in rows[0] else {}),
             **({"bound_rates": sorted({r["bound_rate"] for r in rows})}
                if "bound_rate" in rows[0] else {}),
+            **({"cuda_kernels": sorted({r["kernel"] for r in rows})}
+               if "kernel" in rows[0] else {}),
             "shapes": rows}
 
 
@@ -1394,6 +1423,15 @@ def phase_kernels(device, runs) -> list:
             log(f"[kernels] flash forward per image at d = {d}, {path} "
                 f"({sum(r['calls'][path] for r in rows):g} calls): "
                 + ", ".join(f"{k} {v:.3f}" for k, v in per.items()))
+    for r in flash_rows:
+        if r["shape"][4] == "bfloat16":
+            log(f"[kernels] flash bf16 forward per call {r['shape'][:4]} "
+                f"({r['kernel']}, {r['calls'].get('serve_bf16', 0):g} an "
+                f"image): {r['ms']:.4f} ms (device {r['device_ms']:.4f}); "
+                f"SDPA bf16 {r['library_ms']:.4f} (device "
+                f"{r['library_device_ms']:.4f}); bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}); max|diff| {r['max_abs_err']:.3g} of "
+                f"limit {r['tol']:.3g}")
     log(f"[kernels] SDPA's backend at the VAE's d = 512 in fp32: "
         f"{sdpa_backend((2, 4096, 1, 512), device)}")
     return lines

@@ -3,7 +3,8 @@
 Five shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``flash_attn_fwd`` and ``flash_attn_bwd``: ``csrc/flash_attn_{fwd,bwd}.cu``
-  (with ``csrc/flash_common.cuh`` and ``csrc/flash_mma.cuh``), compiled by
+  (with ``csrc/flash_common.cuh``, ``csrc/flash_mma.cuh`` and
+  ``csrc/flash_bf16.cuh``), compiled by
   ``nvcc`` for ``sm_90a``
   (only where the CUDA toolkit is installed);
 - ``group_norm_fwd`` and ``group_norm_bwd``: ``csrc/group_norm_{fwd,bwd}.cu``
@@ -30,7 +31,8 @@ BUILD_DIR = PACKAGE / "_build"
 FLASH_SRC = PACKAGE / "csrc" / "flash_attn_fwd.cu"
 FLASH_BWD_SRC = PACKAGE / "csrc" / "flash_attn_bwd.cu"
 FLASH_HEADERS = (PACKAGE / "csrc" / "flash_common.cuh",
-                 PACKAGE / "csrc" / "flash_mma.cuh")
+                 PACKAGE / "csrc" / "flash_mma.cuh",
+                 PACKAGE / "csrc" / "flash_bf16.cuh")
 GROUP_NORM_SRC = PACKAGE / "csrc" / "group_norm_fwd.cu"
 GROUP_NORM_BWD_SRC = PACKAGE / "csrc" / "group_norm_bwd.cu"
 GROUP_NORM_HEADERS = (PACKAGE / "csrc" / "group_norm_common.cuh",)

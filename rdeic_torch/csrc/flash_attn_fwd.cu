@@ -8,7 +8,7 @@
 //
 // Layout: q, k, v, o are contiguous [B, L, H, D] (the layout the attention
 // modules produce, so no transpose is needed around the call); fp32 or bf16
-// in, the same type out, all arithmetic in fp32.
+// in, the same type out, every sum and the softmax in fp32.
 //
 // lse: optional [B*H, L] fp32 output, the row logsumexp m + log(l) of the
 // scaled scores, for the backward kernels (flash_attn_bwd.cu). A null
@@ -16,6 +16,11 @@
 //
 // Design: one block owns one (b*h, q-tile) pair and loops over the K/V tiles
 // itself (the TPU kernel's sequential k grid axis becomes this loop).
+//
+// fp32 runs the kernels below at every head dim, and so does bf16 at d = 16
+// (the fp32 template on bf16 values, which are exact in TF32). bf16 at
+// d = 64 and d = 512 runs kernels of its own on the bf16 tensor cores
+// (flash_fwd_d64_bf16, flash_fwd_d512_bf16; "bf16", further below).
 //
 // d = 16 (the control branch's attention: [1, 6144, 4, 16] and
 // [1, 1536, 8, 16] per denoiser call at 768x512, [2, 4096, 4, 16] and
@@ -59,7 +64,7 @@
 //   reductions are two shuffles inside a lane's quad; scores never meet in
 //   shared memory.
 // - Q is split once into big and small TF32 A fragments and held in
-//   registers for the whole K loop (64 registers in fp32, 32 in bf16).
+//   registers for the whole K loop (64 registers).
 // - K and V tiles of 64 rows are double-buffered: cp.async copies the next
 //   pair while the current one is used. K is swizzled (stride 72) for
 //   ldmatrix; V has stride 68 (4 mod 32 banks).
@@ -67,8 +72,7 @@
 //   8 keys the contraction order is permuted (k-slot t is key 2t, slot t + 4
 //   key 2t + 1), so the C fragment is the A fragment as it stands, and V's B
 //   fragment reads rows 2t and 2t + 1, which stride 68 puts on 32 banks.
-// - fp32: every product takes three TF32 passes; bf16 operands are exact in
-//   TF32, so Q K^T takes one and P V two (P is split, V is not).
+// - Every product takes three TF32 passes.
 // - The K tail is masked to -1e30 and the output divided by max(l, 1e-30).
 // - Grid (q tiles, b*h), two blocks of 88 KB per SM: [1, 1536, 10, 64] gives
 //   240 blocks for 264 slots, [1, 6144, 5, 64] 480 (1.8 waves).
@@ -78,8 +82,7 @@
 // flash_fwd_d512, on the tensor cores: TF32 mma.sync (m16n8k8) with fp32
 // accumulators, each fp32 product taken as three TF32 products (3xTF32,
 // flash_mma.cuh), because one TF32 pass misses the fp32 limit of 2e-5 by
-// ten times while the split lands beside plain fp32. bf16 inputs are exact
-// in TF32: Q K^T takes one pass, P V two (P is split, V is not).
+// ten times while the split lands beside plain fp32.
 // - Tiles: 32 q rows and 32 k rows. Q, K and V live in shared memory as fp32
 //   in the swizzled layout of flash_mma.cuh (stride D + 8, column XOR
 //   (row & 4)), so the fragment loads of every role hit 32 banks: 3 x 65 KB,
@@ -97,12 +100,12 @@
 // - Copies: fp32 tiles come by cp.async.cg, 16 bytes a lane, zero-filled past
 //   L. K and V have one buffer each and take turns: the next K tile is
 //   copied while the softmax and P V run, the next V tile while the next
-//   score phase runs. bf16 tiles widen to fp32 through registers.
+//   score phase runs.
 // - Grid: one block per (32-row q tile, b*h): [1, 6144, 1, 512] gives 192
 //   blocks on 132 SMs, 1.45 waves, so the second wave runs 60 blocks on 132
 //   SMs and the tail costs up to 27% of the kernel's time; [2, 4096, 1, 512]
 //   gives 256 blocks, 1.94 waves.
-// - ptxas -v: 198 registers (fp32), 212 (bf16), no spills.
+// - ptxas -v: 198 registers, no spills.
 // What it does about the FMA design it replaces: tensor cores in place of
 // fp32 FMA; 16-byte asynchronous copies that overlap compute in place of
 // element loads through registers; 0.25 shared-memory loads per mma in the
@@ -111,12 +114,71 @@
 // per fp32 product, mma.sync's rate on Hopper (wgmma is the full-rate
 // instruction), and one block of 8 warps per SM to hide their latency.
 //
+// bf16 at d = 64 and d = 512 (the `--bf16` serving path: [1, 6144, 5, 64]
+// and [1, 1536, 10, 64] ten times an image each, [1, 6144, 1, 512] twice;
+// with lse where training calls them) runs flash_fwd_d64_bf16 and
+// flash_fwd_d512_bf16, built from the pieces of flash_bf16.cuh:
+// - Tiles stay bf16 in shared memory, half the bytes of the fp32 tiles the
+//   template widened them to, in a swizzled layout (chunk c of a row at
+//   c ^ (row & 7)) that puts every copy and every ldmatrix phase, with and
+//   without .trans, on 32 banks. cp.async.cg copies 16 bytes (8 values) a
+//   lane, zero-filled past L, so the next tiles are in flight while the
+//   current ones are used.
+// - Products: mma.sync m16n8k16 with bf16 operands and fp32 accumulators,
+//   twice the depth and rate of TF32 m16n8k8. A and K's B fragments come by
+//   ldmatrix.x4, V's by ldmatrix.x4.trans. bf16 products are exact in fp32,
+//   so S = Q K^T takes one pass.
+// - P as A: the C fragments of two adjacent 8-key tiles, rounded to bf16
+//   and packed pairwise, are P V's A fragment as they stand.
+// - P's precision: one bf16 term. The rule: one term only if it reads at
+//   most half the card's limit (two bf16 ulps of max|plain|, so one ulp)
+//   at every path shape and at L = 1000 and 8192; otherwise two (hi =
+//   bf16(P), lo = bf16(P - hi)). The CPU emulation of these kernels
+//   (tests/test_torch_port_flash_bf16.py) reads one term at 0.5-1.0 ulp
+//   after the bf16 store (0.2-0.3 ulp before it) and two terms at 0.25-0.5;
+//   the card reads one term at 0.5-1.0 ulp at every path and check shape
+//   (chip_smoke.py phase 9, NVIDIA H100 80GB HBM3 at 700 W).
+// - The softmax runs in log2 units, one fmaf and one ex2.approx.ftz a score
+//   (subnormal p flush to 0), and lse = m ln 2 + ln l.
+// - mma.sync rounds its sums toward zero. With P in one bf16 term, P's own
+//   rounding outweighs that ~100 times (emulation), so P V sums into one
+//   accumulator over the whole L, without the per-tile partials of d = 16.
+// d = 64: 128-row q tiles of 4 warps, 32 q rows a warp (two m-tiles: each K
+// and V fragment serves both, half the ldmatrix a product of 16-row warps),
+// 64-key tiles in a ring of three K / V buffers (one barrier a tile), 64 KB
+// and 247 registers, two blocks per SM: [1, 6144, 5, 64] gives 240 blocks
+// for 264 slots and [1, 1536, 10, 64] 120, one wave each. 128-row q tiles
+// halve the K and V tiles each block reads through L2 against 64-row ones.
+// d = 512: 64-row q tiles of 16 warps (512 threads, 128 registers each, one
+// block per SM) share each 32-key K and V tile (154 KB with Q, the partial
+// scores and P): [1, 6144, 1, 512] gives 96 blocks and [2, 4096, 1, 512]
+// 128, one wave on 132 SMs. Score phase: warp (rows 16 rq.., keys 16 kh..,
+// d half dh) sums its 16 x 16 patch over 256 of d (one ldmatrix of Q and
+// one of K a step for two mma); the two d halves meet in shared memory as
+// fp32, where 8 threads a row run the softmax and store P as bf16. P V
+// phase: warp owns O[32 rows, 64 of d] (64 accumulators a thread), P's A
+// fragments by ldmatrix, V's by ldmatrix.trans, each V fragment serving two
+// m-tiles. K and V take turns in one buffer each, as in the fp32 kernel.
+// Reach (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W), against the bf16
+// bound and SDPA's bf16 call: see PERF.md §6. What holds them back now:
+// mma.sync and ldmatrix issue (at d = 64 the two products take most of the
+// time: a kernel without either ran much faster), the softmax's fp32 and
+// MUFU work in the same warps between them, and at d = 512 one block of 16
+// warps per SM with three barriers a tile. wgmma
+// would take B straight from shared memory at the full 989 TFLOP/s rate,
+// with A (Q, or P from registers) for 64 rows a warpgroup, and TMA would
+// free the copies' threads; warp-specialised producers and two softmax
+// warpgroups in ping-pong would overlap the exponentials with the products.
+//
 // Bound on the H100: 4*L^2*D*H*B flops (S and P V) and 4*B*L*H*D elements
-// of traffic. Every head dim runs 3xTF32 on the tensor cores, three TF32
-// products for each fp32 one, so the rate is 494.7 / 3 = 165 TFLOP/s (bf16:
-// one or two passes). At the main path's L = 1536..6144 the flops bound
-// every shape, by one to three orders of magnitude.
+// of traffic. fp32 runs 3xTF32 on the tensor cores at every head dim, three
+// TF32 products for each fp32 one, so the rate is 494.7 / 3 = 165 TFLOP/s;
+// bf16 takes the bf16 peak, 989 TFLOP/s. At the main path's L = 1536..6144
+// the flops bound every shape, by one to three orders of magnitude.
 
+#include <type_traits>
+
+#include "flash_bf16.cuh"
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
@@ -716,6 +778,416 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace d16
 
+// bf16 at d = 64 on the bf16 tensor cores (header). One block: (128-row q
+// tile blockIdx.x, b*h blockIdx.y), 4 warps; warp w owns q rows 32 w.. of
+// the tile and keeps their scores, softmax state and output in registers.
+namespace d64_bf16 {
+
+using rdeic_flash::bf16::bf16_t;
+constexpr int D = 64, BQ = 128, BK = 64, NT = 128;
+constexpr int kRow = D * 2;  // bytes of a tile row
+constexpr int kSmemBytes = (BQ + 6 * BK) * kRow;  // Q, 3 K, 3 V: 64 KB
+static_assert(2 * (kSmemBytes + 1024) <= 233472, "two blocks per SM");
+
+__global__ void __launch_bounds__(NT, 2)
+    flash_fwd_d64_bf16(const bf16_t* __restrict__ q,
+                       const bf16_t* __restrict__ k,
+                       const bf16_t* __restrict__ v, bf16_t* __restrict__ o,
+                       float* __restrict__ lse, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  using bf16::exp2_ftz, bf16::kLn2, bf16::kLog2e, bf16::ldsm_x4,
+      bf16::ldsm_x4_trans, bf16::load_tile, bf16::mma, bf16::pack;
+  extern __shared__ __align__(128) unsigned char smem_d64b[];
+  bf16_t* qs = reinterpret_cast<bf16_t*>(smem_d64b);  // [BQ][D]
+  bf16_t* ks = qs + BQ * D;                            // [3 buffers][BK][D]
+  bf16_t* vs = ks + 3 * BK * D;                        // [3 buffers][BK][D]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16::Lane ln(lane);
+  const uint32_t sq = bf16::smem_addr(qs) + (warp * 32 + ln.ar) * kRow;
+  const uint32_t sk = bf16::smem_addr(ks) + ln.br * kRow;
+  const uint32_t sv = bf16::smem_addr(vs) + ln.ar * kRow;
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const bf16_t* kb = k + base;
+  const bf16_t* vb = v + base;
+  const float c = scale * kLog2e;  // scores in log2 units, for ex2
+
+  load_tile<BQ, D, NT>(qs, q + base, q0, L, row);
+  load_tile<BK, D, NT>(ks, kb, 0, L, row);
+  load_tile<BK, D, NT>(vs, vb, 0, L, row);
+  cp_async_commit();
+  const int nk = (L + BK - 1) / BK;
+  if (nk > 1) {
+    load_tile<BK, D, NT>(ks + BK * D, kb, BK, L, row);
+    load_tile<BK, D, NT>(vs + BK * D, vb, BK, L, row);
+  }
+  cp_async_commit();
+
+  // the warp's 32 q rows as the A fragments of two m-tiles; m-tile mt's
+  // rows g (r = 0) and g + 8 (r = 1): the running max, and the lane's part
+  // of the running sum (its quad adds the four parts at the end)
+  uint32_t qf[2][D / 16][4];
+  float m_run[2][2], l_run[2][2];
+  float acc[2][D / 8][4];  // O[32 rows][64]: n-tile n holds columns 8 n..
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m_run[mt][r] = kNegInf, l_run[mt][r] = 0.f;
+  zero(acc);
+  // a ring of three K / V buffers: tile j in buffer j % 3, two in flight
+  for (int j = 0, cur = 0; j < nk; ++j, cur = cur == 2 ? 0 : cur + 1) {
+    const int k0 = j * BK;
+    cp_async_wait<1>();  // this pair (the next may be in flight)
+    // every warp sees this pair, and is done with the buffer of tile j - 1,
+    // which takes tile j + 2
+    __syncthreads();
+    if (j + 2 < nk) {
+      const int nxt = cur == 0 ? 2 : cur - 1;
+      load_tile<BK, D, NT>(ks + nxt * BK * D, kb, k0 + 2 * BK, L, row);
+      load_tile<BK, D, NT>(vs + nxt * BK * D, vb, k0 + 2 * BK, L, row);
+    }
+    cp_async_commit();
+    if (j == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          ldsm_x4(qf[mt][kk], sq + mt * 16 * kRow + ln.ca[kk]);
+    }
+    const uint32_t kt = sk + cur * BK * kRow, vt = sv + cur * BK * kRow;
+
+    // S = Q K^T, 32 x 64, one pass: n-tile n holds keys k0 + 8 n..; each
+    // K fragment serves both m-tiles
+    float s[2][BK / 8][4];
+    zero(s);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t kf[4];
+        ldsm_x4(kf, kt + 16 * np * kRow + ln.cb[kk]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma(s[mt][2 * np], qf[mt][kk], kf[0], kf[1]);
+          mma(s[mt][2 * np + 1], qf[mt][kk], kf[2], kf[3]);
+        }
+      }
+    if (k0 + BK > L) {  // the K tail: its scores are masked to -1e30
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k0 + 8 * n + 2 * t + (i & 1) >= L)
+            s[0][n][i] = s[1][n][i] = kNegInf;
+    }
+
+    // online softmax of rows g and g + 8 of each m-tile in log2 units:
+    // p = 2^(s c - m); a row's 64 values sit in the lane's quad, 16 a lane,
+    // so the row max is two shuffles
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[mt][n][2 * r], s[mt][n][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[mt][r], mx * c);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[mt][n][2 * r + e];
+            x = exp2_ftz(fmaf(x, c, -m_new));
+            sum += x;
+          }
+        const float alpha = exp2_ftz(m_run[mt][r] - m_new);
+        l_run[mt][r] = l_run[mt][r] * alpha + sum;
+        m_run[mt][r] = m_new;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[mt][n][2 * r] *= alpha;
+          acc[mt][n][2 * r + 1] *= alpha;
+        }
+      }
+
+    // O += P V: P's C fragments of n-tiles 2 kk and 2 kk + 1, rounded to
+    // bf16 and packed, are the A fragment of keys 16 kk..; V's B fragments
+    // come by ldmatrix.trans, each serving both m-tiles
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        pa[mt][0] = pack(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        pa[mt][1] = pack(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        pa[mt][2] = pack(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        pa[mt][3] = pack(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, vt + 16 * kk * kRow + ln.ca[np]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma(acc[mt][2 * np], pa[mt], vf[0], vf[1]);
+          mma(acc[mt][2 * np + 1], pa[mt], vf[2], vf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[mt][r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      l = fmaxf(l, 1e-30f);
+      const int rr = q0 + warp * 32 + mt * 16 + g + 8 * r;
+      if (rr >= L) continue;
+      if (lse != nullptr && t == 0)
+        lse[static_cast<int64_t>(blockIdx.y) * L + rr] =
+            m_run[mt][r] * kLn2 + logf(l);
+      const float inv = 1.f / l;
+      bf16_t* out = o + base + rr * row + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        store2<bf16_t>(out + 8 * n, acc[mt][n][2 * r] * inv,
+                       acc[mt][n][2 * r + 1] * inv);
+    }
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int L, int H, float scale,
+                   cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_fwd_d64_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BQ - 1) / BQ, B * H);
+  flash_fwd_d64_bf16<<<grid, NT, kSmemBytes, stream>>>(
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), static_cast<bf16_t*>(o), lse, L, H,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace d64_bf16
+
+// bf16 at d = 512 on the bf16 tensor cores (header). One block: (64-row q
+// tile blockIdx.x, b*h blockIdx.y), 16 warps.
+namespace d512_bf16 {
+
+using rdeic_flash::bf16::bf16_t;
+constexpr int D = 512, BQ = 64, BK = 32, NT = 512;
+constexpr int kRow = D * 2;  // bytes of a tile row
+constexpr int XS = 40;  // partial scores (fp32): 8 mod 32, float2 writes
+constexpr int PS = 40;  // P (bf16): 80-byte rows, ldmatrix hits 32 banks
+constexpr int kSmemBytes =
+    (BQ + 2 * BK) * kRow + 2 * BQ * XS * 4 + BQ * PS * 2 + 2 * BQ * 4;
+static_assert(kSmemBytes <= 232448, "shared memory per block");
+
+__global__ void __launch_bounds__(NT, 1)
+    flash_fwd_d512_bf16(const bf16_t* __restrict__ q,
+                        const bf16_t* __restrict__ k,
+                        const bf16_t* __restrict__ v, bf16_t* __restrict__ o,
+                        float* __restrict__ lse, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  using bf16::exp2_ftz, bf16::kLn2, bf16::kLog2e, bf16::ldsm_x4,
+      bf16::ldsm_x4_trans, bf16::load_tile, bf16::mma, bf16::pack;
+  extern __shared__ __align__(128) unsigned char smem_d512b[];
+  bf16_t* qs = reinterpret_cast<bf16_t*>(smem_d512b);  // [BQ][D]
+  bf16_t* ks = qs + BQ * D;                             // [BK][D]
+  bf16_t* vs = ks + BK * D;                             // [BK][D]
+  float* xs = reinterpret_cast<float*>(vs + BK * D);    // [2 d halves][BQ][XS]
+  bf16_t* ps = reinterpret_cast<bf16_t*>(xs + 2 * BQ * XS);  // [BQ][PS]
+  float* alpha_s = reinterpret_cast<float*>(ps + BQ * PS);    // [BQ]
+  float* l_s = alpha_s + BQ;                                  // [BQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16::Lane ln(lane);
+  // score phase: rows 16 rq.., keys 16 kh.., d 256 dh..
+  const int rq = warp & 3, kh = (warp >> 2) & 1, dh = warp >> 3;
+  const uint32_t sq =
+      bf16::smem_addr(qs) + (16 * rq + ln.ar) * kRow + dh * kRow / 2;
+  const uint32_t sk =
+      bf16::smem_addr(ks) + (16 * kh + ln.br) * kRow + dh * kRow / 2;
+  // P V phase: rows 32 rp.., d 64 dp..
+  const int rp = warp & 1, dp = warp >> 1;
+  const uint32_t sv = bf16::smem_addr(vs) + ln.ar * kRow + dp * 128;
+  const uint32_t sp =
+      bf16::smem_addr(ps) + (32 * rp + ln.ar) * PS * 2 + (lane >> 4) * 16;
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const bf16_t* kb = k + base;
+  const bf16_t* vb = v + base;
+  const float c = scale * kLog2e;  // scores in log2 units, for ex2
+
+  load_tile<BQ, D, NT>(qs, q + base, q0, L, row);
+  load_tile<BK, D, NT>(ks, kb, 0, L, row);
+  cp_async_commit();
+  load_tile<BK, D, NT>(vs, vb, 0, L, row);
+  cp_async_commit();
+
+  // softmax: thread (r, 4 columns from cc); a row's 8 threads share a warp
+  // and the running max; each keeps its part of the running sum, and the 8
+  // parts meet at the end
+  const int r = tid >> 3, cc = (tid & 7) * 4;
+  float m_run = kNegInf, l_run = 0.f;
+  float acc[2][8][4];  // O[32 rp.. + 32, 64 dp.. + 64]
+  zero(acc);
+
+  for (int k0 = 0; k0 < L; k0 += BK) {
+    cp_async_wait<1>();  // Q and this K tile (this V tile may be in flight)
+    __syncthreads();
+    {
+      // this warp's 16 x 16 patch of S over its half of d, from zero
+      float sx[2][4];
+      zero(sx);
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk) {
+        const int col = (kk >> 2) * 128;  // bytes of 64 columns
+        uint32_t a[4], kf[4];
+        ldsm_x4(a, sq + col + ln.ca[kk & 3]);
+        ldsm_x4(kf, sk + col + ln.cb[kk & 3]);
+        mma(sx[0], a, kf[0], kf[1]);
+        mma(sx[1], a, kf[2], kf[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        store_frag<XS>(xs + dh * BQ * XS, sx[nt], 16 * rq, 16 * kh + 8 * nt);
+    }
+    __syncthreads();
+    if (k0 + BK < L) load_tile<BK, D, NT>(ks, kb, k0 + BK, L, row);
+    cp_async_commit();
+
+    // the halves of d join in fp32; online softmax in log2 units
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(xs + (half * BQ + r) * XS + cc);
+      s[0] += x.x, s[1] += x.y, s[2] += x.z, s[3] += x.w;
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (k0 + cc + j >= L) s[j] = kNegInf;
+      mx = fmaxf(mx, s[j]);
+    }
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m_run, mx * c);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j] = exp2_ftz(fmaf(s[j], c, -m_new));
+      sum += s[j];
+    }
+    const float alpha = exp2_ftz(m_run - m_new);
+    l_run = l_run * alpha + sum;
+    m_run = m_new;
+    *reinterpret_cast<uint2*>(ps + r * PS + cc) =
+        make_uint2(pack(s[0], s[1]), pack(s[2], s[3]));
+    if (cc == 0) alpha_s[r] = alpha;
+    cp_async_wait<1>();  // this V tile (the next K tile may be in flight)
+    __syncthreads();
+
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int r0 = 32 * rp + 16 * mt + g;
+      const float a_lo = alpha_s[r0], a_hi = alpha_s[r0 + 8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        acc[mt][nt][0] *= a_lo, acc[mt][nt][1] *= a_lo;
+        acc[mt][nt][2] *= a_hi, acc[mt][nt][3] *= a_hi;
+      }
+    }
+    // O += P V: P's A fragments by ldmatrix from ps, V's B fragments by
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldsm_x4(pa[mt], sp + 16 * mt * PS * 2 + kk * 32);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, sv + 16 * kk * kRow + ln.ca[np]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma(acc[mt][2 * np], pa[mt], vf[0], vf[1]);
+          mma(acc[mt][2 * np + 1], pa[mt], vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();  // done with vs and ps
+    if (k0 + BK < L) load_tile<BK, D, NT>(vs, vb, k0 + BK, L, row);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1)
+    l_run += __shfl_xor_sync(0xffffffffu, l_run, off);
+  if (cc == 0) l_s[r] = l_run;
+  if (lse != nullptr && cc == 0 && q0 + r < L)
+    lse[static_cast<int64_t>(blockIdx.y) * L + q0 + r] =
+        m_run * kLn2 + logf(fmaxf(l_run, 1e-30f));
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rr = 32 * rp + 16 * mt + g + 8 * half;
+      if (q0 + rr >= L) continue;
+      const float inv = 1.f / fmaxf(l_s[rr], 1e-30f);
+      bf16_t* out = o + base + (q0 + rr) * row + dp * 64 + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        store2<bf16_t>(out + nt * 8, acc[mt][nt][2 * half] * inv,
+                       acc[mt][nt][2 * half + 1] * inv);
+    }
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int L, int H, float scale,
+                   cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_fwd_d512_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BQ - 1) / BQ, B * H);
+  flash_fwd_d512_bf16<<<grid, NT, kSmemBytes, stream>>>(
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), static_cast<bf16_t*>(o), lse, L, H,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace d512_bf16
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              int B, int L, int H, int D, float scale, cudaStream_t stream) {
@@ -723,9 +1195,15 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
     case 16:
       return d16::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
     case 64:
-      return d64::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
+      if constexpr (std::is_same_v<T, float>)
+        return d64::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
+      else
+        return d64_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
     case 512:
-      return d512::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
+      if constexpr (std::is_same_v<T, float>)
+        return d512::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
+      else
+        return d512_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
     default:
       return -1;
   }

@@ -88,6 +88,15 @@ GN_BWD_PATH_SHAPES = [
 # backward) and twice the serving L: the sums run over L
 D16_SHAPES = [(1, 6144, 4, 16), (1, 1536, 8, 16), (2, 4096, 4, 16),
               (2, 1024, 8, 16), (1, 8192, 4, 16)]
+# the bf16 forward kernels of their own (flash_fwd_d64_bf16,
+# flash_fwd_d512_bf16): the serving and training path shapes, tails (an L
+# inside one q tile, one past a tile, an L of no tile multiple with B = 2,
+# H > 1) and L = 8192
+BF16_FWD_SHAPES = [(1, 6144, 5, 64), (1, 1536, 10, 64), (2, 4096, 5, 64),
+                   (2, 1024, 10, 64), (2, 40, 3, 64), (1, 130, 2, 64),
+                   (2, 1000, 3, 64), (1, 8192, 2, 64), (1, 6144, 1, 512),
+                   (2, 4096, 1, 512), (1, 1024, 1, 512), (1, 20, 2, 512),
+                   (1, 130, 1, 512), (2, 1000, 2, 512), (1, 8192, 1, 512)]
 
 
 @pytest.fixture
@@ -379,6 +388,35 @@ def test_flash_d16_forward_at_the_path_shapes(cuda, shape, dtype, lse):
     assert (out.float() - want).abs().max().item() <= tol
     assert (out.float() * FAULT_SCALE - want).abs().max().item() > tol
     if lse:
+        assert _rel_err(got[1], want_lse) <= 1e-4
+        assert _rel_err(got[1] * FAULT_SCALE, want_lse) > 1e-4
+
+
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("shape", BF16_FWD_SHAPES)
+def test_flash_bf16_forward_kernels(cuda, shape, lse):
+    """flash_fwd_d64_bf16 and flash_fwd_d512_bf16 (bf16 mma.sync), with and
+    without lse: one launch a call; the output within two bf16 ulps of
+    max|plain| of the plain version's bf16 output and of its unrounded fp32
+    result; the lse within 1e-4 of max; a planted x1.05 fault reads beyond
+    each limit; a second launch gives the same bits."""
+    q, k, v = (_rand(shape, torch.bfloat16, cuda, s) for s in range(3))
+    fn = flash_attention_lse if lse else flash_attention
+    before = fn.launches
+    got = fn(q, k, v)
+    again = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    out = got[0] if lse else got
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, again[0] if lse else again)
+    want, want_lse = flash_attention_lse_plain(q.float(), k.float(), v.float())
+    for ref in (flash_attention_plain(q, k, v).float(), want):
+        tol = 2 * bf16_ulp(ref.abs().max().item())
+        assert (out.float() - ref).abs().max().item() <= tol
+        assert (out.float() * FAULT_SCALE - ref).abs().max().item() > tol
+    if lse:
+        assert torch.equal(got[1], again[1])
         assert _rel_err(got[1], want_lse) <= 1e-4
         assert _rel_err(got[1] * FAULT_SCALE, want_lse) > 1e-4
 

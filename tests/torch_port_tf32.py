@@ -3,8 +3,9 @@
 Shared by the tests that hold the kernels' numeric design to the Pallas
 kernels and to the plain versions (`tests/test_torch_port_tf32_split.py`,
 `tests/test_torch_port_tf32_rounding.py`,
-`tests/test_torch_port_flash_d16.py`): TF32 rounding and the 3xTF32 split
-of `rdeic_torch/csrc/flash_mma.cuh`, `mma.sync`'s rounding toward zero, the
+`tests/test_torch_port_flash_d16.py`, `tests/test_torch_port_flash_bf16.py`):
+TF32 rounding and the 3xTF32 split of `rdeic_torch/csrc/flash_mma.cuh`,
+`mma.sync`'s rounding toward zero (TF32 and bf16 products), the
 d = 64 backward kernels' tile order, and the shared-memory banks that a
 fragment read touches; and `one_torch_thread`, the fixture these files
 run under.
@@ -92,6 +93,24 @@ def mma_3xtf32(a: torch.Tensor, b: torch.Tensor, c=0.0) -> torch.Tensor:
     for i in range(steps):
         for p in passes:
             c = rz32(c.double() + p[i])
+    return c
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even, as __floats2bfloat162_rn), in fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def mma_bf16(a: torch.Tensor, b: torch.Tensor, c=0.0) -> torch.Tensor:
+    """c + a @ b as 16-deep bf16 mma.sync steps (m16n8k16): a and b hold
+    bf16 values, so every product is exact; each step's exact sum joins the
+    accumulator and is rounded toward zero (rz32)."""
+    steps = a.shape[-1] // 16
+    sums = (a.double().unflatten(-1, (steps, 16)).movedim(-2, 0)
+            @ b.double().unflatten(-2, (steps, 16)).movedim(-3, 0))
+    c = torch.as_tensor(c, dtype=torch.float32)
+    for i in range(steps):
+        c = rz32(c.double() + sums[i])
     return c
 
 

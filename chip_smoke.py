@@ -81,9 +81,12 @@ and g++; no network. Phases, each fatal on failure:
    A flash row's bound takes the rate named in its `bound_rate`
    (flash_rate): for fp32, the TF32 tensor cores over the three passes of
    3xTF32, which every flash kernel runs; for bf16, the card's bf16 peak.
-   Each forward row names its CUDA kernel (`kernel`: the bf16 forward at
-   d = 64 and 512 runs flash_fwd_d64_bf16 / flash_fwd_d512_bf16), and a
-   log line gives each bf16 row's times beside SDPA's bf16 call.
+   Each forward row names its CUDA kernel (`kernel`: the bf16 forward runs
+   flash_fwd_d16_bf16 / flash_fwd_d64_bf16 / flash_fwd_d512_bf16), and a
+   log line gives each bf16 row's times beside SDPA's bf16 call. Each
+   flash row also has `softmax_bound_ms`, the floor its B H L^2
+   exponentials set on the MUFU units (16 a clock per SM at 1.98 GHz),
+   which `bound_ms` (products and bytes only) leaves out.
    Each comparison also reads a planted fault (the kernel's output scaled
    by 1.05) and fails if that reading is within the limit; the backward
    kernels also give the same bits on a second launch. A log line gives the
@@ -259,10 +262,14 @@ TF32_FLOPS = 494.7e12
 # product as three TF32 products (3xTF32), forward and backward
 TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (16, 64, 512)}
 # Head dims whose bf16 forward has kernels of its own on the bf16 tensor
-# cores (flash_fwd_d64_bf16, flash_fwd_d512_bf16: bf16 mma.sync m16n8k16);
-# the bf16 forward at d = 16 and the bf16 backward are the fp32 kernels'
-# templates on bf16 tiles (TF32 mma.sync)
-BF16_FWD_HEAD_DIMS = (64, 512)
+# cores (flash_fwd_d16_bf16, flash_fwd_d64_bf16, flash_fwd_d512_bf16: bf16
+# mma.sync m16n8k16); the bf16 backward is the fp32 kernels' templates on
+# bf16 tiles (TF32 mma.sync)
+BF16_FWD_HEAD_DIMS = (16, 64, 512)
+# The exponentials' floor of a flash call (`softmax_bound_ms`): B H L^2 of
+# them on the MUFU units, 16 a clock per SM (sm_90), at the boost clock
+MUFU_EX2_PER_CLOCK = 16
+BOOST_CLOCK_HZ = 1.98e9
 FAULT_SCALE = 1.05  # a planted output-scale error each check must see
 # bf16 serving, card vs CPU: the RMS of the difference over the RMS of the
 # CPU's result (the measure PSNR reads). Each bf16 run rounds every layer's
@@ -933,6 +940,15 @@ def _bound_ms(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def softmax_bound_ms(b: int, h: int, seq: int) -> float:
+    """The least ms for the B H L^2 exponentials of one flash kernel (the
+    forward's P, or the P that dq and dkv each recompute) on the card's
+    MUFU units. `bound_ms` counts the products only."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (b * h * seq * seq / (MUFU_EX2_PER_CLOCK * sms * BOOST_CLOCK_HZ)
+            * 1e3)
+
+
 def flash_fwd_kernel(d: int, dtype) -> str:
     """The CUDA kernel behind a flash forward call (csrc/flash_attn_fwd.cu)."""
     if dtype == torch.bfloat16 and d in BF16_FWD_HEAD_DIMS:
@@ -995,6 +1011,7 @@ def check_flash(device, shape, dtype, reps):
                                       4.0 * b * h * seq * seq * d, d, dtype)
     return {**r, "kernel": flash_fwd_kernel(d, dtype), "bound_ms": bound,
             "bound_by": by, "bound_rate": rate,
+            "softmax_bound_ms": softmax_bound_ms(b, h, seq),
             **timings(lambda: flash_attention(q, k, v),
                       lambda: F.scaled_dot_product_attention(qt, kt, vt), reps),
             "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2)}
@@ -1133,6 +1150,7 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
                                           name != "flash_attn_fwd_lse")
         rows_out[name] = {**r, "bound_ms": bound, "bound_by": by,
                           "bound_rate": rate,
+                          "softmax_bound_ms": softmax_bound_ms(b, h, seq),
                           **({"kernel": flash_fwd_kernel(d, dtype)}
                              if name == "flash_attn_fwd_lse" else {}),
                           "ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps)[0],
@@ -1211,6 +1229,8 @@ def summarize(name, route, source, replaces, path, runs, rows):
                            if any(p in r["calls"] for r in rows)},
             **({"backward_bound_ms": total("backward_bound_ms")}
                if "backward_bound_ms" in rows[0] else {}),
+            **({"softmax_bound_ms": total("softmax_bound_ms")}
+               if "softmax_bound_ms" in rows[0] else {}),
             **({"bound_rates": sorted({r["bound_rate"] for r in rows})}
                if "bound_rate" in rows[0] else {}),
             **({"cuda_kernels": sorted({r["kernel"] for r in rows})}
@@ -1430,8 +1450,9 @@ def phase_kernels(device, runs) -> list:
                 f"image): {r['ms']:.4f} ms (device {r['device_ms']:.4f}); "
                 f"SDPA bf16 {r['library_ms']:.4f} (device "
                 f"{r['library_device_ms']:.4f}); bound {r['bound_ms']:.4f} "
-                f"({r['bound_by']}); max|diff| {r['max_abs_err']:.3g} of "
-                f"limit {r['tol']:.3g}")
+                f"({r['bound_by']}), exponentials' floor "
+                f"{r['softmax_bound_ms']:.4f}; max|diff| "
+                f"{r['max_abs_err']:.3g} of limit {r['tol']:.3g}")
     log(f"[kernels] SDPA's backend at the VAE's d = 512 in fp32: "
         f"{sdpa_backend((2, 4096, 1, 512), device)}")
     return lines

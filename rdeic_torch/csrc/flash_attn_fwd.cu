@@ -17,10 +17,9 @@
 // Design: one block owns one (b*h, q-tile) pair and loops over the K/V tiles
 // itself (the TPU kernel's sequential k grid axis becomes this loop).
 //
-// fp32 runs the kernels below at every head dim, and so does bf16 at d = 16
-// (the fp32 template on bf16 values, which are exact in TF32). bf16 at
-// d = 64 and d = 512 runs kernels of its own on the bf16 tensor cores
-// (flash_fwd_d64_bf16, flash_fwd_d512_bf16; "bf16", further below).
+// fp32 runs the kernels below at every head dim. bf16 runs kernels of its
+// own on the bf16 tensor cores at every head dim (flash_fwd_d16_bf16,
+// flash_fwd_d64_bf16, flash_fwd_d512_bf16; "bf16", further below).
 //
 // d = 16 (the control branch's attention: [1, 6144, 4, 16] and
 // [1, 1536, 8, 16] per denoiser call at 768x512, [2, 4096, 4, 16] and
@@ -41,7 +40,7 @@
 // - P as A: the permuted k order of flash_fwd_d64, so S's C fragment is
 //   P V's A fragment without a shuffle.
 // - At d = 16 the softmax is no longer small beside the products: per 16
-//   rows x 8 keys a warp issues 12 mma (6 for S, 6 for P V; bf16: 2 + 4)
+//   rows x 8 keys a warp issues 12 mma (6 for S, 6 for P V)
 //   against 128 exponentials and ~14 fp32-pipe operations a score (max,
 //   exponential, sum, the splits of K, V and P). So log2(e) is folded into
 //   the scale and the exponential is one exp2f of one fmaf (max(s) * c is
@@ -114,14 +113,16 @@
 // per fp32 product, mma.sync's rate on Hopper (wgmma is the full-rate
 // instruction), and one block of 8 warps per SM to hide their latency.
 //
-// bf16 at d = 64 and d = 512 (the `--bf16` serving path: [1, 6144, 5, 64]
-// and [1, 1536, 10, 64] ten times an image each, [1, 6144, 1, 512] twice;
-// with lse where training calls them) runs flash_fwd_d64_bf16 and
-// flash_fwd_d512_bf16, built from the pieces of flash_bf16.cuh:
+// bf16 (the `--bf16` serving path: [1, 6144, 5, 64] and [1, 1536, 10, 64]
+// ten times an image each, [1, 6144, 4, 16] and [1, 1536, 8, 16] four times
+// each, [1, 6144, 1, 512] twice; with lse where training calls them) runs
+// flash_fwd_d16_bf16, flash_fwd_d64_bf16 and flash_fwd_d512_bf16, built
+// from the pieces of flash_bf16.cuh:
 // - Tiles stay bf16 in shared memory, half the bytes of the fp32 tiles the
 //   template widened them to, in a swizzled layout (chunk c of a row at
-//   c ^ (row & 7)) that puts every copy and every ldmatrix phase, with and
-//   without .trans, on 32 banks. cp.async.cg copies 16 bytes (8 values) a
+//   c ^ (row & 7); at d = 16, whose rows hold 2 chunks, c ^ ((row >> 2) & 1))
+//   that puts every copy and every ldmatrix phase, with and without .trans,
+//   on 32 banks. cp.async.cg copies 16 bytes (8 values) a
 //   lane, zero-filled past L, so the next tiles are in flight while the
 //   current ones are used.
 // - Products: mma.sync m16n8k16 with bf16 operands and fp32 accumulators,
@@ -142,7 +143,20 @@
 //   (subnormal p flush to 0), and lse = m ln 2 + ln l.
 // - mma.sync rounds its sums toward zero. With P in one bf16 term, P's own
 //   rounding outweighs that ~100 times (emulation), so P V sums into one
-//   accumulator over the whole L, without the per-tile partials of d = 16.
+//   accumulator over the whole L, without the per-tile partials of the
+//   fp32 kernel at d = 16 (the emulation reads the same at d = 16).
+// d = 16: 64-row q tiles of 4 warps, 16 q rows a warp (one A fragment holds
+// all of d, loaded once), 128-key tiles in a ring of three K / V buffers
+// (one barrier a tile), 26 KB of static shared memory, four blocks per SM:
+// [1, 6144, 4, 16] gives 384 blocks and [1, 1536, 8, 16] 192, one wave
+// each, so the fp32 kernel's key halves are not needed (with them, twice
+// the warps in flight, a probe ran no faster). Per 16 rows x 16 keys a
+// warp issues 4 mma (2 for S, 2 for P V) and 2 ldmatrix against 256
+// exponentials, so the MUFU (16 ex2 a clock per SM) sets the floor:
+// B H L^2 / (16 x 132 SMs x 1.98 GHz), 0.036 ms at [1, 6144, 4, 16], ~4x
+// the tensor-core bound. The kernel reaches about half of that floor
+// (PERF.md §6); moving part of the exponentials to the FMA pipe as a
+// polynomial was slower in probes, so the MUFU is not the limit alone.
 // d = 64: 128-row q tiles of 4 warps, 32 q rows a warp (two m-tiles: each K
 // and V fragment serves both, half the ldmatrix a product of 16-row warps),
 // 64-key tiles in a ring of three K / V buffers (one barrier a tile), 64 KB
@@ -778,6 +792,185 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace d16
 
+// bf16 at d = 16 on the bf16 tensor cores (header). One block: (64-row q
+// tile blockIdx.x, b*h blockIdx.y), 4 warps; warp w owns q rows 16 w.. of
+// the tile and keeps their scores, softmax state and output in registers.
+namespace d16_bf16 {
+
+using rdeic_flash::bf16::bf16_t;
+constexpr int D = 16, BQ = 64, BK = 128, NT = 128;
+constexpr int kRow = D * 2;  // bytes of a tile row
+// Q, 3 K, 3 V: 26 KB of static shared memory, under the 48 KB a launch
+// takes without cudaFuncSetAttribute
+constexpr int kSmemBytes = (BQ + 6 * BK) * kRow;
+static_assert(kSmemBytes <= 48 * 1024, "static shared memory");
+static_assert(4 * (kSmemBytes + 1024) <= 233472, "four blocks per SM");
+
+__global__ void __launch_bounds__(NT, 4)
+    flash_fwd_d16_bf16(const bf16_t* __restrict__ q,
+                       const bf16_t* __restrict__ k,
+                       const bf16_t* __restrict__ v, bf16_t* __restrict__ o,
+                       float* __restrict__ lse, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  using bf16::exp2_ftz, bf16::kLn2, bf16::kLog2e, bf16::ldsm_x4,
+      bf16::ldsm_x4_trans, bf16::load_tile, bf16::mma, bf16::pack;
+  __shared__ __align__(128) bf16_t qs[BQ * D];      // [BQ][D]
+  __shared__ __align__(128) bf16_t ks[3 * BK * D];  // [3 buffers][BK][D]
+  __shared__ __align__(128) bf16_t vs[3 * BK * D];  // [3 buffers][BK][D]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16::Lane16 ln(lane);
+  const uint32_t sq = bf16::smem_addr(qs) + warp * 16 * kRow + ln.a;
+  const uint32_t sk = bf16::smem_addr(ks) + ln.b;
+  const uint32_t sv = bf16::smem_addr(vs) + ln.a;
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const bf16_t* kb = k + base;
+  const bf16_t* vb = v + base;
+  const float c = scale * kLog2e;  // scores in log2 units, for ex2
+
+  load_tile<BQ, D, NT>(qs, q + base, q0, L, row);
+  load_tile<BK, D, NT>(ks, kb, 0, L, row);
+  load_tile<BK, D, NT>(vs, vb, 0, L, row);
+  cp_async_commit();
+  const int nk = (L + BK - 1) / BK;
+  if (nk > 1) {
+    load_tile<BK, D, NT>(ks + BK * D, kb, BK, L, row);
+    load_tile<BK, D, NT>(vs + BK * D, vb, BK, L, row);
+  }
+  cp_async_commit();
+
+  // the warp's 16 q rows as one A fragment (all of d); rows g (r = 0) and
+  // g + 8 (r = 1): the running max, and the lane's part of the running sum
+  // (its quad adds the four parts at the end)
+  uint32_t qf[4];
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float acc[D / 8][4];  // O[16 rows][16]: n-tile n holds columns 8 n..
+  zero(acc);
+  // a ring of three K / V buffers: tile j in buffer j % 3, two in flight
+  for (int j = 0, cur = 0; j < nk; ++j, cur = cur == 2 ? 0 : cur + 1) {
+    const int k0 = j * BK;
+    cp_async_wait<1>();  // this pair (the next may be in flight)
+    // every warp sees this pair, and is done with the buffer of tile j - 1,
+    // which takes tile j + 2
+    __syncthreads();
+    if (j + 2 < nk) {
+      const int nxt = cur == 0 ? 2 : cur - 1;
+      load_tile<BK, D, NT>(ks + nxt * BK * D, kb, k0 + 2 * BK, L, row);
+      load_tile<BK, D, NT>(vs + nxt * BK * D, vb, k0 + 2 * BK, L, row);
+    }
+    cp_async_commit();
+    if (j == 0) ldsm_x4(qf, sq);
+    const uint32_t kt = sk + cur * BK * kRow, vt = sv + cur * BK * kRow;
+
+    // S = Q K^T, 16 x 128, one m16n8k16 per 8 keys: n-tile n holds keys
+    // k0 + 8 n..; one ldmatrix.x4 of K gives both n-tiles of 16 keys
+    float s[BK / 8][4];
+    zero(s);
+#pragma unroll
+    for (int np = 0; np < BK / 16; ++np) {
+      uint32_t kf[4];
+      ldsm_x4(kf, kt + 16 * np * kRow);
+      mma(s[2 * np], qf, kf[0], kf[1]);
+      mma(s[2 * np + 1], qf, kf[2], kf[3]);
+    }
+    if (k0 + BK > L) {  // the K tail: its scores are masked to -1e30
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k0 + 8 * n + 2 * t + (i & 1) >= L) s[n][i] = kNegInf;
+    }
+
+    // online softmax of rows g and g + 8 in log2 units: p = 2^(s c - m);
+    // a row's 128 values sit in the lane's quad, 32 a lane, so the row max
+    // is two shuffles
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx * c);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * r + e];
+          x = exp2_ftz(fmaf(x, c, -m_new));
+          sum += x;
+        }
+      const float alpha = exp2_ftz(m_run[r] - m_new);
+      l_run[r] = l_run[r] * alpha + sum;
+      m_run[r] = m_new;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P V: P's C fragments of n-tiles 2 kk and 2 kk + 1, rounded to
+    // bf16 and packed, are the A fragment of keys 16 kk..; one
+    // ldmatrix.x4.trans of V gives b0, b1 of both n-tiles of d
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4], vf[4];
+      pa[0] = pack(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      ldsm_x4_trans(vf, vt + 16 * kk * kRow);
+      mma(acc[0], pa, vf[0], vf[1]);
+      mma(acc[1], pa, vf[2], vf[3]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-30f);
+    const int rr = q0 + warp * 16 + g + 8 * r;
+    if (rr >= L) continue;
+    if (lse != nullptr && t == 0)
+      lse[static_cast<int64_t>(blockIdx.y) * L + rr] =
+          m_run[r] * kLn2 + logf(l);
+    const float inv = 1.f / l;
+    bf16_t* out = o + base + rr * row + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2<bf16_t>(out + 8 * n, acc[n][2 * r] * inv,
+                     acc[n][2 * r + 1] * inv);
+  }
+}
+
+// 26 KB of static shared memory: no cudaFuncSetAttribute, so a launch is
+// one call
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int L, int H, float scale,
+                   cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BQ - 1) / BQ, B * H);
+  flash_fwd_d16_bf16<<<grid, NT, 0, stream>>>(
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), static_cast<bf16_t*>(o), lse, L, H,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace d16_bf16
+
 // bf16 at d = 64 on the bf16 tensor cores (header). One block: (128-row q
 // tile blockIdx.x, b*h blockIdx.y), 4 warps; warp w owns q rows 32 w.. of
 // the tile and keeps their scores, softmax state and output in registers.
@@ -1193,7 +1386,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
              int B, int L, int H, int D, float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return d16::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
+      if constexpr (std::is_same_v<T, float>)
+        return d16::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
+      else
+        return d16_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
     case 64:
       if constexpr (std::is_same_v<T, float>)
         return d64::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);

@@ -1,5 +1,6 @@
 // bf16 tensor-core pieces of the bf16 flash-attention kernels
-// (flash_attn_fwd.cu: flash_fwd_d64_bf16, flash_fwd_d512_bf16): bf16
+// (flash_attn_fwd.cu: flash_fwd_d16_bf16, flash_fwd_d64_bf16,
+// flash_fwd_d512_bf16): bf16
 // `mma.sync` m16n8k16 with fp32 accumulators, fragment loads by ldmatrix,
 // and bf16 tiles copied by cp.async into a swizzled shared-memory layout.
 //
@@ -27,7 +28,11 @@
 // (d = 512) all start on bank 0, so without it the 8 rows of an ldmatrix
 // matrix would hit the same 4 banks; with it the 8 rows land on 8 distinct
 // chunks mod 8, all 32 banks, for ldmatrix with and without .trans, and a
-// copy phase (8 lanes, one row's 8 chunks) too.
+// copy phase (8 lanes, one row's 8 chunks) too. A d = 16 row (32 bytes)
+// holds only 2 chunks, and rows r and r + 4 start on the same bank; there
+// chunk c of row r is stored at chunk c ^ ((r >> 2) & 1), so 8 rows of one
+// chunk fill all 32 banks (ldmatrix, with and without .trans), and so do
+// the 4 rows of a copy phase (Lane16).
 #pragma once
 
 #include "flash_common.cuh"
@@ -86,6 +91,20 @@ struct Lane {
   }
 };
 
+// d = 16: a lane's ldmatrix row at a 16 x 16 corner (a multiple of 8 rows)
+// as a byte offset, its chunk swizzled: `a` for A and for B with .trans,
+// `b` for B without .trans (the header's rows and chunks)
+struct Lane16 {
+  uint32_t a, b;
+  __device__ explicit Lane16(int lane) {
+    const int sw = (lane >> 2) & 1;  // (row >> 2) & 1 of the lane's row
+    a = (((lane & 7) + ((lane >> 3) & 1) * 8) << 5) +
+        (((lane >> 4) ^ sw) << 4);
+    b = (((lane & 7) + (lane >> 4) * 8) << 5) +
+        ((((lane >> 3) & 1) ^ sw) << 4);
+  }
+};
+
 // 2^x, one MUFU instruction: ex2.approx with subnormal results flushed to
 // zero (exp2f adds a rescaling around it to keep them)
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -103,6 +122,7 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 // Element offset of chunk c (8 values) of row r in a swizzled D-wide tile.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
+  if constexpr (D == 16) return r * D + ((c ^ ((r >> 2) & 1)) << 3);
   return r * D + ((c ^ (r & 7)) << 3);
 }
 

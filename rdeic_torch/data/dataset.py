@@ -9,8 +9,7 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
-import torch
-from torch.utils.data import DataLoader, Dataset
+from torch.utils.data import DataLoader, Dataset, Sampler
 
 from rdeic_torch.registry import instantiate_from_config, load_yaml
 from rdeic_torch.utils.image import augment, center_crop_arr, random_crop_arr
@@ -93,6 +92,26 @@ class LICDataset(Dataset):
         return dict(jpg=arr.astype(np.float32) / 127.5 - 1.0, txt="")
 
 
+class EpochOrder(Sampler):
+    """The indices of one pass over `n` items: in order, or shuffled by
+    `random.Random(seed + epoch)`, `epoch` counting the passes from 0, the
+    order of rdeic_tpu's DataLoader."""
+
+    def __init__(self, n: int, shuffle: bool = True, seed: int = 0):
+        self.n, self.shuffle, self.seed = n, shuffle, seed
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        idx = list(range(self.n))
+        if self.shuffle:
+            random.Random(self.seed + self.epoch).shuffle(idx)
+        self.epoch += 1
+        return iter(idx)
+
+
 class DataModule:
     """The training loader from the data config tree. Validation is not
     ported yet (ROADMAP Queue 1, validation and callbacks): `val_config` is
@@ -103,17 +122,19 @@ class DataModule:
         self.train_config = train_config
         self.val_config = val_config
 
-    def train_dataloader(self, seed: int = 0) -> Optional[DataLoader]:
-        """Batches {"jpg": [B, H, W, 3] float32 tensor, "txt": [str]},
-        shuffled from `seed`, in the main process."""
+    def train_dataloader(self) -> Optional[DataLoader]:
+        """Batches {"jpg": [B, H, W, 3] float32 tensor, "txt": [str]} in the
+        order of rdeic_tpu's loader (`EpochOrder` from `data_loader.seed`,
+        default 0), read in the main process."""
         cfg = self.train_config
         if cfg is None:
             return None
         if isinstance(cfg, str):
             cfg = load_yaml(cfg)
         kw = dict(cfg.get("data_loader") or {})
+        ds = instantiate_from_config(cfg["dataset"])
         return DataLoader(
-            instantiate_from_config(cfg["dataset"]),
-            batch_size=kw.get("batch_size", 1),
-            shuffle=kw.get("shuffle", True), drop_last=kw.get("drop_last", True),
-            generator=torch.Generator().manual_seed(seed))
+            ds, batch_size=kw.get("batch_size", 1),
+            sampler=EpochOrder(len(ds), kw.get("shuffle", True),
+                               kw.get("seed", 0)),
+            drop_last=kw.get("drop_last", True))

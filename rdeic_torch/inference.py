@@ -12,8 +12,10 @@ Each image is padded to a multiple of 64, coded to
 per image. `--bf16` serves the VAE and the denoiser in bf16 (the compression
 model and the stream stay fp32). `--show_lq` is accepted and unused, as in
 the root CLI. `--ckpt` is a flat `.npz` of JAX params (rdeic_tpu's
-`save_params_npz`); an orbax checkpoint directory is refused (ROADMAP Queue
-1, the rest). Runs on CUDA unless `--device cpu`.
+`save_params_npz`), a `step_N.pt` train state that `python -m
+rdeic_torch.train` wrote, or its `checkpoints` directory (the largest N
+wins); an orbax checkpoint of the JAX package is refused (ROADMAP Queue 1,
+the rest). Runs on CUDA unless `--device cpu`.
 """
 from __future__ import annotations
 
@@ -26,8 +28,9 @@ import torch
 
 from rdeic_torch.data.dataset import list_image_files
 from rdeic_torch.registry import instantiate_from_config, load_yaml
+from rdeic_torch.train.trainer import latest_checkpoint
 from rdeic_torch.utils.backend import resolve_device
-from rdeic_torch.utils.convert import load_npz_weights
+from rdeic_torch.utils.convert import load_npz_weights, load_train_state_weights
 from rdeic_torch.utils.image import pad, to_float01, to_uint8
 
 
@@ -46,12 +49,16 @@ def process(model, img01: torch.Tensor, steps: int, stream_path: str,
 
 
 def load_model(config: str, ckpt: str, device: torch.device):
-    if not str(ckpt).endswith(".npz"):
-        raise NotImplementedError(
-            f"{ckpt}: only flat .npz params load here; orbax train-state "
-            "checkpoints have no counterpart (ROADMAP Queue 1, the rest)")
+    """The model of `config` with the weights of `ckpt`: a flat `.npz` of
+    JAX params, a `Trainer.save` file, or a directory of `step_N.pt` files
+    (the largest N)."""
+    npz = str(ckpt).endswith(".npz")
+    state = None if npz else latest_checkpoint(ckpt)  # refuses before the build
     model = instantiate_from_config(load_yaml(config), device=device)
-    load_npz_weights(model, ckpt)
+    if npz:
+        load_npz_weights(model, ckpt)
+    else:
+        load_train_state_weights(model, state)
     return model.eval()
 
 
@@ -65,7 +72,9 @@ def list_images(path: Path) -> list[str]:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ckpt", required=True, help="flat .npz of JAX params")
+    ap.add_argument("--ckpt", required=True,
+                    help="flat .npz of JAX params, a step_N.pt train state, "
+                         "or a directory of them (the latest step)")
     ap.add_argument("--config", default="configs/model/rdeic.yaml")
     ap.add_argument("--input", required=True, help="image file or dir")
     ap.add_argument("--output", required=True)

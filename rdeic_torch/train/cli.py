@@ -5,10 +5,13 @@
 
 Reads the YAML tree (data, model, trainer), builds the loader and the model
 (`model.overrides.is_refine: true` selects the refine phase), optionally
-resumes (`model.resume`: a file that `Trainer.save` wrote, or a
-flat `.npz` of JAX params as weights), then runs `Trainer.step` per
-micro-batch. Logs JSONL metrics to `<out_dir>/metrics.jsonl` every
-`log_every_n_steps` and writes the full train state to
+resumes (`model.resume`: a file that `Trainer.save` wrote, a directory of
+them whose latest step loads, or a flat `.npz` of JAX params as weights; a
+directory that is absent or holds no step starts fresh, as the root
+train.py does), then runs `Trainer.step` per micro-batch, the batches in
+the order of rdeic_tpu's loader (`data_loader.seed`; `trainer.seed` seeds
+the model and the noise). Logs JSONL metrics to `<out_dir>/metrics.jsonl`
+every `log_every_n_steps` and writes the full train state to
 `<out_dir>/checkpoints/step_<N>.pt` every `ckpt_every_n_steps` and at the
 end. Runs on CUDA unless `--device cpu`. Validation and the image logger are
 not ported yet.
@@ -95,11 +98,15 @@ def main(argv=None) -> int:
                           tcfg.get("accumulate_grad_batches", 1)))
     resume = cfg["model"].get("resume")
     if resume and not str(resume).endswith(".npz"):
-        trainer.load(resume)
-        print(f"[resumed the train state at step {trainer.step_count}]")
+        path = Path(resume)
+        if not path.exists() or path.is_dir() and not any(path.glob("step_*")):
+            print(f"[no checkpoint under {resume}: training starts fresh]")
+        else:
+            trainer.load(resume)
+            print(f"[resumed the train state at step {trainer.step_count}]")
 
     data = instantiate_from_config(cfg["data"])
-    loader = data.train_dataloader(seed=seed)
+    loader = data.train_dataloader()
     if len(loader) == 0:
         raise ValueError("the training set gives no full batch")
     out_dir = Path(tcfg.get("out_dir", "./runs/rdeic"))

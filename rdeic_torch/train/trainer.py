@@ -9,6 +9,7 @@ step differentiates only the trainable subtree.
 """
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Callable
 
@@ -56,6 +57,34 @@ def trainable_parameters(model) -> dict:
         if p.requires_grad:
             params[name] = p
     return params
+
+
+def list_checkpoints(ckpt_dir: str | Path) -> list[int]:
+    """The steps N of the `step_N.pt` files that `Trainer.save` wrote under
+    `ckpt_dir`, in numeric order (step_10 after step_9); none for an absent
+    or empty directory."""
+    path = Path(ckpt_dir)
+    if not path.is_dir():
+        return []
+    found = (re.fullmatch(r"step_(\d+)\.pt", f.name) for f in path.iterdir()
+             if f.is_file())
+    return sorted(int(m[1]) for m in found if m)
+
+
+def latest_checkpoint(path: str | Path) -> Path:
+    """A `Trainer.save` file as it is; for a directory, its `step_N.pt` of
+    the largest N. A directory without one (an orbax checkpoint of the JAX
+    package, or nothing) is refused."""
+    path = Path(path)
+    if not path.is_dir():
+        return path
+    steps = list_checkpoints(path)
+    if not steps:
+        raise NotImplementedError(
+            f"{path}: no step_N.pt file that Trainer.save wrote; orbax "
+            "checkpoints of the JAX package do not load here (ROADMAP "
+            "Queue 1, the rest)")
+    return path / f"step_{steps[-1]}.pt"
 
 
 class Trainer:
@@ -128,12 +157,11 @@ class Trainer:
                     "grad_sum": self._grad_sum, "ema": self.ema}, path)
 
     def load(self, path: str | Path) -> None:
-        if Path(path).is_dir():
-            raise NotImplementedError(
-                f"{path}: orbax train-state directories of the JAX package "
-                "do not load here; resume from a file that Trainer.save wrote")
+        """The train state of a `Trainer.save` file, or of the latest
+        `step_N.pt` in a directory of them (`latest_checkpoint`)."""
         dev = next(self.model.parameters()).device
-        state = torch.load(path, map_location=dev, weights_only=True)
+        state = torch.load(latest_checkpoint(path), map_location=dev,
+                           weights_only=True)
         self.model.load_state_dict(state["model"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         self._grad_sum = state["grad_sum"]

@@ -1,4 +1,5 @@
-"""JAX (flax) parameters -> the port's state dict.
+"""JAX (flax) parameters -> the port's state dict, and the weights of the
+port's own train state (`load_train_state_weights`).
 
 The port's module tree mirrors the flax parameter paths, so one rule maps
 every leaf of the flat "/"-joined dict that rdeic_tpu's `save_params_npz`
@@ -74,3 +75,13 @@ def load_npz_weights(model: torch.nn.Module, path: str | Path) -> list[str]:
         kept.append("lpips")
     model.load_state_dict(state, strict=True)
     return kept
+
+
+def load_train_state_weights(model: torch.nn.Module, path: str | Path) -> None:
+    """Load the weights of a `Trainer.save` file into the port's RDEIC,
+    strictly. The LPIPS subtree of a refine run is dropped for a model
+    without LPIPS, as `load_npz_weights` drops `lpips/`."""
+    state = torch.load(path, map_location="cpu", weights_only=True)["model"]
+    if not hasattr(model, "lpips"):
+        state = {k: v for k, v in state.items() if not k.startswith("lpips.")}
+    model.load_state_dict(state, strict=True)

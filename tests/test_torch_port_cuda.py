@@ -88,11 +88,14 @@ GN_BWD_PATH_SHAPES = [
 # backward) and twice the serving L: the sums run over L
 D16_SHAPES = [(1, 6144, 4, 16), (1, 1536, 8, 16), (2, 4096, 4, 16),
               (2, 1024, 8, 16), (1, 8192, 4, 16)]
-# the bf16 forward kernels of their own (flash_fwd_d64_bf16,
-# flash_fwd_d512_bf16): the serving and training path shapes, tails (an L
-# inside one q tile, one past a tile, an L of no tile multiple with B = 2,
-# H > 1) and L = 8192
-BF16_FWD_SHAPES = [(1, 6144, 5, 64), (1, 1536, 10, 64), (2, 4096, 5, 64),
+# the bf16 forward kernels of their own (flash_fwd_d16_bf16,
+# flash_fwd_d64_bf16, flash_fwd_d512_bf16): the serving and training path
+# shapes, tails (an L inside one q tile, one past a tile, an L of no tile
+# multiple with B = 2, H > 1) and L = 8192
+BF16_FWD_SHAPES = [(1, 6144, 4, 16), (1, 1536, 8, 16), (2, 4096, 4, 16),
+                   (2, 1024, 8, 16), (1, 20, 2, 16), (1, 77, 2, 16),
+                   (1, 130, 1, 16), (2, 1000, 3, 16), (1, 8192, 4, 16),
+                   (1, 6144, 5, 64), (1, 1536, 10, 64), (2, 4096, 5, 64),
                    (2, 1024, 10, 64), (2, 40, 3, 64), (1, 130, 2, 64),
                    (2, 1000, 3, 64), (1, 8192, 2, 64), (1, 6144, 1, 512),
                    (2, 4096, 1, 512), (1, 1024, 1, 512), (1, 20, 2, 512),
@@ -370,10 +373,10 @@ def test_groupnorm_backward_plans_match_plain(cuda, shape, smem_limit, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", D16_SHAPES)
 def test_flash_d16_forward_at_the_path_shapes(cuda, shape, dtype, lse):
-    """flash_fwd_d16 (tensor cores) with and without lse: the output
-    against the plain version's unrounded fp32 result within 2e-5 (fp32) or
-    two bf16 ulps of max, the lse within 1e-4 of max; each reads a planted
-    x1.05 fault."""
+    """The d = 16 forward (fp32: flash_fwd_d16, 3xTF32; bf16:
+    flash_fwd_d16_bf16) with and without lse: the output against the plain
+    version's unrounded fp32 result within 2e-5 (fp32) or two bf16 ulps of
+    max, the lse within 1e-4 of max; each reads a planted x1.05 fault."""
     q, k, v = (_rand(shape, dtype, cuda, s) for s in range(3))
     fn = flash_attention_lse if lse else flash_attention
     before = fn.launches
@@ -395,8 +398,8 @@ def test_flash_d16_forward_at_the_path_shapes(cuda, shape, dtype, lse):
 @pytest.mark.parametrize("lse", [False, True])
 @pytest.mark.parametrize("shape", BF16_FWD_SHAPES)
 def test_flash_bf16_forward_kernels(cuda, shape, lse):
-    """flash_fwd_d64_bf16 and flash_fwd_d512_bf16 (bf16 mma.sync), with and
-    without lse: one launch a call; the output within two bf16 ulps of
+    """flash_fwd_d16_bf16, flash_fwd_d64_bf16 and flash_fwd_d512_bf16 (bf16
+    mma.sync), with and without lse: one launch a call; the output within two bf16 ulps of
     max|plain| of the plain version's bf16 output and of its unrounded fp32
     result; the lse within 1e-4 of max; a planted x1.05 fault reads beyond
     each limit; a second launch gives the same bits."""

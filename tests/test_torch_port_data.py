@@ -15,6 +15,7 @@ import yaml
 from PIL import Image
 
 from rdeic_torch import inference as torch_inference
+from rdeic_torch.data import dataset as torch_dataset
 from rdeic_torch.data.dataset import LICDataset, list_image_files
 from rdeic_torch.registry import instantiate_from_config
 from rdeic_torch.train import cli as torch_train_cli
@@ -99,6 +100,33 @@ def test_dataset_yamls_with_cache_size_build(tmp_path, name):
     assert ds[1]["jpg"].shape == (32, 32, 3)
 
 
+@pytest.mark.parametrize("seed", [None, 7])
+def test_train_loader_gives_the_reference_batches(tmp_path, seed):
+    """rdeic_torch's and rdeic_tpu's DataModule, built from one YAML, give
+    the same `jpg` batches in the same order over two epochs, with
+    `data_loader.seed` set and left at its default (0). Five images in
+    batches of two: each epoch drops the fifth, another one each time."""
+    loader = {"batch_size": 2, "shuffle": True, "drop_last": True}
+    if seed is not None:
+        loader["seed"] = seed
+    config = tmp_path / "data.yaml"
+    config.write_text(yaml.safe_dump({
+        "dataset": {"target": "rdeic_tpu.data.dataset.LICDataset",
+                    "params": {"file_list": _file_list(tmp_path, n=5),
+                               "out_size": 32, "crop_type": "random",
+                               "use_hflip": True, "seed": 3}},
+        "data_loader": loader}))
+    port = torch_dataset.DataModule(train_config=str(config)).train_dataloader()
+    ref = tpu_dataset.DataModule(train_config=str(config)).train_dataloader()
+    assert len(port) == len(ref) == 2
+    for _ in range(2):
+        got = [batch["jpg"].numpy() for batch in port]
+        want = [batch["jpg"] for batch in ref]
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_no_message_names_a_roadmap_item_by_number():
     """Item numbers move at every re-anchor of ROADMAP.md; messages name the
     item by its subject."""
@@ -117,8 +145,10 @@ def test_no_message_names_a_roadmap_item_by_number():
 ])
 def test_inference_cli_refusals_name_the_item(tmp_path, argv, item):
     """The flags that waited for the ROADMAP item `item` are accepted now:
-    with each, the CLI gets as far as the one refusal left, an orbax
-    checkpoint directory, which names its own item."""
+    with each, the CLI gets as far as the one refusal left, a checkpoint
+    directory without a `step_N.pt` (here an orbax `step_3` directory of the
+    JAX package), which names its own item."""
+    (tmp_path / "step_3").mkdir()
     with pytest.raises(NotImplementedError,
                        match=re.escape("ROADMAP Queue 1, the rest")) as exc:
         torch_inference.main(["--ckpt", str(tmp_path), "--input", str(tmp_path),

@@ -1,6 +1,8 @@
 """The numeric design and the shared-memory layout of the bf16 flash
 forward on the bf16 tensor cores (`flash_fwd_d64_bf16` and
 `flash_fwd_d512_bf16` in `rdeic_torch/csrc/flash_attn_fwd.cu`), on the CPU.
+(`flash_fwd_d16_bf16` takes the same order, `TILES[16]`, and is held to it
+in `tests/test_torch_port_flash_d16_bf16.py`.)
 
 Both kernels hold their tiles in shared memory as bf16 and take every
 product as `mma.sync.m16n8k16` with bf16 operands and fp32 accumulators:
@@ -35,7 +37,7 @@ from tests.torch_port_tf32 import (
 )
 
 # per head dim: (q rows a block, keys a tile, d-slices that sum S apart)
-TILES = {64: (128, 64, 1), 512: (64, 32, 2)}
+TILES = {16: (64, 128, 1), 64: (128, 64, 1), 512: (64, 32, 2)}
 NEG = -1e30
 FAULT_SCALE = 1.05
 LIMIT = 2.0  # the card's limit on the output: two bf16 ulps of max|plain|
@@ -66,7 +68,8 @@ def _pv(p, v, p_terms, acc):
 
 
 def forward_bf16_tiles(q, k, v, p_terms=1, partials=False, exact=False):
-    """(o, lse) in the order of the bf16 kernels at head dim d = 64 or 512;
+    """(o, lse) in the order of the bf16 kernels at head dim d = 16, 64 or
+    512;
     q, k, v hold bf16 values ([B, L, H, D]). The q rows are independent, so
     they are one batch dimension here. Keys stream in tiles of BK (the tail
     zero-filled and its scores masked to -1e30). S = Q K^T: each of the

@@ -11,8 +11,12 @@ import numpy as np
 import pytest
 import torch
 from flax.traverse_util import flatten_dict
+from PIL import Image
 
+from rdeic_torch import inference as t_inference
 from rdeic_torch.data.dataset import DataModule, LICDataset
+from rdeic_torch.inference import process
+from rdeic_torch.registry import instantiate_from_config, load_yaml
 from rdeic_torch.train import cli as t_cli
 from rdeic_torch.train.trainer import Trainer, trainable_predicate
 from rdeic_torch.utils import image as t_image
@@ -226,8 +230,9 @@ def test_dataset_and_loader(tmp_path):
         LICDataset(str(lst), crop_type="bogus")
     cfg = {"dataset": {"target": "rdeic_tpu.data.dataset.LICDataset",
                        "params": {"file_list": str(lst), "out_size": 64}},
-           "data_loader": {"batch_size": 2, "shuffle": True, "drop_last": True}}
-    batches = list(DataModule(train_config=cfg).train_dataloader(seed=1))
+           "data_loader": {"batch_size": 2, "shuffle": True, "drop_last": True,
+                           "seed": 1}}
+    batches = list(DataModule(train_config=cfg).train_dataloader())
     assert len(batches) == 2
     assert tuple(batches[0]["jpg"].shape) == (2, 64, 64, 3)
     assert batches[0]["jpg"].dtype == torch.float32
@@ -235,7 +240,9 @@ def test_dataset_and_loader(tmp_path):
 
 def test_cli_trains_two_steps_on_cpu_and_resumes(tmp_path):
     """`python -m rdeic_torch.train` for two steps on a temporary image
-    folder, then a resume from its train state for a third."""
+    folder, then a resume from its `checkpoints` directory for a third; then
+    `python -m rdeic_torch.inference` serves that directory's last step, and
+    its image equals `process()` on the trained model, bit for bit."""
     yaml = pytest.importorskip("yaml")
     lst = _write_images(tmp_path)
     (tmp_path / "data.yaml").write_text(yaml.safe_dump({
@@ -265,10 +272,27 @@ def test_cli_trains_two_steps_on_cpu_and_resumes(tmp_path):
     assert all(np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in rows)
     assert (run / "checkpoints" / "step_2.pt").exists()
 
-    (tmp_path / "resume.yaml").write_text(
-        train_yaml(str(run / "checkpoints" / "step_2.pt")))
+    (tmp_path / "resume.yaml").write_text(train_yaml(str(run / "checkpoints")))
     t_cli.main(["--config", str(tmp_path / "resume.yaml"), "--max_steps", "3",
                 "--device", "cpu"])
     rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().split("\n") if line]
     assert [r["step"] for r in rows] == [1, 2, 3]
     assert (run / "checkpoints" / "step_3.pt").exists()
+
+    photo = lst.read_text().split()[0]  # 80x100: padded to 128x128
+    t_inference.main(["--ckpt", str(run / "checkpoints"),
+                      "--config", str(tmp_path / "model.yaml"),
+                      "--input", photo, "--output", str(tmp_path / "served"),
+                      "--device", "cpu"])
+    served = np.array(Image.open(tmp_path / "served" / "img_0.png"))
+    model = instantiate_from_config(load_yaml(str(tmp_path / "model.yaml")),
+                                    device="cpu")
+    trained = Trainer(model)
+    trained.load(run / "checkpoints" / "step_3.pt")
+    assert trained.step_count == 3
+    arr = np.array(Image.open(photo).convert("RGB"))
+    img01 = torch.from_numpy(t_image.to_float01(t_image.pad(arr, 64))[None])
+    recon, _ = process(model.eval(), img01, 2, str(tmp_path / "ref.rdeic"),
+                       torch.Generator().manual_seed(231))
+    assert served.shape == arr.shape
+    np.testing.assert_array_equal(served, recon[:arr.shape[0], :arr.shape[1]])

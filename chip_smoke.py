@@ -64,10 +64,28 @@ and g++; no network. Phases, each fatal on failure:
    micro-step on synthetic B = 2, 512x512 images, then 3 timed ones with
    every launch count set to 0, each applying AdamW. Checks as in 6, LPIPS
    among the frozen tensors;
-9. kernels against their plain versions at every shape of the serving and
-   the training paths (bf16 rows for the bf16 serving run's calls, the
-   GroupNorm ones with bf16 scale and bias as there), and at shapes on no
-   path (their rows carry no
+9. bf16 training reference: the model as the repo's bf16 recipes build
+   it (BF16_RECIPE: computing in bf16, its frozen tensors made in bf16 by
+   `fast_init` on `meta` from the seed, the trainable ones fp32), one
+   independent-phase micro-step as 5, the CPU copy computing in bf16 too
+   and taking the card's VAE encoder outputs besides 5's; the loss and each
+   group of gradients within BF16_TRAIN_REF_TOL, which a planted x1.05
+   fault reads outside of; then one `Trainer(frozen_dtype=bf16)` step on
+   the card: the frozen tensors stay bf16 and bit-equal, the trainable ones
+   fp32, the codebook usage fp32;
+10. bf16 independent-phase training at the full width, as 6 on that model
+   (every flash call of the path bf16; the frozen tensors bf16 and
+   bit-equal after the update);
+11. bf16 refine-phase reference, as 9 on the refine model of
+   configs/train_rdeic_refine_v5e.yaml (`remat_policy: "dots"`, sharing
+   9's tensors, LPIPS(alex) made by `fast_init` and stored in bf16);
+12. bf16 refine-phase training at the full width, as 8 on that model;
+13. kernels against their plain versions at every shape of the serving and
+   the training paths, fp32 and bf16 (bf16 rows for the bf16 runs' calls;
+   GroupNorm forward and backward each read with fp32 and with bf16 scale
+   and bias, the kernels' two parameter branches, and keep a row for each
+   (x, scale and bias) dtype pair a path ran, timed in it), and at shapes
+   on no path (their rows carry no
    calls): flash at d = 512 and d = 64 with B = 2, H > 1 and L = 1000, and
    at d = 64 and d = 16 with L = 8192 (the CHECK_SHAPES), GroupNorm forward
    and backward at a span larger than a cluster's shared memory
@@ -97,7 +115,8 @@ The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
 `bound_ms` and `library_ms` of a kernel are summed over its calls in one
 run of the path its `path` names (serve: phase 3's DDPM run; serve_ddim,
-serve_cfg and serve_bf16 are phase 3b's): per image for the serving kernels
+serve_cfg and serve_bf16 are phase 3b's; train, refine, train_bf16 and
+refine_bf16 phases 6, 8, 10 and 12): per image for the serving kernels
 (flash_attn_fwd, group_norm_silu_fwd), per refine micro-step for the
 others (`ms_by_path` also gives the kernel time per independent-phase
 micro-step); `shapes` has the per-call numbers and the calls in each path.
@@ -146,8 +165,15 @@ from rdeic_torch.ops.fused_groupnorm import (
     group_norm_plain,
 )
 from rdeic_torch.pipeline.rdeic import RDEIC
-from rdeic_torch.train.trainer import Trainer, trainable_parameters
+from rdeic_torch.train.trainer import (
+    Trainer,
+    cast_frozen,
+    is_frozen_float,
+    trainable_parameters,
+    trainable_predicate,
+)
 from rdeic_torch.utils.backend import full_fp32, resolve_device
+from rdeic_torch.utils.fast_init import fast_random_init
 from rdeic_torch.utils.image import to_uint8
 
 # configs/model/rdeic.yaml `params` (the card's machine has no yaml module;
@@ -203,17 +229,36 @@ TRAIN_CONFIG = {"learning_rate": 2.0e-5, "accumulate_grad_batches": 4,
                 "batch_size": 2, "out_size": 512}
 # configs/train_rdeic_refine_v5e.yaml `trainer` and
 # configs/dataset/lic_train_refine_v5e.yaml (held equal to the files as
-# above); the model is MODEL_CONFIG with is_refine. That YAML's
-# compute_dtype / frozen_dtype bfloat16, fast_init and remat_policy "dots"
-# are not ported (the compute stays fp32, use_checkpoint as the model YAML)
+# above); the model is MODEL_CONFIG with is_refine (phases 7 and 8 run it in
+# fp32 with use_checkpoint as the model YAML sets it)
 REFINE_CONFIG = {"learning_rate": 2.0e-5, "accumulate_grad_batches": 1,
                  "batch_size": 2, "out_size": 512}
 REFINE_MODEL_CONFIG = {**MODEL_CONFIG, "is_refine": True}
+# the bf16 recipes' trainer dtypes (every bf16 YAML of the repo sets these
+# with fast_init) and train_rdeic_refine_v5e.yaml's model overrides:
+# is_refine, and use_checkpoint with remat_policy "dots" on both UNets (held
+# equal to the files as above); phases 9-12 run them
+BF16_RECIPE = {"compute_dtype": "bfloat16", "frozen_dtype": "bfloat16",
+               "fast_init": True}
+BF16 = torch.bfloat16
+
+
+def _with_dots(cfg: dict) -> dict:
+    return {**cfg, "params": {**cfg["params"], "use_checkpoint": True,
+                              "remat_policy": "dots"}}
+
+
+REFINE_DOTS_MODEL_CONFIG = {
+    **REFINE_MODEL_CONFIG,
+    "control_stage_config": _with_dots(MODEL_CONFIG["control_stage_config"]),
+    "unet_config": _with_dots(MODEL_CONFIG["unet_config"])}
 
 IMAGE_HW = (512, 768)  # a Kodak-sized image, landscape
 STEPS = 2
 TRAIN_STEPS = 4  # timed micro-steps after one warm-up: one AdamW update
 REFINE_STEPS = 3  # timed refine micro-steps after one warm-up, each updating
+# the training paths: phases 6 and 8 (fp32), 10 and 12 (bf16)
+TRAIN_PATHS = ("train", "refine", "train_bf16", "refine_bf16")
 # self-attentions over >= 1024 tokens per dual-UNet call at 512x512 (UNet
 # L = 4096 h5 d64 x5 and L = 1024 h10 d64 x5, control L = 4096 h4 d16 x2 and
 # L = 1024 h8 d16 x2; L = 256 goes to the plain product)
@@ -252,6 +297,19 @@ CFG_SCALE = 2.0  # phase 3b's and phase 4's classifier-free guidance
 # the planted fault's.
 TRAIN_REF_TOL = {"denoiser": 1e-4, "synthesis": 1e-4, "rate": 5e-3,
                  "conv": 1e-4, "loss": 1e-5}
+# bf16 training, card vs CPU (phases 9 and 11): both runs round every bf16
+# layer's output to 8 significant bits, in other places, so their gradients
+# differ by bf16 noise through the whole backward. The gates are phase 4's
+# bf16 ones: the loss within 2^-6 relative, each group's gradients within
+# 2^-5 by relative RMS (the measure of phase 4's bf16 gates: a x1.05 fault
+# reads 5e-2). The CPU run takes the card's VAE encoder outputs (the frozen
+# bf16 encoder runs without grad; its feature reads ~1.7e-2 card vs CPU at
+# full width, phase 4) after holding them to 2^-5 by relative RMS, so the
+# compression model sees the same input, and its convolution outputs are
+# pinned and held as in phase 5; LPIPS's inputs are the bf16 decoder's
+# output, so its convolution outputs are held by relative RMS to 2^-5
+BF16_TRAIN_REF_TOL = {"loss": 2.0 ** -6, "grads": 2.0 ** -5,
+                      "input": 2.0 ** -5}
 SYNTHESIS_PREFIXES = ("compression.decoder.", "compression.out.")
 TRAIN_REF_FLOOR = 1e-5
 # H100 SXM data-sheet peaks (NVIDIA; dense, 700 W)
@@ -301,7 +359,7 @@ CHECK_SHAPES = [(2, 1000, 2, 512), (2, 1000, 3, 64), (1, 8192, 2, 64),
 # a GroupNorm span on no path larger than 8 CTAs' shared memory in both
 # dtypes (16 x 65536 elements), so the forward and backward kernels
 # stream it
-GN_STREAM_KEYS = [(1, 512, 256, 256, 32, 1e-5, True, dt)
+GN_STREAM_KEYS = [(1, 512, 256, 256, 32, 1e-5, True, dt, dt)
                   for dt in ("float32", "bfloat16")]
 # torch.cuda._sleep counts cycles; at this clock or below (the H100's boost
 # clock is 1.98 GHz) a sleep lasts at least the seconds asked
@@ -602,13 +660,61 @@ def make_refine_model(model, seed: int) -> RDEIC:
     return refine
 
 
+def model_config(model) -> dict:
+    if model.denoiser.remat_policy == "dots":
+        return REFINE_DOTS_MODEL_CONFIG
+    return REFINE_MODEL_CONFIG if model.is_refine else MODEL_CONFIG
+
+
+def compute_dtype(model) -> torch.dtype:
+    return model.denoiser.base.out_conv.compute_dtype
+
+
 def cpu_copy(model) -> RDEIC:
-    """The same model with its weights copied to the CPU."""
-    config = REFINE_MODEL_CONFIG if model.is_refine else MODEL_CONFIG
-    cpu = RDEIC(**config, device="meta").eval()  # weights follow
+    """The same model with its weights (in their dtypes) copied to the CPU,
+    computing in the same dtype."""
+    cpu = RDEIC(**model_config(model), device="meta").eval()  # weights follow
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
                         assign=True)
+    cpu.set_compute_dtype(compute_dtype(model), cast_weights=False)
     return cpu
+
+
+def make_bf16_train_model(device, seed: int) -> RDEIC:
+    """The full-width model as the bf16 recipes build it, in train.py's
+    order: on `meta`, computing in bf16 (`set_compute_dtype`, the weights
+    keep their dtype), the frozen tensors cast to bf16 there (nothing is
+    allocated), then `fast_init` on the card from `seed` (the JAX
+    package's `fast_random_params` rule): the frozen weights are made in
+    bf16, with no fp32 copy of the model."""
+    model = RDEIC(**MODEL_CONFIG, device="meta").eval()
+    model.set_compute_dtype(BF16, cast_weights=False)
+    cast_frozen(model, BF16)
+    return fast_random_init(model, device, seed=seed)
+
+
+def make_bf16_refine_model(model, device, seed: int) -> RDEIC:
+    """The bf16 refine-phase model of train_rdeic_refine_v5e.yaml
+    (`remat_policy: "dots"`) over `model`'s own tensors (shared, not
+    copied), with LPIPS(alex) made by `fast_init` from `seed` and stored
+    in bf16 with the other frozen tensors."""
+    with torch.device("meta"):
+        lpips = LPIPS("alex")
+    fast_random_init(lpips, device, seed=seed)
+    refine = RDEIC(**REFINE_DOTS_MODEL_CONFIG, device="meta").eval()
+    refine.set_compute_dtype(BF16, cast_weights=False)
+    refine.load_state_dict(
+        {**model.state_dict(),
+         **{f"lpips.{k}": v for k, v in lpips.state_dict().items()}},
+        assign=True)
+    cast_frozen(refine, BF16)
+    return refine
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative RMS of `got` against `want`, in fp32."""
+    return ((got.float() - want.float()).square().mean()
+            / want.float().square().mean()).sqrt().item()
 
 
 def phase_reference(model, bf16, device, seed: int):
@@ -650,9 +756,6 @@ def phase_reference(model, bf16, device, seed: int):
     del cpus
     def rel_max(got, want):
         return ((got - want).abs().max() / want.abs().max()).item()
-
-    def rel_rms(got, want):
-        return ((got - want).square().mean() / want.square().mean()).sqrt().item()
 
     ok = True
     for name, *_ in runs:
@@ -741,14 +844,26 @@ def _hook_convs(model, fn) -> list:
                     "compression.quantize.logits", fn)]
 
 
+def _group_rms(got: dict, want: dict, keys) -> float:
+    """Relative RMS of the gradients `keys` taken together."""
+    diff = sum((got[k] - want[k]).square().sum().item() for k in keys)
+    return (diff / sum(want[k].square().sum().item() for k in keys)) ** 0.5
+
+
 def phase_train_reference(model, device, seed: int) -> dict:
     """One B = 1, 256x256 training loss of the model's phase and its
     trainable gradients, on the card (kernels) and on the CPU (plain
     versions), from the same weights and noise; the CPU run takes the card's
     convolution outputs in the compression model (see TRAIN_REF_TOL), a
     second CPU run does not. At 256x256, L = 1024 reaches the flash kernels
-    at d = 16 and 64 (and, in the refine phase's VAE decoder, d = 512)."""
-    tag = "refine-reference" if model.is_refine else "train-reference"
+    at d = 16 and 64 (and, in the refine phase's VAE decoder, d = 512). A
+    model computing in bf16 (phases 9 and 11) is held to
+    BF16_TRAIN_REF_TOL, its CPU run also taking the card's VAE encoder
+    outputs, and then takes one `Trainer` step on the card with its frozen
+    tensors in bf16: they stay bf16 and bit-equal, the trainable ones fp32."""
+    bf16 = compute_dtype(model) == BF16
+    tag = ("refine" if model.is_refine else "train") + (
+        "-bf16-reference" if bf16 else "-reference")
     rng = np.random.default_rng(seed + 3)
     img = torch.from_numpy(rng.uniform(-1, 1, (1, 256, 256, 3)).astype(np.float32))
     noise = model.train_noise(img, torch.Generator().manual_seed(seed))
@@ -756,15 +871,24 @@ def phase_train_reference(model, device, seed: int) -> dict:
     card_convs, conv_reads = {}, {}
 
     def record(name, out):  # LPIPS runs its backbone twice (image, target)
-        card_convs.setdefault(name, []).append(out.detach().cpu())
+        card_convs.setdefault(name, []).append(
+            tuple(o.detach().cpu() for o in out) if isinstance(out, tuple)
+            else out.detach().cpu())
 
     def pin(name, out):
         calls = sum(k.split("#")[0] == name for k in conv_reads)
         if calls == len(card_convs[name]):
             raise AssertionError(f"{name} ran more often than on the card")
         want = card_convs[name][calls]
-        conv_reads[f"{name}#{calls}"] = ((out.detach() - want).abs().max()
-                                         / want.abs().max()).item()
+        if isinstance(out, tuple):  # the VAE encoder's (mean, logvar, feature)
+            conv_reads[f"{name}#{calls}"] = max(
+                rel_rms(o, w) for o, w in zip(out, want))
+            return want
+        if bf16 and name.startswith("lpips."):  # bf16 decoder output in
+            conv_reads[f"{name}#{calls}"] = rel_rms(out.detach(), want)
+        else:
+            conv_reads[f"{name}#{calls}"] = ((out.detach() - want).abs().max()
+                                             / want.abs().max()).item()
         return out + (want - out).detach()
 
     results = {}
@@ -775,6 +899,8 @@ def phase_train_reference(model, device, seed: int) -> dict:
         moved = {k: [u.to(dev) for u in v] if isinstance(v, list) else v.to(dev)
                  for k, v in noise.items()}
         handles = _hook_convs(m, hook) if hook else []
+        if hook and bf16:
+            handles.append(_MethodHook(m.vae, "encode_hc", "vae.encode_hc", hook))
         t0 = time.perf_counter()
         with full_fp32():
             loss, _ = m.loss_fn(img.to(dev), noise=moved)
@@ -788,44 +914,84 @@ def phase_train_reference(model, device, seed: int) -> dict:
     (l_card, g_card), (l_cpu, g_cpu), (l_free, g_free) = (
         results[k] for k in ("cuda", "cpu", "cpu_unpinned"))
     floor = TRAIN_REF_FLOOR * max(g.abs().max().item() for g in g_cpu.values())
-    reads = _grad_reads(g_card, g_cpu, floor)
-    free = _grad_reads(g_card, g_free, floor)
-    faults = _grad_reads({k: g * FAULT_SCALE for k, g in g_card.items()},
-                         g_cpu, floor)
-    worst_conv = max(conv_reads, key=conv_reads.get)
+    faulty = {k: g * FAULT_SCALE for k, g in g_card.items()}
+    conv_tol = {k: (BF16_TRAIN_REF_TOL["input"]
+                    if bf16 and k.startswith(("lpips.", "vae.")) else
+                    TRAIN_REF_TOL["conv"]) for k in conv_reads}
+    worst_conv = max(conv_reads, key=lambda k: conv_reads[k] / conv_tol[k])
+    tol = BF16_TRAIN_REF_TOL if bf16 else TRAIN_REF_TOL
     out = {"loss": abs(l_card - l_cpu) / abs(l_cpu),
            "fault_loss": abs(l_card * FAULT_SCALE - l_cpu) / abs(l_cpu),
            "loss_unpinned": abs(l_card - l_free) / abs(l_free),
            "conv": conv_reads[worst_conv]}
-    ok = (out["loss"] <= TRAIN_REF_TOL["loss"] < out["fault_loss"]
-          and out["conv"] <= TRAIN_REF_TOL["conv"])
-    log(f"[{tag}] {len(conv_reads)} conv outputs (compression model"
-        f"{', LPIPS' if model.is_refine else ''}), CPU from the card's inputs "
-        f"vs the card: worst max|diff|/max "
-        f"{out['conv']:.3g} ({worst_conv}; limit {TRAIN_REF_TOL['conv']}); "
-        f"the codebook's logits "
-        f"{max(v for k, v in conv_reads.items() if 'quantize' in k):.3g}")
+    ok = (out["loss"] <= tol["loss"] < out["fault_loss"]
+          and all(v <= conv_tol[k] for k, v in conv_reads.items()))
+    log(f"[{tag}] {len(conv_reads)} pinned outputs (compression model"
+        f"{', LPIPS' if model.is_refine else ''}"
+        f"{', VAE encoder' if bf16 else ''}), CPU from the card's inputs "
+        f"vs the card: worst {out['conv']:.3g} ({worst_conv}; limit "
+        f"{conv_tol[worst_conv]:.3g}); the codebook's logits "
+        f"{max(v for k, v in conv_reads.items() if 'quantize' in k):.3g}"
+        + (f"; the VAE encoder's outputs (relative RMS) "
+           f"{conv_reads['vae.encode_hc#0']:.3g}" if bf16 else ""))
     for group in ("denoiser", "synthesis", "rate"):
-        keys = [k for k in reads if train_ref_group(k) == group]
-        worst = sorted(keys, key=reads.get, reverse=True)[:3]
-        out[group] = reads[worst[0]]
-        out[f"unpinned_{group}"] = max(free[k] for k in keys)
-        out[f"fault_{group}"] = max(faults[k] for k in keys)
-        ok = ok and out[group] <= TRAIN_REF_TOL[group] < out[f"fault_{group}"]
-        log(f"[{tag}] {group} ({len(keys)} tensors): card vs CPU worst "
-            f"{out[group]:.3g} (limit {TRAIN_REF_TOL[group]}): "
-            + ", ".join(f"{k} {reads[k]:.3g}" for k in worst)
-            + f"; a planted x{FAULT_SCALE} fault reads "
-            f"{out[f'fault_{group}']:.3g}; against the unpinned CPU run "
-            f"{out[f'unpinned_{group}']:.3g}")
+        keys = [k for k in g_cpu if train_ref_group(k) == group]
+        if bf16:  # relative RMS over the group
+            out[group] = _group_rms(g_card, g_cpu, keys)
+            out[f"unpinned_{group}"] = _group_rms(g_card, g_free, keys)
+            out[f"fault_{group}"] = _group_rms(faulty, g_cpu, keys)
+            limit, what = tol["grads"], "relative RMS"
+            detail = ""
+        else:
+            reads = _grad_reads(g_card, g_cpu, floor)
+            worst = sorted(keys, key=reads.get, reverse=True)[:3]
+            out[group] = reads[worst[0]]
+            out[f"unpinned_{group}"] = max(_grad_reads(g_card, g_free, floor)[k]
+                                           for k in keys)
+            out[f"fault_{group}"] = max(_grad_reads(faulty, g_cpu, floor)[k]
+                                        for k in keys)
+            limit, what = tol[group], "worst"
+            detail = ": " + ", ".join(f"{k} {reads[k]:.3g}" for k in worst)
+        ok = ok and out[group] <= limit < out[f"fault_{group}"]
+        log(f"[{tag}] {group} ({len(keys)} tensors): card vs CPU {what} "
+            f"{out[group]:.3g} (limit {limit:.3g}){detail}; a planted "
+            f"x{FAULT_SCALE} fault reads {out[f'fault_{group}']:.3g}; against "
+            f"the unpinned CPU run {out[f'unpinned_{group}']:.3g}")
     log(f"[{tag}] loss: card vs CPU {out['loss']:.3g} (limit "
-        f"{TRAIN_REF_TOL['loss']}), planted fault {out['fault_loss']:.3g}, "
+        f"{tol['loss']:.3g}), planted fault {out['fault_loss']:.3g}, "
         f"unpinned {out['loss_unpinned']:.3g}")
     if not ok:
         raise AssertionError(f"[{tag}] training on the card disagrees with "
                              "the CPU, or a planted fault reads within its "
                              "limit")
+    if bf16:
+        bf16_step_keeps_dtypes(model, img.to(device), noise, tag)
     return out
+
+
+def bf16_step_keeps_dtypes(model, img, noise, tag: str) -> None:
+    """One `Trainer(frozen_dtype=bf16)` step on the card: every frozen
+    float tensor (but the codebook usage) bf16 and bit-equal after it, every
+    trainable one fp32, and each with a gradient moved."""
+    dev = img.device
+    moved = {k: [u.to(dev) for u in v] if isinstance(v, list) else v.to(dev)
+             for k, v in noise.items()}
+    pred = trainable_predicate(model.sd_locked)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(model, learning_rate=REFINE_CONFIG["learning_rate"],
+                      frozen_dtype=BF16)
+    logs = trainer.step(img, noise=moved)
+    now = model.state_dict()
+    frozen = [k for k, v in now.items() if is_frozen_float(k, v, pred)]
+    bad = [k for k in frozen if now[k].dtype != BF16
+           or not torch.equal(now[k], before[k])]
+    bad += [k for k, p in trainer.params.items() if p.dtype != torch.float32]
+    stepped = sum(not torch.equal(p, before[k]) for k, p in trainer.params.items())
+    if bad or not torch.isfinite(logs["loss"]) or now["vq_embed_prob"].dtype != torch.float32:
+        raise AssertionError(f"[{tag}] the bf16 step broke its dtypes: {bad[:5]}")
+    log(f"[{tag}] one Trainer step: {len(frozen)} frozen tensors bf16 and "
+        f"bit-equal, {len(trainer.params)} trainable fp32 ({stepped} moved), "
+        "the codebook usage fp32")
 
 
 def train_launches_per_step(model) -> dict:
@@ -865,16 +1031,21 @@ def train_launches_per_step(model) -> dict:
 def phase_training(model, device, seed: int) -> dict:
     """The full-width training path of the model's phase: one warm-up
     micro-step, then TRAIN_STEPS (independent) or REFINE_STEPS (refine)
-    counted and timed ones."""
+    counted and timed ones. A model computing in bf16 trains with its
+    frozen tensors in bf16 (`frozen_dtype`), and every flash call of its
+    path must run in bf16."""
     tag, cfg, steps = (("refine", REFINE_CONFIG, REFINE_STEPS) if model.is_refine
                        else ("train", TRAIN_CONFIG, TRAIN_STEPS))
+    bf16 = compute_dtype(model) == BF16
+    tag += "_bf16" if bf16 else ""
     rng = np.random.default_rng(seed + 2)
     hw = cfg["out_size"]
     imgs = [torch.from_numpy(rng.uniform(
         -1, 1, (cfg["batch_size"], hw, hw, 3)).astype(np.float32)).to(device)
         for _ in range(1 + steps)]
     trainer = Trainer(model, learning_rate=cfg["learning_rate"],
-                      accumulate_grad_batches=cfg["accumulate_grad_batches"])
+                      accumulate_grad_batches=cfg["accumulate_grad_batches"],
+                      frozen_dtype=BF16 if bf16 else None)
     # snapshots on the host, so that the peak below is the training's own
     frozen = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
               if k not in trainer.params and k != "vq_embed_prob"}
@@ -901,9 +1072,23 @@ def phase_training(model, device, seed: int) -> dict:
         f"mean {ms:.1f} ms, {cfg['batch_size'] * 1e3 / ms:.3f} images/s; "
         f"peak memory {peak / 2**30:.2f} GiB; losses {json.dumps(losses)}")
     log(f"[{tag}] launches per micro-step: "
-        f"{json.dumps({k: v / steps for k, v in launches.items()})}")
+        f"{json.dumps({k: v / steps for k, v in launches.items()})}; from "
+        f"the structure {json.dumps(per_step)}")
+    by_dtype = {name: {dt: sum(c for k, c in shapes[name].items() if k[-1] == dt)
+                       / steps for dt in ("float32", "bfloat16")}
+                for name in shapes}
+    log(f"[{tag}] launches per micro-step by dtype: {json.dumps(by_dtype)}")
+    for name in ("group_norm_silu_fwd", "group_norm_silu_bwd"):
+        pairs = {}
+        for k, c in shapes[name].items():  # (..., scale and bias dtype, dtype)
+            pair = f"x {k[-1]}, params {k[-2]}"
+            pairs[pair] = pairs.get(pair, 0) + c / steps
+        log(f"[{tag}] {name} calls per micro-step by (x, scale and bias) "
+            f"dtype: {json.dumps(pairs)}")
     if launches != want:
         raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    if bf16 and any(by_dtype[k]["float32"] for k in shapes if k.startswith("flash")):
+        raise AssertionError(f"[{tag}] a flash call ran in fp32: {by_dtype}")
     if trainer.step_count != 1 + steps:
         raise AssertionError("the trainer skipped a step")
     now = model.state_dict()
@@ -922,10 +1107,12 @@ def phase_training(model, device, seed: int) -> dict:
         raise AssertionError("the codebook usage did not move")
     log(f"[{tag}] {moved} trainable tensors stepped, {len(frozen)} frozen "
         "tensors bit-equal, codebook usage moved")
+    if bf16 and any(now[k].dtype != BF16 for k in frozen):
+        raise AssertionError(f"[{tag}] a frozen tensor left bf16")
     return {"ms": ms, "step_ms": step_ms, "warm_ms": warm_ms,
             "images_per_s": cfg["batch_size"] * 1e3 / ms, "steps": steps,
             "peak_bytes": peak, "launches": launches, "shapes": shapes,
-            "losses": losses}
+            "losses": losses, "by_dtype": by_dtype}
 
 
 def _randn(shape, dtype, device, seed):
@@ -1028,36 +1215,36 @@ def timings(fn, library, reps) -> dict:
 
 
 def check_groupnorm(device, key, reps):
-    """fp32: the kernel against the plain version, GN_TOL absolute. bf16:
-    against the plain version on the same values in fp32, unrounded, at
-    REL_TOL of max (as the training rows), with fp32 and with bf16 scale and
-    bias; the times take bf16 ones, as the bf16 serving path does."""
-    b, c, h, w, groups, eps, silu, dtype = key
-    dtype = getattr(torch, dtype)
+    """The kernel against the plain version on the same values with fp32
+    and with bf16 scale and bias (the two parameter branches): fp32 x at
+    GN_TOL absolute; bf16 x against the plain version in fp32, unrounded,
+    at REL_TOL of max (as the training rows). The times take the key's
+    scale and bias dtype, as the path that ran it."""
+    b, c, h, w, groups, eps, silu, param_dtype, dtype = key
+    dtype, param_dtype = getattr(torch, dtype), getattr(torch, param_dtype)
     x = _randn((b, c, h, w), dtype, device, 0) * 3 + 1
     wt, bs = (_randn((c,), torch.float32, device, s) for s in (1, 2))
     reads = []
     for e in (1e-5, 1e-6):  # both eps and both SiLU settings
         for s in (False, True):
-            name = f"group_norm {key} eps={e} silu={s}"
-            if dtype == torch.float32:
-                reads.append(compare(name, group_norm(x, wt, bs, groups, e, s),
-                                     group_norm_plain(x, wt, bs, groups, e, s),
-                                     GN_TOL))
-                continue
-            for wp, bp in ((wt, bs), (wt.to(dtype), bs.to(dtype))):
+            for wp, bp in ((wt, bs), (wt.to(BF16), bs.to(BF16))):
+                name = f"group_norm {key} eps={e} silu={s} params {wp.dtype}"
                 got = group_norm(x, wp, bp, groups, e, s)
                 want = group_norm_plain(x.float(), wp.float(), bp.float(),
                                         groups, e, s)
-                reads.append(compare_rel(f"{name} params {wp.dtype}",
-                                         [(got, want, REL_TOL[dtype])]))
-    wt, bs = wt.to(dtype), bs.to(dtype)
+                reads.append(
+                    compare(name, got, want, GN_TOL)
+                    if dtype == torch.float32 else
+                    compare_rel(name, [(got, want, REL_TOL[dtype])]))
+    wt, bs = wt.to(param_dtype), bs.to(param_dtype)
     bound, by = _bound_ms(2 * x.numel() * x.element_size()
                           + 2 * c * wt.element_size(),
                           10.0 * x.numel(), PEAK_FLOPS[dtype])
 
+    wl, bl = wt.to(dtype), bs.to(dtype)  # F.group_norm takes x's dtype
+
     def library():
-        y = F.group_norm(x, groups, wt, bs, eps)
+        y = F.group_norm(x, groups, wl, bl, eps)
         return F.silu(y) if silu else y
 
     return {"max_abs_err": max(r["max_abs_err"] for r in reads),
@@ -1161,40 +1348,47 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
     return rows_out
 
 
-def check_groupnorm_bwd(device, key, dtype, reps) -> dict:
+def check_groupnorm_bwd(device, key, reps) -> dict:
     """The backward kernel against the plain backward on one shape, with
-    SiLU off and on, from the forward kernel's mean and 1/std; a second run
-    must give the same bits (the cluster and the batch sums add in a fixed
-    order)."""
-    b, c, h, w, groups, _, silu, _ = key
+    SiLU off and on and with fp32 and with bf16 scale and bias (the two
+    parameter branches: bf16 ones give bf16 dscale and dbias), from the
+    forward kernel's mean and 1/std; a second run must give the same bits
+    (the cluster and the batch sums add in a fixed order). The times take
+    the key's scale and bias dtype, as the path that ran it."""
+    b, c, h, w, groups, _, silu, param_dtype, dtype = key
+    dtype, param_dtype = getattr(torch, dtype), getattr(torch, param_dtype)
     x = _randn((b, c, h, w), dtype, device, 0) * 3 + 1
     dy = _randn((b, c, h, w), dtype, device, 3)
     wt, bs = (_randn((c,), torch.float32, device, s) for s in (1, 2))
-    tol = REL_TOL[dtype]
     reads = []
     for s in (False, True):
-        _, mean, inv = group_norm_fwd(x, wt, bs, groups, 1e-5, s)
-        got = group_norm_bwd(x, wt, bs, mean, inv, dy, groups, s)
-        again = group_norm_bwd(x, wt, bs, mean, inv, dy, groups, s)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"group_norm_bwd {key} silu={s} {dtype}: "
-                                 "two runs gave different bits")
-        want = group_norm_bwd_plain(x.float(), wt, bs, mean, inv, dy.float(),
-                                    groups, s)  # unrounded, as for flash
-        reads.append(compare_rel(
-            f"group_norm_bwd {key} silu={s} {dtype}",
-            [(got[0], want[0], tol), (got[1], want[1], REL_TOL[torch.float32]),
-             (got[2], want[2], REL_TOL[torch.float32])]))
+        for wp, bp in ((wt, bs), (wt.to(BF16), bs.to(BF16))):
+            name = f"group_norm_bwd {key} silu={s} params {wp.dtype}"
+            _, mean, inv = group_norm_fwd(x, wp, bp, groups, 1e-5, s)
+            got = group_norm_bwd(x, wp, bp, mean, inv, dy, groups, s)
+            again = group_norm_bwd(x, wp, bp, mean, inv, dy, groups, s)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: two runs gave different bits")
+            # unrounded, as for flash
+            want = group_norm_bwd_plain(x.float(), wp.float(), bp.float(),
+                                        mean, inv, dy.float(), groups, s)
+            reads.append(compare_rel(name, [
+                (got[0], want[0], REL_TOL[dtype]),
+                (got[1], want[1], REL_TOL[wp.dtype]),
+                (got[2], want[2], REL_TOL[wp.dtype])]))
+    wt, bs = wt.to(param_dtype), bs.to(param_dtype)
     _, mean, inv = group_norm_fwd(x, wt, bs, groups, 1e-5, silu)
     # F.group_norm takes weight and bias in the input's dtype
     xl, wl, bl = (t.detach().to(dtype).requires_grad_() for t in (x, wt, bs))
     y = F.group_norm(xl, groups, wl, bl, 1e-5)
     y = F.silu(y) if silu else y
-    bound, by = _bound_ms(3 * x.numel() * x.element_size() + 4 * c * 4,
+    bound, by = _bound_ms(3 * x.numel() * x.element_size()
+                          + 4 * c * wt.element_size(),
                           15.0 * x.numel(), PEAK_FLOPS[dtype])
     return {"max_abs_err": max(r["max_abs_err"] for r in reads),
             "max_rel_err": max(r["max_rel_err"] for r in reads),
-            "tol": reads[0]["tol"], "fault_err": min(r["fault_err"] for r in reads),
+            "tol": [REL_TOL[dtype], REL_TOL[param_dtype], REL_TOL[param_dtype]],
+            "fault_err": min(r["fault_err"] for r in reads),
             "bound_ms": bound, "bound_by": by,
             **timings(lambda: group_norm_bwd(x, wt, bs, mean, inv, dy, groups,
                                              silu),
@@ -1300,10 +1494,10 @@ def phase_kernels(device, runs) -> list:
     for key in GN_STREAM_KEYS:
         r = check_groupnorm(device, key, reps=3)
         log(f"[kernels] group_norm {key} (on no path, streamed): {json.dumps(r)}")
-        if key[7] == "float32":
+        if key[-1] == "float32":
             gn_rows.append({"shape": list(key), "calls": {}, **r})
 
-    train_paths = ("train", "refine")
+    train_paths = tuple(p for p in TRAIN_PATHS if p in runs)
     train_rows = {k: [] for k in ("flash_attn_fwd_lse", "flash_attn_bwd_dq",
                                   "flash_attn_bwd_dkv", "group_norm_silu_bwd")}
     for p in train_paths:
@@ -1311,11 +1505,14 @@ def phase_kernels(device, runs) -> list:
                 != set(runs[p]["shapes"]["flash_attn_fwd_lse"])):
             raise AssertionError(f"{p}: the backward ran at other shapes than "
                                  "the forward")
-    for key in keys("flash_attn_fwd_lse", train_paths):
+    # each shape once in each dtype; a row for each dtype a path ran it in
+    lse_keys = keys("flash_attn_fwd_lse", train_paths)
+    for shape in dict.fromkeys(k[:4] for k in lse_keys):
         for dtype in (torch.float32, torch.bfloat16):
-            rows = check_flash_train(device, key[:4], dtype, reps=3)
-            log(f"[kernels] flash training {key[:4]} {dtype}: {json.dumps(rows)}")
-            if dtype == getattr(torch, key[4]):
+            key = (*shape, str(dtype).removeprefix("torch."))
+            rows = check_flash_train(device, shape, dtype, reps=3)
+            log(f"[kernels] flash training {shape} {dtype}: {json.dumps(rows)}")
+            if key in lse_keys:
                 for name, r in rows.items():
                     train_rows[name].append(
                         {"shape": list(key), "calls": calls(name, key), **r})
@@ -1332,20 +1529,25 @@ def phase_kernels(device, runs) -> list:
                 for name, row in rows.items():
                     train_rows[name].append({"shape": list(key), "calls": {},
                                              **row})
-    for key in keys("group_norm_silu_bwd", train_paths):
-        for dtype in (torch.float32, torch.bfloat16):
-            r = check_groupnorm_bwd(device, key, dtype, reps=10)
-            log(f"[kernels] group_norm_bwd {key} {dtype}: {json.dumps(r)}")
-            if dtype == getattr(torch, key[7]):
-                train_rows["group_norm_silu_bwd"].append(
-                    {"shape": list(key),
-                     "calls": calls("group_norm_silu_bwd", key), **r})
+    # each shape in both dtypes of x, each check reading both scale and bias
+    # dtypes; a row, timed with its own scale and bias dtype, for each
+    # (x, scale and bias) dtype pair a path ran
+    bwd_keys = keys("group_norm_silu_bwd", train_paths)
+    for shape in dict.fromkeys(k[:7] for k in bwd_keys):
+        for dtype in ("float32", "bfloat16"):
+            ran = [k for k in bwd_keys if k[:7] == shape and k[-1] == dtype]
+            for key in ran or [(*shape, "float32", dtype)]:
+                r = check_groupnorm_bwd(device, key, reps=10)
+                log(f"[kernels] group_norm_bwd {key}: {json.dumps(r)}")
+                if key in bwd_keys:
+                    train_rows["group_norm_silu_bwd"].append(
+                        {"shape": list(key),
+                         "calls": calls("group_norm_silu_bwd", key), **r})
     for key in GN_STREAM_KEYS:
-        dtype = getattr(torch, key[7])
-        r = check_groupnorm_bwd(device, key, dtype, reps=3)
+        r = check_groupnorm_bwd(device, key, reps=3)
         log(f"[kernels] group_norm_bwd {key} (on no path, streamed): "
             f"{json.dumps(r)}")
-        if dtype == torch.float32:
+        if key[-1] == "float32":
             train_rows["group_norm_silu_bwd"].append(
                 {"shape": list(key), "calls": {}, **r})
 
@@ -1387,6 +1589,20 @@ def phase_kernels(device, runs) -> list:
                 f"backward {dq['backward_bound_ms']:.3f} ms; dq's and dkv's "
                 f"own bounds {dq['bound_ms']:.3f} + {dkv['bound_ms']:.3f} ms; "
                 f"SDPA backward {dq['library_ms']:.3f} ms")
+    for path in ("train_bf16", "refine_bf16"):
+        if path not in runs:
+            continue
+        per = {name: sum(r["ms"] * r["calls"].get(path, 0) for r in rows)
+               for name, rows in train_rows.items()}
+        bwd = sum(per[k] for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                                   "group_norm_silu_bwd"))
+        log(f"[kernels] backward kernels per {path} micro-step: flash dq "
+            f"{per['flash_attn_bwd_dq']:.3f} + dkv "
+            f"{per['flash_attn_bwd_dkv']:.3f} + GroupNorm backward "
+            f"{per['group_norm_silu_bwd']:.3f} = {bwd:.3f} ms, "
+            f"{100 * bwd / runs[path]['ms']:.2f}% of the "
+            f"{runs[path]['ms']:.1f} ms micro-step; lse forward "
+            f"{per['flash_attn_fwd_lse']:.3f} ms")
     for dq, dkv in zip(train_rows["flash_attn_bwd_dq"],
                        train_rows["flash_attn_bwd_dkv"]):
         log(f"[kernels] flash backward per call {dq['shape']}: dq "
@@ -1417,7 +1633,7 @@ def phase_kernels(device, runs) -> list:
             f"{per['library_host_us'] / n_calls:.1f} us a call; bound "
             f"{per['bound_ms']:.3f} ms")
     gn_bwd = train_rows["group_norm_silu_bwd"]
-    for path in ("refine", "train"):
+    for path in train_paths:
         per = {key: sum(r[key] * r["calls"].get(path, 0) for r in gn_bwd)
                for key in ("ms", "device_ms", "host_us", "library_ms",
                            "library_device_ms", "library_host_us",
@@ -1483,6 +1699,19 @@ def main() -> int:
     refine = make_refine_model(model, args.seed)
     phase_train_reference(refine, device, args.seed)
     runs["refine"] = phase_training(refine, device, args.seed)
+    del model, refine
+    t0 = time.perf_counter()
+    bf16 = make_bf16_train_model(device, args.seed)
+    torch.cuda.synchronize()
+    log(f"[train_bf16] full-width model by fast_init on the card in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    phase_train_reference(bf16, device, args.seed)
+    runs["train_bf16"] = phase_training(bf16, device, args.seed)
+    bf16_refine = make_bf16_refine_model(bf16, device, args.seed)
+    phase_train_reference(bf16_refine, device, args.seed)
+    runs["refine_bf16"] = phase_training(bf16_refine, device, args.seed)
+    del bf16, bf16_refine
     kernels = phase_kernels(device, runs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@ Each image is padded to a multiple of 64, coded to
 `out/bitstreams/<name>.rdeic`, decoded back from that file, relay-sampled
 (spaced DDPM or DDIM; classifier-free guidance when `--guidance_scale` is not
 1), cropped and saved as `out/<name>.png`; one `name: bpp=... time=...` line
-per image. `--bf16` serves the VAE and the denoiser in bf16 (the compression
-model and the stream stay fp32). `--show_lq` is accepted and unused, as in
+per image. `--bf16` serves the VAE and the denoiser in bf16: they compute in
+bf16 and their weights are stored in bf16 (`RDEIC.set_compute_dtype` with
+its `cast_weights`); the compression model and the stream stay fp32. `--show_lq` is accepted and unused, as in
 the root CLI. `--ckpt` is a flat `.npz` of JAX params (rdeic_tpu's
 `save_params_npz`), a `step_N.pt` train state that `python -m
 rdeic_torch.train` wrote, or its `checkpoints` directory (the largest N

@@ -3,6 +3,15 @@
 Modules work in NCHW. Their attribute names mirror the flax parameter paths
 (`Conv.Conv_0`, `GroupNorm32.GroupNorm_0`) so that
 rdeic_torch.utils.convert maps a flax checkpoint leaf by leaf.
+
+Compute dtype apart from storage dtype, as flax does it. A layer the JAX
+package builds with `dtype` is a `Linear`, `Conv2d` or `LayerNorm` here: it
+casts its weights and its input to its `compute_dtype` (fp32 unless
+`set_compute_dtype` sets it) inside `forward`, so the cast sits in the
+autograd graph (an fp32 weight computing in bf16 gets an fp32 gradient, and
+a checkpointed block's recompute casts again). A layer built without
+`dtype` promotes instead (`PromotedConv2d`): it computes in the wider of
+its input's and its weights' dtypes.
 """
 from __future__ import annotations
 
@@ -46,29 +55,86 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     return F.pixel_shuffle(x, r)
 
 
+class Linear(nn.Linear):
+    """A flax Dense with `dtype`: weight, bias and input cast to
+    `compute_dtype`."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ct = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(ct)
+        return F.linear(x.to(ct), self.weight.to(ct), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """A flax Conv with `dtype`: weight, bias and input cast to
+    `compute_dtype`."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ct = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(ct)
+        return self._conv_forward(x.to(ct), self.weight.to(ct), bias)
+
+
+class PromotedConv2d(nn.Conv2d):
+    """A flax Conv without `dtype`: it computes in the wider of its input's
+    and its weights' dtypes (bf16 weights take an fp32 input's fp32; fp32
+    weights take a bf16 input up to fp32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ct = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(ct)
+        return self._conv_forward(x.to(ct), self.weight.to(ct), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """A flax LayerNorm with `dtype`: fp32 statistics, output in
+    `compute_dtype` (its input is already in it on every path)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ct = self.compute_dtype
+        return F.layer_norm(x.to(ct), self.normalized_shape,
+                            self.weight.to(ct), self.bias.to(ct), self.eps)
+
+
+CAST_LAYERS = (Linear, Conv2d, LayerNorm)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Every cast layer of `module` computes in `dtype`; the weights keep
+    their storage dtype."""
+    for m in module.modules():
+        if isinstance(m, CAST_LAYERS):
+            m.compute_dtype = dtype
+
+
 class Conv(nn.Module):
     """k x k convolution with symmetric padding k // 2 (flax `blocks.Conv`,
-    whose flax child is named Conv_0)."""
+    whose flax child is named Conv_0), built with `dtype`."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride=stride,
-                                padding=kernel // 2)
+        self.Conv_0 = Conv2d(cin, cout, kernel, stride=stride,
+                             padding=kernel // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Conv_0(x)
 
 
-class PromotedConv(Conv):
-    """A Conv that computes in the wider of its input's and its weights'
-    dtypes, as a flax Conv without `dtype` does: with bf16 weights an fp32
-    input stays fp32 and the weights are taken up to it."""
+class PromotedConv(nn.Module):
+    """`Conv` built without `dtype` (`PromotedConv2d`)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3):
+        super().__init__()
+        self.Conv_0 = PromotedConv2d(cin, cout, kernel, padding=kernel // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = self.Conv_0
-        ct = torch.promote_types(x.dtype, conv.weight.dtype)
-        return F.conv2d(x.to(ct), conv.weight.to(ct), conv.bias.to(ct),
-                        conv.stride, conv.padding)
+        return self.Conv_0(x)
 
 
 class GroupNorm32(nn.Module):

@@ -6,7 +6,9 @@ inside. Attribute names mirror the flax paths (`backbone.conv1`, `lin0`, no
 bias on the `lin{i}` heads), so a JAX checkpoint's `lpips/` subtree loads
 through rdeic_torch.utils.convert. The refine loss uses the AlexNet version.
 No backbone weights ship with the repository: the net runs on whatever
-weights it is given (random ones warn, see `warn_random_backbone`).
+weights it is given (random ones warn, see `warn_random_backbone`). Every
+convolution promotes, as the JAX package's (flax Convs without `dtype`):
+bf16-stored weights compute in fp32 on the fp32 images.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from rdeic_torch.models.blocks import PromotedConv2d
 
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
@@ -46,11 +50,11 @@ class AlexNetFeatures(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 11, stride=4, padding=2)
-        self.conv2 = nn.Conv2d(64, 192, 5, padding=2)
-        self.conv3 = nn.Conv2d(192, 384, 3, padding=1)
-        self.conv4 = nn.Conv2d(384, 256, 3, padding=1)
-        self.conv5 = nn.Conv2d(256, 256, 3, padding=1)
+        self.conv1 = PromotedConv2d(3, 64, 11, stride=4, padding=2)
+        self.conv2 = PromotedConv2d(64, 192, 5, padding=2)
+        self.conv3 = PromotedConv2d(192, 384, 3, padding=1)
+        self.conv4 = PromotedConv2d(384, 256, 3, padding=1)
+        self.conv5 = PromotedConv2d(256, 256, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         taps = [F.relu(self.conv1(x))]
@@ -71,7 +75,7 @@ class VGG16Features(nn.Module):
         cin, idx = 3, 0
         for ch, n in self.STAGES:
             for _ in range(n):
-                self.add_module(f"conv{idx}", nn.Conv2d(cin, ch, 3, padding=1))
+                self.add_module(f"conv{idx}", PromotedConv2d(cin, ch, 3, padding=1))
                 cin, idx = ch, idx + 1
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
@@ -102,7 +106,7 @@ class LPIPS(nn.Module):
             raise ValueError(f"LPIPS net {net!r}: 'alex' or 'vgg'")
         self.net = net
         for i, c in enumerate(widths):
-            self.add_module(f"lin{i}", nn.Conv2d(c, 1, 1, bias=False))
+            self.add_module(f"lin{i}", PromotedConv2d(c, 1, 1, bias=False))
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         shift, scale = (torch.tensor(c, device=x.device, dtype=x.dtype)

@@ -8,13 +8,17 @@ through the GroupNorm(+SiLU) kernel on the card and every self-attention
 over >= 1024 tokens through the flash kernel. With `use_checkpoint`,
 training recomputes each encoder, middle and decoder block in the backward
 instead of keeping its activations (the JAX package's `nn.remat` around the
-same blocks).
+same blocks); with `remat_policy: "dots"` it keeps the outputs of the
+blocks' convolutions and matrix products and recomputes only the rest
+(`jax.checkpoint_policies.checkpoint_dots`).
 
-A module computes in its weights' dtype (bf16 after
-`RDEIC.set_compute_dtype`): the entry points take x, the guide hint and the
-context to it, and `embed_time` the fp32 sinusoidal embedding, as a flax
-layer with `dtype` takes its inputs; GroupNorm statistics and the softmax
-stay fp32 inside.
+Dtypes follow flax's (models/blocks.py): every layer the JAX package builds
+with `dtype` computes in the compute dtype (bf16 after
+`RDEIC.set_compute_dtype`) whatever its weights' storage dtype, and the
+1x1 bridges, built without `dtype`, promote. So with fp32 trainable bridges
+and bf16 compute the base UNet's residual stream is fp32 after the first
+bridge, as in the JAX package. GroupNorm statistics and the softmax stay
+fp32 inside; GroupNorm outputs the input's dtype.
 """
 from __future__ import annotations
 
@@ -23,11 +27,19 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from rdeic_torch.models.blocks import (
     Conv,
+    Conv2d,
     GroupNorm32,
+    LayerNorm,
+    Linear,
+    PromotedConv2d,
     find_denominator,
     nchw,
     nhwc,
@@ -39,12 +51,13 @@ from rdeic_torch.ops.attention import attention
 class TimeEmbed(nn.Module):
     def __init__(self, cin: int, dim: int):
         super().__init__()
-        self.fc1 = nn.Linear(cin, dim)
-        self.fc2 = nn.Linear(dim, dim)
+        self.fc1 = Linear(cin, dim)
+        self.fc2 = Linear(dim, dim)
 
     def forward(self, t_emb):
-        """t_emb: the fp32 sinusoidal embedding, taken to the weights' dtype."""
-        return self.fc2(F.silu(self.fc1(t_emb.to(self.fc1.weight.dtype))))
+        """t_emb: the fp32 sinusoidal embedding, taken to the compute
+        dtype (fc1 casts to it anyway)."""
+        return self.fc2(F.silu(self.fc1(t_emb.to(self.fc1.compute_dtype))))
 
 
 class ResBlock(nn.Module):
@@ -54,9 +67,9 @@ class ResBlock(nn.Module):
         super().__init__()
         self.in_norm = GroupNorm32(cin, silu=True)
         self.in_conv = Conv(cin, cout, 3)
-        self.emb_proj = nn.Linear(emb_dim, cout)
+        self.emb_proj = Linear(emb_dim, cout)
         self.out_norm = GroupNorm32(cout, silu=True)
-        self.out_conv = nn.Conv2d(cout, cout, 3, padding=1)
+        self.out_conv = Conv2d(cout, cout, 3, padding=1)
         self.skip = Conv(cin, cout, 1) if cin != cout else None
 
     def forward(self, x, emb):
@@ -73,10 +86,10 @@ class CrossAttention(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Linear(inner, dim)
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
+        self.to_out = Linear(inner, dim)
 
     def forward(self, x, context=None):
         """x [B, L, C]; context [B, Lk, Ck] (None: self-attention)."""
@@ -93,7 +106,7 @@ class CrossAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = Linear(dim, inner * 2)
 
     def forward(self, x):
         h, gate = torch.chunk(self.proj(x), 2, dim=-1)
@@ -105,13 +118,13 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn1 = CrossAttention(dim, dim, heads, dim_head)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.attn2 = CrossAttention(dim, context_dim, heads, dim_head)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm3 = LayerNorm(dim, eps=1e-6)
         self.ff_geglu = GEGLU(dim, dim * 4)
-        self.ff_out = nn.Linear(dim * 4, dim)
+        self.ff_out = Linear(dim * 4, dim)
 
     def forward(self, x, context):
         x = x + self.attn1(self.norm1(x))
@@ -126,9 +139,9 @@ class SpatialTransformer(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm32(ch, eps=1e-6)
-        self.proj_in = nn.Linear(ch, inner)
+        self.proj_in = Linear(ch, inner)
         self.block_0 = BasicTransformerBlock(inner, heads, dim_head, context_dim)
-        self.proj_out = nn.Linear(inner, ch)
+        self.proj_out = Linear(inner, ch)
 
     def forward(self, x, context):
         b, c, h, w = x.shape
@@ -290,7 +303,7 @@ class UNetModel(nn.Module):
             self.dec_out_channels.append(ch)
             h = ch
         self.out_norm = GroupNorm32(mc, silu=True)
-        self.out_conv = nn.Conv2d(mc, out_channels, 3, padding=1)
+        self.out_conv = Conv2d(mc, out_channels, 3, padding=1)
 
     def embed_time(self, t):
         return self.time_embed(timestep_embedding(t, self.model_channels))
@@ -298,8 +311,9 @@ class UNetModel(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor) -> torch.Tensor:
         """The base UNet alone: x [B, H, W, C], t [B], context [B, L,
-        context_dim] -> eps [B, H, W, out], in the weights' dtype."""
-        dtype = self.out_conv.weight.dtype
+        context_dim] -> eps [B, H, W, out], in the compute dtype (x and the
+        context enter in it: their first consumers cast to it anyway)."""
+        dtype = self.out_conv.compute_dtype
         emb = self.embed_time(t)
         context = context.to(dtype)
         h = nchw(x.to(dtype))
@@ -354,6 +368,30 @@ class ControlModule(nn.Module):
         return self.time_embed(timestep_embedding(t, self.model_channels))
 
 
+# the aten ops whose outputs `remat_policy: "dots"` keeps: convolutions and
+# matrix products (F.linear and einsum reach these), as checkpoint_dots keeps
+# dot_general and conv_general_dilated. Everything else is recomputed,
+# allocations included: the flash and GroupNorm kernels launch through
+# ctypes inside their autograd Functions, unseen by the dispatcher, so they
+# run again in the recompute and write into fresh buffers.
+DOTS_OPS = frozenset({
+    torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.baddbmm.default})
+REMAT_POLICIES = (None, "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op in DOTS_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_context():
+    """The `context_fn` of a checkpoint that keeps DOTS_OPS' outputs."""
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 class NoiseEstimator(nn.Module):
     """Frozen base UNet + trainable control, bridged by zero convs: both
     encoders run in lock step and the control features are added into the
@@ -369,11 +407,11 @@ class NoiseEstimator(nn.Module):
                  control_scale: float = 1.0, use_checkpoint: bool = False,
                  remat_policy: str | None = None):
         super().__init__()
-        if remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r}: the port recomputes whole "
-                "blocks only (ROADMAP Queue 1, training settings)")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: one of "
+                             f"{REMAT_POLICIES}")
         self.use_checkpoint = use_checkpoint
+        self.remat_policy = remat_policy
         common = dict(in_channels=in_channels, model_channels=model_channels,
                       num_res_blocks=num_res_blocks,
                       attention_resolutions=tuple(attention_resolutions),
@@ -387,36 +425,42 @@ class NoiseEstimator(nn.Module):
         self.context_dim = context_dim
         self.hint_channels = hint_channels
         self.control_scale = control_scale
-        # the 1x1 bridges (flax zero-initialises them; a checkpoint sets them)
+        # the 1x1 bridges (flax zero-initialises them; a checkpoint sets
+        # them), built without `dtype`: they promote
         base_enc = self.base.enc_out_channels
         ctrl_enc = self.control.enc_out_channels
         self.enc_zero_convs = []
         for i, (cc, cb) in enumerate(zip(ctrl_enc, base_enc)):
-            conv = nn.Conv2d(cc, cb, 1)
+            conv = PromotedConv2d(cc, cb, 1)
             self.add_module(f"enc_zero_convs_out_{i}", conv)
             self.enc_zero_convs.append(conv)
-        self.middle_block_out = nn.Conv2d(self.control.mid_out_channels,
-                                          self.base.mid_out_channels, 1)
+        self.middle_block_out = PromotedConv2d(self.control.mid_out_channels,
+                                               self.base.mid_out_channels, 1)
         # the first targets the middle's output, the rest the output of the
         # base decoder block before them
         targets = [self.base.mid_out_channels] + self.base.dec_out_channels[:-1]
         self.dec_zero_convs = []
         for i, (cc, cb) in enumerate(zip(reversed(ctrl_enc), targets)):
-            conv = nn.Conv2d(cc, cb, 1)
+            conv = PromotedConv2d(cc, cb, 1)
             self.add_module(f"dec_zero_convs_out_{i}", conv)
             self.dec_zero_convs.append(conv)
 
     def _block(self, block: nn.Module, *args) -> torch.Tensor:
         if self.use_checkpoint and torch.is_grad_enabled():
+            if self.remat_policy == "dots":
+                return checkpoint(block, *args, use_reentrant=False,
+                                  context_fn=dots_context)
             return checkpoint(block, *args, use_reentrant=False)
         return block(*args)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 guide_hint: torch.Tensor) -> torch.Tensor:
         """x [B, H, W, 4], t [B], context [B, L, context_dim], guide_hint
-        [B, H, W, hint] -> eps [B, H, W, 4], in the weights' dtype."""
+        [B, H, W, hint] -> eps [B, H, W, 4], in the compute dtype (x, the
+        hint and the context enter in it: their first consumers cast to it
+        anyway)."""
         base, ctrl, run = self.base, self.control, self._block
-        dtype = base.out_conv.weight.dtype
+        dtype = base.out_conv.compute_dtype
         x, context = x.to(dtype), context.to(dtype)
         emb_base = base.embed_time(t)
         emb_ctrl = ctrl.embed_time(t)

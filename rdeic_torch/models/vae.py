@@ -10,14 +10,15 @@ The decoder's `use_checkpoint` (the refine phase backpropagates through it)
 recomputes each ResnetBlock and the AttnBlock in the backward instead of
 keeping their activations, as `nn.remat` does in the JAX package.
 
-Dtypes follow the JAX package's: the encoder and decoder stacks compute in
-the weights' dtype (bf16 after `RDEIC.set_compute_dtype`; their `conv_in`
-takes the fp32 image or latent to it); `F.group_norm` keeps fp32 statistics
-and rounds its output once. The layers the JAX package builds without
-`dtype` (the encoder's and decoder's `conv_out`, `quant_conv`,
-`post_quant_conv`) compute in fp32 on the bf16 weights (`PromotedConv`), and
-the 512-ch feature leaves the encoder in fp32: the compression model and the
-stream format stay fp32.
+Dtypes follow the JAX package's (models/blocks.py): the encoder and decoder
+stacks compute in the compute dtype (bf16 after `RDEIC.set_compute_dtype`,
+whatever the weights' storage dtype; their `conv_in` takes the fp32 image or
+latent to it); `Normalize` keeps fp32 statistics and rounds its output once
+to its input's dtype. The layers the JAX package builds without `dtype`
+(the encoder's and decoder's `conv_out`, `quant_conv`, `post_quant_conv`)
+promote (`PromotedConv`): they take an fp32 input, so they compute in fp32
+on bf16 weights, and the 512-ch feature, the moments and the decoded image
+leave in fp32: the compression model and the stream format stay fp32.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from rdeic_torch.models.blocks import (
     Conv,
+    Conv2d,
     PromotedConv,
     find_denominator,
     nchw,
@@ -39,13 +41,21 @@ from rdeic_torch.ops.attention import attention
 
 
 class Normalize(nn.Module):
+    """flax GroupNorm with `dtype=x.dtype`: fp32 statistics and affine, one
+    rounding to the input's dtype (torch's own kernel where the weights
+    share the input's dtype)."""
+
     def __init__(self, channels: int):
         super().__init__()
         self.GroupNorm_0 = nn.GroupNorm(find_denominator(channels, 32),
                                         channels, eps=1e-6)
 
     def forward(self, x):
-        return self.GroupNorm_0(x)
+        gn = self.GroupNorm_0
+        if gn.weight.dtype == x.dtype:
+            return gn(x)
+        return F.group_norm(x.float(), gn.num_groups, gn.weight.float(),
+                            gn.bias.float(), gn.eps).to(x.dtype)
 
 
 class ResnetBlock(nn.Module):
@@ -91,7 +101,7 @@ class Downsample(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x):
         return self.conv(F.pad(x, (0, 1, 0, 1)))
@@ -134,7 +144,7 @@ class VAEEncoder(nn.Module):
     def forward(self, x):
         """x [B, 3, H, W] in [-1, 1] -> (moments, 512-ch feature before
         conv_out), both fp32."""
-        h = self.conv_in(x.to(self.conv_in.Conv_0.weight.dtype))
+        h = self.conv_in(x.to(self.conv_in.Conv_0.compute_dtype))
         for name in self.plan:
             h = getattr(self, name)(h)
         h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
@@ -177,7 +187,7 @@ class VAEDecoder(nn.Module):
 
     def forward(self, z):
         """z [B, C, h, w] -> image [B, 3, H, W], fp32."""
-        h = self.conv_in(z.to(self.conv_in.Conv_0.weight.dtype))
+        h = self.conv_in(z.to(self.conv_in.Conv_0.compute_dtype))
         for block in (self.mid_block_1, self.mid_attn_1, self.mid_block_2,
                       *(getattr(self, name) for name in self.plan)):
             h = self._block(block, h)

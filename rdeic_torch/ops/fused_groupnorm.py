@@ -156,10 +156,12 @@ def _check(x, weight, bias, groups, *same_as_x):
                              "on the input's device")
 
 
-def _shape_key(shape, dtype, groups, eps, silu):
-    """The tally key of a call: (B, C, H, W, groups, eps, silu, dtype)."""
+def _shape_key(shape, dtype, param_dtype, groups, eps, silu):
+    """The tally key of a call: (B, C, H, W, groups, eps, silu, param dtype,
+    dtype); the scale and bias dtype picks the kernel's parameter branch."""
     b, c, h, w = shape
     return (b, c, h, w, groups, eps, bool(silu),
+            str(param_dtype).removeprefix("torch."),
             str(dtype).removeprefix("torch."))
 
 
@@ -248,7 +250,7 @@ def _fwd_args(shape, groups, dtype, weight_dtype, bias_dtype, eps, silu,
     ints = (b * groups, plan.span, h * w, c // groups, groups, plan.cluster,
             plan.chunk, plan.threads, plan.smem_bytes, plan.resident,
             plan.vec, silu, _DTYPE_CODES[dtype], _DTYPE_CODES[weight_dtype])
-    key = _shape_key(shape, dtype, groups, eps, silu)
+    key = _shape_key(shape, dtype, weight_dtype, groups, eps, silu)
     return (ctypes.c_int * len(ints))(*ints), key
 
 
@@ -377,7 +379,7 @@ def _bwd_args(shape, groups, dtype, weight_dtype, bias_dtype, silu, aligned,
             plan.cluster, plan.chunk, plan.threads, plan.smem_bytes,
             plan.resident, plan.vec, plan.nch, silu, _DTYPE_CODES[dtype],
             _DTYPE_CODES[weight_dtype])
-    key = _shape_key(shape, dtype, groups, None, silu)
+    key = _shape_key(shape, dtype, weight_dtype, groups, None, silu)
     return (ctypes.c_int * len(ints))(*ints), key
 
 
@@ -477,7 +479,7 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     CPU tensors take the plain versions; CUDA tensors launch the kernels (or
     raise). `group_norm.launches` counts forward kernel launches (one per
     call) and `group_norm.shapes` tallies calls by (B, C, H, W, groups, eps,
-    silu, dtype); `group_norm_bwd` keeps the same for the backward (one
+    silu, scale and bias dtype, dtype); `group_norm_bwd` keeps the same for the backward (one
     launch per call; eps is None there). Without autograd the forward runs
     alone and stores no statistics, which spares the serving path the
     autograd function's host time and two allocations.

@@ -25,9 +25,12 @@ the compression model's forward with noisy likelihoods and the CVQ losses ->
 Numerics: the VAE and the denoiser run in full fp32 (`full_fp32`: no TF32,
 which cuDNN convolutions would use by default), so the card computes what the
 CPU reference computes; the codec adds its own deterministic settings. A
-training step runs its forward and its backward inside the scope. Serving
-may run the VAE and the denoiser in bf16 (`set_compute_dtype`); the
-compression model, the codec and the sampler's state stay fp32.
+training step runs its forward and its backward inside the scope. The VAE
+and the denoiser may compute in bf16 (`set_compute_dtype`, the JAX
+method): bf16 serving also stores their weights in bf16
+(`cast_inference_params`), bf16 training keeps the trainable weights fp32
+and the trainer stores the frozen ones in bf16. The compression model, the
+codec and the sampler's state stay fp32.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from torch import nn
 
 from rdeic_torch.diffusion import ddim, spaced
 from rdeic_torch.diffusion.schedule import NoiseSchedule
+from rdeic_torch.models import blocks
 from rdeic_torch.models.compression import CompressionModel
 from rdeic_torch.models.lpips import LPIPS, warn_random_backbone
 from rdeic_torch.models.unet import NoiseEstimator
@@ -115,14 +119,26 @@ class RDEIC(nn.Module):
             self._build(ctrl, unet, vae_cfg, comp)
         self._codec: Optional[CompressionCodec] = None
 
-    def set_compute_dtype(self, dtype: torch.dtype) -> None:
-        """Serve in `dtype` (bf16): cast the weights of `vae`, `denoiser` and
-        `lpips` (when present) and the `uncond_context`, the rule of the JAX
-        package's `cast_inference_params`; a torch module computes in its
-        weights' dtype, so this also does what its `set_compute_dtype`
-        does. `compression` and `vq_embed_prob` stay fp32: their outputs
-        parameterise the entropy coder, and the stream format pins them.
-        GroupNorm statistics and the softmax stay fp32 inside the modules."""
+    def set_compute_dtype(self, dtype: torch.dtype,
+                          cast_weights: bool = True) -> None:
+        """The denoiser and the VAE compute in `dtype` (the JAX method):
+        each layer the JAX package builds with `dtype` casts its weights and
+        its input to it, whatever their storage dtype; GroupNorm statistics
+        and the softmax stay fp32 inside. With `cast_weights` (serving, the
+        `--bf16` flag) the weights are also stored in `dtype`
+        (`cast_inference_params`); training passes False and leaves the
+        storage to the trainer's `frozen_dtype`."""
+        for name in ("vae", "denoiser"):
+            blocks.set_compute_dtype(getattr(self, name), dtype)
+        if cast_weights:
+            self.cast_inference_params(dtype)
+
+    def cast_inference_params(self, dtype: torch.dtype) -> None:
+        """Store the weights of `vae`, `denoiser` and `lpips` (when present)
+        and the `uncond_context` in `dtype`: the rule of the JAX package's
+        `cast_inference_params`. `compression` and `vq_embed_prob` stay
+        fp32: their outputs parameterise the entropy coder, and the stream
+        format pins them."""
         for name in ("vae", "denoiser", "lpips"):
             if hasattr(self, name):
                 getattr(self, name).to(dtype)

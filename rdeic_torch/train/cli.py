@@ -13,8 +13,15 @@ the order of rdeic_tpu's loader (`data_loader.seed`; `trainer.seed` seeds
 the model and the noise). Logs JSONL metrics to `<out_dir>/metrics.jsonl`
 every `log_every_n_steps` and writes the full train state to
 `<out_dir>/checkpoints/step_<N>.pt` every `ckpt_every_n_steps` and at the
-end. Runs on CUDA unless `--device cpu`. Validation and the image logger are
-not ported yet.
+end, keeping the `ckpt_keep` newest (-1: all). Runs on CUDA unless
+`--device cpu`. Validation and the image logger are not ported yet.
+
+The trainer settings of the repo's bf16 recipes, in train.py's order:
+`compute_dtype` (the denoiser and the VAE compute in it, the weights stay
+fp32), `frozen_dtype` (the frozen tensors are stored in it) and
+`fast_init` (the model is built on `meta` and filled from `trainer.seed`
+by the JAX package's `fast_random_params` rule; a `resume` then overlays
+its weights).
 """
 from __future__ import annotations
 
@@ -26,14 +33,10 @@ from pathlib import Path
 import torch
 
 from rdeic_torch.registry import instantiate_from_config, load_yaml
-from rdeic_torch.train.trainer import Trainer
+from rdeic_torch.train.trainer import Trainer, cast_frozen, prune_checkpoints
 from rdeic_torch.utils.backend import resolve_device
 from rdeic_torch.utils.convert import load_npz_weights
-
-# trainer settings of the JAX CLI that the port does not run yet, and the
-# ROADMAP Queue 1 item that brings each
-_NOT_PORTED = {"compute_dtype": "bf16", "frozen_dtype": "bf16",
-               "fast_init": "training settings"}
+from rdeic_torch.utils.fast_init import fast_random_init
 
 
 def _deep_update(dst: dict, src: dict) -> dict:
@@ -51,9 +54,20 @@ def log_metrics(path: Path, step: int, logs: dict) -> None:
         f.write(json.dumps(row) + "\n")
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """A YAML dtype name ("bfloat16", "float32") as a torch float dtype."""
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"{name!r} is not a float dtype")
+    return dtype
+
+
 def build_model(cfg: dict, device: torch.device):
     """The model of `cfg["model"]`, its YAML deep-updated by the optional
-    `overrides`, and the `.npz` weights of `resume` when it names one."""
+    `overrides`, with the trainer's `compute_dtype`, its frozen tensors in
+    `frozen_dtype`, made by `fast_init` from `trainer.seed` when asked, and
+    the `.npz` weights of `resume` when it names one."""
+    tcfg = cfg.get("trainer", {})
     model_cfg = load_yaml(cfg["model"]["config"])
     _deep_update(model_cfg.setdefault("params", {}),
                  cfg["model"].get("overrides") or {})
@@ -61,7 +75,18 @@ def build_model(cfg: dict, device: torch.device):
         raise NotImplementedError(
             "sync_path: converting an SD 2.1 torch checkpoint: ROADMAP "
             "Queue 1, training settings")
-    model = instantiate_from_config(model_cfg, device=device)
+    fast = bool(tcfg.get("fast_init"))
+    model = instantiate_from_config(model_cfg,
+                                    device="meta" if fast else device)
+    if tcfg.get("compute_dtype"):
+        model.set_compute_dtype(torch_dtype(tcfg["compute_dtype"]),
+                                cast_weights=False)
+        print(f"[compute dtype: {tcfg['compute_dtype']}]")
+    if tcfg.get("frozen_dtype"):  # the trainer's cast; on meta, before
+        # fast_init, the frozen tensors are made in it
+        cast_frozen(model, torch_dtype(tcfg["frozen_dtype"]))
+    if fast:
+        fast_random_init(model, device, seed=int(tcfg.get("seed", 231)))
     resume = cfg["model"].get("resume")
     if resume and str(resume).endswith(".npz"):
         kept = load_npz_weights(model, resume)
@@ -78,9 +103,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cfg = load_yaml(args.config)
     tcfg = cfg.get("trainer", {})
-    for key, item in _NOT_PORTED.items():
-        if tcfg.get(key):
-            raise NotImplementedError(f"trainer.{key}: ROADMAP Queue 1, {item}")
     mesh = tcfg.get("mesh") or {}
     if (mesh.get("dp") or 1) > 1 or (mesh.get("tp") or 1) > 1:
         raise NotImplementedError("trainer.mesh: one device only; DDP is "
@@ -93,9 +115,13 @@ def main(argv=None) -> int:
     print(f"[rdeic_torch.train: {phase} phase; validation and the image "
           "logger are not ported yet (ROADMAP Queue 1, validation and "
           "callbacks)]", flush=True)
+    # build_model cast the frozen tensors on `meta` already (no fp32 copy
+    # of the model), so the trainer's cast finds them in `frozen_dtype`
+    frozen = tcfg.get("frozen_dtype")
     trainer = Trainer(model, learning_rate=tcfg.get("learning_rate"),
                       accumulate_grad_batches=int(
-                          tcfg.get("accumulate_grad_batches", 1)))
+                          tcfg.get("accumulate_grad_batches", 1)),
+                      frozen_dtype=torch_dtype(frozen) if frozen else None)
     resume = cfg["model"].get("resume")
     if resume and not str(resume).endswith(".npz"):
         path = Path(resume)
@@ -116,7 +142,12 @@ def main(argv=None) -> int:
     max_steps = args.max_steps or int(tcfg.get("max_steps", 100000))
     log_every = int(tcfg.get("log_every_n_steps", 50))
     ckpt_every = int(tcfg.get("ckpt_every_n_steps", 5000))
+    keep = int(tcfg.get("ckpt_keep", -1))
     generator = torch.Generator(device=device).manual_seed(seed)
+
+    def save() -> None:
+        trainer.save(ckpt_dir / f"step_{trainer.step_count}.pt")
+        prune_checkpoints(ckpt_dir, keep)
 
     t0 = time.time()
     while trainer.step_count < max_steps:
@@ -130,9 +161,9 @@ def main(argv=None) -> int:
                 print(f"step {step}: " + ", ".join(
                     f"{k}={float(v):.4g}" for k, v in logs.items()), flush=True)
             if step % ckpt_every == 0:
-                trainer.save(ckpt_dir / f"step_{step}.pt")
+                save()
             if step >= max_steps:
                 break
-    trainer.save(ckpt_dir / f"step_{trainer.step_count}.pt")
+    save()
     print("done")
     return 0

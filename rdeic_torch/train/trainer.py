@@ -5,7 +5,9 @@ an optional EMA, and save/load of the full train state.
 The port's dotted parameter names mirror the flax paths, so the JAX rule of
 what trains carries over unchanged. Frozen parameters get
 `requires_grad=False`: autograd computes no gradient for them, as the JAX
-step differentiates only the trainable subtree.
+step differentiates only the trainable subtree. With `frozen_dtype` (bf16)
+the frozen tensors are stored in it (`cast_frozen`); the trainable weights,
+their gradients, the gradient sum and AdamW stay fp32.
 """
 from __future__ import annotations
 
@@ -59,6 +61,30 @@ def trainable_parameters(model) -> dict:
     return params
 
 
+def is_frozen_float(name: str, tensor: torch.Tensor, pred) -> bool:
+    """Whether `cast_frozen` casts this parameter or buffer: a float tensor
+    that does not train, but for the codebook usage EMA `vq_embed_prob`
+    (updated every step; its small decays underflow in bf16)."""
+    return (name != "vq_embed_prob" and tensor.is_floating_point()
+            and not pred(tuple(name.split("."))))
+
+
+@torch.no_grad()
+def cast_frozen(model, dtype: torch.dtype) -> None:
+    """Store every frozen float parameter and buffer of `model` in `dtype`
+    (the JAX `cast_frozen`; the trainable ones keep theirs). The tensors
+    are replaced in place, so a `meta` model casts for nothing."""
+    pred = trainable_predicate(model.sd_locked)
+    for name, p in model.named_parameters():
+        if is_frozen_float(name, p, pred):
+            p.data = p.data.to(dtype)
+    for name, b in list(model.named_buffers()):
+        if is_frozen_float(name, b, pred):
+            mod, _, leaf = name.rpartition(".")
+            owner = model.get_submodule(mod) if mod else model
+            setattr(owner, leaf, b.to(dtype))
+
+
 def list_checkpoints(ckpt_dir: str | Path) -> list[int]:
     """The steps N of the `step_N.pt` files that `Trainer.save` wrote under
     `ckpt_dir`, in numeric order (step_10 after step_9); none for an absent
@@ -87,15 +113,32 @@ def latest_checkpoint(path: str | Path) -> Path:
     return path / f"step_{steps[-1]}.pt"
 
 
+def prune_checkpoints(ckpt_dir: str | Path, keep: int) -> list[int]:
+    """Delete every `step_N.pt` under `ckpt_dir` but the `keep` newest
+    (`trainer.ckpt_keep`; keep <= 0 keeps all, as -1 does in train.py);
+    the steps deleted."""
+    if keep <= 0:
+        return []
+    gone = list_checkpoints(ckpt_dir)[:-keep]
+    for step in gone:
+        (Path(ckpt_dir) / f"step_{step}.pt").unlink()
+    return gone
+
+
 class Trainer:
-    """One `step` per micro-batch: forward and backward in full fp32, then
+    """One `step` per micro-batch: forward and backward in full fp32 (or in
+    the model's compute dtype where `RDEIC.set_compute_dtype` set one), then
     AdamW on every `accumulate_grad_batches`-th call with the mean of the
     micro-batch gradients (optax.MultiSteps), then the CVQ codebook update
-    on every call, then the EMA."""
+    on every call, then the EMA. `frozen_dtype` stores the frozen tensors
+    in that dtype (`cast_frozen`)."""
 
     def __init__(self, model, learning_rate: float | None = None,
-                 accumulate_grad_batches: int = 1, use_ema: bool = False):
+                 accumulate_grad_batches: int = 1, use_ema: bool = False,
+                 frozen_dtype: torch.dtype | None = None):
         self.model = model
+        if frozen_dtype is not None:
+            cast_frozen(model, frozen_dtype)
         self.params = trainable_parameters(model)
         # optax.adamw's defaults: betas (0.9, 0.999), eps 1e-8, decoupled decay
         self.optimizer = torch.optim.AdamW(
@@ -158,7 +201,9 @@ class Trainer:
 
     def load(self, path: str | Path) -> None:
         """The train state of a `Trainer.save` file, or of the latest
-        `step_N.pt` in a directory of them (`latest_checkpoint`)."""
+        `step_N.pt` in a directory of them (`latest_checkpoint`). Each
+        weight is copied into the model's tensor in that tensor's dtype, so
+        an fp32 file resumes into a bf16-frozen trainer, and the reverse."""
         dev = next(self.model.parameters()).device
         state = torch.load(latest_checkpoint(path), map_location=dev,
                            weights_only=True)

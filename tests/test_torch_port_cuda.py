@@ -586,6 +586,8 @@ def _serving_models(cuda, bf16: bool = False):
     card = RDEIC(**CARD_MICRO, device="meta").eval()
     card.load_state_dict({k: v.to(cuda) for k, v in cpu.state_dict().items()},
                          assign=True)
+    if bf16:  # the compute dtype is the modules', not the weights'
+        card.set_compute_dtype(torch.bfloat16)
     return cpu, card
 
 
@@ -680,3 +682,100 @@ def test_guidance_launch_counts_follow_the_structure(cuda):
     assert counts[2.0] == (
         counts[1.0][0] + SERVE_STEPS * count(SpatialTransformer, den.base),
         counts[1.0][1] + SERVE_STEPS * count(GroupNorm32, den.base))
+
+
+# -- bf16 training on the card ---------------------------------------------------
+def _bf16_training_model(device, is_refine: bool):
+    """CARD_MICRO as the bf16 recipes build it: on meta, computing in bf16,
+    the frozen tensors cast to bf16, then fast_init on `device` (seed 0);
+    the refine phase with use_checkpoint and remat_policy "dots"."""
+    import copy  # noqa: PLC0415
+
+    from rdeic_torch.pipeline.rdeic import RDEIC  # noqa: PLC0415
+    from rdeic_torch.train.trainer import cast_frozen  # noqa: PLC0415
+    from rdeic_torch.utils.fast_init import fast_random_init  # noqa: PLC0415
+
+    cfg = copy.deepcopy(CARD_MICRO)
+    if is_refine:
+        cfg["control_stage_config"]["params"].update(use_checkpoint=True,
+                                                      remat_policy="dots")
+    model = RDEIC(**cfg, is_refine=is_refine, device="meta")
+    model.set_compute_dtype(torch.bfloat16, cast_weights=False)
+    cast_frozen(model, torch.bfloat16)
+    return fast_random_init(model, device, seed=0)
+
+
+def _train_launches(model) -> dict:
+    """Launches of one micro-step from the structure (chip_smoke.py's
+    train_launches_per_step at this config): one flash call per
+    SpatialTransformer (all at L = 1024) per denoiser call, again in a
+    recompute, the VAE encoder's mid-block (no grad) and, in the refine
+    phase, the decoder's (under grad); one GroupNorm launch per GroupNorm32
+    call, forward and backward."""
+    from rdeic_torch.models.unet import SpatialTransformer  # noqa: PLC0415
+
+    den = model.denoiser
+    n_st = sum(isinstance(m, SpatialTransformer) for m in den.modules())
+    n_gn = sum(isinstance(m, GroupNorm32) for m in den.modules())
+    blocks = [*den.base.input_blocks, den.base.mid, *den.base.output_blocks,
+              *den.control.input_blocks, den.control.mid]
+    n_gn_blocks = sum(isinstance(m, GroupNorm32) for b in blocks
+                      for m in b.modules())
+    ckpt = int(den.use_checkpoint)
+    calls, decoder = (model.fixed_step, 1) if model.is_refine else (1, 0)
+    return {"flash_attention": 1,
+            "flash_attention_lse": calls * n_st * (1 + ckpt) + decoder,
+            "flash_attention_dq": calls * n_st + decoder,
+            "flash_attention_dkv": calls * n_st + decoder,
+            "group_norm": calls * (n_gn + ckpt * n_gn_blocks),
+            "group_norm_bwd": calls * n_gn}
+
+
+@pytest.mark.parametrize("is_refine", [False, True])
+def test_bf16_training_step_on_cuda(cuda, is_refine):
+    """One bf16 `Trainer` micro-step (frozen_dtype bf16) of CARD_MICRO at
+    128x128 on the card: every kernel launches as often as the structure
+    says, every flash call in bf16; the frozen tensors stay bf16 and
+    bit-equal, the trainable ones fp32; the loss within 2^-6 of the same
+    step on the CPU (bf16 rounding differs between the two); and the bf16
+    dq and dkv kernels give the same bits on a second launch at each shape
+    the step ran."""
+    from rdeic_torch.train.trainer import Trainer  # noqa: PLC0415
+
+    fns = {f.__name__: f for f in (flash_attention, flash_attention_lse,
+                                   flash_attention_dq, flash_attention_dkv,
+                                   group_norm, group_norm_bwd)}
+    model = _bf16_training_model(cuda, is_refine)
+    cpu = _bf16_training_model(torch.device("cpu"), is_refine)
+    img = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (1, 128, 128, 3)).astype(np.float32))
+    noise = cpu.train_noise(img, torch.Generator().manual_seed(0))
+    on_card = {k: [u.to(cuda) for u in v] if isinstance(v, list) else v.to(cuda)
+               for k, v in noise.items()}
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(model, frozen_dtype=torch.bfloat16)
+    for f in fns.values():
+        f.launches, f.shapes = 0, {}
+    logs = trainer.step(img.to(cuda), noise=on_card)
+    torch.cuda.synchronize()
+    assert {k: f.launches for k, f in fns.items()} == _train_launches(model)
+    for name in ("flash_attention", "flash_attention_lse", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        assert {k[-1] for k in fns[name].shapes} == {"bfloat16"}, name
+    now = model.state_dict()
+    for k, v in now.items():
+        if k in trainer.params or k == "vq_embed_prob":
+            assert v.dtype == torch.float32, k
+        else:
+            assert v.dtype == torch.bfloat16 and torch.equal(v, before[k]), k
+    want = Trainer(cpu, frozen_dtype=torch.bfloat16).step(img, noise=noise)
+    got, ref = logs["loss"].item(), want["loss"].item()
+    assert np.isfinite(got) and abs(got - ref) <= 2.0 ** -6 * abs(ref)
+    for shape in fns["flash_attention_dq"].shapes:
+        q, k, v, do = (_rand(shape[:4], torch.bfloat16, cuda, s) for s in range(4))
+        o, lse = flash_attention_lse(q, k, v)
+        dq, di = flash_attention_dq(q, k, v, o, lse, do)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, di)
+        again = (*flash_attention_dq(q, k, v, o, lse, do),
+                 *flash_attention_dkv(q, k, v, do, lse, di))
+        assert all(torch.equal(a, b) for a, b in zip((dq, di, dk, dv), again))

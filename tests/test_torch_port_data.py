@@ -157,15 +157,30 @@ def test_inference_cli_refusals_name_the_item(tmp_path, argv, item):
     assert item not in str(exc.value)
 
 
-@pytest.mark.parametrize("trainer,item", [
-    ({"compute_dtype": "bfloat16"}, "bf16"),
-    ({"frozen_dtype": "bfloat16"}, "bf16"),
-    ({"fast_init": True}, "training settings"),
-    ({"mesh": {"dp": 2}}, "multi-device"),
+# the repo's bf16 recipe keys (compute_dtype, frozen_dtype, fast_init) are
+# accepted: with them the CLI gets as far as the refusal a model override
+# asks for
+BF16_RECIPE = {"compute_dtype": "bfloat16", "frozen_dtype": "bfloat16",
+               "fast_init": True}
+
+
+@pytest.mark.parametrize("trainer,overrides,item", [
+    ({"mesh": {"dp": 2}}, {}, "multi-device"),
+    ({}, {"sync_path": "sd21.ckpt"}, "training settings"),
+    ({}, {"parameterization": "x0"}, "training settings"),
+    ({}, {"parameterization": "v"}, "training settings"),
+    (BF16_RECIPE, {"sync_path": "sd21.ckpt"}, "training settings"),
+    (BF16_RECIPE, {"parameterization": "v"}, "training settings"),
 ])
-def test_train_cli_refusals_name_the_item(tmp_path, trainer, item):
+def test_train_cli_refusals_name_the_item(tmp_path, trainer, overrides, item):
+    model = tmp_path / "model.yaml"
+    model.write_text(yaml.safe_dump({
+        "target": "rdeic_tpu.pipeline.rdeic.RDEIC",
+        "params": {"control_stage_config": {"params": {"model_channels": 16}}}}))
     config = tmp_path / "train.yaml"
-    config.write_text(yaml.safe_dump({"trainer": trainer}))
+    config.write_text(yaml.safe_dump({
+        "model": {"config": str(model), "overrides": overrides},
+        "trainer": trainer}))
     with pytest.raises(NotImplementedError,
                        match=re.escape(f"ROADMAP Queue 1, {item}")):
         torch_train_cli.main(["--config", str(config), "--device", "cpu"])

@@ -76,3 +76,28 @@ def test_chip_smoke_config_equals_the_model_yaml():
         "batch_size": refine_data["data_loader"]["batch_size"],
         "out_size": refine_data["dataset"]["params"]["out_size"]}
     assert chip_smoke.REFINE_MODEL_CONFIG == {**want["params"], "is_refine": True}
+
+
+@pytest.mark.parametrize("name", ["train_rdeic_v5e.yaml", "train_rdeic_refine_v5e.yaml",
+                                  "train_rdeic_refine_b4_probe.yaml",
+                                  "finetune_ood.yaml", "finetune_ood_resume.yaml"])
+def test_chip_smoke_bf16_recipe_equals_the_yamls(name):
+    """Every bf16 training YAML sets chip_smoke's BF16_RECIPE, and
+    REFINE_DOTS_MODEL_CONFIG is the model YAML under
+    train_rdeic_refine_v5e.yaml's overrides."""
+    yaml = pytest.importorskip("yaml")
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    cfg = yaml.safe_load((ROOT / "configs" / name).read_text())
+    assert {k: cfg["trainer"][k] for k in chip_smoke.BF16_RECIPE} == \
+        chip_smoke.BF16_RECIPE
+    if name != "train_rdeic_refine_v5e.yaml":
+        return
+    from rdeic_torch.train.cli import _deep_update  # noqa: PLC0415
+
+    want = yaml.safe_load((ROOT / "configs" / "model" / "rdeic.yaml").read_text())
+    _deep_update(want["params"], cfg["model"]["overrides"])
+    assert chip_smoke.REFINE_DOTS_MODEL_CONFIG == want["params"]

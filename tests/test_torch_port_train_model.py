@@ -153,11 +153,16 @@ def test_checkpointed_denoiser_gives_the_same_gradients(loss_run, pair):
                                    atol=1e-7)
 
 
-def test_unported_training_options_raise():
+@pytest.mark.parametrize("parameterization", ["x0", "v"])
+def test_unported_training_options_raise(parameterization):
+    """The x0 and v parameterizations wait for their ROADMAP item (the
+    sampler reads eps); `remat_policy: "dots"` is ported and builds."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchRDEIC(**copy.deepcopy(MICRO), parameterization=parameterization,
+                   device="cpu")
     cfg = copy.deepcopy(MICRO)
     cfg["control_stage_config"]["params"]["remat_policy"] = "dots"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchRDEIC(**cfg, device="cpu")
+    assert TorchRDEIC(**cfg, device="cpu").denoiser.remat_policy == "dots"
     # the refine phase is ported: it runs
     tm = TorchRDEIC(**copy.deepcopy(MICRO), is_refine=True, device="cpu")
     loss, logs = tm.loss_fn(torch.zeros(1, 64, 64, 3), generator=torch.Generator())

@@ -99,9 +99,13 @@ and g++; no network. Phases, each fatal on failure:
    A flash row's bound takes the rate named in its `bound_rate`
    (flash_rate): for fp32, the TF32 tensor cores over the three passes of
    3xTF32, which every flash kernel runs; for bf16, the card's bf16 peak.
-   Each forward row names its CUDA kernel (`kernel`: the bf16 forward runs
-   flash_fwd_d16_bf16 / flash_fwd_d64_bf16 / flash_fwd_d512_bf16), and a
-   log line gives each bf16 row's times beside SDPA's bf16 call. Each
+   Each forward, dq and dkv row names its CUDA kernel (`kernel`: the bf16
+   forward runs flash_fwd_d16_bf16 / flash_fwd_d64_bf16 /
+   flash_fwd_d512_bf16, the bf16 backward at d = 64 flash_dq_d64_bf16 and
+   flash_dkv_d64_bf16), and a log line gives each bf16 row's times beside
+   SDPA's bf16 call; another gives each training shape's dq and dkv times
+   (ms and device_ms), their own bounds and the pair's beside SDPA's
+   backward. Each
    flash row also has `softmax_bound_ms`, the floor its B H L^2
    exponentials set on the MUFU units (16 a clock per SM at 1.98 GHz),
    which `bound_ms` (products and bytes only) leaves out.
@@ -321,9 +325,11 @@ TF32_FLOPS = 494.7e12
 TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (16, 64, 512)}
 # Head dims whose bf16 forward has kernels of its own on the bf16 tensor
 # cores (flash_fwd_d16_bf16, flash_fwd_d64_bf16, flash_fwd_d512_bf16: bf16
-# mma.sync m16n8k16); the bf16 backward is the fp32 kernels' templates on
-# bf16 tiles (TF32 mma.sync)
+# mma.sync m16n8k16), and whose bf16 backward has (flash_dq_d64_bf16,
+# flash_dkv_d64_bf16); elsewhere the bf16 backward is the fp32 kernels'
+# templates on bf16 tiles (TF32 mma.sync)
 BF16_FWD_HEAD_DIMS = (16, 64, 512)
+BF16_BWD_HEAD_DIMS = (64,)
 # The exponentials' floor of a flash call (`softmax_bound_ms`): B H L^2 of
 # them on the MUFU units, 16 a clock per SM (sm_90), at the boost clock
 MUFU_EX2_PER_CLOCK = 16
@@ -1143,13 +1149,21 @@ def flash_fwd_kernel(d: int, dtype) -> str:
     return f"flash_fwd_d{d}<{'fp32' if dtype == torch.float32 else 'bf16'}>"
 
 
+def flash_bwd_kernel(name: str, d: int, dtype) -> str:
+    """The CUDA kernel behind a dq or dkv call (name "dq" or "dkv";
+    csrc/flash_attn_bwd.cu)."""
+    if dtype == torch.bfloat16 and d in BF16_BWD_HEAD_DIMS:
+        return f"flash_{name}_d{d}_bf16"
+    return f"flash_{name}_d{d}<{'fp32' if dtype == torch.float32 else 'bf16'}>"
+
+
 def flash_rate(d: int, dtype, backward: bool = False) -> tuple[float, str]:
     """(flop/s, its name) that bounds a flash kernel (forward, or dq and
     dkv when `backward`) at head dim d. fp32: the TF32 tensor cores over the
     three passes of 3xTF32 where the kernel runs them (TC_HEAD_DIMS), else
     fp32 FMA. bf16: the card's bf16 peak, whichever route the kernel takes
-    (bf16 mma at BF16_FWD_HEAD_DIMS; elsewhere its TF32 products could be
-    bf16 ones)."""
+    (bf16 mma at BF16_FWD_HEAD_DIMS and, backward, BF16_BWD_HEAD_DIMS;
+    elsewhere its TF32 products could be bf16 ones)."""
     tc = TC_HEAD_DIMS["backward" if backward else "forward"]
     if dtype == torch.float32 and d in tc:
         return TF32_FLOPS / 3, f"TF32 tensor cores {TF32_FLOPS / 1e12:g} / 3 passes"
@@ -1335,11 +1349,12 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
              lib_bwd_dev)):
         bound, by, rate = _flash_bound_ms(nbytes, flops, d, dtype,
                                           name != "flash_attn_fwd_lse")
+        kernel = (flash_fwd_kernel(d, dtype) if name == "flash_attn_fwd_lse"
+                  else flash_bwd_kernel(name.rsplit("_", 1)[-1], d, dtype))
         rows_out[name] = {**r, "bound_ms": bound, "bound_by": by,
                           "bound_rate": rate,
                           "softmax_bound_ms": softmax_bound_ms(b, h, seq),
-                          **({"kernel": flash_fwd_kernel(d, dtype)}
-                             if name == "flash_attn_fwd_lse" else {}),
+                          "kernel": kernel,
                           "ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps)[0],
                           "plain_ms": plain, "library_ms": library,
                           "library_device_ms": library_dev}
@@ -1606,11 +1621,14 @@ def phase_kernels(device, runs) -> list:
     for dq, dkv in zip(train_rows["flash_attn_bwd_dq"],
                        train_rows["flash_attn_bwd_dkv"]):
         log(f"[kernels] flash backward per call {dq['shape']}: dq "
-            f"{dq['ms']:.4f} (device {dq['device_ms']:.4f}) + dkv "
-            f"{dkv['ms']:.4f} (device {dkv['device_ms']:.4f}) = "
-            f"{dq['ms'] + dkv['ms']:.4f} ms; own bounds {dq['bound_ms']:.4f} + "
-            f"{dkv['bound_ms']:.4f} ms at {dq['bound_rate']}; SDPA backward "
-            f"{dq['library_ms']:.4f} (device {dq['library_device_ms']:.4f}) ms")
+            f"({dq['kernel']}) {dq['ms']:.4f} (device {dq['device_ms']:.4f}) "
+            f"+ dkv ({dkv['kernel']}) {dkv['ms']:.4f} (device "
+            f"{dkv['device_ms']:.4f}) = {dq['ms'] + dkv['ms']:.4f} (device "
+            f"{dq['device_ms'] + dkv['device_ms']:.4f}) ms; own bounds "
+            f"{dq['bound_ms']:.4f} + {dkv['bound_ms']:.4f} ms, the pair's "
+            f"{dq['backward_bound_ms']:.4f} ms at {dq['bound_rate']}; SDPA "
+            f"backward {dq['library_ms']:.4f} (device "
+            f"{dq['library_device_ms']:.4f}) ms")
     for d in (16, 64):
         reads = {seq: bwd_error_vs_float64(device, (1, seq, 2, d))
                  for seq in (1024, 8192)}

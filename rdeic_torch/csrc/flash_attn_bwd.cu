@@ -69,11 +69,10 @@
 // streamed value split once a block rather than once in every warp.
 //
 // d = 64 (the UNet: [2, 4096, 5, 64] and [2, 1024, 10, 64] per independent
-// micro-step, twice that per refine micro-step) runs flash_dq_d64 and
-// flash_dkv_d64 on the tensor cores: TF32 mma.sync (m16n8k8), fp32
-// accumulators, 3xTF32 for fp32 products (flash_mma.cuh); bf16 operands are
-// exact in TF32, so S and dP take one pass and the products with P or dS
-// two. Both kernels:
+// micro-step, twice that per refine micro-step) runs, in fp32, flash_dq_d64
+// and flash_dkv_d64 on the tensor cores: TF32 mma.sync (m16n8k8), fp32
+// accumulators, 3xTF32 for fp32 products (flash_mma.cuh). (bf16 at d = 64
+// has kernels of its own, below.) Both kernels:
 // - 64-row tiles, 4 warps; warp w owns rows 16 w.. of the block's tile (q
 //   rows in dq, keys in dkv). The kept pair (Q and dO in dq, K and V in dkv)
 //   stays in shared memory for the whole loop and is read as A fragments
@@ -105,8 +104,7 @@
 //   while the SM's other blocks compute. dkv keeps 2 tiles and double-
 //   buffers its streamed pair (105 KB), 2 blocks per SM, each copying the
 //   next pair while it uses the current one.
-// - ptxas -v: dq 166 registers (fp32) and 152 (bf16), dkv 196 and 189; no
-//   spills.
+// - ptxas -v: dq 166 registers, dkv 196; no spills.
 // - Accuracy: mma.sync rounds the sum it returns toward zero, and dq, dk
 //   and dv take every pass into their running accumulators, so their fp32
 //   error grows with L: on the card ~1e-5 of max at L = 1024, 5e-5 at 4096,
@@ -123,6 +121,62 @@
 // fp32 operations) per fp32 product, with every warp splitting the same
 // streamed fragments again; 8-12 warps per SM to hide mma.sync's latency;
 // mma.sync's rate on Hopper (wgmma is the full-rate instruction).
+//
+// bf16 at d = 64 (the bf16 training recipes: the same shapes) runs
+// flash_dq_d64_bf16 and flash_dkv_d64_bf16, built from the pieces of
+// flash_bf16.cuh, as the bf16 forward is:
+// - Tiles stay bf16 in shared memory, in flash_bf16.cuh's swizzled layout
+//   (chunk c of row r at c ^ (r & 7)), copied by cp.async.cg 16 bytes a
+//   lane, zero-filled past L: every copy and every ldmatrix phase, with and
+//   without .trans, hits 32 banks. 64-row kept tiles of 4 warps, warp w
+//   owning rows 16 w..; the kept pair (Q and dO in dq, K and V in dkv) is
+//   read once into A fragments held in registers for the whole loop. The
+//   streamed pair (K and V, or Q and dO with their rows' lse and di, these
+//   by 4-byte cp.async.ca) comes in 64-row tiles through a ring of three
+//   buffers, one barrier a tile, so the next two tiles are in flight while
+//   one is used, in two 32-row chunks. dq's O passes through the third K
+//   buffer before the ring reaches it.
+// - Products: mma.sync m16n8k16, bf16 operands, fp32 accumulators. S = Q K^T
+//   and dP = dO V^T (dkv: S^T = K Q^T, dP^T = V dO^T) take the streamed
+//   tile's B fragments by ldmatrix without .trans; dq += dS K, dv += P^T dO
+//   and dk += dS^T Q take them from the same tile by ldmatrix.trans.
+// - Scores stay in registers: P and dS are formed in place in the C
+//   fragments, whose pairs packed to bf16x2 are the A fragment of the next
+//   16-deep step. The softmax runs in log2 units: P = ex2(fmaf(S, scale
+//   log2(e), -lse log2(e))), dS = P fmaf(dP, scale, -di scale). dq masks
+//   keys past L in its last tile; in dkv a q row past L lands as zeros (Q,
+//   dO, lse, di), so P^T = 1 and dS^T = 0 there, times dO = Q = 0: no test.
+// - P and dS as two bf16 terms (big = bf16(x), small = bf16(x - big),
+//   flash_bf16.cuh pack_split), so every product with them is two mma. The
+//   rule, read on the CPU emulation (tests/test_torch_port_flash_bwd_d64_
+//   bf16.py) before any card run: one term only if it reads at most half
+//   the card's limit (2^-8 + 1e-4 of max|plain|) at every training shape
+//   and at L = 1000 and 8192. One term of P read up to 2.8e-3 of max on dv,
+//   one of dS 2.1e-3 on dq and dk, past half (2.0e-3): dS K cancels (each
+//   row of dS sums to about zero), and P's rounding does not average out
+//   in P^T dO either. Two terms read <= 3.1e-5 before the bf16 store.
+// - mma.sync rounds its sums toward zero; over L = 8192 one accumulator
+//   moves the result by < 1e-4 of max (emulation), a fortieth of half the
+//   limit, so there are no per-chunk partials. No atomics: two launches
+//   give the same bits.
+// - Grid: one block per (64-row tile, b*h), 640 at [2, 4096, 5, 64] and
+//   320 at [2, 1024, 10, 64]. dq: Q, dO and the K / V ring, 64 KB, 167
+//   registers (ptxas -v), three blocks per SM: 1.6 and 0.8 waves. dkv
+//   holds dk and dv (64 accumulators a thread): at three blocks (168
+//   registers) it spilled 16 bytes, so two, 252 registers and 65.5 KB,
+//   2.4 and 1.2 waves. No spills.
+// What holds them back now (PERF.md §6 has their times beside SDPA's):
+// the warps' own instruction stream. In probes neither more warps per SM
+// (four dq blocks on 32-row streamed tiles, three dkv blocks with 16-row
+// chunks or the kept fragments re-read from shared memory), nor 128-row
+// kept tiles of 8 warps (half the streamed bytes through L2), nor 32 q
+// rows a warp in dq (each B fragment serving two m-tiles, half the
+// ldmatrix a product, at 255 registers) ran faster.
+// The products with P and dS take two mma for one (4 / 3 and 3 / 2 of the
+// one-term count in dq and dkv), ldmatrix comes at one per 2-4 mma, and
+// the exponentials and the split's conversions sit between the products
+// in the same warps. wgmma with B from shared memory and TMA copies would
+// take the ldmatrix and the copies off the warps that multiply.
 //
 // d = 512 (the VAE decoder's mid-block, [2, 4096, 1, 512] per refine
 // micro-step) runs its own pair, flash_dq_d512 and flash_dkv_d512, on the
@@ -165,10 +219,14 @@
 //
 // Bound on the H100: the pair must do 10 * L^2 * D * B * H flops (S, dP, dV,
 // dQ, dK; dq alone 6, dkv alone 8, since each recomputes S and dP) against
-// ~8 * B * L * H * D elements of traffic. Every head dim runs 3xTF32 on the
-// tensor cores, 494.7 / 3 = 165 TFLOP/s. At the training path's
-// L = 1024..4096 the flops bound every shape.
+// ~8 * B * L * H * D elements of traffic. fp32 runs 3xTF32 on the tensor
+// cores at every head dim, 494.7 / 3 = 165 TFLOP/s; bf16 takes the bf16
+// peak, 989 TFLOP/s. At the training path's L = 1024..4096 the flops
+// bound every shape.
 
+#include <type_traits>
+
+#include "flash_bf16.cuh"
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
@@ -1046,21 +1104,21 @@ static_assert(2 * kDkvSmemFloats * 4 <= 232448, "two dkv blocks per SM");
 
 // One 8-deep step of s += A B: A (16 x 8) raw fp32 a0..a3, B(d, n) =
 // tile[n][d] from bf (RowB), for NC n-tiles.
-template <int NC, bool kSplit>
+template <int NC>
 __device__ __forceinline__ void score_step(float (&s)[NC][4],
                                            const float (&a)[4],
                                            const float (&bf)[NC][2]) {
   using namespace rdeic_flash;
   uint32_t ab[4], as[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) split<kSplit>(a[i], ab[i], as[i]);
+  for (int i = 0; i < 4; ++i) split<true>(a[i], ab[i], as[i]);
 #pragma unroll
   for (int n = 0; n < NC; ++n) {
     uint32_t bb[2], bs[2];
-    split<kSplit>(bf[n][0], bb[0], bs[0]);
-    split<kSplit>(bf[n][1], bb[1], bs[1]);
-    if (kSplit) mma_tf32(s[n], as, bb);
-    if (kSplit) mma_tf32(s[n], ab, bs);
+    split<true>(bf[n][0], bb[0], bs[0]);
+    split<true>(bf[n][1], bb[1], bs[1]);
+    mma_tf32(s[n], as, bb);
+    mma_tf32(s[n], ab, bs);
     mma_tf32(s[n], ab, bb);
   }
 }
@@ -1070,7 +1128,7 @@ __device__ __forceinline__ void score_step(float (&s)[NC][4],
 // the streamed tiles b1, b2 from their row 0 (ldmatrix, RowB). n-tile n
 // holds streamed rows 8 n.. as columns. The two products interleave, 2 NC
 // independent accumulators.
-template <int NC, bool kSplit>
+template <int NC>
 __device__ __forceinline__ void scores(float (&s1)[NC][4], float (&s2)[NC][4],
                                        const float* a1, const float* a2,
                                        const float* b1, const float* b2) {
@@ -1087,13 +1145,12 @@ __device__ __forceinline__ void scores(float (&s1)[NC][4], float (&s2)[NC][4],
     rb1.load(y1, kk * 8);
     ra2.load(x2, kk * 8);
     rb2.load(y2, kk * 8);
-    score_step<NC, kSplit>(s1, x1[0], y1);
-    score_step<NC, kSplit>(s2, x2[0], y2);
+    score_step<NC>(s1, x1[0], y1);
+    score_step<NC>(s2, x2[0], y2);
   }
 }
 
-// The 8 streamed rows kk of C (16 x 8 NC score fragments: P or dS, fp32,
-// always split) as an A fragment in the permuted k order: k-slot t is
+// The 8 streamed rows kk of C (16 x 8 NC score fragments: P or dS) as an A fragment in the permuted k order: k-slot t is
 // streamed row 2t, slot t + 4 row 2t + 1, so a0..a3 = c0, c2, c1, c3.
 __device__ __forceinline__ void c_as_a(const float (&c)[4], uint32_t (&pb)[4],
                                        uint32_t (&ps)[4]) {
@@ -1109,7 +1166,6 @@ __device__ __forceinline__ void c_as_a(const float (&c)[4], uint32_t (&pb)[4],
 // 32 banks). mma.sync rounds its result toward zero, so each pass drops up
 // to an ulp of acc, always toward zero: over the L-long sum the error grows
 // with L (header).
-template <bool kSplit>
 __device__ __forceinline__ void accumulate_step(float (&acc)[D / 8][4],
                                                 const uint32_t (&pb)[4],
                                                 const uint32_t (&ps)[4],
@@ -1118,10 +1174,10 @@ __device__ __forceinline__ void accumulate_step(float (&acc)[D / 8][4],
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     uint32_t bb[2], bs[2];
-    split<kSplit>(b[8 * n], bb[0], bs[0]);
-    split<kSplit>(b[TS + 8 * n], bb[1], bs[1]);
+    split<true>(b[8 * n], bb[0], bs[0]);
+    split<true>(b[TS + 8 * n], bb[1], bs[1]);
     mma_tf32(acc[n], ps, bb);
-    if (kSplit) mma_tf32(acc[n], pb, bs);
+    mma_tf32(acc[n], pb, bs);
     mma_tf32(acc[n], pb, bb);
   }
 }
@@ -1159,7 +1215,6 @@ __global__ void __launch_bounds__(NT, 3)
                  T* __restrict__ dq, float* __restrict__ di, int L, int H,
                  float scale) {
   using namespace rdeic_flash;
-  constexpr bool kSplit = sizeof(T) == 4;  // bf16 operands are exact in TF32
   extern __shared__ __align__(16) float smem_d64[];
   float* qs = smem_d64;     // [BT][TS]
   float* dos = qs + kTile;  // [BT][TS]
@@ -1228,7 +1283,7 @@ __global__ void __launch_bounds__(NT, 3)
       const float* kt = ks + c0 * TS;
       const float* vt = vs + c0 * TS;
       float s[KC / 8][4], dp[KC / 8][4];
-      scores<KC / 8, kSplit>(s, dp, qs, dos, kt, vt);
+      scores<KC / 8>(s, dp, qs, dos, kt, vt);
       // P = exp(S scale - lse), 0 on a padded row or key; dS = P (dP - di)
       // scale, in place of S
 #pragma unroll
@@ -1244,7 +1299,7 @@ __global__ void __launch_bounds__(NT, 3)
       for (int kk = 0; kk < KC / 8; ++kk) {
         uint32_t pb[4], ps[4];
         c_as_a(s[kk], pb, ps);
-        accumulate_step<kSplit>(acc, pb, ps, kt + (8 * kk + 2 * t) * TS + g);
+        accumulate_step(acc, pb, ps, kt + (8 * kk + 2 * t) * TS + g);
       }
     }
     __syncthreads();  // every warp is done with this pair before its refill
@@ -1272,7 +1327,6 @@ __global__ void __launch_bounds__(NT, 2)
                   const float* __restrict__ di, T* __restrict__ dk,
                   T* __restrict__ dv, int L, int H, float scale) {
   using namespace rdeic_flash;
-  constexpr bool kSplit = sizeof(T) == 4;
   extern __shared__ __align__(16) float smem_d64[];
   float* ks = smem_d64;         // [BT][TS]
   float* vs = ks + kTile;       // [BT][TS]
@@ -1332,7 +1386,7 @@ __global__ void __launch_bounds__(NT, 2)
       const float* qt = qs + cur * kTile + c0 * TS;
       const float* dt = dos + cur * kTile + c0 * TS;
       float s[KC / 8][4], dp[KC / 8][4];
-      scores<KC / 8, kSplit>(s, dp, ks, vs, qt, dt);
+      scores<KC / 8>(s, dp, ks, vs, qt, dt);
       // column c = c0 + 8 n + 2 t + e is q row q0 + c: P^T = exp(S^T scale
       // - lse[c]), 0 on a padded q row; dS^T = P^T (dP^T - di[c]) scale
 #pragma unroll
@@ -1354,9 +1408,9 @@ __global__ void __launch_bounds__(NT, 2)
       for (int kk = 0; kk < KC / 8; ++kk) {
         uint32_t pb[4], ps[4];
         c_as_a(s[kk], pb, ps);
-        accumulate_step<kSplit>(acc_v, pb, ps, dt + (8 * kk + 2 * t) * TS + g);
+        accumulate_step(acc_v, pb, ps, dt + (8 * kk + 2 * t) * TS + g);
         c_as_a(dp[kk], pb, ps);
-        accumulate_step<kSplit>(acc_k, pb, ps, qt + (8 * kk + 2 * t) * TS + g);
+        accumulate_step(acc_k, pb, ps, qt + (8 * kk + 2 * t) * TS + g);
       }
     }
     __syncthreads();  // every warp is done with this pair before its refill
@@ -1408,6 +1462,396 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace d64
 
+// bf16 at d = 64 on the bf16 tensor cores (header). 128 threads a block;
+// warp w owns rows 16 w.. of the block's 64-row kept tile (q rows in dq,
+// keys in dkv) and holds their two kept A-fragment sets in registers; the
+// streamed pair comes in 64-row tiles through a ring of three buffers and
+// is used in two KC-row chunks. dq runs three blocks per SM, dkv (twice
+// the accumulators) two.
+namespace d64_bf16 {
+
+namespace bf16 = rdeic_flash::bf16;
+using bf16::bf16_t;
+using bf16::Lane;
+constexpr int D = 64, BT = 64, NT = 128, KC = 32;
+constexpr int kRow = D * 2;                  // bytes of a tile row
+constexpr int kTile = BT * D;                // values of a tile
+constexpr int kTileBytes = kTile * 2;        // 8 KB
+constexpr int kDqSmemBytes = 8 * kTileBytes;  // Q, dO, three K / V pairs
+// K, V, three Q / dO pairs, and the lse and di of each pair's q rows
+constexpr int kDkvSmemBytes = 8 * kTileBytes + 3 * 2 * BT * 4;
+static_assert(3 * (kDqSmemBytes + 1024) <= 233472, "three dq blocks per SM");
+static_assert(2 * (kDkvSmemBytes + 1024) <= 233472, "two dkv blocks per SM");
+static_assert(NT == 2 * BT, "one thread a row term in load_row_terms");
+
+// c (16 x KC: n-tile n holds streamed rows 8 n.. as columns) = A B^T over
+// d: A the warp's kept fragments, B the chunk's rows read without .trans
+// (`b`: the chunk's first row plus the lane's row Lane::br, in bytes)
+__device__ __forceinline__ void scores(float (&c)[KC / 8][4],
+                                       const uint32_t (&a)[D / 16][4],
+                                       uint32_t b, const Lane& ln) {
+  using namespace rdeic_flash;
+  zero(c);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < KC / 16; ++np) {
+      uint32_t f[4];
+      bf16::ldsm_x4(f, b + 16 * np * kRow + ln.cb[kk]);
+      bf16::mma(c[2 * np], a[kk], f[0], f[1]);
+      bf16::mma(c[2 * np + 1], a[kk], f[2], f[3]);
+    }
+}
+
+// acc (16 x 64: n-tile n holds columns 8 n..) += X B over the chunk's KC
+// rows: X (16 x KC, P or dS) from its C fragments as two bf16 terms (the
+// C fragments of n-tiles 2 kk and 2 kk + 1, packed pairwise, are the A
+// fragment of the 16-deep step kk), B the chunk's rows read with .trans
+// (`b`: the chunk's first row plus the lane's row Lane::ar, in bytes). At
+// each step the small term's products go first, then the big term's.
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const float (&x)[KC / 8][4],
+                                           uint32_t b, const Lane& ln) {
+#pragma unroll
+  for (int kk = 0; kk < KC / 16; ++kk) {
+    uint32_t big[4], small[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // rows g, g + 8 of n-tile 2 kk, 2 kk + 1
+      const float(&c)[4] = x[2 * kk + (i >> 1)];
+      bf16::pack_split(c[2 * (i & 1)], c[2 * (i & 1) + 1], big[i], small[i]);
+    }
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t f[4];
+      bf16::ldsm_x4_trans(f, b + 16 * kk * kRow + ln.ca[np]);
+      bf16::mma(acc[2 * np], small, f[0], f[1]);
+      bf16::mma(acc[2 * np + 1], small, f[2], f[3]);
+      bf16::mma(acc[2 * np], big, f[0], f[1]);
+      bf16::mma(acc[2 * np + 1], big, f[2], f[3]);
+    }
+  }
+}
+
+// The warp's 16 rows of a tile (byte address `a`: the tile plus the rows
+// 16 w + Lane::ar) as the A fragments of the four 16-deep steps over d
+__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4], uint32_t a,
+                                       const Lane& ln) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) bf16::ldsm_x4(f[kk], a + ln.ca[kk]);
+}
+
+// The warp's 16 x 64 accumulator, rows r0 + g and r0 + g + 8 (those below
+// L), to out (at (b, h)) as bf16.
+__device__ __forceinline__ void store_rows(bf16_t* out,
+                                           const float (&acc)[D / 8][4],
+                                           int r0, int L, int64_t row) {
+  using namespace rdeic_flash;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= L) continue;
+    bf16_t* p = out + r * row + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2<bf16_t>(p + 8 * n, acc[n][2 * half], acc[n][2 * half + 1]);
+  }
+}
+
+// lse and di of q rows [r0, r0 + BT) (lse and di at (b, h)) into dst: lse
+// at dst[0..BT), di at dst[BT..2 BT), 4 bytes a thread by cp.async.ca; a
+// row past L reads nothing and lands as 0.
+__device__ __forceinline__ void load_row_terms(float* dst, const float* lse,
+                                               const float* di, int r0,
+                                               int L) {
+  const int i = threadIdx.x & (BT - 1);
+  const bool in = r0 + i < L;
+  const float* src = (threadIdx.x < BT ? lse : di) + (in ? r0 + i : 0);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   bf16::smem_addr(dst + threadIdx.x)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+// One block: (64-row q tile blockIdx.x, b*h blockIdx.y). Warp w keeps the
+// A fragments of Q and dO rows 16 w.. and their lse2 and di scale, and
+// streams K and V: S = Q K^T and dP = dO V^T as C fragments, P and dS in
+// place, dq += dS K. Also di = rowsum(dO O) of the tile's rows, written to
+// `di` for the dkv kernel.
+__global__ void __launch_bounds__(NT, 3)
+    flash_dq_d64_bf16(const bf16_t* __restrict__ q,
+                      const bf16_t* __restrict__ k,
+                      const bf16_t* __restrict__ v,
+                      const bf16_t* __restrict__ o,
+                      const bf16_t* __restrict__ dout,
+                      const float* __restrict__ lse, bf16_t* __restrict__ dq,
+                      float* __restrict__ di, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  using bf16::exp2_ftz, bf16::kLog2e, bf16::load_tile;
+  extern __shared__ __align__(128) unsigned char smem_dq64b[];
+  bf16_t* qs = reinterpret_cast<bf16_t*>(smem_dq64b);  // [BT][D]
+  bf16_t* dos = qs + kTile;                             // [BT][D]
+  bf16_t* ks = dos + kTile;                             // [3 buffers][BT][D]
+  bf16_t* vs = ks + 3 * kTile;                          // [3 buffers][BT][D]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const Lane ln(lane);
+  const int q0 = blockIdx.x * BT;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  const bf16_t* kb = k + base;
+  const bf16_t* vb = v + base;
+  const float c = scale * kLog2e;  // scores in log2 units, for ex2
+  const int nk = (L + BT - 1) / BT;
+  bf16_t* os = ks + 2 * kTile;  // the third K buffer
+
+  // O passes through the third K buffer, which the ring first fills with
+  // tile 2, after the loop's first barrier
+  load_tile<BT, D, NT>(qs, q + base, q0, L, row);
+  load_tile<BT, D, NT>(dos, dout + base, q0, L, row);
+  load_tile<BT, D, NT>(os, o + base, q0, L, row);
+  cp_async_commit();
+  load_tile<BT, D, NT>(ks, kb, 0, L, row);
+  load_tile<BT, D, NT>(vs, vb, 0, L, row);
+  cp_async_commit();
+  if (nk > 1) {
+    load_tile<BT, D, NT>(ks + kTile, kb, BT, L, row);
+    load_tile<BT, D, NT>(vs + kTile, vb, BT, L, row);
+  }
+  cp_async_commit();
+  cp_async_wait<2>();  // Q, dO and O (the K / V tiles may be in flight)
+  __syncthreads();
+
+  // rows g (half 0) and g + 8 (half 1) of the warp's 16: lse2 = lse
+  // log2(e), and di from the lane's 16 products of each row and its quad's
+  const uint32_t arow = (warp * 16 + ln.ar) * kRow;
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  load_a(qf, bf16::smem_addr(qs) + arow, ln);
+  load_a(df, bf16::smem_addr(dos) + arow, ln);
+  float di_r[2] = {0.f, 0.f};
+  {
+    uint32_t of[D / 16][4];
+    load_a(of, bf16::smem_addr(os) + arow, ln);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // a0, a2: row g; a1, a3: row g + 8
+        const float2 x = bf16::unpack(df[kk][i]), y = bf16::unpack(of[kk][i]);
+        di_r[i & 1] = fmaf(x.y, y.y, fmaf(x.x, y.x, di_r[i & 1]));
+      }
+  }
+  float lse2[2], dis[2];
+  const int r0 = q0 + warp * 16 + g;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    di_r[half] += __shfl_xor_sync(0xffffffffu, di_r[half], 1);
+    di_r[half] += __shfl_xor_sync(0xffffffffu, di_r[half], 2);
+    const int r = r0 + 8 * half;
+    const bool in = r < L;
+    lse2[half] = in ? lse[rbase + r] * kLog2e : 0.f;
+    dis[half] = in ? di_r[half] * scale : 0.f;
+    if (in && t == 0) di[rbase + r] = di_r[half];
+  }
+
+  float acc[D / 8][4];  // dq[16 rows][64]: n-tile n holds columns 8 n..
+  zero(acc);
+  const uint32_t sk = bf16::smem_addr(ks), sv = bf16::smem_addr(vs);
+  // the ring: tile j in buffer j % 3, two in flight
+  for (int j = 0, cur = 0; j < nk; ++j, cur = cur == 2 ? 0 : cur + 1) {
+    const int k0 = j * BT;
+    cp_async_wait<1>();  // this pair (the next may be in flight)
+    // every warp sees this pair, and is done with the buffer of tile
+    // j - 1 (at j = 0: with O), which takes tile j + 2
+    __syncthreads();
+    if (j + 2 < nk) {
+      const int nxt = cur == 0 ? 2 : cur - 1;
+      load_tile<BT, D, NT>(ks + nxt * kTile, kb, k0 + 2 * BT, L, row);
+      load_tile<BT, D, NT>(vs + nxt * kTile, vb, k0 + 2 * BT, L, row);
+    }
+    cp_async_commit();
+    const uint32_t kt = sk + cur * kTileBytes, vt = sv + cur * kTileBytes;
+#pragma unroll
+    for (int c0 = 0; c0 < BT; c0 += KC) {
+      float s[KC / 8][4], dp[KC / 8][4];
+      scores(s, qf, kt + (c0 + ln.br) * kRow, ln);
+      scores(dp, df, vt + (c0 + ln.br) * kRow, ln);
+      // P = 2^(S c - lse2), 0 on a key past L (its K row is zero, but P
+      // need not be finite there); dS = P (dP scale - di scale), in place
+      // of S
+      const bool tail = k0 + c0 + KC > L;
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int half = i >> 1;
+          float p = exp2_ftz(fmaf(s[n][i], c, -lse2[half]));
+          if (tail && k0 + c0 + 8 * n + 2 * t + (i & 1) >= L) p = 0.f;
+          s[n][i] = p * fmaf(dp[n][i], scale, -dis[half]);
+        }
+      accumulate(acc, s, kt + (c0 + ln.ar) * kRow, ln);
+    }
+  }
+  cp_async_wait<0>();
+  store_rows(dq + base, acc, q0 + warp * 16, L, row);
+}
+
+// One block: (64-row k tile blockIdx.x, b*h blockIdx.y). Warp w keeps the
+// A fragments of K and V rows 16 w.. and streams Q and dO with their rows'
+// lse and di: S^T = K Q^T and dP^T = V dO^T as C fragments (rows keys,
+// columns q), P^T and dS^T in place, dv += P^T dO, dk += dS^T Q. A q row
+// past L lands as zeros (Q, dO, lse, di), so S^T = 0, P^T = 1, dP^T = 0
+// and dS^T = 0 there, and its products with dO = 0 and Q = 0 add exact
+// zeros: no test. Two blocks per SM: at three (168 registers) it spills.
+__global__ void __launch_bounds__(NT, 2)
+    flash_dkv_d64_bf16(const bf16_t* __restrict__ q,
+                       const bf16_t* __restrict__ k,
+                       const bf16_t* __restrict__ v,
+                       const bf16_t* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ di, bf16_t* __restrict__ dk,
+                       bf16_t* __restrict__ dv, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  using bf16::exp2_ftz, bf16::kLog2e, bf16::load_tile;
+  extern __shared__ __align__(128) unsigned char smem_dkv64b[];
+  bf16_t* ks = reinterpret_cast<bf16_t*>(smem_dkv64b);  // [BT][D]
+  bf16_t* vs = ks + kTile;                               // [BT][D]
+  bf16_t* qs = vs + kTile;                               // [3 buffers][BT][D]
+  bf16_t* dos = qs + 3 * kTile;                          // [3 buffers][BT][D]
+  float* rs = reinterpret_cast<float*>(dos + 3 * kTile);  // [3][lse, di][BT]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const Lane ln(lane);
+  const int k0 = blockIdx.x * BT;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  const bf16_t* qb = q + base;
+  const bf16_t* db = dout + base;
+  const float* lb = lse + rbase;
+  const float* ib = di + rbase;
+  const float c = scale * kLog2e;
+  const int nq = (L + BT - 1) / BT;
+
+  load_tile<BT, D, NT>(ks, k + base, k0, L, row);
+  load_tile<BT, D, NT>(vs, v + base, k0, L, row);
+  cp_async_commit();
+  load_tile<BT, D, NT>(qs, qb, 0, L, row);
+  load_tile<BT, D, NT>(dos, db, 0, L, row);
+  load_row_terms(rs, lb, ib, 0, L);
+  cp_async_commit();
+  if (nq > 1) {
+    load_tile<BT, D, NT>(qs + kTile, qb, BT, L, row);
+    load_tile<BT, D, NT>(dos + kTile, db, BT, L, row);
+    load_row_terms(rs + 2 * BT, lb, ib, BT, L);
+  }
+  cp_async_commit();
+  cp_async_wait<2>();  // K and V (the Q / dO tiles may be in flight)
+  __syncthreads();
+  const uint32_t arow = (warp * 16 + ln.ar) * kRow;
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a(kf, bf16::smem_addr(ks) + arow, ln);
+  load_a(vf, bf16::smem_addr(vs) + arow, ln);
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];  // dk, dv [16 keys][64]
+  zero(acc_k);
+  zero(acc_v);
+  const uint32_t sq = bf16::smem_addr(qs), sd = bf16::smem_addr(dos);
+  for (int j = 0, cur = 0; j < nq; ++j, cur = cur == 2 ? 0 : cur + 1) {
+    const int q0 = j * BT;
+    cp_async_wait<1>();
+    __syncthreads();  // this pair is visible; tile j - 1's buffer is free
+    if (j + 2 < nq) {
+      const int nxt = cur == 0 ? 2 : cur - 1;
+      load_tile<BT, D, NT>(qs + nxt * kTile, qb, q0 + 2 * BT, L, row);
+      load_tile<BT, D, NT>(dos + nxt * kTile, db, q0 + 2 * BT, L, row);
+      load_row_terms(rs + nxt * 2 * BT, lb, ib, q0 + 2 * BT, L);
+    }
+    cp_async_commit();
+    const uint32_t qt = sq + cur * kTileBytes, dt = sd + cur * kTileBytes;
+    const float* r = rs + cur * 2 * BT;
+#pragma unroll
+    for (int c0 = 0; c0 < BT; c0 += KC) {
+      float s[KC / 8][4], dp[KC / 8][4];
+      scores(s, kf, qt + (c0 + ln.br) * kRow, ln);
+      scores(dp, vf, dt + (c0 + ln.br) * kRow, ln);
+      // column c0 + 8 n + 2 t + e is q row q0 + c0 + 8 n + 2 t + e:
+      // P^T = 2^(S^T c - lse2), dS^T = P^T (dP^T scale - di scale)
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+        const int col = c0 + 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(r + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(r + BT + col);
+        const float lc[2] = {l2.x * kLog2e, l2.y * kLog2e};
+        const float dc[2] = {d2.x * scale, d2.y * scale};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = i & 1;
+          const float p = exp2_ftz(fmaf(s[n][i], c, -lc[e]));
+          s[n][i] = p;
+          dp[n][i] = p * fmaf(dp[n][i], scale, -dc[e]);
+        }
+      }
+      accumulate(acc_v, s, dt + (c0 + ln.ar) * kRow, ln);
+      accumulate(acc_k, dp, qt + (c0 + ln.ar) * kRow, ln);
+    }
+  }
+  cp_async_wait<0>();
+  store_rows(dk + base, acc_k, k0 + warp * 16, L, row);
+  store_rows(dv + base, acc_v, k0 + warp * 16, L, row);
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // as much shared memory as the SM has, so that three dq blocks fit
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      void* dq, float* di, int B, int L, int H, float scale,
+                      cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
+  if (err != cudaSuccess) return err;
+  err = prepare(flash_dq_d64_bf16, kDqSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BT - 1) / BT, B * H);
+  flash_dq_d64_bf16<<<grid, NT, kDqSmemBytes, stream>>>(
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), static_cast<const bf16_t*>(o),
+      static_cast<const bf16_t*>(dout), lse, static_cast<bf16_t*>(dq), di, L,
+      H, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di,
+                       void* dk, void* dv, int B, int L, int H, float scale,
+                       cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
+  if (err != cudaSuccess) return err;
+  err = prepare(flash_dkv_d64_bf16, kDkvSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BT - 1) / BT, B * H);
+  flash_dkv_d64_bf16<<<grid, NT, kDkvSmemBytes, stream>>>(
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), static_cast<const bf16_t*>(dout), lse,
+      di, static_cast<bf16_t*>(dk), static_cast<bf16_t*>(dv), L, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace d64_bf16
+
 template <typename T>
 int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, void* dq, float* di,
@@ -1417,8 +1861,12 @@ int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
       return d16::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H, scale,
                                st);
     case 64:
-      return d64::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H, scale,
-                               st);
+      if constexpr (std::is_same_v<T, float>)
+        return d64::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H,
+                                 scale, st);
+      else
+        return d64_bf16::launch_dq(q, k, v, o, dout, lse, dq, di, B, L, H,
+                                   scale, st);
     case 512:
       return d512::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H, scale,
                                 st);
@@ -1437,8 +1885,12 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
       return d16::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
                                 scale, st);
     case 64:
-      return d64::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
-                                scale, st);
+      if constexpr (std::is_same_v<T, float>)
+        return d64::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
+                                  scale, st);
+      else
+        return d64_bf16::launch_dkv(q, k, v, dout, lse, di, dk, dv, B, L, H,
+                                    scale, st);
     case 512:
       return d512::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
                                  scale, st);

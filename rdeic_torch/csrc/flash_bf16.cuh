@@ -1,6 +1,7 @@
 // bf16 tensor-core pieces of the bf16 flash-attention kernels
 // (flash_attn_fwd.cu: flash_fwd_d16_bf16, flash_fwd_d64_bf16,
-// flash_fwd_d512_bf16): bf16
+// flash_fwd_d512_bf16; flash_attn_bwd.cu: flash_dq_d64_bf16,
+// flash_dkv_d64_bf16): bf16
 // `mma.sync` m16n8k16 with fp32 accumulators, fragment loads by ldmatrix,
 // and bf16 tiles copied by cp.async into a swizzled shared-memory layout.
 //
@@ -117,6 +118,23 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// (x0, x1) as two bf16 terms, each an A-fragment register: big = the pair
+// rounded to nearest bf16, small = bf16(x - big) (x - big is exact in fp32),
+// so big + small is within 2^-17 |x| of x (flash_attn_bwd.cu's bf16
+// backward takes P and dS so)
+__device__ __forceinline__ void pack_split(float x0, float x1, uint32_t& big,
+                                           uint32_t& small) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(b);
+  big = *reinterpret_cast<const uint32_t*>(&b);
+  small = pack(x0 - f.x, x1 - f.y);
+}
+
+// A bf16x2 register (low half first) as two floats
+__device__ __forceinline__ float2 unpack(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }
 
 // Element offset of chunk c (8 values) of row r in a swizzled D-wide tile.

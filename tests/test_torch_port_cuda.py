@@ -100,6 +100,11 @@ BF16_FWD_SHAPES = [(1, 6144, 4, 16), (1, 1536, 8, 16), (2, 4096, 4, 16),
                    (2, 1000, 3, 64), (1, 8192, 2, 64), (1, 6144, 1, 512),
                    (2, 4096, 1, 512), (1, 1024, 1, 512), (1, 20, 2, 512),
                    (1, 130, 1, 512), (2, 1000, 2, 512), (1, 8192, 1, 512)]
+# the bf16 backward at d = 64 (flash_dq_d64_bf16, flash_dkv_d64_bf16): the
+# training path shapes, tails (an L inside one 64-row tile, one two rows
+# past two tiles, an L of no tile multiple with B = 2, H > 1) and L = 8192
+D64_BF16_BWD_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64), (2, 40, 3, 64),
+                       (1, 130, 2, 64), (2, 1000, 3, 64), (1, 8192, 2, 64)]
 
 
 @pytest.fixture
@@ -424,6 +429,36 @@ def test_flash_bf16_forward_kernels(cuda, shape, lse):
         assert _rel_err(got[1] * FAULT_SCALE, want_lse) > 1e-4
 
 
+@pytest.mark.parametrize("shape", D64_BF16_BWD_SHAPES)
+def test_flash_d64_bf16_backward_kernels(cuda, shape):
+    """flash_dq_d64_bf16 and flash_dkv_d64_bf16 (bf16 mma.sync, P and dS
+    as two bf16 terms): one launch each a call; dq, dk and dv within
+    2^-8 + 1e-4 of max of the plain version's unrounded fp32 result from the
+    same o and lse, each reading a planted x1.05 fault beyond it; di =
+    rowsum(dO O) within 1e-5 of max of the plain sum; the same bits (dq,
+    di, dk, dv) on a second launch."""
+    q, k, v, do = (_rand(shape, torch.bfloat16, cuda, s) for s in range(4))
+    o, lse = flash_attention_lse(q, k, v)
+    before = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    dq, di = flash_attention_dq(q, k, v, o, lse, do)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches, flash_attention_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    again = (*flash_attention_dq(q, k, v, o, lse, do),
+             *flash_attention_dkv(q, k, v, do, lse, di))
+    assert all(torch.equal(a, b) for a, b in zip((dq, di, dk, dv), again))
+    plain = flash_attention_bwd_plain(*(x.float() for x in (q, k, v, o)), lse,
+                                      do.float())
+    limit = _limit(torch.bfloat16)
+    for got, want in zip((dq, dk, dv), plain):
+        assert got.dtype == torch.bfloat16
+        assert _rel_err(got, want) <= limit
+        assert _rel_err(got.float() * FAULT_SCALE, want) > limit
+    want_di = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(di.shape)
+    assert _rel_err(di, want_di) <= 1e-5
+
+
 def test_flash_d16_backward_error_is_flat_in_l(cuda):
     """Each 32-row chunk's products sum from zero and join the accumulators
     in fp32, so mma.sync's rounding toward zero does not pile up over L:
@@ -685,10 +720,12 @@ def test_guidance_launch_counts_follow_the_structure(cuda):
 
 
 # -- bf16 training on the card ---------------------------------------------------
-def _bf16_training_model(device, is_refine: bool):
+def _bf16_training_model(device, is_refine: bool, head_channels: int = 16):
     """CARD_MICRO as the bf16 recipes build it: on meta, computing in bf16,
     the frozen tensors cast to bf16, then fast_init on `device` (seed 0);
-    the refine phase with use_checkpoint and remat_policy "dots"."""
+    the refine phase with use_checkpoint and remat_policy "dots"; the base
+    UNet's attention heads `head_channels` wide (the control module's, 32
+    channels at the attention level, stay 16 wide)."""
     import copy  # noqa: PLC0415
 
     from rdeic_torch.pipeline.rdeic import RDEIC  # noqa: PLC0415
@@ -696,6 +733,7 @@ def _bf16_training_model(device, is_refine: bool):
     from rdeic_torch.utils.fast_init import fast_random_init  # noqa: PLC0415
 
     cfg = copy.deepcopy(CARD_MICRO)
+    cfg["unet_config"]["params"]["num_head_channels"] = head_channels
     if is_refine:
         cfg["control_stage_config"]["params"].update(use_checkpoint=True,
                                                       remat_policy="dots")
@@ -740,13 +778,46 @@ def test_bf16_training_step_on_cuda(cuda, is_refine):
     step on the CPU (bf16 rounding differs between the two); and the bf16
     dq and dkv kernels give the same bits on a second launch at each shape
     the step ran."""
+    _bf16_training_step(cuda, is_refine)
+
+
+@pytest.mark.parametrize("is_refine", [False, True])
+def test_bf16_training_step_at_d64_on_cuda(cuda, is_refine):
+    """The same step with 64-channel heads in the base UNet: its
+    SpatialTransformers run at d = 64 (L = 1024), the control module's and
+    the VAE decoder's mid-block (refine) at d = 16. The dq and dkv tallies
+    hold the step's
+    d = 64 bf16 calls, which the library sends to flash_dq_d64_bf16 and
+    flash_dkv_d64_bf16, one each a SpatialTransformer call; at each such
+    shape those kernels land within 2^-8 + 1e-4 of max of the plain
+    version's unrounded fp32 result, beyond which a x1.05 fault reads."""
+    tallies = _bf16_training_step(cuda, is_refine, head_channels=64)
+    d64 = {name: {k: n for k, n in tallies[name].items()
+                  if k[3] == 64 and k[-1] == "bfloat16"}
+           for name in ("flash_attention_dq", "flash_attention_dkv")}
+    assert d64["flash_attention_dq"] and (d64["flash_attention_dq"]
+                                          == d64["flash_attention_dkv"])
+    limit = _limit(torch.bfloat16)
+    for shape in d64["flash_attention_dq"]:
+        q, k, v, do = (_rand(shape[:4], torch.bfloat16, cuda, s) for s in range(4))
+        o, lse = flash_attention_lse(q, k, v)
+        plain = flash_attention_bwd_plain(*(x.float() for x in (q, k, v, o)),
+                                          lse, do.float())
+        for got, want in zip(flash_attention_bwd(q, k, v, o, lse, do), plain):
+            assert _rel_err(got, want) <= limit
+            assert _rel_err(got.float() * FAULT_SCALE, want) > limit
+
+
+def _bf16_training_step(cuda, is_refine: bool, head_channels: int = 16) -> dict:
+    """The checks of `test_bf16_training_step_on_cuda` at `head_channels`;
+    returns the step's tallies by kernel wrapper name."""
     from rdeic_torch.train.trainer import Trainer  # noqa: PLC0415
 
     fns = {f.__name__: f for f in (flash_attention, flash_attention_lse,
                                    flash_attention_dq, flash_attention_dkv,
                                    group_norm, group_norm_bwd)}
-    model = _bf16_training_model(cuda, is_refine)
-    cpu = _bf16_training_model(torch.device("cpu"), is_refine)
+    model = _bf16_training_model(cuda, is_refine, head_channels)
+    cpu = _bf16_training_model(torch.device("cpu"), is_refine, head_channels)
     img = torch.from_numpy(np.random.default_rng(3).uniform(
         -1, 1, (1, 128, 128, 3)).astype(np.float32))
     noise = cpu.train_noise(img, torch.Generator().manual_seed(0))
@@ -768,6 +839,7 @@ def test_bf16_training_step_on_cuda(cuda, is_refine):
             assert v.dtype == torch.float32, k
         else:
             assert v.dtype == torch.bfloat16 and torch.equal(v, before[k]), k
+    tallies = {name: dict(f.shapes) for name, f in fns.items()}
     want = Trainer(cpu, frozen_dtype=torch.bfloat16).step(img, noise=noise)
     got, ref = logs["loss"].item(), want["loss"].item()
     assert np.isfinite(got) and abs(got - ref) <= 2.0 ** -6 * abs(ref)
@@ -779,3 +851,4 @@ def test_bf16_training_step_on_cuda(cuda, is_refine):
         again = (*flash_attention_dq(q, k, v, o, lse, do),
                  *flash_attention_dkv(q, k, v, do, lse, di))
         assert all(torch.equal(a, b) for a, b in zip((dq, di, dk, dv), again))
+    return tallies

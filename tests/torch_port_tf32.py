@@ -3,7 +3,8 @@
 Shared by the tests that hold the kernels' numeric design to the Pallas
 kernels and to the plain versions (`tests/test_torch_port_tf32_split.py`,
 `tests/test_torch_port_tf32_rounding.py`,
-`tests/test_torch_port_flash_d16.py`, `tests/test_torch_port_flash_bf16.py`):
+`tests/test_torch_port_flash_d16.py`, `tests/test_torch_port_flash_bf16.py`,
+`tests/test_torch_port_flash_bwd_d64_bf16.py`):
 TF32 rounding and the 3xTF32 split of `rdeic_torch/csrc/flash_mma.cuh`,
 `mma.sync`'s rounding toward zero (TF32 and bf16 products), the
 d = 64 backward kernels' tile order, and the shared-memory banks that a
@@ -106,12 +107,25 @@ def mma_bf16(a: torch.Tensor, b: torch.Tensor, c=0.0) -> torch.Tensor:
     bf16 values, so every product is exact; each step's exact sum joins the
     accumulator and is rounded toward zero (rz32)."""
     steps = a.shape[-1] // 16
+    drop = (1 << 29) - 1  # the mantissa bits float64 has beyond fp32's 23
     sums = (a.double().unflatten(-1, (steps, 16)).movedim(-2, 0)
             @ b.double().unflatten(-2, (steps, 16)).movedim(-3, 0))
     c = torch.as_tensor(c, dtype=torch.float32)
+    # fast: the accumulator stays float64, each step's sum truncated in
+    # place to fp32's 24 bits (rz32 wherever the sums stay in fp32's normal
+    # range, as an accumulator's do); a result outside it takes rz32 step
+    # by step
+    acc = c.double() + sums[0]
     for i in range(steps):
-        c = rz32(c.double() + sums[i])
-    return c
+        if i:
+            acc.add_(sums[i])
+        acc.view(torch.int64).bitwise_and_(~drop)
+    out = acc.float()
+    if (((out.abs() < 2.0 ** -126) & (out != 0)) | out.isinf()).any():
+        out = c
+        for i in range(steps):
+            out = rz32(out.double() + sums[i])
+    return out
 
 
 # -- the d = 64 backward kernels' tile order ---------------------------------

@@ -87,7 +87,8 @@ and g++; no network. Phases, each fatal on failure:
    (x, scale and bias) dtype pair a path ran, timed in it), and at shapes
    on no path (their rows carry no
    calls): flash at d = 512 and d = 64 with B = 2, H > 1 and L = 1000, and
-   at d = 64 and d = 16 with L = 8192 (the CHECK_SHAPES), GroupNorm forward
+   at d = 64 and d = 16 with L = 8192, and at d = 16 with B = 2, H = 3 and
+   L = 1000 (the CHECK_SHAPES), GroupNorm forward
    and backward at a span larger than a cluster's shared memory
    (GN_STREAM_KEYS: the kernels' streaming variant), in fp32 and bf16, with
    the kernel, plain and library times (CUDA events) and the bound of each;
@@ -101,11 +102,12 @@ and g++; no network. Phases, each fatal on failure:
    3xTF32, which every flash kernel runs; for bf16, the card's bf16 peak.
    Each forward, dq and dkv row names its CUDA kernel (`kernel`: the bf16
    forward runs flash_fwd_d16_bf16 / flash_fwd_d64_bf16 /
-   flash_fwd_d512_bf16, the bf16 backward at d = 64 flash_dq_d64_bf16 and
-   flash_dkv_d64_bf16), and a log line gives each bf16 row's times beside
+   flash_fwd_d512_bf16, the bf16 backward at d = 16 flash_dq_d16_bf16 and
+   flash_dkv_d16_bf16, at d = 64 flash_dq_d64_bf16 and flash_dkv_d64_bf16),
+   and a log line gives each bf16 row's times beside
    SDPA's bf16 call; another gives each training shape's dq and dkv times
-   (ms and device_ms), their own bounds and the pair's beside SDPA's
-   backward. Each
+   (ms and device_ms), their own bounds, the pair's and the pair's
+   exponentials' floor beside SDPA's backward. Each
    flash row also has `softmax_bound_ms`, the floor its B H L^2
    exponentials set on the MUFU units (16 a clock per SM at 1.98 GHz),
    which `bound_ms` (products and bytes only) leaves out.
@@ -325,11 +327,12 @@ TF32_FLOPS = 494.7e12
 TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (16, 64, 512)}
 # Head dims whose bf16 forward has kernels of its own on the bf16 tensor
 # cores (flash_fwd_d16_bf16, flash_fwd_d64_bf16, flash_fwd_d512_bf16: bf16
-# mma.sync m16n8k16), and whose bf16 backward has (flash_dq_d64_bf16,
-# flash_dkv_d64_bf16); elsewhere the bf16 backward is the fp32 kernels'
-# templates on bf16 tiles (TF32 mma.sync)
+# mma.sync m16n8k16), and whose bf16 backward has (flash_dq_d16_bf16,
+# flash_dkv_d16_bf16, flash_dq_d64_bf16, flash_dkv_d64_bf16); at d = 512
+# the bf16 backward is the fp32 kernels' template on bf16 tiles (TF32
+# mma.sync)
 BF16_FWD_HEAD_DIMS = (16, 64, 512)
-BF16_BWD_HEAD_DIMS = (64,)
+BF16_BWD_HEAD_DIMS = (16, 64)
 # The exponentials' floor of a flash call (`softmax_bound_ms`): B H L^2 of
 # them on the MUFU units, 16 a clock per SM (sm_90), at the boost clock
 MUFU_EX2_PER_CLOCK = 16
@@ -357,11 +360,12 @@ REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8 + 1e-4}
 FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
                 (1, 1536, 10, 64), (1, 1536, 8, 16)]
 # flash shapes on no path: B = 2, H > 1 (every path's d = 512 shape has
-# H = 1) and an L that is a multiple of no tile of the tensor-core kernels;
-# and at d = 64 and d = 16 twice the paths' longest L, as the backward's
-# dq, dk and dv sums and the forward's output sum run over L
+# H = 1) and an L that is a multiple of no tile of the tensor-core kernels,
+# at every head dim; and at d = 64 and d = 16 twice the paths' longest L,
+# as the backward's dq, dk and dv sums and the forward's output sum run
+# over L
 CHECK_SHAPES = [(2, 1000, 2, 512), (2, 1000, 3, 64), (1, 8192, 2, 64),
-                (1, 8192, 4, 16)]
+                (2, 1000, 3, 16), (1, 8192, 4, 16)]
 # a GroupNorm span on no path larger than 8 CTAs' shared memory in both
 # dtypes (16 x 65536 elements), so the forward and backward kernels
 # stream it
@@ -1091,6 +1095,14 @@ def phase_training(model, device, seed: int) -> dict:
             pairs[pair] = pairs.get(pair, 0) + c / steps
         log(f"[{tag}] {name} calls per micro-step by (x, scale and bias) "
             f"dtype: {json.dumps(pairs)}")
+    by_kernel = {}
+    for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        for k, c in shapes[name].items():  # (B, L, H, D, dtype)
+            kernel = flash_bwd_kernel(name.rsplit("_", 1)[-1], k[3],
+                                      getattr(torch, k[-1]))
+            by_kernel[kernel] = by_kernel.get(kernel, 0) + c / steps
+    log(f"[{tag}] flash backward launches per micro-step by CUDA kernel: "
+        f"{json.dumps(by_kernel)}")
     if launches != want:
         raise AssertionError(f"{tag} launches {launches}, expected {want}")
     if bf16 and any(by_dtype[k]["float32"] for k in shapes if k.startswith("flash")):
@@ -1626,7 +1638,9 @@ def phase_kernels(device, runs) -> list:
             f"{dkv['device_ms']:.4f}) = {dq['ms'] + dkv['ms']:.4f} (device "
             f"{dq['device_ms'] + dkv['device_ms']:.4f}) ms; own bounds "
             f"{dq['bound_ms']:.4f} + {dkv['bound_ms']:.4f} ms, the pair's "
-            f"{dq['backward_bound_ms']:.4f} ms at {dq['bound_rate']}; SDPA "
+            f"{dq['backward_bound_ms']:.4f} ms at {dq['bound_rate']}, its "
+            f"exponentials' floor "
+            f"{dq['softmax_bound_ms'] + dkv['softmax_bound_ms']:.4f} ms; SDPA "
             f"backward {dq['library_ms']:.4f} (device "
             f"{dq['library_device_ms']:.4f}) ms")
     for d in (16, 64):

@@ -22,10 +22,10 @@
 // needs atomics, so results are the same from run to run.
 //
 // d = 16 (the control branch: [2, 4096, 4, 16] and [2, 1024, 8, 16] per
-// independent micro-step, twice that per refine micro-step) runs
+// independent micro-step, twice that per refine micro-step) runs, in fp32,
 // flash_dq_d16 and flash_dkv_d16 on the tensor cores, with the TF32
 // mma.sync and 3xTF32 split of the d = 64 pair (below), reshaped for what
-// d = 16 makes cheap:
+// d = 16 makes cheap (bf16 at d = 16 has kernels of its own, below):
 // - 64-row kept tiles, 8 warps: warp w owns rows 16 (w & 3).. of the tile
 //   and half w >> 2 of every 128-row streamed tile, in 32-row chunks; the
 //   two halves add their accumulators at the end through shared memory, in
@@ -58,8 +58,8 @@
 // - di: dq computes it from the kept dO and O (quad shuffles) and writes
 //   it; dkv reads lse and di by column from shared memory, copied one q
 //   tile ahead with the tile.
-// - ptxas -v: dq 128 registers (fp32) and 100 (bf16), dkv 128 and 123; no
-//   spills. 128 is the limit for two 8-warp blocks per SM; each thread's
+// - ptxas -v: dq and dkv 128 registers; no spills. 128 is the limit for
+//   two 8-warp blocks per SM; each thread's
 //   copy and split addresses are one base plus constants (unit_rc at rows
 //   r and r + 64), which keeps them from spilling.
 // What it does about the FMA template it replaces: tensor cores in place of
@@ -178,6 +178,57 @@
 // in the same warps. wgmma with B from shared memory and TMA copies would
 // take the ldmatrix and the copies off the warps that multiply.
 //
+// bf16 at d = 16 (the bf16 training recipes: the same shapes) runs
+// flash_dq_d16_bf16 and flash_dkv_d16_bf16, d64_bf16's design at one
+// 16-deep step over d:
+// - Tiles stay bf16 in shared memory in the d = 16 swizzle of
+//   flash_bf16.cuh (chunk c of row r at c ^ ((r >> 2) & 1), Lane16's
+//   offsets), copied by cp.async.cg 16 bytes a lane, zero-filled past L, and
+//   read by ldmatrix (.trans for the products with P and dS): every copy
+//   and fragment read hits 32 banks. No widening pass, no fp32 planes.
+//   64-row kept tiles of 4 warps, warp w owning rows 16 w..: the kept pair
+//   (Q and dO in dq, K and V in dkv) is one A fragment each, held in
+//   registers for the whole loop. The streamed pair (K and V; Q and dO with
+//   their rows' lse and di, by 4-byte cp.async.ca) comes in 128-row tiles
+//   through a ring of three buffers, one barrier a tile, in four 32-row
+//   chunks. dkv's thread i turns its own landed copies of row i's lse and
+//   di into lse2 (+inf past L, so P^T = 0 there) and di scale before that
+//   barrier.
+// - Products: S = Q K^T and dP = dO V^T (dkv: S^T = K Q^T, dP^T = V dO^T)
+//   are one m16n8k16 a 16 x 8 block (the template took six TF32 m16n8k8);
+//   P and dS are formed in place in the C fragments and packed to bf16x2 as
+//   the A fragment of the next 16-deep step over keys (or q rows). The
+//   softmax runs in log2 units with ex2.approx.ftz: P = ex2(fmaf(S, scale
+//   log2(e), -lse2)), dS = P fmaf(dP, scale, -di scale); dq masks keys
+//   past L in its last chunk.
+// - P and dS as two bf16 terms. The rule, read on the CPU emulation
+//   (tests/test_torch_port_flash_bwd_d16_bf16.py) before any card run: one
+//   term only if it reads at most half the card's limit (2^-8 + 1e-4 of
+//   max|plain|) at both training shapes and at L = 1000 and 8192. One term
+//   of dS read 2.08e-3 of max on dq and 2.13e-3 on dk, one of P 2.24e-3 on
+//   dv, each past half (2.003e-3). The split is pack_split_trunc: big = x
+//   cut to bf16 by one byte permute, small = bf16(x - big), one conversion
+//   a pair (pack_split's two were slower on the card).
+// - mma.sync rounds its sums toward zero; over L = 8192 one accumulator
+//   moves the result by 2.8e-5 of max (emulation), under a fortieth of half
+//   the limit (5.0e-5), so there are no per-chunk partials. No atomics: two
+//   launches give the same bits.
+// - Grid: one block per (64-row tile, b*h), 512 at [2, 4096, 4, 16] and
+//   256 at [2, 1024, 8, 16]. 30 KB (dq) and 31 KB (dkv) of static shared
+//   memory and <= 128 registers (ptxas -v: dq 86, dkv 105; no spills):
+//   four blocks per SM, 0.97 and 0.48 waves on 132 SMs.
+// What holds them back (PERF.md §6 has their times beside SDPA's and the
+// probes' readings): the mma.sync stream. Per 16 rows x 16 streamed rows a
+// warp issues 8 mma in dq and 12 in dkv (the second terms are 4 of each)
+// against 256 exponentials. In probes on the card
+// (rdeic_torch/tools/flash_bwd_probe.py) the time followed the mma count:
+// one term of P and dS (outside the rule) cut it by about a quarter, while
+// leaving out the exponentials, half the blocks per SM, 16- or 64-row
+// chunks or separate accumulators for the two terms moved it by about a
+// tenth or less. So the MUFU floor (B H L^2 exponentials a kernel) is ~3x
+// below them; wgmma, at the full bf16 rate with B from shared memory, is
+// the route past it.
+//
 // d = 512 (the VAE decoder's mid-block, [2, 4096, 1, 512] per refine
 // micro-step) runs its own pair, flash_dq_d512 and flash_dkv_d512, on the
 // tensor cores: TF32 mma.sync (m16n8k8), fp32 accumulators, each fp32
@@ -242,41 +293,18 @@ constexpr int NC = CH / 8;     // n-tiles (8 streamed rows each) a chunk
 constexpr int S = D + 4;       // plane row stride: 20 mod 32 banks (header)
 constexpr int kPlane = BS * S;  // floats in one plane
 constexpr float kLog2e = 1.4426950408889634f;
-
-// Row stride (in T) of a raw streamed tile as cp.async lands it: 80 bytes
-// in fp32, the planes' stride, so the split pass reads and writes 32
-// banks; 48 bytes in bf16 (16-byte chunks stay aligned).
-template <typename T>
-__host__ __device__ constexpr int raw_stride() {
-  return sizeof(T) == 4 ? 20 : 24;
-}
-// One raw buffer: the streamed pair, [2][BS][raw_stride] of T; in floats.
-template <typename T>
-__host__ __device__ constexpr int raw_elems() {
-  return 2 * BS * raw_stride<T>();
-}
-template <typename T>
-__host__ __device__ constexpr int raw_floats() {
-  return raw_elems<T>() * static_cast<int>(sizeof(T)) / 4;
-}
-// Planes of the streamed pair: [2 tensors][big, small][BS][S] (bf16: big).
-template <typename T>
-__host__ __device__ constexpr int plane_floats() {
-  return 2 * (sizeof(T) == 4 ? 2 : 1) * kPlane;
-}
+// A raw streamed tile's row stride as cp.async lands it: the planes' 80
+// bytes, so the split pass reads and writes 32 banks. One raw buffer holds
+// the streamed pair, [2][BS][S] floats.
+constexpr int kRaw = 2 * BS * S;
+// Planes of the streamed pair: [2 tensors][big, small][BS][S].
+constexpr int kPlanes = 4 * kPlane;
 // dq: two raw buffers and the planes. dkv adds lse and di of the streamed
 // q rows: two raw buffers [lse, di][BS] and the staged [lse2, di scale][BS].
-template <typename T>
-__host__ __device__ constexpr int dq_smem_floats() {
-  return 2 * raw_floats<T>() + plane_floats<T>();
-}
-template <typename T>
-__host__ __device__ constexpr int dkv_smem_floats() {
-  return dq_smem_floats<T>() + 6 * BS;
-}
-static_assert(2 * dkv_smem_floats<float>() * 4 <= 232448, "two blocks per SM");
-static_assert(4 * 32 * 16 <= plane_floats<__nv_bfloat16>(),
-              "the halves' merge fits in the planes");
+constexpr int kDqSmemFloats = 2 * kRaw + kPlanes;
+constexpr int kDkvSmemFloats = kDqSmemFloats + 6 * BS;
+static_assert(2 * kDkvSmemFloats * 4 <= 232448, "two blocks per SM");
+static_assert(4 * 32 * 16 <= kPlanes, "the halves' merge fits in the planes");
 
 // The 4-element unit j of a BS x 16 tile as (row, column): 8 consecutive
 // units take 4 of row r and 4 of row r + 4, 16 floats each, which stride 20
@@ -289,22 +317,16 @@ __device__ __forceinline__ void unit_rc(int j, int& r, int& c) {
 
 // Rows [r0, r0 + BS) of the streamed pair (a, b at (b, h)) into a raw
 // buffer by cp.async, 16 bytes a lane, zero-filled past L. A thread copies
-// one 16-byte chunk of each tensor every kRows rows (fp32: the unit of
-// unit_rc, at rows r and r + 64).
-template <typename T>
-__device__ __forceinline__ void copy_pair(T* raw, const T* a, const T* b,
-                                          int r0, int L, int row) {
-  constexpr int RS = raw_stride<T>();
-  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a chunk
-  constexpr int kRows = NT * kPer / D;  // rows the threads cover at once
+// one 16-byte chunk of each tensor every kRows rows (the unit of unit_rc,
+// at rows r and r + 64).
+__device__ __forceinline__ void copy_pair(float* raw, const float* a,
+                                          const float* b, int r0, int L,
+                                          int row) {
+  constexpr int kRows = NT * 4 / D;  // rows the threads cover at once
   int r, c;
-  if constexpr (sizeof(T) == 4) {
-    unit_rc(threadIdx.x, r, c);
-  } else {
-    r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 8;
-  }
+  unit_rc(threadIdx.x, r, c);
   const uint32_t dst = static_cast<uint32_t>(
-      __cvta_generic_to_shared(raw + r * RS + c));
+      __cvta_generic_to_shared(raw + r * S + c));
 #pragma unroll
   for (int which = 0; which < 2; ++which)
 #pragma unroll
@@ -312,51 +334,37 @@ __device__ __forceinline__ void copy_pair(T* raw, const T* a, const T* b,
       const bool in = r0 + r + n * kRows < L;
       // a row past L reads nothing (src-size 0 fills zeros); its address
       // stays inside the tensor all the same
-      const T* src =
+      const float* src =
           (which ? b : a) + ((in ? r0 + r + n * kRows : 0) * row + c);
       const uint32_t at = dst + static_cast<uint32_t>(
-          (which * BS + n * kRows) * RS * static_cast<int>(sizeof(T)));
+          (which * BS + n * kRows) * S * 4);
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(at),
                    "l"(src), "r"(in ? 16 : 0));
     }
 }
 
 // The raw pair into its planes, split once for every warp: big = TF32 of x
-// (rounded to nearest), small = x - big, in fp32; bf16 is exact in TF32 and
-// takes the big plane only. A thread takes the 4-element unit unit_rc of
-// rows r and r + 64 of each tensor.
-template <typename T>
-__device__ __forceinline__ void split_pair(const T* raw, float* planes) {
+// (rounded to nearest), small = x - big, in fp32. A thread takes the
+// 4-element unit unit_rc of rows r and r + 64 of each tensor.
+__device__ __forceinline__ void split_pair(const float* raw, float* planes) {
   using namespace rdeic_flash;
-  constexpr bool kSplit = sizeof(T) == 4;
-  constexpr int RS = raw_stride<T>();
   int r, c;
   unit_rc(threadIdx.x, r, c);
-  const T* src0 = raw + r * RS + c;
+  const float* src0 = raw + r * S + c;
   float* dst0 = planes + r * S + c;
 #pragma unroll
   for (int n = 0; n < 4; ++n) {
     const int which = n >> 1, half = n & 1;
-    const T* src = src0 + (which * BS + half * HS) * RS;
-    float x[4];
-    if constexpr (kSplit) {
-      const float4 f = *reinterpret_cast<const float4*>(src);
-      x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
-    } else {
-      const uint2 u = *reinterpret_cast<const uint2*>(src);
-      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-      x[0] = __low2float(lo), x[1] = __high2float(lo);
-      x[2] = __low2float(hi), x[3] = __high2float(hi);
-    }
+    const float4 f = *reinterpret_cast<const float4*>(
+        src0 + (which * BS + half * HS) * S);
+    const float x[4] = {f.x, f.y, f.z, f.w};
     uint32_t big[4], small[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) split<kSplit>(x[e], big[e], small[e]);
-    float* dst = dst0 + which * (kSplit ? 2 : 1) * kPlane + half * HS * S;
+    for (int e = 0; e < 4; ++e) split<true>(x[e], big[e], small[e]);
+    float* dst = dst0 + which * 2 * kPlane + half * HS * S;
     *reinterpret_cast<uint4*>(dst) = make_uint4(big[0], big[1], big[2], big[3]);
-    if (kSplit)
-      *reinterpret_cast<uint4*>(dst + kPlane) =
-          make_uint4(small[0], small[1], small[2], small[3]);
+    *reinterpret_cast<uint4*>(dst + kPlane) =
+        make_uint4(small[0], small[1], small[2], small[3]);
   }
 }
 
@@ -379,7 +387,6 @@ __device__ __forceinline__ void load_kept(const T* p, int r0, int L,
 }
 
 // Kept fragments split once, for the whole loop.
-template <bool kSplit>
 __device__ __forceinline__ void split_kept(const float (&x)[2][4],
                                            uint32_t (&big)[2][4],
                                            uint32_t (&small)[2][4]) {
@@ -387,13 +394,12 @@ __device__ __forceinline__ void split_kept(const float (&x)[2][4],
   for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      rdeic_flash::split<kSplit>(x[kk][i], big[kk][i], small[kk][i]);
+      rdeic_flash::split<true>(x[kk][i], big[kk][i], small[kk][i]);
 }
 
 // s (16 x CH: n-tile n holds streamed rows 8 n..) = A B^T over d: A the
 // warp's kept fragments, B the streamed rows of `plane` from row 0, read
 // ready-split by ldmatrix (big at plane, small at plane + kPlane).
-template <bool kSplit>
 __device__ __forceinline__ void scores(float (&s)[NC][4],
                                        const uint32_t (&ab)[2][4],
                                        const uint32_t (&as)[2][4],
@@ -405,17 +411,15 @@ __device__ __forceinline__ void scores(float (&s)[NC][4],
   for (int kk = 0; kk < 2; ++kk) {
     float bb[NC][2], bs[NC][2];
     rb.load(bb, kk * 8);
-    if (kSplit) rb.load(bs, kPlane + kk * 8);
+    rb.load(bs, kPlane + kk * 8);
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
       const uint32_t b[2] = {__float_as_uint(bb[n][0]),
                              __float_as_uint(bb[n][1])};
-      if (kSplit) {
-        const uint32_t sm[2] = {__float_as_uint(bs[n][0]),
-                                __float_as_uint(bs[n][1])};
-        mma_tf32(s[n], as[kk], b);
-        mma_tf32(s[n], ab[kk], sm);
-      }
+      const uint32_t sm[2] = {__float_as_uint(bs[n][0]),
+                              __float_as_uint(bs[n][1])};
+      mma_tf32(s[n], as[kk], b);
+      mma_tf32(s[n], ab[kk], sm);
       mma_tf32(s[n], ab[kk], b);
     }
   }
@@ -425,7 +429,6 @@ __device__ __forceinline__ void scores(float (&s)[NC][4],
 // plane rows 2t and 2t + 1 at column 8 n + g (b is at the lane's row 2t and
 // column g). The permuted k order (slot t is row 2t, slot t + 4 row 2t + 1)
 // makes the C fragment an A fragment: a0..a3 = c0, c2, c1, c3.
-template <bool kSplit>
 __device__ __forceinline__ void accumulate(float (&part)[2][4],
                                            const float (&c)[4],
                                            const float* b) {
@@ -440,11 +443,9 @@ __device__ __forceinline__ void accumulate(float (&part)[2][4],
     const uint32_t bb[2] = {__float_as_uint(b[8 * n]),
                             __float_as_uint(b[S + 8 * n])};
     mma_tf32(part[n], ps, bb);
-    if (kSplit) {
-      const uint32_t bs[2] = {__float_as_uint(b[kPlane + 8 * n]),
-                              __float_as_uint(b[kPlane + S + 8 * n])};
-      mma_tf32(part[n], pb, bs);
-    }
+    const uint32_t bs[2] = {__float_as_uint(b[kPlane + 8 * n]),
+                            __float_as_uint(b[kPlane + S + 8 * n])};
+    mma_tf32(part[n], pb, bs);
     mma_tf32(part[n], pb, bb);
   }
 }
@@ -516,12 +517,11 @@ __global__ void __launch_bounds__(NT, 2)
                  T* __restrict__ dq, float* __restrict__ di, int L, int H,
                  float scale) {
   using namespace rdeic_flash;
-  constexpr bool kSplit = sizeof(T) == 4;  // bf16 operands are exact in TF32
   extern __shared__ __align__(16) float smem_d16[];
-  T* raw = reinterpret_cast<T*>(smem_d16);          // [2 buffers] K, V
-  float* planes = smem_d16 + 2 * raw_floats<T>();  // K, V
+  float* raw = smem_d16;                  // [2 buffers] K, V
+  float* planes = smem_d16 + 2 * kRaw;   // K, V
   const float* kp = planes;
-  const float* vp = planes + plane_floats<T>() / 2;
+  const float* vp = planes + kPlanes / 2;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3, half = warp >> 2;
@@ -534,7 +534,7 @@ __global__ void __launch_bounds__(NT, 2)
   const T* vb = v + base;
   const float c = scale * kLog2e;  // scores in log2 units, for exp2f
 
-  copy_pair<T>(raw, kb, vb, 0, L, static_cast<int>(row));
+  copy_pair(raw, kb, vb, 0, L, static_cast<int>(row));
   cp_async_commit();
 
   // rows g (hr = 0) and g + 8 (hr = 1) of the warp's 16: lse2 = lse log2(e),
@@ -546,7 +546,7 @@ __global__ void __launch_bounds__(NT, 2)
     float x[2][4], y[2][4];
     load_kept<T>(dout + base, r0, L, row, x);
     load_kept<T>(o + base, r0, L, row, y);
-    split_kept<kSplit>(x, db, dsm);
+    split_kept(x, db, dsm);
     float di_r[2] = {0.f, 0.f};
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk)
@@ -554,7 +554,7 @@ __global__ void __launch_bounds__(NT, 2)
       for (int i = 0; i < 4; ++i)
         di_r[i & 1] = fmaf(x[kk][i], y[kk][i], di_r[i & 1]);
     load_kept<T>(q + base, r0, L, row, x);
-    split_kept<kSplit>(x, qb, qsm);
+    split_kept(x, qb, qsm);
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       di_r[hr] += __shfl_xor_sync(0xffffffffu, di_r[hr], 1);
@@ -574,10 +574,10 @@ __global__ void __launch_bounds__(NT, 2)
     cp_async_wait<0>();
     __syncthreads();  // raw tile j has landed; no warp reads the planes
     if (j + 1 < nk)
-      copy_pair<T>(raw + ((j + 1) & 1) * raw_elems<T>(),
-                   kb, vb, (j + 1) * BS, L, static_cast<int>(row));
+      copy_pair(raw + ((j + 1) & 1) * kRaw, kb, vb, (j + 1) * BS, L,
+                static_cast<int>(row));
     cp_async_commit();
-    split_pair<T>(raw + (j & 1) * raw_elems<T>(), planes);
+    split_pair(raw + (j & 1) * kRaw, planes);
     __syncthreads();
     const int k0 = j * BS + half * HS;  // this warp's first key
     if (k0 >= L) continue;  // a half wholly past L has nothing to add
@@ -585,8 +585,8 @@ __global__ void __launch_bounds__(NT, 2)
     for (int c0 = 0; c0 < HS; c0 += CH) {
       const float* kt = kp + (half * HS + c0) * S;
       float s[NC][4], dp[NC][4];
-      scores<kSplit>(s, qb, qsm, kt);
-      scores<kSplit>(dp, db, dsm, vp + (half * HS + c0) * S);
+      scores(s, qb, qsm, kt);
+      scores(dp, db, dsm, vp + (half * HS + c0) * S);
       const bool tail = k0 + c0 + CH > L;
 #pragma unroll
       for (int n = 0; n < NC; ++n)
@@ -601,7 +601,7 @@ __global__ void __launch_bounds__(NT, 2)
       zero(part);
 #pragma unroll
       for (int kk = 0; kk < NC; ++kk)
-        accumulate<kSplit>(part, s[kk], kt + (8 * kk + 2 * t) * S + g);
+        accumulate(part, s[kk], kt + (8 * kk + 2 * t) * S + g);
       add(acc, part);
     }
   }
@@ -638,14 +638,13 @@ __global__ void __launch_bounds__(NT, 2)
                   const float* __restrict__ di, T* __restrict__ dk,
                   T* __restrict__ dv, int L, int H, float scale) {
   using namespace rdeic_flash;
-  constexpr bool kSplit = sizeof(T) == 4;
   extern __shared__ __align__(16) float smem_d16[];
-  T* raw = reinterpret_cast<T*>(smem_d16);          // [2 buffers] Q, dO
-  float* planes = smem_d16 + 2 * raw_floats<T>();  // Q, dO
-  float* rows_raw = planes + plane_floats<T>();     // [2 buffers][lse, di][BS]
-  float* rows = rows_raw + 4 * BS;                  // [lse2, di scale][BS]
+  float* raw = smem_d16;                  // [2 buffers] Q, dO
+  float* planes = smem_d16 + 2 * kRaw;   // Q, dO
+  float* rows_raw = planes + kPlanes;     // [2 buffers][lse, di][BS]
+  float* rows = rows_raw + 4 * BS;        // [lse2, di scale][BS]
   const float* qp = planes;
-  const float* dp_plane = planes + plane_floats<T>() / 2;
+  const float* dp_plane = planes + kPlanes / 2;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3, half = warp >> 2;
@@ -658,7 +657,7 @@ __global__ void __launch_bounds__(NT, 2)
   const T* db = dout + base;
   const float c = scale * kLog2e;
 
-  copy_pair<T>(raw, qb, db, 0, L, static_cast<int>(row));
+  copy_pair(raw, qb, db, 0, L, static_cast<int>(row));
   copy_rows(rows_raw, lse + rbase, di + rbase, 0, L);
   cp_async_commit();
 
@@ -667,9 +666,9 @@ __global__ void __launch_bounds__(NT, 2)
   {
     float x[2][4];
     load_kept<T>(k + base, r0, L, row, x);
-    split_kept<kSplit>(x, kbig, ksm);
+    split_kept(x, kbig, ksm);
     load_kept<T>(v + base, r0, L, row, x);
-    split_kept<kSplit>(x, vbig, vsm);
+    split_kept(x, vbig, vsm);
   }
 
   float acc_k[2][4], acc_v[2][4];  // dk, dv [16 keys][16]
@@ -680,13 +679,13 @@ __global__ void __launch_bounds__(NT, 2)
     cp_async_wait<0>();
     __syncthreads();  // tile j has landed; no warp reads the planes or rows
     if (j + 1 < nq) {
-      copy_pair<T>(raw + ((j + 1) & 1) * raw_elems<T>(),
-                   qb, db, (j + 1) * BS, L, static_cast<int>(row));
+      copy_pair(raw + ((j + 1) & 1) * kRaw, qb, db, (j + 1) * BS, L,
+                static_cast<int>(row));
       copy_rows(rows_raw + ((j + 1) & 1) * 2 * BS, lse + rbase, di + rbase,
                 (j + 1) * BS, L);
     }
     cp_async_commit();
-    split_pair<T>(raw + (j & 1) * raw_elems<T>(), planes);
+    split_pair(raw + (j & 1) * kRaw, planes);
     {
       const float* rr = rows_raw + (j & 1) * 2 * BS;
       const int i = threadIdx.x & (BS - 1), which = threadIdx.x / BS;
@@ -703,8 +702,8 @@ __global__ void __launch_bounds__(NT, 2)
       const float* qt = qp + col0 * S;
       const float* dt = dp_plane + col0 * S;
       float s[NC][4], dp[NC][4];
-      scores<kSplit>(s, kbig, ksm, qt);
-      scores<kSplit>(dp, vbig, vsm, dt);
+      scores(s, kbig, ksm, qt);
+      scores(dp, vbig, vsm, dt);
 #pragma unroll
       for (int n = 0; n < NC; ++n) {
         const int col = col0 + 8 * n + 2 * t;
@@ -723,12 +722,12 @@ __global__ void __launch_bounds__(NT, 2)
       zero(part);
 #pragma unroll
       for (int kk = 0; kk < NC; ++kk)
-        accumulate<kSplit>(part, s[kk], dt + (8 * kk + 2 * t) * S + g);
+        accumulate(part, s[kk], dt + (8 * kk + 2 * t) * S + g);
       add(acc_v, part);
       zero(part);
 #pragma unroll
       for (int kk = 0; kk < NC; ++kk)
-        accumulate<kSplit>(part, dp[kk], qt + (8 * kk + 2 * t) * S + g);
+        accumulate(part, dp[kk], qt + (8 * kk + 2 * t) * S + g);
       add(acc_k, part);
     }
   }
@@ -755,7 +754,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
   if (err != cudaSuccess) return err;
   if (static_cast<int64_t>(L) * H * D > INT32_MAX) return cudaErrorInvalidValue;
-  const int smem = dq_smem_floats<T>() * static_cast<int>(sizeof(float));
+  const int smem = kDqSmemFloats * static_cast<int>(sizeof(float));
   err = cudaFuncSetAttribute(flash_dq_d16<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -775,7 +774,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
   if (err != cudaSuccess) return err;
   if (static_cast<int64_t>(L) * H * D > INT32_MAX) return cudaErrorInvalidValue;
-  const int smem = dkv_smem_floats<T>() * static_cast<int>(sizeof(float));
+  const int smem = kDkvSmemFloats * static_cast<int>(sizeof(float));
   err = cudaFuncSetAttribute(flash_dkv_d16<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1462,6 +1461,19 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace d64
 
+// `smem` bytes of dynamic shared memory for `kernel`, and as much shared
+// memory on the SM as it has, so that the blocks a kernel's launch bounds
+// ask for fit (three d64_bf16 dq blocks, four d16_bf16 blocks)
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 // bf16 at d = 64 on the bf16 tensor cores (header). 128 threads a block;
 // warp w owns rows 16 w.. of the block's 64-row kept tile (q rows in dq,
 // keys in dkv) and holds their two kept A-fragment sets in registers; the
@@ -1806,17 +1818,6 @@ __global__ void __launch_bounds__(NT, 2)
   store_rows(dv + base, acc_v, k0 + warp * 16, L, row);
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  // as much shared memory as the SM has, so that three dq blocks fit
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       void* dq, float* di, int B, int L, int H, float scale,
@@ -1852,14 +1853,391 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace d64_bf16
 
+// bf16 at d = 16 on the bf16 tensor cores (header). 128 threads a block;
+// warp w owns rows 16 w.. of the block's 64-row kept tile (q rows in dq,
+// keys in dkv) and holds their two kept A fragments (all of d each) in
+// registers; the streamed pair comes in 128-row tiles through a ring of
+// three buffers and is used in four KC-row chunks.
+namespace d16_bf16 {
+
+namespace bf16 = rdeic_flash::bf16;
+using bf16::bf16_t;
+constexpr int D = 16, BT = 64, BS = 128, NT = 128, KC = 32;
+constexpr int kRow = D * 2;            // bytes of a tile row
+constexpr int kKept = BT * D;          // values of a kept tile
+constexpr int kTile = BS * D;          // values of a streamed tile
+constexpr int kTileBytes = kTile * 2;  // 4 KB
+// static shared memory: dq Q, dO, O and three K / V pairs (30 KB); dkv K,
+// V, three Q / dO pairs and their rows' lse2 and di scale (31 KB)
+constexpr int kDqSmemBytes = 3 * kKept * 2 + 6 * kTileBytes;
+constexpr int kDkvSmemBytes = 2 * kKept * 2 + 6 * kTileBytes + 3 * 2 * BS * 4;
+static_assert(kDkvSmemBytes <= 48 * 1024, "static shared memory");
+static_assert(4 * (kDkvSmemBytes + 1024) <= 233472, "four blocks per SM");
+static_assert(NT == BS, "one thread a q row's lse and di in load_row_terms");
+
+// c (16 x KC: n-tile n holds streamed rows 8 n.. as columns) = A B^T, one
+// 16-deep step over d from zero: A the warp's kept fragment, B the chunk's
+// rows read without .trans (`b`: the chunk's first row plus Lane16::b, in
+// bytes; one ldmatrix.x4 gives b0, b1 of two n-tiles)
+__device__ __forceinline__ void scores(float (&c)[KC / 8][4],
+                                       const uint32_t (&a)[4], uint32_t b) {
+  using namespace rdeic_flash;
+  zero(c);
+#pragma unroll
+  for (int np = 0; np < KC / 16; ++np) {
+    uint32_t f[4];
+    bf16::ldsm_x4(f, b + 16 * np * kRow);
+    bf16::mma(c[2 * np], a, f[0], f[1]);
+    bf16::mma(c[2 * np + 1], a, f[2], f[3]);
+  }
+}
+
+// acc (16 x 16: n-tile n holds columns 8 n..) += X B over the chunk's KC
+// rows: X (16 x KC, P or dS) from its C fragments as two bf16 terms
+// (pack_split_trunc; the C fragments of n-tiles 2 kk and 2 kk + 1, packed
+// pairwise, are the A fragment of the 16-deep step kk), B the chunk's rows
+// read with .trans (`b`: the chunk's first row plus Lane16::a, in bytes;
+// one ldmatrix.x4 gives b0, b1 of both n-tiles of d). At each step the
+// small term's products go first, then the big term's.
+__device__ __forceinline__ void accumulate(float (&acc)[2][4],
+                                           const float (&x)[KC / 8][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < KC / 16; ++kk) {
+    uint32_t big[4], small[4], f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // rows g, g + 8 of n-tile 2 kk, 2 kk + 1
+      const float(&c)[4] = x[2 * kk + (i >> 1)];
+      bf16::pack_split_trunc(c[2 * (i & 1)], c[2 * (i & 1) + 1], big[i],
+                             small[i]);
+    }
+    bf16::ldsm_x4_trans(f, b + 16 * kk * kRow);
+    bf16::mma(acc[0], small, f[0], f[1]);
+    bf16::mma(acc[1], small, f[2], f[3]);
+    bf16::mma(acc[0], big, f[0], f[1]);
+    bf16::mma(acc[1], big, f[2], f[3]);
+  }
+}
+
+// The warp's 16 x 16 accumulator, rows r0 + g and r0 + g + 8 (those below
+// L), to out (at (b, h)) as bf16.
+__device__ __forceinline__ void store_rows(bf16_t* out,
+                                           const float (&acc)[2][4], int r0,
+                                           int L, int64_t row) {
+  using namespace rdeic_flash;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= L) continue;
+    bf16_t* p = out + r * row + 2 * t;
+    store2<bf16_t>(p, acc[0][2 * half], acc[0][2 * half + 1]);
+    store2<bf16_t>(p + 8, acc[1][2 * half], acc[1][2 * half + 1]);
+  }
+}
+
+// lse and di of q rows [r0, r0 + BS) (lse and di at (b, h)) into dst: lse
+// at dst[0..BS), di at dst[BS..2 BS); thread i copies row i's two by 4-byte
+// cp.async.ca (a row past L reads nothing and lands as 0). The same thread
+// turns them into lse2 and di scale once they have landed (row_terms).
+__device__ __forceinline__ void load_row_terms(float* dst, const float* lse,
+                                               const float* di, int r0,
+                                               int L) {
+  const int i = threadIdx.x;
+  const bool in = r0 + i < L;
+  const int at = in ? r0 + i : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   bf16::smem_addr(dst + i)),
+               "l"(lse + at), "r"(in ? 4 : 0));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   bf16::smem_addr(dst + BS + i)),
+               "l"(di + at), "r"(in ? 4 : 0));
+}
+
+// The calling thread's row of `rs` (its own copies, landed) in place: lse2 =
+// lse log2(e), +inf past L (so P^T = 0 there), and di scale.
+__device__ __forceinline__ void row_terms(float* rs, int r0, int L,
+                                          float scale) {
+  const int i = threadIdx.x;
+  rs[i] = r0 + i < L ? rs[i] * bf16::kLog2e : INFINITY;
+  rs[BS + i] *= scale;
+}
+
+// One block: (64-row q tile blockIdx.x, b*h blockIdx.y). Warp w keeps the
+// A fragments of Q and dO rows 16 w.. and their lse2 and di scale, and
+// streams K and V: S = Q K^T and dP = dO V^T as C fragments, P and dS in
+// place, dq += dS K. Also di = rowsum(dO O) of the tile's rows, written to
+// `di` for the dkv kernel.
+__global__ void __launch_bounds__(NT, 4)
+    flash_dq_d16_bf16(const bf16_t* __restrict__ q,
+                      const bf16_t* __restrict__ k,
+                      const bf16_t* __restrict__ v,
+                      const bf16_t* __restrict__ o,
+                      const bf16_t* __restrict__ dout,
+                      const float* __restrict__ lse, bf16_t* __restrict__ dq,
+                      float* __restrict__ di, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  using bf16::exp2_ftz, bf16::kLog2e, bf16::load_tile;
+  __shared__ __align__(128) bf16_t qs[kKept];      // [BT][D]
+  __shared__ __align__(128) bf16_t dos[kKept];     // [BT][D]
+  __shared__ __align__(128) bf16_t os[kKept];      // [BT][D]
+  __shared__ __align__(128) bf16_t ks[3 * kTile];  // [3 buffers][BS][D]
+  __shared__ __align__(128) bf16_t vs[3 * kTile];  // [3 buffers][BS][D]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16::Lane16 ln(lane);
+  const int q0 = blockIdx.x * BT;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  const bf16_t* kb = k + base;
+  const bf16_t* vb = v + base;
+  const float c = scale * kLog2e;  // scores in log2 units, for ex2
+  const int nk = (L + BS - 1) / BS;
+
+  load_tile<BT, D, NT>(qs, q + base, q0, L, row);
+  load_tile<BT, D, NT>(dos, dout + base, q0, L, row);
+  load_tile<BT, D, NT>(os, o + base, q0, L, row);
+  load_tile<BS, D, NT>(ks, kb, 0, L, row);
+  load_tile<BS, D, NT>(vs, vb, 0, L, row);
+  cp_async_commit();
+  if (nk > 1) {
+    load_tile<BS, D, NT>(ks + kTile, kb, BS, L, row);
+    load_tile<BS, D, NT>(vs + kTile, vb, BS, L, row);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // Q, dO, O and the first K / V pair
+  __syncthreads();
+
+  // rows g (half 0) and g + 8 (half 1) of the warp's 16: lse2 = lse
+  // log2(e), and di from the lane's 4 products of each row and its quad's
+  const uint32_t arow = warp * 16 * kRow + ln.a;
+  uint32_t qf[4], df[4];
+  bf16::ldsm_x4(qf, bf16::smem_addr(qs) + arow);
+  bf16::ldsm_x4(df, bf16::smem_addr(dos) + arow);
+  float di_r[2] = {0.f, 0.f};
+  {
+    uint32_t of[4];
+    bf16::ldsm_x4(of, bf16::smem_addr(os) + arow);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a0, a2: row g; a1, a3: row g + 8
+      const float2 x = bf16::unpack(df[i]), y = bf16::unpack(of[i]);
+      di_r[i & 1] = fmaf(x.y, y.y, fmaf(x.x, y.x, di_r[i & 1]));
+    }
+  }
+  float lse2[2], dis[2];
+  const int r0 = q0 + warp * 16 + g;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    di_r[half] += __shfl_xor_sync(0xffffffffu, di_r[half], 1);
+    di_r[half] += __shfl_xor_sync(0xffffffffu, di_r[half], 2);
+    const int r = r0 + 8 * half;
+    const bool in = r < L;
+    lse2[half] = in ? lse[rbase + r] * kLog2e : 0.f;
+    dis[half] = in ? di_r[half] * scale : 0.f;
+    if (in && t == 0) di[rbase + r] = di_r[half];
+  }
+
+  float acc[2][4];  // dq[16 rows][16]: n-tile n holds columns 8 n..
+  zero(acc);
+  const uint32_t sk = bf16::smem_addr(ks), sv = bf16::smem_addr(vs);
+  // the ring: tile j in buffer j % 3, two in flight
+  for (int j = 0, cur = 0; j < nk; ++j, cur = cur == 2 ? 0 : cur + 1) {
+    const int k0 = j * BS;
+    cp_async_wait<1>();  // this pair (the next may be in flight)
+    // every warp sees this pair, and is done with the buffer of tile j - 1,
+    // which takes tile j + 2
+    __syncthreads();
+    if (j + 2 < nk) {
+      const int nxt = cur == 0 ? 2 : cur - 1;
+      load_tile<BS, D, NT>(ks + nxt * kTile, kb, k0 + 2 * BS, L, row);
+      load_tile<BS, D, NT>(vs + nxt * kTile, vb, k0 + 2 * BS, L, row);
+    }
+    cp_async_commit();
+    const uint32_t kt = sk + cur * kTileBytes, vt = sv + cur * kTileBytes;
+#pragma unroll
+    for (int c0 = 0; c0 < BS; c0 += KC) {
+      float s[KC / 8][4], dp[KC / 8][4];
+      scores(s, qf, kt + c0 * kRow + ln.b);
+      scores(dp, df, vt + c0 * kRow + ln.b);
+      // P = 2^(S c - lse2), 0 on a key past L (its K row is zero, but P
+      // need not be finite there); dS = P (dP scale - di scale), in place
+      // of S
+      const bool tail = k0 + c0 + KC > L;
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int half = i >> 1;
+          float p = exp2_ftz(fmaf(s[n][i], c, -lse2[half]));
+          if (tail && k0 + c0 + 8 * n + 2 * t + (i & 1) >= L) p = 0.f;
+          s[n][i] = p * fmaf(dp[n][i], scale, -dis[half]);
+        }
+      accumulate(acc, s, kt + c0 * kRow + ln.a);
+    }
+  }
+  cp_async_wait<0>();
+  store_rows(dq + base, acc, q0 + warp * 16, L, row);
+}
+
+// One block: (64-row k tile blockIdx.x, b*h blockIdx.y). Warp w keeps the
+// A fragments of K and V rows 16 w.. and streams Q and dO with their rows'
+// lse2 and di scale: S^T = K Q^T and dP^T = V dO^T as C fragments (rows
+// keys, columns q), P^T and dS^T in place, dv += P^T dO, dk += dS^T Q. A q
+// row past L lands as zeros (Q, dO, di) with lse2 = +inf, so P^T = dS^T = 0
+// there.
+__global__ void __launch_bounds__(NT, 4)
+    flash_dkv_d16_bf16(const bf16_t* __restrict__ q,
+                       const bf16_t* __restrict__ k,
+                       const bf16_t* __restrict__ v,
+                       const bf16_t* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ di, bf16_t* __restrict__ dk,
+                       bf16_t* __restrict__ dv, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  using bf16::exp2_ftz, bf16::kLog2e, bf16::load_tile;
+  __shared__ __align__(128) bf16_t ks[kKept];       // [BT][D]
+  __shared__ __align__(128) bf16_t vs[kKept];       // [BT][D]
+  __shared__ __align__(128) bf16_t qs[3 * kTile];   // [3 buffers][BS][D]
+  __shared__ __align__(128) bf16_t dos[3 * kTile];  // [3 buffers][BS][D]
+  __shared__ __align__(16) float rs[3 * 2 * BS];    // [3][lse2, di scale][BS]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const bf16::Lane16 ln(lane);
+  const int k0 = blockIdx.x * BT;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  const bf16_t* qb = q + base;
+  const bf16_t* db = dout + base;
+  const float* lb = lse + rbase;
+  const float* ib = di + rbase;
+  const float c = scale * kLog2e;
+  const int nq = (L + BS - 1) / BS;
+
+  load_tile<BT, D, NT>(ks, k + base, k0, L, row);
+  load_tile<BT, D, NT>(vs, v + base, k0, L, row);
+  load_tile<BS, D, NT>(qs, qb, 0, L, row);
+  load_tile<BS, D, NT>(dos, db, 0, L, row);
+  load_row_terms(rs, lb, ib, 0, L);
+  cp_async_commit();
+  if (nq > 1) {
+    load_tile<BS, D, NT>(qs + kTile, qb, BS, L, row);
+    load_tile<BS, D, NT>(dos + kTile, db, BS, L, row);
+    load_row_terms(rs + 2 * BS, lb, ib, BS, L);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // K, V and the first Q / dO pair
+  __syncthreads();
+  const uint32_t arow = warp * 16 * kRow + ln.a;
+  uint32_t kf[4], vf[4];
+  bf16::ldsm_x4(kf, bf16::smem_addr(ks) + arow);
+  bf16::ldsm_x4(vf, bf16::smem_addr(vs) + arow);
+
+  float acc_k[2][4], acc_v[2][4];  // dk, dv [16 keys][16]
+  zero(acc_k);
+  zero(acc_v);
+  const uint32_t sq = bf16::smem_addr(qs), sd = bf16::smem_addr(dos);
+  for (int j = 0, cur = 0; j < nq; ++j, cur = cur == 2 ? 0 : cur + 1) {
+    const int q0 = j * BS;
+    float* r = rs + cur * 2 * BS;
+    cp_async_wait<1>();
+    row_terms(r, q0, L, scale);  // the thread's own copies, landed
+    __syncthreads();  // this pair and its rows are visible; tile j - 1's
+                      // buffer is free
+    if (j + 2 < nq) {
+      const int nxt = cur == 0 ? 2 : cur - 1;
+      load_tile<BS, D, NT>(qs + nxt * kTile, qb, q0 + 2 * BS, L, row);
+      load_tile<BS, D, NT>(dos + nxt * kTile, db, q0 + 2 * BS, L, row);
+      load_row_terms(rs + nxt * 2 * BS, lb, ib, q0 + 2 * BS, L);
+    }
+    cp_async_commit();
+    const uint32_t qt = sq + cur * kTileBytes, dt = sd + cur * kTileBytes;
+#pragma unroll
+    for (int c0 = 0; c0 < BS; c0 += KC) {
+      float s[KC / 8][4], dp[KC / 8][4];
+      scores(s, kf, qt + c0 * kRow + ln.b);
+      scores(dp, vf, dt + c0 * kRow + ln.b);
+      // column c0 + 8 n + 2 t + e is q row q0 + c0 + 8 n + 2 t + e:
+      // P^T = 2^(S^T c - lse2), dS^T = P^T (dP^T scale - di scale)
+#pragma unroll
+      for (int n = 0; n < KC / 8; ++n) {
+        const int col = c0 + 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(r + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(r + BS + col);
+        const float lc[2] = {l2.x, l2.y}, dc[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = i & 1;
+          const float p = exp2_ftz(fmaf(s[n][i], c, -lc[e]));
+          s[n][i] = p;
+          dp[n][i] = p * fmaf(dp[n][i], scale, -dc[e]);
+        }
+      }
+      accumulate(acc_v, s, dt + c0 * kRow + ln.a);
+      accumulate(acc_k, dp, qt + c0 * kRow + ln.a);
+    }
+  }
+  cp_async_wait<0>();
+  store_rows(dk + base, acc_k, k0 + warp * 16, L, row);
+  store_rows(dv + base, acc_v, k0 + warp * 16, L, row);
+}
+
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      void* dq, float* di, int B, int L, int H, float scale,
+                      cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
+  if (err != cudaSuccess) return err;
+  // static shared memory only; prepared once, so that a launch is one call
+  // (the short calls are host-bound)
+  static const cudaError_t prepared = prepare(flash_dq_d16_bf16, 0);
+  if (prepared != cudaSuccess) return prepared;
+  const dim3 grid((L + BT - 1) / BT, B * H);
+  flash_dq_d16_bf16<<<grid, NT, 0, stream>>>(
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), static_cast<const bf16_t*>(o),
+      static_cast<const bf16_t*>(dout), lse, static_cast<bf16_t*>(dq), di, L,
+      H, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di,
+                       void* dk, void* dv, int B, int L, int H, float scale,
+                       cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
+  if (err != cudaSuccess) return err;
+  static const cudaError_t prepared = prepare(flash_dkv_d16_bf16, 0);
+  if (prepared != cudaSuccess) return prepared;
+  const dim3 grid((L + BT - 1) / BT, B * H);
+  flash_dkv_d16_bf16<<<grid, NT, 0, stream>>>(
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), static_cast<const bf16_t*>(dout), lse,
+      di, static_cast<bf16_t*>(dk), static_cast<bf16_t*>(dv), L, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace d16_bf16
+
 template <typename T>
 int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, void* dq, float* di,
                 int B, int L, int H, int D, float scale, cudaStream_t st) {
   switch (D) {
     case 16:
-      return d16::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H, scale,
-                               st);
+      if constexpr (std::is_same_v<T, float>)
+        return d16::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H,
+                                 scale, st);
+      else
+        return d16_bf16::launch_dq(q, k, v, o, dout, lse, dq, di, B, L, H,
+                                   scale, st);
     case 64:
       if constexpr (std::is_same_v<T, float>)
         return d64::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H,
@@ -1882,8 +2260,12 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
                  cudaStream_t st) {
   switch (D) {
     case 16:
-      return d16::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
-                                scale, st);
+      if constexpr (std::is_same_v<T, float>)
+        return d16::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
+                                  scale, st);
+      else
+        return d16_bf16::launch_dkv(q, k, v, dout, lse, di, dk, dv, B, L, H,
+                                    scale, st);
     case 64:
       if constexpr (std::is_same_v<T, float>)
         return d64::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,

@@ -1,0 +1,208 @@
+"""Time the bf16 flash backward at d = 16 on one card: this checkout's
+kernels, another checkout's, and variants of this one's, in one process.
+
+    python -m rdeic_torch.tools.flash_bwd_probe [--other DIR] [--variants]
+
+Builds `csrc/flash_attn_bwd.cu` of this checkout ("change"), of the
+checkout at DIR ("other", e.g. the parent commit unpacked by `git
+archive`) and, with --variants, copies of this one whose `d16_bf16`
+kernels are changed by the text substitutions in VARIANTS (a substitution
+that no longer matches raises). Each library is called through its C
+interface on the same bf16 inputs. Prints the card's name and power limit,
+then a JSON line per shape, version and pass (two passes, the second in
+reverse order): dq's and dkv's device ms (`device_ms`: launches queued
+behind a sleeping kernel, CUDA events), SDPA's bf16 backward beside them,
+and max |error| over max|plain| of dq, dk and dv against the plain
+version's fp32 result. Variants other than `pack_split` and the chunk and
+accumulator ones compute something else (see VARIANTS): they time what a
+piece of the kernels costs.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from rdeic_torch import build
+from rdeic_torch.ops.flash_attention import (
+    flash_attention_bwd_plain,
+    flash_attention_lse,
+)
+
+SHAPES = [(2, 4096, 4, 16), (2, 1024, 8, 16), (1, 8192, 4, 16)]
+SLEEP_CLOCK_HZ = 2.0e9  # torch.cuda._sleep counts cycles, at most this fast
+_SMALL_MMA = """    bf16::mma(acc[0], small, f[0], f[1]);
+    bf16::mma(acc[1], small, f[2], f[3]);
+"""
+# name: [(old, new)] in the d16_bf16 namespace
+VARIANTS = {
+    # big rounded to nearest: two conversions a pair (pack_split, as at d = 64)
+    "pack_split": [("bf16::pack_split_trunc(", "bf16::pack_split(")],
+    # P and dS as their big term alone (outside the limit)
+    "one_term": [(_SMALL_MMA, "")],
+    # no exponentials: P = S c - lse2 (wrong values)
+    "no_exp": [("exp2_ftz(fmaf(", "(fmaf(")],
+    # 60 KB of dynamic shared memory a block: two blocks per SM, not four
+    "two_blocks": [("<<<grid, NT, 0, stream>>>", "<<<grid, NT, 61440, stream>>>"),
+                   ("prepare(flash_dq_d16_bf16, 0)",
+                    "prepare(flash_dq_d16_bf16, 61440)"),
+                   ("prepare(flash_dkv_d16_bf16, 0)",
+                    "prepare(flash_dkv_d16_bf16, 61440)")],
+    "chunk16": [("NT = 128, KC = 32;", "NT = 128, KC = 16;")],
+    "chunk64": [("NT = 128, KC = 32;", "NT = 128, KC = 64;")],
+    # the small term's products into accumulators of their own, added at
+    # the end (no dependent mma between the two terms)
+    "split_acc": [
+        (_SMALL_MMA, _SMALL_MMA.replace("acc[0]", "acc[2]").replace(
+            "acc[1]", "acc[3]")),
+        ("void accumulate(float (&acc)[2][4],", "void accumulate(float (&acc)[4][4],"),
+        ("  float acc[2][4];  // dq", "  float acc[4][4];  // dq"),
+        ("  float acc_k[2][4], acc_v[2][4];", "  float acc_k[4][4], acc_v[4][4];"),
+        ("  store_rows(dq + base, acc,",
+         "  fold(acc);\n  store_rows(dq + base, reinterpret_cast<float (&)[2][4]>(acc),"),
+        ("  store_rows(dk + base, acc_k,",
+         "  fold(acc_k);\n  store_rows(dk + base, reinterpret_cast<float (&)[2][4]>(acc_k),"),
+        ("  store_rows(dv + base, acc_v,",
+         "  fold(acc_v);\n  store_rows(dv + base, reinterpret_cast<float (&)[2][4]>(acc_v),"),
+        ("constexpr int kRow = D * 2;",
+         "__device__ __forceinline__ void fold(float (&a)[4][4]) {\n"
+         "  for (int n = 0; n < 2; ++n)\n"
+         "    for (int i = 0; i < 4; ++i) a[n][i] += a[n + 2][i];\n}\n"
+         "constexpr int kRow = D * 2;")],
+}
+
+
+def variant_source(src: str, edits) -> str:
+    """`src` with each (old, new) applied inside namespace d16_bf16."""
+    i0 = src.index("namespace d16_bf16 {")
+    i1 = src.index("}  // namespace d16_bf16")
+    ns = src[i0:i1]
+    for old, new in edits:
+        if old not in ns:
+            raise ValueError(f"variant text not in d16_bf16: {old!r}")
+        ns = ns.replace(old, new)
+    return src[:i0] + ns + src[i1:]
+
+
+def _library(name: str, csrc: Path, source: str, out_dir: Path) -> Path:
+    src = out_dir / f"flash_attn_bwd_{name}.cu"
+    src.write_text(source)
+    headers = tuple(csrc / h.name for h in build.FLASH_HEADERS)
+    return build._build(src, f"flash_attn_bwd_{name}",
+                        build._nvcc_cmd() + ["-I", str(csrc)], headers)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device ms a launch of fn(): `reps` launches queued behind a sleeping
+    kernel (so no host time is in the window), the shorter of two windows."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reads = []
+    for _ in range(2):
+        torch.cuda._sleep(int(SLEEP_CLOCK_HZ * (3 * host * reps + 5e-3)))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        reads.append(start.elapsed_time(end) / reps)
+    return min(reads)
+
+
+def _bind(path: Path):
+    lib = ctypes.CDLL(str(path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    for f in (lib.rdeic_flash_attn_bwd_dq, lib.rdeic_flash_attn_bwd_dkv):
+        f.restype = i
+        f.argtypes = [vp] * 8 + [i] * 5 + [ctypes.c_float, vp]
+    return lib
+
+
+def probe(lib, shape, inputs, plain) -> dict:
+    """dq and dkv of `lib` on `inputs`: device ms and errors."""
+    q, k, v, o, lse, do = inputs
+    b, seq, h, d = shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    di = torch.empty_like(lse)
+    st = torch.cuda.current_stream().cuda_stream
+    ptr = [x.data_ptr() for x in (q, k, v, o, lse, do, dq, di, dk, dv)]
+    dims = (b, seq, h, d, 1, d ** -0.5, st)  # dtype 1: bf16
+
+    def run_dq():
+        return lib.rdeic_flash_attn_bwd_dq(*ptr[:4], ptr[5], ptr[4], ptr[6],
+                                           ptr[7], *dims)
+
+    def run_dkv():
+        return lib.rdeic_flash_attn_bwd_dkv(*ptr[:3], ptr[5], ptr[4], ptr[7],
+                                            ptr[8], ptr[9], *dims)
+
+    if run_dq() != 0 or run_dkv() != 0:
+        raise RuntimeError("launch failed")
+    torch.cuda.synchronize()
+    errs = [((g.float() - w).abs().max() / w.abs().max()).item()
+            for g, w in zip((dq, dk, dv), plain)]
+    t_dq, t_dkv = device_ms(run_dq), device_ms(run_dkv)
+    return {"dq": t_dq, "dkv": t_dkv, "pair": t_dq + t_dkv, "errs": errs}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=Path, help="another checkout to time")
+    ap.add_argument("--variants", action="store_true")
+    args = ap.parse_args()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    csrc = Path(build.FLASH_BWD_SRC).parent
+    src = build.FLASH_BWD_SRC.read_text()
+    out_dir = build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {"change": (csrc, src)}
+    if args.other:
+        other = args.other.resolve() / "rdeic_torch" / "csrc"
+        jobs["other"] = (other, (other / "flash_attn_bwd.cu").read_text())
+    if args.variants:
+        jobs.update({n: (csrc, variant_source(src, e))
+                     for n, e in VARIANTS.items()})
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {n: pool.submit(_library, n, c, s, out_dir)
+                   for n, (c, s) in jobs.items()}
+        libs = {n: _bind(f.result()) for n, f in futures.items()}
+    order = list(libs)
+    if "other" in libs:  # other, change, ..., then back: change, other
+        order = ["other"] + [n for n in order if n != "other"]
+    dev = torch.device("cuda")
+    for shape in SHAPES:
+        g = torch.Generator(device=dev).manual_seed(0)
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = flash_attention_lse(q, k, v)
+        plain = flash_attention_bwd_plain(*(x.float() for x in (q, k, v, o)),
+                                          lse, do.float())
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        sdpa = device_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+        for p, names in enumerate((order, order[::-1])):
+            for name in names:
+                r = probe(libs[name], shape, (q, k, v, o, lse, do), plain)
+                print(json.dumps({"version": name, "shape": shape, "pass": p,
+                                  **r, "sdpa_bwd": sdpa}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -105,6 +105,14 @@ BF16_FWD_SHAPES = [(1, 6144, 4, 16), (1, 1536, 8, 16), (2, 4096, 4, 16),
 # past two tiles, an L of no tile multiple with B = 2, H > 1) and L = 8192
 D64_BF16_BWD_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64), (2, 40, 3, 64),
                        (1, 130, 2, 64), (2, 1000, 3, 64), (1, 8192, 2, 64)]
+# the bf16 backward at d = 16 (flash_dq_d16_bf16, flash_dkv_d16_bf16): every
+# d = 16 path shape (training's two, and serving's, whose L the lse forward
+# would give it), tails (an L inside one 64-row tile, one past the first
+# 64 rows of a 128-row streamed tile, one two rows past two 64-row tiles, an
+# L of no tile multiple with B = 2, H > 1) and L = 8192
+D16_BF16_BWD_SHAPES = [(2, 4096, 4, 16), (2, 1024, 8, 16), (1, 6144, 4, 16),
+                       (1, 1536, 8, 16), (1, 20, 2, 16), (1, 77, 2, 16),
+                       (1, 130, 1, 16), (2, 1000, 3, 16), (1, 8192, 4, 16)]
 
 
 @pytest.fixture
@@ -432,11 +440,23 @@ def test_flash_bf16_forward_kernels(cuda, shape, lse):
 @pytest.mark.parametrize("shape", D64_BF16_BWD_SHAPES)
 def test_flash_d64_bf16_backward_kernels(cuda, shape):
     """flash_dq_d64_bf16 and flash_dkv_d64_bf16 (bf16 mma.sync, P and dS
-    as two bf16 terms): one launch each a call; dq, dk and dv within
-    2^-8 + 1e-4 of max of the plain version's unrounded fp32 result from the
-    same o and lse, each reading a planted x1.05 fault beyond it; di =
-    rowsum(dO O) within 1e-5 of max of the plain sum; the same bits (dq,
-    di, dk, dv) on a second launch."""
+    as two bf16 terms): `_check_bf16_backward`."""
+    _check_bf16_backward(cuda, shape)
+
+
+@pytest.mark.parametrize("shape", D16_BF16_BWD_SHAPES)
+def test_flash_d16_bf16_backward_kernels(cuda, shape):
+    """flash_dq_d16_bf16 and flash_dkv_d16_bf16 (bf16 mma.sync, P and dS
+    as two bf16 terms, one accumulator): `_check_bf16_backward`."""
+    _check_bf16_backward(cuda, shape)
+
+
+def _check_bf16_backward(cuda, shape):
+    """The bf16 dq and dkv kernels: one launch each a call; dq, dk and dv
+    within 2^-8 + 1e-4 of max of the plain version's unrounded fp32 result
+    from the same o and lse, each reading a planted x1.05 fault beyond it;
+    di = rowsum(dO O) within 1e-5 of max of the plain sum; the same bits
+    (dq, di, dk, dv) on a second launch."""
     q, k, v, do = (_rand(shape, torch.bfloat16, cuda, s) for s in range(4))
     o, lse = flash_attention_lse(q, k, v)
     before = (flash_attention_dq.launches, flash_attention_dkv.launches)

@@ -247,16 +247,16 @@ def test_row_terms_are_read_as_broadcasts():
 
 def test_grid_and_shared_memory():
     """dq: two raw buffers of the streamed pair and its big and small planes
-    (80 KB in fp32, 44 KB in bf16); dkv adds lse and di (83 KB). Two blocks
-    of 8 warps per SM: [2, 1024, 8, 16] gives 256 blocks for 264 slots (one
-    wave), [2, 4096, 4, 16] 512. The halves' merge (16 floats a lane in
-    dkv) fits in the planes."""
-    raw32, raw16 = 2 * BS * 20, 2 * BS * 24 // 2  # floats a raw buffer
-    dq32, dq16 = 2 * raw32 + 4 * PLANE, 2 * raw16 + 2 * PLANE
+    (80 KB; fp32 only: bf16 at d = 16 has kernels of its own); dkv adds lse
+    and di (83 KB). Two blocks of 8 warps per SM: [2, 1024, 8, 16] gives
+    256 blocks for 264 slots (one wave), [2, 4096, 4, 16] 512. The halves'
+    merge (16 floats a lane in dkv) fits in the planes."""
+    raw32 = 2 * BS * S  # floats a raw buffer (d16::kRaw)
+    dq32 = 2 * raw32 + 4 * PLANE
     dkv32 = dq32 + 6 * BS
-    assert 4 * dq32 == 81920 and 4 * dq16 == 45056 and 4 * dkv32 == 84992
+    assert 4 * dq32 == 81920 and 4 * dkv32 == 84992
     assert 2 * 4 * dkv32 <= SMEM_LIMIT
-    assert 4 * 32 * 16 <= 2 * PLANE
+    assert 4 * 32 * 16 <= 4 * PLANE
     for (b, seq, h), blocks in (((2, 1024, 8), 256), ((2, 4096, 4), 512)):
         assert math.ceil(seq / BT) * b * h == blocks
     assert 256 <= 2 * SMS

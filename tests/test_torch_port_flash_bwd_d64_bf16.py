@@ -70,28 +70,29 @@ RULE_SHAPES = [(2, 1024, 10, None), (1, 4096, 1, None), (2, 1000, 3, None),
                (1, 8192, 1, 256)]
 
 
-def _inputs(b, seq, h, seed):
-    """bf16 q, k, v, dO from normal draws (numpy, from the seed), and the
-    float64 forward's o rounded to bf16 and lse to fp32, as the lse forward
-    kernel hands them on; all as fp32 tensors."""
+def _inputs(b, seq, h, seed, d=D):
+    """bf16 q, k, v, dO [B, L, H, d] from normal draws (numpy, from the
+    seed), and the float64 forward's o rounded to bf16 and lse to fp32, as
+    the lse forward kernel hands them on; all as fp32 tensors."""
     rng = np.random.default_rng(seed)
     q, k, v, do = (bf16_round(torch.from_numpy(
-        rng.standard_normal((b, seq, h, D)).astype(np.float32)))
+        rng.standard_normal((b, seq, h, d)).astype(np.float32)))
         for _ in range(4))
     o, lse = flash_attention_lse_plain(q.double(), k.double(), v.double())
     return q, k, v, bf16_round(o.float()), lse.float(), do
 
 
-def _take(acc, x, b, terms, exact):
+def _take(acc, x, b, terms, exact, big_of=bf16_round):
     """acc + x b in 16-deep steps along x's last axis: x as `terms` bf16
-    terms (2: the small term's step, then the big term's), each step's exact
-    sum rounded toward zero into acc (`mma_bf16`); with `exact`, x as it is,
-    summed in float64."""
+    terms (1: bf16(x); 2: big = big_of(x), small = bf16(x - big), the small
+    term's step, then the big term's), each step's exact sum rounded toward
+    zero into acc (`mma_bf16`); with `exact`, x as it is, summed in
+    float64."""
     if exact:
         return acc + x @ b
-    big = bf16_round(x)
     if terms == 1:
-        return mma_bf16(big, b, acc)
+        return mma_bf16(bf16_round(x), b, acc)
+    big = big_of(x)
     steps = x.shape[-1] // 16
     a = torch.stack([bf16_round(x - big).unflatten(-1, (steps, 16)),
                      big.unflatten(-1, (steps, 16))], -2).flatten(-3)
@@ -101,12 +102,12 @@ def _take(acc, x, b, terms, exact):
 
 def backward_bf16_tiles(q, k, v, o, lse, do, p_terms=P_TERMS,
                         ds_terms=DS_TERMS, rows=None, exact=False,
-                        exact_sums=False):
+                        exact_sums=False, big_of=bf16_round):
     """(dq, dk, dv) of the kernels' arithmetic ([B, L, H, D]; with `rows` an
     index of L, dq of those q rows and dk, dv of those keys):
     `accumulate_bf16` of `scores_bf16`."""
     sc = scores_bf16(q, k, v, o, lse, do, rows, exact)
-    return accumulate_bf16(sc, p_terms, ds_terms, exact or exact_sums)
+    return accumulate_bf16(sc, p_terms, ds_terms, exact or exact_sums, big_of)
 
 
 def scores_bf16(q, k, v, o, lse, do, rows=None, exact=False) -> dict:
@@ -166,24 +167,26 @@ def scores_bf16(q, k, v, o, lse, do, rows=None, exact=False) -> dict:
 
 
 def accumulate_bf16(sc: dict, p_terms=P_TERMS, ds_terms=DS_TERMS,
-                    exact_sums=False):
+                    exact_sums=False, big_of=bf16_round):
     """dq += dS K over the keys, dv += P^T dO and dk += dS^T Q over the q
     rows, one 64-row streamed tile after another, by `_take` (with
-    `exact_sums`, every sum in float64); returned as [B, L, H, D] of the
-    selected rows."""
+    `exact_sums`, every sum in float64; `big_of` makes a two-term split's
+    big term); returned as [B, L, H, D] of the selected rows."""
     (_, ds_r), (p_c, ds_c) = sc["rows"], sc["cols"]
     qh, kh, doh = sc["q"], sc["k"], sc["do"]
     acc = torch.float64 if exact_sums else qh.dtype
-    dq = torch.zeros(ds_r.shape[:-1] + (D,), dtype=acc)
-    dk = torch.zeros(p_c.shape[:2] + (p_c.shape[-1], D), dtype=acc)
+    d = qh.shape[-1]
+    dq = torch.zeros(ds_r.shape[:-1] + (d,), dtype=acc)
+    dk = torch.zeros(p_c.shape[:2] + (p_c.shape[-1], d), dtype=acc)
     dv = torch.zeros_like(dk)
     for t0 in range(0, qh.shape[-2], BT):
         tile = slice(t0, t0 + BT)
-        dq = _take(dq, ds_r[..., tile], kh[..., tile, :], ds_terms, exact_sums)
+        dq = _take(dq, ds_r[..., tile], kh[..., tile, :], ds_terms,
+                   exact_sums, big_of)
         dv = _take(dv, p_c[..., tile, :].transpose(-1, -2), doh[..., tile, :],
-                   p_terms, exact_sums)
+                   p_terms, exact_sums, big_of)
         dk = _take(dk, ds_c[..., tile, :].transpose(-1, -2), qh[..., tile, :],
-                   ds_terms, exact_sums)
+                   ds_terms, exact_sums, big_of)
     return tuple(x.permute(0, 2, 1, 3) for x in (dq, dk, dv))
 
 

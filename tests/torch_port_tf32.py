@@ -4,9 +4,11 @@ Shared by the tests that hold the kernels' numeric design to the Pallas
 kernels and to the plain versions (`tests/test_torch_port_tf32_split.py`,
 `tests/test_torch_port_tf32_rounding.py`,
 `tests/test_torch_port_flash_d16.py`, `tests/test_torch_port_flash_bf16.py`,
-`tests/test_torch_port_flash_bwd_d64_bf16.py`):
+`tests/test_torch_port_flash_bwd_d64_bf16.py`,
+`tests/test_torch_port_flash_bwd_d16_bf16.py`):
 TF32 rounding and the 3xTF32 split of `rdeic_torch/csrc/flash_mma.cuh`,
-`mma.sync`'s rounding toward zero (TF32 and bf16 products), the
+bf16 rounding and truncation, `mma.sync`'s rounding toward zero (TF32 and
+bf16 products), the
 d = 64 backward kernels' tile order, and the shared-memory banks that a
 fragment read touches; and `one_torch_thread`, the fixture these files
 run under.
@@ -100,6 +102,11 @@ def mma_3xtf32(a: torch.Tensor, b: torch.Tensor, c=0.0) -> torch.Tensor:
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bf16 (to nearest even, as __floats2bfloat162_rn), in fp32."""
     return x.to(torch.bfloat16).float()
+
+
+def bf16_truncate(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x cut to bf16 (its top 16 bits: toward zero), in fp32."""
+    return (x.float().view(torch.int32) & ~0xFFFF).view(torch.float32)
 
 
 def mma_bf16(a: torch.Tensor, b: torch.Tensor, c=0.0) -> torch.Tensor:

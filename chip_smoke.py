@@ -103,7 +103,8 @@ and g++; no network. Phases, each fatal on failure:
    Each forward, dq and dkv row names its CUDA kernel (`kernel`: the bf16
    forward runs flash_fwd_d16_bf16 / flash_fwd_d64_bf16 /
    flash_fwd_d512_bf16, the bf16 backward at d = 16 flash_dq_d16_bf16 and
-   flash_dkv_d16_bf16, at d = 64 flash_dq_d64_bf16 and flash_dkv_d64_bf16),
+   flash_dkv_d16_bf16, at d = 64 flash_dq_d64_bf16 and flash_dkv_d64_bf16,
+   at d = 512 flash_dq_d512_bf16 and flash_dkv_d512_bf16),
    and a log line gives each bf16 row's times beside
    SDPA's bf16 call; another gives each training shape's dq and dkv times
    (ms and device_ms), their own bounds, the pair's and the pair's
@@ -328,11 +329,10 @@ TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (16, 64, 512)}
 # Head dims whose bf16 forward has kernels of its own on the bf16 tensor
 # cores (flash_fwd_d16_bf16, flash_fwd_d64_bf16, flash_fwd_d512_bf16: bf16
 # mma.sync m16n8k16), and whose bf16 backward has (flash_dq_d16_bf16,
-# flash_dkv_d16_bf16, flash_dq_d64_bf16, flash_dkv_d64_bf16); at d = 512
-# the bf16 backward is the fp32 kernels' template on bf16 tiles (TF32
-# mma.sync)
+# flash_dkv_d16_bf16, flash_dq_d64_bf16, flash_dkv_d64_bf16,
+# flash_dq_d512_bf16, flash_dkv_d512_bf16): every head dim of the paths
 BF16_FWD_HEAD_DIMS = (16, 64, 512)
-BF16_BWD_HEAD_DIMS = (16, 64)
+BF16_BWD_HEAD_DIMS = (16, 64, 512)
 # The exponentials' floor of a flash call (`softmax_bound_ms`): B H L^2 of
 # them on the MUFU units, 16 a clock per SM (sm_90), at the boost clock
 MUFU_EX2_PER_CLOCK = 16
@@ -1174,8 +1174,8 @@ def flash_rate(d: int, dtype, backward: bool = False) -> tuple[float, str]:
     dkv when `backward`) at head dim d. fp32: the TF32 tensor cores over the
     three passes of 3xTF32 where the kernel runs them (TC_HEAD_DIMS), else
     fp32 FMA. bf16: the card's bf16 peak, whichever route the kernel takes
-    (bf16 mma at BF16_FWD_HEAD_DIMS and, backward, BF16_BWD_HEAD_DIMS;
-    elsewhere its TF32 products could be bf16 ones)."""
+    (bf16 mma at BF16_FWD_HEAD_DIMS and, backward, BF16_BWD_HEAD_DIMS:
+    every head dim of the paths)."""
     tc = TC_HEAD_DIMS["backward" if backward else "forward"]
     if dtype == torch.float32 and d in tc:
         return TF32_FLOPS / 3, f"TF32 tensor cores {TF32_FLOPS / 1e12:g} / 3 passes"

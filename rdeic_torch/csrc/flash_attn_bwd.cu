@@ -229,12 +229,70 @@
 // below them; wgmma, at the full bf16 rate with B from shared memory, is
 // the route past it.
 //
-// d = 512 (the VAE decoder's mid-block, [2, 4096, 1, 512] per refine
-// micro-step) runs its own pair, flash_dq_d512 and flash_dkv_d512, on the
-// tensor cores: TF32 mma.sync (m16n8k8), fp32 accumulators, each fp32
-// product taken as three TF32 products (3xTF32, flash_mma.cuh; one TF32
-// pass misses the 1e-4 limit). bf16 inputs are exact in TF32: Q K^T and
-// dO V^T take one pass; products with P or dS, which are fp32, two.
+// bf16 at d = 512 (the VAE decoder's mid-block, [2, 4096, 1, 512] once per
+// bf16 refine micro-step) runs flash_dq_d512_bf16 and flash_dkv_d512_bf16,
+// built from the pieces of flash_bf16.cuh:
+// - Tiles stay bf16 in shared memory, 1 KB rows in flash_bf16.cuh's swizzle
+//   (chunk c of row r at c ^ (r & 7)), copied by cp.async.cg 16 bytes a
+//   lane, zero-filled past L, and read by ldmatrix (.trans for the products
+//   with P and dS): every copy and fragment read hits 32 banks. One block
+//   of 8 warps per SM. dq keeps 64 q rows (Q and dO, 128 KB) and streams
+//   K and V in 16-key tiles, double-buffered (196.3 KB with the exchange
+//   slots); dkv keeps 32 keys (K and V) and streams Q and dO in 32-row
+//   tiles with their rows' lse2 and di scale, double-buffered (200.5 KB).
+//   The kept heights are set by the L2 -> SM traffic of the streamed pair
+//   (2 KB a row): each kept tile reads it once, L / kept rows x L x 2 KB x
+//   B H, 1.07 GB for dq and 2.15 GB for dkv at [2, 4096, 1, 512] (the
+//   template's 32 rows on both sides: 4.3 GB), and by the register file:
+//   dq's 64 x 512 and dkv's 2 x 32 x 512 fp32 accumulators are 128 a
+//   thread over 8 warps (64 kept keys would need 256).
+// - Scores: each of the four 16 x 16 patches of S = Q K^T in a streamed
+//   tile (dkv: S^T = K Q^T) is one warp's (warps 0-3) over the whole of d,
+//   32 16-deep m16n8k16 steps from zero, and each of dP = dO V^T (dP^T =
+//   V dO^T) one of warps 4-7: no split over d, no partial sums. The dP
+//   warp hands fmaf(dP, scale, -di scale) to the S warp of its patch
+//   through a 1 KB slot (bar.arrive / bar.sync on a named barrier of the
+//   pair, one round trip a tile), which forms P = ex2(fmaf(S, scale
+//   log2(e), -lse2)) and dS = P dP' and writes them back as A-fragment
+//   terms for every warp. Two block barriers and the pair's a streamed
+//   tile (the template: four in dq, five in dkv, a 16-row tile).
+// - Products: warp w accumulates columns 64 w.. of d: dq += dS K over all
+//   64 q rows, dv += P^T dO and dk += dS^T Q over the 32 keys, the
+//   streamed tile read by ldmatrix.trans, the A fragments from the slots
+//   (16 bytes a lane). P and dS as two bf16 terms (pack_split_trunc). The
+//   rule, read on the CPU emulation (tests/test_torch_port_flash_bwd_
+//   d512_bf16.py) before any card run: one term of dS read 2.26e-3 of max
+//   on dq ([1, 1024, 1, 512]) and 2.30e-3 (L = 1000), one of P 3.05e-3 on
+//   dv, past half the limit (2.003e-3). mma.sync's rounding toward zero
+//   over L = 8192 reads 3.1e-5 (under a fortieth of half the limit,
+//   5.0e-5): one accumulator, no per-chunk partials. No atomics: two
+//   launches give the same bits.
+// - Work: 10 B H L^2 D flops for the pair (dq 6, dkv 8, 1.72e11 at
+//   [2, 4096, 1, 512], 0.174 ms at the bf16 peak); with two terms of P and
+//   dS the kernels issue 8 and 12 B H L^2 D. ptxas -v: dq 207 registers,
+//   dkv 233; no spills. Grid at [2, 4096, 1, 512]: dq 128 blocks (0.97
+//   waves), dkv 256 (1.94).
+// What holds them back (PERF.md §6; rdeic_torch/tools/flash_bwd_probe.py
+// --d 512 on the card): the warps' own instruction stream, as at d = 64.
+// The score patches issue one ldmatrix.x4 (512 bytes) a mma, 256 KB a
+// streamed 16 (dq) or 32 (dkv) rows a block; the products 16 mma a
+// ldmatrix. In probes at [2, 4096, 1, 512], leaving out the products took
+// 30% off the pair, leaving out the scores as well 64% (what stays, 0.46
+// ms, is the copies, the exchanges and the barriers: were it the copies
+// alone, 5.3 TB/s from L2 in dq and 8.2 in dkv), leaving out the copies
+// past the first tile 11% (they mostly hide), one term of P and dS 11%; 32
+// kept q rows in dq (twice the K and V bytes) added 12% to dq. A trial dq
+// that issued the previous tile's products in one stream with a tile's
+// scores (a third K buffer) was no faster than one that took them in
+// turn, so the phases' costs add up whatever the order: wgmma (B read
+// from shared memory by the tensor cores, no ldmatrix) and fewer
+// instructions a product are the route past them.
+//
+// d = 512 in fp32 (the VAE decoder's mid-block) runs its own pair,
+// flash_dq_d512 and flash_dkv_d512, on the tensor cores: TF32 mma.sync
+// (m16n8k8), fp32 accumulators, each fp32 product taken as three TF32
+// products (3xTF32, flash_mma.cuh; one TF32 pass misses the 1e-4 limit).
+// (bf16 at d = 512 has kernels of its own, above.)
 // - Tiles: each kernel keeps a 32-row tile pair and streams 16-row tile
 //   pairs: dq keeps Q and dO and streams K and V; dkv keeps K and V and
 //   streams Q and dO. Four D-wide fp32 tiles of 96 rows in all, 195 KB in
@@ -255,11 +313,9 @@
 // - Copies: fp32 tiles by cp.async.cg, 16 bytes a lane, zero-filled past L.
 //   dq: the next V tile is copied while the softmax and dS K run. dkv: dv =
 //   P^T dO runs first, then the next dO tile is copied while dk = dS^T Q
-//   runs; lse and di of the next q tile are read a tile ahead. bf16 tiles
-//   widen to fp32 through registers.
+//   runs; lse and di of the next q tile are read a tile ahead.
 // - Grid at [2, 4096, 1, 512]: 256 blocks each (1.94 waves on 132 SMs).
-// - ptxas -v: dq 171 registers (fp32) and 216 (bf16), dkv 238 and 232; no
-//   spills.
+// - ptxas -v: dq 171 registers, dkv 238; no spills.
 // What it does about the FMA design it replaces: tensor cores in place of
 // fp32 FMA; 32-row kept tiles (the FMA design had 16 on both sides), so
 // each streamed tile feeds twice the work; asynchronous 16-byte copies in
@@ -811,7 +867,7 @@ static_assert(kDkvSmemFloats * 4 <= 232448, "shared memory per block");
 // Warps 0-3 sum S = Q K^T, warps 4-7 dP = dO V^T, over their quarter of d,
 // for the whole (16 MT) x (8 NT) score tile (rows q, columns k); into
 // xs[product][quarter] of row stride XS.
-template <int MT, int NT, int XS, bool kSplit>
+template <int MT, int NT, int XS>
 __device__ __forceinline__ void score_partials(const float* qs,
                                                const float* dos,
                                                const float* ks,
@@ -820,7 +876,7 @@ __device__ __forceinline__ void score_partials(const float* qs,
   const int warp = threadIdx.x >> 5, prod = warp >> 2, quarter = warp & 3;
   float acc[MT][NT][4];
   zero(acc);
-  warp_mma<MT, NT, D / 32, kSplit, kSplit>(
+  warp_mma<MT, NT, D / 32, true, true>(
       acc, RowA<TS, true>(prod ? dos : qs, 0, quarter * (D / 4)),
       RowB<TS>(prod ? vs : ks, 0, quarter * (D / 4)));
   float* x = xs + (prod * 4 + quarter) * MT * 16 * XS;
@@ -865,7 +921,6 @@ __global__ void __launch_bounds__(NT, 1)
                   T* __restrict__ dq, float* __restrict__ di, int L, int H,
                   float scale) {
   using namespace rdeic_flash;
-  constexpr bool kSplit = sizeof(T) == 4;  // bf16 operands are exact in TF32
   constexpr int BQ = DQ_Q, BK = DQ_K;
   extern __shared__ __align__(16) float smem_tc[];
   float* qs = smem_tc;             // [BQ][TS]
@@ -918,7 +973,7 @@ __global__ void __launch_bounds__(NT, 1)
   for (int k0 = 0; k0 < L; k0 += BK) {
     cp_async_wait<0>();
     __syncthreads();
-    score_partials<2, 2, DQ_XS, kSplit>(qs, dos, ks, vs, xs);
+    score_partials<2, 2, DQ_XS>(qs, dos, ks, vs, xs);
     __syncthreads();  // done with vs: the next V tile comes meanwhile
     if (k0 + BK < L) load_rows<T, BK, D, NT>(vs, v + base, k0 + BK, L, row);
     cp_async_commit();
@@ -927,7 +982,7 @@ __global__ void __launch_bounds__(NT, 1)
                      p, ds);
     *reinterpret_cast<float2*>(dss + r * DQ_DS + c) = make_float2(ds[0], ds[1]);
     __syncthreads();
-    warp_mma<2, 8, BK / 8, true, kSplit>(acc, RowA<DQ_DS, false>(dss, 0, 0),
+    warp_mma<2, 8, BK / 8, true, true>(acc, RowA<DQ_DS, false>(dss, 0, 0),
                                          ColB<TS>(ks, warp * (D / 8), 0));
     __syncthreads();  // done with ks
     if (k0 + BK < L) load_rows<T, BK, D, NT>(ks, k + base, k0 + BK, L, row);
@@ -959,7 +1014,6 @@ __global__ void __launch_bounds__(NT, 1)
                    const float* __restrict__ di, T* __restrict__ dk,
                    T* __restrict__ dv, int L, int H, float scale) {
   using namespace rdeic_flash;
-  constexpr bool kSplit = sizeof(T) == 4;
   constexpr int BK = KV_K, BQ = KV_Q;
   extern __shared__ __align__(16) float smem_tc[];
   float* ks = smem_tc;             // [BK][TS]
@@ -1008,7 +1062,7 @@ __global__ void __launch_bounds__(NT, 1)
     }
     cp_async_wait<0>();
     __syncthreads();
-    score_partials<1, 4, KV_XS, kSplit>(qs, dos, ks, vs, xs);
+    score_partials<1, 4, KV_XS>(qs, dos, ks, vs, xs);
     __syncthreads();
     float p[2], ds[2];
     probs<BQ, KV_XS>(xs, r, c, q0 + r < L, L - k0, lse_s[r], di_s[r], scale,
@@ -1016,12 +1070,12 @@ __global__ void __launch_bounds__(NT, 1)
     *reinterpret_cast<float2*>(ps + r * KV_PS + c) = make_float2(p[0], p[1]);
     *reinterpret_cast<float2*>(dss + r * KV_PS + c) = make_float2(ds[0], ds[1]);
     __syncthreads();
-    warp_mma<2, 8, BQ / 8, true, kSplit>(acc_v, ColA<KV_PS>(ps, 0, 0),
+    warp_mma<2, 8, BQ / 8, true, true>(acc_v, ColA<KV_PS>(ps, 0, 0),
                                          ColB<TS>(dos, warp * (D / 8), 0));
     __syncthreads();  // done with dos: the next dO tile comes meanwhile
     if (q0 + BQ < L) load_rows<T, BQ, D, NT>(dos, dout + base, q0 + BQ, L, row);
     cp_async_commit();
-    warp_mma<2, 8, BQ / 8, true, kSplit>(acc_k, ColA<KV_PS>(dss, 0, 0),
+    warp_mma<2, 8, BQ / 8, true, true>(acc_k, ColA<KV_PS>(dss, 0, 0),
                                          ColB<TS>(qs, warp * (D / 8), 0));
     __syncthreads();  // done with qs
     if (q0 + BQ < L) load_rows<T, BQ, D, NT>(qs, q + base, q0 + BQ, L, row);
@@ -2226,6 +2280,512 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace d16_bf16
 
+// bf16 at d = 512 on the bf16 tensor cores (header). 256 threads a block.
+// Warps 0-3 take the four 16 x 16 patches of S = Q K^T in a streamed tile
+// (dkv: S^T = K Q^T), warps 4-7 those of dP = dO V^T (dP^T = V dO^T), each
+// over the whole of d; the dP warp of a patch hands it to the S warp of the
+// same patch, which forms P and dS; then warp w accumulates columns
+// 64 w.. of d over the tile. dq keeps 64 q rows and streams 16-key tiles,
+// dkv keeps 32 keys and streams 32-row q tiles, both double-buffered.
+namespace d512_bf16 {
+
+namespace bf16 = rdeic_flash::bf16;
+using bf16::bf16_t;
+using bf16::Lane;
+constexpr int D = 512, NW = 8, NT = 32 * NW;
+constexpr int kRow = D * 2;     // bytes of a tile row
+constexpr int kSlice = D / NW;  // columns of d a warp accumulates
+constexpr int DQ_KEPT = 64, DQ_STREAM = 16, KV_KEPT = 32, KV_STREAM = 32;
+static_assert(DQ_KEPT / 16 * (DQ_STREAM / 16) == NW / 2 &&
+                  KV_KEPT / 16 * (KV_STREAM / 16) == NW / 2,
+              "a streamed tile has a 16 x 16 patch for each warp of a role");
+static_assert(DQ_KEPT <= 4 * DQ_STREAM, "O passes through the K / V buffers");
+// A patch's exchange slot, [2][32 lanes][4] words (1 KB): dP scale - di
+// scale as the C fragments of the patch's n-tiles 0 and 1, then in their
+// place X (dS or P) as the big and the small bf16 term of the A fragment of
+// the 16-deep step over the patch's columns; each lane reads and writes its
+// own 16 bytes of each half, so a warp's access hits 32 banks
+constexpr int kSlot = 2 * 32 * 4;
+constexpr int kDqTile = DQ_STREAM * D;  // values of a streamed K or V tile
+constexpr int kKvTile = KV_STREAM * D;  // values of a streamed Q or dO tile
+// dq: Q, dO, two K / V buffers, the four dS slots and the kept rows' di;
+// dkv: K, V, two Q / dO buffers with their rows' lse2 and di scale, and the
+// slots of P^T and dS^T
+constexpr int kDqSmemBytes =
+    2 * DQ_KEPT * kRow + 4 * kDqTile * 2 + 4 * kSlot * 4 + DQ_KEPT * 4;
+constexpr int kDkvSmemBytes = 2 * KV_KEPT * kRow + 4 * kKvTile * 2 +
+                              2 * 2 * KV_STREAM * 4 + 8 * kSlot * 4;
+static_assert(kDqSmemBytes <= 232448 && kDkvSmemBytes <= 232448,
+              "shared memory per block");
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// c (16 x 16: n-tiles 0 and 1) = A B^T over the whole of d, 32 16-deep
+// steps from zero: `a` the A tile's 16 rows (their first plus Lane::ar, in
+// bytes), `b` the B tile's 16 rows read without .trans (plus Lane::br)
+__device__ __forceinline__ void patch(float (&c)[2][4], uint32_t a,
+                                      uint32_t b, const Lane& ln) {
+  using namespace rdeic_flash;
+  zero(c);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk >> 2) * 128;  // bytes of 64 columns
+    uint32_t x[4], y[4];
+    bf16::ldsm_x4(x, a + col + ln.ca[kk & 3]);
+    bf16::ldsm_x4(y, b + col + ln.cb[kk & 3]);
+    bf16::mma(c[0], x, y[0], y[1]);
+    bf16::mma(c[1], x, y[2], y[3]);
+  }
+}
+
+// A patch's C fragments to its slot, and back
+__device__ __forceinline__ void put_c(uint32_t* slot, const float (&c)[2][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+    *reinterpret_cast<float4*>(slot + (n * 32 + lane) * 4) =
+        make_float4(c[n][0], c[n][1], c[n][2], c[n][3]);
+}
+
+__device__ __forceinline__ void get_c(float (&c)[2][4], const uint32_t* slot) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(slot + (n * 32 + lane) * 4);
+    c[n][0] = x.x, c[n][1] = x.y, c[n][2] = x.z, c[n][3] = x.w;
+  }
+}
+
+// X (a patch's C fragments) to its slot as two bf16 terms of the A
+// fragment (pack_split_trunc): big, then small
+__device__ __forceinline__ void put_a(uint32_t* slot, const float (&x)[2][4]) {
+  const int lane = threadIdx.x & 31;
+  uint32_t big[4], small[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // rows g, g + 8 of n-tile 0, then of 1
+    const float(&c)[4] = x[i >> 1];
+    bf16::pack_split_trunc(c[2 * (i & 1)], c[2 * (i & 1) + 1], big[i],
+                           small[i]);
+  }
+  *reinterpret_cast<uint4*>(slot + lane * 4) =
+      make_uint4(big[0], big[1], big[2], big[3]);
+  *reinterpret_cast<uint4*>(slot + (32 + lane) * 4) =
+      make_uint4(small[0], small[1], small[2], small[3]);
+}
+
+__device__ __forceinline__ void get_a(uint32_t (&big)[4], uint32_t (&small)[4],
+                                      const uint32_t* slot) {
+  const int lane = threadIdx.x & 31;
+  const uint4 x = *reinterpret_cast<const uint4*>(slot + lane * 4);
+  const uint4 y = *reinterpret_cast<const uint4*>(slot + (32 + lane) * 4);
+  big[0] = x.x, big[1] = x.y, big[2] = x.z, big[3] = x.w;
+  small[0] = y.x, small[1] = y.y, small[2] = y.z, small[3] = y.w;
+}
+
+// acc (MT m-tiles of 16 kept rows x the warp's 64 columns of d: n-tile n
+// holds columns 8 n..) += X B over one 16-deep step: X the slots of the MT
+// m-tiles' patches (slot m at slots + m * stride), B 16 streamed rows read
+// with .trans (`b`: their first plus Lane::ar, plus the warp's columns, in
+// bytes). At each step the small term's products go first, then the big's.
+template <int MT>
+__device__ __forceinline__ void take(float (&acc)[MT][kSlice / 8][4],
+                                     const uint32_t* slots, int stride,
+                                     uint32_t b, const Lane& ln) {
+  uint32_t big[MT][4], small[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) get_a(big[m], small[m], slots + m * stride);
+#pragma unroll
+  for (int np = 0; np < kSlice / 16; ++np) {
+    uint32_t f[4];
+    bf16::ldsm_x4_trans(f, b + ln.ca[np]);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      bf16::mma(acc[m][2 * np], small[m], f[0], f[1]);
+      bf16::mma(acc[m][2 * np + 1], small[m], f[2], f[3]);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      bf16::mma(acc[m][2 * np], big[m], f[0], f[1]);
+      bf16::mma(acc[m][2 * np + 1], big[m], f[2], f[3]);
+    }
+  }
+}
+
+// The warp's accumulator (MT m-tiles from kept row r0, its 64 columns), the
+// rows below L, to out (at (b, h) and the warp's columns) as bf16
+template <int MT>
+__device__ __forceinline__ void store_rows(
+    bf16_t* out, const float (&acc)[MT][kSlice / 8][4], int r0, int L,
+    int64_t row) {
+  using namespace rdeic_flash;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 16 * m + g + 8 * half;
+      if (r >= L) continue;
+      bf16_t* p = out + r * row + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kSlice / 8; ++n)
+        store2<bf16_t>(p + 8 * n, acc[m][n][2 * half], acc[m][n][2 * half + 1]);
+    }
+}
+
+// acc + the dot product of 8 bf16 pairs (16 bytes of each), in fp32
+__device__ __forceinline__ float dot8(const uint4& x, const uint4& y,
+                                      float acc) {
+  const uint32_t a[4] = {x.x, x.y, x.z, x.w}, b[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = bf16::unpack(a[i]), w = bf16::unpack(b[i]);
+    acc = fmaf(u.y, w.y, fmaf(u.x, w.x, acc));
+  }
+  return acc;
+}
+
+// One block: (64-row q tile blockIdx.x, b*h blockIdx.y). Keeps Q and dO,
+// streams K and V in 16-key tiles: warp w < 4 takes S of q rows 16 w.. and
+// warp w + 4 dP of the same rows; dS = P dP' from them; then dq += dS K,
+// warp w on columns 64 w... Also di = rowsum(dO O) of the tile's rows,
+// written to `di` for the dkv kernel. (Written for any DQ_KEPT and
+// DQ_STREAM with four patches a tile: patch p has rows 16 (p % MT) and
+// keys 16 (p / MT).)
+__global__ void __launch_bounds__(NT, 1)
+    flash_dq_d512_bf16(const bf16_t* __restrict__ q,
+                       const bf16_t* __restrict__ k,
+                       const bf16_t* __restrict__ v,
+                       const bf16_t* __restrict__ o,
+                       const bf16_t* __restrict__ dout,
+                       const float* __restrict__ lse, bf16_t* __restrict__ dq,
+                       float* __restrict__ di, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  using bf16::exp2_ftz, bf16::kLog2e, bf16::load_tile;
+  extern __shared__ __align__(128) unsigned char smem_dq512b[];
+  bf16_t* qs = reinterpret_cast<bf16_t*>(smem_dq512b);  // [64][D]
+  bf16_t* dos = qs + DQ_KEPT * D;                        // [64][D]
+  bf16_t* ks = dos + DQ_KEPT * D;  // [2 buffers][16][D]
+  bf16_t* vs = ks + 2 * kDqTile;   // [2 buffers][16][D]
+  uint32_t* xs = reinterpret_cast<uint32_t*>(vs + 2 * kDqTile);  // [4][kSlot]
+  float* di_s = reinterpret_cast<float*>(xs + 4 * kSlot);       // [64]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const Lane ln(lane);
+  constexpr int MT = DQ_KEPT / 16;
+  // S (0) or dP (1) of patch p: q rows 16 (p % MT).., keys kc..
+  const int role = warp >> 2, p = warp & 3, kc = 16 * (p / MT);
+  const int q0 = blockIdx.x * DQ_KEPT;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  const bf16_t* kb = k + base;
+  const bf16_t* vb = v + base;
+  const float c = scale * kLog2e;  // scores in log2 units, for ex2
+  const int nk = (L + DQ_STREAM - 1) / DQ_STREAM;
+
+  load_tile<DQ_KEPT, D, NT>(qs, q + base, q0, L, row);
+  load_tile<DQ_KEPT, D, NT>(dos, dout + base, q0, L, row);
+  load_tile<DQ_KEPT, D, NT>(ks, o + base, q0, L, row);  // O over ks and vs
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  {
+    // di = rowsum(dO O): kParts threads a row, each on chunks kParts i +
+    // part of it, shifted by 4 on odd rows so that the 8 lanes of a 16-byte
+    // phase hit 32 banks
+    constexpr int kParts = NT / DQ_KEPT;
+    const int r = threadIdx.x / kParts, part = threadIdx.x % kParts;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 8 / kParts; ++i) {
+      const int at =
+          bf16::swz<D>(r, (kParts * i + part + 4 * (r & 1)) % (D / 8));
+      sum = dot8(*reinterpret_cast<const uint4*>(dos + at),
+                 *reinterpret_cast<const uint4*>(ks + at), sum);
+    }
+#pragma unroll
+    for (int off = 1; off < kParts; off <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (part == 0) {
+      di_s[r] = sum;
+      if (q0 + r < L) di[rbase + q0 + r] = sum;
+    }
+  }
+  __syncthreads();  // di_s is visible; done with O
+
+  // rows 16 (p % MT) + g (half 0) and + 8 (half 1): lse2 = lse log2(e),
+  // di scale
+  float lse2[2], dis[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = 16 * (p % MT) + g + 8 * half;
+    const bool in = q0 + r < L;
+    lse2[half] = in ? lse[rbase + q0 + r] * kLog2e : 0.f;
+    dis[half] = in ? di_s[r] * scale : 0.f;
+  }
+  load_tile<DQ_STREAM, D, NT>(ks, kb, 0, L, row);
+  load_tile<DQ_STREAM, D, NT>(vs, vb, 0, L, row);
+  cp_async_commit();
+
+  float acc[MT][kSlice / 8][4];  // dq: rows 16 m.., the warp's 64 columns
+  zero(acc);
+  const uint32_t sa =
+      bf16::smem_addr(role ? dos : qs) + (16 * (p % MT) + ln.ar) * kRow;
+  const uint32_t sk = bf16::smem_addr(ks), sv = bf16::smem_addr(vs);
+  constexpr uint32_t kTileBytes = kDqTile * 2;
+  uint32_t* slot = xs + p * kSlot;
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * DQ_STREAM, cur = j & 1;
+    cp_async_wait<0>();
+    // tile j is visible; every warp is done with tile j - 1, whose buffers
+    // take tile j + 1, and with the slots
+    __syncthreads();
+    if (j + 1 < nk) {
+      load_tile<DQ_STREAM, D, NT>(ks + (cur ^ 1) * kDqTile, kb, k0 + DQ_STREAM,
+                                  L, row);
+      load_tile<DQ_STREAM, D, NT>(vs + (cur ^ 1) * kDqTile, vb, k0 + DQ_STREAM,
+                                  L, row);
+    }
+    cp_async_commit();
+    const uint32_t kt = sk + cur * kTileBytes;
+    float s[2][4];  // S, or dP (role 1), of the patch
+    patch(s, sa, (role ? sv + cur * kTileBytes : kt) + (kc + ln.br) * kRow,
+          ln);
+    if (role) {
+      // dP' = dP scale - di scale, to the S warp of the patch
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[n][i] = fmaf(s[n][i], scale, -dis[i >> 1]);
+      put_c(slot, s);
+      bar_arrive(1 + p, 64);
+    } else {
+      float dp[2][4];
+      bar_sync(1 + p, 64);
+      get_c(dp, slot);
+      // P = 2^(S c - lse2), 0 on a key past L (its K row is zero, but P need
+      // not be finite there); dS = P dP', in place of S
+      const bool tail = k0 + DQ_STREAM > L;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float pr = exp2_ftz(fmaf(s[n][i], c, -lse2[i >> 1]));
+          if (tail && k0 + kc + 8 * n + 2 * t + (i & 1) >= L) pr = 0.f;
+          s[n][i] = pr * dp[n][i];
+        }
+      put_a(slot, s);
+    }
+    __syncthreads();  // the four patches' dS terms are visible
+#pragma unroll
+    for (int kk = 0; kk < DQ_STREAM / 16; ++kk)  // m-tile m: patch m + MT kk
+      take(acc, xs + MT * kk * kSlot, kSlot,
+           kt + (16 * kk + ln.ar) * kRow + warp * 128, ln);
+  }
+  cp_async_wait<0>();
+  store_rows(dq + base + warp * kSlice, acc, q0, L, row);
+}
+
+// lse and di of q rows [r0, r0 + KV_STREAM) into dst (lse at dst[0..32),
+// di at dst[32..64)): thread i < 32 copies row i's lse, thread 32 + i its
+// di, by 4-byte cp.async.ca; a row past L reads nothing and lands as 0. The
+// same thread turns it into lse2 or di scale once it has landed (row_terms).
+__device__ __forceinline__ void load_row_terms(float* dst, const float* lse,
+                                               const float* di, int r0,
+                                               int L) {
+  const int tid = threadIdx.x, i = tid & (KV_STREAM - 1);
+  if (tid >= 2 * KV_STREAM) return;
+  const bool in = r0 + i < L;
+  const float* src = (tid < KV_STREAM ? lse : di) + (in ? r0 + i : 0);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   bf16::smem_addr(dst + tid)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+// The calling thread's word of `rs` (its own copy, landed) in place: lse2 =
+// lse log2(e), +inf past L (so P^T = 0 there), or di scale
+__device__ __forceinline__ void row_terms(float* rs, int r0, int L,
+                                          float scale) {
+  const int tid = threadIdx.x;
+  if (tid < KV_STREAM)
+    rs[tid] = r0 + tid < L ? rs[tid] * bf16::kLog2e : INFINITY;
+  else if (tid < 2 * KV_STREAM)
+    rs[tid] *= scale;
+}
+
+// One block: (32-key tile blockIdx.x, b*h blockIdx.y). Keeps K and V,
+// streams Q and dO in 32-row tiles with their rows' lse2 and di scale: warp
+// w < 4 takes S^T of keys 16 (w & 1).. and q rows 16 (w >> 1).. of the
+// tile, warp w + 4 dP^T of the same patch; P^T and dS^T = P^T dP'^T from
+// them; then dv += P^T dO and dk += dS^T Q, warp w on columns 64 w... A q
+// row past L lands as zeros with lse2 = +inf, so P^T = dS^T = 0 there.
+__global__ void __launch_bounds__(NT, 1)
+    flash_dkv_d512_bf16(const bf16_t* __restrict__ q,
+                        const bf16_t* __restrict__ k,
+                        const bf16_t* __restrict__ v,
+                        const bf16_t* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di, bf16_t* __restrict__ dk,
+                        bf16_t* __restrict__ dv, int L, int H, float scale) {
+  using namespace rdeic_flash;
+  using bf16::exp2_ftz, bf16::kLog2e, bf16::load_tile;
+  extern __shared__ __align__(128) unsigned char smem_dkv512b[];
+  bf16_t* ks = reinterpret_cast<bf16_t*>(smem_dkv512b);  // [32][D]
+  bf16_t* vs = ks + KV_KEPT * D;                          // [32][D]
+  bf16_t* qs = vs + KV_KEPT * D;   // [2 buffers][32][D]
+  bf16_t* dos = qs + 2 * kKvTile;  // [2 buffers][32][D]
+  // [2 buffers][lse2, di scale][32], then the slots [P^T, dS^T][4][kSlot]
+  float* rs = reinterpret_cast<float*>(dos + 2 * kKvTile);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(rs + 2 * 2 * KV_STREAM);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const Lane ln(lane);
+  // S^T (0) or dP^T (1) of patch p: keys 16 (p & 1).., q rows 16 (p >> 1)..
+  const int role = warp >> 2, p = warp & 3, qc = 16 * (p >> 1);
+  const int k0 = blockIdx.x * KV_KEPT;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  const bf16_t* qb = q + base;
+  const bf16_t* db = dout + base;
+  const float* lb = lse + rbase;
+  const float* ib = di + rbase;
+  const float c = scale * kLog2e;
+  const int nq = (L + KV_STREAM - 1) / KV_STREAM;
+
+  load_tile<KV_KEPT, D, NT>(ks, k + base, k0, L, row);
+  load_tile<KV_KEPT, D, NT>(vs, v + base, k0, L, row);
+  load_tile<KV_STREAM, D, NT>(qs, qb, 0, L, row);
+  load_tile<KV_STREAM, D, NT>(dos, db, 0, L, row);
+  load_row_terms(rs, lb, ib, 0, L);
+  cp_async_commit();
+
+  float acc_k[KV_KEPT / 16][kSlice / 8][4];  // dk: keys 16 m.., 64 columns
+  float acc_v[KV_KEPT / 16][kSlice / 8][4];  // dv
+  zero(acc_k);
+  zero(acc_v);
+  const uint32_t sa =
+      bf16::smem_addr(role ? vs : ks) + (16 * (p & 1) + ln.ar) * kRow;
+  const uint32_t sq = bf16::smem_addr(qs), sd = bf16::smem_addr(dos);
+  constexpr uint32_t kTileBytes = kKvTile * 2;
+  uint32_t* pslot = xs + p * kSlot;        // P^T
+  uint32_t* dslot = xs + (4 + p) * kSlot;  // dP'^T, then dS^T
+  for (int j = 0; j < nq; ++j) {
+    const int q0 = j * KV_STREAM, cur = j & 1;
+    const float* r = rs + cur * 2 * KV_STREAM;
+    cp_async_wait<0>();
+    row_terms(rs + cur * 2 * KV_STREAM, q0, L, scale);
+    // tile j and its rows are visible; every warp is done with tile j - 1,
+    // whose buffers take tile j + 1, and with the slots
+    __syncthreads();
+    if (j + 1 < nq) {
+      const int nxt = cur ^ 1;
+      load_tile<KV_STREAM, D, NT>(qs + nxt * kKvTile, qb, q0 + KV_STREAM, L,
+                                  row);
+      load_tile<KV_STREAM, D, NT>(dos + nxt * kKvTile, db, q0 + KV_STREAM, L,
+                                  row);
+      load_row_terms(rs + nxt * 2 * KV_STREAM, lb, ib, q0 + KV_STREAM, L);
+    }
+    cp_async_commit();
+    const uint32_t qt = sq + cur * kTileBytes, dt = sd + cur * kTileBytes;
+    float s[2][4];  // S^T, or dP^T (role 1): column qc + 8 n + 2 t + e of
+                    // the tile is q row q0 + qc + 8 n + 2 t + e
+    patch(s, sa, (role ? dt : qt) + (qc + ln.br) * kRow, ln);
+    if (role) {
+      // dP'^T = dP^T scale - di scale, to the S^T warp of the patch
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 d2 = *reinterpret_cast<const float2*>(
+            r + KV_STREAM + qc + 8 * n + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[n][i] = fmaf(s[n][i], scale, -((i & 1) ? d2.y : d2.x));
+      }
+      put_c(dslot, s);
+      bar_arrive(1 + p, 64);
+    } else {
+      float dp[2][4];
+      bar_sync(1 + p, 64);
+      get_c(dp, dslot);
+      // P^T = 2^(S^T c - lse2), dS^T = P^T dP'^T
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(r + qc + 8 * n + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pr =
+              exp2_ftz(fmaf(s[n][i], c, -((i & 1) ? l2.y : l2.x)));
+          s[n][i] = pr;
+          dp[n][i] *= pr;
+        }
+      }
+      put_a(pslot, s);
+      put_a(dslot, dp);
+    }
+    __syncthreads();  // the patches' P^T and dS^T terms are visible
+#pragma unroll
+    for (int kk = 0; kk < KV_STREAM / 16; ++kk) {
+      // m-tile m of the 16-deep step over q rows 16 kk.. is patch m + 2 kk
+      const uint32_t at = (16 * kk + ln.ar) * kRow + warp * 128;
+      take(acc_v, xs + 2 * kk * kSlot, kSlot, dt + at, ln);
+      take(acc_k, xs + (4 + 2 * kk) * kSlot, kSlot, qt + at, ln);
+    }
+  }
+  cp_async_wait<0>();
+  store_rows(dk + base + warp * kSlice, acc_k, k0, L, row);
+  store_rows(dv + base + warp * kSlice, acc_v, k0, L, row);
+}
+
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      void* dq, float* di, int B, int L, int H, float scale,
+                      cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
+  if (err != cudaSuccess) return err;
+  err = prepare(flash_dq_d512_bf16, kDqSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + DQ_KEPT - 1) / DQ_KEPT, B * H);
+  flash_dq_d512_bf16<<<grid, NT, kDqSmemBytes, stream>>>(
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), static_cast<const bf16_t*>(o),
+      static_cast<const bf16_t*>(dout), lse, static_cast<bf16_t*>(dq), di, L,
+      H, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di,
+                       void* dk, void* dv, int B, int L, int H, float scale,
+                       cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
+  if (err != cudaSuccess) return err;
+  err = prepare(flash_dkv_d512_bf16, kDkvSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + KV_KEPT - 1) / KV_KEPT, B * H);
+  flash_dkv_d512_bf16<<<grid, NT, kDkvSmemBytes, stream>>>(
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), static_cast<const bf16_t*>(dout), lse,
+      di, static_cast<bf16_t*>(dk), static_cast<bf16_t*>(dv), L, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace d512_bf16
+
 template <typename T>
 int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, void* dq, float* di,
@@ -2246,8 +2806,12 @@ int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
         return d64_bf16::launch_dq(q, k, v, o, dout, lse, dq, di, B, L, H,
                                    scale, st);
     case 512:
-      return d512::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H, scale,
-                                st);
+      if constexpr (std::is_same_v<T, float>)
+        return d512::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H,
+                                  scale, st);
+      else
+        return d512_bf16::launch_dq(q, k, v, o, dout, lse, dq, di, B, L, H,
+                                    scale, st);
     default:
       return -1;
   }
@@ -2274,8 +2838,12 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
         return d64_bf16::launch_dkv(q, k, v, dout, lse, di, dk, dv, B, L, H,
                                     scale, st);
     case 512:
-      return d512::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
-                                 scale, st);
+      if constexpr (std::is_same_v<T, float>)
+        return d512::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
+                                   scale, st);
+      else
+        return d512_bf16::launch_dkv(q, k, v, dout, lse, di, dk, dv, B, L, H,
+                                     scale, st);
     default:
       return -1;
   }

@@ -1,7 +1,8 @@
 // bf16 tensor-core pieces of the bf16 flash-attention kernels
 // (flash_attn_fwd.cu: flash_fwd_d16_bf16, flash_fwd_d64_bf16,
 // flash_fwd_d512_bf16; flash_attn_bwd.cu: flash_dq_d16_bf16,
-// flash_dkv_d16_bf16, flash_dq_d64_bf16, flash_dkv_d64_bf16): bf16
+// flash_dkv_d16_bf16, flash_dq_d64_bf16, flash_dkv_d64_bf16,
+// flash_dq_d512_bf16, flash_dkv_d512_bf16): bf16
 // `mma.sync` m16n8k16 with fp32 accumulators, fragment loads by ldmatrix,
 // and bf16 tiles copied by cp.async into a swizzled shared-memory layout.
 //
@@ -136,7 +137,7 @@ __device__ __forceinline__ void pack_split(float x0, float x1, uint32_t& big,
 // bf16 (each value's top 16 bits, toward zero: one byte permute), small =
 // bf16(x - big) rounded to nearest (x - big is exact in fp32, and below
 // one bf16 ulp of x), so big + small is within 2^-16 |x| of x
-// (flash_attn_bwd.cu's bf16 backward at d = 16 takes P and dS so)
+// (flash_attn_bwd.cu's bf16 backward at d = 16 and 512 takes P and dS so)
 __device__ __forceinline__ void pack_split_trunc(float x0, float x1,
                                                  uint32_t& big,
                                                  uint32_t& small) {

@@ -244,49 +244,30 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows [r0, r0 + ROWS) of a [B, L, H, D] tensor (src at (b, h), tokens
-// `row` elements apart) into an fp32 tile of stride S, swizzled (swz) when
-// SWZ, by default the stride D + 8 of the D-wide tiles above; rows past L
-// are zero. fp32 goes by cp.async.cg, 16 bytes a lane, and lands later
-// (cp_async_commit, then cp_async_wait before the block reads it). bf16
-// goes through registers, 4 values a lane, widened to fp32 (exact in TF32).
+// Rows [r0, r0 + ROWS) of a [B, L, H, D] fp32 tensor (src at (b, h), tokens
+// `row` elements apart) into a tile of stride S, swizzled (swz) when SWZ,
+// by default the stride D + 8 of the D-wide tiles above; rows past L are
+// zero. By cp.async.cg, 16 bytes a lane; the copies land later
+// (cp_async_commit, then cp_async_wait before the block reads them). bf16
+// tiles have kernels of their own (flash_bf16.cuh load_tile).
 template <typename T, int ROWS, int D, int NT, int S = D + 8, bool SWZ = true>
 __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
                                           int L, int64_t row) {
+  static_assert(sizeof(T) == 4, "fp32 tiles");
   static_assert(S % 4 == 0, "16-byte chunks stay whole");
   constexpr int kChunks = ROWS * D / 4 / NT;  // 4-element chunks a thread
   static_assert((ROWS * D / 4) % NT == 0, "the threads split a tile evenly");
-  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int n = 0; n < kChunks; ++n) {
-      const int i = threadIdx.x + n * NT, r = i / (D / 4), c = i % (D / 4) * 4;
-      const bool in = r0 + r < L;
-      // a row past L reads nothing (src-size 0 fills zeros); its address
-      // stays inside the tensor all the same
-      const float* s = src + (in ? r0 + r : 0) * row + c;
-      const uint32_t d = static_cast<uint32_t>(
-          __cvta_generic_to_shared(dst + (SWZ ? swz<S>(r, c) : r * S + c)));
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                   "l"(s), "r"(in ? 16 : 0));
-    }
-  } else {
-    uint2 x[kChunks];
-#pragma unroll
-    for (int n = 0; n < kChunks; ++n) {
-      const int i = threadIdx.x + n * NT, r = i / (D / 4), c = i % (D / 4) * 4;
-      x[n] = r0 + r < L
-                 ? *reinterpret_cast<const uint2*>(src + (r0 + r) * row + c)
-                 : make_uint2(0u, 0u);
-    }
-#pragma unroll
-    for (int n = 0; n < kChunks; ++n) {
-      const int i = threadIdx.x + n * NT, r = i / (D / 4), c = i % (D / 4) * 4;
-      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&x[n].x);
-      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&x[n].y);
-      *reinterpret_cast<float4*>(dst + (SWZ ? swz<S>(r, c) : r * S + c)) =
-          make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
-                      __high2float(hi));
-    }
+  for (int n = 0; n < kChunks; ++n) {
+    const int i = threadIdx.x + n * NT, r = i / (D / 4), c = i % (D / 4) * 4;
+    const bool in = r0 + r < L;
+    // a row past L reads nothing (src-size 0 fills zeros); its address
+    // stays inside the tensor all the same
+    const float* s = src + (in ? r0 + r : 0) * row + c;
+    const uint32_t d = static_cast<uint32_t>(
+        __cvta_generic_to_shared(dst + (SWZ ? swz<S>(r, c) : r * S + c)));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(s), "r"(in ? 16 : 0));
   }
 }
 

@@ -1,21 +1,23 @@
-"""Time the bf16 flash backward at d = 16 on one card: this checkout's
-kernels, another checkout's, and variants of this one's, in one process.
+"""Time the bf16 flash backward at d = 16 or d = 512 on one card: this
+checkout's kernels, another checkout's, and variants of this one's, in one
+process.
 
-    python -m rdeic_torch.tools.flash_bwd_probe [--other DIR] [--variants]
+    python -m rdeic_torch.tools.flash_bwd_probe [--d 16|512] [--other DIR]
+        [--variants]
 
 Builds `csrc/flash_attn_bwd.cu` of this checkout ("change"), of the
 checkout at DIR ("other", e.g. the parent commit unpacked by `git
-archive`) and, with --variants, copies of this one whose `d16_bf16`
-kernels are changed by the text substitutions in VARIANTS (a substitution
-that no longer matches raises). Each library is called through its C
-interface on the same bf16 inputs. Prints the card's name and power limit,
-then a JSON line per shape, version and pass (two passes, the second in
-reverse order): dq's and dkv's device ms (`device_ms`: launches queued
-behind a sleeping kernel, CUDA events), SDPA's bf16 backward beside them,
-and max |error| over max|plain| of dq, dk and dv against the plain
-version's fp32 result. Variants other than `pack_split` and the chunk and
-accumulator ones compute something else (see VARIANTS): they time what a
-piece of the kernels costs.
+archive`) and, with --variants, copies of this one whose kernels at the
+head dim (namespace `d16_bf16` or `d512_bf16`) are changed by the text
+substitutions in VARIANTS (a substitution that no longer matches raises).
+Each library is called through its C interface on the same bf16 inputs, at
+the head dim's SHAPES. Prints the card's name and power limit, then a JSON
+line per shape, version and pass (two passes, the second in reverse
+order): dq's and dkv's device ms (`device_ms`: launches queued behind a
+sleeping kernel, CUDA events), SDPA's bf16 backward beside them, and max
+|error| over max|plain| of dq, dk and dv against the plain version's fp32
+result. Variants that compute something else say so in VARIANTS: they time
+what a piece of the kernels costs.
 """
 from __future__ import annotations
 
@@ -36,13 +38,20 @@ from rdeic_torch.ops.flash_attention import (
     flash_attention_lse,
 )
 
-SHAPES = [(2, 4096, 4, 16), (2, 1024, 8, 16), (1, 8192, 4, 16)]
+SHAPES = {16: [(2, 4096, 4, 16), (2, 1024, 8, 16), (1, 8192, 4, 16)],
+          512: [(2, 4096, 1, 512), (1, 1024, 1, 512), (1, 8192, 1, 512)]}
+NAMESPACES = {16: "d16_bf16", 512: "d512_bf16"}
 SLEEP_CLOCK_HZ = 2.0e9  # torch.cuda._sleep counts cycles, at most this fast
 _SMALL_MMA = """    bf16::mma(acc[0], small, f[0], f[1]);
     bf16::mma(acc[1], small, f[2], f[3]);
 """
-# name: [(old, new)] in the d16_bf16 namespace
-VARIANTS = {
+_SMALL_MMA_512 = """#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      bf16::mma(acc[m][2 * np], small[m], f[0], f[1]);
+      bf16::mma(acc[m][2 * np + 1], small[m], f[2], f[3]);
+    }
+"""
+_D16_VARIANTS = {
     # big rounded to nearest: two conversions a pair (pack_split, as at d = 64)
     "pack_split": [("bf16::pack_split_trunc(", "bf16::pack_split(")],
     # P and dS as their big term alone (outside the limit)
@@ -77,16 +86,44 @@ VARIANTS = {
          "    for (int i = 0; i < 4; ++i) a[n][i] += a[n + 2][i];\n}\n"
          "constexpr int kRow = D * 2;")],
 }
+_D512_VARIANTS = {
+    # P and dS as their big term alone (outside the limit)
+    "one_term": [(_SMALL_MMA_512, "")],
+    # big rounded to nearest: two conversions a pair
+    "pack_split": [("bf16::pack_split_trunc(", "bf16::pack_split(")],
+    # no ldmatrix and no mma: the copies, barriers, exchanges and softmax
+    # alone (wrong values): the floor the L2 -> SM copies set
+    "copies_only": [("for (int kk = 0; kk < D / 16; ++kk) {",
+                     "for (int kk = 0; kk < 0; ++kk) {"),
+                    ("for (int np = 0; np < kSlice / 16; ++np) {",
+                     "for (int np = 0; np < 0; ++np) {")],
+    # no streamed copies after the first tile: the kernels' work on tiles
+    # already in shared memory (wrong values), to see whether the copies
+    # hide under it
+    "no_copies": [("if (j + 1 < nk) {", "if (false) {"),
+                  ("if (j + 1 < nq) {", "if (false) {")],
+    # the scores alone: no products with P or dS (wrong values)
+    "no_products": [("for (int np = 0; np < kSlice / 16; ++np) {",
+                     "for (int np = 0; np < 0; ++np) {")],
+    # dq keeps 32 q rows and streams 32-key tiles: twice the K and V bytes
+    # through L2, the same patches (dkv's other heights do not fit: 64 kept
+    # keys need 256 accumulators a thread, 16 need 64-row streamed tiles,
+    # 256 KB double-buffered)
+    "dq_kept32": [("DQ_KEPT = 64, DQ_STREAM = 16,",
+                   "DQ_KEPT = 32, DQ_STREAM = 32,")],
+}
+# namespace: {name: [(old, new)] in that namespace}
+VARIANTS = {"d16_bf16": _D16_VARIANTS, "d512_bf16": _D512_VARIANTS}
 
 
-def variant_source(src: str, edits) -> str:
-    """`src` with each (old, new) applied inside namespace d16_bf16."""
-    i0 = src.index("namespace d16_bf16 {")
-    i1 = src.index("}  // namespace d16_bf16")
+def variant_source(src: str, edits, namespace: str) -> str:
+    """`src` with each (old, new) applied inside `namespace`."""
+    i0 = src.index(f"namespace {namespace} {{")
+    i1 = src.index(f"}}  // namespace {namespace}")
     ns = src[i0:i1]
     for old, new in edits:
         if old not in ns:
-            raise ValueError(f"variant text not in d16_bf16: {old!r}")
+            raise ValueError(f"variant text not in {namespace}: {old!r}")
         ns = ns.replace(old, new)
     return src[:i0] + ns + src[i1:]
 
@@ -160,6 +197,8 @@ def probe(lib, shape, inputs, plain) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--d", type=int, choices=sorted(SHAPES), default=16,
+                    help="head dim")
     ap.add_argument("--other", type=Path, help="another checkout to time")
     ap.add_argument("--variants", action="store_true")
     args = ap.parse_args()
@@ -175,8 +214,9 @@ def main() -> None:
         other = args.other.resolve() / "rdeic_torch" / "csrc"
         jobs["other"] = (other, (other / "flash_attn_bwd.cu").read_text())
     if args.variants:
-        jobs.update({n: (csrc, variant_source(src, e))
-                     for n, e in VARIANTS.items()})
+        ns = NAMESPACES[args.d]
+        jobs.update({n: (csrc, variant_source(src, e, ns))
+                     for n, e in VARIANTS[ns].items()})
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {n: pool.submit(_library, n, c, s, out_dir)
                    for n, (c, s) in jobs.items()}
@@ -185,7 +225,7 @@ def main() -> None:
     if "other" in libs:  # other, change, ..., then back: change, other
         order = ["other"] + [n for n in order if n != "other"]
     dev = torch.device("cuda")
-    for shape in SHAPES:
+    for shape in SHAPES[args.d]:
         g = torch.Generator(device=dev).manual_seed(0)
         q, k, v, do = (torch.randn(shape, generator=g, device=dev)
                        .to(torch.bfloat16) for _ in range(4))

@@ -113,6 +113,12 @@ D64_BF16_BWD_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64), (2, 40, 3, 64),
 D16_BF16_BWD_SHAPES = [(2, 4096, 4, 16), (2, 1024, 8, 16), (1, 6144, 4, 16),
                        (1, 1536, 8, 16), (1, 20, 2, 16), (1, 77, 2, 16),
                        (1, 130, 1, 16), (2, 1000, 3, 16), (1, 8192, 4, 16)]
+# the bf16 backward at d = 512 (flash_dq_d512_bf16, flash_dkv_d512_bf16):
+# the refine path's shape, [1, 1024, 1, 512], tails (an L inside one
+# 16-key tile, one two rows past two 64-row q tiles) and D512_SHAPES (B = 2,
+# H = 2, an L of no tile multiple, and one past 4096), and L = 8192
+D512_BF16_BWD_SHAPES = [(2, 4096, 1, 512), (1, 1024, 1, 512), (1, 10, 2, 512),
+                        (1, 130, 1, 512), *D512_SHAPES, (1, 8192, 1, 512)]
 
 
 @pytest.fixture
@@ -447,6 +453,13 @@ def test_flash_d64_bf16_backward_kernels(cuda, shape):
 @pytest.mark.parametrize("shape", D16_BF16_BWD_SHAPES)
 def test_flash_d16_bf16_backward_kernels(cuda, shape):
     """flash_dq_d16_bf16 and flash_dkv_d16_bf16 (bf16 mma.sync, P and dS
+    as two bf16 terms, one accumulator): `_check_bf16_backward`."""
+    _check_bf16_backward(cuda, shape)
+
+
+@pytest.mark.parametrize("shape", D512_BF16_BWD_SHAPES)
+def test_flash_d512_bf16_backward_kernels(cuda, shape):
+    """flash_dq_d512_bf16 and flash_dkv_d512_bf16 (bf16 mma.sync, P and dS
     as two bf16 terms, one accumulator): `_check_bf16_backward`."""
     _check_bf16_backward(cuda, shape)
 

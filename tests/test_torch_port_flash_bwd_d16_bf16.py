@@ -303,8 +303,8 @@ def test_probe_variants_apply_to_the_kernels():
     src = build.FLASH_BWD_SRC.read_text()
     head = src[:src.index("namespace d16_bf16 {")]
     tail = src[src.index("}  // namespace d16_bf16"):]
-    for name, edits in VARIANTS.items():
-        got = variant_source(src, edits)
+    for name, edits in VARIANTS["d16_bf16"].items():
+        got = variant_source(src, edits, "d16_bf16")
         assert got != src and got.startswith(head) and got.endswith(tail), name
     with pytest.raises(ValueError):
-        variant_source(src, [("no such text", "")])
+        variant_source(src, [("no such text", "")], "d16_bf16")

@@ -116,15 +116,35 @@ and g++; no network. Phases, each fatal on failure:
    by 1.05) and fails if that reading is within the limit; the backward
    kernels also give the same bits on a second launch. A log line gives the
    fp32 backward's error against float64 at d = 16 and d = 64, L = 1024 and
-   8192: how each design's error moves with L.
+   8192: how each design's error moves with L;
+14. validation (tagged `[validate]`, the root train.py's `run_validation`
+   and `ImageLogger` as the training CLI calls them, on in-memory batches
+   of configs/dataset/lic_valid.yaml's 1 x 512x512): (a) after phase 8
+   (before phase 13), the fp32 independent model, one warm-up then
+   VAL_BATCHES counted batches of 5 sampler steps with psnr, ms_ssim and
+   lpips (LPIPS on random weights): ms a batch, peak memory, launches a
+   batch against the
+   model's self-attention shapes (hooks on every self-attention: each of
+   >= 1024 tokens runs flash, the UNet's 32x32 level included; 3 a batch
+   at d = 512, one VAE encoder and two decoder mid-blocks) and its
+   GroupNorm32 calls, every average finite; (c) the image logger at B = 2
+   into a temporary directory, its three PNGs read back through zlib equal
+   to the panels byte for byte; (d) one 256x256 image through
+   run_validation on the card and on a CPU copy, the same noise, 2 steps:
+   avg_bpp, avg_psnr, avg_lpips and usage within VAL_REF_TOL, each beside
+   a planted x1.05 fault; (b) after phase 12, the bf16 refine model
+   (`fixed_step` 2) as (a), every flash call bf16 and no GroupNorm call
+   with both x and its scale and bias fp32.
 
 The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
 `bound_ms` and `library_ms` of a kernel are summed over its calls in one
 run of the path its `path` names (serve: phase 3's DDPM run; serve_ddim,
 serve_cfg and serve_bf16 are phase 3b's; train, refine, train_bf16 and
-refine_bf16 phases 6, 8, 10 and 12): per image for the serving kernels
-(flash_attn_fwd, group_norm_silu_fwd), per refine micro-step for the
+refine_bf16 phases 6, 8, 10 and 12; validate and validate_bf16 phase
+14a and 14b, whose `calls` are per validation batch): per image for the
+serving kernels (flash_attn_fwd, group_norm_silu_fwd), per refine
+micro-step for the
 others (`ms_by_path` also gives the kernel time per independent-phase
 micro-step); `shapes` has the per-call numbers and the calls in each path.
 `launches` counts kernel launches in that path's counted run (one per flash
@@ -142,9 +162,11 @@ import json
 import math
 import re
 import subprocess
+import struct
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -155,6 +177,9 @@ from rdeic_torch import build
 from rdeic_torch.inference import process
 from rdeic_torch.models.blocks import Conv, GroupNorm32
 from rdeic_torch.models.lpips import LPIPS
+from rdeic_torch.models.unet import CrossAttention
+from rdeic_torch.models.vae import AttnBlock
+from rdeic_torch.ops.attention import FLASH_MIN_TOKENS
 from rdeic_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd_plain,
@@ -179,9 +204,12 @@ from rdeic_torch.train.trainer import (
     trainable_parameters,
     trainable_predicate,
 )
+from rdeic_torch.train.callbacks import ImageLogger, make_grid
+from rdeic_torch.train.validation import run_validation
 from rdeic_torch.utils.backend import full_fp32, resolve_device
 from rdeic_torch.utils.fast_init import fast_random_init
-from rdeic_torch.utils.image import to_uint8
+from rdeic_torch.utils.image import PNG_SIGNATURE, to_uint8
+from rdeic_torch.utils.metrics import MetricSuite
 
 # configs/model/rdeic.yaml `params` (the card's machine has no yaml module;
 # tests/test_torch_port_isolation.py holds this dict equal to the file)
@@ -276,6 +304,25 @@ FLASH_PER_DENOISER_CALL_512 = 14
 FLASH_PER_DENOISER_CALL_768 = 14
 FLASH_PER_BASE_CALL_768 = 10
 CFG_SCALE = 2.0  # phase 3b's and phase 4's classifier-free guidance
+# phase 14, validation: configs/dataset/lic_valid.yaml's crop and batch
+# (tests/test_torch_port_validation.py holds them equal to the file), the
+# root train.py's metrics and sampler steps, and how many batches run
+VAL_CONFIG = {"out_size": 512, "batch_size": 1}
+VAL_METRICS = ("psnr", "ms_ssim", "lpips")
+VAL_STEPS = 5  # run_validation's sample_steps (the refine phase: fixed_step)
+VAL_BATCHES = 2  # counted batches, after one warm-up batch
+VAL_LOG_BATCH = 2  # images the image logger draws in phase 14c
+VAL_REF_HW = 256  # phase 14d's card-vs-CPU batch
+VAL_REF_STEPS = 2
+# phase 14d, card vs CPU: |card - cpu| / |cpu| of each average of a pass.
+# The relay sample agrees within 2e-3 at the worst pixel (phase 4's
+# limit), far less on average: PSNR read 2.3e-7 of itself and LPIPS
+# (random weights, near 0) 1.1e-6 on an H100 at seed 0; bpp (1.3e-7) is a
+# sum of log-likelihoods of rounded symbols, where a symbol at a rounding
+# edge may flip (~1e-4). usage counts the same codebook indices: exact. A
+# x1.05 fault reads 5e-2.
+VAL_REF_TOL = {"avg_bpp": 1e-3, "avg_psnr": 1e-4, "avg_lpips": 1e-3,
+               "usage": 0.0}
 # card vs CPU training reference: max |g_card - g_cpu| of each trainable
 # tensor over max |g_cpu| of that tensor, or over TRAIN_REF_FLOOR x the
 # largest gradient where the tensor's own gradient is zero but for rounding
@@ -1133,6 +1180,206 @@ def phase_training(model, device, seed: int) -> dict:
             "losses": losses, "by_dtype": by_dtype}
 
 
+class _AttentionShapes:
+    """Forward pre-hooks on every self-attention of a model (each UNet and
+    control transformer's `attn1`, and the VAE's mid-block `AttnBlock`):
+    the (L, heads, head dim) of each call while installed."""
+
+    def __init__(self, model):
+        self.calls = []
+        self.handles = []
+        for m in model.modules():
+            if isinstance(m, CrossAttention):
+                self.handles.append(m.register_forward_pre_hook(self._cross))
+            elif isinstance(m, AttnBlock):
+                self.handles.append(m.register_forward_pre_hook(self._vae))
+
+    def _cross(self, module, args):
+        if len(args) == 1:  # attn1: no context, self-attention
+            self.calls.append((args[0].shape[1], module.heads, module.dim_head))
+
+    def _vae(self, module, args):
+        b, c, h, w = args[0].shape
+        self.calls.append((h * w, 1, c))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+    def flash(self) -> list:
+        """The calls `ops/attention.py` sends to the flash kernel."""
+        return [c for c in self.calls if c[0] >= FLASH_MIN_TOKENS]
+
+
+def val_images(seed: int, n: int, hw: int, batch: int, device) -> list:
+    """`n` in-memory batches of [-1, 1] images, as the loader gives them."""
+    rng = np.random.default_rng(seed)
+    return [{"jpg": torch.from_numpy(rng.uniform(
+        -1, 1, (batch, hw, hw, 3)).astype(np.float32)).to(device)}
+        for _ in range(n)]
+
+
+def phase_validate(model, device, seed: int, tag: str, want_bf16: bool) -> dict:
+    """Phase 14a / 14b: `run_validation` over VAL_BATCHES batches of one
+    512x512 image (after one warm-up batch), the root train.py's metrics
+    and steps; ms a batch, peak memory, launches a batch against the
+    model's self-attention shapes (every one of >= FLASH_MIN_TOKENS tokens
+    launches flash: the UNet's 64x64 and 32x32 levels, one VAE encoder and
+    two decoder mid-blocks at d = 512) and its GroupNorm32 calls, every
+    average finite; with `want_bf16`, every flash call bf16 and every
+    GroupNorm call on a bf16 branch (x, or scale and bias)."""
+    hw = VAL_CONFIG["out_size"]
+    batches = val_images(seed + 3, 1 + VAL_BATCHES, hw,
+                         VAL_CONFIG["batch_size"], device)
+    suite = MetricSuite()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    run_validation(model, batches[:1], sample_steps=VAL_STEPS,
+                   metric_names=VAL_METRICS, generator=gen, suite=suite)
+    reset_counters()
+    hooks = _AttentionShapes(model)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        vm, ms = host_ms(lambda: run_validation(
+            model, batches[1:], sample_steps=VAL_STEPS,
+            metric_names=VAL_METRICS, generator=gen, suite=suite))
+    finally:
+        hooks.remove()
+    peak = torch.cuda.max_memory_allocated()
+    launches, shapes = read_counters()
+    steps = model.fixed_step if model.is_refine else VAL_STEPS
+    n_gn = sum(isinstance(m, GroupNorm32) for m in model.denoiser.modules())
+    flash = hooks.flash()
+    want = dict.fromkeys(KERNEL_FNS, 0)
+    want.update({"flash_attn_fwd": len(flash),
+                 "group_norm_silu_fwd": n_gn * steps * VAL_BATCHES})
+    per = {k: v / VAL_BATCHES for k, v in launches.items() if v}
+    log(f"[validate] ({tag}) {VAL_BATCHES} batches of 1x{hw}x{hw}, "
+        f"{steps} sampler steps: {ms / VAL_BATCHES:.1f} ms a batch (host "
+        f"clock, synchronised); peak memory {peak / 2**30:.3f} GiB "
+        f"({(peak - resident) / 2**30:.3f} above the "
+        f"{resident / 2**30:.3f} GiB resident); launches a batch "
+        f"{json.dumps(per)}; {json.dumps(vm)}")
+    by_len = {}
+    for seq, h, d in flash:
+        by_len[f"L{seq} h{h} d{d}"] = by_len.get(f"L{seq} h{h} d{d}", 0) + 1
+    log(f"[validate] ({tag}) flash self-attentions a batch, from the "
+        f"model's shapes: {json.dumps({k: v / VAL_BATCHES for k, v in by_len.items()})}")
+    if len(flash) != (FLASH_PER_DENOISER_CALL_512 * steps + 3) * VAL_BATCHES:
+        raise AssertionError(f"[validate] ({tag}) {len(flash)} self-"
+                             "attentions over the flash threshold")
+    if launches != want:
+        raise AssertionError(f"[validate] ({tag}) launches {launches}, "
+                             f"expected {want}")
+    vae = sum(d == 512 for _, _, d in flash)
+    if vae != 3 * VAL_BATCHES or not any(seq == FLASH_MIN_TOKENS
+                                         for seq, _, _ in flash):
+        raise AssertionError(f"[validate] ({tag}) flash self-attentions "
+                             f"{by_len}: expected 3 a batch at d = 512 and "
+                             f"the 32x32 level's L = {FLASH_MIN_TOKENS}")
+    if set(vm) != {f"avg_{k}" for k in ("bpp", *VAL_METRICS)} | {"usage"} \
+            or not all(math.isfinite(v) for v in vm.values()):
+        raise AssertionError(f"[validate] ({tag}) averages {vm}")
+    if want_bf16:
+        flash_dtypes = {k[-1] for k in shapes["flash_attn_fwd"]}
+        gn_fp32 = [k for k in shapes["group_norm_silu_fwd"]
+                   if k[-1] == k[-2] == "float32"]
+        if flash_dtypes != {"bfloat16"} or gn_fp32:
+            raise AssertionError(f"[validate] ({tag}) flash ran in "
+                                 f"{flash_dtypes}; GroupNorm all fp32 at "
+                                 f"{gn_fp32}")
+    return {"ms": ms / VAL_BATCHES, "peak_bytes": peak, "launches": launches,
+            "shapes": shapes, "steps": VAL_BATCHES, "averages": vm}
+
+
+def read_png(data: bytes) -> np.ndarray:
+    """The pixels of an 8-bit RGB PNG whose rows carry filter 0 (what
+    `utils/image.encode_png` writes), read through zlib alone; each chunk's
+    CRC checked."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise AssertionError("not a PNG file")
+    pos, chunks = len(PNG_SIGNATURE), {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos: pos + 4])
+        tag, body = data[pos + 4: pos + 8], data[pos + 8: pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n: pos + 12 + n])
+        if zlib.crc32(tag + body) != crc:
+            raise AssertionError(f"PNG chunk {tag} fails its CRC")
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, color) != (8, 2) or b"IEND" not in chunks:
+        raise AssertionError(f"PNG depth {depth}, color type {color}")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError("a PNG row carries a filter")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_image_logger(model, device, seed: int) -> None:
+    """Phase 14c: `ImageLogger.maybe_log` on a batch of VAL_LOG_BATCH
+    512x512 images into a temporary directory; its three PNGs, read back
+    through zlib, equal `to_uint8` of the panels it drew, byte for byte,
+    and its bpp.txt the bpp."""
+    hw = VAL_CONFIG["out_size"]
+    img = val_images(seed + 4, 1, hw, VAL_LOG_BATCH, device)[0]["jpg"]
+    with tempfile.TemporaryDirectory() as tmp:
+        logger = ImageLogger(tmp, every_n_steps=1)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        (out_dir, panels, bpp), ms = host_ms(
+            lambda: logger.maybe_log(model, img, 1, generator=gen))
+        for name, panel in panels.items():
+            got = read_png((out_dir / f"{name}.png").read_bytes())
+            want = make_grid(panel)
+            if (got.shape != (hw, hw * VAL_LOG_BATCH, 3)
+                    or got.tobytes() != want.tobytes()):
+                raise AssertionError(f"[validate] (c) {name}.png differs "
+                                     "from its panel")
+        if (out_dir / "bpp.txt").read_text() != f"{bpp:.6f}\n":
+            raise AssertionError("[validate] (c) bpp.txt")
+        files = sorted(p.name for p in out_dir.iterdir())
+    log(f"[validate] (c) image logger, B = {VAL_LOG_BATCH} at {hw}x{hw}: "
+        f"{ms:.1f} ms; {files}; the three PNGs read back through zlib equal "
+        f"the panels byte for byte; bpp {bpp:.6f}")
+
+
+def phase_validate_reference(model, device, seed: int) -> None:
+    """Phase 14d: one 256x256 image through `run_validation` on the card
+    and on a CPU copy of the model, with the same sampler noise, VAL_REF_STEPS
+    steps and the same LPIPS weights; each average within VAL_REF_TOL of
+    the CPU's, and a x1.05 fault of the card's outside it."""
+    batch = val_images(seed + 5, 1, VAL_REF_HW, 1, "cpu")
+    rng = np.random.default_rng(seed + 6)
+    side = VAL_REF_HW // model.latent_factor
+    latent = (1, side, side, model.latent_channels)
+    noise = [torch.from_numpy(rng.standard_normal(latent).astype(np.float32))
+             for _ in range(1 + VAL_REF_STEPS)]
+    with torch.device("meta"):
+        lpips = LPIPS("alex")
+    lpips_sd = fast_random_init(lpips, "cpu", seed=seed).state_dict()
+    out = {}
+    for where, m, dev in (("card", model, device),
+                          ("cpu", cpu_copy(model), torch.device("cpu"))):
+        out[where] = run_validation(
+            m, [{"jpg": batch[0]["jpg"].to(dev)}], sample_steps=VAL_REF_STEPS,
+            metric_names=VAL_METRICS,
+            noise=[{"relay_noise": noise[0].to(dev),
+                    "step_noise": [x.to(dev) for x in noise[1:]]}],
+            suite=MetricSuite({k: v.to(dev) for k, v in lpips_sd.items()}))
+    reads = {}
+    for key, tol in VAL_REF_TOL.items():
+        card, cpu = out["card"][key], out["cpu"][key]
+        err = abs(card - cpu) / abs(cpu)
+        fault = abs(card * FAULT_SCALE - cpu) / abs(cpu)
+        reads[key] = {"card": card, "cpu": cpu, "err": err, "limit": tol,
+                      "fault": fault}
+        if not err <= tol < fault:
+            raise AssertionError(f"[validate] (d) {key}: {reads[key]}")
+    log(f"[validate] (d) card vs CPU, one {VAL_REF_HW}x{VAL_REF_HW} image, "
+        f"{VAL_REF_STEPS} steps, the same noise: {json.dumps(reads)}")
+
+
 def _randn(shape, dtype, device, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     return torch.randn(shape, generator=g, device=device).to(dtype)
@@ -1731,6 +1978,10 @@ def main() -> int:
     refine = make_refine_model(model, args.seed)
     phase_train_reference(refine, device, args.seed)
     runs["refine"] = phase_training(refine, device, args.seed)
+    runs["validate"] = phase_validate(model, device, args.seed,
+                                      "a, fp32 independent", want_bf16=False)
+    phase_image_logger(model, device, args.seed)
+    phase_validate_reference(model, device, args.seed)
     del model, refine
     t0 = time.perf_counter()
     bf16 = make_bf16_train_model(device, args.seed)
@@ -1743,6 +1994,8 @@ def main() -> int:
     bf16_refine = make_bf16_refine_model(bf16, device, args.seed)
     phase_train_reference(bf16_refine, device, args.seed)
     runs["refine_bf16"] = phase_training(bf16_refine, device, args.seed)
+    runs["validate_bf16"] = phase_validate(bf16_refine, device, args.seed,
+                                           "b, bf16 refine", want_bf16=True)
     del bf16, bf16_refine
     kernels = phase_kernels(device, runs)
     print(json.dumps({"kernels": kernels}))

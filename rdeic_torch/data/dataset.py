@@ -1,15 +1,21 @@
-"""Training data (counterpart of rdeic_tpu/data/dataset.py): a file-list
-image dataset and the loader assembly from the YAML tree, under torch's
-DataLoader. PIL is imported inside the functions that read images."""
+"""Training and validation data (counterpart of rdeic_tpu/data/dataset.py):
+a file-list image dataset, a prefetching batch loader with the reference
+loader's order and draws, the upload of batches one step ahead, and the
+loaders' assembly from the YAML tree. PIL is imported inside the functions
+that read images."""
 from __future__ import annotations
 
+import collections
+import queue
 import random
+import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
-from torch.utils.data import DataLoader, Dataset, Sampler
+import torch
+from torch.utils.data import Dataset
 
 from rdeic_torch.registry import instantiate_from_config, load_yaml
 from rdeic_torch.utils.image import augment, center_crop_arr, random_crop_arr
@@ -92,49 +98,159 @@ class LICDataset(Dataset):
         return dict(jpg=arr.astype(np.float32) / 127.5 - 1.0, txt="")
 
 
-class EpochOrder(Sampler):
-    """The indices of one pass over `n` items: in order, or shuffled by
-    `random.Random(seed + epoch)`, `epoch` counting the passes from 0, the
-    order of rdeic_tpu's DataLoader."""
+class DataLoader:
+    """Shuffling, prefetching batch iterator over a map-style dataset, with
+    the semantics of rdeic_tpu's DataLoader: a pass visits the items in
+    order, or in the order of `random.Random(seed + epoch)`; `epoch` rises
+    when a pass starts; one worker thread per pass decodes its batches, in
+    item order, into a queue of `prefetch` batches, so every draw a dataset
+    makes from its own `rng` happens on the worker in item order. Batches
+    are {"jpg": [B, H, W, 3] float32 tensor, "txt": [str]}."""
 
-    def __init__(self, n: int, shuffle: bool = True, seed: int = 0):
-        self.n, self.shuffle, self.seed = n, shuffle, seed
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = True,
+                 drop_last: bool = True, prefetch: int = 2, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.seed = seed
         self.epoch = 0
 
     def __len__(self) -> int:
-        return self.n
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def __iter__(self):
-        idx = list(range(self.n))
+    def _start_pass(self) -> list[list[int]]:
+        """The item indices of the next pass's batches; counts the pass."""
+        idx = list(range(len(self.dataset)))
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(idx)
         self.epoch += 1
-        return iter(idx)
+        batches = [idx[i: i + self.batch_size]
+                   for i in range(0, len(idx), self.batch_size)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
+        return batches
+
+    def _collate(self, indices: list[int]) -> dict:
+        items = [self.dataset[i] for i in indices]
+        return {"jpg": torch.from_numpy(np.stack([it["jpg"] for it in items])),
+                "txt": [it["txt"] for it in items]}
+
+    def first_batch(self) -> dict:
+        """The batch the root train.py reads with `next(iter(loader))`
+        before it trains, leaving the state its abandoned pass leaves once
+        the pass's worker blocks: the epoch counted, and the draws of the
+        pass's first min(batches, `prefetch` + 2) batches made (the one
+        read, `prefetch` queued, one waiting on the full queue). Here the
+        batches are decoded in order on the calling thread: no race."""
+        batches = self._start_pass()
+        if not batches:
+            raise ValueError("the dataset gives no batch")
+        ahead = batches if self.prefetch <= 0 else batches[: self.prefetch + 2]
+        return [self._collate(b) for b in ahead][0]
+
+    def __iter__(self) -> Iterator[dict]:
+        batches = self._start_pass()
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        done = threading.Event()  # the consumer left: the worker stops
+
+        def put(item) -> bool:
+            while not done.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                for b in batches:
+                    if not put(self._collate(b)):
+                        return
+                put(_END)
+            except Exception as exc:  # raised again on the consumer's side
+                put(_Failed(exc))
+
+        thread = threading.Thread(target=worker, daemon=True)
+        thread.start()
+        try:
+            while (item := q.get()) is not _END:
+                if isinstance(item, _Failed):
+                    raise item.exc
+                yield item
+        finally:  # a pass left early: its worker ends before another starts
+            done.set()
+            thread.join()
+
+
+_END = object()
+
+
+class _Failed:
+    """A worker's exception, handed to the consumer."""
+
+    def __init__(self, exc: Exception):
+        self.exc = exc
+
+
+def device_prefetch(loader, device: torch.device
+                    ) -> Iterator[tuple[torch.Tensor, dict]]:
+    """(images on `device`, host batch) pairs of `loader`, each upload
+    started one batch before the consumer takes it (rdeic_tpu's
+    `device_prefetch` at its default depth of 2): on CUDA a pinned-memory,
+    non-blocking copy, so the copy of batch k + 1 overlaps step k. The host
+    batch is kept for the image logger."""
+    def upload(batch: dict) -> torch.Tensor:
+        img = batch["jpg"]
+        if device.type == "cuda":
+            return img.pin_memory().to(device, non_blocking=True)
+        return img.to(device)
+
+    it = iter(loader)
+    buf: collections.deque = collections.deque()
+    for host in it:
+        buf.append((upload(host), host))
+        if len(buf) == 2:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()
 
 
 class DataModule:
-    """The training loader from the data config tree. Validation is not
-    ported yet (ROADMAP Queue 1, validation and callbacks): `val_config` is
-    accepted and unused."""
+    """The training and validation loaders from the data config tree."""
 
     def __init__(self, train_config: Optional[str | dict] = None,
                  val_config: Optional[str | dict] = None):
         self.train_config = train_config
         self.val_config = val_config
 
-    def train_dataloader(self) -> Optional[DataLoader]:
-        """Batches {"jpg": [B, H, W, 3] float32 tensor, "txt": [str]} in the
-        order of rdeic_tpu's loader (`EpochOrder` from `data_loader.seed`,
-        default 0), read in the main process."""
-        cfg = self.train_config
+    @staticmethod
+    def _build(cfg) -> tuple:
+        """(dataset, `data_loader` keyword arguments) of a config, without
+        the torch DataLoader settings no thread loader takes."""
         if cfg is None:
-            return None
+            return None, {}
         if isinstance(cfg, str):
             cfg = load_yaml(cfg)
         kw = dict(cfg.get("data_loader") or {})
-        ds = instantiate_from_config(cfg["dataset"])
-        return DataLoader(
-            ds, batch_size=kw.get("batch_size", 1),
-            sampler=EpochOrder(len(ds), kw.get("shuffle", True),
-                               kw.get("seed", 0)),
-            drop_last=kw.get("drop_last", True))
+        kw.pop("num_workers", None)
+        kw.pop("pin_memory", None)
+        return instantiate_from_config(cfg["dataset"]), kw
+
+    def train_dataloader(self) -> Optional[DataLoader]:
+        """The training batches in the order of rdeic_tpu's loader
+        (`data_loader.seed`, default 0)."""
+        ds, kw = self._build(self.train_config)
+        return None if ds is None else DataLoader(ds, **kw)
+
+    def val_dataloader(self) -> Optional[DataLoader]:
+        """The validation batches in file-list order (never shuffled);
+        batch size and `drop_last` from the config."""
+        ds, kw = self._build(self.val_config)
+        if ds is None:
+            return None
+        kw.pop("shuffle", None)
+        return DataLoader(ds, shuffle=False, **kw)

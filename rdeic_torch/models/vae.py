@@ -215,6 +215,11 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = PromotedConv(2 * embed_dim, 2 * embed_dim, 1)
         self.post_quant_conv = PromotedConv(embed_dim, embed_dim, 1)
 
+    def encode_moments(self, x: torch.Tensor):
+        """x NHWC in [-1, 1] -> (mean, logvar) of the latent posterior, NHWC."""
+        mean, logvar, _ = self.encode_hc(x)
+        return mean, logvar
+
     def encode_hc(self, x: torch.Tensor):
         """x NHWC in [-1, 1] -> (mean, logvar, feature), NHWC: the latent
         posterior and the 512-ch feature the compression model codes."""

@@ -293,14 +293,22 @@ class RDEIC(nn.Module):
             uniform=[torch.rand((b, yh, yw, c), **opts) - 0.5
                      for c in self.compression.slice_ch])
 
-    def get_input(self, img: torch.Tensor, noise: dict):
+    def get_input(self, img: torch.Tensor, noise: dict | None = None,
+                  training: bool = True):
         """img NHWC in [-1, 1] -> (x_start z, cond). The frozen VAE encoder
-        runs without grad."""
+        runs without grad. Training draws the latent from the posterior
+        with `noise` (a `train_noise` dict) and runs the compression model's
+        noisy forward; `training=False` takes the posterior mean and the
+        compression model's eval forward, and needs no noise."""
         with torch.no_grad():
-            mean, logvar, h = self.vae.encode_hc(img)
-            z = sample_diagonal_gaussian(mean, logvar, noise["posterior"])
-            z, h = z * self.scale_factor, h * self.scale_factor
-        out = self.compression(h, noise=noise["uniform"], training=True)
+            if training:
+                mean, logvar, h = self.vae.encode_hc(img)
+                z = sample_diagonal_gaussian(mean, logvar, noise["posterior"])
+                z, h = z * self.scale_factor, h * self.scale_factor
+            else:
+                z, h = self.encode_first_stage(img)
+        out = self.compression(h, noise=noise["uniform"] if training else None,
+                               training=training)
         n, lh, lw, _ = z.shape
         num_pixels = n * lh * lw * 64
         bpp = torch.log(out["y_likelihoods"]).sum() / (-math.log(2) * num_pixels)

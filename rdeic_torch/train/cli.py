@@ -9,12 +9,20 @@ resumes (`model.resume`: a file that `Trainer.save` wrote, a directory of
 them whose latest step loads, or a flat `.npz` of JAX params as weights; a
 directory that is absent or holds no step starts fresh, as the root
 train.py does), then runs `Trainer.step` per micro-batch, the batches in
-the order of rdeic_tpu's loader (`data_loader.seed`; `trainer.seed` seeds
-the model and the noise). Logs JSONL metrics to `<out_dir>/metrics.jsonl`
-every `log_every_n_steps` and writes the full train state to
-`<out_dir>/checkpoints/step_<N>.pt` every `ckpt_every_n_steps` and at the
-end, keeping the `ckpt_keep` newest (-1: all). Runs on CUDA unless
-`--device cpu`. Validation and the image logger are not ported yet.
+the order of the root train.py's: it reads one batch first, as train.py
+reads the image size, and trains from the loader's second pass
+(`data_loader.seed`; `trainer.seed` seeds the model and the noise). A
+worker thread decodes the batches and each is uploaded one step ahead.
+Logs JSONL metrics to `<out_dir>/metrics.jsonl` every `log_every_n_steps`
+and writes the full train state to `<out_dir>/checkpoints/step_<N>.pt`
+every `ckpt_every_n_steps`, keeping the `ckpt_keep` newest (-1: all), and
+at the end, pruning nothing. Every `image_log_every_n_steps` the image
+logger writes `<out_dir>/image_log/step_<N>/`; every `val_check_interval`
+steps (0: never) up to 8 batches of the data config's `val_config` are
+validated, their averages logged at that step and printed as
+`validation @ N: {...}`. Both draw their noise from a generator seeded
+with the step, never from the training noise. Runs on CUDA unless
+`--device cpu`.
 
 The trainer settings of the repo's bf16 recipes, in train.py's order:
 `compute_dtype` (the denoiser and the VAE compute in it, the weights stay
@@ -28,12 +36,16 @@ from __future__ import annotations
 import argparse
 import json
 import time
+import traceback
 from pathlib import Path
 
 import torch
 
+from rdeic_torch.data.dataset import device_prefetch
 from rdeic_torch.registry import instantiate_from_config, load_yaml
+from rdeic_torch.train.callbacks import ImageLogger
 from rdeic_torch.train.trainer import Trainer, cast_frozen, prune_checkpoints
+from rdeic_torch.train.validation import run_validation
 from rdeic_torch.utils.backend import resolve_device
 from rdeic_torch.utils.convert import load_npz_weights
 from rdeic_torch.utils.fast_init import fast_random_init
@@ -112,9 +124,7 @@ def main(argv=None) -> int:
     torch.manual_seed(seed)
     model = build_model(cfg, device)
     phase = "refine" if model.is_refine else "independent"
-    print(f"[rdeic_torch.train: {phase} phase; validation and the image "
-          "logger are not ported yet (ROADMAP Queue 1, validation and "
-          "callbacks)]", flush=True)
+    print(f"[rdeic_torch.train: {phase} phase]", flush=True)
     # build_model cast the frozen tensors on `meta` already (no fp32 copy
     # of the model), so the trainer's cast finds them in `frozen_dtype`
     frozen = tcfg.get("frozen_dtype")
@@ -135,6 +145,10 @@ def main(argv=None) -> int:
     loader = data.train_dataloader()
     if len(loader) == 0:
         raise ValueError("the training set gives no full batch")
+    # train.py reads a batch for the image size, then trains from a new
+    # pass: the same state here, without its thread race
+    loader.first_batch()
+    val_loader = data.val_dataloader()
     out_dir = Path(tcfg.get("out_dir", "./runs/rdeic"))
     out_dir.mkdir(parents=True, exist_ok=True)
     metrics = out_dir / "metrics.jsonl"
@@ -143,16 +157,25 @@ def main(argv=None) -> int:
     log_every = int(tcfg.get("log_every_n_steps", 50))
     ckpt_every = int(tcfg.get("ckpt_every_n_steps", 5000))
     keep = int(tcfg.get("ckpt_keep", -1))
+    val_every = int(tcfg.get("val_check_interval", 0))
+    image_logger = ImageLogger(
+        out_dir, every_n_steps=int(tcfg.get("image_log_every_n_steps", 2000)))
     generator = torch.Generator(device=device).manual_seed(seed)
 
-    def save() -> None:
+    def step_generator(step: int) -> torch.Generator:
+        """The noise of the step's image log and validation (train.py's
+        PRNGKey(step)), apart from the training noise."""
+        return torch.Generator(device=device).manual_seed(step)
+
+    def save(prune: bool) -> None:
         trainer.save(ckpt_dir / f"step_{trainer.step_count}.pt")
-        prune_checkpoints(ckpt_dir, keep)
+        if prune:
+            prune_checkpoints(ckpt_dir, keep)
 
     t0 = time.time()
     while trainer.step_count < max_steps:
-        for batch in loader:
-            logs = trainer.step(batch["jpg"].to(device), generator=generator)
+        for img, batch in device_prefetch(loader, device):
+            logs = trainer.step(img, generator=generator)
             step = trainer.step_count
             if step % log_every == 0:
                 logs["steps_per_sec"] = log_every / (time.time() - t0)
@@ -161,9 +184,20 @@ def main(argv=None) -> int:
                 print(f"step {step}: " + ", ".join(
                     f"{k}={float(v):.4g}" for k, v in logs.items()), flush=True)
             if step % ckpt_every == 0:
-                save()
+                save(prune=True)
+            try:
+                image_logger.maybe_log(model, batch["jpg"], step,
+                                       generator=step_generator(step))
+            except Exception:  # logging must never kill training
+                print(f"[image log at step {step} failed:]", flush=True)
+                traceback.print_exc()
+            if val_every and val_loader is not None and step % val_every == 0:
+                vm = run_validation(model, val_loader, max_batches=8,
+                                    generator=step_generator(step))
+                log_metrics(metrics, step, vm)
+                print(f"validation @ {step}: {vm}", flush=True)
             if step >= max_steps:
                 break
-    save()
+    save(prune=False)  # as train.py's last save: nothing pruned
     print("done")
     return 0

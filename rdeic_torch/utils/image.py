@@ -1,10 +1,13 @@
 """Image crops, augmentation and conversions (counterpart of the same
-functions in rdeic_tpu/utils/image.py). PIL is imported inside the functions
-that resize, because the card's machine has no PIL."""
+functions in rdeic_tpu/utils/image.py), and a PNG writer. PIL is imported
+inside the functions that resize, because the card's machine has no PIL;
+`encode_png` needs only zlib."""
 from __future__ import annotations
 
 import math
 import random
+import struct
+import zlib
 
 import numpy as np
 
@@ -73,3 +76,26 @@ def to_float01(img_uint8: np.ndarray) -> np.ndarray:
 
 def to_uint8(img01: np.ndarray) -> np.ndarray:
     return np.clip(np.asarray(img01) * 255.0, 0, 255).astype(np.uint8)
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data)))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """An 8-bit RGB image [H, W, 3] uint8 as a PNG file's bytes: one IDAT
+    chunk, every row with filter 0 (none), zlib-compressed."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected [H, W, 3] uint8, got {img.shape} {img.dtype}")
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, 3 * w)],
+                          axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
+    return (PNG_SIGNATURE + _png_chunk(b"IHDR", header)
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))

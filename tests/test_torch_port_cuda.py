@@ -885,3 +885,103 @@ def _bf16_training_step(cuda, is_refine: bool, head_channels: int = 16) -> dict:
                  *flash_attention_dkv(q, k, v, do, lse, di))
         assert all(torch.equal(a, b) for a, b in zip((dq, di, dk, dv), again))
     return tallies
+
+
+# -- validation and the image logger on the card -------------------------------
+VAL_HW = 192  # MS-SSIM is defined from 176 px a side
+# card vs CPU, |card - cpu| / |cpu| of a pass's averages: the samples agree
+# within 2e-3 at the worst pixel (test_sampler_options_on_cuda_match_cpu),
+# far less on average; usage counts the same codebook indices
+VAL_PAIR_TOL = {"avg_bpp": 1e-3, "avg_psnr": 1e-3, "avg_ms_ssim": 1e-3,
+                "avg_lpips": 2e-3, "usage": 0.0}
+
+
+def _val_inputs(hw: int, steps: int, seed: int):
+    """One [-1, 1] image and the sampler's noise for CARD_MICRO, on the CPU."""
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, hw, hw, 3)).astype(np.float32))
+    latent = (1, hw // 2, hw // 2, 4)
+    noise = [torch.from_numpy(rng.normal(size=latent).astype(np.float32))
+             for _ in range(1 + steps)]
+    return img, {"relay_noise": noise[0], "step_noise": noise[1:]}
+
+
+def _on(noise: dict, device) -> dict:
+    return {"relay_noise": noise["relay_noise"].to(device),
+            "step_noise": [x.to(device) for x in noise["step_noise"]]}
+
+
+def test_run_validation_on_cuda_matches_cpu(cuda):
+    """run_validation of CARD_MICRO on one 192x192 image, card against CPU,
+    with the same noise and LPIPS weights (random, seed 0): every average
+    within VAL_PAIR_TOL, which a x1.05 fault reads outside of; flash and
+    GroupNorm launched on the card."""
+    from rdeic_torch.models.lpips import LPIPS  # noqa: PLC0415
+    from rdeic_torch.train.validation import run_validation  # noqa: PLC0415
+    from rdeic_torch.utils.fast_init import fast_random_init  # noqa: PLC0415
+    from rdeic_torch.utils.metrics import MetricSuite  # noqa: PLC0415
+
+    cpu, card = _serving_models(cuda)
+    img, noise = _val_inputs(VAL_HW, 2, seed=3)
+    with torch.device("meta"):
+        lpips = LPIPS("alex")
+    weights = fast_random_init(lpips, "cpu", seed=0).state_dict()
+    before = (flash_attention.launches, group_norm.launches)
+    got = run_validation(card, [{"jpg": img.to(cuda)}], sample_steps=2,
+                         noise=[_on(noise, cuda)],
+                         suite=MetricSuite({k: v.to(cuda)
+                                            for k, v in weights.items()}))
+    assert flash_attention.launches > before[0]
+    assert group_norm.launches > before[1]
+    want = run_validation(cpu, [{"jpg": img}], sample_steps=2, noise=[noise],
+                          suite=MetricSuite(weights))
+    assert set(got) == set(want) == set(VAL_PAIR_TOL)
+    for key, tol in VAL_PAIR_TOL.items():
+        err = abs(got[key] - want[key]) / abs(want[key])
+        fault = abs(got[key] * FAULT_SCALE - want[key]) / abs(want[key])
+        assert err <= tol < fault, (key, got[key], want[key])
+
+
+def test_log_images_on_cuda_matches_cpu(cuda):
+    """log_images' panels and bpp of CARD_MICRO at 128x128, card against
+    CPU, the same noise: target equal, vae_rec and samples within 2e-3,
+    bpp within 1e-3 of itself."""
+    from rdeic_torch.train.callbacks import log_images  # noqa: PLC0415
+
+    cpu, card = _serving_models(cuda)
+    img, noise = _val_inputs(128, 5, seed=4)
+    got, got_bpp = log_images(card, img.to(cuda), **_on(noise, cuda))
+    want, want_bpp = log_images(cpu, img, **noise)
+    assert torch.equal(got["target"].cpu(), want["target"])
+    for key in ("vae_rec", "samples"):
+        err = (got[key].cpu() - want[key]).abs().max().item()
+        assert err <= 2e-3 < (got[key].cpu() * FAULT_SCALE - want[key]
+                              ).abs().max().item(), key
+    assert abs(got_bpp - want_bpp) <= 1e-3 * want_bpp
+
+
+def test_png_encoder_bytes():
+    """encode_png's file read with zlib and struct alone (the card's machine
+    has no PIL): the signature, an 8-bit RGB header, every chunk's CRC,
+    filter 0 on every row, and the pixels."""
+    import struct  # noqa: PLC0415
+    import zlib  # noqa: PLC0415
+
+    from rdeic_torch.utils.image import encode_png  # noqa: PLC0415
+
+    img = np.random.default_rng(5).integers(0, 256, (7, 13, 3), dtype=np.uint8)
+    data = encode_png(img)
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, []
+    while pos < len(data):
+        (size,) = struct.unpack(">I", data[pos: pos + 4])
+        tag, body = data[pos + 4: pos + 8], data[pos + 8: pos + 8 + size]
+        assert struct.unpack(">I", data[pos + 8 + size: pos + 12 + size])[0] \
+            == zlib.crc32(tag + body)
+        chunks.append((tag, body))
+        pos += 12 + size
+    assert [tag for tag, _ in chunks] == [b"IHDR", b"IDAT", b"IEND"]
+    assert struct.unpack(">IIBBBBB", chunks[0][1]) == (13, 7, 8, 2, 0, 0, 0)
+    rows = np.frombuffer(zlib.decompress(chunks[1][1]), np.uint8).reshape(7, -1)
+    assert not rows[:, 0].any()
+    np.testing.assert_array_equal(rows[:, 1:].reshape(7, 13, 3), img)

@@ -32,6 +32,26 @@ and g++; no network. Phases, each fatal on failure:
    `set_compute_dtype`), whose flash and GroupNorm calls must all be bf16,
    whose stream the fp32 model must decode to the same latents bit for bit,
    and which must leave the fp32 model fp32;
+3c. batched serving through `rdeic_torch.inference_partition`'s chunk
+   functions (`make_chunks`, `serve`): four 768x512 images and one
+   512x512 (two padded sizes, two chunks), `--batch_size` 4 and
+   `--micro_batch_size` 2, the codec stage of chunk k + 1 in its worker
+   thread beside the sampling of chunk k, as the CLI runs it; one warm-up
+   run, then one counted run, then each chunk again stage by stage
+   (serially, timed: codec and sampling ms an image). (a) fp32, (b) the
+   bf16 copy of 3b (every flash call bf16; its streams, coded by the fp32
+   compression model, decode on the fp32 model to the same latents),
+   (c) with captions: a full-width CLIP text tower (random weights from
+   the seed) attached to the fp32 model, on tokens from a small merges
+   file the script writes, conditions the sampler; the tower against a
+   CPU copy of it on the same tokens within CLIP_REF_TOL, beside a planted
+   x1.05 fault. Checks of each run: every stream the same in both runs,
+   equal to the serial codec stage's and to `apply_condition_compress` of
+   that image alone; `decompress_batch` rows bit-equal to each stream
+   decoded alone; each image bit-equal to `decode_pipeline` of its
+   micro-batch with the same noise and context; outputs finite and [B, H,
+   W, 3]; launches as the chunks' structure says (`partition_launches`);
+   ms an image, peak memory;
 4. reference on a small input: a 256x256 image through the same weights,
    once on the card (kernels) and once on the CPU (plain versions), from the
    same latents and noise: DDPM, DDIM and guidance 2.0 in fp32 (image
@@ -140,7 +160,9 @@ The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
 `bound_ms` and `library_ms` of a kernel are summed over its calls in one
 run of the path its `path` names (serve: phase 3's DDPM run; serve_ddim,
-serve_cfg and serve_bf16 are phase 3b's; train, refine, train_bf16 and
+serve_cfg and serve_bf16 are phase 3b's; partition and partition_bf16
+phase 3c's, whose `calls` are per run of its five images; train, refine,
+train_bf16 and
 refine_bf16 phases 6, 8, 10 and 12; validate and validate_bf16 phase
 14a and 14b, whose `calls` are per validation batch): per image for the
 serving kernels (flash_attn_fwd, group_norm_silu_fwd), per refine
@@ -158,6 +180,7 @@ each kernel's own `bound_ms` counts the S and dP it recomputes.
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
 import math
 import re
@@ -175,6 +198,8 @@ import torch.nn.functional as F
 
 from rdeic_torch import build
 from rdeic_torch.inference import process
+from rdeic_torch.inference_partition import make_chunks, serve
+from rdeic_torch.models.clip import OpenCLIPTextEncoder, SimpleTokenizer
 from rdeic_torch.models.blocks import Conv, GroupNorm32
 from rdeic_torch.models.lpips import LPIPS
 from rdeic_torch.models.unet import CrossAttention
@@ -304,6 +329,20 @@ FLASH_PER_DENOISER_CALL_512 = 14
 FLASH_PER_DENOISER_CALL_768 = 14
 FLASH_PER_BASE_CALL_768 = 10
 CFG_SCALE = 2.0  # phase 3b's and phase 4's classifier-free guidance
+# phase 3c, batched serving through rdeic_torch.inference_partition's chunk
+# functions: four 768x512 images and one 512x512 (two padded sizes, so two
+# chunks), the CLI's default --batch_size and a sampling micro-batch of 2
+PARTITION_SIZES = [IMAGE_HW] * 4 + [(512, 512)]
+PARTITION_BATCH = 4
+PARTITION_MICRO = 2
+PARTITION_CAPTIONS = ["a photo of the cat", "the cat and the dog",
+                      "photo of a stop sign", "", "the cat"]
+PARTITION_MERGES = ["t h", "th e</w>", "c a", "ca t</w>", "p h", "ph o",
+                    "pho t", "phot o</w>", "o f</w>", "a n", "an d</w>"]
+# phase 3c's CLIP tower, card vs CPU on the same tokens: max |card - cpu|
+# over max |cpu| of the [B, 77, 1024] context; both sum in fp32 (no TF32)
+# through 23 blocks, in other orders. A x1.05 fault reads 5e-2.
+CLIP_REF_TOL = 1e-4
 # phase 14, validation: configs/dataset/lic_valid.yaml's crop and batch
 # (tests/test_torch_port_validation.py holds them equal to the file), the
 # root train.py's metrics and sampler steps, and how many batches run
@@ -697,6 +736,236 @@ def phase_serve_options(model, device, seed: int) -> tuple[dict, RDEIC]:
     log("[bf16] flash and GroupNorm ran in bf16 only; the fp32 model decodes "
         "the bf16 run's stream to the same latents, bit for bit")
     return runs, bf16
+
+
+def partition_images(seed: int) -> list:
+    """PARTITION_SIZES synthetic uint8 images, each a multiple of 64 a side
+    (the padded size the CLI groups by)."""
+    rng = np.random.default_rng(seed + 11)
+    return [(f"img{i}", rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            for i, (h, w) in enumerate(PARTITION_SIZES)]
+
+
+def partition_launches(model, chunks) -> list:
+    """Each chunk's kernel launches from the model's structure: the VAE
+    encoder's mid-block attention once on the whole chunk (flash, L >= 1024
+    at both padded sizes); then per micro-batch of the sampler, 14 flash
+    self-attentions per dual-UNet call (L = 6144 and 1536 at 768x512, 4096
+    and 1024 at 512x512; the third level's L = 384 or 256 goes to the plain
+    product) and the VAE decoder's mid-block, and one launch per
+    GroupNorm32 call. The VAE's own norms are `F.group_norm`."""
+    n_gn = sum(isinstance(m, GroupNorm32) for m in model.denoiser.modules())
+    out = []
+    for chunk in chunks:
+        micros = -(-len(chunk) // PARTITION_MICRO)
+        want = dict.fromkeys(KERNEL_FNS, 0)
+        want.update({
+            "flash_attn_fwd": 1 + micros * (FLASH_PER_DENOISER_CALL_768 * STEPS + 1),
+            "group_norm_silu_fwd": micros * n_gn * STEPS})
+        out.append(want)
+    return out
+
+
+def run_partition(model, chunks, stream_dir: Path, seed: int, context_fn=None):
+    """rdeic_torch.inference_partition's `serve` over `chunks`: the codec
+    stage in its worker thread one chunk ahead, sampling in micro-batches
+    from a generator seeded with `seed`. Returns [(out, bpps)] per chunk."""
+    gen = torch.Generator(device=model.uncond_context.device).manual_seed(seed)
+    outs = []
+    for chunk, out, bpps, _ in serve(model, chunks, stream_dir, steps=STEPS,
+                                     micro=PARTITION_MICRO, generator=gen,
+                                     context_fn=context_fn,
+                                     batch_size=PARTITION_BATCH):
+        outs.append((out, bpps))
+    return outs
+
+
+def phase_partition(model, device, seed: int, tag: str,
+                    context_fn=None) -> dict:
+    """Phase 3c: batched serving through the CLI's chunk functions, one
+    warm-up run then one counted run, each with the codec stage in its
+    worker thread; then each chunk again stage by stage (serially, under
+    the same numerics flags), timed. Checks: every stream file the same in
+    both runs and equal to the single-image `apply_condition_compress` of
+    that image; `decompress_batch` of a chunk bit-equal, row by row, to
+    `decompress` of each stream alone; each reconstruction equal to
+    `decode_pipeline` of its micro-batch with the same noise (and the same
+    context); every output finite, [B, H, W, 3]; the launches of the whole
+    run as the chunks' structure says (`partition_launches`)."""
+    items = partition_images(seed)
+    chunks = make_chunks(items, PARTITION_BATCH)
+    n_img = len(items)
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: Path(tmp) / k for k in ("warm", "counted", "single",
+                                           "staged")}
+        for d in dirs.values():
+            d.mkdir()
+        (_, warm_ms) = host_ms(lambda: run_partition(
+            model, chunks, dirs["warm"], seed, context_fn))
+        reset_counters()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs, ms = host_ms(lambda: run_partition(
+            model, chunks, dirs["counted"], seed, context_fn))
+        peak = torch.cuda.max_memory_allocated()
+        launches, shapes = read_counters()
+        streams = {name: (dirs["counted"] / f"{name}.rdeic").read_bytes()
+                   for name, _ in items}
+        for name, _ in items:
+            if (dirs["warm"] / f"{name}.rdeic").read_bytes() != streams[name]:
+                raise AssertionError(f"[{tag}] {name}: two runs wrote two "
+                                     "streams")
+        # each image alone through the single-image route
+        for name, arr in items:
+            img01 = torch.from_numpy(arr.astype(np.float32) / 255.0)[None].to(device)
+            path = dirs["single"] / f"{name}.rdeic"
+            model.apply_condition_compress(img01, path, *arr.shape[:2])
+            if path.read_bytes() != streams[name]:
+                raise AssertionError(f"[{tag}] {name}: the batched stream "
+                                     "differs from the single-image one")
+        # stage by stage, serially, with the same generator and flags
+        gen = torch.Generator(device=device).manual_seed(seed)
+        stage_ms = {"codec": 0.0, "sampling": 0.0}
+        latents = {}
+        with full_fp32(deterministic=True):
+            for ci, (chunk, (out, _)) in enumerate(zip(chunks, outs)):
+                paths = [dirs["staged"] / f"{n}.rdeic" for n, _ in chunk]
+                imgs01 = torch.from_numpy(np.stack([a for _, a in chunk]).astype(
+                    np.float32) / 255.0).to(device)
+                _, t_e = host_ms(lambda: model.apply_condition_compress_batch(
+                    imgs01, paths))
+                (c_latent, guide_hint), t_c = host_ms(
+                    lambda: model.apply_condition_decompress_batch(paths))
+                stage_ms["codec"] += t_e + t_c
+                for i, (name, _) in enumerate(chunk):
+                    if paths[i].read_bytes() != streams[name]:
+                        raise AssertionError(f"[{tag}] {name}: the serial "
+                                             "codec stage wrote another stream")
+                    alone = model.apply_condition_decompress(paths[i])
+                    latents[name] = alone
+                    if not (torch.equal(c_latent[i:i + 1], alone[0])
+                            and torch.equal(guide_hint[i:i + 1], alone[1])):
+                        raise AssertionError(f"[{tag}] {name}: decompress_"
+                                             "batch differs from decompress "
+                                             "alone")
+                context = context_fn(chunk) if context_fn is not None else None
+
+                def sample():
+                    return torch.cat([model.decode_pipeline(
+                        c_latent[j:j + PARTITION_MICRO],
+                        guide_hint[j:j + PARTITION_MICRO], STEPS,
+                        context=(None if context is None
+                                 else context[j:j + PARTITION_MICRO]),
+                        generator=gen)
+                        for j in range(0, len(chunk), PARTITION_MICRO)])
+
+                want, t_s = host_ms(sample)
+                stage_ms["sampling"] += t_s
+                h, w = chunk[0][1].shape[:2]
+                if out.shape != (len(chunk), h, w, 3) or not np.isfinite(out).all():
+                    raise AssertionError(f"[{tag}] chunk {ci}: output "
+                                         f"{out.shape}")
+                if not np.array_equal(out, want.float().cpu().numpy()):
+                    raise AssertionError(f"[{tag}] chunk {ci}: the served "
+                                         "images differ from decode_pipeline "
+                                         "of each micro-batch")
+    per_chunk = partition_launches(model, chunks)
+    want = {k: sum(c[k] for c in per_chunk) for k in KERNEL_FNS}
+    sizes = [f"{len(c)}x{c[0][1].shape[1]}x{c[0][1].shape[0]}" for c in chunks]
+    log(f"[{tag}] chunks {sizes} (batch {PARTITION_BATCH}, micro "
+        f"{PARTITION_MICRO}): warm-up {warm_ms:.1f} ms; counted run "
+        f"{ms:.1f} ms, {ms / n_img:.1f} ms an image (host clock, "
+        f"synchronised; codec of chunk k + 1 in its thread beside the "
+        f"sampling of chunk k); staged serially: codec "
+        f"{stage_ms['codec'] / n_img:.1f} and sampling "
+        f"{stage_ms['sampling'] / n_img:.1f} ms an image; peak memory "
+        f"{peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} above the "
+        f"{resident / 2**30:.3f} GiB resident); "
+        f"{sum(len(b) for b in streams.values())} stream bytes")
+    log(f"[{tag}] launches {json.dumps(launches)}; per chunk from the "
+        f"structure {json.dumps(per_chunk)}")
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches}, expected {want}")
+    log(f"[{tag}] every stream equals the single-image one and the serial "
+        "codec stage's, every decompress_batch row the stream decoded alone, "
+        "every image decode_pipeline's, bit for bit")
+    return {"ms": ms, "ms_per_image": ms / n_img, "stage_ms": stage_ms,
+            "launches": launches, "shapes": shapes, "peak_bytes": peak,
+            "streams": streams, "latents": latents}
+
+
+def check_partition_bf16(model, runs) -> None:
+    """The bf16 partition run: flash ran in bf16 only and no GroupNorm call
+    was all fp32; its streams (from the bf16 VAE encoder's feature, coded
+    by the fp32 compression model) decode on the fp32 model to the latents
+    the bf16 model decodes them to."""
+    run = runs["partition_bf16"]
+    flash = {k[-1] for k in run["shapes"]["flash_attn_fwd"]}
+    gn_fp32 = [k for k in run["shapes"]["group_norm_silu_fwd"]
+               if k[-1] == k[-2] == "float32"]
+    if flash != {"bfloat16"} or gn_fp32:
+        raise AssertionError(f"[partition_bf16] flash ran in {flash}; "
+                             f"GroupNorm all fp32 at {gn_fp32}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, data in run["streams"].items():
+            path = Path(tmp) / f"{name}.rdeic"
+            path.write_bytes(data)
+            got = model.apply_condition_decompress(path)
+            if not all(torch.equal(a, b)
+                       for a, b in zip(got, run["latents"][name])):
+                raise AssertionError(f"[partition_bf16] {name}: the fp32 "
+                                     "model decodes the bf16 stream to "
+                                     "other latents")
+    log("[partition_bf16] flash ran in bf16 only; the fp32 model decodes the "
+        "bf16 streams to the bf16 run's latents, bit for bit")
+
+
+def clip_tokenizer(tmp: Path) -> SimpleTokenizer:
+    """The byte-BPE tokenizer over a small merges file written here (the
+    published vocabulary is not in the repository)."""
+    path = tmp / "bpe_simple_vocab.txt.gz"
+    with gzip.open(path, "wb") as f:
+        f.write(("merges\n" + "\n".join(PARTITION_MERGES) + "\n").encode())
+    return SimpleTokenizer(str(path))
+
+
+def phase_partition_clip(model, device, seed: int) -> None:
+    """Phase 3c with captions: a full-width CLIP text tower (random weights
+    from `seed`) attached to the fp32 model conditions the sampler on the
+    CLIP context of each image's caption. The tower against a CPU copy of
+    it on the same tokens (CLIP_REF_TOL, beside a planted x1.05 fault),
+    then the batched serving run and its checks with that context."""
+    torch.manual_seed(seed + 5)
+    clip = model.attach_clip()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tok = clip_tokenizer(Path(tmp))
+        tokens = torch.from_numpy(tok.tokenize(PARTITION_CAPTIONS))
+        got, ms = host_ms(lambda: model.get_learned_conditioning(
+            len(PARTITION_CAPTIONS), tokens.to(device)))
+        with torch.device("meta"):
+            cpu = OpenCLIPTextEncoder(width=MODEL_CONFIG["control_stage_config"]
+                                      ["params"]["context_dim"])
+        cpu.load_state_dict({k: v.cpu() for k, v in clip.state_dict().items()},
+                            assign=True)
+        with torch.no_grad():
+            want = cpu(tokens)
+        r = compare_rel("[partition_clip] CLIP card vs CPU",
+                        [(got.cpu(), want, CLIP_REF_TOL)])
+        log(f"[partition_clip] CLIP tower ({sum(p.numel() for p in clip.parameters()) / 1e6:.0f}"
+            f" M params, {clip.n_blocks} blocks) on {len(PARTITION_CAPTIONS)}"
+            f" captions: {ms:.1f} ms on the card; card vs CPU "
+            f"{json.dumps(r)}")
+        prompts = dict(zip((n for n, _ in partition_images(seed)),
+                           PARTITION_CAPTIONS))
+
+        def context_fn(chunk):
+            t = torch.from_numpy(tok.tokenize([prompts[n] for n, _ in chunk]))
+            return model.get_learned_conditioning(len(chunk), t.to(device))
+
+        phase_partition(model, device, seed, "partition_clip", context_fn)
+    finally:
+        del model.clip
 
 
 def make_refine_model(model, seed: int) -> RDEIC:
@@ -1521,6 +1790,8 @@ def check_groupnorm(device, key, reps):
         return F.silu(y) if silu else y
 
     return {"max_abs_err": max(r["max_abs_err"] for r in reads),
+            **({"max_rel_err": max(r["max_rel_err"] for r in reads)}
+               if "max_rel_err" in reads[0] else {}),
             "tol": reads[0]["tol"],
             "fault_err": min(r["fault_err"] for r in reads),
             "bound_ms": bound, "bound_by": by,
@@ -1745,6 +2016,11 @@ def phase_kernels(device, runs) -> list:
         return sorted(set().union(*(runs[p]["shapes"][name] for p in paths)))
 
     serve_paths = [p for p in runs if p.startswith("serve")]
+    # per image for the serving paths, per run (PARTITION_SIZES, two
+    # chunks) for batched serving
+    fwd_paths = {p: "image" if p.startswith("serve") else
+                 f"run of {len(PARTITION_SIZES)} images"
+                 for p in runs if p.startswith(("serve", "partition"))}
     flash_keys = keys("flash_attn_fwd")
     flash_rows = []
     # each shape once in each dtype; a row for fp32 (every serving shape)
@@ -1897,13 +2173,13 @@ def phase_kernels(device, runs) -> list:
             "max |g - g64| / max |g64| of dq, dk, dv: "
             + "; ".join(f"L = {seq}: " + ", ".join(f"{x:.3g}" for x in r)
                         for seq, r in reads.items()))
-    for path in serve_paths:
+    for path, per_what in fwd_paths.items():
         per = {key: sum(r[key] * r["calls"].get(path, 0) for r in gn_rows)
                for key in ("ms", "device_ms", "host_us", "library_ms",
                            "library_device_ms", "library_host_us",
                            "bound_ms")}
         n_calls = sum(r["calls"].get(path, 0) for r in gn_rows)
-        log(f"[kernels] GroupNorm forward per image, {path} ({n_calls:g} "
+        log(f"[kernels] GroupNorm forward per {per_what}, {path} ({n_calls:g} "
             f"calls, {runs[path]['launches']['group_norm_silu_fwd']} "
             f"launches): kernel ms {per['ms']:.3f}, device_ms "
             f"{per['device_ms']:.3f}, host {per['host_us'] / n_calls:.1f} us "
@@ -1928,14 +2204,14 @@ def phase_kernels(device, runs) -> list:
             f"{per['library_device_ms']:.3f}, host "
             f"{per['library_host_us'] / n_calls:.1f} us a call; bound "
             f"{per['bound_ms']:.3f} ms")
-    for path in serve_paths:
+    for path, per_what in fwd_paths.items():
         for d in (16, 64, 512):
             rows = [r for r in flash_rows
                     if r["shape"][3] == d and path in r["calls"]]
             per = {key: sum(r[key] * r["calls"][path] for r in rows)
                    for key in ("ms", "device_ms", "library_ms",
                                "library_device_ms", "bound_ms")}
-            log(f"[kernels] flash forward per image at d = {d}, {path} "
+            log(f"[kernels] flash forward per {per_what} at d = {d}, {path} "
                 f"({sum(r['calls'][path] for r in rows):g} calls): "
                 + ", ".join(f"{k} {v:.3f}" for k, v in per.items()))
     for r in flash_rows:
@@ -1948,6 +2224,20 @@ def phase_kernels(device, runs) -> list:
                 f"({r['bound_by']}), exponentials' floor "
                 f"{r['softmax_bound_ms']:.4f}; max|diff| "
                 f"{r['max_abs_err']:.3g} of limit {r['tol']:.3g}")
+    for r in flash_rows + gn_rows:
+        calls = {p: c for p, c in r["calls"].items() if p.startswith("partition")}
+        if calls:
+            # bf16 GroupNorm rows are held relative to max |plain| (and
+            # their planted fault reads so too)
+            err = (f"max|diff|/max {r['max_rel_err']:.3g}" if "max_rel_err" in r
+                   else f"max|diff| {r['max_abs_err']:.3g}")
+            log(f"[kernels] batched serving row {r['shape']}: calls a run "
+                f"{json.dumps(calls)}; ms {r['ms']:.4f}, device_ms "
+                f"{r['device_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}), library ms {r['library_ms']:.4f} "
+                f"(device {r['library_device_ms']:.4f}), plain ms "
+                f"{r['plain_ms']:.4f}; {err} of limit {r['tol']}, planted "
+                f"fault {r['fault_err']:.3g}")
     log(f"[kernels] SDPA's backend at the VAE's d = 512 in fp32: "
         f"{sdpa_backend((2, 4096, 1, 512), device)}")
     return lines
@@ -1971,6 +2261,11 @@ def main() -> int:
     runs = {"serve": phase_main_path(model, device, args.seed)}
     serve_runs, bf16 = phase_serve_options(model, device, args.seed)
     runs.update(serve_runs)
+    runs["partition"] = phase_partition(model, device, args.seed, "partition")
+    runs["partition_bf16"] = phase_partition(bf16, device, args.seed,
+                                             "partition_bf16")
+    check_partition_bf16(model, runs)
+    phase_partition_clip(model, device, args.seed)
     phase_reference(model, bf16, device, args.seed)
     del bf16
     phase_train_reference(model, device, args.seed)

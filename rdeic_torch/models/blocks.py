@@ -12,10 +12,20 @@ autograd graph (an fp32 weight computing in bf16 gets an fp32 gradient, and
 a checkpointed block's recompute casts again). A layer built without
 `dtype` promotes instead (`PromotedConv2d`): it computes in the wider of
 its input's and its weights' dtypes.
+
+Batch invariance (`image_by_image`): inside that scope, in the thread that
+opened it, every `Linear`, `Conv2d` and `PromotedConv2d` runs image by image,
+so an image gets the same bits whatever batch it comes in. A library
+convolution or product may pick another algorithm, and so sum in another
+order, for another batch size (cuDNN by its heuristics, oneDNN by its
+blocking); the codec's streams must not depend on that.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
+from typing import Callable, Iterator
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +65,29 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     return F.pixel_shuffle(x, r)
 
 
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def image_by_image() -> Iterator[None]:
+    """Inside the block, in this thread, the layers of this module run one
+    image at a time (see the module's docstring)."""
+    prev = getattr(_LOCAL, "on", False)
+    _LOCAL.on = True
+    try:
+        yield
+    finally:
+        _LOCAL.on = prev
+
+
+def per_image(fn: Callable[[torch.Tensor], torch.Tensor],
+              x: torch.Tensor) -> torch.Tensor:
+    """fn(x), or, inside `image_by_image`, fn of each image of x in turn."""
+    if getattr(_LOCAL, "on", False) and x.shape[0] > 1:
+        return torch.cat([fn(x[i:i + 1]) for i in range(x.shape[0])])
+    return fn(x)
+
+
 class Linear(nn.Linear):
     """A flax Dense with `dtype`: weight, bias and input cast to
     `compute_dtype`."""
@@ -64,7 +97,8 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ct = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(ct)
-        return F.linear(x.to(ct), self.weight.to(ct), bias)
+        weight = self.weight.to(ct)
+        return per_image(lambda v: F.linear(v, weight, bias), x.to(ct))
 
 
 class Conv2d(nn.Conv2d):
@@ -76,7 +110,9 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ct = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(ct)
-        return self._conv_forward(x.to(ct), self.weight.to(ct), bias)
+        weight = self.weight.to(ct)
+        return per_image(lambda v: self._conv_forward(v, weight, bias),
+                         x.to(ct))
 
 
 class PromotedConv2d(nn.Conv2d):
@@ -87,7 +123,9 @@ class PromotedConv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ct = torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(ct)
-        return self._conv_forward(x.to(ct), self.weight.to(ct), bias)
+        weight = self.weight.to(ct)
+        return per_image(lambda v: self._conv_forward(v, weight, bias),
+                         x.to(ct))
 
 
 class LayerNorm(nn.LayerNorm):

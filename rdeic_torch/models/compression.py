@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rdeic_torch.models.blocks import Conv, nchw, nhwc, pixel_shuffle
+from rdeic_torch.models.blocks import Conv, nchw, nhwc, per_image, pixel_shuffle
 from rdeic_torch.ops import ckbd
 from rdeic_torch.ops.gaussian import likelihood, ste_round
 
@@ -232,7 +232,8 @@ class VectorQuantiser(nn.Module):
         """z NHWC [B, h, w, D] -> (z_q NHWC, indices [B, h, w]); ties take
         the first code, as jnp.argmax does."""
         b, h, w, d = z.shape
-        indices = torch.argmax(self.logits(z.reshape(-1, d)), dim=1)
+        indices = per_image(
+            lambda v: torch.argmax(self.logits(v.reshape(-1, d)), dim=1), z)
         return self.embedding[indices].reshape(z.shape), indices.reshape(b, h, w)
 
     def lookup(self, indices: torch.Tensor) -> torch.Tensor:

@@ -16,10 +16,22 @@ settings hold only inside the two calls. Symbols cross to the host once, after t
 decoder is host-interactive by nature (pass k+1 needs the symbols pass k
 decodes).
 
+Batches (`compress_batch`, `decompress_batch`): the passes run once on the
+[B, ...] batch, each image's symbols are cut out when they reach the host
+and coded into its own stream, and each image's stream is read by its own
+decoder, pass by pass. Inside the codec every convolution and product runs
+image by image (`blocks.image_by_image`): a library kernel may sum in
+another order at another batch size, and one ulp in a scale can move a CDF
+index. So a batched stream is the stream `compress` writes for that image
+alone, and row i of `decompress_batch` is `decompress` of stream i alone,
+bit for bit. The lanes and shared-stream container of the JAX package's
+device-side coder (more than two strings) is refused.
+
 All tensors here are NHWC, as in the JAX package.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from rdeic_torch.entropy.coder import (
@@ -29,6 +41,7 @@ from rdeic_torch.entropy.coder import (
     pack_uniform,
     unpack_uniform,
 )
+from rdeic_torch.models.blocks import image_by_image
 from rdeic_torch.models.compression import CompressionModel
 from rdeic_torch.ops import ckbd
 from rdeic_torch.ops import gaussian as g
@@ -93,13 +106,10 @@ class CompressionCodec:
         return self.model.synthesize(y_hat)
 
     # -- encode / decode -----------------------------------------------------
-    @torch.no_grad()
-    @full_fp32(deterministic=True)
-    def compress(self, x: torch.Tensor) -> dict:
-        """x: [1, H, W, in_nc] scaled VAE feature -> {strings, shape,
-        latents}. `latents` is the encoder's own synthesis of the decoded
-        slices, (c_latent, guide_hint): what `decompress` must reproduce bit
-        for bit from the strings."""
+    def _encode_chain(self, x: torch.Tensor):
+        """The encode chain on a batch x [B, H, W, in_nc]: (VQ indices,
+        symbols and CDF indexes of every pass in coding order, the
+        synthesis of the decoded slices)."""
         y, z = self.model.analyze(x)
         _, indices = self.model.vq_quant(z)
         hyper = self.hyper_from_indices(indices)
@@ -119,44 +129,102 @@ class CompressionCodec:
                 y_hat_prev, means_a, idx_a, channel_ctx = self.pass_ca(
                     i + 1, sym_na, means_na, anchor_half, y_hat_prev, hyper)
         latents = self.pass_c_synth(sym_na, means_na, anchor_half, y_hat_prev)
-        enc = BufferedRansEncoder()
-        for s, ix in zip(syms, idxs):
-            enc.encode_with_indexes(s.cpu().numpy(), ix.cpu().numpy())
+        return indices, syms, idxs, latents
+
+    def _streams(self, indices, syms, idxs) -> list[dict]:
+        """One {strings, shape} per image of the batch: the symbols cross
+        to the host once, then each image's rows are coded alone."""
         indices_np = indices.cpu().numpy()
-        return {
-            "strings": [[enc.flush(self.table)],
-                        [pack_uniform(indices_np, self.model.codebook_size)]],
-            "shape": (indices_np.shape[1], indices_np.shape[2]),
-            "latents": latents,
-        }
+        syms = [s.cpu().numpy() for s in syms]
+        idxs = [ix.cpu().numpy() for ix in idxs]
+        outs = []
+        for img in range(indices_np.shape[0]):
+            enc = BufferedRansEncoder()
+            for s, ix in zip(syms, idxs):
+                enc.encode_with_indexes(s[img], ix[img])
+            outs.append({
+                "strings": [[enc.flush(self.table)],
+                            [pack_uniform(indices_np[img],
+                                          self.model.codebook_size)]],
+                "shape": (indices_np.shape[1], indices_np.shape[2])})
+        return outs
 
     @torch.no_grad()
+    @image_by_image()
+    @full_fp32(deterministic=True)
+    def compress(self, x: torch.Tensor) -> dict:
+        """x: [1, H, W, in_nc] scaled VAE feature -> {strings, shape,
+        latents}. `latents` is the encoder's own synthesis of the decoded
+        slices, (c_latent, guide_hint): what `decompress` must reproduce bit
+        for bit from the strings."""
+        indices, syms, idxs, latents = self._encode_chain(x)
+        return {**self._streams(indices, syms, idxs)[0], "latents": latents}
+
+    @torch.no_grad()
+    @image_by_image()
+    @full_fp32(deterministic=True)
+    def compress_batch(self, x: torch.Tensor) -> list[dict]:
+        """x: [B, H, W, in_nc] -> one {strings, shape} per image. The passes
+        run once on the batch; each image gets its own stream, which
+        decodes alone and equals what `compress` writes for that image."""
+        return self._streams(*self._encode_chain(x)[:3])
+
+    @torch.no_grad()
+    @image_by_image()
     @full_fp32(deterministic=True)
     def decompress(self, strings, shape):
         """strings/shape -> (c_latent, guide_hint), NHWC."""
-        zh, zw = int(shape[0]), int(shape[1])
-        indices = unpack_uniform(strings[1][0], zh * zw, self.model.codebook_size)
-        indices = torch.from_numpy(indices.reshape(1, zh, zw)).to(self.device)
-        hyper = self.hyper_from_indices(indices)
+        return self._decode_chain([{"strings": strings, "shape": shape}])
 
-        def decode(dec, idx: torch.Tensor) -> torch.Tensor:
-            idx_np = idx.cpu().numpy()
-            sym = dec.decode_stream(idx_np, self.table).reshape(idx_np.shape)
-            return torch.from_numpy(sym).to(self.device)
+    @torch.no_grad()
+    @image_by_image()
+    @full_fp32(deterministic=True)
+    def decompress_batch(self, outs: list[dict]):
+        """One {strings, shape} per image (one padded size) -> (c_latent,
+        guide_hint) of the batch: the passes run once on the batch, each
+        image's stream is read by its own decoder; row i equals
+        `decompress` of stream i alone."""
+        return self._decode_chain(outs)
 
-        with RansDecoder() as dec:
-            dec.set_stream(strings[0][0])
+    def _decode_chain(self, outs: list[dict]):
+        if any(len(o["strings"]) > 2 for o in outs):
+            raise NotImplementedError(
+                "the lanes and shared-stream container (more than two "
+                "strings): ROADMAP Queue 1, entropy/device_rans.py")
+        zh, zw = (int(v) for v in outs[0]["shape"])
+        if any(tuple(int(v) for v in o["shape"]) != (zh, zw) for o in outs):
+            raise ValueError("a batch decodes streams of one shape")
+        indices = np.stack([
+            unpack_uniform(o["strings"][1][0], zh * zw,
+                           self.model.codebook_size).reshape(zh, zw)
+            for o in outs])
+        hyper = self.hyper_from_indices(torch.from_numpy(indices).to(self.device))
+        decs = [RansDecoder() for _ in outs]
+        try:
+            for d, o in zip(decs, outs):
+                d.set_stream(o["strings"][0][0])
+
+            def decode(idx: torch.Tensor) -> torch.Tensor:
+                """Each image's symbols of one pass, from its own stream."""
+                idx_np = idx.cpu().numpy()
+                sym = np.stack([d.decode_stream(ix, self.table).reshape(ix.shape)
+                                for d, ix in zip(decs, idx_np)])
+                return torch.from_numpy(sym).to(self.device)
+
             y_hat_prev = None
             means_a, idx_a, channel_ctx = self.pass_a(0, hyper, None)
             last = len(self.bounds) - 1
             for i in range(len(self.bounds)):
                 anchor_half, means_na, idx_na = self.pass_b(
-                    i, decode(dec, idx_a), means_a, hyper, channel_ctx)
-                sym_na = decode(dec, idx_na)
+                    i, decode(idx_a), means_a, hyper, channel_ctx)
+                sym_na = decode(idx_na)
                 if i < last:
                     y_hat_prev, means_a, idx_a, channel_ctx = self.pass_ca(
                         i + 1, sym_na, means_na, anchor_half, y_hat_prev, hyper)
                 else:
                     return self.pass_c_synth(sym_na, means_na, anchor_half,
                                              y_hat_prev)
+        finally:
+            for d in decs:
+                d.close()
         raise ValueError("the model has no slices")

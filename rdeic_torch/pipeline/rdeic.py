@@ -13,6 +13,15 @@ classifier-free guidance, the base UNet alone a second time each step) ->
 VAE decode. Noise is explicit: pass the tensors, or a `torch.Generator` to
 draw them.
 
+Batched serving (the root inference_partition.py's path): B images of one
+padded size are coded in one run of the codec's passes to one stream file
+each, every file the one the single-image path writes (the layers of the
+VAE encoder and the codec run image by image there, so an image's bits do
+not depend on its batch: `blocks.image_by_image`), and decoded back as a
+batch; `decode_batched` samples in micro-batches. The context is the stored
+empty prompt, or CLIP's context of caption tokens when a CLIP text tower
+is attached (`attach_clip`; a weights file with a `clip/` subtree does it).
+
 Training (`loss_fn`): VAE encode with a posterior sample, under no grad ->
 the compression model's forward with noisy likelihoods and the CVQ losses ->
 - independent phase: relay-shifted noise, one dual-UNet call, eps -> x0
@@ -45,6 +54,7 @@ from torch import nn
 from rdeic_torch.diffusion import ddim, spaced
 from rdeic_torch.diffusion.schedule import NoiseSchedule
 from rdeic_torch.models import blocks
+from rdeic_torch.models.clip import OpenCLIPTextEncoder
 from rdeic_torch.models.compression import CompressionModel
 from rdeic_torch.models.lpips import LPIPS, warn_random_backbone
 from rdeic_torch.models.unet import NoiseEstimator
@@ -73,6 +83,7 @@ class RDEIC(nn.Module):
     def __init__(self, control_stage_config: Optional[Mapping] = None,
                  unet_config: Optional[Mapping] = None,
                  first_stage_config: Optional[Mapping] = None,
+                 cond_stage_config: Optional[Mapping] = None,
                  preprocess_config: Optional[Mapping] = None,
                  sd_locked: bool = True, is_refine: bool = False,
                  fixed_step: int = 2, scan_remat: bool = False,
@@ -90,10 +101,6 @@ class RDEIC(nn.Module):
         device = torch.device(device)
         if device.type != "meta":
             device = resolve_device(device)
-        if parameterization != "eps":
-            raise NotImplementedError(
-                f"parameterization {parameterization!r}: the port's sampler "
-                "reads eps (ROADMAP Queue 1, training settings)")
         ctrl = _cfg_params(control_stage_config)
         unet = _cfg_params(unet_config)
         vae_cfg = _cfg_params(first_stage_config)
@@ -103,6 +110,13 @@ class RDEIC(nn.Module):
             linear_start=linear_start, linear_end=linear_end)
         self.used_timesteps = used_timesteps
         self.scale_factor = scale_factor
+        # what the independent loss regresses; sampling reads the output as
+        # eps whatever it is, as the JAX package's `sample` does
+        self.parameterization = parameterization
+        # the CLIP tower, when one is attached (`attach_clip`), stops at the
+        # penultimate block unless the cond stage asks for the last
+        self.clip_penultimate = (_cfg_params(cond_stage_config).get(
+            "layer", "penultimate") == "penultimate")
         self.sd_locked = sd_locked
         self.is_refine = is_refine
         # the refine loss's sampler: its step count, and whether each step is
@@ -134,12 +148,12 @@ class RDEIC(nn.Module):
             self.cast_inference_params(dtype)
 
     def cast_inference_params(self, dtype: torch.dtype) -> None:
-        """Store the weights of `vae`, `denoiser` and `lpips` (when present)
-        and the `uncond_context` in `dtype`: the rule of the JAX package's
-        `cast_inference_params`. `compression` and `vq_embed_prob` stay
-        fp32: their outputs parameterise the entropy coder, and the stream
-        format pins them."""
-        for name in ("vae", "denoiser", "lpips"):
+        """Store the weights of `vae`, `denoiser`, `clip` and `lpips` (those
+        present) and the `uncond_context` in `dtype`: the rule of the JAX
+        package's `cast_inference_params`. `compression` and
+        `vq_embed_prob` stay fp32: their outputs parameterise the entropy
+        coder, and the stream format pins them."""
+        for name in ("vae", "denoiser", "clip", "lpips"):
             if hasattr(self, name):
                 getattr(self, name).to(dtype)
         self.uncond_context = self.uncond_context.to(dtype)
@@ -195,9 +209,27 @@ class RDEIC(nn.Module):
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         return self.vae.decode(z / self.scale_factor)
 
-    def get_learned_conditioning(self, batch: int = 1) -> torch.Tensor:
-        """The stored empty-prompt context, tiled to the batch (the main
-        path never runs CLIP)."""
+    def attach_clip(self) -> OpenCLIPTextEncoder:
+        """Give the model a CLIP text tower (the JAX package makes its
+        params only on request, `init_params(include_clip=True)`): width
+        `context_dim`, on the device and in the dtype of `uncond_context`.
+        A weights file with a `clip/` subtree attaches one
+        (`utils.convert.load_npz_weights`)."""
+        ctx = self.uncond_context
+        with ctx.device:
+            self.clip = OpenCLIPTextEncoder(
+                width=self.denoiser.context_dim,
+                penultimate=self.clip_penultimate).to(ctx.dtype)
+        return self.clip
+
+    def get_learned_conditioning(self, batch: int = 1,
+                                 tokens: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+        """CLIP's context of `tokens` [B, 77] when the model has a CLIP
+        tower, else the stored empty-prompt context tiled to the batch."""
+        if tokens is not None and hasattr(self, "clip"):
+            with torch.no_grad(), full_fp32():
+                return self.clip(tokens.to(self.uncond_context.device))
         return self.uncond_context.expand(batch, -1, -1)
 
     # -- sampling --------------------------------------------------------------
@@ -262,6 +294,47 @@ class RDEIC(nn.Module):
                               **noise)
         return torch.clamp((self.decode_first_stage(samples) + 1) / 2, 0.0, 1.0)
 
+    @torch.no_grad()
+    def decode_batched(self, c_latent, guide_hint, steps: int, *,
+                       sampler: str = "ddpm", guidance_scale: float = 1.0,
+                       micro: int | None = None,
+                       context: torch.Tensor | None = None,
+                       noise: Sequence[dict] | None = None,
+                       generator: torch.Generator | None = None
+                       ) -> torch.Tensor:
+        """`decode_pipeline` over the batch in chunks of `micro` images,
+        which bounds the sampler's activations whatever the batch (the JAX
+        package's `decode_batched`). A ragged tail is padded with the
+        batch's first rows to a whole chunk and sliced off. Without `micro`,
+        or with `micro` >= B, it is one `decode_pipeline` call. `noise`:
+        one dict of `sample`'s noise arguments (relay_noise, step_noise) per
+        chunk, padded rows included; without it each chunk draws from
+        `generator`. `context` (default: the stored empty prompt) is padded
+        and cut with the rows."""
+        b = c_latent.shape[0]
+        opts = dict(sampler=sampler, guidance_scale=guidance_scale,
+                    generator=generator)
+        if micro is None or micro >= b:
+            return self.decode_pipeline(c_latent, guide_hint, steps,
+                                        context=context, **opts,
+                                        **(noise[0] if noise else {}))
+        pad = (-b) % micro
+        rows = [c_latent, guide_hint] + ([] if context is None else [context])
+        if pad:
+            rows = [torch.cat([r, r[:pad]]) for r in rows]
+        starts = range(0, b + pad, micro)
+        if noise is not None and len(noise) != len(starts):
+            raise ValueError(f"need noise for {len(starts)} chunks, got "
+                             f"{len(noise)}")
+        outs = []
+        for j, k in enumerate(starts):
+            chunk = [r[k:k + micro] for r in rows]
+            outs.append(self.decode_pipeline(
+                chunk[0], chunk[1], steps,
+                context=chunk[2] if context is not None else None, **opts,
+                **(noise[j] if noise is not None else {})))
+        return torch.cat(outs)[:b]
+
     # -- training ----------------------------------------------------------------
     def train_noise(self, img: torch.Tensor,
                     generator: torch.Generator | None = None) -> dict:
@@ -322,14 +395,26 @@ class RDEIC(nn.Module):
     def p_losses_independent(self, z_start, cond, t, eps):
         """One-step noise loss with the relay shift of the target: the noise
         is eps + (c_latent - z_start) / lamba, the loss is on the predicted
-        x0, plus the guide, bpp and CVQ terms."""
+        x0 (or, by `parameterization`, the raw output against x0 or v), plus
+        the guide, bpp and CVQ terms."""
         c_latent = cond["c_latent"]
         noise = eps + (c_latent - z_start) / self.lamba
         x_noisy = self.schedule.q_sample(z_start, t, noise)
         model_out = self.denoiser(x_noisy, t, cond["c_crossattn"],
                                   cond["guide_hint"])
-        pred = self.schedule.predict_xstart_from_eps(x_noisy, t, model_out)
-        loss_simple = torch.mean((pred - z_start) ** 2, dim=(1, 2, 3))
+        # "eps": the output as eps -> x0, against z_start; "x0": the output
+        # against z_start; "v": the output against get_v(z_start, noise, t),
+        # `noise` with the relay shift in it, as in the reference
+        if self.parameterization == "eps":
+            pred = self.schedule.predict_xstart_from_eps(x_noisy, t, model_out)
+            target = z_start
+        elif self.parameterization == "x0":
+            pred, target = model_out, z_start
+        elif self.parameterization == "v":
+            pred, target = model_out, self.schedule.get_v(z_start, noise, t)
+        else:
+            raise NotImplementedError(self.parameterization)
+        loss_simple = torch.mean((pred - target) ** 2, dim=(1, 2, 3))
         loss_guide = torch.mean((c_latent - z_start) ** 2)
         loss = (self.l_guide_weight * loss_simple.mean()
                 + self.l_guide_weight * loss_guide
@@ -415,3 +500,34 @@ class RDEIC(nn.Module):
         with Path(stream_path).open("rb") as f:
             strings, shape = read_body(f)
         return self.codec().decompress(strings, shape)
+
+    # -- batched bitstreams: one run of the passes for B images ----------------
+    @torch.no_grad()
+    def apply_condition_compress_batch(self, imgs01: torch.Tensor,
+                                       stream_paths) -> list[float]:
+        """imgs01 [B, H, W, 3] in [0, 1] (one padded size) -> one stream
+        file per image, each the file `apply_condition_compress` writes for
+        that image alone (the VAE encoder's layers run image by image, as
+        the codec's do: `blocks.image_by_image`); returns each file's bpp
+        over H x W."""
+        with blocks.image_by_image():
+            _, h = self.encode_first_stage(imgs01 * 2 - 1)
+        outs = self.codec().compress_batch(h)
+        H, W = imgs01.shape[1:3]
+        bpps = []
+        for out, path in zip(outs, stream_paths, strict=True):
+            with Path(path).open("wb") as f:
+                write_body(f, out["shape"], out["strings"])
+            bpps.append(filesize(path) * 8.0 / (H * W))
+        return bpps
+
+    @torch.no_grad()
+    def apply_condition_decompress_batch(self, stream_paths):
+        """Stream files of one padded size -> (c_latent, guide_hint) of the
+        batch, NHWC; row i equals `apply_condition_decompress` of file i."""
+        outs = []
+        for path in stream_paths:
+            with Path(path).open("rb") as f:
+                strings, shape = read_body(f)
+            outs.append({"strings": strings, "shape": shape})
+        return self.codec().decompress_batch(outs)

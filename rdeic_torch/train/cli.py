@@ -29,7 +29,9 @@ The trainer settings of the repo's bf16 recipes, in train.py's order:
 fp32), `frozen_dtype` (the frozen tensors are stored in it) and
 `fast_init` (the model is built on `meta` and filled from `trainer.seed`
 by the JAX package's `fast_random_params` rule; a `resume` then overlays
-its weights).
+its weights). The model's `sync_path` (an SD 2.1 torch checkpoint) is
+converted into it, with `synch_control`, when the file exists and no
+`resume` is set, as train.py does.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from rdeic_torch.train.validation import run_validation
 from rdeic_torch.utils.backend import resolve_device
 from rdeic_torch.utils.convert import load_npz_weights
 from rdeic_torch.utils.fast_init import fast_random_init
+from rdeic_torch.utils.torch_convert import convert_state_dict, load_torch_checkpoint
 
 
 def _deep_update(dst: dict, src: dict) -> dict:
@@ -74,19 +77,30 @@ def torch_dtype(name: str) -> torch.dtype:
     return dtype
 
 
+def sync_base_weights(model, sync_path: str, synch_control: bool) -> None:
+    """Copy the tensors that the SD 2.1 checkpoint `sync_path` holds into
+    `model`, each into its parameter (its own dtype and device); with
+    `synch_control` the control module takes the base UNet's weights where
+    the checkpoint has none of its own."""
+    state, missing = convert_state_dict(load_torch_checkpoint(sync_path),
+                                        model, sync_control=synch_control)
+    with torch.no_grad():
+        model.load_state_dict(state, strict=False)
+    print(f"[synced base weights from {sync_path}; "
+          f"{len(missing)} keys stay random]")
+
+
 def build_model(cfg: dict, device: torch.device):
     """The model of `cfg["model"]`, its YAML deep-updated by the optional
     `overrides`, with the trainer's `compute_dtype`, its frozen tensors in
-    `frozen_dtype`, made by `fast_init` from `trainer.seed` when asked, and
-    the `.npz` weights of `resume` when it names one."""
+    `frozen_dtype`, made by `fast_init` from `trainer.seed` when asked, the
+    SD 2.1 weights of `sync_path` when that file exists and no `resume` is
+    set (train.py's rule), and the `.npz` weights of `resume` when it names
+    one."""
     tcfg = cfg.get("trainer", {})
     model_cfg = load_yaml(cfg["model"]["config"])
     _deep_update(model_cfg.setdefault("params", {}),
                  cfg["model"].get("overrides") or {})
-    if model_cfg["params"].get("sync_path"):
-        raise NotImplementedError(
-            "sync_path: converting an SD 2.1 torch checkpoint: ROADMAP "
-            "Queue 1, training settings")
     fast = bool(tcfg.get("fast_init"))
     model = instantiate_from_config(model_cfg,
                                     device="meta" if fast else device)
@@ -100,8 +114,12 @@ def build_model(cfg: dict, device: torch.device):
     if fast:
         fast_random_init(model, device, seed=int(tcfg.get("seed", 231)))
     resume = cfg["model"].get("resume")
+    sync_path = model_cfg["params"].get("sync_path")
+    if sync_path and Path(sync_path).exists() and not resume:
+        sync_base_weights(model, sync_path,
+                          bool(model_cfg["params"].get("synch_control")))
     if resume and str(resume).endswith(".npz"):
-        kept = load_npz_weights(model, resume)
+        kept = load_npz_weights(model, resume, with_clip=False)
         if kept:
             print(f"[warm start from {resume}; fresh subtrees kept: {kept}]")
     return model

@@ -58,16 +58,23 @@ def load_npz(path: str | Path) -> dict[str, np.ndarray]:
         return {k: data[k] for k in data.files}
 
 
-def load_npz_weights(model: torch.nn.Module, path: str | Path) -> list[str]:
-    """Load a `save_params_npz` file into the port's RDEIC, strictly. The
-    CLIP subtree is skipped (the port does not build CLIP), and so is the
-    LPIPS subtree unless the model has one (refine). A refine model loaded
-    from a file without LPIPS weights (an independent-phase export) keeps
-    its own, as the JAX package's warm start does; returns the top-level
-    names of such kept subtrees."""
+def load_npz_weights(model: torch.nn.Module, path: str | Path,
+                     with_clip: bool = True) -> list[str]:
+    """Load a `save_params_npz` file into the port's RDEIC, strictly. A file
+    with a `clip/` subtree attaches a CLIP text tower to the model
+    (`attach_clip`) and loads it; a file without one leaves the model as it
+    is. `with_clip=False` (a training warm start, whose template has no
+    CLIP, as the JAX package's) skips the subtree instead. The LPIPS
+    subtree is skipped unless the model has one (refine). A refine model
+    loaded from a file without LPIPS weights (an independent-phase export)
+    keeps its own, as the JAX package's warm start does; returns the
+    top-level names of such kept subtrees."""
     has_lpips = hasattr(model, "lpips")
-    skip = ("clip/",) if has_lpips else ("clip/", "lpips/")
-    flat = {k: v for k, v in load_npz(path).items() if not k.startswith(skip)}
+    flat = load_npz(path)
+    skip = (() if has_lpips else ("lpips/",)) + (() if with_clip else ("clip/",))
+    flat = {k: v for k, v in flat.items() if not k.startswith(skip)}
+    if any(k.startswith("clip/") for k in flat) and not hasattr(model, "clip"):
+        model.attach_clip()
     state = load_jax_params(flat)
     kept = []
     if has_lpips and not any(k.startswith("lpips/") for k in flat):

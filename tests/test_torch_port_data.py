@@ -20,6 +20,7 @@ from rdeic_torch.data.dataset import LICDataset, list_image_files
 from rdeic_torch.registry import instantiate_from_config
 from rdeic_torch.train import cli as torch_train_cli
 from rdeic_tpu.data import dataset as tpu_dataset
+from tests.torch_port_helpers import MICRO
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -164,6 +165,10 @@ BF16_RECIPE = {"compute_dtype": "bfloat16", "frozen_dtype": "bfloat16",
                "fast_init": True}
 
 
+class _PastBuildModel(Exception):
+    """Raised where the CLI, past `build_model`, builds the trainer."""
+
+
 @pytest.mark.parametrize("trainer,overrides,item", [
     ({"mesh": {"dp": 2}}, {}, "multi-device"),
     ({}, {"sync_path": "sd21.ckpt"}, "training settings"),
@@ -172,15 +177,33 @@ BF16_RECIPE = {"compute_dtype": "bfloat16", "frozen_dtype": "bfloat16",
     (BF16_RECIPE, {"sync_path": "sd21.ckpt"}, "training settings"),
     (BF16_RECIPE, {"parameterization": "v"}, "training settings"),
 ])
-def test_train_cli_refusals_name_the_item(tmp_path, trainer, overrides, item):
+def test_train_cli_refusals_name_the_item(tmp_path, monkeypatch, trainer,
+                                          overrides, item):
+    """`trainer.mesh` above one device is refused, naming its item. The
+    "training settings" are accepted now: with each (`sync_path` naming an
+    absent file, which train.py skips, or the `x0` / `v` loss) the CLI gets
+    past `build_model` to the trainer, with the setting in the model."""
     model = tmp_path / "model.yaml"
     model.write_text(yaml.safe_dump({
-        "target": "rdeic_tpu.pipeline.rdeic.RDEIC",
-        "params": {"control_stage_config": {"params": {"model_channels": 16}}}}))
+        "target": "rdeic_tpu.pipeline.rdeic.RDEIC", "params": MICRO}))
     config = tmp_path / "train.yaml"
     config.write_text(yaml.safe_dump({
         "model": {"config": str(model), "overrides": overrides},
         "trainer": trainer}))
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(f"ROADMAP Queue 1, {item}")):
-        torch_train_cli.main(["--config", str(config), "--device", "cpu"])
+    argv = ["--config", str(config), "--device", "cpu"]
+    if item != "training settings":
+        with pytest.raises(NotImplementedError,
+                           match=re.escape(f"ROADMAP Queue 1, {item}")):
+            torch_train_cli.main(argv)
+        return
+    built = []
+
+    def trainer_after_build(model, **_):
+        built.append(model)
+        raise _PastBuildModel
+
+    monkeypatch.setattr(torch_train_cli, "Trainer", trainer_after_build)
+    with pytest.raises(_PastBuildModel):
+        torch_train_cli.main(argv)
+    assert built[0].parameterization == overrides.get("parameterization", "eps")
+

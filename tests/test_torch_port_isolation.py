@@ -35,6 +35,8 @@ def test_no_jax_or_rdeic_tpu_import(path):
 
 def test_pipeline_import_pulls_no_jax_yaml_or_pil():
     code = ("import sys, rdeic_torch.pipeline.rdeic, rdeic_torch.inference, "
+            "rdeic_torch.inference_partition, rdeic_torch.models.clip, "
+            "rdeic_torch.utils.torch_convert, "
             "rdeic_torch.train, rdeic_torch.train.trainer, "
             "rdeic_torch.train.cli, rdeic_torch.data.dataset; "
             "bad = {'jax', 'flax', 'yaml', 'PIL', 'rdeic_tpu'} & set(sys.modules); "

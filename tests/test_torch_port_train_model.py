@@ -155,11 +155,17 @@ def test_checkpointed_denoiser_gives_the_same_gradients(loss_run, pair):
 
 @pytest.mark.parametrize("parameterization", ["x0", "v"])
 def test_unported_training_options_raise(parameterization):
-    """The x0 and v parameterizations wait for their ROADMAP item (the
-    sampler reads eps); `remat_policy: "dots"` is ported and builds."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchRDEIC(**copy.deepcopy(MICRO), parameterization=parameterization,
-                   device="cpu")
+    """The x0 and v parameterizations are ported (their losses against
+    JAX's: tests/test_torch_port_train_settings.py): each builds and its
+    loss runs, and what stays refused is a parameterization the JAX loss
+    does not know either; `remat_policy: "dots"` is ported and builds."""
+    tm = TorchRDEIC(**copy.deepcopy(MICRO), parameterization=parameterization,
+                    device="cpu")
+    loss, _ = tm.loss_fn(torch.zeros(1, 64, 64, 3), generator=torch.Generator())
+    assert tm.parameterization == parameterization and torch.isfinite(loss)
+    tm.parameterization = "score"
+    with pytest.raises(NotImplementedError, match="score"):
+        tm.loss_fn(torch.zeros(1, 64, 64, 3), generator=torch.Generator())
     cfg = copy.deepcopy(MICRO)
     cfg["control_stage_config"]["params"]["remat_policy"] = "dots"
     assert TorchRDEIC(**cfg, device="cpu").denoiser.remat_policy == "dots"

@@ -6,6 +6,7 @@ import copy
 
 import jax
 import numpy as np
+import pytest
 import torch
 from flax.traverse_util import flatten_dict
 
@@ -82,3 +83,15 @@ def n(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread_per_module():
+    """The module's tests and fixtures on one torch thread. Micro models are
+    many small ops; beside the other test workers' thread pools, each op's
+    pool fights theirs for the cores (a file of 20 s alone took minutes in
+    the suite). Import it into a test module to apply it there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

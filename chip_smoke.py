@@ -8,10 +8,11 @@ and g++; no network. Phases, each fatal on failure:
 1. environment: torch / CUDA versions and the card's name and power limit
    (nvidia-smi);
 2. build: nvcc (forward and backward flash kernels, GroupNorm forward and
-   backward) and g++ start together on the sources in the checkout; ptxas's
-   registers and spills of each CUDA kernel are logged by name, and a
-   flash kernel (all run on the tensor cores; any entry whose mangled name
-   holds `flash_`) or the GroupNorm backward that spills fails the run;
+   backward, the interleaved-lane rANS kernels of csrc/device_rans.cu) and
+   g++ start together on the sources in the checkout; ptxas's registers
+   and spills of each CUDA kernel are logged by name, and a flash kernel
+   (all run on the tensor cores; any entry whose mangled name holds
+   `flash_`) or the GroupNorm backward that spills fails the run;
 3. main path at the full width of configs/model/rdeic.yaml (random weights
    from --seed): the CLI's per-image `rdeic_torch.inference.process` codes a
    synthetic 768x512 image to a stream file, decodes it back, relay-samples
@@ -52,6 +53,43 @@ and g++; no network. Phases, each fatal on failure:
    micro-batch with the same noise and context; outputs finite and [B, H,
    W, 3]; launches as the chunks' structure says (`partition_launches`);
    ms an image, peak memory;
+3d. tiled serving through rdeic_torch.pipeline.tiled (the tiled CLI's
+   functions) on a synthetic TILED_HW (1356 x 2040: DIV2K's width; the
+   padding to 1408 x 2048 and the crop run) image in 512 tiles
+   overlapping by 64 (15 tiles): (a) `tiled_v2`, cross-tile context (the
+   default), fp32, tile batch 4 (a ragged last batch of 3); (b)
+   `tiled_v2_bf16`, the same on 3b's bf16 copy; (c) `tiled_v1`,
+   independent tiles, fp32, all 15 tiles in one sampling call, under
+   RDEIC_RANS_LANES=128 (each tile a lanes container the card decodes).
+   Each a warm-up, a counted run, then each stage again, timed (compress,
+   decompress, tile sampling, blend). Checks: the same stream every time;
+   the stream's codec groups equal the codec's on the encoder's features
+   (v2: the stitched map; v1: each tile's); the decoded latent tiles equal
+   the encoder's synthesis bit for bit; the image equals the blend of
+   `decode_pipeline` of each tile batch with the same noise, bit for bit,
+   and that blend the plain NumPy blend within 1e-6; [1, 1356, 2040, 3],
+   finite, in [0, 1]; launches as the grid's structure says
+   (`tiled_launches`); under (c), the first tile's passes decoded again,
+   each against the plain version and the host coder; ms an image and per
+   megapixel, peak memory, bpp;
+3e. the interleaved-lane codec on phase 3's 768x512 image through the
+   model's entry points, each route (LANE_ROUTES) under its RDEIC_RANS_*
+   settings with RDEIC_RANS_OVERHEAD_PCT=0 (so K holds) and the codec built
+   anew under them: v1 at K = 128, v2 at K = 128 (the card decodes), v2 at
+   K = 16 (below RDEIC_RANS_DEVICE_MIN_LANES: the host's
+   SharedRansDecoder, counted in the codec's `host_routes`), the device
+   encoder (RDEIC_RANS_DEVICE_ENC=1) and a batch of LANE_BATCH images
+   (`apply_condition_{compress,decompress}_batch`); a warm-up, then a
+   counted compress and decompress. Checks: the launch counts of each
+   route (the lane decoder a pass, the encoder once, none on the host
+   route, whose count must read 1); the device encoder's payload equals
+   the v1 route's (`rans_encode_interleaved`), without overflow; the
+   decoded latents equal the encoder's synthesis bit for bit; every pass of
+   the kernel (its inputs recorded) equals the plain version on the CPU and
+   the host coder reading the same stream; a stream with a flipped byte
+   decodes, pass by pass, to the plain version's symbols, without a fault;
+   the encoder's launch equals the plain version's words; decompress ms
+   and bpp per route beside phase 3's host route;
 4. reference on a small input: a 256x256 image through the same weights,
    once on the card (kernels) and once on the CPU (plain versions), from the
    same latents and noise: DDPM, DDIM and guidance 2.0 in fp32 (image
@@ -149,19 +187,34 @@ and g++; no network. Phases, each fatal on failure:
    at d = 512, one VAE encoder and two decoder mid-blocks) and its
    GroupNorm32 calls, every average finite; (c) the image logger at B = 2
    into a temporary directory, its three PNGs read back through zlib equal
-   to the panels byte for byte; (d) one 256x256 image through
+   to the panels byte for byte; (d) after phase 4 (before any training,
+   on the weights made from --seed), one 256x256 image through
    run_validation on the card and on a CPU copy, the same noise, 2 steps:
    avg_bpp, avg_psnr, avg_lpips and usage within VAL_REF_TOL, each beside
-   a planted x1.05 fault; (b) after phase 12, the bf16 refine model
+   a planted x1.05 fault; logged beside them, the codebook's smallest
+   top-2 logit gap and y - mu's smallest distance from a rounding edge,
+   the card-vs-CPU differences of those inputs, and how many codebook
+   indices and rounded symbols differ; (b) after phase 12, the bf16 refine model
    (`fixed_step` 2) as (a), every flash call bf16 and no GroupNorm call
    with both x and its scale and bias fp32.
 
 The last two lines of stdout are the kernel summary
-`{"kernels": [...]}` and `{"ok": true, "device": {...}}`. `ms`, `plain_ms`,
+`{"kernels": [...]}` and `{"ok": true, "device": {...}}`. Three of the
+kernels are the lane codec's (rans_decode_lanes, rans_decode_shared,
+rans_encode_lanes, route cuda, `csrc/device_rans.cu`), each with its
+path's image's calls (phase 3e: lanes_v1, lanes_v2, lanes_device_enc)
+replayed and timed, `plain_ms` of the plain version on the CPU (its only
+device), `bound_ms` from the bytes the calls move, `serial_chain_ms` (the
+calls' steps times the dependent loads or divisions of a step, each at the
+latency `rans_chain_probe` measures on the card: the chain no lane can
+shorten), `max_abs_err` the largest |kernel - plain| of phase 3e's check of
+those calls, and no library call (`library_ms` null). `ms`, `plain_ms`,
 `bound_ms` and `library_ms` of a kernel are summed over its calls in one
 run of the path its `path` names (serve: phase 3's DDPM run; serve_ddim,
 serve_cfg and serve_bf16 are phase 3b's; partition and partition_bf16
-phase 3c's, whose `calls` are per run of its five images; train, refine,
+phase 3c's, whose `calls` are per run of its five images; tiled_v2,
+tiled_v2_bf16 and tiled_v1 phase 3d's, per run of its image; the lanes_*
+routes phase 3e's; train, refine,
 train_bf16 and
 refine_bf16 phases 6, 8, 10 and 12; validate and validate_bf16 phase
 14a and 14b, whose `calls` are per validation batch): per image for the
@@ -180,9 +233,12 @@ each kernel's own `bound_ms` counts the S and dP it recomputes.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import gzip
 import json
 import math
+import os
 import re
 import subprocess
 import struct
@@ -197,13 +253,23 @@ import torch
 import torch.nn.functional as F
 
 from rdeic_torch import build
+from rdeic_torch.entropy import device_rans
+from rdeic_torch.entropy.coder import (
+    CdfTable,
+    RansDecoder,
+    SharedRansDecoder,
+    rans_encode_interleaved,
+    rans_encode_interleaved_shared,
+)
 from rdeic_torch.inference import process
 from rdeic_torch.inference_partition import make_chunks, serve
+from rdeic_torch.models import compression as compression_module
 from rdeic_torch.models.clip import OpenCLIPTextEncoder, SimpleTokenizer
 from rdeic_torch.models.blocks import Conv, GroupNorm32
 from rdeic_torch.models.lpips import LPIPS
 from rdeic_torch.models.unet import CrossAttention
 from rdeic_torch.models.vae import AttnBlock
+from rdeic_torch.ops import gaussian
 from rdeic_torch.ops.attention import FLASH_MIN_TOKENS
 from rdeic_torch.ops.flash_attention import (
     flash_attention,
@@ -221,6 +287,8 @@ from rdeic_torch.ops.fused_groupnorm import (
     group_norm_fwd,
     group_norm_plain,
 )
+from rdeic_torch.pipeline import tiled
+from rdeic_torch.pipeline.codec import parse_lane_header
 from rdeic_torch.pipeline.rdeic import RDEIC
 from rdeic_torch.train.trainer import (
     Trainer,
@@ -343,6 +411,49 @@ PARTITION_MERGES = ["t h", "th e</w>", "c a", "ca t</w>", "p h", "ph o",
 # over max |cpu| of the [B, 77, 1024] context; both sum in fp32 (no TF32)
 # through 23 blocks, in other orders. A x1.05 fault reads 5e-2.
 CLIP_REF_TOL = 1e-4
+# phase 3d, tiled serving through rdeic_torch.pipeline.tiled (the tiled
+# CLI's functions): a synthetic image of DIV2K's 2040-pixel width, 1356
+# high (neither a multiple of 64, so the padding to 2048 x 1408 and the
+# crop run), in the CLI's 512 tiles overlapping by 64: 3 x 5 = 15 tiles
+TILED_HW = (1356, 2040)
+TILE, OVERLAP = 512, 64
+# channel slices of the compression model: two coded passes each
+SLICES = MODEL_CONFIG["preprocess_config"]["params"]["slice_num"]
+# phase 3e, the interleaved-lane codec on phase 3's image: each route's
+# RDEIC_RANS_* settings (each run under RDEIC_RANS_OVERHEAD_PCT=0, so K
+# holds); the batch route codes LANE_BATCH images of that size
+LANE_ROUTES = {
+    "lanes_v1": {"RDEIC_RANS_LANES": "128", "RDEIC_RANS_SHARED": "0"},
+    "lanes_v2": {"RDEIC_RANS_LANES": "128"},
+    "lanes_v2_k16": {"RDEIC_RANS_LANES": "16"},
+    "lanes_device_enc": {"RDEIC_RANS_LANES": "128",
+                         "RDEIC_RANS_DEVICE_ENC": "1"},
+    "lanes_batch": {"RDEIC_RANS_LANES": "128"},
+}
+LANE_BATCH = 4
+LANE_CHAIN_STEPS = 4096  # one lane's pass that times a step of each kernel
+# the dependent links of one step of each lane kernel (see device_rans.cu):
+# v1 the LUT gather and the CDF gathers on its symbol (the word's address is
+# known as the step begins); v2 those and the word, whose place waits for
+# the block's count of pulling lanes; the encoder the slot code's division
+# (its lookups do not depend on the state). Escapes add links: left out, so
+# the chain stays a least time.
+CHAIN_LINKS = {"rans_decode_lanes": ("load", 2),
+               "rans_decode_shared": ("load", 3),
+               "rans_encode_lanes": ("divide", 1)}
+CHASE_INTS = 1 << 21  # the pointer chase's int32, the LUT's 8 MiB
+CHASE_LINKS = 1 << 16
+# the lane kernels' rows: name -> (wrapper, the JAX function's line, the
+# path whose counted run gives its launches)
+RANS_ROWS = {
+    "rans_decode_lanes": ("decode_pass", "rdeic_tpu/entropy/device_rans.py:114",
+                          "lanes_v1"),
+    "rans_decode_shared": ("decode_pass_shared",
+                           "rdeic_tpu/entropy/device_rans.py:226", "lanes_v2"),
+    "rans_encode_lanes": ("encode_lanes",
+                          "rdeic_tpu/entropy/device_rans.py:365",
+                          "lanes_device_enc"),
+}
 # phase 14, validation: configs/dataset/lic_valid.yaml's crop and batch
 # (tests/test_torch_port_validation.py holds them equal to the file), the
 # root train.py's metrics and sampler steps, and how many batches run
@@ -359,7 +470,14 @@ VAL_REF_STEPS = 2
 # (random weights, near 0) 1.1e-6 on an H100 at seed 0; bpp (1.3e-7) is a
 # sum of log-likelihoods of rounded symbols, where a symbol at a rounding
 # edge may flip (~1e-4). usage counts the same codebook indices: exact. A
-# x1.05 fault reads 5e-2.
+# x1.05 fault reads 5e-2. The phase runs on the weights made from --seed,
+# before any training: on the weights phases 6 and 8 train, which differ
+# from run to run (the card's avg_bpp read 0.59136 to 0.59240 in four runs
+# of seed 0 on an H100), one run read avg_bpp 1.42e-3 and the others ~1e-7.
+# On the seed's weights two processes of seed 0 read the same card values
+# bit for bit; y - mu's nearest rounding edge is 8.2e-6 away against a
+# card-vs-CPU difference of 5.6e-6, and the closest codes tie exactly in
+# fp32 on both (each takes the first): no choice differs.
 VAL_REF_TOL = {"avg_bpp": 1e-3, "avg_psnr": 1e-4, "avg_lpips": 1e-3,
                "usage": 0.0}
 # card vs CPU training reference: max |g_card - g_cpu| of each trainable
@@ -531,7 +649,7 @@ def phase_build():
     log(f"[build] nvcc + g++ in parallel: {time.perf_counter() - t0:.1f} s")
     spills = []
     for lib in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_fwd",
-                "group_norm_bwd"):
+                "group_norm_bwd", "device_rans"):
         kernel = mangled = "?"
         for line in build.build_log(libs[lib]).splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -549,6 +667,10 @@ def phase_build():
                                  if ints else "") + ">")
                 elif m:
                     kernel = m[1]
+                rans = re.search(r"\d(rans_(?:decode_lanes|decode_shared"
+                                 r"|encode_lanes))E", mangled)
+                if rans:
+                    kernel = rans[1]
             elif "registers" in line or "spill" in line:
                 log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
                 # every flash kernel and the GroupNorm backward, found in
@@ -583,6 +705,9 @@ KERNEL_FNS = {
     "flash_attn_bwd_dkv": flash_attention_dkv,
     "group_norm_silu_fwd": group_norm,
     "group_norm_silu_bwd": group_norm_bwd,
+    "rans_decode_lanes": device_rans.decode_pass,
+    "rans_decode_shared": device_rans.decode_pass_shared,
+    "rans_encode_lanes": device_rans.encode_lanes,
 }
 
 
@@ -966,6 +1091,494 @@ def phase_partition_clip(model, device, seed: int) -> None:
         phase_partition(model, device, seed, "partition_clip", context_fn)
     finally:
         del model.clip
+
+
+def check_launches(tag: str, launches: dict, want: dict) -> None:
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches}, expected {want}")
+
+
+@contextlib.contextmanager
+def rans_settings(model, settings: dict):
+    """The block runs under these RDEIC_RANS_* settings (none of the
+    process's own), with the model's codec built anew under them, as a
+    process started with them builds it; both are restored after."""
+    old = {k: os.environ.pop(k) for k in list(os.environ)
+           if k.startswith("RDEIC_RANS_")}
+    os.environ.update(settings)
+    model._codec = None
+    try:
+        yield model.codec()
+    finally:
+        for k in [k for k in os.environ if k.startswith("RDEIC_RANS_")]:
+            del os.environ[k]
+        os.environ.update(old)
+        model._codec = None
+
+
+def tiled_image(seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed + 17)
+    return rng.uniform(size=(1, *TILED_HW, 3)).astype(np.float32)
+
+
+def lane_containers(strings, v2: bool) -> list:
+    """The codec containers of a tiled stream's strings: the whole
+    image's (v2), or each tile's (v1)."""
+    if v2:
+        return [strings[1:]]
+    meta = strings[0][0]
+    n = int(np.prod(struct.unpack(tiled.META_FMT, meta)[4:]))
+    gs = (len(strings) - 1) // n
+    return [strings[1 + gs * i:1 + gs * (i + 1)] for i in range(n)]
+
+
+def rans_launches(containers, min_lanes: int = 32) -> dict:
+    """Decode launches of the lane kernels for these codec containers, each
+    decoded in calls of its own: a launch a pass (two a slice) for each
+    lanes container the card decodes (v1, or v2 at K >= min_lanes); none
+    for two-group containers or v2 below min_lanes (the host decodes
+    those)."""
+    want = {"rans_decode_lanes": 0, "rans_decode_shared": 0}
+    for c in containers:
+        if len(c) == 3:
+            ver, k, _ = parse_lane_header(c[2][0])
+            if ver == 1:
+                want["rans_decode_lanes"] += 2 * SLICES
+            elif k >= min_lanes:
+                want["rans_decode_shared"] += 2 * SLICES
+    return want
+
+
+def tiled_launches(model, v2: bool, n_tiles: int, tile_batch: int,
+                   containers) -> dict:
+    """Kernel launches of one tiled run from the grid's structure: the VAE
+    encoder's mid-block attention once a feature call (v2: a call per
+    FEATURE_BATCH tiles; v1: a call a tile; L = 4096 at a 512 tile); per
+    tile batch, 14 flash self-attentions per dual-UNet call (L = 4096 and
+    1024 at 64x64 latents) and the VAE decoder's mid-block, and one launch
+    per GroupNorm32 call; the lane kernels a pass of each container the
+    card decodes."""
+    n_gn = sum(isinstance(m, GroupNorm32) for m in model.denoiser.modules())
+    batches = len(tiled.tile_batches(n_tiles, tile_batch))
+    features = -(-n_tiles // tiled.FEATURE_BATCH) if v2 else n_tiles
+    want = dict.fromkeys(KERNEL_FNS, 0)
+    want.update({
+        "flash_attn_fwd": features + batches * (
+            FLASH_PER_DENOISER_CALL_512 * STEPS + 1),
+        "group_norm_silu_fwd": batches * n_gn * STEPS,
+        **rans_launches(containers)})
+    return want
+
+
+def numpy_blend(tiles: np.ndarray, ys, xs, tile, overlap, ph, pw, H, W):
+    """The plain NumPy blend (rdeic_tpu/pipeline/tiled.py `_blend_tiles`)."""
+    weight = tiled._blend_weight(tile, overlap)
+    acc = np.zeros((ph, pw, 3), np.float32)
+    wacc = np.zeros((ph, pw, 1), np.float32)
+    k = 0
+    for y0 in ys:
+        for x0 in xs:
+            acc[y0:y0 + tile, x0:x0 + tile] += tiles[k] * weight
+            wacc[y0:y0 + tile, x0:x0 + tile] += weight
+            k += 1
+    return (acc / np.maximum(wacc, 1e-8))[None, :H, :W]
+
+
+def encoder_tile_latents(model, img: np.ndarray, v2: bool, grid):
+    """What the encoder side synthesises for the tiles, with its streams:
+    v2, the codec on the stitched feature map, its latents cut into the
+    decode's latent tiles; v1, each tile's own codec call."""
+    codec = model.codec()
+    ys, xs, tile, overlap, ph, pw = grid
+    if v2:
+        h_full = tiled.stitched_feature(model, img, TILE, OVERLAP)[0]
+        out = codec.compress(h_full)
+        f = model.latent_factor
+        lt = tile // f
+        cl, gh = out["latents"]
+        cut = [(y0 // f, x0 // f) for y0 in ys for x0 in xs]
+        return ([out["strings"]],
+                torch.cat([cl[:, y:y + lt, x:x + lt] for y, x in cut]),
+                torch.cat([gh[:, y:y + lt, x:x + lt] for y, x in cut]))
+    padded = np.pad(img, ((0, 0), (0, ph - img.shape[1]),
+                          (0, pw - img.shape[2]), (0, 0)))
+    outs = [codec.compress(model.feature(torch.from_numpy(np.ascontiguousarray(
+        padded[:, y0:y0 + tile, x0:x0 + tile])).to(model.uncond_context.device)))
+        for y0 in ys for x0 in xs]
+    return ([o["strings"] for o in outs],
+            torch.cat([o["latents"][0] for o in outs]),
+            torch.cat([o["latents"][1] for o in outs]))
+
+
+def phase_tiled(model, device, seed: int, tag: str, v2: bool,
+                tile_batch: int, settings: dict) -> dict:
+    """Phase 3d: the tiled path through rdeic_torch.pipeline.tiled (the
+    CLI's functions) on a synthetic TILED_HW image: a warm-up, a counted
+    run, then each stage again, timed (compress, decompress, tile
+    sampling, blend). Checks in the module's docstring."""
+    img = tiled_image(seed)
+    H, W = TILED_HW
+    compress = tiled.tiled_compress_xctx if v2 else tiled.tiled_compress
+    with rans_settings(model, settings) as codec, \
+            tempfile.TemporaryDirectory() as tmp:
+        paths = [Path(tmp) / f"{k}.rdeic" for k in ("warm", "counted",
+                                                    "staged")]
+
+        def run(path):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            bpp = compress(model, img, path, tile=TILE, overlap=OVERLAP)
+            return tiled.tiled_decompress_decode(
+                model, path, steps=STEPS, tile_batch=tile_batch,
+                generator=gen), bpp
+
+        (warm, _), warm_ms = host_ms(lambda: run(paths[0]))
+        reset_counters()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (out, bpp), ms = host_ms(lambda: run(paths[1]))
+        peak = torch.cuda.max_memory_allocated()
+        launches, shapes = read_counters()
+        # staged, with a generator seeded alike
+        gen = torch.Generator(device=device).manual_seed(seed)
+        _, t_enc = host_ms(lambda: compress(model, img, paths[2], tile=TILE,
+                                            overlap=OVERLAP))
+        strings, zshape = tiled.read_tiled(paths[2])
+        lat, t_dec = host_ms(lambda: tiled.decode_tile_latents(
+            model, strings, zshape))
+        cl, gh, ys, xs, tile, overlap, ph, pw, _, _ = lat
+        n_tiles = cl.shape[0]
+        tiles, t_samp = host_ms(lambda: torch.cat([
+            model.decode_pipeline(cl[a:b], gh[a:b], STEPS, generator=gen)
+            for a, b in tiled.tile_batches(n_tiles, tile_batch)]))
+        # the served route's tiles, from a generator seeded alike
+        served = tiled._batched_tile_decode(
+            model, cl, gh, STEPS, "ddpm", tile_batch, None,
+            torch.Generator(device=device).manual_seed(seed))
+        blend, t_blend = host_ms(lambda: tiled._blend_tiles(
+            tiles, ys, xs, tile, overlap, ph, pw, H, W))
+        streams = [p.read_bytes() for p in paths]
+        containers = lane_containers(strings, v2)
+        enc_strings, enc_cl, enc_gh = encoder_tile_latents(
+            model, img, v2, (ys, xs, tile, overlap, ph, pw))
+        # the first tile the card decodes: its passes again, each against
+        # the plain version and the host coder
+        passes = {}
+        for c in containers:
+            ver, k, _ = (parse_lane_header(c[2][0]) if len(c) == 3
+                         else (0, 0, None))
+            if ver == 1 or (ver == 2 and k >= codec.device_min_lanes):
+                one = [{"strings": c, "shape": zshape}]
+                name = "decode_pass" if ver == 1 else "decode_pass_shared"
+                with _PassSpy(name) as spy:
+                    codec.decompress_batch(one)
+                passes = check_passes(f"{tag}, a tile", spy, one, codec.table,
+                                      host=True)
+                break
+    stage_ms = {"compress": t_enc, "decompress": t_dec,
+                "tile_sampling": t_samp, "blend": t_blend}
+    want = tiled_launches(model, v2, n_tiles, tile_batch, containers)
+    mpx = H * W / 1e6
+    dtype = str(compute_dtype(model)).removeprefix("torch.")
+    lanes = sorted({parse_lane_header(c[2][0])[:2] for c in containers
+                    if len(c) == 3})
+    log(f"[{tag}] {'v2 cross-tile' if v2 else 'v1 independent tiles'}, "
+        f"{dtype}, {W}x{H} image, tile {TILE}, overlap {OVERLAP}, "
+        f"{n_tiles} tiles, tile_batch {tile_batch}, settings "
+        f"{json.dumps(settings)}, lanes containers (version, K) {lanes}: "
+        f"warm-up {warm_ms:.1f} ms; counted run {ms:.1f} ms an image, "
+        f"{ms / mpx:.1f} ms per megapixel; bpp={bpp:.5f} ({len(streams[1])} "
+        f"bytes); staged ms {json.dumps(stage_ms)}; peak memory "
+        f"{peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} above the "
+        f"{resident / 2**30:.3f} GiB resident)")
+    log(f"[{tag}] launches {json.dumps(launches)}; from the grid "
+        f"{json.dumps(want)}")
+    if any(b != streams[0] for b in streams):
+        raise AssertionError(f"[{tag}] the image coded to different streams")
+    if [list(c) for c in containers] != [list(c) for c in enc_strings]:
+        raise AssertionError(f"[{tag}] the stream's codec groups differ from "
+                             "the codec's on the encoder's features")
+    if not (torch.equal(cl, enc_cl) and torch.equal(gh, enc_gh)):
+        raise AssertionError(f"[{tag}] decoded latents differ from the "
+                             "encoder's synthesis")
+    if tuple(out.shape) != (1, H, W, 3) or not torch.isfinite(out).all() \
+            or out.min() < 0 or out.max() > 1:
+        raise AssertionError(f"[{tag}] bad output {tuple(out.shape)}")
+    if not torch.equal(served, tiles):
+        raise AssertionError(f"[{tag}] a served tile differs from "
+                             "decode_pipeline of its tile batch")
+    if not (torch.equal(out, warm) and torch.equal(out, blend)):
+        raise AssertionError(f"[{tag}] the served image differs from the "
+                             "warm-up's or from the staged tiles' blend")
+    want_blend = numpy_blend(tiles.float().cpu().numpy(), ys, xs, tile,
+                             overlap, ph, pw, H, W)
+    blend_err = float(np.abs(blend.cpu().numpy() - want_blend).max())
+    if blend_err > 1e-6:
+        raise AssertionError(f"[{tag}] blend vs NumPy {blend_err:.3g}")
+    check_launches(tag, launches, want)
+    if settings and not (want["rans_decode_lanes"]
+                         or want["rans_decode_shared"]):
+        raise AssertionError(f"[{tag}] no lanes container the card decodes "
+                             f"under {settings}: {lanes}")
+    if settings and not passes:
+        raise AssertionError(f"[{tag}] no tile's passes were checked")
+    log(f"[{tag}] streams equal across runs and to the codec's on the "
+        f"encoder's features; latents the encoder's synthesis, each tile "
+        f"decode_pipeline's of its tile batch and the image their blend, bit "
+        f"for bit; blend vs NumPy {blend_err:.3g}"
+        + (f"; a tile's {passes['passes']} kernel passes ({passes['symbols']}"
+           f" symbols) equal the plain version's and the host coder's"
+           if passes else ""))
+    return {"ms": ms, "ms_per_mpx": ms / mpx, "bpp": bpp, "stage_ms": stage_ms,
+            "launches": launches, "shapes": shapes, "peak_bytes": peak,
+            "resident_bytes": resident, "n_tiles": n_tiles}
+
+
+class _PassSpy:
+    """Records every call of a device_rans decode function (its inputs on
+    the card, its outputs) while installed in the module's place."""
+
+    def __init__(self, name: str):
+        self.name, self.real, self.calls = name, getattr(device_rans, name), []
+
+    def __call__(self, *args):
+        out = self.real(*args)
+        self.calls.append((args, out))
+        return out
+
+    def __enter__(self):
+        setattr(device_rans, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(device_rans, self.name, self.real)
+
+
+def check_passes(tag: str, spy: _PassSpy, outs: list, table,
+                 host: bool) -> dict:
+    """Each recorded pass of the kernel against the plain version on the
+    same inputs (on the CPU), and, when `host`, against the host coder
+    reading each image's stream: symbols, state and cursor equal."""
+    cpu_tabs = device_rans.DeviceRansTables(table)
+    plain = {"decode_pass": device_rans.decode_pass_plain,
+             "decode_pass_shared": device_rans.decode_pass_shared_plain}[
+                 spy.name]
+    t_plain = 0.0
+    coders = []
+    if host:
+        for o in outs:
+            ver, k, nbytes = parse_lane_header(o["strings"][2][0])
+            data = o["strings"][0][0]
+            if ver == 2:
+                coders.append(SharedRansDecoder(data, k))
+            else:
+                offs = np.concatenate([[0], np.cumsum(nbytes)])
+                lanes = []
+                for i in range(k):
+                    d = RansDecoder()
+                    d.set_stream(data[offs[i]:offs[i + 1]])
+                    lanes.append(d)
+                coders.append(lanes)
+    n_sym, err = 0, 0
+    for args, (sym, (state, ptr)) in spy.calls:
+        _, *rest, n = args
+        t0 = time.perf_counter()
+        want_sym, (want_state, want_ptr) = plain(
+            cpu_tabs, *(a.cpu() for a in rest), n)
+        t_plain += time.perf_counter() - t0
+        err = max([err] + [int((a.cpu().long() - b.long()).abs().max())
+                           for a, b in ((sym, want_sym), (state, want_state),
+                                        (ptr, want_ptr))])
+        if err:
+            raise AssertionError(f"[{tag}] {spy.name}: the kernel differs from "
+                                 f"the plain version by up to {err}")
+        idx = rest[-1].cpu().numpy()
+        for b, coder in enumerate(coders):
+            ix = idx[b, :n]
+            if isinstance(coder, list):
+                k = len(coder)
+                host_sym = np.zeros(n, np.int32)
+                for lane in range(min(k, n)):
+                    host_sym[lane::k] = coder[lane].decode_stream(
+                        ix[lane::k], table)
+            else:
+                host_sym = coder.decode_pass(ix, table)
+            if not np.array_equal(sym[b, :n].cpu().numpy(), host_sym):
+                raise AssertionError(f"[{tag}] {spy.name}: the kernel differs "
+                                     "from the host coder")
+        n_sym += n * sym.shape[0]
+    for coder in coders:
+        for d in (coder if isinstance(coder, list) else [coder]):
+            d.close()
+    return {"passes": len(spy.calls), "symbols": n_sym,
+            "plain_ms": t_plain * 1e3, "max_abs_err": err}
+
+
+def check_encode(tag: str, spy: _PassSpy, table) -> dict:
+    """The recorded encode launch against the plain version on the same
+    inputs (on the CPU): words, counts and the overflow flag equal."""
+    (args, got), = spy.calls
+    tabs, *steps, wcap = args
+    t0 = time.perf_counter()
+    want = device_rans.encode_lanes_plain(
+        device_rans.DeviceRansTables(table), *(s.cpu() for s in steps), wcap)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((a.cpu().long() - b.long()).abs().max())
+              for a, b in zip(got, want))
+    if err:
+        raise AssertionError(f"[{tag}] encode_lanes: the kernel differs from "
+                             f"the plain version by up to {err}")
+    # the planted fault reads: one symbol changed changes the words
+    bad = steps[0].clone()
+    bad[0, 0, 0] += 1
+    if torch.equal(device_rans.encode_lanes(tabs, bad, *steps[1:], wcap)[0],
+                   got[0]):
+        raise AssertionError(f"[{tag}] encode_lanes: a changed symbol left "
+                             "the words as they were")
+    return {"steps": int(steps[0].shape[0]), "plain_ms": plain_ms,
+            "max_abs_err": err}
+
+
+def lane_images(seed: int) -> np.ndarray:
+    """Phase 3's image first, then LANE_BATCH - 1 more at its size."""
+    first = np.random.default_rng(seed).uniform(size=(1, *IMAGE_HW, 3))
+    rest = np.random.default_rng(seed + 23).uniform(
+        size=(LANE_BATCH - 1, *IMAGE_HW, 3))
+    return np.concatenate([first, rest]).astype(np.float32)
+
+
+def phase_lanes(model, device, seed: int, base: dict) -> dict:
+    """Phase 3e: the lane codec's routes (LANE_ROUTES, each under
+    RDEIC_RANS_OVERHEAD_PCT=0 so K holds) through the model's entry points
+    on phase 3's 768x512 image (the batch route on LANE_BATCH images),
+    each a warm-up then a counted compress + decompress; then the passes
+    again under a spy, each against the plain version and the host coder,
+    and a corrupt stream. Returns {route: run}."""
+    imgs = torch.from_numpy(lane_images(seed)).to(device)
+    h, w = IMAGE_HW
+    with torch.no_grad():
+        feats = [model.feature(imgs[i:i + 1]) for i in range(LANE_BATCH)]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, settings in LANE_ROUTES.items():
+            batch = tag == "lanes_batch"
+            n = LANE_BATCH if batch else 1
+            paths = [Path(tmp) / f"{tag}_{i}.rdeic" for i in range(n)]
+            with rans_settings(model, {**settings,
+                                       "RDEIC_RANS_OVERHEAD_PCT": "0"}) as codec:
+                def run():
+                    if batch:
+                        bpps = model.apply_condition_compress_batch(imgs, paths)
+                        return bpps, model.apply_condition_decompress_batch(
+                            paths)
+                    bpp = model.apply_condition_compress(imgs[:1], paths[0],
+                                                         h, w)
+                    return [bpp], model.apply_condition_decompress(paths[0])
+
+                run()
+                warm = [p.read_bytes() for p in paths]
+                reset_counters()
+                routes0 = dict(codec.host_routes)
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bpps = (model.apply_condition_compress_batch(imgs, paths)
+                        if batch else [model.apply_condition_compress(
+                            imgs[:1], paths[0], h, w)])
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                latents = (model.apply_condition_decompress_batch(paths)
+                           if batch else
+                           model.apply_condition_decompress(paths[0]))
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                peak = torch.cuda.max_memory_allocated()
+                launches, shapes = read_counters()
+                host_routes = {k: v - routes0[k]
+                               for k, v in codec.host_routes.items()}
+                streams = [p.read_bytes() for p in paths]
+                outs = [dict(zip(("strings", "shape"), tiled.read_tiled(p)))
+                        for p in paths]
+                # the passes again, each against the plain version and the
+                # host coder; then a corrupt stream
+                checks = {}
+                ver, k, _ = parse_lane_header(outs[0]["strings"][2][0])
+                card = ver == 1 or k >= codec.device_min_lanes
+                if card:
+                    name = "decode_pass" if ver == 1 else "decode_pass_shared"
+                    with _PassSpy(name) as spy:
+                        codec.decompress_batch(outs)
+                    checks = check_passes(tag, spy, outs, codec.table,
+                                          host=True)
+                    checks["calls"] = spy.calls
+                    bad = [dict(o) for o in outs]
+                    data = bytearray(bad[0]["strings"][0][0])
+                    data[len(data) // 2] ^= 0x5A
+                    bad[0]["strings"] = [[bytes(data)]] + bad[0]["strings"][1:]
+                    with _PassSpy(name) as bad_spy:
+                        codec.decompress_batch(bad)
+                        torch.cuda.synchronize()
+                    check_passes(tag + ", a corrupt stream", bad_spy, bad,
+                                 codec.table, host=False)
+                    # the planted fault reads: the flipped byte changes the
+                    # kernel's symbols
+                    if all(torch.equal(a[1][0], b[1][0])
+                           for a, b in zip(spy.calls, bad_spy.calls)):
+                        raise AssertionError(f"[{tag}] a flipped byte left "
+                                             "every pass's symbols as they "
+                                             "were")
+                if codec.device_enc:
+                    with _PassSpy("encode_lanes") as spy:
+                        codec.compress(feats[0])
+                    checks["encode"] = check_encode(tag, spy, codec.table)
+                    checks["encode_calls"] = spy.calls
+                enc = [codec.compress(f)["latents"] for f in feats[:n]]
+                overflow = codec.host_routes["encode_after_overflow"]
+            want_latents = (torch.cat([e[0] for e in enc]),
+                            torch.cat([e[1] for e in enc]))
+            if not all(torch.equal(a, b) for a, b in zip(latents, want_latents)):
+                raise AssertionError(f"[{tag}] decoded latents differ from the "
+                                     "encoder's synthesis")
+            if streams != warm:
+                raise AssertionError(f"[{tag}] two runs, two streams")
+            # the VAE encoder's mid-block attention: one flash launch
+            want = dict.fromkeys(KERNEL_FNS, 0)
+            want["flash_attn_fwd"] = 1
+            # the batch decodes in one launch a pass
+            want.update(rans_launches([outs[0]["strings"]]))
+            if "RDEIC_RANS_DEVICE_ENC" in settings:
+                want["rans_encode_lanes"] = 1
+            check_launches(tag, launches, want)
+            if tag == "lanes_v2_k16" and host_routes["shared_decode"] != 1:
+                raise AssertionError(f"[{tag}] the host route did not run: "
+                                     f"{host_routes}")
+            if overflow:
+                raise AssertionError(f"[{tag}] the device encoder overflowed")
+            runs[tag] = {"bpp": float(np.mean(bpps)), "compress_ms": (t1 - t0) * 1e3,
+                         "decompress_ms": (t2 - t1) * 1e3, "launches": launches,
+                         "shapes": shapes, "host_routes": host_routes,
+                         "peak_bytes": peak, "resident_bytes": resident,
+                         "streams": streams, "version_k": (ver, k),
+                         "checks": checks}
+            log(f"[lanes] {tag} (settings {json.dumps(settings)}, overhead 0%,"
+                f" {n} image{'s' if n > 1 else ''}): v{ver}, K = {k}, "
+                f"{'card' if card else 'host'} decode; bpp "
+                f"{np.mean(bpps):.5f}; compress {(t1 - t0) * 1e3:.1f} ms, "
+                f"decompress {(t2 - t1) * 1e3:.1f} ms (phase 3's host route: "
+                f"{base['stage_ms']['decompress']:.1f} ms with the file read); "
+                f"launches {json.dumps({k_: v for k_, v in launches.items() if v})}"
+                f"; host routes {json.dumps(host_routes)}; kernel vs plain "
+                f"and host coder: "
+                f"{json.dumps({k_: v for k_, v in checks.items() if k_ in ('passes', 'symbols', 'plain_ms')})}")
+    if runs["lanes_device_enc"]["streams"] != runs["lanes_v1"]["streams"]:
+        raise AssertionError("[lanes] the device encoder's stream differs from "
+                             "rans_encode_interleaved's (the v1 route)")
+    log("[lanes] every route decodes to the encoder's synthesis bit for bit; "
+        "the device encoder's payload equals rans_encode_interleaved's, no "
+        "overflow; every kernel pass equals the plain version and the host "
+        "coder, a corrupt stream the plain version's; a flipped byte changes "
+        "the kernels' symbols, a changed symbol the encoder's words")
+    return runs
 
 
 def make_refine_model(model, seed: int) -> RDEIC:
@@ -1391,7 +2004,8 @@ def phase_training(model, device, seed: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     launches, shapes = read_counters()
     per_step = train_launches_per_step(model)
-    want = {k: v * steps for k, v in per_step.items()}
+    want = {**dict.fromkeys(KERNEL_FNS, 0),
+            **{k: v * steps for k, v in per_step.items()}}
     ms = float(np.mean(step_ms))
     log(f"[{tag}] warm-up micro-step {warm_ms:.1f} ms; micro-steps (B = "
         f"{cfg['batch_size']}, {hw}x{hw}) {json.dumps(step_ms)} ms, "
@@ -1617,7 +2231,12 @@ def phase_validate_reference(model, device, seed: int) -> None:
     """Phase 14d: one 256x256 image through `run_validation` on the card
     and on a CPU copy of the model, with the same sampler noise, VAL_REF_STEPS
     steps and the same LPIPS weights; each average within VAL_REF_TOL of
-    the CPU's, and a x1.05 fault of the card's outside it."""
+    the CPU's, and a x1.05 fault of the card's outside it. It runs before
+    the training phases, on the weights made from --seed, so every run of a
+    seed compares the same model. Logged beside it: the margins that decide
+    the compression model's discrete choices (the codebook's top-2 logit gap,
+    the distance of y - mu from a rounding edge), the card-vs-CPU difference
+    of their inputs, and how many choices differ."""
     batch = val_images(seed + 5, 1, VAL_REF_HW, 1, "cpu")
     rng = np.random.default_rng(seed + 6)
     side = VAL_REF_HW // model.latent_factor
@@ -1627,15 +2246,50 @@ def phase_validate_reference(model, device, seed: int) -> None:
     with torch.device("meta"):
         lpips = LPIPS("alex")
     lpips_sd = fast_random_init(lpips, "cpu", seed=seed).state_dict()
-    out = {}
-    for where, m, dev in (("card", model, device),
-                          ("cpu", cpu_copy(model), torch.device("cpu"))):
-        out[where] = run_validation(
-            m, [{"jpg": batch[0]["jpg"].to(dev)}], sample_steps=VAL_REF_STEPS,
-            metric_names=VAL_METRICS,
-            noise=[{"relay_noise": noise[0].to(dev),
-                    "step_noise": [x.to(dev) for x in noise[1:]]}],
-            suite=MetricSuite({k: v.to(dev) for k, v in lpips_sd.items()}))
+    out, seen = {}, {}
+    real_round = compression_module.ste_round
+    for where, m in (("card", model), ("cpu", cpu_copy(model))):
+        dev = next(m.parameters()).device
+        seen[where] = {"logits": [], "round": []}
+
+        def record(name, x, rec=seen[where]):
+            rec[name].append(x.detach().float().cpu())
+
+        def rounding(x, rec=record):
+            rec("round", x)
+            return real_round(x)
+
+        hook = _MethodHook(m.compression.quantize, "logits", "logits", record)
+        compression_module.ste_round = rounding
+        try:
+            out[where] = run_validation(
+                m, [{"jpg": batch[0]["jpg"].to(dev)}],
+                sample_steps=VAL_REF_STEPS, metric_names=VAL_METRICS,
+                noise=[{"relay_noise": noise[0].to(dev),
+                        "step_noise": [x.to(dev) for x in noise[1:]]}],
+                suite=MetricSuite({k: v.to(dev) for k, v in lpips_sd.items()}))
+        finally:
+            compression_module.ste_round = real_round
+            hook.remove()
+    logits = [torch.cat([x.flatten(0, -2) for x in seen[w]["logits"]])
+              for w in ("card", "cpu")]
+    top2 = logits[0].topk(2, dim=1).values
+    rounds = [torch.cat([x.flatten() for x in seen[w]["round"]])
+              for w in ("card", "cpu")]
+    margins = {
+        "codebook_top2_gap_min": (top2[:, 0] - top2[:, 1]).min().item(),
+        "codebook_logits_card_vs_cpu": (logits[0] - logits[1]).abs().max().item(),
+        "codebook_indices_differ": int((logits[0].argmax(1)
+                                        != logits[1].argmax(1)).sum()),
+        "codebook_rows": logits[0].shape[0],
+        "rounding_edge_distance_min": (
+            0.5 - (rounds[0] - torch.round(rounds[0])).abs()).min().item(),
+        "rounding_inputs_card_vs_cpu": (rounds[0] - rounds[1]).abs().max().item(),
+        "rounded_symbols_differ": int((torch.round(rounds[0])
+                                       != torch.round(rounds[1])).sum()),
+        "rounded_symbols": rounds[0].numel()}
+    log(f"[validate] (d) the compression model's discrete choices, card vs "
+        f"CPU: {json.dumps(margins)}")
     reads = {}
     for key, tol in VAL_REF_TOL.items():
         card, cpu = out["card"][key], out["cpu"][key]
@@ -2020,7 +2674,9 @@ def phase_kernels(device, runs) -> list:
     # chunks) for batched serving
     fwd_paths = {p: "image" if p.startswith("serve") else
                  f"run of {len(PARTITION_SIZES)} images"
-                 for p in runs if p.startswith(("serve", "partition"))}
+                 if p.startswith("partition") else
+                 f"{TILED_HW[1]}x{TILED_HW[0]} image"
+                 for p in runs if p.startswith(("serve", "partition", "tiled"))}
     flash_keys = keys("flash_attn_fwd")
     flash_rows = []
     # each shape once in each dtype; a row for fp32 (every serving shape)
@@ -2240,7 +2896,164 @@ def phase_kernels(device, runs) -> list:
                 f"fault {r['fault_err']:.3g}")
     log(f"[kernels] SDPA's backend at the VAE's d = 512 in fp32: "
         f"{sdpa_backend((2, 4096, 1, 512), device)}")
+    for r in flash_rows + gn_rows:
+        calls = {p: c for p, c in r["calls"].items() if p.startswith("tiled")}
+        if calls:
+            log(f"[kernels] tiled serving row {r['shape']}: calls a run "
+                f"{json.dumps(calls)}; ms {r['ms']:.4f}, device_ms "
+                f"{r['device_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}), library ms {r['library_ms']:.4f} "
+                f"(device {r['library_device_ms']:.4f}), plain ms "
+                f"{r['plain_ms']:.4f}; fault {r['fault_err']:.3g}")
+    return lines + rans_kernel_lines(device, runs)
+
+
+def lane_step_ms(device, table, tabs) -> dict:
+    """The serial chain of one lane alone: a pass of LANE_CHAIN_STEPS
+    symbols at K = 1 through each lane kernel; ms a step."""
+    rng = np.random.default_rng(0)
+    n = LANE_CHAIN_STEPS
+    idx = rng.integers(0, table.ncdfs, n).astype(np.int32)
+    sym = (table.offset[idx] + rng.integers(0, 1 << 30, n)
+           % np.maximum(table.length[idx] - 2, 1)).astype(np.int32)
+    idx_t = torch.from_numpy(idx)[None].to(device)
+    w1, n1 = device_rans.lanes_from_bytes(
+        *rans_encode_interleaved(sym, idx, [n], 1, table))
+    w1 = torch.from_numpy(w1.astype(np.int32))[None].to(device)
+    n1 = torch.from_numpy(n1)[None].to(device)
+    s1 = device_rans.init_lane_state(w1, n1)
+    w2, n2 = device_rans.shared_words_from_bytes(
+        rans_encode_interleaved_shared(sym, idx, [n], 1, table))
+    w2 = torch.from_numpy(w2.astype(np.int32))[None].to(device)
+    n2 = torch.tensor([n2], dtype=torch.int32, device=device)
+    s2 = device_rans.init_shared_state(w2, n2, 1)
+    steps = device_rans.build_pass_steps([torch.from_numpy(sym)[None]],
+                                         [torch.from_numpy(idx)[None]], 1)
+    steps = [t.to(device) for t in steps]
+    fns = {"rans_decode_lanes": lambda: device_rans.decode_pass(
+               tabs, w1, n1, *s1, idx_t, n),
+           "rans_decode_shared": lambda: device_rans.decode_pass_shared(
+               tabs, w2, n2, *s2, idx_t, n),
+           "rans_encode_lanes": lambda: device_rans.encode_lanes(
+               tabs, *steps, 2 * n + 64)}
+    return {k: cuda_ms(fn, reps=3) / n for k, fn in fns.items()}
+
+
+def chain_latency_ns(device) -> dict:
+    """ns of one link of each dependent chain the lane kernels walk, on the
+    card, by `rans_chain_probe` (one thread): "load", a gather at the index
+    the last one read, over a single random cycle through CHASE_INTS int32
+    (the LUT's 8 MiB: L1 misses, L2 hits once swept); "divide", the
+    encoder's slot-code update on the last one's state. Each is the time of
+    2n links less that of n, over n."""
+    lib = ctypes.CDLL(str(build.build_device_rans()))
+    fn = lib.rdeic_rans_chain_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+                   ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+    order = np.random.default_rng(0).permutation(CHASE_INTS)
+    nxt = np.empty(CHASE_INTS, np.int32)
+    nxt[order] = np.roll(order, -1)
+    nxt = torch.from_numpy(nxt).to(device)
+    sink = torch.zeros(1, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    nxt.sum().item()  # the sweep that brings the chain into L2
+    out = {}
+    for mode, name in enumerate(("load", "divide")):
+        def run(n, mode=mode):
+            err = fn(nxt.data_ptr(), n, mode, 40503, 7, sink.data_ptr(),
+                     stream)
+            if err:
+                raise RuntimeError(f"rans_chain_probe: error {err}")
+
+        ms = {n: cuda_ms(lambda n=n: run(n), reps=3)
+              for n in (CHASE_LINKS, 2 * CHASE_LINKS)}
+        out[name] = (ms[2 * CHASE_LINKS] - ms[CHASE_LINKS]) / CHASE_LINKS * 1e6
+    return out
+
+
+def rans_kernel_lines(device, runs) -> list:
+    """The lane kernels' JSON lines: each replays the calls of its path's
+    image (phase 3e, recorded), timed back to back (`ms`) and behind a
+    sleep (`device_ms`); `plain_ms` is the plain version on the CPU (its
+    only device) over the same calls; `bound_ms` the bytes the calls must
+    move (indexes and symbols or steps, the words read or written, the
+    state) at 3.35 TB/s; `serial_chain_ms` the chain a lane cannot shorten:
+    the calls' steps times the dependent links of a step (CHAIN_LINKS) at
+    the card's latency of each (`chain_latency_ns`). `one_lane_step_ms`, the
+    kernel's own step at K = 1 (`lane_step_ms`), is a diagnostic only. No
+    library call computes this function (`library_ms` null)."""
+    table = CdfTable(*gaussian.build_cdf_tables(gaussian.get_scale_table()))
+    tabs = device_rans.DeviceRansTables(table, device)
+    step = lane_step_ms(device, table, tabs)
+    latency = chain_latency_ns(device)
+    log(f"[kernels] the card's dependent-chain latencies (rans_chain_probe, "
+        f"one thread): {json.dumps(latency)} ns a link")
+    lines = []
+    for name, (fn_name, replaces, path) in RANS_ROWS.items():
+        run = runs[path]
+        encode = fn_name == "encode_lanes"
+        calls = run["checks"]["encode_calls" if encode else "calls"]
+        real = getattr(device_rans, fn_name)
+
+        def replay(calls=calls, real=real):
+            for args, _ in calls:
+                real(*args)
+
+        ms = cuda_ms(replay, reps=5)
+        dev, host = device_ms(replay, reps=5)
+        nbytes, t_total, shapes = 0, 0, {}
+        for args, out in calls:
+            if encode:
+                _, sym_steps, _, _, _ = args
+                t, b, k = sym_steps.shape
+                nbytes += 9 * sym_steps.numel() + 8 * out[1].numel() \
+                    + 4 * int(out[1].sum())
+            else:
+                _, _, _, state, ptr, idx, _ = args
+                b, k = state.shape
+                t = idx.shape[1] // k
+                read = int((out[1][1].long() - ptr.long()).sum())
+                nbytes += 8 * idx.numel() + 4 * read + 24 * state.numel()
+            t_total += t
+            shapes[f"{b}x{k}x{t}"] = shapes.get(f"{b}x{k}x{t}", 0) + 1
+        check = run["checks"]["encode"] if encode else run["checks"]
+        plain = check["plain_ms"]
+        link, links = CHAIN_LINKS[name]
+        chain = t_total * links * latency[link] * 1e-6
+        row = {"name": name, "route": "cuda",
+               "source": "rdeic_torch/csrc/device_rans.cu",
+               "replaces": replaces, "path": path,
+               "launches": run["launches"][name],
+               "launches_by_path": {p: r["launches"][name]
+                                    for p, r in runs.items()},
+               "max_abs_err": check["max_abs_err"], "ms": ms, "device_ms": dev,
+               "host_ms": host * len(calls), "plain_ms": plain,
+               "plain_device": "cpu",
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "library_ms": None, "serial_chain_ms": chain,
+               "chain_links_a_step": links, "chain_link_ns": latency[link],
+               "one_lane_step_ms": step[name], "steps": t_total,
+               "calls_by_shape_bxkxt": shapes}
+        log(f"[kernels] {name} ({path}, {len(calls)} calls an image): ms "
+            f"{ms:.4f}, device_ms {dev:.4f}; bound {row['bound_ms']:.5f} "
+            f"(bytes), serial chain {chain:.4f} ({t_total} steps x {links} "
+            f"dependent {link} link(s) at {latency[link]:.1f} ns; the kernel "
+            f"at K = 1 takes {step[name] * 1e3:.3f} us a step); plain "
+            f"version on the CPU {plain:.1f} ms; no library call")
+        lines.append(row)
     return lines
+
+
+class PhaseClock:
+    """Seconds between marks, by the name of the phases they close."""
+
+    def __init__(self):
+        self.last, self.marks = time.perf_counter(), {}
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.marks[name] = round(now - self.last, 1)
+        self.last = now
 
 
 def main() -> int:
@@ -2251,8 +3064,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     device = resolve_device("cuda")
+    clock = PhaseClock()
     phase_environment()
     phase_build()
+    clock.mark("build")
     t0 = time.perf_counter()
     model = make_model(device, args.seed)
     torch.cuda.synchronize()
@@ -2261,23 +3076,37 @@ def main() -> int:
     runs = {"serve": phase_main_path(model, device, args.seed)}
     serve_runs, bf16 = phase_serve_options(model, device, args.seed)
     runs.update(serve_runs)
+    clock.mark("serve")
     runs["partition"] = phase_partition(model, device, args.seed, "partition")
     runs["partition_bf16"] = phase_partition(bf16, device, args.seed,
                                              "partition_bf16")
     check_partition_bf16(model, runs)
     phase_partition_clip(model, device, args.seed)
+    clock.mark("partition")
+    for tag, m, v2, tile_batch, settings in (
+            ("tiled_v2", model, True, 4, {}),
+            ("tiled_v2_bf16", bf16, True, 4, {}),
+            ("tiled_v1", model, False, 0, {"RDEIC_RANS_LANES": "128"})):
+        runs[tag] = phase_tiled(m, device, args.seed, tag, v2, tile_batch,
+                                settings)
+    clock.mark("tiled")
+    runs.update(phase_lanes(model, device, args.seed, runs["serve"]))
+    clock.mark("lanes")
     phase_reference(model, bf16, device, args.seed)
     del bf16
+    phase_validate_reference(model, device, args.seed)
+    clock.mark("reference")
     phase_train_reference(model, device, args.seed)
     runs["train"] = phase_training(model, device, args.seed)
     refine = make_refine_model(model, args.seed)
     phase_train_reference(refine, device, args.seed)
     runs["refine"] = phase_training(refine, device, args.seed)
+    clock.mark("train and refine")
     runs["validate"] = phase_validate(model, device, args.seed,
                                       "a, fp32 independent", want_bf16=False)
     phase_image_logger(model, device, args.seed)
-    phase_validate_reference(model, device, args.seed)
     del model, refine
+    clock.mark("validate")
     t0 = time.perf_counter()
     bf16 = make_bf16_train_model(device, args.seed)
     torch.cuda.synchronize()
@@ -2292,7 +3121,11 @@ def main() -> int:
     runs["validate_bf16"] = phase_validate(bf16_refine, device, args.seed,
                                            "b, bf16 refine", want_bf16=True)
     del bf16, bf16_refine
+    clock.mark("bf16 training and validate")
     kernels = phase_kernels(device, runs)
+    clock.mark("kernels")
+    log(f"[time] seconds by phase {json.dumps(clock.marks)}; total "
+        f"{sum(clock.marks.values()):.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Builds the port's native code at first use, from the sources in the package.
 
-Five shared libraries, each with a plain C interface loaded through ctypes:
+Six shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``flash_attn_fwd`` and ``flash_attn_bwd``: ``csrc/flash_attn_{fwd,bwd}.cu``
   (with ``csrc/flash_common.cuh``, ``csrc/flash_mma.cuh`` and
@@ -10,6 +10,9 @@ Five shared libraries, each with a plain C interface loaded through ctypes:
 - ``group_norm_fwd`` and ``group_norm_bwd``: ``csrc/group_norm_{fwd,bwd}.cu``
   (with ``csrc/group_norm_common.cuh``), the cluster-launched GroupNorm(+SiLU)
   forward and backward, by ``nvcc`` for ``sm_90a`` likewise;
+- ``device_rans``: ``csrc/device_rans.cu``, the interleaved-lane rANS decode
+  (per-lane and shared-stream) and encode kernels, by ``nvcc`` for
+  ``sm_90a`` likewise;
 - ``rans``: ``entropy/csrc/rans.cpp``, the host rANS coder, compiled by g++.
 
 Each library lands in ``_build/`` under a name that hashes its source, the
@@ -36,6 +39,7 @@ FLASH_HEADERS = (PACKAGE / "csrc" / "flash_common.cuh",
 GROUP_NORM_SRC = PACKAGE / "csrc" / "group_norm_fwd.cu"
 GROUP_NORM_BWD_SRC = PACKAGE / "csrc" / "group_norm_bwd.cu"
 GROUP_NORM_HEADERS = (PACKAGE / "csrc" / "group_norm_common.cuh",)
+DEVICE_RANS_SRC = PACKAGE / "csrc" / "device_rans.cu"
 RANS_SRC = PACKAGE / "entropy" / "csrc" / "rans.cpp"
 
 
@@ -102,6 +106,10 @@ def build_group_norm_bwd() -> Path:
                   GROUP_NORM_HEADERS)
 
 
+def build_device_rans() -> Path:
+    return _build(DEVICE_RANS_SRC, "device_rans", _nvcc_cmd())
+
+
 def build_rans() -> Path:
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC"]
     return _build(RANS_SRC, "rans", cmd)
@@ -111,7 +119,8 @@ def build_all() -> dict[str, Path]:
     """Start every build at once and wait for all of them."""
     builds = {"flash_attn_fwd": build_flash, "flash_attn_bwd": build_flash_bwd,
               "group_norm_fwd": build_group_norm,
-              "group_norm_bwd": build_group_norm_bwd, "rans": build_rans}
+              "group_norm_bwd": build_group_norm_bwd,
+              "device_rans": build_device_rans, "rans": build_rans}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builds.items()}
         return {name: fut.result() for name, fut in futures.items()}

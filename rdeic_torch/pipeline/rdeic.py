@@ -47,6 +47,7 @@ from pathlib import Path
 from typing import Any, Mapping, Optional, Sequence
 
 import math
+import os
 
 import torch
 from torch import nn
@@ -477,19 +478,29 @@ class RDEIC(nn.Module):
 
     # -- real bitstream --------------------------------------------------------
     def codec(self) -> CompressionCodec:
+        """The codec, built once: RDEIC_RANS_LANES (default 0) sets its
+        interleaved lanes, as the JAX package's `codec` reads it; the other
+        RDEIC_RANS_* settings are read by the codec (pipeline/codec.py)."""
         if self._codec is None:
-            self._codec = CompressionCodec(self.compression)
+            self._codec = CompressionCodec(
+                self.compression,
+                lanes=int(os.environ.get("RDEIC_RANS_LANES") or 0))
         return self._codec
+
+    @torch.no_grad()
+    def feature(self, img01: torch.Tensor) -> torch.Tensor:
+        """img01 [B, H, W, 3] in [0, 1] -> the scaled 512-ch VAE feature
+        the codec compresses (the JAX package's `_jitted_feature`). It is
+        fp32 under a bf16 VAE too (the encoder returns it so, as flax
+        promotes a bf16 input of an fp32 layer)."""
+        return self.encode_first_stage(img01 * 2 - 1)[1]
 
     @torch.no_grad()
     def apply_condition_compress(self, img01: torch.Tensor, stream_path, H: int,
                                  W: int) -> float:
         """img01 [1, H, W, 3] in [0, 1] -> bitstream file; returns the bpp
-        of the file over H x W. The feature reaches the compression model
-        in fp32 under a bf16 VAE too (the encoder returns it so, as flax
-        promotes a bf16 input of an fp32 layer)."""
-        _, h = self.encode_first_stage(img01 * 2 - 1)
-        out = self.codec().compress(h)
+        of the file over H x W."""
+        out = self.codec().compress(self.feature(img01))
         with Path(stream_path).open("wb") as f:
             write_body(f, out["shape"], out["strings"])
         return filesize(stream_path) * 8.0 / (H * W)
@@ -511,7 +522,7 @@ class RDEIC(nn.Module):
         the codec's do: `blocks.image_by_image`); returns each file's bpp
         over H x W."""
         with blocks.image_by_image():
-            _, h = self.encode_first_stage(imgs01 * 2 - 1)
+            h = self.feature(imgs01)
         outs = self.codec().compress_batch(h)
         H, W = imgs01.shape[1:3]
         bpps = []

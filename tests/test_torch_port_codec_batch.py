@@ -91,13 +91,24 @@ def test_decompress_batch_matches_jax(batch):
                                atol=1e-5, rtol=1e-5)
 
 
-def test_lanes_container_is_refused_naming_device_rans(batch):
-    out = batch["outs"][0]
-    lanes = {"strings": out["strings"] + [[b"\0"]], "shape": out["shape"]}
-    with pytest.raises(NotImplementedError, match="device_rans"):
-        batch["codec"].decompress_batch([lanes])
-    with pytest.raises(NotImplementedError, match="device_rans"):
-        batch["codec"].decompress(lanes["strings"], lanes["shape"])
+@pytest.mark.parametrize("shared", ["0", "1"], ids=["v1", "v2"])
+def test_decompress_batch_decodes_the_lanes_container(batch, monkeypatch,
+                                                      shared):
+    """The interleaved-lane container (3 string groups) of the batch, read
+    by the batch's codec (built without lanes): each row the encoder's own
+    synthesis, bit for bit."""
+    monkeypatch.setenv("RDEIC_RANS_SHARED", shared)
+    monkeypatch.setenv("RDEIC_RANS_OVERHEAD_PCT", "0")
+    monkeypatch.setenv("RDEIC_RANS_DEVICE_MIN_LANES", "4")
+    lanes = CompressionCodec(batch["codec"].model, lanes=8)
+    outs = lanes.compress_batch(torch.from_numpy(batch["x"]))
+    assert all(len(o["strings"]) == 3 for o in outs)
+    c_latent, guide_hint = batch["codec"].decompress_batch(outs)
+    for i in range(B):
+        enc_c, enc_g = lanes.compress(
+            torch.from_numpy(batch["x"][i:i + 1]))["latents"]
+        torch.testing.assert_close(c_latent[i:i + 1], enc_c, rtol=0, atol=0)
+        torch.testing.assert_close(guide_hint[i:i + 1], enc_g, rtol=0, atol=0)
 
 
 def test_a_batch_of_streams_of_two_shapes_is_refused(batch):

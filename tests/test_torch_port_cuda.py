@@ -985,3 +985,174 @@ def test_png_encoder_bytes():
     rows = np.frombuffer(zlib.decompress(chunks[1][1]), np.uint8).reshape(7, -1)
     assert not rows[:, 0].any()
     np.testing.assert_array_equal(rows[:, 1:].reshape(7, 13, 3), img)
+
+
+# -- the interleaved-lane rANS kernels (csrc/device_rans.cu) -----------------
+# Each kernel against its plain version on the same inputs: integers, so
+# equal, not close; beside a planted fault (one flipped word of the stream,
+# or one flipped symbol for the encoder) that must change the output.
+# Passes of one image (a ragged last step at every K), B images a call.
+RANS_SIZES = [257, 64, 1000, 31]
+
+
+@pytest.fixture(scope="module")
+def rans_tabs():
+    from rdeic_torch.entropy.coder import CdfTable  # noqa: PLC0415
+    from rdeic_torch.ops import gaussian as g  # noqa: PLC0415
+
+    table = CdfTable(*g.build_cdf_tables(g.get_scale_table()))
+    from rdeic_torch.entropy import device_rans as dr  # noqa: PLC0415
+
+    return table, dr.DeviceRansTables(table), (
+        dr.DeviceRansTables(table, "cuda") if torch.cuda.is_available()
+        else None)
+
+
+def _rans_cases(table, b, esc, seed):
+    # tests/ is on sys.path (pytest's rootdir-less import): the card's
+    # machine may hold another package named `tests`
+    from torch_port_rans import random_case  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed)
+    return [random_case(table, rng, RANS_SIZES, esc) for _ in range(b)]
+
+
+def _decode_both(rans_tabs, cuda, k, cases, shared, words=None):
+    from torch_port_rans import decode_passes, lane_batch  # noqa: PLC0415
+
+    table, cpu_tabs, gpu_tabs = rans_tabs
+    w, nw = lane_batch(table, k, cases, shared)
+    if words is not None:
+        w = words(w, nw)
+    idxs = [np.stack([c[1][p] for c in cases]) for p in range(len(RANS_SIZES))]
+    want = decode_passes(cpu_tabs, w, nw, k, idxs, shared)
+    got = decode_passes(gpu_tabs, w.to(cuda), nw.to(cuda), k, idxs, shared)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _flip(w, nw):
+    """One word flipped in the middle of image 0's stream (v2), or of its
+    lane 0 (v1)."""
+    w = w.clone()
+    if w.dim() == 2:
+        w[0, nw[0] // 2] ^= 0x5A5A
+    else:
+        w[0, 0, nw[0, 0] // 2] ^= 0x5A5A
+    return w
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["v1", "v2"])
+@pytest.mark.parametrize("k,esc,b", [(4, 0.0, 1), (7, 0.05, 2), (32, 0.0, 1),
+                                     (33, 0.1, 3), (128, 0.05, 2),
+                                     (128, 0.0, 1)])
+def test_rans_decode_kernels_match_plain(cuda, rans_tabs, k, esc, b, shared):
+    from rdeic_torch.entropy import device_rans as dr  # noqa: PLC0415
+
+    fn = dr.decode_pass_shared if shared else dr.decode_pass
+    cases = _rans_cases(rans_tabs[0], b, esc, seed=k * 10 + b)
+    before = fn.launches
+    got, want = _decode_both(rans_tabs, cuda, k, cases, shared)
+    assert fn.launches == before + len(RANS_SIZES)
+    for p, ((gs, gst, gpt), (ws, wst, wpt)) in enumerate(zip(got, want)):
+        assert torch.equal(gs, ws) and torch.equal(gst, wst)
+        assert torch.equal(gpt, wpt)
+        for i, (syms, _) in enumerate(cases):  # what was encoded
+            np.testing.assert_array_equal(gs[i].numpy(), syms[p])
+    # a flipped word: the kernel follows the plain version off the stream
+    bad, bad_want = _decode_both(rans_tabs, cuda, k, cases, shared, _flip)
+    assert all(torch.equal(g_[0], w_[0]) for g_, w_ in zip(bad, bad_want))
+    assert not all(torch.equal(g_[0], w_[0]) for g_, w_ in zip(bad, got))
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["v1", "v2"])
+@pytest.mark.parametrize("k", [8, 128])
+def test_rans_decode_kernels_on_garbage(cuda, rans_tabs, k, shared):
+    """Random words: the kernel gives the plain version's symbols, clamping
+    every gather, and never faults."""
+    cases = _rans_cases(rans_tabs[0], 2, 0.1, seed=k)
+    rng = np.random.default_rng(k + 1)
+
+    def garbage(w, nw):
+        return torch.from_numpy(rng.integers(0, 1 << 16, tuple(w.shape),
+                                             dtype=np.int32))
+
+    got, want = _decode_both(rans_tabs, cuda, k, cases, shared, garbage)
+    for g_, w_ in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g_, w_))
+
+
+@pytest.mark.parametrize("k,esc,b", [(4, 0.0, 1), (7, 0.08, 3), (33, 0.05, 2),
+                                     (128, 0.05, 4)])
+def test_rans_encode_kernel_matches_plain_and_host(cuda, rans_tabs, k, esc, b):
+    from rdeic_torch.entropy import device_rans as dr  # noqa: PLC0415
+    from rdeic_torch.entropy.coder import rans_encode_interleaved  # noqa: PLC0415
+
+    table, cpu_tabs, gpu_tabs = rans_tabs
+    cases = _rans_cases(table, b, esc, seed=100 + k)
+    syms = [torch.from_numpy(np.stack([c[0][p] for c in cases]))
+            for p in range(len(RANS_SIZES))]
+    idxs = [torch.from_numpy(np.stack([c[1][p] for c in cases]))
+            for p in range(len(RANS_SIZES))]
+    steps = dr.build_pass_steps(syms, idxs, k)
+    wcap = max(64, 4 * steps[0].shape[0])
+    before = dr.encode_lanes.launches
+    got = dr.encode_lanes(gpu_tabs, *(s.to(cuda) for s in steps), wcap)
+    torch.cuda.synchronize()
+    assert dr.encode_lanes.launches == before + 1
+    want = dr.encode_lanes_plain(cpu_tabs, *steps, wcap)
+    assert all(torch.equal(a.cpu(), w) for a, w in zip(got, want))
+    assert not bool(got[2])
+    for i, (s, ix) in enumerate(cases):
+        payload = dr.assemble_lane_payloads(got[0][i].cpu().numpy(),
+                                            got[1][i].cpu().numpy())
+        host = rans_encode_interleaved(np.concatenate(s), np.concatenate(ix),
+                                       RANS_SIZES, k, table)
+        assert payload[0] == host[0]
+        np.testing.assert_array_equal(payload[1], host[1])
+    # a flipped symbol changes the words
+    bad = steps[0].clone()
+    bad[0, 0, 0] += 1
+    faulty = dr.encode_lanes(gpu_tabs, bad.to(cuda), steps[1].to(cuda),
+                             steps[2].to(cuda), wcap)
+    assert not torch.equal(faulty[0].cpu(), want[0])
+
+
+def test_rans_encode_kernel_overflow_flag(cuda, rans_tabs):
+    """Too few words a lane, and an escape payload past 2^18: the flag,
+    and the words the plain version writes up to the capacity."""
+    from rdeic_torch.entropy import device_rans as dr  # noqa: PLC0415
+
+    table, cpu_tabs, gpu_tabs = rans_tabs
+    cases = _rans_cases(table, 2, 0.0, seed=5)
+    for syms, wcap in (
+            ([torch.from_numpy(np.stack([c[0][0] for c in cases]))], 4),
+            ([torch.tensor([[10_000_000], [3]], dtype=torch.int32)], 64)):
+        idxs = [torch.zeros_like(syms[0]) if wcap == 64 else torch.from_numpy(
+            np.stack([c[1][0] for c in cases]))]
+        steps = dr.build_pass_steps(syms, idxs, 2)
+        got = dr.encode_lanes(gpu_tabs, *(s.to(cuda) for s in steps), wcap)
+        want = dr.encode_lanes_plain(cpu_tabs, *steps, wcap)
+        assert bool(got[2]) and bool(want[2])
+        assert all(torch.equal(a.cpu(), w) for a, w in zip(got, want))
+
+
+# the tiled path's shapes (512x512 tiles, 64x64 latents): the sampler's
+# flash calls at tile batches of 4, 3 (a ragged tail) and 15 (all tiles),
+# the VAE encoder's mid-block at 8 tiles; GroupNorm32 at the denoiser's
+# widths of each latent level at 4 and 15 tiles
+TILE_FLASH_SHAPES = [(4, 4096, 5, 64), (3, 1024, 10, 64), (15, 4096, 4, 16),
+                     (4, 1024, 8, 16), (8, 4096, 1, 512), (3, 4096, 1, 512)]
+TILE_GN_SHAPES = [(4, 320, 64, 64), (15, 640, 32, 32), (3, 1280, 16, 16),
+                  (4, 2560, 8, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TILE_FLASH_SHAPES)
+def test_flash_kernel_at_the_tile_shapes(cuda, shape, dtype):
+    test_flash_kernel_matches_plain(cuda, shape, dtype)
+
+
+@pytest.mark.parametrize("shape", TILE_GN_SHAPES)
+def test_groupnorm_kernel_at_the_tile_shapes(cuda, shape):
+    test_groupnorm_kernel_matches_plain(cuda, shape, 1e-5, True)

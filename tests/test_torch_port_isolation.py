@@ -36,6 +36,8 @@ def test_no_jax_or_rdeic_tpu_import(path):
 def test_pipeline_import_pulls_no_jax_yaml_or_pil():
     code = ("import sys, rdeic_torch.pipeline.rdeic, rdeic_torch.inference, "
             "rdeic_torch.inference_partition, rdeic_torch.models.clip, "
+            "rdeic_torch.pipeline.tiled, rdeic_torch.tiled_inference, "
+            "rdeic_torch.entropy.device_rans, "
             "rdeic_torch.utils.torch_convert, "
             "rdeic_torch.train, rdeic_torch.train.trainer, "
             "rdeic_torch.train.cli, rdeic_torch.data.dataset; "

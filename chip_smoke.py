@@ -196,7 +196,33 @@ and g++; no network. Phases, each fatal on failure:
    the card-vs-CPU differences of those inputs, and how many codebook
    indices and rounded symbols differ; (b) after phase 12, the bf16 refine model
    (`fixed_step` 2) as (a), every flash call bf16 and no GroupNorm call
-   with both x and its scale and bias fp32.
+   with both x and its scale and bias fp32;
+15. [ddp_nccl], after 14b: a world of one NCCL rank (a FileStore) around the
+   data-parallel `Trainer` (its all-reduce of the gradients and the logs,
+   its gather of the hyper latent) on phase 10's bf16 model, B = 2,
+   512x512, one warm-up and DDP_STEPS micro-steps at accumulation
+   DDP_ACCUMULATE, against the plain `Trainer` from the same weights,
+   batches and noise, both under cuDNN's deterministic algorithms: logs,
+   weights, AdamW's moments, the codebook and its usage bit-equal; ms a
+   micro-step; the all-reduces' bytes and ms (CUDA events);
+16. [ddp_gloo_2], after 15: two ranks of this script on the one card (NCCL
+   takes no two ranks on one device), gloo over a local port, fp32
+   independent at the full width from the seed's weights, B = 2 split
+   1 + 1, DDP_STEPS micro-steps at DDP_ACCUMULATE: the ranks start and end
+   bit-equal (weight digests rank 0 broadcasts); rank 0 first runs the
+   plain `Trainer` on the whole batch (and again on the images nudged by
+   +-1e-6) and holds its ranks' steps to it: logs within 1e-5, the mean
+   gradients within 1e-4 of max or twice their nudge move (behind
+   LeakyReLU's kinks), the weights within 2 lr and to 1e-6 where the
+   gradient is firm, the code usage over each set of copied codes to 1e-6;
+   a failed rank fails the phase;
+17. [partition_dp], after 3c: phase 3c's fp32 images through `serve` over
+   two replicas on this card (what `--dp 2` runs: the noise drawn at each
+   micro-batch's size, its rows split, a thread a replica): streams
+   byte-equal to [partition]'s, images within 1e-5, launches, ms an image;
+18. [tiled_mesh], after 3d: `--use_mesh` over the one card, [tiled_v2]'s
+   stream decoded again with the mesh's replicas: bit-equal to
+   [tiled_v2]'s image (one device pads nothing), launches, decode ms.
 
 The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. Three of the
@@ -214,7 +240,8 @@ run of the path its `path` names (serve: phase 3's DDPM run; serve_ddim,
 serve_cfg and serve_bf16 are phase 3b's; partition and partition_bf16
 phase 3c's, whose `calls` are per run of its five images; tiled_v2,
 tiled_v2_bf16 and tiled_v1 phase 3d's, per run of its image; the lanes_*
-routes phase 3e's; train, refine,
+routes phase 3e's; partition_dp, tiled_mesh, ddp_nccl and ddp_gloo_2
+phases 17, 18, 15 and 16 (the last per rank, read back from rank 0); train, refine,
 train_bf16 and
 refine_bf16 phases 6, 8, 10 and 12; validate and validate_bf16 phase
 14a and 14b, whose `calls` are per validation batch): per image for the
@@ -240,16 +267,19 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import struct
 import sys
 import tempfile
 import time
 import zlib
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from rdeic_torch import build
@@ -287,6 +317,7 @@ from rdeic_torch.ops.fused_groupnorm import (
     group_norm_fwd,
     group_norm_plain,
 )
+from rdeic_torch.parallel.mesh import make_mesh
 from rdeic_torch.pipeline import tiled
 from rdeic_torch.pipeline.codec import parse_lane_header
 from rdeic_torch.pipeline.rdeic import RDEIC
@@ -891,16 +922,19 @@ def partition_launches(model, chunks) -> list:
     return out
 
 
-def run_partition(model, chunks, stream_dir: Path, seed: int, context_fn=None):
+def run_partition(model, chunks, stream_dir: Path, seed: int, context_fn=None,
+                  replicas=()):
     """rdeic_torch.inference_partition's `serve` over `chunks`: the codec
     stage in its worker thread one chunk ahead, sampling in micro-batches
-    from a generator seeded with `seed`. Returns [(out, bpps)] per chunk."""
+    from a generator seeded with `seed` (over `replicas` when given, as
+    `--dp` serves). Returns [(out, bpps)] per chunk."""
     gen = torch.Generator(device=model.uncond_context.device).manual_seed(seed)
     outs = []
     for chunk, out, bpps, _ in serve(model, chunks, stream_dir, steps=STEPS,
                                      micro=PARTITION_MICRO, generator=gen,
                                      context_fn=context_fn,
-                                     batch_size=PARTITION_BATCH):
+                                     batch_size=PARTITION_BATCH,
+                                     replicas=replicas):
         outs.append((out, bpps))
     return outs
 
@@ -1016,7 +1050,8 @@ def phase_partition(model, device, seed: int, tag: str,
         "every image decode_pipeline's, bit for bit")
     return {"ms": ms, "ms_per_image": ms / n_img, "stage_ms": stage_ms,
             "launches": launches, "shapes": shapes, "peak_bytes": peak,
-            "streams": streams, "latents": latents}
+            "streams": streams, "latents": latents,
+            "images": [out for out, _ in outs]}
 
 
 def check_partition_bf16(model, runs) -> None:
@@ -1330,7 +1365,9 @@ def phase_tiled(model, device, seed: int, tag: str, v2: bool,
            if passes else ""))
     return {"ms": ms, "ms_per_mpx": ms / mpx, "bpp": bpp, "stage_ms": stage_ms,
             "launches": launches, "shapes": shapes, "peak_bytes": peak,
-            "resident_bytes": resident, "n_tiles": n_tiles}
+            "resident_bytes": resident, "n_tiles": n_tiles,
+            "stream": streams[1], "image": out.cpu(),
+            "containers": containers, "tile_batch": tile_batch}
 
 
 class _PassSpy:
@@ -3044,6 +3081,502 @@ def rans_kernel_lines(device, runs) -> list:
     return lines
 
 
+# -- multi-device: phases 15-18 ----------------------------------------------------
+DDP_STEPS = 2  # counted micro-steps of [ddp_nccl] (after a warm-up) and
+# [ddp_gloo_2]; accumulation 2, so one AdamW update falls in them
+DDP_ACCUMULATE = 2
+# a gradient that is 0 but for rounding (a bias before a GroupNorm) is held
+# against this share of the largest (tests/test_torch_port_train_model.py)
+GRAD_FLOOR = 1e-5
+GLOO_WORLD = 2
+GLOO_TIMEOUT_S = 420  # the whole [ddp_gloo_2] child, start to exit
+
+
+def ddp_images(seed: int, n: int) -> list:
+    """`n` global batches of TRAIN_CONFIG's B = 2, 512x512 [-1, 1] images."""
+    rng = np.random.default_rng(seed + 23)
+    hw = TRAIN_CONFIG["out_size"]
+    return [rng.uniform(-1, 1, (TRAIN_CONFIG["batch_size"], hw, hw, 3))
+            .astype(np.float32) for _ in range(n)]
+
+
+def time_all_reduces(trainer) -> list:
+    """Wrap `trainer`'s all-reduce: each call appends (bytes, start event,
+    end event, host seconds); the events bracket the call on the current
+    stream, which waits for the collective."""
+    calls, real = [], trainer._all_reduce
+
+    def timed(flat):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        real(flat)
+        end.record()
+        calls.append((flat.numel() * flat.element_size(), start, end,
+                      time.perf_counter() - t0))
+
+    trainer._all_reduce = timed
+    return calls
+
+
+def all_reduce_reads(calls: list, steps: int) -> dict:
+    """Per micro-step: the gradients' all-reduce (the first call of a step:
+    bytes, device ms) and the logs' (the second), from `time_all_reduces`."""
+    torch.cuda.synchronize()
+    grads, logs = calls[0::2], calls[1::2]
+    return {"grad_bytes": grads[0][0], "log_bytes": logs[0][0],
+            "grad_ms": [s.elapsed_time(e) for _, s, e, _ in grads],
+            "log_ms": [s.elapsed_time(e) for _, s, e, _ in logs],
+            "grad_host_ms": [h * 1e3 for *_, h in grads],
+            "calls_per_step": len(calls) / steps}
+
+
+def trainable_state(trainer, model) -> dict:
+    """Copies of the trainable weights, their AdamW first moments and the
+    code usage."""
+    return {"params": {k: p.detach().clone() for k, p in trainer.params.items()},
+            "exp_avg": {k: trainer.optimizer.state[p]["exp_avg"].clone()
+                        for k, p in trainer.params.items()
+                        if "exp_avg" in trainer.optimizer.state.get(p, {})},
+            "prob": model.vq_embed_prob.clone()}
+
+
+def phase_ddp_nccl(model, device, seed: int) -> dict:
+    """Phase 15, [ddp_nccl]: a world of one NCCL rank (a FileStore, no
+    port) around the data-parallel `Trainer` of the full-width bf16
+    independent model: B = 2, 512x512, one warm-up and DDP_STEPS counted
+    micro-steps at accumulation DDP_ACCUMULATE, against the plain `Trainer`
+    from the same weights, batches and noise, both under cuDNN's
+    deterministic algorithms. Gate: logs, grad_norm, the trainable weights,
+    AdamW's moments and the codebook and its usage bit-equal; launches as
+    the structure says."""
+    imgs = [torch.from_numpy(x).to(device)
+            for x in ddp_images(seed, 1 + DDP_STEPS)]
+    start = {k: p.detach().clone()
+             for k, p in trainable_parameters(model).items()}
+    prob = model.vq_embed_prob.clone()
+
+    def run(mesh) -> dict:
+        with torch.no_grad():
+            for k, p in trainable_parameters(model).items():
+                p.copy_(start[k])
+            model.vq_embed_prob.copy_(prob)
+        trainer = Trainer(model, learning_rate=TRAIN_CONFIG["learning_rate"],
+                          accumulate_grad_batches=DDP_ACCUMULATE,
+                          frozen_dtype=BF16, mesh=mesh)
+        reduces = time_all_reduces(trainer) if mesh is not None else []
+        gen = torch.Generator(device=device).manual_seed(seed)
+        with full_fp32(deterministic=True):
+            logs = [trainer.step(imgs[0], generator=gen)]
+            del reduces[:]
+            reset_counters()
+            step_ms = []
+            for img in imgs[1:]:
+                out, ms = host_ms(lambda: trainer.step(img, generator=gen))
+                logs.append(out)
+                step_ms.append(ms)
+        launches, shapes = read_counters()
+        out = {"logs": logs, "step_ms": step_ms, "launches": launches,
+               "shapes": shapes, **trainable_state(trainer, model)}
+        if reduces:
+            out["reduce"] = all_reduce_reads(reduces, DDP_STEPS)
+        return out
+
+    plain = run(None)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh()
+            if not (mesh.distributed and mesh.shape == {"dp": 1, "tp": 1}):
+                raise AssertionError(f"[ddp_nccl] mesh {mesh}")
+            ddp = run(mesh)
+        finally:
+            dist.destroy_process_group()
+    differ = [f"step {i} {k}" for i, (a, b) in enumerate(zip(ddp["logs"],
+                                                             plain["logs"]))
+              for k in b if not torch.equal(a[k], b[k])]
+    for group in ("params", "exp_avg"):
+        differ += [f"{group} {k}" for k, v in plain[group].items()
+                   if not torch.equal(ddp[group][k], v)]
+    if not torch.equal(ddp["prob"], plain["prob"]):
+        differ.append("vq_embed_prob")
+    want = {**dict.fromkeys(KERNEL_FNS, 0),
+            **{k: v * DDP_STEPS
+               for k, v in train_launches_per_step(model).items()}}
+    red = ddp["reduce"]
+    log(f"[ddp_nccl] bf16 independent, B = {TRAIN_CONFIG['batch_size']}, "
+        f"{TRAIN_CONFIG['out_size']}x{TRAIN_CONFIG['out_size']}, accumulation "
+        f"{DDP_ACCUMULATE}, NCCL world of 1: micro-steps "
+        f"{json.dumps(ddp['step_ms'])} ms (plain Trainer "
+        f"{json.dumps(plain['step_ms'])} ms); all-reduce per micro-step: "
+        f"gradients {red['grad_bytes']} bytes in {json.dumps(red['grad_ms'])} "
+        f"ms (CUDA events), logs {red['log_bytes']} bytes in "
+        f"{json.dumps(red['log_ms'])} ms; losses "
+        f"{json.dumps([x['loss'].item() for x in ddp['logs']])}")
+    log(f"[ddp_nccl] launches {json.dumps(ddp['launches'])}; from the "
+        f"structure {json.dumps(want)}")
+    if differ:
+        raise AssertionError(f"[ddp_nccl] not bit-equal to the plain Trainer: "
+                             f"{len(differ)} items, first {differ[:8]}")
+    check_launches("ddp_nccl", ddp["launches"], want)
+    log(f"[ddp_nccl] logs, grad_norm, {len(plain['params'])} trainable "
+        f"tensors, AdamW's moments, the codebook and its usage bit-equal to "
+        f"the plain Trainer's")
+    return {"ms": float(np.mean(ddp["step_ms"])), "step_ms": ddp["step_ms"],
+            "plain_step_ms": plain["step_ms"], "steps": DDP_STEPS,
+            "launches": ddp["launches"], "shapes": ddp["shapes"],
+            "reduce": red}
+
+
+def weights_digest(model) -> torch.Tensor:
+    """An int64 a tensor of the state dict on the CPU: the sum of its
+    words (16- or 32-bit), each times an odd weight from its position, with
+    wrap-around; a tensor that differs anywhere reads otherwise (but for a
+    2^-64 chance)."""
+    out = []
+    for v in model.state_dict().values():
+        flat = v.detach().contiguous().reshape(-1)
+        words = flat.view(torch.int16 if flat.element_size() == 2
+                          else torch.int32).to(torch.int64)
+        weight = (torch.arange(words.numel(), device=words.device) % 65521) * 2 + 1
+        out.append((words * weight).sum())
+    return torch.stack(out).cpu()
+
+
+def broadcast_equal(x: torch.Tensor) -> bool:
+    """Whether this rank's CPU tensor equals rank 0's (broadcast)."""
+    ref = x.clone()
+    dist.broadcast(ref, src=0)
+    return bool(torch.equal(ref, x))
+
+
+def copy_sets(codebook: torch.Tensor) -> torch.Tensor:
+    """[K] set ids of the codes: codes within 1e-3 (max |diff|) of the first
+    code of a set not yet taken join it. The codebook update re-seeds each
+    unused code from its closest row (0.999 of the row), so the codes
+    closest to one row become copies, within 1e-3 of each other even after
+    a later pull of e^-10 of a row's distance, and distinct rows lie ~1
+    apart."""
+    ids = torch.full((codebook.shape[0],), -1, dtype=torch.long,
+                     device=codebook.device)
+    n = 0
+    while bool((ids < 0).any()):
+        first = int((ids < 0).nonzero()[0])
+        near = ((codebook - codebook[first]).abs().amax(1) < 1e-3) & (ids < 0)
+        ids[near] = n
+        n += 1
+    return ids
+
+
+def codebook_reads(got: dict, want: dict, codebook: torch.Tensor) -> dict:
+    """Max relative |got - want| of the code usage summed over each set of
+    copies of one code (`copy_sets`): a row nearest to copies takes any of
+    them at another batch size, its hyper latent an ulp away."""
+    ids = copy_sets(codebook)
+    n = int(ids.max()) + 1
+    g, w = (torch.zeros(n, dtype=torch.float64, device=ids.device).index_add_(
+        0, ids, x["prob"].double()) for x in (got, want))
+    rel = ((g - w).abs() / w.abs().clamp(min=1e-30)).max().item()
+    return {"usage_rel": rel, "copy_sets": n}
+
+
+def gloo_rank(args) -> int:
+    """A rank of [ddp_gloo_2] (run as `chip_smoke.py --gloo-rank R ...` by
+    phase 16): full-width fp32 independent training on the one card over a
+    gloo world of GLOO_WORLD, each rank on its rows of B = 2. Rank 0 first
+    runs the plain `Trainer` on the whole batch from the same weights and
+    noise, and holds the ranks' steps to it; its reads go to
+    `<out>/rank<R>.json`. A failed gate raises."""
+    rank, world = args.gloo_rank, GLOO_WORLD
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.gloo_port}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=GLOO_TIMEOUT_S // 2))
+    device = resolve_device("cuda")
+    t0 = time.perf_counter()
+    model = make_model(device, args.seed)
+    torch.cuda.synchronize()
+    model_s = time.perf_counter() - t0
+    digest = weights_digest(model)
+    if not broadcast_equal(digest):
+        raise AssertionError(f"[ddp_gloo_2] rank {rank} starts from other "
+                             "weights than rank 0")
+    imgs = [torch.from_numpy(x).to(device) for x in ddp_images(args.seed, DDP_STEPS)]
+    lr = TRAIN_CONFIG["learning_rate"]
+    ref = None
+    if rank == 0:  # the plain Trainer on the whole batch, then back
+        start = {k: p.detach().clone()
+                 for k, p in trainable_parameters(model).items()}
+        prob = model.vq_embed_prob.clone()
+
+        def plain(scale: float) -> dict:
+            """The plain steps on the images times `scale`, from the start."""
+            with torch.no_grad():
+                for k, p in trainable_parameters(model).items():
+                    p.copy_(start[k])
+                model.vq_embed_prob.copy_(prob)
+            trainer = Trainer(model, learning_rate=lr,
+                              accumulate_grad_batches=DDP_ACCUMULATE)
+            gen = torch.Generator(device=device).manual_seed(args.seed)
+            with full_fp32():
+                out = {"logs": [trainer.step(img * scale, generator=gen)
+                                for img in imgs]}
+            out.update(trainable_state(trainer, model))
+            return out
+
+        # the move of each mean gradient when the images alone are nudged
+        # by +-1e-6: large behind LeakyReLU's kinks, where an input within
+        # rounding of 0 takes either slope (the refine test's rule)
+        ref = plain(1.0)
+        moves = dict.fromkeys(ref["exp_avg"], 0.0)
+        for eps in (1e-6, -1e-6):
+            for k, g in plain(1 + eps)["exp_avg"].items():
+                w = ref["exp_avg"][k]
+                moves[k] = max(moves[k], ((g - w).abs().max()
+                                          / w.abs().max().clamp(min=1e-30)).item())
+        with torch.no_grad():
+            for k, p in trainable_parameters(model).items():
+                p.copy_(start[k])
+            model.vq_embed_prob.copy_(prob)
+        del start
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh()
+    trainer = Trainer(model, learning_rate=lr,
+                      accumulate_grad_batches=DDP_ACCUMULATE, mesh=mesh)
+    reduces = time_all_reduces(trainer)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    reset_counters()
+    logs, step_ms = [], []
+    with full_fp32():
+        for img in imgs:
+            rows = mesh.rows(img.shape[0])
+            out, ms = host_ms(lambda: trainer.step(img[rows], generator=gen))
+            logs.append(out)
+            step_ms.append(ms)
+    launches, shapes = read_counters()
+    red = all_reduce_reads(reduces, DDP_STEPS)
+    same_after = broadcast_equal(weights_digest(model))
+    result = {"rank": rank, "rows": [mesh.rows(2).start, mesh.rows(2).stop],
+              "model_s": model_s, "step_ms": step_ms, "reduce": red,
+              "launches": launches,
+              "shapes": {k: [[list(key), n] for key, n in v.items()]
+                         for k, v in shapes.items()},
+              "same_weights_after": same_after}
+    want = {**dict.fromkeys(KERNEL_FNS, 0),
+            **{k: v * DDP_STEPS
+               for k, v in train_launches_per_step(model).items()}}
+    fails = []
+    if not same_after:
+        fails.append("the ranks' weights differ after the steps")
+    if launches != want:
+        fails.append(f"launches {launches}, expected {want}")
+    if ref is not None:
+        mine = trainable_state(trainer, model)
+        reads = {"logs": max(abs(a[k].item() - b[k].item())
+                             / max(abs(b[k].item()), 1e-30)
+                             for a, b in zip(logs, ref["logs"]) for k in b)}
+        top = max(v.abs().max().item() for v in ref["exp_avg"].values())
+        grad_err, over, weight_err, firm_err = {}, {}, 0.0, 0.0
+        for k, w in ref["exp_avg"].items():
+            scale = max(w.abs().max().item(), GRAD_FLOOR * top)
+            grad_err[k] = (mine["exp_avg"][k] - w).abs().max().item() / scale
+            if grad_err[k] > max(1e-4, 2 * moves[k]):
+                over[k] = (grad_err[k], moves[k])
+        for k, w in ref["params"].items():
+            d = (mine["params"][k] - w).abs()
+            weight_err = max(weight_err, d.max().item())
+            g = ref["exp_avg"][k].abs() if k in ref["exp_avg"] else None
+            if g is not None:
+                firm = g > 1e-2 * max(g.max().item(), GRAD_FLOOR * top)
+                if firm.any():
+                    atol = 1e-5 if k == "compression.quantize.embedding" else 1e-7
+                    firm_err = max(firm_err, ((d - atol) / w.abs().clamp(
+                        min=1e-30))[firm].max().item())
+        worst = [(k, e, moves[k]) for k, e in
+                 sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]]
+        reads.update(grad_rel=worst[0][1], worst_grads_and_moves=worst,
+                     over_limit=over,
+                     weight_abs=weight_err, firm_weight_rel=firm_err,
+                     **codebook_reads(mine, ref, ref["params"][
+                         "compression.quantize.embedding"]))
+        result["reads"] = reads
+        result["plain_logs"] = [{k: v.item() for k, v in x.items()}
+                                for x in ref["logs"]]
+        if reads["logs"] > 1e-5:
+            fails.append(f"logs differ by {reads['logs']:.3g} (limit 1e-5)")
+        if over:
+            fails.append(f"mean gradients differ beyond 1e-4 of max and twice "
+                         f"their nudge moves: {over}")
+        if weight_err > 2 * lr * (1 + 1e-3) + 1e-7 or firm_err > 1e-6:
+            fails.append(f"weights differ by {weight_err:.3g} (limit 2 lr), "
+                         f"{firm_err:.3g} relative where the gradient is firm")
+        if reads["usage_rel"] > 1e-6:
+            fails.append(f"code usage differs by {reads['usage_rel']:.3g}")
+    result["logs"] = [{k: v.item() for k, v in x.items()} for x in logs]
+    result["fails"] = fails
+    Path(args.gloo_out, f"rank{rank}.json").write_text(json.dumps(result))
+    dist.destroy_process_group()
+    if fails:
+        raise AssertionError(f"[ddp_gloo_2] rank {rank}: {fails}")
+    return 0
+
+
+def phase_ddp_gloo(seed: int) -> dict:
+    """Phase 16, [ddp_gloo_2]: GLOO_WORLD processes of this script on the
+    one card (NCCL takes no two ranks on one device), gloo over a local
+    port, fp32 independent at the full width: B = 2 split 1 + 1, DDP_STEPS
+    micro-steps at accumulation DDP_ACCUMULATE (`gloo_rank`). Gates (in
+    the ranks; a rank that fails exits non-zero, and so does this phase):
+    the ranks start from bit-equal weights (a digest rank 0 broadcasts) and
+    end bit-equal; rank 0's steps against the plain Trainer's on the whole
+    batch: logs (loss, grad_norm) within 1e-5, AdamW's first moment (the
+    mean gradient) within 1e-4 of each tensor's max (GRAD_FLOOR of the
+    largest at least), the weights within 2 lr and to 1e-6 where the
+    gradient is firm (test_torch_port_train_loop's rule), the code usage
+    to 1e-6 over each set of copied codes; launches per rank as the
+    structure says."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+             "--gloo-rank", str(r), "--gloo-port", str(port), "--gloo-out", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(GLOO_WORLD)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=GLOO_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, out in enumerate(outs):
+            for line in out.splitlines()[-40:]:
+                log(f"[ddp_gloo_2 rank {r}] {line}")
+        codes = [p.returncode for p in procs]
+        results = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                   for r in range(GLOO_WORLD)
+                   if Path(tmp, f"rank{r}.json").exists()]
+    for res in results:
+        log(f"[ddp_gloo_2] rank {res['rank']}: reads "
+            f"{json.dumps(res.get('reads'))}; fails {res['fails']}")
+    if any(codes):
+        raise AssertionError(f"[ddp_gloo_2] ranks exited {codes}")
+    first = results[0]
+    for res in results:
+        log(f"[ddp_gloo_2] rank {res['rank']} rows {res['rows']}: model in "
+            f"{res['model_s']:.1f} s; micro-steps {json.dumps(res['step_ms'])} "
+            f"ms; all-reduce per micro-step: gradients "
+            f"{res['reduce']['grad_bytes']} bytes in "
+            f"{json.dumps(res['reduce']['grad_ms'])} ms (CUDA events; host "
+            f"{json.dumps(res['reduce']['grad_host_ms'])} ms), logs "
+            f"{res['reduce']['log_bytes']} bytes in "
+            f"{json.dumps(res['reduce']['log_ms'])} ms; weights bit-equal "
+            f"across ranks after: {res['same_weights_after']}")
+    log(f"[ddp_gloo_2] rank 0 against the plain Trainer on B = 2: "
+        f"{json.dumps(first['reads'])}; losses {[x['loss'] for x in first['logs']]}"
+        f" against {[x['loss'] for x in first['plain_logs']]}")
+    shapes = {k: {tuple(key): n for key, n in v} for k, v in first["shapes"].items()}
+    return {"ms": float(np.mean(first["step_ms"])), "step_ms": first["step_ms"],
+            "steps": DDP_STEPS, "launches": first["launches"], "shapes": shapes,
+            "reduce": first["reduce"], "reads": first["reads"]}
+
+
+def partition_dp_launches(model, chunks, dp: int) -> dict:
+    """`partition_launches` with each micro-batch that dp divides decoded
+    by dp replicas: each replica's decode launches what one call does."""
+    n_gn = sum(isinstance(m, GroupNorm32) for m in model.denoiser.modules())
+    want = dict.fromkeys(KERNEL_FNS, 0)
+    for chunk in chunks:
+        want["flash_attn_fwd"] += 1  # the VAE encoder, the whole chunk
+        for j in range(0, len(chunk), PARTITION_MICRO):
+            calls = dp if len(chunk[j:j + PARTITION_MICRO]) % dp == 0 else 1
+            want["flash_attn_fwd"] += calls * (FLASH_PER_DENOISER_CALL_768
+                                               * STEPS + 1)
+            want["group_norm_silu_fwd"] += calls * n_gn * STEPS
+    return want
+
+
+def phase_partition_dp(model, device, seed: int, base: dict) -> dict:
+    """Phase 17, [partition_dp]: phase 3c's fp32 run through `serve` with
+    `replicas` (what `--dp 2` runs: each micro-batch's noise drawn on the
+    first device at its size, its rows split over two replicas, a thread
+    each), both replicas this card's model. Gates: every stream byte-equal
+    to [partition]'s; every image within 1e-5 of it (a replica decodes
+    half the rows); launches: each split micro-batch twice a decode call's."""
+    items = partition_images(seed)
+    chunks = make_chunks(items, PARTITION_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counters()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs, ms = host_ms(lambda: run_partition(
+            model, chunks, Path(tmp), seed, replicas=[model, model]))
+        peak = torch.cuda.max_memory_allocated()
+        launches, shapes = read_counters()
+        streams = {name: Path(tmp, f"{name}.rdeic").read_bytes()
+                   for name, _ in items}
+    bad = [n for n in streams if streams[n] != base["streams"][n]]
+    err = max(float(np.abs(out - want).max())
+              for (out, _), want in zip(outs, base["images"]))
+    want = partition_dp_launches(model, chunks, 2)
+    log(f"[partition_dp] dp = 2 replicas on this card, fp32: {ms:.1f} ms, "
+        f"{ms / len(items):.1f} ms an image (host clock, synchronised; "
+        f"[partition] {base['ms_per_image']:.1f}); peak memory "
+        f"{peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} above the "
+        f"resident); images against [partition]: max |diff| {err:.3g}; "
+        f"launches {json.dumps(launches)}, from the structure "
+        f"{json.dumps(want)}")
+    if bad:
+        raise AssertionError(f"[partition_dp] streams differ from "
+                             f"[partition]'s: {bad}")
+    if err > 1e-5:
+        raise AssertionError(f"[partition_dp] images differ from "
+                             f"[partition]'s by {err:.3g} (limit 1e-5)")
+    check_launches("partition_dp", launches, want)
+    return {"ms": ms, "ms_per_image": ms / len(items), "launches": launches,
+            "shapes": shapes, "peak_bytes": peak, "max_abs_err": err}
+
+
+def phase_tiled_mesh(model, device, seed: int, base: dict) -> dict:
+    """Phase 18, [tiled_mesh]: `--use_mesh` over the one card (the CLI's
+    `make_mesh()` there; here `make_mesh(devices=[device])`, the card this
+    run drives): [tiled_v2]'s stream decoded again through
+    `tiled_decompress_decode` with the mesh's replicas and a generator
+    seeded alike. On one device nothing is padded, so the gate is
+    bit-equality with [tiled_v2]'s image; launches as the decode's part of
+    `tiled_launches`."""
+    mesh = make_mesh(devices=[device])
+    replicas = [model for _ in mesh.devices()]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp, "tiled.rdeic")
+        path.write_bytes(base["stream"])
+        gen = torch.Generator(device=device).manual_seed(seed)
+        reset_counters()
+        out, ms = host_ms(lambda: tiled.tiled_decompress_decode(
+            model, path, steps=STEPS, tile_batch=base["tile_batch"],
+            generator=gen, replicas=replicas))
+        launches, shapes = read_counters()
+    want = tiled_launches(model, True, base["n_tiles"], base["tile_batch"],
+                          base["containers"])
+    want["flash_attn_fwd"] -= -(-base["n_tiles"] // tiled.FEATURE_BATCH)
+    same = bool(torch.equal(out.cpu(), base["image"]))
+    log(f"[tiled_mesh] --use_mesh over the one card (dp = "
+        f"{mesh.shape['dp']}): decode {ms:.1f} ms; bit-equal to [tiled_v2]: "
+        f"{same}; launches {json.dumps(launches)}, from the grid "
+        f"{json.dumps(want)}")
+    if not same:
+        raise AssertionError("[tiled_mesh] the image differs from [tiled_v2]'s")
+    check_launches("tiled_mesh", launches, want)
+    return {"ms": ms, "launches": launches, "shapes": shapes}
+
+
 class PhaseClock:
     """Seconds between marks, by the name of the phases they close."""
 
@@ -3059,10 +3592,16 @@ class PhaseClock:
 def main() -> int:
     ap = argparse.ArgumentParser(description="rdeic_torch smoke run on one GPU")
     ap.add_argument("--seed", type=int, default=0)
+    # a rank of phase 16, started by the phase itself
+    ap.add_argument("--gloo-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.gloo_rank is not None:
+        return gloo_rank(args)
     device = resolve_device("cuda")
     clock = PhaseClock()
     phase_environment()
@@ -3083,6 +3622,9 @@ def main() -> int:
     check_partition_bf16(model, runs)
     phase_partition_clip(model, device, args.seed)
     clock.mark("partition")
+    runs["partition_dp"] = phase_partition_dp(model, device, args.seed,
+                                              runs["partition"])
+    clock.mark("partition_dp")
     for tag, m, v2, tile_batch, settings in (
             ("tiled_v2", model, True, 4, {}),
             ("tiled_v2_bf16", bf16, True, 4, {}),
@@ -3090,6 +3632,9 @@ def main() -> int:
         runs[tag] = phase_tiled(m, device, args.seed, tag, v2, tile_batch,
                                 settings)
     clock.mark("tiled")
+    runs["tiled_mesh"] = phase_tiled_mesh(model, device, args.seed,
+                                          runs["tiled_v2"])
+    clock.mark("tiled_mesh")
     runs.update(phase_lanes(model, device, args.seed, runs["serve"]))
     clock.mark("lanes")
     phase_reference(model, bf16, device, args.seed)
@@ -3120,8 +3665,12 @@ def main() -> int:
     runs["refine_bf16"] = phase_training(bf16_refine, device, args.seed)
     runs["validate_bf16"] = phase_validate(bf16_refine, device, args.seed,
                                            "b, bf16 refine", want_bf16=True)
-    del bf16, bf16_refine
     clock.mark("bf16 training and validate")
+    runs["ddp_nccl"] = phase_ddp_nccl(bf16, device, args.seed)
+    del bf16, bf16_refine
+    clock.mark("ddp_nccl")
+    runs["ddp_gloo_2"] = phase_ddp_gloo(args.seed)
+    clock.mark("ddp_gloo_2")
     kernels = phase_kernels(device, runs)
     clock.mark("kernels")
     log(f"[time] seconds by phase {json.dumps(clock.marks)}; total "

@@ -331,6 +331,7 @@
 // peak, 989 TFLOP/s. At the training path's L = 1024..4096 the flops
 // bound every shape.
 
+#include <atomic>
 #include <type_traits>
 
 #include "flash_bf16.cuh"
@@ -1528,6 +1529,27 @@ cudaError_t prepare(Kernel kernel, int smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
+// prepare() once on each device that launches the kernel: a function's
+// attributes are set on the current device only, so a flag a device (not
+// one a process) records where they hold. Past kMaxDevices it prepares on
+// every launch.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t prepare_on_device(Kernel kernel, int smem,
+                              std::atomic<bool>* prepared) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool flagged = dev < kMaxDevices;
+  if (flagged && prepared[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = prepare(kernel, smem);
+  if (err == cudaSuccess && flagged)
+    prepared[dev].store(true, std::memory_order_release);
+  return err;
+}
+
 // bf16 at d = 64 on the bf16 tensor cores (header). 128 threads a block;
 // warp w owns rows 16 w.. of the block's 64-row kept tile (q rows in dq,
 // keys in dkv) and holds their two kept A-fragment sets in registers; the
@@ -2243,16 +2265,20 @@ __global__ void __launch_bounds__(NT, 4)
   store_rows(dv + base, acc_v, k0 + warp * 16, L, row);
 }
 
+// the devices where each kernel's prepare() ran
+std::atomic<bool> dq_prepared[kMaxDevices];
+std::atomic<bool> dkv_prepared[kMaxDevices];
+
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       void* dq, float* di, int B, int L, int H, float scale,
                       cudaStream_t stream) {
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
   if (err != cudaSuccess) return err;
-  // static shared memory only; prepared once, so that a launch is one call
-  // (the short calls are host-bound)
-  static const cudaError_t prepared = prepare(flash_dq_d16_bf16, 0);
-  if (prepared != cudaSuccess) return prepared;
+  // static shared memory only; prepared once a device, so that a launch is
+  // one call (the short calls are host-bound)
+  err = prepare_on_device(flash_dq_d16_bf16, 0, dq_prepared);
+  if (err != cudaSuccess) return err;
   const dim3 grid((L + BT - 1) / BT, B * H);
   flash_dq_d16_bf16<<<grid, NT, 0, stream>>>(
       static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
@@ -2268,8 +2294,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
   if (err != cudaSuccess) return err;
-  static const cudaError_t prepared = prepare(flash_dkv_d16_bf16, 0);
-  if (prepared != cudaSuccess) return prepared;
+  err = prepare_on_device(flash_dkv_d16_bf16, 0, dkv_prepared);
+  if (err != cudaSuccess) return err;
   const dim3 grid((L + BT - 1) / BT, B * H);
   flash_dkv_d16_bf16<<<grid, NT, 0, stream>>>(
       static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
@@ -2890,6 +2916,26 @@ int rdeic_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
 
 const char* rdeic_flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The shared-memory carveout that the d = 16 bf16 dq and dkv kernels prefer
+// on `device`: cudaSharedmemCarveoutMaxShared (100) once prepare() ran
+// there, -1 (the default) before. Returns 0 or a cudaError_t.
+int rdeic_flash_bwd_d16_bf16_carveout(int device, int* dq, int* dkv) {
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, d16_bf16::flash_dq_d16_bf16);
+  if (err == cudaSuccess) {
+    *dq = attr.preferredShmemCarveout;
+    err = cudaFuncGetAttributes(&attr, d16_bf16::flash_dkv_d16_bf16);
+    *dkv = attr.preferredShmemCarveout;
+  }
+  const cudaError_t back = cudaSetDevice(current);
+  return err != cudaSuccess ? err : back;
 }
 
 }  // extern "C"

@@ -196,15 +196,16 @@ class _Failed:
         self.exc = exc
 
 
-def device_prefetch(loader, device: torch.device
+def device_prefetch(loader, device: torch.device, rows: slice = slice(None)
                     ) -> Iterator[tuple[torch.Tensor, dict]]:
     """(images on `device`, host batch) pairs of `loader`, each upload
     started one batch before the consumer takes it (rdeic_tpu's
     `device_prefetch` at its default depth of 2): on CUDA a pinned-memory,
-    non-blocking copy, so the copy of batch k + 1 overlaps step k. The host
-    batch is kept for the image logger."""
+    non-blocking copy, so the copy of batch k + 1 overlaps step k. Only the
+    batch's `rows` go up (a data-parallel rank's, `Mesh.rows`); the whole
+    host batch is kept for the image logger."""
     def upload(batch: dict) -> torch.Tensor:
-        img = batch["jpg"]
+        img = batch["jpg"][rows]
         if device.type == "cuda":
             return img.pin_memory().to(device, non_blocking=True)
         return img.to(device)

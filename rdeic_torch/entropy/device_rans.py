@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -426,12 +427,17 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {msg}")
 
 
+# serving replicas launch from one thread each: a count is a read and a write
+_TALLY_LOCK = threading.Lock()
+
+
 def _tally(name: str, key) -> None:
     """One launch of wrapper `name`, tallied on the wrapper itself (held
     from import, so a spy put in its place counts nothing twice)."""
     fn = _WRAPPERS[name]
-    fn.launches += 1
-    fn.shapes[key] = fn.shapes.get(key, 0) + 1
+    with _TALLY_LOCK:
+        fn.launches += 1
+        fn.shapes[key] = fn.shapes.get(key, 0) + 1
 
 
 def _check_cuda(name: str, tables: DeviceRansTables, *tensors) -> int:
@@ -476,12 +482,13 @@ def decode_pass(tables: DeviceRansTables, words, nwords, state, ptr, idx,
         raise ValueError("decode_pass takes fewer than 2^31 words and indexes")
     syms = torch.empty_like(idx)
     state_out, ptr_out = torch.empty_like(state), torch.empty_like(ptr)
-    err = _library().rdeic_rans_decode_lanes(
-        words.data_ptr(), nwords.data_ptr(), state.data_ptr(), ptr.data_ptr(),
-        idx.data_ptr(), tables.lut_flat.data_ptr(), tables.cdf_flat.data_ptr(),
-        tables.lengths.data_ptr(), tables.offsets.data_ptr(),
-        syms.data_ptr(), state_out.data_ptr(), ptr_out.data_ptr(), b, k, w,
-        t_steps, n_valid, tables.max_len, tables.ncdfs, _stream(index))
+    with torch.cuda.device(index):  # the library uses the current device
+        err = _library().rdeic_rans_decode_lanes(
+            words.data_ptr(), nwords.data_ptr(), state.data_ptr(), ptr.data_ptr(),
+            idx.data_ptr(), tables.lut_flat.data_ptr(), tables.cdf_flat.data_ptr(),
+            tables.lengths.data_ptr(), tables.offsets.data_ptr(),
+            syms.data_ptr(), state_out.data_ptr(), ptr_out.data_ptr(), b, k, w,
+            t_steps, n_valid, tables.max_len, tables.ncdfs, _stream(index))
     _raise_on(err, "rans_decode_lanes")
     _tally("decode_pass", (b, k, t_steps))
     return syms, (state_out, ptr_out)
@@ -513,12 +520,13 @@ def decode_pass_shared(tables: DeviceRansTables, words, nwords, state, ptr,
         raise ValueError("decode_pass_shared takes fewer than 2^31 words")
     syms = torch.empty_like(idx)
     state_out, ptr_out = torch.empty_like(state), torch.empty_like(ptr)
-    err = _library().rdeic_rans_decode_shared(
-        words.data_ptr(), nwords.data_ptr(), state.data_ptr(), ptr.data_ptr(),
-        idx.data_ptr(), tables.lut_flat.data_ptr(), tables.cdf_flat.data_ptr(),
-        tables.lengths.data_ptr(), tables.offsets.data_ptr(),
-        syms.data_ptr(), state_out.data_ptr(), ptr_out.data_ptr(), b, k, w,
-        t_steps, n_valid, tables.max_len, tables.ncdfs, _stream(index))
+    with torch.cuda.device(index):  # the library uses the current device
+        err = _library().rdeic_rans_decode_shared(
+            words.data_ptr(), nwords.data_ptr(), state.data_ptr(), ptr.data_ptr(),
+            idx.data_ptr(), tables.lut_flat.data_ptr(), tables.cdf_flat.data_ptr(),
+            tables.lengths.data_ptr(), tables.offsets.data_ptr(),
+            syms.data_ptr(), state_out.data_ptr(), ptr_out.data_ptr(), b, k, w,
+            t_steps, n_valid, tables.max_len, tables.ncdfs, _stream(index))
     _raise_on(err, "rans_decode_shared")
     _tally("decode_pass_shared", (b, k, t_steps))
     return syms, (state_out, ptr_out)
@@ -551,12 +559,13 @@ def encode_lanes(tables: DeviceRansTables, sym_steps, idx_steps, valid_steps,
     words = torch.zeros((b, k, wcap), dtype=torch.int32, device=dev)
     nwords = torch.empty((b, k), dtype=torch.int32, device=dev)
     ovf = torch.zeros((), dtype=torch.int32, device=dev)
-    err = _library().rdeic_rans_encode_lanes(
-        sym_steps.data_ptr(), idx_steps.data_ptr(), valid_steps.data_ptr(),
-        tables.cdf_flat.data_ptr(), tables.lengths.data_ptr(),
-        tables.offsets.data_ptr(), words.data_ptr(), nwords.data_ptr(),
-        ovf.data_ptr(), t_tot, b, k, wcap, tables.max_len, tables.ncdfs,
-        _stream(index))
+    with torch.cuda.device(index):  # the library uses the current device
+        err = _library().rdeic_rans_encode_lanes(
+            sym_steps.data_ptr(), idx_steps.data_ptr(), valid_steps.data_ptr(),
+            tables.cdf_flat.data_ptr(), tables.lengths.data_ptr(),
+            tables.offsets.data_ptr(), words.data_ptr(), nwords.data_ptr(),
+            ovf.data_ptr(), t_tot, b, k, wcap, tables.max_len, tables.ncdfs,
+            _stream(index))
     _raise_on(err, "rans_encode_lanes")
     _tally("encode_lanes", (b, k, t_tot))
     return words, nwords, ovf.bool()

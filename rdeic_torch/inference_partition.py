@@ -28,8 +28,19 @@ same flags throughout, and the streams are the bytes a serial run writes.
 `--use_captions` captions each image with a local Hugging Face VLM
 (`--caption_model`, no download) and conditions the sampler on its CLIP
 context, when `--bpe_vocab` names the merges file and the weights have a
-CLIP tower; without the VLM every prompt is empty. `--dp` above 1 is refused
-(ROADMAP Queue 1, multi-device). Runs on CUDA unless `--device cpu`.
+CLIP tower; without the VLM every prompt is empty. Runs on CUDA unless
+`--device cpu`.
+
+`--dp N` serves over a mesh of the first N devices (`make_mesh(dp, 1,
+devices[:dp])`, so N above the device count raises, as the root CLI
+does; with `--device cpu` the N devices are copies of the CPU), a model
+replica on each: each micro-batch's noise is drawn at the micro-batch's
+size on the first device, as at `--dp 1`, its rows split in dp blocks
+over the replicas, one thread a device (`pipeline.rdeic.decode_rows`),
+and the images gathered in row order. `--micro_batch_size` must divide by
+N; a chunk's ragged tail micro-batch runs on the first device alone. The
+codec stage stays on the first device, so the streams are those of
+`--dp 1`.
 
 The per-chunk work (`codec_stage`, `sample_stage`, `serve`) takes arrays,
 so it runs where no image library is installed; only `main` reads and
@@ -43,12 +54,14 @@ import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 from rdeic_torch.inference import list_images, load_model
+from rdeic_torch.parallel.mesh import make_mesh
+from rdeic_torch.pipeline.rdeic import decode_rows
 from rdeic_torch.utils.backend import full_fp32, resolve_device
 from rdeic_torch.utils.image import pad, to_float01, to_uint8
 from rdeic_torch.utils.metrics import MetricSuite
@@ -134,18 +147,33 @@ def sample_stage(model, c_latent, guide_hint, *, steps: int, micro: int,
                  generator: torch.Generator, sampler: str = "ddpm",
                  guidance_scale: float = 1.0,
                  context: Optional[torch.Tensor] = None,
-                 batch_size: Optional[int] = None) -> torch.Tensor:
+                 batch_size: Optional[int] = None,
+                 replicas: Sequence = ()) -> torch.Tensor:
     """Relay sampling and VAE decode of a chunk in micro-batches of `micro`
     (the last may be smaller), each `decode_pipeline` drawing its noise
-    from `generator` in turn: [B, H, W, 3] in [0, 1]."""
+    from `generator` in turn: [B, H, W, 3] in [0, 1]. With `replicas` (the
+    model on each device of a dp mesh, `model` first), a micro-batch that
+    divides by their count draws its noise first and is split over them
+    (`decode_rows`); one that does not runs on `model` alone."""
+    dp = max(len(replicas), 1)
     outs = []
     for j in range(0, c_latent.shape[0], micro):
+        cl, gh = c_latent[j:j + micro], guide_hint[j:j + micro]
+        ctx = None if context is None else context[j:j + micro]
+        opts = dict(sampler=sampler, guidance_scale=guidance_scale,
+                    context=ctx)
         try:
-            outs.append(model.decode_pipeline(
-                c_latent[j:j + micro], guide_hint[j:j + micro], steps,
-                sampler=sampler, guidance_scale=guidance_scale,
-                context=None if context is None else context[j:j + micro],
-                generator=generator))
+            if dp > 1 and cl.shape[0] % dp == 0:
+                noise = model.sample_noise(cl, steps, sampler, generator)
+                outs.append(decode_rows(replicas, cl, gh, steps, noise=noise,
+                                        **opts))
+                continue
+            if dp > 1:
+                print(f"[dp] tail micro-batch of {cl.shape[0]} not divisible "
+                      f"by --dp {dp}: running unsharded on one device",
+                      flush=True)
+            outs.append(model.decode_pipeline(cl, gh, steps, **opts,
+                                              generator=generator))
         except torch.cuda.OutOfMemoryError:
             print(oom_advice(micro, batch_size or c_latent.shape[0]))
             raise
@@ -156,13 +184,15 @@ def serve(model, chunks, stream_dir: Path, *, steps: int, micro: int,
           generator: torch.Generator, sampler: str = "ddpm",
           guidance_scale: float = 1.0,
           context_fn: Optional[Callable] = None,
-          batch_size: Optional[int] = None) -> Iterator[tuple]:
+          batch_size: Optional[int] = None,
+          replicas: Sequence = ()) -> Iterator[tuple]:
     """Each chunk's (chunk, reconstructions [B, H, W, 3] in [0, 1] on the
     host, bpps, seconds per image): the codec stage of chunk k + 1 runs in
-    a worker thread while chunk k samples. `context_fn(chunk)` gives the
-    chunk's context (None: the stored empty prompt). The loop holds one
-    deterministic fp32 scope, so both threads see the same numerics flags
-    from the first chunk to the last."""
+    a worker thread while chunk k samples (over `replicas` when given, see
+    `sample_stage`). `context_fn(chunk)` gives the chunk's context (None:
+    the stored empty prompt). The loop holds one deterministic fp32 scope,
+    so every thread sees the same numerics flags from the first chunk to
+    the last."""
     with full_fp32(deterministic=True), ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(codec_stage, model, chunks[0], stream_dir) if chunks else None
         for ci, chunk in enumerate(chunks):
@@ -174,7 +204,8 @@ def serve(model, chunks, stream_dir: Path, *, steps: int, micro: int,
             out = sample_stage(model, c_latent, guide_hint, steps=steps,
                                micro=micro, generator=generator,
                                sampler=sampler, guidance_scale=guidance_scale,
-                               context=context, batch_size=batch_size)
+                               context=context, batch_size=batch_size,
+                               replicas=replicas)
             out = out.float().cpu().numpy()
             yield chunk, out, bpps, (time.time() - t0) / len(chunk)
 
@@ -210,16 +241,32 @@ def main(argv=None):
                     help="devices to shard each micro-batch over")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.dp > 1:
-        raise NotImplementedError("--dp: one device only; serving over "
-                                  "several is ROADMAP Queue 1, multi-device")
+    micro = args.micro_batch_size or args.batch_size
+    if micro % args.dp:
+        raise ValueError(f"--micro_batch_size {micro} must divide by --dp "
+                         f"{args.dp}")
 
     from PIL import Image  # noqa: PLC0415 (only the CLI reads images)
 
     device = resolve_device(args.device)
-    model = load_model(args.config, args.ckpt, device)
-    if args.bf16:
-        model.set_compute_dtype(torch.bfloat16)
+
+    def load(dev: torch.device):
+        m = load_model(args.config, args.ckpt, dev)
+        if args.bf16:
+            m.set_compute_dtype(torch.bfloat16)
+        return m
+
+    model = load(device)
+    replicas = []
+    if args.dp > 1:
+        devices = ([device] * args.dp if device.type == "cpu" else
+                   [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())])
+        mesh = make_mesh(dp=args.dp, tp=1, devices=devices[:args.dp])
+        home = model.uncond_context.device
+        replicas = [model if dev == home else load(dev)
+                    for dev in mesh.devices()]
+        print(f"serving mesh: dp={args.dp} over {len(devices)} devices")
     metrics = MetricSuite()
     psnr_f = metrics.create_metric("psnr")
     msssim_f = metrics.create_metric("ms_ssim")
@@ -267,7 +314,6 @@ def main(argv=None):
         originals[f] = (arr, small.shape[:2])
         items.append((f, pad(small, 64)))
     chunks = make_chunks(items, args.batch_size)
-    micro = args.micro_batch_size or args.batch_size
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     rows = []
@@ -276,7 +322,7 @@ def main(argv=None):
             generator=generator, sampler=args.sampler,
             guidance_scale=args.guidance_scale,
             context_fn=context_fn if tokenizer is not None else None,
-            batch_size=args.batch_size):
+            batch_size=args.batch_size, replicas=replicas):
         if args.profile_memory and device.type == "cuda":
             print(f"  device mem: {torch.cuda.memory_allocated() / 2**20:.0f} MiB")
         resolve_captions()  # the captions go in the CSV

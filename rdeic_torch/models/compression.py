@@ -7,7 +7,7 @@ on both sides, and the training forward (noisy likelihoods, CVQ losses).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -200,18 +200,26 @@ class VectorQuantiser(nn.Module):
         """Negative squared L2 distance to every code, in full fp32."""
         return vq_logits(z_flat, self.embedding)
 
-    def forward(self, z: torch.Tensor, training: bool = True):
-        """z NHWC [B, h, w, D] -> (z_q, loss, indices [B, h, w])."""
+    def forward(self, z: torch.Tensor, training: bool = True,
+                z_all: torch.Tensor | None = None):
+        """z NHWC [B, h, w, D] -> (z_q, loss, indices [B, h, w]). With the
+        batch sharded over ranks, `z_all` [n, D] is the whole batch's
+        detached z (every rank's rows, `Mesh.gather_rows`): the contrastive
+        term picks its rows from all n, as the JAX package does under its
+        mesh; the commitment and codebook terms stay means over z."""
         b, h, w, d = z.shape
         z_flat = z.reshape(-1, d)
         logits = self.logits(z_flat.detach())
+        # made before z_q, as the one-process logits are, so that the
+        # embedding's gradient sums its parts in the same order
+        whole = logits if z_all is None else self.logits(z_all)
         indices = torch.argmax(logits, dim=1)
         z_q = self.embedding[indices].reshape(z.shape)
         loss = z.new_zeros(())
         if training:
             loss = (self.beta * torch.mean((z_q.detach() - z) ** 2)
                     + torch.mean((z_q - z.detach()) ** 2)
-                    + self._contrastive(logits))
+                    + self._contrastive(whole))
             z_q = z + (z_q - z).detach()
         return z_q, loss, indices.reshape(b, h, w)
 
@@ -325,16 +333,23 @@ class CompressionModel(nn.Module):
         return nhwc(self.out(guide_hint)), nhwc(guide_hint)
 
     def forward(self, x: torch.Tensor, noise: Sequence[torch.Tensor] | None = None,
-                training: bool = True) -> dict:
+                training: bool = True,
+                gather_rows: Callable | None = None) -> dict:
         """The rate-estimation forward: x [B, H, W, in_nc] -> dict of
         c_latent, guide_hint, y_likelihoods, q_likelihoods, emb_loss, z (the
         hyper latent) and vq_indices. Training takes `noise`, one U(-0.5,
-        0.5) tensor per slice of y's shape [B, h, w, slice_ch[i]]."""
+        0.5) tensor per slice of y's shape [B, h, w, slice_ch[i]]. With a
+        batch sharded over ranks, `gather_rows` (`Mesh.gather_rows`) gathers
+        the whole batch's detached z for the contrastive term."""
         if training and (noise is None or len(noise) != self.slice_num):
             raise ValueError(f"training needs {self.slice_num} uniform noise "
                              "tensors, one per slice")
         y, z = self.analyze(x)
-        z_q, emb_loss, vq_indices = self.quantize(z, training=training)
+        z_all = None
+        if gather_rows is not None:
+            z_all = gather_rows(z.detach().reshape(-1, self.N))
+        z_q, emb_loss, vq_indices = self.quantize(z, training=training,
+                                                  z_all=z_all)
         hyper_params = self.hyper_decode(z_q)
         y_hat_slices, y_likelihoods, q_likelihoods = [], [], []
         for idx, y_slice in enumerate(torch.split(y, self.slice_ch, dim=-1)):

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -100,7 +101,23 @@ def _bwd_library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp]
     lib.rdeic_flash_bwd_error_string.restype = ctypes.c_char_p
     lib.rdeic_flash_bwd_error_string.argtypes = [i]
+    lib.rdeic_flash_bwd_d16_bf16_carveout.restype = i
+    lib.rdeic_flash_bwd_d16_bf16_carveout.argtypes = [
+        i, ctypes.POINTER(i), ctypes.POINTER(i)]
     return lib
+
+
+def d16_bf16_carveout(index: int) -> tuple[int, int]:
+    """The shared-memory carveout (percent) that `flash_dq_d16_bf16` and
+    `flash_dkv_d16_bf16` prefer on CUDA device `index`: 100 once a launch
+    there prepared them, -1 (CUDA's default) before."""
+    dq, dkv = ctypes.c_int(), ctypes.c_int()
+    lib = _bwd_library()
+    err = lib.rdeic_flash_bwd_d16_bf16_carveout(index, ctypes.byref(dq),
+                                                ctypes.byref(dkv))
+    _raise_on(err, "rdeic_flash_bwd_d16_bf16_carveout", lib,
+              "rdeic_flash_bwd_error_string")
+    return dq.value, dkv.value
 
 
 def _check(*xs: torch.Tensor) -> None:
@@ -138,11 +155,16 @@ def _raise_on(err: int, name: str, lib, to_string) -> None:
         raise RuntimeError(f"{name} launch failed: {msg}")
 
 
+# serving replicas launch from one thread each: a count is a read and a write
+_TALLY_LOCK = threading.Lock()
+
+
 def _tally(fn, q: torch.Tensor) -> None:
     """One launch of `fn`'s kernel, tallied by (B, L, H, D, dtype)."""
-    fn.launches += 1
     key = (*q.shape, str(q.dtype).removeprefix("torch."))
-    fn.shapes[key] = fn.shapes.get(key, 0) + 1
+    with _TALLY_LOCK:
+        fn.launches += 1
+        fn.shapes[key] = fn.shapes.get(key, 0) + 1
 
 
 def _forward_kernel(q, k, v, lse) -> torch.Tensor:

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -165,10 +166,15 @@ def _shape_key(shape, dtype, param_dtype, groups, eps, silu):
             str(dtype).removeprefix("torch."))
 
 
+# serving replicas launch from one thread each: a count is a read and a write
+_TALLY_LOCK = threading.Lock()
+
+
 def _tally(fn, key, launches: int) -> None:
     """One call of `fn` (`launches` kernel launches), tallied by shape."""
-    fn.launches += launches
-    fn.shapes[key] = fn.shapes.get(key, 0) + 1
+    with _TALLY_LOCK:
+        fn.launches += launches
+        fn.shapes[key] = fn.shapes.get(key, 0) + 1
 
 
 def _cdiv(a: int, b: int) -> int:

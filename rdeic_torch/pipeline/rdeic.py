@@ -31,6 +31,10 @@ the compression model's forward with noisy likelihoods and the CVQ losses ->
   pixel MSE + 0.5 LPIPS(alex). The VAE and LPIPS stay frozen; gradients pass
   through them to the sampler's latent.
 
+Several devices (`parallel/mesh.py`): `loss_fn(mesh=...)` trains a rank's
+rows of the global batch (see there), and `decode_rows` decodes a batch's
+rows over serving replicas, one a device, from a thread each.
+
 Numerics: the VAE and the denoiser run in full fp32 (`full_fp32`: no TF32,
 which cuDNN convolutions would use by default), so the card computes what the
 CPU reference computes; the codec adds its own deterministic settings. A
@@ -48,6 +52,8 @@ from typing import Any, Mapping, Optional, Sequence
 
 import math
 import os
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 
 import torch
 from torch import nn
@@ -60,6 +66,7 @@ from rdeic_torch.models.compression import CompressionModel
 from rdeic_torch.models.lpips import LPIPS, warn_random_backbone
 from rdeic_torch.models.unet import NoiseEstimator
 from rdeic_torch.models.vae import AutoencoderKL, sample_diagonal_gaussian
+from rdeic_torch.parallel.mesh import shard_rows
 from rdeic_torch.pipeline.codec import CompressionCodec
 from rdeic_torch.utils.backend import full_fp32, resolve_device
 from rdeic_torch.utils.bitstream import filesize, read_body, write_body
@@ -68,6 +75,42 @@ from rdeic_torch.utils.bitstream import filesize, read_body, write_body
 # sampler name -> (coefficient tables, sampling loop)
 SAMPLERS = {"ddpm": (spaced.make_spaced_coefficients, spaced.sample),
             "ddim": (ddim.make_ddim_coefficients, ddim.sample)}
+
+
+def decode_rows(replicas: Sequence["RDEIC"], c_latent, guide_hint,
+                steps: int, *, noise: dict,
+                context: torch.Tensor | None = None, **opts) -> torch.Tensor:
+    """`decode_pipeline` of a batch over data-parallel serving replicas (one
+    model a device of a `parallel.mesh` mesh, in dp order; replicas on one
+    device may be one model): replica i decodes dp block i of the rows
+    (`shard_rows`) on its device, from a thread of its own, with those rows
+    of `noise` (a `sample_noise` dict of the whole batch) and `context`.
+    The images come back in row order, on c_latent's device. `opts`:
+    sampler and guidance_scale."""
+    dp, b = len(replicas), c_latent.shape[0]
+
+    def run(i: int) -> torch.Tensor:
+        dev = replicas[i].uncond_context.device
+        rows = shard_rows(b, dp, i)
+        part = {k: [x.to(dev) for x in v] if isinstance(v, list) else v.to(dev)
+                for k, v in noise_rows(noise, rows).items()}
+        on_card = torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
+        with on_card:
+            return replicas[i].decode_pipeline(
+                c_latent[rows].to(dev), guide_hint[rows].to(dev), steps,
+                context=None if context is None else context[rows].to(dev),
+                **opts, **part)
+
+    with ThreadPoolExecutor(max_workers=dp) as pool:
+        outs = list(pool.map(run, range(dp)))
+    return torch.cat([o.to(c_latent.device) for o in outs])
+
+
+def noise_rows(noise: dict, rows: slice) -> dict:
+    """A `train_noise` (or `sample_noise`) dict cut to `rows` of the batch:
+    every tensor, and every tensor of a list, along its first axis."""
+    return {k: [x[rows] for x in v] if isinstance(v, (list, tuple)) else v[rows]
+            for k, v in noise.items()}
 
 
 def _cfg_params(cfg: Optional[Mapping[str, Any]]) -> dict:
@@ -280,6 +323,22 @@ class RDEIC(nn.Module):
                    noise=step_noise, generator=generator, uncond_fn=uncond_fn,
                    guidance_scale=guidance_scale)
 
+    def sample_noise(self, c_latent: torch.Tensor, steps: int,
+                     sampler: str = "ddpm",
+                     generator: torch.Generator | None = None) -> dict:
+        """The draws `sample` makes from `generator` for `c_latent`, in its
+        order: `relay_noise`, then `step_noise`, one tensor a step, each of
+        c_latent's shape, dtype and device. Data-parallel serving draws
+        them for the whole batch and hands each replica its rows."""
+        make, _ = SAMPLERS[sampler]
+        n = make(self.schedule, self.used_timesteps, steps).num_steps
+        opts = dict(generator=generator, device=c_latent.device,
+                    dtype=c_latent.dtype)
+        relay = torch.randn(c_latent.shape, **opts)
+        return dict(relay_noise=relay,
+                    step_noise=[torch.randn(c_latent.shape, **opts)
+                                for _ in range(n)])
+
     @torch.no_grad()
     def decode_pipeline(self, c_latent, guide_hint, steps: int, *,
                         sampler: str = "ddpm", guidance_scale: float = 1.0,
@@ -338,14 +397,17 @@ class RDEIC(nn.Module):
 
     # -- training ----------------------------------------------------------------
     def train_noise(self, img: torch.Tensor,
-                    generator: torch.Generator | None = None) -> dict:
+                    generator: torch.Generator | None = None,
+                    batch: int | None = None) -> dict:
         """Every draw of one `loss_fn` call for images `img` [B, H, W, 3]:
         `posterior` N(0, 1) of the latent's shape and `uniform`, one
         U(-0.5, 0.5) tensor per slice of y; then for the independent phase
         `t` uniform in [0, used_timesteps) and `eps` N(0, 1) of the latent's
         shape, for the refine phase `relay` and `steps` (`fixed_step`
-        tensors) N(0, 1) of c_latent's shape."""
-        b, h, w, _ = img.shape
+        tensors) N(0, 1) of c_latent's shape. `batch` (default B) is the
+        rows drawn: a rank of a sharded batch draws the whole batch's."""
+        _, h, w, _ = img.shape
+        b = img.shape[0] if batch is None else batch
         lh, lw = h // self.latent_factor, w // self.latent_factor
         yh, yw = -(-lh // 2), -(-lw // 2)  # one stride-2 block in g_a
         opts = dict(generator=generator, device=img.device, dtype=img.dtype)
@@ -368,12 +430,13 @@ class RDEIC(nn.Module):
                      for c in self.compression.slice_ch])
 
     def get_input(self, img: torch.Tensor, noise: dict | None = None,
-                  training: bool = True):
+                  training: bool = True, gather_rows=None):
         """img NHWC in [-1, 1] -> (x_start z, cond). The frozen VAE encoder
         runs without grad. Training draws the latent from the posterior
         with `noise` (a `train_noise` dict) and runs the compression model's
         noisy forward; `training=False` takes the posterior mean and the
-        compression model's eval forward, and needs no noise."""
+        compression model's eval forward, and needs no noise. `gather_rows`:
+        see `CompressionModel.forward`."""
         with torch.no_grad():
             if training:
                 mean, logvar, h = self.vae.encode_hc(img)
@@ -382,7 +445,7 @@ class RDEIC(nn.Module):
             else:
                 z, h = self.encode_first_stage(img)
         out = self.compression(h, noise=noise["uniform"] if training else None,
-                               training=training)
+                               training=training, gather_rows=gather_rows)
         n, lh, lw, _ = z.shape
         num_pixels = n * lh * lw * 64
         bpp = torch.log(out["y_likelihoods"]).sum() / (-math.log(2) * num_pixels)
@@ -459,14 +522,33 @@ class RDEIC(nn.Module):
 
     @full_fp32()
     def loss_fn(self, img: torch.Tensor, noise: dict | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, mesh=None):
         """(loss, logs) of one batch of [-1, 1] NHWC images, from `noise` (a
         `train_noise` dict) or draws from `generator`: the refine loss when
         `is_refine`, else the independent one. logs["_z_hyper"] is the hyper
-        latent for the trainer's codebook update."""
-        if noise is None:
+        latent for the trainer's codebook update.
+
+        On a process mesh (`parallel.mesh`), `img` is this rank's rows of the
+        global batch. Every rank draws the global batch's noise from its
+        generator (seeded alike) and keeps its rows, so a world of any size
+        sees the noise of one process; an explicit `noise` is the global
+        batch's too. The contrastive term and `_z_hyper` take the whole
+        batch's hyper latent (`Mesh.gather_rows`); the other terms are
+        means over the rank's rows, whose mean over ranks is the global
+        mean."""
+        gather_rows = None
+        if mesh is not None:
+            batch = img.shape[0] * mesh.shape["dp"]
+            if noise is None:
+                noise = self.train_noise(img, generator, batch=batch)
+            elif noise["posterior"].shape[0] != batch:
+                raise ValueError(f"noise for {noise['posterior'].shape[0]} "
+                                 f"rows; the global batch has {batch}")
+            noise = noise_rows(noise, mesh.rows(batch))
+            gather_rows = mesh.gather_rows
+        elif noise is None:
             noise = self.train_noise(img, generator)
-        z, cond = self.get_input(img, noise)
+        z, cond = self.get_input(img, noise, gather_rows=gather_rows)
         if self.is_refine:
             loss, logs = self.p_losses_refine(z, cond, noise["relay"],
                                               noise["steps"])
@@ -474,6 +556,8 @@ class RDEIC(nn.Module):
             loss, logs = self.p_losses_independent(z, cond, noise["t"],
                                                    noise["eps"])
         logs["_z_hyper"] = cond["z_hyper"].detach()
+        if gather_rows is not None:  # the codebook update's whole batch
+            logs["_z_hyper"] = gather_rows(logs["_z_hyper"])
         return loss, logs
 
     # -- real bitstream --------------------------------------------------------

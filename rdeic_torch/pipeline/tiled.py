@@ -21,8 +21,13 @@ smaller), and blends them.
 
 Noise: one `noise` dict (`RDEIC.sample`'s relay_noise, step_noise) per tile
 batch, or draws from `generator` batch by batch, as the JAX package draws one
-key split per tile batch. Runs on the model's device; a multi-device mesh
-is not ported (the CLI refuses `--use_mesh`).
+key split per tile batch. Runs on the model's device, or, with `replicas`
+(the model on each device of a dp mesh, the JAX package's `mesh`), over
+several: a tile batch is padded to a multiple of dp by repeating its last
+tile, its noise drawn at the padded size (JAX draws inside the jitted
+decode at the padded shape), its rows split over the replicas
+(`pipeline.rdeic.decode_rows`), and the padded rows dropped. On one device
+nothing is padded, and the run is the one without a mesh.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from rdeic_torch.models import blocks
+from rdeic_torch.pipeline.rdeic import decode_rows
 from rdeic_torch.utils.bitstream import filesize, read_body, write_body
 from rdeic_torch.utils.image import pad
 
@@ -161,18 +167,34 @@ def tile_batches(n: int, tile_batch: int) -> list[tuple[int, int]]:
 def _batched_tile_decode(model, c_latent, guide_hint, steps: int,
                          sampler: str, tile_batch: int,
                          noise: Optional[Sequence[dict]],
-                         generator: Optional[torch.Generator]) -> torch.Tensor:
+                         generator: Optional[torch.Generator],
+                         replicas: Sequence = ()) -> torch.Tensor:
     """Relay-sample and VAE-decode the latent tiles, a tile batch a call,
-    each batch at its own size (a ragged last batch is not padded)."""
+    each batch at its own size (a ragged last batch is not padded); over
+    two or more `replicas`, each batch padded to a multiple of their count
+    (`noise` then at the padded size)."""
     batches = tile_batches(c_latent.shape[0], tile_batch)
     if noise is not None and len(noise) != len(batches):
         raise ValueError(f"need noise for {len(batches)} tile batches, got "
                          f"{len(noise)}")
-    return torch.cat([
-        model.decode_pipeline(c_latent[a:b], guide_hint[a:b], steps,
-                              sampler=sampler, generator=generator,
-                              **(noise[j] if noise is not None else {}))
-        for j, (a, b) in enumerate(batches)])
+    dp = len(replicas)
+    outs = []
+    for j, (a, b) in enumerate(batches):
+        cl, gh = c_latent[a:b], guide_hint[a:b]
+        if dp < 2:
+            outs.append(model.decode_pipeline(
+                cl, gh, steps, sampler=sampler, generator=generator,
+                **(noise[j] if noise is not None else {})))
+            continue
+        pad = (-(b - a)) % dp  # repeat the last tile, as the JAX package
+        if pad:
+            cl = torch.cat([cl, cl[-1:].expand(pad, *cl.shape[1:])])
+            gh = torch.cat([gh, gh[-1:].expand(pad, *gh.shape[1:])])
+        batch_noise = (noise[j] if noise is not None
+                       else model.sample_noise(cl, steps, sampler, generator))
+        outs.append(decode_rows(replicas, cl, gh, steps, noise=batch_noise,
+                                sampler=sampler)[:b - a])
+    return torch.cat(outs)
 
 
 def _blend_tiles(recon_tiles: torch.Tensor, ys, xs, tile: int, overlap: int,
@@ -242,14 +264,15 @@ def decode_tile_latents(model, strings, zshape):
 def tiled_decompress_decode(model, stream_path, steps: int = 2,
                             sampler: str = "ddpm", tile_batch: int = 0,
                             noise: Optional[Sequence[dict]] = None,
-                            generator: Optional[torch.Generator] = None
-                            ) -> torch.Tensor:
+                            generator: Optional[torch.Generator] = None,
+                            replicas: Sequence = ()) -> torch.Tensor:
     """A tiled stream file (v1 or v2, told apart by the meta's length) ->
     [1, H, W, 3] in [0, 1] on the model's device. `tile_batch` tiles are
-    relay-sampled a call (0: all); `noise` has one dict per tile batch."""
+    relay-sampled a call (0: all); `noise` has one dict per tile batch.
+    `replicas`: the model on each device of a dp mesh (`model` first)."""
     strings, zshape = read_tiled(stream_path)
     cl, gh, ys, xs, tile, overlap, ph, pw, H, W = decode_tile_latents(
         model, strings, zshape)
     recon = _batched_tile_decode(model, cl, gh, steps, sampler, tile_batch,
-                                 noise, generator)
+                                 noise, generator, replicas)
     return _blend_tiles(recon, ys, xs, tile, overlap, ph, pw, H, W)

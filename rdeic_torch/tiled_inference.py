@@ -14,9 +14,11 @@ root CLI's line per image (bpp over the image, PSNR, encode and decode
 seconds). `--bf16` serves the VAE and the denoiser in bf16; the codec stays
 fp32. Noise comes from one `torch.Generator` seeded with `--seed`. The
 interleaved-lane codec is chosen by the RDEIC_RANS_* settings
-(pipeline/codec.py). `--use_mesh` (a tile batch sharded over several
-devices) is refused: ROADMAP Queue 1, multi-device. Runs on CUDA unless
-`--device cpu`.
+(pipeline/codec.py). `--use_mesh` shards each tile batch over every
+device (`make_mesh()`: each CUDA device, or the one CPU), a model replica
+on each, the batch padded to a multiple of their count (see
+pipeline/tiled.py); on one device it is the run without it. Runs on CUDA
+unless `--device cpu`.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from rdeic_torch.inference import list_images, load_model
+from rdeic_torch.parallel.mesh import make_mesh
 from rdeic_torch.pipeline.tiled import (
     tiled_compress,
     tiled_compress_xctx,
@@ -63,16 +66,25 @@ def main(argv=None):
                     help="serve the VAE and the denoiser in bf16")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.use_mesh:
-        raise NotImplementedError("--use_mesh: one device only; serving over "
-                                  "several is ROADMAP Queue 1, multi-device")
 
     from PIL import Image  # noqa: PLC0415 (only the CLI reads images)
 
     device = resolve_device(args.device)
-    model = load_model(args.config, args.ckpt, device)
-    if args.bf16:
-        model.set_compute_dtype(torch.bfloat16)
+
+    def load(dev: torch.device):
+        m = load_model(args.config, args.ckpt, dev)
+        if args.bf16:
+            m.set_compute_dtype(torch.bfloat16)
+        return m
+
+    model = load(device)
+    replicas = []
+    if args.use_mesh:
+        mesh = make_mesh(devices=None if device.type == "cuda" else [device])
+        home = model.uncond_context.device
+        replicas = [model if dev == home else load(dev)
+                    for dev in mesh.devices()]
+        print(f"serving mesh: dp={mesh.shape['dp']}")
     psnr_f = MetricSuite().create_metric("psnr")
     out_dir = Path(args.output)
     (out_dir / "bitstreams").mkdir(parents=True, exist_ok=True)
@@ -90,7 +102,8 @@ def main(argv=None):
         t0 = time.time()
         out01 = tiled_decompress_decode(
             model, stream, steps=args.steps, sampler=args.sampler,
-            tile_batch=args.tile_batch, generator=generator)
+            tile_batch=args.tile_batch, generator=generator,
+            replicas=replicas)
         recon = to_uint8(out01[0].float().cpu().numpy())
         dec_t = time.time() - t0
         Image.fromarray(recon).save(out_dir / f"{name}.png")

@@ -60,10 +60,10 @@ _D16_VARIANTS = {
     "no_exp": [("exp2_ftz(fmaf(", "(fmaf(")],
     # 60 KB of dynamic shared memory a block: two blocks per SM, not four
     "two_blocks": [("<<<grid, NT, 0, stream>>>", "<<<grid, NT, 61440, stream>>>"),
-                   ("prepare(flash_dq_d16_bf16, 0)",
-                    "prepare(flash_dq_d16_bf16, 61440)"),
-                   ("prepare(flash_dkv_d16_bf16, 0)",
-                    "prepare(flash_dkv_d16_bf16, 61440)")],
+                   ("prepare_on_device(flash_dq_d16_bf16, 0,",
+                    "prepare_on_device(flash_dq_d16_bf16, 61440,"),
+                   ("prepare_on_device(flash_dkv_d16_bf16, 0,",
+                    "prepare_on_device(flash_dkv_d16_bf16, 61440,")],
     "chunk16": [("NT = 128, KC = 32;", "NT = 128, KC = 16;")],
     "chunk64": [("NT = 128, KC = 32;", "NT = 128, KC = 64;")],
     # the small term's products into accumulators of their own, added at

@@ -2,6 +2,7 @@
 
     python -m rdeic_torch.train --config configs/train_rdeic.yaml \
         [--max_steps N] [--device cpu]
+    torchrun --nproc_per_node N -m rdeic_torch.train --config ...
 
 Reads the YAML tree (data, model, trainer), builds the loader and the model
 (`model.overrides.is_refine: true` selects the refine phase), optionally
@@ -24,6 +25,19 @@ validated, their averages logged at that step and printed as
 with the step, never from the training noise. Runs on CUDA unless
 `--device cpu`.
 
+Several devices (train.py's `trainer.mesh: {dp, tp}`; dp ~ takes them
+all): one process a device, launched by torchrun, whose environment
+starts torch.distributed (NCCL on CUDA, each rank on cuda:LOCAL_RANK; gloo
+with `--device cpu`). Every rank builds the same model and loader (an
+unseeded dataset takes rank 0's crop stream: `share_data_stream`), reads
+the global batch (`data_loader.batch_size`, which dp must divide) and
+uploads the rows of its dp index; the trainer averages the gradients over
+the ranks (train/trainer.py). Rank 0 alone writes `metrics.jsonl`, the
+checkpoints (and prunes them), the image logs and runs validation, while
+the others wait at a barrier; every rank loads `resume`. Plain `python -m
+rdeic_torch.train` is a world of one, where a mesh above one device is
+refused (`ValueError`, as train.py's `make_mesh`).
+
 The trainer settings of the repo's bf16 recipes, in train.py's order:
 `compute_dtype` (the denoiser and the VAE compute in it, the weights stay
 fp32), `frozen_dtype` (the frozen tensors are stored in it) and
@@ -42,8 +56,10 @@ import traceback
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from rdeic_torch.data.dataset import device_prefetch
+from rdeic_torch.parallel.mesh import init_distributed, local_rank, make_mesh
 from rdeic_torch.registry import instantiate_from_config, load_yaml
 from rdeic_torch.train.callbacks import ImageLogger
 from rdeic_torch.train.trainer import Trainer, cast_frozen, prune_checkpoints
@@ -90,6 +106,19 @@ def sync_base_weights(model, sync_path: str, synch_control: bool) -> None:
           f"{len(missing)} keys stay random]")
 
 
+def share_data_stream(loader) -> None:
+    """Give every rank rank 0's state of the dataset's `random` stream
+    (crops and flips), so that all ranks read the same global batches. A
+    dataset without a `seed` seeds its stream from the OS's entropy, which
+    differs between processes."""
+    rng = getattr(loader.dataset, "rng", None)
+    if rng is None:
+        return
+    state = [rng.getstate()]
+    dist.broadcast_object_list(state, src=0)
+    rng.setstate(state[0])
+
+
 def build_model(cfg: dict, device: torch.device):
     """The model of `cfg["model"]`, its YAML deep-updated by the optional
     `overrides`, with the trainer's `compute_dtype`, its frozen tensors in
@@ -133,23 +162,30 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cfg = load_yaml(args.config)
     tcfg = cfg.get("trainer", {})
-    mesh = tcfg.get("mesh") or {}
-    if (mesh.get("dp") or 1) > 1 or (mesh.get("tp") or 1) > 1:
-        raise NotImplementedError("trainer.mesh: one device only; DDP is "
-                                  "ROADMAP Queue 1, multi-device")
     device = resolve_device(args.device)
+    world = init_distributed(device=device)
+    if world and device.type == "cuda":
+        device = torch.device("cuda", local_rank())
+        torch.cuda.set_device(device)
+    mesh_cfg = tcfg.get("mesh") or {}
+    mesh = make_mesh(dp=mesh_cfg.get("dp"), tp=int(mesh_cfg.get("tp") or 1),
+                     devices=None if world else [device])
+    lead = mesh.rank in (None, 0)  # the rank that writes files
     seed = int(tcfg.get("seed", 231))
     torch.manual_seed(seed)
     model = build_model(cfg, device)
     phase = "refine" if model.is_refine else "independent"
-    print(f"[rdeic_torch.train: {phase} phase]", flush=True)
+    if lead:
+        print(f"[rdeic_torch.train: {phase} phase; mesh {mesh.shape}]",
+              flush=True)
     # build_model cast the frozen tensors on `meta` already (no fp32 copy
     # of the model), so the trainer's cast finds them in `frozen_dtype`
     frozen = tcfg.get("frozen_dtype")
     trainer = Trainer(model, learning_rate=tcfg.get("learning_rate"),
                       accumulate_grad_batches=int(
                           tcfg.get("accumulate_grad_batches", 1)),
-                      frozen_dtype=torch_dtype(frozen) if frozen else None)
+                      frozen_dtype=torch_dtype(frozen) if frozen else None,
+                      mesh=mesh if world else None)
     resume = cfg["model"].get("resume")
     if resume and not str(resume).endswith(".npz"):
         path = Path(resume)
@@ -163,12 +199,16 @@ def main(argv=None) -> int:
     loader = data.train_dataloader()
     if len(loader) == 0:
         raise ValueError("the training set gives no full batch")
+    rows = mesh.rows(loader.batch_size)  # raises unless dp divides it
+    if world:
+        share_data_stream(loader)
     # train.py reads a batch for the image size, then trains from a new
     # pass: the same state here, without its thread race
     loader.first_batch()
     val_loader = data.val_dataloader()
     out_dir = Path(tcfg.get("out_dir", "./runs/rdeic"))
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if lead:
+        out_dir.mkdir(parents=True, exist_ok=True)
     metrics = out_dir / "metrics.jsonl"
     ckpt_dir = out_dir / "checkpoints"
     max_steps = args.max_steps or int(tcfg.get("max_steps", 100000))
@@ -186,16 +226,19 @@ def main(argv=None) -> int:
         return torch.Generator(device=device).manual_seed(step)
 
     def save(prune: bool) -> None:
-        trainer.save(ckpt_dir / f"step_{trainer.step_count}.pt")
-        if prune:
-            prune_checkpoints(ckpt_dir, keep)
+        """Rank 0 writes (every rank holds the same state); the others wait."""
+        if lead:
+            trainer.save(ckpt_dir / f"step_{trainer.step_count}.pt")
+            if prune:
+                prune_checkpoints(ckpt_dir, keep)
+        mesh.barrier()
 
     t0 = time.time()
     while trainer.step_count < max_steps:
-        for img, batch in device_prefetch(loader, device):
+        for img, batch in device_prefetch(loader, device, rows):
             logs = trainer.step(img, generator=generator)
             step = trainer.step_count
-            if step % log_every == 0:
+            if step % log_every == 0 and lead:
                 logs["steps_per_sec"] = log_every / (time.time() - t0)
                 t0 = time.time()
                 log_metrics(metrics, step, logs)
@@ -203,19 +246,25 @@ def main(argv=None) -> int:
                     f"{k}={float(v):.4g}" for k, v in logs.items()), flush=True)
             if step % ckpt_every == 0:
                 save(prune=True)
-            try:
-                image_logger.maybe_log(model, batch["jpg"], step,
-                                       generator=step_generator(step))
-            except Exception:  # logging must never kill training
-                print(f"[image log at step {step} failed:]", flush=True)
-                traceback.print_exc()
+            if lead:
+                try:
+                    image_logger.maybe_log(model, batch["jpg"], step,
+                                           generator=step_generator(step))
+                except Exception:  # logging must never kill training
+                    print(f"[image log at step {step} failed:]", flush=True)
+                    traceback.print_exc()
             if val_every and val_loader is not None and step % val_every == 0:
-                vm = run_validation(model, val_loader, max_batches=8,
-                                    generator=step_generator(step))
-                log_metrics(metrics, step, vm)
-                print(f"validation @ {step}: {vm}", flush=True)
+                if lead:
+                    vm = run_validation(model, val_loader, max_batches=8,
+                                        generator=step_generator(step))
+                    log_metrics(metrics, step, vm)
+                    print(f"validation @ {step}: {vm}", flush=True)
+                mesh.barrier()
             if step >= max_steps:
                 break
     save(prune=False)  # as train.py's last save: nothing pruned
-    print("done")
+    if world:
+        dist.destroy_process_group()
+    if lead:
+        print("done")
     return 0

@@ -8,6 +8,22 @@ what trains carries over unchanged. Frozen parameters get
 step differentiates only the trainable subtree. With `frozen_dtype` (bf16)
 the frozen tensors are stored in it (`cast_frozen`); the trainable weights,
 their gradients, the gradient sum and AdamW stay fp32.
+
+Data parallel (the JAX Trainer under a `dp x tp` mesh): with a process mesh
+(`parallel.mesh.make_mesh` under torch.distributed, one rank a device) each
+rank steps on its rows of the global batch. After the backward the
+trainable gradients are summed over the ranks in one flat buffer a dtype,
+in the order of `params`, and divided by the world size, so every rank
+holds the same mean gradient and applies the same AdamW update; this comes
+before `grad_norm`, which is then the global norm, as optax's is under the
+JAX mesh. The ranks of a tp group hold the same rows, so the mean over the
+world is the mean over dp. The logs are averaged over the ranks. The
+terms that span the batch (the CVQ contrastive loss and the codebook
+update) see the whole batch's hyper latent (`RDEIC.loss_fn`).
+`torch.nn.parallel.DistributedDataParallel` does not fit: its reducer
+hooks the gradients that `.backward()` accumulates into `.grad`, and the
+step takes them from `torch.autograd.grad`, which leaves `.grad` alone, so
+the wrapper would never see them.
 """
 from __future__ import annotations
 
@@ -16,6 +32,7 @@ from pathlib import Path
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from rdeic_torch.models.compression import vq_codebook_update
 from rdeic_torch.train.ema import ema_init, ema_update
@@ -131,12 +148,18 @@ class Trainer:
     AdamW on every `accumulate_grad_batches`-th call with the mean of the
     micro-batch gradients (optax.MultiSteps), then the CVQ codebook update
     on every call, then the EMA. `frozen_dtype` stores the frozen tensors
-    in that dtype (`cast_frozen`)."""
+    in that dtype (`cast_frozen`). `mesh`: a process mesh of
+    `parallel.mesh` (data parallel over its ranks; see the module's
+    docstring), or None for one process."""
 
     def __init__(self, model, learning_rate: float | None = None,
                  accumulate_grad_batches: int = 1, use_ema: bool = False,
-                 frozen_dtype: torch.dtype | None = None):
+                 frozen_dtype: torch.dtype | None = None, mesh=None):
+        if mesh is not None and not mesh.distributed:
+            raise ValueError("a training mesh is a process mesh: one rank a "
+                             "device under torch.distributed (torchrun)")
         self.model = model
+        self.mesh = mesh
         if frozen_dtype is not None:
             cast_frozen(model, frozen_dtype)
         self.params = trainable_parameters(model)
@@ -155,14 +178,22 @@ class Trainer:
              generator: torch.Generator | None = None) -> dict:
         """One micro-step on images [B, H, W, 3] in [-1, 1]; returns the
         logs (0-dim tensors) with `grad_norm`, the global norm of this
-        micro-batch's gradients."""
+        micro-batch's gradients. On a mesh, `img` is this rank's rows and
+        `noise` (if given) the global batch's."""
         params = list(self.params.values())
         with full_fp32():
-            loss, logs = self.model.loss_fn(img, noise=noise, generator=generator)
+            loss, logs = self.model.loss_fn(img, noise=noise,
+                                            generator=generator,
+                                            mesh=self.mesh)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         logs = {k: v.detach() for k, v in logs.items()}
+        if self.mesh is not None:
+            self._mean_over_ranks(grads)
+            z_hyper = logs.pop("_z_hyper")
+            logs = dict(zip(logs, self._mean_over_ranks(list(logs.values()))))
+            logs["_z_hyper"] = z_hyper
         logs["grad_norm"] = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         if self._grad_sum is None:
@@ -181,6 +212,26 @@ class Trainer:
             ema_update(self.ema, self.params, EMA_DECAY, self.step_count)
         self.step_count += 1
         return logs
+
+    @torch.no_grad()
+    def _mean_over_ranks(self, tensors: list) -> list:
+        """`tensors`, each replaced in place by its mean over the ranks: one
+        flat buffer a dtype, in list order, all-reduced (`_all_reduce`) and
+        divided by the world size."""
+        world = dist.get_world_size()
+        for dtype in dict.fromkeys(t.dtype for t in tensors):
+            group = [t for t in tensors if t.dtype == dtype]
+            flat = torch.cat([t.reshape(-1) for t in group])
+            self._all_reduce(flat)
+            flat.div_(world)
+            for t, part in zip(group, flat.split([t.numel() for t in group])):
+                t.copy_(part.view_as(t))
+        return tensors
+
+    def _all_reduce(self, flat: torch.Tensor) -> None:
+        """Sum `flat` over the ranks (NCCL, or gloo through the host for a
+        CUDA tensor)."""
+        dist.all_reduce(flat)
 
     @torch.no_grad()
     def _codebook_update(self, z_hyper: torch.Tensor) -> None:

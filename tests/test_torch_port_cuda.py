@@ -1156,3 +1156,109 @@ def test_flash_kernel_at_the_tile_shapes(cuda, shape, dtype):
 @pytest.mark.parametrize("shape", TILE_GN_SHAPES)
 def test_groupnorm_kernel_at_the_tile_shapes(cuda, shape):
     test_groupnorm_kernel_matches_plain(cuda, shape, 1e-5, True)
+
+
+# -- multi-device ------------------------------------------------------------------
+def _world_of_one(tmp_path, backend: str):
+    """A process group of this process alone (a FileStore: no port)."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    dist.init_process_group(backend, init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+
+
+def test_nccl_world_of_one_step_is_the_plain_step(cuda, tmp_path):
+    """Two fp32 micro-steps (accumulation 2, so AdamW steps once) of
+    CARD_MICRO at 128x128, B = 2: the data-parallel `Trainer` over a world
+    of one NCCL rank (its all-reduce and its gather of the hyper latent
+    run, over one rank) gives the plain `Trainer`'s logs, weights and
+    codebook bit for bit, both under cuDNN's deterministic algorithms."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from rdeic_torch.parallel.mesh import make_mesh  # noqa: PLC0415
+    from rdeic_torch.train.trainer import Trainer  # noqa: PLC0415
+    from rdeic_torch.utils.backend import full_fp32  # noqa: PLC0415
+
+    _, card = _serving_models(cuda)
+    start = {k: v.clone() for k, v in card.state_dict().items()}
+    imgs = [torch.from_numpy(np.random.default_rng(s).uniform(
+        -1, 1, (2, 128, 128, 3)).astype(np.float32)).to(cuda) for s in (5, 6)]
+
+    def run(mesh) -> tuple:
+        card.load_state_dict(start)
+        trainer = Trainer(card, accumulate_grad_batches=2, mesh=mesh)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        with full_fp32(deterministic=True):
+            logs = [trainer.step(img, generator=gen) for img in imgs]
+        return logs, {k: v.clone() for k, v in card.state_dict().items()}
+
+    plain_logs, plain = run(None)
+    _world_of_one(tmp_path, "nccl")
+    try:
+        mesh = make_mesh()
+        assert mesh.distributed and mesh.shape == {"dp": 1, "tp": 1}
+        logs, state = run(mesh)
+    finally:
+        dist.destroy_process_group()
+    for got, want in zip(logs, plain_logs):
+        assert got.keys() == want.keys()
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+    for key, v in plain.items():
+        assert torch.equal(state[key], v), key
+    assert not torch.equal(plain["compression.quantize.embedding"],
+                           start["compression.quantize.embedding"])
+
+
+def test_lane_wrappers_launch_on_their_tensors_device(cuda, rans_tabs):
+    """The three lane kernels on the last card while the first is current:
+    each wrapper enters its tensors' device, so its launch goes there, and
+    matches the plain version; the current device stays the first."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from rdeic_torch.entropy import device_rans as dr  # noqa: PLC0415
+    from torch_port_rans import decode_passes, lane_batch  # noqa: PLC0415
+
+    other = torch.device("cuda", torch.cuda.device_count() - 1)
+    table, cpu_tabs, _ = rans_tabs
+    tabs = dr.DeviceRansTables(table, other)
+    cases = _rans_cases(table, 2, 0.05, seed=3)
+    torch.cuda.set_device(0)
+    idxs = [np.stack([c[1][p] for c in cases]) for p in range(len(RANS_SIZES))]
+    for shared in (False, True):
+        w, nw = lane_batch(table, 32, cases, shared)
+        want = decode_passes(cpu_tabs, w, nw, 32, idxs, shared)
+        got = decode_passes(tabs, w.to(other), nw.to(other), 32, idxs, shared)
+        for (gs, gst, gpt), (ws, wst, wpt) in zip(got, want):
+            assert torch.equal(gs, ws) and torch.equal(gst, wst)
+            assert torch.equal(gpt, wpt)
+    syms = [torch.from_numpy(np.stack([c[0][p] for c in cases]))
+            for p in range(len(RANS_SIZES))]
+    steps = dr.build_pass_steps(syms, [torch.from_numpy(i) for i in idxs], 32)
+    wcap = max(64, 4 * steps[0].shape[0])
+    got = dr.encode_lanes(tabs, *(x.to(other) for x in steps), wcap)
+    assert got[0].device == other
+    want = dr.encode_lanes_plain(cpu_tabs, *steps, wcap)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert torch.cuda.current_device() == 0
+
+
+def test_d16_bf16_backward_is_prepared_on_each_device(cuda):
+    """flash_dq_d16_bf16 / flash_dkv_d16_bf16 set their shared-memory
+    carveout on every device that launches them (the attribute belongs to
+    the current device): after a launch on each card, each reads 100
+    (cudaSharedmemCarveoutMaxShared), and the results match the plain
+    version there."""
+    from rdeic_torch.ops.flash_attention import d16_bf16_carveout  # noqa: PLC0415
+
+    shape = (1, 130, 1, 16)
+    for index in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", index)
+        q, k, v, do = (_rand(shape, torch.bfloat16, dev, s) for s in range(4))
+        o, lse = flash_attention_lse(q, k, v)
+        plain = flash_attention_bwd_plain(*(x.float() for x in (q, k, v, o)),
+                                          lse, do.float())
+        for got, want in zip(flash_attention_bwd(q, k, v, o, lse, do), plain):
+            assert got.device == dev
+            assert _rel_err(got, want) <= _limit(torch.bfloat16)
+        assert d16_bf16_carveout(index) == (100, 100), index

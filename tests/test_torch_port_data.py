@@ -179,10 +179,14 @@ class _PastBuildModel(Exception):
 ])
 def test_train_cli_refusals_name_the_item(tmp_path, monkeypatch, trainer,
                                           overrides, item):
-    """`trainer.mesh` above one device is refused, naming its item. The
-    "training settings" are accepted now: with each (`sync_path` naming an
-    absent file, which train.py skips, or the `x0` / `v` loss) the CLI gets
-    past `build_model` to the trainer, with the setting in the model."""
+    """`trainer.mesh` above one device is multi-device training now: in one
+    plain process (a world of one) `dp: 2` is refused by make_mesh's
+    ValueError, as train.py's `make_mesh` refuses more dp than devices, and
+    no ROADMAP item is named (torchrun's ranks run it:
+    test_torch_port_ddp_cli.py). The "training settings" are accepted
+    too: with each (`sync_path` naming an absent file, which train.py
+    skips, or the `x0` / `v` loss) the CLI gets past `build_model` to the
+    trainer, with the setting in the model."""
     model = tmp_path / "model.yaml"
     model.write_text(yaml.safe_dump({
         "target": "rdeic_tpu.pipeline.rdeic.RDEIC", "params": MICRO}))
@@ -191,6 +195,12 @@ def test_train_cli_refusals_name_the_item(tmp_path, monkeypatch, trainer,
         "model": {"config": str(model), "overrides": overrides},
         "trainer": trainer}))
     argv = ["--config", str(config), "--device", "cpu"]
+    if item == "multi-device":
+        with pytest.raises(ValueError,
+                           match=re.escape("dp*tp=2 != #devices=1")) as exc:
+            torch_train_cli.main(argv)
+        assert "ROADMAP" not in str(exc.value)
+        return
     if item != "training settings":
         with pytest.raises(NotImplementedError,
                            match=re.escape(f"ROADMAP Queue 1, {item}")):

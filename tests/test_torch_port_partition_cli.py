@@ -4,7 +4,8 @@ the same PNG names, the same CSV columns and rows, and each stream file the
 one `rdeic_torch.inference.process` writes for that image alone (and the
 root CLI writes); the threaded codec stage writes and decodes what a serial
 run does; captions without a local VLM fall back to empty prompts through
-the CLIP tower; `--dp 2` is refused, naming multi-device."""
+the CLIP tower; `--dp 2` with a micro-batch it does not divide is
+refused."""
 import copy
 import csv
 import gzip
@@ -165,9 +166,14 @@ def test_captions_fall_back_to_empty_prompts_through_clip(ws, tmp_path, capsys):
 
 
 def test_dp_is_refused_naming_multi_device(ws, tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match=re.escape("ROADMAP Queue 1, multi-device")):
+    """`--dp 2` is data-parallel serving now (test_torch_port_serve_dp.py);
+    what stays refused is the root CLI's assertion, a micro-batch (here 1)
+    that --dp does not divide, and no ROADMAP item is named."""
+    with pytest.raises(ValueError,
+                       match=re.escape("--micro_batch_size 1 must divide by "
+                                       "--dp 2")) as exc:
         t_partition.main([*_common(ws, "dp"), "--dp", "2", "--device", "cpu"])
+    assert "multi-device" not in str(exc.value)
 
 
 def test_full_fp32_holds_while_any_thread_holds_a_scope():

@@ -188,7 +188,8 @@ def test_stream_checks(tiled_runs, tmp_path):
 def test_cli_on_a_png(tmp_path, monkeypatch):
     """`python -m rdeic_torch.tiled_inference` on a micro YAML + .npz and a
     PNG: the PNG's size back, the stream the JAX package's v2 writes for
-    the image, the root CLI's line; `--use_mesh` refused."""
+    the image, the root CLI's line; `--use_mesh` (over the one CPU) the
+    same image."""
     yaml = pytest.importorskip("yaml")
     from PIL import Image  # noqa: PLC0415
 
@@ -210,5 +211,10 @@ def test_cli_on_a_png(tmp_path, monkeypatch):
                            str(tmp_path / "jax.rdeic"), tile=64, overlap=32)
     assert ((tmp_path / "out" / "bitstreams" / "photo.rdeic").read_bytes()
             == (tmp_path / "jax.rdeic").read_bytes())
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tiled_inference.main(args + ["--use_mesh"])
+    # --use_mesh over every device: the one CPU, so the run without it
+    mesh_args = [a if a != str(tmp_path / "out") else str(tmp_path / "mesh")
+                 for a in args]
+    tiled_inference.main(mesh_args + ["--use_mesh"])
+    np.testing.assert_array_equal(
+        np.array(Image.open(tmp_path / "mesh" / "photo.png")),
+        np.array(Image.open(tmp_path / "out" / "photo.png")))

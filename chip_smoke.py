@@ -222,7 +222,28 @@ and g++; no network. Phases, each fatal on failure:
    byte-equal to [partition]'s, images within 1e-5, launches, ms an image;
 18. [tiled_mesh], after 3d: `--use_mesh` over the one card, [tiled_v2]'s
    stream decoded again with the mesh's replicas: bit-equal to
-   [tiled_v2]'s image (one device pads nothing), launches, decode ms.
+   [tiled_v2]'s image (one device pads nothing), launches, decode ms;
+19. [tp_gloo_2], after 16: two ranks of this script on the one card, gloo,
+   the full-width fp32 independent model from the seed after
+   `shard_params` on a dp = 1, tp = 2 mesh (each rank holds its half of
+   every sharded kernel; the layers all-gather their outputs and all-reduce
+   dX): a warm-up and TP_STEPS micro-steps at DDP_ACCUMULATE, B = 2,
+   256x256 (the top level's L = 1024: flash forward, dq and dkv and both
+   GroupNorm kernels run under TP); rank 0 against the plain Trainer on a
+   whole copy, the same weights, batch and noise: logs within 1e-5,
+   gathered gradients within 1e-4 of max or twice their +-1e-6 nudge
+   move, weights within 2 lr; the replicated weights bit-equal across the
+   ranks; the gathered step_N.pt resumes in a tp = 1 Trainer, which steps;
+   printed: each rank's weight bytes against tp = 1's, the collectives'
+   calls, bytes and ms a micro-step (CUDA events and host), ms a
+   micro-step, launches;
+20. [tp_decode], in 19's ranks before their training: phase 3's stream
+   decoded under the sharded weights: latents bit-equal, the image within
+   1e-5 of phase 3's, launches as phase 3's decode, decode ms;
+21. [export], after 19: `save_params_npz` of the full-width fp32 model
+   from the seed to a file, `load_npz_weights` into a fresh model: state
+   dicts bit-equal; again after the bf16 recipe's casts of the same model
+   (its frozen tensors in bf16: the file's fp32 upcast is exact).
 
 The last two lines of stdout are the kernel summary
 `{"kernels": [...]}` and `{"ok": true, "device": {...}}`. Three of the
@@ -241,7 +262,8 @@ serve_cfg and serve_bf16 are phase 3b's; partition and partition_bf16
 phase 3c's, whose `calls` are per run of its five images; tiled_v2,
 tiled_v2_bf16 and tiled_v1 phase 3d's, per run of its image; the lanes_*
 routes phase 3e's; partition_dp, tiled_mesh, ddp_nccl and ddp_gloo_2
-phases 17, 18, 15 and 16 (the last per rank, read back from rank 0); train, refine,
+phases 17, 18, 15 and 16 (the last per rank, read back from rank 0);
+tp_gloo_2 and tp_decode phases 19 and 20 (per rank, from rank 0); train, refine,
 train_bf16 and
 refine_bf16 phases 6, 8, 10 and 12; validate and validate_bf16 phase
 14a and 14b, whose `calls` are per validation batch): per image for the
@@ -273,6 +295,7 @@ import struct
 import sys
 import tempfile
 import time
+import zipfile
 import zlib
 from datetime import timedelta
 from pathlib import Path
@@ -317,7 +340,14 @@ from rdeic_torch.ops.fused_groupnorm import (
     group_norm_fwd,
     group_norm_plain,
 )
-from rdeic_torch.parallel.mesh import make_mesh
+from rdeic_torch.parallel import tensor as tp_tensor
+from rdeic_torch.parallel.mesh import (
+    gather_state_dict,
+    make_mesh,
+    shard_params,
+    tp_layers,
+)
+from rdeic_torch.parallel.tensor import gather_blocks
 from rdeic_torch.pipeline import tiled
 from rdeic_torch.pipeline.codec import parse_lane_header
 from rdeic_torch.pipeline.rdeic import RDEIC
@@ -331,6 +361,7 @@ from rdeic_torch.train.trainer import (
 from rdeic_torch.train.callbacks import ImageLogger, make_grid
 from rdeic_torch.train.validation import run_validation
 from rdeic_torch.utils.backend import full_fp32, resolve_device
+from rdeic_torch.utils.checkpoint_io import load_npz_weights, save_params_npz
 from rdeic_torch.utils.fast_init import fast_random_init
 from rdeic_torch.utils.image import PNG_SIGNATURE, to_uint8
 from rdeic_torch.utils.metrics import MetricSuite
@@ -416,8 +447,9 @@ IMAGE_HW = (512, 768)  # a Kodak-sized image, landscape
 STEPS = 2
 TRAIN_STEPS = 4  # timed micro-steps after one warm-up: one AdamW update
 REFINE_STEPS = 3  # timed refine micro-steps after one warm-up, each updating
-# the training paths: phases 6 and 8 (fp32), 10 and 12 (bf16)
-TRAIN_PATHS = ("train", "refine", "train_bf16", "refine_bf16")
+# the training paths: phases 6 and 8 (fp32), 10 and 12 (bf16), and 19
+# (fp32 under tensor parallel, at 256x256: shapes of its own)
+TRAIN_PATHS = ("train", "refine", "train_bf16", "refine_bf16", "tp_gloo_2")
 # self-attentions over >= 1024 tokens per dual-UNet call at 512x512 (UNet
 # L = 4096 h5 d64 x5 and L = 1024 h10 d64 x5, control L = 4096 h4 d16 x2 and
 # L = 1024 h8 d16 x2; L = 256 goes to the plain product)
@@ -850,7 +882,8 @@ def phase_main_path(model, device, seed: int, tag: str = "main",
         raise AssertionError(f"[{tag}] launches {launches}, expected {want}")
     return {"bpp": bpp, "ms": ms, "stage_ms": stage_ms, "launches": launches,
             "shapes": shapes, "peak_bytes": peak, "resident_bytes": resident,
-            "stream": streams[0], "latents": (c_latent, guide_hint)}
+            "stream": streams[0], "latents": (c_latent, guide_hint),
+            "image": out}
 
 
 def make_bf16_model(model) -> RDEIC:
@@ -1769,10 +1802,15 @@ def phase_reference(model, bf16, device, seed: int):
                              "a planted fault reads within its limit")
 
 
-def _grad_reads(got: dict, want: dict, floor: float) -> dict:
-    """Per tensor: max |got - want| / max(max |want|, floor)."""
-    return {k: (got[k] - w).abs().max().item() / max(w.abs().max().item(), floor)
-            for k, w in want.items()}
+def _grad_reads(got: dict, want: dict, floor: float, device=None) -> dict:
+    """Per tensor: max |got - want| / max(max |want|, floor), taken on
+    `device` when given (a difference, its magnitude and a max are exact:
+    the same reads on any device)."""
+    out = {}
+    for k, w in want.items():
+        g, w = (x if device is None else x.to(device) for x in (got[k], w))
+        out[k] = (g - w).abs().max().item() / max(w.abs().max().item(), floor)
+    return out
 
 
 def train_ref_group(name: str) -> str:
@@ -1910,6 +1948,11 @@ def phase_train_reference(model, device, seed: int) -> dict:
         f"{max(v for k, v in conv_reads.items() if 'quantize' in k):.3g}"
         + (f"; the VAE encoder's outputs (relative RMS) "
            f"{conv_reads['vae.encode_hc#0']:.3g}" if bf16 else ""))
+    if not bf16:  # per tensor, once for all three groups, on the card (on
+        # the card's host these reads took ~30 s a pass over the gradients)
+        reads = _grad_reads(g_card, g_cpu, floor, device)
+        free_reads = _grad_reads(g_card, g_free, floor, device)
+        fault_reads = _grad_reads(faulty, g_cpu, floor, device)
     for group in ("denoiser", "synthesis", "rate"):
         keys = [k for k in g_cpu if train_ref_group(k) == group]
         if bf16:  # relative RMS over the group
@@ -1919,13 +1962,10 @@ def phase_train_reference(model, device, seed: int) -> dict:
             limit, what = tol["grads"], "relative RMS"
             detail = ""
         else:
-            reads = _grad_reads(g_card, g_cpu, floor)
             worst = sorted(keys, key=reads.get, reverse=True)[:3]
             out[group] = reads[worst[0]]
-            out[f"unpinned_{group}"] = max(_grad_reads(g_card, g_free, floor)[k]
-                                           for k in keys)
-            out[f"fault_{group}"] = max(_grad_reads(faulty, g_cpu, floor)[k]
-                                        for k in keys)
+            out[f"unpinned_{group}"] = max(free_reads[k] for k in keys)
+            out[f"fault_{group}"] = max(fault_reads[k] for k in keys)
             limit, what = tol[group], "worst"
             detail = ": " + ", ".join(f"{k} {reads[k]:.3g}" for k in worst)
         ok = ok and out[group] <= limit < out[f"fault_{group}"]
@@ -1970,8 +2010,11 @@ def bf16_step_keeps_dtypes(model, img, noise, tag: str) -> None:
         "the codebook usage fp32")
 
 
-def train_launches_per_step(model) -> dict:
-    """Kernel launches of one training micro-step at 512x512, from the
+def train_launches_per_step(model, n_flash: int = FLASH_PER_DENOISER_CALL_512
+                            ) -> dict:
+    """Kernel launches of one training micro-step at 512x512 (`n_flash`
+    self-attentions over >= 1024 tokens a denoiser call; another size
+    passes its own), from the
     model's structure: the denoiser runs once (independent phase) or once
     per sampler step (refine); each of its flash self-attentions runs the
     forward with lse (twice when the blocks are recomputed in the backward
@@ -1988,7 +2031,6 @@ def train_launches_per_step(model) -> dict:
     n_gn_recomputed = sum(isinstance(m, GroupNorm32)
                           for b in blocks for m in b.modules())
     ckpt = 1 if den.use_checkpoint else 0
-    n_flash = FLASH_PER_DENOISER_CALL_512
     calls, step_remat, decoder = 1, 0, 0
     if model.is_refine:
         calls, decoder = model.fixed_step, 1
@@ -3106,11 +3148,11 @@ def time_all_reduces(trainer) -> list:
     stream, which waits for the collective."""
     calls, real = [], trainer._all_reduce
 
-    def timed(flat):
+    def timed(flat, group=None):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0 = time.perf_counter()
         start.record()
-        real(flat)
+        real(flat, group)
         end.record()
         calls.append((flat.numel() * flat.element_size(), start, end,
                       time.perf_counter() - t0))
@@ -3230,12 +3272,16 @@ def phase_ddp_nccl(model, device, seed: int) -> dict:
 
 
 def weights_digest(model) -> torch.Tensor:
-    """An int64 a tensor of the state dict on the CPU: the sum of its
-    words (16- or 32-bit), each times an odd weight from its position, with
-    wrap-around; a tensor that differs anywhere reads otherwise (but for a
-    2^-64 chance)."""
+    """`tensors_digest` of the model's state dict."""
+    return tensors_digest(model.state_dict().values())
+
+
+def tensors_digest(tensors) -> torch.Tensor:
+    """An int64 a tensor on the CPU: the sum of its words (16- or 32-bit),
+    each times an odd weight from its position, with wrap-around; a tensor
+    that differs anywhere reads otherwise (but for a 2^-64 chance)."""
     out = []
-    for v in model.state_dict().values():
+    for v in tensors:
         flat = v.detach().contiguous().reshape(-1)
         words = flat.view(torch.int16 if flat.element_size() == 2
                           else torch.int32).to(torch.int64)
@@ -3281,6 +3327,102 @@ def codebook_reads(got: dict, want: dict, codebook: torch.Tensor) -> dict:
     return {"usage_rel": rel, "copy_sets": n}
 
 
+def hold_to_plain(mine: dict, logs: list, ref: dict, moves: dict,
+                  lr: float) -> tuple[dict, list]:
+    """(reads, failed gates) of a rank's steps (`mine`: its
+    `trainable_state`, whole tensors; `logs`) against the plain Trainer's
+    (`ref`, with each mean gradient's move under the +-1e-6 nudge of the
+    images, `moves`): logs within 1e-5, AdamW's first moment within 1e-4 of
+    each tensor's max (GRAD_FLOOR of the largest at least) or twice its
+    nudge move, the weights within 2 lr and to 1e-6 where the gradient is
+    firm, the code usage to 1e-6 over each set of copied codes."""
+    reads = {"logs": max(abs(a[k].item() - b[k].item())
+                         / max(abs(b[k].item()), 1e-30)
+                         for a, b in zip(logs, ref["logs"]) for k in b)}
+    top = max(v.abs().max().item() for v in ref["exp_avg"].values())
+    grad_err, over, weight_err, firm_err = {}, {}, 0.0, 0.0
+    for k, w in ref["exp_avg"].items():
+        scale = max(w.abs().max().item(), GRAD_FLOOR * top)
+        grad_err[k] = (mine["exp_avg"][k] - w).abs().max().item() / scale
+        if grad_err[k] > max(1e-4, 2 * moves[k]):
+            over[k] = (grad_err[k], moves[k])
+    for k, w in ref["params"].items():
+        d = (mine["params"][k] - w).abs()
+        weight_err = max(weight_err, d.max().item())
+        g = ref["exp_avg"][k].abs() if k in ref["exp_avg"] else None
+        if g is not None:
+            firm = g > 1e-2 * max(g.max().item(), GRAD_FLOOR * top)
+            if firm.any():
+                atol = 1e-5 if k == "compression.quantize.embedding" else 1e-7
+                firm_err = max(firm_err, ((d - atol) / w.abs().clamp(
+                    min=1e-30))[firm].max().item())
+    worst = [(k, e, moves[k]) for k, e in
+             sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]]
+    reads.update(grad_rel=worst[0][1], worst_grads_and_moves=worst,
+                 over_limit=over,
+                 weight_abs=weight_err, firm_weight_rel=firm_err,
+                 **codebook_reads(mine, ref, ref["params"][
+                     "compression.quantize.embedding"]))
+    fails = []
+    if reads["logs"] > 1e-5:
+        fails.append(f"logs differ by {reads['logs']:.3g} (limit 1e-5)")
+    if over:
+        fails.append(f"mean gradients differ beyond 1e-4 of max and twice "
+                     f"their nudge moves: {over}")
+    if weight_err > 2 * lr * (1 + 1e-3) + 1e-7 or firm_err > 1e-6:
+        fails.append(f"weights differ by {weight_err:.3g} (limit 2 lr), "
+                     f"{firm_err:.3g} relative where the gradient is firm")
+    if reads["usage_rel"] > 1e-6:
+        fails.append(f"code usage differs by {reads['usage_rel']:.3g}")
+    return reads, fails
+
+
+def plain_reference(model, imgs: list, lr: float, seed: int) -> tuple:
+    """The plain Trainer's steps on `imgs` (accumulation DDP_ACCUMULATE,
+    noise from `seed`), from `model`'s weights and back to them: (its logs
+    and `trainable_state`, the move of each mean gradient when the images
+    alone are nudged by +-1e-6: large behind LeakyReLU's kinks, where an
+    input within rounding of 0 takes either slope (the refine test's
+    rule))."""
+    start = {k: p.detach().clone()
+             for k, p in trainable_parameters(model).items()}
+    prob = model.vq_embed_prob.clone()
+
+    def restore():
+        with torch.no_grad():
+            for k, p in trainable_parameters(model).items():
+                p.copy_(start[k])
+            model.vq_embed_prob.copy_(prob)
+
+    def plain(scale: float) -> dict:
+        """The plain steps on the images times `scale`, from the start."""
+        restore()
+        trainer = Trainer(model, learning_rate=lr,
+                          accumulate_grad_batches=DDP_ACCUMULATE)
+        gen = torch.Generator(device=imgs[0].device).manual_seed(seed)
+        out = {"logs": [], "step_ms": []}
+        with full_fp32():
+            for img in imgs:
+                logs, ms = host_ms(lambda: trainer.step(img * scale,
+                                                        generator=gen))
+                out["logs"].append(logs)
+                out["step_ms"].append(ms)
+        out.update(trainable_state(trainer, model))
+        return out
+
+    ref = plain(1.0)
+    moves = dict.fromkeys(ref["exp_avg"], 0.0)
+    for eps in (1e-6, -1e-6):
+        for k, g in plain(1 + eps)["exp_avg"].items():
+            w = ref["exp_avg"][k]
+            moves[k] = max(moves[k], ((g - w).abs().max()
+                                      / w.abs().max().clamp(min=1e-30)).item())
+    restore()
+    del start
+    torch.cuda.empty_cache()
+    return ref, moves
+
+
 def gloo_rank(args) -> int:
     """A rank of [ddp_gloo_2] (run as `chip_smoke.py --gloo-rank R ...` by
     phase 16): full-width fp32 independent training on the one card over a
@@ -3305,41 +3447,7 @@ def gloo_rank(args) -> int:
     lr = TRAIN_CONFIG["learning_rate"]
     ref = None
     if rank == 0:  # the plain Trainer on the whole batch, then back
-        start = {k: p.detach().clone()
-                 for k, p in trainable_parameters(model).items()}
-        prob = model.vq_embed_prob.clone()
-
-        def plain(scale: float) -> dict:
-            """The plain steps on the images times `scale`, from the start."""
-            with torch.no_grad():
-                for k, p in trainable_parameters(model).items():
-                    p.copy_(start[k])
-                model.vq_embed_prob.copy_(prob)
-            trainer = Trainer(model, learning_rate=lr,
-                              accumulate_grad_batches=DDP_ACCUMULATE)
-            gen = torch.Generator(device=device).manual_seed(args.seed)
-            with full_fp32():
-                out = {"logs": [trainer.step(img * scale, generator=gen)
-                                for img in imgs]}
-            out.update(trainable_state(trainer, model))
-            return out
-
-        # the move of each mean gradient when the images alone are nudged
-        # by +-1e-6: large behind LeakyReLU's kinks, where an input within
-        # rounding of 0 takes either slope (the refine test's rule)
-        ref = plain(1.0)
-        moves = dict.fromkeys(ref["exp_avg"], 0.0)
-        for eps in (1e-6, -1e-6):
-            for k, g in plain(1 + eps)["exp_avg"].items():
-                w = ref["exp_avg"][k]
-                moves[k] = max(moves[k], ((g - w).abs().max()
-                                          / w.abs().max().clamp(min=1e-30)).item())
-        with torch.no_grad():
-            for k, p in trainable_parameters(model).items():
-                p.copy_(start[k])
-            model.vq_embed_prob.copy_(prob)
-        del start
-        torch.cuda.empty_cache()
+        ref, moves = plain_reference(model, imgs, lr, args.seed)
     dist.barrier()
     mesh = make_mesh()
     trainer = Trainer(model, learning_rate=lr,
@@ -3372,47 +3480,12 @@ def gloo_rank(args) -> int:
     if launches != want:
         fails.append(f"launches {launches}, expected {want}")
     if ref is not None:
-        mine = trainable_state(trainer, model)
-        reads = {"logs": max(abs(a[k].item() - b[k].item())
-                             / max(abs(b[k].item()), 1e-30)
-                             for a, b in zip(logs, ref["logs"]) for k in b)}
-        top = max(v.abs().max().item() for v in ref["exp_avg"].values())
-        grad_err, over, weight_err, firm_err = {}, {}, 0.0, 0.0
-        for k, w in ref["exp_avg"].items():
-            scale = max(w.abs().max().item(), GRAD_FLOOR * top)
-            grad_err[k] = (mine["exp_avg"][k] - w).abs().max().item() / scale
-            if grad_err[k] > max(1e-4, 2 * moves[k]):
-                over[k] = (grad_err[k], moves[k])
-        for k, w in ref["params"].items():
-            d = (mine["params"][k] - w).abs()
-            weight_err = max(weight_err, d.max().item())
-            g = ref["exp_avg"][k].abs() if k in ref["exp_avg"] else None
-            if g is not None:
-                firm = g > 1e-2 * max(g.max().item(), GRAD_FLOOR * top)
-                if firm.any():
-                    atol = 1e-5 if k == "compression.quantize.embedding" else 1e-7
-                    firm_err = max(firm_err, ((d - atol) / w.abs().clamp(
-                        min=1e-30))[firm].max().item())
-        worst = [(k, e, moves[k]) for k, e in
-                 sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]]
-        reads.update(grad_rel=worst[0][1], worst_grads_and_moves=worst,
-                     over_limit=over,
-                     weight_abs=weight_err, firm_weight_rel=firm_err,
-                     **codebook_reads(mine, ref, ref["params"][
-                         "compression.quantize.embedding"]))
+        reads, ref_fails = hold_to_plain(trainable_state(trainer, model), logs,
+                                         ref, moves, lr)
+        fails += ref_fails
         result["reads"] = reads
         result["plain_logs"] = [{k: v.item() for k, v in x.items()}
                                 for x in ref["logs"]]
-        if reads["logs"] > 1e-5:
-            fails.append(f"logs differ by {reads['logs']:.3g} (limit 1e-5)")
-        if over:
-            fails.append(f"mean gradients differ beyond 1e-4 of max and twice "
-                         f"their nudge moves: {over}")
-        if weight_err > 2 * lr * (1 + 1e-3) + 1e-7 or firm_err > 1e-6:
-            fails.append(f"weights differ by {weight_err:.3g} (limit 2 lr), "
-                         f"{firm_err:.3g} relative where the gradient is firm")
-        if reads["usage_rel"] > 1e-6:
-            fails.append(f"code usage differs by {reads['usage_rel']:.3g}")
     result["logs"] = [{k: v.item() for k, v in x.items()} for x in logs]
     result["fails"] = fails
     Path(args.gloo_out, f"rank{rank}.json").write_text(json.dumps(result))
@@ -3420,6 +3493,45 @@ def gloo_rank(args) -> int:
     if fails:
         raise AssertionError(f"[ddp_gloo_2] rank {rank}: {fails}")
     return 0
+
+
+def spawn_ranks(tag: str, flag: str, world: int, seed: int, timeout: float,
+                inputs: dict | None = None) -> tuple[list, list]:
+    """`world` processes of this script (`flag R` for rank R) on the one
+    card, gloo over a free local port, sharing a temporary directory
+    (`--gloo-out`; `inputs`, if given, saved there as inputs.pt first):
+    (exit codes, the `rank<R>.json` reads they wrote). Each rank's last
+    output lines are logged under `tag`; every process is waited for or
+    killed."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        if inputs is not None:
+            torch.save(inputs, Path(tmp, "inputs.pt"))
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+             flag, str(r), "--gloo-port", str(port), "--gloo-out", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, out in enumerate(outs):
+            for line in out.splitlines()[-40:]:
+                log(f"[{tag} rank {r}] {line}")
+        codes = [p.returncode for p in procs]
+        results = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                   for r in range(world) if Path(tmp, f"rank{r}.json").exists()]
+    return codes, results
 
 
 def phase_ddp_gloo(seed: int) -> dict:
@@ -3436,33 +3548,8 @@ def phase_ddp_gloo(seed: int) -> dict:
     gradient is firm (test_torch_port_train_loop's rule), the code usage
     to 1e-6 over each set of copied codes; launches per rank as the
     structure says."""
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
-             "--gloo-rank", str(r), "--gloo-port", str(port), "--gloo-out", tmp],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(GLOO_WORLD)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=GLOO_TIMEOUT_S)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        for r, out in enumerate(outs):
-            for line in out.splitlines()[-40:]:
-                log(f"[ddp_gloo_2 rank {r}] {line}")
-        codes = [p.returncode for p in procs]
-        results = [json.loads(Path(tmp, f"rank{r}.json").read_text())
-                   for r in range(GLOO_WORLD)
-                   if Path(tmp, f"rank{r}.json").exists()]
+    codes, results = spawn_ranks("ddp_gloo_2", "--gloo-rank", GLOO_WORLD,
+                                 seed, GLOO_TIMEOUT_S)
     for res in results:
         log(f"[ddp_gloo_2] rank {res['rank']}: reads "
             f"{json.dumps(res.get('reads'))}; fails {res['fails']}")
@@ -3577,6 +3664,333 @@ def phase_tiled_mesh(model, device, seed: int, base: dict) -> dict:
     return {"ms": ms, "launches": launches, "shapes": shapes}
 
 
+# -- tensor parallel and the export: phases 19-21 ---------------------------------
+TP_WORLD = 2
+TP_HW = 256  # the top level's L = 1024: flash forward, dq and dkv run under TP
+TP_STEPS = 2  # counted micro-steps after a warm-up, at DDP_ACCUMULATE
+TP_TIMEOUT_S = 480  # the whole [tp_gloo_2] child, start to exit
+# self-attentions over >= 1024 tokens per dual-UNet call at 256x256 (UNet
+# L = 1024 h5 d64 x5, control L = 1024 h4 d16 x2; L = 256 and 64 go to the
+# plain product)
+FLASH_PER_DENOISER_CALL_256 = 7
+
+
+def tp_images(seed: int, n: int) -> list:
+    """`n` global batches of B = 2 TP_HW x TP_HW [-1, 1] images."""
+    rng = np.random.default_rng(seed + 29)
+    return [rng.uniform(-1, 1, (TRAIN_CONFIG["batch_size"], TP_HW, TP_HW, 3))
+            .astype(np.float32) for _ in range(n)]
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def time_collectives(trainer) -> dict:
+    """Wrap the column-parallel layers' collectives (`parallel.tensor`: the
+    forward's all-gather of the outputs, the backward's all-reduce of dX)
+    and the trainer's all-reduce: each call appends (bytes, start event,
+    end event, host seconds) to its kind's list; the events bracket the
+    call on the current stream, which waits for it."""
+    calls = {"all_gather": [], "all_reduce_dx": [], "trainer_all_reduce": []}
+
+    def wrap(kind, real, tensor_of):
+        def timed(*args):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            out = real(*args)
+            end.record()
+            x = tensor_of(args, out)
+            calls[kind].append((x.numel() * x.element_size(), start, end,
+                                time.perf_counter() - t0))
+            return out
+        return timed
+
+    tp_tensor.all_gather_features = wrap(
+        "all_gather", tp_tensor.all_gather_features, lambda a, out: out)
+    tp_tensor.all_reduce_sum = wrap(
+        "all_reduce_dx", tp_tensor.all_reduce_sum, lambda a, out: out)
+    trainer._all_reduce = wrap("trainer_all_reduce", trainer._all_reduce,
+                               lambda a, out: a[0])
+    return calls
+
+
+def collective_reads(calls: dict, steps: int) -> dict:
+    """Per micro-step, by kind: calls, bytes, device ms (CUDA events) and
+    host ms, from `time_collectives`."""
+    torch.cuda.synchronize()
+    return {kind: {"calls": len(c) / steps,
+                   "bytes": sum(b for b, *_ in c) / steps,
+                   "ms": sum(s.elapsed_time(e) for _, s, e, _ in c) / steps,
+                   "host_ms": sum(h for *_, h in c) * 1e3 / steps}
+            for kind, c in calls.items()}
+
+
+def decode_launches(model) -> dict:
+    """Kernel launches of phase 3's decode alone (decompress, relay
+    sampling, VAE decode): `serve_launches` without the VAE encoder's
+    mid-block attention."""
+    want = serve_launches(model)
+    want["flash_attn_fwd"] -= 1
+    return want
+
+
+def tp_rank(args) -> int:
+    """A rank of [tp_decode] and [tp_gloo_2] (run as `chip_smoke.py
+    --tp-rank R ...` by phase 19): the full-width fp32 independent model
+    from the seed on the one card, after `shard_params` on a dp = 1,
+    tp = TP_WORLD mesh over gloo. Rank 0 first runs the plain `Trainer`
+    on a whole copy (`plain_reference`). Then phase 3's stream is decoded
+    under the sharded weights, and the ranks take a warm-up and TP_STEPS
+    micro-steps on B = 2 TP_HW x TP_HW images; the gathered train state is
+    saved, and rank 0 holds the steps to the plain ones and resumes the
+    file in a tp = 1 Trainer for one more step. Reads go to
+    `<out>/rank<R>.json`; a failed gate raises."""
+    rank = args.tp_rank
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.gloo_port}",
+                            world_size=TP_WORLD, rank=rank,
+                            timeout=timedelta(seconds=TP_TIMEOUT_S // 2))
+    device = resolve_device("cuda")
+    model = make_model(device, args.seed)
+    if not broadcast_equal(weights_digest(model)):
+        raise AssertionError(f"[tp_gloo_2] rank {rank} starts from other "
+                             "weights than rank 0")
+    inp = torch.load(Path(args.gloo_out, "inputs.pt"), map_location=device,
+                     weights_only=True)
+    imgs = [torch.from_numpy(x).to(device)
+            for x in tp_images(args.seed, 1 + TP_STEPS)]
+    lr = TRAIN_CONFIG["learning_rate"]
+    whole = None
+    if rank == 0:  # the plain Trainer on a whole copy, kept for the resume
+        whole = make_model(device, args.seed)
+        ref, moves = plain_reference(whole, imgs, lr, args.seed)
+    dist.barrier()
+    mesh = make_mesh(dp=1, tp=TP_WORLD)
+    whole_bytes = param_bytes(model)
+    shard_params(model, mesh)
+    fails = []
+    result = {"rank": rank, "weight_bytes": param_bytes(model),
+              "whole_weight_bytes": whole_bytes,
+              "sharded_tensors": len(tp_layers(model))}
+
+    # [tp_decode]: phase 3's stream under the sharded weights
+    stream = Path(args.gloo_out, f"rank{rank}.rdeic")
+    stream.write_bytes(bytes(inp["stream"].tolist()))
+
+    def decode():
+        c_latent, guide_hint = model.apply_condition_decompress(stream)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        return (c_latent, guide_hint), model.decode_pipeline(
+            c_latent, guide_hint, STEPS, generator=gen)
+
+    _, warm_ms = host_ms(decode)
+    reset_counters()
+    (latents, out), ms = host_ms(decode)
+    launches, shapes = read_counters()
+    err = (out - inp["image"]).abs().max().item()
+    result["decode"] = {"ms": ms, "warm_ms": warm_ms, "max_abs_err": err,
+                        "launches": launches, "shapes": serial_shapes(shapes)}
+    if not all(torch.equal(a, b) for a, b in zip(latents, inp["latents"])):
+        fails.append("[tp_decode] decoded latents differ from phase 3's")
+    if err > 1e-5:
+        fails.append(f"[tp_decode] image differs from phase 3's by {err:.3g} "
+                     "(limit 1e-5)")
+    if launches != decode_launches(model):
+        fails.append(f"[tp_decode] launches {launches}, expected "
+                     f"{decode_launches(model)}")
+
+    # [tp_gloo_2]
+    trainer = Trainer(model, learning_rate=lr,
+                      accumulate_grad_batches=DDP_ACCUMULATE, mesh=mesh)
+    calls = time_collectives(trainer)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    with full_fp32():
+        logs, warm_ms = host_ms(lambda: [trainer.step(imgs[0], generator=gen)])
+        for c in calls.values():
+            c.clear()
+        reset_counters()
+        step_ms = []
+        for img in imgs[1:]:
+            out, ms = host_ms(lambda: trainer.step(img, generator=gen))
+            logs.append(out)
+            step_ms.append(ms)
+    launches, shapes = read_counters()
+    result.update(step_ms=step_ms, warm_ms=warm_ms, launches=launches,
+                  shapes=serial_shapes(shapes),
+                  collectives=collective_reads(calls, TP_STEPS))
+    want = {**dict.fromkeys(KERNEL_FNS, 0),
+            **{k: v * TP_STEPS for k, v in train_launches_per_step(
+                model, FLASH_PER_DENOISER_CALL_256).items()}}
+    if launches != want:
+        fails.append(f"[tp_gloo_2] launches {launches}, expected {want}")
+    replicated = {k: p for k, p in trainer.params.items()
+                  if k not in trainer.sharded}
+    result["replicated_equal"] = broadcast_equal(
+        tensors_digest(replicated.values()))
+    if not result["replicated_equal"]:
+        fails.append("[tp_gloo_2] the ranks' replicated weights differ")
+    # the gathered state (every rank joins the gathers)
+    names = list(trainer.params)
+    moments = trainer._map_moments(
+        trainer.optimizer.state_dict(),
+        lambda k, x: gather_blocks(x, trainer.sharded[k]))["state"]
+    state = gather_state_dict(model)
+    mine = {"params": {k: state[k] for k in names},
+            "exp_avg": {names[i]: st["exp_avg"] for i, st in moments.items()},
+            "prob": model.vq_embed_prob.clone()}
+    ckpt = Path(args.gloo_out, f"step_{trainer.step_count}.pt")
+    trainer.save(ckpt)
+    dist.barrier()
+    if rank == 0:
+        reads, ref_fails = hold_to_plain(mine, logs, ref, moves, lr)
+        fails += [f"[tp_gloo_2] {f}" for f in ref_fails]
+        result["reads"] = reads
+        result["plain_logs"] = [{k: v.item() for k, v in x.items()}
+                                for x in ref["logs"]]
+        result["plain_step_ms"] = ref["step_ms"]
+        # the gathered file resumes at tp = 1 and steps there
+        resumed = Trainer(whole, learning_rate=lr,
+                          accumulate_grad_batches=DDP_ACCUMULATE)
+        resumed.load(ckpt)
+        result["ckpt_bytes"] = ckpt.stat().st_size
+        if resumed.step_count != 1 + TP_STEPS or not all(
+                torch.equal(p, mine["params"][k])
+                for k, p in resumed.params.items()):
+            fails.append("[tp_gloo_2] the tp = 1 resume differs from the "
+                         "gathered state")
+        with full_fp32():
+            more = resumed.step(imgs[0], generator=gen)
+        result["resumed_loss"] = more["loss"].item()
+        if not all(torch.isfinite(v) for v in more.values()):
+            fails.append(f"[tp_gloo_2] the resumed step gave {more}")
+    result["logs"] = [{k: v.item() for k, v in x.items()} for x in logs]
+    result["fails"] = fails
+    Path(args.gloo_out, f"rank{rank}.json").write_text(json.dumps(result))
+    dist.destroy_process_group()
+    if fails:
+        raise AssertionError(f"[tp_gloo_2] rank {rank}: {fails}")
+    return 0
+
+
+def serial_shapes(shapes: dict) -> dict:
+    """`read_counters`' shapes as JSON lists."""
+    return {k: [[list(key), n] for key, n in v.items()]
+            for k, v in shapes.items()}
+
+
+def phase_tp_gloo(seed: int, serve: dict) -> tuple[dict, dict]:
+    """Phases 19 and 20, [tp_gloo_2] and [tp_decode]: TP_WORLD processes of
+    this script on the one card (`tp_rank`), gloo over a local port, the
+    full-width fp32 independent model from the seed after `shard_params`
+    at dp = 1, tp = TP_WORLD. [tp_decode] decodes phase 3's stream: the
+    latents bit-equal, the image within 1e-5 of phase 3's, launches as
+    phase 3's decode. [tp_gloo_2] takes a warm-up and TP_STEPS micro-steps
+    at DDP_ACCUMULATE (B = 2, TP_HW x TP_HW, so the top level's L = 1024
+    runs the flash forward, dq and dkv): rank 0 against the plain Trainer
+    on the same weights, batch and noise (`hold_to_plain`: logs 1e-5,
+    gathered gradients 1e-4 of max or twice their nudge move, weights
+    2 lr), the ranks' replicated weights bit-equal, launches from the
+    structure; the gathered step_N.pt resumes in a tp = 1 Trainer, which
+    steps. Printed: each rank's weight bytes against tp = 1's, the
+    collectives' calls, bytes and ms a micro-step, ms a micro-step."""
+    inputs = {"stream": torch.tensor(list(serve["stream"]), dtype=torch.uint8),
+              "image": serve["image"].cpu(),
+              "latents": [x.cpu() for x in serve["latents"]]}
+    codes, results = spawn_ranks("tp_gloo_2", "--tp-rank", TP_WORLD, seed,
+                                 TP_TIMEOUT_S, inputs)
+    for res in results:
+        log(f"[tp_gloo_2] rank {res['rank']}: reads "
+            f"{json.dumps(res.get('reads'))}; fails {res['fails']}")
+    if any(codes):
+        raise AssertionError(f"[tp_gloo_2] ranks exited {codes}")
+    first = results[0]
+    for res in results:
+        dec = res["decode"]
+        log(f"[tp_decode] rank {res['rank']}: phase 3's stream decoded under "
+            f"the sharded weights in {dec['ms']:.1f} ms (warm-up "
+            f"{dec['warm_ms']:.1f}); image within {dec['max_abs_err']:.3g} of "
+            f"phase 3's; launches {json.dumps(dec['launches'])}")
+        log(f"[tp_gloo_2] rank {res['rank']}: weights {res['weight_bytes']} "
+            f"bytes against {res['whole_weight_bytes']} at tp = 1 "
+            f"({res['sharded_tensors']} tensors sharded); warm-up "
+            f"{res['warm_ms']:.1f} ms, micro-steps {json.dumps(res['step_ms'])} "
+            f"ms; collectives per micro-step {json.dumps(res['collectives'])}; "
+            f"replicated weights bit-equal across ranks: "
+            f"{res['replicated_equal']}")
+    log(f"[tp_gloo_2] rank 0 against the plain Trainer on B = 2, "
+        f"{TP_HW}x{TP_HW} (its micro-steps {json.dumps(first['plain_step_ms'])}"
+        f" ms, warm-up first): {json.dumps(first['reads'])}; losses "
+        f"{[x['loss'] for x in first['logs']]} against "
+        f"{[x['loss'] for x in first['plain_logs']]}; the gathered "
+        f"checkpoint ({first['ckpt_bytes']} bytes) resumed at tp = 1, loss "
+        f"{first['resumed_loss']:.6g} a step later")
+
+    def shapes_of(serial):
+        return {k: {tuple(key): n for key, n in v} for k, v in serial.items()}
+
+    train = {"ms": float(np.mean(first["step_ms"])), "step_ms": first["step_ms"],
+             "steps": TP_STEPS, "launches": first["launches"],
+             "shapes": shapes_of(first["shapes"]),
+             "collectives": first["collectives"], "reads": first["reads"]}
+    dec = first["decode"]
+    decode = {"ms": dec["ms"], "launches": dec["launches"],
+              "shapes": shapes_of(dec["shapes"])}
+    return train, decode
+
+
+def npz_dtypes(path: Path) -> set:
+    """The dtypes of an .npz file's arrays, from their headers alone."""
+    kinds = set()
+    with zipfile.ZipFile(path) as z:
+        for name in z.namelist():
+            with z.open(name) as f:
+                major, _ = np.lib.format.read_magic(f)
+                read = (np.lib.format.read_array_header_1_0 if major == 1
+                        else np.lib.format.read_array_header_2_0)
+                kinds.add(str(read(f)[2]))
+    return kinds
+
+
+def phase_export(device, seed: int) -> None:
+    """Phase 21, [export]: `save_params_npz` of the full-width fp32 model
+    from the seed to a file, then `load_npz_weights` into a fresh model:
+    state dicts bit-equal. Again after the bf16 recipe's casts of the same
+    model (`set_compute_dtype(bf16)`, its frozen tensors stored in bf16):
+    every leaf is written fp32, and a bf16 tensor's fp32 values come back
+    to the same bf16 bits."""
+    model = make_model(device, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp, "params.npz")
+        for tag in ("fp32", "bf16 frozen"):
+            if tag != "fp32":
+                model.set_compute_dtype(BF16, cast_weights=False)
+                cast_frozen(model, BF16)
+            _, save_ms = host_ms(lambda: save_params_npz(path, model))
+            fresh = RDEIC(**MODEL_CONFIG, device="meta")
+            if tag != "fp32":
+                fresh.set_compute_dtype(BF16, cast_weights=False)
+                cast_frozen(fresh, BF16)
+            fresh.to_empty(device=device)
+            _, load_ms = host_ms(lambda: load_npz_weights(fresh, path))
+            kinds = npz_dtypes(path)
+            got, want = fresh.state_dict(), model.state_dict()
+            differ = [k for k, v in want.items()
+                      if got[k].dtype != v.dtype or not torch.equal(got[k], v)]
+            n_bf16 = sum(v.dtype == BF16 for v in want.values())
+            log(f"[export] {tag}: save_params_npz {path.stat().st_size} bytes "
+                f"in {save_ms:.1f} ms, load_npz_weights {load_ms:.1f} ms; "
+                f"{len(want)} tensors ({n_bf16} bf16), file dtypes "
+                f"{sorted(kinds)}; differ: {differ[:5]}")
+            if differ or kinds != {"float32"} or (tag != "fp32") != (n_bf16 > 0):
+                raise AssertionError(
+                    f"[export] {tag}: {len(differ)} tensors differ after the "
+                    f"round trip, file dtypes {kinds}, {n_bf16} bf16 tensors")
+            del fresh, got
+    del model
+    torch.cuda.empty_cache()
+
+
 class PhaseClock:
     """Seconds between marks, by the name of the phases they close."""
 
@@ -3596,12 +4010,16 @@ def main() -> int:
     ap.add_argument("--gloo-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--gloo-port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--gloo-out", default=None, help=argparse.SUPPRESS)
+    # a rank of phases 19 and 20, started by phase 19
+    ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if args.gloo_rank is not None:
         return gloo_rank(args)
+    if args.tp_rank is not None:
+        return tp_rank(args)
     device = resolve_device("cuda")
     clock = PhaseClock()
     phase_environment()
@@ -3671,6 +4089,12 @@ def main() -> int:
     clock.mark("ddp_nccl")
     runs["ddp_gloo_2"] = phase_ddp_gloo(args.seed)
     clock.mark("ddp_gloo_2")
+    runs["tp_gloo_2"], runs["tp_decode"] = phase_tp_gloo(args.seed, runs["serve"])
+    clock.mark("tp_gloo_2 and tp_decode")
+    phase_export(device, args.seed)
+    clock.mark("export")
+    log(f"[time] the tensor-parallel and export phases: "
+        f"{clock.marks['tp_gloo_2 and tp_decode'] + clock.marks['export']:.1f} s")
     kernels = phase_kernels(device, runs)
     clock.mark("kernels")
     log(f"[time] seconds by phase {json.dumps(clock.marks)}; total "

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rdeic_torch.ops.fused_groupnorm import group_norm
+from rdeic_torch.parallel.tensor import ColumnParallelLinear, TensorParallel
 
 
 def find_denominator(number: int, start: int) -> int:
@@ -90,14 +91,20 @@ def per_image(fn: Callable[[torch.Tensor], torch.Tensor],
 
 class Linear(nn.Linear):
     """A flax Dense with `dtype`: weight, bias and input cast to
-    `compute_dtype`."""
+    `compute_dtype`. After `parallel.mesh.shard_params` marked it (`tp`),
+    `weight` is this rank's block of the output rows and the layer runs as
+    `parallel.tensor.ColumnParallelLinear`."""
 
     compute_dtype = torch.float32
+    tp: TensorParallel | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ct = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(ct)
         weight = self.weight.to(ct)
+        if self.tp is not None:
+            return ColumnParallelLinear.apply(x.to(ct), weight, bias, self.tp,
+                                              per_image)
         return per_image(lambda v: F.linear(v, weight, bias), x.to(ct))
 
 

@@ -80,13 +80,17 @@ class ImageLogger:
         self.sample_steps = sample_steps
 
     def maybe_log(self, model, batch_img, step: int, *,
-                  generator: torch.Generator | None = None, **noise):
+                  generator: torch.Generator | None = None, write: bool = True,
+                  **noise):
         """(the step's directory, `log_images`' panels, bpp) when the step
-        logs, else None. Noise as in `log_images`."""
+        logs, else None. Noise as in `log_images`. `write=False` computes
+        the panels and writes nothing (a tp rank beside the writer)."""
         if step % self.every_n_steps != 0:
             return None
         log, bpp = log_images(model, batch_img[: self.max_images],
                               self.sample_steps, generator=generator, **noise)
+        if not write:
+            return None
         out_dir = self.save_dir / "image_log" / f"step_{step}"
         out_dir.mkdir(parents=True, exist_ok=True)
         for key, val in log.items():

@@ -32,9 +32,13 @@ with `--device cpu`). Every rank builds the same model and loader (an
 unseeded dataset takes rank 0's crop stream: `share_data_stream`), reads
 the global batch (`data_loader.batch_size`, which dp must divide) and
 uploads the rows of its dp index; the trainer averages the gradients over
-the ranks (train/trainer.py). Rank 0 alone writes `metrics.jsonl`, the
-checkpoints (and prunes them), the image logs and runs validation, while
-the others wait at a barrier; every rank loads `resume`. Plain `python -m
+the ranks (train/trainer.py). At tp above 1 the model's kernels are
+placed by `shard_params` (each rank holds its tp block of every sharded
+kernel), and every rank joins a checkpoint's gather. Rank 0 alone writes
+`metrics.jsonl`, the checkpoints (and prunes them) and the image logs, and
+validates, while the others wait at a barrier; at tp above 1 the other
+ranks of its tp group compute the image logs and validation beside it,
+since its layers need theirs. Every rank loads `resume`. Plain `python -m
 rdeic_torch.train` is a world of one, where a mesh above one device is
 refused (`ValueError`, as train.py's `make_mesh`).
 
@@ -59,7 +63,8 @@ import torch
 import torch.distributed as dist
 
 from rdeic_torch.data.dataset import device_prefetch
-from rdeic_torch.parallel.mesh import init_distributed, local_rank, make_mesh
+from rdeic_torch.parallel.mesh import (init_distributed, local_rank, make_mesh,
+                                       shard_params)
 from rdeic_torch.registry import instantiate_from_config, load_yaml
 from rdeic_torch.train.callbacks import ImageLogger
 from rdeic_torch.train.trainer import Trainer, cast_frozen, prune_checkpoints
@@ -180,6 +185,9 @@ def main(argv=None) -> int:
               flush=True)
     # build_model cast the frozen tensors on `meta` already (no fp32 copy
     # of the model), so the trainer's cast finds them in `frozen_dtype`
+    shard_params(model, mesh)  # at tp = 1 nothing changes
+    # rank 0's tp group computes what rank 0 logs and validates
+    evaluates = lead or (mesh.shape["tp"] > 1 and mesh.dp_index == 0)
     frozen = tcfg.get("frozen_dtype")
     trainer = Trainer(model, learning_rate=tcfg.get("learning_rate"),
                       accumulate_grad_batches=int(
@@ -226,11 +234,11 @@ def main(argv=None) -> int:
         return torch.Generator(device=device).manual_seed(step)
 
     def save(prune: bool) -> None:
-        """Rank 0 writes (every rank holds the same state); the others wait."""
-        if lead:
-            trainer.save(ckpt_dir / f"step_{trainer.step_count}.pt")
-            if prune:
-                prune_checkpoints(ckpt_dir, keep)
+        """Every rank joins the gather of the tp blocks, rank 0 writes and
+        prunes; the others wait."""
+        trainer.save(ckpt_dir / f"step_{trainer.step_count}.pt")
+        if lead and prune:
+            prune_checkpoints(ckpt_dir, keep)
         mesh.barrier()
 
     t0 = time.time()
@@ -246,17 +254,19 @@ def main(argv=None) -> int:
                     f"{k}={float(v):.4g}" for k, v in logs.items()), flush=True)
             if step % ckpt_every == 0:
                 save(prune=True)
-            if lead:
+            if evaluates:
                 try:
                     image_logger.maybe_log(model, batch["jpg"], step,
-                                           generator=step_generator(step))
+                                           generator=step_generator(step),
+                                           write=lead)
                 except Exception:  # logging must never kill training
                     print(f"[image log at step {step} failed:]", flush=True)
                     traceback.print_exc()
             if val_every and val_loader is not None and step % val_every == 0:
-                if lead:
+                if evaluates:
                     vm = run_validation(model, val_loader, max_batches=8,
                                         generator=step_generator(step))
+                if lead:
                     log_metrics(metrics, step, vm)
                     print(f"validation @ {step}: {vm}", flush=True)
                 mesh.barrier()

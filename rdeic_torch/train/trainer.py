@@ -20,6 +20,16 @@ JAX mesh. The ranks of a tp group hold the same rows, so the mean over the
 world is the mean over dp. The logs are averaged over the ranks. The
 terms that span the batch (the CVQ contrastive loss and the codebook
 update) see the whole batch's hyper latent (`RDEIC.loss_fn`).
+Tensor parallel (the JAX Trainer after `shard_params` under a `dp x tp`
+mesh): after `parallel.mesh.shard_params` each rank holds its tp block of
+every sharded kernel, and AdamW's moments, the partial gradient sum and the
+EMA of such a leaf live on that block. Its gradient is averaged over the dp
+group alone (the ranks that hold the same block), in a flat buffer of its
+own; the replicated leaves keep the reduction above. `grad_norm` stays the
+global norm: the sharded blocks' sum of squares is summed over the tp group
+once and added to the replicated leaves'. `save` gathers the blocks, so a
+checkpoint holds whole tensors at any tp (every rank calls it, rank 0
+writes), and `load` cuts them again: a run resumes at another tp.
 `torch.nn.parallel.DistributedDataParallel` does not fit: its reducer
 hooks the gradients that `.backward()` accumulates into `.grad`, and the
 step takes them from `torch.autograd.grad`, which leaves `.grad` alone, so
@@ -35,6 +45,8 @@ import torch
 import torch.distributed as dist
 
 from rdeic_torch.models.compression import vq_codebook_update
+from rdeic_torch.parallel.mesh import gather_state_dict, tp_layers
+from rdeic_torch.parallel.tensor import gather_blocks
 from rdeic_torch.train.ema import ema_init, ema_update
 from rdeic_torch.utils.backend import full_fp32
 
@@ -163,6 +175,11 @@ class Trainer:
         if frozen_dtype is not None:
             cast_frozen(model, frozen_dtype)
         self.params = trainable_parameters(model)
+        # the tp group of each tp-sharded trainable leaf (`shard_params`)
+        self.sharded = {k: v for k, v in tp_layers(model).items()
+                        if k in self.params}
+        if self.sharded and mesh is None:
+            raise ValueError("a model after shard_params trains on its mesh")
         # optax.adamw's defaults: betas (0.9, 0.999), eps 1e-8, decoupled decay
         self.optimizer = torch.optim.AdamW(
             self.params.values(), lr=learning_rate or model.learning_rate,
@@ -189,13 +206,22 @@ class Trainer:
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         logs = {k: v.detach() for k, v in logs.items()}
+        whole = [g for k, g in zip(self.params, grads) if k not in self.sharded]
+        blocks = [g for k, g in zip(self.params, grads) if k in self.sharded]
         if self.mesh is not None:
-            self._mean_over_ranks(grads)
+            self._mean_over_ranks(whole)
+            if blocks and self.mesh.shape["dp"] > 1:
+                self._mean_over_ranks(blocks, self.mesh.dp_group)
             z_hyper = logs.pop("_z_hyper")
             logs = dict(zip(logs, self._mean_over_ranks(list(logs.values()))))
             logs["_z_hyper"] = z_hyper
-        logs["grad_norm"] = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        norms = torch.stack([torch.linalg.vector_norm(g) for g in whole])
+        if blocks:  # the blocks' sum of squares over the tp group, once
+            sq = torch.stack([g.square().sum() for g in blocks]).sum()
+            self._all_reduce(sq, self.mesh.tp_group)
+            logs["grad_norm"] = (norms.square().sum() + sq).sqrt()
+        else:
+            logs["grad_norm"] = torch.linalg.vector_norm(norms)
         if self._grad_sum is None:
             self._grad_sum = grads
         else:
@@ -214,24 +240,25 @@ class Trainer:
         return logs
 
     @torch.no_grad()
-    def _mean_over_ranks(self, tensors: list) -> list:
-        """`tensors`, each replaced in place by its mean over the ranks: one
-        flat buffer a dtype, in list order, all-reduced (`_all_reduce`) and
-        divided by the world size."""
-        world = dist.get_world_size()
+    def _mean_over_ranks(self, tensors: list, group=None) -> list:
+        """`tensors`, each replaced in place by its mean over the ranks of
+        `group` (the world by default): one flat buffer a dtype, in list
+        order, all-reduced (`_all_reduce`) and divided by the group's
+        size."""
+        world = dist.get_world_size(group)
         for dtype in dict.fromkeys(t.dtype for t in tensors):
-            group = [t for t in tensors if t.dtype == dtype]
-            flat = torch.cat([t.reshape(-1) for t in group])
-            self._all_reduce(flat)
+            same = [t for t in tensors if t.dtype == dtype]
+            flat = torch.cat([t.reshape(-1) for t in same])
+            self._all_reduce(flat, group)
             flat.div_(world)
-            for t, part in zip(group, flat.split([t.numel() for t in group])):
+            for t, part in zip(same, flat.split([t.numel() for t in same])):
                 t.copy_(part.view_as(t))
         return tensors
 
-    def _all_reduce(self, flat: torch.Tensor) -> None:
-        """Sum `flat` over the ranks (NCCL, or gloo through the host for a
-        CUDA tensor)."""
-        dist.all_reduce(flat)
+    def _all_reduce(self, flat: torch.Tensor, group=None) -> None:
+        """Sum `flat` over the ranks of `group` (the world by default):
+        NCCL, or gloo (which takes a CUDA tensor for an all-reduce)."""
+        dist.all_reduce(flat, group=group)
 
     @torch.no_grad()
     def _codebook_update(self, z_hyper: torch.Tensor) -> None:
@@ -242,27 +269,72 @@ class Trainer:
         emb.copy_(new_emb)
         self.model.vq_embed_prob.copy_(new_prob)
 
+    @torch.no_grad()
+    def _map_moments(self, state: dict, fn) -> dict:
+        """An AdamW state dict with `fn(name, tensor)` applied to the moments
+        of every tp-sharded leaf (new dicts: the optimizer's own state
+        dicts stay as they are)."""
+        state = dict(state, state=dict(state["state"]))
+        for i, name in enumerate(self.params):
+            if name in self.sharded and i in state["state"]:
+                st = state["state"][i]
+                state["state"][i] = {
+                    **st, **{k: fn(name, st[k]) for k in ("exp_avg", "exp_avg_sq")}}
+        return state
+
+    def _by_leaf(self, fn):
+        """The grad sum and the EMA with `fn(name, tensor)` applied to each
+        tp-sharded leaf."""
+        names = list(self.params)
+        grad_sum = None if self._grad_sum is None else [
+            fn(k, g) if k in self.sharded else g
+            for k, g in zip(names, self._grad_sum)]
+        ema = None if self.ema is None else {
+            k: fn(k, v) if k in self.sharded else v for k, v in self.ema.items()}
+        return grad_sum, ema
+
     def save(self, path: str | Path) -> None:
         """The full train state (weights, AdamW moments, the partial
-        gradient sum, EMA, step) in one torch.save file."""
+        gradient sum, EMA, step) in one torch.save file, every tp-sharded
+        tensor gathered whole: every rank of a mesh calls it, rank 0
+        writes."""
+        def whole(name, x):
+            return gather_blocks(x, self.sharded[name])
+
+        model = gather_state_dict(self.model)
+        optimizer = self._map_moments(self.optimizer.state_dict(), whole)
+        grad_sum, ema = self._by_leaf(whole)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         Path(path).parent.mkdir(parents=True, exist_ok=True)
-        torch.save({"step": self.step_count, "model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "grad_sum": self._grad_sum, "ema": self.ema}, path)
+        torch.save({"step": self.step_count, "model": model,
+                    "optimizer": optimizer, "grad_sum": grad_sum,
+                    "ema": ema}, path)
 
     def load(self, path: str | Path) -> None:
         """The train state of a `Trainer.save` file, or of the latest
         `step_N.pt` in a directory of them (`latest_checkpoint`). Each
         weight is copied into the model's tensor in that tensor's dtype, so
-        an fp32 file resumes into a bf16-frozen trainer, and the reverse."""
+        an fp32 file resumes into a bf16-frozen trainer, and the reverse;
+        a tp-sharded leaf takes its block of the whole tensor, so a file
+        resumes at any tp."""
         dev = next(self.model.parameters()).device
         state = torch.load(latest_checkpoint(path), map_location=dev,
                            weights_only=True)
-        self.model.load_state_dict(state["model"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
-        self._grad_sum = state["grad_sum"]
+        marked = tp_layers(self.model)
+
+        def block(name, x):
+            tp = marked[name]
+            return x[tp.block(x.shape[0])].clone()
+
+        self.model.load_state_dict(
+            {k: block(k, v) if k in marked else v
+             for k, v in state["model"].items()}, strict=True)
+        self.optimizer.load_state_dict(
+            self._map_moments(state["optimizer"], block))
         if (self.ema is None) != (state["ema"] is None):
             raise ValueError("the checkpoint's EMA setting differs from the "
                              "trainer's")
-        self.ema = state["ema"]
+        self._grad_sum, self.ema = state["grad_sum"], state["ema"]
+        self._grad_sum, self.ema = self._by_leaf(block)
         self.step_count = int(state["step"])

@@ -52,10 +52,11 @@ def load_jax_params(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
 def load_npz(path: str | Path) -> dict[str, np.ndarray]:
     """The flat dict of a `save_params_npz` file."""
     with np.load(path) as data:
-        if any(data[k].dtype.kind == "V" for k in data.files):
-            raise ValueError(f"{path}: a leaf is stored as an opaque record "
-                             "(an old bfloat16 export); re-export it in fp32")
-        return {k: data[k] for k in data.files}
+        flat = {k: data[k] for k in data.files}
+    if any(v.dtype.kind == "V" for v in flat.values()):
+        raise ValueError(f"{path}: a leaf is stored as an opaque record "
+                         "(an old bfloat16 export); re-export it in fp32")
+    return flat
 
 
 def load_npz_weights(model: torch.nn.Module, path: str | Path,

@@ -1262,3 +1262,65 @@ def test_d16_bf16_backward_is_prepared_on_each_device(cuda):
             assert got.device == dev
             assert _rel_err(got, want) <= _limit(torch.bfloat16)
         assert d16_bf16_carveout(index) == (100, 100), index
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_column_parallel_linear_over_one_rank_is_f_linear(cuda, tmp_path,
+                                                           backend):
+    """`ColumnParallelLinear` on the card over a tp group of one rank (NCCL,
+    and gloo, which moves CUDA tensors through the host): the forward and
+    the gradients of x, W and b against autograd through `F.linear` on the
+    whole weight, within 1e-6 of max (the bias is added after the gather,
+    so the forward may round once more)."""
+    import torch.distributed as dist  # noqa: PLC0415
+    import torch.nn.functional as F  # noqa: PLC0415
+
+    from rdeic_torch.models.blocks import per_image  # noqa: PLC0415
+    from rdeic_torch.parallel.tensor import (  # noqa: PLC0415
+        ColumnParallelLinear, TensorParallel)
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, w, b, dy = (torch.randn(s, device=cuda, generator=gen)
+                   for s in ((2, 1024, 320), (2560, 320), (2560,),
+                             (2, 1024, 2560)))
+    _world_of_one(tmp_path, backend)
+    try:
+        tp = TensorParallel(dist.group.WORLD, 1, 0)
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        got = ColumnParallelLinear.apply(*leaves, tp, per_image)
+        got.backward(dy)
+    finally:
+        dist.destroy_process_group()
+    ref = [t.clone().requires_grad_() for t in (x, w, b)]
+    want = F.linear(*ref)
+    want.backward(dy)
+    for a, e in [(got, want)] + [(g.grad, r.grad) for g, r in zip(leaves, ref)]:
+        assert a.shape == e.shape and a.is_cuda
+        assert (a - e).abs().max() <= 1e-6 * e.abs().max()
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_export_round_trip_of_card_tensors(cuda, tmp_path, bf16):
+    """`save_params_npz` of CARD_MICRO's tensors on the card (bf16 storage
+    for the VAE and the denoiser when asked), then `load_npz_weights` into
+    a fresh card model of the same dtypes: every tensor bit-equal; the
+    file holds fp32 only."""
+    from rdeic_torch.pipeline.rdeic import RDEIC  # noqa: PLC0415
+    from rdeic_torch.utils.checkpoint_io import (  # noqa: PLC0415
+        load_npz_weights, save_params_npz)
+
+    _, card = _serving_models(cuda, bf16=bf16)
+    path = tmp_path / "params.npz"
+    save_params_npz(path, card)
+    fresh = RDEIC(**CARD_MICRO, device="meta").eval()
+    if bf16:
+        fresh.set_compute_dtype(torch.bfloat16)
+    fresh.to_empty(device=cuda)
+    load_npz_weights(fresh, path)
+    with np.load(path) as data:
+        assert {data[k].dtype for k in data.files} == {np.dtype(np.float32)}
+    got, want = fresh.state_dict(), card.state_dict()
+    assert got.keys() == want.keys()
+    assert bf16 == any(v.dtype == torch.bfloat16 for v in want.values())
+    for key, v in want.items():
+        assert got[key].dtype == v.dtype and torch.equal(got[key], v), key

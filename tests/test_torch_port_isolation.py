@@ -41,7 +41,9 @@ def test_pipeline_import_pulls_no_jax_yaml_or_pil():
             "rdeic_torch.utils.torch_convert, "
             "rdeic_torch.train, rdeic_torch.train.trainer, "
             "rdeic_torch.train.cli, rdeic_torch.data.dataset, "
-            "rdeic_torch.parallel, rdeic_torch.parallel.mesh; "
+            "rdeic_torch.parallel, rdeic_torch.parallel.mesh, "
+            "rdeic_torch.parallel.tensor, rdeic_torch.utils.checkpoint_io, "
+            "rdeic_torch.convert_checkpoint; "
             "bad = {'jax', 'flax', 'yaml', 'PIL', 'rdeic_tpu'} & set(sys.modules); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

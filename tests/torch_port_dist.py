@@ -162,8 +162,83 @@ def loader_worker(workdir: Path) -> dict:
     return {"batches": batches}
 
 
+def dist_rank() -> int:
+    return int(os.environ["RANK"])
+
+
+def tp_worker(workdir: Path) -> dict:
+    """The model of inputs.pt after `shard_params` on a (dp, tp) mesh.
+    With `decode` (c_latent, guide_hint, steps and the global batch's
+    `sample_noise`): this rank's rows decoded. With `img01`: that image
+    coded to a stream file and decoded back. With `imgs`: `Trainer` steps
+    on this rank's rows (as `train_worker`), then `Trainer.save` of the
+    gathered state to <workdir>/ckpt.pt (every rank calls it, rank 0
+    writes); with `resume`, a fresh sharded trainer loads that whole-tensor
+    file. Returns this rank's tensors: the sharded weights' blocks, the
+    logs, the trainable tensors after the steps and after the resume."""
+    import torch  # noqa: PLC0415
+
+    from rdeic_torch.parallel.mesh import (init_distributed, make_mesh,  # noqa
+                                           params_shardings, shard_params)
+    from rdeic_torch.pipeline.rdeic import RDEIC, noise_rows  # noqa: PLC0415
+    from rdeic_torch.train.trainer import Trainer  # noqa: PLC0415
+
+    inp = torch.load(Path(workdir) / "inputs.pt", weights_only=False)
+    assert init_distributed(device="cpu")
+    mesh = make_mesh(dp=inp["dp"], tp=inp["tp"])
+
+    def sharded_model():
+        model = RDEIC(**inp["config"], device="cpu")
+        model.load_state_dict(inp["state"], strict=True)
+        return shard_params(model, mesh)
+
+    model = sharded_model()
+    out = {"blocks": {k: (s.block().start, s.block().stop)
+                      for k, s in params_shardings(model, mesh).items()
+                      if s.sharded},
+           "weights": {k: p.detach().clone()
+                       for k, p in model.named_parameters()}}
+    if "decode" in inp:
+        d = inp["decode"]
+        rows = mesh.rows(d["c_latent"].shape[0])
+        out["decode"] = model.decode_pipeline(
+            d["c_latent"][rows], d["guide_hint"][rows], d["steps"],
+            **noise_rows(d["noise"], rows))
+    if "img01" in inp:  # the codec under the sharded weights
+        img = inp["img01"]
+        path = Path(workdir) / f"rank{dist_rank()}.rdeic"
+        model.apply_condition_compress(img, path, *img.shape[1:3])
+        out["stream"] = path.read_bytes()
+        out["latents"] = model.apply_condition_decompress(path)
+    if "imgs" in inp:
+        trainer = Trainer(model, learning_rate=inp["lr"],
+                          accumulate_grad_batches=inp["accumulate"], mesh=mesh)
+        out["logs"], out["rows"] = [], []
+        for img, noise in zip(inp["imgs"], inp["noise"]):
+            rows = mesh.rows(img.shape[0])
+            logs = trainer.step(img[rows], noise=noise)
+            out["rows"].append((rows.start, rows.stop))
+            out["logs"].append({k: v.clone() for k, v in logs.items()})
+        out["params"] = {k: p.detach().clone()
+                         for k, p in trainer.params.items()}
+        trainer.save(Path(workdir) / "ckpt.pt")
+    if "resume" in inp:
+        trainer = Trainer(sharded_model(), learning_rate=inp["lr"],
+                          accumulate_grad_batches=inp["accumulate"], mesh=mesh)
+        trainer.load(inp["resume"])
+        out["resumed"] = {k: p.detach().clone()
+                          for k, p in trainer.params.items()}
+        out["resumed_exp_avg"] = {
+            k: trainer.optimizer.state[p]["exp_avg"].clone()
+            for k, p in trainer.params.items()
+            if "exp_avg" in trainer.optimizer.state.get(p, {})}
+        out["resumed_step"] = trainer.step_count
+    torch.distributed.destroy_process_group()
+    return out
+
+
 WORKERS = {"all_reduce": all_reduce_worker, "train": train_worker,
-           "loader": loader_worker}
+           "loader": loader_worker, "tp": tp_worker}
 
 if __name__ == "__main__":
     import torch

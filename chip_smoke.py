@@ -90,6 +90,22 @@ and g++; no network. Phases, each fatal on failure:
    decodes, pass by pass, to the plain version's symbols, without a fault;
    the encoder's launch equals the plain version's words; decompress ms
    and bpp per route beside phase 3's host route;
+3f. [harness], the evaluation harnesses' per-image functions on numpy
+   images (the card's machine has no PIL): baseline_inference's
+   `process_single` on two synthetic 768x512 images (stream and image
+   bit-equal to process() with the same generator; ms an image, peak
+   memory), image_checker's rows on its outputs, run_ood's `eval_image`
+   at two test-time draws with NIQE and BRISQUE fit on synthetic originals
+   (`nr_models`; every score finite, NIQE reading a noised image as less
+   natural), run_robustness's `sweep_image` on phase 3's stream on the host
+   route and on the lane route (v2, K = 128: rans_decode_shared on
+   corrupted words; each severity-0 row phase 3's image bit for bit, the
+   fail rates, no launch faulting the context, phase 3's stream decoding
+   to its latents afterwards), and `device_trace` around one
+   decode_pipeline (the trace file's size, the ten device ops that took
+   longest) with `memory_stats` against the allocator; launches of each
+   part as the structure says (paths harness_baseline, harness_ood,
+   harness_robustness, harness_robustness_lanes);
 4. reference on a small input: a 256x256 image through the same weights,
    once on the card (kernels) and once on the CPU (plain versions), from the
    same latents and noise: DDPM, DDIM and guidance 2.0 in fp32 (image
@@ -261,7 +277,8 @@ run of the path its `path` names (serve: phase 3's DDPM run; serve_ddim,
 serve_cfg and serve_bf16 are phase 3b's; partition and partition_bf16
 phase 3c's, whose `calls` are per run of its five images; tiled_v2,
 tiled_v2_bf16 and tiled_v1 phase 3d's, per run of its image; the lanes_*
-routes phase 3e's; partition_dp, tiled_mesh, ddp_nccl and ddp_gloo_2
+routes phase 3e's; the harness_* paths phase 3f's, per run of each part;
+partition_dp, tiled_mesh, ddp_nccl and ddp_gloo_2
 phases 17, 18, 15 and 16 (the last per rank, read back from rank 0);
 tp_gloo_2 and tp_decode phases 19 and 20 (per rank, from rank 0); train, refine,
 train_bf16 and
@@ -305,7 +322,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from rdeic_torch import build
+from rdeic_torch import baseline_inference, build, image_checker
 from rdeic_torch.entropy import device_rans
 from rdeic_torch.entropy.coder import (
     CdfTable,
@@ -314,6 +331,7 @@ from rdeic_torch.entropy.coder import (
     rans_encode_interleaved,
     rans_encode_interleaved_shared,
 )
+from rdeic_torch.experiments import run_ood, run_robustness
 from rdeic_torch.inference import process
 from rdeic_torch.inference_partition import make_chunks, serve
 from rdeic_torch.models import compression as compression_module
@@ -363,8 +381,9 @@ from rdeic_torch.train.validation import run_validation
 from rdeic_torch.utils.backend import full_fp32, resolve_device
 from rdeic_torch.utils.checkpoint_io import load_npz_weights, save_params_npz
 from rdeic_torch.utils.fast_init import fast_random_init
-from rdeic_torch.utils.image import PNG_SIGNATURE, to_uint8
-from rdeic_torch.utils.metrics import MetricSuite
+from rdeic_torch.utils.image import PNG_SIGNATURE, to_float01, to_uint8
+from rdeic_torch.utils.metrics import MetricSuite, score_images
+from rdeic_torch.utils.profiling import device_trace, memory_stats
 
 # configs/model/rdeic.yaml `params` (the card's machine has no yaml module;
 # tests/test_torch_port_isolation.py holds this dict equal to the file)
@@ -1648,6 +1667,257 @@ def phase_lanes(model, device, seed: int, base: dict) -> dict:
         "overflow; every kernel pass equals the plain version and the host "
         "coder, a corrupt stream the plain version's; a flipped byte changes "
         "the kernels' symbols, a changed symbol the encoder's words")
+    return runs
+
+
+# -- the evaluation harnesses: phase 3f ------------------------------------------
+HARNESS_IMAGES = 2  # baseline and run_ood images, 768x512
+HARNESS_TTA = 2  # run_ood's --tta_samples
+HARNESS_FIT = 4  # synthetic originals the NIQE and BRISQUE models fit on
+HARNESS_NOISE = 0.05  # std of the noise NIQE must read as less natural
+HARNESS_TARGETS = ["bitstream:random", "latent:additive"]
+HARNESS_RATES, HARNESS_SEVERITIES, HARNESS_SEEDS = [0.0, 1e-3], [0.0, 0.1], [0]
+# the lane route's sweep: v2 at K = 128, decoded by rans_decode_shared
+HARNESS_LANE_SETTINGS = {"RDEIC_RANS_LANES": "128",
+                         "RDEIC_RANS_OVERHEAD_PCT": "0"}
+HARNESS_LANE_RATES, HARNESS_LANE_SEEDS = [0.0, 1e-3, 1e-2], [0, 1]
+TRACE_TOP = 10  # device ops the trace's summary prints
+
+
+def natural_image(seed: int, noise: float = 0.0) -> np.ndarray:
+    """A synthetic 768x512 uint8 image with the smooth statistics NIQE and
+    BRISQUE model (a Gaussian-blurred random field, stretched to [0, 1]),
+    plus white noise of std `noise`."""
+    from scipy.ndimage import gaussian_filter  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed)
+    img = gaussian_filter(rng.uniform(size=(*IMAGE_HW, 3)), sigma=(3, 3, 0))
+    img = (img - img.min()) / (img.max() - img.min())
+    return to_uint8(np.clip(img + noise * rng.normal(size=img.shape), 0, 1))
+
+
+def generator_noise(device, seed: int):
+    """`noise()` of the harnesses: every draw from a generator seeded alike,
+    so each decode gets process()'s noise for that seed."""
+    return lambda: {"generator": torch.Generator(device=device).manual_seed(seed)}
+
+
+def scaled_launches(want: dict, n: int) -> dict:
+    """`want`'s launch counts, n runs of them."""
+    return {k: v * n for k, v in want.items()}
+
+
+def phase_harness(model, device, seed: int, serve: dict) -> dict:
+    """Phase 3f, [harness]: the evaluation harnesses' per-image functions at
+    full width on the card, with numpy images (the card's machine has no
+    PIL). (a) baseline_inference's `process_single` on two synthetic
+    768x512 images, each against process() with the same generator draws:
+    stream and image bit-equal; ms an image, peak memory; (b) image_checker's
+    rows on its outputs; (c) run_ood's `eval_image` at --tta_samples 2 with
+    NIQE and BRISQUE self-fit (`nr_models`) on HARNESS_FIT synthetic
+    originals: every score finite, NIQE reading a noised image as less
+    natural than the clean one; (d) run_robustness's `sweep_image` on phase
+    3's stream (cached as the clean stream), bitstream:random and
+    latent:additive, every row with phase 3's noise: each severity-0 row
+    phase 3's image bit for bit, the fail rate; then again on the lane
+    route (v2, K = 128: rans_decode_shared on corrupted words), and a clean
+    decode after both sweeps still phase 3's latents and image; (e)
+    `device_trace` around one decode_pipeline: the trace file, the ten
+    device ops that took longest, `memory_stats` against the allocator.
+    Launches of each part against the structure; returns its runs."""
+    suite = MetricSuite()
+    fns = {n: suite.create_metric(n)
+           for n in ("psnr", "ssim", "ms_ssim", "mse", "mae", "lpips")}
+    per_image, per_decode = serve_launches(model), decode_launches(model)
+    phase3 = to_uint8(serve["image"][0].cpu().numpy())
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) baseline
+        refs = [natural_image(seed + 30 + i) for i in range(HARNESS_IMAGES)]
+        base_fns = {n: fns[n] for n in baseline_inference.METRICS}
+        reset_counters()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs, rows, ms = [], [], []
+        for i, ref in enumerate(refs):
+            gen = torch.Generator(device=device).manual_seed(seed + i)
+            (out01, bpp, enc_t, dec_t), t = host_ms(
+                lambda: baseline_inference.process_single(
+                    model, ref, tmp / f"base{i}.rdeic", STEPS, generator=gen))
+            ms.append(t)
+            outs.append(to_uint8(out01))
+            rows.append(baseline_inference.baseline_row(
+                f"im{i}", bpp, enc_t, dec_t,
+                score_images(base_fns, ref, outs[-1], device)))
+        peak = torch.cuda.max_memory_allocated()
+        launches, shapes = read_counters()
+        runs["harness_baseline"] = {"launches": launches, "shapes": shapes}
+        for i, ref in enumerate(refs):
+            img01 = torch.from_numpy(to_float01(ref)[None]).to(device)
+            want, _ = run_process(model, img01, tmp / "process.rdeic", seed + i)
+            log(f"[harness] baseline im{i}: {json.dumps(rows[i])}")
+            if not np.array_equal(outs[i], want):
+                raise AssertionError(f"[harness] baseline im{i}: the image "
+                                     "differs from process()'s")
+            if ((tmp / f"base{i}.rdeic").read_bytes()
+                    != (tmp / "process.rdeic").read_bytes()):
+                raise AssertionError(f"[harness] baseline im{i}: the stream "
+                                     "differs from process()'s")
+            if not all(np.isfinite(rows[i][n]) for n in base_fns):
+                raise AssertionError(f"[harness] baseline im{i}: {rows[i]}")
+        log(f"[harness] baseline: {np.mean(ms):.1f} ms an image "
+            f"({', '.join(f'{t:.1f}' for t in ms)}), peak memory "
+            f"{peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} above "
+            f"the resident); streams and images bit-equal to process()'s "
+            f"with the same generator; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        check_launches("harness baseline", launches,
+                       scaled_launches(per_image, HARNESS_IMAGES))
+
+        # (b) image_checker on the baseline's outputs
+        check_fns = {n: fns[n] for n in image_checker.METRICS}
+        checks = []
+        for i, (ref, out) in enumerate(zip(refs, outs)):
+            checks.append({"name": f"im{i}",
+                           **score_images(check_fns, ref, out, device)})
+            diff = image_checker.diff_image(ref, out)
+            log(f"[harness] image_checker {json.dumps(checks[-1])}; |diff| "
+                f"max {int(diff.max())}, mean {diff.mean():.3f}")
+            if checks[-1]["psnr"] != rows[i]["psnr"]:
+                raise AssertionError("[harness] image_checker's psnr differs "
+                                     "from the baseline row's")
+        log(f"[harness] image_checker averages: "
+            f"{json.dumps(image_checker.averages(checks))}")
+
+        # (c) run_ood
+        t0 = time.perf_counter()
+        models = run_ood.nr_models(None, None, (natural_image(seed + 40 + i)
+                                                for i in range(HARNESS_FIT)))
+        fit_s = time.perf_counter() - t0
+        clean = natural_image(seed + 50)
+        noisy = natural_image(seed + 50, noise=HARNESS_NOISE)
+        nr = {n: [m.score(x.astype(np.float64) / 255.0) for x in (clean, noisy)]
+              for n, m in models.items()}
+        log(f"[harness] run_ood: NIQE and BRISQUE fit on {HARNESS_FIT} "
+            f"synthetic originals in {fit_s:.2f} s; (clean, noised by "
+            f"{HARNESS_NOISE}) scores {json.dumps(nr)}")
+        if sorted(models) != ["brisque", "niqe"] or not nr["niqe"][0] < nr["niqe"][1]:
+            raise AssertionError(f"[harness] run_ood: NIQE does not read the "
+                                 f"noise: {nr}")
+        ood_fns = {n: fns[n] for n in run_ood.METRICS}
+        gen = torch.Generator(device=device).manual_seed(seed + 60)
+        reset_counters()
+        for i, ref in enumerate(refs):
+            (row, _, pick), t = host_ms(lambda: run_ood.eval_image(
+                model, ref, tmp / f"ood{i}.rdeic", STEPS, ood_fns, models,
+                [{"generator": gen}] * HARNESS_TTA))
+            log(f"[harness] run_ood im{i}: {json.dumps(row)}; kept draw "
+                f"{pick} of {HARNESS_TTA}; {t:.1f} ms")
+            if not all(np.isfinite(v) for v in row.values()):
+                raise AssertionError(f"[harness] run_ood im{i}: {row}")
+        launches, shapes = read_counters()
+        runs["harness_ood"] = {"launches": launches, "shapes": shapes}
+        want = scaled_launches(per_image, HARNESS_IMAGES)
+        for k, v in per_decode.items():
+            want[k] += v * HARNESS_IMAGES * (HARNESS_TTA - 1)
+        check_launches("harness run_ood", launches, want)
+
+        # (d) run_robustness: the host route, then the lane route
+        (tmp / "clean.rdeic").write_bytes(serve["stream"])
+        img01 = np.random.default_rng(seed).uniform(  # phase 3's input
+            size=(1, *IMAGE_HW, 3)).astype(np.float32)
+        ref = to_uint8(img01[0])  # the metrics' reference
+        rob_fns = {n: fns[n] for n in run_robustness.METRICS}
+        sweeps = {
+            "harness_robustness": (
+                {}, tmp / "clean.rdeic", HARNESS_TARGETS, HARNESS_RATES,
+                HARNESS_SEEDS),
+            "harness_robustness_lanes": (
+                HARNESS_LANE_SETTINGS, tmp / "lanes.rdeic",
+                ["bitstream:random"], HARNESS_LANE_RATES, HARNESS_LANE_SEEDS)}
+        for tag, (settings, clean_stream, targets, rates, seeds) in sweeps.items():
+            with rans_settings(model, settings) as codec:
+                if settings:  # phase 3's image coded on the lane route
+                    model.apply_condition_compress(
+                        torch.from_numpy(img01).to(device), clean_stream,
+                        *IMAGE_HW)
+                host = codec.host_routes["shared_decode"]
+                reset_counters()
+                t0 = time.perf_counter()
+                pairs = list(run_robustness.sweep_image(
+                    model, ref, "im", clean_stream, tmp / "bad.rdeic", targets,
+                    rates, HARNESS_SEVERITIES, seeds, STEPS, rob_fns,
+                    generator_noise(device, seed)))
+                sweep_s = time.perf_counter() - t0
+                launches, shapes = read_counters()
+                # a corrupt header's K below RDEIC_RANS_DEVICE_MIN_LANES
+                # decodes on the host
+                host = codec.host_routes["shared_decode"] - host
+            runs[tag] = {"launches": launches, "shapes": shapes}
+            rows = [r for r, _ in pairs]
+            summary = run_robustness.summary_rows(rows)
+            for row, recon in pairs:
+                log(f"[harness] {tag} {json.dumps(row)}")
+                if row["severity"] == 0 and (
+                        recon is None or not np.array_equal(recon, phase3)):
+                    raise AssertionError(f"[harness] {tag}: a severity-0 row "
+                                         "is not phase 3's image")
+            n_ok = sum(not r["decode_failed"] for r in rows)
+            want = scaled_launches(per_decode, n_ok)
+            if settings:
+                want["rans_decode_shared"] = 2 * SLICES * (n_ok - host)
+            log(f"[harness] {tag}: {len(rows)} rows in {sweep_s:.1f} s; "
+                f"fail rates (target, mode, severity, n, fail_rate, psnr, "
+                f"ms_ssim, lpips) {json.dumps(summary)}; launches "
+                f"{json.dumps({k: v for k, v in launches.items() if v})}")
+            check_launches(f"harness {tag}", launches, want)
+        torch.cuda.synchronize()  # a fault of the sweeps' launches raises here
+        c_latent, guide_hint = model.apply_condition_decompress(
+            tmp / "clean.rdeic")
+        if not (torch.equal(c_latent, serve["latents"][0])
+                and torch.equal(guide_hint, serve["latents"][1])):
+            raise AssertionError("[harness] after the sweeps phase 3's stream "
+                                 "decodes to other latents")
+
+        # (e) a trace of one decode, and the allocator's statistics
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        with device_trace(tmp / "trace") as prof:
+            out, ms = host_ms(lambda: model.decode_pipeline(
+                c_latent, guide_hint, STEPS, **generator_noise(device, seed)()))
+        launches, _ = read_counters()
+        stats = memory_stats()[f"cuda:{device.index or 0}"]
+        allocator = {"bytes_in_use": torch.cuda.memory_allocated(),
+                     "peak_bytes_in_use": torch.cuda.max_memory_allocated(),
+                     "bytes_limit": torch.cuda.get_device_properties(
+                         device).total_memory}
+        (trace,) = (tmp / "trace").glob("*.pt.trace.json")
+        # the card's own events (kernels, copies, sets): the host ops that
+        # launched them carry the same time again
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events.sort(key=lambda e: e.device_time_total, reverse=True)
+        device_us = sum(e.device_time_total for e in events)
+        top = [{"name": e.key[:72], "calls": e.count,
+                "device_ms": round(e.device_time_total / 1e3, 3)}
+               for e in events[:TRACE_TOP]]
+        log(f"[harness] device_trace of one decode_pipeline ({ms:.1f} ms): "
+            f"{trace.stat().st_size} bytes ({trace.name}); {len(events)} "
+            f"kinds of device op, {device_us / 1e3:.3f} device ms; the "
+            f"{TRACE_TOP} longest: {json.dumps(top)}")
+        log(f"[harness] memory_stats: "
+            f"{json.dumps({k: stats[k] for k in allocator})}; the allocator: "
+            f"{json.dumps(allocator)}")
+        if not device_us > 0:
+            raise AssertionError("[harness] the trace holds no device time")
+        if {k: stats[k] for k in allocator} != allocator:
+            raise AssertionError("[harness] memory_stats differs from the "
+                                 "allocator's counters")
+        if not np.array_equal(to_uint8(out[0].cpu().numpy()), phase3):
+            raise AssertionError("[harness] the traced decode is not phase "
+                                 "3's image")
+        check_launches("harness trace", launches, per_decode)
     return runs
 
 
@@ -4055,6 +4325,8 @@ def main() -> int:
     clock.mark("tiled_mesh")
     runs.update(phase_lanes(model, device, args.seed, runs["serve"]))
     clock.mark("lanes")
+    runs.update(phase_harness(model, device, args.seed, runs["serve"]))
+    clock.mark("harness")
     phase_reference(model, bf16, device, args.seed)
     del bf16
     phase_validate_reference(model, device, args.seed)

@@ -103,12 +103,19 @@ def lane_header(lanes: int, lane_nbytes) -> bytes:
 
 
 def parse_lane_header(hdr: bytes):
-    """-> (version, lanes, lane_nbytes or None)."""
-    arr = np.frombuffer(hdr, "<u4")
-    tag = int(arr[0])
-    if tag & _V2_TAG:
-        return 2, tag & ~_V2_TAG, None
-    return 1, tag, arr[1:1 + tag].astype(np.int64)
+    """-> (version, lanes, lane_nbytes or None). Raises ValueError on a
+    header no codec writes (a corrupt stream): no lanes, a v2 K past the
+    shared kernel's MAX_SHARED_LANES, or a v1 header without one byte count
+    a lane."""
+    arr = np.frombuffer(hdr, "<u4", len(hdr) // 4)
+    tag = int(arr[0]) if arr.size else 0
+    ver, k = (2, tag & ~_V2_TAG) if tag & _V2_TAG else (1, tag)
+    if k < 1 or (ver == 2 and (k > device_rans.MAX_SHARED_LANES
+                               or arr.size != 1)) \
+            or (ver == 1 and arr.size != 1 + k):
+        raise ValueError(f"corrupt lanes header: v{ver}, K = {k}, "
+                         f"{len(hdr)} bytes")
+    return ver, k, None if ver == 2 else arr[1:].astype(np.int64)
 
 
 class CompressionCodec:

@@ -7,26 +7,43 @@ import struct
 from pathlib import Path
 
 
+def write_uints(fd, values) -> int:
+    fd.write(struct.pack(f">{len(values)}I", *values))
+    return len(values) * 4
+
+
+def read_uints(fd, n) -> tuple:
+    return struct.unpack(f">{n}I", fd.read(n * 4))
+
+
+def write_bytes(fd, values) -> int:
+    if len(values) == 0:
+        return 0
+    fd.write(values)
+    return len(values)
+
+
+def read_bytes(fd, n) -> bytes:
+    return fd.read(n)
+
+
 def write_body(fd, shape, out_strings) -> int:
     """shape: (zH, zW); out_strings: list of [bytes] one-element lists."""
-    header = (int(shape[0]), int(shape[1]), len(out_strings))
-    fd.write(struct.pack(">3I", *header))
-    count = 12
+    cnt = write_uints(fd, (int(shape[0]), int(shape[1]), len(out_strings)))
     for s in out_strings:
-        fd.write(struct.pack(">I", len(s[0])))
-        fd.write(s[0])
-        count += 4 + len(s[0])
-    return count
+        cnt += write_uints(fd, (len(s[0]),))
+        cnt += write_bytes(fd, s[0])
+    return cnt
 
 
 def read_body(fd):
     """-> (strings, shape), the inverse of write_body."""
-    shape = struct.unpack(">2I", fd.read(8))
-    (n_strings,) = struct.unpack(">I", fd.read(4))
     strings = []
+    shape = read_uints(fd, 2)
+    (n_strings,) = read_uints(fd, 1)
     for _ in range(n_strings):
-        (n,) = struct.unpack(">I", fd.read(4))
-        strings.append([fd.read(n)])
+        (n,) = read_uints(fd, 1)
+        strings.append([read_bytes(fd, n)])
     return strings, shape
 
 

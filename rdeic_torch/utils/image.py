@@ -1,7 +1,7 @@
 """Image crops, augmentation and conversions (counterpart of the same
-functions in rdeic_tpu/utils/image.py), and a PNG writer. PIL is imported
-inside the functions that resize, because the card's machine has no PIL;
-`encode_png` needs only zlib."""
+functions in rdeic_tpu/utils/image.py), an image reader and a PNG writer.
+PIL is imported inside the functions that read or resize, because the
+card's machine has no PIL; `encode_png` needs only zlib."""
 from __future__ import annotations
 
 import math
@@ -76,6 +76,38 @@ def to_float01(img_uint8: np.ndarray) -> np.ndarray:
 
 def to_uint8(img01: np.ndarray) -> np.ndarray:
     return np.clip(np.asarray(img01) * 255.0, 0, 255).astype(np.uint8)
+
+
+def rgb2ycbcr(img01: np.ndarray, y_only: bool = True) -> np.ndarray:
+    """RGB [0,1] -> YCbCr (BT.601, as the reference's rgb2ycbcr_pt)."""
+    m = np.array(
+        [[65.481, 128.553, 24.966],
+         [-37.797, -74.203, 112.0],
+         [112.0, -93.786, -18.214]], dtype=np.float32,
+    )
+    out = img01 @ m.T + np.array([16.0, 128.0, 128.0], np.float32)
+    out = out / 255.0
+    return out[..., :1] if y_only else out
+
+
+def usm_sharp(img01: np.ndarray, weight: float = 0.5, radius: int = 50,
+              threshold: float = 10 / 255.0) -> np.ndarray:
+    """Unsharp masking (role parity: utils/image/usm_sharp.py)."""
+    from scipy.ndimage import gaussian_filter  # noqa: PLC0415
+
+    blur = gaussian_filter(img01, sigma=(radius / 6, radius / 6, 0))
+    residual = img01 - blur
+    mask = (np.abs(residual) > threshold).astype(np.float32)
+    soft_mask = gaussian_filter(mask, sigma=(radius / 6, radius / 6, 0))
+    sharp = np.clip(img01 + weight * residual, 0, 1)
+    return soft_mask * sharp + (1 - soft_mask) * img01
+
+
+def read_rgb(path) -> np.ndarray:
+    """An image file as uint8 [H, W, 3] RGB (PIL)."""
+    from PIL import Image  # noqa: PLC0415
+
+    return np.array(Image.open(path).convert("RGB"))
 
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"

@@ -1,4 +1,4 @@
-"""Image quality metrics: PSNR, SSIM, MS-SSIM, MSE, MAE and LPIPS
+"""Image quality metrics: PSNR, SSIM, MS-SSIM, MSE, MAE, LPIPS and NIQE
 (counterpart of rdeic_tpu/utils/metrics.py).
 
 All take NHWC float tensors in [0, 1] and give one value per image. The
@@ -103,6 +103,23 @@ def mae(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(a - b), dim=(1, 2, 3))
 
 
+def score_images(fns: dict, ref: np.ndarray, recon: np.ndarray,
+                 device) -> dict:
+    """{name: value} of each metric `fns` holds (callables of the suite) on
+    two uint8 [H, W, 3] images, taken as [1, H, W, 3] in [0, 1] on `device`.
+    A metric that refuses the size (`ms_ssim` under MS_SSIM_MIN_SIDE) reads
+    NaN, as the JAX package's harnesses record it."""
+    a, b = (torch.from_numpy(np.asarray(x, np.float32))[None].to(device) / 255.0
+            for x in (ref, recon))
+    row = {}
+    for name, fn in fns.items():
+        try:
+            row[name] = float(fn(a, b)[0])
+        except ValueError:
+            row[name] = float("nan")
+    return row
+
+
 class MetricSuite:
     """pyiqa-style registry: `create_metric(name)` -> callable(a, b) -> [B].
 
@@ -125,10 +142,26 @@ class MetricSuite:
         if name == "lpips":
             return self._lpips
         if name == "niqe":
-            raise NotImplementedError(
-                "niqe: the pristine model fit of utils/niqe.py is not ported "
-                "(ROADMAP Queue 1, the rest)")
+            return self._niqe(opts.get("model_path"))
         raise ValueError(f"unknown metric {name!r}")
+
+    @staticmethod
+    def _niqe(model_path):
+        """No-reference NIQE on the host; needs a fitted pristine model
+        (utils/niqe.py `NIQEModel.fit_pristine` / `save`)."""
+        from rdeic_torch.utils.niqe import NIQEModel  # noqa: PLC0415
+
+        if model_path is None:
+            raise ValueError(
+                "niqe requires model_path= (fit one with NIQEModel.fit_pristine)"
+            )
+        model = NIQEModel.load(model_path)
+
+        def fn(a, b=None):  # one input; b is taken for the suite's signature
+            scores = [model.score(im) for im in a.detach().cpu().numpy()]
+            return torch.tensor(scores, dtype=torch.float32, device=a.device)
+
+        return fn
 
     def _net(self, device: torch.device):
         """The LPIPS net, made on the first call's device."""

@@ -7,6 +7,7 @@ skip the repository's conftest (it configures JAX):
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
 """
 import math
+import struct
 
 import numpy as np
 import pytest
@@ -1324,3 +1325,110 @@ def test_export_round_trip_of_card_tensors(cuda, tmp_path, bf16):
     assert bf16 == any(v.dtype == torch.bfloat16 for v in want.values())
     for key, v in want.items():
         assert got[key].dtype == v.dtype and torch.equal(got[key], v), key
+
+
+# -- profiling and corrupt lane streams (the evaluation harnesses' slice) ---------
+def test_phase_timer_block_waits_for_a_queued_kernel(cuda):
+    """`block=True` times a phase until the card has run what it queued: a
+    kernel that sleeps >= 50 ms (1e8 cycles at the H100's <= 1.98 GHz)
+    reads >= 50 ms blocked and far less unblocked."""
+    from rdeic_torch.utils.profiling import PhaseTimer  # noqa: PLC0415
+
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    with timer.phase("queued"):
+        torch.cuda._sleep(100_000_000)
+    torch.cuda.synchronize()
+    with timer.phase("blocked", block=True):
+        torch.cuda._sleep(100_000_000)
+    assert timer.totals["blocked"] >= 0.05 > 0.01 > timer.totals["queued"]
+    assert timer.summary()["blocked"]["count"] == 1
+
+
+def test_memory_stats_read_the_allocator(cuda):
+    from rdeic_torch.utils.profiling import memory_stats  # noqa: PLC0415
+
+    torch.cuda.reset_peak_memory_stats()
+    block = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    del block
+    stats = memory_stats()
+    assert len(stats) == torch.cuda.device_count()
+    card = stats[f"cuda:{torch.cuda.current_device()}"]
+    assert card["peak_bytes_in_use"] >= 64 << 20
+    assert card["peak_bytes_in_use"] == torch.cuda.max_memory_allocated()
+    assert card["bytes_in_use"] == torch.cuda.memory_allocated()
+    assert card["bytes_limit"] == torch.cuda.get_device_properties(
+        torch.cuda.current_device()).total_memory
+    assert card["allocated_bytes.all.peak"] == card["peak_bytes_in_use"]
+
+
+def test_device_trace_records_the_kernels(cuda, tmp_path):
+    """The trace of a flash and a GroupNorm launch holds their device time
+    under the kernels' names, and is written as a Chrome trace."""
+    from rdeic_torch.utils.profiling import device_trace  # noqa: PLC0415
+
+    q = _rand((1, 1536, 8, 16), torch.float32, cuda, 0)
+    x = _rand((1, 320, 96, 64), torch.float32, cuda, 1)
+    w = torch.ones(320, device=cuda)
+    group_norm(x, w, w * 0, 32, 1e-5, True)  # built and loaded outside
+    flash_attention(q, q, q)
+    with device_trace(tmp_path) as prof:
+        flash_attention(q, q, q)
+        group_norm(x, w, w * 0, 32, 1e-5, True)
+        torch.cuda.synchronize()
+    (trace,) = tmp_path.glob("*.pt.trace.json")
+    assert trace.stat().st_size > 0
+    timed = {e.key: e.self_device_time_total for e in prof.key_averages()
+             if e.self_device_time_total > 0}
+    assert any("flash" in k for k in timed), sorted(timed)
+    assert any("gn_fwd" in k for k in timed), sorted(timed)
+
+
+@pytest.mark.parametrize("shared", ["1", "0"], ids=["v2", "v1"])
+def test_corrupt_lane_streams_fail_in_python_not_on_the_card(
+        cuda, tmp_path, monkeypatch, shared):
+    """Lane streams (K = 64) with their payload's bits flipped at
+    run_robustness's rates (the 12-byte header kept), and with words of
+    the lanes' own string flipped: each decode raises a Python exception or
+    returns latents of the clean shape, no launch faults the context, and
+    the clean stream then decodes as before, bit for bit."""
+    from rdeic_torch.entropy import device_rans as dr  # noqa: PLC0415
+    from rdeic_torch.experiments.corruptors import Corruptor  # noqa: PLC0415
+
+    for key, value in {"RDEIC_RANS_LANES": "64", "RDEIC_RANS_SHARED": shared,
+                       "RDEIC_RANS_OVERHEAD_PCT": "0"}.items():
+        monkeypatch.setenv(key, value)
+    _, card = _serving_models(cuda)
+    img = torch.from_numpy(np.random.default_rng(3).uniform(
+        size=(1, 128, 128, 3)).astype(np.float32)).to(cuda)
+    clean = tmp_path / "clean.rdeic"
+    card.apply_condition_compress(img, clean, 128, 128)
+    want = card.apply_condition_decompress(clean)
+    raw = clean.read_bytes()
+    fn = dr.decode_pass_shared if shared == "1" else dr.decode_pass
+    before, outcomes = fn.launches, []
+    (n_lanes,) = struct.unpack(">I", raw[12:16])  # the lanes' string first
+    rng = np.random.default_rng(4)
+    streams = [raw[:12] + Corruptor("bitstream", "random", rate, seed)
+               .apply_bytes(raw[12:])
+               for rate in (1e-3, 1e-2, 1e-1) for seed in range(4)]
+    for _ in range(4):
+        data = bytearray(raw)
+        for pos in rng.integers(16, 16 + n_lanes, 8):
+            data[pos] ^= 0xFF
+        streams.append(bytes(data))
+    for stream in streams:
+        bad = tmp_path / "bad.rdeic"
+        bad.write_bytes(stream)
+        try:
+            c_latent, _ = card.apply_condition_decompress(bad)
+            torch.cuda.synchronize()
+            assert c_latent.shape == want[0].shape
+            outcomes.append("decoded")
+        except (ValueError, OverflowError, struct.error, RuntimeError) as e:
+            assert "CUDA" not in str(e) and "illegal" not in str(e), e
+            outcomes.append(type(e).__name__)
+    torch.cuda.synchronize()
+    assert fn.launches > before and "decoded" in outcomes
+    got = card.apply_condition_decompress(clean)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -90,9 +90,11 @@ def test_gaussian_window_matches_jax():
                                rtol=1e-6)
 
 
-def test_suite_registry_matches_jax():
+def test_suite_registry_matches_jax(tmp_path):
     """The same names give the same functions; crop_border reaches psnr;
-    niqe names its ROADMAP item; an unknown name raises as in JAX. Each JAX
+    niqe with a fitted model's `model_path` scores a batch as JAX's (the
+    same float64 host code: exactly), and without one raises ValueError in
+    both; an unknown name raises as in JAX. Each JAX
     function comes from a suite of its own: the JAX suite caches a metric
     by name, so a second `create_metric("psnr", crop_border=3)` there
     returns the first one's uncropped psnr. The port's suite keeps no
@@ -105,8 +107,20 @@ def test_suite_registry_matches_jax():
                           jm.MetricSuite().create_metric(name, **opts), a, b)
         tol = dict(rtol=PSNR_RTOL) if name == "psnr" else dict(atol=ATOL)
         np.testing.assert_allclose(got, want, **tol, err_msg=f"{name} {opts}")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the rest"):
-        ts.create_metric("niqe")
+    for suite in (ts, jm.MetricSuite()):
+        with pytest.raises(ValueError, match="niqe requires model_path="):
+            suite.create_metric("niqe")
+    from rdeic_torch.utils.niqe import NIQEModel  # noqa: PLC0415
+
+    pristine, _ = _pair(9, (3, 96, 112, 3))
+    NIQEModel.fit_pristine(pristine).save(tmp_path / "niqe.npz")
+    batch, noisy = _pair(10, (2, 96, 112, 3))
+    got, want = _both(ts.create_metric("niqe", model_path=tmp_path / "niqe.npz"),
+                      jm.MetricSuite().create_metric(
+                          "niqe", model_path=tmp_path / "niqe.npz"),
+                      batch, noisy)
+    assert got.dtype == want.dtype == np.float32 and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
     for suite in (ts, jm.MetricSuite()):
         with pytest.raises(ValueError, match="unknown metric"):
             suite.create_metric("fid")

@@ -191,9 +191,10 @@ def test_run_validation_draws_from_the_generator(pair):
 
 def test_run_validation_raises_what_is_not_a_size_rule(pair):
     """Only MS-SSIM under its size reads NaN; another metric's failure (here
-    one the port does not have) raises."""
+    niqe without a fitted model's `model_path`, refused as in the JAX
+    suite) raises."""
     _, _, tm = pair
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="niqe requires model_path="):
         run_validation(tm, [{"jpg": _images(31, (1, 64, 64, 3))}],
                        metric_names=("psnr", "niqe"))
 

@@ -12,7 +12,12 @@ and g++; no network. Phases, each fatal on failure:
    g++ start together on the sources in the checkout; ptxas's registers
    and spills of each CUDA kernel are logged by name, and a flash kernel
    (all run on the tensor cores; any entry whose mangled name holds
-   `flash_`) or the GroupNorm backward that spills fails the run;
+   `flash_`) or the GroupNorm backward that spills fails the run; the
+   Hopper d = 64 forward kernels (flash_fwd_d64_bf16, flash_fwd_d64) must
+   hold warpgroup products and TMA loads: `cuobjdump -sass` of the built
+   library counts each one's HGMMA and UTMALDG instructions, and a count of
+   0 fails the run; `[wgmma]` logs how the card's wgmma rounds
+   (`rdeic_torch.tools.wgmma_probe`);
 3. main path at the full width of configs/model/rdeic.yaml (random weights
    from --seed): the CLI's per-image `rdeic_torch.inference.process` codes a
    synthetic 768x512 image to a stream file, decodes it back, relay-samples
@@ -161,8 +166,10 @@ and g++; no network. Phases, each fatal on failure:
    (x, scale and bias) dtype pair a path ran, timed in it), and at shapes
    on no path (their rows carry no
    calls): flash at d = 512 and d = 64 with B = 2, H > 1 and L = 1000, and
-   at d = 64 and d = 16 with L = 8192, and at d = 16 with B = 2, H = 3 and
-   L = 1000 (the CHECK_SHAPES), GroupNorm forward
+   at d = 64 and d = 16 with L = 8192, at d = 64 with L = 130, and at
+   d = 16 with B = 2, H = 3 and L = 1000 (the CHECK_SHAPES; the forward
+   with lse is also held to the output limit of the forward without it,
+   `flash_tol`), GroupNorm forward
    and backward at a span larger than a cluster's shared memory
    (GN_STREAM_KEYS: the kernels' streaming variant), in fp32 and bf16, with
    the kernel, plain and library times (CUDA events) and the bound of each;
@@ -376,6 +383,7 @@ from rdeic_torch.train.trainer import (
     trainable_parameters,
     trainable_predicate,
 )
+from rdeic_torch.tools import wgmma_probe
 from rdeic_torch.train.callbacks import ImageLogger, make_grid
 from rdeic_torch.train.validation import run_validation
 from rdeic_torch.utils.backend import full_fp32, resolve_device
@@ -619,6 +627,11 @@ TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (16, 64, 512)}
 # flash_dq_d512_bf16, flash_dkv_d512_bf16): every head dim of the paths
 BF16_FWD_HEAD_DIMS = (16, 64, 512)
 BF16_BWD_HEAD_DIMS = (16, 64, 512)
+# Head dims whose forward kernels, fp32 and bf16, run on wgmma with TMA
+# loads (flash_fwd_d64, flash_fwd_d64_bf16): phase 2 counts their HGMMA and
+# UTMALDG instructions
+HOPPER_FWD_HEAD_DIMS = (64,)
+HOPPER_FWD_KERNELS = ("flash_fwd_d64", "flash_fwd_d64_bf16")
 # The exponentials' floor of a flash call (`softmax_bound_ms`): B H L^2 of
 # them on the MUFU units, 16 a clock per SM (sm_90), at the boost clock
 MUFU_EX2_PER_CLOCK = 16
@@ -649,9 +662,10 @@ FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
 # H = 1) and an L that is a multiple of no tile of the tensor-core kernels,
 # at every head dim; and at d = 64 and d = 16 twice the paths' longest L,
 # as the backward's dq, dk and dv sums and the forward's output sum run
-# over L
+# over L; and at d = 64 an L two rows past a 128-row q tile (the Hopper
+# forward's TMA boxes read zeros past L)
 CHECK_SHAPES = [(2, 1000, 2, 512), (2, 1000, 3, 64), (1, 8192, 2, 64),
-                (2, 1000, 3, 16), (1, 8192, 4, 16)]
+                (1, 130, 2, 64), (2, 1000, 3, 16), (1, 8192, 4, 16)]
 # a GroupNorm span on no path larger than 8 CTAs' shared memory in both
 # dtypes (16 x 65536 elements), so the forward and backward kernels
 # stream it
@@ -763,6 +777,36 @@ def phase_build():
     if spills:
         raise AssertionError(f"flash kernels or the GroupNorm backward "
                              f"spill: {spills}")
+    counts = sass_counts(libs["flash_attn_fwd"])
+    for name in HOPPER_FWD_KERNELS:
+        hgmma, utmaldg = counts.get(name, (0, 0))
+        log(f"[build] flash_attn_fwd SASS {name}: {hgmma} HGMMA, {utmaldg} "
+            "UTMALDG")
+        if not (hgmma and utmaldg):
+            raise AssertionError(f"{name} runs no wgmma or no TMA load: "
+                                 f"{hgmma} HGMMA, {utmaldg} UTMALDG")
+    log(f"[wgmma] the card's rounding: {json.dumps(wgmma_probe.rounding())}")
+
+
+def sass_counts(lib: Path) -> dict:
+    """{kernel: (HGMMA, UTMALDG)}: the warpgroup-product and TMA-load
+    instructions of each flash kernel in `cuobjdump -sass` of a library."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            m = re.search(r"\d(flash_(?:fwd|dq|dkv)_d\d+(?:_bf16)?)(?=[EI])",
+                          fn[1])
+            name = m[1] if m else None
+            if name:
+                counts.setdefault(name, [0, 0])
+        elif name:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += "UTMALDG" in line
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def make_model(device, seed: int) -> RDEIC:
@@ -2674,9 +2718,12 @@ def softmax_bound_ms(b: int, h: int, seq: int) -> float:
 
 
 def flash_fwd_kernel(d: int, dtype) -> str:
-    """The CUDA kernel behind a flash forward call (csrc/flash_attn_fwd.cu)."""
+    """The CUDA kernel behind a flash forward call (csrc/flash_attn_fwd.cu;
+    the fp32 d = 64 kernel is no template)."""
     if dtype == torch.bfloat16 and d in BF16_FWD_HEAD_DIMS:
         return f"flash_fwd_d{d}_bf16"
+    if d in HOPPER_FWD_HEAD_DIMS:
+        return f"flash_fwd_d{d}"
     return f"flash_fwd_d{d}<{'fp32' if dtype == torch.float32 else 'bf16'}>"
 
 
@@ -2834,6 +2881,9 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
     want_o, want_lse = flash_attention_lse_plain(q.float(), k.float(), v.float())
     r_lse = compare_rel(f"flash lse {shape} {dtype}",
                         [(o, want_o, tol), (lse, want_lse, REL_TOL[torch.float32])])
+    # the output also within the forward's own limit (flash_tol)
+    r_lse["flash_tol"] = compare(f"flash lse output {shape} {dtype}", o,
+                                 want_o, flash_tol(dtype, want_o))
     dq, di = flash_attention_dq(q, k, v, o, lse, do)
     dk, dv = flash_attention_dkv(q, k, v, do, lse, di)
     again = (*flash_attention_dq(q, k, v, o, lse, do),

@@ -1,12 +1,14 @@
 """Builds the port's native code at first use, from the sources in the package.
 
-Six shared libraries, each with a plain C interface loaded through ctypes:
+Seven shared libraries, each with a plain C interface loaded through ctypes:
 
 - ``flash_attn_fwd`` and ``flash_attn_bwd``: ``csrc/flash_attn_{fwd,bwd}.cu``
-  (with ``csrc/flash_common.cuh``, ``csrc/flash_mma.cuh`` and
-  ``csrc/flash_bf16.cuh``), compiled by
+  (with ``csrc/flash_common.cuh``, ``csrc/flash_mma.cuh``,
+  ``csrc/flash_bf16.cuh`` and ``csrc/flash_hopper.cuh``), compiled by
   ``nvcc`` for ``sm_90a``
   (only where the CUDA toolkit is installed);
+- ``wgmma_probe``: ``csrc/wgmma_probe.cu``, one warpgroup product that
+  reads how ``wgmma`` rounds (``tools/wgmma_probe.py``), likewise;
 - ``group_norm_fwd`` and ``group_norm_bwd``: ``csrc/group_norm_{fwd,bwd}.cu``
   (with ``csrc/group_norm_common.cuh``), the cluster-launched GroupNorm(+SiLU)
   forward and backward, by ``nvcc`` for ``sm_90a`` likewise;
@@ -35,7 +37,9 @@ FLASH_SRC = PACKAGE / "csrc" / "flash_attn_fwd.cu"
 FLASH_BWD_SRC = PACKAGE / "csrc" / "flash_attn_bwd.cu"
 FLASH_HEADERS = (PACKAGE / "csrc" / "flash_common.cuh",
                  PACKAGE / "csrc" / "flash_mma.cuh",
-                 PACKAGE / "csrc" / "flash_bf16.cuh")
+                 PACKAGE / "csrc" / "flash_bf16.cuh",
+                 PACKAGE / "csrc" / "flash_hopper.cuh")
+WGMMA_PROBE_SRC = PACKAGE / "csrc" / "wgmma_probe.cu"
 GROUP_NORM_SRC = PACKAGE / "csrc" / "group_norm_fwd.cu"
 GROUP_NORM_BWD_SRC = PACKAGE / "csrc" / "group_norm_bwd.cu"
 GROUP_NORM_HEADERS = (PACKAGE / "csrc" / "group_norm_common.cuh",)
@@ -96,6 +100,10 @@ def build_flash_bwd() -> Path:
     return _build(FLASH_BWD_SRC, "flash_attn_bwd", _nvcc_cmd(), FLASH_HEADERS)
 
 
+def build_wgmma_probe() -> Path:
+    return _build(WGMMA_PROBE_SRC, "wgmma_probe", _nvcc_cmd(), FLASH_HEADERS)
+
+
 def build_group_norm() -> Path:
     return _build(GROUP_NORM_SRC, "group_norm_fwd", _nvcc_cmd(),
                   GROUP_NORM_HEADERS)
@@ -120,7 +128,8 @@ def build_all() -> dict[str, Path]:
     builds = {"flash_attn_fwd": build_flash, "flash_attn_bwd": build_flash_bwd,
               "group_norm_fwd": build_group_norm,
               "group_norm_bwd": build_group_norm_bwd,
-              "device_rans": build_device_rans, "rans": build_rans}
+              "device_rans": build_device_rans, "rans": build_rans,
+              "wgmma_probe": build_wgmma_probe}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builds.items()}
         return {name: fut.result() for name, fut in futures.items()}

@@ -24,7 +24,7 @@
 // d = 16 (the control branch's attention: [1, 6144, 4, 16] and
 // [1, 1536, 8, 16] per denoiser call at 768x512, [2, 4096, 4, 16] and
 // [2, 1024, 8, 16] with lse in training) runs flash_fwd_d16 on the tensor
-// cores, shaped as flash_fwd_d64 with the 3xTF32 split of flash_mma.cuh:
+// cores, with mma.sync and the 3xTF32 split of flash_mma.cuh:
 // - 64-row q tiles of 4 warps, 16 q rows a warp, scores, running max and
 //   sum and the 16 x 16 output in registers, row reductions as quad
 //   shuffles, Q split once into big and small A fragments (2 k-steps x 4
@@ -37,8 +37,8 @@
 //   cp.async, zero-filled past L, row stride 20 floats: the ldmatrix
 //   phases of Q and K and V's row-pair reads (rows 2t, 2t + 1) all hit 32
 //   banks without a swizzle.
-// - P as A: the permuted k order of flash_fwd_d64, so S's C fragment is
-//   P V's A fragment without a shuffle.
+// - P as A: a permuted k order (k-slot t is key 2t, slot t + 4 key
+//   2t + 1), so S's C fragment is P V's A fragment without a shuffle.
 // - At d = 16 the softmax is no longer small beside the products: per 16
 //   rows x 8 keys a warp issues 12 mma (6 for S, 6 for P V)
 //   against 128 exponentials and ~14 fp32-pipe operations a score (max,
@@ -54,28 +54,52 @@
 //
 // d = 64 (the UNet's attention: [1, 6144, 5, 64] and [1, 1536, 10, 64] per
 // denoiser call at 768x512, [2, 4096, 5, 64] and [2, 1024, 10, 64] with lse
-// in training) runs flash_fwd_d64 on the tensor cores, with the TF32
-// mma.sync and the 3xTF32 split of flash_mma.cuh (below), shaped as
-// FlashAttention-2:
-// - 64-row q tiles, 4 warps; each warp owns 16 q rows and keeps their score
-//   fragments (16 x 64 a K tile), running max and sum (rows g and g + 8 of
-//   each lane), and the 16 x 64 output accumulator in registers. Row
-//   reductions are two shuffles inside a lane's quad; scores never meet in
-//   shared memory.
-// - Q is split once into big and small TF32 A fragments and held in
-//   registers for the whole K loop (64 registers).
-// - K and V tiles of 64 rows are double-buffered: cp.async copies the next
-//   pair while the current one is used. K is swizzled (stride 72) for
-//   ldmatrix; V has stride 68 (4 mod 32 banks).
-// - P V needs P in the A layout, which the C layout of S is not. Inside each
-//   8 keys the contraction order is permuted (k-slot t is key 2t, slot t + 4
-//   key 2t + 1), so the C fragment is the A fragment as it stands, and V's B
-//   fragment reads rows 2t and 2t + 1, which stride 68 puts on 32 banks.
-// - Every product takes three TF32 passes.
-// - The K tail is masked to -1e30 and the output divided by max(l, 1e-30).
-// - Grid (q tiles, b*h), two blocks of 88 KB per SM: [1, 1536, 10, 64] gives
-//   240 blocks for 264 slots, [1, 6144, 5, 64] 480 (1.8 waves).
-//
+// in training) runs flash_fwd_d64 (fp32) and flash_fwd_d64_bf16 (bf16), two
+// Hopper kernels built from flash_hopper.cuh. What bounds them: the
+// products. At L = 1536..6144 the 4 B H L^2 d flops take one to two orders
+// of magnitude longer than the bytes at either rate, and the exponentials
+// (B H L^2 on the MUFU, 16 a clock per SM) about as long as the bf16
+// products, a sixth as long as the fp32 ones (3xTF32). The mma.sync
+// kernels these replace reached 30% of that bound in fp32 and in bf16:
+// mma.sync and ldmatrix issue, cp.async copies by every thread, and the
+// softmax in the same warps between the products. The design, common to
+// both:
+// - Warp specialisation: a producer warpgroup (setmaxnreg gives its
+//   registers to the consumers) and two consumer warpgroups, each owning
+//   64 q rows of a 128-row q tile with their scores, softmax state and
+//   output in registers.
+// - TMA: one producer thread loads K and V tiles into a ring in shared
+//   memory in the 128-byte swizzle, each tile completing on an mbarrier
+//   (expect_tx); the consumers release a stage on a second mbarrier. Each
+//   tensor is a 4-d map (d, h, token, b), so a box never crosses into the
+//   next batch or head, and TMA reads zeros past L: the K tail is then
+//   masked to -1e30 and the output divided by max(l, 1e-30).
+// - wgmma: S = Q K^T and P V are warpgroup products, A from shared memory
+//   or registers and B read by the tensor cores straight from the swizzled
+//   tiles; the softmax runs on S's accumulator fragment in log2 units (one
+//   fmaf and one exponential a score), and P's fragment, in registers, is
+//   P V's A operand. lse = m ln 2 + ln l, as the dq / dkv kernels read it.
+// fp32, flash_fwd_d64 (3xTF32, flash_mma.cuh's split; one TF32 pass misses
+// the 2e-5 limit ten times over): every product is three TF32 wgmma an
+// 8-deep step, small * big, big * small, big * big. TF32 wgmma takes only
+// K-major operands (no transpose) and reads an fp32 value as TF32 by
+// dropping its 13 low bits (the card's probe, tools/wgmma_probe.py), so
+// what TMA loads is not yet an operand: the producer warpgroup (all 128
+// threads) turns each loaded 64-key tile into K big (rounded to TF32 to
+// nearest, so the tensor core reads it exactly) and K small, and V^T big
+// and small, keys along the 128-byte rows in the permuted order of P's
+// fragment (within 8 keys, k-slot t is key 2t and slot t + 4 key 2t + 1),
+// so S's accumulator fragment is P V's A fragment as it stands (a0..a3 =
+// c0, c2, c1, c3). Two rings: the tiles as loaded (TMA two tiles ahead,
+// so the producer never waits on a load it just issued) and the operands
+// (two stages). Q is split once: its big term stays in registers (the A
+// of the second and third pass), its small term goes to shared memory in
+// the swizzle (the A of the first pass): with both in registers the
+// consumers spilled. 225 KB, one block per SM; registers: producer 56,
+// consumers 224. wgmma rounds its sums toward zero (probe), so P V sums
+// each tile into a partial from zero that joins the output by one fma,
+// which keeps the error flat in L. [1, 6144, 5, 64] gives 240 blocks on
+// 132 SMs (1.82 waves), [1, 1536, 10, 64] 120.
 // d = 512 (the VAE mid-block, [1, 6144, 1, 512] per served image and
 // [2, 4096, 1, 512] with lse in refine training) runs its own kernel,
 // flash_fwd_d512, on the tensor cores: TF32 mma.sync (m16n8k8) with fp32
@@ -116,8 +140,9 @@
 // bf16 (the `--bf16` serving path: [1, 6144, 5, 64] and [1, 1536, 10, 64]
 // ten times an image each, [1, 6144, 4, 16] and [1, 1536, 8, 16] four times
 // each, [1, 6144, 1, 512] twice; with lse where training calls them) runs
-// flash_fwd_d16_bf16, flash_fwd_d64_bf16 and flash_fwd_d512_bf16, built
-// from the pieces of flash_bf16.cuh:
+// flash_fwd_d16_bf16 and flash_fwd_d512_bf16, built from the pieces of
+// flash_bf16.cuh, and flash_fwd_d64_bf16 (the Hopper design above; the
+// points on P and the softmax below hold for it too):
 // - Tiles stay bf16 in shared memory, half the bytes of the fp32 tiles the
 //   template widened them to, in a swizzled layout (chunk c of a row at
 //   c ^ (row & 7); at d = 16, whose rows hold 2 chunks, c ^ ((row >> 2) & 1))
@@ -141,10 +166,12 @@
 //   (chip_smoke.py phase 9, NVIDIA H100 80GB HBM3 at 700 W).
 // - The softmax runs in log2 units, one fmaf and one ex2.approx.ftz a score
 //   (subnormal p flush to 0), and lse = m ln 2 + ln l.
-// - mma.sync rounds its sums toward zero. With P in one bf16 term, P's own
-//   rounding outweighs that ~100 times (emulation), so P V sums into one
-//   accumulator over the whole L, without the per-tile partials of the
-//   fp32 kernel at d = 16 (the emulation reads the same at d = 16).
+// - mma.sync and wgmma round their sums toward zero (wgmma also cuts each
+//   term two bits below the largest one's ulp: tools/wgmma_probe.py). With
+//   P in one bf16 term, P's own rounding outweighs that ~100 times
+//   (emulation), so P V sums into one accumulator over the whole L,
+//   without the per-tile partials of the fp32 kernels at d = 16 and 64
+//   (the emulation reads the same at d = 16).
 // d = 16: 64-row q tiles of 4 warps, 16 q rows a warp (one A fragment holds
 // all of d, loaded once), 128-key tiles in a ring of three K / V buffers
 // (one barrier a tile), 26 KB of static shared memory, four blocks per SM:
@@ -157,12 +184,25 @@
 // the tensor-core bound. The kernel reaches about half of that floor
 // (PERF.md §6); moving part of the exponentials to the FMA pipe as a
 // polynomial was slower in probes, so the MUFU is not the limit alone.
-// d = 64: 128-row q tiles of 4 warps, 32 q rows a warp (two m-tiles: each K
-// and V fragment serves both, half the ldmatrix a product of 16-row warps),
-// 64-key tiles in a ring of three K / V buffers (one barrier a tile), 64 KB
-// and 247 registers, two blocks per SM: [1, 6144, 5, 64] gives 240 blocks
-// for 264 slots and [1, 1536, 10, 64] 120, one wave each. 128-row q tiles
-// halve the K and V tiles each block reads through L2 against 64-row ones.
+// d = 64 (flash_fwd_d64_bf16, the Hopper design above): Q and each K / V
+// tile come by TMA into a ring of four 128-key stages (K and V of a stage
+// on mbarriers of their own, so S starts before V lands); S = Q K^T is a
+// 64 x 128 wgmma with A (Q) and B (K) from shared memory, K-major; P V
+// eight 64 x 64 x 16 wgmma with A = P from registers (S's fragments
+// rounded to bf16 and packed pairwise) and B = V, MN-major (bf16 takes the
+// transpose). Each consumer overlaps its own exponentials with its
+// products: S of tile j and P V of tile j - 1 are issued together, and the
+// softmax of tile j runs while P V is on the tensor cores. A consumer holds
+// 128 registers of fragments (S, P, O) and gets 240 by setmaxnreg (the
+// producer keeps 24); 148 KB of shared memory, one block an SM:
+// [1, 6144, 5, 64] runs 240 blocks on 132 SMs (1.82 waves). Tried and
+// dropped in probes (tools/flash_fwd_probe.py, PERF.md §6): the two
+// consumers taking turns on the tensor cores (ping-pong, named barriers),
+// 1.3x slower; a second S buffer so that S of tile j + 1 also runs under
+// the softmax of tile j, 1.3x slower; 64-key tiles at two blocks an SM,
+// which spill at the registers two blocks leave a thread, 1.7x slower; a
+// setmaxnreg split at two blocks an SM hung, as ptxas launched it with
+// fewer registers than the producer had to give back.
 // d = 512: 64-row q tiles of 16 warps (512 threads, 128 registers each, one
 // block per SM) share each 32-key K and V tile (154 KB with Q, the partial
 // scores and P): [1, 6144, 1, 512] gives 96 blocks and [2, 4096, 1, 512]
@@ -174,15 +214,11 @@
 // fragments by ldmatrix, V's by ldmatrix.trans, each V fragment serving two
 // m-tiles. K and V take turns in one buffer each, as in the fp32 kernel.
 // Reach (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W), against the bf16
-// bound and SDPA's bf16 call: see PERF.md §6. What holds them back now:
-// mma.sync and ldmatrix issue (at d = 64 the two products take most of the
-// time: a kernel without either ran much faster), the softmax's fp32 and
-// MUFU work in the same warps between them, and at d = 512 one block of 16
-// warps per SM with three barriers a tile. wgmma
-// would take B straight from shared memory at the full 989 TFLOP/s rate,
-// with A (Q, or P from registers) for 64 rows a warpgroup, and TMA would
-// free the copies' threads; warp-specialised producers and two softmax
-// warpgroups in ping-pong would overlap the exponentials with the products.
+// bound and SDPA's bf16 call: see PERF.md §6. What holds the mma.sync
+// kernels (d = 16, 512) back now: mma.sync and ldmatrix issue, the
+// softmax's fp32 and MUFU work in the same warps between them, and at
+// d = 512 one block of 16 warps per SM with three barriers a tile; the
+// d = 64 design above is the route for them.
 //
 // Bound on the H100: 4*L^2*D*H*B flops (S and P V) and 4*B*L*H*D elements
 // of traffic. fp32 runs 3xTF32 on the tensor cores at every head dim, three
@@ -190,10 +226,9 @@
 // bf16 takes the bf16 peak, 989 TFLOP/s. At the main path's L = 1536..6144
 // the flops bound every shape, by one to three orders of magnitude.
 
-#include <type_traits>
-
 #include "flash_bf16.cuh"
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 #include "flash_mma.cuh"
 
 namespace {
@@ -360,192 +395,313 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace d512
 
-// d = 64 on the tensor cores (header). One block: (64-row q tile
-// blockIdx.x, b*h blockIdx.y), 4 warps; warp w owns q rows 16 w.. of the
-// tile and keeps their scores, softmax state and output in registers.
+// fp32 at d = 64 on TF32 wgmma, each product as three passes (header). One
+// block: (128-row q tile blockIdx.x, b*h blockIdx.y), three warpgroups:
+// warpgroup 0 is the producer (one thread issues the TMA loads, all 128
+// split K and transpose and split V), warpgroups 1 and 2 the consumers,
+// each owning 64 q rows of the tile in registers.
 namespace d64 {
 
-constexpr int D = 64, BQ = 64, BK = 64, NT = 128;
-constexpr int KS = D + 8;  // Q and K tiles: swizzled (flash_mma.cuh swz)
-constexpr int VS = D + 4;  // V tiles: 4 mod 32 banks, read at rows 2t, 2t + 1
-constexpr int kSmemFloats = BQ * KS + 2 * BK * KS + 2 * BK * VS;
-static_assert(2 * kSmemFloats * 4 <= 232448, "two blocks per SM");
+using namespace rdeic_flash::hopper;
+constexpr int D = 64, BQ = 128, BK = 64, STAGES = 2, NT = 384;
+constexpr uint32_t kAtom = 64 * 128;  // bytes: 64 rows of 32 fp32
+constexpr uint32_t kTile = 2 * kAtom;  // a 64 x 64 fp32 tile: two atoms
+// a ring of tiles as loaded (K, V) and a ring of operands (K big, K small,
+// V^T big, V^T small)
+constexpr uint32_t kRaw = 2 * kTile;
+constexpr uint32_t kKb = 0, kKs = kTile, kVTb = 2 * kTile, kVTs = 3 * kTile,
+                   kOp = 4 * kTile;
+// then Q's small term, the A operand of S's first pass (128 rows)
+constexpr uint32_t kQs = STAGES * (kRaw + kOp);
+constexpr int kSmemBytes = 1024 + kQs + 2 * kTile;
+static_assert(kSmemBytes <= 232448, "shared memory per block");
+// registers after setmaxnreg, moved inside the block: the producer splits
+// and transposes, the consumers hold Q's big term and P's two terms
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs <=
+                  NT * ((65536 / NT) & ~7),
+              "registers per block");
 
-template <typename T>
-__global__ void __launch_bounds__(NT, 2)
-    flash_fwd_d64(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o,
-                  float* __restrict__ lse, int L, int H, float scale) {
+// big = x rounded to TF32 (to nearest, ties away from zero: flash_mma.cuh
+// split), small = x - big, exact in fp32
+__device__ __forceinline__ void split4(float4 x, float4& big, float4& small) {
+  uint32_t b[4];
+  const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t s;
+    rdeic_flash::split<true>(v[i], b[i], s);
+  }
+  big = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                    __uint_as_float(b[2]), __uint_as_float(b[3]));
+  small = make_float4(x.x - big.x, x.y - big.y, x.z - big.z, x.w - big.w);
+}
+
+__global__ void __launch_bounds__(NT, 1)
+    flash_fwd_d64(const float* __restrict__ q,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  float* __restrict__ o, float* __restrict__ lse, int L,
+                  int H, float scale) {
   using namespace rdeic_flash;
-  constexpr bool kSplit = sizeof(T) == 4;  // bf16 operands are exact in TF32
-  extern __shared__ __align__(16) float smem_d64[];
-  float* qs = smem_d64;           // [BQ][KS]
-  float* ks = qs + BQ * KS;       // [2 buffers][BK][KS]
-  float* vs = ks + 2 * BK * KS;   // [2 buffers][BK][VS]
+  extern __shared__ unsigned char smem_d64[];
+  // per stage: loaded (TMA), ready (operands made), empty (consumed)
+  __shared__ __align__(8) uint64_t bars[3 * STAGES];
+  const uint32_t s0 = (smem_u32(smem_d64) + 1023) & ~1023u;
+  unsigned char* const p0 = smem_d64 + (s0 - smem_u32(smem_d64));
+  const uint32_t raw0 = s0, op0 = s0 + STAGES * kRaw;
+  const uint32_t b0 = smem_u32(bars);
+  auto loaded = [&](int s) { return b0 + 8 * s; };
+  auto ready = [&](int s) { return b0 + 8 * (STAGES + s); };
+  auto empty = [&](int s) { return b0 + 8 * (2 * STAGES + s); };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int nk = (L + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(loaded(s), 1);
+      mbar_init(ready(s), 4);  // lane 0 of each producer warp
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // the producer: thread 0 keeps the loads STAGES tiles ahead; the
+    // warpgroup makes what TMA cannot give, K's small part and V^T (big
+    // and small, keys in the permuted order of P's fragment), in the
+    // 128-byte swizzle
+    setmaxnreg_dec<kProducerRegs>();
+    const int tid = threadIdx.x;
+    auto load = [&](int j) {
+      const int s = j % STAGES;
+      const uint32_t raw = raw0 + s * kRaw;
+      mbar_expect_tx(loaded(s), kRaw);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        tma_load_4d(raw + half * kAtom, &tk, loaded(s), 32 * half, h,
+                    j * BK, b);
+        tma_load_4d(raw + kTile + half * kAtom, &tv, loaded(s), 32 * half,
+                    h, j * BK, b);
+      }
+    };
+    if (tid == 0)
+      for (int j = 0; j < STAGES && j < nk; ++j) load(j);
+    // V^T: lane = key within a 32-key half kh; chunk c = d 4c..4c + 3.
+    // Key x sits at slot 8 (x >> 3) + (x & 7 even ? (x & 7) / 2 :
+    // 4 + (x & 7) / 2) of the 64, so k-slot t of an 8-key step is key 2t
+    // and slot t + 4 key 2t + 1 (header)
+    const int wq = tid >> 5, x = lane & 7;
+    const uint32_t slot = (lane & ~7) + ((x & 1) ? 4 + (x >> 1) : x >> 1);
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % STAGES;
+      const uint32_t round = (j / STAGES) & 1;
+      const unsigned char* raw = p0 + s * kRaw;
+      unsigned char* const op = p0 + STAGES * kRaw + s * kOp;
+      mbar_wait(loaded(s), round);
+      mbar_wait(empty(s), round ^ 1);  // round 0 passes
+      // K: 1024 chunks of 16 bytes, 8 a thread; the split keeps the layout
+#pragma unroll 2
+      for (int i = 0; i < kTile / 16 / 128; ++i) {
+        const uint32_t off = 16 * (tid + 128 * i);
+        float4 big, small;
+        split4(*reinterpret_cast<const float4*>(raw + off), big, small);
+        *reinterpret_cast<float4*>(op + kKb + off) = big;
+        *reinterpret_cast<float4*>(op + kKs + off) = small;
+      }
+#pragma unroll 2
+      for (int it = 0; it < 8; ++it) {
+        const int combo = wq + 4 * it, kh = combo >> 4, c = combo & 15;
+        const int key = 32 * kh + lane;
+        float4 big, small;
+        split4(*reinterpret_cast<const float4*>(
+                   raw + kTile + (c >> 3) * kAtom +
+                   swizzle128(key, 16 * (c & 7))),
+               big, small);
+        const float bv[4] = {big.x, big.y, big.z, big.w};
+        const float sv[4] = {small.x, small.y, small.z, small.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t at = kh * kAtom + swizzle128(4 * c + e, 4 * slot);
+          *reinterpret_cast<float*>(op + kVTb + at) = bv[e];
+          *reinterpret_cast<float*>(op + kVTs + at) = sv[e];
+        }
+      }
+      // the writes seen by wgmma, the reads of the loaded tiles done
+      // before TMA refills them
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(ready(s));
+      named_sync(1, 128);  // the producer warpgroup (ids 2, 3: consumers)
+      if (tid == 0 && j + STAGES < nk) load(j + STAGES);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = (warp >> 2) - 1;  // consumer 0 or 1: q rows 64 wg..
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+  const float c = scale * 1.4426950408889634f;  // scores in log2 units
   const int64_t row = static_cast<int64_t>(H) * D;
   const int64_t base = static_cast<int64_t>(b) * L * row +
                        static_cast<int64_t>(h) * D;
-  const T* kb = k + base;
-  const T* vb = v + base;
+  const int r0 = q0 + 64 * wg + 16 * w + g;  // rows r0 (r = 0), r0 + 8 (1)
 
-  load_rows<T, BQ, D, NT>(qs, q + base, q0, L, row);
-  load_rows<T, BK, D, NT>(ks, kb, 0, L, row);
-  load_rows<T, BK, D, NT, VS, false>(vs, vb, 0, L, row);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+  // this thread's Q fragments, split once: k-step kk holds (row, 8 kk + t)
+  // and (row, 8 kk + t + 4) of rows r0 and r0 + 8. The big term stays in
+  // registers (A of S's second and third pass); the small term goes to
+  // shared memory in the 128-byte swizzle (A of the first pass), which
+  // keeps the consumers' registers under their budget.
+  uint32_t qb[D / 8][4];
+  unsigned char* const qs = p0 + kQs + wg * kTile;
+  const int rw = 16 * w + g;  // the warpgroup's row of r0
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = r0 + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+      const float x = rr < L ? q[base + rr * row + col] : 0.f;
+      uint32_t small;
+      split<true>(x, qb[kk][i], small);
+      *reinterpret_cast<uint32_t*>(
+          qs + (col >> 5) * kAtom +
+          swizzle128(rw + 8 * (i & 1), 4 * (col & 31))) = small;
+    }
+  fence_proxy_async();
+  named_sync(2 + wg, 128);  // the warpgroup's Q small term is written
+  const uint32_t qsa = smem_u32(qs);
 
-  // this warp's 16 q rows as A fragments for the whole K loop, split once
-  uint32_t qb[D / 8][4], qsm[D / 8][4];
-  {
-    const RowA<KS, true> ra(qs, warp * 16, 0);
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float acc[D / 2];  // O[64 rows][64]: acc[4 n + i], n-tile n = columns 8 n..
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int s = j % STAGES, k0 = j * BK;
+    const uint32_t st = op0 + s * kOp;
+    mbar_wait(ready(s), (j / STAGES) & 1);
+
+    // S = Q K^T, 64 x 64, three passes an 8-deep step (small * big,
+    // big * small, big * big), from zero: sc[4 n + i] holds keys k0 + 8 n..
+    float sc[BK / 2];
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
-      float a[1][4];
-      ra.load(a, kk * 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        split<kSplit>(a[0][i], qb[kk][i], qsm[kk][i]);
+      const uint32_t at = (kk >> 2) * kAtom + 32 * (kk & 3);
+      const uint64_t kb = desc(st + kKb + at), ks = desc(st + kKs + at);
+      mma_m64n64k8_ss_tf32(sc, desc(qsa + at), kb, kk);
+      mma_m64n64k8_rs_tf32(sc, qb[kk], ks, 1);
+      mma_m64n64k8_rs_tf32(sc, qb[kk], kb, 1);
     }
-  }
-
-  // rows g (half 0) and g + 8 (half 1) of the warp's 16
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  float acc[1][D / 8][4];  // O[16 rows][64]: n-tile n holds columns 8 n..
-  zero(acc);
-  const int nk = (L + BK - 1) / BK;
-  for (int j = 0; j < nk; ++j) {
-    const int cur = j & 1, k0 = j * BK;
-    if (j + 1 < nk) {  // the next pair lands while this one is used
-      load_rows<T, BK, D, NT>(ks + (cur ^ 1) * BK * KS, kb, k0 + BK, L, row);
-      load_rows<T, BK, D, NT, VS, false>(vs + (cur ^ 1) * BK * VS, vb,
-                                         k0 + BK, L, row);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this pair (the next may be in flight)
-    __syncthreads();
-    const float* kt = ks + cur * BK * KS;
-    const float* vt = vs + cur * BK * VS;
-
-    // S = Q K^T, 16 x 64: n-tile n holds keys k0 + 8 n..
-    float s[1][BK / 8][4];
-    zero(s);
-    {
-      const RowB<KS> rb(kt, 0, 0);
-#pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        float bf[BK / 8][2];
-        rb.load(bf, kk * 8);
-#pragma unroll
-        for (int n = 0; n < BK / 8; ++n) {
-          uint32_t bb[2], bs[2];
-          split<kSplit>(bf[n][0], bb[0], bs[0]);
-          split<kSplit>(bf[n][1], bb[1], bs[1]);
-          if (kSplit) mma_tf32(s[0][n], qsm[kk], bb);
-          if (kSplit) mma_tf32(s[0][n], qb[kk], bs);
-          mma_tf32(s[0][n], qb[kk], bb);
-        }
-      }
-    }
-
-    // online softmax of rows g and g + 8: a row's 16 values a lane sit in
-    // the lane's quad, so the row max and sum are two shuffles
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float mx = kNegInf;
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (k0 + BK > L) {  // the K tail: its scores are masked to -1e30
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[0][n][2 * half + e];
-          x = k0 + 8 * n + 2 * t + e < L ? x * scale : kNegInf;
-          mx = fmaxf(mx, x);
-        }
+        for (int i = 0; i < 4; ++i)
+          if (k0 + 8 * n + 2 * t + (i & 1) >= L) sc[4 * n + i] = kNegInf;
+    }
+
+    // online softmax of rows r0 and r0 + 8 in log2 units: p = 2^(s c - m);
+    // a row's 64 values sit in the lane's quad, 16 a lane
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+        mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[half], mx);
+      const float m_new = fmaxf(m_run[r], mx * c);
       float sum = 0.f;
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float& x = s[0][n][2 * half + e];
-          x = expf(x - m_new);
+          float& x = sc[4 * n + 2 * r + e];
+          x = exp2f(fmaf(x, c, -m_new));
           sum += x;
         }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float alpha = expf(m_run[half] - m_new);
-      l_run[half] = l_run[half] * alpha + sum;
-      m_run[half] = m_new;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[0][n][2 * half] *= alpha;
-        acc[0][n][2 * half + 1] *= alpha;
-      }
+      alpha[r] = exp2f(m_run[r] - m_new);
+      l_run[r] = l_run[r] * alpha[r] + sum;
+      m_run[r] = m_new;
     }
 
-    // O += P V. The k order inside each 8 keys is permuted so that P's C
-    // fragment is already its A fragment: k-slot t is key 2t and slot t + 4
-    // key 2t + 1, so a0..a3 = c0, c2, c1, c3, and V's B fragment reads rows
-    // 2t and 2t + 1 (stride VS: the 32 lanes hit 32 banks).
+    // P V of this tile into a partial from zero, which joins the rescaled
+    // output in fp32 (the tensor core's rounding of its sums stays that of
+    // one tile). The k order inside each 8 keys is permuted (slot t is key
+    // 2t, slot t + 4 key 2t + 1; V^T is stored so), so P's accumulator
+    // fragment of n-tile kk is its A fragment: a0..a3 = c0, c2, c1, c3.
+    uint32_t pb[BK / 2], psm[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) split<true>(sc[i], pb[i], psm[i]);
+    float pv[D / 2];
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 8; ++kk) {
-      uint32_t pb[4], ps[4];
-      split<true>(s[0][kk][0], pb[0], ps[0]);
-      split<true>(s[0][kk][2], pb[1], ps[1]);
-      split<true>(s[0][kk][1], pb[2], ps[2]);
-      split<true>(s[0][kk][3], pb[3], ps[3]);
-      const float* v0 = vt + (8 * kk + 2 * t) * VS + g;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bb[2], bs[2];
-        split<kSplit>(v0[8 * n], bb[0], bs[0]);
-        split<kSplit>(v0[VS + 8 * n], bb[1], bs[1]);
-        mma_tf32(acc[0][n], ps, bb);
-        if (kSplit) mma_tf32(acc[0][n], pb, bs);
-        mma_tf32(acc[0][n], pb, bb);
-      }
+      const uint32_t at = (kk >> 2) * kAtom + 32 * (kk & 3);
+      const uint64_t vb = desc(st + kVTb + at), vs = desc(st + kVTs + at);
+      const uint32_t ab[4] = {pb[4 * kk], pb[4 * kk + 2], pb[4 * kk + 1],
+                              pb[4 * kk + 3]};
+      const uint32_t as[4] = {psm[4 * kk], psm[4 * kk + 2], psm[4 * kk + 1],
+                              psm[4 * kk + 3]};
+      mma_m64n64k8_rs_tf32(pv, as, vb, kk);
+      mma_m64n64k8_rs_tf32(pv, ab, vs, 1);
+      mma_m64n64k8_rs_tf32(pv, ab, vb, 1);
     }
-    __syncthreads();  // every warp is done with this pair before its refill
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pv);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i)
+      acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], pv[i]);
   }
-  cp_async_wait<0>();
 
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = q0 + warp * 16 + g + 8 * half;
-    if (r >= L) continue;
+  for (int r = 0; r < 2; ++r) {
+    const int rr = r0 + 8 * r;
+    if (rr >= L) continue;
+    const float l = fmaxf(l_run[r], 1e-30f);
     if (lse != nullptr && t == 0)
-      lse[static_cast<int64_t>(blockIdx.y) * L + r] =
-          m_run[half] + logf(fmaxf(l_run[half], 1e-30f));
-    const float inv = 1.f / fmaxf(l_run[half], 1e-30f);
-    T* out = o + base + r * row + 2 * t;
+      lse[static_cast<int64_t>(blockIdx.y) * L + rr] =
+          m_run[r] * 0.6931471805599453f + logf(l);
+    const float inv = 1.f / l;
+    float* out = o + base + rr * row + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      store2<T>(out + 8 * n, acc[0][n][2 * half] * inv,
-                acc[0][n][2 * half + 1] * inv);
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
   }
 }
 
-template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int L, int H, float scale,
                    cudaStream_t stream) {
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
   if (err != cudaSuccess) return err;
-  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_fwd_d64<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  CUtensorMap tk, tv;
+  if (!tensor_map(&tk, k, false, B, L, H, D, 32, BK) ||
+      !tensor_map(&tv, v, false, B, L, H, D, 32, BK))
+    return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(flash_fwd_d64,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + BQ - 1) / BQ, B * H);
-  flash_fwd_d64<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, L, H, scale);
+  flash_fwd_d64<<<grid, NT, kSmemBytes, stream>>>(
+      static_cast<const float*>(q), tk, tv, static_cast<float*>(o), lse, L,
+      H, scale);
   return cudaGetLastError();
 }
 
@@ -971,194 +1127,229 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace d16_bf16
 
-// bf16 at d = 64 on the bf16 tensor cores (header). One block: (128-row q
-// tile blockIdx.x, b*h blockIdx.y), 4 warps; warp w owns q rows 32 w.. of
-// the tile and keeps their scores, softmax state and output in registers.
+// bf16 at d = 64 on wgmma (header). One block: (128-row q tile blockIdx.x,
+// b*h blockIdx.y), two consumer warpgroups, each owning 64 q rows of the
+// tile and keeping their scores, softmax state and output in registers,
+// and a producer warp (one thread issues every TMA load).
 namespace d64_bf16 {
 
 using rdeic_flash::bf16::bf16_t;
-constexpr int D = 64, BQ = 128, BK = 64, NT = 128;
-constexpr int kRow = D * 2;  // bytes of a tile row
-constexpr int kSmemBytes = (BQ + 6 * BK) * kRow;  // Q, 3 K, 3 V: 64 KB
-static_assert(2 * (kSmemBytes + 1024) <= 233472, "two blocks per SM");
+using namespace rdeic_flash::hopper;
+constexpr int D = 64, BQ = 128, BK = 128, STAGES = 4, NT = 384;
+// two consumer warpgroups (warps 0-7), then the producer warpgroup, whose
+// registers setmaxnreg gives to the consumers. setmaxnreg.inc waits until
+// the block itself has freed the registers it asks for, so the producer's
+// release must cover the consumers' raise at the launch's 168 registers
+// (ptxas may launch a kernel with fewer registers than its bound allows:
+// check its log)
+constexpr int kLaunchRegs = 168, kProducerRegs = 24, kConsumerRegs = 240;
+static_assert(kLaunchRegs == ((65536 / NT) & ~7), "one block an SM");
+static_assert(128 * (kLaunchRegs - kProducerRegs) >=
+                  256 * (kConsumerRegs - kLaunchRegs),
+              "registers per block");
+constexpr uint32_t kTileQ = 64 * D * 2;   // bytes: one consumer's 64 q rows
+constexpr uint32_t kTileKV = BK * D * 2;  // bytes: one K or V tile
+// Q, then the K ring, then the V ring, from a 1024-byte-aligned base
+constexpr int kSmemBytes = 1024 + 2 * kTileQ + 2 * STAGES * kTileKV;
+static_assert(kSmemBytes <= 232448, "shared memory per block");
 
-__global__ void __launch_bounds__(NT, 2)
-    flash_fwd_d64_bf16(const bf16_t* __restrict__ q,
-                       const bf16_t* __restrict__ k,
-                       const bf16_t* __restrict__ v, bf16_t* __restrict__ o,
-                       float* __restrict__ lse, int L, int H, float scale) {
+__global__ void __launch_bounds__(NT, 1)
+    flash_fwd_d64_bf16(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16_t* __restrict__ o, float* __restrict__ lse, int L,
+                       int H, float scale) {
   using namespace rdeic_flash;
-  using bf16::exp2_ftz, bf16::kLn2, bf16::kLog2e, bf16::ldsm_x4,
-      bf16::ldsm_x4_trans, bf16::load_tile, bf16::mma, bf16::pack;
-  extern __shared__ __align__(128) unsigned char smem_d64b[];
-  bf16_t* qs = reinterpret_cast<bf16_t*>(smem_d64b);  // [BQ][D]
-  bf16_t* ks = qs + BQ * D;                            // [3 buffers][BK][D]
-  bf16_t* vs = ks + 3 * BK * D;                        // [3 buffers][BK][D]
+  using bf16::exp2_ftz, bf16::kLn2, bf16::kLog2e, bf16::pack;
+  extern __shared__ unsigned char smem_d64b[];
+  // q_full, then per stage k_full, k_empty, v_full, v_empty
+  __shared__ __align__(8) uint64_t bars[1 + 4 * STAGES];
+  const uint32_t sq = (smem_u32(smem_d64b) + 1023) & ~1023u;
+  const uint32_t sk = sq + 2 * kTileQ, sv = sk + STAGES * kTileKV;
+  const uint32_t q_full = smem_u32(bars);
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto k_empty = [&](int s) { return q_full + 8 * (1 + STAGES + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return q_full + 8 * (1 + 3 * STAGES + s); };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16::Lane ln(lane);
-  const uint32_t sq = bf16::smem_addr(qs) + (warp * 32 + ln.ar) * kRow;
-  const uint32_t sk = bf16::smem_addr(ks) + ln.br * kRow;
-  const uint32_t sv = bf16::smem_addr(vs) + ln.ar * kRow;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int64_t row = static_cast<int64_t>(H) * D;
-  const int64_t base = static_cast<int64_t>(b) * L * row +
-                       static_cast<int64_t>(h) * D;
-  const bf16_t* kb = k + base;
-  const bf16_t* vb = v + base;
-  const float c = scale * kLog2e;  // scores in log2 units, for ex2
-
-  load_tile<BQ, D, NT>(qs, q + base, q0, L, row);
-  load_tile<BK, D, NT>(ks, kb, 0, L, row);
-  load_tile<BK, D, NT>(vs, vb, 0, L, row);
-  cp_async_commit();
   const int nk = (L + BK - 1) / BK;
-  if (nk > 1) {
-    load_tile<BK, D, NT>(ks + BK * D, kb, BK, L, row);
-    load_tile<BK, D, NT>(vs + BK * D, vb, BK, L, row);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(k_empty(s), 8);  // lane 0 of each consumer warp
+      mbar_init(v_full(s), 1);
+      mbar_init(v_empty(s), 8);
+    }
+    fence_barrier_init();
   }
-  cp_async_commit();
+  __syncthreads();
 
-  // the warp's 32 q rows as the A fragments of two m-tiles; m-tile mt's
-  // rows g (r = 0) and g + 8 (r = 1): the running max, and the lane's part
-  // of the running sum (its quad adds the four parts at the end)
-  uint32_t qf[2][D / 16][4];
-  float m_run[2][2], l_run[2][2];
-  float acc[2][D / 8][4];  // O[32 rows][64]: n-tile n holds columns 8 n..
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) m_run[mt][r] = kNegInf, l_run[mt][r] = 0.f;
-  zero(acc);
-  // a ring of three K / V buffers: tile j in buffer j % 3, two in flight
-  for (int j = 0, cur = 0; j < nk; ++j, cur = cur == 2 ? 0 : cur + 1) {
-    const int k0 = j * BK;
-    cp_async_wait<1>();  // this pair (the next may be in flight)
-    // every warp sees this pair, and is done with the buffer of tile j - 1,
-    // which takes tile j + 2
-    __syncthreads();
-    if (j + 2 < nk) {
-      const int nxt = cur == 0 ? 2 : cur - 1;
-      load_tile<BK, D, NT>(ks + nxt * BK * D, kb, k0 + 2 * BK, L, row);
-      load_tile<BK, D, NT>(vs + nxt * BK * D, vb, k0 + 2 * BK, L, row);
+  if (warp >= 8) {
+    // the producer: one thread keeps the ring full, a tile's K ahead of
+    // its V so S can start first
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(q_full, 2 * kTileQ);
+      tma_load_4d(sq, &tq, q_full, 0, h, q0, b);
+      tma_load_4d(sq + kTileQ, &tq, q_full, 0, h, q0 + 64, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % STAGES;
+        const uint32_t free = ((j / STAGES) & 1) ^ 1;  // round 0 passes
+        mbar_wait(k_empty(s), free);
+        mbar_expect_tx(k_full(s), kTileKV);
+        tma_load_4d(sk + s * kTileKV, &tk, k_full(s), 0, h, j * BK, b);
+        mbar_wait(v_empty(s), free);
+        mbar_expect_tx(v_full(s), kTileKV);
+        tma_load_4d(sv + s * kTileKV, &tv, v_full(s), 0, h, j * BK, b);
+      }
     }
-    cp_async_commit();
-    if (j == 0) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          ldsm_x4(qf[mt][kk], sq + mt * 16 * kRow + ln.ca[kk]);
-    }
-    const uint32_t kt = sk + cur * BK * kRow, vt = sv + cur * BK * kRow;
+    return;
+  }
 
-    // S = Q K^T, 32 x 64, one pass: n-tile n holds keys k0 + 8 n..; each
-    // K fragment serves both m-tiles
-    float s[2][BK / 8][4];
-    zero(s);
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;  // consumer 0 or 1: q rows 64 wg..
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+  const float c = scale * kLog2e;  // scores in log2 units, for ex2
+  const uint64_t dq = desc(sq + wg * kTileQ);
+  // rows g (r = 0) and g + 8 (r = 1) of warp w's 16: the running max, and
+  // the lane's part of the running sum (its quad adds the parts at the end)
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float acc[D / 2];  // O[64 rows][64]: acc[4 n + i], n-tile n = columns 8 n..
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2];  // S, then P, of a tile: sc[4 n + i] holds keys 8 n..
+  uint32_t pa[BK / 16][4];  // P as bf16 A fragments: keys 16 kk..
+  float alpha[2];
+
+  // S = Q K^T of tile j, 64 x 128, issued (committed, not waited for)
+  auto issue_s = [&](int j) {
+    const int s = j % STAGES;
+    const uint64_t dk = desc(sk + s * kTileKV);
+    mbar_wait(k_full(s), (j / STAGES) & 1);
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
+      mma_m64n128k16_ss(sc, dq + 2 * kk, dk + 2 * kk, kk);
+    wgmma_commit();
+  };
+  // O += P V of tile j (pa), issued: V is the MN-major B operand (keys =
+  // rows, d contiguous), 16 rows a step
+  auto issue_pv = [&](int j) {
+    const int s = j % STAGES;
+    const uint64_t dv = desc(sv + s * kTileKV, kTileKV);
+    mbar_wait(v_full(s), (j / STAGES) & 1);
+    wgmma_fence();
 #pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t kf[4];
-        ldsm_x4(kf, kt + 16 * np * kRow + ln.cb[kk]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma(s[mt][2 * np], qf[mt][kk], kf[0], kf[1]);
-          mma(s[mt][2 * np + 1], qf[mt][kk], kf[2], kf[3]);
-        }
-      }
+    for (int kk = 0; kk < BK / 16; ++kk)
+      mma_m64n64k16_rs_mn(acc, pa[kk], dv + 128 * kk, 1);
+    wgmma_commit();
+  };
+  // the online softmax of tile j's S (rows g and g + 8, log2 units):
+  // p = 2^(s c - m) in place, the rows' max and sums, and the factors
+  // alpha that rescale O; a row's 128 values sit in the lane's quad
+  auto softmax = [&](int j) {
+    const int k0 = j * BK;
     if (k0 + BK > L) {  // the K tail: its scores are masked to -1e30
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (k0 + 8 * n + 2 * t + (i & 1) >= L)
-            s[0][n][i] = s[1][n][i] = kNegInf;
+          if (k0 + 8 * n + 2 * t + (i & 1) >= L) sc[4 * n + i] = kNegInf;
     }
-
-    // online softmax of rows g and g + 8 of each m-tile in log2 units:
-    // p = 2^(s c - m); a row's 64 values sit in the lane's quad, 16 a lane,
-    // so the row max is two shuffles
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = kNegInf;
-#pragma unroll
-        for (int n = 0; n < BK / 8; ++n)
-          mx = fmaxf(mx, fmaxf(s[mt][n][2 * r], s[mt][n][2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_run[mt][r], mx * c);
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = s[mt][n][2 * r + e];
-            x = exp2_ftz(fmaf(x, c, -m_new));
-            sum += x;
-          }
-        const float alpha = exp2_ftz(m_run[mt][r] - m_new);
-        l_run[mt][r] = l_run[mt][r] * alpha + sum;
-        m_run[mt][r] = m_new;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          acc[mt][n][2 * r] *= alpha;
-          acc[mt][n][2 * r + 1] *= alpha;
-        }
-      }
-
-    // O += P V: P's C fragments of n-tiles 2 kk and 2 kk + 1, rounded to
-    // bf16 and packed, are the A fragment of keys 16 kk..; V's B fragments
-    // come by ldmatrix.trans, each serving both m-tiles
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        pa[mt][0] = pack(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-        pa[mt][1] = pack(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-        pa[mt][2] = pack(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-        pa[mt][3] = pack(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-      }
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, vt + 16 * kk * kRow + ln.ca[np]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma(acc[mt][2 * np], pa[mt], vf[0], vf[1]);
-          mma(acc[mt][2 * np + 1], pa[mt], vf[2], vf[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float l = l_run[mt][r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      l = fmaxf(l, 1e-30f);
-      const int rr = q0 + warp * 32 + mt * 16 + g + 8 * r;
-      if (rr >= L) continue;
-      if (lse != nullptr && t == 0)
-        lse[static_cast<int64_t>(blockIdx.y) * L + rr] =
-            m_run[mt][r] * kLn2 + logf(l);
-      const float inv = 1.f / l;
-      bf16_t* out = o + base + rr * row + 2 * t;
+      float mx = kNegInf;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        store2<bf16_t>(out + 8 * n, acc[mt][n][2 * r] * inv,
-                       acc[mt][n][2 * r + 1] * inv);
+      for (int n = 0; n < BK / 8; ++n)
+        mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx * c);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * n + 2 * r + e];
+          x = exp2_ftz(fmaf(x, c, -m_new));
+          sum += x;
+        }
+      alpha[r] = exp2_ftz(m_run[r] - m_new);
+      l_run[r] = l_run[r] * alpha[r] + sum;
+      m_run[r] = m_new;
     }
+  };
+  // O *= alpha, then P's accumulator fragments of n-tiles 2 kk and
+  // 2 kk + 1, rounded to bf16 and packed, are the A fragment of keys 16 kk..
+  auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = pack(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    fence_regs(acc);  // written before the next wgmma.fence
+    fence_regs(pa);
+  };
+
+  // Each warpgroup overlaps its own exponentials with its products: S of
+  // tile j and P V of tile j - 1 are issued together, and the softmax of
+  // tile j runs while P V is on the tensor cores (wgmma groups complete in
+  // the order issued).
+  mbar_wait(q_full, 0);
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(k_empty(0));
+  softmax(0);
+  rescale_and_pack();
+  for (int j = 1; j < nk; ++j) {
+    issue_s(j);
+    issue_pv(j - 1);
+    wgmma_wait<1>();  // S of tile j (P V may still run)
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty(j % STAGES));
+    softmax(j);
+    wgmma_wait<0>();  // P V of tile j - 1: acc and pa are free
+    fence_regs(acc);
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty((j - 1) % STAGES));
+    rescale_and_pack();
+  }
+  issue_pv(nk - 1);
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-30f);
+    const int rr = q0 + 64 * wg + 16 * w + g + 8 * r;
+    if (rr >= L) continue;
+    if (lse != nullptr && t == 0)
+      lse[static_cast<int64_t>(blockIdx.y) * L + rr] =
+          m_run[r] * kLn2 + logf(l);
+    const float inv = 1.f / l;
+    bf16_t* out = o + base + rr * row + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2<bf16_t>(out + 8 * n, acc[4 * n + 2 * r] * inv,
+                     acc[4 * n + 2 * r + 1] * inv);
+  }
 }
 
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
@@ -1166,15 +1357,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    cudaStream_t stream) {
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
   if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, true, B, L, H, D, D, 64) ||
+      !tensor_map(&tk, k, true, B, L, H, D, D, BK) ||
+      !tensor_map(&tv, v, true, B, L, H, D, D, BK))
+    return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(flash_fwd_d64_bf16,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + BQ - 1) / BQ, B * H);
   flash_fwd_d64_bf16<<<grid, NT, kSmemBytes, stream>>>(
-      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
-      static_cast<const bf16_t*>(v), static_cast<bf16_t*>(o), lse, L, H,
-      scale);
+      tq, tk, tv, static_cast<bf16_t*>(o), lse, L, H, scale);
   return cudaGetLastError();
 }
 
@@ -1381,25 +1575,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace d512_bf16
 
-template <typename T>
+// dtype: 0 = float32, 1 = bfloat16
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-             int B, int L, int H, int D, float scale, cudaStream_t stream) {
+             int B, int L, int H, int D, int dtype, float scale,
+             cudaStream_t stream) {
+  if (dtype != 0 && dtype != 1) return -1;
+  const bool fp32 = dtype == 0;
   switch (D) {
     case 16:
-      if constexpr (std::is_same_v<T, float>)
-        return d16::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
-      else
-        return d16_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
+      return fp32 ? d16::launch<float>(q, k, v, o, lse, B, L, H, scale, stream)
+                  : d16_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
     case 64:
-      if constexpr (std::is_same_v<T, float>)
-        return d64::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
-      else
-        return d64_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
+      return fp32 ? d64::launch(q, k, v, o, lse, B, L, H, scale, stream)
+                  : d64_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
     case 512:
-      if constexpr (std::is_same_v<T, float>)
-        return d512::launch<T>(q, k, v, o, lse, B, L, H, scale, stream);
-      else
-        return d512_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
+      return fp32 ? d512::launch<float>(q, k, v, o, lse, B, L, H, scale, stream)
+                  : d512_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
     default:
       return -1;
   }
@@ -1414,12 +1605,8 @@ extern "C" {
 int rdeic_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int L, int H, int D, int dtype,
                          float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  if (dtype == 0) return dispatch<float>(q, k, v, o, l, B, L, H, D, scale, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, l, B, L, H, D, scale, st);
-  return -1;
+  return dispatch(q, k, v, o, static_cast<float*>(lse), B, L, H, D, dtype,
+                  scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* rdeic_cuda_error_string(int err) {

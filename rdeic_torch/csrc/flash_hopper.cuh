@@ -1,0 +1,325 @@
+// Hopper pieces of the d = 64 flash forward (flash_attn_fwd.cu:
+// flash_fwd_d64_bf16, flash_fwd_d64): TMA tile loads that complete on
+// mbarriers, warpgroup matrix products (wgmma.mma_async) and their shared-
+// memory descriptors, setmaxnreg, and the host's tensor maps. Only sm_90a
+// has wgmma and setmaxnreg.
+//
+// Tiles. Every operand tile in shared memory is made of atoms of R rows of
+// 128 bytes (64 bf16 or 32 fp32 values a row), rows 128 bytes apart, an
+// atom 1024-byte aligned, in the 128-byte swizzle that TMA writes under
+// CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads under layout type 1: 16-byte
+// chunk c of row r is stored at chunk c ^ (r & 7) (`swizzle128`). A row
+// wider than 128 bytes (fp32 at d = 64) is two atoms side by side, each
+// loaded by a TMA box of its own.
+//
+// Descriptors (`desc`): start address >> 4 in bits 0-13, the leading byte
+// offset >> 4 in bits 16-29, the stride byte offset >> 4 in bits 32-45,
+// the layout type in bits 62-63 (1: 128-byte swizzle). With the swizzle,
+// the stride byte offset is the step between groups of 8 rows (1024), for
+// both majors; the leading byte offset is unused by a K-major operand
+// (1, as CUTLASS sets it) and, for an MN-major one, the step between
+// 64-element atoms along MN (one atom here, so unused too). A K-major
+// operand's 16- (bf16) or 8-deep (tf32) k-steps are 32 bytes apart inside
+// the 128-byte row: the start address moves by 2 (x 16 bytes) a step, as
+// in CUTLASS's descriptor iterator. An MN-major operand's k-steps are whole
+// rows: 16 rows (2048 bytes) a bf16 step.
+//
+// Fragments of wgmma.m64nNk*, per warp w (rows 16 w.. of the warpgroup's
+// 64) and lane 4 g + t, as mma.sync's per 16 rows: the fp32 accumulator
+// d[4 j + i] holds (row g + 8 (i >> 1), column 8 j + 2 t + (i & 1)); a bf16
+// A operand from registers a[0..3] holds (g, 2t..2t+1), (g + 8, 2t..),
+// (g, 2t + 8..), (g + 8, 2t + 8..) of each 16-deep step, the lower column
+// in the low half; a tf32 A operand a[0..3] holds (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4) of each 8-deep step.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rdeic_flash {
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of (row r, byte b) in a 128-byte-swizzled atom
+__host__ __device__ constexpr uint32_t swizzle128(uint32_t r, uint32_t b) {
+  return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
+}
+
+// -- mbarriers -----------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// the inits are seen by the other threads and by the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA traffic on the barrier
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra LAB_DONE;\n"
+      "bra LAB_WAIT;\n"
+      "LAB_DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// generic-proxy writes to shared memory (st.shared) seen by the async
+// proxy (wgmma's operand reads) after the next barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// -- TMA -----------------------------------------------------------------
+// the box of `map` at coordinates (c0 innermost .. c3) into shared memory
+// at `dst`, completing `bytes` on barrier `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// -- warpgroup products --------------------------------------------------
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo = 16) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of a register array across
+// this point (an accumulator across the wgmma that writes it, and the wait)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(REGS));
+}
+
+// S (64 x 128) += A (64 x 16, shared, K-major) B (16 x 128, shared, K-major); bf16
+__device__ __forceinline__ void mma_m64n128k16_ss(float (&d)[64],
+    uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O (64 x 64) += A (64 x 16, registers) B (16 x 64, shared, MN-major); bf16
+__device__ __forceinline__ void mma_m64n64k16_rs_mn(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "l"(db), "r"(scale_d));
+}
+
+// C (64 x 64) += A (64 x 8, registers) B (8 x 64, shared, K-major); tf32
+__device__ __forceinline__ void mma_m64n64k8_rs_tf32(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "l"(db), "r"(scale_d));
+}
+
+
+// C (64 x 64) += A (64 x 8, shared, K-major) B (8 x 64, shared, K-major); tf32
+__device__ __forceinline__ void mma_m64n64k8_ss_tf32(float (&d)[32],
+    uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// -- the host's tensor maps ----------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    return found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous [B, L, H, D] tensor as a 4-d map (d, h, token, b), whose box
+// is `box_d` values of one head's row by `rows` tokens, in the 128-byte
+// swizzle (box_d x the element size must be 128 bytes); tokens past L read
+// as zeros. Returns false if the driver refuses it.
+inline bool tensor_map(CUtensorMap* map, const void* base, bool bf16, int B,
+                       int L, int H, int D, int box_d, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t es = bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {D * es, H * D * es,
+                                 static_cast<cuuint64_t>(L) * H * D * es};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return encode(map,
+                bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                4, const_cast<void*>(base), dims, strides, box, one,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper
+}  // namespace rdeic_flash

@@ -1,0 +1,213 @@
+"""Time the d = 64 flash forward on one card: this checkout's kernels,
+another checkout's, and variants of this one's, in one process.
+
+    python -m rdeic_torch.tools.flash_fwd_probe [--dtype bf16|fp32]
+        [--other DIR] [--variants NAME ...] [--shapes B,L,H ...]
+
+Builds `csrc/flash_attn_fwd.cu` of this checkout ("change"), of the
+checkout at DIR ("other", e.g. the parent commit unpacked by `git
+archive`) and, with --variants, copies of this one whose d = 64 kernel of
+the dtype (namespace `d64_bf16` or `d64`) is changed by the text
+substitutions in VARIANTS (a substitution that no longer matches raises).
+Each library is called through its C interface on the same inputs, with
+and without lse, at SHAPES (the serving, training and tiled shapes).
+Prints the card's name and power limit, then a JSON line per shape,
+version and pass (two passes, the second in reverse order): the device ms
+a launch (`device_ms`: launches queued behind a sleeping kernel, CUDA
+events), the ms a launch back to back through ctypes (`ms`), SDPA's call
+in the same dtype beside them, and max |error| of the output against the
+plain version (bf16: in bf16 ulps of max|plain|; fp32: absolute) and of
+the lse over its max.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from rdeic_torch import build
+from rdeic_torch.ops.flash_attention import flash_attention_lse_plain
+
+SHAPES = [(1, 6144, 5, 64), (1, 1536, 10, 64), (2, 4096, 5, 64),
+          (2, 1024, 10, 64), (2, 6144, 5, 64), (4, 4096, 5, 64),
+          (2, 1000, 3, 64), (1, 130, 2, 64), (1, 8192, 2, 64)]
+NAMESPACES = {"bf16": "d64_bf16", "fp32": "d64"}
+DTYPES = {"bf16": (torch.bfloat16, 1), "fp32": (torch.float32, 0)}
+SLEEP_CLOCK_HZ = 2.0e9  # torch.cuda._sleep counts cycles, at most this fast
+# namespace: {name: [(old, new)] in that namespace}
+VARIANTS = {
+    "d64_bf16": {
+        "stages2": [("BK = 128, STAGES = 4,", "BK = 128, STAGES = 2,")],
+    },
+    "d64": {
+        "producer48": [("kProducerRegs = 56,", "kProducerRegs = 48,")],
+    },
+}
+
+
+def variant_source(src: str, edits, namespace: str) -> str:
+    """`src` with each (old, new) applied inside `namespace`."""
+    i0 = src.index(f"namespace {namespace} {{")
+    i1 = src.index(f"}}  // namespace {namespace}")
+    ns = src[i0:i1]
+    for old, new in edits:
+        if old not in ns:
+            raise ValueError(f"variant text not in {namespace}: {old!r}")
+        ns = ns.replace(old, new)
+    return src[:i0] + ns + src[i1:]
+
+
+def _library(name: str, csrc: Path, source: str, out_dir: Path) -> Path:
+    src = out_dir / f"flash_attn_fwd_{name}.cu"
+    src.write_text(source)
+    headers = tuple(h for h in (csrc / p.name for p in build.FLASH_HEADERS)
+                    if h.exists())
+    return build._build(src, f"flash_attn_fwd_{name}",
+                        build._nvcc_cmd() + ["-I", str(csrc)], headers)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device ms a launch of fn(): `reps` launches queued behind a sleeping
+    kernel (so no host time is in the window), the shorter of two windows."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reads = []
+    for _ in range(2):
+        torch.cuda._sleep(int(SLEEP_CLOCK_HZ * (3 * host * reps + 5e-3)))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        reads.append(start.elapsed_time(end) / reps)
+    return min(reads)
+
+
+def back_to_back_ms(fn, reps: int = 20) -> float:
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bind(path: Path):
+    lib = ctypes.CDLL(str(path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.rdeic_flash_attn_fwd.restype = i
+    lib.rdeic_flash_attn_fwd.argtypes = [vp] * 5 + [i] * 5 + [ctypes.c_float,
+                                                              vp]
+    return lib
+
+
+def probe(lib, shape, code, inputs, want) -> dict:
+    """The forward of `lib` on `inputs`, with and without lse: ms and
+    errors."""
+    q, k, v = inputs
+    b, seq, h, d = shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b * h, seq), device=q.device, dtype=torch.float32)
+    st = torch.cuda.current_stream().cuda_stream
+    ptr = [x.data_ptr() for x in (q, k, v, o)]
+    dims = (b, seq, h, d, code, d ** -0.5, st)
+    out = {}
+    for name, lp in (("plain", None), ("lse", lse.data_ptr())):
+        def run(lp=lp):
+            return lib.rdeic_flash_attn_fwd(*ptr, lp, *dims)
+
+        err = run()
+        if err != 0:
+            raise RuntimeError(f"launch failed: {err}")
+        torch.cuda.synchronize()
+        w_o, w_lse = want
+        e = (o.float() - w_o).abs().max().item()
+        if q.dtype == torch.bfloat16:
+            e /= 2.0 ** (math.floor(math.log2(w_o.abs().max().item())) - 7)
+        out[name] = {"device_ms": device_ms(run), "ms": back_to_back_ms(run),
+                     "err": e}
+        if lp is not None:
+            out[name]["lse_err"] = ((lse - w_lse).abs().max()
+                                    / w_lse.abs().max()).item()
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
+    ap.add_argument("--other", type=Path, help="another checkout to time")
+    ap.add_argument("--variants", nargs="*", default=[])
+    ap.add_argument("--shapes", nargs="*", default=None,
+                    help="B,L,H at d = 64 (default: SHAPES)")
+    args = ap.parse_args()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    csrc = Path(build.FLASH_SRC).parent
+    src = build.FLASH_SRC.read_text()
+    out_dir = build.BUILD_DIR / "probe_fwd"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {"change": (csrc, src)}
+    if args.other:
+        other = args.other.resolve() / "rdeic_torch" / "csrc"
+        jobs["other"] = (other, (other / "flash_attn_fwd.cu").read_text())
+    ns = NAMESPACES[args.dtype]
+    jobs.update({n: (csrc, variant_source(src, VARIANTS[ns][n], ns))
+                 for n in args.variants})
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {n: pool.submit(_library, n, c, s, out_dir)
+                   for n, (c, s) in jobs.items()}
+        paths = {n: f.result() for n, f in futures.items()}
+    kernel = f"flash_fwd_d64{'_bf16' if args.dtype == 'bf16' else ''}E"
+    for name, path in paths.items():  # ptxas: the kernel's registers, spills
+        lines = build.build_log(path).splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and kernel in line:
+                print(name, " | ".join(x.strip() for x in lines[i + 2:i + 4]),
+                      flush=True)
+    libs = {n: _bind(p) for n, p in paths.items()}
+    order = list(libs)
+    if "other" in libs:  # other, change, ..., then back: change, other
+        order = ["other"] + [n for n in order if n != "other"]
+    dtype, code = DTYPES[args.dtype]
+    shapes = ([tuple(int(x) for x in s.split(",")) + (64,)
+               for s in args.shapes] if args.shapes else SHAPES)
+    dev = torch.device("cuda")
+    for shape in shapes:
+        g = torch.Generator(device=dev).manual_seed(0)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        want = flash_attention_lse_plain(q.float(), k.float(), v.float())
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        lib_ms = {"sdpa_device_ms": device_ms(sdpa),
+                  "sdpa_ms": back_to_back_ms(sdpa)}
+        for p, names in enumerate((order, order[::-1])):
+            for name in names:
+                r = probe(libs[name], shape, code, (q, k, v), want)
+                print(json.dumps({"version": name, "dtype": args.dtype,
+                                  "shape": shape, "pass": p, **r, **lib_ms}),
+                      flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -444,6 +444,102 @@ def test_flash_bf16_forward_kernels(cuda, shape, lse):
         assert _rel_err(got[1] * FAULT_SCALE, want_lse) > 1e-4
 
 
+# the Hopper d = 64 forward (flash_fwd_d64 on TF32 wgmma, 3xTF32;
+# flash_fwd_d64_bf16 on bf16 wgmma; both TMA-fed): every path shape
+# (serving, batched serving, tiled serving, training), ragged L (L = 1000
+# with B = 2, H = 3; L = 130, two rows past a 128-row q tile) and L = 8192
+D64_HOPPER_SHAPES = [(1, 6144, 5, 64), (1, 1536, 10, 64), (2, 6144, 5, 64),
+                     (2, 1536, 10, 64), (4, 4096, 5, 64), (4, 1024, 10, 64),
+                     (15, 4096, 5, 64), (2, 4096, 5, 64), (2, 1024, 10, 64),
+                     (2, 1000, 3, 64), (1, 130, 2, 64), (1, 8192, 2, 64)]
+
+
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", D64_HOPPER_SHAPES)
+def test_flash_d64_hopper_forward_kernels(cuda, shape, dtype, lse):
+    """flash_fwd_d64 and flash_fwd_d64_bf16 (wgmma, TMA), with and without
+    lse: one launch a call and the same bits on a second; the output within
+    2e-5 (fp32) or two bf16 ulps of max|plain| (bf16) of the plain
+    version's unrounded fp32 result (and, in bf16, of its bf16 output), the
+    lse within 1e-4 of max; a planted x1.05 fault reads beyond each
+    limit."""
+    q, k, v = (_rand(shape, dtype, cuda, s) for s in range(3))
+    fn = flash_attention_lse if lse else flash_attention
+    before = fn.launches
+    got = fn(q, k, v)
+    again = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    out = got[0] if lse else got
+    assert out.dtype == dtype
+    assert torch.equal(out, again[0] if lse else again)
+    want, want_lse = flash_attention_lse_plain(q.float(), k.float(), v.float())
+    refs = [want] + ([flash_attention_plain(q, k, v).float()]
+                     if dtype == torch.bfloat16 else [])
+    for ref in refs:
+        tol = 2e-5 if dtype == torch.float32 else 2 * bf16_ulp(
+            ref.abs().max().item())
+        assert (out.float() - ref).abs().max().item() <= tol
+        assert (out.float() * FAULT_SCALE - ref).abs().max().item() > tol
+    if lse:
+        assert torch.equal(got[1], again[1])
+        assert _rel_err(got[1], want_lse) <= 1e-4
+        assert _rel_err(got[1] * FAULT_SCALE, want_lse) > 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 6144, 5, 64), (1, 1536, 10, 64),
+                                   (4, 1024, 10, 64)])
+def test_flash_d64_backward_on_the_hopper_lse(cuda, shape, dtype):
+    """The dq and dkv kernels from the Hopper forward's o and lse at the
+    serving and tiled shapes (the training shapes are in
+    FLASH_TRAIN_SHAPES): within the limits of the plain backward from the
+    same o and lse, each reading a planted x1.05 fault."""
+    q, k, v, do = (_rand(shape, dtype, cuda, s) for s in range(4))
+    o, lse = flash_attention_lse(q, k, v)
+    grads = flash_attention_bwd(q, k, v, o, lse, do)
+    plain = flash_attention_bwd_plain(*(x.float() for x in (q, k, v, o)), lse,
+                                      do.float())
+    for got, want in zip(grads, plain):
+        assert got.dtype == dtype
+        assert _rel_err(got, want) <= _limit(dtype)
+        assert _rel_err(got.float() * FAULT_SCALE, want) > _limit(dtype)
+
+
+def test_wgmma_rounds_as_the_emulation_models(cuda):
+    """`rdeic_torch.tools.wgmma_probe` on the card, against the model of
+    wgmma that the CPU emulation of the d = 64 forward takes
+    (`tests/torch_port_tf32.py`): sums rounded toward zero (a tie too),
+    C + A B likewise, each term cut WGMMA_GUARD_BITS bits below the largest
+    one's ulp (so 1 - 2^-e ulp reads 1 first at e = WGMMA_GUARD_BITS + 1,
+    and k - 1 products of 2^-e ulp beside a 1 add floor((k - 1) 2^-e) ulps
+    while e <= WGMMA_GUARD_BITS, none after), an fp32 operand read as TF32
+    truncated, and a random product within four fp32 ulps of its float64
+    sum (which also holds the fragment layouts)."""
+    from rdeic_torch.tools.wgmma_probe import KINDS, SMALL, rounding
+    # tests/ is on sys.path: a top-level import, as torch_port_rans below
+    from torch_port_tf32 import (  # noqa: PLC0415
+        WGMMA_GUARD_BITS,
+        WGMMA_ROUNDING,
+    )
+
+    r = rounding()
+    for kind, (_, k) in KINDS.items():
+        got = r[kind]
+        assert got["sum"] == [WGMMA_ROUNDING] * 2, got
+        assert got["accumulate"] == [WGMMA_ROUNDING] * 2, got
+        assert got["tie"] == got["tie_accumulate"] == "rz or rne", got
+        assert got["window"] == WGMMA_GUARD_BITS + 1, got
+        for e in SMALL:
+            kept = (k - 1) * 2.0 ** -e if e <= WGMMA_GUARD_BITS else 0.0
+            assert got["small"][e] == math.floor(kept), (e, got)
+        # sums of 16 or 8 normal products and C, under 16 in magnitude:
+        # four fp32 ulps there
+        assert got["random_max_abs_err"] <= 4e-6, got
+    assert r["tf32"]["operand_a"] == r["tf32"]["operand_b"] == "truncate"
+
+
 @pytest.mark.parametrize("shape", D64_BF16_BWD_SHAPES)
 def test_flash_d64_bf16_backward_kernels(cuda, shape):
     """flash_dq_d64_bf16 and flash_dkv_d64_bf16 (bf16 mma.sync, P and dS

@@ -1,21 +1,25 @@
 """The numeric design and the shared-memory layout of the bf16 flash
-forward on the bf16 tensor cores (`flash_fwd_d64_bf16` and
-`flash_fwd_d512_bf16` in `rdeic_torch/csrc/flash_attn_fwd.cu`), on the CPU.
+forward (`flash_fwd_d64_bf16` on `wgmma` and `flash_fwd_d512_bf16` on
+`mma.sync` in `rdeic_torch/csrc/flash_attn_fwd.cu`), on the CPU.
 (`flash_fwd_d16_bf16` takes the same order, `TILES[16]`, and is held to it
 in `tests/test_torch_port_flash_d16_bf16.py`.)
 
 Both kernels hold their tiles in shared memory as bf16 and take every
-product as `mma.sync.m16n8k16` with bf16 operands and fp32 accumulators:
+product in 16-deep steps with bf16 operands and fp32 accumulators:
 S = Q K^T in one pass (bf16 products are exact in fp32), the online
 softmax in log2 units, and P V with P rounded to bf16. This file emulates
-their tile orders (`forward_bf16_tiles`) with `mma.sync`'s rounding toward
-zero modelled (`tests/torch_port_tf32.py` `mma_bf16`), and holds the result
-to float64, to the plain version and to the Pallas kernel in interpret
-mode on the same bf16 inputs, at the limit the card holds the kernels to
-(two bf16 ulps of max|plain|, `chip_smoke.py` `flash_tol`). It reads P as
-one bf16 term and as two (hi = bf16(P), lo = bf16(P - hi)), which decides
-the kernels' choice, and counts the banks of every copy and fragment read
-of the swizzled tiles.
+their tile orders (`forward_bf16_tiles`) with each step's sum rounded
+toward zero (`tests/torch_port_tf32.py` `mma_bf16`; `wgmma` also cuts each
+term to two bits below the largest one's ulp, `wgmma_bf16`, which moves
+the d = 64 forward by under 1% of a bf16 ulp: held below), and holds the
+result to float64, to the plain version and to the Pallas kernel in
+interpret mode on the same bf16 inputs, at the limit the card holds the
+kernels to (two bf16 ulps of max|plain|, `chip_smoke.py` `flash_tol`). It
+reads P as one bf16 term and as two (hi = bf16(P), lo = bf16(P - hi)),
+which decides the kernels' choice, counts the banks of every copy and
+fragment read of the cp.async-swizzled tiles (d = 512, and the d = 64
+backward's), and checks that the 128-byte-swizzled tiles that TMA writes
+and `wgmma` reads at d = 64 give back the dense tile.
 """
 import math
 
@@ -34,10 +38,14 @@ from tests.torch_port_tf32 import (
     bf16_round,
     mma_bf16,
     one_torch_thread,  # noqa: F401 (an autouse fixture)
+    swizzle128,
+    wgmma_bf16,
+    wgmma_reads,
 )
 
-# per head dim: (q rows a block, keys a tile, d-slices that sum S apart)
-TILES = {16: (64, 128, 1), 64: (128, 64, 1), 512: (64, 32, 2)}
+# per head dim: (q rows a block, keys a tile, d-slices that sum S apart);
+# d = 64: two consumer warpgroups of 64 q rows, 128-key TMA tiles
+TILES = {16: (64, 128, 1), 64: (128, 128, 1), 512: (64, 32, 2)}
 NEG = -1e30
 FAULT_SCALE = 1.05
 LIMIT = 2.0  # the card's limit on the output: two bf16 ulps of max|plain|
@@ -50,13 +58,13 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def _pv(p, v, p_terms, acc):
-    """acc + P V in 16-key mma steps, each rounded toward zero: P as one
+def _pv(p, v, p_terms, acc, mm=mma_bf16):
+    """acc + P V in 16-key steps by mm, each rounded toward zero: P as one
     bf16 term (the kernels), or with p_terms = 2 as hi and lo, the lo
-    term's mma and then the hi term's at each step."""
+    term's step and then the hi term's at each step."""
     hi = bf16_round(p)
     if p_terms == 1:
-        return mma_bf16(hi, v, acc)
+        return mm(hi, v, acc)
     lo = bf16_round(p - hi)
     # interleave the terms by 16-key step: [lo_0, hi_0, lo_1, hi_1, ...]
     steps = p.shape[-1] // 16
@@ -64,10 +72,11 @@ def _pv(p, v, p_terms, acc):
                      hi.unflatten(-1, (steps, 16))], -2).flatten(-3)
     vv = v.unflatten(-2, (steps, 16))
     b = torch.stack([vv, vv], -3).flatten(-4, -2)
-    return mma_bf16(a, b, acc)
+    return mm(a, b, acc)
 
 
-def forward_bf16_tiles(q, k, v, p_terms=1, partials=False, exact=False):
+def forward_bf16_tiles(q, k, v, p_terms=1, partials=False, exact=False,
+                       mm=mma_bf16):
     """(o, lse) in the order of the bf16 kernels at head dim d = 16, 64 or
     512;
     q, k, v hold bf16 values ([B, L, H, D]). The q rows are independent, so
@@ -83,8 +92,10 @@ def forward_bf16_tiles(q, k, v, p_terms=1, partials=False, exact=False):
     rescaled by 2^(m - m') (one accumulator for the whole L), or with
     `partials` into a partial from zero that joins O 2^(m - m') in fp32.
     Then O / max(l, 1e-30), which the kernels round to bf16 as they store
-    it (returned unrounded here), and lse = m ln 2 + ln l. With `exact`,
-    every step is float64 and P is not rounded."""
+    it (returned unrounded here), and lse = m ln 2 + ln l. Every 16-deep
+    step by mm (default `mma_bf16`: its exact sum rounded toward zero;
+    `wgmma_bf16` also cuts each term as `wgmma` does). With `exact`, every
+    step is float64 and P is not rounded."""
     b, seq, h, d = q.shape
     _, bk, slices = TILES[d]
     dt = torch.float64 if exact else torch.float32
@@ -101,7 +112,7 @@ def forward_bf16_tiles(q, k, v, p_terms=1, partials=False, exact=False):
         for j in range(slices):
             a = qh[..., j * w:(j + 1) * w]
             bt = kh[..., c0:c0 + 256, j * w:(j + 1) * w].transpose(-1, -2)
-            s_all[..., c0:c0 + 256] += (a @ bt if exact else mma_bf16(a, bt))
+            s_all[..., c0:c0 + 256] += (a @ bt if exact else mm(a, bt))
     m = torch.full(qh.shape[:-1], NEG, dtype=dt)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(qh)
@@ -117,9 +128,9 @@ def forward_bf16_tiles(q, k, v, p_terms=1, partials=False, exact=False):
         if exact:
             acc = acc * alpha[..., None] + p @ vt
         elif partials:
-            acc = acc * alpha[..., None] + _pv(p, vt, p_terms, 0.0)
+            acc = acc * alpha[..., None] + _pv(p, vt, p_terms, 0.0, mm)
         else:
-            acc = _pv(p, vt, p_terms, acc * alpha[..., None])
+            acc = _pv(p, vt, p_terms, acc * alpha[..., None], mm)
         m = m_new
     l = torch.clamp(l, min=1e-30)
     o = acc / l[..., None]
@@ -317,16 +328,87 @@ def test_d512_score_and_p_tiles_hit_32_banks():
 
 
 def test_grid_shared_memory_and_waves():
-    """d = 64: 128-row q tiles of 4 warps, Q and three K / V buffers, 64 KB
-    (two blocks per SM by shared memory and by registers); the serving
-    shapes give 240 and 120 blocks for 2 x 132 slots, one wave. d = 512:
-    64-row q tiles of 16 warps, one block per SM (128 registers a thread);
-    [1, 6144, 1, 512] gives 96 blocks and [2, 4096, 1, 512] 128, one wave
-    on 132 SMs."""
-    smem64 = (128 + 6 * 64) * 128
-    assert smem64 == 65536 and 2 * (smem64 + 1024) <= 233472
-    assert math.ceil(6144 / 128) * 5 == 240 <= 2 * 132
-    assert math.ceil(1536 / 128) * 10 == 120
+    """d = 64: 128-row q tiles, two consumer warpgroups of 64 rows and a
+    producer warpgroup (384 threads), Q and a ring of four 128-key K / V
+    tiles, 148,480 bytes with the alignment slack; one block per SM, whose
+    registers setmaxnreg moves from the producer (24) to the consumers
+    (240); the serving shapes give 240 blocks on 132 SMs (1.82 waves) and
+    120 (one wave). d = 512: 64-row q tiles of 16 warps, one block per SM
+    (128 registers a thread); [1, 6144, 1, 512] gives 96 blocks and
+    [2, 4096, 1, 512] 128, one wave on 132 SMs."""
+    smem64 = 1024 + 2 * 64 * 128 + 2 * 4 * 128 * 128
+    assert smem64 == 148480 and smem64 <= 232448 < 2 * smem64
+    assert 128 * 24 + 2 * 128 * 240 <= 65536
+    assert math.ceil(6144 / 128) * 5 == 240 and 132 < 240 <= 2 * 132
+    assert math.ceil(1536 / 128) * 10 == 120 <= 132
     smem512 = (64 + 2 * 32) * 1024 + 2 * 64 * 40 * 4 + 64 * 40 * 2 + 2 * 64 * 4
     assert smem512 == 157184 and smem512 <= 232448
     assert math.ceil(6144 / 64) == 96 and math.ceil(4096 / 64) * 2 == 128 <= 132
+
+
+# -- d = 64 on wgmma ---------------------------------------------------------
+def test_wgmma_cut_moves_the_d64_forward_by_under_a_hundredth_of_an_ulp():
+    """The rounding model the reads above take for d = 64 (each 16-deep
+    step's exact sum rounded toward zero) against the whole `wgmma` model
+    (each term also cut two bits below the largest one's ulp): at one and
+    at two terms of P, the unrounded outputs differ by under 1% of a bf16
+    ulp of max|plain|, and the lse by under 1e-6 of its max."""
+    q, k, v = _inputs(2, 300, 2, 64, 11)
+    ulp = bf16_ulp(flash_attention_plain(q, k, v).float().abs().max().item())
+    for terms in (1, 2):
+        o, lse = forward_bf16_tiles(q, k, v, p_terms=terms)
+        o_w, lse_w = forward_bf16_tiles(q, k, v, p_terms=terms, mm=wgmma_bf16)
+        assert (o - o_w).abs().max().item() < 0.01 * ulp
+        assert ((lse - lse_w).abs().max() / lse.abs().max()).item() < 1e-6
+
+
+@pytest.mark.parametrize("b,seq,h", [(1, 384, 2), (2, 130, 3)])
+def test_p_terms_under_the_wgmma_order(b, seq, h):
+    """P as one bf16 term and as two under the d = 64 kernel's order
+    (128-key tiles) with the whole `wgmma` model: one term reads at most
+    half the card's limit against the plain version, float64 and Pallas,
+    so the kernel keeps one; two terms read no more; the lse is within
+    1e-4 of max and a planted x1.05 fault reads beyond the limit."""
+    q, k, v = _inputs(b, seq, h, 64, seq + h)
+    reads = {}
+    for terms in (1, 2):
+        o, lse = forward_bf16_tiles(q, k, v, p_terms=terms, mm=wgmma_bf16)
+        reads[terms] = _reads(o, lse, q, k, v, pallas=terms == P_TERMS)
+    one = reads[P_TERMS]
+    assert max(one[key] for key in ("plain", "float64", "pallas")) <= LIMIT / 2
+    assert reads[2]["plain"] <= one["plain"], reads
+    assert one["lse"] <= LSE_TOL and one["fault"] > LIMIT, reads
+
+
+@pytest.mark.parametrize("elem,rows", [(2, 64), (2, 128), (4, 64)])
+def test_swizzled_tiles_reconstruct_the_dense_tile(elem, rows):
+    """A tile that TMA writes in the 128-byte swizzle (one 128-byte box row
+    per token: 64 bf16, or 32 fp32 of one half of d) holds every byte once,
+    and `wgmma` reads the dense tile back from it: K-major (Q, K; bf16
+    steps of 32 bytes, fp32 steps of 32 bytes = 8 values) and, for bf16,
+    MN-major (V: 16 rows a step, 2048 bytes apart)."""
+    n = 128 // elem
+    rng = np.random.default_rng(rows + elem)
+    dense = rng.integers(0, 2 ** 15, size=(rows, n))
+    smem = np.full(rows * 128 // elem, -1)
+    for r in range(rows):
+        for c in range(n):
+            at = swizzle128(r, c * elem)
+            assert at % elem == 0
+            smem[at // elem] = dense[r, c]
+    assert (smem >= 0).all()  # a permutation of the tile's words
+    got = np.empty_like(dense)
+    for step in range(128 // 32):  # K-major: 32-byte steps along the row
+        for r in range(rows):
+            for c in range(32 // elem):
+                col = step * 32 // elem + c
+                got[r, col] = smem[wgmma_reads(32 * step, r, c * elem) // elem]
+    np.testing.assert_array_equal(got, dense)
+    if elem == 2:  # MN-major: 16 rows (k) a step, 64 n contiguous
+        got = np.empty_like(dense)
+        for step in range(rows // 16):
+            for r in range(16):
+                for c in range(n):
+                    got[16 * step + r, c] = smem[
+                        wgmma_reads(2048 * step, r, 2 * c) // 2]
+        np.testing.assert_array_equal(got, dense)

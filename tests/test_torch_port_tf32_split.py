@@ -12,12 +12,18 @@ of `rdeic_torch.ops.flash_attention` and in the d = 64 kernels' own tile
 order, to float64, to the Pallas kernels in interpret mode and to the plain
 version within the limits that chip_smoke.py holds the kernels to on the
 card; it shows that one TF32 pass breaks them, and that bf16 values are
-exact in TF32, so a bf16 x bf16 tile product needs one pass. It also
-counts the shared-memory banks of every fragment read of the d = 64
-backward's tile layout. The emulation lives in `tests/torch_port_tf32.py`;
-the model of `mma.sync`'s rounding toward zero over the backward's long
-sums is held in `tests/test_torch_port_tf32_rounding.py`.
+exact in TF32, so a bf16 x bf16 tile product needs one pass. The d = 64
+forward runs on `wgmma` (three instructions an 8-deep step), whose
+rounding the emulation takes as the card shows it (`wgmma_3xtf32`,
+`tests/torch_port_tf32.py`). It also counts the shared-memory banks of
+every fragment read of the d = 64 backward's tile layout, and checks the
+layout of the forward's V^T operand. The emulation lives in
+`tests/torch_port_tf32.py`; the model of `mma.sync`'s rounding toward zero
+over the backward's long sums is held in
+`tests/test_torch_port_tf32_rounding.py`.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,8 +49,12 @@ from tests.torch_port_tf32 import (
     one_torch_thread,  # noqa: F401 (an autouse fixture)
     rel,
     split,
+    swizzle128,
     tf32_round,
     tf32_truncate,
+    wgmma_3xtf32,
+    wgmma_reads,
+    wgmma_tf32,
 )
 
 D = 512
@@ -171,23 +181,28 @@ def test_bf16_values_are_exact_in_tf32(seed):
 
 # -- the d = 64 forward kernel's tile order ---------------------------------
 D64_CASES = [(1, 1000, 2), (2, 1536, 1)]  # B, L, H: a ragged and a path L
+LOG2E = 1.4426950408889634
 
 
 def forward_d64_tiles(q, k, v, mm):
-    """(o, lse) in the order of `flash_fwd_d64`, every product by mm: the q
-    rows in 16-row warp slices (padded to 64-row blocks with zero rows),
-    each streaming 64-row K / V tiles (the tail zero-filled and its scores
-    masked to -1e30) through an online softmax: S = mm(Q, K^T) * scale,
-    m' = max(m, rowmax S), P = exp(S - m'), l = l exp(m - m') + rowsum P,
-    O = O exp(m - m') + mm(P, V); then O / max(l, 1e-30) and
-    lse = m + log(max(l, 1e-30)). Rows are independent, so the slices are
-    one batch dimension here."""
+    """(o, lse) in the order of `flash_fwd_d64` (wgmma, 3xTF32), every
+    tile's product by mm from zero: the q rows in the consumers' 64-row
+    slices (two a 128-row block, padded with zero rows), each streaming
+    64-key K / V tiles (the tail zero-filled and its scores masked to
+    -1e30) through an online softmax in log2 units: S = mm(Q, K^T),
+    m' = max(m, rowmax(S) c) with c = d^-1/2 log2(e), P = 2^(S c - m'),
+    alpha = 2^(m - m'), l = l alpha + rowsum P, and P V into a partial from
+    zero that joins O by one fma, O = fma(O, alpha, mm(P, V)); then
+    O / max(l, 1e-30) and lse = m ln 2 + ln max(l, 1e-30). Rows are
+    independent, so the slices are one batch dimension here."""
     b, seq, h, d = q.shape
-    scale = d ** -0.5
-    pad = -seq % 64
-    qh, kh, vh = (torch.nn.functional.pad(x.permute(0, 2, 1, 3), (0, 0, 0, pad))
-                  for x in (q, k, v))  # [B, H, Lp, D]
-    slices = qh.reshape(b, h, -1, 16, d)  # [B, H, warp slices, 16, D]
+    c = d ** -0.5 * LOG2E
+    pad, padk = -seq % 128, -seq % 64
+    qh = torch.nn.functional.pad(q.permute(0, 2, 1, 3), (0, 0, 0, pad))
+    kh, vh = (torch.nn.functional.pad(x.permute(0, 2, 1, 3), (0, 0, 0, padk))
+              for x in (k, v))  # [B, H, Lp, D]
+    slices = qh.reshape(b, h, -1, 64, d)  # [B, H, consumer slices, 64, D]
+    neg = torch.tensor(-1e30, dtype=q.dtype)
     m = torch.full(slices.shape[:-1], -1e30, dtype=q.dtype)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(slices)
@@ -195,17 +210,20 @@ def forward_d64_tiles(q, k, v, mm):
     for k0 in range(0, seq, 64):
         kt = kh[:, :, None, k0:k0 + 64]  # [B, H, 1, 64, D]
         vt = vh[:, :, None, k0:k0 + 64]
-        s = mm(slices, kt.transpose(-1, -2)) * scale
-        s = torch.where(k0 + cols < seq, s, torch.tensor(-1e30, dtype=q.dtype))
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
+        s = torch.where(k0 + cols < seq, mm(slices, kt.transpose(-1, -2)), neg)
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        p = torch.exp2(s * c - m_new[..., None])
+        alpha = torch.exp2(m - m_new)
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + mm(p, vt)
+        pv = mm(p, vt)
+        if q.dtype == torch.float64:
+            acc = acc * alpha[..., None] + pv
+        else:  # one fma: the product exact in float64, one rounding
+            acc = (acc.double() * alpha[..., None].double() + pv.double()).float()
         m = m_new
     lc = torch.clamp(l, min=1e-30)
     o = (acc * (1.0 / lc)[..., None]).reshape(b, h, -1, d)[:, :, :seq]
-    lse = (m + torch.log(lc)).reshape(b, h, -1)[:, :, :seq]
+    lse = (m * math.log(2.0) + torch.log(lc)).reshape(b, h, -1)[:, :, :seq]
     return o.permute(0, 2, 1, 3), lse.reshape(b * h, seq)
 
 
@@ -228,10 +246,12 @@ def test_d64_tile_order_follows_the_plain_formulas():
 
 @pytest.mark.parametrize("b,seq,h", D64_CASES)
 def test_d64_3xtf32_holds_the_fp32_limit(b, seq, h):
-    """3xTF32 in the kernel's tile order lands within 2e-5 of the Pallas
+    """3xTF32 on wgmma in the kernel's tile order (each instruction's terms
+    cut and its sum rounded toward zero, as the card's wgmma does: the
+    model of `tests/torch_port_tf32.py`) lands within 2e-5 of the Pallas
     kernel and of the plain version, and its lse within 1e-4 of max."""
     q, k, v = d64_inputs(b, seq, h, seq + h)
-    o, lse = forward_d64_tiles(q, k, v, mm_3xtf32)
+    o, lse = forward_d64_tiles(q, k, v, wgmma_3xtf32)
     for want in _d64_references(q, k, v):
         assert (o - want).abs().max().item() <= O_TOL
     want_lse = flash_attention_lse_plain(q, k, v)[1]
@@ -240,10 +260,57 @@ def test_d64_3xtf32_holds_the_fp32_limit(b, seq, h):
 
 @pytest.mark.parametrize("b,seq,h", D64_CASES)
 def test_d64_one_tf32_pass_breaks_the_fp32_limit(b, seq, h):
+    """One TF32 wgmma pass a product, in the same order, misses 2e-5."""
     q, k, v = d64_inputs(b, seq, h, seq + h)
-    o, _ = forward_d64_tiles(q, k, v, mm_tf32)
+    o, _ = forward_d64_tiles(q, k, v, wgmma_tf32)
     for want in _d64_references(q, k, v):
         assert (o - want).abs().max().item() > O_TOL
+
+
+def _vt_slot(key: int) -> int:
+    """flash_attn_fwd.cu d64: the k slot of key `key` of a 64-key tile in
+    V^T (within each 8 keys, slot t is key 2t and slot t + 4 key 2t + 1)."""
+    x = key & 7
+    return (key & ~7) + (4 + (x >> 1) if x & 1 else x >> 1)
+
+
+def test_d64_vt_operand_is_v_transposed_in_the_fragment_order():
+    """The producer writes V^T of a 64-key tile as P V's K-major B operand,
+    (d, slot) at atom slot // 32, `swizzle128(d, 4 (slot % 32))`: every
+    4-byte word once. `wgmma`'s read of 8-deep step kk (32 (kk % 4) bytes
+    into atom kk // 4) gives B[slot][d] = V[key][d] of the slot's key, and
+    P's accumulator fragment taken in the order c0, c2, c1, c3 as the A
+    operand puts the same key at each slot, so A B = P V exactly."""
+    rng = np.random.default_rng(3)
+    v = rng.integers(-64, 64, size=(64, 64))  # [key][d]
+    p = rng.integers(0, 8, size=(64, 64))  # [q row][key]
+    words = np.full(2 * 8192 // 4, 10 ** 6)
+    for key in range(64):
+        slot = _vt_slot(key)
+        for d in range(64):
+            words[((slot // 32) * 8192 + swizzle128(d, 4 * (slot % 32))) // 4] = v[key, d]
+    assert (words != 10 ** 6).all()
+    b = np.empty((64, 64), dtype=np.int64)  # [slot][d], as wgmma reads it
+    for kk in range(8):
+        start = (kk // 4) * 8192 + 32 * (kk % 4)
+        for s in range(8):
+            for d in range(64):
+                b[8 * kk + s, d] = words[wgmma_reads(start, d, 4 * s) // 4]
+    a = np.empty_like(p)  # [row][slot]: the A fragments, lane (g, t)
+    for kk in range(8):
+        for m0 in range(0, 64, 16):
+            for g in range(8):
+                for t in range(4):
+                    c = [p[m0 + g, 8 * kk + 2 * t], p[m0 + g, 8 * kk + 2 * t + 1],
+                         p[m0 + g + 8, 8 * kk + 2 * t],
+                         p[m0 + g + 8, 8 * kk + 2 * t + 1]]
+                    a0, a1, a2, a3 = c[0], c[2], c[1], c[3]
+                    a[m0 + g, 8 * kk + t], a[m0 + g + 8, 8 * kk + t] = a0, a1
+                    a[m0 + g, 8 * kk + t + 4] = a2
+                    a[m0 + g + 8, 8 * kk + t + 4] = a3
+    for key in range(64):
+        np.testing.assert_array_equal(b[_vt_slot(key)], v[key])
+    np.testing.assert_array_equal(a @ b, p @ v)
 
 
 # -- the d = 64 backward kernels' tile order --------------------------------

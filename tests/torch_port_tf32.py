@@ -8,7 +8,8 @@ kernels and to the plain versions (`tests/test_torch_port_tf32_split.py`,
 `tests/test_torch_port_flash_bwd_d16_bf16.py`):
 TF32 rounding and the 3xTF32 split of `rdeic_torch/csrc/flash_mma.cuh`,
 bf16 rounding and truncation, `mma.sync`'s rounding toward zero (TF32 and
-bf16 products), the
+bf16 products), `wgmma`'s rounding as the card shows it (the d = 64
+forward kernels), the
 d = 64 backward kernels' tile order, and the shared-memory banks that a
 fragment read touches; and `one_torch_thread`, the fixture these files
 run under.
@@ -133,6 +134,124 @@ def mma_bf16(a: torch.Tensor, b: torch.Tensor, c=0.0) -> torch.Tensor:
         for i in range(steps):
             out = rz32(out.double() + sums[i])
     return out
+
+
+# -- wgmma's rounding ---------------------------------------------------------
+# What the card's warpgroup product does, as `rdeic_torch/tools/wgmma_probe.py`
+# reads it (bf16 m64n64k16 and tf32 m64n64k8, NVIDIA H100 80GB HBM3;
+# `tests/test_torch_port_cuda.py` holds the card to these constants): an fp32
+# operand read as TF32 loses its 13 low bits (truncation, as `tf32_truncate`);
+# each instruction aligns its products and the accumulator C to the largest
+# of them, cuts every term toward zero to WGMMA_GUARD_BITS bits below that
+# term's fp32 ulp (a product 2^-3 ulp of it below is lost, 2^-2 is kept),
+# adds the cut terms exactly and rounds the sum toward zero (WGMMA_ROUNDING),
+# so a tie rounds toward zero too.
+WGMMA_ROUNDING = "rz"
+WGMMA_GUARD_BITS = 2
+
+
+def _wgmma_chain_jax():
+    """The jitted chain of `wgmma_chain`: XLA fuses each instruction's
+    products, cut and sum into one pass, which torch's elementwise ops take
+    ten (JAX is imported here, so that the card's tests can import this
+    module where JAX is absent)."""
+    import jax
+    import jax.numpy as jnp
+
+    def step(c, ab):
+        a, b = ab  # [.., M, k], [.., k, N]
+        p = a[..., :, None, :] * jnp.swapaxes(b, -1, -2)[..., None, :, :]
+        mx = jnp.maximum(jnp.max(jnp.abs(p), -1), jnp.abs(c))
+        _, e = jnp.frexp(mx)  # mx < 2^e: its fp32 ulp is 2^(e - 24)
+        # 1 / the cut; capped where every term is below 2^-100 (the cut
+        # there is below any fp32 sum the kernels keep)
+        inv_q = jnp.ldexp(jnp.float32(1), jnp.minimum(
+            24 + WGMMA_GUARD_BITS - e, 126))
+        # each term in units of the cut, toward zero: exact integers under
+        # 2^26, so a sum of 17 fits int32
+        n = (jnp.sum((p * inv_q[..., None]).astype(jnp.int32), -1)
+             + (c * inv_q).astype(jnp.int32))
+        # rounded toward zero to fp32's 24 significant bits
+        m = jnp.abs(n).astype(jnp.uint32)
+        bits = 32 - jax.lax.clz(m).astype(jnp.int32)
+        shift = jnp.maximum(bits - 24, 0).astype(jnp.uint32)
+        m = (m >> shift) << shift
+        return jnp.sign(n).astype(jnp.float32) * m.astype(jnp.float32) / inv_q, None
+
+    def chain(c, a, b):  # a [n, .., M, k], b [n, .., k, N]: n instructions
+        return jax.lax.scan(step, c, (a, b))[0]
+
+    return jax.jit(chain)
+
+
+_CHAIN = []
+
+
+def wgmma_chain(c, a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
+    """c [.., M, N] plus a [.., M, K] @ b [.., K, N] as K / k wgmma
+    instructions in order (instruction i takes the k-slice i of a and b;
+    their products exact in fp32: bf16 or TF32 values), each by the model
+    above: the terms and the accumulator aligned to the largest, cut toward
+    zero WGMMA_GUARD_BITS bits below its ulp, added exactly, the sum rounded
+    toward zero."""
+    import jax.numpy as jnp
+
+    if not _CHAIN:
+        _CHAIN.append(_wgmma_chain_jax())
+    n = a.shape[-1] // k
+    shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a = a.float().expand(*shape, *a.shape[-2:])
+    b = b.float().expand(*shape, *b.shape[-2:])
+    c = torch.as_tensor(c, dtype=torch.float32).expand(
+        *shape, a.shape[-2], b.shape[-1])
+    a_steps = a.unflatten(-1, (n, k)).movedim(-2, 0)  # [n, .., M, k]
+    b_steps = b.unflatten(-2, (n, k)).movedim(-3, 0)  # [n, .., k, N]
+    out = _CHAIN[0](*(jnp.asarray(x.contiguous().numpy())
+                      for x in (c, a_steps, b_steps)))
+    return torch.from_numpy(np.array(out))
+
+
+def wgmma_bf16(a: torch.Tensor, b: torch.Tensor, c=0.0) -> torch.Tensor:
+    """c + a @ b as 16-deep bf16 wgmma steps (a and b hold bf16 values)."""
+    return wgmma_chain(c, a, b, 16)
+
+
+def wgmma_3xtf32(a: torch.Tensor, b: torch.Tensor, c=0.0) -> torch.Tensor:
+    """c + a @ b as the d = 64 fp32 forward takes it: per 8-deep step three
+    wgmma instructions, small * big, big * small, big * big (big rounded to
+    TF32 to nearest by the kernel, small = x - big as the tensor core reads
+    it: truncated)."""
+    (ab, as_), (bb, bs) = split(a), split(b)
+    n = a.shape[-1] // 8
+    # the instructions' operands in their order, 8 deep each
+    a_seq = torch.stack([x.unflatten(-1, (n, 8)) for x in (as_, ab, ab)],
+                        -2).flatten(-3)
+    b_seq = torch.stack([x.unflatten(-2, (n, 8)) for x in (bb, bs, bb)],
+                        -3).flatten(-4, -2)
+    return wgmma_chain(c, a_seq, b_seq, 8)
+
+
+def wgmma_tf32(a: torch.Tensor, b: torch.Tensor, c=0.0) -> torch.Tensor:
+    """c + a @ b in one TF32 wgmma pass a step: fp32 operands as the tensor
+    core reads them (truncated)."""
+    return wgmma_chain(c, tf32_truncate(a), tf32_truncate(b), 8)
+
+
+# -- the 128-byte swizzle of the Hopper tiles --------------------------------
+def swizzle128(r: int, b: int) -> int:
+    """flash_hopper.cuh `swizzle128`: the byte of (row r, byte b) in a
+    128-byte-swizzled atom (16-byte chunk c of row r at chunk c ^ (r & 7))."""
+    return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15)
+
+
+def wgmma_reads(start: int, row: int, byte: int) -> int:
+    """The shared-memory byte that `wgmma` reads for (row, byte) of an
+    operand whose descriptor starts at `start` (1024-aligned atoms plus the
+    step's offset): the canonical address, rows 128 bytes apart and groups
+    of 8 rows 1024 apart (the stride byte offset), with address bits 4-6
+    XOR-ed by bits 7-9 (layout type 1, the 128-byte swizzle)."""
+    a = start + (row // 8) * 1024 + (row % 8) * 128 + byte
+    return a ^ (((a >> 7) & 7) << 4)
 
 
 # -- the d = 64 backward kernels' tile order ---------------------------------

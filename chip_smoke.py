@@ -12,12 +12,14 @@ and g++; no network. Phases, each fatal on failure:
    g++ start together on the sources in the checkout; ptxas's registers
    and spills of each CUDA kernel are logged by name, and a flash kernel
    (all run on the tensor cores; any entry whose mangled name holds
-   `flash_`) or the GroupNorm backward that spills fails the run; the
-   Hopper d = 64 forward kernels (flash_fwd_d64_bf16, flash_fwd_d64) must
-   hold warpgroup products and TMA loads: `cuobjdump -sass` of the built
-   library counts each one's HGMMA and UTMALDG instructions, and a count of
-   0 fails the run; `[wgmma]` logs how the card's wgmma rounds
-   (`rdeic_torch.tools.wgmma_probe`);
+   `flash_`) or the GroupNorm backward that spills fails the run, and any
+   ptxas C7519 (a `warpgroup.arrive` it injected) is logged; the Hopper
+   kernels (HOPPER_KERNELS: the d = 64 forward, flash_fwd_d64_bf16 and
+   flash_fwd_d64, and the d = 64 bf16 backward, flash_dq_d64_bf16 and
+   flash_dkv_d64_bf16) must hold warpgroup products and TMA loads:
+   `cuobjdump -sass` of each built library counts each one's HGMMA and
+   UTMALDG instructions, and a count of 0 fails the run; `[wgmma]` logs
+   how the card's wgmma rounds (`rdeic_torch.tools.wgmma_probe`);
 3. main path at the full width of configs/model/rdeic.yaml (random weights
    from --seed): the CLI's per-image `rdeic_torch.inference.process` codes a
    synthetic 768x512 image to a stream file, decodes it back, relay-samples
@@ -622,16 +624,21 @@ TF32_FLOPS = 494.7e12
 TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (16, 64, 512)}
 # Head dims whose bf16 forward has kernels of its own on the bf16 tensor
 # cores (flash_fwd_d16_bf16, flash_fwd_d64_bf16, flash_fwd_d512_bf16: bf16
-# mma.sync m16n8k16), and whose bf16 backward has (flash_dq_d16_bf16,
-# flash_dkv_d16_bf16, flash_dq_d64_bf16, flash_dkv_d64_bf16,
-# flash_dq_d512_bf16, flash_dkv_d512_bf16): every head dim of the paths
+# mma.sync m16n8k16, at d = 64 wgmma), and whose bf16 backward has
+# (flash_dq_d16_bf16, flash_dkv_d16_bf16, flash_dq_d64_bf16,
+# flash_dkv_d64_bf16, flash_dq_d512_bf16, flash_dkv_d512_bf16: likewise):
+# every head dim of the paths
 BF16_FWD_HEAD_DIMS = (16, 64, 512)
 BF16_BWD_HEAD_DIMS = (16, 64, 512)
 # Head dims whose forward kernels, fp32 and bf16, run on wgmma with TMA
-# loads (flash_fwd_d64, flash_fwd_d64_bf16): phase 2 counts their HGMMA and
-# UTMALDG instructions
+# loads (flash_fwd_d64, flash_fwd_d64_bf16)
 HOPPER_FWD_HEAD_DIMS = (64,)
-HOPPER_FWD_KERNELS = ("flash_fwd_d64", "flash_fwd_d64_bf16")
+# Each library's kernels on wgmma with TMA loads (the d = 64 forward in
+# both dtypes, the d = 64 bf16 backward): phase 2 counts their HGMMA and
+# UTMALDG instructions
+HOPPER_KERNELS = {"flash_attn_fwd": ("flash_fwd_d64", "flash_fwd_d64_bf16"),
+                  "flash_attn_bwd": ("flash_dq_d64_bf16",
+                                     "flash_dkv_d64_bf16")}
 # The exponentials' floor of a flash call (`softmax_bound_ms`): B H L^2 of
 # them on the MUFU units, 16 a clock per SM (sm_90), at the boost clock
 MUFU_EX2_PER_CLOCK = 16
@@ -767,6 +774,8 @@ def phase_build():
                                  r"|encode_lanes))E", mangled)
                 if rans:
                     kernel = rans[1]
+            elif "C7519" in line:  # ptxas injected a warpgroup.arrive
+                log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
             elif "registers" in line or "spill" in line:
                 log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
                 # every flash kernel and the GroupNorm backward, found in
@@ -777,14 +786,15 @@ def phase_build():
     if spills:
         raise AssertionError(f"flash kernels or the GroupNorm backward "
                              f"spill: {spills}")
-    counts = sass_counts(libs["flash_attn_fwd"])
-    for name in HOPPER_FWD_KERNELS:
-        hgmma, utmaldg = counts.get(name, (0, 0))
-        log(f"[build] flash_attn_fwd SASS {name}: {hgmma} HGMMA, {utmaldg} "
-            "UTMALDG")
-        if not (hgmma and utmaldg):
-            raise AssertionError(f"{name} runs no wgmma or no TMA load: "
-                                 f"{hgmma} HGMMA, {utmaldg} UTMALDG")
+    for lib, names in HOPPER_KERNELS.items():
+        counts = sass_counts(libs[lib])
+        for name in names:
+            hgmma, utmaldg = counts.get(name, (0, 0))
+            log(f"[build] {lib} SASS {name}: {hgmma} HGMMA, {utmaldg} "
+                "UTMALDG")
+            if not (hgmma and utmaldg):
+                raise AssertionError(f"{name} runs no wgmma or no TMA load: "
+                                     f"{hgmma} HGMMA, {utmaldg} UTMALDG")
     log(f"[wgmma] the card's rounding: {json.dumps(wgmma_probe.rounding())}")
 
 
@@ -2943,6 +2953,13 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
                           "library_device_ms": library_dev}
         if name != "flash_attn_fwd_lse":
             rows_out[name]["backward_bound_ms"] = pair_bound
+        if name != "flash_attn_fwd_lse" and dtype == torch.bfloat16:
+            # the bf16 kernels take P and dS as two bf16 terms (the
+            # precision rule): dq issues S, dP and dS K twice (8 B H L^2 d
+            # flops), dkv S, dP, P^T dO twice and dS^T Q twice (12)
+            terms = 8 * ops if name == "flash_attn_bwd_dq" else 12 * ops
+            rows_out[name]["two_term_bound_ms"] = _flash_bound_ms(
+                nbytes, terms, d, dtype, backward=True)[0]
     return rows_out
 
 
@@ -3216,7 +3233,12 @@ def phase_kernels(device, runs) -> list:
             f"{dkv['device_ms']:.4f}) = {dq['ms'] + dkv['ms']:.4f} (device "
             f"{dq['device_ms'] + dkv['device_ms']:.4f}) ms; own bounds "
             f"{dq['bound_ms']:.4f} + {dkv['bound_ms']:.4f} ms, the pair's "
-            f"{dq['backward_bound_ms']:.4f} ms at {dq['bound_rate']}, its "
+            f"{dq['backward_bound_ms']:.4f} ms at {dq['bound_rate']}"
+            + (f" (at the rule's two terms of P and dS: "
+               f"{dq['two_term_bound_ms']:.4f} + {dkv['two_term_bound_ms']:.4f}"
+               f" = {dq['two_term_bound_ms'] + dkv['two_term_bound_ms']:.4f}"
+               " ms)" if "two_term_bound_ms" in dq else "")
+            + ", its "
             f"exponentials' floor "
             f"{dq['softmax_bound_ms'] + dkv['softmax_bound_ms']:.4f} ms; SDPA "
             f"backward {dq['library_ms']:.4f} (device "

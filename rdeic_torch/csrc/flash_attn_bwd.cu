@@ -123,64 +123,65 @@
 // mma.sync's rate on Hopper (wgmma is the full-rate instruction).
 //
 // bf16 at d = 64 (the bf16 training recipes: the same shapes) runs
-// flash_dq_d64_bf16 and flash_dkv_d64_bf16, built from the pieces of
-// flash_bf16.cuh, as the bf16 forward is:
-// - Tiles stay bf16 in shared memory, in flash_bf16.cuh's swizzled layout
-//   (chunk c of row r at c ^ (r & 7)), copied by cp.async.cg 16 bytes a
-//   lane, zero-filled past L: every copy and every ldmatrix phase, with and
-//   without .trans, hits 32 banks. 64-row kept tiles of 4 warps, warp w
-//   owning rows 16 w..; the kept pair (Q and dO in dq, K and V in dkv) is
-//   read once into A fragments held in registers for the whole loop. The
-//   streamed pair (K and V, or Q and dO with their rows' lse and di, these
-//   by 4-byte cp.async.ca) comes in 64-row tiles through a ring of three
-//   buffers, one barrier a tile, so the next two tiles are in flight while
-//   one is used, in two 32-row chunks. dq's O passes through the third K
-//   buffer before the ring reaches it.
-// - Products: mma.sync m16n8k16, bf16 operands, fp32 accumulators. S = Q K^T
-//   and dP = dO V^T (dkv: S^T = K Q^T, dP^T = V dO^T) take the streamed
-//   tile's B fragments by ldmatrix without .trans; dq += dS K, dv += P^T dO
-//   and dk += dS^T Q take them from the same tile by ldmatrix.trans.
-// - Scores stay in registers: P and dS are formed in place in the C
-//   fragments, whose pairs packed to bf16x2 are the A fragment of the next
-//   16-deep step. The softmax runs in log2 units: P = ex2(fmaf(S, scale
-//   log2(e), -lse log2(e))), dS = P fmaf(dP, scale, -di scale). dq masks
-//   keys past L in its last tile; in dkv a q row past L lands as zeros (Q,
-//   dO, lse, di), so P^T = 1 and dS^T = 0 there, times dO = Q = 0: no test.
+// flash_dq_d64_bf16 and flash_dkv_d64_bf16 on Hopper's warpgroup products,
+// from the pieces of flash_hopper.cuh, as the d = 64 forward is:
+// - Blocks: a consumer warpgroup that keeps 64 rows (q rows in dq, keys in
+//   dkv) and a producer warpgroup, one of whose threads issues every TMA
+//   load; two blocks an SM: 128 registers a thread at launch, 232 for the
+//   consumer and 24 for the producer by setmaxnreg; 89 KB (dq) and 83 KB
+//   (dkv) of shared memory. The kept tiles (Q, dO and O in dq; K and V in
+//   dkv) and a ring of four stages of the streamed pair (K and V; Q and
+//   dO), 64 rows each, come by TMA in the 128-byte swizzle on mbarriers,
+//   tokens past L as zeros. dkv's streamed lse and di rows ([B*H, L] fp32,
+//   whose rows TMA cannot take at every L: not 16-byte aligned) come by
+//   4-byte cp.async from the producer warp's lanes, and the stage's
+//   barrier tracks them (cp.async.mbarrier.arrive.noinc). dq computes di
+//   in its prologue from the kept dO and O (a quad a row) and writes it.
+// - Products: S = Q K^T and dP = dO V^T (dkv: S^T = K Q^T, dP^T = V dO^T)
+//   are 64 x 64 wgmma with both operands in shared memory, K-major. P and
+//   dS are formed in place in their accumulator registers, in log2 units:
+//   P = ex2(fmaf(S, scale log2(e), -lse2)), dS = P fmaf(dP, scale, -di
+//   scale); dq masks keys past L in its last tile; in dkv a q row past L
+//   lands as zeros, so P^T = 1 and dS^T = 0 there, times dO = Q = 0: no
+//   test. Their fragments, packed pairwise to bf16, are the A operand
+//   (from registers) of dq += dS K, dv += P^T dO and dk += dS^T Q, whose B
+//   (K; dO and Q) is read MN-major from the same tiles.
+// - Overlap: each consumer issues the scores of tile j and the products of
+//   tile j - 1 together and forms P and dS of tile j while the products
+//   run (wgmma groups complete in order). A V stage (dq) is freed after
+//   the scores, a K stage (dq) or Q / dO stage (dkv) after the products.
 // - P and dS as two bf16 terms (big = bf16(x), small = bf16(x - big),
-//   flash_bf16.cuh pack_split), so every product with them is two mma. The
-//   rule, read on the CPU emulation (tests/test_torch_port_flash_bwd_d64_
-//   bf16.py) before any card run: one term only if it reads at most half
-//   the card's limit (2^-8 + 1e-4 of max|plain|) at every training shape
-//   and at L = 1000 and 8192. One term of P read up to 2.8e-3 of max on dv,
-//   one of dS 2.1e-3 on dq and dk, past half (2.0e-3): dS K cancels (each
-//   row of dS sums to about zero), and P's rounding does not average out
-//   in P^T dO either. Two terms read <= 3.1e-5 before the bf16 store.
-// - mma.sync rounds its sums toward zero; over L = 8192 one accumulator
-//   moves the result by < 1e-4 of max (emulation), a fortieth of half the
-//   limit, so there are no per-chunk partials. No atomics: two launches
-//   give the same bits.
-// - Grid: one block per (64-row tile, b*h), 640 at [2, 4096, 5, 64] and
-//   320 at [2, 1024, 10, 64]. dq: Q, dO and the K / V ring, 64 KB, 167
-//   registers (ptxas -v), three blocks per SM: 1.6 and 0.8 waves. dkv
-//   holds dk and dv (64 accumulators a thread): at three blocks (168
-//   registers) it spilled 16 bytes, so two, 252 registers and 65.5 KB,
-//   2.4 and 1.2 waves. No spills.
-// What holds them back now (PERF.md §6 has their times beside SDPA's):
-// the warps' own instruction stream. In probes neither more warps per SM
-// (four dq blocks on 32-row streamed tiles, three dkv blocks with 16-row
-// chunks or the kept fragments re-read from shared memory), nor 128-row
-// kept tiles of 8 warps (half the streamed bytes through L2), nor 32 q
-// rows a warp in dq (each B fragment serving two m-tiles, half the
-// ldmatrix a product, at 255 registers) ran faster.
-// The products with P and dS take two mma for one (4 / 3 and 3 / 2 of the
-// one-term count in dq and dkv), ldmatrix comes at one per 2-4 mma, and
-// the exponentials and the split's conversions sit between the products
-// in the same warps. wgmma with B from shared memory and TMA copies would
-// take the ldmatrix and the copies off the warps that multiply.
+//   flash_bf16.cuh pack_split), each term's 16-deep step a wgmma of its
+//   own, the small one first: within one instruction wgmma cuts each term
+//   two bits below the largest one's ulp, which would cut the small
+//   term's products away. The rule, read on the CPU emulation under
+//   wgmma's rounding (tests/test_torch_port_flash_bwd_d64_bf16.py) before
+//   any card run: one term only if it reads at most half the card's limit
+//   (2^-8 + 1e-4 of max|plain|) at every training shape and at L = 1000
+//   and 8192. One term of P read up to 2.33e-3 of max on dv, one of dS
+//   3.19e-3 on dq and 2.40e-3 on dk, past half (2.0e-3); two read
+//   <= 2.1e-5 before the bf16 store.
+// - wgmma's rounding over L = 8192 into one accumulator moves the result
+//   by 2.1e-5 of max (emulation), under a fortieth of half the limit: no
+//   per-tile partials. No atomics: two launches give the same bits.
+// - Grid: one block per (64-row tile, b*h): 640 at [2, 4096, 5, 64] and
+//   320 at [2, 1024, 10, 64], 2.42 and 1.21 waves of 264 slots. ptxas -v:
+//   128 registers at launch, no spills.
+// Probes on the card (rdeic_torch/tools/flash_bwd_probe.py --d 64,
+// PERF.md §6): one block an SM of two consumer warpgroups (128 kept rows,
+// NWG = 2) ran 12% slower at [2, 4096, 5, 64] and 26% at [2, 1024, 10,
+// 64], where its tail wave runs 28 blocks on 132 SMs; at NWG = 2 a ring
+// of two stages ran 1.1-1.3x slower, of eight no faster; Q and dO as
+// register A operands of dq's scores were no faster at two blocks an SM
+// (dkv's K and V so spill). What holds the pair back is not traced yet;
+// its time follows the count of 64 x 64 x 16 products (d = 64 and 64 kept
+// rows allow no larger dq, dk or dv product): without the small term's
+// products it ran 19% faster at [2, 4096, 5, 64], without the
+// exponentials 3%.
 //
 // bf16 at d = 16 (the bf16 training recipes: the same shapes) runs
-// flash_dq_d16_bf16 and flash_dkv_d16_bf16, d64_bf16's design at one
-// 16-deep step over d:
+// flash_dq_d16_bf16 and flash_dkv_d16_bf16 on mma.sync, at one 16-deep
+// step over d:
 // - Tiles stay bf16 in shared memory in the d = 16 swizzle of
 //   flash_bf16.cuh (chunk c of row r at c ^ ((r >> 2) & 1), Lane16's
 //   offsets), copied by cp.async.cg 16 bytes a lane, zero-filled past L, and
@@ -273,7 +274,7 @@
 //   dkv 233; no spills. Grid at [2, 4096, 1, 512]: dq 128 blocks (0.97
 //   waves), dkv 256 (1.94).
 // What holds them back (PERF.md §6; rdeic_torch/tools/flash_bwd_probe.py
-// --d 512 on the card): the warps' own instruction stream, as at d = 64.
+// --d 512 on the card): the warps' own instruction stream, as at d = 16.
 // The score patches issue one ldmatrix.x4 (512 bytes) a mma, 256 KB a
 // streamed 16 (dq) or 32 (dkv) rows a block; the products 16 mma a
 // ldmatrix. In probes at [2, 4096, 1, 512], leaving out the products took
@@ -336,6 +337,7 @@
 
 #include "flash_bf16.cuh"
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 #include "flash_mma.cuh"
 
 namespace {
@@ -1518,7 +1520,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 // `smem` bytes of dynamic shared memory for `kernel`, and as much shared
 // memory on the SM as it has, so that the blocks a kernel's launch bounds
-// ask for fit (three d64_bf16 dq blocks, four d16_bf16 blocks)
+// ask for fit (four d16_bf16 blocks; one d64_bf16 or d512_bf16 block of
+// 99-201 KB)
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -1550,348 +1553,494 @@ cudaError_t prepare_on_device(Kernel kernel, int smem,
   return err;
 }
 
-// bf16 at d = 64 on the bf16 tensor cores (header). 128 threads a block;
-// warp w owns rows 16 w.. of the block's 64-row kept tile (q rows in dq,
-// keys in dkv) and holds their two kept A-fragment sets in registers; the
-// streamed pair comes in 64-row tiles through a ring of three buffers and
-// is used in two KC-row chunks. dq runs three blocks per SM, dkv (twice
-// the accumulators) two.
+// bf16 at d = 64 on wgmma (header). One block: a kept tile of 64 NWG rows
+// (blockIdx.x: q rows in dq, keys in dkv) of (b*h blockIdx.y), NWG consumer
+// warpgroups, each owning 64 kept rows and keeping their scores and
+// accumulators in registers, and a producer warp that issues every TMA load
+// (and, in dkv, copies the streamed q rows' lse and di). NWG = 1, two
+// blocks an SM: two consumer warpgroups an SM, as at NWG = 2, but half the
+// tile a block, so the last wave's blocks spread over more SMs.
 namespace d64_bf16 {
 
 namespace bf16 = rdeic_flash::bf16;
 using bf16::bf16_t;
-using bf16::Lane;
-constexpr int D = 64, BT = 64, NT = 128, KC = 32;
-constexpr int kRow = D * 2;                  // bytes of a tile row
-constexpr int kTile = BT * D;                // values of a tile
-constexpr int kTileBytes = kTile * 2;        // 8 KB
-constexpr int kDqSmemBytes = 8 * kTileBytes;  // Q, dO, three K / V pairs
-// K, V, three Q / dO pairs, and the lse and di of each pair's q rows
-constexpr int kDkvSmemBytes = 8 * kTileBytes + 3 * 2 * BT * 4;
-static_assert(3 * (kDqSmemBytes + 1024) <= 233472, "three dq blocks per SM");
-static_assert(2 * (kDkvSmemBytes + 1024) <= 233472, "two dkv blocks per SM");
-static_assert(NT == 2 * BT, "one thread a row term in load_row_terms");
+using namespace rdeic_flash::hopper;
+// NWG consumer warpgroups of 64 kept rows a block, BLOCKS blocks an SM
+constexpr int NWG = 1, BLOCKS = 2 / NWG;
+constexpr int D = 64, BM = 64 * NWG, BN = 64, STAGES = 4;
+constexpr int NT = 128 * (NWG + 1);
+// the consumer warpgroups (warps 0.. 4 NWG - 1), then the producer
+// warpgroup, whose registers setmaxnreg gives to the consumers;
+// setmaxnreg.inc waits for registers its own block freed, so the launch
+// must have kLaunchRegs a thread (launch_dq / launch_dkv refuse a build
+// that launches with another count)
+constexpr int kLaunchRegs = (65536 / (NT * BLOCKS)) & ~7;
+constexpr int kProducerRegs = 24, kConsumerRegs = NWG == 1 ? 232 : 240;
+static_assert(128 * (kLaunchRegs - kProducerRegs) >=
+                  128 * NWG * (kConsumerRegs - kLaunchRegs),
+              "registers per block");
+constexpr uint32_t kTile = 64 * D * 2;  // bytes: 64 rows of one tensor
+constexpr uint32_t kRowTerms = 2 * BN * 4;  // bytes: lse and di of 64 rows
+// dq: Q, dO and O of the BM q rows, then the K ring and the V ring; dkv:
+// K and V of the BM keys, the Q ring, the dO ring and the rows' lse and
+// di; each from a 1024-byte-aligned base
+constexpr int kDqSmemBytes = 1024 + 3 * NWG * kTile + 2 * STAGES * kTile;
+constexpr int kDkvSmemBytes =
+    1024 + 2 * NWG * kTile + 2 * STAGES * kTile + STAGES * kRowTerms;
+static_assert(BLOCKS * (kDqSmemBytes + 1024) <= 233472 &&
+                  BLOCKS * (kDkvSmemBytes + 1024) <= 233472,
+              "shared memory per SM");
 
-// c (16 x KC: n-tile n holds streamed rows 8 n.. as columns) = A B^T over
-// d: A the warp's kept fragments, B the chunk's rows read without .trans
-// (`b`: the chunk's first row plus the lane's row Lane::br, in bytes)
-__device__ __forceinline__ void scores(float (&c)[KC / 8][4],
-                                       const uint32_t (&a)[D / 16][4],
-                                       uint32_t b, const Lane& ln) {
-  using namespace rdeic_flash;
-  zero(c);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int np = 0; np < KC / 16; ++np) {
-      uint32_t f[4];
-      bf16::ldsm_x4(f, b + 16 * np * kRow + ln.cb[kk]);
-      bf16::mma(c[2 * np], a[kk], f[0], f[1]);
-      bf16::mma(c[2 * np + 1], a[kk], f[2], f[3]);
-    }
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 x;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w)
+               : "r"(addr));
+  return x;
 }
 
-// acc (16 x 64: n-tile n holds columns 8 n..) += X B over the chunk's KC
-// rows: X (16 x KC, P or dS) from its C fragments as two bf16 terms (the
-// C fragments of n-tiles 2 kk and 2 kk + 1, packed pairwise, are the A
-// fragment of the 16-deep step kk), B the chunk's rows read with .trans
-// (`b`: the chunk's first row plus the lane's row Lane::ar, in bytes). At
-// each step the small term's products go first, then the big term's.
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                           const float (&x)[KC / 8][4],
-                                           uint32_t b, const Lane& ln) {
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 x;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(x.x), "=f"(x.y)
+               : "r"(addr));
+  return x;
+}
+
+// The accumulator fragments of X (64 x 64: x[4 n + i]) as two bf16 terms
+// (pack_split), the A fragments of the four 16-deep steps over X's columns:
+// n-tiles 2 kk and 2 kk + 1, packed pairwise, are step kk
+__device__ __forceinline__ void pack_terms(const float (&x)[BN / 2],
+                                           uint32_t (&big)[BN / 16][4],
+                                           uint32_t (&small)[BN / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < KC / 16; ++kk) {
-    uint32_t big[4], small[4];
+  for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {  // rows g, g + 8 of n-tile 2 kk, 2 kk + 1
-      const float(&c)[4] = x[2 * kk + (i >> 1)];
-      bf16::pack_split(c[2 * (i & 1)], c[2 * (i & 1) + 1], big[i], small[i]);
-    }
+    for (int e = 0; e < 4; ++e)
+      bf16::pack_split(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1], big[kk][e],
+                       small[kk][e]);
+  fence_regs(big);
+  fence_regs(small);
+}
+
+// acc += X B over 64 streamed rows: X as two terms (pack_terms), B a tile
+// in shared memory read MN-major (`db`: its descriptor; 16 rows, 2048
+// bytes, a step); at each step the small term's product, then the big's
+__device__ __forceinline__ void take_terms(float (&acc)[D / 2],
+                                           const uint32_t (&big)[BN / 16][4],
+                                           const uint32_t (&small)[BN / 16][4],
+                                           uint64_t db) {
 #pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t f[4];
-      bf16::ldsm_x4_trans(f, b + 16 * kk * kRow + ln.ca[np]);
-      bf16::mma(acc[2 * np], small, f[0], f[1]);
-      bf16::mma(acc[2 * np + 1], small, f[2], f[3]);
-      bf16::mma(acc[2 * np], big, f[0], f[1]);
-      bf16::mma(acc[2 * np + 1], big, f[2], f[3]);
-    }
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    mma_m64n64k16_rs_mn(acc, small[kk], db + 128 * kk, 1);
+    mma_m64n64k16_rs_mn(acc, big[kk], db + 128 * kk, 1);
   }
 }
 
-// The warp's 16 rows of a tile (byte address `a`: the tile plus the rows
-// 16 w + Lane::ar) as the A fragments of the four 16-deep steps over d
-__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4], uint32_t a,
-                                       const Lane& ln) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) bf16::ldsm_x4(f[kk], a + ln.ca[kk]);
-}
-
-// The warp's 16 x 64 accumulator, rows r0 + g and r0 + g + 8 (those below
-// L), to out (at (b, h)) as bf16.
+// The warpgroup's 64 x 64 accumulator (rows r0 + 16 w + g and + 8, those
+// below L) to out (at (b, h)) as bf16
 __device__ __forceinline__ void store_rows(bf16_t* out,
-                                           const float (&acc)[D / 8][4],
-                                           int r0, int L, int64_t row) {
-  using namespace rdeic_flash;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+                                           const float (&acc)[D / 2], int r0,
+                                           int L, int64_t row) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = r0 + g + 8 * half;
+    const int r = r0 + 16 * w + g + 8 * half;
     if (r >= L) continue;
     bf16_t* p = out + r * row + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      store2<bf16_t>(p + 8 * n, acc[n][2 * half], acc[n][2 * half + 1]);
+      rdeic_flash::store2<bf16_t>(p + 8 * n, acc[4 * n + 2 * half],
+                                  acc[4 * n + 2 * half + 1]);
   }
 }
 
-// lse and di of q rows [r0, r0 + BT) (lse and di at (b, h)) into dst: lse
-// at dst[0..BT), di at dst[BT..2 BT), 4 bytes a thread by cp.async.ca; a
-// row past L reads nothing and lands as 0.
-__device__ __forceinline__ void load_row_terms(float* dst, const float* lse,
-                                               const float* di, int r0,
-                                               int L) {
-  const int i = threadIdx.x & (BT - 1);
-  const bool in = r0 + i < L;
-  const float* src = (threadIdx.x < BT ? lse : di) + (in ? r0 + i : 0);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   bf16::smem_addr(dst + threadIdx.x)),
-               "l"(src), "r"(in ? 4 : 0));
-}
-
-// One block: (64-row q tile blockIdx.x, b*h blockIdx.y). Warp w keeps the
-// A fragments of Q and dO rows 16 w.. and their lse2 and di scale, and
-// streams K and V: S = Q K^T and dP = dO V^T as C fragments, P and dS in
-// place, dq += dS K. Also di = rowsum(dO O) of the tile's rows, written to
-// `di` for the dkv kernel.
-__global__ void __launch_bounds__(NT, 3)
-    flash_dq_d64_bf16(const bf16_t* __restrict__ q,
-                      const bf16_t* __restrict__ k,
-                      const bf16_t* __restrict__ v,
-                      const bf16_t* __restrict__ o,
-                      const bf16_t* __restrict__ dout,
+// One block: (BM q rows blockIdx.x, b*h blockIdx.y). Consumer wg keeps Q
+// and dO of q rows 64 wg.. in shared memory and streams K and V tiles of
+// 64 keys: S = Q K^T and dP = dO V^T (SS wgmma), P and dS in the
+// accumulator registers, dq += dS K (RS wgmma, dS from registers as two
+// terms, K MN-major). Also di = rowsum(dO O) of its rows, written to `di`
+// for the dkv kernel.
+__global__ void __launch_bounds__(NT, BLOCKS)
+    flash_dq_d64_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap to,
+                      const __grid_constant__ CUtensorMap tdo,
                       const float* __restrict__ lse, bf16_t* __restrict__ dq,
                       float* __restrict__ di, int L, int H, float scale) {
-  using namespace rdeic_flash;
-  using bf16::exp2_ftz, bf16::kLog2e, bf16::load_tile;
-  extern __shared__ __align__(128) unsigned char smem_dq64b[];
-  bf16_t* qs = reinterpret_cast<bf16_t*>(smem_dq64b);  // [BT][D]
-  bf16_t* dos = qs + kTile;                             // [BT][D]
-  bf16_t* ks = dos + kTile;                             // [3 buffers][BT][D]
-  bf16_t* vs = ks + 3 * kTile;                          // [3 buffers][BT][D]
+  using bf16::exp2_ftz, bf16::kLog2e;
+  extern __shared__ unsigned char smem_dq64h[];
+  // q_full, then per stage k_full, k_empty, v_full, v_empty
+  __shared__ __align__(8) uint64_t bars[1 + 4 * STAGES];
+  const uint32_t sq = (smem_u32(smem_dq64h) + 1023) & ~1023u;
+  const uint32_t sdo = sq + NWG * kTile, so = sdo + NWG * kTile;
+  const uint32_t sk = so + NWG * kTile, sv = sk + STAGES * kTile;
+  const uint32_t q_full = smem_u32(bars);
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto k_empty = [&](int s) { return q_full + 8 * (1 + STAGES + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return q_full + 8 * (1 + 3 * STAGES + s); };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const Lane ln(lane);
-  const int q0 = blockIdx.x * BT;
+  const int q0 = blockIdx.x * BM;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t row = static_cast<int64_t>(H) * D;
-  const int64_t base = static_cast<int64_t>(b) * L * row +
-                       static_cast<int64_t>(h) * D;
-  const int64_t rbase = static_cast<int64_t>(bh) * L;
-  const bf16_t* kb = k + base;
-  const bf16_t* vb = v + base;
-  const float c = scale * kLog2e;  // scores in log2 units, for ex2
-  const int nk = (L + BT - 1) / BT;
-  bf16_t* os = ks + 2 * kTile;  // the third K buffer
-
-  // O passes through the third K buffer, which the ring first fills with
-  // tile 2, after the loop's first barrier
-  load_tile<BT, D, NT>(qs, q + base, q0, L, row);
-  load_tile<BT, D, NT>(dos, dout + base, q0, L, row);
-  load_tile<BT, D, NT>(os, o + base, q0, L, row);
-  cp_async_commit();
-  load_tile<BT, D, NT>(ks, kb, 0, L, row);
-  load_tile<BT, D, NT>(vs, vb, 0, L, row);
-  cp_async_commit();
-  if (nk > 1) {
-    load_tile<BT, D, NT>(ks + kTile, kb, BT, L, row);
-    load_tile<BT, D, NT>(vs + kTile, vb, BT, L, row);
+  const int nk = (L + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(k_empty(s), 4 * NWG);  // lane 0 of each consumer warp
+      mbar_init(v_full(s), 1);
+      mbar_init(v_empty(s), 4 * NWG);
+    }
+    fence_barrier_init();
   }
-  cp_async_commit();
-  cp_async_wait<2>();  // Q, dO and O (the K / V tiles may be in flight)
   __syncthreads();
 
-  // rows g (half 0) and g + 8 (half 1) of the warp's 16: lse2 = lse
-  // log2(e), and di from the lane's 16 products of each row and its quad's
-  const uint32_t arow = (warp * 16 + ln.ar) * kRow;
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a(qf, bf16::smem_addr(qs) + arow, ln);
-  load_a(df, bf16::smem_addr(dos) + arow, ln);
-  float di_r[2] = {0.f, 0.f};
-  {
-    uint32_t of[D / 16][4];
-    load_a(of, bf16::smem_addr(os) + arow, ln);
+  if (warp >= 4 * NWG) {
+    // the producer: one thread keeps the ring full, a tile's K ahead of its
+    // V (K is freed a tile later: dS K runs under the next tile's scores)
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 4 * NWG && lane == 0) {
+      mbar_expect_tx(q_full, 3 * NWG * kTile);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {  // a0, a2: row g; a1, a3: row g + 8
-        const float2 x = bf16::unpack(df[kk][i]), y = bf16::unpack(of[kk][i]);
-        di_r[i & 1] = fmaf(x.y, y.y, fmaf(x.x, y.x, di_r[i & 1]));
+      for (int i = 0; i < NWG; ++i) {
+        tma_load_4d(sq + i * kTile, &tq, q_full, 0, h, q0 + 64 * i, b);
+        tma_load_4d(sdo + i * kTile, &tdo, q_full, 0, h, q0 + 64 * i, b);
+        tma_load_4d(so + i * kTile, &to, q_full, 0, h, q0 + 64 * i, b);
       }
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % STAGES;
+        const uint32_t free = ((j / STAGES) & 1) ^ 1;  // round 0 passes
+        mbar_wait(k_empty(s), free);
+        mbar_expect_tx(k_full(s), kTile);
+        tma_load_4d(sk + s * kTile, &tk, k_full(s), 0, h, j * BN, b);
+        mbar_wait(v_empty(s), free);
+        mbar_expect_tx(v_full(s), kTile);
+        tma_load_4d(sv + s * kTile, &tv, v_full(s), 0, h, j * BN, b);
+      }
+    }
+    return;
   }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;  // the consumer: q rows 64 wg.. of the block
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+  const float c = scale * kLog2e;  // scores in log2 units, for ex2
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  mbar_wait(q_full, 0);
+
+  // rows g (half 0) and g + 8 (half 1) of warp w's 16: lse2 = lse log2(e)
+  // and di scale; di from the quad, lane t taking values 16 t.. of each
+  // row of dO and O from the swizzled tiles
   float lse2[2], dis[2];
-  const int r0 = q0 + warp * 16 + g;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    di_r[half] += __shfl_xor_sync(0xffffffffu, di_r[half], 1);
-    di_r[half] += __shfl_xor_sync(0xffffffffu, di_r[half], 2);
-    const int r = r0 + 8 * half;
+    const uint32_t rr = 16 * w + g + 8 * half;  // row of the wg's tile
+    float sum = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const uint32_t at = wg * kTile + swizzle128(rr, 16 * (2 * t + cc));
+      const uint4 x = ld_shared_v4(sdo + at), y = ld_shared_v4(so + at);
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = bf16::unpack(xs[e]), o = bf16::unpack(ys[e]);
+        sum = fmaf(a.y, o.y, fmaf(a.x, o.x, sum));
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int r = q0 + 64 * wg + rr;
     const bool in = r < L;
     lse2[half] = in ? lse[rbase + r] * kLog2e : 0.f;
-    dis[half] = in ? di_r[half] * scale : 0.f;
-    if (in && t == 0) di[rbase + r] = di_r[half];
+    dis[half] = in ? sum * scale : 0.f;
+    if (in && t == 0) di[rbase + r] = sum;
   }
 
-  float acc[D / 8][4];  // dq[16 rows][64]: n-tile n holds columns 8 n..
-  zero(acc);
-  const uint32_t sk = bf16::smem_addr(ks), sv = bf16::smem_addr(vs);
-  // the ring: tile j in buffer j % 3, two in flight
-  for (int j = 0, cur = 0; j < nk; ++j, cur = cur == 2 ? 0 : cur + 1) {
-    const int k0 = j * BT;
-    cp_async_wait<1>();  // this pair (the next may be in flight)
-    // every warp sees this pair, and is done with the buffer of tile
-    // j - 1 (at j = 0: with O), which takes tile j + 2
-    __syncthreads();
-    if (j + 2 < nk) {
-      const int nxt = cur == 0 ? 2 : cur - 1;
-      load_tile<BT, D, NT>(ks + nxt * kTile, kb, k0 + 2 * BT, L, row);
-      load_tile<BT, D, NT>(vs + nxt * kTile, vb, k0 + 2 * BT, L, row);
-    }
-    cp_async_commit();
-    const uint32_t kt = sk + cur * kTileBytes, vt = sv + cur * kTileBytes;
+  const uint64_t dq_a = desc(sq + wg * kTile), ddo_a = desc(sdo + wg * kTile);
+  float acc[D / 2];  // dq[64 rows][64]: acc[4 n + i], columns 8 n..
 #pragma unroll
-    for (int c0 = 0; c0 < BT; c0 += KC) {
-      float s[KC / 8][4], dp[KC / 8][4];
-      scores(s, qf, kt + (c0 + ln.br) * kRow, ln);
-      scores(dp, df, vt + (c0 + ln.br) * kRow, ln);
-      // P = 2^(S c - lse2), 0 on a key past L (its K row is zero, but P
-      // need not be finite there); dS = P (dP scale - di scale), in place
-      // of S
-      const bool tail = k0 + c0 + KC > L;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[BN / 2], dp[BN / 2];  // S and dP of a tile (keys 8 n.. at 4 n)
+  uint32_t big[BN / 16][4], small[BN / 16][4];  // dS as two bf16 terms
+
+  // S = Q K^T and dP = dO V^T of tile j, 64 x 64 each, issued
+  auto issue_scores = [&](int j) {
+    const int st = j % STAGES;
+    const uint32_t phase = (j / STAGES) & 1;
+    mbar_wait(k_full(st), phase);
+    mbar_wait(v_full(st), phase);
+    wgmma_fence();
+    const uint64_t dk = desc(sk + st * kTile), dv = desc(sv + st * kTile);
 #pragma unroll
-      for (int n = 0; n < KC / 8; ++n)
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_m64n64k16_ss(s, dq_a + 2 * kk, dk + 2 * kk, kk);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int half = i >> 1;
-          float p = exp2_ftz(fmaf(s[n][i], c, -lse2[half]));
-          if (tail && k0 + c0 + 8 * n + 2 * t + (i & 1) >= L) p = 0.f;
-          s[n][i] = p * fmaf(dp[n][i], scale, -dis[half]);
-        }
-      accumulate(acc, s, kt + (c0 + ln.ar) * kRow, ln);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_m64n64k16_ss(dp, ddo_a + 2 * kk, dv + 2 * kk, kk);
+    wgmma_commit();
+  };
+  // dq += dS K of tile j (big, small), issued: K is the MN-major B operand
+  auto issue_dq = [&](int j) {
+    wgmma_fence();
+    take_terms(acc, big, small, desc(sk + (j % STAGES) * kTile, kTile));
+    wgmma_commit();
+  };
+  // P = 2^(S c - lse2), 0 on a key past L (its K row is zero, but P need
+  // not be finite there); dS = P (dP scale - di scale), in place of dP
+  auto grad = [&](int j) {
+    const int k0 = j * BN;
+    const bool tail = k0 + BN > L;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int half = i >> 1;
+        float p = exp2_ftz(fmaf(s[4 * n + i], c, -lse2[half]));
+        if (tail && k0 + 8 * n + 2 * t + (i & 1) >= L) p = 0.f;
+        dp[4 * n + i] = p * fmaf(dp[4 * n + i], scale, -dis[half]);
+      }
+  };
+
+  // Each warpgroup overlaps its exponentials with its products: the scores
+  // of tile j and dS K of tile j - 1 are issued together, and P and dS of
+  // tile j are formed while dS K runs (wgmma groups complete in order).
+  issue_scores(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(v_empty(0));
+  grad(0);
+  pack_terms(dp, big, small);
+  for (int j = 1; j < nk; ++j) {
+    issue_scores(j);
+    issue_dq(j - 1);
+    wgmma_wait<1>();  // the scores of tile j (dS K may still run)
+    fence_regs(s);
+    fence_regs(dp);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty(j % STAGES));
+    grad(j);
+    wgmma_wait<0>();  // dS K of tile j - 1: its K and the terms are free
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty((j - 1) % STAGES));
+    pack_terms(dp, big, small);
   }
-  cp_async_wait<0>();
-  store_rows(dq + base, acc, q0 + warp * 16, L, row);
+  issue_dq(nk - 1);
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  const int64_t row = static_cast<int64_t>(H) * D;
+  store_rows(dq + static_cast<int64_t>(b) * L * row + h * D, acc,
+             q0 + 64 * wg, L, row);
 }
 
-// One block: (64-row k tile blockIdx.x, b*h blockIdx.y). Warp w keeps the
-// A fragments of K and V rows 16 w.. and streams Q and dO with their rows'
-// lse and di: S^T = K Q^T and dP^T = V dO^T as C fragments (rows keys,
-// columns q), P^T and dS^T in place, dv += P^T dO, dk += dS^T Q. A q row
-// past L lands as zeros (Q, dO, lse, di), so S^T = 0, P^T = 1, dP^T = 0
-// and dS^T = 0 there, and its products with dO = 0 and Q = 0 add exact
-// zeros: no test. Two blocks per SM: at three (168 registers) it spills.
-__global__ void __launch_bounds__(NT, 2)
-    flash_dkv_d64_bf16(const bf16_t* __restrict__ q,
-                       const bf16_t* __restrict__ k,
-                       const bf16_t* __restrict__ v,
-                       const bf16_t* __restrict__ dout,
+// One block: (BM keys blockIdx.x, b*h blockIdx.y). Consumer wg keeps K
+// and V of keys 64 wg.. in shared memory and streams Q and dO tiles of 64
+// q rows with their rows' lse and di: S^T = K Q^T and dP^T = V dO^T (SS
+// wgmma, keys as rows), P^T and dS^T in the accumulator registers, dv +=
+// P^T dO and dk += dS^T Q (RS wgmma, two terms each, dO and Q MN-major). A
+// q row past L lands as zeros (Q, dO, lse, di), so S^T = 0, P^T = 1,
+// dP^T = 0 and dS^T = 0 there, and its products with dO = 0 and Q = 0 add
+// exact zeros: no test.
+__global__ void __launch_bounds__(NT, BLOCKS)
+    flash_dkv_d64_bf16(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
                        const float* __restrict__ lse,
                        const float* __restrict__ di, bf16_t* __restrict__ dk,
                        bf16_t* __restrict__ dv, int L, int H, float scale) {
-  using namespace rdeic_flash;
-  using bf16::exp2_ftz, bf16::kLog2e, bf16::load_tile;
-  extern __shared__ __align__(128) unsigned char smem_dkv64b[];
-  bf16_t* ks = reinterpret_cast<bf16_t*>(smem_dkv64b);  // [BT][D]
-  bf16_t* vs = ks + kTile;                               // [BT][D]
-  bf16_t* qs = vs + kTile;                               // [3 buffers][BT][D]
-  bf16_t* dos = qs + 3 * kTile;                          // [3 buffers][BT][D]
-  float* rs = reinterpret_cast<float*>(dos + 3 * kTile);  // [3][lse, di][BT]
+  using bf16::exp2_ftz, bf16::kLog2e;
+  extern __shared__ unsigned char smem_dkv64h[];
+  // kv_full, then per stage q_full, q_empty
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  const uint32_t sk = (smem_u32(smem_dkv64h) + 1023) & ~1023u;
+  const uint32_t sv = sk + NWG * kTile, sq = sv + NWG * kTile;
+  const uint32_t sdo = sq + STAGES * kTile, srow = sdo + STAGES * kTile;
+  const uint32_t kv_full = smem_u32(bars);
+  auto q_full = [&](int s) { return kv_full + 8 * (1 + s); };
+  auto q_empty = [&](int s) { return kv_full + 8 * (1 + STAGES + s); };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const Lane ln(lane);
-  const int k0 = blockIdx.x * BT;
+  const int k0 = blockIdx.x * BM;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t row = static_cast<int64_t>(H) * D;
-  const int64_t base = static_cast<int64_t>(b) * L * row +
-                       static_cast<int64_t>(h) * D;
-  const int64_t rbase = static_cast<int64_t>(bh) * L;
-  const bf16_t* qb = q + base;
-  const bf16_t* db = dout + base;
-  const float* lb = lse + rbase;
-  const float* ib = di + rbase;
-  const float c = scale * kLog2e;
-  const int nq = (L + BT - 1) / BT;
-
-  load_tile<BT, D, NT>(ks, k + base, k0, L, row);
-  load_tile<BT, D, NT>(vs, v + base, k0, L, row);
-  cp_async_commit();
-  load_tile<BT, D, NT>(qs, qb, 0, L, row);
-  load_tile<BT, D, NT>(dos, db, 0, L, row);
-  load_row_terms(rs, lb, ib, 0, L);
-  cp_async_commit();
-  if (nq > 1) {
-    load_tile<BT, D, NT>(qs + kTile, qb, BT, L, row);
-    load_tile<BT, D, NT>(dos + kTile, db, BT, L, row);
-    load_row_terms(rs + 2 * BT, lb, ib, BT, L);
-  }
-  cp_async_commit();
-  cp_async_wait<2>();  // K and V (the Q / dO tiles may be in flight)
-  __syncthreads();
-  const uint32_t arow = (warp * 16 + ln.ar) * kRow;
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a(kf, bf16::smem_addr(ks) + arow, ln);
-  load_a(vf, bf16::smem_addr(vs) + arow, ln);
-
-  float acc_k[D / 8][4], acc_v[D / 8][4];  // dk, dv [16 keys][64]
-  zero(acc_k);
-  zero(acc_v);
-  const uint32_t sq = bf16::smem_addr(qs), sd = bf16::smem_addr(dos);
-  for (int j = 0, cur = 0; j < nq; ++j, cur = cur == 2 ? 0 : cur + 1) {
-    const int q0 = j * BT;
-    cp_async_wait<1>();
-    __syncthreads();  // this pair is visible; tile j - 1's buffer is free
-    if (j + 2 < nq) {
-      const int nxt = cur == 0 ? 2 : cur - 1;
-      load_tile<BT, D, NT>(qs + nxt * kTile, qb, q0 + 2 * BT, L, row);
-      load_tile<BT, D, NT>(dos + nxt * kTile, db, q0 + 2 * BT, L, row);
-      load_row_terms(rs + nxt * 2 * BT, lb, ib, q0 + 2 * BT, L);
+  const int nq = (L + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      // the TMA thread's arrival and the 32 lanes' lse / di copies
+      mbar_init(q_full(s), 1 + 32);
+      mbar_init(q_empty(s), 4 * NWG);  // lane 0 of each consumer warp
     }
-    cp_async_commit();
-    const uint32_t qt = sq + cur * kTileBytes, dt = sd + cur * kTileBytes;
-    const float* r = rs + cur * 2 * BT;
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // the producer warp: lane 0 issues the TMA loads; every lane copies 2
+    // lse and 2 di values of a stage's q rows by cp.async (4 bytes each,
+    // zero past L: a [B*H, L] row is not 16-byte aligned for TMA), whose
+    // completion the stage's barrier tracks
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 4 * NWG) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * NWG * kTile);
 #pragma unroll
-    for (int c0 = 0; c0 < BT; c0 += KC) {
-      float s[KC / 8][4], dp[KC / 8][4];
-      scores(s, kf, qt + (c0 + ln.br) * kRow, ln);
-      scores(dp, vf, dt + (c0 + ln.br) * kRow, ln);
-      // column c0 + 8 n + 2 t + e is q row q0 + c0 + 8 n + 2 t + e:
-      // P^T = 2^(S^T c - lse2), dS^T = P^T (dP^T scale - di scale)
-#pragma unroll
-      for (int n = 0; n < KC / 8; ++n) {
-        const int col = c0 + 8 * n + 2 * t;
-        const float2 l2 = *reinterpret_cast<const float2*>(r + col);
-        const float2 d2 = *reinterpret_cast<const float2*>(r + BT + col);
-        const float lc[2] = {l2.x * kLog2e, l2.y * kLog2e};
-        const float dc[2] = {d2.x * scale, d2.y * scale};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int e = i & 1;
-          const float p = exp2_ftz(fmaf(s[n][i], c, -lc[e]));
-          s[n][i] = p;
-          dp[n][i] = p * fmaf(dp[n][i], scale, -dc[e]);
+        for (int i = 0; i < NWG; ++i) {
+          tma_load_4d(sk + i * kTile, &tk, kv_full, 0, h, k0 + 64 * i, b);
+          tma_load_4d(sv + i * kTile, &tv, kv_full, 0, h, k0 + 64 * i, b);
         }
       }
-      accumulate(acc_v, s, dt + (c0 + ln.ar) * kRow, ln);
-      accumulate(acc_k, dp, qt + (c0 + ln.ar) * kRow, ln);
+      const float* lb = lse + static_cast<int64_t>(bh) * L;
+      const float* ib = di + static_cast<int64_t>(bh) * L;
+      for (int j = 0; j < nq; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(q_empty(s), ((j / STAGES) & 1) ^ 1);  // round 0 passes
+        if (lane == 0) {
+          mbar_expect_tx(q_full(s), 2 * kTile);
+          tma_load_4d(sq + s * kTile, &tq, q_full(s), 0, h, j * BN, b);
+          tma_load_4d(sdo + s * kTile, &tdo, q_full(s), 0, h, j * BN, b);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = j * BN + 2 * lane + e;
+          const bool in = r < L;
+          const uint32_t at = srow + s * kRowTerms + 4 * (2 * lane + e);
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                           at),
+                       "l"(lb + (in ? r : 0)), "r"(in ? 4 : 0)
+                       : "memory");
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                           at + 4 * BN),
+                       "l"(ib + (in ? r : 0)), "r"(in ? 4 : 0)
+                       : "memory");
+        }
+        cp_async_mbar_arrive(q_full(s));
+      }
     }
+    return;
   }
-  cp_async_wait<0>();
-  store_rows(dk + base, acc_k, k0 + warp * 16, L, row);
-  store_rows(dv + base, acc_v, k0 + warp * 16, L, row);
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;  // the consumer: keys 64 wg.. of the block
+  const int t = lane & 3;
+  const float c = scale * kLog2e;
+  const uint64_t dk_a = desc(sk + wg * kTile), dv_a = desc(sv + wg * kTile);
+  float acc_k[D / 2], acc_v[D / 2];  // dk, dv [64 keys][64]
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  float s[BN / 2], dp[BN / 2];  // S^T and dP^T of a tile (q rows 8 n.. at 4 n)
+  uint32_t p_big[BN / 16][4], p_small[BN / 16][4];  // P^T as two terms
+  uint32_t d_big[BN / 16][4], d_small[BN / 16][4];  // dS^T as two terms
+
+  // S^T = K Q^T and dP^T = V dO^T of tile j, 64 x 64 each, issued
+  auto issue_scores = [&](int j) {
+    const int st = j % STAGES;
+    mbar_wait(q_full(st), (j / STAGES) & 1);
+    wgmma_fence();
+    const uint64_t dq_b = desc(sq + st * kTile), ddo_b = desc(sdo + st * kTile);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_m64n64k16_ss(s, dk_a + 2 * kk, dq_b + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_m64n64k16_ss(dp, dv_a + 2 * kk, ddo_b + 2 * kk, kk);
+    wgmma_commit();
+  };
+  // dv += P^T dO and dk += dS^T Q of tile j, issued: dO and Q are the
+  // MN-major B operands
+  auto issue_products = [&](int j) {
+    const int st = j % STAGES;
+    wgmma_fence();
+    take_terms(acc_v, p_big, p_small, desc(sdo + st * kTile, kTile));
+    take_terms(acc_k, d_big, d_small, desc(sq + st * kTile, kTile));
+    wgmma_commit();
+  };
+  // column 8 n + 2 t + e is q row j BN + 8 n + 2 t + e: P^T = 2^(S^T c -
+  // lse2), dS^T = P^T (dP^T scale - di scale), in place
+  auto grad = [&](int j) {
+    const uint32_t rows = srow + (j % STAGES) * kRowTerms;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      const uint32_t col = 4 * (8 * n + 2 * t);
+      const float2 l2 = ld_shared_f2(rows + col);
+      const float2 d2 = ld_shared_f2(rows + 4 * BN + col);
+      const float lc[2] = {l2.x * kLog2e, l2.y * kLog2e};
+      const float dc[2] = {d2.x * scale, d2.y * scale};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = i & 1;
+        const float p = exp2_ftz(fmaf(s[4 * n + i], c, -lc[e]));
+        s[4 * n + i] = p;
+        dp[4 * n + i] = p * fmaf(dp[4 * n + i], scale, -dc[e]);
+      }
+    }
+  };
+
+  // as in dq: the scores of tile j and the products of tile j - 1 are
+  // issued together, and P^T and dS^T of tile j are formed under the
+  // products
+  mbar_wait(kv_full, 0);
+  issue_scores(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  grad(0);
+  pack_terms(s, p_big, p_small);
+  pack_terms(dp, d_big, d_small);
+  for (int j = 1; j < nq; ++j) {
+    issue_scores(j);
+    issue_products(j - 1);
+    wgmma_wait<1>();  // the scores of tile j
+    fence_regs(s);
+    fence_regs(dp);
+    grad(j);
+    wgmma_wait<0>();  // the products of tile j - 1: its Q, dO and terms
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_empty((j - 1) % STAGES));
+    pack_terms(s, p_big, p_small);
+    pack_terms(dp, d_big, d_small);
+  }
+  issue_products(nq - 1);
+  wgmma_wait<0>();
+  fence_regs(acc_k);
+  fence_regs(acc_v);
+
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row + h * D;
+  store_rows(dk + base, acc_k, k0 + 64 * wg, L, row);
+  store_rows(dv + base, acc_v, k0 + 64 * wg, L, row);
+}
+
+std::atomic<bool> dq_prepared[kMaxDevices];
+std::atomic<bool> dkv_prepared[kMaxDevices];
+
+// The kernel's shared memory, once a device; and a refusal of a build that
+// launches it with other than kLaunchRegs registers a thread, where the
+// consumers' setmaxnreg.inc would wait for registers the producer never
+// gave back
+template <typename Kernel>
+cudaError_t prepare_exchange(Kernel kernel, int smem,
+                             std::atomic<bool>* prepared) {
+  static const cudaError_t regs = [kernel] {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    return attr.numRegs == kLaunchRegs ? cudaSuccess
+                                       : cudaErrorInvalidConfiguration;
+  }();
+  if (regs != cudaSuccess) return regs;
+  return prepare_on_device(kernel, smem, prepared);
 }
 
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
@@ -1900,14 +2049,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       cudaStream_t stream) {
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
   if (err != cudaSuccess) return err;
-  err = prepare(flash_dq_d64_bf16, kDqSmemBytes);
+  err = prepare_exchange(flash_dq_d64_bf16, kDqSmemBytes, dq_prepared);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + BT - 1) / BT, B * H);
+  CUtensorMap tq, tk, tv, to, tdo;
+  if (!tensor_map(&tq, q, true, B, L, H, D, D, 64) ||
+      !tensor_map(&tk, k, true, B, L, H, D, D, BN) ||
+      !tensor_map(&tv, v, true, B, L, H, D, D, BN) ||
+      !tensor_map(&to, o, true, B, L, H, D, D, 64) ||
+      !tensor_map(&tdo, dout, true, B, L, H, D, D, 64))
+    return cudaErrorInvalidValue;
+  const dim3 grid((L + BM - 1) / BM, B * H);
   flash_dq_d64_bf16<<<grid, NT, kDqSmemBytes, stream>>>(
-      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
-      static_cast<const bf16_t*>(v), static_cast<const bf16_t*>(o),
-      static_cast<const bf16_t*>(dout), lse, static_cast<bf16_t*>(dq), di, L,
-      H, scale);
+      tq, tk, tv, to, tdo, lse, static_cast<bf16_t*>(dq), di, L, H, scale);
   return cudaGetLastError();
 }
 
@@ -1917,13 +2070,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
   if (err != cudaSuccess) return err;
-  err = prepare(flash_dkv_d64_bf16, kDkvSmemBytes);
+  err = prepare_exchange(flash_dkv_d64_bf16, kDkvSmemBytes, dkv_prepared);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + BT - 1) / BT, B * H);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, q, true, B, L, H, D, D, BN) ||
+      !tensor_map(&tk, k, true, B, L, H, D, D, 64) ||
+      !tensor_map(&tv, v, true, B, L, H, D, D, 64) ||
+      !tensor_map(&tdo, dout, true, B, L, H, D, D, BN))
+    return cudaErrorInvalidValue;
+  const dim3 grid((L + BM - 1) / BM, B * H);
   flash_dkv_d64_bf16<<<grid, NT, kDkvSmemBytes, stream>>>(
-      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
-      static_cast<const bf16_t*>(v), static_cast<const bf16_t*>(dout), lse,
-      di, static_cast<bf16_t*>(dk), static_cast<bf16_t*>(dv), L, H, scale);
+      tq, tk, tv, tdo, lse, di, static_cast<bf16_t*>(dk),
+      static_cast<bf16_t*>(dv), L, H, scale);
   return cudaGetLastError();
 }
 
@@ -2777,13 +2935,17 @@ __global__ void __launch_bounds__(NT, 1)
   store_rows(dv + base + warp * kSlice, acc_v, k0, L, row);
 }
 
+// dynamic shared memory set once a device (prepare_on_device)
+std::atomic<bool> dq_prepared[kMaxDevices];
+std::atomic<bool> dkv_prepared[kMaxDevices];
+
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       void* dq, float* di, int B, int L, int H, float scale,
                       cudaStream_t stream) {
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
   if (err != cudaSuccess) return err;
-  err = prepare(flash_dq_d512_bf16, kDqSmemBytes);
+  err = prepare_on_device(flash_dq_d512_bf16, kDqSmemBytes, dq_prepared);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + DQ_KEPT - 1) / DQ_KEPT, B * H);
   flash_dq_d512_bf16<<<grid, NT, kDqSmemBytes, stream>>>(
@@ -2800,7 +2962,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
   if (err != cudaSuccess) return err;
-  err = prepare(flash_dkv_d512_bf16, kDkvSmemBytes);
+  err = prepare_on_device(flash_dkv_d512_bf16, kDkvSmemBytes, dkv_prepared);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + KV_KEPT - 1) / KV_KEPT, B * H);
   flash_dkv_d512_bf16<<<grid, NT, kDkvSmemBytes, stream>>>(

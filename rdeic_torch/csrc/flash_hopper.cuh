@@ -1,8 +1,9 @@
 // Hopper pieces of the d = 64 flash forward (flash_attn_fwd.cu:
-// flash_fwd_d64_bf16, flash_fwd_d64): TMA tile loads that complete on
-// mbarriers, warpgroup matrix products (wgmma.mma_async) and their shared-
-// memory descriptors, setmaxnreg, and the host's tensor maps. Only sm_90a
-// has wgmma and setmaxnreg.
+// flash_fwd_d64_bf16, flash_fwd_d64) and of the d = 64 bf16 backward
+// (flash_attn_bwd.cu: flash_dq_d64_bf16, flash_dkv_d64_bf16): TMA tile
+// loads that complete on mbarriers, warpgroup matrix products
+// (wgmma.mma_async) and their shared-memory descriptors, setmaxnreg, and
+// the host's tensor maps. Only sm_90a has wgmma and setmaxnreg.
 //
 // Tiles. Every operand tile in shared memory is made of atoms of R rows of
 // 128 bytes (64 bf16 or 32 fp32 values a row), rows 128 bytes apart, an
@@ -71,6 +72,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    bar),
                "r"(bytes)
+               : "memory");
+}
+
+// one arrival on the barrier when every cp.async this thread has issued
+// so far has landed (.noinc: the barrier's count includes the arrival)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   bar)
                : "memory");
 }
 
@@ -192,6 +201,29 @@ __device__ __forceinline__ void mma_m64n128k16_ss(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// C (64 x 64) += A (64 x 16, shared, K-major) B (16 x 64, shared, K-major); bf16
+__device__ __forceinline__ void mma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -1,29 +1,37 @@
-"""Time the bf16 flash backward at d = 16 or d = 512 on one card: this
+"""Time the bf16 flash backward at d = 16, 64 or 512 on one card: this
 checkout's kernels, another checkout's, and variants of this one's, in one
 process.
 
-    python -m rdeic_torch.tools.flash_bwd_probe [--d 16|512] [--other DIR]
-        [--variants]
+    python -m rdeic_torch.tools.flash_bwd_probe [--d 16|64|512]
+        [--other DIR [--bits]] [--variants [NAME ...]]
 
 Builds `csrc/flash_attn_bwd.cu` of this checkout ("change"), of the
 checkout at DIR ("other", e.g. the parent commit unpacked by `git
 archive`) and, with --variants, copies of this one whose kernels at the
-head dim (namespace `d16_bf16` or `d512_bf16`) are changed by the text
-substitutions in VARIANTS (a substitution that no longer matches raises).
-Each library is called through its C interface on the same bf16 inputs, at
-the head dim's SHAPES. Prints the card's name and power limit, then a JSON
-line per shape, version and pass (two passes, the second in reverse
-order): dq's and dkv's device ms (`device_ms`: launches queued behind a
-sleeping kernel, CUDA events), SDPA's bf16 backward beside them, and max
-|error| over max|plain| of dq, dk and dv against the plain version's fp32
-result. Variants that compute something else say so in VARIANTS: they time
-what a piece of the kernels costs.
+head dim (namespace `d16_bf16`, `d64_bf16` or `d512_bf16`) are changed by
+the text substitutions in VARIANTS (all of the head dim's, or those
+named; a substitution that no longer matches raises). Prints the card's
+name and power limit and each build's ptxas lines for the head dim's
+kernels (registers, spills, and any C7519: a `warpgroup.arrive` that
+ptxas injected). Each library is called through its C interface on the
+same bf16 inputs, at the head dim's SHAPES; then a JSON line per shape,
+version and pass (two passes, the second in reverse order): dq's and
+dkv's device ms (`device_ms`: launches queued behind a sleeping kernel,
+CUDA events) and ms back to back through ctypes (`ms`), SDPA's bf16
+backward beside them, max |error| over max|plain| of dq, dk and dv
+against the plain version's fp32 result, and whether a second launch
+gave the same bits. Variants that compute something else say so in
+VARIANTS: they time what a piece of the kernels costs. With --bits, first
+a JSON line per BITS_CASES entry (the fp32 kernels at d = 16, 64 and 512,
+the bf16 ones at d = 16 and 512): whether this checkout's dq, di, dk and
+dv are the other checkout's bit for bit.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -39,8 +47,16 @@ from rdeic_torch.ops.flash_attention import (
 )
 
 SHAPES = {16: [(2, 4096, 4, 16), (2, 1024, 8, 16), (1, 8192, 4, 16)],
+          64: [(2, 4096, 5, 64), (2, 1024, 10, 64), (1, 8192, 2, 64)],
           512: [(2, 4096, 1, 512), (1, 1024, 1, 512), (1, 8192, 1, 512)]}
-NAMESPACES = {16: "d16_bf16", 512: "d512_bf16"}
+NAMESPACES = {16: "d16_bf16", 64: "d64_bf16", 512: "d512_bf16"}
+# --bits: every dq / dkv kernel but the bf16 one at d = 64, at an L of no
+# tile multiple with B = 2, H > 1 (d = 512: H = 2)
+BITS_CASES = [((2, 1000, 3, 16), torch.float32),
+              ((2, 1000, 3, 64), torch.float32),
+              ((2, 1000, 2, 512), torch.float32),
+              ((2, 1000, 3, 16), torch.bfloat16),
+              ((2, 1000, 2, 512), torch.bfloat16)]
 SLEEP_CLOCK_HZ = 2.0e9  # torch.cuda._sleep counts cycles, at most this fast
 _SMALL_MMA = """    bf16::mma(acc[0], small, f[0], f[1]);
     bf16::mma(acc[1], small, f[2], f[3]);
@@ -112,8 +128,39 @@ _D512_VARIANTS = {
     "dq_kept32": [("DQ_KEPT = 64, DQ_STREAM = 16,",
                    "DQ_KEPT = 32, DQ_STREAM = 32,")],
 }
+_D64_VARIANTS = {
+    # P and dS as their big term alone (outside the limit)
+    "one_term": [("    mma_m64n64k16_rs_mn(acc, small[kk], db + 128 * kk, 1);\n",
+                  "")],
+    # no exponentials: P = S c - lse2 (wrong values)
+    "no_exp": [("exp2_ftz(fmaf(", "(fmaf(")],
+    # a ring of two stages, not four
+    "stages2": [("BN = 64, STAGES = 4;", "BN = 64, STAGES = 2;")],
+    # two consumer warpgroups (128 kept rows) a block, one block an SM
+    "two_wg": [("constexpr int NWG = 1,", "constexpr int NWG = 2,")],
+    # dq's small-term products into an accumulator of their own, added at
+    # the end: two independent wgmma chains, not one (other rounding)
+    "dq_two_acc": [
+        ("  float acc[D / 2];  // dq", "  float acc[D / 2], acc2[D / 2];  // dq"),
+        ("for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;",
+         "for (int i = 0; i < D / 2; ++i) acc[i] = acc2[i] = 0.f;"),
+        ("    take_terms(acc, big, small, desc(sk + (j % STAGES) * kTile, kTile));",
+         "    const uint64_t db = desc(sk + (j % STAGES) * kTile, kTile);\n"
+         "#pragma unroll\n"
+         "    for (int kk = 0; kk < BN / 16; ++kk) {\n"
+         "      mma_m64n64k16_rs_mn(acc2, small[kk], db + 128 * kk, 1);\n"
+         "      mma_m64n64k16_rs_mn(acc, big[kk], db + 128 * kk, 1);\n"
+         "    }"),
+        ("    fence_regs(acc);\n    __syncwarp();",
+         "    fence_regs(acc);\n    fence_regs(acc2);\n    __syncwarp();"),
+        ("  wgmma_wait<0>();\n  fence_regs(acc);\n",
+         "  wgmma_wait<0>();\n  fence_regs(acc);\n  fence_regs(acc2);\n"
+         "#pragma unroll\n"
+         "  for (int i = 0; i < D / 2; ++i) acc[i] += acc2[i];\n")],
+}
 # namespace: {name: [(old, new)] in that namespace}
-VARIANTS = {"d16_bf16": _D16_VARIANTS, "d512_bf16": _D512_VARIANTS}
+VARIANTS = {"d16_bf16": _D16_VARIANTS, "d64_bf16": _D64_VARIANTS,
+            "d512_bf16": _D512_VARIANTS}
 
 
 def variant_source(src: str, edits, namespace: str) -> str:
@@ -134,6 +181,22 @@ def _library(name: str, csrc: Path, source: str, out_dir: Path) -> Path:
     headers = tuple(csrc / h.name for h in build.FLASH_HEADERS)
     return build._build(src, f"flash_attn_bwd_{name}",
                         build._nvcc_cmd() + ["-I", str(csrc)], headers)
+
+
+def ptxas_lines(lib: Path, d: int) -> list[str]:
+    """The build log's ptxas lines for the head dim's bf16 kernels: each
+    one's registers and spills, and every C7519 warning."""
+    out, name = [], None
+    for line in build.build_log(lib).splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            m = re.search(rf"(flash_d(?:q|kv)_d{d}_bf16)", entry[1])
+            name = m[1] if m else None
+        elif "C7519" in line:
+            out.append(line.strip())
+        elif name and ("registers" in line or "spill" in line):
+            out.append(f"{name}: {line.strip()}")
+    return out
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -168,15 +231,17 @@ def _bind(path: Path):
     return lib
 
 
-def probe(lib, shape, inputs, plain) -> dict:
-    """dq and dkv of `lib` on `inputs`: device ms and errors."""
+def _runners(lib, inputs):
+    """(run_dq, run_dkv, (dq, di, dk, dv)): `lib`'s two launches on
+    `inputs` (q, k, v, o, lse, dO; fp32 or bf16) into fresh outputs."""
     q, k, v, o, lse, do = inputs
-    b, seq, h, d = shape
+    b, seq, h, d = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     di = torch.empty_like(lse)
     st = torch.cuda.current_stream().cuda_stream
     ptr = [x.data_ptr() for x in (q, k, v, o, lse, do, dq, di, dk, dv)]
-    dims = (b, seq, h, d, 1, d ** -0.5, st)  # dtype 1: bf16
+    code = 1 if q.dtype == torch.bfloat16 else 0
+    dims = (b, seq, h, d, code, d ** -0.5, st)
 
     def run_dq():
         return lib.rdeic_flash_attn_bwd_dq(*ptr[:4], ptr[5], ptr[4], ptr[6],
@@ -186,13 +251,65 @@ def probe(lib, shape, inputs, plain) -> dict:
         return lib.rdeic_flash_attn_bwd_dkv(*ptr[:3], ptr[5], ptr[4], ptr[7],
                                             ptr[8], ptr[9], *dims)
 
-    if run_dq() != 0 or run_dkv() != 0:
-        raise RuntimeError("launch failed")
+    return run_dq, run_dkv, (dq, di, dk, dv)
+
+
+def probe(lib, shape, inputs, plain) -> dict:
+    """dq and dkv of `lib` on `inputs`: device ms and errors."""
+    run_dq, run_dkv, (dq, di, dk, dv) = _runners(lib, inputs)
+    rcs = (run_dq(), run_dkv())
+    if rcs != (0, 0):
+        return {"launch_errors": rcs}
     torch.cuda.synchronize()
     errs = [((g.float() - w).abs().max() / w.abs().max()).item()
             for g, w in zip((dq, dk, dv), plain)]
+    first = [x.clone() for x in (dq, di, dk, dv)]
+    run_dq()
+    run_dkv()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, (dq, di, dk, dv)))
     t_dq, t_dkv = device_ms(run_dq), device_ms(run_dkv)
-    return {"dq": t_dq, "dkv": t_dkv, "pair": t_dq + t_dkv, "errs": errs}
+    ms = {}
+    for name, fn in (("dq", run_dq), ("dkv", run_dkv)):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(20):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end) / 20
+    return {"dq": t_dq, "dkv": t_dkv, "pair": t_dq + t_dkv,
+            "ms": ms["dq"] + ms["dkv"], "errs": errs, "same_bits": same}
+
+
+def _inputs(shape, dtype, seed=0):
+    """q, k, v, o, lse, dO on the card: normal draws, o and lse from the
+    lse forward."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    o, lse = flash_attention_lse(q, k, v)
+    return q, k, v, o, lse, do
+
+
+def same_bits(other, change) -> None:
+    """A JSON line per BITS_CASES entry: whether the two libraries give
+    the same dq, di, dk and dv bits (the kernels a change leaves as they
+    were)."""
+    for shape, dtype in BITS_CASES:
+        inputs = _inputs(shape, dtype, seed=1)
+        outs = []
+        for lib in (other, change):
+            run_dq, run_dkv, out = _runners(lib, inputs)
+            if (run_dq(), run_dkv()) != (0, 0):
+                raise RuntimeError(f"launch failed at {shape}")
+            outs.append(out)
+        torch.cuda.synchronize()
+        print(json.dumps({"bits": shape, "dtype": str(dtype).split(".")[-1],
+                          "same": all(torch.equal(a, b)
+                                      for a, b in zip(*outs))}), flush=True)
 
 
 def main() -> None:
@@ -200,7 +317,11 @@ def main() -> None:
     ap.add_argument("--d", type=int, choices=sorted(SHAPES), default=16,
                     help="head dim")
     ap.add_argument("--other", type=Path, help="another checkout to time")
-    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--bits", action="store_true",
+                    help="with --other: whether the kernels at BITS_CASES "
+                    "give the other checkout's bits")
+    ap.add_argument("--variants", nargs="*",
+                    help="time the head dim's VARIANTS (all, or those named)")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -213,23 +334,26 @@ def main() -> None:
     if args.other:
         other = args.other.resolve() / "rdeic_torch" / "csrc"
         jobs["other"] = (other, (other / "flash_attn_bwd.cu").read_text())
-    if args.variants:
+    if args.variants is not None:
         ns = NAMESPACES[args.d]
         jobs.update({n: (csrc, variant_source(src, e, ns))
-                     for n, e in VARIANTS[ns].items()})
+                     for n, e in VARIANTS[ns].items()
+                     if not args.variants or n in args.variants})
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {n: pool.submit(_library, n, c, s, out_dir)
                    for n, (c, s) in jobs.items()}
-        libs = {n: _bind(f.result()) for n, f in futures.items()}
+        paths = {n: f.result() for n, f in futures.items()}
+    for n, path in paths.items():
+        for line in ptxas_lines(path, args.d):
+            print(f"[ptxas] {n} {line}", flush=True)
+    libs = {n: _bind(path) for n, path in paths.items()}
     order = list(libs)
     if "other" in libs:  # other, change, ..., then back: change, other
         order = ["other"] + [n for n in order if n != "other"]
-    dev = torch.device("cuda")
+    if args.bits:
+        same_bits(libs["other"], libs["change"])
     for shape in SHAPES[args.d]:
-        g = torch.Generator(device=dev).manual_seed(0)
-        q, k, v, do = (torch.randn(shape, generator=g, device=dev)
-                       .to(torch.bfloat16) for _ in range(4))
-        o, lse = flash_attention_lse(q, k, v)
+        q, k, v, o, lse, do = _inputs(shape, torch.bfloat16)
         plain = flash_attention_bwd_plain(*(x.float() for x in (q, k, v, o)),
                                           lse, do.float())
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()

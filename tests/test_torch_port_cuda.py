@@ -542,8 +542,11 @@ def test_wgmma_rounds_as_the_emulation_models(cuda):
 
 @pytest.mark.parametrize("shape", D64_BF16_BWD_SHAPES)
 def test_flash_d64_bf16_backward_kernels(cuda, shape):
-    """flash_dq_d64_bf16 and flash_dkv_d64_bf16 (bf16 mma.sync, P and dS
-    as two bf16 terms): `_check_bf16_backward`."""
+    """flash_dq_d64_bf16 and flash_dkv_d64_bf16 (bf16 wgmma fed by TMA, a
+    consumer warpgroup of 64 kept rows and a producer warp a block, two
+    blocks an SM, P and dS as two bf16 terms from registers, one
+    accumulator): `_check_bf16_backward` at every shape: the limit, the
+    planted x1.05 fault, di and the same bits on a second launch."""
     _check_bf16_backward(cuda, shape)
 
 

@@ -17,9 +17,10 @@ interpret mode on the same bf16 inputs, at the limit the card holds the
 kernels to (two bf16 ulps of max|plain|, `chip_smoke.py` `flash_tol`). It
 reads P as one bf16 term and as two (hi = bf16(P), lo = bf16(P - hi)),
 which decides the kernels' choice, counts the banks of every copy and
-fragment read of the cp.async-swizzled tiles (d = 512, and the d = 64
-backward's), and checks that the 128-byte-swizzled tiles that TMA writes
-and `wgmma` reads at d = 64 give back the dense tile.
+fragment read of the cp.async-swizzled tiles (d = 512; at d = 64 the same
+chunk order is the 128-byte swizzle of the TMA tiles), and checks that
+the 128-byte-swizzled tiles that TMA writes and `wgmma` reads at d = 64
+give back the dense tile.
 """
 import math
 

@@ -1,30 +1,36 @@
 """The numeric design and the shared-memory layout of the bf16 flash
-backward at d = 64 on the bf16 tensor cores (`flash_dq_d64_bf16` and
-`flash_dkv_d64_bf16` in `rdeic_torch/csrc/flash_attn_bwd.cu`), on the CPU.
+backward at d = 64 on wgmma (`flash_dq_d64_bf16` and `flash_dkv_d64_bf16`
+in `rdeic_torch/csrc/flash_attn_bwd.cu`), on the CPU.
 
-Both kernels hold their tiles in shared memory as bf16 and take every
-product as `mma.sync.m16n8k16` with bf16 operands and fp32 accumulators.
-S = Q K^T and dP = dO V^T (dkv: their transposes, the same sums) go over d
-in four 16-deep steps from zero; P = 2^(S c - lse2) in log2 units (c =
-d^-1/2 log2(e), lse2 = lse log2(e)), dS = P (dP scale - di scale); then
-dq += dS K over the keys, dv += P^T dO and dk += dS^T Q over the q rows,
-each in 16-deep steps into one accumulator, P and dS taken as two bf16
-terms (big = bf16(x), small = bf16(x - big); the small term's product
-first at each step). The tiles (64 kept rows, 64-row streamed tiles in
-32-row chunks) change no sum: each score is its own 64-long dot product,
-and each accumulator takes its 16-deep steps in key (or q row) order
-whatever the tiles. A padded key (dq) or q row (dkv) adds exact zeros.
+Both kernels keep a 64-row tile (q rows in dq, keys in dkv: one consumer
+warpgroup a block, two blocks an SM) and stream 64-row tiles of the other
+side, which TMA writes into shared memory in the 128-byte swizzle. Every product
+is a `wgmma` with bf16 operands and fp32 accumulators. S = Q K^T and
+dP = dO V^T (dkv: S^T = K Q^T and dP^T = V dO^T, the same sums) take
+shared-memory operands, four 16-deep steps over d from zero; P = 2^(S c -
+lse2) in log2 units (c = d^-1/2 log2(e), lse2 = lse log2(e)) and dS = P
+(dP scale - di scale) are formed in the accumulator registers; then dq +=
+dS K over the keys, dv += P^T dO and dk += dS^T Q over the q rows, one
+16-deep step after another into one accumulator, P and dS taken from
+registers as two bf16 terms (big = bf16(x), small = bf16(x - big)), each
+term's step a `wgmma` of its own, the small one first. The tiles change no
+sum: each score is its own 64-long dot product, and each accumulator takes
+its steps in key (or q row) order whatever the tiles. A padded key (dq) or
+q row (dkv) adds exact zeros.
 
-This file emulates that arithmetic (`backward_bf16_tiles`) with
-`mma.sync`'s rounding toward zero modelled (`tests/torch_port_tf32.py`
-`mma_bf16`) and holds it to float64, to the plain version and to the
-Pallas kernels in interpret mode at the limit the card holds the bf16
-backward to: 2^-8 + 1e-4 of max|plain| against the plain version's
-unrounded fp32 result, after the kernels' bf16 store (`chip_smoke.py`
-`REL_TOL`). It reads the rule that chose two terms for P and for dS, the
-rounding toward zero over L = 8192, the ldmatrix lane offsets and the
-banks of every copy and fragment read, and the kernels' grid and shared
-memory.
+This file emulates that arithmetic (`backward_bf16_tiles`) with `wgmma`'s
+rounding as the card shows it (`tests/torch_port_tf32.py` `wgmma_bf16`:
+each term cut two bits below the largest one's ulp, the sum rounded toward
+zero; the functions take it as `mm=MM`, and default to `mma.sync`'s
+model, `mma_bf16`, for the d = 16 and 512 files that run them) and holds it to float64, to the plain version and to the Pallas
+kernels in interpret mode at the limit the card holds the bf16 backward
+to: 2^-8 + 1e-4 of max|plain| against the plain version's unrounded fp32
+result, after the kernels' bf16 store (`chip_smoke.py` `REL_TOL`). It reads
+the rule that chose two terms for P and for dS, the rounding over L =
+8192, the two terms' sum, the swizzled tiles as each operand reads them,
+the accumulator -> A-fragment mapping of P^T and dS^T, the prologue's and
+the row terms' addresses, and the kernels' grid, shared memory, waves and
+register exchange.
 """
 import functools
 import math
@@ -39,33 +45,36 @@ from rdeic_torch.ops.flash_attention import (
     flash_attention_lse_plain,
 )
 from rdeic_tpu.ops.flash_attention import _flash_backward
-from tests.test_torch_port_flash_bf16 import (
-    _chunk_bytes,
-    _lane,
-    _swizzled_words,
-)
 from tests.torch_port_tf32 import (
-    banks,
     bf16_round,
     mma_bf16,
     one_torch_thread,  # noqa: F401 (an autouse fixture)
     rel,
+    swizzle128,
+    wgmma_bf16,
+    wgmma_reads,
 )
 
 D = 64
-BT, KC, NT = 64, 32, 128  # d64_bf16:: tile rows (kept, streamed), chunk, threads
-ROW_BYTES = 2 * D
-DQ_SMEM = 8 * BT * ROW_BYTES  # d64_bf16::kDqSmemBytes: Q, dO, 3 K / V pairs
-DKV_SMEM = 8 * BT * ROW_BYTES + 3 * 2 * BT * 4  # + 3 lse / di rows
+NWG, BLOCKS = 1, 2  # d64_bf16:: consumer warpgroups a block, blocks an SM
+BM, BN, NT, STAGES = 64 * NWG, 64, 128 * (NWG + 1), 4
+TILE = 64 * D * 2  # d64_bf16::kTile: bytes of 64 rows of one tensor
+ROW_TERMS = 2 * BN * 4  # d64_bf16::kRowTerms: lse and di of 64 q rows
+DQ_SMEM = 1024 + 3 * NWG * TILE + 2 * STAGES * TILE  # Q, dO, O; K, V rings
+DKV_SMEM = 1024 + 2 * NWG * TILE + 2 * STAGES * TILE + STAGES * ROW_TERMS
+LAUNCH_REGS, PRODUCER_REGS, CONSUMER_REGS = 128, 24, 232
 SMEM_PER_SM, SMS, REGS_PER_SM = 233472, 132, 65536
 REL_TOL = 2.0 ** -8 + 1e-4  # the card's limit on dq, dk, dv, of max|plain|
 HALF = REL_TOL / 2  # the precision rule's bound on a term choice's reading
 FAULT_SCALE = 1.05
 LOG2E = math.log2(math.e)
 P_TERMS = DS_TERMS = 2  # the kernels take P and dS as big + small (the rule)
+# the kernels' products: `wgmma` (the emulation below defaults to
+# `mma.sync`'s model, `mma_bf16`, for the d = 16 and 512 files that take it)
+MM = wgmma_bf16
 # (B, L, H, rows): the training path's d = 64 shapes ([2, 4096, 5, 64] as
 # one head: its heads are alike), L = 1000 with B = 2, H = 3, and L = 8192
-# on 256 kept rows a side (each row's sums are its own)
+# on 256 rows a side (each row's sums are its own)
 RULE_SHAPES = [(2, 1024, 10, None), (1, 4096, 1, None), (2, 1000, 3, None),
                (1, 8192, 1, 256)]
 
@@ -82,48 +91,52 @@ def _inputs(b, seq, h, seed, d=D):
     return q, k, v, bf16_round(o.float()), lse.float(), do
 
 
-def _take(acc, x, b, terms, exact, big_of=bf16_round):
-    """acc + x b in 16-deep steps along x's last axis: x as `terms` bf16
-    terms (1: bf16(x); 2: big = big_of(x), small = bf16(x - big), the small
-    term's step, then the big term's), each step's exact sum rounded toward
-    zero into acc (`mma_bf16`); with `exact`, x as it is, summed in
-    float64."""
+def _take(acc, x, b, terms, exact, big_of=bf16_round, mm=mma_bf16):
+    """acc + x b in 16-deep steps along x's last axis, each step by `mm`
+    (`wgmma_bf16`: one instruction a step; `mma_bf16`: each step's exact
+    sum rounded toward zero): x as `terms` bf16 terms (1: bf16(x); 2: big =
+    big_of(x), small = bf16(x - big), the small term's step, then the big
+    term's); with `exact`, x as it is, summed in float64."""
     if exact:
         return acc + x @ b
     if terms == 1:
-        return mma_bf16(bf16_round(x), b, acc)
+        return mm(bf16_round(x), b, acc)
     big = big_of(x)
     steps = x.shape[-1] // 16
     a = torch.stack([bf16_round(x - big).unflatten(-1, (steps, 16)),
                      big.unflatten(-1, (steps, 16))], -2).flatten(-3)
     bb = b.unflatten(-2, (steps, 16))
-    return mma_bf16(a, torch.stack([bb, bb], -3).flatten(-4, -2), acc)
+    return mm(a, torch.stack([bb, bb], -3).flatten(-4, -2), acc)
 
 
 def backward_bf16_tiles(q, k, v, o, lse, do, p_terms=P_TERMS,
                         ds_terms=DS_TERMS, rows=None, exact=False,
-                        exact_sums=False, big_of=bf16_round):
+                        exact_sums=False, big_of=bf16_round, mm=mma_bf16):
     """(dq, dk, dv) of the kernels' arithmetic ([B, L, H, D]; with `rows` an
     index of L, dq of those q rows and dk, dv of those keys):
-    `accumulate_bf16` of `scores_bf16`."""
-    sc = scores_bf16(q, k, v, o, lse, do, rows, exact)
-    return accumulate_bf16(sc, p_terms, ds_terms, exact or exact_sums, big_of)
+    `accumulate_bf16` of `scores_bf16`, every product by `mm`."""
+    sc = scores_bf16(q, k, v, o, lse, do, rows, exact, mm=mm)
+    return accumulate_bf16(sc, p_terms, ds_terms, exact or exact_sums,
+                           big_of, mm)
 
 
-def scores_bf16(q, k, v, o, lse, do, rows=None, exact=False) -> dict:
-    """P and dS as the kernels form them, with L padded to 64-row tiles
-    (P = dS = 0 past L: the kernels add exact zeros there): S and dP by
-    four 16-deep steps over d from zero, P = 2^(fp32(S c - lse2)), dS = P
-    fp32(dP scale - di scale), di = rowsum(dO O) in fp32. "rows": P and dS
-    of the q rows `rows` (all by default) against every key, for dq;
-    "cols": of every q row against the keys `rows`, for dk and dv (the same
-    tensors when `rows` is None). With `exact`, float64 and nothing rounded.
-    Also the padded [B, H, Lp, D] q, k and dO."""
+def scores_bf16(q, k, v, o, lse, do, rows=None, exact=False, mm=mma_bf16,
+                padded_p=False) -> dict:
+    """P and dS as the kernels form them, with L padded to 64-row tiles: S
+    and dP by 16-deep `mm` steps over d from zero, P = 2^(fp32(S c
+    - lse2)), dS = P fp32(dP scale - di scale), di = rowsum(dO O) in fp32,
+    P = dS = 0 past L (the dq kernel masks its keys past L; with
+    `padded_p`, P = 1 on a padded q row, as the dkv kernel forms it from
+    its zero-filled Q, dO, lse and di). "rows": P and dS of the q rows
+    `rows` (all by default) against every key, for dq; "cols": of every q
+    row against the keys `rows`, for dk and dv (the same tensors when
+    `rows` is None). With `exact`, float64 and nothing rounded. Also the
+    padded [B, H, Lp, D] q, k and dO."""
     b, seq, h, d = q.shape
     dt = torch.float64 if exact else torch.float32
     scale = d ** -0.5
     c = scale * LOG2E if exact else float(torch.tensor(scale * LOG2E))
-    pad = -seq % BT
+    pad = -seq % BN
     qh, kh, vh, oh, doh = (torch.nn.functional.pad(
         x.permute(0, 2, 1, 3).to(dt), (0, 0, 0, pad)) for x in (q, k, v, o, do))
     lse2 = (lse.to(dt) * (LOG2E if exact else torch.tensor(LOG2E))).to(dt)
@@ -134,7 +147,7 @@ def scores_bf16(q, k, v, o, lse, do, rows=None, exact=False) -> dict:
     real = torch.arange(lp) < seq
 
     def p_ds(qi, ki):
-        """P and dS [B, H, |qi|, |ki|], 0 past L, 128 keys at a time."""
+        """P and dS [B, H, |qi|, |ki|], 128 keys at a time."""
         p = torch.zeros(qh.shape[:2] + (len(qi), len(ki)), dtype=dt)
         ds = torch.zeros_like(p)
         for k0 in range(0, len(ki), 128):
@@ -145,15 +158,15 @@ def scores_bf16(q, k, v, o, lse, do, rows=None, exact=False) -> dict:
                 pb = torch.exp2(s * c - lse2[..., qi, None])
                 dsb = pb * (dp * scale - dis[..., qi, None])
             else:
-                s = mma_bf16(qh[..., qi, :], kh[..., kb, :].transpose(-1, -2))
-                dp = mma_bf16(doh[..., qi, :], vh[..., kb, :].transpose(-1, -2))
+                s = mm(qh[..., qi, :], kh[..., kb, :].transpose(-1, -2))
+                dp = mm(doh[..., qi, :], vh[..., kb, :].transpose(-1, -2))
                 pb = torch.exp2((s.double() * c
                                  - lse2[..., qi, None].double()).float())
                 dsb = pb * (dp.double() * scale
                             - dis[..., qi, None].double()).float()
-            mask = real[qi][:, None] & real[kb][None, :]
-            p[..., k0:k0 + 128] = torch.where(mask, pb, 0.0)
-            ds[..., k0:k0 + 128] = torch.where(mask, dsb, 0.0)
+            keep = real[kb][None, :] & (True if padded_p else real[qi][:, None])
+            p[..., k0:k0 + 128] = torch.where(keep, pb, 0.0)
+            ds[..., k0:k0 + 128] = torch.where(keep, dsb, 0.0)
         return p, ds
 
     every = torch.arange(lp)
@@ -167,11 +180,12 @@ def scores_bf16(q, k, v, o, lse, do, rows=None, exact=False) -> dict:
 
 
 def accumulate_bf16(sc: dict, p_terms=P_TERMS, ds_terms=DS_TERMS,
-                    exact_sums=False, big_of=bf16_round):
+                    exact_sums=False, big_of=bf16_round, mm=mma_bf16):
     """dq += dS K over the keys, dv += P^T dO and dk += dS^T Q over the q
-    rows, one 64-row streamed tile after another, by `_take` (with
-    `exact_sums`, every sum in float64; `big_of` makes a two-term split's
-    big term); returned as [B, L, H, D] of the selected rows."""
+    rows by `_take` (`big_of` makes a two-term split's big term, `mm` takes
+    each step), one accumulator each over the whole L (the streamed tiles
+    take their steps in order into it; with `exact_sums`, every sum in
+    float64); returned as [B, L, H, D] of the selected rows."""
     (_, ds_r), (p_c, ds_c) = sc["rows"], sc["cols"]
     qh, kh, doh = sc["q"], sc["k"], sc["do"]
     acc = torch.float64 if exact_sums else qh.dtype
@@ -179,14 +193,11 @@ def accumulate_bf16(sc: dict, p_terms=P_TERMS, ds_terms=DS_TERMS,
     dq = torch.zeros(ds_r.shape[:-1] + (d,), dtype=acc)
     dk = torch.zeros(p_c.shape[:2] + (p_c.shape[-1], d), dtype=acc)
     dv = torch.zeros_like(dk)
-    for t0 in range(0, qh.shape[-2], BT):
-        tile = slice(t0, t0 + BT)
-        dq = _take(dq, ds_r[..., tile], kh[..., tile, :], ds_terms,
-                   exact_sums, big_of)
-        dv = _take(dv, p_c[..., tile, :].transpose(-1, -2), doh[..., tile, :],
-                   p_terms, exact_sums, big_of)
-        dk = _take(dk, ds_c[..., tile, :].transpose(-1, -2), qh[..., tile, :],
-                   ds_terms, exact_sums, big_of)
+    dq = _take(dq, ds_r, kh, ds_terms, exact_sums, big_of, mm)
+    dv = _take(dv, p_c.transpose(-1, -2), doh, p_terms, exact_sums, big_of,
+               mm)
+    dk = _take(dk, ds_c.transpose(-1, -2), qh, ds_terms, exact_sums, big_of,
+               mm)
     return tuple(x.permute(0, 2, 1, 3) for x in (dq, dk, dv))
 
 
@@ -225,12 +236,13 @@ def test_tile_order_follows_the_plain_formulas(b, seq, h):
 
 @pytest.mark.parametrize("b,seq,h", [(2, 200, 3), (1, 1000, 2)])
 def test_two_terms_hold_the_limit_against_pallas_and_plain(b, seq, h):
-    """P and dS as two bf16 terms, every step rounded toward zero: dq, dk
-    and dv within half the limit of float64, the plain version and the
-    Pallas kernels before the bf16 store, and within the limit of the plain
-    version after it; a planted x1.05 fault reads beyond the limit."""
+    """P and dS as two bf16 terms, every product by `wgmma`'s rounding: dq,
+    dk and dv within half the limit of float64, the plain version and the
+    Pallas kernels before the bf16 store, and within the limit of the
+    plain version after it; a planted x1.05 fault reads beyond the
+    limit."""
     inputs = _inputs(b, seq, h, seq + 7 * h)
-    got = backward_bf16_tiles(*inputs)
+    got = backward_bf16_tiles(*inputs, mm=MM)
     for name, want in _references(*inputs, pallas=True).items():
         reads = [rel(g, w) for g, w in zip(got, want)]
         assert max(reads) <= HALF, (name, reads)
@@ -242,25 +254,31 @@ def test_two_terms_hold_the_limit_against_pallas_and_plain(b, seq, h):
 
 @functools.lru_cache(maxsize=None)
 def _rule_reads(b, seq, h, rows_a_side):
-    """{(p_terms, ds_terms): [dq, dk, dv]}: max |error| over max|plain|
-    before the bf16 store, against the plain version on the same values,
-    for one term of both and for two (rows: `rows_a_side` spread over L,
-    or all)."""
+    """{(p_terms, ds_terms): [dq, dk, dv]} under `wgmma`'s rounding: max
+    |error| over max|plain| before the bf16 store, against the plain
+    version on the same values, for one term of both and for two (rows:
+    `rows_a_side` spread over L, or all); and under "rz", the two terms'
+    reading against the same terms summed in float64 (what the rounding
+    of the sums moves)."""
     inputs = _inputs(b, seq, h, seq + h)
     rows = (None if rows_a_side is None
             else torch.arange(0, seq, seq // rows_a_side)[:rows_a_side])
     want = _on_rows(flash_attention_bwd_plain(*inputs), rows)
-    sc = scores_bf16(*inputs, rows)
-    return {terms: [rel(g, w) for g, w in zip(accumulate_bf16(sc, *terms),
-                                              want)]
-            for terms in ((1, 1), (2, 2))}
+    sc = scores_bf16(*inputs, rows, mm=MM)
+    reads = {terms: accumulate_bf16(sc, *terms, mm=MM)
+             for terms in ((1, 1), (2, 2))}
+    exact = accumulate_bf16(sc, exact_sums=True)
+    out = {terms: [rel(g, w) for g, w in zip(got, want)]
+           for terms, got in reads.items()}
+    out["rz"] = [rel(g, e) for g, e in zip(reads[2, 2], exact)]
+    return out
 
 
 @pytest.mark.parametrize("b,seq,h,rows", RULE_SHAPES)
 def test_two_terms_read_within_half_the_limit(b, seq, h, rows):
-    """At every shape of the rule, P and dS as two terms read at most half
-    the limit on dq, dk and dv (the rule's condition for the terms the
-    kernels take)."""
+    """At every shape of the rule, under `wgmma`'s rounding, P and dS as two
+    terms read at most half the limit on dq, dk and dv (the rule's
+    condition for the terms the kernels take)."""
     reads = _rule_reads(b, seq, h, rows)
     assert max(reads[2, 2]) <= HALF, reads
 
@@ -268,36 +286,31 @@ def test_two_terms_read_within_half_the_limit(b, seq, h, rows):
 def test_the_rule_takes_two_terms_of_p_and_of_ds():
     """The rule: P (dv = P^T dO) and dS (dq = dS K, dk = dS^T Q) each take
     one bf16 term only if it reads at most half the card's limit at every
-    d = 64 training shape and at L = 1000 and 8192; otherwise two. One term
-    of P reads up to ~2.8e-3 of max on dv and one of dS ~2.1e-3 on dq and
-    dk, past half the limit (2.0e-3): dS K and dS^T Q cancel (each row of
-    dS sums to about zero), and P's rounding does not average out in
-    P^T dO either. Stored to bf16, one term would land within ~4% of the
-    limit. So the kernels take two terms of each."""
+    d = 64 training shape and at L = 1000 and 8192; otherwise two. Under
+    `wgmma`'s rounding one term of P reads up to ~2.3e-3 of max on dv and
+    one of dS ~3.2e-3 on dq and ~2.4e-3 on dk, past half the limit
+    (2.0e-3): dS K and dS^T Q cancel (each row of dS sums to about zero),
+    and P's rounding does not average out in P^T dO either. Two terms read
+    ~2e-5. So the kernels take two terms of each."""
     reads = {shape: _rule_reads(*shape) for shape in RULE_SHAPES}
     p_one = max(r[1, 1][2] for r in reads.values())
     ds_one = max(max(r[1, 1][:2]) for r in reads.values())
-    assert p_one > HALF and ds_one > HALF, reads
+    two = max(max(r[2, 2]) for r in reads.values())
+    assert p_one > HALF and ds_one > HALF and two < HALF / 50, reads
     assert (P_TERMS, DS_TERMS) == (2, 2)
 
 
 def test_rounding_toward_zero_over_l_8192_stays_far_below_the_limit():
-    """mma.sync rounds each step's sum toward zero, and dq, dk and dv each
-    take L / 16 steps of each term into one accumulator. At L = 8192, on
-    256 rows a side, against the same terms summed in float64, that
-    rounding moves the result by < 1e-4 of max, a fortieth of half the
-    limit, and the total stays within half the limit: the kernels keep one
-    accumulator, without per-chunk partials."""
-    inputs = _inputs(1, 8192, 1, 11)
-    rows = torch.arange(0, 8192, 32)
-    want = _on_rows(flash_attention_bwd_plain(*inputs), rows)
-    sc = scores_bf16(*inputs, rows)
-    got = accumulate_bf16(sc)
-    exact = accumulate_bf16(sc, exact_sums=True)
-    rz = [rel(g, e) for g, e in zip(got, exact)]
-    total = [rel(g, w) for g, w in zip(got, want)]
-    assert max(rz) < 1e-4 and max(rz) > 0, rz
-    assert max(total) <= HALF, total
+    """`wgmma` cuts each term two bits below the largest one's ulp and
+    rounds each instruction's sum toward zero, and dq, dk and dv each take
+    L / 16 steps of each term into one accumulator. At L = 8192 (256 rows a
+    side), against the same terms summed in float64, that moves the result
+    by < 1e-4 of max, a fortieth of half the limit, and the total stays
+    within half the limit: the kernels keep one accumulator, without
+    per-tile partials."""
+    reads = _rule_reads(1, 8192, 1, 256)
+    assert 0 < max(reads["rz"]) < 1e-4, reads
+    assert max(reads[2, 2]) <= HALF, reads
 
 
 def test_two_terms_sum_to_within_2_to_the_minus_17():
@@ -311,75 +324,168 @@ def test_two_terms_sum_to_within_2_to_the_minus_17():
     assert (err <= 2.0 ** -17 * x.double().abs()).all()
 
 
-# -- the tiles in shared memory ----------------------------------------------
-def test_ldmatrix_lanes_address_the_fragments_in_order():
-    """Every fragment read of the two kernels, at the rows it starts from:
-    the kept tile's A fragments (rows 16 w + Lane::ar, chunks ca) for Q,
-    dO, O (dq) and K, V (dkv); the streamed tile's B fragments without
-    .trans for S and dP (chunk rows c0 + 16 np + Lane::br, chunks cb) and
-    with .trans for the products with P and dS (rows c0 + 16 kk + Lane::ar,
-    chunks ca). Matrix m of an ldmatrix.x4 (lanes 8m..8m + 7) must hold
-    a_m of A, b0 / b1 of n-tiles 0, 1 of B; and `Lane`'s offsets are the
-    swizzle's at every such row (a multiple of 8 plus the lane's row)."""
-    for m in range(4):
-        for lane in range(8 * m, 8 * m + 8):
-            ar, br, ac, bc = _lane(lane)
-            assert (ar // 8, ac) == (m & 1, m >> 1)  # A and B with .trans
-            assert (br // 8, bc) == (m >> 1, m & 1)  # B without .trans
-    starts = ([16 * w for w in range(4)]
-              + [c0 + 16 * i for c0 in range(0, BT, KC) for i in range(2)])
+def test_padded_q_rows_add_exact_zeros():
+    """In dkv a q row past L lands as zeros (Q, dO, lse, di), so P^T = 1 and
+    dS^T = 0 there; under `wgmma`'s cut (which aligns an instruction's
+    terms to the largest) its products with dO = 0 and Q = 0 leave dk and
+    dv bit for bit as the same sums without those rows. L = 130 ends two
+    rows into its third 64-row tile."""
+    inputs = _inputs(1, 130, 2, 5)
+    masked = accumulate_bf16(scores_bf16(*inputs, mm=MM), mm=MM)
+    padded = accumulate_bf16(scores_bf16(*inputs, mm=MM, padded_p=True),
+                             mm=MM)
+    for a, b in zip(masked[1:], padded[1:]):
+        assert torch.equal(a, b)
+
+
+# -- the tiles, fragments and addresses -------------------------------------
+def _tile_smem(dense: np.ndarray) -> np.ndarray:
+    """A 64-row bf16 tile (128-byte rows) as TMA writes it under
+    CU_TENSOR_MAP_SWIZZLE_128B from a 1024-aligned base: 16-bit words at
+    `swizzle128`; every word once."""
+    rows, n = dense.shape
+    smem = np.full(rows * n, -1)
+    for r in range(rows):
+        for c in range(n):
+            at = swizzle128(r, 2 * c)
+            assert smem[at // 2] == -1
+            smem[at // 2] = dense[r, c]
+    assert (smem >= 0).all()
+    return smem
+
+
+@pytest.mark.parametrize("role", ["k_major", "mn_major"])
+def test_swizzled_tiles_read_back_as_each_operand(role):
+    """Every 64-row tile TMA writes (Q, dO, O, K, V of 64 rows) is read
+    back by `wgmma` as the dense tile. K-major (the scores' A and B: Q and
+    K, dO and V in dq, K and Q, V and dO in dkv): the descriptor steps by
+    2 (32 bytes, 16 values) along the row each 16-deep step. MN-major (the
+    products' B: K in dq, dO and Q in dkv, k = the streamed rows): it steps
+    by 128 (2048 bytes, 16 rows) each step, every row's 64 values across
+    the N dimension."""
+    dense = np.random.default_rng(1).integers(0, 2 ** 15, size=(64, D))
+    smem = _tile_smem(dense)
+    got = np.empty_like(dense)
+    for step in range(4):
+        if role == "k_major":  # row r, values 16 step + c
+            for r in range(64):
+                for c in range(16):
+                    got[r, 16 * step + c] = smem[
+                        wgmma_reads(32 * step, r, 2 * c) // 2]
+        else:  # k = rows 16 step + c, n = the row's 64 values
+            for c in range(16):
+                for n in range(D):
+                    got[16 * step + c, n] = smem[
+                        wgmma_reads(2048 * step, c, 2 * n) // 2]
+    np.testing.assert_array_equal(got, dense)
+
+
+def _acc_coords(w, lane, j, i):
+    """(row, column) of accumulator register d[4 j + i] of warp w's lane in
+    a 64 x N `wgmma` accumulator (flash_hopper.cuh's header)."""
+    g, t = lane >> 2, lane & 3
+    return 16 * w + g + 8 * (i >> 1), 8 * j + 2 * t + (i & 1)
+
+
+def _a_coords(w, lane, kk, e):
+    """The two (row, k) values of register a[e] of warp w's lane in the A
+    operand (from registers) of 16-deep step kk, the lower k in the low
+    half."""
+    g, t = lane >> 2, lane & 3
+    row = 16 * w + g + 8 * (e & 1)
+    k = 16 * kk + 2 * t + 8 * (e >> 1)
+    return (row, k), (row, k + 1)
+
+
+def test_accumulator_fragments_are_the_a_fragments_of_p_t_and_ds_t():
+    """`pack_terms` packs x[8 kk + 2 e] and x[8 kk + 2 e + 1] of a 64 x 64
+    accumulator (S, dP in dq; S^T, dP^T in dkv, rows = keys) into register
+    e of step kk's A operand: those two accumulator values must be the A
+    fragment's (row, k) and (row, k + 1) at every warp, lane, step and
+    register, so that P^T dO, dS^T Q and dS K read P^T, dS^T and dS with no
+    exchange between lanes; and the 128 threads of a warpgroup hold each
+    value once."""
+    seen = set()
+    for w in range(4):
+        for lane in range(32):
+            for kk in range(BN // 16):
+                for e in range(4):
+                    lo, hi = (_acc_coords(w, lane, (8 * kk + 2 * e + x) // 4,
+                                          (8 * kk + 2 * e + x) % 4)
+                              for x in (0, 1))
+                    assert (lo, hi) == _a_coords(w, lane, kk, e)
+                    seen.update((lo, hi))
+    assert seen == {(r, c) for r in range(64) for c in range(BN)}
+
+
+def test_di_quads_and_row_terms_address_every_value_once():
+    """dq's prologue: lane t of a quad reads 16-byte chunks 2 t and 2 t + 1
+    of its rows g and g + 8 of dO and O (swizzle128 of the row and byte
+    16 (2 t + c)), so a quad covers every byte of its two rows once. dkv's
+    producer lane l copies lse and di of the stage's q rows 2 l and
+    2 l + 1 to words 2 l.. (lse) and 64 + 2 l.. (di) of the stage's row
+    terms, and a consumer lane t reads them as float2 at columns 8 n + 2 t,
+    the columns of its accumulator values."""
+    for rr in range(64):
+        got = sorted(swizzle128(rr, 16 * (2 * t + cc)) + i
+                     for t in range(4) for cc in range(2) for i in range(16))
+        assert got == list(range(128 * rr, 128 * rr + 128))
+    written = {}
     for lane in range(32):
-        ar, br, ac, bc = _lane(lane)
-        for r0 in starts:
-            for j in range(D // 16):
-                for row, c, which in ((r0 + ar, 2 * j + ac, "a"),
-                                      (r0 + br, 2 * j + bc, "b")):
-                    assert (4 * _swizzled_words(D, row, c)
-                            == row * ROW_BYTES + _chunk_bytes(lane, j, which))
-
-
-def test_copies_and_fragment_reads_hit_32_banks():
-    """cp.async writes a tile 16 bytes a lane, 8 lanes a phase on one row's
-    8 chunks; each ldmatrix matrix (with or without .trans) is 8 rows at one
-    chunk: all 32 banks, at every row and chunk. The lse / di rows land 4
-    bytes a thread, 32 consecutive words a warp; dkv reads them as float2
-    at columns 8 n + 2t: 4 addresses shared by 8 lanes each, 8 banks, no
-    conflict."""
-    for i0 in range(0, BT * D // 8, 8):
-        words = [_swizzled_words(D, i // (D // 8), i % (D // 8)) + w
-                 for i in range(i0, i0 + 8) for w in range(4)]
-        assert sorted(banks(words)) == list(range(32))
-    for r0 in range(0, BT, 8):
-        for c in range(D // 8):
-            words = [_swizzled_words(D, r, c) + w
-                     for r in range(r0, r0 + 8) for w in range(4)]
-            assert sorted(banks(words)) == list(range(32))
-    for w0 in range(0, NT, 32):
-        assert sorted(banks(range(w0, w0 + 32))) == list(range(32))
-    for base in (0, BT):  # the lse, then the di row of a buffer
-        for c0 in range(0, BT, KC):
-            for n in range(KC // 8):
-                addrs = {base + c0 + 8 * n + 2 * (lane & 3) for lane in range(32)}
-                hit = [x for a in addrs for x in banks((a, a + 1))]
-                assert len(addrs) == 4 and len(set(hit)) == 8
+        for e in range(2):
+            row = 2 * lane + e
+            written[4 * row] = ("lse", row)
+            written[4 * BN + 4 * row] = ("di", row)
+    assert len(written) == ROW_TERMS // 4
+    for lane in range(32):
+        t = lane & 3
+        for n in range(BN // 8):
+            col = 8 * n + 2 * t
+            for e in range(2):
+                assert written[4 * (col + e)] == ("lse", col + e)
+                assert written[4 * BN + 4 * (col + e)] == ("di", col + e)
+                assert _acc_coords(0, lane, n, e)[1] == col + e
 
 
 def test_grid_shared_memory_and_waves():
-    """64-row kept tiles of 4 warps. dq: Q, dO and a ring of three K / V
-    pairs (O passes through the third K buffer), 64 KB, three blocks per SM
-    by shared memory (1 KB reserved a block) and by registers (at most 168
-    a thread; ptxas: 167). dkv: K, V, three Q / dO pairs and their lse and
-    di rows, 65.5 KB; at 168 registers it spills, so two blocks per SM (at
-    most 255; ptxas: 252). Each kernel gives 640 blocks at [2, 4096, 5, 64]
-    and 320 at [2, 1024, 10, 64]: dq 1.6 and 0.8 waves of 396 slots, dkv
-    2.4 and 1.2 of 264."""
-    assert DQ_SMEM == 65536 and DKV_SMEM == 67072
-    assert 3 * (DQ_SMEM + 1024) <= SMEM_PER_SM < 4 * (DQ_SMEM + 1024)
-    assert 2 * (DKV_SMEM + 1024) <= SMEM_PER_SM
-    assert REGS_PER_SM // (3 * NT) // 8 * 8 == 168
-    assert REGS_PER_SM // (2 * NT) - 1 == 255  # the ISA's limit a thread
-    for (b, seq, h), blocks in (((2, 4096, 5), 640), ((2, 1024, 10), 320)):
-        assert math.ceil(seq / BT) * b * h == blocks
-    waves = {per_sm: [round(n / (per_sm * SMS), 2) for n in (640, 320)]
-             for per_sm in (3, 2)}
-    assert waves == {3: [1.62, 0.81], 2: [2.42, 1.21]}
+    """Two blocks of 256 threads per SM, each a consumer warpgroup of 64
+    kept rows and a producer warpgroup. dq: Q, dO and O of 64 q rows and a
+    ring of four K / V stages of 64 keys, 89 KB; dkv: K and V of 64 keys,
+    four Q / dO stages and their rows' lse and di, 83 KB: two blocks fit
+    the SM's 228 KB with their 1 KB reserved each, three do not. The
+    launch has 128 registers a thread (65536 over 512); the producer gives
+    back 104 a thread to 24, which covers the consumer's raise to 232, and
+    a dkv consumer holds 192 of fragments (dk and dv, S^T and dP^T, the
+    two terms of P^T and dS^T). Each kernel gives 640 blocks at
+    [2, 4096, 5, 64] and 320 at [2, 1024, 10, 64]: 2.42 and 1.21 waves of
+    264 slots, the last wave's blocks one an SM."""
+    assert (DQ_SMEM, DKV_SMEM) == (91136, 84992)
+    for smem in (DQ_SMEM, DKV_SMEM):
+        assert BLOCKS * (smem + 1024) <= SMEM_PER_SM < 3 * (smem + 1024)
+    assert LAUNCH_REGS == REGS_PER_SM // (BLOCKS * NT) // 8 * 8
+    assert 128 * (LAUNCH_REGS - PRODUCER_REGS) >= 128 * NWG * (
+        CONSUMER_REGS - LAUNCH_REGS)
+    assert 3 * 64 < CONSUMER_REGS
+    blocks = {seq: math.ceil(seq / BM) * b * h
+              for (b, seq, h) in ((2, 4096, 5), (2, 1024, 10))}
+    assert blocks == {4096: 640, 1024: 320}
+    assert [round(n / (BLOCKS * SMS), 2) for n in blocks.values()] == [2.42,
+                                                                       1.21]
+
+
+def test_probe_variants_apply_to_the_kernels():
+    """`rdeic_torch/tools/flash_bwd_probe.py --d 64` (the card probes
+    PERF.md cites) changes the `d64_bf16` kernels by text substitutions:
+    each of its variants still finds its text in csrc/flash_attn_bwd.cu,
+    changes only that namespace, and a text that is not there raises."""
+    from rdeic_torch import build
+    from rdeic_torch.tools.flash_bwd_probe import VARIANTS, variant_source
+
+    src = build.FLASH_BWD_SRC.read_text()
+    head = src[:src.index("namespace d64_bf16 {")]
+    tail = src[src.index("}  // namespace d64_bf16"):]
+    for name, edits in VARIANTS["d64_bf16"].items():
+        got = variant_source(src, edits, "d64_bf16")
+        assert got != src and got.startswith(head) and got.endswith(tail), name
+    with pytest.raises(ValueError):
+        variant_source(src, [("no such text", "")], "d64_bf16")

@@ -13,10 +13,12 @@ and g++; no network. Phases, each fatal on failure:
    and spills of each CUDA kernel are logged by name, and a flash kernel
    (all run on the tensor cores; any entry whose mangled name holds
    `flash_`) or the GroupNorm backward that spills fails the run, and any
-   ptxas C7519 (a `warpgroup.arrive` it injected) is logged; the Hopper
+   ptxas C7519 (a `warpgroup.arrive` it injected) is logged, and fails
+   the run in a Hopper kernel; the Hopper
    kernels (HOPPER_KERNELS: the d = 64 forward, flash_fwd_d64_bf16 and
-   flash_fwd_d64, and the d = 64 bf16 backward, flash_dq_d64_bf16 and
-   flash_dkv_d64_bf16) must hold warpgroup products and TMA loads:
+   flash_fwd_d64, and the d = 64 backward, flash_dq_d64_bf16 and
+   flash_dkv_d64_bf16 in bf16, flash_dq_d64 and flash_dkv_d64 in fp32)
+   must hold warpgroup products and TMA loads:
    `cuobjdump -sass` of each built library counts each one's HGMMA and
    UTMALDG instructions, and a count of 0 fails the run; `[wgmma]` logs
    how the card's wgmma rounds (`rdeic_torch.tools.wgmma_probe`);
@@ -187,7 +189,8 @@ and g++; no network. Phases, each fatal on failure:
    forward runs flash_fwd_d16_bf16 / flash_fwd_d64_bf16 /
    flash_fwd_d512_bf16, the bf16 backward at d = 16 flash_dq_d16_bf16 and
    flash_dkv_d16_bf16, at d = 64 flash_dq_d64_bf16 and flash_dkv_d64_bf16,
-   at d = 512 flash_dq_d512_bf16 and flash_dkv_d512_bf16),
+   at d = 512 flash_dq_d512_bf16 and flash_dkv_d512_bf16; the fp32
+   backward at d = 64 flash_dq_d64 and flash_dkv_d64, on TF32 wgmma),
    and a log line gives each bf16 row's times beside
    SDPA's bf16 call; another gives each training shape's dq and dkv times
    (ms and device_ms), their own bounds, the pair's and the pair's
@@ -199,7 +202,9 @@ and g++; no network. Phases, each fatal on failure:
    by 1.05) and fails if that reading is within the limit; the backward
    kernels also give the same bits on a second launch. A log line gives the
    fp32 backward's error against float64 at d = 16 and d = 64, L = 1024 and
-   8192: how each design's error moves with L;
+   8192: how each design's error moves with L; at d = 64 (per-tile
+   partials on wgmma) L = 8192 must read below BWD64_F64_TOL of max and
+   within twice L = 1024;
 14. validation (tagged `[validate]`, the root train.py's `run_validation`
    and `ImageLogger` as the training CLI calls them, on in-memory batches
    of configs/dataset/lic_valid.yaml's 1 x 512x512): (a) after phase 8
@@ -633,12 +638,20 @@ BF16_BWD_HEAD_DIMS = (16, 64, 512)
 # Head dims whose forward kernels, fp32 and bf16, run on wgmma with TMA
 # loads (flash_fwd_d64, flash_fwd_d64_bf16)
 HOPPER_FWD_HEAD_DIMS = (64,)
-# Each library's kernels on wgmma with TMA loads (the d = 64 forward in
-# both dtypes, the d = 64 bf16 backward): phase 2 counts their HGMMA and
-# UTMALDG instructions
+# Head dims whose fp32 backward kernels run on TF32 wgmma with TMA loads
+# (flash_dq_d64, flash_dkv_d64)
+HOPPER_BWD_FP32_HEAD_DIMS = (64,)
+# Each library's kernels on wgmma with TMA loads (the d = 64 forward and
+# backward in both dtypes): phase 2 counts their HGMMA and UTMALDG
+# instructions, and a ptxas C7519 in one of them fails the run
 HOPPER_KERNELS = {"flash_attn_fwd": ("flash_fwd_d64", "flash_fwd_d64_bf16"),
                   "flash_attn_bwd": ("flash_dq_d64_bf16",
-                                     "flash_dkv_d64_bf16")}
+                                     "flash_dkv_d64_bf16", "flash_dq_d64",
+                                     "flash_dkv_d64")}
+# The fp32 d = 64 backward's error against float64 at L = 8192, of max
+# (phase 13): its per-tile partials keep it at its L = 1024 reading
+# (~3e-6; the one-accumulator mma.sync design it replaced read 7.2e-5)
+BWD64_F64_TOL = 5e-5
 # The exponentials' floor of a flash call (`softmax_bound_ms`): B H L^2 of
 # them on the MUFU units, 16 a clock per SM (sm_90), at the boost clock
 MUFU_EX2_PER_CLOCK = 16
@@ -750,7 +763,7 @@ def phase_build():
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] nvcc + g++ in parallel: {time.perf_counter() - t0:.1f} s")
-    spills = []
+    spills, c7519 = [], []
     for lib in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_fwd",
                 "group_norm_bwd", "device_rans"):
         kernel = mangled = "?"
@@ -776,6 +789,8 @@ def phase_build():
                     kernel = rans[1]
             elif "C7519" in line:  # ptxas injected a warpgroup.arrive
                 log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
+                if kernel in HOPPER_KERNELS.get(lib, ()):
+                    c7519.append(kernel)
             elif "registers" in line or "spill" in line:
                 log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
                 # every flash kernel and the GroupNorm backward, found in
@@ -786,6 +801,9 @@ def phase_build():
     if spills:
         raise AssertionError(f"flash kernels or the GroupNorm backward "
                              f"spill: {spills}")
+    if c7519:
+        raise AssertionError(f"ptxas injected a warpgroup.arrive (C7519) "
+                             f"in {c7519}")
     for lib, names in HOPPER_KERNELS.items():
         counts = sass_counts(libs[lib])
         for name in names:
@@ -2742,6 +2760,8 @@ def flash_bwd_kernel(name: str, d: int, dtype) -> str:
     csrc/flash_attn_bwd.cu)."""
     if dtype == torch.bfloat16 and d in BF16_BWD_HEAD_DIMS:
         return f"flash_{name}_d{d}_bf16"
+    if d in HOPPER_BWD_FP32_HEAD_DIMS:  # no template
+        return f"flash_{name}_d{d}"
     return f"flash_{name}_d{d}<{'fp32' if dtype == torch.float32 else 'bf16'}>"
 
 
@@ -3246,10 +3266,18 @@ def phase_kernels(device, runs) -> list:
     for d in (16, 64):
         reads = {seq: bwd_error_vs_float64(device, (1, seq, 2, d))
                  for seq in (1024, 8192)}
-        log(f"[kernels] flash backward fp32 error against float64 at d = {d}, "
+        log(f"[kernels] flash backward fp32 error against float64 at d = {d} "
+            f"({flash_bwd_kernel('dq', d, torch.float32)}, "
+            f"{flash_bwd_kernel('dkv', d, torch.float32)}), "
             "max |g - g64| / max |g64| of dq, dk, dv: "
             + "; ".join(f"L = {seq}: " + ", ".join(f"{x:.3g}" for x in r)
                         for seq, r in reads.items()))
+        if d in HOPPER_BWD_FP32_HEAD_DIMS and not (
+                max(reads[8192]) < BWD64_F64_TOL
+                and max(reads[8192]) <= 2 * max(reads[1024])):
+            raise AssertionError(
+                f"the fp32 d = {d} backward's error grows with L or passes "
+                f"{BWD64_F64_TOL} of max at L = 8192: {reads}")
     for path, per_what in fwd_paths.items():
         per = {key: sum(r[key] * r["calls"].get(path, 0) for r in gn_rows)
                for key in ("ms", "device_ms", "host_us", "library_ms",

@@ -23,9 +23,9 @@
 //
 // d = 16 (the control branch: [2, 4096, 4, 16] and [2, 1024, 8, 16] per
 // independent micro-step, twice that per refine micro-step) runs, in fp32,
-// flash_dq_d16 and flash_dkv_d16 on the tensor cores, with the TF32
-// mma.sync and 3xTF32 split of the d = 64 pair (below), reshaped for what
-// d = 16 makes cheap (bf16 at d = 16 has kernels of its own, below):
+// flash_dq_d16 and flash_dkv_d16 on the tensor cores, with TF32 mma.sync
+// and the 3xTF32 split of flash_mma.cuh, shaped for what d = 16 makes
+// cheap (bf16 at d = 16 has kernels of its own, below):
 // - 64-row kept tiles, 8 warps: warp w owns rows 16 (w & 3).. of the tile
 //   and half w >> 2 of every 128-row streamed tile, in 32-row chunks; the
 //   two halves add their accumulators at the end through shared memory, in
@@ -64,63 +64,107 @@
 //   r and r + 64), which keeps them from spilling.
 // What it does about the FMA template it replaces: tensor cores in place of
 // fp32 FMA; scores, P and dS in registers in place of shared memory; 16-byte
-// asynchronous copies in place of element loads through registers. Against
-// the d = 64 pair: the kept pair in registers, split once, and each
-// streamed value split once a block rather than once in every warp.
+// asynchronous copies in place of element loads through registers; the
+// kept pair in registers, split once, and each streamed value split once a
+// block rather than once in every warp.
 //
 // d = 64 (the UNet: [2, 4096, 5, 64] and [2, 1024, 10, 64] per independent
 // micro-step, twice that per refine micro-step) runs, in fp32, flash_dq_d64
-// and flash_dkv_d64 on the tensor cores: TF32 mma.sync (m16n8k8), fp32
-// accumulators, 3xTF32 for fp32 products (flash_mma.cuh). (bf16 at d = 64
-// has kernels of its own, below.) Both kernels:
-// - 64-row tiles, 4 warps; warp w owns rows 16 w.. of the block's tile (q
-//   rows in dq, keys in dkv). The kept pair (Q and dO in dq, K and V in dkv)
-//   stays in shared memory for the whole loop and is read as A fragments
-//   by ldmatrix; the streamed pair (K and V, or Q and dO) comes in 64-row
-//   tiles by cp.async (16 bytes a lane, zero-filled past L) and is used in
-//   32-row chunks.
-// - Scores as C fragments in registers: S = Q K^T and dP = dO V^T in dq;
-//   S^T = K Q^T and dP^T = V dO^T in dkv, so that P^T and dS^T are C
-//   fragments with keys as rows. The two products of a chunk interleave
-//   (8 independent accumulators). P = exp(S scale - lse), 0 on a padded q
-//   row (and, in dq, a padded key), and dS = P (dP - di) scale are formed in
-//   place; they never reach shared memory. dq holds lse and di of its rows
-//   g and g + 8 in registers (di = rowsum(dO O) from the kept dO and O, by
-//   quad shuffles); dkv reads them by column from shared memory, staged a
-//   q tile ahead.
-// - dq += dS K, dv += P^T dO and dk += dS^T Q take the score fragments as A
-//   in a permuted k order (k-slot t is streamed row 2t, slot t + 4 row
-//   2t + 1), which makes a C fragment an A fragment with no shuffle; B is
-//   then the streamed tile read at rows 2t and 2t + 1. dkv interleaves its
-//   two products (16 accumulators).
-// - One layout serves every read: row stride 68 floats (4 mod 32 banks),
-//   not swizzled. An 8-row ldmatrix phase covers 8 x 4 banks and the
-//   row-pair read puts lane (g, t) on bank 8 t + g (+ 4): both hit 32
-//   distinct banks (tests/test_torch_port_tf32_split.py counts them; the
-//   forward's swizzled stride 72 would give the row-pair read two-way
-//   conflicts).
-// - Occupancy: dq keeps 2 tiles and one streamed pair (70 KB), 3 blocks of
-//   4 warps per SM; its next pair is copied after the current one is used,
-//   while the SM's other blocks compute. dkv keeps 2 tiles and double-
-//   buffers its streamed pair (105 KB), 2 blocks per SM, each copying the
-//   next pair while it uses the current one.
-// - ptxas -v: dq 166 registers, dkv 196; no spills.
-// - Accuracy: mma.sync rounds the sum it returns toward zero, and dq, dk
-//   and dv take every pass into their running accumulators, so their fp32
-//   error grows with L: on the card ~1e-5 of max at L = 1024, 5e-5 at 4096,
-//   7e-5 at 8192 (limit 1e-4; tests/test_torch_port_tf32_split.py models
-//   it). Summing each step's passes from zero and adding that in fp32
-//   keeps it flat, but the temporaries spill both kernels.
-// What it does about the FMA template it replaces at d = 64: tensor
-// cores in place of fp32 FMA; scores, P and dS in registers in place of
-// shared memory; 16-byte asynchronous copies in place of element loads
-// through registers. Keeping the kept pair in shared memory, not split in
-// registers, keeps both kernels under 200 registers without spills, which
-// leaves the compiler room to overlap loads with mma and buys dq a third
-// block per SM. What holds it back now: 3 TF32 mma and a split (3 integer and
-// fp32 operations) per fp32 product, with every warp splitting the same
-// streamed fragments again; 8-12 warps per SM to hide mma.sync's latency;
-// mma.sync's rate on Hopper (wgmma is the full-rate instruction).
+// and flash_dkv_d64 on Hopper's warpgroup products in TF32, each fp32
+// product as three passes (3xTF32), from the pieces of flash_hopper.cuh as
+// the fp32 d = 64 forward is (bf16 at d = 64 has kernels of its own,
+// below):
+// - Blocks: 384 threads, one block an SM (shared memory): a producer
+//   warpgroup and two consumer warpgroups, each owning 64 rows of the
+//   block's 128 kept rows (q rows in dq, keys in dkv), which take turns
+//   issuing a tile's scores (named barriers), so that one's softmax tends
+//   to run under the other's products. The streamed pair (K and V in dq; Q
+//   and dO in dkv) comes in tiles of 32 rows.
+// - Passes: every product is three TF32 wgmma an 8-deep step, small * big,
+//   big * small, big * big, the small one first: wgmma rounds each
+//   instruction's sum toward zero and cuts each term two bits below the
+//   largest one's ulp (tools/wgmma_probe.py on the card), so a small term
+//   beside a big one in one instruction would be cut away; one TF32 pass
+//   misses the fp32 limit (tests/test_torch_port_flash_bwd_d64_fp32.py).
+// - Operands: TF32 wgmma takes K-major operands only. The scores are K-major
+//   as the tensors lie (S = Q K^T and dP = dO V^T in dq, S^T = K Q^T and
+//   dP^T = V dO^T in dkv, over d); the products with P and dS run over the
+//   streamed rows, along which K, Q and dO lie MN-major, so they need K^T
+//   (dq += dS K), dO^T (dv += P^T dO) and Q^T (dk += dS^T Q). TMA loads the
+//   raw fp32 tiles (two 128-byte-swizzled boxes a 64-wide row, zeros past
+//   L) into a ring two tiles ahead; the producer warpgroup splits each
+//   loaded tile once (big = TF32 of x to nearest, small = x - big) into its
+//   big and small planes in the same layout, and writes the transposed
+//   ones, big and small, with d as the rows and the streamed rows along
+//   them in the permuted order of an accumulator fragment (within 8 rows,
+//   k slot t is row 2t and slot t + 4 row 2t + 1), into a second ring of
+//   two stages: P and dS, formed in place in the scores' accumulator
+//   registers, are then the register A operand as they stand (a0..a3 = c0,
+//   c2, c1, c3), split in registers, as P is in the forward. Every read and
+//   write of the split hits 32 banks.
+// - The kept pair (Q and dO in dq; K and V in dkv) is split once: each
+//   consumer loads its rows' fragments from device memory, keeps the big
+//   terms in registers (the A of the second and third pass) and writes the
+//   small terms to shared memory in the swizzle (the A of the first pass).
+//   dq computes di = rowsum(dO O) from the same loads (a quad a row) and
+//   writes it; dkv's streamed lse and di rows ([B*H, L] fp32, whose rows
+//   are not 16-byte aligned at every L) come by 4-byte cp.async from the
+//   producer's warp 0, joined to the stage's barrier
+//   (cp.async.mbarrier.arrive.noinc), and the producer stages lse log2(e)
+//   and di beside the operands.
+// - Softmax in log2 units: P = 2^(S scale log2(e) - lse log2(e)), and
+//   dS / scale = P (dP - di), the scale (1/8: a power of two, so the bits
+//   are those of P (dP scale - di scale)) applied to dq and dk at the end;
+//   dq masks keys past L in its last tile; in dkv a q row past L lands as
+//   zeros, so P^T = 1 and dS^T = 0 there, times dO^T = Q^T = 0: no test.
+// - Accuracy: each tile's dq, dv and dk products sum from zero into a
+//   partial (wgmma's first step of the tile does not add its C) that joins
+//   the running sum by one fp32 add, so wgmma's rounding toward zero stays
+//   that of one tile and the fp32 error stays flat in L, as the forward's P
+//   V. dkv takes dv's partial and then dk's, one at a time: one partial
+//   and one set of terms live (in its half blocks each in two 32-column
+//   halves of d, a partial of 16 registers: with 32 they spilled).
+// - Grid: one block per (128-row kept tile, b*h), one block an SM: 320 at
+//   [2, 4096, 5, 64] and 160 at [2, 1024, 10, 64], 2.42 and 1.21 waves on
+//   132 SMs, whose last wave would leave 76 and 104 SMs idle. So where the
+//   last wave fills half the SMs or less, its tiles run as two half blocks
+//   each (64 kept rows, both consumer warpgroups on them, taking the
+//   streamed tiles in turn; warpgroup 1 hands its sums to warpgroup 0
+//   through shared memory, which adds them in a fixed order), a second
+//   launch of the kernel's half-block instantiation after the full blocks'
+//   whole waves: 264 + 2 x 56 and 132 + 2 x 28 blocks. No atomics: two
+//   launches give the same bits.
+// - Shared memory: dq 193 KB (two raw K / V stages 32 KB; two operand
+//   stages of K big and small, V big and small, K^T big and small, 96 KB;
+//   the kept small planes 64 KB), dkv 226 KB (raw 32 KB; operands with Q^T
+//   and dO^T 128 KB; kept 64 KB; the rows' lse and di 1 KB). Registers:
+//   168 a thread at launch (65536 over 384), moved by setmaxnreg to the
+//   consumers: dq 56 / 224, dkv 40 / 232 (its consumer holds K's and V's
+//   big terms, dk and dv, a partial and one product's terms); another
+//   launch count is refused, since setmaxnreg.inc would wait for registers
+//   the producer never gave back.
+// - Host: each call encodes its two tensor maps (after cudaSetDevice, which
+//   binds the context the driver call needs on a thread such as autograd's
+//   worker) and launches one or two grids. A call through the Python wrapper
+//   takes ~58 us of host (dq and dkv each at [1, 130, 2, 64] back to back,
+//   where the card's part is ~15 us; chip_smoke run A), under the kernels'
+//   113 and 140 us at [2, 1024, 10, 64], whose back-to-back time there
+//   (0.2556 ms) is the device's (0.2530).
+// What it does about the mma.sync design it replaces (TF32 m16n8k8, 4
+// warps a 64-row block, every warp splitting the same streamed fragments
+// again, passes taken into one running accumulator, whose error grew with
+// L): wgmma at the full TF32 rate with B read by the tensor cores from
+// shared memory, each streamed value split once a block, TMA copies, and
+// per-tile partials.
+// Probes on the card (rdeic_torch/tools/flash_bwd_probe.py --d 64 --dtype
+// fp32, PERF.md §6), the pair at [2, 4096, 5, 64]: 1.42-1.44 ms (the
+// mma.sync pair 2.72-2.80 in the same process); every tile in full blocks
+// 1.60-1.62 (the tail wave); no turns 1.43-1.46; one TF32 pass a product
+// (wrong values) 0.90-0.96, so the two further passes add about their
+// time at the TF32 rate, and what stays is the softmax, the waits and the
+// splits that no product overlaps; without the producer's split (wrong
+// values) 1.32, without the first pass's A from shared memory 1.36,
+// ex2.approx for exp2f 1.39-1.42.
 //
 // bf16 at d = 64 (the bf16 training recipes: the same shapes) runs
 // flash_dq_d64_bf16 and flash_dkv_d64_bf16 on Hopper's warpgroup products,
@@ -1143,381 +1187,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace d512
 
-// d = 64 on the tensor cores (header). 128 threads a block; warp w owns
-// rows 16 w.. of the block's 64-row tile (q rows in dq, keys in dkv).
-namespace d64 {
-
-constexpr int D = 64, BT = 64, NT = 128;
-constexpr int TS = D + 4;  // tile stride: 4 mod 32 banks, not swizzled
-constexpr int KC = 32;     // streamed rows a chunk
-constexpr int kTile = BT * TS;
-// dq: the kept Q and dO, one streamed K / V pair (3 blocks per SM). dkv: the
-// kept K and V, two streamed Q / dO pairs, lse and di (2 blocks per SM).
-constexpr int kDqSmemFloats = 4 * kTile;
-constexpr int kDkvSmemFloats = 6 * kTile + 2 * BT;
-static_assert(3 * kDqSmemFloats * 4 <= 232448, "three dq blocks per SM");
-static_assert(2 * kDkvSmemFloats * 4 <= 232448, "two dkv blocks per SM");
-
-// One 8-deep step of s += A B: A (16 x 8) raw fp32 a0..a3, B(d, n) =
-// tile[n][d] from bf (RowB), for NC n-tiles.
-template <int NC>
-__device__ __forceinline__ void score_step(float (&s)[NC][4],
-                                           const float (&a)[4],
-                                           const float (&bf)[NC][2]) {
-  using namespace rdeic_flash;
-  uint32_t ab[4], as[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split<true>(a[i], ab[i], as[i]);
-#pragma unroll
-  for (int n = 0; n < NC; ++n) {
-    uint32_t bb[2], bs[2];
-    split<true>(bf[n][0], bb[0], bs[0]);
-    split<true>(bf[n][1], bb[1], bs[1]);
-    mma_tf32(s[n], as, bb);
-    mma_tf32(s[n], ab, bs);
-    mma_tf32(s[n], ab, bb);
-  }
-}
-
-// s1 = A1 B1^T and s2 = A2 B2^T over d, 16 x 8 NC each: A the warp's 16
-// rows of the kept tiles a1, a2 (ldmatrix, RowA), B the NC 8-row groups of
-// the streamed tiles b1, b2 from their row 0 (ldmatrix, RowB). n-tile n
-// holds streamed rows 8 n.. as columns. The two products interleave, 2 NC
-// independent accumulators.
-template <int NC>
-__device__ __forceinline__ void scores(float (&s1)[NC][4], float (&s2)[NC][4],
-                                       const float* a1, const float* a2,
-                                       const float* b1, const float* b2) {
-  using namespace rdeic_flash;
-  zero(s1);
-  zero(s2);
-  const int m0 = (threadIdx.x >> 5) * 16;
-  const RowA<TS, false> ra1(a1, m0, 0), ra2(a2, m0, 0);
-  const RowB<TS, false> rb1(b1, 0, 0), rb2(b2, 0, 0);
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    float x1[1][4], x2[1][4], y1[NC][2], y2[NC][2];
-    ra1.load(x1, kk * 8);
-    rb1.load(y1, kk * 8);
-    ra2.load(x2, kk * 8);
-    rb2.load(y2, kk * 8);
-    score_step<NC>(s1, x1[0], y1);
-    score_step<NC>(s2, x2[0], y2);
-  }
-}
-
-// The 8 streamed rows kk of C (16 x 8 NC score fragments: P or dS) as an A fragment in the permuted k order: k-slot t is
-// streamed row 2t, slot t + 4 row 2t + 1, so a0..a3 = c0, c2, c1, c3.
-__device__ __forceinline__ void c_as_a(const float (&c)[4], uint32_t (&pb)[4],
-                                       uint32_t (&ps)[4]) {
-  using namespace rdeic_flash;
-  split<true>(c[0], pb[0], ps[0]);
-  split<true>(c[2], pb[1], ps[1]);
-  split<true>(c[1], pb[2], ps[2]);
-  split<true>(c[3], pb[3], ps[3]);
-}
-
-// acc (16 x 64) += (8 rows of C as A) B, B(k, n) = tile[k][n] read at rows
-// 2t and 2t + 1 (b, already at the lane's row 2t and column g; stride TS:
-// 32 banks). mma.sync rounds its result toward zero, so each pass drops up
-// to an ulp of acc, always toward zero: over the L-long sum the error grows
-// with L (header).
-__device__ __forceinline__ void accumulate_step(float (&acc)[D / 8][4],
-                                                const uint32_t (&pb)[4],
-                                                const uint32_t (&ps)[4],
-                                                const float* b) {
-  using namespace rdeic_flash;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    uint32_t bb[2], bs[2];
-    split<true>(b[8 * n], bb[0], bs[0]);
-    split<true>(b[TS + 8 * n], bb[1], bs[1]);
-    mma_tf32(acc[n], ps, bb);
-    mma_tf32(acc[n], pb, bs);
-    mma_tf32(acc[n], pb, bb);
-  }
-}
-
-// The warp's 16 x 64 accumulator, rows r0 + g and r0 + g + 8 (those below
-// L), to out (at (b, h)) in the storage type.
-template <typename T>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 8][4],
-                                           int r0, int L, int64_t row) {
-  using namespace rdeic_flash;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + g + 8 * half;
-    if (r >= L) continue;
-    T* p = out + r * row + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      store2<T>(p + 8 * n, acc[n][2 * half], acc[n][2 * half + 1]);
-  }
-}
-
-// One block: (64-row q tile blockIdx.x, b*h blockIdx.y). Q and dO stay in
-// shared memory; warp w owns q rows 16 w.. and their lse and di, and streams
-// 64-row K and V tiles in KC-key chunks: S = Q K^T and dP = dO V^T as C
-// fragments, P and dS in place in registers, dq += dS K. Also di =
-// rowsum(dO * O) for the tile's rows, written to `di`. One buffer for the
-// streamed pair: the next pair is copied after this one is used, while the
-// SM's other two blocks compute.
-template <typename T>
-__global__ void __launch_bounds__(NT, 3)
-    flash_dq_d64(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ o,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 T* __restrict__ dq, float* __restrict__ di, int L, int H,
-                 float scale) {
-  using namespace rdeic_flash;
-  extern __shared__ __align__(16) float smem_d64[];
-  float* qs = smem_d64;     // [BT][TS]
-  float* dos = qs + kTile;  // [BT][TS]
-  float* ks = dos + kTile;  // [BT][TS]
-  float* vs = ks + kTile;   // [BT][TS]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BT;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t row = static_cast<int64_t>(H) * D;
-  const int64_t base = static_cast<int64_t>(b) * L * row +
-                       static_cast<int64_t>(h) * D;
-  const int64_t rbase = static_cast<int64_t>(bh) * L;
-  const T* kb = k + base;
-  const T* vb = v + base;
-
-  // O passes through the K buffer; the first V tile lands meanwhile
-  const float* os = ks;
-  load_rows<T, BT, D, NT, TS, false>(qs, q + base, q0, L, row);
-  load_rows<T, BT, D, NT, TS, false>(dos, dout + base, q0, L, row);
-  load_rows<T, BT, D, NT, TS, false>(ks, o + base, q0, L, row);
-  load_rows<T, BT, D, NT, TS, false>(vs, vb, 0, L, row);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  // rows g (half 0) and g + 8 (half 1) of the warp's 16: lse, and di from
-  // the lane's 16 products of each row and its quad's
-  const int r0 = q0 + warp * 16 + g;
-  const bool in[2] = {r0 < L, r0 + 8 < L};
-  float lse_r[2], di_r[2] = {0.f, 0.f};
-  {
-    const RowA<TS, false> rd(dos, warp * 16, 0), ro(os, warp * 16, 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      float x[1][4], y[1][4];
-      rd.load(x, kk * 8);
-      ro.load(y, kk * 8);
-      di_r[0] = fmaf(x[0][0], y[0][0], di_r[0]);
-      di_r[0] = fmaf(x[0][2], y[0][2], di_r[0]);
-      di_r[1] = fmaf(x[0][1], y[0][1], di_r[1]);
-      di_r[1] = fmaf(x[0][3], y[0][3], di_r[1]);
-    }
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    di_r[half] += __shfl_xor_sync(0xffffffffu, di_r[half], 1);
-    di_r[half] += __shfl_xor_sync(0xffffffffu, di_r[half], 2);
-    const int r = r0 + 8 * half;
-    lse_r[half] = in[half] ? lse[rbase + r] : 0.f;
-    if (in[half] && t == 0) di[rbase + r] = di_r[half];
-  }
-  __syncthreads();  // done with O
-  load_rows<T, BT, D, NT, TS, false>(ks, kb, 0, L, row);
-  cp_async_commit();
-
-  float acc[D / 8][4];  // dq[16 rows][64]: n-tile n holds columns 8 n..
-  zero(acc);
-  const int nk = (L + BT - 1) / BT;
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BT;
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll 1
-    for (int c0 = 0; c0 < BT; c0 += KC) {
-      const float* kt = ks + c0 * TS;
-      const float* vt = vs + c0 * TS;
-      float s[KC / 8][4], dp[KC / 8][4];
-      scores<KC / 8>(s, dp, qs, dos, kt, vt);
-      // P = exp(S scale - lse), 0 on a padded row or key; dS = P (dP - di)
-      // scale, in place of S
-#pragma unroll
-      for (int n = 0; n < KC / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int half = i >> 1, key = k0 + c0 + 8 * n + 2 * t + (i & 1);
-          const float p = (in[half] && key < L)
-                              ? expf(s[n][i] * scale - lse_r[half]) : 0.f;
-          s[n][i] = p * (dp[n][i] - di_r[half]) * scale;
-        }
-#pragma unroll
-      for (int kk = 0; kk < KC / 8; ++kk) {
-        uint32_t pb[4], ps[4];
-        c_as_a(s[kk], pb, ps);
-        accumulate_step(acc, pb, ps, kt + (8 * kk + 2 * t) * TS + g);
-      }
-    }
-    __syncthreads();  // every warp is done with this pair before its refill
-    if (j + 1 < nk) {
-      load_rows<T, BT, D, NT, TS, false>(ks, kb, k0 + BT, L, row);
-      load_rows<T, BT, D, NT, TS, false>(vs, vb, k0 + BT, L, row);
-      cp_async_commit();
-    }
-  }
-  cp_async_wait<0>();
-  store_rows<T>(dq + base, acc, q0 + warp * 16, L, row);
-}
-
-// One block: (64-row k tile blockIdx.x, b*h blockIdx.y). K and V stay in
-// shared memory; warp w owns keys 16 w.. and streams 64-row Q and dO tiles
-// in KC-row chunks: S^T = K Q^T and dP^T = V dO^T as C fragments (rows
-// keys, columns q), P^T and dS^T in place in registers (lse and di by
-// column, from shared memory), dv += P^T dO, dk += dS^T Q. The next Q / dO
-// pair is copied while this one is used.
-template <typename T>
-__global__ void __launch_bounds__(NT, 2)
-    flash_dkv_d64(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ di, T* __restrict__ dk,
-                  T* __restrict__ dv, int L, int H, float scale) {
-  using namespace rdeic_flash;
-  extern __shared__ __align__(16) float smem_d64[];
-  float* ks = smem_d64;         // [BT][TS]
-  float* vs = ks + kTile;       // [BT][TS]
-  float* qs = vs + kTile;       // [2 buffers][BT][TS]
-  float* dos = qs + 2 * kTile;  // [2 buffers][BT][TS]
-  float* lse_s = dos + 2 * kTile;  // [BT] of the current q tile
-  float* di_s = lse_s + BT;         // [BT]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BT;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t row = static_cast<int64_t>(H) * D;
-  const int64_t base = static_cast<int64_t>(b) * L * row +
-                       static_cast<int64_t>(h) * D;
-  const int64_t rbase = static_cast<int64_t>(bh) * L;
-  const T* qb = q + base;
-  const T* db = dout + base;
-
-  load_rows<T, BT, D, NT, TS, false>(ks, k + base, k0, L, row);
-  load_rows<T, BT, D, NT, TS, false>(vs, v + base, k0, L, row);
-  load_rows<T, BT, D, NT, TS, false>(qs, qb, 0, L, row);
-  load_rows<T, BT, D, NT, TS, false>(dos, db, 0, L, row);
-  cp_async_commit();
-
-  // lse and di of a q tile, read one tile ahead so that their latency
-  // hides behind a whole tile's work
-  float lse_next = 0.f, di_next = 0.f;
-  if (tid < BT && tid < L) {
-    lse_next = lse[rbase + tid];
-    di_next = di[rbase + tid];
-  }
-  float acc_k[D / 8][4], acc_v[D / 8][4];  // dk, dv [16 keys][64]
-  zero(acc_k);
-  zero(acc_v);
-  const int nq = (L + BT - 1) / BT;
-  for (int j = 0; j < nq; ++j) {
-    const int cur = j & 1, q0 = j * BT;
-    if (tid < BT) {  // the previous tile's last sync has passed: no reader
-      lse_s[tid] = lse_next;
-      di_s[tid] = di_next;
-      const bool in = q0 + BT + tid < L;
-      lse_next = in ? lse[rbase + q0 + BT + tid] : 0.f;
-      di_next = in ? di[rbase + q0 + BT + tid] : 0.f;
-    }
-    if (j + 1 < nq) {  // the next pair lands while this one is used
-      load_rows<T, BT, D, NT, TS, false>(qs + (cur ^ 1) * kTile, qb, q0 + BT,
-                                         L, row);
-      load_rows<T, BT, D, NT, TS, false>(dos + (cur ^ 1) * kTile, db,
-                                         q0 + BT, L, row);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this pair (the next may be in flight)
-    __syncthreads();
-#pragma unroll 1
-    for (int c0 = 0; c0 < BT; c0 += KC) {
-      const float* qt = qs + cur * kTile + c0 * TS;
-      const float* dt = dos + cur * kTile + c0 * TS;
-      float s[KC / 8][4], dp[KC / 8][4];
-      scores<KC / 8>(s, dp, ks, vs, qt, dt);
-      // column c = c0 + 8 n + 2 t + e is q row q0 + c: P^T = exp(S^T scale
-      // - lse[c]), 0 on a padded q row; dS^T = P^T (dP^T - di[c]) scale
-#pragma unroll
-      for (int n = 0; n < KC / 8; ++n) {
-        const int c = c0 + 8 * n + 2 * t;
-        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
-        const float2 d2 = *reinterpret_cast<const float2*>(di_s + c);
-        const float lc[2] = {l2.x, l2.y}, dc[2] = {d2.x, d2.y};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int e = i & 1;
-          const float p = q0 + c + e < L ? expf(s[n][i] * scale - lc[e]) : 0.f;
-          s[n][i] = p;
-          dp[n][i] = p * (dp[n][i] - dc[e]) * scale;
-        }
-      }
-      // dv += P^T dO and dk += dS^T Q, interleaved: 16 accumulators
-#pragma unroll
-      for (int kk = 0; kk < KC / 8; ++kk) {
-        uint32_t pb[4], ps[4];
-        c_as_a(s[kk], pb, ps);
-        accumulate_step(acc_v, pb, ps, dt + (8 * kk + 2 * t) * TS + g);
-        c_as_a(dp[kk], pb, ps);
-        accumulate_step(acc_k, pb, ps, qt + (8 * kk + 2 * t) * TS + g);
-      }
-    }
-    __syncthreads();  // every warp is done with this pair before its refill
-  }
-  cp_async_wait<0>();
-  store_rows<T>(dk + base, acc_k, k0 + warp * 16, L, row);
-  store_rows<T>(dv + base, acc_v, k0 + warp * 16, L, row);
-}
-
-template <typename T>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* o, const void* dout, const float* lse,
-                      void* dq, float* di, int B, int L, int H, float scale,
-                      cudaStream_t stream) {
-  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
-  if (err != cudaSuccess) return err;
-  auto kernel = flash_dq_d64<T>;
-  const int smem = kDqSmemFloats * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + BT - 1) / BT, B * H);
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, static_cast<T*>(dq), di, L, H, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* di,
-                       void* dk, void* dv, int B, int L, int H, float scale,
-                       cudaStream_t stream) {
-  cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
-  if (err != cudaSuccess) return err;
-  auto kernel = flash_dkv_d64<T>;
-  const int smem = kDkvSmemFloats * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + BT - 1) / BT, B * H);
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-      static_cast<T*>(dk), static_cast<T*>(dv), L, H, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace d64
-
 // `smem` bytes of dynamic shared memory for `kernel`, and as much shared
 // memory on the SM as it has, so that the blocks a kernel's launch bounds
 // ask for fit (four d16_bf16 blocks; one d64_bf16 or d512_bf16 block of
@@ -1551,6 +1220,18 @@ cudaError_t prepare_on_device(Kernel kernel, int smem,
   if (err == cudaSuccess && flagged)
     prepared[dev].store(true, std::memory_order_release);
   return err;
+}
+
+// cudaSuccess if `kernel` launches with `regs` registers a thread: a kernel
+// whose consumers raise their registers by setmaxnreg.inc needs the count
+// its exchange assumes (with fewer, the raise would wait for registers the
+// producer never gave back)
+template <typename Kernel>
+cudaError_t launch_regs(Kernel kernel, int regs) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  return attr.numRegs == regs ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
 // bf16 at d = 64 on wgmma (header). One block: a kept tile of 64 NWG rows
@@ -2032,13 +1713,7 @@ std::atomic<bool> dkv_prepared[kMaxDevices];
 template <typename Kernel>
 cudaError_t prepare_exchange(Kernel kernel, int smem,
                              std::atomic<bool>* prepared) {
-  static const cudaError_t regs = [kernel] {
-    cudaFuncAttributes attr;
-    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return err;
-    return attr.numRegs == kLaunchRegs ? cudaSuccess
-                                       : cudaErrorInvalidConfiguration;
-  }();
+  static const cudaError_t regs = launch_regs(kernel, kLaunchRegs);
   if (regs != cudaSuccess) return regs;
   return prepare_on_device(kernel, smem, prepared);
 }
@@ -2086,6 +1761,805 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 }  // namespace d64_bf16
+
+// fp32 at d = 64 on TF32 wgmma, each product as three passes (header). One
+// block: kept rows of one b*h (q rows in dq, keys in dkv: 128, or 64 in a
+// half block, `Block`) and three warpgroups: warpgroup 0 the producer
+// (thread 0 issues every TMA load, all 128 threads split the loaded tiles
+// into the operands wgmma reads), warpgroups 1 and 2 the consumers, each
+// with its 64 kept rows' big terms, scores and sums in registers.
+namespace d64 {
+
+using namespace rdeic_flash::hopper;
+constexpr int D = 64, NWG = 2, BM = 64 * NWG, BN = 32, STAGES = 2;
+constexpr int NT = 128 * (NWG + 1);
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(BN * 4 == 128, "a transposed plane's row is one 128-byte row");
+constexpr uint32_t kAtom = 64 * 128;    // bytes: 64 rows of 32 fp32
+constexpr uint32_t kSAtom = BN * 128;   // bytes: BN rows of 32 fp32
+constexpr uint32_t kKept = 2 * kAtom;   // a kept 64 x 64 plane: two atoms
+constexpr uint32_t kPlane = 2 * kSAtom;  // a streamed BN x 64 plane, K-major
+constexpr uint32_t kTPlane = kAtom;      // a transposed 64 x BN plane
+// a ring of streamed tiles as TMA loads them (two tensors), and a ring of
+// operands the producer makes of them: each tensor's big and small planes
+// (K-major, the scores' B) and, of the tensors that are the products' B,
+// big and small transposed planes (d as rows, the streamed rows in P's
+// permuted fragment order along them)
+constexpr uint32_t kRaw = 2 * kPlane;
+constexpr uint32_t kDqOp = 4 * kPlane + 2 * kTPlane;   // K, V; K^T
+constexpr uint32_t kDkvOp = 4 * kPlane + 4 * kTPlane;  // Q, dO; Q^T, dO^T
+// then the two kept tensors' small planes (the scores' A of the first
+// pass), NWG 64-row tiles each; dkv adds the streamed rows' lse and di,
+// as loaded and as lse log2(e) and di, [STAGES][2][BN] floats each
+constexpr uint32_t kRows = STAGES * 2 * BN * 4;
+constexpr int kDqSmemBytes =
+    1024 + STAGES * (kRaw + kDqOp) + 2 * NWG * kKept;
+constexpr int kDkvSmemBytes =
+    1024 + STAGES * (kRaw + kDkvOp) + 2 * NWG * kKept + 2 * kRows;
+static_assert(kDqSmemBytes <= 232448 - 64 && kDkvSmemBytes <= 232448 - 64,
+              "shared memory per block (and the barriers)");
+// registers: the launch's (65536 over 384 threads, to 8), then moved by
+// setmaxnreg from the producer, which splits, to the consumers, which hold
+// the kept big terms, the scores, P's or dS's terms and the accumulators;
+// setmaxnreg.inc waits for registers its own block freed, so the launch
+// must have kLaunchRegs a thread (launch_dq / launch_dkv refuse another)
+constexpr int kLaunchRegs = (65536 / NT) & ~7;
+constexpr int kDqProducerRegs = 56, kDqConsumerRegs = 224;
+constexpr int kDkvProducerRegs = 40, kDkvConsumerRegs = 232;
+static_assert(128 * kDqProducerRegs + 128 * NWG * kDqConsumerRegs <=
+                      NT * kLaunchRegs &&
+                  128 * kDkvProducerRegs + 128 * NWG * kDkvConsumerRegs <=
+                      NT * kLaunchRegs,
+              "registers per block");
+
+// The k slot of streamed row x of a tile in a transposed plane: within
+// each 8 rows, slot t is row 2t and slot t + 4 row 2t + 1, so that the
+// scores' accumulator fragment is the products' A fragment as it stands
+// (a0..a3 = c0, c2, c1, c3)
+__device__ __forceinline__ uint32_t slot_of(int x) {
+  const int e = x & 7;
+  return (x & ~7) + ((e & 1) ? 4 + (e >> 1) : e >> 1);
+}
+
+// The producer thread tid's share of one loaded BN x 64 tile (`raw`: two
+// atoms as TMA writes them) into its big and small planes (the same
+// swizzled layout) and, with TRANS, its transposed big and small planes:
+// lane = streamed row, chunk c = d 4c..4c + 3, 4 chunks a thread. Every
+// read and write hits 32 banks
+// (tests/test_torch_port_flash_bwd_d64_fp32.py).
+template <bool TRANS>
+__device__ __forceinline__ void split_tile(const unsigned char* raw,
+                                           unsigned char* big,
+                                           unsigned char* small,
+                                           unsigned char* tbig,
+                                           unsigned char* tsmall, int tid) {
+  const int lane = tid & 31, wq = tid >> 5;
+  const uint32_t slot = slot_of(lane);
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int c = wq + 4 * it;
+    const uint32_t at = (c >> 3) * kSAtom + swizzle128(lane, 16 * (c & 7));
+    float4 b, s;
+    rdeic_flash::split4(*reinterpret_cast<const float4*>(raw + at), b, s);
+    *reinterpret_cast<float4*>(big + at) = b;
+    *reinterpret_cast<float4*>(small + at) = s;
+    if constexpr (TRANS) {
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+      const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t t_at = swizzle128(4 * c + e, 4 * slot);
+        *reinterpret_cast<float*>(tbig + t_at) = bv[e];
+        *reinterpret_cast<float*>(tsmall + t_at) = sv[e];
+      }
+    }
+  }
+}
+
+// The consumer thread's 16 rows r0 (+ 8) of a kept [B, L, H, D] tensor
+// (p at (b, h)) as TF32 A fragments, split once: k-step kk holds (row,
+// 8 kk + t) and (row, 8 kk + t + 4) of rows r0 and r0 + 8. The big term
+// stays in registers (the A of the second and third pass); the small term
+// goes to `small`, the warpgroup's plane in the 128-byte swizzle (the A of
+// the first pass, from shared memory). Returns the values in x (0 past L).
+__device__ __forceinline__ void load_kept(const float* p, int r0, int rw,
+                                          int L, int64_t row,
+                                          uint32_t (&big)[D / 8][4],
+                                          unsigned char* small,
+                                          float (&x)[D / 8][4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = r0 + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+      x[kk][i] = rr < L ? p[rr * row + col] : 0.f;
+      uint32_t s;
+      rdeic_flash::split<true>(x[kk][i], big[kk][i], s);
+      *reinterpret_cast<uint32_t*>(
+          small + (col >> 5) * kAtom +
+          swizzle128(rw + 8 * (i & 1), 4 * (col & 31))) = s;
+    }
+}
+
+// The 64 x BN score tile of one kept tensor against one streamed one, three
+// passes an 8-deep step over d from zero (small * big, big * small,
+// big * big): A's small term from shared memory (`as`: the warpgroup's
+// plane), its big one from registers; B the streamed tile's big and small
+// planes (bb, bs)
+__device__ __forceinline__ void scores(float (&s)[BN / 2], uint32_t as,
+                                       const uint32_t (&ab)[D / 8][4],
+                                       uint32_t bb, uint32_t bs) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t ka = (kk >> 2) * kAtom + 32 * (kk & 3);
+    const uint32_t kb = (kk >> 2) * kSAtom + 32 * (kk & 3);
+    mma_m64n32k8_ss_tf32(s, desc(as + ka), desc(bb + kb), kk);
+    mma_m64n32k8_rs_tf32(s, ab[kk], desc(bs + kb), 1);
+    mma_m64n32k8_rs_tf32(s, ab[kk], desc(bb + kb), 1);
+  }
+}
+
+// x (a 64 x BN accumulator fragment: P, dS or their transposes) as the
+// TF32 A fragments of the BN / 8 steps over its columns, split: step kk's
+// a0..a3 are c0, c2, c1, c3 of n-tile kk (the permuted k order)
+__device__ __forceinline__ void terms(const float (&x)[BN / 2],
+                                      uint32_t (&big)[BN / 8][4],
+                                      uint32_t (&small)[BN / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      rdeic_flash::split<true>(x[4 * kk + ((e & 1) << 1) + (e >> 1)],
+                               big[kk][e], small[kk][e]);
+  fence_regs(big);
+  fence_regs(small);
+}
+
+// part = X B over the tile's BN streamed rows, from zero, three passes a
+// step (small * big, big * small, big * big): X's terms from registers, B
+// the transposed planes (tb, ts: N = d, K-major along the slots)
+__device__ __forceinline__ void product(float (&part)[D / 2],
+                                        const uint32_t (&big)[BN / 8][4],
+                                        const uint32_t (&small)[BN / 8][4],
+                                        uint32_t tb, uint32_t ts) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 8; ++kk) {
+    mma_m64n64k8_rs_tf32(part, small[kk], desc(tb + 32 * kk), kk);
+    mma_m64n64k8_rs_tf32(part, big[kk], desc(ts + 32 * kk), 1);
+    mma_m64n64k8_rs_tf32(part, big[kk], desc(tb + 32 * kk), 1);
+  }
+}
+
+// acc += X B over the tile's BN streamed rows (`product`), through a
+// partial from zero that joins acc by one fp32 add (wgmma rounds its sums
+// toward zero: the rounding stays that of one tile). With NARROW, as two
+// products of 32 columns of d (m64n32k8, B from rows 32 h.. of the planes),
+// one after the other, so that a partial of 16 registers is live, not 32:
+// dkv's half blocks, whose consumers would otherwise spill
+template <bool NARROW>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2],
+                                           const uint32_t (&big)[BN / 8][4],
+                                           const uint32_t (&small)[BN / 8][4],
+                                           uint32_t tb, uint32_t ts) {
+  constexpr int kParts = NARROW ? 2 : 1, kN = D / 2 / kParts;
+#pragma unroll
+  for (int h = 0; h < kParts; ++h) {
+    float part[kN];
+    wgmma_fence();
+    if constexpr (NARROW) {
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        const uint32_t at = 32 * 128 * h + 32 * kk;
+        mma_m64n32k8_rs_tf32(part, small[kk], desc(tb + at), kk);
+        mma_m64n32k8_rs_tf32(part, big[kk], desc(ts + at), 1);
+        mma_m64n32k8_rs_tf32(part, big[kk], desc(tb + at), 1);
+      }
+    } else {
+      product(part, big, small, tb, ts);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < kN; ++i) acc[kN * h + i] += part[i];
+  }
+}
+
+// The warpgroup's 64 x 64 accumulator, this thread's rows r0 and r0 + 8
+// (those below L), to out (at (b, h))
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&acc)[D / 2], int r0,
+                                           int L, int64_t row) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= L) continue;
+    float* p = out + r * row + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(p + 8 * n) =
+          make_float2(acc[4 * n + 2 * half], acc[4 * n + 2 * half + 1]);
+  }
+}
+
+// A block's kept rows. A full block (HALF false: block t of its launch is
+// tile t) keeps 128 rows, a consumer warpgroup on each 64, and gives every
+// streamed tile to both; a half block (HALF: blocks 2 i and 2 i + 1 of
+// theirs are the halves of tile full + i) keeps 64, both warpgroups on
+// them, warpgroup wg taking the streamed tiles j = wg mod 2. Tile t is
+// (b*h t / tiles, rows BM (t % tiles)..). launch_dq / launch_dkv launch
+// the full blocks, whole waves of one block an SM, then the tiles of a last
+// wave that would fill half the SMs or less as half blocks, in half the
+// time.
+template <bool HALF>
+struct Block {
+  static constexpr int kStep = HALF ? 2 : 1;
+  // lane 0 of each warp of the warpgroups that consume a tile
+  static constexpr uint32_t kConsumers = HALF ? 4 : 4 * NWG;
+  int bh, r0;
+  __device__ Block(int tiles, int full) {
+    const int t = HALF ? full + (blockIdx.x >> 1) : blockIdx.x;
+    bh = t / tiles;
+    r0 = (t % tiles) * BM + (HALF ? 64 * (blockIdx.x & 1) : 0);
+  }
+  // consumer warpgroup wg's first kept row and first streamed tile
+  __device__ int rows(int wg) const { return r0 + (HALF ? 0 : 64 * wg); }
+  static __device__ int first(int wg) { return HALF ? wg : 0; }
+};
+
+// Turns in a full block (named barriers 4 and 5): warpgroup wg waits for
+// its turn before it issues a tile's scores and gives the other its turn
+// after, so that one's softmax tends to run under the other's products;
+// warpgroup 1 gives warpgroup 0 its first turn, and none after its last
+// tile, which no one would take
+__device__ __forceinline__ void first_turn(int wg) {
+  if (wg == 1) named_arrive(4, 256);
+}
+__device__ __forceinline__ void take_turn(int wg) { named_sync(4 + wg, 256); }
+__device__ __forceinline__ void give_turn(int wg, bool last) {
+  if (wg == 0 || !last) named_arrive(5 - wg, 256);
+}
+
+// In a half block warpgroup 1 hands its sums over to warpgroup 0 through
+// shared memory at x (one of warpgroup 1's own small planes, free once its
+// products are done: float i of a thread at x + 4 (128 i + thread)), across
+// named barrier 4 of the two, and warpgroup 0 adds them to its own: the
+// even tiles' sum plus the odd tiles', in that order, so two launches give
+// the same bits. Which warpgroup a thread is in is read from threadIdx
+// again, so that nothing is kept live through the loop for it (dkv's
+// consumers have no register to spare).
+__device__ __forceinline__ bool second_warpgroup() {
+  return threadIdx.x >= 256;
+}
+template <int N>
+__device__ __forceinline__ void hand_over(const float (&acc)[N], uint32_t x) {
+  x += 4 * (threadIdx.x & 127);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("st.shared.f32 [%0], %1;" ::"r"(x + 512 * i), "f"(acc[i])
+                 : "memory");
+}
+template <int N>
+__device__ __forceinline__ void take_over(float (&acc)[N], uint32_t x) {
+  x += 4 * (threadIdx.x & 127);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float y;
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(y) : "r"(x + 512 * i)
+                 : "memory");
+    acc[i] += y;
+  }
+}
+
+// One block (Block): its q rows of b*h. The producer keeps the raw ring
+// STAGES tiles of BN keys ahead (K and V by TMA) and makes of each loaded
+// tile K big and small, V big and small, and K^T big and small in the
+// operand ring. Consumer wg keeps Q and dO of its 64 q rows (big terms in
+// registers, small terms in shared memory), computes di =
+// rowsum(dO O) of its rows from the same loads and writes it for the dkv
+// kernel, and per tile: S = Q K^T and dP = dO V^T (three passes each), P
+// and dS in place in the accumulator registers (log2 units), then dq's
+// partial dS K from zero (dS as A from registers, K^T the B), which joins
+// the running dq by one fp32 add.
+template <bool HALF>
+__global__ void __launch_bounds__(NT, 1)
+    flash_dq_d64(const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const float* __restrict__ q, const float* __restrict__ o,
+                 const float* __restrict__ dout,
+                 const float* __restrict__ lse, float* __restrict__ dq,
+                 float* __restrict__ di, int L, int H, float scale, int tiles,
+                 int full) {
+  extern __shared__ unsigned char smem_dq64[];
+  // per stage: loaded (TMA), ready (operands made), empty (consumed)
+  __shared__ __align__(8) uint64_t bars[3 * STAGES];
+  const uint32_t s0 = (smem_u32(smem_dq64) + 1023) & ~1023u;
+  unsigned char* const p0 = smem_dq64 + (s0 - smem_u32(smem_dq64));
+  const uint32_t op0 = s0 + STAGES * kRaw;
+  const uint32_t kept0 = op0 + STAGES * kDqOp;
+  // an operand stage: K big, K small, V big, V small, K^T big, K^T small
+  constexpr uint32_t kKb = 0, kKs = kPlane, kVb = 2 * kPlane,
+                     kVs = 3 * kPlane, kKTb = 4 * kPlane,
+                     kKTs = 4 * kPlane + kTPlane;
+  const uint32_t b0 = smem_u32(bars);
+  auto loaded = [&](int s) { return b0 + 8 * s; };
+  auto ready = [&](int s) { return b0 + 8 * (STAGES + s); };
+  auto empty = [&](int s) { return b0 + 8 * (2 * STAGES + s); };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Block<HALF> blk(tiles, full);
+  const int bh = blk.bh, b = bh / H, h = bh % H;
+  const int nk = (L + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(loaded(s), 1);
+      mbar_init(ready(s), 4);  // lane 0 of each producer warp
+      mbar_init(empty(s), Block<HALF>::kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // the producer: thread 0 keeps the loads STAGES tiles ahead; the
+    // warpgroup makes the operands in the 128-byte swizzle
+    setmaxnreg_dec<kDqProducerRegs>();
+    const int tid = threadIdx.x;
+    auto load = [&](int j) {
+      const int s = j % STAGES;
+      const uint32_t raw = s0 + s * kRaw;
+      mbar_expect_tx(loaded(s), kRaw);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        tma_load_4d(raw + half * kSAtom, &tk, loaded(s), 32 * half, h,
+                    j * BN, b);
+        tma_load_4d(raw + kPlane + half * kSAtom, &tv, loaded(s), 32 * half,
+                    h, j * BN, b);
+      }
+    };
+    if (tid == 0)
+      for (int j = 0; j < STAGES && j < nk; ++j) load(j);
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % STAGES;
+      const uint32_t round = (j / STAGES) & 1;
+      const unsigned char* raw = p0 + s * kRaw;
+      unsigned char* const op = p0 + STAGES * kRaw + s * kDqOp;
+      mbar_wait(loaded(s), round);
+      mbar_wait(empty(s), round ^ 1);  // round 0 passes
+      split_tile<true>(raw, op + kKb, op + kKs, op + kKTb, op + kKTs, tid);
+      split_tile<false>(raw + kPlane, op + kVb, op + kVs, nullptr, nullptr,
+                        tid);
+      // the writes seen by wgmma; the reads of the loaded tiles done before
+      // TMA refills them
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(ready(s));
+      named_sync(1, 128);  // the producer warpgroup (ids 2, 3: consumers)
+      if (tid == 0 && j + STAGES < nk) load(j + STAGES);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kDqConsumerRegs>();
+  const int wg = (warp >> 2) - 1;  // consumer 0 or 1
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+  const float c = scale * kLog2e;  // scores in log2 units, for exp2
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  const int r0 = blk.rows(wg) + 16 * w + g;  // rows r0 (half 0), r0 + 8 (1)
+  const int rw = 16 * w + g;                 // r0's row in the warpgroup
+
+  // Q and dO split once (big terms in registers, small terms in shared
+  // memory); di of rows r0 and r0 + 8 from the lane's 16 values of dO and
+  // O of each and its quad's
+  uint32_t qb[D / 8][4], dob[D / 8][4];
+  unsigned char* const qs = p0 + (kept0 - s0) + wg * kKept;
+  unsigned char* const dos = qs + NWG * kKept;
+  float lse2[2], dir[2];
+  {
+    float x[D / 8][4];
+    load_kept(q + base, r0, rw, L, row, qb, qs, x);
+    load_kept(dout + base, r0, rw, L, row, dob, dos, x);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = r0 + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+        const float ov = rr < L ? o[base + rr * row + col] : 0.f;
+        sum[i & 1] = fmaf(x[kk][i], ov, sum[i & 1]);
+      }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 1);
+      sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 2);
+      const int r = r0 + 8 * half;
+      const bool in = r < L;
+      lse2[half] = in ? lse[rbase + r] * kLog2e : 0.f;
+      dir[half] = in ? sum[half] : 0.f;
+      if (in && t == 0 && (!HALF || wg == 0)) di[rbase + r] = sum[half];
+    }
+  }
+  fence_proxy_async();
+  named_sync(2 + wg, 128);  // the warpgroup's small terms are written
+  const uint32_t qsa = smem_u32(qs), dosa = smem_u32(dos);
+
+  float acc[D / 2];  // dq[64 rows][64]: acc[4 n + i], n-tile n = columns 8 n..
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if constexpr (!HALF) first_turn(wg);
+  // (the loop's bound is L, a parameter, not nk: dkv's consumers have no
+  // register to spare, and the two kernels keep one form)
+  for (int j = blk.first(wg); j * BN < L; j += Block<HALF>::kStep) {
+    const int s = j % STAGES, k0 = j * BN;
+    const uint32_t st = op0 + s * kDqOp;
+    mbar_wait(ready(s), (j / STAGES) & 1);
+
+    // S = Q K^T and dP = dO V^T, 64 x BN each: sc[4 n + i] holds keys
+    // k0 + 8 n..
+    float sc[BN / 2], dp[BN / 2];
+    if constexpr (!HALF) take_turn(wg);
+    wgmma_fence();
+    scores(sc, qsa, qb, st + kKb, st + kKs);
+    scores(dp, dosa, dob, st + kVb, st + kVs);
+    wgmma_commit();
+    if constexpr (!HALF) give_turn(wg, (j + 1) * BN >= L);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P = 2^(S c - lse2), 0 on a key past L (its K row is zero, but P need
+    // not be 0 there); dS / scale = P (dP - di), in place of dP: scale (1/8,
+    // a power of two) multiplies dq once at the end, which gives the bits of
+    // P (dP scale - di scale) with a register fewer in the loop
+    const bool tail = k0 + BN > L;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int half = i >> 1;
+        float p = exp2f(fmaf(sc[4 * n + i], c, -lse2[half]));
+        if (tail && k0 + 8 * n + 2 * t + (i & 1) >= L) p = 0.f;
+        dp[4 * n + i] = p * (dp[4 * n + i] - dir[half]);
+      }
+
+    // dq += dS K over the tile's keys, through a partial
+    uint32_t big[BN / 8][4], small[BN / 8][4];
+    terms(dp, big, small);
+    accumulate<false>(acc, big, small, st + kKTb, st + kKTs);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+  if constexpr (HALF) {  // through warpgroup 1's Q small plane
+    const uint32_t x = kept0 + kKept;
+    if (second_warpgroup()) hand_over(acc, x);
+    named_sync(4, 256);  // the two consumer warpgroups
+    if (second_warpgroup()) return;
+    take_over(acc, x);
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= scale;
+  store_rows(dq + base, acc, r0, L, row);
+}
+
+// One block (Block): its keys of b*h. The producer keeps the raw ring
+// STAGES tiles of BN q rows ahead (Q and dO by TMA; their rows'
+// lse and di by 4-byte cp.async from warp 0's lanes, which a [B*H, L] row
+// needs: it is not 16-byte aligned at every L, and the stage's barrier
+// tracks them) and makes of each loaded tile Q and dO big and small, their
+// transposes big and small, and lse log2(e) and di. Consumer wg
+// keeps K and V of its 64 keys (big terms in registers, small terms in
+// shared memory) and per tile: S^T = K Q^T and dP^T = V dO^T (keys as
+// rows), P^T and dS^T in place, then dv's partial P^T dO and dk's partial
+// dS^T Q from zero, each joining its running sum by one fp32 add. A q row
+// past L lands as zeros (Q, dO, lse, di), so P^T = 1 and dS^T = 0 there,
+// and its products with dO^T = 0 and Q^T = 0 add exact zeros: no test.
+template <bool HALF>
+__global__ void __launch_bounds__(NT, 1)
+    flash_dkv_d64(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ k, const float* __restrict__ v,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ di, float* __restrict__ dk,
+                  float* __restrict__ dv, int L, int H, float scale,
+                  int tiles, int full) {
+  extern __shared__ unsigned char smem_dkv64[];
+  __shared__ __align__(8) uint64_t bars[3 * STAGES];
+  const uint32_t s0 = (smem_u32(smem_dkv64) + 1023) & ~1023u;
+  unsigned char* const p0 = smem_dkv64 + (s0 - smem_u32(smem_dkv64));
+  const uint32_t op0 = s0 + STAGES * kRaw;
+  const uint32_t kept0 = op0 + STAGES * kDkvOp;
+  // the rows' lse and di as loaded, then as the operands' stages take them:
+  // [STAGES][lse, di][BN] each
+  const uint32_t raw_rows = kept0 + 2 * NWG * kKept;
+  const uint32_t op_rows = raw_rows + kRows;
+  // an operand stage: Q big, Q small, dO big, dO small, Q^T big, Q^T
+  // small, dO^T big, dO^T small
+  constexpr uint32_t kQb = 0, kQs = kPlane, kDb = 2 * kPlane,
+                     kDs = 3 * kPlane, kQTb = 4 * kPlane,
+                     kQTs = 4 * kPlane + kTPlane,
+                     kDTb = 4 * kPlane + 2 * kTPlane,
+                     kDTs = 4 * kPlane + 3 * kTPlane;
+  const uint32_t b0 = smem_u32(bars);
+  auto loaded = [&](int s) { return b0 + 8 * s; };
+  auto ready = [&](int s) { return b0 + 8 * (STAGES + s); };
+  auto empty = [&](int s) { return b0 + 8 * (2 * STAGES + s); };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Block<HALF> blk(tiles, full);
+  const int bh = blk.bh, b = bh / H, h = bh % H;
+  const int nq = (L + BN - 1) / BN;
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      // the TMA thread's arrival and warp 0's 32 lse / di copies
+      mbar_init(loaded(s), 1 + 32);
+      mbar_init(ready(s), 4);
+      mbar_init(empty(s), Block<HALF>::kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    setmaxnreg_dec<kDkvProducerRegs>();
+    const int tid = threadIdx.x;
+    // by warp 0: lane 0 the TMA loads, every lane the lse and di of
+    // stage row `lane` (4 bytes each, zero past L)
+    auto load = [&](int j) {
+      const int s = j % STAGES;
+      const uint32_t raw = s0 + s * kRaw;
+      if (lane == 0) {
+        mbar_expect_tx(loaded(s), kRaw);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          tma_load_4d(raw + half * kSAtom, &tq, loaded(s), 32 * half, h,
+                      j * BN, b);
+          tma_load_4d(raw + kPlane + half * kSAtom, &tdo, loaded(s),
+                      32 * half, h, j * BN, b);
+        }
+      }
+      const int r = j * BN + lane;
+      const bool in = r < L;
+      const uint32_t at = raw_rows + s * 2 * BN * 4 + 4 * lane;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(at),
+                   "l"(lse + rbase + (in ? r : 0)), "r"(in ? 4 : 0)
+                   : "memory");
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                       at + 4 * BN),
+                   "l"(di + rbase + (in ? r : 0)), "r"(in ? 4 : 0)
+                   : "memory");
+      cp_async_mbar_arrive(loaded(s));
+    };
+    if (warp == 0)
+      for (int j = 0; j < STAGES && j < nq; ++j) load(j);
+    for (int j = 0; j < nq; ++j) {
+      const int s = j % STAGES;
+      const uint32_t round = (j / STAGES) & 1;
+      const unsigned char* raw = p0 + s * kRaw;
+      unsigned char* const op = p0 + STAGES * kRaw + s * kDkvOp;
+      mbar_wait(loaded(s), round);
+      mbar_wait(empty(s), round ^ 1);  // round 0 passes
+      split_tile<true>(raw, op + kQb, op + kQs, op + kQTb, op + kQTs, tid);
+      split_tile<true>(raw + kPlane, op + kDb, op + kDs, op + kDTb,
+                       op + kDTs, tid);
+      if (warp == 0) {  // lse log2(e) and di of stage row `lane`
+        const float* from =
+            reinterpret_cast<const float*>(p0 + (raw_rows - s0)) +
+            s * 2 * BN;
+        float* to = reinterpret_cast<float*>(p0 + (op_rows - s0)) + s * 2 * BN;
+        to[lane] = from[lane] * kLog2e;
+        to[BN + lane] = from[BN + lane];
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(ready(s));
+      named_sync(1, 128);
+      if (warp == 0 && j + STAGES < nq) load(j + STAGES);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kDkvConsumerRegs>();
+  const int wg = (warp >> 2) - 1;  // consumer 0 or 1
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+  const float c = scale * kLog2e;
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const int r0 = blk.rows(wg) + 16 * w + g;
+  const int rw = 16 * w + g;
+
+  uint32_t kb[D / 8][4], vb[D / 8][4];
+  unsigned char* const ks = p0 + (kept0 - s0) + wg * kKept;
+  unsigned char* const vs = ks + NWG * kKept;
+  {
+    float x[D / 8][4];
+    load_kept(k + base, r0, rw, L, row, kb, ks, x);
+    load_kept(v + base, r0, rw, L, row, vb, vs, x);
+  }
+  fence_proxy_async();
+  named_sync(2 + wg, 128);
+  const uint32_t ksa = smem_u32(ks), vsa = smem_u32(vs);
+
+  float acc_k[D / 2], acc_v[D / 2];  // dk, dv [64 keys][64]
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  if constexpr (!HALF) first_turn(wg);
+  for (int j = blk.first(wg); j * BN < L; j += Block<HALF>::kStep) {
+    const int s = j % STAGES;
+    const uint32_t st = op0 + s * kDkvOp;
+    mbar_wait(ready(s), (j / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, 64 keys x BN q rows
+    float sc[BN / 2], dp[BN / 2];
+    if constexpr (!HALF) take_turn(wg);
+    wgmma_fence();
+    scores(sc, ksa, kb, st + kQb, st + kQs);
+    scores(dp, vsa, vb, st + kDb, st + kDs);
+    wgmma_commit();
+    if constexpr (!HALF) give_turn(wg, (j + 1) * BN >= L);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // column 8 n + 2 t + e is the stage's q row 8 n + 2 t + e: P^T =
+    // 2^(S^T c - lse2), dS^T / scale = P^T (dP^T - di), in place (as in dq,
+    // scale multiplies dk at the end)
+    const uint32_t rows = op_rows + s * 2 * BN * 4;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      const uint32_t col = 4 * (8 * n + 2 * t);
+      float2 l2, d2;
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+                   : "=f"(l2.x), "=f"(l2.y)
+                   : "r"(rows + col));
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+                   : "=f"(d2.x), "=f"(d2.y)
+                   : "r"(rows + 4 * BN + col));
+      const float lc[2] = {l2.x, l2.y}, dc[2] = {d2.x, d2.y};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = i & 1;
+        const float p = exp2f(fmaf(sc[4 * n + i], c, -lc[e]));
+        sc[4 * n + i] = p;
+        dp[4 * n + i] = p * (dp[4 * n + i] - dc[e]);
+      }
+    }
+
+    // dv += P^T dO, then dk += dS^T Q, each through a partial; one at a
+    // time, so that one partial and one set of terms are live (with two,
+    // the consumers would spill), in half blocks each in two halves of d
+    uint32_t big[BN / 8][4], small[BN / 8][4];
+    terms(sc, big, small);
+    accumulate<HALF>(acc_v, big, small, st + kDTb, st + kDTs);
+    terms(dp, big, small);
+    accumulate<HALF>(acc_k, big, small, st + kQTb, st + kQTs);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+  if constexpr (HALF) {  // through warpgroup 1's K and V small planes
+    const uint32_t x = kept0 + kKept, y = kept0 + (NWG + 1) * kKept;
+    if (second_warpgroup()) {
+      hand_over(acc_k, x);
+      hand_over(acc_v, y);
+    }
+    named_sync(4, 256);  // the two consumer warpgroups
+    if (second_warpgroup()) return;
+    take_over(acc_k, x);
+    take_over(acc_v, y);
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] *= scale;
+  store_rows(dk + base, acc_k, r0, L, row);
+  store_rows(dv + base, acc_v, r0, L, row);
+}
+
+std::atomic<bool> dq_prepared[2][kMaxDevices];
+std::atomic<bool> dkv_prepared[2][kMaxDevices];
+
+// The tiles of a launch (Block): `tiles` 128-row tiles a b*h, the first
+// `full` of them in full blocks (whole waves), the last `halves` (a last
+// wave that would fill half the SMs or less) in two half blocks each
+struct Grid {
+  int tiles, full, halves;
+};
+cudaError_t grid_of(int B, int L, int H, Grid* g) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  g->tiles = (L + BM - 1) / BM;
+  const int n = g->tiles * B * H, rem = n % sms;
+  g->halves = rem > 0 && 2 * rem <= sms ? rem : 0;
+  g->full = n - g->halves;
+  return cudaSuccess;
+}
+
+// The kernel pair (full blocks, half blocks) checked (launch_regs, once) and
+// given its shared memory (once a device), then `launch(kernel, blocks)`
+// for each of the grid's two launches that has blocks
+template <typename Kernel, typename Launch>
+cudaError_t launch_grid(const Kernel (&kernels)[2], int smem,
+                        std::atomic<bool> (&prepared)[2][kMaxDevices],
+                        const cudaError_t (&regs)[2], const Grid& g,
+                        Launch launch) {
+  for (int half = 0; half < 2; ++half) {
+    if (regs[half] != cudaSuccess) return regs[half];
+    const cudaError_t err =
+        prepare_on_device(kernels[half], smem, prepared[half]);
+    if (err != cudaSuccess) return err;
+  }
+  if (g.full > 0) {
+    launch(kernels[0], g.full);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (g.halves > 0) launch(kernels[1], 2 * g.halves);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      void* dq, float* di, int B, int L, int H, float scale,
+                      cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
+  if (err != cudaSuccess) return err;
+  using Kernel = decltype(&flash_dq_d64<false>);
+  static const Kernel kernels[2] = {flash_dq_d64<false>, flash_dq_d64<true>};
+  static const cudaError_t regs[2] = {launch_regs(kernels[0], kLaunchRegs),
+                                      launch_regs(kernels[1], kLaunchRegs)};
+  Grid g;
+  err = grid_of(B, L, H, &g);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tk, tv;
+  if (!tensor_map(&tk, k, false, B, L, H, D, 32, BN) ||
+      !tensor_map(&tv, v, false, B, L, H, D, 32, BN))
+    return cudaErrorInvalidValue;
+  return launch_grid(kernels, kDqSmemBytes, dq_prepared, regs, g,
+                     [&](Kernel kernel, int blocks) {
+    kernel<<<blocks, NT, kDqSmemBytes, stream>>>(
+        tk, tv, static_cast<const float*>(q), static_cast<const float*>(o),
+        static_cast<const float*>(dout), lse, static_cast<float*>(dq), di,
+        L, H, scale, g.tiles, g.full);
+  });
+}
+
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di,
+                       void* dk, void* dv, int B, int L, int H, float scale,
+                       cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
+  if (err != cudaSuccess) return err;
+  using Kernel = decltype(&flash_dkv_d64<false>);
+  static const Kernel kernels[2] = {flash_dkv_d64<false>,
+                                    flash_dkv_d64<true>};
+  static const cudaError_t regs[2] = {launch_regs(kernels[0], kLaunchRegs),
+                                      launch_regs(kernels[1], kLaunchRegs)};
+  Grid g;
+  err = grid_of(B, L, H, &g);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tdo;
+  if (!tensor_map(&tq, q, false, B, L, H, D, 32, BN) ||
+      !tensor_map(&tdo, dout, false, B, L, H, D, 32, BN))
+    return cudaErrorInvalidValue;
+  return launch_grid(kernels, kDkvSmemBytes, dkv_prepared, regs, g,
+                     [&](Kernel kernel, int blocks) {
+    kernel<<<blocks, NT, kDkvSmemBytes, stream>>>(
+        tq, tdo, static_cast<const float*>(k), static_cast<const float*>(v),
+        lse, di, static_cast<float*>(dk), static_cast<float*>(dv), L, H,
+        scale, g.tiles, g.full);
+  });
+}
+
+}  // namespace d64
 
 // bf16 at d = 16 on the bf16 tensor cores (header). 128 threads a block;
 // warp w owns rows 16 w.. of the block's 64-row kept tile (q rows in dq,
@@ -2986,13 +3460,9 @@ int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
       else
         return d16_bf16::launch_dq(q, k, v, o, dout, lse, dq, di, B, L, H,
                                    scale, st);
-    case 64:
-      if constexpr (std::is_same_v<T, float>)
-        return d64::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H,
-                                 scale, st);
-      else
-        return d64_bf16::launch_dq(q, k, v, o, dout, lse, dq, di, B, L, H,
-                                   scale, st);
+    case 64:  // both launchers take the storage type's pointers
+      return (std::is_same_v<T, float> ? d64::launch_dq : d64_bf16::launch_dq)(
+          q, k, v, o, dout, lse, dq, di, B, L, H, scale, st);
     case 512:
       if constexpr (std::is_same_v<T, float>)
         return d512::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H,
@@ -3019,12 +3489,9 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
         return d16_bf16::launch_dkv(q, k, v, dout, lse, di, dk, dv, B, L, H,
                                     scale, st);
     case 64:
-      if constexpr (std::is_same_v<T, float>)
-        return d64::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
-                                  scale, st);
-      else
-        return d64_bf16::launch_dkv(q, k, v, dout, lse, di, dk, dv, B, L, H,
-                                    scale, st);
+      return (std::is_same_v<T, float> ? d64::launch_dkv
+                                       : d64_bf16::launch_dkv)(
+          q, k, v, dout, lse, di, dk, dv, B, L, H, scale, st);
     case 512:
       if constexpr (std::is_same_v<T, float>)
         return d512::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,

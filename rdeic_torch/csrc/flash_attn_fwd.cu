@@ -422,21 +422,6 @@ static_assert(128 * kProducerRegs + 256 * kConsumerRegs <=
                   NT * ((65536 / NT) & ~7),
               "registers per block");
 
-// big = x rounded to TF32 (to nearest, ties away from zero: flash_mma.cuh
-// split), small = x - big, exact in fp32
-__device__ __forceinline__ void split4(float4 x, float4& big, float4& small) {
-  uint32_t b[4];
-  const float v[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t s;
-    rdeic_flash::split<true>(v[i], b[i], s);
-  }
-  big = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
-                    __uint_as_float(b[2]), __uint_as_float(b[3]));
-  small = make_float4(x.x - big.x, x.y - big.y, x.z - big.z, x.w - big.w);
-}
-
 __global__ void __launch_bounds__(NT, 1)
     flash_fwd_d64(const float* __restrict__ q,
                   const __grid_constant__ CUtensorMap tk,

@@ -1,6 +1,7 @@
 // Hopper pieces of the d = 64 flash forward (flash_attn_fwd.cu:
-// flash_fwd_d64_bf16, flash_fwd_d64) and of the d = 64 bf16 backward
-// (flash_attn_bwd.cu: flash_dq_d64_bf16, flash_dkv_d64_bf16): TMA tile
+// flash_fwd_d64_bf16, flash_fwd_d64) and of the d = 64 backward
+// (flash_attn_bwd.cu: flash_dq_d64_bf16, flash_dkv_d64_bf16 and the fp32
+// flash_dq_d64, flash_dkv_d64): TMA tile
 // loads that complete on mbarriers, warpgroup matrix products
 // (wgmma.mma_async) and their shared-memory descriptors, setmaxnreg, and
 // the host's tensor maps. Only sm_90a has wgmma and setmaxnreg.
@@ -107,6 +108,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 // named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// this warp's arrival on named barrier `id` of `threads`, without waiting
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // -- TMA -----------------------------------------------------------------
@@ -299,6 +305,41 @@ __device__ __forceinline__ void mma_m64n64k8_ss_tf32(float (&d)[32],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// C (64 x 32) += A (64 x 8, shared, K-major) B (8 x 32, shared, K-major); tf32
+__device__ __forceinline__ void mma_m64n32k8_ss_tf32(float (&d)[16],
+    uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// C (64 x 32) += A (64 x 8, registers) B (8 x 32, shared, K-major); tf32
+__device__ __forceinline__ void mma_m64n32k8_rs_tf32(float (&d)[16],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "l"(db), "r"(scale_d));
+}
+
 // -- the host's tensor maps ----------------------------------------------
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -329,11 +370,18 @@ inline EncodeTiled encode_tiled() {
 // A contiguous [B, L, H, D] tensor as a 4-d map (d, h, token, b), whose box
 // is `box_d` values of one head's row by `rows` tokens, in the 128-byte
 // swizzle (box_d x the element size must be 128 bytes); tokens past L read
-// as zeros. Returns false if the driver refuses it.
+// as zeros. Returns false if the driver refuses it. The encode is a driver
+// call and needs a current context, which a thread has only once a runtime
+// call bound the device's primary context there: autograd's worker thread,
+// whose first call into a library may be a launch that has made no such
+// call yet, got CUDA_ERROR_INVALID_CONTEXT. cudaSetDevice binds it.
 inline bool tensor_map(CUtensorMap* map, const void* base, bool bf16, int B,
                        int L, int H, int D, int box_d, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return false;
   const cuuint64_t es = bf16 ? 2 : 4;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),

@@ -52,6 +52,21 @@ __device__ __forceinline__ void split(float x, uint32_t& big,
   small = SPLIT ? __float_as_uint(x - __uint_as_float(big)) : 0u;
 }
 
+// split of four values (a 16-byte chunk, as the d = 64 kernels' producers
+// split their tiles), as fp32 values: big + small = x, small exact
+__device__ __forceinline__ void split4(float4 x, float4& big, float4& small) {
+  uint32_t b[4];
+  const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t s;
+    split<true>(v[i], b[i], s);
+  }
+  big = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                    __uint_as_float(b[2]), __uint_as_float(b[3]));
+  small = make_float4(x.x - big.x, x.y - big.y, x.z - big.z, x.w - big.w);
+}
+
 __device__ __forceinline__ void mma_tf32(float (&c)[4],
                                          const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {

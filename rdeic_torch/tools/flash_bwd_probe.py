@@ -1,30 +1,30 @@
-"""Time the bf16 flash backward at d = 16, 64 or 512 on one card: this
-checkout's kernels, another checkout's, and variants of this one's, in one
-process.
+"""Time the flash backward at d = 16, 64 or 512 (bf16; fp32 at d = 64) on
+one card: this checkout's kernels, another checkout's, and variants of this
+one's, in one process.
 
     python -m rdeic_torch.tools.flash_bwd_probe [--d 16|64|512]
-        [--other DIR [--bits]] [--variants [NAME ...]]
+        [--dtype bf16|fp32] [--other DIR [--bits]] [--variants [NAME ...]]
 
 Builds `csrc/flash_attn_bwd.cu` of this checkout ("change"), of the
 checkout at DIR ("other", e.g. the parent commit unpacked by `git
 archive`) and, with --variants, copies of this one whose kernels at the
-head dim (namespace `d16_bf16`, `d64_bf16` or `d512_bf16`) are changed by
-the text substitutions in VARIANTS (all of the head dim's, or those
-named; a substitution that no longer matches raises). Prints the card's
-name and power limit and each build's ptxas lines for the head dim's
-kernels (registers, spills, and any C7519: a `warpgroup.arrive` that
-ptxas injected). Each library is called through its C interface on the
-same bf16 inputs, at the head dim's SHAPES; then a JSON line per shape,
-version and pass (two passes, the second in reverse order): dq's and
-dkv's device ms (`device_ms`: launches queued behind a sleeping kernel,
-CUDA events) and ms back to back through ctypes (`ms`), SDPA's bf16
-backward beside them, max |error| over max|plain| of dq, dk and dv
-against the plain version's fp32 result, and whether a second launch
-gave the same bits. Variants that compute something else say so in
-VARIANTS: they time what a piece of the kernels costs. With --bits, first
-a JSON line per BITS_CASES entry (the fp32 kernels at d = 16, 64 and 512,
-the bf16 ones at d = 16 and 512): whether this checkout's dq, di, dk and
-dv are the other checkout's bit for bit.
+head dim and dtype (namespace `d16_bf16`, `d64_bf16`, `d512_bf16` or, fp32
+at d = 64, `d64`) are changed by the text substitutions in VARIANTS (all
+of the namespace's, or those named; a substitution that no longer matches
+raises). Prints the card's name and power limit and each build's ptxas
+lines for those kernels (registers, spills, and any C7519: a
+`warpgroup.arrive` that ptxas injected). Each library is called through its
+C interface on the same inputs of the dtype, at the head dim's SHAPES; then
+a JSON line per shape, version and pass (two passes, the second in reverse
+order): dq's and dkv's device ms (`device_ms`: launches queued behind a
+sleeping kernel, CUDA events) and ms back to back through ctypes (`ms`),
+SDPA's backward in the dtype beside them, max |error| over max|plain| of
+dq, dk and dv against the plain version's fp32 result, and whether a second
+launch gave the same bits. Variants that compute something else say so in
+VARIANTS: they time what a piece of the kernels costs. With --bits, first a
+JSON line per BITS_CASES entry but the probed one (the fp32 and bf16
+kernels at d = 16, 64 and 512): whether this checkout's dq, di, dk and dv
+are the other checkout's bit for bit.
 """
 from __future__ import annotations
 
@@ -49,13 +49,17 @@ from rdeic_torch.ops.flash_attention import (
 SHAPES = {16: [(2, 4096, 4, 16), (2, 1024, 8, 16), (1, 8192, 4, 16)],
           64: [(2, 4096, 5, 64), (2, 1024, 10, 64), (1, 8192, 2, 64)],
           512: [(2, 4096, 1, 512), (1, 1024, 1, 512), (1, 8192, 1, 512)]}
-NAMESPACES = {16: "d16_bf16", 64: "d64_bf16", 512: "d512_bf16"}
-# --bits: every dq / dkv kernel but the bf16 one at d = 64, at an L of no
-# tile multiple with B = 2, H > 1 (d = 512: H = 2)
+# (head dim, dtype): the namespace of its dq and dkv kernels
+NAMESPACES = {(16, "bf16"): "d16_bf16", (64, "bf16"): "d64_bf16",
+              (512, "bf16"): "d512_bf16", (64, "fp32"): "d64"}
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+# --bits: every dq / dkv kernel, at an L of no tile multiple with B = 2,
+# H > 1 (d = 512: H = 2); the probed head dim and dtype are left out
 BITS_CASES = [((2, 1000, 3, 16), torch.float32),
               ((2, 1000, 3, 64), torch.float32),
               ((2, 1000, 2, 512), torch.float32),
               ((2, 1000, 3, 16), torch.bfloat16),
+              ((2, 1000, 3, 64), torch.bfloat16),
               ((2, 1000, 2, 512), torch.bfloat16)]
 SLEEP_CLOCK_HZ = 2.0e9  # torch.cuda._sleep counts cycles, at most this fast
 _SMALL_MMA = """    bf16::mma(acc[0], small, f[0], f[1]);
@@ -158,15 +162,63 @@ _D64_VARIANTS = {
          "#pragma unroll\n"
          "  for (int i = 0; i < D / 2; ++i) acc[i] += acc2[i];\n")],
 }
+_SCORE_PASSES = """    mma_m64n32k8_ss_tf32(s, desc(as + ka), desc(bb + kb), kk);
+    mma_m64n32k8_rs_tf32(s, ab[kk], desc(bs + kb), 1);
+    mma_m64n32k8_rs_tf32(s, ab[kk], desc(bb + kb), 1);
+"""
+_PRODUCT_PASSES = """    mma_m64n64k8_rs_tf32(part, small[kk], desc(tb + 32 * kk), kk);
+    mma_m64n64k8_rs_tf32(part, big[kk], desc(ts + 32 * kk), 1);
+    mma_m64n64k8_rs_tf32(part, big[kk], desc(tb + 32 * kk), 1);
+"""
+_NARROW_PASSES = """        mma_m64n32k8_rs_tf32(part, small[kk], desc(tb + at), kk);
+        mma_m64n32k8_rs_tf32(part, big[kk], desc(ts + at), 1);
+        mma_m64n32k8_rs_tf32(part, big[kk], desc(tb + at), 1);
+"""
+_D64_FP32_VARIANTS = {
+    # one TF32 pass a product, big * big (outside the limit): what the
+    # three passes cost
+    "one_pass": [(_SCORE_PASSES,
+                  "    mma_m64n32k8_rs_tf32(s, ab[kk], desc(bb + kb), kk);\n"),
+                 (_PRODUCT_PASSES,
+                  "    mma_m64n64k8_rs_tf32(part, big[kk], desc(tb + 32 * kk), kk);\n"),
+                 (_NARROW_PASSES,
+                  "        mma_m64n32k8_rs_tf32(part, big[kk], desc(tb + at), kk);\n")],
+    # no exponentials: P = S c - lse2 (wrong values)
+    "no_exp": [("exp2f(fmaf(", "(fmaf(")],
+    # the producer makes no operands (the consumers read stale planes:
+    # wrong values): what the split costs the consumers
+    "no_split": [("      split_tile<true>(raw, op + kKb,", "      if (0) split_tile<true>(raw, op + kKb,"),
+                 ("      split_tile<false>(raw + kPlane,", "      if (0) split_tile<false>(raw + kPlane,"),
+                 ("      split_tile<true>(raw, op + kQb,", "      if (0) split_tile<true>(raw, op + kQb,"),
+                 ("      split_tile<true>(raw + kPlane, op + kDb,", "      if (0) split_tile<true>(raw + kPlane, op + kDb,")],
+    # dkv's registers as dq's: producer 56, consumers 224
+    "dkv_regs224": [("kDkvProducerRegs = 40, kDkvConsumerRegs = 232;",
+                     "kDkvProducerRegs = 56, kDkvConsumerRegs = 224;")],
+    # no half blocks: every tile a full block, the last wave as it falls
+    "no_halves": [("g->halves = rem > 0 && 2 * rem <= sms ? rem : 0;",
+                   "g->halves = 0 * rem;")],
+    # full blocks' consumer warpgroups issue their scores when ready, not
+    # in turns
+    "no_turns": [("  if constexpr (!HALF) first_turn(wg);\n", ""),
+                 ("    if constexpr (!HALF) take_turn(wg);\n", ""),
+                 ("    if constexpr (!HALF) give_turn(wg, (j + 1) * BN >= L);\n",
+                  "")],
+    # ex2.approx.ftz for the exponentials (flash_bf16.cuh exp2_ftz)
+    "ex2_approx": [("exp2f(fmaf(", "rdeic_flash::bf16::exp2_ftz(fmaf(")],
+    # the first pass's A from registers (the big term again: wrong values):
+    # what reading the small term from shared memory costs
+    "no_ss": [("    mma_m64n32k8_ss_tf32(s, desc(as + ka), desc(bb + kb), kk);\n",
+               "    mma_m64n32k8_rs_tf32(s, ab[kk], desc(bb + kb), kk);\n")],
+}
 # namespace: {name: [(old, new)] in that namespace}
 VARIANTS = {"d16_bf16": _D16_VARIANTS, "d64_bf16": _D64_VARIANTS,
-            "d512_bf16": _D512_VARIANTS}
+            "d512_bf16": _D512_VARIANTS, "d64": _D64_FP32_VARIANTS}
 
 
 def variant_source(src: str, edits, namespace: str) -> str:
     """`src` with each (old, new) applied inside `namespace`."""
     i0 = src.index(f"namespace {namespace} {{")
-    i1 = src.index(f"}}  // namespace {namespace}")
+    i1 = src.index(f"}}  // namespace {namespace}\n")
     ns = src[i0:i1]
     for old, new in edits:
         if old not in ns:
@@ -183,14 +235,15 @@ def _library(name: str, csrc: Path, source: str, out_dir: Path) -> Path:
                         build._nvcc_cmd() + ["-I", str(csrc)], headers)
 
 
-def ptxas_lines(lib: Path, d: int) -> list[str]:
-    """The build log's ptxas lines for the head dim's bf16 kernels: each
-    one's registers and spills, and every C7519 warning."""
+def ptxas_lines(lib: Path, d: int, dtype: str = "bf16") -> list[str]:
+    """The build log's ptxas lines for the head dim's kernels of the dtype:
+    each one's registers and spills, and every C7519 warning."""
     out, name = [], None
+    suffix = "_bf16" if dtype == "bf16" else ""
     for line in build.build_log(lib).splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(rf"(flash_d(?:q|kv)_d{d}_bf16)", entry[1])
+            m = re.search(rf"(flash_d(?:q|kv)_d{d}{suffix})(?=[EI])", entry[1])
             name = m[1] if m else None
         elif "C7519" in line:
             out.append(line.strip())
@@ -294,11 +347,13 @@ def _inputs(shape, dtype, seed=0):
     return q, k, v, o, lse, do
 
 
-def same_bits(other, change) -> None:
-    """A JSON line per BITS_CASES entry: whether the two libraries give
-    the same dq, di, dk and dv bits (the kernels a change leaves as they
-    were)."""
+def same_bits(other, change, probed=None) -> None:
+    """A JSON line per BITS_CASES entry but the `probed` (head dim, dtype):
+    whether the two libraries give the same dq, di, dk and dv bits (the
+    kernels a change leaves as they were)."""
     for shape, dtype in BITS_CASES:
+        if (shape[3], dtype) == probed:
+            continue
         inputs = _inputs(shape, dtype, seed=1)
         outs = []
         for lib in (other, change):
@@ -316,6 +371,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--d", type=int, choices=sorted(SHAPES), default=16,
                     help="head dim")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
+                    help="the kernels' dtype (fp32 only at d = 64)")
     ap.add_argument("--other", type=Path, help="another checkout to time")
     ap.add_argument("--bits", action="store_true",
                     help="with --other: whether the kernels at BITS_CASES "
@@ -323,6 +380,9 @@ def main() -> None:
     ap.add_argument("--variants", nargs="*",
                     help="time the head dim's VARIANTS (all, or those named)")
     args = ap.parse_args()
+    if (args.d, args.dtype) not in NAMESPACES:
+        ap.error(f"no {args.dtype} kernels of their own at d = {args.d}")
+    dtype = DTYPES[args.dtype]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
@@ -335,7 +395,7 @@ def main() -> None:
         other = args.other.resolve() / "rdeic_torch" / "csrc"
         jobs["other"] = (other, (other / "flash_attn_bwd.cu").read_text())
     if args.variants is not None:
-        ns = NAMESPACES[args.d]
+        ns = NAMESPACES[args.d, args.dtype]
         jobs.update({n: (csrc, variant_source(src, e, ns))
                      for n, e in VARIANTS[ns].items()
                      if not args.variants or n in args.variants})
@@ -344,16 +404,16 @@ def main() -> None:
                    for n, (c, s) in jobs.items()}
         paths = {n: f.result() for n, f in futures.items()}
     for n, path in paths.items():
-        for line in ptxas_lines(path, args.d):
+        for line in ptxas_lines(path, args.d, args.dtype):
             print(f"[ptxas] {n} {line}", flush=True)
     libs = {n: _bind(path) for n, path in paths.items()}
     order = list(libs)
     if "other" in libs:  # other, change, ..., then back: change, other
         order = ["other"] + [n for n in order if n != "other"]
     if args.bits:
-        same_bits(libs["other"], libs["change"])
+        same_bits(libs["other"], libs["change"], (args.d, dtype))
     for shape in SHAPES[args.d]:
-        q, k, v, o, lse, do = _inputs(shape, torch.bfloat16)
+        q, k, v, o, lse, do = _inputs(shape, dtype)
         plain = flash_attention_bwd_plain(*(x.float() for x in (q, k, v, o)),
                                           lse, do.float())
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()

@@ -8,6 +8,7 @@ skip the repository's conftest (it configures JAX):
 """
 import math
 import struct
+import threading
 
 import numpy as np
 import pytest
@@ -106,6 +107,17 @@ BF16_FWD_SHAPES = [(1, 6144, 4, 16), (1, 1536, 8, 16), (2, 4096, 4, 16),
 # past two tiles, an L of no tile multiple with B = 2, H > 1) and L = 8192
 D64_BF16_BWD_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64), (2, 40, 3, 64),
                        (1, 130, 2, 64), (2, 1000, 3, 64), (1, 8192, 2, 64)]
+# the fp32 backward at d = 64 (flash_dq_d64, flash_dkv_d64 on TF32 wgmma):
+# every fp32 shape a path gives it (training's two; the card-vs-CPU and tp
+# micro-steps' [B, 1024, 5, 64] at 256x256; the serving, batched and tiled
+# forwards' shapes, which the lse forward would give it), tails (an L
+# inside one 32-row streamed tile and one 128-row kept tile, one two rows
+# past a kept tile, an L of no tile multiple with B = 2, H > 1) and
+# L = 8192
+D64_FP32_BWD_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64), (1, 1024, 5, 64),
+                       (2, 1024, 5, 64), (1, 6144, 5, 64), (1, 1536, 10, 64),
+                       (4, 1024, 10, 64), (2, 40, 3, 64), (1, 130, 2, 64),
+                       (2, 1000, 3, 64), (1, 8192, 2, 64)]
 # the bf16 backward at d = 16 (flash_dq_d16_bf16, flash_dkv_d16_bf16): every
 # d = 16 path shape (training's two, and serving's, whose L the lse forward
 # would give it), tails (an L inside one 64-row tile, one past the first
@@ -548,6 +560,86 @@ def test_flash_d64_bf16_backward_kernels(cuda, shape):
     accumulator): `_check_bf16_backward` at every shape: the limit, the
     planted x1.05 fault, di and the same bits on a second launch."""
     _check_bf16_backward(cuda, shape)
+
+
+@pytest.mark.parametrize("shape", D64_FP32_BWD_SHAPES)
+def test_flash_d64_fp32_backward_kernels(cuda, shape):
+    """flash_dq_d64 and flash_dkv_d64 (TF32 wgmma, three passes a product,
+    fed by TMA and a splitting producer warpgroup, two consumer warpgroups
+    a block, per-tile partials): one launch each a call; dq, dk and dv
+    within 1e-4 of max of the plain version from the same o and lse, each
+    reading a planted x1.05 fault beyond it; di = rowsum(dO O) within 1e-5
+    of max of the plain sum; the same bits (dq, di, dk, dv) on a second
+    launch."""
+    q, k, v, do = (_rand(shape, torch.float32, cuda, s) for s in range(4))
+    o, lse = flash_attention_lse(q, k, v)
+    before = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    dq, di = flash_attention_dq(q, k, v, o, lse, do)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches, flash_attention_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    again = (*flash_attention_dq(q, k, v, o, lse, do),
+             *flash_attention_dkv(q, k, v, do, lse, di))
+    assert all(torch.equal(a, b) for a, b in zip((dq, di, dk, dv), again))
+    plain = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    limit = _limit(torch.float32)
+    for got, want in zip((dq, dk, dv), plain):
+        assert got.dtype == torch.float32
+        assert _rel_err(got, want) <= limit
+        assert _rel_err(got * FAULT_SCALE, want) > limit
+    want_di = (do * o).sum(-1).transpose(1, 2).reshape(di.shape)
+    assert _rel_err(di, want_di) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_d64_launches_from_a_fresh_thread(cuda, dtype):
+    """The d = 64 kernels encode their TMA tensor maps through the driver,
+    which needs a context current on the calling thread. A thread whose
+    first call into the libraries is a launch, after the main thread's
+    (as autograd's worker thread is), must get one first: the forward with
+    lse and the backward from a new thread give the main thread's bits."""
+    q, k, v, do = (_rand((2, 1024, 5, 64), dtype, cuda, s) for s in range(4))
+
+    def run():
+        o, lse = flash_attention_lse(q, k, v)
+        return (o, lse, *flash_attention_bwd(q, k, v, o, lse, do))
+
+    want = run()
+    got, errors = [], []
+
+    def body():
+        try:
+            got.append(run())
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 (reported below)
+            errors.append(exc)
+
+    thread = threading.Thread(target=body)
+    thread.start()
+    thread.join()
+    assert not errors, errors
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want))
+
+
+def test_flash_d64_fp32_backward_error_is_flat_in_l(cuda):
+    """Each 32-row tile's dq, dk and dv products sum from zero on wgmma and
+    join the running sums in fp32, so wgmma's rounding toward zero does not
+    pile up over L: against float64 on the same fp32 inputs, the largest
+    error of dq, dk and dv over max at L = 8192 is at most twice that at
+    L = 1024 and below 5e-5 (the mma.sync design it replaced read 7.2e-5
+    there)."""
+    reads = {}
+    for seq in (1024, 8192):
+        shape = (1, seq, 2, 64)
+        q, k, v, do = (_rand(shape, torch.float32, cuda, s) for s in range(4))
+        o, lse = flash_attention_lse(q, k, v)
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        want = flash_attention_bwd_plain(
+            *(x.double() for x in (q, k, v, o)), lse.double(), do.double())
+        reads[seq] = max(_rel_err(g.double(), w) for g, w in zip(got, want))
+        del want
+    assert reads[8192] <= 2 * reads[1024] and reads[8192] < 5e-5, reads
 
 
 @pytest.mark.parametrize("shape", D16_BF16_BWD_SHAPES)

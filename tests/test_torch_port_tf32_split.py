@@ -15,12 +15,11 @@ card; it shows that one TF32 pass breaks them, and that bf16 values are
 exact in TF32, so a bf16 x bf16 tile product needs one pass. The d = 64
 forward runs on `wgmma` (three instructions an 8-deep step), whose
 rounding the emulation takes as the card shows it (`wgmma_3xtf32`,
-`tests/torch_port_tf32.py`). It also counts the shared-memory banks of
-every fragment read of the d = 64 backward's tile layout, and checks the
-layout of the forward's V^T operand. The emulation lives in
-`tests/torch_port_tf32.py`; the model of `mma.sync`'s rounding toward zero
-over the backward's long sums is held in
-`tests/test_torch_port_tf32_rounding.py`.
+`tests/torch_port_tf32.py`); the file checks the layout of the forward's
+V^T operand. The emulation lives in `tests/torch_port_tf32.py`; the d = 64
+backward's own design on `wgmma` (its rounding over long sums, per-tile
+partials, planes and banks) is held in
+`tests/test_torch_port_flash_bwd_d64_fp32.py`.
 """
 import math
 
@@ -36,13 +35,9 @@ from rdeic_torch.ops.flash_attention import (
 )
 from rdeic_tpu.ops.flash_attention import _flash_backward, _flash_forward
 from tests.torch_port_tf32 import (
-    BT,
-    KC,
     backward_d64_tiles,
-    banks,
     d64_bwd_inputs,
     d64_inputs,
-    ldmatrix_phases,
     mm_3xtf32,
     mm_exact,
     mm_tf32,
@@ -355,55 +350,3 @@ def test_d64_backward_one_tf32_pass_breaks_the_fp32_limit(b, seq, h):
     for name, want in _d64_bwd_references(*inputs).items():
         reads = [rel(g, w) for g, w in zip(got, want)]
         assert min(reads) > REL_TOL, (name, reads)
-
-
-# -- shared-memory banks of the d = 64 backward's fragment reads -------------
-TS = 68  # flash_attn_bwd.cu d64::TS: row stride in floats, not swizzled
-
-
-def _row_pair_reads(stride, swizzle=False):
-    """The B reads of `accumulate` (P or dS times a streamed tile): lane
-    (g, t) reads rows 8 kk + 2t and 8 kk + 2t + 1 at column 8 n + g; one
-    32-lane phase per (kk, n, row of the pair)."""
-    for kk in range(KC // 8):
-        for n in range(64 // 8):
-            for e in (0, 1):
-                addrs = []
-                for lane in range(32):
-                    g, t = lane >> 2, lane & 3
-                    r, c = 8 * kk + 2 * t + e, 8 * n + g
-                    addrs.append(r * stride + (c ^ (r & 4) if swizzle else c))
-                yield addrs
-
-
-def test_d64_backward_fragment_reads_hit_32_banks():
-    """The tiles of the d = 64 backward (stride 68, no swizzle) are read as
-    ldmatrix A and B^T fragments (Q, dO, O in dq; K, V in dkv; the streamed
-    tiles' scores) and as row-pair B fragments (the streamed tile in dq +=
-    dS K, dv += P^T dO and dk += dS^T Q): every phase hits 32 distinct
-    banks. cp.async writes 16 bytes a lane, 8 lanes a phase: 32 banks too.
-    The forward's swizzled stride 72 would put the row-pair read two-way on
-    its banks."""
-    for phase in ldmatrix_phases(TS):
-        assert sorted(banks(phase)) == list(range(32))
-    for phase in _row_pair_reads(TS):
-        assert sorted(banks(phase)) == list(range(32))
-    for lane0 in range(0, 64 * 16, 8):  # 64 rows of 16 chunks of 4 floats
-        addrs = [(i // 16) * TS + (i % 16) * 4 + j
-                 for i in range(lane0, lane0 + 8) for j in range(4)]
-        assert sorted(banks(addrs)) == list(range(32))
-    # the forward's K layout, swizzled stride 72: ldmatrix conflict-free,
-    # the row-pair read not
-    for phase in ldmatrix_phases(72, swizzle=True):
-        assert sorted(banks(phase)) == list(range(32))
-    assert all(len(set(banks(p))) == 16 for p in _row_pair_reads(72, True))
-
-
-def test_d64_backward_row_terms_are_read_as_broadcasts():
-    """dkv reads lse and di of q columns 8 n + 2t, 2t + 1 (float2): the
-    8 lanes of one t share an address, the 4 addresses take 8 banks."""
-    for c0 in range(0, BT, KC):
-        for n in range(KC // 8):
-            addrs = {c0 + 8 * n + 2 * (lane & 3) for lane in range(32)}
-            hit = [b for a in addrs for b in banks((a, a + 1))]
-            assert len(addrs) == 4 and len(set(hit)) == 8

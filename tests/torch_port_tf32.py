@@ -2,15 +2,15 @@
 
 Shared by the tests that hold the kernels' numeric design to the Pallas
 kernels and to the plain versions (`tests/test_torch_port_tf32_split.py`,
-`tests/test_torch_port_tf32_rounding.py`,
 `tests/test_torch_port_flash_d16.py`, `tests/test_torch_port_flash_bf16.py`,
 `tests/test_torch_port_flash_bwd_d64_bf16.py`,
+`tests/test_torch_port_flash_bwd_d64_fp32.py`,
 `tests/test_torch_port_flash_bwd_d16_bf16.py`):
 TF32 rounding and the 3xTF32 split of `rdeic_torch/csrc/flash_mma.cuh`,
 bf16 rounding and truncation, `mma.sync`'s rounding toward zero (TF32 and
 bf16 products), `wgmma`'s rounding as the card shows it (the d = 64
-forward kernels), the
-d = 64 backward kernels' tile order, and the shared-memory banks that a
+kernels), 3xTF32 over the d = 64 backward's 32-row streamed tiles, and the
+shared-memory banks that a
 fragment read touches; and `one_torch_thread`, the fixture these files
 run under.
 """
@@ -254,9 +254,11 @@ def wgmma_reads(start: int, row: int, byte: int) -> int:
     return a ^ (((a >> 7) & 7) << 4)
 
 
-# -- the d = 64 backward kernels' tile order ---------------------------------
+# -- the d = 64 backward's streamed tiles --------------------------------------
 D64 = 64
-BT, KC = 64, 32  # flash_attn_bwd.cu d64: block tile rows, streamed chunk rows
+# rows L is padded to (any multiple of KC: each row's sums are its own) and
+# the streamed rows a tile (flash_attn_bwd.cu d64::BN)
+BT, KC = 64, 32
 
 
 def d64_inputs(b, seq, h, seed):
@@ -266,11 +268,11 @@ def d64_inputs(b, seq, h, seed):
 
 
 def backward_d64_tiles(q, k, v, o, lse, do, mm, acc=None):
-    """(dq, dk, dv) in the order of `flash_dq_d64` and `flash_dkv_d64`, every
-    product by mm, and `acc(x, a, b)` (default x + mm(a, b)) taking the
-    products into the accumulators dq, dk and dv. Both pad L to 64-row
-    tiles with zero rows; rows are
-    independent, so a block's warp slices are one batch dimension here.
+    """(dq, dk, dv) over 32-row streamed tiles, as `flash_dq_d64` and
+    `flash_dkv_d64` take them, every product by mm, and `acc(x, a, b)`
+    (default x + mm(a, b)) taking each tile's products into the
+    accumulators dq, dk and dv. L is padded to 64 rows with zero rows; rows
+    are independent, so the kept tiles are one batch dimension here.
     dq: each q row's lse comes from the forward, its di = rowsum(dO O) from
     its own dO and O; K and V stream in 32-key chunks: S = mm(Q, K^T),
     P = exp(S scale - lse) (0 on a padded row or key), dP = mm(dO, V^T),

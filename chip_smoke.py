@@ -15,8 +15,9 @@ and g++; no network. Phases, each fatal on failure:
    `flash_`) or the GroupNorm backward that spills fails the run, and any
    ptxas C7519 (a `warpgroup.arrive` it injected) is logged, and fails
    the run in a Hopper kernel; the Hopper
-   kernels (HOPPER_KERNELS: the d = 64 forward, flash_fwd_d64_bf16 and
-   flash_fwd_d64, and the d = 64 backward, flash_dq_d64_bf16 and
+   kernels (HOPPER_KERNELS: the d = 64 and d = 512 forward,
+   flash_fwd_d64_bf16, flash_fwd_d64, flash_fwd_d512_bf16 and
+   flash_fwd_d512, and the d = 64 backward, flash_dq_d64_bf16 and
    flash_dkv_d64_bf16 in bf16, flash_dq_d64 and flash_dkv_d64 in fp32)
    must hold warpgroup products and TMA loads:
    `cuobjdump -sass` of each built library counts each one's HGMMA and
@@ -190,7 +191,8 @@ and g++; no network. Phases, each fatal on failure:
    flash_fwd_d512_bf16, the bf16 backward at d = 16 flash_dq_d16_bf16 and
    flash_dkv_d16_bf16, at d = 64 flash_dq_d64_bf16 and flash_dkv_d64_bf16,
    at d = 512 flash_dq_d512_bf16 and flash_dkv_d512_bf16; the fp32
-   backward at d = 64 flash_dq_d64 and flash_dkv_d64, on TF32 wgmma),
+   forward at d = 64 and 512 flash_fwd_d64 and flash_fwd_d512, and the
+   fp32 backward at d = 64 flash_dq_d64 and flash_dkv_d64, on TF32 wgmma),
    and a log line gives each bf16 row's times beside
    SDPA's bf16 call; another gives each training shape's dq and dkv times
    (ms and device_ms), their own bounds, the pair's and the pair's
@@ -204,7 +206,9 @@ and g++; no network. Phases, each fatal on failure:
    fp32 backward's error against float64 at d = 16 and d = 64, L = 1024 and
    8192: how each design's error moves with L; at d = 64 (per-tile
    partials on wgmma) L = 8192 must read below BWD64_F64_TOL of max and
-   within twice L = 1024;
+   within twice L = 1024; another the fp32 forward's at d = 512, L = 1024
+   and 8192 (flash_fwd_d512: per-tile partials), which must read below
+   FWD512_F64_TOL and at L = 8192 within twice L = 1024;
 14. validation (tagged `[validate]`, the root train.py's `run_validation`
    and `ImageLogger` as the training CLI calls them, on in-memory batches
    of configs/dataset/lic_valid.yaml's 1 x 512x512): (a) after phase 8
@@ -629,22 +633,25 @@ TF32_FLOPS = 494.7e12
 TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (16, 64, 512)}
 # Head dims whose bf16 forward has kernels of its own on the bf16 tensor
 # cores (flash_fwd_d16_bf16, flash_fwd_d64_bf16, flash_fwd_d512_bf16: bf16
-# mma.sync m16n8k16, at d = 64 wgmma), and whose bf16 backward has
+# mma.sync m16n8k16, at d = 64 and 512 wgmma), and whose bf16 backward has
 # (flash_dq_d16_bf16, flash_dkv_d16_bf16, flash_dq_d64_bf16,
 # flash_dkv_d64_bf16, flash_dq_d512_bf16, flash_dkv_d512_bf16: likewise):
 # every head dim of the paths
 BF16_FWD_HEAD_DIMS = (16, 64, 512)
 BF16_BWD_HEAD_DIMS = (16, 64, 512)
 # Head dims whose forward kernels, fp32 and bf16, run on wgmma with TMA
-# loads (flash_fwd_d64, flash_fwd_d64_bf16)
-HOPPER_FWD_HEAD_DIMS = (64,)
+# loads (flash_fwd_d64, flash_fwd_d64_bf16, flash_fwd_d512,
+# flash_fwd_d512_bf16)
+HOPPER_FWD_HEAD_DIMS = (64, 512)
 # Head dims whose fp32 backward kernels run on TF32 wgmma with TMA loads
 # (flash_dq_d64, flash_dkv_d64)
 HOPPER_BWD_FP32_HEAD_DIMS = (64,)
-# Each library's kernels on wgmma with TMA loads (the d = 64 forward and
-# backward in both dtypes): phase 2 counts their HGMMA and UTMALDG
-# instructions, and a ptxas C7519 in one of them fails the run
-HOPPER_KERNELS = {"flash_attn_fwd": ("flash_fwd_d64", "flash_fwd_d64_bf16"),
+# Each library's kernels on wgmma with TMA loads (the d = 64 and d = 512
+# forward and the d = 64 backward in both dtypes): phase 2 counts their
+# HGMMA and UTMALDG instructions, and a ptxas C7519 in one of them fails
+# the run
+HOPPER_KERNELS = {"flash_attn_fwd": ("flash_fwd_d64", "flash_fwd_d64_bf16",
+                                     "flash_fwd_d512", "flash_fwd_d512_bf16"),
                   "flash_attn_bwd": ("flash_dq_d64_bf16",
                                      "flash_dkv_d64_bf16", "flash_dq_d64",
                                      "flash_dkv_d64")}
@@ -652,6 +659,12 @@ HOPPER_KERNELS = {"flash_attn_fwd": ("flash_fwd_d64", "flash_fwd_d64_bf16"),
 # (phase 13): its per-tile partials keep it at its L = 1024 reading
 # (~3e-6; the one-accumulator mma.sync design it replaced read 7.2e-5)
 BWD64_F64_TOL = 5e-5
+# The fp32 d = 512 forward's error against float64 (max |o - o64|, phase
+# 13): per-tile P V partials keep it flat in L. The CPU emulation of
+# flash_fwd_d512 (tests/test_torch_port_flash_fwd_d512.py) reads 8.0e-7 at
+# L = 1024 and 1.7e-7 at 4096 on 64 rows of normal draws (one accumulator a
+# consumer: 1.1e-6 and 1.8e-6); the limit is five times the first
+FWD512_F64_TOL = 4e-6
 # The exponentials' floor of a flash call (`softmax_bound_ms`): B H L^2 of
 # them on the MUFU units, 16 a clock per SM (sm_90), at the boost clock
 MUFU_EX2_PER_CLOCK = 16
@@ -3082,6 +3095,16 @@ def bwd_error_vs_float64(device, shape) -> list:
             for g, w in zip(got, want)]
 
 
+def fwd_error_vs_float64(device, shape) -> float:
+    """max |o - o64| of the fp32 forward kernel against the plain version in
+    float64 on the same inputs: only float64 shows how the kernel's own
+    error moves with L."""
+    q, k, v = (_randn(shape, torch.float32, device, s) for s in range(3))
+    o = flash_attention(q, k, v)
+    want = flash_attention_plain(*(x.double() for x in (q, k, v)))
+    return (o.double() - want).abs().max().item()
+
+
 def sdpa_backend(shape, device) -> str:
     """The backend torch's default dispatch gives F.scaled_dot_product_
     attention for fp32 [B, L, H, D] = `shape` (the library time's)."""
@@ -3278,6 +3301,17 @@ def phase_kernels(device, runs) -> list:
             raise AssertionError(
                 f"the fp32 d = {d} backward's error grows with L or passes "
                 f"{BWD64_F64_TOL} of max at L = 8192: {reads}")
+    reads = {seq: fwd_error_vs_float64(device, (1, seq, 1, 512))
+             for seq in (1024, 8192)}
+    log(f"[kernels] flash forward fp32 error against float64 at d = 512 "
+        f"({flash_fwd_kernel(512, torch.float32)}), max |o - o64|: "
+        + "; ".join(f"L = {seq}: {x:.3g}" for seq, x in reads.items())
+        + f" (limit {FWD512_F64_TOL}, and L = 8192 within twice L = 1024)")
+    if not (reads[8192] < FWD512_F64_TOL and reads[1024] < FWD512_F64_TOL
+            and reads[8192] <= 2 * reads[1024]):
+        raise AssertionError(
+            f"the fp32 d = 512 forward's error grows with L or passes "
+            f"{FWD512_F64_TOL} against float64: {reads}")
     for path, per_what in fwd_paths.items():
         per = {key: sum(r[key] * r["calls"].get(path, 0) for r in gn_rows)
                for key in ("ms", "device_ms", "host_us", "library_ms",

@@ -100,49 +100,110 @@
 // each tile into a partial from zero that joins the output by one fma,
 // which keeps the error flat in L. [1, 6144, 5, 64] gives 240 blocks on
 // 132 SMs (1.82 waves), [1, 1536, 10, 64] 120.
-// d = 512 (the VAE mid-block, [1, 6144, 1, 512] per served image and
-// [2, 4096, 1, 512] with lse in refine training) runs its own kernel,
-// flash_fwd_d512, on the tensor cores: TF32 mma.sync (m16n8k8) with fp32
-// accumulators, each fp32 product taken as three TF32 products (3xTF32,
-// flash_mma.cuh), because one TF32 pass misses the fp32 limit of 2e-5 by
-// ten times while the split lands beside plain fp32.
-// - Tiles: 32 q rows and 32 k rows. Q, K and V live in shared memory as fp32
-//   in the swizzled layout of flash_mma.cuh (stride D + 8, column XOR
-//   (row & 4)), so the fragment loads of every role hit 32 banks: 3 x 65 KB,
-//   plus the four partial score tiles (20 KB) and P, 220 KB of the 227 KB
-//   a block may use; one block of 8 warps per SM.
-// - Score phase: warp w sums S = Q K^T over quarter w >> 1 of d for the
-//   16 x 32 patch at rows 16 (w & 1).. (one ldmatrix.x4 for A and two for
-//   the four n-tiles of B per 8 of d; the split of A serves 4 n-tiles). The
-//   four partial tiles meet in shared memory, where all 256 threads take 4
-//   entries each, add the partials and run the softmax (8 lanes a row,
-//   shuffles).
-// - P V phase: warp w owns the 32 x 64 slice of O at d = 64 w..: 64 fp32
-//   accumulators a thread in registers; each 8 of k loads and splits 4
-//   values of P and 16 of V for 48 mma.
-// - Copies: fp32 tiles come by cp.async.cg, 16 bytes a lane, zero-filled past
-//   L. K and V have one buffer each and take turns: the next K tile is
-//   copied while the softmax and P V run, the next V tile while the next
-//   score phase runs.
-// - Grid: one block per (32-row q tile, b*h): [1, 6144, 1, 512] gives 192
-//   blocks on 132 SMs, 1.45 waves, so the second wave runs 60 blocks on 132
-//   SMs and the tail costs up to 27% of the kernel's time; [2, 4096, 1, 512]
-//   gives 256 blocks, 1.94 waves.
-// - ptxas -v: 198 registers, no spills.
-// What it does about the FMA design it replaces: tensor cores in place of
-// fp32 FMA; 16-byte asynchronous copies that overlap compute in place of
-// element loads through registers; 0.25 shared-memory loads per mma in the
-// score phase and 0.4 in P V, against 2 loads per FMA. What holds it back
-// now: 3 TF32 mma and the split (3 integer and fp32 operations a value)
-// per fp32 product, mma.sync's rate on Hopper (wgmma is the full-rate
-// instruction), and one block of 8 warps per SM to hide their latency.
+// d = 512 (the VAE mid-block: [1, 6144, 1, 512] twice a served image,
+// [2 | 4, 6144, 1, 512] in batched serving, [4 | 7 | 8 | 15, 4096, 1, 512]
+// in tiled serving, [2, 4096, 1, 512] with lse in refine training,
+// [1, 4096, 1, 512] in validation) runs flash_fwd_d512 (fp32, 3xTF32) and
+// flash_fwd_d512_bf16, two Hopper kernels built from flash_hopper.cuh with
+// the pieces of the d = 64 design above: TMA tiles on mbarriers, a
+// producer and consumer warpgroups, wgmma with P from registers, scores in
+// log2 units, lse = m ln 2 + ln l. What bounds them: the products, 4 B H L^2
+// d flops, 0.469 ms in fp32 (3xTF32) and 0.078 ms in bf16 at
+// [1, 6144, 1, 512]; the B H L^2 exponentials take 0.009 ms. The mma.sync
+// kernels they replace reached 23% (fp32) and 16% (bf16) of that. What
+// shapes the design is the width, a 64-row tile (wgmma's least M):
+// - O: 64 x 512 fp32 accumulators are 128 KB, 256 registers a thread of one
+//   warpgroup, more than a thread has, and the per-tile P V partial that
+//   keeps the fp32 error flat in L needs as many again. So O's d is split:
+//   over two consumer warpgroups (bf16: 128 registers each) or over the
+//   four blocks of a cluster (fp32: 64 each).
+// - Q: 64 x 512 is 64 KB in bf16, but 128 KB a plane in fp32, and 3xTF32
+//   needs a big and a small plane: 256 KB, more than the 227 KB a block
+//   may use, before any K or V. Q's small term in registers would be 128
+//   registers a thread of two warpgroups, beside O's 128. So the fp32
+//   kernel splits Q's d too, over the cluster.
+// - K and V: an fp32 key is 2 KB a plane (4 KB as two), and so is V^T:
+//   TF32 wgmma reads only K-major B, so V^T is made by the producer, big and
+//   small, in P's permuted key order (as flash_fwd_d64). With d split four
+//   ways, a key is 2.5 KB in a block (K big, rounded where it lands, and
+//   small, V as loaded, V^T big and small), so 32-key tiles fit twice.
+//   bf16 takes K K-major and V MN-major straight from TMA: a 32-key tile is
+//   32 KB, a ring of two.
+// - A split d makes S a sum of partials: each slice of d sums its own
+//   partial scores from zero, and the partials join in fp32 in a fixed
+//   order, so every holder runs the same softmax on the same bits (cheap
+//   at d = 512) and its own columns of P V.
+// - Not built: a split over keys for the waves (at [1, 6144, 1, 512] two
+//   key halves give the same rounds of work as none; four halve a round's
+//   work but need a join of (m, l, O) partials of 64 x 512 each).
+// fp32, flash_fwd_d512: a cluster of four blocks along d takes one 64-row
+// q tile; block r holds d 128 r.. of Q (its big term in registers, 64 a
+// thread; its small term, 32 KB, in shared memory as the A of the first
+// pass, as flash_fwd_d64), of each K and V tile, and of O. Per block, three
+// warpgroups: the producer (lane 0 of warp 0 issues the TMA loads, four
+// boxes of 32 fp32 of K and of V a tile; warps 1-3 round K in place into
+// its big term and write its small term, and write V^T's two terms, in two
+// operand stages) and two consumers, consumer kh taking the key tiles of
+// parity kh with its own softmax state and O; they merge at the end. Per
+// tile a consumer: S's partial over its 128 of d (16 8-deep steps of three
+// m64n32k8 wgmma: small * big, big * small, big * big); the exchange; the
+// softmax; P V over its 128 columns in two halves of 64 (m64n64k8, three
+// passes), each half's tile from zero into a partial that joins O by one
+// fma, so wgmma's rounding toward zero stays that of one tile and the error
+// is flat in L. The exchange is a reduce-scatter and an all-gather, warp by
+// warp: warp w of every other block pushes its 16 rows' partial (2 KB) into
+// block w by st.async, completing on block w's barrier; warp w of block w
+// adds the four in rank order, ((p0 + p1) + p2) + p3, and pushes the sum
+// back, so every block holds the same S and P. A stage's K and V^T halves
+// are released apart (kready / vready), so K of the next tile is split
+// while P V of this one runs. Shared memory 230,400 bytes (two stages of
+// 64 KB, two V tiles as loaded, Q small 32 KB, the exchange slots 32 KB),
+// one block an SM; setmaxnreg gives the consumers 224 registers (Q big 64,
+// O 64, a half's partial 32, P's two terms 32) and the splitters 56. The
+// grid: four blocks a q tile, [1, 6144, 1, 512] 384 blocks, 32 clusters at
+// a time (a cluster's four blocks share a GPC), three rounds.
+// Probes that chose it (tools/flash_fwd_probe.py --d 512, PERF.md §6, the
+// H100 at 700 W; device ms at [1, 6144, 1, 512], the parent's mma.sync
+// kernel 1.99): one consumer a block reading the other blocks' partials by
+// ld.shared::cluster after a fence.acq_rel.cluster and one arrival on each,
+// 3.21 (the exchange 1.79 of it); without the fence and with four threads
+// arriving, 2.20 (the remote reads 0.72 of it); pushing by st.async
+// through a reduce-scatter, 1.70; S of the next tile issued before this
+// tile's exchange, 3.13-3.75 (two S accumulators spilled; with Q in shared
+// memory, no spill, still 3.13); two consumers splitting each tile's 32
+// keys (m64n16k8 S), 2.27; two
+// consumers taking alternate tiles (this design), 1.58-1.61; its
+// splitters' loads batched before their stores, 1.78-3.39 (slower); the
+// TMA loads issued by the consumers and four splitting warps, 1.83;
+// registers moved to the splitters (72 / 88), no gain or consumer spills;
+// P V as one m64n128k8 group (a 64-register partial), spills, 1.71.
+// What holds it back now: the splitters (with nothing to split it reads
+// 1.20) and one warpgroup's serial S -> exchange -> softmax -> P V chain a
+// tile (the products alone take about a third of it).
+// bf16, flash_fwd_d512_bf16: one block a 64-row q tile, two consumer
+// warpgroups each owning half of d and a producer warp. Q (64 KB, eight
+// boxes of 64) and a ring of two 32-key K and V tiles (32 KB each) by TMA;
+// per tile each consumer issues S's partial over its 256 of d (16 m64n32k16
+// wgmma, Q and K K-major) and, with it, P V of the previous tile (two
+// m64n256k16 wgmma, P from registers, V MN-major over four boxes: the
+// descriptor's leading byte offset steps a box); while P V runs, the two
+// partials meet in shared memory (one named barrier a tile, two buffers by
+// parity), p0 + p1 in both, and the softmax runs. P is one bf16 term and O
+// one accumulator, as flash_fwd_d64_bf16 (the rule below;
+// tests/test_torch_port_flash_fwd_d512.py reads it under this order).
+// 230,400 bytes of shared memory, one block an SM; setmaxnreg gives the
+// consumers 240 registers (O 128). [1, 6144, 1, 512] gives 96 blocks on
+// 132 SMs. Probe (tools/flash_fwd_probe.py --d 512 --dtype bf16, the H100
+// at 700 W): 0.256 device ms at [1, 6144, 1, 512], 0.302 with P V waited
+// for before the next S (variant `serial`); the parent's mma.sync kernel
+// 0.478.
 //
 // bf16 (the `--bf16` serving path: [1, 6144, 5, 64] and [1, 1536, 10, 64]
 // ten times an image each, [1, 6144, 4, 16] and [1, 1536, 8, 16] four times
 // each, [1, 6144, 1, 512] twice; with lse where training calls them) runs
-// flash_fwd_d16_bf16 and flash_fwd_d512_bf16, built from the pieces of
-// flash_bf16.cuh, and flash_fwd_d64_bf16 (the Hopper design above; the
-// points on P and the softmax below hold for it too):
+// flash_fwd_d16_bf16, built from the pieces of flash_bf16.cuh, and
+// flash_fwd_d64_bf16 and flash_fwd_d512_bf16 (the Hopper designs above;
+// the points on P and the softmax below hold for them too):
 // - Tiles stay bf16 in shared memory, half the bytes of the fp32 tiles the
 //   template widened them to, in a swizzled layout (chunk c of a row at
 //   c ^ (row & 7); at d = 16, whose rows hold 2 chunks, c ^ ((row >> 2) & 1))
@@ -203,22 +264,10 @@
 // which spill at the registers two blocks leave a thread, 1.7x slower; a
 // setmaxnreg split at two blocks an SM hung, as ptxas launched it with
 // fewer registers than the producer had to give back.
-// d = 512: 64-row q tiles of 16 warps (512 threads, 128 registers each, one
-// block per SM) share each 32-key K and V tile (154 KB with Q, the partial
-// scores and P): [1, 6144, 1, 512] gives 96 blocks and [2, 4096, 1, 512]
-// 128, one wave on 132 SMs. Score phase: warp (rows 16 rq.., keys 16 kh..,
-// d half dh) sums its 16 x 16 patch over 256 of d (one ldmatrix of Q and
-// one of K a step for two mma); the two d halves meet in shared memory as
-// fp32, where 8 threads a row run the softmax and store P as bf16. P V
-// phase: warp owns O[32 rows, 64 of d] (64 accumulators a thread), P's A
-// fragments by ldmatrix, V's by ldmatrix.trans, each V fragment serving two
-// m-tiles. K and V take turns in one buffer each, as in the fp32 kernel.
-// Reach (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W), against the bf16
-// bound and SDPA's bf16 call: see PERF.md §6. What holds the mma.sync
-// kernels (d = 16, 512) back now: mma.sync and ldmatrix issue, the
-// softmax's fp32 and MUFU work in the same warps between them, and at
-// d = 512 one block of 16 warps per SM with three barriers a tile; the
-// d = 64 design above is the route for them.
+// d = 512 (flash_fwd_d512_bf16, the Hopper design above). What holds the
+// mma.sync kernel (d = 16) back now: mma.sync and ldmatrix issue and the
+// softmax's fp32 and MUFU work in the same warps between them; the d = 64
+// design above is the route for it.
 //
 // Bound on the H100: 4*L^2*D*H*B flops (S and P V) and 4*B*L*H*D elements
 // of traffic. fp32 runs 3xTF32 on the tensor cores at every head dim, three
@@ -235,162 +284,502 @@ namespace {
 
 using rdeic_flash::kNegInf;
 
-// d = 512 on the tensor cores (header). One block: (q tile blockIdx.x,
-// b*h blockIdx.y), 256 threads.
+// fp32 at d = 512 on TF32 wgmma, each product as three passes (header). One
+// cluster of CL blocks along d takes one 64-row q tile: cluster blockIdx.x
+// / CL, b*h blockIdx.y; block `rank` owns d 128 rank.. of Q, K, V and O.
+// Three warpgroups a block: warpgroup 0 the producer (lane 0 of warp 0
+// issues the TMA loads, warps 1-3 split K and transpose and split V), and
+// two consumers: consumer kh takes the key tiles j with j % 2 = kh, each
+// with its own softmax state and its own 128 columns of O in registers;
+// the two merge at the end.
 namespace d512 {
 
-constexpr int D = 512, BQ = 32, BK = 32, NT = 256;
-constexpr int TS = D + 8;  // D-wide tile stride (swizzled, flash_mma.cuh)
-constexpr int PS = 36;     // P: 4 mod 32, A-operand reads hit 32 banks
-constexpr int XS = 40;     // partial scores: 8 mod 32, float2 writes ditto
-constexpr int kSmemFloats =
-    3 * BQ * TS + 4 * BQ * XS + BQ * PS + 2 * BQ;
-static_assert(kSmemFloats * 4 <= 232448, "shared memory per block");
+using namespace rdeic_flash::hopper;
+constexpr int D = 512, CL = 4, DC = D / CL, BQ = 64, BK = 32, STAGES = 2,
+              NT = 384, NS = 96;  // NS: the splitting threads (warps 1-3)
+// setmaxnreg moves the producer's registers to the consumers; the release
+// covers the raise at the launch's 168 (one block of 384 threads an SM)
+constexpr int kLaunchRegs = 168, kProducerRegs = 56, kConsumerRegs = 224;
+static_assert(kLaunchRegs == ((65536 / NT) & ~7), "one block an SM");
+static_assert(128 * (kLaunchRegs - kProducerRegs) >=
+                  256 * (kConsumerRegs - kLaunchRegs),
+              "registers per block");
+constexpr uint32_t kBox = BK * 128;          // 32 keys x 32 fp32 of d: 4 KB
+constexpr uint32_t kTile = (DC / 32) * kBox;  // a block's K or V tile: 16 KB
+// two operand stages, stage s for the tiles of consumer s: K big (TMA lands
+// K there and the splitters round it in place), K small, V^T big, V^T small
+// (V^T is DC rows of 32 keys, kTile bytes too)
+constexpr uint32_t kKb = 0, kKs = kTile, kVTb = 2 * kTile, kVTs = 3 * kTile,
+                   kOp = 4 * kTile;
+constexpr uint32_t kQAtom = BQ * 128;  // 64 q rows x 32 fp32 of d: 8 KB
+// the exchange of a tile's partial scores, warp by warp: a warp's 16 rows
+// are 2 KB (16 floats a lane, float4 i of a lane at 512 i + 16 lane). Per
+// consumer two areas of four 2 KB slots: `parts`, slot s = block s's
+// partial of the rows this block reduces; `sums`, slot w = the rows of
+// warp w, reduced by block w
+constexpr uint32_t kSlot = 2048, kArea = 4 * kSlot;
+// from a 1024-byte-aligned base: the two stages, two V tiles as loaded,
+// Q's small term (the A operand of S's first pass), the exchange areas
+constexpr uint32_t kV0 = STAGES * kOp, kQs = kV0 + 2 * kTile,
+                   kX0 = kQs + (DC / 32) * kQAtom;
+constexpr int kSmemBytes = 1024 + kX0 + 4 * kArea;
+static_assert(kSmemBytes <= 232448, "shared memory per block");
+// consumer 1's (m, l, O) for the merge, in stage 0 once both are done
+static_assert(128 * (4 + DC / 2) * 4 <= kOp, "the merge's scratch");
 
-template <typename T>
 __global__ void __launch_bounds__(NT, 1)
-    flash_fwd_d512(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ o,
-                   float* __restrict__ lse, int L, int H, float scale) {
+    flash_fwd_d512(const float* __restrict__ q,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   float* __restrict__ o, float* __restrict__ lse, int L,
+                   int H, float scale) {
   using namespace rdeic_flash;
-  constexpr bool kSplit = sizeof(T) == 4;  // bf16 operands are exact in TF32
-  extern __shared__ __align__(16) float smem_tc[];
-  float* qs = smem_tc;             // [BQ][TS]
-  float* ks = qs + BQ * TS;        // [BK][TS]
-  float* vs = ks + BK * TS;        // [BK][TS]
-  float* xs = vs + BK * TS;        // [4 quarters of d][BQ][XS]
-  float* ps = xs + 4 * BQ * XS;    // [BQ][PS]
-  float* alpha_s = ps + BQ * PS;   // [BQ]
-  float* l_s = alpha_s + BQ;       // [BQ]
+  extern __shared__ unsigned char smem_d512[];
+  // per stage: kfull (K landed), kready / vready (K's / V^T's operands
+  // made), kempty / vempty (consumed by S / by P V); per V buffer: vfull
+  // (V landed), vfree (transposed); per consumer: got_parts (the other
+  // blocks' partials of this block's rows) and, per warp, got_sum (its rows
+  // reduced by their block)
+  __shared__ __align__(8) uint64_t bars[24];
+  const uint32_t s0 = (smem_u32(smem_d512) + 1023) & ~1023u;
+  unsigned char* const p0 = smem_d512 + (s0 - smem_u32(smem_d512));
+  const uint32_t b0 = smem_u32(bars);
+  auto kfull = [&](int s) { return b0 + 8 * s; };
+  auto kready = [&](int s) { return b0 + 8 * (2 + s); };
+  auto vready = [&](int s) { return b0 + 8 * (4 + s); };
+  auto kempty = [&](int s) { return b0 + 8 * (6 + s); };
+  auto vempty = [&](int s) { return b0 + 8 * (8 + s); };
+  auto vfull = [&](int x) { return b0 + 8 * (10 + x); };
+  auto vfree = [&](int x) { return b0 + 8 * (12 + x); };
+  auto got_parts = [&](int kh) { return b0 + 8 * (14 + kh); };
+  auto got_sum = [&](int kh, int w) { return b0 + 8 * (16 + 4 * kh + w); };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int rh = warp & 1, quarter = warp >> 1;  // rows 16 rh.., d quarter
-  const int q0 = blockIdx.x * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int q0 = (blockIdx.x / CL) * BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int64_t row = static_cast<int64_t>(H) * D;
-  const int64_t base = static_cast<int64_t>(b) * L * row +
-                       static_cast<int64_t>(h) * D;
-  const T* kb = k + base;
-  const T* vb = v + base;
-
-  load_rows<T, BQ, D, NT>(qs, q + base, q0, L, row);
-  load_rows<T, BK, D, NT>(ks, kb, 0, L, row);
-  cp_async_commit();
-  load_rows<T, BK, D, NT>(vs, vb, 0, L, row);
-  cp_async_commit();
-
-  // softmax: thread (r, 4 columns from c); a row's 8 threads share a warp
-  const int r = tid >> 3, c = (tid & 7) * 4;
-  float m_run = kNegInf, l_run = 0.f;
-  float acc[2][8][4];  // O[0..32, 64 warp..]
-  zero(acc);
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    cp_async_wait<1>();  // Q and this K tile (this V tile may be in flight)
-    __syncthreads();
-    {
-      float sx[1][4][4];
-      zero(sx);
-      warp_mma<1, 4, D / 32, kSplit, kSplit>(
-          sx, RowA<TS, true>(qs, rh * 16, quarter * (D / 4)),
-          RowB<TS>(ks, 0, quarter * (D / 4)));
+  const int nk = (L + BK - 1) / BK;
+  if (threadIdx.x == 0) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        store_frag<XS>(xs + quarter * BQ * XS, sx[0][nt], rh * 16, nt * 8);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(kfull(s), 1);
+      mbar_init(kready(s), NS / 32);  // lane 0 of each splitting warp
+      mbar_init(vready(s), NS / 32);
+      mbar_init(kempty(s), 4);  // lane 0 of each warp of consumer s
+      mbar_init(vempty(s), 4);
+      mbar_init(vfull(s), 1);
+      mbar_init(vfree(s), NS / 32);
+      // one arrival (its own warp's expect_tx) and the bytes from the
+      // other blocks
+      mbar_init(got_parts(s), 1);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) mbar_init(got_sum(s, w), 1);
     }
-    __syncthreads();
-    if (k0 + BK < L) load_rows<T, BK, D, NT>(ks, kb, k0 + BK, L, row);
-    cp_async_commit();
+    fence_barrier_init();
+  }
+  // every block's barriers are set before another block arrives on them
+  cluster_arrive();
+  cluster_wait();
 
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
+  if (warp < 4) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0) {
+      // the loads: K of tile j into its stage once S is done with the
+      // stage's last tile, V into its buffer (the stage's) once the
+      // splitters have transposed that buffer's last tile
+      if (lane == 0) {
+        for (int j = 0; j < nk; ++j) {
+          const int s = j % STAGES;
+          const uint32_t free = ((j / STAGES) & 1) ^ 1;  // round 0 passes
+          mbar_wait(kempty(s), free);
+          mbar_expect_tx(kfull(s), kTile);
 #pragma unroll
-    for (int qq = 0; qq < 4; ++qq) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(xs + (qq * BQ + r) * XS + c);
-      s[0] += x.x, s[1] += x.y, s[2] += x.z, s[3] += x.w;
-    }
-    float mx = kNegInf;
+          for (int a = 0; a < DC / 32; ++a)
+            tma_load_4d(s0 + s * kOp + kKb + a * kBox, &tk, kfull(s),
+                        DC * rank + 32 * a, h, j * BK, b);
+          mbar_wait(vfree(s), free);
+          mbar_expect_tx(vfull(s), kTile);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[j] = k0 + c + j < L ? s[j] * scale : kNegInf;
-      mx = fmaxf(mx, s[j]);
-    }
+          for (int a = 0; a < DC / 32; ++a)
+            tma_load_4d(s0 + kV0 + s * kTile + a * kBox, &tv, vfull(s),
+                        DC * rank + 32 * a, h, j * BK, b);
+        }
+      }
+      __syncwarp();
+    } else {
+      // the splitters make the operands TMA cannot give: K's two terms (K
+      // big rounded in place) and V^T's (keys in the permuted order of P's
+      // fragment), in the 128-byte swizzle
+      const int tid = threadIdx.x - 32, ws = warp - 1;
+      // V^T: lane = key; chunk c = d 4c..4c + 3 of the block's. Key x sits
+      // at slot 8 (x >> 3) + (x & 7 even ? (x & 7) / 2 : 4 + (x & 7) / 2),
+      // so k-slot t of an 8-key step is key 2t and slot t + 4 key 2t + 1
+      const int x = lane & 7;
+      const uint32_t slot = (lane & ~7) + ((x & 1) ? 4 + (x >> 1) : x >> 1);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % STAGES;
+        const uint32_t round = (j / STAGES) & 1;
+        unsigned char* const op = p0 + s * kOp;
+        // K: 1024 chunks of 16 bytes; the split keeps the layout
+        mbar_wait(kfull(s), round);
+#pragma unroll 2
+        for (int i = tid; i < kTile / 16; i += NS) {
+          const uint32_t off = 16 * i;
+          float4 big, small;
+          split4(*reinterpret_cast<const float4*>(op + kKb + off), big,
+                 small);
+          *reinterpret_cast<float4*>(op + kKb + off) = big;
+          *reinterpret_cast<float4*>(op + kKs + off) = small;
+        }
+        // the writes seen by wgmma
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(kready(s));
+        // V^T, once P V is done with the stage's last tile
+        mbar_wait(vfull(s), round);
+        mbar_wait(vempty(s), round ^ 1);  // round 0 passes
+#pragma unroll 2
+        for (int c = ws; c < DC / 4; c += NS / 32) {
+          float4 big, small;
+          split4(*reinterpret_cast<const float4*>(
+                     p0 + kV0 + s * kTile + (c >> 3) * kBox +
+                     swizzle128(lane, 16 * (c & 7))),
+                 big, small);
+          const float bv[4] = {big.x, big.y, big.z, big.w};
+          const float sv[4] = {small.x, small.y, small.z, small.w};
 #pragma unroll
-    for (int off = 4; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(m_run, mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[j] = expf(s[j] - m_new);
-      sum += s[j];
-    }
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float alpha = expf(m_run - m_new);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    *reinterpret_cast<float4*>(ps + r * PS + c) =
-        make_float4(s[0], s[1], s[2], s[3]);
-    if (c == 0) {
-      alpha_s[r] = alpha;
-      l_s[r] = l_run;
-    }
-    cp_async_wait<1>();  // this V tile (the next K tile may be in flight)
-    __syncthreads();
-
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const float a_lo = alpha_s[mt * 16 + g], a_hi = alpha_s[mt * 16 + g + 8];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        acc[mt][nt][0] *= a_lo, acc[mt][nt][1] *= a_lo;
-        acc[mt][nt][2] *= a_hi, acc[mt][nt][3] *= a_hi;
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t at = swizzle128(4 * c + e, 4 * slot);
+            *reinterpret_cast<float*>(op + kVTb + at) = bv[e];
+            *reinterpret_cast<float*>(op + kVTs + at) = sv[e];
+          }
+        }
+        // the writes seen by wgmma, the V tile read (TMA may refill it)
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(vfree(s));
+          mbar_arrive(vready(s));
+        }
       }
     }
-    warp_mma<2, 8, BK / 8, true, kSplit>(acc, RowA<PS, false>(ps, 0, 0),
-                                         ColB<TS>(vs, warp * (D / 8), 0));
-    __syncthreads();  // done with vs and ps
-    if (k0 + BK < L) load_rows<T, BK, D, NT>(vs, vb, k0 + BK, L, row);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
+    cluster_arrive();
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int kh = (warp >> 2) - 1;  // consumer 0 or 1: tiles kh, kh + 2..
+    const int w = warp & 3, g = lane >> 2, t = lane & 3;
+    const float c = scale * 1.4426950408889634f;  // scores in log2 units
+    const int64_t row = static_cast<int64_t>(H) * D;
+    const int64_t base = static_cast<int64_t>(b) * L * row +
+                         static_cast<int64_t>(h) * D + DC * rank;
+    const int r0 = q0 + 16 * w + g;  // rows r0 (r = 0), r0 + 8 (1)
 
-  if (lse != nullptr && c == 0 && q0 + r < L)
-    lse[static_cast<int64_t>(blockIdx.y) * L + q0 + r] =
-        m_run + logf(fmaxf(l_run, 1e-30f));
+    // this thread's Q fragments of the block's d, split once: k-step kk
+    // holds (row, 8 kk + t) and (row, 8 kk + t + 4) of rows r0 and r0 + 8.
+    // The big term stays in registers (A of S's second and third pass, in
+    // both consumers), the small term goes to shared memory in the
+    // 128-byte swizzle (A of the first pass; consumer 0 writes it), as in
+    // flash_fwd_d64.
+    uint32_t qb[DC / 8][4];
+    {
+      unsigned char* const qs = p0 + kQs;
+      const int rw = 16 * w + g;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+      for (int kk = 0; kk < DC / 8; ++kk)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int rr = mt * 16 + g + half * 8;
-      if (q0 + rr >= L) continue;
-      const float inv = 1.f / fmaxf(l_s[rr], 1e-30f);
-      T* out = o + base + (q0 + rr) * row + warp * (D / 8) + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        store2<T>(out + nt * 8, acc[mt][nt][2 * half] * inv,
-                  acc[mt][nt][2 * half + 1] * inv);
+        for (int i = 0; i < 4; ++i) {
+          const int rr = r0 + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+          const float xq = rr < L ? q[base + rr * row + col] : 0.f;
+          uint32_t small;
+          split<true>(xq, qb[kk][i], small);
+          if (kh == 0)
+            *reinterpret_cast<uint32_t*>(
+                qs + (col >> 5) * kQAtom +
+                swizzle128(rw + 8 * (i & 1), 4 * (col & 31))) = small;
+        }
     }
+    fence_proxy_async();
+    named_sync(1, 256);  // Q's small term is written (the two consumers)
+
+    float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+    float acc[2][32];  // O[64 rows][128]: acc[hf][4 n + i], column 64 hf + 8 n
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[hf][i] = 0.f;
+
+    // The cluster's four partials of S join in rank order, ((p0 + p1) +
+    // p2) + p3, the rows of warp w in block w (a reduce-scatter, then an
+    // all-gather): warp w of every other block pushes its partial rows to
+    // block w (st.async, completing on its barrier), warp w of block w adds
+    // them to its own and pushes the sum back. Every block then holds the
+    // same S, softmax and P. Each warp's exchange is its own, one a tile in
+    // order; a slot is written again only by a block that has received
+    // what its reader sent after reading it, so one area of each suffices.
+    const uint32_t parts = s0 + kX0 + 2 * kh * kArea, sums = parts + kArea;
+    const uint32_t mine = 16 * lane;  // this lane's bytes in a slot
+    auto exchange = [&](int n, float(&sc)[BK / 2]) {
+      const uint32_t parity = n & 1;  // this consumer's n-th tile
+      if (w != rank) {
+        const uint32_t to = static_cast<uint32_t>(w);
+        const uint32_t at = mapa(parts + rank * kSlot + mine, to);
+        const uint32_t bar = mapa(got_parts(kh), to);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          st_async_v4(at + 512 * i,
+                      make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2],
+                                  sc[4 * i + 3]),
+                      bar);
+        if (lane == 0) mbar_expect_tx(got_sum(kh, w), kSlot);
+        mbar_wait_cluster(got_sum(kh, w), parity);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              p0 + (sums - s0) + w * kSlot + mine + 512 * i);
+          sc[4 * i] = v.x, sc[4 * i + 1] = v.y;
+          sc[4 * i + 2] = v.z, sc[4 * i + 3] = v.w;
+        }
+      } else {
+        // this warp's own partial joins the others in its slot, and the
+        // four are added in rank order
+        unsigned char* const slots = p0 + (parts - s0) + mine;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(slots + rank * kSlot + 512 * i) =
+              make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2],
+                          sc[4 * i + 3]);
+        if (lane == 0) mbar_expect_tx(got_parts(kh), (CL - 1) * kSlot);
+        mbar_wait_cluster(got_parts(kh), parity);
+#pragma unroll
+        for (int r = 0; r < CL; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                slots + r * kSlot + 512 * i);
+            if (r == 0) {
+              sc[4 * i] = v.x, sc[4 * i + 1] = v.y;
+              sc[4 * i + 2] = v.z, sc[4 * i + 3] = v.w;
+            } else {
+              sc[4 * i] += v.x, sc[4 * i + 1] += v.y;
+              sc[4 * i + 2] += v.z, sc[4 * i + 3] += v.w;
+            }
+          }
+#pragma unroll
+        for (int r = 0; r < CL; ++r) {
+          if (r == rank) continue;
+          const uint32_t to = static_cast<uint32_t>(r);
+          const uint32_t at = mapa(sums + w * kSlot + mine, to);
+          const uint32_t bar = mapa(got_sum(kh, w), to);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            st_async_v4(at + 512 * i,
+                        make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2],
+                                    sc[4 * i + 3]),
+                        bar);
+        }
+      }
+    };
+
+    // Each of this consumer's tiles: this block's partial S over its 128 of
+    // d, 64 x 32, three passes an 8-deep step (small * big, big * small,
+    // big * big), from zero (sc[4 n + i] holds keys 32 j + 8 n..); the
+    // exchange; the online softmax; P V in two halves of 64 columns
+    // (registers: a half's partial is 32), each from zero into a partial
+    // that joins the rescaled output by one fma (the tensor core's rounding
+    // of its sums stays that of one tile). The other consumer runs its own
+    // tiles in the meantime, on the same tensor cores.
+    const uint32_t st = s0 + kh * kOp;
+    for (int n = 0, j = kh; j < nk; ++n, j += 2) {
+      const int k0 = j * BK;
+      const uint32_t round = n & 1;
+      float sc[BK / 2];
+      // the descriptors of K's and Q's planes, kept from being hoisted out
+      // of the loop (every step's as a register pair would not fit)
+      uint64_t dk = desc(st + kKb), dq = desc(s0 + kQs);
+      asm volatile("" : "+l"(dk), "+l"(dq));
+      mbar_wait(kready(kh), round);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DC / 8; ++kk) {
+        // in 16-byte units: K's 4 KB boxes, Q's 8 KB atoms
+        const uint32_t at = ((kk >> 2) * kBox + 32 * (kk & 3)) >> 4;
+        const uint32_t qat = ((kk >> 2) * kQAtom + 32 * (kk & 3)) >> 4;
+        const uint64_t kb = dk + at, ks = dk + (kKs >> 4) + at;
+        mma_m64n32k8_ss_tf32(sc, dq + qat, kb, kk);
+        mma_m64n32k8_rs_tf32(sc, qb[kk], ks, 1);
+        mma_m64n32k8_rs_tf32(sc, qb[kk], kb, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kempty(kh));
+      exchange(n, sc);
+      if (k0 + BK > L) {  // the K tail: its scores are masked to -1e30
+#pragma unroll
+        for (int m = 0; m < BK / 8; ++m)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (k0 + 8 * m + 2 * t + (i & 1) >= L) sc[4 * m + i] = kNegInf;
+      }
+
+      // online softmax of rows r0 and r0 + 8 in log2 units:
+      // p = 2^(s c - m); a row's 32 values sit in the lane's quad, 8 a lane
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int m = 0; m < BK / 8; ++m)
+          mx = fmaxf(mx, fmaxf(sc[4 * m + 2 * r], sc[4 * m + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[r], mx * c);
+        float sum = 0.f;
+#pragma unroll
+        for (int m = 0; m < BK / 8; ++m)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& xv = sc[4 * m + 2 * r + e];
+            xv = exp2f(fmaf(xv, c, -m_new));
+            sum += xv;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        alpha[r] = exp2f(m_run[r] - m_new);
+        l_run[r] = l_run[r] * alpha[r] + sum;
+        m_run[r] = m_new;
+      }
+
+      // P's accumulator fragment of n-tile kk is its A fragment (a0..a3 =
+      // c0, c2, c1, c3; V^T is stored in that key order)
+      uint32_t pb[BK / 2], psm[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) split<true>(sc[i], pb[i], psm[i]);
+      mbar_wait(vready(kh), round);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float pv[32];
+        uint64_t dv = desc(st + kVTb + hf * 64 * 128);  // as dk above
+        asm volatile("" : "+l"(dv));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          const uint64_t vb = dv + 2 * kk, vs = dv + (kTile >> 4) + 2 * kk;
+          const uint32_t ab[4] = {pb[4 * kk], pb[4 * kk + 2], pb[4 * kk + 1],
+                                  pb[4 * kk + 3]};
+          const uint32_t as[4] = {psm[4 * kk], psm[4 * kk + 2],
+                                  psm[4 * kk + 1], psm[4 * kk + 3]};
+          mma_m64n64k8_rs_tf32(pv, as, vb, kk);
+          mma_m64n64k8_rs_tf32(pv, ab, vs, 1);
+          mma_m64n64k8_rs_tf32(pv, ab, vb, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(pv);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          acc[hf][i] = fmaf(acc[hf][i], alpha[(i >> 1) & 1], pv[i]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(vempty(kh));
+    }
+    cluster_arrive();  // this block's exchanges are done
+
+    // the two consumers merge: consumer 1 hands its (m, l, O) to consumer
+    // 0 through stage 0 (free once both are done), thread by thread;
+    // consumer 0 merges and writes the rows
+    float* const other = reinterpret_cast<float*>(p0) + (threadIdx.x & 127) *
+                                                            (4 + DC / 2);
+    named_sync(1, 256);  // both consumers are done with the stages
+    if (kh == 1) {
+      *reinterpret_cast<float4*>(other) =
+          make_float4(m_run[0], m_run[1], l_run[0], l_run[1]);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int i = 0; i < 32; i += 4)
+          *reinterpret_cast<float4*>(other + 4 + 32 * hf + i) = make_float4(
+              acc[hf][i], acc[hf][i + 1], acc[hf][i + 2], acc[hf][i + 3]);
+    }
+    named_sync(1, 256);
+    if (kh == 0) {
+      const float4 ml = *reinterpret_cast<const float4*>(other);
+      const float m_1[2] = {ml.x, ml.y}, l_1[2] = {ml.z, ml.w};
+      float a_0[2], a_1[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m = fmaxf(m_run[r], m_1[r]);
+        a_0[r] = exp2f(m_run[r] - m);
+        a_1[r] = exp2f(m_1[r] - m);
+        l_run[r] = l_run[r] * a_0[r] + l_1[r] * a_1[r];
+        m_run[r] = m;
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int i = 0; i < 32; i += 4) {
+          const float4 x4 =
+              *reinterpret_cast<const float4*>(other + 4 + 32 * hf + i);
+          const float o1[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = ((i + e) >> 1) & 1;
+            acc[hf][i + e] = acc[hf][i + e] * a_0[r] + o1[e] * a_1[r];
+          }
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rr = r0 + 8 * r;
+        if (rr >= L) continue;
+        const float l = fmaxf(l_run[r], 1e-30f);
+        if (lse != nullptr && rank == 0 && t == 0)
+          lse[static_cast<int64_t>(blockIdx.y) * L + rr] =
+              m_run[r] * 0.6931471805599453f + logf(l);
+        const float inv = 1.f / l;
+        float* out = o + base + rr * row + 2 * t;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+            *reinterpret_cast<float2*>(out + 64 * hf + 8 * m) =
+                make_float2(acc[hf][4 * m + 2 * r] * inv,
+                            acc[hf][4 * m + 2 * r + 1] * inv);
+      }
+    }
+  }
+  // no block leaves while another may still write to its shared memory
+  cluster_wait();
 }
 
-template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int L, int H, float scale,
                    cudaStream_t stream) {
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
   if (err != cudaSuccess) return err;
-  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_fwd_d512<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  CUtensorMap tk, tv;
+  if (!tensor_map(&tk, k, false, B, L, H, D, 32, BK) ||
+      !tensor_map(&tv, v, false, B, L, H, D, 32, BK))
+    return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(flash_fwd_d512,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + BQ - 1) / BQ, B * H);
-  flash_fwd_d512<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, L, H, scale);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL * ((L + BQ - 1) / BQ), B * H);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_fwd_d512, static_cast<const float*>(q),
+                           tk, tv, static_cast<float*>(o), lse, L, H, scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace d512
@@ -1359,186 +1748,272 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace d64_bf16
 
-// bf16 at d = 512 on the bf16 tensor cores (header). One block: (64-row q
-// tile blockIdx.x, b*h blockIdx.y), 16 warps.
+// bf16 at d = 512 on wgmma (header). One block: (64-row q tile blockIdx.x,
+// b*h blockIdx.y), two consumer warpgroups, each owning one half of d (its
+// 64 rows' partial scores over that half, and that half of O in
+// registers), and a producer warp (one thread issues every TMA load).
 namespace d512_bf16 {
 
 using rdeic_flash::bf16::bf16_t;
-constexpr int D = 512, BQ = 64, BK = 32, NT = 512;
-constexpr int kRow = D * 2;  // bytes of a tile row
-constexpr int XS = 40;  // partial scores (fp32): 8 mod 32, float2 writes
-constexpr int PS = 40;  // P (bf16): 80-byte rows, ldmatrix hits 32 banks
-constexpr int kSmemBytes =
-    (BQ + 2 * BK) * kRow + 2 * BQ * XS * 4 + BQ * PS * 2 + 2 * BQ * 4;
+using namespace rdeic_flash::hopper;
+constexpr int D = 512, DH = D / 2, BQ = 64, BK = 32, STAGES = 2, NT = 384;
+// two consumer warpgroups (warps 0-7), then the producer warpgroup, whose
+// registers setmaxnreg gives to the consumers (as in d64_bf16: the
+// producer's release covers the consumers' raise from the launch's 168)
+constexpr int kLaunchRegs = 168, kProducerRegs = 24, kConsumerRegs = 240;
+static_assert(kLaunchRegs == ((65536 / NT) & ~7), "one block an SM");
+static_assert(128 * (kLaunchRegs - kProducerRegs) >=
+                  256 * (kConsumerRegs - kLaunchRegs),
+              "registers per block");
+constexpr uint32_t kBoxQ = BQ * 128;           // 64 rows x 64 bf16 of d
+constexpr uint32_t kBoxKV = BK * 128;          // 32 keys x 64 bf16 of d
+constexpr uint32_t kTileQ = (D / 64) * kBoxQ;  // 64 KB
+constexpr uint32_t kTileKV = (D / 64) * kBoxKV;  // 32 KB
+// a tile's partial scores of both consumers (16 floats a thread; float4 i
+// of thread tc of consumer c at 8192 c + 2048 i + 16 tc); two buffers, a
+// tile's by its parity
+constexpr uint32_t kX = 2 * 128 * 16 * 4;
+// Q, the K ring, the V ring, the exchange buffers, from a 1024-byte-aligned
+// base
+constexpr int kSmemBytes = 1024 + kTileQ + 2 * STAGES * kTileKV + 2 * kX;
 static_assert(kSmemBytes <= 232448, "shared memory per block");
 
 __global__ void __launch_bounds__(NT, 1)
-    flash_fwd_d512_bf16(const bf16_t* __restrict__ q,
-                        const bf16_t* __restrict__ k,
-                        const bf16_t* __restrict__ v, bf16_t* __restrict__ o,
-                        float* __restrict__ lse, int L, int H, float scale) {
+    flash_fwd_d512_bf16(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        bf16_t* __restrict__ o, float* __restrict__ lse, int L,
+                        int H, float scale) {
   using namespace rdeic_flash;
-  using bf16::exp2_ftz, bf16::kLn2, bf16::kLog2e, bf16::ldsm_x4,
-      bf16::ldsm_x4_trans, bf16::load_tile, bf16::mma, bf16::pack;
-  extern __shared__ __align__(128) unsigned char smem_d512b[];
-  bf16_t* qs = reinterpret_cast<bf16_t*>(smem_d512b);  // [BQ][D]
-  bf16_t* ks = qs + BQ * D;                             // [BK][D]
-  bf16_t* vs = ks + BK * D;                             // [BK][D]
-  float* xs = reinterpret_cast<float*>(vs + BK * D);    // [2 d halves][BQ][XS]
-  bf16_t* ps = reinterpret_cast<bf16_t*>(xs + 2 * BQ * XS);  // [BQ][PS]
-  float* alpha_s = reinterpret_cast<float*>(ps + BQ * PS);    // [BQ]
-  float* l_s = alpha_s + BQ;                                  // [BQ]
+  using bf16::exp2_ftz, bf16::kLn2, bf16::kLog2e, bf16::pack;
+  extern __shared__ unsigned char smem_d512b[];
+  // q_full, then per stage k_full, k_empty, v_full, v_empty
+  __shared__ __align__(8) uint64_t bars[1 + 4 * STAGES];
+  const uint32_t sq = (smem_u32(smem_d512b) + 1023) & ~1023u;
+  unsigned char* const p0 = smem_d512b + (sq - smem_u32(smem_d512b));
+  const uint32_t sk = sq + kTileQ, sv = sk + STAGES * kTileKV;
+  const uint32_t sx = sv + STAGES * kTileKV;
+  const uint32_t q_full = smem_u32(bars);
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto k_empty = [&](int s) { return q_full + 8 * (1 + STAGES + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return q_full + 8 * (1 + 3 * STAGES + s); };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16::Lane ln(lane);
-  // score phase: rows 16 rq.., keys 16 kh.., d 256 dh..
-  const int rq = warp & 3, kh = (warp >> 2) & 1, dh = warp >> 3;
-  const uint32_t sq =
-      bf16::smem_addr(qs) + (16 * rq + ln.ar) * kRow + dh * kRow / 2;
-  const uint32_t sk =
-      bf16::smem_addr(ks) + (16 * kh + ln.br) * kRow + dh * kRow / 2;
-  // P V phase: rows 32 rp.., d 64 dp..
-  const int rp = warp & 1, dp = warp >> 1;
-  const uint32_t sv = bf16::smem_addr(vs) + ln.ar * kRow + dp * 128;
-  const uint32_t sp =
-      bf16::smem_addr(ps) + (32 * rp + ln.ar) * PS * 2 + (lane >> 4) * 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int nk = (L + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(k_empty(s), 8);  // lane 0 of each consumer warp
+      mbar_init(v_full(s), 1);
+      mbar_init(v_empty(s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // the producer: one thread keeps the ring full, a tile's K ahead of
+    // its V so S can start first; a 512-wide row is 8 boxes of 64
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(q_full, kTileQ);
+#pragma unroll
+      for (int a = 0; a < D / 64; ++a)
+        tma_load_4d(sq + a * kBoxQ, &tq, q_full, 64 * a, h, q0, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % STAGES;
+        const uint32_t free = ((j / STAGES) & 1) ^ 1;  // round 0 passes
+        mbar_wait(k_empty(s), free);
+        mbar_expect_tx(k_full(s), kTileKV);
+#pragma unroll
+        for (int a = 0; a < D / 64; ++a)
+          tma_load_4d(sk + s * kTileKV + a * kBoxKV, &tk, k_full(s), 64 * a,
+                      h, j * BK, b);
+        mbar_wait(v_empty(s), free);
+        mbar_expect_tx(v_full(s), kTileKV);
+#pragma unroll
+        for (int a = 0; a < D / 64; ++a)
+          tma_load_4d(sv + s * kTileKV + a * kBoxKV, &tv, v_full(s), 64 * a,
+                      h, j * BK, b);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;  // consumer 0 or 1: d 256 wg..
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+  const int tc = threadIdx.x & 127;  // the thread within its warpgroup
+  const float c = scale * kLog2e;     // scores in log2 units, for ex2
+  // Q's and each K tile's half of d: boxes 4 wg.. (K-major); V's half: the
+  // four boxes from 4 wg, the MN-major B of a 256-wide product (the
+  // descriptor's leading byte offset steps a box)
+  const uint32_t qh = sq + 4 * wg * kBoxQ;
+  // rows g (r = 0) and g + 8 (r = 1) of warp w's 16: the running max, and
+  // the lane's part of the running sum (its quad adds the parts at the end)
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float acc[DH / 2];  // O[64 rows][256]: acc[4 n + i], columns 256 wg + 8 n..
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2];  // S, then P, of a tile: sc[4 n + i] holds keys 8 n..
+  uint32_t pa[BK / 16][4];  // P as bf16 A fragments: keys 16 kk..
+  float alpha[2];
+
+  // this warpgroup's partial S = Q K^T of tile j over its half of d,
+  // 64 x 32 from zero in 16 steps of 16, issued (committed, not waited for)
+  auto issue_s = [&](int j) {
+    const int s = j % STAGES;
+    const uint32_t kh = sk + s * kTileKV + 4 * wg * kBoxKV;
+    mbar_wait(k_full(s), (j / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t step = 32 * (kk & 3);
+      mma_m64n32k16_ss(sc, desc(qh + (kk >> 2) * kBoxQ + step),
+                       desc(kh + (kk >> 2) * kBoxKV + step), kk);
+    }
+    wgmma_commit();
+  };
+  // O += P V of tile j (pa) over this warpgroup's half of d, issued: V is
+  // the MN-major B operand (keys = rows, d contiguous), 16 rows a step
+  auto issue_pv = [&](int j) {
+    const int s = j % STAGES;
+    const uint64_t dv = desc(sv + s * kTileKV + 4 * wg * kBoxKV, kBoxKV);
+    mbar_wait(v_full(s), (j / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      mma_m64n256k16_rs_mn(acc, pa[kk], dv + 128 * kk, 1);
+    wgmma_commit();
+  };
+  // the halves' partial S join in fp32, p0 + p1 in both warpgroups, so
+  // both hold the same S and the same P; a buffer is written again two
+  // tiles on, after both have passed the next tile's barrier, which each
+  // does after its reads of this one
+  auto exchange = [&](int j) {
+    unsigned char* const xb = p0 + (sx - sq) + (j & 1) * kX + 16 * tc;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(xb + (kX / 2) * wg + 2048 * i) =
+          make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2], sc[4 * i + 3]);
+    named_sync(1, 256);  // the two consumers
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 x0 = *reinterpret_cast<const float4*>(xb + 2048 * i);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(xb + kX / 2 + 2048 * i);
+      sc[4 * i] = x0.x + x1.x, sc[4 * i + 1] = x0.y + x1.y;
+      sc[4 * i + 2] = x0.z + x1.z, sc[4 * i + 3] = x0.w + x1.w;
+    }
+  };
+  // the online softmax of tile j's S (rows g and g + 8, log2 units):
+  // p = 2^(s c - m) in place, the rows' max and sums, and the factors
+  // alpha that rescale O; a row's 32 values sit in the lane's quad
+  auto softmax = [&](int j) {
+    const int k0 = j * BK;
+    if (k0 + BK > L) {  // the K tail: its scores are masked to -1e30
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k0 + 8 * n + 2 * t + (i & 1) >= L) sc[4 * n + i] = kNegInf;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+        mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx * c);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * n + 2 * r + e];
+          x = exp2_ftz(fmaf(x, c, -m_new));
+          sum += x;
+        }
+      alpha[r] = exp2_ftz(m_run[r] - m_new);
+      l_run[r] = l_run[r] * alpha[r] + sum;
+      m_run[r] = m_new;
+    }
+  };
+  // O *= alpha, then P's accumulator fragments of n-tiles 2 kk and
+  // 2 kk + 1, rounded to bf16 and packed, are the A fragment of keys 16 kk..
+  auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = pack(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    fence_regs(acc);  // written before the next wgmma.fence
+    fence_regs(pa);
+  };
+
+  // As in d64_bf16, each warpgroup overlaps its exchange and exponentials
+  // with its products: S of tile j and P V of tile j - 1 are issued
+  // together, and the exchange and softmax of tile j run while P V is on
+  // the tensor cores (wgmma groups complete in the order issued).
+  mbar_wait(q_full, 0);
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(k_empty(0));
+  exchange(0);
+  softmax(0);
+  rescale_and_pack();
+  for (int j = 1; j < nk; ++j) {
+    issue_s(j);
+    issue_pv(j - 1);
+    wgmma_wait<1>();  // S of tile j (P V may still run)
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty(j % STAGES));
+    exchange(j);
+    softmax(j);
+    wgmma_wait<0>();  // P V of tile j - 1: acc and pa are free
+    fence_regs(acc);
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty((j - 1) % STAGES));
+    rescale_and_pack();
+  }
+  issue_pv(nk - 1);
+  wgmma_wait<0>();
+  fence_regs(acc);
+
   const int64_t row = static_cast<int64_t>(H) * D;
   const int64_t base = static_cast<int64_t>(b) * L * row +
-                       static_cast<int64_t>(h) * D;
-  const bf16_t* kb = k + base;
-  const bf16_t* vb = v + base;
-  const float c = scale * kLog2e;  // scores in log2 units, for ex2
-
-  load_tile<BQ, D, NT>(qs, q + base, q0, L, row);
-  load_tile<BK, D, NT>(ks, kb, 0, L, row);
-  cp_async_commit();
-  load_tile<BK, D, NT>(vs, vb, 0, L, row);
-  cp_async_commit();
-
-  // softmax: thread (r, 4 columns from cc); a row's 8 threads share a warp
-  // and the running max; each keeps its part of the running sum, and the 8
-  // parts meet at the end
-  const int r = tid >> 3, cc = (tid & 7) * 4;
-  float m_run = kNegInf, l_run = 0.f;
-  float acc[2][8][4];  // O[32 rp.. + 32, 64 dp.. + 64]
-  zero(acc);
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    cp_async_wait<1>();  // Q and this K tile (this V tile may be in flight)
-    __syncthreads();
-    {
-      // this warp's 16 x 16 patch of S over its half of d, from zero
-      float sx[2][4];
-      zero(sx);
+                       static_cast<int64_t>(h) * D + DH * wg;
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk) {
-        const int col = (kk >> 2) * 128;  // bytes of 64 columns
-        uint32_t a[4], kf[4];
-        ldsm_x4(a, sq + col + ln.ca[kk & 3]);
-        ldsm_x4(kf, sk + col + ln.cb[kk & 3]);
-        mma(sx[0], a, kf[0], kf[1]);
-        mma(sx[1], a, kf[2], kf[3]);
-      }
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-30f);
+    const int rr = q0 + 16 * w + g + 8 * r;
+    if (rr >= L) continue;
+    if (lse != nullptr && wg == 0 && t == 0)
+      lse[static_cast<int64_t>(blockIdx.y) * L + rr] =
+          m_run[r] * kLn2 + logf(l);
+    const float inv = 1.f / l;
+    bf16_t* out = o + base + rr * row + 2 * t;
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-        store_frag<XS>(xs + dh * BQ * XS, sx[nt], 16 * rq, 16 * kh + 8 * nt);
-    }
-    __syncthreads();
-    if (k0 + BK < L) load_tile<BK, D, NT>(ks, kb, k0 + BK, L, row);
-    cp_async_commit();
-
-    // the halves of d join in fp32; online softmax in log2 units
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(xs + (half * BQ + r) * XS + cc);
-      s[0] += x.x, s[1] += x.y, s[2] += x.z, s[3] += x.w;
-    }
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (k0 + cc + j >= L) s[j] = kNegInf;
-      mx = fmaxf(mx, s[j]);
-    }
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(m_run, mx * c);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[j] = exp2_ftz(fmaf(s[j], c, -m_new));
-      sum += s[j];
-    }
-    const float alpha = exp2_ftz(m_run - m_new);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    *reinterpret_cast<uint2*>(ps + r * PS + cc) =
-        make_uint2(pack(s[0], s[1]), pack(s[2], s[3]));
-    if (cc == 0) alpha_s[r] = alpha;
-    cp_async_wait<1>();  // this V tile (the next K tile may be in flight)
-    __syncthreads();
-
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int r0 = 32 * rp + 16 * mt + g;
-      const float a_lo = alpha_s[r0], a_hi = alpha_s[r0 + 8];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        acc[mt][nt][0] *= a_lo, acc[mt][nt][1] *= a_lo;
-        acc[mt][nt][2] *= a_hi, acc[mt][nt][3] *= a_hi;
-      }
-    }
-    // O += P V: P's A fragments by ldmatrix from ps, V's B fragments by
-    // ldmatrix.trans
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldsm_x4(pa[mt], sp + 16 * mt * PS * 2 + kk * 32);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, sv + 16 * kk * kRow + ln.ca[np]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma(acc[mt][2 * np], pa[mt], vf[0], vf[1]);
-          mma(acc[mt][2 * np + 1], pa[mt], vf[2], vf[3]);
-        }
-      }
-    }
-    __syncthreads();  // done with vs and ps
-    if (k0 + BK < L) load_tile<BK, D, NT>(vs, vb, k0 + BK, L, row);
-    cp_async_commit();
+    for (int n = 0; n < DH / 8; ++n)
+      store2<bf16_t>(out + 8 * n, acc[4 * n + 2 * r] * inv,
+                     acc[4 * n + 2 * r + 1] * inv);
   }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1)
-    l_run += __shfl_xor_sync(0xffffffffu, l_run, off);
-  if (cc == 0) l_s[r] = l_run;
-  if (lse != nullptr && cc == 0 && q0 + r < L)
-    lse[static_cast<int64_t>(blockIdx.y) * L + q0 + r] =
-        m_run * kLn2 + logf(fmaxf(l_run, 1e-30f));
-  __syncthreads();
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int rr = 32 * rp + 16 * mt + g + 8 * half;
-      if (q0 + rr >= L) continue;
-      const float inv = 1.f / fmaxf(l_s[rr], 1e-30f);
-      bf16_t* out = o + base + (q0 + rr) * row + dp * 64 + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        store2<bf16_t>(out + nt * 8, acc[mt][nt][2 * half] * inv,
-                       acc[mt][nt][2 * half + 1] * inv);
-    }
 }
 
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
@@ -1546,15 +2021,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    cudaStream_t stream) {
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
   if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, true, B, L, H, D, 64, BQ) ||
+      !tensor_map(&tk, k, true, B, L, H, D, 64, BK) ||
+      !tensor_map(&tv, v, true, B, L, H, D, 64, BK))
+    return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(flash_fwd_d512_bf16,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + BQ - 1) / BQ, B * H);
   flash_fwd_d512_bf16<<<grid, NT, kSmemBytes, stream>>>(
-      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
-      static_cast<const bf16_t*>(v), static_cast<bf16_t*>(o), lse, L, H,
-      scale);
+      tq, tk, tv, static_cast<bf16_t*>(o), lse, L, H, scale);
   return cudaGetLastError();
 }
 
@@ -1574,7 +2052,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
       return fp32 ? d64::launch(q, k, v, o, lse, B, L, H, scale, stream)
                   : d64_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
     case 512:
-      return fp32 ? d512::launch<float>(q, k, v, o, lse, B, L, H, scale, stream)
+      return fp32 ? d512::launch(q, k, v, o, lse, B, L, H, scale, stream)
                   : d512_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
     default:
       return -1;

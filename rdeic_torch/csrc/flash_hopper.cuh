@@ -1,10 +1,12 @@
-// Hopper pieces of the d = 64 flash forward (flash_attn_fwd.cu:
-// flash_fwd_d64_bf16, flash_fwd_d64) and of the d = 64 backward
+// Hopper pieces of the d = 64 and d = 512 flash forward (flash_attn_fwd.cu:
+// flash_fwd_d64_bf16, flash_fwd_d64, flash_fwd_d512_bf16, flash_fwd_d512)
+// and of the d = 64 backward
 // (flash_attn_bwd.cu: flash_dq_d64_bf16, flash_dkv_d64_bf16 and the fp32
 // flash_dq_d64, flash_dkv_d64): TMA tile
 // loads that complete on mbarriers, warpgroup matrix products
-// (wgmma.mma_async) and their shared-memory descriptors, setmaxnreg, and
-// the host's tensor maps. Only sm_90a has wgmma and setmaxnreg.
+// (wgmma.mma_async) and their shared-memory descriptors, setmaxnreg, the
+// cluster's barriers and shared-memory reads, and the host's tensor maps.
+// Only sm_90a has wgmma and setmaxnreg.
 //
 // Tiles. Every operand tile in shared memory is made of atoms of R rows of
 // 128 bytes (64 bf16 or 32 fp32 values a row), rows 128 bytes apart, an
@@ -20,7 +22,8 @@
 // the stride byte offset is the step between groups of 8 rows (1024), for
 // both majors; the leading byte offset is unused by a K-major operand
 // (1, as CUTLASS sets it) and, for an MN-major one, the step between
-// 64-element atoms along MN (one atom here, so unused too). A K-major
+// 64-element atoms along MN (one atom at d = 64, so unused too; at d = 512
+// a bf16 V operand 256 wide is four TMA boxes, one box apart). A K-major
 // operand's 16- (bf16) or 8-deep (tf32) k-steps are 32 bytes apart inside
 // the 128-byte row: the start address moves by 2 (x 16 bytes) a step, as
 // in CUTLASS's descriptor iterator. An MN-major operand's k-steps are whole
@@ -113,6 +116,61 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 // this warp's arrival on named barrier `id` of `threads`, without waiting
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// -- clusters --------------------------------------------------------------
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// the address in block `rank`'s shared memory of what is at `addr` in this
+// block's (a shared::cluster address)
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// a 16-byte store into another block's shared memory (a mapa address)
+// that completes its bytes on that block's barrier `bar` (a mapa address)
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait, acquiring at cluster scope what other blocks completed on
+// the barrier (st.async)
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra LAB_DONE;\n"
+      "bra LAB_WAIT;\n"
+      "LAB_DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// every thread of the cluster that has not exited: arrive, then wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // -- TMA -----------------------------------------------------------------
@@ -253,6 +311,84 @@ __device__ __forceinline__ void mma_m64n64k16_rs_mn(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "l"(db), "r"(scale_d));
+}
+
+// S (64 x 32) += A (64 x 16, shared, K-major) B (16 x 32, shared, K-major); bf16
+__device__ __forceinline__ void mma_m64n32k16_ss(float (&d)[16], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O (64 x 256) += A (64 x 16, registers) B (16 x 256, shared, MN-major: four
+// 64-column atoms, the descriptor's leading byte offset apart); bf16
+__device__ __forceinline__ void mma_m64n256k16_rs_mn(float (&d)[128],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
         "l"(db), "r"(scale_d));
 }

@@ -1,16 +1,21 @@
-"""Time the d = 64 flash forward on one card: this checkout's kernels,
-another checkout's, and variants of this one's, in one process.
+"""Time the d = 64 or d = 512 flash forward on one card: this checkout's
+kernels, another checkout's, and variants of this one's, in one process.
 
-    python -m rdeic_torch.tools.flash_fwd_probe [--dtype bf16|fp32]
-        [--other DIR] [--variants NAME ...] [--shapes B,L,H ...]
+    python -m rdeic_torch.tools.flash_fwd_probe [--d 64|512]
+        [--dtype bf16|fp32] [--other DIR [--bits]] [--variants NAME ...]
+        [--shapes B,L,H ...]
 
 Builds `csrc/flash_attn_fwd.cu` of this checkout ("change"), of the
 checkout at DIR ("other", e.g. the parent commit unpacked by `git
-archive`) and, with --variants, copies of this one whose d = 64 kernel of
-the dtype (namespace `d64_bf16` or `d64`) is changed by the text
-substitutions in VARIANTS (a substitution that no longer matches raises).
-Each library is called through its C interface on the same inputs, with
-and without lse, at SHAPES (the serving, training and tiled shapes).
+archive`) and, with --variants, copies of this one whose kernel of the
+head dim and dtype (namespace `d64_bf16`, `d64`, `d512_bf16` or `d512`) is
+changed by the text substitutions in VARIANTS (a substitution that no
+longer matches raises). Each library is called through its C interface on
+the same inputs, with and without lse, at the head dim's SHAPES (the
+serving, training, validation, batched and tiled shapes, and checks).
+With --bits, first a JSON line per BITS_CASES entry of another head dim
+(every forward kernel but the probed head dim's two): whether this
+checkout's output and lse are the other checkout's bit for bit.
 Prints the card's name and power limit, then a JSON line per shape,
 version and pass (two passes, the second in reverse order): the device ms
 a launch (`device_ms`: launches queued behind a sleeping kernel, CUDA
@@ -36,10 +41,21 @@ import torch.nn.functional as F
 from rdeic_torch import build
 from rdeic_torch.ops.flash_attention import flash_attention_lse_plain
 
-SHAPES = [(1, 6144, 5, 64), (1, 1536, 10, 64), (2, 4096, 5, 64),
-          (2, 1024, 10, 64), (2, 6144, 5, 64), (4, 4096, 5, 64),
-          (2, 1000, 3, 64), (1, 130, 2, 64), (1, 8192, 2, 64)]
-NAMESPACES = {"bf16": "d64_bf16", "fp32": "d64"}
+SHAPES = {64: [(1, 6144, 5, 64), (1, 1536, 10, 64), (2, 4096, 5, 64),
+               (2, 1024, 10, 64), (2, 6144, 5, 64), (4, 4096, 5, 64),
+               (2, 1000, 3, 64), (1, 130, 2, 64), (1, 8192, 2, 64)],
+          512: [(1, 6144, 1, 512), (2, 4096, 1, 512), (1, 4096, 1, 512),
+                (2, 6144, 1, 512), (4, 6144, 1, 512), (15, 4096, 1, 512),
+                (1, 1024, 1, 512), (2, 1000, 2, 512), (1, 130, 1, 512),
+                (1, 8192, 1, 512)]}
+# (head dim, dtype): the namespace of its forward kernel
+NAMESPACES = {(64, "bf16"): "d64_bf16", (64, "fp32"): "d64",
+              (512, "bf16"): "d512_bf16", (512, "fp32"): "d512"}
+# --bits: every forward kernel, at an L of no tile multiple with B = 2 and
+# H > 1; the probed head dim's are left out
+BITS_CASES = [((2, 1000, 3, 16), "fp32"), ((2, 1000, 3, 16), "bf16"),
+              ((2, 1000, 3, 64), "fp32"), ((2, 1000, 3, 64), "bf16"),
+              ((2, 1000, 2, 512), "fp32"), ((2, 1000, 2, 512), "bf16")]
 DTYPES = {"bf16": (torch.bfloat16, 1), "fp32": (torch.float32, 0)}
 SLEEP_CLOCK_HZ = 2.0e9  # torch.cuda._sleep counts cycles, at most this fast
 # namespace: {name: [(old, new)] in that namespace}
@@ -49,6 +65,37 @@ VARIANTS = {
     },
     "d64": {
         "producer48": [("kProducerRegs = 56,", "kProducerRegs = 48,")],
+    },
+    # the d = 512 designs' choices, each against what it chose
+    "d512_bf16": {
+        # no overlap: P V of tile j - 1 waited for before S of tile j
+        "serial": [("    issue_s(j);\n    issue_pv(j - 1);\n",
+                    "    issue_pv(j - 1);\n    wgmma_wait<0>();\n"
+                    "    issue_s(j);\n")],
+    },
+    "d512": {
+        # no exchange: each block's softmax on its own partial scores
+        # (wrong by design: times the exchange)
+        "no_exchange": [("      exchange(n, sc);\n", "")],
+        # the splitters make nothing (wrong by design: times whether the
+        # consumers wait for them)
+        "no_split": [("        for (int i = tid; i < kTile / 16; i += NS) {",
+                      "        for (int i = tid; i < 0; i += NS) {"),
+                     ("        for (int c = ws; c < DC / 4; c += NS / 32) {",
+                      "        for (int c = ws; c < 0; c += NS / 32) {")],
+        # more registers for the splitters, fewer for the consumers
+        "producer72": [("kProducerRegs = 56, kConsumerRegs = 224;",
+                        "kProducerRegs = 72, kConsumerRegs = 216;")],
+        "producer88": [("kProducerRegs = 56, kConsumerRegs = 224;",
+                        "kProducerRegs = 88, kConsumerRegs = 208;")],
+        # one fewer pass of S (wrong by design: times a third of S)
+        "s_two_passes": [("        mma_m64n32k8_rs_tf32(sc, qb[kk], ks, 1);\n",
+                          "")],
+        # P V in one pass (wrong by design: times two thirds of P V)
+        "pv_one_pass": [("          mma_m64n64k8_rs_tf32(pv, as, vb, kk);\n"
+                         "          mma_m64n64k8_rs_tf32(pv, ab, vs, 1);\n"
+                         "          mma_m64n64k8_rs_tf32(pv, ab, vb, 1);\n",
+                         "          mma_m64n64k8_rs_tf32(pv, ab, vb, kk);\n")],
     },
 }
 
@@ -117,6 +164,37 @@ def _bind(path: Path):
     return lib
 
 
+def same_bits(other, change, probed_d) -> None:
+    """A JSON line per BITS_CASES entry of another head dim than the probed
+    one (whose kernels, both dtypes, the probe times): whether the two
+    libraries give the same output and lse bits."""
+    dev = torch.device("cuda")
+    for shape, dt in BITS_CASES:
+        if shape[-1] == probed_d:
+            continue
+        dtype, code = DTYPES[dt]
+        g = torch.Generator(device=dev).manual_seed(1)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        b, seq, h, d = shape
+        got = []
+        for lib in (other, change):
+            o = torch.empty_like(q)
+            lse = torch.empty((b * h, seq), device=dev, dtype=torch.float32)
+            err = lib.rdeic_flash_attn_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), b, seq, h, d, code, d ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"launch failed: {err}")
+            torch.cuda.synchronize()
+            got.append((o, lse))
+        print(json.dumps({"bits": shape, "dtype": dt,
+                          "same_o": torch.equal(got[0][0], got[1][0]),
+                          "same_lse": torch.equal(got[0][1], got[1][1])}),
+              flush=True)
+
+
 def probe(lib, shape, code, inputs, want) -> dict:
     """The forward of `lib` on `inputs`, with and without lse: ms and
     errors."""
@@ -150,11 +228,15 @@ def probe(lib, shape, code, inputs, want) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--d", type=int, choices=sorted(SHAPES), default=64)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     ap.add_argument("--other", type=Path, help="another checkout to time")
+    ap.add_argument("--bits", action="store_true",
+                    help="with --other: whether the other forward kernels "
+                    "give the other checkout's bits")
     ap.add_argument("--variants", nargs="*", default=[])
     ap.add_argument("--shapes", nargs="*", default=None,
-                    help="B,L,H at d = 64 (default: SHAPES)")
+                    help="B,L,H at the head dim (default: SHAPES)")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -167,27 +249,31 @@ def main() -> None:
     if args.other:
         other = args.other.resolve() / "rdeic_torch" / "csrc"
         jobs["other"] = (other, (other / "flash_attn_fwd.cu").read_text())
-    ns = NAMESPACES[args.dtype]
+    ns = NAMESPACES[args.d, args.dtype]
     jobs.update({n: (csrc, variant_source(src, VARIANTS[ns][n], ns))
                  for n in args.variants})
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {n: pool.submit(_library, n, c, s, out_dir)
                    for n, (c, s) in jobs.items()}
         paths = {n: f.result() for n, f in futures.items()}
-    kernel = f"flash_fwd_d64{'_bf16' if args.dtype == 'bf16' else ''}E"
-    for name, path in paths.items():  # ptxas: the kernel's registers, spills
-        lines = build.build_log(path).splitlines()
-        for i, line in enumerate(lines):
-            if "Compiling entry function" in line and kernel in line:
-                print(name, " | ".join(x.strip() for x in lines[i + 2:i + 4]),
-                      flush=True)
+    kernel = f"flash_fwd_d{args.d}{'_bf16' if args.dtype == 'bf16' else ''}E"
+    for name, path in paths.items():  # ptxas: registers, spills, C7519
+        ours = False
+        for line in build.build_log(path).splitlines():
+            if "Compiling entry function" in line:
+                ours = kernel in line
+            elif ours and ("registers" in line or "spill" in line
+                           or "C7519" in line):
+                print(name, line.strip(), flush=True)
     libs = {n: _bind(p) for n, p in paths.items()}
+    if args.bits:
+        same_bits(libs["other"], libs["change"], args.d)
     order = list(libs)
     if "other" in libs:  # other, change, ..., then back: change, other
         order = ["other"] + [n for n in order if n != "other"]
     dtype, code = DTYPES[args.dtype]
-    shapes = ([tuple(int(x) for x in s.split(",")) + (64,)
-               for s in args.shapes] if args.shapes else SHAPES)
+    shapes = ([tuple(int(x) for x in s.split(",")) + (args.d,)
+               for s in args.shapes] if args.shapes else SHAPES[args.d])
     dev = torch.device("cuda")
     for shape in shapes:
         g = torch.Generator(device=dev).manual_seed(0)

@@ -466,17 +466,13 @@ D64_HOPPER_SHAPES = [(1, 6144, 5, 64), (1, 1536, 10, 64), (2, 6144, 5, 64),
                      (2, 1000, 3, 64), (1, 130, 2, 64), (1, 8192, 2, 64)]
 
 
-@pytest.mark.parametrize("lse", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", D64_HOPPER_SHAPES)
-def test_flash_d64_hopper_forward_kernels(cuda, shape, dtype, lse):
-    """flash_fwd_d64 and flash_fwd_d64_bf16 (wgmma, TMA), with and without
-    lse: one launch a call and the same bits on a second; the output within
-    2e-5 (fp32) or two bf16 ulps of max|plain| (bf16) of the plain
-    version's unrounded fp32 result (and, in bf16, of its bf16 output), the
-    lse within 1e-4 of max; a planted x1.05 fault reads beyond each
-    limit."""
-    q, k, v = (_rand(shape, dtype, cuda, s) for s in range(3))
+def _check_hopper_forward(device, shape, dtype, lse):
+    """One forward kernel on wgmma and TMA, with or without lse: one launch
+    a call and the same bits on a second; the output within 2e-5 (fp32) or
+    two bf16 ulps of max|plain| (bf16) of the plain version's unrounded fp32
+    result (and, in bf16, of its bf16 output), the lse within 1e-4 of max;
+    a planted x1.05 fault reads beyond each limit."""
+    q, k, v = (_rand(shape, dtype, device, s) for s in range(3))
     fn = flash_attention_lse if lse else flash_attention
     before = fn.launches
     got = fn(q, k, v)
@@ -498,6 +494,99 @@ def test_flash_d64_hopper_forward_kernels(cuda, shape, dtype, lse):
         assert torch.equal(got[1], again[1])
         assert _rel_err(got[1], want_lse) <= 1e-4
         assert _rel_err(got[1] * FAULT_SCALE, want_lse) > 1e-4
+
+
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", D64_HOPPER_SHAPES)
+def test_flash_d64_hopper_forward_kernels(cuda, shape, dtype, lse):
+    """flash_fwd_d64 and flash_fwd_d64_bf16 (wgmma, TMA), with and without
+    lse: one launch a call and the same bits on a second; the output within
+    2e-5 (fp32) or two bf16 ulps of max|plain| (bf16) of the plain
+    version's unrounded fp32 result (and, in bf16, of its bf16 output), the
+    lse within 1e-4 of max; a planted x1.05 fault reads beyond each
+    limit."""
+    _check_hopper_forward(cuda, shape, dtype, lse)
+
+
+# the Hopper d = 512 forward (flash_fwd_d512: a cluster of four blocks
+# along d on TF32 wgmma, 3xTF32; flash_fwd_d512_bf16 on bf16 wgmma; both
+# TMA-fed): every path shape (serving, refine training, validation, batched
+# and tiled serving, the 256x256 checks) and L = 20 (under one key tile),
+# 130, 1000 and 4097 (B = 2, H = 2) and 8192
+D512_HOPPER_SHAPES = [(1, 6144, 1, 512), (2, 4096, 1, 512), (1, 4096, 1, 512),
+                      (2, 6144, 1, 512), (4, 6144, 1, 512), (4, 4096, 1, 512),
+                      (7, 4096, 1, 512), (8, 4096, 1, 512), (15, 4096, 1, 512),
+                      (1, 1024, 1, 512), (1, 20, 1, 512), (1, 130, 1, 512),
+                      (2, 1000, 2, 512), (2, 4097, 2, 512), (1, 8192, 1, 512)]
+
+
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", D512_HOPPER_SHAPES)
+def test_flash_d512_hopper_forward_kernels(cuda, shape, dtype, lse):
+    """flash_fwd_d512 and flash_fwd_d512_bf16 (wgmma, TMA), with and without
+    lse, as the d = 64 kernels above: one launch a call, the same bits on a
+    second, the output and lse within the limits of the plain version, a
+    planted x1.05 fault beyond them."""
+    _check_hopper_forward(cuda, shape, dtype, lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 6144, 1, 512), (1, 1024, 1, 512),
+                                   (2, 1000, 2, 512)])
+def test_flash_d512_backward_on_the_hopper_lse(cuda, shape, dtype):
+    """The d = 512 dq and dkv kernels from the Hopper forward's o and lse:
+    within the limits of the plain backward from the same o and lse, each
+    reading a planted x1.05 fault."""
+    q, k, v, do = (_rand(shape, dtype, cuda, s) for s in range(4))
+    o, lse = flash_attention_lse(q, k, v)
+    grads = flash_attention_bwd(q, k, v, o, lse, do)
+    plain = flash_attention_bwd_plain(*(x.float() for x in (q, k, v, o)), lse,
+                                      do.float())
+    for got, want in zip(grads, plain):
+        assert got.dtype == dtype
+        assert _rel_err(got, want) <= _limit(dtype)
+        assert _rel_err(got.float() * FAULT_SCALE, want) > _limit(dtype)
+
+
+def test_flash_d512_fp32_forward_error_is_flat_in_l(cuda):
+    """Each 32-key tile's P V sums from zero on wgmma and joins the output
+    by one fma, so wgmma's rounding toward zero does not pile up over L:
+    against float64 on the same fp32 inputs, the output's largest error at
+    L = 8192 is at most twice that at L = 1024 and below chip_smoke.py's
+    FWD512_F64_TOL (4e-6)."""
+    reads = {}
+    for seq in (1024, 8192):
+        q, k, v = (_rand((1, seq, 1, 512), torch.float32, cuda, s)
+                   for s in range(3))
+        want = flash_attention_plain(*(x.double() for x in (q, k, v)))
+        reads[seq] = (flash_attention(q, k, v).double() - want).abs().max().item()
+    assert reads[8192] <= 2 * reads[1024] and reads[8192] < 4e-6, reads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_d512_launches_from_a_fresh_thread(cuda, dtype):
+    """The d = 512 forward encodes its TMA tensor maps per call too: a new
+    thread's first launch gives the main thread's bits, with and without
+    lse."""
+    q, k, v = (_rand((1, 1024, 1, 512), dtype, cuda, s) for s in range(3))
+    want = (flash_attention(q, k, v), *flash_attention_lse(q, k, v))
+    got, errors = [], []
+
+    def body():
+        try:
+            got.append((flash_attention(q, k, v),
+                        *flash_attention_lse(q, k, v)))
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 (reported below)
+            errors.append(exc)
+
+    thread = threading.Thread(target=body)
+    thread.start()
+    thread.join()
+    assert not errors, errors
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

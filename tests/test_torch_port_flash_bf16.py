@@ -1,6 +1,6 @@
 """The numeric design and the shared-memory layout of the bf16 flash
-forward (`flash_fwd_d64_bf16` on `wgmma` and `flash_fwd_d512_bf16` on
-`mma.sync` in `rdeic_torch/csrc/flash_attn_fwd.cu`), on the CPU.
+forward (`flash_fwd_d64_bf16` and `flash_fwd_d512_bf16` on `wgmma` in
+`rdeic_torch/csrc/flash_attn_fwd.cu`), on the CPU.
 (`flash_fwd_d16_bf16` takes the same order, `TILES[16]`, and is held to it
 in `tests/test_torch_port_flash_d16_bf16.py`.)
 
@@ -17,10 +17,11 @@ interpret mode on the same bf16 inputs, at the limit the card holds the
 kernels to (two bf16 ulps of max|plain|, `chip_smoke.py` `flash_tol`). It
 reads P as one bf16 term and as two (hi = bf16(P), lo = bf16(P - hi)),
 which decides the kernels' choice, counts the banks of every copy and
-fragment read of the cp.async-swizzled tiles (d = 512; at d = 64 the same
-chunk order is the 128-byte swizzle of the TMA tiles), and checks that
-the 128-byte-swizzled tiles that TMA writes and `wgmma` reads at d = 64
-give back the dense tile.
+fragment read of the swizzled tiles (the chunk order of the 128-byte
+swizzle of the TMA tiles), and checks that the 128-byte-swizzled tiles
+that TMA writes and `wgmma` reads give back the dense tile. The d = 512
+kernel's own tiles, exchange and registers are held in
+`tests/test_torch_port_flash_fwd_d512.py`.
 """
 import math
 
@@ -45,7 +46,8 @@ from tests.torch_port_tf32 import (
 )
 
 # per head dim: (q rows a block, keys a tile, d-slices that sum S apart);
-# d = 64: two consumer warpgroups of 64 q rows, 128-key TMA tiles
+# d = 64: two consumer warpgroups of 64 q rows, 128-key TMA tiles; d = 512:
+# two consumer warpgroups splitting d, 32-key TMA tiles
 TILES = {16: (64, 128, 1), 64: (128, 128, 1), 512: (64, 32, 2)}
 NEG = -1e30
 FAULT_SCALE = 1.05
@@ -287,7 +289,7 @@ def test_ldmatrix_lanes_address_the_fragments_in_order():
                                 + _chunk_bytes(lane, j, which))
 
 
-@pytest.mark.parametrize("d", [64, 512])
+@pytest.mark.parametrize("d", [64])
 def test_copies_and_fragment_reads_hit_32_banks(d):
     """The swizzle: cp.async writes 16 bytes a lane, a phase of 8 lanes
     taking 8 consecutive chunks of one row; every ldmatrix matrix (with or
@@ -305,46 +307,18 @@ def test_copies_and_fragment_reads_hit_32_banks(d):
             assert sorted(banks(words)) == list(range(32))
 
 
-def test_d512_score_and_p_tiles_hit_32_banks():
-    """d = 512's fp32 partial scores (row stride 40 floats): a C fragment's
-    float2 stores, 16 lanes a phase, hit 32 banks, and the softmax's float4
-    reads take one row's 32 floats a phase. P (bf16, row stride 40 values,
-    20 words): A-fragment ldmatrix matrices hit 32 banks; the softmax's
-    8-byte stores, two rows a phase, at most two-way."""
-    xs = 40
-    for half in (0, 16):
-        words = [(g + 0) * xs + 2 * t + e for lane in range(half, half + 16)
-                 for g, t in [divmod(lane, 4)] for e in (0, 1)]
-        assert sorted(banks(words)) == list(range(32))
-    ps = 20  # words a P row
-    for r0 in range(0, 64, 8):
-        for c in range(4):
-            words = [r * ps + 4 * c + w for r in range(r0, r0 + 8)
-                     for w in range(4)]
-            assert sorted(banks(words)) == list(range(32))
-    for tid0 in range(0, 512, 16):
-        words = [(tid >> 3) * ps + (tid & 7) * 2 + w
-                 for tid in range(tid0, tid0 + 16) for w in (0, 1)]
-        assert max(np.bincount(banks(words))) <= 2
-
-
 def test_grid_shared_memory_and_waves():
     """d = 64: 128-row q tiles, two consumer warpgroups of 64 rows and a
     producer warpgroup (384 threads), Q and a ring of four 128-key K / V
     tiles, 148,480 bytes with the alignment slack; one block per SM, whose
     registers setmaxnreg moves from the producer (24) to the consumers
     (240); the serving shapes give 240 blocks on 132 SMs (1.82 waves) and
-    120 (one wave). d = 512: 64-row q tiles of 16 warps, one block per SM
-    (128 registers a thread); [1, 6144, 1, 512] gives 96 blocks and
-    [2, 4096, 1, 512] 128, one wave on 132 SMs."""
+    120 (one wave)."""
     smem64 = 1024 + 2 * 64 * 128 + 2 * 4 * 128 * 128
     assert smem64 == 148480 and smem64 <= 232448 < 2 * smem64
     assert 128 * 24 + 2 * 128 * 240 <= 65536
     assert math.ceil(6144 / 128) * 5 == 240 and 132 < 240 <= 2 * 132
     assert math.ceil(1536 / 128) * 10 == 120 <= 132
-    smem512 = (64 + 2 * 32) * 1024 + 2 * 64 * 40 * 4 + 64 * 40 * 2 + 2 * 64 * 4
-    assert smem512 == 157184 and smem512 <= 232448
-    assert math.ceil(6144 / 64) == 96 and math.ceil(4096 / 64) * 2 == 128 <= 132
 
 
 # -- d = 64 on wgmma ---------------------------------------------------------

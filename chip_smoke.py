@@ -192,7 +192,8 @@ and g++; no network. Phases, each fatal on failure:
    flash_dkv_d16_bf16, at d = 64 flash_dq_d64_bf16 and flash_dkv_d64_bf16,
    at d = 512 flash_dq_d512_bf16 and flash_dkv_d512_bf16; the fp32
    forward at d = 64 and 512 flash_fwd_d64 and flash_fwd_d512, and the
-   fp32 backward at d = 64 flash_dq_d64 and flash_dkv_d64, on TF32 wgmma),
+   fp32 backward at d = 64 flash_dq_d64 and flash_dkv_d64 and at d = 512
+   flash_dq_d512 and flash_dkv_d512, on TF32 wgmma),
    and a log line gives each bf16 row's times beside
    SDPA's bf16 call; another gives each training shape's dq and dkv times
    (ms and device_ms), their own bounds, the pair's and the pair's
@@ -203,12 +204,13 @@ and g++; no network. Phases, each fatal on failure:
    Each comparison also reads a planted fault (the kernel's output scaled
    by 1.05) and fails if that reading is within the limit; the backward
    kernels also give the same bits on a second launch. A log line gives the
-   fp32 backward's error against float64 at d = 16 and d = 64, L = 1024 and
-   8192: how each design's error moves with L; at d = 64 (per-tile
-   partials on wgmma) L = 8192 must read below BWD64_F64_TOL of max and
-   within twice L = 1024; another the fp32 forward's at d = 512, L = 1024
-   and 8192 (flash_fwd_d512: per-tile partials), which must read below
-   FWD512_F64_TOL and at L = 8192 within twice L = 1024;
+   fp32 backward's error against float64 at d = 16, 64 and 512, L = 1024
+   and 8192: how each design's error moves with L; at d = 64 and 512
+   (per-tile partials on wgmma) L = 8192 must read below BWD64_F64_TOL and
+   BWD512_F64_TOL of max and within twice L = 1024; another the fp32
+   forward's at d = 512, L = 1024 and 8192 (flash_fwd_d512: per-tile
+   partials), which must read below FWD512_F64_TOL and at L = 8192 within
+   twice L = 1024;
 14. validation (tagged `[validate]`, the root train.py's `run_validation`
    and `ImageLogger` as the training CLI calls them, on in-memory batches
    of configs/dataset/lic_valid.yaml's 1 x 512x512): (a) after phase 8
@@ -361,6 +363,7 @@ from rdeic_torch.models.vae import AttnBlock
 from rdeic_torch.ops import gaussian
 from rdeic_torch.ops.attention import FLASH_MIN_TOKENS
 from rdeic_torch.ops.flash_attention import (
+    d512_clusters,
     flash_attention,
     flash_attention_bwd_plain,
     flash_attention_dkv,
@@ -644,21 +647,28 @@ BF16_BWD_HEAD_DIMS = (16, 64, 512)
 # flash_fwd_d512_bf16)
 HOPPER_FWD_HEAD_DIMS = (64, 512)
 # Head dims whose fp32 backward kernels run on TF32 wgmma with TMA loads
-# (flash_dq_d64, flash_dkv_d64)
-HOPPER_BWD_FP32_HEAD_DIMS = (64,)
+# (flash_dq_d64, flash_dkv_d64; flash_dq_d512, flash_dkv_d512)
+HOPPER_BWD_FP32_HEAD_DIMS = (64, 512)
 # Each library's kernels on wgmma with TMA loads (the d = 64 and d = 512
-# forward and the d = 64 backward in both dtypes): phase 2 counts their
-# HGMMA and UTMALDG instructions, and a ptxas C7519 in one of them fails
-# the run
+# forward, the d = 64 backward in both dtypes and the fp32 d = 512
+# backward): phase 2 counts their HGMMA and UTMALDG instructions, and a
+# ptxas C7519 in one of them fails the run
 HOPPER_KERNELS = {"flash_attn_fwd": ("flash_fwd_d64", "flash_fwd_d64_bf16",
                                      "flash_fwd_d512", "flash_fwd_d512_bf16"),
                   "flash_attn_bwd": ("flash_dq_d64_bf16",
                                      "flash_dkv_d64_bf16", "flash_dq_d64",
-                                     "flash_dkv_d64")}
+                                     "flash_dkv_d64", "flash_dq_d512",
+                                     "flash_dkv_d512")}
 # The fp32 d = 64 backward's error against float64 at L = 8192, of max
 # (phase 13): its per-tile partials keep it at its L = 1024 reading
 # (~3e-6; the one-accumulator mma.sync design it replaced read 7.2e-5)
 BWD64_F64_TOL = 5e-5
+# The fp32 d = 512 backward's error against float64 at L = 8192, of max
+# (phase 13): per-tile partials keep it flat in L. The CPU emulation of
+# flash_dq_d512 / flash_dkv_d512 (tests/test_torch_port_flash_bwd_d512_fp32
+# .py) reads 2.35e-6 at L = 8192 on 32 rows a side (one accumulator over L:
+# 7.2e-5); the limit is about eight times it
+BWD512_F64_TOL = 2e-5
 # The fp32 d = 512 forward's error against float64 (max |o - o64|, phase
 # 13): per-tile P V partials keep it flat in L. The CPU emulation of
 # flash_fwd_d512 (tests/test_torch_port_flash_fwd_d512.py) reads 8.0e-7 at
@@ -691,6 +701,12 @@ GN_TOL = 1e-4  # fp32 GroupNorm outputs up to ~15 after scale and bias
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8 + 1e-4}
 FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
                 (1, 1536, 10, 64), (1, 1536, 8, 16)]
+# d = 512 shapes the full-width paths do not run: the 256x256 refine
+# reference's (phase 7), an L two rows past a 32-row tile, a ragged L with
+# B = 2 and H = 2 past a whole number of 64-row kept tiles, and twice the
+# paths' longest L (the fp32 backward's clusters along d at each)
+D512_CHECK_SHAPES = [(1, 1024, 1, 512), (1, 130, 1, 512), (2, 4097, 2, 512),
+                     (1, 8192, 1, 512)]
 # flash shapes on no path: B = 2, H > 1 (every path's d = 512 shape has
 # H = 1) and an L that is a multiple of no tile of the tensor-core kernels,
 # at every head dim; and at d = 64 and d = 16 twice the paths' longest L,
@@ -698,7 +714,8 @@ FLASH_SHAPES = [(1, 6144, 5, 64), (1, 6144, 4, 16), (1, 6144, 1, 512),
 # over L; and at d = 64 an L two rows past a 128-row q tile (the Hopper
 # forward's TMA boxes read zeros past L)
 CHECK_SHAPES = [(2, 1000, 2, 512), (2, 1000, 3, 64), (1, 8192, 2, 64),
-                (1, 130, 2, 64), (2, 1000, 3, 16), (1, 8192, 4, 16)]
+                (1, 130, 2, 64), (2, 1000, 3, 16), (1, 8192, 4, 16),
+                *D512_CHECK_SHAPES]
 # a GroupNorm span on no path larger than 8 CTAs' shared memory in both
 # dtypes (16 x 65536 elements), so the forward and backward kernels
 # stream it
@@ -826,6 +843,10 @@ def phase_build():
             if not (hgmma and utmaldg):
                 raise AssertionError(f"{name} runs no wgmma or no TMA load: "
                                      f"{hgmma} HGMMA, {utmaldg} UTMALDG")
+    dq_at_once, dkv_at_once = d512_clusters()
+    log(f"[build] flash_attn_bwd clusters of eight at once (the fp32 d = 512 "
+        f"backward's rounds): flash_dq_d512 {dq_at_once}, flash_dkv_d512 "
+        f"{dkv_at_once}")
     log(f"[wgmma] the card's rounding: {json.dumps(wgmma_probe.rounding())}")
 
 
@@ -3286,8 +3307,9 @@ def phase_kernels(device, runs) -> list:
             f"{dq['softmax_bound_ms'] + dkv['softmax_bound_ms']:.4f} ms; SDPA "
             f"backward {dq['library_ms']:.4f} (device "
             f"{dq['library_device_ms']:.4f}) ms")
-    for d in (16, 64):
-        reads = {seq: bwd_error_vs_float64(device, (1, seq, 2, d))
+    for d in (16, 64, 512):
+        reads = {seq: bwd_error_vs_float64(device, (1, seq, 1 if d == 512
+                                                    else 2, d))
                  for seq in (1024, 8192)}
         log(f"[kernels] flash backward fp32 error against float64 at d = {d} "
             f"({flash_bwd_kernel('dq', d, torch.float32)}, "
@@ -3295,12 +3317,13 @@ def phase_kernels(device, runs) -> list:
             "max |g - g64| / max |g64| of dq, dk, dv: "
             + "; ".join(f"L = {seq}: " + ", ".join(f"{x:.3g}" for x in r)
                         for seq, r in reads.items()))
+        tol = BWD512_F64_TOL if d == 512 else BWD64_F64_TOL
         if d in HOPPER_BWD_FP32_HEAD_DIMS and not (
-                max(reads[8192]) < BWD64_F64_TOL
+                max(reads[8192]) < tol
                 and max(reads[8192]) <= 2 * max(reads[1024])):
             raise AssertionError(
                 f"the fp32 d = {d} backward's error grows with L or passes "
-                f"{BWD64_F64_TOL} of max at L = 8192: {reads}")
+                f"{tol} of max at L = 8192: {reads}")
     reads = {seq: fwd_error_vs_float64(device, (1, seq, 1, 512))
              for seq in (1024, 8192)}
     log(f"[kernels] flash forward fp32 error against float64 at d = 512 "

@@ -333,41 +333,75 @@
 // from shared memory by the tensor cores, no ldmatrix) and fewer
 // instructions a product are the route past them.
 //
-// d = 512 in fp32 (the VAE decoder's mid-block) runs its own pair,
-// flash_dq_d512 and flash_dkv_d512, on the tensor cores: TF32 mma.sync
-// (m16n8k8), fp32 accumulators, each fp32 product taken as three TF32
-// products (3xTF32, flash_mma.cuh; one TF32 pass misses the 1e-4 limit).
-// (bf16 at d = 512 has kernels of its own, above.)
-// - Tiles: each kernel keeps a 32-row tile pair and streams 16-row tile
-//   pairs: dq keeps Q and dO and streams K and V; dkv keeps K and V and
-//   streams Q and dO. Four D-wide fp32 tiles of 96 rows in all, 195 KB in
-//   the swizzled layout of flash_mma.cuh (stride D + 8, column XOR
-//   (row & 4)), where a tile read as A, as B^T or as B hits 32 banks; with
-//   the partial score tiles and dS (and P): 222 KB (dq) and 220 KB (dkv) of
-//   the 227 KB, one block of 8 warps per SM. Keeping 32 rows halves the
-//   streamed bytes against 16-row tiles on both sides: each kernel reads
-//   the streamed pair L / 32 times per (b, h).
-// - Scores: S = Q K^T and dP = dO V^T (32 x 16 in dq, 16 x 32 in dkv) are
-//   split over the 8 warps by product and quarter of d: each warp sums its
-//   tile over 128 of d (12 mma per 3 ldmatrix.x4), and the four partials
-//   of each product meet in shared memory, where the 256 threads take 2
-//   entries each: P = exp(S scale - lse) with padded rows and columns
-//   masked, dS = P (dP - di) scale.
-// - Accumulators: warp w owns the 32 x 64 slice at d = 64 w.. of dq (64
-//   fp32 a thread), or of dk and of dv (128 a thread).
-// - Copies: fp32 tiles by cp.async.cg, 16 bytes a lane, zero-filled past L.
-//   dq: the next V tile is copied while the softmax and dS K run. dkv: dv =
-//   P^T dO runs first, then the next dO tile is copied while dk = dS^T Q
-//   runs; lse and di of the next q tile are read a tile ahead.
-// - Grid at [2, 4096, 1, 512]: 256 blocks each (1.94 waves on 132 SMs).
-// - ptxas -v: dq 171 registers, dkv 238; no spills.
-// What it does about the FMA design it replaces: tensor cores in place of
-// fp32 FMA; 32-row kept tiles (the FMA design had 16 on both sides), so
-// each streamed tile feeds twice the work; asynchronous 16-byte copies in
-// place of element loads through registers; at most 0.5 shared-memory
-// loads per mma against 16 per 32 FMAs. What holds it back now: the copy
-// of the next streamed tile that no compute overlaps (K in dq, Q in dkv),
-// 3 TF32 mma and the split per fp32 product, and mma.sync's rate.
+// d = 512 in fp32 (the VAE decoder's mid-block: [2, 4096, 1, 512] once per
+// fp32 refine micro-step, [1, 1024, 1, 512] in the 256x256 refine
+// reference) runs flash_dq_d512 and flash_dkv_d512 on TF32 wgmma fed by
+// TMA, each fp32 product as three passes, built from the d = 64 fp32
+// backward's pieces (d64::) and the d = 512 forward's cluster exchange.
+// (bf16 at d = 512 has kernels of its own, above.) The arithmetic that
+// sets the design:
+// - Accumulators: wgmma takes 64 rows, and dq of a 64-row kept tile is
+//   64 x 512 fp32, 256 registers a thread of one warpgroup; dk + dv twice
+//   that. Kept operands: Q and dO (dq), K and V (dkv) are 128 KB a tensor
+//   at 64 x 512 fp32, and 3xTF32 needs two terms of each: 512 KB against
+//   the 227 KB a block may use. So d is split over a cluster of CL = 8
+//   blocks, block `rank` owning d 64 rank..: its slice is the d = 64
+//   kernels' tile (Q's and dO's big terms 64 registers, dq 32, small
+//   terms 32 KB). A cluster of four (128 of d a block) leaves no room for
+//   two stages of streamed tiles and the exchange in shared memory.
+// - Exchange: each block sums its partial S and dP over its 64 of d, and
+//   the eight partials are added in rank order, ((p0 + p1) + p2) ... + p7,
+//   by the block that reduces each entry. Every lane's piece u (the S and
+//   dP of two entries) goes to block u by st.async (a reduce-scatter in
+//   which each block's every warp reduces an eighth of every warp's
+//   values), which forms P and dS of its entries once and sends them back
+//   (an all-gather: dS alone in dq, P and dS in dkv), so every block holds
+//   the same P and dS. Bytes a kernel: B H L^2 x 16 x (CL - 1) in dkv,
+//   3.8 GB at [2, 4096, 1, 512] (dq three quarters of it), against 2.1 GB
+//   of streamed tiles from L2.
+// - Operands: TF32 wgmma reads K-major operands only. The scores take the
+//   streamed tiles as TMA lands them (K and V in dq, Q and dO in dkv, d
+//   contiguous): wgmma reads an fp32 operand truncated to TF32
+//   (tools/wgmma_probe.py), so the raw tile is its own big term and the
+//   splitters write only its small term, x - trunc(x) (within half the
+//   limit at every path shape in the CPU emulation,
+//   tests/test_torch_port_flash_bwd_d512_fp32.py). dq = dS K, dv = P^T dO
+//   and dk = dS^T Q reduce over the streamed rows, so their B is K^T, dO^T
+//   and Q^T: the splitters write them big and small, d as the rows and the
+//   streamed rows along them in P's fragment order (d64::slot_of), and P
+//   and dS, in the accumulator registers, are their A as they stand.
+// - Rings: tile j's raw tiles and small planes sit in score slot j % 3 (32
+//   KB a slot), its transposed planes in product slot j % 2; the
+//   producer's four warps split in two groups at their own pace (two on
+//   the small planes, two on the transposed ones), and the consumer of
+//   tile j refills its score slot with tile j + 3 once it and the
+//   transposed split are done with it. The two consumers take alternate
+//   tiles and turns at one exchange area (named barriers).
+// - Accuracy: every product three wgmma an 8-deep step, small * big, big *
+//   small, big * big (one TF32 pass misses the 1e-4 limit); each tile's
+//   dq, dv and dk products sum from zero into a partial that joins the
+//   consumer's sum by one fp32 add (its error flat in L against float64:
+//   2.4e-6 of max at L = 8192 in the emulation, 7.2e-5 with one
+//   accumulator); the two consumers' sums add at the end, the even tiles'
+//   first. No atomics: two launches give the same bits.
+// - Waves: one block an SM (185 KB dq, 226 KB dkv; setmaxnreg gives the
+//   consumers 224 registers, the producer 56); 15 clusters of eight run at
+//   once (a cluster's blocks share a GPC): [2, 4096, 1, 512] 128 clusters
+//   in 9 rounds, [1, 1024, 1, 512] 16 in 2.
+// Probes on the card (rdeic_torch/tools/flash_bwd_probe.py --d 512 --dtype
+// fp32, PERF.md §6, device ms of the pair at [2, 4096, 1, 512], the H100 at
+// 700 W; the mma.sync parent 4.72-4.77 in the same processes), design by
+// design: each warp's 8-row unit reduced by one warp of one block, S and
+// dP gathered, 6.50 (the exchange ~2.0 of it); every warp reducing pieces
+// of every warp, P and dS formed once, 5.16 (the exchange ~0.2); the small
+// and transposed planes by separate splitter groups, 4.71; two rings and
+// turns at one exchange area, 4.69 (with no split at all, wrong values,
+// 3.39: the split held it back); four splitting warps and the consumers
+// refilling the score slots, 4.40; two of them on dkv's small planes,
+// 3.87-3.89 (one, 4.34; three score slots, not two, 0.8 less; a fourth in
+// dq, none). With no exchange it reads 3.60, no products 3.25, no split
+// 3.56-3.59: what is left is the chain a tile runs (scores, exchange,
+// products) on two consumers.
 //
 // Bound on the H100: the pair must do 10 * L^2 * D * B * H flops (S, dP, dV,
 // dQ, dK; dq alone 6, dkv alone 8, since each recomputes S and dP) against
@@ -890,302 +924,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 }  // namespace d16
-
-// d = 512 on the tensor cores (header). 256 threads a block.
-namespace d512 {
-
-constexpr int D = 512, NT = 256;
-constexpr int TS = D + 8;  // D-wide tile stride (swizzled, flash_mma.cuh)
-// dq kernel: a kept 32-row q tile, streamed 16-row k tiles. Partial score
-// tiles [S, dP][quarter of d][32][24]: float2 writes hit 32 banks; dS is
-// read as a row-major A operand: stride 4 mod 32.
-constexpr int DQ_Q = 32, DQ_K = 16, DQ_XS = 24, DQ_DS = 20;
-// dkv kernel: a kept 32-row k tile, streamed 16-row q tiles. Partial score
-// tiles [S, dP][quarter][16][40]; P and dS are read transposed (as A =
-// P^T): stride 8 mod 32.
-constexpr int KV_K = 32, KV_Q = 16, KV_XS = 40, KV_PS = 40;
-constexpr int kDqSmemFloats = 2 * (DQ_Q + DQ_K) * TS + 8 * DQ_Q * DQ_XS +
-                              DQ_Q * DQ_DS + 2 * DQ_Q;
-constexpr int kDkvSmemFloats = 2 * (KV_K + KV_Q) * TS + 8 * KV_Q * KV_XS +
-                               2 * KV_Q * KV_PS + 2 * KV_Q;
-static_assert(kDqSmemFloats * 4 <= 232448, "shared memory per block");
-static_assert(kDkvSmemFloats * 4 <= 232448, "shared memory per block");
-
-// Warps 0-3 sum S = Q K^T, warps 4-7 dP = dO V^T, over their quarter of d,
-// for the whole (16 MT) x (8 NT) score tile (rows q, columns k); into
-// xs[product][quarter] of row stride XS.
-template <int MT, int NT, int XS>
-__device__ __forceinline__ void score_partials(const float* qs,
-                                               const float* dos,
-                                               const float* ks,
-                                               const float* vs, float* xs) {
-  using namespace rdeic_flash;
-  const int warp = threadIdx.x >> 5, prod = warp >> 2, quarter = warp & 3;
-  float acc[MT][NT][4];
-  zero(acc);
-  warp_mma<MT, NT, D / 32, true, true>(
-      acc, RowA<TS, true>(prod ? dos : qs, 0, quarter * (D / 4)),
-      RowB<TS>(prod ? vs : ks, 0, quarter * (D / 4)));
-  float* x = xs + (prod * 4 + quarter) * MT * 16 * XS;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      store_frag<XS>(x, acc[mt][nt], mt * 16, nt * 8);
-}
-
-// P and dS at q row r, k columns c and c + 1 of a ROWS-row score tile,
-// from the partial sums: P = exp(S scale - lse), 0 on a padded row (q_in
-// false) or column (c + j >= k_left); dS = P (dP - di) scale.
-template <int ROWS, int XS>
-__device__ __forceinline__ void probs(const float* xs, int r, int c,
-                                      bool q_in, int k_left, float lse,
-                                      float di, float scale, float (&p)[2],
-                                      float (&ds)[2]) {
-  float s[2] = {0.f, 0.f}, dp[2] = {0.f, 0.f};
-#pragma unroll
-  for (int qq = 0; qq < 4; ++qq) {
-    const float2 x =
-        *reinterpret_cast<const float2*>(xs + (qq * ROWS + r) * XS + c);
-    const float2 y = *reinterpret_cast<const float2*>(
-        xs + ((4 + qq) * ROWS + r) * XS + c);
-    s[0] += x.x, s[1] += x.y, dp[0] += y.x, dp[1] += y.y;
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    p[j] = (q_in && c + j < k_left) ? expf(s[j] * scale - lse) : 0.f;
-    ds[j] = p[j] * (dp[j] - di) * scale;
-  }
-}
-
-// One block: (q tile blockIdx.x, b*h blockIdx.y). dq = sum over k tiles of
-// dS K; also di = rowsum(dO * O) for the tile's rows, written to `di`.
-template <typename T>
-__global__ void __launch_bounds__(NT, 1)
-    flash_dq_d512(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ o,
-                  const T* __restrict__ dout, const float* __restrict__ lse,
-                  T* __restrict__ dq, float* __restrict__ di, int L, int H,
-                  float scale) {
-  using namespace rdeic_flash;
-  constexpr int BQ = DQ_Q, BK = DQ_K;
-  extern __shared__ __align__(16) float smem_tc[];
-  float* qs = smem_tc;             // [BQ][TS]
-  float* dos = qs + BQ * TS;       // [BQ][TS]
-  float* ks = dos + BQ * TS;       // [BK][TS]
-  float* vs = ks + BK * TS;        // [BK][TS]
-  float* xs = vs + BK * TS;        // partial S and dP
-  float* dss = xs + 8 * BQ * DQ_XS;  // [BQ][DQ_DS]
-  float* lse_s = dss + BQ * DQ_DS;
-  float* di_s = lse_s + BQ;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t row = static_cast<int64_t>(H) * D;
-  const int64_t base = static_cast<int64_t>(b) * L * row +
-                       static_cast<int64_t>(h) * D;
-  const int64_t rbase = static_cast<int64_t>(bh) * L;
-  const int r = tid >> 3, c = (tid & 7) * 2;  // this thread's P / dS entries
-
-  load_rows<T, BQ, D, NT>(qs, q + base, q0, L, row);
-  load_rows<T, BQ, D, NT>(dos, dout + base, q0, L, row);
-  load_rows<T, BQ, D, NT>(ks, o + base, q0, L, row);  // O over ks and vs
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  {
-    const int part = tid & 7;  // 8 lanes a row, 64 of d each
-    float sum = 0.f;
-    for (int d = part * (D / 8); d < (part + 1) * (D / 8); ++d)
-      sum = fmaf(dos[swz<TS>(r, d)], ks[swz<TS>(r, d)], sum);
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (part == 0) {
-      const bool in = q0 + r < L;
-      di_s[r] = sum;
-      lse_s[r] = in ? lse[rbase + q0 + r] : 0.f;
-      if (in) di[rbase + q0 + r] = sum;
-    }
-  }
-  __syncthreads();  // done with O: ks and vs take K and V
-  load_rows<T, BK, D, NT>(ks, k + base, 0, L, row);
-  load_rows<T, BK, D, NT>(vs, v + base, 0, L, row);
-  cp_async_commit();
-
-  float acc[2][8][4];  // dq[0..32, 64 warp..]
-  zero(acc);
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    cp_async_wait<0>();
-    __syncthreads();
-    score_partials<2, 2, DQ_XS>(qs, dos, ks, vs, xs);
-    __syncthreads();  // done with vs: the next V tile comes meanwhile
-    if (k0 + BK < L) load_rows<T, BK, D, NT>(vs, v + base, k0 + BK, L, row);
-    cp_async_commit();
-    float p[2], ds[2];
-    probs<BQ, DQ_XS>(xs, r, c, q0 + r < L, L - k0, lse_s[r], di_s[r], scale,
-                     p, ds);
-    *reinterpret_cast<float2*>(dss + r * DQ_DS + c) = make_float2(ds[0], ds[1]);
-    __syncthreads();
-    warp_mma<2, 8, BK / 8, true, true>(acc, RowA<DQ_DS, false>(dss, 0, 0),
-                                         ColB<TS>(ks, warp * (D / 8), 0));
-    __syncthreads();  // done with ks
-    if (k0 + BK < L) load_rows<T, BK, D, NT>(ks, k + base, k0 + BK, L, row);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int rr = mt * 16 + g + half * 8;
-      if (q0 + rr >= L) continue;
-      T* out = dq + base + (q0 + rr) * row + warp * (D / 8) + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        store2<T>(out + nt * 8, acc[mt][nt][2 * half],
-                  acc[mt][nt][2 * half + 1]);
-    }
-}
-
-// One block: (k tile blockIdx.x, b*h blockIdx.y). dv = sum over q tiles of
-// P^T dO, dk = sum of dS^T Q.
-template <typename T>
-__global__ void __launch_bounds__(NT, 1)
-    flash_dkv_d512(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ di, T* __restrict__ dk,
-                   T* __restrict__ dv, int L, int H, float scale) {
-  using namespace rdeic_flash;
-  constexpr int BK = KV_K, BQ = KV_Q;
-  extern __shared__ __align__(16) float smem_tc[];
-  float* ks = smem_tc;             // [BK][TS]
-  float* vs = ks + BK * TS;        // [BK][TS]
-  float* qs = vs + BK * TS;        // [BQ][TS]
-  float* dos = qs + BQ * TS;       // [BQ][TS]
-  float* xs = dos + BQ * TS;       // partial S and dP, rows q, columns k
-  float* ps = xs + 8 * BQ * KV_XS;  // [BQ][KV_PS], rows q, columns k
-  float* dss = ps + BQ * KV_PS;    // [BQ][KV_PS]
-  float* lse_s = dss + BQ * KV_PS;
-  float* di_s = lse_s + BQ;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BK;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t row = static_cast<int64_t>(H) * D;
-  const int64_t base = static_cast<int64_t>(b) * L * row +
-                       static_cast<int64_t>(h) * D;
-  const int64_t rbase = static_cast<int64_t>(bh) * L;
-  const int r = tid >> 4, c = (tid & 15) * 2;  // this thread's P / dS entries
-
-  load_rows<T, BK, D, NT>(ks, k + base, k0, L, row);
-  load_rows<T, BK, D, NT>(vs, v + base, k0, L, row);
-  load_rows<T, BQ, D, NT>(qs, q + base, 0, L, row);
-  load_rows<T, BQ, D, NT>(dos, dout + base, 0, L, row);
-  cp_async_commit();
-
-  float acc_v[2][8][4], acc_k[2][8][4];  // dv, dk [0..32, 64 warp..]
-  zero(acc_v);
-  zero(acc_k);
-  // lse and di of a q tile, read one tile ahead so that their latency
-  // hides behind a whole tile's work
-  float lse_next = 0.f, di_next = 0.f;
-  if (tid < BQ && tid < L) {
-    lse_next = lse[rbase + tid];
-    di_next = di[rbase + tid];
-  }
-  for (int q0 = 0; q0 < L; q0 += BQ) {
-    if (tid < BQ) {
-      lse_s[tid] = lse_next;
-      di_s[tid] = di_next;
-      const bool in = q0 + BQ + tid < L;
-      lse_next = in ? lse[rbase + q0 + BQ + tid] : 0.f;
-      di_next = in ? di[rbase + q0 + BQ + tid] : 0.f;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    score_partials<1, 4, KV_XS>(qs, dos, ks, vs, xs);
-    __syncthreads();
-    float p[2], ds[2];
-    probs<BQ, KV_XS>(xs, r, c, q0 + r < L, L - k0, lse_s[r], di_s[r], scale,
-                     p, ds);
-    *reinterpret_cast<float2*>(ps + r * KV_PS + c) = make_float2(p[0], p[1]);
-    *reinterpret_cast<float2*>(dss + r * KV_PS + c) = make_float2(ds[0], ds[1]);
-    __syncthreads();
-    warp_mma<2, 8, BQ / 8, true, true>(acc_v, ColA<KV_PS>(ps, 0, 0),
-                                         ColB<TS>(dos, warp * (D / 8), 0));
-    __syncthreads();  // done with dos: the next dO tile comes meanwhile
-    if (q0 + BQ < L) load_rows<T, BQ, D, NT>(dos, dout + base, q0 + BQ, L, row);
-    cp_async_commit();
-    warp_mma<2, 8, BQ / 8, true, true>(acc_k, ColA<KV_PS>(dss, 0, 0),
-                                         ColB<TS>(qs, warp * (D / 8), 0));
-    __syncthreads();  // done with qs
-    if (q0 + BQ < L) load_rows<T, BQ, D, NT>(qs, q + base, q0 + BQ, L, row);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int rr = mt * 16 + g + half * 8;
-      if (k0 + rr >= L) continue;
-      const int64_t at = base + (k0 + rr) * row + warp * (D / 8) + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        store2<T>(dk + at + nt * 8, acc_k[mt][nt][2 * half],
-                  acc_k[mt][nt][2 * half + 1]);
-        store2<T>(dv + at + nt * 8, acc_v[mt][nt][2 * half],
-                  acc_v[mt][nt][2 * half + 1]);
-      }
-    }
-}
-
-template <typename T>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* o, const void* dout, const float* lse,
-                      void* dq, float* di, int B, int L, int H, float scale,
-                      cudaStream_t stream) {
-  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
-  if (err != cudaSuccess) return err;
-  const int smem = kDqSmemFloats * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_dq_d512<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + DQ_Q - 1) / DQ_Q, B * H);
-  flash_dq_d512<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, static_cast<T*>(dq), di, L, H, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* di,
-                       void* dk, void* dv, int B, int L, int H, float scale,
-                       cudaStream_t stream) {
-  cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
-  if (err != cudaSuccess) return err;
-  const int smem = kDkvSmemFloats * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_dkv_d512<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + KV_K - 1) / KV_K, B * H);
-  flash_dkv_d512<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-      static_cast<T*>(dk), static_cast<T*>(dv), L, H, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace d512
 
 // `smem` bytes of dynamic shared memory for `kernel`, and as much shared
 // memory on the SM as it has, so that the blocks a kernel's launch bounds
@@ -2561,6 +2299,806 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace d64
 
+// fp32 at d = 512 on TF32 wgmma, each product as three passes (header). One
+// cluster of CL blocks along d takes one 64-row kept tile of one b*h (q rows
+// in dq, keys in dkv): cluster blockIdx.x / CL, b*h blockIdx.y; block `rank`
+// owns d 64 rank.. of every tensor, the d = 64 kernels' tile, which d64::'s
+// pieces take. Three warpgroups a block: warpgroup 0 the producer (its
+// four warps split the loaded tiles) and two consumers on the same 64 kept
+// rows, consumer kh taking the streamed tiles j with j % 2 = kh, each with
+// its own sums, which add at the end, the even tiles' first. Tile j's raw
+// tiles and small planes (the scores' B) sit in slot j % SS of the score
+// ring, its transposed planes (the products' B) in slot j % 2 of the
+// product ring; the consumers take turns at one exchange area, in tile
+// order.
+namespace d512 {
+
+using namespace rdeic_flash::hopper;
+constexpr int D = 512, CL = 8, DC = D / CL, BM = 64, BN = d64::BN, NT = 384;
+static_assert(DC == d64::D, "a block's slice is the d = 64 kernels' tile");
+constexpr float kLog2e = 1.4426950408889634f;
+// registers: the launch's (65536 over 384 threads, to 8), then moved by
+// setmaxnreg from the producer to the consumers (launch_dq / launch_dkv
+// refuse another launch count: setmaxnreg.inc waits for registers its own
+// block freed)
+constexpr int kLaunchRegs = 168;
+constexpr int kDqProducerRegs = 56, kDqConsumerRegs = 224;
+constexpr int kDkvProducerRegs = 56, kDkvConsumerRegs = 224;
+static_assert(kLaunchRegs == ((65536 / NT) & ~7), "one block an SM");
+static_assert(128 * kDqProducerRegs + 256 * kDqConsumerRegs <=
+                      NT * kLaunchRegs &&
+                  128 * kDkvProducerRegs + 256 * kDkvConsumerRegs <=
+                      NT * kLaunchRegs,
+              "registers per block");
+constexpr uint32_t kSAtom = d64::kSAtom, kPlane = d64::kPlane,
+                   kTPlane = d64::kTPlane, kKept = d64::kKept;
+// A score slot: the two streamed tensors' BN x 64 tiles as TMA lands them
+// (raw: wgmma reads an fp32 operand truncated to TF32, so a raw tile is its
+// own big term) and their small terms (x - trunc(x)); a product slot: the
+// transposed planes, big (the values) and small, of the tensors that are a
+// product's B: K^T in dq; Q^T and dO^T in dkv
+constexpr uint32_t kRawA = 0, kRawB = kPlane, kSmallA = 2 * kPlane,
+                   kSmallB = 3 * kPlane, kScore = 4 * kPlane;  // 32 KB
+constexpr uint32_t kDqTrans = 2 * kTPlane, kDkvTrans = 4 * kTPlane;
+constexpr int kDqScoreSlots = 3, kDkvScoreSlots = 3, kTransSlots = 2;
+// the producer's four warps split: the first SMALL make the small planes,
+// the rest the transposed ones, each group at its own pace
+constexpr int kDqSmallWarps = 2, kDkvSmallWarps = 2;
+// The exchange of a tile's partial S and dP (exchange), one area that the
+// consumers take in turns: a lane's piece u is 16 bytes, a warp's 512, a
+// block's (the consumer's four warps) a 2 KB slot; `parts` [CL][kSlot]
+// (the pieces this block reduces, from each block) and `sums` [CL] of the
+// pieces reduced by each block, as P and dS (16 bytes a lane: dkv) or dS
+// (8: dq)
+constexpr uint32_t kSlot = 4 * 32 * 16, kArea = CL * kSlot;
+constexpr uint32_t kDqSumArea = CL * 4 * 32 * 8, kDkvSumArea = kArea;
+// dkv: the streamed rows' lse and di as cp.async lands them, [lse, di][BN]
+// a score slot; dq's blocks' partial di of the 64 rows ([CL][BM]) take the
+// sums area before the first exchange
+constexpr uint32_t kRowBytes = 2 * BN * 4, kDiBytes = CL * BM * 4;
+static_assert(kDiBytes <= kDqSumArea, "di in the sums area");
+// from a 1024-byte-aligned base: the score ring, the product ring, the
+// kept small planes (Q and dO; K and V), the parts and sums areas (dkv:
+// then the rows)
+constexpr uint32_t kTrans0Dq = kDqScoreSlots * kScore,
+                   kTrans0Dkv = kDkvScoreSlots * kScore;
+constexpr uint32_t kKept0Dq = kTrans0Dq + kTransSlots * kDqTrans,
+                   kKept0Dkv = kTrans0Dkv + kTransSlots * kDkvTrans;
+constexpr int kDqSmemBytes = 1024 + kKept0Dq + 2 * kKept + kArea + kDqSumArea;
+constexpr int kDkvSmemBytes = 1024 + kKept0Dkv + 2 * kKept + kArea +
+                              kDkvSumArea + kDkvScoreSlots * kRowBytes;
+static_assert(kDqSmemBytes <= 232448 - 256 && kDkvSmemBytes <= 232448 - 256,
+              "shared memory per block (and the barriers)");
+// the merge's hand-over (d64::hand_over: 128 threads x N floats, two in
+// dkv) in score slot 0
+static_assert(2 * 128 * (DC / 2) * 4 <= kScore, "the merge's scratch");
+
+// The barriers: per score slot s, loaded (TMA, and in dkv a warp's 32
+// rows copies), sready (the small planes made), sfree (done with by the
+// consumer's four warps: in dq after their scores, in dkv after their
+// exchange, which reads the rows) and rawfree (the raw tiles read by the
+// transposed split); per
+// product slot p, tready (made) and tfree (done with by the products); per
+// consumer warp w, got_parts (the other blocks' pieces that this block
+// reduces) and got_sum (the pieces the other blocks reduced); dq's got_di
+// (every block's partial di)
+struct Bars {
+  uint32_t b0;
+  __device__ uint32_t loaded(int s) const { return b0 + 8 * s; }
+  __device__ uint32_t sready(int s) const { return b0 + 8 * (4 + s); }
+  __device__ uint32_t sfree(int s) const { return b0 + 8 * (8 + s); }
+  __device__ uint32_t rawfree(int s) const { return b0 + 8 * (12 + s); }
+  __device__ uint32_t tready(int p) const { return b0 + 8 * (16 + p); }
+  __device__ uint32_t tfree(int p) const { return b0 + 8 * (18 + p); }
+  __device__ uint32_t got_parts(int w) const { return b0 + 8 * (20 + w); }
+  __device__ uint32_t got_sum(int w) const { return b0 + 8 * (24 + w); }
+  __device__ uint32_t got_di() const { return b0 + 8 * 28; }
+};
+constexpr int kBars = 29;
+
+// The barriers of SS score slots set (thread 0), `loaded` expecting
+// `loaded_count` arrivals, and seen by the whole cluster before any block
+// arrives on another's
+template <int SS, int SMALL>
+__device__ __forceinline__ void init_bars(const Bars& bar, int loaded_count) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < SS; ++s) {
+      mbar_init(bar.loaded(s), loaded_count);
+      // lane 0 of each splitting warp of the group, of each consumer warp
+      mbar_init(bar.sready(s), SMALL);
+      mbar_init(bar.sfree(s), 4);
+      mbar_init(bar.rawfree(s), 4 - SMALL);
+    }
+#pragma unroll
+    for (int p = 0; p < kTransSlots; ++p) {
+      mbar_init(bar.tready(p), 4 - SMALL);
+      mbar_init(bar.tfree(p), 4);
+    }
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      // one arrival (the warp's own expect_tx) and the other blocks' bytes
+      mbar_init(bar.got_parts(w), 1);
+      mbar_init(bar.got_sum(w), 1);
+    }
+    mbar_init(bar.got_di(), 1);
+    fence_barrier_init();
+  }
+  cluster_arrive();
+  cluster_wait();
+}
+
+// x - trunc(x) of each value: the small term of the split whose big term is
+// x as the tensor core reads it (its TF32 bits, truncated); exact in fp32
+__device__ __forceinline__ float4 small4(float4 x) {
+  auto small = [](float v) {
+    return v - __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+  };
+  return make_float4(small(x.x), small(x.y), small(x.z), small(x.w));
+}
+
+// Thread tid's share (of WARPS splitting warps) of a loaded BN x 64 tile
+// `raw` (two atoms as TMA writes them; lane = streamed row, chunk c = d
+// 4c..4c + 3): its small plane, in the same layout
+template <int WARPS>
+__device__ __forceinline__ void small_plane(const unsigned char* raw,
+                                            unsigned char* small, int tid) {
+  const int lane = tid & 31;
+#pragma unroll 2
+  for (int c = tid >> 5; c < DC / 4; c += WARPS) {
+    const uint32_t at = (c >> 3) * kSAtom + swizzle128(lane, 16 * (c & 7));
+    *reinterpret_cast<float4*>(small + at) =
+        small4(*reinterpret_cast<const float4*>(raw + at));
+  }
+}
+
+// ... and its transposed planes, big (the values) and small: d as the rows,
+// the streamed rows along them in d64::slot_of's order. Every read and
+// write of both hits 32 banks (tests/test_torch_port_flash_bwd_d512_fp32.py)
+template <int WARPS>
+__device__ __forceinline__ void trans_planes(const unsigned char* raw,
+                                             unsigned char* tbig,
+                                             unsigned char* tsmall, int tid) {
+  const int lane = tid & 31;
+  const uint32_t slot = d64::slot_of(lane);
+#pragma unroll 2
+  for (int c = tid >> 5; c < DC / 4; c += WARPS) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        raw + (c >> 3) * kSAtom + swizzle128(lane, 16 * (c & 7)));
+    const float4 s = small4(x);
+    const float bv[4] = {x.x, x.y, x.z, x.w}, sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t t_at = swizzle128(4 * c + e, 4 * slot);
+      *reinterpret_cast<float*>(tbig + t_at) = bv[e];
+      *reinterpret_cast<float*>(tsmall + t_at) = sv[e];
+    }
+  }
+}
+
+// The splitters (the producer's warps), two groups at their own pace: the
+// first SMALL warps make both tensors' small planes of each loaded tile in
+// its score slot (sready), the others, once the product slot's last
+// products are done, the transposed planes of its first NTRANS tensors
+// (tready; rawfree for its score slot). `trans` bytes a product slot;
+// product slots from p0 + trans0
+template <int NTRANS, int SS, int SMALL>
+__device__ __forceinline__ void split_tiles(unsigned char* p0,
+                                            uint32_t trans0, uint32_t trans,
+                                            const Bars& bar, int nk) {
+  const int ws = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool small = ws < SMALL;
+  const int tid = threadIdx.x - (small ? 0 : 32 * SMALL);
+  for (int j = 0; j < nk; ++j) {
+    const int s = j % SS, p = j % kTransSlots;
+    unsigned char* const st = p0 + s * kScore;
+    mbar_wait(bar.loaded(s), (j / SS) & 1);
+    if (small) {
+      small_plane<SMALL>(st + kRawA, st + kSmallA, tid);
+      small_plane<SMALL>(st + kRawB, st + kSmallB, tid);
+    } else {
+      // round 0 passes
+      mbar_wait(bar.tfree(p), ((j / kTransSlots) & 1) ^ 1);
+      unsigned char* const tp = p0 + trans0 + p * trans;
+#pragma unroll
+      for (int x = 0; x < NTRANS; ++x)
+        trans_planes<4 - SMALL>(st + x * kPlane, tp + 2 * x * kTPlane,
+                                tp + (2 * x + 1) * kTPlane, tid);
+    }
+    // the writes seen by wgmma, the raw tiles read before TMA refills them
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) {
+      if (small) {
+        mbar_arrive(bar.sready(s));
+      } else {
+        mbar_arrive(bar.tready(p));
+        mbar_arrive(bar.rawfree(s));
+      }
+    }
+  }
+}
+
+// The load (one thread) of tile j of the two streamed tensors into score
+// slot j % SS: by the producer for the first SS tiles; then by the consumer
+// of tile j - SS, once its four warps are done with the slot and the
+// transposed split with its raw tiles (refill)
+template <int SS>
+__device__ __forceinline__ void load_tile(uint32_t st, const Bars& bar,
+                                          const CUtensorMap* ta,
+                                          const CUtensorMap* tb, int j,
+                                          int rank, int h, int b) {
+  const int s = j % SS;
+  mbar_expect_tx(bar.loaded(s), 2 * kPlane);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    tma_load_4d(st + kRawA + half * kSAtom, ta, bar.loaded(s),
+                DC * rank + 32 * half, h, j * BN, b);
+    tma_load_4d(st + kRawB + half * kSAtom, tb, bar.loaded(s),
+                DC * rank + 32 * half, h, j * BN, b);
+  }
+}
+
+// Whether the consumer of tile j refills its score slot with tile j + SS:
+// its warp 0 does, once the consumer's four warps are done with the slot
+// (sfree) and the transposed split with its raw tiles (rawfree)
+template <int SS>
+__device__ __forceinline__ bool refill(const Bars& bar, int j, int nk, int w) {
+  if (w != 0 || j + SS >= nk) return false;
+  const int s = j % SS;
+  const uint32_t round = (j / SS) & 1;
+  mbar_wait(bar.sfree(s), round);
+  mbar_wait(bar.rawfree(s), round);
+  return true;
+}
+
+__device__ __forceinline__ float4 ld_shared4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_shared2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// A consumer warp's exchange areas and barriers
+struct Exchange {
+  uint32_t parts, sums, got_parts, got_sum;
+};
+
+// Turns (named barriers 2 and 3): consumer kh takes the exchange area for
+// tile j once the other consumer is done with tile j - 1, and hands it back
+// unless no tile follows
+__device__ __forceinline__ void take_turn(int kh, int j) {
+  if (j > 0) named_sync(2 + kh, 256);
+}
+__device__ __forceinline__ void give_turn(int kh, int j, int nk) {
+  if (j + 1 < nk) named_arrive(3 - kh, 256);
+}
+
+// The cluster's CL partials of the consumer's 64 x BN S and dP (sc, dp:
+// each block's over its 64 of d; sc[4 n + i] at row g + 8 (i >> 1), column
+// 8 n + 2 t + (i & 1)) become, in every block, the same P and dS. Piece
+// u = 4 hf + n of a lane is the two entries 4 n + 2 hf + e of S and of dP
+// (n-tile n, row half hf): every lane pushes piece u to block u's parts
+// slot [its rank] by st.async (a reduce-scatter: each block's every warp
+// reduces one piece of each lane, so the work is even), the block adds the
+// CL partials in rank order ((p0 + p1) + p2) ... + p7, `finish(sum, u)`
+// forms P and dS of the two entries once (GATHER4: (P, P, dS, dS), pushed
+// as 16 bytes; else (dS, dS), 8), and the block pushes them to every other
+// block's sums slot [its rank] (an all-gather). Afterwards sc holds P and dp
+// holds dS (dq: dp alone). The exchanges run in tile order (the turns), so
+// `parity` is tile j's (j & 1), and a slot is written again only by a block
+// that has received what its reader sent after reading it: one area of each
+// suffices. A warp's 32 lanes write and read a slot's 512 (256) bytes
+// whole: 32 banks.
+template <bool GATHER4, typename Finish>
+__device__ __forceinline__ void exchange(float (&sc)[BN / 2],
+                                         float (&dp)[BN / 2],
+                                         const Exchange& x, uint32_t parity,
+                                         int rank, int w, int lane,
+                                         Finish finish) {
+  constexpr uint32_t kSum = GATHER4 ? 16 : 8;  // a lane's bytes of a sum
+  const uint32_t mine = w * 512 + 16 * lane;
+  const uint32_t sum_mine = w * 32 * kSum + kSum * lane;
+  if (lane == 0) {
+    mbar_expect_tx(x.got_parts, (CL - 1) * 512);
+    mbar_expect_tx(x.got_sum, (CL - 1) * 32 * kSum);
+  }
+  float4 own = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int u = 0; u < CL; ++u) {
+    const int i = 4 * (u & 3) + 2 * (u >> 2);
+    const float4 v = make_float4(sc[i], sc[i + 1], dp[i], dp[i + 1]);
+    if (u == rank) {
+      own = v;
+    } else {
+      const uint32_t to = static_cast<uint32_t>(u);
+      st_async_v4(mapa(x.parts + rank * kSlot + mine, to), v,
+                  mapa(x.got_parts, to));
+    }
+  }
+  mbar_wait_cluster(x.got_parts, parity);
+  float4 sum = own;
+#pragma unroll
+  for (int r = 0; r < CL; ++r) {
+    const float4 v =
+        r == rank ? own : ld_shared4(x.parts + r * kSlot + mine);
+    if (r == 0) {
+      sum = v;
+    } else {
+      sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
+    }
+  }
+  const float4 out = finish(sum, rank);
+#pragma unroll
+  for (int r = 0; r < CL; ++r) {
+    if (r == rank) continue;
+    const uint32_t to = static_cast<uint32_t>(r);
+    const uint32_t at = mapa(x.sums + rank * 4 * 32 * kSum + sum_mine, to);
+    if constexpr (GATHER4)
+      st_async_v4(at, out, mapa(x.got_sum, to));
+    else
+      st_async_v2(at, make_float2(out.x, out.y), mapa(x.got_sum, to));
+  }
+  mbar_wait_cluster(x.got_sum, parity);
+#pragma unroll
+  for (int u = 0; u < CL; ++u) {
+    const int i = 4 * (u & 3) + 2 * (u >> 2);
+    const uint32_t at = x.sums + u * 4 * 32 * kSum + sum_mine;
+    if constexpr (GATHER4) {
+      const float4 v = u == rank ? out : ld_shared4(at);
+      sc[i] = v.x, sc[i + 1] = v.y, dp[i] = v.z, dp[i + 1] = v.w;
+    } else {
+      const float2 v = u == rank ? make_float2(out.x, out.y) : ld_shared2(at);
+      dp[i] = v.x, dp[i + 1] = v.y;
+    }
+  }
+}
+
+// One cluster: the 64 q rows q0.. of b*h (blockIdx.y), block `rank` on d
+// 64 rank... Tile j of BN keys lands in score slot j % kDqScoreSlots (K and
+// V by TMA, raw; the splitters make K and V small there and K^T big and
+// small in product slot j % 2). Both consumers keep Q and dO of the
+// block's d (big terms in registers, small terms in shared memory), and
+// consumer j % 2 refills the slot of tile j with tile j + 3; consumer 0
+// sums di over the block's d and pushes it to every block, and both add
+// the CL partials in rank order (rank 0 writes di for the dkv kernel).
+// Per tile j (consumer
+// j % 2): this block's partial S = Q K^T and dP = dO V^T (three passes
+// each), the exchange, which leaves dS / scale = P (dP - di) in dp (P =
+// 2^(S c - lse2), log2 units, 0 on a key past L), then the partial dS K of
+// its 64 columns of dq from zero (dS as A from registers, K^T the B), which
+// joins the consumer's running dq by one fp32 add.
+__global__ void __launch_bounds__(NT, 1)
+    flash_dq_d512(const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const float* __restrict__ q, const float* __restrict__ o,
+                  const float* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ dq,
+                  float* __restrict__ di, int L, int H, float scale) {
+  constexpr int SS = kDqScoreSlots;
+  extern __shared__ unsigned char smem_dq512[];
+  __shared__ __align__(8) uint64_t bars[kBars];
+  const uint32_t s0 = (smem_u32(smem_dq512) + 1023) & ~1023u;
+  unsigned char* const p0 = smem_dq512 + (s0 - smem_u32(smem_dq512));
+  const uint32_t kept0 = s0 + kKept0Dq, x0 = kept0 + 2 * kKept;
+  const uint32_t sums0 = x0 + kArea;
+  const uint32_t dis = sums0;  // [CL][BM] partial di
+  const Bars bar{smem_u32(bars)};
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int q0 = (blockIdx.x / CL) * BM;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int nk = (L + BN - 1) / BN;
+  init_bars<SS, kDqSmallWarps>(bar, 1);
+
+  if (warp < 4) {
+    setmaxnreg_dec<kDqProducerRegs>();
+    if (threadIdx.x == 0)
+      for (int j = 0; j < SS && j < nk; ++j)
+        load_tile<SS>(s0 + j * kScore, bar, &tk, &tv, j, rank, h, b);
+    __syncwarp();
+    split_tiles<1, SS, kDqSmallWarps>(p0, kTrans0Dq, kDqTrans, bar, nk);
+    cluster_arrive();
+  } else {
+    setmaxnreg_inc<kDqConsumerRegs>();
+    const int kh = (warp >> 2) - 1;  // consumer 0 or 1: tiles kh, kh + 2..
+    const int w = warp & 3, g = lane >> 2, t = lane & 3;
+    const float c = scale * kLog2e;  // scores in log2 units, for exp2
+    const int64_t row = static_cast<int64_t>(H) * D;
+    const int64_t base = static_cast<int64_t>(b) * L * row +
+                         static_cast<int64_t>(h) * D + DC * rank;
+    const int64_t rbase = static_cast<int64_t>(bh) * L;
+    const int rw = 16 * w + g;  // rows rw (half 0), rw + 8 (1) of the tile
+    const int r0 = q0 + rw;
+
+    // Q and dO split once (big terms in registers, small terms in shared
+    // memory, which both consumers write alike); consumer 0's partial di
+    // of rows r0 and r0 + 8 over the block's d, from the lane's values of
+    // dO and O and its quad's, to every block's slot [rank]
+    uint32_t qb[DC / 8][4], dob[DC / 8][4];
+    unsigned char* const qs = p0 + (kept0 - s0);
+    unsigned char* const dos = qs + kKept;
+    {
+      float x[DC / 8][4];
+      d64::load_kept(q + base, r0, rw, L, row, qb, qs, x);
+      d64::load_kept(dout + base, r0, rw, L, row, dob, dos, x);
+      if (kh == 0) {
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < DC / 8; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int rr = r0 + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+            const float ov = rr < L ? o[base + rr * row + col] : 0.f;
+            sum[i & 1] = fmaf(x[kk][i], ov, sum[i & 1]);
+          }
+        if (w == 0 && lane == 0) mbar_expect_tx(bar.got_di(), kDiBytes);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 1);
+          sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 2);
+          if (t == 0)
+            for (int r = 0; r < CL; ++r)
+              st_async_f32(
+                  mapa(dis + 4 * (BM * rank + rw + 8 * half), r), sum[half],
+                  mapa(bar.got_di(), static_cast<uint32_t>(r)));
+        }
+      }
+    }
+    fence_proxy_async();
+    float lse2[2], dir[2];
+    mbar_wait_cluster(bar.got_di(), 0);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rr = r0 + 8 * half;
+      float sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < CL; ++r) {
+        float y;
+        asm volatile("ld.shared.f32 %0, [%1];"
+                     : "=f"(y)
+                     : "r"(dis + 4 * (BM * r + rw + 8 * half))
+                     : "memory");
+        sum = r == 0 ? y : sum + y;
+      }
+      const bool in = rr < L;
+      lse2[half] = in ? lse[rbase + rr] * kLog2e : 0.f;
+      dir[half] = in ? sum : 0.f;
+      if (in && rank == 0 && kh == 0 && t == 0) di[rbase + rr] = sum;
+    }
+    // the kept small planes are written, and di is read before the
+    // exchanges take its area (both consumers)
+    named_sync(1, 256);
+    const uint32_t qsa = kept0, dosa = kept0 + kKept;
+
+    const Exchange xc{x0, sums0, bar.got_parts(w), bar.got_sum(w)};
+    float acc[DC / 2];  // dq[64 rows][64]: acc[4 n + i], columns 8 n..
+#pragma unroll
+    for (int i = 0; i < DC / 2; ++i) acc[i] = 0.f;
+    for (int j = kh; j < nk; j += 2) {
+      const int s = j % SS, p = j % kTransSlots;
+      const uint32_t round = (j / SS) & 1;
+      const uint32_t st = s0 + s * kScore;
+      const uint32_t tp = s0 + kTrans0Dq + p * kDqTrans;
+      const int k0 = j * BN;
+      // this block's S = Q K^T and dP = dO V^T over its d, 64 x BN each:
+      // sc[4 m + i] holds keys k0 + 8 m..
+      float sc[BN / 2], dp[BN / 2];
+      mbar_wait(bar.sready(s), round);
+      wgmma_fence();
+      d64::scores(sc, qsa, qb, st + kRawA, st + kSmallA);
+      d64::scores(dp, dosa, dob, st + kRawB, st + kSmallB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar.sfree(s));
+      // dS / scale = P (dP - di) of a piece's two entries (scale
+      // multiplies dq once at the end)
+      take_turn(kh, j);
+      exchange<false>(sc, dp, xc, j & 1, rank, w, lane,
+                      [&](float4 v, int u) {
+        const int half = u >> 2, col = k0 + 8 * (u & 3) + 2 * t;
+        const float l2 = half ? lse2[1] : lse2[0];
+        const float d_i = half ? dir[1] : dir[0];
+        const float p0 = col < L ? exp2f(fmaf(v.x, c, -l2)) : 0.f;
+        const float p1 = col + 1 < L ? exp2f(fmaf(v.y, c, -l2)) : 0.f;
+        return make_float4(p0 * (v.z - d_i), p1 * (v.w - d_i), 0.f, 0.f);
+      });
+      give_turn(kh, j, nk);
+
+      // dq += dS K over the tile's keys, through a partial
+      uint32_t big[BN / 8][4], small[BN / 8][4];
+      mbar_wait(bar.tready(p), (j / kTransSlots) & 1);
+      if (refill<SS>(bar, j, nk, w) && lane == 0)
+        load_tile<SS>(st, bar, &tk, &tv, j + SS, rank, h, b);
+      __syncwarp();
+      d64::terms(dp, big, small);
+      d64::accumulate<false>(acc, big, small, tp, tp + kTPlane);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar.tfree(p));
+    }
+    cluster_arrive();  // this block's exchanges are done
+
+    // consumer 1 hands its sums to consumer 0 through score slot 0 (free
+    // once both are done), which adds them to its own: the even tiles'
+    // sum, then the odd tiles'
+    const uint32_t hand = s0;
+    named_sync(1, 256);
+    if (kh == 1) d64::hand_over(acc, hand);
+    named_sync(1, 256);
+    if (kh == 0) {
+      d64::take_over(acc, hand);
+#pragma unroll
+      for (int i = 0; i < DC / 2; ++i) acc[i] *= scale;
+      d64::store_rows(dq + base, acc, r0, L, row);
+    }
+  }
+  // no block leaves while another may still write to its shared memory
+  cluster_wait();
+}
+
+// One cluster: the 64 keys kv0.. of b*h (blockIdx.y), block `rank` on d
+// 64 rank... Tile j of BN q rows lands in score slot j % kDkvScoreSlots
+// (Q and dO by TMA, raw; their rows' lse and di by 4-byte cp.async from a
+// warp's lanes, which a [B*H, L] row needs: it is not 16-byte aligned at
+// every L; the splitters make Q and dO small there and Q^T and dO^T big
+// and small in product slot j % 2). Both consumers keep K and V of the
+// block's d (big terms in registers, small terms in shared memory) and per
+// tile (consumer j % 2, which then refills its slot with tile j + 3):
+// this block's partial S^T = K Q^T and dP^T = V dO^T (keys as rows), the
+// exchange, which leaves P^T in sc and dS^T / scale in dp, then the
+// partials dv = P^T dO and dk = dS^T Q of the block's 64 columns from
+// zero, each joining its running sum by one fp32 add. A q row past L lands
+// as zeros (Q, dO, lse, di), so P^T = 1 and dS^T = 0 there, and its
+// products with dO^T = 0 and Q^T = 0 add exact zeros: no test.
+__global__ void __launch_bounds__(NT, 1)
+    flash_dkv_d512(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ k, const float* __restrict__ v,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ di, float* __restrict__ dk,
+                   float* __restrict__ dv, int L, int H, float scale) {
+  constexpr int SS = kDkvScoreSlots;
+  extern __shared__ unsigned char smem_dkv512[];
+  __shared__ __align__(8) uint64_t bars[kBars];
+  const uint32_t s0 = (smem_u32(smem_dkv512) + 1023) & ~1023u;
+  unsigned char* const p0 = smem_dkv512 + (s0 - smem_u32(smem_dkv512));
+  const uint32_t kept0 = s0 + kKept0Dkv, x0 = kept0 + 2 * kKept;
+  const uint32_t sums0 = x0 + kArea;
+  const uint32_t rows0 = sums0 + kDkvSumArea;  // [SS][lse, di][BN]
+  const Bars bar{smem_u32(bars)};
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int kv0 = (blockIdx.x / CL) * BM;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int nq = (L + BN - 1) / BN;
+  const int64_t rbase = static_cast<int64_t>(bh) * L;
+  // the TMA arrival and warp 0's 32 rows copies
+  init_bars<SS, kDkvSmallWarps>(bar, 1 + 32);
+
+  // tile j into score slot j % SS (load_tile) and lse and di of its row
+  // `lane` (zero past L) into the slot's rows, by one warp
+  auto load = [&](int j) {
+    if (lane == 0)
+      load_tile<SS>(s0 + (j % SS) * kScore, bar, &tq, &tdo, j, rank, h, b);
+    const int r = j * BN + lane;
+    const bool in = r < L;
+    const uint32_t at = rows0 + (j % SS) * kRowBytes + 4 * lane;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(at),
+                 "l"(lse + rbase + (in ? r : 0)), "r"(in ? 4 : 0)
+                 : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                     at + 4 * BN),
+                 "l"(di + rbase + (in ? r : 0)), "r"(in ? 4 : 0)
+                 : "memory");
+    cp_async_mbar_arrive(bar.loaded(j % SS));
+  };
+  if (warp < 4) {
+    setmaxnreg_dec<kDkvProducerRegs>();
+    if (warp == 0)
+      for (int j = 0; j < SS && j < nq; ++j) load(j);
+    split_tiles<2, SS, kDkvSmallWarps>(p0, kTrans0Dkv, kDkvTrans, bar, nq);
+    cluster_arrive();
+  } else {
+    setmaxnreg_inc<kDkvConsumerRegs>();
+    const int kh = (warp >> 2) - 1;
+    const int w = warp & 3, g = lane >> 2, t = lane & 3;
+    const float c = scale * kLog2e;
+    const int64_t row = static_cast<int64_t>(H) * D;
+    const int64_t base = static_cast<int64_t>(b) * L * row +
+                         static_cast<int64_t>(h) * D + DC * rank;
+    const int rw = 16 * w + g;
+    const int r0 = kv0 + rw;
+
+    uint32_t kb[DC / 8][4], vb[DC / 8][4];
+    unsigned char* const ks = p0 + (kept0 - s0);
+    unsigned char* const vs = ks + kKept;
+    {
+      float x[DC / 8][4];
+      d64::load_kept(k + base, r0, rw, L, row, kb, ks, x);
+      d64::load_kept(v + base, r0, rw, L, row, vb, vs, x);
+    }
+    fence_proxy_async();
+    named_sync(1, 256);
+    const uint32_t ksa = kept0, vsa = kept0 + kKept;
+
+    const Exchange xc{x0, sums0, bar.got_parts(w), bar.got_sum(w)};
+    float acc_k[DC / 2], acc_v[DC / 2];  // dk, dv [64 keys][64]
+#pragma unroll
+    for (int i = 0; i < DC / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    for (int j = kh; j < nq; j += 2) {
+      const int s = j % SS, p = j % kTransSlots;
+      const uint32_t round = (j / SS) & 1;
+      const uint32_t st = s0 + s * kScore;
+      const uint32_t tp = s0 + kTrans0Dkv + p * kDkvTrans;
+      // S^T = K Q^T and dP^T = V dO^T over this block's d, 64 keys x BN q
+      // rows
+      float sc[BN / 2], dp[BN / 2];
+      mbar_wait(bar.loaded(s), round);  // the rows' lse and di too
+      mbar_wait(bar.sready(s), round);
+      wgmma_fence();
+      d64::scores(sc, ksa, kb, st + kRawA, st + kSmallA);
+      d64::scores(dp, vsa, vb, st + kRawB, st + kSmallB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      // column 8 n + 2 t + e is the tile's q row 8 n + 2 t + e: P^T =
+      // 2^(S^T c - lse log2(e)), dS^T / scale = P^T (dP^T - di) of a
+      // piece's two entries (scale multiplies dk at the end)
+      const uint32_t rows = rows0 + s * kRowBytes;
+      take_turn(kh, j);
+      exchange<true>(sc, dp, xc, j & 1, rank, w, lane,
+                     [&](float4 x, int u) {
+        const uint32_t col = 4 * (8 * (u & 3) + 2 * t);
+        const float2 l2 = ld_shared2(rows + col);
+        const float2 d2 = ld_shared2(rows + 4 * BN + col);
+        const float p0 = exp2f(fmaf(x.x, c, -(l2.x * kLog2e)));
+        const float p1 = exp2f(fmaf(x.y, c, -(l2.y * kLog2e)));
+        return make_float4(p0, p1, p0 * (x.z - d2.x), p1 * (x.w - d2.y));
+      });
+      give_turn(kh, j, nq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar.sfree(s));  // the rows read too
+
+      // dv += P^T dO, then dk += dS^T Q, each through a partial
+      uint32_t big[BN / 8][4], small[BN / 8][4];
+      mbar_wait(bar.tready(p), (j / kTransSlots) & 1);
+      if (refill<SS>(bar, j, nq, w)) load(j + SS);
+      d64::terms(sc, big, small);
+      d64::accumulate<false>(acc_v, big, small, tp + 2 * kTPlane,
+                             tp + 3 * kTPlane);
+      d64::terms(dp, big, small);
+      d64::accumulate<false>(acc_k, big, small, tp, tp + kTPlane);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar.tfree(p));
+    }
+    cluster_arrive();
+
+    // consumer 1 hands dk and dv to consumer 0 through score slot 0
+    const uint32_t hand = s0;
+    named_sync(1, 256);
+    if (kh == 1) {
+      d64::hand_over(acc_k, hand);
+      d64::hand_over(acc_v, hand + 128 * (DC / 2) * 4);
+    }
+    named_sync(1, 256);
+    if (kh == 0) {
+      d64::take_over(acc_k, hand);
+      d64::take_over(acc_v, hand + 128 * (DC / 2) * 4);
+#pragma unroll
+      for (int i = 0; i < DC / 2; ++i) acc_k[i] *= scale;
+      d64::store_rows(dk + base, acc_k, r0, L, row);
+      d64::store_rows(dv + base, acc_v, r0, L, row);
+    }
+  }
+  cluster_wait();
+}
+
+std::atomic<bool> dq_prepared[kMaxDevices];
+std::atomic<bool> dkv_prepared[kMaxDevices];
+
+// A launch of `blocks` blocks in clusters of CL along x, `smem` bytes of
+// dynamic shared memory a block (attr: the cluster's, kept by the caller)
+cudaLaunchConfig_t cluster_config(dim3 blocks, int smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = blocks;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// `kernel` checked (launch_regs, once), given its shared memory (once a
+// device) and launched as clusters of CL blocks along d, one cluster a
+// 64-row kept tile of each b*h
+template <typename Kernel, typename... Args>
+cudaError_t launch_clusters(Kernel kernel, cudaError_t regs, int smem,
+                            std::atomic<bool>* prepared, int B, int L, int H,
+                            cudaStream_t stream, Args... args) {
+  if (regs != cudaSuccess) return regs;
+  cudaError_t err = prepare_on_device(kernel, smem, prepared);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(CL * ((L + BM - 1) / BM), B * H), smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// how many of `kernel`'s clusters the current device runs at once
+template <typename Kernel>
+cudaError_t max_clusters(Kernel kernel, int smem, std::atomic<bool>* prepared,
+                         int* n) {
+  const cudaError_t err = prepare_on_device(kernel, smem, prepared);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dim3(CL * 1024), smem, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+}
+
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      void* dq, float* di, int B, int L, int H, float scale,
+                      cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, dout, dq});
+  if (err != cudaSuccess) return err;
+  static const cudaError_t regs = launch_regs(flash_dq_d512, kLaunchRegs);
+  CUtensorMap tk, tv;
+  if (!tensor_map(&tk, k, false, B, L, H, D, 32, BN) ||
+      !tensor_map(&tv, v, false, B, L, H, D, 32, BN))
+    return cudaErrorInvalidValue;
+  return launch_clusters(flash_dq_d512, regs, kDqSmemBytes, dq_prepared, B,
+                         L, H, stream, tk, tv, static_cast<const float*>(q),
+                         static_cast<const float*>(o),
+                         static_cast<const float*>(dout), lse,
+                         static_cast<float*>(dq), di, L, H, scale);
+}
+
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di,
+                       void* dk, void* dv, int B, int L, int H, float scale,
+                       cudaStream_t stream) {
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, dout, dk, dv});
+  if (err != cudaSuccess) return err;
+  static const cudaError_t regs = launch_regs(flash_dkv_d512, kLaunchRegs);
+  CUtensorMap tq, tdo;
+  if (!tensor_map(&tq, q, false, B, L, H, D, 32, BN) ||
+      !tensor_map(&tdo, dout, false, B, L, H, D, 32, BN))
+    return cudaErrorInvalidValue;
+  return launch_clusters(flash_dkv_d512, regs, kDkvSmemBytes, dkv_prepared,
+                         B, L, H, stream, tq, tdo,
+                         static_cast<const float*>(k),
+                         static_cast<const float*>(v), lse, di,
+                         static_cast<float*>(dk), static_cast<float*>(dv), L,
+                         H, scale);
+}
+
+}  // namespace d512
+
 // bf16 at d = 16 on the bf16 tensor cores (header). 128 threads a block;
 // warp w owns rows 16 w.. of the block's 64-row kept tile (q rows in dq,
 // keys in dkv) and holds their two kept A fragments (all of d each) in
@@ -3464,12 +4002,9 @@ int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
       return (std::is_same_v<T, float> ? d64::launch_dq : d64_bf16::launch_dq)(
           q, k, v, o, dout, lse, dq, di, B, L, H, scale, st);
     case 512:
-      if constexpr (std::is_same_v<T, float>)
-        return d512::launch_dq<T>(q, k, v, o, dout, lse, dq, di, B, L, H,
-                                  scale, st);
-      else
-        return d512_bf16::launch_dq(q, k, v, o, dout, lse, dq, di, B, L, H,
-                                    scale, st);
+      return (std::is_same_v<T, float> ? d512::launch_dq
+                                       : d512_bf16::launch_dq)(
+          q, k, v, o, dout, lse, dq, di, B, L, H, scale, st);
     default:
       return -1;
   }
@@ -3493,12 +4028,9 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
                                        : d64_bf16::launch_dkv)(
           q, k, v, dout, lse, di, dk, dv, B, L, H, scale, st);
     case 512:
-      if constexpr (std::is_same_v<T, float>)
-        return d512::launch_dkv<T>(q, k, v, dout, lse, di, dk, dv, B, L, H,
-                                   scale, st);
-      else
-        return d512_bf16::launch_dkv(q, k, v, dout, lse, di, dk, dv, B, L, H,
-                                     scale, st);
+      return (std::is_same_v<T, float> ? d512::launch_dkv
+                                       : d512_bf16::launch_dkv)(
+          q, k, v, dout, lse, di, dk, dv, B, L, H, scale, st);
     default:
       return -1;
   }
@@ -3545,6 +4077,16 @@ int rdeic_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
 
 const char* rdeic_flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// How many clusters of the fp32 d = 512 dq and dkv kernels the current
+// device runs at once. Returns 0 or a cudaError_t.
+int rdeic_flash_bwd_d512_clusters(int* dq, int* dkv) {
+  const cudaError_t err = d512::max_clusters(
+      d512::flash_dq_d512, d512::kDqSmemBytes, d512::dq_prepared, dq);
+  if (err != cudaSuccess) return err;
+  return d512::max_clusters(d512::flash_dkv_d512, d512::kDkvSmemBytes,
+                            d512::dkv_prepared, dkv);
 }
 
 // The shared-memory carveout that the d = 16 bf16 dq and dkv kernels prefer

@@ -1,8 +1,8 @@
 // Hopper pieces of the d = 64 and d = 512 flash forward (flash_attn_fwd.cu:
 // flash_fwd_d64_bf16, flash_fwd_d64, flash_fwd_d512_bf16, flash_fwd_d512)
-// and of the d = 64 backward
+// and of the d = 64 and fp32 d = 512 backward
 // (flash_attn_bwd.cu: flash_dq_d64_bf16, flash_dkv_d64_bf16 and the fp32
-// flash_dq_d64, flash_dkv_d64): TMA tile
+// flash_dq_d64, flash_dkv_d64, flash_dq_d512, flash_dkv_d512): TMA tile
 // loads that complete on mbarriers, warpgroup matrix products
 // (wgmma.mma_async) and their shared-memory descriptors, setmaxnreg, the
 // cluster's barriers and shared-memory reads, and the host's tensor maps.
@@ -144,6 +144,26 @@ __device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v,
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
       "{%1, %2, %3, %4}, [%5];" ::"r"(addr),
       "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// an 8-byte st_async_v4
+__device__ __forceinline__ void st_async_v2(uint32_t addr, float2 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "r"(bar)
+      : "memory");
+}
+
+// a 4-byte st_async_v4
+__device__ __forceinline__ void st_async_f32(uint32_t addr, float v,
+                                             uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];" ::"r"(addr),
+      "f"(v), "r"(bar)
       : "memory");
 }
 

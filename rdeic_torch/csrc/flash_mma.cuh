@@ -1,5 +1,5 @@
-// Tensor-core pieces shared by the d = 512 and d = 64 flash-attention
-// kernels (flash_attn_fwd.cu, flash_attn_bwd.cu): TF32 `mma.sync` with fp32
+// Tensor-core pieces shared by the flash-attention kernels
+// (flash_attn_fwd.cu, flash_attn_bwd.cu): TF32 `mma.sync` with fp32
 // accumulators, the 3xTF32 split that keeps fp32 products fp32-accurate,
 // the swizzled shared-memory layout of the D-wide tiles, and their copies.
 //
@@ -111,7 +111,7 @@ __device__ __forceinline__ void ldmatrix_x4(float (&x)[4], uint32_t addr) {
 }
 
 // Fragment readers. Each fixes its lane's shared-memory addresses when it is
-// made, at the warp's (m0 or n0, k0) corner, so the k loop of warp_mma adds
+// made, at the warp's (m0 or n0, k0) corner, so a k loop adds
 // only constants. m0, n0 and k0 are multiples of 8, which keeps the swizzle
 // of a row (row & 4) a constant of the lane.
 
@@ -129,24 +129,6 @@ struct RowA {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
       ldmatrix_x4(x[mt], addr + (mt * 16 * S + k) * 4);
-  }
-};
-
-// A(m, k) = tile[k][m] (row stride S, not swizzled): four loads an m-tile.
-template <int S>
-struct ColA {
-  const float* p;
-  __device__ ColA(const float* tile, int m0, int k0) {
-    const int l = threadIdx.x & 31;
-    p = tile + (k0 + (l & 3)) * S + m0 + (l >> 2);
-  }
-  template <int MT>
-  __device__ __forceinline__ void load(float (&x)[MT][4], int k) const {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        x[mt][i] = p[(k + (i >> 1) * 4) * S + mt * 16 + (i & 1) * 8];
   }
 };
 
@@ -172,69 +154,6 @@ struct RowB {
     }
   }
 };
-
-// B(k, n) = tile[k][n] (a swizzled D-wide tile of row stride S): two loads
-// an n-tile.
-template <int S>
-struct ColB {
-  const float* p0;
-  const float* p1;
-  __device__ ColB(const float* tile, int n0, int k0) {
-    const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
-    p0 = tile + (k0 + t) * S + n0 + g;
-    p1 = tile + (k0 + t + 4) * S + n0 + (g ^ 4);
-  }
-  template <int NT>
-  __device__ __forceinline__ void load(float (&x)[NT][2], int k) const {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      x[nt][0] = p0[k * S + nt * 8];
-      x[nt][1] = p1[k * S + nt * 8];
-    }
-  }
-};
-
-// One warp: acc[mt][nt] += A[16 mt.., 0..8 KSTEPS) B[0..8 KSTEPS, 8 nt..)
-// from the readers' corners. SA / SB: split A / B (3xTF32 when both, two
-// passes when one, one when neither).
-template <int MT, int NT, int KSTEPS, bool SA, bool SB, typename RA,
-          typename RB>
-__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4],
-                                         const RA& a, const RB& b) {
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    float af[MT][4], bf[NT][2];
-    a.load(af, ks * 8);
-    b.load(bf, ks * 8);
-    uint32_t ab[MT][4], as[MT][4], bb[NT][2], bs[NT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split<SA>(af[mt][i], ab[mt][i], as[mt][i]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) split<SB>(bf[nt][i], bb[nt][i], bs[nt][i]);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        if (SA) mma_tf32(acc[mt][nt], as[mt], bb[nt]);
-        if (SB) mma_tf32(acc[mt][nt], ab[mt], bs[nt]);
-        mma_tf32(acc[mt][nt], ab[mt], bb[nt]);
-      }
-  }
-}
-
-// Store a C fragment of tile (m0, n0) to a float array of row stride S.
-template <int S>
-__device__ __forceinline__ void store_frag(float* dst, const float (&c)[4],
-                                           int m0, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float* p = dst + (m0 + g) * S + n0 + 2 * t;
-  *reinterpret_cast<float2*>(p) = make_float2(c[0], c[1]);
-  *reinterpret_cast<float2*>(p + 8 * S) = make_float2(c[2], c[3]);
-}
 
 // Two adjacent outputs in the storage type.
 template <typename T>

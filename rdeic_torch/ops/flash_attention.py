@@ -104,6 +104,8 @@ def _bwd_library() -> ctypes.CDLL:
     lib.rdeic_flash_bwd_d16_bf16_carveout.restype = i
     lib.rdeic_flash_bwd_d16_bf16_carveout.argtypes = [
         i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.rdeic_flash_bwd_d512_clusters.restype = i
+    lib.rdeic_flash_bwd_d512_clusters.argtypes = [ctypes.POINTER(i)] * 2
     return lib
 
 
@@ -116,6 +118,19 @@ def d16_bf16_carveout(index: int) -> tuple[int, int]:
     err = lib.rdeic_flash_bwd_d16_bf16_carveout(index, ctypes.byref(dq),
                                                 ctypes.byref(dkv))
     _raise_on(err, "rdeic_flash_bwd_d16_bf16_carveout", lib,
+              "rdeic_flash_bwd_error_string")
+    return dq.value, dkv.value
+
+
+def d512_clusters() -> tuple[int, int]:
+    """How many clusters of eight blocks `flash_dq_d512` and
+    `flash_dkv_d512` (the fp32 backward at d = 512) run at once on the
+    current CUDA device (cudaOccupancyMaxActiveClusters)."""
+    dq, dkv = ctypes.c_int(), ctypes.c_int()
+    lib = _bwd_library()
+    err = lib.rdeic_flash_bwd_d512_clusters(ctypes.byref(dq),
+                                            ctypes.byref(dkv))
+    _raise_on(err, "rdeic_flash_bwd_d512_clusters", lib,
               "rdeic_flash_bwd_error_string")
     return dq.value, dkv.value
 

@@ -1,6 +1,6 @@
-"""Time the flash backward at d = 16, 64 or 512 (bf16; fp32 at d = 64) on
-one card: this checkout's kernels, another checkout's, and variants of this
-one's, in one process.
+"""Time the flash backward at d = 16, 64 or 512 (bf16; fp32 at d = 64 and
+512) on one card: this checkout's kernels, another checkout's, and
+variants of this one's, in one process.
 
     python -m rdeic_torch.tools.flash_bwd_probe [--d 16|64|512]
         [--dtype bf16|fp32] [--other DIR [--bits]] [--variants [NAME ...]]
@@ -8,8 +8,8 @@ one's, in one process.
 Builds `csrc/flash_attn_bwd.cu` of this checkout ("change"), of the
 checkout at DIR ("other", e.g. the parent commit unpacked by `git
 archive`) and, with --variants, copies of this one whose kernels at the
-head dim and dtype (namespace `d16_bf16`, `d64_bf16`, `d512_bf16` or, fp32
-at d = 64, `d64`) are changed by the text substitutions in VARIANTS (all
+head dim and dtype (namespace `d16_bf16`, `d64_bf16`, `d512_bf16` or, in
+fp32, `d64` and `d512`) are changed by the text substitutions in VARIANTS (all
 of the namespace's, or those named; a substitution that no longer matches
 raises). Prints the card's name and power limit and each build's ptxas
 lines for those kernels (registers, spills, and any C7519: a
@@ -51,7 +51,8 @@ SHAPES = {16: [(2, 4096, 4, 16), (2, 1024, 8, 16), (1, 8192, 4, 16)],
           512: [(2, 4096, 1, 512), (1, 1024, 1, 512), (1, 8192, 1, 512)]}
 # (head dim, dtype): the namespace of its dq and dkv kernels
 NAMESPACES = {(16, "bf16"): "d16_bf16", (64, "bf16"): "d64_bf16",
-              (512, "bf16"): "d512_bf16", (64, "fp32"): "d64"}
+              (512, "bf16"): "d512_bf16", (64, "fp32"): "d64",
+              (512, "fp32"): "d512"}
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 # --bits: every dq / dkv kernel, at an L of no tile multiple with B = 2,
 # H > 1 (d = 512: H = 2); the probed head dim and dtype are left out
@@ -210,9 +211,55 @@ _D64_FP32_VARIANTS = {
     "no_ss": [("    mma_m64n32k8_ss_tf32(s, desc(as + ka), desc(bb + kb), kk);\n",
                "    mma_m64n32k8_rs_tf32(s, ab[kk], desc(bb + kb), kk);\n")],
 }
+_D512_FP32_VARIANTS = {
+    # no exchange: no st.async and no waits, each block's softmax and
+    # products on its own partial scores and stale slots (wrong values):
+    # what the cluster's exchange costs
+    "no_exchange": [
+        ("  if (lane == 0) {\n    mbar_expect_tx(x.got_parts, (CL - 1) * 512);\n"
+         "    mbar_expect_tx(x.got_sum, (CL - 1) * 32 * kSum);\n  }\n", ""),
+        ("      st_async_v4(mapa(x.parts + rank * kSlot + mine, to), v,\n"
+         "                  mapa(x.got_parts, to));\n", ""),
+        ("  mbar_wait_cluster(x.got_parts, parity);\n", ""),
+        ("  mbar_wait_cluster(x.got_sum, parity);\n", ""),
+        ("    if constexpr (GATHER4)\n      st_async_v4(at, out, mapa(x.got_sum, to));\n"
+         "    else\n      st_async_v2(at, make_float2(out.x, out.y), mapa(x.got_sum, to));\n",
+         "")],
+    # the splitters make no planes (the consumers read stale ones: wrong
+    # values): what the split costs
+    "no_split": [("      small_plane<SMALL>(st + kRawA, st + kSmallA, tid);\n"
+                  "      small_plane<SMALL>(st + kRawB, st + kSmallB, tid);\n", ""),
+                 ("      for (int x = 0; x < NTRANS; ++x)\n",
+                  "      for (int x = 0; x < 0; ++x)\n")],
+    # no products with P or dS (wrong values): what they cost
+    "no_products": [("      d64::accumulate<", "      if (0) d64::accumulate<")],
+    # no exponentials: P = S c - lse2 (wrong values)
+    "no_exp": [("exp2f(fmaf(", "(fmaf(")],
+    # dkv's partials as two 32-column halves of 16 registers, not one
+    # m64n64k8 product of 32
+    "dkv_narrow": [("d64::accumulate<false>(acc_v", "d64::accumulate<true>(acc_v"),
+                   ("d64::accumulate<false>(acc_k", "d64::accumulate<true>(acc_k")],
+    # dkv's consumers 232 registers, the producer 40
+    "dkv_regs232": [("kDkvProducerRegs = 56, kDkvConsumerRegs = 224;",
+                     "kDkvProducerRegs = 40, kDkvConsumerRegs = 232;")],
+    # the producer's four warps split as one on the small planes and three
+    # on the transposed ones, or three and one (landed: two and two)
+    "dkv_small1": [("kDqSmallWarps = 2, kDkvSmallWarps = 2;",
+                    "kDqSmallWarps = 2, kDkvSmallWarps = 1;")],
+    "dq_small1": [("kDqSmallWarps = 2, kDkvSmallWarps = 2;",
+                   "kDqSmallWarps = 1, kDkvSmallWarps = 2;")],
+    "dq_small3": [("kDqSmallWarps = 2, kDkvSmallWarps = 2;",
+                   "kDqSmallWarps = 3, kDkvSmallWarps = 2;")],
+    # score rings of two slots, or four in dq (landed: three)
+    "slots2": [("kDqScoreSlots = 3, kDkvScoreSlots = 3",
+                "kDqScoreSlots = 2, kDkvScoreSlots = 2")],
+    "dq_slots4": [("kDqScoreSlots = 3, kDkvScoreSlots = 3",
+                   "kDqScoreSlots = 4, kDkvScoreSlots = 3")],
+}
 # namespace: {name: [(old, new)] in that namespace}
 VARIANTS = {"d16_bf16": _D16_VARIANTS, "d64_bf16": _D64_VARIANTS,
-            "d512_bf16": _D512_VARIANTS, "d64": _D64_FP32_VARIANTS}
+            "d512_bf16": _D512_VARIANTS, "d64": _D64_FP32_VARIANTS,
+            "d512": _D512_FP32_VARIANTS}
 
 
 def variant_source(src: str, edits, namespace: str) -> str:
@@ -372,7 +419,7 @@ def main() -> None:
     ap.add_argument("--d", type=int, choices=sorted(SHAPES), default=16,
                     help="head dim")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
-                    help="the kernels' dtype (fp32 only at d = 64)")
+                    help="the kernels' dtype (fp32 at d = 64 and 512)")
     ap.add_argument("--other", type=Path, help="another checkout to time")
     ap.add_argument("--bits", action="store_true",
                     help="with --other: whether the kernels at BITS_CASES "

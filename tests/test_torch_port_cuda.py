@@ -118,6 +118,13 @@ D64_FP32_BWD_SHAPES = [(2, 4096, 5, 64), (2, 1024, 10, 64), (1, 1024, 5, 64),
                        (2, 1024, 5, 64), (1, 6144, 5, 64), (1, 1536, 10, 64),
                        (4, 1024, 10, 64), (2, 40, 3, 64), (1, 130, 2, 64),
                        (2, 1000, 3, 64), (1, 8192, 2, 64)]
+# the fp32 backward at d = 512 (flash_dq_d512, flash_dkv_d512: clusters of
+# eight blocks along d): the path shapes (the refine micro-step's and the
+# 256x256 refine reference's), L inside one 64-row tile, past two rows of a
+# 32-row tile, ragged with B = 2 and H = 2, and twice the longest path L
+D512_FP32_BWD_SHAPES = [(2, 4096, 1, 512), (1, 1024, 1, 512), (1, 10, 1, 512),
+                        (1, 130, 1, 512), (2, 1000, 2, 512), (2, 4097, 2, 512),
+                        (1, 8192, 1, 512)]
 # the bf16 backward at d = 16 (flash_dq_d16_bf16, flash_dkv_d16_bf16): every
 # d = 16 path shape (training's two, and serving's, whose L the lse forward
 # would give it), tails (an L inside one 64-row tile, one past the first
@@ -679,6 +686,75 @@ def test_flash_d64_fp32_backward_kernels(cuda, shape):
         assert _rel_err(got * FAULT_SCALE, want) > limit
     want_di = (do * o).sum(-1).transpose(1, 2).reshape(di.shape)
     assert _rel_err(di, want_di) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", D512_FP32_BWD_SHAPES)
+def test_flash_d512_fp32_backward_kernels(cuda, shape):
+    """flash_dq_d512 and flash_dkv_d512 (clusters of eight blocks along d,
+    TF32 wgmma, three passes a product, fed by TMA and splitting warps, the
+    partial scores exchanged by st.async, per-tile partials): one launch
+    each a call; dq, dk and dv within 1e-4 of max of the plain version
+    from the same o and lse, each reading a planted x1.05 fault beyond it;
+    di within 1e-5 of max of the plain sum; the same bits (dq, di, dk, dv)
+    on a second launch and on a launch from a fresh thread (the tensor
+    maps are encoded per call, after binding the device's context)."""
+    q, k, v, do = (_rand(shape, torch.float32, cuda, s) for s in range(4))
+    o, lse = flash_attention_lse(q, k, v)
+    before = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    dq, di = flash_attention_dq(q, k, v, o, lse, do)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches, flash_attention_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+
+    def run():
+        dq2, di2 = flash_attention_dq(q, k, v, o, lse, do)
+        return (dq2, di2, *flash_attention_dkv(q, k, v, do, lse, di2))
+
+    again = run()
+    assert all(torch.equal(a, b) for a, b in zip((dq, di, dk, dv), again))
+    got, errors = [], []
+
+    def body():
+        try:
+            got.append(run())
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 (reported below)
+            errors.append(exc)
+
+    thread = threading.Thread(target=body)
+    thread.start()
+    thread.join()
+    assert not errors, errors
+    assert all(torch.equal(a, b) for a, b in zip((dq, di, dk, dv), got[0]))
+    plain = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    limit = _limit(torch.float32)
+    for g, want in zip((dq, dk, dv), plain):
+        assert g.dtype == torch.float32
+        assert _rel_err(g, want) <= limit
+        assert _rel_err(g * FAULT_SCALE, want) > limit
+    want_di = (do * o).sum(-1).transpose(1, 2).reshape(di.shape)
+    assert _rel_err(di, want_di) <= 1e-5
+
+
+def test_flash_d512_fp32_backward_error_is_flat_in_l(cuda):
+    """Each 32-row tile's dq, dk and dv products sum from zero on wgmma and
+    join the running sums in fp32: against float64 on the same fp32
+    inputs, the largest error of dq, dk and dv over max at L = 8192 is at
+    most twice that at L = 1024 and below chip_smoke.py's BWD512_F64_TOL
+    (2e-5; the mma.sync design it replaced summed every tile into one
+    accumulator)."""
+    reads = {}
+    for seq in (1024, 8192):
+        shape = (1, seq, 1, 512)
+        q, k, v, do = (_rand(shape, torch.float32, cuda, s) for s in range(4))
+        o, lse = flash_attention_lse(q, k, v)
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        want = flash_attention_bwd_plain(
+            *(x.double() for x in (q, k, v, o)), lse.double(), do.double())
+        reads[seq] = max(_rel_err(g.double(), w) for g, w in zip(got, want))
+        del want
+    assert reads[8192] <= 2 * reads[1024] and reads[8192] < 2e-5, reads
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

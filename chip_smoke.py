@@ -13,13 +13,16 @@ and g++; no network. Phases, each fatal on failure:
    and spills of each CUDA kernel are logged by name, and a flash kernel
    (all run on the tensor cores; any entry whose mangled name holds
    `flash_`) or the GroupNorm backward that spills fails the run, and any
-   ptxas C7519 (a `warpgroup.arrive` it injected) is logged, and fails
-   the run in a Hopper kernel; the Hopper
-   kernels (HOPPER_KERNELS: the d = 64 and d = 512 forward,
-   flash_fwd_d64_bf16, flash_fwd_d64, flash_fwd_d512_bf16 and
-   flash_fwd_d512, and the d = 64 backward, flash_dq_d64_bf16 and
-   flash_dkv_d64_bf16 in bf16, flash_dq_d64 and flash_dkv_d64 in fp32)
-   must hold warpgroup products and TMA loads:
+   ptxas C75xx advisory (wgmma serialized: C7519 a `warpgroup.arrive` it
+   injected, C7512 too few registers, C7513 registers of a wgmma written
+   while it runs) is logged, and fails the run in a Hopper kernel; the
+   Hopper kernels (HOPPER_KERNELS: the forward at every head dim,
+   flash_fwd_d16_bf16, flash_fwd_d16, flash_fwd_d64_bf16, flash_fwd_d64,
+   flash_fwd_d512_bf16 and flash_fwd_d512, the d = 64 backward,
+   flash_dq_d64_bf16 and flash_dkv_d64_bf16 in bf16, flash_dq_d64 and
+   flash_dkv_d64 in fp32, and the fp32 d = 512 backward) must hold
+   warpgroup products and TMA loads (flash_fwd_d16: cp.async.bulk,
+   UBLKCP):
    `cuobjdump -sass` of each built library counts each one's HGMMA and
    UTMALDG instructions, and a count of 0 fails the run; `[wgmma]` logs
    how the card's wgmma rounds (`rdeic_torch.tools.wgmma_probe`);
@@ -191,11 +194,14 @@ and g++; no network. Phases, each fatal on failure:
    flash_fwd_d512_bf16, the bf16 backward at d = 16 flash_dq_d16_bf16 and
    flash_dkv_d16_bf16, at d = 64 flash_dq_d64_bf16 and flash_dkv_d64_bf16,
    at d = 512 flash_dq_d512_bf16 and flash_dkv_d512_bf16; the fp32
-   forward at d = 64 and 512 flash_fwd_d64 and flash_fwd_d512, and the
+   forward flash_fwd_d16 (after flash_fwd_d16_split), flash_fwd_d64 and
+   flash_fwd_d512, and the
    fp32 backward at d = 64 flash_dq_d64 and flash_dkv_d64 and at d = 512
    flash_dq_d512 and flash_dkv_d512, on TF32 wgmma),
    and a log line gives each bf16 row's times beside
-   SDPA's bf16 call; another gives each training shape's dq and dkv times
+   SDPA's bf16 call, another each d = 16 forward row's (both dtypes, with
+   and without lse: ms, device_ms, host µs, bound, exponentials' floor and
+   SDPA's); another gives each training shape's dq and dkv times
    (ms and device_ms), their own bounds, the pair's and the pair's
    exponentials' floor beside SDPA's backward. Each
    flash row also has `softmax_bound_ms`, the floor its B H L^2
@@ -208,9 +214,9 @@ and g++; no network. Phases, each fatal on failure:
    and 8192: how each design's error moves with L; at d = 64 and 512
    (per-tile partials on wgmma) L = 8192 must read below BWD64_F64_TOL and
    BWD512_F64_TOL of max and within twice L = 1024; another the fp32
-   forward's at d = 512, L = 1024 and 8192 (flash_fwd_d512: per-tile
-   partials), which must read below FWD512_F64_TOL and at L = 8192 within
-   twice L = 1024;
+   forward's at d = 512 and d = 16, L = 1024 and 8192 (flash_fwd_d512 and
+   flash_fwd_d16: per-tile partials), which must read below FWD512_F64_TOL
+   and FWD16_F64_TOL and at L = 8192 within twice L = 1024;
 14. validation (tagged `[validate]`, the root train.py's `run_validation`
    and `ImageLogger` as the training CLI calls them, on in-memory batches
    of configs/dataset/lic_valid.yaml's 1 x 512x512): (a) after phase 8
@@ -636,24 +642,26 @@ TF32_FLOPS = 494.7e12
 TC_HEAD_DIMS = {"forward": (16, 64, 512), "backward": (16, 64, 512)}
 # Head dims whose bf16 forward has kernels of its own on the bf16 tensor
 # cores (flash_fwd_d16_bf16, flash_fwd_d64_bf16, flash_fwd_d512_bf16: bf16
-# mma.sync m16n8k16, at d = 64 and 512 wgmma), and whose bf16 backward has
+# wgmma), and whose bf16 backward has
 # (flash_dq_d16_bf16, flash_dkv_d16_bf16, flash_dq_d64_bf16,
 # flash_dkv_d64_bf16, flash_dq_d512_bf16, flash_dkv_d512_bf16: likewise):
 # every head dim of the paths
 BF16_FWD_HEAD_DIMS = (16, 64, 512)
 BF16_BWD_HEAD_DIMS = (16, 64, 512)
 # Head dims whose forward kernels, fp32 and bf16, run on wgmma with TMA
-# loads (flash_fwd_d64, flash_fwd_d64_bf16, flash_fwd_d512,
-# flash_fwd_d512_bf16)
-HOPPER_FWD_HEAD_DIMS = (64, 512)
+# loads (flash_fwd_d16, flash_fwd_d16_bf16, flash_fwd_d64,
+# flash_fwd_d64_bf16, flash_fwd_d512, flash_fwd_d512_bf16): every one
+HOPPER_FWD_HEAD_DIMS = (16, 64, 512)
 # Head dims whose fp32 backward kernels run on TF32 wgmma with TMA loads
 # (flash_dq_d64, flash_dkv_d64; flash_dq_d512, flash_dkv_d512)
 HOPPER_BWD_FP32_HEAD_DIMS = (64, 512)
-# Each library's kernels on wgmma with TMA loads (the d = 64 and d = 512
-# forward, the d = 64 backward in both dtypes and the fp32 d = 512
-# backward): phase 2 counts their HGMMA and UTMALDG instructions, and a
-# ptxas C7519 in one of them fails the run
-HOPPER_KERNELS = {"flash_attn_fwd": ("flash_fwd_d64", "flash_fwd_d64_bf16",
+# Each library's kernels on wgmma with TMA loads (the forward at every head
+# dim, the d = 64 backward in both dtypes and the fp32 d = 512 backward):
+# phase 2 counts their HGMMA and TMA loads (UTMALDG; flash_fwd_d16 copies
+# its operand images by cp.async.bulk, UBLKCP), and a ptxas C75xx advisory
+# (wgmma serialized) in one of them fails the run
+HOPPER_KERNELS = {"flash_attn_fwd": ("flash_fwd_d16", "flash_fwd_d16_bf16",
+                                     "flash_fwd_d64", "flash_fwd_d64_bf16",
                                      "flash_fwd_d512", "flash_fwd_d512_bf16"),
                   "flash_attn_bwd": ("flash_dq_d64_bf16",
                                      "flash_dkv_d64_bf16", "flash_dq_d64",
@@ -675,6 +683,13 @@ BWD512_F64_TOL = 2e-5
 # L = 1024 and 1.7e-7 at 4096 on 64 rows of normal draws (one accumulator a
 # consumer: 1.1e-6 and 1.8e-6); the limit is five times the first
 FWD512_F64_TOL = 4e-6
+# The fp32 d = 16 forward's error against float64 (max |o - o64|, phase
+# 13): per-tile P V partials keep it flat in L. The CPU emulation of
+# flash_fwd_d16 (tests/test_torch_port_flash_d16.py) reads 4.7e-7 and
+# 6.9e-7 at [1, 1024, 4, 16] (two draws), 2.4e-7 at L = 512 and 7.2e-8 at
+# 4096 on 64 rows (one accumulator a consumer: 3.5e-7 and 1.0e-6); the
+# limit is about six times the first
+FWD16_F64_TOL = 4e-6
 # The exponentials' floor of a flash call (`softmax_bound_ms`): B H L^2 of
 # them on the MUFU units, 16 a clock per SM (sm_90), at the boost clock
 MUFU_EX2_PER_CLOCK = 16
@@ -793,7 +808,7 @@ def phase_build():
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] nvcc + g++ in parallel: {time.perf_counter() - t0:.1f} s")
-    spills, c7519 = [], []
+    spills, serialized = [], []
     for lib in ("flash_attn_fwd", "flash_attn_bwd", "group_norm_fwd",
                 "group_norm_bwd", "device_rans"):
         kernel = mangled = "?"
@@ -803,7 +818,7 @@ def phase_build():
                 mangled = kernel = entry[1]
                 m = re.search(r"\d(flash_(?:fwd|dq|dkv)_d(?:16|64|512)(?:_bf16)?"
                               r"|gn_[fb]wd)(?:I(f|13__nv_bfloat16)"
-                              r"((?:L[ib]\d+E)*))?", mangled)
+                              r"((?:L[ib]\d+E)*))?(?![_a-z])", mangled)
                 if m and m[2]:  # a template: its type and ints
                     ints = re.findall(r"L[ib](\d+)E", m[3])
                     what, n = {"fwd": ("vec", 1), "bwd": ("vec", 1)}.get(
@@ -817,10 +832,10 @@ def phase_build():
                                  r"|encode_lanes))E", mangled)
                 if rans:
                     kernel = rans[1]
-            elif "C7519" in line:  # ptxas injected a warpgroup.arrive
+            elif re.search(r"\(C75\d\d\)", line):  # wgmma serialized
                 log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
                 if kernel in HOPPER_KERNELS.get(lib, ()):
-                    c7519.append(kernel)
+                    serialized.append(kernel)
             elif "registers" in line or "spill" in line:
                 log(f"[build] {lib} ptxas {kernel}: {line.strip()}")
                 # every flash kernel and the GroupNorm backward, found in
@@ -831,18 +846,19 @@ def phase_build():
     if spills:
         raise AssertionError(f"flash kernels or the GroupNorm backward "
                              f"spill: {spills}")
-    if c7519:
-        raise AssertionError(f"ptxas injected a warpgroup.arrive (C7519) "
-                             f"in {c7519}")
+    if serialized:
+        raise AssertionError(f"ptxas serialized the wgmma of {serialized} "
+                             f"(C75xx)")
     for lib, names in HOPPER_KERNELS.items():
         counts = sass_counts(libs[lib])
         for name in names:
             hgmma, utmaldg = counts.get(name, (0, 0))
             log(f"[build] {lib} SASS {name}: {hgmma} HGMMA, {utmaldg} "
-                "UTMALDG")
+                "UTMALDG or UBLKCP")
             if not (hgmma and utmaldg):
                 raise AssertionError(f"{name} runs no wgmma or no TMA load: "
-                                     f"{hgmma} HGMMA, {utmaldg} UTMALDG")
+                                     f"{hgmma} HGMMA, {utmaldg} UTMALDG or "
+                                     "UBLKCP")
     dq_at_once, dkv_at_once = d512_clusters()
     log(f"[build] flash_attn_bwd clusters of eight at once (the fp32 d = 512 "
         f"backward's rounds): flash_dq_d512 {dq_at_once}, flash_dkv_d512 "
@@ -851,8 +867,9 @@ def phase_build():
 
 
 def sass_counts(lib: Path) -> dict:
-    """{kernel: (HGMMA, UTMALDG)}: the warpgroup-product and TMA-load
-    instructions of each flash kernel in `cuobjdump -sass` of a library."""
+    """{kernel: (HGMMA, UTMALDG + UBLKCP)}: the warpgroup-product and TMA-load
+    (tensor or bulk) instructions of each flash kernel in `cuobjdump -sass`
+    of a library."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -867,7 +884,7 @@ def sass_counts(lib: Path) -> dict:
                 counts.setdefault(name, [0, 0])
         elif name:
             counts[name][0] += "HGMMA" in line
-            counts[name][1] += "UTMALDG" in line
+            counts[name][1] += "UTMALDG" in line or "UBLKCP" in line
     return {k: tuple(v) for k, v in counts.items()}
 
 
@@ -2780,10 +2797,12 @@ def softmax_bound_ms(b: int, h: int, seq: int) -> float:
 
 
 def flash_fwd_kernel(d: int, dtype) -> str:
-    """The CUDA kernel behind a flash forward call (csrc/flash_attn_fwd.cu;
-    the fp32 d = 64 kernel is no template)."""
+    """The CUDA kernels behind a flash forward call (csrc/flash_attn_fwd.cu;
+    the fp32 d = 16 call launches the split kernel, then the forward)."""
     if dtype == torch.bfloat16 and d in BF16_FWD_HEAD_DIMS:
         return f"flash_fwd_d{d}_bf16"
+    if d == 16:
+        return "flash_fwd_d16_split + flash_fwd_d16"
     if d in HOPPER_FWD_HEAD_DIMS:
         return f"flash_fwd_d{d}"
     return f"flash_fwd_d{d}<{'fp32' if dtype == torch.float32 else 'bf16'}>"
@@ -2998,11 +3017,13 @@ def check_flash_train(device, shape, dtype, reps) -> dict:
                                           name != "flash_attn_fwd_lse")
         kernel = (flash_fwd_kernel(d, dtype) if name == "flash_attn_fwd_lse"
                   else flash_bwd_kernel(name.rsplit("_", 1)[-1], d, dtype))
+        dev, host = device_ms(fn, reps)
         rows_out[name] = {**r, "bound_ms": bound, "bound_by": by,
                           "bound_rate": rate,
                           "softmax_bound_ms": softmax_bound_ms(b, h, seq),
                           "kernel": kernel,
-                          "ms": cuda_ms(fn, reps), "device_ms": device_ms(fn, reps)[0],
+                          "ms": cuda_ms(fn, reps), "device_ms": dev,
+                          "host_us": host * 1e3,
                           "plain_ms": plain, "library_ms": library,
                           "library_device_ms": library_dev}
         if name != "flash_attn_fwd_lse":
@@ -3324,17 +3345,18 @@ def phase_kernels(device, runs) -> list:
             raise AssertionError(
                 f"the fp32 d = {d} backward's error grows with L or passes "
                 f"{tol} of max at L = 8192: {reads}")
-    reads = {seq: fwd_error_vs_float64(device, (1, seq, 1, 512))
-             for seq in (1024, 8192)}
-    log(f"[kernels] flash forward fp32 error against float64 at d = 512 "
-        f"({flash_fwd_kernel(512, torch.float32)}), max |o - o64|: "
-        + "; ".join(f"L = {seq}: {x:.3g}" for seq, x in reads.items())
-        + f" (limit {FWD512_F64_TOL}, and L = 8192 within twice L = 1024)")
-    if not (reads[8192] < FWD512_F64_TOL and reads[1024] < FWD512_F64_TOL
-            and reads[8192] <= 2 * reads[1024]):
-        raise AssertionError(
-            f"the fp32 d = 512 forward's error grows with L or passes "
-            f"{FWD512_F64_TOL} against float64: {reads}")
+    for d, h, tol in ((512, 1, FWD512_F64_TOL), (16, 4, FWD16_F64_TOL)):
+        reads = {seq: fwd_error_vs_float64(device, (1, seq, h, d))
+                 for seq in (1024, 8192)}
+        log(f"[kernels] flash forward fp32 error against float64 at d = {d} "
+            f"({flash_fwd_kernel(d, torch.float32)}, H = {h}), max |o - o64|: "
+            + "; ".join(f"L = {seq}: {x:.3g}" for seq, x in reads.items())
+            + f" (limit {tol}, and L = 8192 within twice L = 1024)")
+        if not (reads[8192] < tol and reads[1024] < tol
+                and reads[8192] <= 2 * reads[1024]):
+            raise AssertionError(
+                f"the fp32 d = {d} forward's error grows with L or passes "
+                f"{tol} against float64: {reads}")
     for path, per_what in fwd_paths.items():
         per = {key: sum(r[key] * r["calls"].get(path, 0) for r in gn_rows)
                for key in ("ms", "device_ms", "host_us", "library_ms",
@@ -3376,6 +3398,20 @@ def phase_kernels(device, runs) -> list:
             log(f"[kernels] flash forward per {per_what} at d = {d}, {path} "
                 f"({sum(r['calls'][path] for r in rows):g} calls): "
                 + ", ".join(f"{k} {v:.3f}" for k, v in per.items()))
+    for name, rows in (("flash_attn_fwd", flash_rows),
+                       ("flash_attn_fwd_lse", train_rows["flash_attn_fwd_lse"])):
+        for r in rows:
+            if r["shape"][3] == 16:
+                log(f"[kernels] flash forward d = 16 per call, {name} "
+                    f"{r['shape']} ({r['kernel']}; calls "
+                    f"{json.dumps(r['calls'])}): {r['ms']:.4f} ms, device "
+                    f"{r['device_ms']:.4f}, host {r['host_us']:.1f} us; bound "
+                    f"{r['bound_ms']:.4f} ({r['bound_by']}), exponentials' "
+                    f"floor {r['softmax_bound_ms']:.4f}; SDPA "
+                    f"{r['library_ms']:.4f} (device "
+                    f"{r['library_device_ms']:.4f}); max|diff| "
+                    f"{r.get('flash_tol', r)['max_abs_err']:.3g} of limit "
+                    f"{r.get('flash_tol', r)['tol']:.3g}")
     for r in flash_rows:
         if r["shape"][4] == "bfloat16":
             log(f"[kernels] flash bf16 forward per call {r['shape'][:4]} "

@@ -543,7 +543,7 @@ __device__ __forceinline__ void scores(float (&s)[NC][4],
                                        const float* plane) {
   using namespace rdeic_flash;
   zero(s);
-  const RowB<S, false> rb(plane, 0, 0);
+  const RowB<S> rb(plane, 0, 0);
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
     float bb[NC][2], bs[NC][2];

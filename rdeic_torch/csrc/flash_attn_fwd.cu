@@ -18,39 +18,60 @@
 // itself (the TPU kernel's sequential k grid axis becomes this loop).
 //
 // fp32 runs the kernels below at every head dim. bf16 runs kernels of its
-// own on the bf16 tensor cores at every head dim (flash_fwd_d16_bf16,
-// flash_fwd_d64_bf16, flash_fwd_d512_bf16; "bf16", further below).
+// own at every head dim (flash_fwd_d16_bf16, flash_fwd_d64_bf16,
+// flash_fwd_d512_bf16; "bf16", further below). Every one is a Hopper kernel
+// built from flash_hopper.cuh: TMA tiles on mbarriers, warpgroup products.
 //
 // d = 16 (the control branch's attention: [1, 6144, 4, 16] and
 // [1, 1536, 8, 16] per denoiser call at 768x512, [2, 4096, 4, 16] and
-// [2, 1024, 8, 16] with lse in training) runs flash_fwd_d16 on the tensor
-// cores, with mma.sync and the 3xTF32 split of flash_mma.cuh:
-// - 64-row q tiles of 4 warps, 16 q rows a warp, scores, running max and
-//   sum and the 16 x 16 output in registers, row reductions as quad
-//   shuffles, Q split once into big and small A fragments (2 k-steps x 4
-//   registers x 2). A second set of 4 warps takes the other half of every
-//   128-key tile for the same rows (8 warps a block), and the two halves
-//   merge their (max, sum, output) through shared memory at the end: the
-//   short serving shape [1, 1536, 8, 16] has only 192 tiles of 64 rows for
-//   132 SMs, and the halves double the warps in flight at every shape.
-// - K and V: 128-key tiles (64 bytes a row in fp32) double-buffered by
-//   cp.async, zero-filled past L, row stride 20 floats: the ldmatrix
-//   phases of Q and K and V's row-pair reads (rows 2t, 2t + 1) all hit 32
-//   banks without a swizzle.
-// - P as A: a permuted k order (k-slot t is key 2t, slot t + 4 key
-//   2t + 1), so S's C fragment is P V's A fragment without a shuffle.
-// - At d = 16 the softmax is no longer small beside the products: per 16
-//   rows x 8 keys a warp issues 12 mma (6 for S, 6 for P V)
-//   against 128 exponentials and ~14 fp32-pipe operations a score (max,
-//   exponential, sum, the splits of K, V and P). So log2(e) is folded into
-//   the scale and the exponential is one exp2f of one fmaf (max(s) * c is
-//   the row max of the scaled scores, c > 0), and lse is m ln 2 + ln l.
-// - mma.sync rounds the sum it returns toward zero: each tile's P V sums
-//   from zero into a partial that joins the rescaled accumulator in fp32,
-//   so the error does not grow with L.
-// - Grid (q tiles, b*h), two blocks of 45 KB and 256 threads per SM:
-//   [1, 1536, 8, 16] gives 192 blocks for 264 slots (one wave),
-//   [1, 6144, 4, 16] 384.
+// [2, 1024, 8, 16] with lse in training) runs flash_fwd_d16 (fp32,
+// 3xTF32) and flash_fwd_d16_bf16, with the pieces of the d = 64 design
+// below. What bounds them: at d = 16 the products, the exponentials and the
+// softmax's fp32 work lie close together ([1, 6144, 4, 16]: 3xTF32
+// products 0.059 ms, the B H L^2 exponentials on the MUFU 0.036, the fp32
+// pipe's fmaf, max, sum and P's split ~0.03; bf16 products 0.010), so how
+// well they overlap decides the time. The mma.sync kernels these replace
+// reached 26% of the fp32 bound and 48% of the bf16 exponentials' floor,
+// with the softmax in the same warps between the products. What is new at
+// d = 16:
+// - Rows narrower than 128 bytes: a head's row is 64 bytes in fp32 and 32
+//   in bf16. bf16 K and V tiles are TMA boxes of one head's rows in the
+//   32-byte swizzle, which wgmma reads as layout type 3; the fp32 tiles are
+//   in the 64-byte swizzle, layout type 2 (flash_hopper.cuh `desc_rows`). A
+//   box of all heads' rows would load the other heads' bytes for nothing.
+// - Q from registers: its fragment is 4 (bf16) or 16 (fp32, both terms)
+//   registers a thread, loaded once from device memory: no Q tile, map or
+//   descriptor.
+// - P V is N = 16 wide: m64n16k8 (fp32) and m64n16k16 (bf16) run at about
+//   half the tensor cores' rate (probes: the fp32 kernel without P V reads
+//   0.089 ms of its 0.152 at [1, 6144, 4, 16]).
+// fp32, flash_fwd_d16, two kernels. TF32 wgmma reads only K-major operands
+// (and truncates), so S needs K's big and small terms and P V needs V^T's,
+// in P's permuted key order (as flash_fwd_d64). Made by the block itself
+// (a splitting producer warpgroup, the d = 64 design) they cost a quarter of
+// the time at d = 16 (probes: 0.213 ms against 0.162 at [1, 6144, 4, 16]):
+// every q tile's block split every key tile again. So flash_fwd_d16_split
+// writes them once a call into scratch (every (b, h, 64-key tile)'s 16 KB
+// image: K big (rounded to TF32 to nearest) and small in the 64-byte
+// swizzle, V^T big and small in the 128-byte swizzle, keys past L zero;
+// B H L x 256 bytes, 6 MB at [1, 6144, 4, 16]), and flash_fwd_d16 copies a
+// tile's image into its ring in one bulk copy (cp.async.bulk, no tensor
+// map). One block a 64-row q tile: a producer warpgroup (one thread issues
+// the copies into eight stages; setmaxnreg gives the consumers its
+// registers: 24 against 112) and four consumer warpgroups taking the key
+// tiles j % 4, each with its own softmax state and O, merging at the end
+// in consumer order. Per tile a consumer takes S = Q K^T (two 8-deep steps
+// of three m64n64k8 wgmma, small * big, big * small, big * big, Q's terms
+// from registers), the softmax, then P V (eight 8-key steps of three
+// m64n16k8, P's terms from registers, in two groups of four steps, so only
+// one group's terms are live) from zero into a partial that joins O by one
+// fma (wgmma rounds toward zero: the error stays flat in L). The four
+// consumers' chains interleave on the SM (probes at [1, 6144, 4, 16]: three
+// consumers with all of P's terms live 0.146 ms against 0.141; two 0.175,
+// or 0.160 with each softmax overlapped with its own P V, as
+// flash_fwd_d64_bf16; five spill at 88 registers; P V in groups of two
+// steps 0.142). 129 KB of shared memory, one block an SM: [1, 6144, 4, 16]
+// gives 384 blocks (2.9 rounds on 132 SMs).
 //
 // d = 64 (the UNet's attention: [1, 6144, 5, 64] and [1, 1536, 10, 64] per
 // denoiser call at 768x512, [2, 4096, 5, 64] and [2, 1024, 10, 64] with lse
@@ -201,50 +222,46 @@
 // bf16 (the `--bf16` serving path: [1, 6144, 5, 64] and [1, 1536, 10, 64]
 // ten times an image each, [1, 6144, 4, 16] and [1, 1536, 8, 16] four times
 // each, [1, 6144, 1, 512] twice; with lse where training calls them) runs
-// flash_fwd_d16_bf16, built from the pieces of flash_bf16.cuh, and
-// flash_fwd_d64_bf16 and flash_fwd_d512_bf16 (the Hopper designs above;
-// the points on P and the softmax below hold for them too):
-// - Tiles stay bf16 in shared memory, half the bytes of the fp32 tiles the
-//   template widened them to, in a swizzled layout (chunk c of a row at
-//   c ^ (row & 7); at d = 16, whose rows hold 2 chunks, c ^ ((row >> 2) & 1))
-//   that puts every copy and every ldmatrix phase, with and without .trans,
-//   on 32 banks. cp.async.cg copies 16 bytes (8 values) a
-//   lane, zero-filled past L, so the next tiles are in flight while the
-//   current ones are used.
-// - Products: mma.sync m16n8k16 with bf16 operands and fp32 accumulators,
-//   twice the depth and rate of TF32 m16n8k8. A and K's B fragments come by
-//   ldmatrix.x4, V's by ldmatrix.x4.trans. bf16 products are exact in fp32,
-//   so S = Q K^T takes one pass.
-// - P as A: the C fragments of two adjacent 8-key tiles, rounded to bf16
-//   and packed pairwise, are P V's A fragment as they stand.
+// flash_fwd_d16_bf16, flash_fwd_d64_bf16 and flash_fwd_d512_bf16 (the
+// Hopper designs above and below); what they share:
+// - Tiles stay bf16 in shared memory as TMA loads them; bf16 products are
+//   exact in fp32, so S = Q K^T takes one pass.
+// - P as A: the accumulator fragments of two adjacent 8-key n-tiles,
+//   rounded to bf16 and packed pairwise, are P V's A fragment as they stand.
 // - P's precision: one bf16 term. The rule: one term only if it reads at
 //   most half the card's limit (two bf16 ulps of max|plain|, so one ulp)
 //   at every path shape and at L = 1000 and 8192; otherwise two (hi =
-//   bf16(P), lo = bf16(P - hi)). The CPU emulation of these kernels
-//   (tests/test_torch_port_flash_bf16.py) reads one term at 0.5-1.0 ulp
-//   after the bf16 store (0.2-0.3 ulp before it) and two terms at 0.25-0.5;
-//   the card reads one term at 0.5-1.0 ulp at every path and check shape
-//   (chip_smoke.py phase 9, NVIDIA H100 80GB HBM3 at 700 W).
+//   bf16(P), lo = bf16(P - hi)). The CPU emulations of these kernels
+//   (tests/test_torch_port_flash_bf16.py, test_torch_port_flash_d16_bf16.py,
+//   test_torch_port_flash_fwd_d512.py, each in its kernel's order under
+//   wgmma's rounding) read one term at 0.5-1.0 ulp after the bf16 store and
+//   two terms at 0.25-0.5; the card reads one term at 0.5-1.0 ulp at every
+//   path and check shape (chip_smoke.py phase 9, NVIDIA H100 80GB HBM3 at
+//   700 W).
 // - The softmax runs in log2 units, one fmaf and one ex2.approx.ftz a score
 //   (subnormal p flush to 0), and lse = m ln 2 + ln l.
-// - mma.sync and wgmma round their sums toward zero (wgmma also cuts each
-//   term two bits below the largest one's ulp: tools/wgmma_probe.py). With
-//   P in one bf16 term, P's own rounding outweighs that ~100 times
-//   (emulation), so P V sums into one accumulator over the whole L,
-//   without the per-tile partials of the fp32 kernels at d = 16 and 64
-//   (the emulation reads the same at d = 16).
-// d = 16: 64-row q tiles of 4 warps, 16 q rows a warp (one A fragment holds
-// all of d, loaded once), 128-key tiles in a ring of three K / V buffers
-// (one barrier a tile), 26 KB of static shared memory, four blocks per SM:
-// [1, 6144, 4, 16] gives 384 blocks and [1, 1536, 8, 16] 192, one wave
-// each, so the fp32 kernel's key halves are not needed (with them, twice
-// the warps in flight, a probe ran no faster). Per 16 rows x 16 keys a
-// warp issues 4 mma (2 for S, 2 for P V) and 2 ldmatrix against 256
-// exponentials, so the MUFU (16 ex2 a clock per SM) sets the floor:
-// B H L^2 / (16 x 132 SMs x 1.98 GHz), 0.036 ms at [1, 6144, 4, 16], ~4x
-// the tensor-core bound. The kernel reaches about half of that floor
-// (PERF.md §6); moving part of the exponentials to the FMA pipe as a
-// polynomial was slower in probes, so the MUFU is not the limit alone.
+// - wgmma rounds its sums toward zero and cuts each term two bits below the
+//   largest one's ulp (tools/wgmma_probe.py). With P in one bf16 term, P's
+//   own rounding outweighs that ~100 times (emulation), so P V sums into
+//   one accumulator over the whole L, without the per-tile partials of the
+//   fp32 kernels.
+// d = 16 (flash_fwd_d16_bf16): one block a 64-row q tile, a consumer
+// warpgroup and a producer warp (one thread issues the TMA loads of 64-key
+// K and V tiles into a ring of eight stages), 32 KB of static shared
+// memory (a launch is the two tensor maps and the launch), three blocks an
+// SM: [1, 6144, 4, 16] gives 384 blocks for 396 slots. Per tile the
+// consumer issues S = Q K^T (one m64n64k16 wgmma, Q from registers, K
+// K-major in the 32-byte swizzle) and P V of the previous tile (four
+// m64n16k16, P from registers, V MN-major in the 32-byte swizzle, one atom
+// wide) together, and runs the softmax while P V is on the tensor cores,
+// as flash_fwd_d64_bf16 below. The MUFU (16 ex2 a clock per SM) sets the
+// floor: B H L^2 / (16 x 132 SMs x 1.98 GHz), 0.036 ms at [1, 6144, 4, 16],
+// ~4x the tensor-core bound; the kernel holds the SM at ~55% of it
+// whichever way it is cut (probes, PERF.md §6: three or four blocks an SM,
+// a larger carveout; two S buffers, which ptxas serializes, C7513), and
+// without the exponentials reads 0.82 of its time. 128-key tiles at two
+// blocks an SM are 6-12% faster at most path shapes, but not at
+// [1, 6144, 4, 16] (two rounds of 264 slots for 384 blocks).
 // d = 64 (flash_fwd_d64_bf16, the Hopper design above): Q and each K / V
 // tile come by TMA into a ring of four 128-key stages (K and V of a stage
 // on mbarriers of their own, so S starts before V lands); S = Q K^T is a
@@ -264,10 +281,7 @@
 // which spill at the registers two blocks leave a thread, 1.7x slower; a
 // setmaxnreg split at two blocks an SM hung, as ptxas launched it with
 // fewer registers than the producer had to give back.
-// d = 512 (flash_fwd_d512_bf16, the Hopper design above). What holds the
-// mma.sync kernel (d = 16) back now: mma.sync and ldmatrix issue and the
-// softmax's fp32 and MUFU work in the same warps between them; the d = 64
-// design above is the route for it.
+// d = 512 (flash_fwd_d512_bf16, the Hopper design above).
 //
 // Bound on the H100: 4*L^2*D*H*B flops (S and P V) and 4*B*L*H*D elements
 // of traffic. fp32 runs 3xTF32 on the tensor cores at every head dim, three
@@ -1081,350 +1095,232 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace d64
 
-// d = 16 on the tensor cores (header). One block: (64-row q tile
-// blockIdx.x, b*h blockIdx.y), 8 warps: warp w takes q rows 16 (w & 3).. of
-// the tile and keys 64 (w >> 2).. of every 128-key tile.
+// fp32 at d = 16 on TF32 wgmma, each product as three passes (header). Two
+// kernels: flash_fwd_d16_split writes, once per call, each 64-key tile's
+// operands as the image the main kernel's shared memory holds (K big and
+// small, V^T big and small); flash_fwd_d16, one block a (64-row q tile
+// blockIdx.x, b*h blockIdx.y), copies a tile's image in one bulk copy (one
+// thread of a producer warpgroup) and runs NC consumer warpgroups on it:
+// consumer kh takes the key tiles j with j % NC = kh, each with its own
+// softmax state and O; they merge at the end.
 namespace d16 {
 
-constexpr int D = 16, BQ = 64, BK = 128, HK = BK / 2, NT = 256;
-constexpr int S = D + 4;  // Q, K and V tiles: 20 mod 32 banks (header)
-constexpr int kSmemFloats = BQ * S + 2 * 2 * BK * S;
-constexpr int kMergeFloats = 4 * 32 * 12;  // a lane's state of key half 1
-static_assert(kMergeFloats <= 2 * BK * S, "the merge reuses the K tiles");
-static_assert(2 * kSmemFloats * 4 <= 232448, "two blocks per SM");
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace rdeic_flash::hopper;
+// NC consumers, each one tile at a time; P V in groups of PV_STEPS 8-key
+// steps (P's terms of one group live at a time)
+constexpr int D = 16, BQ = 64, BK = 64, NC = 4, STAGES = 8, PV_STEPS = 4;
+constexpr int NT = 128 * (NC + 1);
+// setmaxnreg moves the producer's registers to the consumers, within the
+// block's registers at the launch (one block an SM: 65536 / NT a thread,
+// in steps of 8)
+constexpr int kLaunchRegs = (65536 / NT) & ~7, kProducerRegs = 24,
+              kConsumerRegs = ((NT * kLaunchRegs - 128 * kProducerRegs) /
+                               (128 * NC)) & ~7;
+static_assert(kConsumerRegs <= 240, "setmaxnreg takes at most 255");
+constexpr uint32_t kRow = D * 4;       // a key's 64 bytes
+constexpr uint32_t kPlane = BK * kRow;  // 4 KB: K big or small, V^T big or small
+constexpr uint32_t kAtomVT = D * 128;   // V^T: 16 rows of 32 keys, 2 KB
+// a tile's image: K big and small (64-byte rows in the 64-byte swizzle),
+// V^T big and small (16 rows of the tile's keys, in the permuted order of
+// P's fragment, two atoms of 32 keys in the 128-byte swizzle)
+constexpr uint32_t kKb = 0, kKs = kPlane, kVTb = 2 * kPlane,
+                   kVTs = 3 * kPlane, kImage = 4 * kPlane;
+constexpr int kSmemBytes = 1024 + STAGES * kImage;
+static_assert(kSmemBytes <= 232448, "shared memory per block");
+// consumers 1..NC-1 hand their (m, l, O) to consumer 0 through the stages
+// once all are done
+static_assert((NC - 1) * 128 * (4 + D / 2) * 4 <= STAGES * kImage,
+              "the merge's scratch");
 
-template <typename T>
-__global__ void __launch_bounds__(NT, 2)
-    flash_fwd_d16(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o,
-                  float* __restrict__ lse, int L, int H, float scale) {
+// The images: tile j of head (b, h) at image (b H + h) nk + j. Thread t of
+// a block takes key t / 4 of the tile, d 4 (t % 4).. of it, for K and V;
+// keys past L are zeros. V^T's key x of a 32-key atom sits at slot
+// 8 (x >> 3) + (x & 7 even ? (x & 7) / 2 : 4 + (x & 7) / 2), so k-slot t
+// of an 8-key step is key 2t and slot t + 4 key 2t + 1.
+__global__ void __launch_bounds__(256)
+    flash_fwd_d16_split(const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        unsigned char* __restrict__ images, int L, int H) {
   using namespace rdeic_flash;
-  constexpr bool kSplit = sizeof(T) == 4;  // bf16 operands are exact in TF32
-  extern __shared__ __align__(16) float smem_d16[];
-  float* qs = smem_d16;          // [BQ][S]
-  float* ks = qs + BQ * S;       // [2 buffers][BK][S]
-  float* vs = ks + 2 * BK * S;   // [2 buffers][BK][S]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int rw = warp & 3, half = warp >> 2;  // q rows 16 rw.., key half
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int64_t row = static_cast<int64_t>(H) * D;
-  const int64_t base = static_cast<int64_t>(b) * L * row +
-                       static_cast<int64_t>(h) * D;
-  const T* kb = k + base;
-  const T* vb = v + base;
-  const float c = scale * kLog2e;  // scores in log2 units, for exp2f
-
-  load_rows<T, BQ, D, NT, S, false>(qs, q + base, q0, L, row);
-  load_rows<T, BK, D, NT, S, false>(ks, kb, 0, L, row);
-  load_rows<T, BK, D, NT, S, false>(vs, vb, 0, L, row);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // this warp's 16 q rows as A fragments for the whole K loop, split once
-  uint32_t qb[D / 8][4], qsm[D / 8][4];
-  {
-    const RowA<S, false> ra(qs, rw * 16, 0);
+  const int key = threadIdx.x >> 2, c = threadIdx.x & 3;
+  const int j = blockIdx.x, b = blockIdx.y / H, h = blockIdx.y % H;
+  const int tok = j * BK + key;
+  const int64_t at = (static_cast<int64_t>(b) * L + tok) * H * D + h * D + 4 * c;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 kx = tok < L ? *reinterpret_cast<const float4*>(k + at) : zero;
+  const float4 vx = tok < L ? *reinterpret_cast<const float4*>(v + at) : zero;
+  unsigned char* const img =
+      images + (static_cast<int64_t>(blockIdx.y) * gridDim.x + j) * kImage;
+  float4 big, small;
+  split4(kx, big, small);
+  const uint32_t kat = swizzled(key * kRow + 16 * c, kRow);
+  *reinterpret_cast<float4*>(img + kKb + kat) = big;
+  *reinterpret_cast<float4*>(img + kKs + kat) = small;
+  split4(vx, big, small);
+  const float bv[4] = {big.x, big.y, big.z, big.w};
+  const float sv[4] = {small.x, small.y, small.z, small.w};
+  const int x = key & 7;
+  const uint32_t slot = (key & 24) + ((x & 1) ? 4 + (x >> 1) : x >> 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      float a[1][4];
-      ra.load(a, kk * 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        split<kSplit>(a[0][i], qb[kk][i], qsm[kk][i]);
-    }
-  }
-
-  // rows g (r = 0) and g + 8 (r = 1) of the warp's 16, over its key half
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  float acc[D / 8][4];  // O[16 rows][16]: n-tile n holds columns 8 n..
-  zero(acc);
-  const int nk = (L + BK - 1) / BK;
-  for (int j = 0; j < nk; ++j) {
-    const int cur = j & 1, k0 = j * BK + half * HK;  // this warp's first key
-    if (j + 1 < nk) {  // the next pair lands while this one is used
-      load_rows<T, BK, D, NT, S, false>(ks + (cur ^ 1) * BK * S, kb,
-                                        (j + 1) * BK, L, row);
-      load_rows<T, BK, D, NT, S, false>(vs + (cur ^ 1) * BK * S, vb,
-                                        (j + 1) * BK, L, row);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this pair (the next may be in flight)
-    __syncthreads();
-    if (k0 < L) {  // a key half wholly past L has nothing to add
-      const float* kt = ks + (cur * BK + half * HK) * S;
-      const float* vt = vs + (cur * BK + half * HK) * S;
-
-      // S = Q K^T, 16 x 64: n-tile n holds keys k0 + 8 n..
-      float s[HK / 8][4];
-      zero(s);
-      {
-        const RowB<S, false> rb(kt, 0, 0);
-#pragma unroll
-        for (int kk = 0; kk < D / 8; ++kk) {
-          float bf[HK / 8][2];
-          rb.load(bf, kk * 8);
-#pragma unroll
-          for (int n = 0; n < HK / 8; ++n) {
-            uint32_t bb[2], bs[2];
-            split<kSplit>(bf[n][0], bb[0], bs[0]);
-            split<kSplit>(bf[n][1], bb[1], bs[1]);
-            if (kSplit) mma_tf32(s[n], qsm[kk], bb);
-            if (kSplit) mma_tf32(s[n], qb[kk], bs);
-            mma_tf32(s[n], qb[kk], bb);
-          }
-        }
-      }
-      if (k0 + HK > L) {  // the K tail: its scores are masked to -1e30
-#pragma unroll
-        for (int n = 0; n < HK / 8; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (k0 + 8 * n + 2 * t + (i & 1) >= L) s[n][i] = kNegInf;
-      }
-
-      // online softmax of rows g and g + 8 in log2 units: x = s * c - m,
-      // p = 2^x; a row's 16 values a lane sit in the lane's quad, so the row
-      // max and sum are two shuffles. c > 0, so max(s) * c is the max of
-      // the scaled scores.
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = kNegInf;
-#pragma unroll
-        for (int n = 0; n < HK / 8; ++n)
-          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_run[r], mx * c);
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < HK / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = s[n][2 * r + e];
-            x = exp2f(fmaf(x, c, -m_new));
-            sum += x;
-          }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        alpha[r] = exp2f(m_run[r] - m_new);
-        l_run[r] = l_run[r] * alpha[r] + sum;
-        m_run[r] = m_new;
-      }
-
-      // P V of this tile, from zero: mma.sync rounds its sum toward zero,
-      // so the tile's 8 steps land in a partial that is added to the
-      // rescaled accumulator in fp32, which keeps the error flat in L. The
-      // k order inside each 8 keys is permuted (slot t is key 2t, slot
-      // t + 4 key 2t + 1), so P's C fragment is its A fragment as it
-      // stands (a0..a3 = c0, c2, c1, c3), and V's B fragment reads rows 2t
-      // and 2t + 1 (stride S: the 32 lanes hit 32 banks).
-      float pv[D / 8][4];
-      zero(pv);
-#pragma unroll
-      for (int kk = 0; kk < HK / 8; ++kk) {
-        uint32_t pb[4], ps[4];
-        split<true>(s[kk][0], pb[0], ps[0]);
-        split<true>(s[kk][2], pb[1], ps[1]);
-        split<true>(s[kk][1], pb[2], ps[2]);
-        split<true>(s[kk][3], pb[3], ps[3]);
-        const float* v0 = vt + (8 * kk + 2 * t) * S + g;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          uint32_t bb[2], bs[2];
-          split<kSplit>(v0[8 * n], bb[0], bs[0]);
-          split<kSplit>(v0[S + 8 * n], bb[1], bs[1]);
-          mma_tf32(pv[n], ps, bb);
-          if (kSplit) mma_tf32(pv[n], pb, bs);
-          mma_tf32(pv[n], pb, bb);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[n][i] = fmaf(acc[n][i], alpha[i >> 1], pv[n][i]);
-    }
-    __syncthreads();  // every warp is done with this pair before its refill
-  }
-  cp_async_wait<0>();
-
-  // key half 1 hands its (m, l, O) to half 0 through the K tiles, lane by
-  // lane; half 0 merges the two and writes the rows
-  float* mine = ks + (rw * 32 + lane) * 12;
-  if (half == 1) {
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float4*>(mine + 4 * n) =
-          make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
-    *reinterpret_cast<float4*>(mine + 8) =
-        make_float4(m_run[0], m_run[1], l_run[0], l_run[1]);
-  }
-  __syncthreads();
-  if (half == 1) return;
-  const float4 ml = *reinterpret_cast<const float4*>(mine + 8);
-  const float m_other[2] = {ml.x, ml.y}, l_other[2] = {ml.z, ml.w};
-  float a_self[2], a_other[2], l_tot[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m = fmaxf(m_run[r], m_other[r]);
-    a_self[r] = exp2f(m_run[r] - m);
-    a_other[r] = exp2f(m_other[r] - m);
-    l_tot[r] = l_run[r] * a_self[r] + l_other[r] * a_other[r];
-    m_run[r] = m;
-  }
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const float4 x = *reinterpret_cast<const float4*>(mine + 4 * n);
-    const float other[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      acc[n][i] = acc[n][i] * a_self[i >> 1] + other[i] * a_other[i >> 1];
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = q0 + rw * 16 + g + 8 * r;
-    if (rr >= L) continue;
-    const float l = fmaxf(l_tot[r], 1e-30f);
-    if (lse != nullptr && t == 0)
-      lse[static_cast<int64_t>(blockIdx.y) * L + rr] =
-          m_run[r] * kLn2 + logf(l);
-    const float inv = 1.f / l;
-    T* out = o + base + rr * row + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      store2<T>(out + 8 * n, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t vat =
+        (key >> 5) * kAtomVT + swizzle128(4 * c + e, 4 * slot);
+    *reinterpret_cast<float*>(img + kVTb + vat) = bv[e];
+    *reinterpret_cast<float*>(img + kVTs + vat) = sv[e];
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int L, int H, float scale,
-                   cudaStream_t stream) {
-  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
-  if (err != cudaSuccess) return err;
-  const int smem = kSmemFloats * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_fwd_d16<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((L + BQ - 1) / BQ, B * H);
-  flash_fwd_d16<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, L, H, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace d16
-
-// bf16 at d = 16 on the bf16 tensor cores (header). One block: (64-row q
-// tile blockIdx.x, b*h blockIdx.y), 4 warps; warp w owns q rows 16 w.. of
-// the tile and keeps their scores, softmax state and output in registers.
-namespace d16_bf16 {
-
-using rdeic_flash::bf16::bf16_t;
-constexpr int D = 16, BQ = 64, BK = 128, NT = 128;
-constexpr int kRow = D * 2;  // bytes of a tile row
-// Q, 3 K, 3 V: 26 KB of static shared memory, under the 48 KB a launch
-// takes without cudaFuncSetAttribute
-constexpr int kSmemBytes = (BQ + 6 * BK) * kRow;
-static_assert(kSmemBytes <= 48 * 1024, "static shared memory");
-static_assert(4 * (kSmemBytes + 1024) <= 233472, "four blocks per SM");
-
-__global__ void __launch_bounds__(NT, 4)
-    flash_fwd_d16_bf16(const bf16_t* __restrict__ q,
-                       const bf16_t* __restrict__ k,
-                       const bf16_t* __restrict__ v, bf16_t* __restrict__ o,
-                       float* __restrict__ lse, int L, int H, float scale) {
+__global__ void __launch_bounds__(NT, 1)
+    flash_fwd_d16(const float* __restrict__ q,
+                  const unsigned char* __restrict__ images,
+                  float* __restrict__ o, float* __restrict__ lse, int L,
+                  int H, float scale) {
   using namespace rdeic_flash;
-  using bf16::exp2_ftz, bf16::kLn2, bf16::kLog2e, bf16::ldsm_x4,
-      bf16::ldsm_x4_trans, bf16::load_tile, bf16::mma, bf16::pack;
-  __shared__ __align__(128) bf16_t qs[BQ * D];      // [BQ][D]
-  __shared__ __align__(128) bf16_t ks[3 * BK * D];  // [3 buffers][BK][D]
-  __shared__ __align__(128) bf16_t vs[3 * BK * D];  // [3 buffers][BK][D]
+  using bf16::exp2_ftz, bf16::kLn2, bf16::kLog2e;
+  extern __shared__ unsigned char smem_d16[];
+  // per stage: full (the image landed), empty (P V is done with it)
+  __shared__ __align__(8) uint64_t bars[2 * STAGES];
+  const uint32_t s0 = (smem_u32(smem_d16) + 1023) & ~1023u;
+  unsigned char* const p0 = smem_d16 + (s0 - smem_u32(smem_d16));
+  const uint32_t b0 = smem_u32(bars);
+  auto full = [&](int s) { return b0 + 8 * s; };
+  auto empty = [&](int s) { return b0 + 8 * (STAGES + s); };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16::Lane16 ln(lane);
-  const uint32_t sq = bf16::smem_addr(qs) + warp * 16 * kRow + ln.a;
-  const uint32_t sk = bf16::smem_addr(ks) + ln.b;
-  const uint32_t sv = bf16::smem_addr(vs) + ln.a;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int nk = (L + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);  // lane 0 of each warp of the consumer
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NC) {
+    // the producer: one thread keeps the ring full, tile j's image into
+    // stage j % STAGES once P V is done with the stage's last tile
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 4 * NC && lane == 0) {
+      const unsigned char* src =
+          images + static_cast<int64_t>(blockIdx.y) * nk * kImage;
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);  // round 0 passes
+        mbar_expect_tx(full(s), kImage);
+        bulk_load(s0 + s * kImage, src + static_cast<int64_t>(j) * kImage,
+                  kImage, full(s));
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int kh = warp >> 2;  // consumer kh: tiles kh, kh + NC..
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+  const float c = scale * kLog2e;  // scores in log2 units
   const int64_t row = static_cast<int64_t>(H) * D;
   const int64_t base = static_cast<int64_t>(b) * L * row +
                        static_cast<int64_t>(h) * D;
-  const bf16_t* kb = k + base;
-  const bf16_t* vb = v + base;
-  const float c = scale * kLog2e;  // scores in log2 units, for ex2
+  const int r0 = q0 + 16 * w + g;  // rows r0 (r = 0), r0 + 8 (1)
 
-  load_tile<BQ, D, NT>(qs, q + base, q0, L, row);
-  load_tile<BK, D, NT>(ks, kb, 0, L, row);
-  load_tile<BK, D, NT>(vs, vb, 0, L, row);
-  cp_async_commit();
-  const int nk = (L + BK - 1) / BK;
-  if (nk > 1) {
-    load_tile<BK, D, NT>(ks + BK * D, kb, BK, L, row);
-    load_tile<BK, D, NT>(vs + BK * D, vb, BK, L, row);
-  }
-  cp_async_commit();
+  // this thread's Q fragments, split once, both terms in registers (the A
+  // of S's passes): k-step kk holds (row, 8 kk + t) and (row, 8 kk + t + 4)
+  // of rows r0 and r0 + 8
+  uint32_t qb[D / 8][4], qs[D / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = r0 + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+      split<true>(rr < L ? q[base + rr * row + col] : 0.f, qb[kk][i],
+                  qs[kk][i]);
+    }
 
-  // the warp's 16 q rows as one A fragment (all of d); rows g (r = 0) and
-  // g + 8 (r = 1): the running max, and the lane's part of the running sum
-  // (its quad adds the four parts at the end)
-  uint32_t qf[4];
+  // rows r0 and r0 + 8: the running max, and the lane's part of the
+  // running sum (its quad adds the parts at the end)
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  float acc[D / 8][4];  // O[16 rows][16]: n-tile n holds columns 8 n..
-  zero(acc);
-  // a ring of three K / V buffers: tile j in buffer j % 3, two in flight
-  for (int j = 0, cur = 0; j < nk; ++j, cur = cur == 2 ? 0 : cur + 1) {
+  float acc[D / 2];  // O[64 rows][16]: acc[4 n + i], n-tile n = columns 8 n..
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2];  // S, then P, of a tile: sc[4 n + i] holds keys 8 n..
+  uint32_t pb[PV_STEPS][4], ps[PV_STEPS][4];  // a group's P terms, A fragments
+  float pv[D / 2];   // a tile's P V, from zero
+  float alpha[2];
+
+  // S = Q K^T of tile j, 64 x 64, three passes an 8-deep step (small * big,
+  // big * small, big * big) from zero, issued (committed, not waited for)
+  auto issue_s = [&](int j) {
+    const int s = j % STAGES;
+    const uint32_t st = s0 + s * kImage;
+    const uint64_t kb = desc_rows(st + kKb, kRow), ks = desc_rows(st + kKs, kRow);
+    mbar_wait(full(s), (j / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {  // k-step kk: 32 bytes into the row
+      mma_m64n64k8_rs_tf32(sc, qs[kk], kb + 2 * kk, kk);
+      mma_m64n64k8_rs_tf32(sc, qb[kk], ks + 2 * kk, 1);
+      mma_m64n64k8_rs_tf32(sc, qb[kk], kb + 2 * kk, 1);
+    }
+    wgmma_commit();
+  };
+  // P's two terms as A fragments of its 8-key steps k0..k0 + PV_STEPS - 1
+  auto split_p = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < PV_STEPS; ++i) {
+      const int order[4] = {0, 2, 1, 3};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split<true>(sc[4 * (k0 + i) + order[e]], pb[i][e], ps[i][e]);
+    }
+    fence_regs(pb);  // written before the next wgmma.fence
+    fence_regs(ps);
+  };
+  // P V of tile j into pv from zero, three passes an 8-key step, in
+  // groups of PV_STEPS steps, each group's P terms split (split_p) and
+  // waited for. The k order inside each 8 keys is permuted (slot t is key
+  // 2t, slot t + 4 key 2t + 1; V^T is stored so), so P's accumulator
+  // fragment of n-tile kk is its A fragment: a0..a3 = c0, c2, c1, c3
+  auto run_pv = [&](int j) {
+    const uint32_t st = s0 + (j % STAGES) * kImage;
+    const uint64_t vb = desc(st + kVTb), vs = desc(st + kVTs);
+#pragma unroll
+    for (int k0 = 0; k0 < BK / 8; k0 += PV_STEPS) {
+      split_p(k0);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < PV_STEPS; ++i) {
+        const int kk = k0 + i;
+        const uint32_t at = ((kk >> 2) * kAtomVT + 32 * (kk & 3)) >> 4;
+        mma_m64n16k8_rs_tf32(pv, ps[i], vb + at, kk);
+        mma_m64n16k8_rs_tf32(pv, pb[i], vs + at, 1);
+        mma_m64n16k8_rs_tf32(pv, pb[i], vb + at, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+  };
+  // the online softmax of tile j's S (rows g and g + 8, log2 units):
+  // p = 2^(s c - m) in place, the rows' max and the lane's sums, and the
+  // factors alpha of this tile; a row's 64 values sit in the lane's quad
+  auto softmax = [&](int j) {
     const int k0 = j * BK;
-    cp_async_wait<1>();  // this pair (the next may be in flight)
-    // every warp sees this pair, and is done with the buffer of tile j - 1,
-    // which takes tile j + 2
-    __syncthreads();
-    if (j + 2 < nk) {
-      const int nxt = cur == 0 ? 2 : cur - 1;
-      load_tile<BK, D, NT>(ks + nxt * BK * D, kb, k0 + 2 * BK, L, row);
-      load_tile<BK, D, NT>(vs + nxt * BK * D, vb, k0 + 2 * BK, L, row);
-    }
-    cp_async_commit();
-    if (j == 0) ldsm_x4(qf, sq);
-    const uint32_t kt = sk + cur * BK * kRow, vt = sv + cur * BK * kRow;
-
-    // S = Q K^T, 16 x 128, one m16n8k16 per 8 keys: n-tile n holds keys
-    // k0 + 8 n..; one ldmatrix.x4 of K gives both n-tiles of 16 keys
-    float s[BK / 8][4];
-    zero(s);
-#pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
-      uint32_t kf[4];
-      ldsm_x4(kf, kt + 16 * np * kRow);
-      mma(s[2 * np], qf, kf[0], kf[1]);
-      mma(s[2 * np + 1], qf, kf[2], kf[3]);
-    }
-    if (k0 + BK > L) {  // the K tail: its scores are masked to -1e30
+    if (k0 + BK > L) {  // the K tail (zeros in the image): masked to -1e30
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (k0 + 8 * n + 2 * t + (i & 1) >= L) s[n][i] = kNegInf;
+          if (k0 + 8 * n + 2 * t + (i & 1) >= L) sc[4 * n + i] = kNegInf;
     }
-
-    // online softmax of rows g and g + 8 in log2 units: p = 2^(s c - m);
-    // a row's 128 values sit in the lane's quad, 32 a lane, so the row max
-    // is two shuffles
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = kNegInf;
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m_run[r], mx * c);
@@ -1433,36 +1329,342 @@ __global__ void __launch_bounds__(NT, 4)
       for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * r + e];
+          float& xv = sc[4 * n + 2 * r + e];
+          xv = exp2_ftz(fmaf(xv, c, -m_new));
+          sum += xv;
+        }
+      alpha[r] = exp2_ftz(m_run[r] - m_new);
+      l_run[r] = l_run[r] * alpha[r] + sum;
+      m_run[r] = m_new;
+    }
+  };
+  // the finished P V of tile j joins O by one fma: O = O alpha + P V (the
+  // tensor core's rounding of its sums stays that of one tile), and its
+  // stage goes back to the producer
+  auto join_pv = [&](int j) {
+    fence_regs(pv);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(j % STAGES));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i)
+      acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], pv[i]);
+  };
+
+  // The consumers' chains (S, softmax, P V, a tile at a time) interleave
+  // on the SM's tensor cores and pipes.
+  for (int j = kh; j < nk; j += NC) {
+    issue_s(j);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(j);
+    run_pv(j);
+    join_pv(j);
+  }
+
+  // the consumers merge: consumers 1..NC-1 hand their (m, l, O) to
+  // consumer 0 through the stages (free once all are done), thread by
+  // thread; consumer 0 merges them in order and writes the rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  float* const slots = reinterpret_cast<float*>(p0) + (threadIdx.x & 127) *
+                                                          (4 + D / 2);
+  named_sync(1, 128 * NC);  // every consumer is done with the stages
+  if (kh > 0) {
+    float* const mine = slots + (kh - 1) * 128 * (4 + D / 2);
+    *reinterpret_cast<float4*>(mine) =
+        make_float4(m_run[0], m_run[1], l_run[0], l_run[1]);
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 4)
+      *reinterpret_cast<float4*>(mine + 4 + i) =
+          make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+  }
+  named_sync(1, 128 * NC);
+  if (kh > 0) return;
+#pragma unroll
+  for (int x = 1; x < NC; ++x) {
+    const float* const other = slots + (x - 1) * 128 * (4 + D / 2);
+    const float4 ml = *reinterpret_cast<const float4*>(other);
+    const float m_1[2] = {ml.x, ml.y}, l_1[2] = {ml.z, ml.w};
+    float a_0[2], a_1[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m = fmaxf(m_run[r], m_1[r]);
+      a_0[r] = exp2_ftz(m_run[r] - m);
+      a_1[r] = exp2_ftz(m_1[r] - m);
+      l_run[r] = l_run[r] * a_0[r] + l_1[r] * a_1[r];
+      m_run[r] = m;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 4) {
+      const float4 x4 = *reinterpret_cast<const float4*>(other + 4 + i);
+      const float o1[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = ((i + e) >> 1) & 1;
+        acc[i + e] = acc[i + e] * a_0[r] + o1[e] * a_1[r];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = r0 + 8 * r;
+    if (rr >= L) continue;
+    const float l = fmaxf(l_run[r], 1e-30f);
+    if (lse != nullptr && t == 0)
+      lse[static_cast<int64_t>(blockIdx.y) * L + rr] =
+          m_run[r] * kLn2 + logf(l);
+    const float inv = 1.f / l;
+    float* out = o + base + rr * row + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+  }
+}
+
+// the scratch bytes of a call: every (b, h, key tile)'s image
+int64_t scratch_bytes(int B, int L, int H) {
+  return static_cast<int64_t>(B) * H * ((L + BK - 1) / BK) * kImage;
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, void* scratch, int B, int L, int H,
+                   float scale, cudaStream_t stream) {
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = rdeic_flash::check_aligned({q, k, v, o, scratch});
+  if (err != cudaSuccess) return err;
+  const int nk = (L + BK - 1) / BK;
+  flash_fwd_d16_split<<<dim3(nk, B * H), 256, 0, stream>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<unsigned char*>(scratch), L, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_fwd_d16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + BQ - 1) / BQ, B * H);
+  flash_fwd_d16<<<grid, NT, kSmemBytes, stream>>>(
+      static_cast<const float*>(q),
+      static_cast<const unsigned char*>(scratch), static_cast<float*>(o),
+      lse, L, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace d16
+
+// bf16 at d = 16 on wgmma (header). One block: (64-row q tile blockIdx.x,
+// b*h blockIdx.y), a consumer warpgroup that owns the tile's rows (their
+// scores, softmax state and output in registers) and a producer warp (one
+// thread issues every TMA load); three blocks an SM.
+namespace d16_bf16 {
+
+using rdeic_flash::bf16::bf16_t;
+using namespace rdeic_flash::hopper;
+constexpr int D = 16, BQ = 64, BK = 64, STAGES = 8, NT = 160,
+              kBlocksPerSm = 3;
+constexpr uint32_t kRow = D * 2;       // a key's 32 bytes
+constexpr uint32_t kTile = BK * kRow;  // a K or V tile
+// the K ring, then the V ring: static shared memory (under 48 KB, so a
+// launch needs no cudaFuncSetAttribute)
+constexpr int kSmemBytes = 2 * STAGES * kTile;
+static_assert(kSmemBytes <= 48 * 1024, "static shared memory");
+static_assert(kBlocksPerSm * (kSmemBytes + 1024) <= 233472,
+              "blocks an SM by shared memory");
+
+// S = Q K^T of a tile of n keys: one m64n64k16 or m64n128k16 wgmma, Q from
+// registers, K K-major
+template <int N>
+__device__ __forceinline__ void mma_s(float (&sc)[N / 2],
+                                      const uint32_t (&qf)[4], uint64_t dk) {
+  static_assert(N == 64 || N == 128, "a 64- or 128-key tile");
+  if constexpr (N == 64)
+    mma_m64n64k16_rs(sc, qf, dk, 0);
+  else
+    mma_m64n128k16_rs(sc, qf, dk, 0);
+}
+
+__global__ void __launch_bounds__(NT, kBlocksPerSm)
+    flash_fwd_d16_bf16(const bf16_t* __restrict__ q,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16_t* __restrict__ o, float* __restrict__ lse, int L,
+                       int H, float scale) {
+  using namespace rdeic_flash;
+  using bf16::exp2_ftz, bf16::kLn2, bf16::kLog2e, bf16::pack;
+  __shared__ __align__(1024) unsigned char ring[kSmemBytes];
+  // per stage k_full, k_empty, v_full, v_empty
+  __shared__ __align__(8) uint64_t bars[4 * STAGES];
+  const uint32_t sk = smem_u32(ring), sv = sk + STAGES * kTile;
+  const uint32_t b0 = smem_u32(bars);
+  auto k_full = [&](int s) { return b0 + 8 * s; };
+  auto k_empty = [&](int s) { return b0 + 8 * (STAGES + s); };
+  auto v_full = [&](int s) { return b0 + 8 * (2 * STAGES + s); };
+  auto v_empty = [&](int s) { return b0 + 8 * (3 * STAGES + s); };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int nk = (L + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(k_empty(s), 4);  // lane 0 of each consumer warp
+      mbar_init(v_full(s), 1);
+      mbar_init(v_empty(s), 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // the producer: one thread keeps the ring full, a tile's K ahead of
+    // its V so S can start first
+    if (lane == 0) {
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % STAGES;
+        const uint32_t free = ((j / STAGES) & 1) ^ 1;  // round 0 passes
+        mbar_wait(k_empty(s), free);
+        mbar_expect_tx(k_full(s), kTile);
+        tma_load_4d(sk + s * kTile, &tk, k_full(s), 0, h, j * BK, b);
+        mbar_wait(v_empty(s), free);
+        mbar_expect_tx(v_full(s), kTile);
+        tma_load_4d(sv + s * kTile, &tv, v_full(s), 0, h, j * BK, b);
+      }
+    }
+    return;
+  }
+
+  const int w = warp, g = lane >> 2, t = lane & 3;
+  const float c = scale * kLog2e;  // scores in log2 units, for ex2
+  const int64_t row = static_cast<int64_t>(H) * D;
+  const int64_t base = static_cast<int64_t>(b) * L * row +
+                       static_cast<int64_t>(h) * D;
+  const int r0 = q0 + 16 * w + g;  // rows r0 (r = 0), r0 + 8 (1)
+  // Q as the A operand of S from registers, all of d in one 16-deep step:
+  // (r0, 2t..2t+1), (r0 + 8, 2t..), (r0, 2t + 8..), (r0 + 8, 2t + 8..)
+  uint32_t qf[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = r0 + 8 * (i & 1), col = 2 * t + 8 * (i >> 1);
+    qf[i] = rr < L ? *reinterpret_cast<const uint32_t*>(q + base + rr * row +
+                                                        col)
+                   : 0u;
+  }
+  // rows r0 and r0 + 8: the running max, and the lane's part of the
+  // running sum (its quad adds the parts at the end)
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float acc[D / 2];  // O[64 rows][16]: acc[4 n + i], n-tile n = columns 8 n..
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[BK / 2];  // S, then P, of a tile: sc[4 n + i] holds keys 8 n..
+  uint32_t pa[BK / 16][4];  // P as bf16 A fragments: keys 16 kk..
+  float alpha[2];
+
+  // S = Q K^T of tile j, one wgmma (K K-major, 32-byte rows), issued
+  // (committed, not waited for)
+  auto issue_s = [&](int j) {
+    const int s = j % STAGES;
+    const uint64_t dk = desc_rows(sk + s * kTile, kRow);
+    mbar_wait(k_full(s), (j / STAGES) & 1);
+    wgmma_fence();
+    mma_s<BK>(sc, qf, dk);
+    wgmma_commit();
+  };
+  // O += P V of tile j (pa), issued: V is the MN-major B operand (keys =
+  // rows, d contiguous: one 16-column atom), 16 keys (512 bytes) a step
+  auto issue_pv = [&](int j) {
+    const int s = j % STAGES;
+    const uint64_t dv = desc_rows(sv + s * kTile, kRow);
+    mbar_wait(v_full(s), (j / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      mma_m64n16k16_rs_mn(acc, pa[kk], dv + 32 * kk, 1);
+    wgmma_commit();
+  };
+  // the online softmax of tile j's S (rows g and g + 8, log2 units):
+  // p = 2^(s c - m) in place, the rows' max and sums, and the factors
+  // alpha that rescale O; a row's BK values sit in the lane's quad
+  auto softmax = [&](int j) {
+    const int k0 = j * BK;
+    if (k0 + BK > L) {  // the K tail (zeros from TMA): masked to -1e30
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k0 + 8 * n + 2 * t + (i & 1) >= L) sc[4 * n + i] = kNegInf;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+        mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx * c);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * n + 2 * r + e];
           x = exp2_ftz(fmaf(x, c, -m_new));
           sum += x;
         }
-      const float alpha = exp2_ftz(m_run[r] - m_new);
-      l_run[r] = l_run[r] * alpha + sum;
+      alpha[r] = exp2_ftz(m_run[r] - m_new);
+      l_run[r] = l_run[r] * alpha[r] + sum;
       m_run[r] = m_new;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
-      }
     }
-
-    // O += P V: P's C fragments of n-tiles 2 kk and 2 kk + 1, rounded to
-    // bf16 and packed, are the A fragment of keys 16 kk..; one
-    // ldmatrix.x4.trans of V gives b0, b1 of both n-tiles of d
+  };
+  // O *= alpha, then P's accumulator fragments of n-tiles 2 kk and
+  // 2 kk + 1, rounded to bf16 and packed, are the A fragment of keys 16 kk..
+  auto rescale_and_pack = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4], vf[4];
-      pa[0] = pack(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      ldsm_x4_trans(vf, vt + 16 * kk * kRow);
-      mma(acc[0], pa, vf[0], vf[1]);
-      mma(acc[1], pa, vf[2], vf[3]);
-    }
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = pack(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    fence_regs(acc);  // written before the next wgmma.fence
+    fence_regs(pa);
+  };
+  // As flash_fwd_d64_bf16, the warpgroup overlaps its own exponentials
+  // with its products: S of tile j and P V of tile j - 1 are issued
+  // together, and the softmax of tile j runs while P V is on the tensor
+  // cores (wgmma groups complete in the order issued); the other blocks of
+  // the SM run theirs meanwhile.
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(k_empty(0));
+  softmax(0);
+  rescale_and_pack();
+  for (int j = 1; j < nk; ++j) {
+    issue_s(j);
+    issue_pv(j - 1);
+    wgmma_wait<1>();  // S of tile j (P V may still run)
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty(j % STAGES));
+    softmax(j);
+    wgmma_wait<0>();  // P V of tile j - 1: acc and pa are free
+    fence_regs(acc);
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty((j - 1) % STAGES));
+    rescale_and_pack();
   }
-  cp_async_wait<0>();
+  issue_pv(nk - 1);
+  wgmma_wait<0>();
+  fence_regs(acc);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1470,7 +1672,7 @@ __global__ void __launch_bounds__(NT, 4)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     l = fmaxf(l, 1e-30f);
-    const int rr = q0 + warp * 16 + g + 8 * r;
+    const int rr = r0 + 8 * r;
     if (rr >= L) continue;
     if (lse != nullptr && t == 0)
       lse[static_cast<int64_t>(blockIdx.y) * L + rr] =
@@ -1479,23 +1681,26 @@ __global__ void __launch_bounds__(NT, 4)
     bf16_t* out = o + base + rr * row + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      store2<bf16_t>(out + 8 * n, acc[n][2 * r] * inv,
-                     acc[n][2 * r + 1] * inv);
+      store2<bf16_t>(out + 8 * n, acc[4 * n + 2 * r] * inv,
+                     acc[4 * n + 2 * r + 1] * inv);
   }
 }
 
-// 26 KB of static shared memory: no cudaFuncSetAttribute, so a launch is
-// one call
+// static shared memory: no cudaFuncSetAttribute, so a launch is two tensor
+// maps and the launch
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int L, int H, float scale,
                    cudaStream_t stream) {
   cudaError_t err = rdeic_flash::check_aligned({q, k, v, o});
   if (err != cudaSuccess) return err;
+  CUtensorMap tk, tv;
+  if (!tensor_map(&tk, k, true, B, L, H, D, D, BK) ||
+      !tensor_map(&tv, v, true, B, L, H, D, D, BK))
+    return cudaErrorInvalidValue;
   const dim3 grid((L + BQ - 1) / BQ, B * H);
   flash_fwd_d16_bf16<<<grid, NT, 0, stream>>>(
-      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
-      static_cast<const bf16_t*>(v), static_cast<bf16_t*>(o), lse, L, H,
-      scale);
+      static_cast<const bf16_t*>(q), tk, tv, static_cast<bf16_t*>(o), lse, L,
+      H, scale);
   return cudaGetLastError();
 }
 
@@ -2040,13 +2245,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-             int B, int L, int H, int D, int dtype, float scale,
-             cudaStream_t stream) {
+             void* scratch, int B, int L, int H, int D, int dtype,
+             float scale, cudaStream_t stream) {
   if (dtype != 0 && dtype != 1) return -1;
   const bool fp32 = dtype == 0;
   switch (D) {
     case 16:
-      return fp32 ? d16::launch<float>(q, k, v, o, lse, B, L, H, scale, stream)
+      return fp32 ? d16::launch(q, k, v, o, lse, scratch, B, L, H, scale,
+                                stream)
                   : d16_bf16::launch(q, k, v, o, lse, B, L, H, scale, stream);
     case 64:
       return fp32 ? d64::launch(q, k, v, o, lse, B, L, H, scale, stream)
@@ -2063,13 +2269,21 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; lse may be null. Returns 0, a
-// cudaError_t, or -1 for a head dim or dtype this file was not built for.
+// The scratch bytes a call needs (device memory the caller allocates and
+// passes as `scratch`): the fp32 d = 16 forward's operand images, else 0.
+int64_t rdeic_flash_attn_fwd_scratch_bytes(int B, int L, int H, int D,
+                                           int dtype) {
+  return D == 16 && dtype == 0 ? d16::scratch_bytes(B, L, H) : 0;
+}
+
+// dtype: 0 = float32, 1 = bfloat16; lse may be null; scratch holds
+// rdeic_flash_attn_fwd_scratch_bytes (null if 0). Returns 0, a cudaError_t,
+// or -1 for a head dim or dtype this file was not built for.
 int rdeic_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int L, int H, int D, int dtype,
-                         float scale, void* stream) {
-  return dispatch(q, k, v, o, static_cast<float*>(lse), B, L, H, D, dtype,
-                  scale, static_cast<cudaStream_t>(stream));
+                         float scale, void* stream, void* scratch) {
+  return dispatch(q, k, v, o, static_cast<float*>(lse), scratch, B, L, H, D,
+                  dtype, scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* rdeic_cuda_error_string(int err) {

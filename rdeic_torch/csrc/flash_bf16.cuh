@@ -1,12 +1,11 @@
 // bf16 tensor-core pieces of the bf16 flash-attention kernels on mma.sync
-// (flash_attn_fwd.cu: flash_fwd_d16_bf16; flash_attn_bwd.cu:
-// flash_dq_d16_bf16, flash_dkv_d16_bf16, flash_dq_d512_bf16,
-// flash_dkv_d512_bf16): bf16
+// (flash_attn_bwd.cu: flash_dq_d16_bf16, flash_dkv_d16_bf16,
+// flash_dq_d512_bf16, flash_dkv_d512_bf16): bf16
 // `mma.sync` m16n8k16 with fp32 accumulators, fragment loads by ldmatrix,
 // and bf16 tiles copied by cp.async into a swizzled shared-memory layout.
-// The wgmma kernels (flash_fwd_d64_bf16, flash_fwd_d512_bf16,
-// flash_dq_d64_bf16, flash_dkv_d64_bf16) take its scalar helpers:
-// exp2_ftz, pack, pack_split, unpack.
+// The wgmma kernels (every forward, flash_dq_d64_bf16,
+// flash_dkv_d64_bf16) take its scalar helpers: exp2_ftz, pack,
+// pack_split, unpack.
 //
 // Fragments of mma.sync.aligned.m16n8k16 (bf16, two values a register, the
 // lower column in the low half), for lane = 4 g + t:

@@ -1,6 +1,7 @@
-// Hopper pieces of the d = 64 and d = 512 flash forward (flash_attn_fwd.cu:
-// flash_fwd_d64_bf16, flash_fwd_d64, flash_fwd_d512_bf16, flash_fwd_d512)
-// and of the d = 64 and fp32 d = 512 backward
+// Hopper pieces of the flash forward (flash_attn_fwd.cu: flash_fwd_d16,
+// flash_fwd_d16_bf16, flash_fwd_d64_bf16, flash_fwd_d64,
+// flash_fwd_d512_bf16, flash_fwd_d512) and of the d = 64 and fp32 d = 512
+// backward
 // (flash_attn_bwd.cu: flash_dq_d64_bf16, flash_dkv_d64_bf16 and the fp32
 // flash_dq_d64, flash_dkv_d64, flash_dq_d512, flash_dkv_d512): TMA tile
 // loads that complete on mbarriers, warpgroup matrix products
@@ -14,7 +15,13 @@
 // CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads under layout type 1: 16-byte
 // chunk c of row r is stored at chunk c ^ (r & 7) (`swizzle128`). A row
 // wider than 128 bytes (fp32 at d = 64) is two atoms side by side, each
-// loaded by a TMA box of its own.
+// loaded by a TMA box of its own. A d = 16 row is narrower: 64 bytes in
+// fp32, 32 in bf16. Those tiles take the 64- and 32-byte swizzles
+// (CU_TENSOR_MAP_SWIZZLE_64B / _32B, wgmma layout types 2 / 3), whose atoms
+// are 8 rows of 64 or 32 bytes. All three are one map of the shared-memory
+// address, bits 4.. XOR-ed by bits 7.. (3, 2 or 1 of them at rows of 128,
+// 64 or 32 bytes: `swizzled`), so chunk c of row r lands at c ^ (r & 7),
+// c ^ ((r >> 1) & 3) or c ^ ((r >> 2) & 1).
 //
 // Descriptors (`desc`): start address >> 4 in bits 0-13, the leading byte
 // offset >> 4 in bits 16-29, the stride byte offset >> 4 in bits 32-45,
@@ -27,7 +34,12 @@
 // operand's 16- (bf16) or 8-deep (tf32) k-steps are 32 bytes apart inside
 // the 128-byte row: the start address moves by 2 (x 16 bytes) a step, as
 // in CUTLASS's descriptor iterator. An MN-major operand's k-steps are whole
-// rows: 16 rows (2048 bytes) a bf16 step.
+// rows: 16 rows (2048 bytes) a bf16 step. `desc_rows` describes a tile of
+// narrower rows: the stride byte offset is 8 rows (512 or 256 bytes), the
+// layout type 2 or 3; a K-major fp32 row of 64 bytes holds two 8-deep
+// k-steps (32 bytes apart, as above), a bf16 row of 32 bytes one 16-deep
+// step; an MN-major bf16 tile 16 columns wide is one atom, and its 16-deep
+// k-steps are 16 rows (512 bytes) apart.
 //
 // Fragments of wgmma.m64nNk*, per warp w (rows 16 w.. of the warpgroup's
 // 64) and lane 4 g + t, as mma.sync's per 16 rows: the fp32 accumulator
@@ -52,6 +64,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // byte offset of (row r, byte b) in a 128-byte-swizzled atom
 __host__ __device__ constexpr uint32_t swizzle128(uint32_t r, uint32_t b) {
   return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
+}
+
+// where a tile of `row_bytes`-wide rows (128, 64 or 32), 1024-byte aligned,
+// keeps the byte whose dense offset is `a`
+__host__ __device__ constexpr uint32_t swizzled(uint32_t a, uint32_t row_bytes) {
+  return a ^ (((a >> 7) & (row_bytes / 16 - 1)) << 4);
 }
 
 // -- mbarriers -----------------------------------------------------------
@@ -207,11 +225,32 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global `src` into shared memory at `dst`
+// (both 16-byte aligned) by the TMA unit, completing on barrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // -- warpgroup products --------------------------------------------------
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo = 16) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
          static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+// the descriptor of a tile of 64- or 32-byte rows (above): stride byte
+// offset 8 rows, layout type 2 (64-byte swizzle) or 3 (32-byte)
+__device__ __forceinline__ uint64_t desc_rows(uint32_t addr,
+                                              uint32_t row_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(1) << 16 |
+         static_cast<uint64_t>((8 * row_bytes) >> 4) << 32 |
+         static_cast<uint64_t>(row_bytes == 64 ? 2 : 3) << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -331,6 +370,81 @@ __device__ __forceinline__ void mma_m64n64k16_rs_mn(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "l"(db), "r"(scale_d));
+}
+
+// S (64 x 128) += A (64 x 16, registers) B (16 x 128, shared, K-major); bf16
+__device__ __forceinline__ void mma_m64n128k16_rs(float (&d)[64],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "l"(db), "r"(scale_d));
+}
+
+// S (64 x 64) += A (64 x 16, registers) B (16 x 64, shared, K-major); bf16
+__device__ __forceinline__ void mma_m64n64k16_rs(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "l"(db), "r"(scale_d));
+}
+
+// O (64 x 16) += A (64 x 16, registers) B (16 x 16, shared, MN-major); bf16
+__device__ __forceinline__ void mma_m64n16k16_rs_mn(float (&d)[8],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
         "l"(db), "r"(scale_d));
 }
@@ -496,6 +610,21 @@ __device__ __forceinline__ void mma_m64n32k8_rs_tf32(float (&d)[16],
         "l"(db), "r"(scale_d));
 }
 
+// C (64 x 16) += A (64 x 8, registers) B (8 x 16, shared, K-major); tf32
+__device__ __forceinline__ void mma_m64n16k8_rs_tf32(float (&d)[8],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "l"(db), "r"(scale_d));
+}
+
 // -- the host's tensor maps ----------------------------------------------
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -524,9 +653,9 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A contiguous [B, L, H, D] tensor as a 4-d map (d, h, token, b), whose box
-// is `box_d` values of one head's row by `rows` tokens, in the 128-byte
-// swizzle (box_d x the element size must be 128 bytes); tokens past L read
-// as zeros. Returns false if the driver refuses it. The encode is a driver
+// is `box_d` values of one head's row by `rows` tokens, in the swizzle of
+// its row's width (box_d x the element size: 128, 64 or 32 bytes); tokens
+// past L read as zeros. Returns false if the driver refuses it. The encode is a driver
 // call and needs a current context, which a thread has only once a runtime
 // call bound the device's primary context there: autograd's worker thread,
 // whose first call into a library may be a launch that has made no such
@@ -548,11 +677,15 @@ inline bool tensor_map(CUtensorMap* map, const void* base, bool bf16, int B,
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d), 1,
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
+  const cuuint64_t row_bytes = box_d * es;
   return encode(map,
                 bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                 4, const_cast<void*>(base), dims, strides, box, one,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                  : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

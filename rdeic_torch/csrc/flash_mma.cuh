@@ -1,7 +1,7 @@
 // Tensor-core pieces shared by the flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): TF32 `mma.sync` with fp32
-// accumulators, the 3xTF32 split that keeps fp32 products fp32-accurate,
-// the swizzled shared-memory layout of the D-wide tiles, and their copies.
+// (flash_attn_fwd.cu, flash_attn_bwd.cu): the 3xTF32 split that keeps fp32
+// products fp32-accurate (every fp32 kernel), and TF32 `mma.sync` with fp32
+// accumulators, its fragment reads and copies (the d = 16 backward).
 //
 // 3xTF32: a float x is split into big = tf32(x), rounded to nearest, and
 // small = x - big, which the tensor core reads as TF32 (split, below). A
@@ -23,18 +23,6 @@
 #include "flash_common.cuh"
 
 namespace rdeic_flash {
-
-// A D-wide tile row has stride D + 8 floats (8 mod 32 banks) and its column
-// index is XOR-ed with (row & 4). A tile is read two ways: as a row-major A
-// operand, or as B = tile^T (lane reads (row g, column t)); and as B = tile
-// (lane reads (row t, column g)). With the plain stride 8 mod 32 the first
-// puts rows g and g + 4 on one bank; the XOR moves row g + 4 by four
-// columns, so both reads hit 32 distinct banks. It keeps 16-byte chunks
-// whole, so cp.async still copies 16 bytes a lane.
-template <int S>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * S + (c ^ (r & 4));
-}
 
 // big and, where SPLIT, small of the 3xTF32 split, as TF32 operands. big
 // is x rounded to TF32 by integer ops: adding half a TF32 ulp (bit 12) and
@@ -110,37 +98,17 @@ __device__ __forceinline__ void ldmatrix_x4(float (&x)[4], uint32_t addr) {
   for (int i = 0; i < 4; ++i) x[i] = __uint_as_float(r[i]);
 }
 
-// Fragment readers. Each fixes its lane's shared-memory addresses when it is
-// made, at the warp's (m0 or n0, k0) corner, so a k loop adds
-// only constants. m0, n0 and k0 are multiples of 8, which keeps the swizzle
-// of a row (row & 4) a constant of the lane.
-
-// A(m, k) = tile[m][k] (row stride S, swizzled if SWZ): one ldmatrix.x4 per
-// m-tile (rows 0-7 / 8-15 x columns 0-3 / 4-7 are a0..a3).
-template <int S, bool SWZ>
-struct RowA {
-  uint32_t addr;
-  __device__ RowA(const float* tile, int m0, int k0) {
-    const int l = threadIdx.x & 31, r = (l & 7) + (l & 8), c = (l >> 4) * 4;
-    addr = smem_addr(tile + (m0 + r) * S + k0 + (SWZ ? c ^ (r & 4) : c));
-  }
-  template <int MT>
-  __device__ __forceinline__ void load(float (&x)[MT][4], int k) const {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      ldmatrix_x4(x[mt], addr + (mt * 16 * S + k) * 4);
-  }
-};
-
-// B(k, n) = tile[n][k] (a D-wide tile of row stride S, swizzled if SWZ):
-// one ldmatrix.x4 per two n-tiles (b0, b1 of n-tile 2p, then of 2p + 1).
-template <int S, bool SWZ = true>
+// B(k, n) = tile[n][k] (a tile of row stride S): one ldmatrix.x4 per two
+// n-tiles (b0, b1 of n-tile 2p, then of 2p + 1). The reader fixes its
+// lane's shared-memory address when it is made, at the warp's (n0, k0)
+// corner, so a k loop adds only constants.
+template <int S>
 struct RowB {
   uint32_t addr;
   __device__ RowB(const float* tile, int n0, int k0) {
     const int l = threadIdx.x & 31, r = (l & 7) + (l >> 4) * 8,
               c = (l & 8) >> 1;
-    addr = smem_addr(tile + (n0 + r) * S + k0 + (SWZ ? c ^ (r & 4) : c));
+    addr = smem_addr(tile + (n0 + r) * S + k0 + c);
   }
   template <int NT>
   __device__ __forceinline__ void load(float (&x)[NT][2], int k) const {
@@ -176,33 +144,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [r0, r0 + ROWS) of a [B, L, H, D] fp32 tensor (src at (b, h), tokens
-// `row` elements apart) into a tile of stride S, swizzled (swz) when SWZ,
-// by default the stride D + 8 of the D-wide tiles above; rows past L are
-// zero. By cp.async.cg, 16 bytes a lane; the copies land later
-// (cp_async_commit, then cp_async_wait before the block reads them). bf16
-// tiles have kernels of their own (flash_bf16.cuh load_tile).
-template <typename T, int ROWS, int D, int NT, int S = D + 8, bool SWZ = true>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
-                                          int L, int64_t row) {
-  static_assert(sizeof(T) == 4, "fp32 tiles");
-  static_assert(S % 4 == 0, "16-byte chunks stay whole");
-  constexpr int kChunks = ROWS * D / 4 / NT;  // 4-element chunks a thread
-  static_assert((ROWS * D / 4) % NT == 0, "the threads split a tile evenly");
-#pragma unroll
-  for (int n = 0; n < kChunks; ++n) {
-    const int i = threadIdx.x + n * NT, r = i / (D / 4), c = i % (D / 4) * 4;
-    const bool in = r0 + r < L;
-    // a row past L reads nothing (src-size 0 fills zeros); its address
-    // stays inside the tensor all the same
-    const float* s = src + (in ? r0 + r : 0) * row + c;
-    const uint32_t d = static_cast<uint32_t>(
-        __cvta_generic_to_shared(dst + (SWZ ? swz<S>(r, c) : r * S + c)));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(s), "r"(in ? 16 : 0));
-  }
 }
 
 // cudaErrorMisalignedAddress unless every pointer is 16-byte aligned (the

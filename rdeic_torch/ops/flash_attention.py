@@ -83,7 +83,9 @@ def _fwd_library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.rdeic_flash_attn_fwd.restype = i
     lib.rdeic_flash_attn_fwd.argtypes = [
-        vp, vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp]
+        vp, vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp, vp]
+    lib.rdeic_flash_attn_fwd_scratch_bytes.restype = ctypes.c_int64
+    lib.rdeic_flash_attn_fwd_scratch_bytes.argtypes = [i] * 5
     lib.rdeic_cuda_error_string.restype = ctypes.c_char_p
     lib.rdeic_cuda_error_string.argtypes = [i]
     return lib
@@ -185,6 +187,24 @@ def _raise_on(err: int, name: str, lib, to_string) -> None:
 
 # serving replicas launch from one thread each: a count is a read and a write
 _TALLY_LOCK = threading.Lock()
+# (device index, stream) -> the fp32 d = 16 forward's scratch, kept and
+# grown: a launch enqueues its kernels on that stream behind the last
+# call's, so they may share it, and a fresh torch.empty a call cost the
+# short serving shapes host time
+_SCRATCH: dict = {}
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_bytes(b: int, seq: int, h: int, d: int, code: int) -> int:
+    return _fwd_library().rdeic_flash_attn_fwd_scratch_bytes(b, seq, h, d, code)
+
+
+def _scratch(nbytes: int, index: int, stream: int) -> torch.Tensor:
+    buf = _SCRATCH.get((index, stream))
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=f"cuda:{index}")
+        _SCRATCH[index, stream] = buf
+    return buf
 
 
 def _tally(fn, q: torch.Tensor) -> None:
@@ -204,11 +224,15 @@ def _forward_kernel(q, k, v, lse) -> torch.Tensor:
     b, seq, h, d = q.shape
     o = torch.empty_like(q)
     lib = _fwd_library()
+    code = _DTYPE_CODES[q.dtype]
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    # the fp32 d = 16 kernel's operand images (0 bytes at other head dims)
+    nbytes = _scratch_bytes(b, seq, h, d, code)
     err = lib.rdeic_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        b, seq, h, d, _DTYPE_CODES[q.dtype], d ** -0.5,
-        torch._C._cuda_getCurrentRawStream(index))
+        b, seq, h, d, code, d ** -0.5, stream,
+        _scratch(nbytes, index, stream).data_ptr() if nbytes else None)
     _raise_on(err, "flash_attn_fwd", lib, "rdeic_cuda_error_string")
     return o
 

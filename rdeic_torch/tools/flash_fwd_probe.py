@@ -1,18 +1,22 @@
-"""Time the d = 64 or d = 512 flash forward on one card: this checkout's
+"""Time the d = 16, 64 or 512 flash forward on one card: this checkout's
 kernels, another checkout's, and variants of this one's, in one process.
 
-    python -m rdeic_torch.tools.flash_fwd_probe [--d 64|512]
+    python -m rdeic_torch.tools.flash_fwd_probe [--d 16|64|512]
         [--dtype bf16|fp32] [--other DIR [--bits]] [--variants NAME ...]
         [--shapes B,L,H ...]
 
 Builds `csrc/flash_attn_fwd.cu` of this checkout ("change"), of the
 checkout at DIR ("other", e.g. the parent commit unpacked by `git
 archive`) and, with --variants, copies of this one whose kernel of the
-head dim and dtype (namespace `d64_bf16`, `d64`, `d512_bf16` or `d512`) is
-changed by the text substitutions in VARIANTS (a substitution that no
-longer matches raises). Each library is called through its C interface on
-the same inputs, with and without lse, at the head dim's SHAPES (the
-serving, training, validation, batched and tiled shapes, and checks).
+head dim and dtype (namespace `d16_bf16`, `d16`, `d64_bf16`, `d64`,
+`d512_bf16` or `d512`) is changed by the text substitutions in VARIANTS
+(a substitution that no longer matches raises; NAME+NAME applies
+several); prints each build's ptxas registers, spills and C75xx
+advisories (wgmma serialized). Each library is called through its C
+interface on the same inputs, with and without lse, at the head dim's
+SHAPES (the serving, training, validation, batched and tiled shapes, and
+checks); a library that takes scratch (the fp32 d = 16 forward) gets it
+once a size.
 With --bits, first a JSON line per BITS_CASES entry of another head dim
 (every forward kernel but the probed head dim's two): whether this
 checkout's output and lse are the other checkout's bit for bit.
@@ -41,7 +45,12 @@ import torch.nn.functional as F
 from rdeic_torch import build
 from rdeic_torch.ops.flash_attention import flash_attention_lse_plain
 
-SHAPES = {64: [(1, 6144, 5, 64), (1, 1536, 10, 64), (2, 4096, 5, 64),
+SHAPES = {16: [(1, 6144, 4, 16), (1, 1536, 8, 16), (2, 4096, 4, 16),
+              (2, 1024, 8, 16), (1, 4096, 4, 16), (1, 1024, 8, 16),
+              (2, 6144, 4, 16), (2, 1536, 8, 16), (4, 4096, 4, 16),
+              (4, 1024, 8, 16), (15, 4096, 4, 16), (2, 1000, 3, 16),
+              (1, 130, 1, 16), (1, 8192, 4, 16)],
+          64: [(1, 6144, 5, 64), (1, 1536, 10, 64), (2, 4096, 5, 64),
                (2, 1024, 10, 64), (2, 6144, 5, 64), (4, 4096, 5, 64),
                (2, 1000, 3, 64), (1, 130, 2, 64), (1, 8192, 2, 64)],
           512: [(1, 6144, 1, 512), (2, 4096, 1, 512), (1, 4096, 1, 512),
@@ -49,7 +58,8 @@ SHAPES = {64: [(1, 6144, 5, 64), (1, 1536, 10, 64), (2, 4096, 5, 64),
                 (1, 1024, 1, 512), (2, 1000, 2, 512), (1, 130, 1, 512),
                 (1, 8192, 1, 512)]}
 # (head dim, dtype): the namespace of its forward kernel
-NAMESPACES = {(64, "bf16"): "d64_bf16", (64, "fp32"): "d64",
+NAMESPACES = {(16, "bf16"): "d16_bf16", (16, "fp32"): "d16",
+              (64, "bf16"): "d64_bf16", (64, "fp32"): "d64",
               (512, "bf16"): "d512_bf16", (512, "fp32"): "d512"}
 # --bits: every forward kernel, at an L of no tile multiple with B = 2 and
 # H > 1; the probed head dim's are left out
@@ -60,6 +70,50 @@ DTYPES = {"bf16": (torch.bfloat16, 1), "fp32": (torch.float32, 0)}
 SLEEP_CLOCK_HZ = 2.0e9  # torch.cuda._sleep counts cycles, at most this fast
 # namespace: {name: [(old, new)] in that namespace}
 VARIANTS = {
+    # the d = 16 designs' choices, each against what it chose, and parts
+    # left out (wrong by design: each times its part)
+    "d16_bf16": {
+        # 128-key tiles (S one m64n128k16) at two blocks an SM
+        "bk128_blocks2": [("BK = 64, STAGES = 8, NT = 160,\n"
+                           "              kBlocksPerSm = 3;",
+                           "BK = 128, STAGES = 4, NT = 160,\n"
+                           "              kBlocksPerSm = 2;")],
+        "stages4": [("BK = 64, STAGES = 8,", "BK = 64, STAGES = 4,")],
+        "no_exp": [("          x = exp2_ftz(fmaf(x, c, -m_new));",
+                    "          x = fmaf(x, c, -m_new);")],
+        "no_pv": [("    for (int kk = 0; kk < BK / 16; ++kk)\n"
+                   "      mma_m64n16k16_rs_mn(",
+                   "    for (int kk = 0; kk < 0; ++kk)\n"
+                   "      mma_m64n16k16_rs_mn(")],
+    },
+    "d16": {
+        # three or five consumers; P V in one group a tile (P's terms of
+        # all eight steps live at once) or in groups of two steps
+        "cons3": [("BK = 64, NC = 4, STAGES = 8,", "BK = 64, NC = 3, STAGES = 9,")],
+        "cons5": [("BK = 64, NC = 4, STAGES = 8,", "BK = 64, NC = 5, STAGES = 10,")],
+        "pv_whole": [("PV_STEPS = 4;", "PV_STEPS = 8;")],
+        "pv_quarters": [("PV_STEPS = 4;", "PV_STEPS = 2;")],
+        # P V's 24 instructions a tile as two chains (even and odd 8-key
+        # steps) summed in fp32 before the join
+        "pv_two_chains": [
+            ("  float pv[D / 2];   // a tile's P V, from zero",
+             "  float pv[D / 2], pv2[D / 2];"),
+            ("        mma_m64n16k8_rs_tf32(pv, ps[i], vb + at, kk);\n"
+             "        mma_m64n16k8_rs_tf32(pv, pb[i], vs + at, 1);\n"
+             "        mma_m64n16k8_rs_tf32(pv, pb[i], vb + at, 1);\n",
+             "        float(&pd)[D / 2] = (kk & 1) ? pv2 : pv;\n"
+             "        mma_m64n16k8_rs_tf32(pd, ps[i], vb + at, kk >> 1);\n"
+             "        mma_m64n16k8_rs_tf32(pd, pb[i], vs + at, 1);\n"
+             "        mma_m64n16k8_rs_tf32(pd, pb[i], vb + at, 1);\n"),
+            ("    fence_regs(pv);\n    __syncwarp();",
+             "    fence_regs(pv);\n    fence_regs(pv2);\n    __syncwarp();"),
+            ("      acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], pv[i]);",
+             "      acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], pv[i] + pv2[i]);")],
+        "no_exp": [("          xv = exp2_ftz(fmaf(xv, c, -m_new));",
+                    "          xv = fmaf(xv, c, -m_new);")],
+        "no_pv": [("    for (int k0 = 0; k0 < BK / 8; k0 += PV_STEPS) {",
+                   "    for (int k0 = 0; k0 < 0; k0 += PV_STEPS) {")],
+    },
     "d64_bf16": {
         "stages2": [("BK = 128, STAGES = 4,", "BK = 128, STAGES = 2,")],
     },
@@ -156,12 +210,31 @@ def back_to_back_ms(fn, reps: int = 20) -> float:
 
 
 def _bind(path: Path):
+    """The library's forward as fwd(q, k, v, o, lse, b, seq, h, d, code,
+    scale, stream) on pointers; where the library takes scratch (the fp32
+    d = 16 forward's operand images), fwd allocates it once per size and
+    passes it."""
     lib = ctypes.CDLL(str(path))
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.rdeic_flash_attn_fwd.restype = i
-    lib.rdeic_flash_attn_fwd.argtypes = [vp] * 5 + [i] * 5 + [ctypes.c_float,
-                                                              vp]
-    return lib
+    args = [vp] * 5 + [i] * 5 + [ctypes.c_float, vp]
+    if not hasattr(lib, "rdeic_flash_attn_fwd_scratch_bytes"):
+        lib.rdeic_flash_attn_fwd.argtypes = args
+        return lib.rdeic_flash_attn_fwd
+    lib.rdeic_flash_attn_fwd.argtypes = args + [vp]
+    lib.rdeic_flash_attn_fwd_scratch_bytes.restype = ctypes.c_int64
+    lib.rdeic_flash_attn_fwd_scratch_bytes.argtypes = [i] * 5
+    scratch = {}
+
+    def fwd(*a):
+        nbytes = lib.rdeic_flash_attn_fwd_scratch_bytes(*a[5:10])
+        if nbytes and nbytes not in scratch:
+            scratch[nbytes] = torch.empty(nbytes, dtype=torch.uint8,
+                                          device="cuda")
+        return lib.rdeic_flash_attn_fwd(
+            *a, scratch[nbytes].data_ptr() if nbytes else None)
+
+    return fwd
 
 
 def same_bits(other, change, probed_d) -> None:
@@ -181,7 +254,7 @@ def same_bits(other, change, probed_d) -> None:
         for lib in (other, change):
             o = torch.empty_like(q)
             lse = torch.empty((b * h, seq), device=dev, dtype=torch.float32)
-            err = lib.rdeic_flash_attn_fwd(
+            err = lib(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), b, seq, h, d, code, d ** -0.5,
                 torch.cuda.current_stream().cuda_stream)
@@ -208,7 +281,7 @@ def probe(lib, shape, code, inputs, want) -> dict:
     out = {}
     for name, lp in (("plain", None), ("lse", lse.data_ptr())):
         def run(lp=lp):
-            return lib.rdeic_flash_attn_fwd(*ptr, lp, *dims)
+            return lib(*ptr, lp, *dims)
 
         err = run()
         if err != 0:
@@ -250,7 +323,8 @@ def main() -> None:
         other = args.other.resolve() / "rdeic_torch" / "csrc"
         jobs["other"] = (other, (other / "flash_attn_fwd.cu").read_text())
     ns = NAMESPACES[args.d, args.dtype]
-    jobs.update({n: (csrc, variant_source(src, VARIANTS[ns][n], ns))
+    jobs.update({n: (csrc, variant_source(
+        src, [e for part in n.split("+") for e in VARIANTS[ns][part]], ns))
                  for n in args.variants})
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {n: pool.submit(_library, n, c, s, out_dir)
@@ -262,8 +336,8 @@ def main() -> None:
         for line in build.build_log(path).splitlines():
             if "Compiling entry function" in line:
                 ours = kernel in line
-            elif ours and ("registers" in line or "spill" in line
-                           or "C7519" in line):
+            elif (ours and ("registers" in line or "spill" in line)
+                  or "C75" in line):  # C75xx: wgmma performance advisories
                 print(name, line.strip(), flush=True)
     libs = {n: _bind(p) for n, p in paths.items()}
     if args.bits:

@@ -86,10 +86,17 @@ GN_BWD_PATH_SHAPES = [
                                 (128, 256, 640, 1280, 1920, 2560),
                                 (256, 1280, 2560)])
     for c in chans]
-# the d = 16 path shapes (serving; training: the forward with lse and the
-# backward) and twice the serving L: the sums run over L
+# the d = 16 forward (flash_fwd_d16 after flash_fwd_d16_split, and
+# flash_fwd_d16_bf16, on wgmma): every path shape (serving, training with
+# lse, validation, batched and tiled serving), B = 2 with H = 3 at a ragged
+# L, twice the serving L (the sums run over L), and L = 20 (inside one
+# tile), 77 and 130 (past one and two 64-key tiles)
 D16_SHAPES = [(1, 6144, 4, 16), (1, 1536, 8, 16), (2, 4096, 4, 16),
-              (2, 1024, 8, 16), (1, 8192, 4, 16)]
+              (2, 1024, 8, 16), (1, 4096, 4, 16), (1, 1024, 8, 16),
+              (2, 6144, 4, 16), (2, 1536, 8, 16), (4, 4096, 4, 16),
+              (4, 1024, 8, 16), (3, 4096, 4, 16), (3, 1024, 8, 16),
+              (15, 4096, 4, 16), (2, 1000, 3, 16), (1, 8192, 4, 16),
+              (1, 20, 2, 16), (1, 77, 2, 16), (1, 130, 1, 16)]
 # the bf16 forward kernels of their own (flash_fwd_d16_bf16,
 # flash_fwd_d64_bf16, flash_fwd_d512_bf16): the serving and training path
 # shapes, tails (an L inside one q tile, one past a tile, an L of no tile
@@ -412,33 +419,80 @@ def test_groupnorm_backward_plans_match_plain(cuda, shape, smem_limit, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", D16_SHAPES)
 def test_flash_d16_forward_at_the_path_shapes(cuda, shape, dtype, lse):
-    """The d = 16 forward (fp32: flash_fwd_d16, 3xTF32; bf16:
-    flash_fwd_d16_bf16) with and without lse: the output against the plain
-    version's unrounded fp32 result within 2e-5 (fp32) or two bf16 ulps of
-    max, the lse within 1e-4 of max; each reads a planted x1.05 fault."""
-    q, k, v = (_rand(shape, dtype, cuda, s) for s in range(3))
-    fn = flash_attention_lse if lse else flash_attention
-    before = fn.launches
-    got = fn(q, k, v)
-    torch.cuda.synchronize()
-    assert fn.launches == before + 1
-    want, want_lse = flash_attention_lse_plain(q.float(), k.float(), v.float())
-    out = got[0] if lse else got
-    assert out.dtype == dtype
-    tol = 2e-5 if dtype == torch.float32 else 2 * bf16_ulp(
-        want.abs().max().item())
-    assert (out.float() - want).abs().max().item() <= tol
-    assert (out.float() * FAULT_SCALE - want).abs().max().item() > tol
-    if lse:
-        assert _rel_err(got[1], want_lse) <= 1e-4
-        assert _rel_err(got[1] * FAULT_SCALE, want_lse) > 1e-4
+    """The d = 16 forward on wgmma (fp32: flash_fwd_d16_split, then
+    flash_fwd_d16, 3xTF32; bf16: flash_fwd_d16_bf16) with and without lse,
+    as the d = 64 and 512 kernels below: one launch a call, the same bits
+    on a second, the output within 2e-5 (fp32) or two bf16 ulps of
+    max|plain| (bf16) of the plain version's unrounded fp32 result (and, in
+    bf16, of its bf16 output), the lse within 1e-4 of max; a planted x1.05
+    fault reads beyond each limit."""
+    _check_hopper_forward(cuda, shape, dtype, lse)
+
+
+def test_flash_d16_fp32_forward_error_is_flat_in_l(cuda):
+    """Each 64-key tile's P V sums from zero on wgmma and joins the output
+    by one fma: against float64 on the same fp32 inputs, the output's
+    largest error at L = 8192 is at most twice that at L = 1024 and below
+    chip_smoke.py's FWD16_F64_TOL (4e-6)."""
+    reads = {}
+    for seq in (1024, 8192):
+        q, k, v = (_rand((1, seq, 4, 16), torch.float32, cuda, s)
+                   for s in range(3))
+        want = flash_attention_plain(*(x.double() for x in (q, k, v)))
+        reads[seq] = (flash_attention(q, k, v).double() - want).abs().max().item()
+    assert reads[8192] <= 2 * reads[1024] and reads[8192] < 4e-6, reads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_d16_launches_from_a_fresh_thread(cuda, dtype):
+    """The d = 16 forward encodes its bf16 TMA tensor maps and allocates
+    its fp32 scratch per call: a new thread's first launch gives the main
+    thread's bits, with and without lse."""
+    q, k, v = (_rand((2, 1000, 3, 16), dtype, cuda, s) for s in range(3))
+    want = (flash_attention(q, k, v), *flash_attention_lse(q, k, v))
+    got, errors = [], []
+
+    def body():
+        try:
+            got.append((flash_attention(q, k, v),
+                        *flash_attention_lse(q, k, v)))
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 (reported below)
+            errors.append(exc)
+
+    thread = threading.Thread(target=body)
+    thread.start()
+    thread.join()
+    assert not errors, errors
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want))
+
+
+def test_flash_d16_fp32_needs_its_scratch(cuda):
+    """The fp32 d = 16 call asks for its scratch (every (b, h, 64-key
+    tile)'s 16 KB operand image) and refuses a launch without it; other
+    head dims and bf16 take none."""
+    from rdeic_torch.ops.flash_attention import _fwd_library
+
+    lib = _fwd_library()
+    assert lib.rdeic_flash_attn_fwd_scratch_bytes(1, 6144, 4, 16, 0) == \
+        4 * 96 * 16384
+    assert lib.rdeic_flash_attn_fwd_scratch_bytes(2, 1000, 3, 16, 0) == \
+        6 * 16 * 16384
+    for d, dtype in ((16, 1), (64, 0), (512, 0)):
+        assert lib.rdeic_flash_attn_fwd_scratch_bytes(1, 1024, 2, d, dtype) == 0
+    q, k, v = (_rand((1, 200, 2, 16), torch.float32, cuda, s) for s in range(3))
+    o = torch.empty_like(q)
+    err = lib.rdeic_flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, 1, 200,
+        2, 16, 0, 0.25, torch.cuda.current_stream().cuda_stream, None)
+    assert err != 0
 
 
 @pytest.mark.parametrize("lse", [False, True])
 @pytest.mark.parametrize("shape", BF16_FWD_SHAPES)
 def test_flash_bf16_forward_kernels(cuda, shape, lse):
     """flash_fwd_d16_bf16, flash_fwd_d64_bf16 and flash_fwd_d512_bf16 (bf16
-    mma.sync), with and without lse: one launch a call; the output within two bf16 ulps of
+    wgmma), with and without lse: one launch a call; the output within two bf16 ulps of
     max|plain| of the plain version's bf16 output and of its unrounded fp32
     result; the lse within 1e-4 of max; a planted x1.05 fault reads beyond
     each limit; a second launch gives the same bits."""

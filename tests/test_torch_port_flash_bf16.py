@@ -46,9 +46,10 @@ from tests.torch_port_tf32 import (
 )
 
 # per head dim: (q rows a block, keys a tile, d-slices that sum S apart);
-# d = 64: two consumer warpgroups of 64 q rows, 128-key TMA tiles; d = 512:
-# two consumer warpgroups splitting d, 32-key TMA tiles
-TILES = {16: (64, 128, 1), 64: (128, 128, 1), 512: (64, 32, 2)}
+# d = 16: a consumer warpgroup of 64 q rows, 64-key TMA tiles; d = 64: two
+# consumer warpgroups of 64 q rows, 128-key TMA tiles; d = 512: two
+# consumer warpgroups splitting d, 32-key TMA tiles
+TILES = {16: (64, 64, 1), 64: (128, 128, 1), 512: (64, 32, 2)}
 NEG = -1e30
 FAULT_SCALE = 1.05
 LIMIT = 2.0  # the card's limit on the output: two bf16 ulps of max|plain|

@@ -44,8 +44,8 @@ from tests.test_torch_port_flash_bwd_d64_bf16 import (
     backward_bf16_tiles,
     scores_bf16,
 )
-from tests.test_torch_port_flash_d16_bf16 import _banks, _lane16, _swizzled_byte
 from tests.torch_port_tf32 import (
+    banks,
     bf16_round,
     bf16_truncate,
     one_torch_thread,  # noqa: F401 (an autouse fixture)
@@ -55,6 +55,26 @@ from tests.torch_port_tf32 import (
 D = 16
 BT, BS, KC, NT = 64, 128, 32, 128  # d16_bf16:: kept, streamed, chunk, threads
 ROW_BYTES = 2 * D
+
+
+def _swizzled_byte(r, c):
+    """Byte address of chunk c (8 bf16 values) of row r of a d = 16 tile
+    (flash_bf16.cuh: chunk c of row r at c ^ ((r >> 2) & 1))."""
+    return r * ROW_BYTES + ((c ^ ((r >> 2) & 1)) << 4)
+
+
+def _lane16(lane):
+    """flash_bf16.cuh `Lane16`: the byte offsets of the lane's ldmatrix row
+    at a corner, for A (and B with .trans) and for B without .trans."""
+    sw = (lane >> 2) & 1
+    a = (((lane & 7) + ((lane >> 3) & 1) * 8) << 5) + (((lane >> 4) ^ sw) << 4)
+    b = (((lane & 7) + (lane >> 4) * 8) << 5) + ((((lane >> 3) & 1) ^ sw) << 4)
+    return a, b
+
+
+def _banks(byte_addrs):
+    """The 4-byte banks of 16-byte chunks at these byte addresses."""
+    return sorted(banks([a // 4 + w for a in byte_addrs for w in range(4)]))
 # d16_bf16::kDqSmemBytes (Q, dO, O, three K / V pairs) and kDkvSmemBytes
 # (K, V, three Q / dO pairs, their rows' lse2 and di scale)
 DQ_SMEM = 3 * BT * ROW_BYTES + 6 * BS * ROW_BYTES

@@ -8,11 +8,11 @@ kernels and to the plain versions (`tests/test_torch_port_tf32_split.py`,
 `tests/test_torch_port_flash_bwd_d16_bf16.py`):
 TF32 rounding and the 3xTF32 split of `rdeic_torch/csrc/flash_mma.cuh`,
 bf16 rounding and truncation, `mma.sync`'s rounding toward zero (TF32 and
-bf16 products), `wgmma`'s rounding as the card shows it (the d = 64
-kernels), 3xTF32 over the d = 64 backward's 32-row streamed tiles, and the
-shared-memory banks that a
-fragment read touches; and `one_torch_thread`, the fixture these files
-run under.
+bf16 products), `wgmma`'s rounding as the card shows it (the Hopper
+kernels), 3xTF32 over the d = 64 backward's 32-row streamed tiles, the
+addresses `wgmma` reads in the 128-, 64- and 32-byte swizzles, and the
+shared-memory banks that a fragment read touches; and `one_torch_thread`,
+the fixture these files run under.
 """
 import numpy as np
 import pytest
@@ -244,14 +244,24 @@ def swizzle128(r: int, b: int) -> int:
     return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15)
 
 
-def wgmma_reads(start: int, row: int, byte: int) -> int:
+def wgmma_reads(start: int, row: int, byte: int, row_bytes: int = 128) -> int:
     """The shared-memory byte that `wgmma` reads for (row, byte) of an
     operand whose descriptor starts at `start` (1024-aligned atoms plus the
-    step's offset): the canonical address, rows 128 bytes apart and groups
-    of 8 rows 1024 apart (the stride byte offset), with address bits 4-6
-    XOR-ed by bits 7-9 (layout type 1, the 128-byte swizzle)."""
-    a = start + (row // 8) * 1024 + (row % 8) * 128 + byte
-    return a ^ (((a >> 7) & 7) << 4)
+    step's offset): the canonical address, rows `row_bytes` apart and
+    groups of 8 rows 8 `row_bytes` apart (the stride byte offset), with
+    address bits 4.. XOR-ed by bits 7.. (layout type 1, the 128-byte
+    swizzle: 3 bits; 2, the 64-byte: 2; 3, the 32-byte: 1). For a K-major
+    operand a row is an M or N index and `byte` runs along K; for an
+    MN-major one a row is a K index and `byte` runs along MN."""
+    a = start + (row // 8) * 8 * row_bytes + (row % 8) * row_bytes + byte
+    return a ^ (((a >> 7) & (row_bytes // 16 - 1)) << 4)
+
+
+def swizzled(a: int, row_bytes: int) -> int:
+    """flash_hopper.cuh `swizzled`: where a 1024-aligned tile of
+    `row_bytes`-wide rows keeps the byte of dense offset `a` (TMA's 128-,
+    64- and 32-byte swizzles)."""
+    return a ^ (((a >> 7) & (row_bytes // 16 - 1)) << 4)
 
 
 # -- the d = 64 backward's streamed tiles --------------------------------------
